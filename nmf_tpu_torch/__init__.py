@@ -1,0 +1,42 @@
+"""nmf_tpu_torch — the PyTorch / CUDA port of ``nmf_tpu`` for NVIDIA Hopper.
+
+KL-divergence Lee-Seung multiplicative updates with the reference's
+semantics (``recoord/nmf-gpu``), byte-compatible ``.bin`` I/O and the
+fixed-iteration determinism contract.  The update and cost hot path runs in
+hand-written CUDA kernels (``csrc/fused_mu.cu``) on CUDA tensors and in
+plain torch ops on CPU tensors.  Imports torch and NumPy, never JAX.
+
+Quick start::
+
+    import nmf_tpu_torch as nt
+    res = nt.solve(X, W0, H0, nt.reference_preset(), device="cuda")
+    nt.write_matrix(res.w.cpu().numpy(), "Wout.bin")
+"""
+
+from .io import fixtures
+from .io.binio import read_matrix, write_matrix
+from .models.solver import SolveResult, solve
+from .ops.divergence import kl_divergence
+from .ops.elementwise import EPS, eps_clamp
+from .ops.mu import mu_step, update_h, update_w
+from .utils.config import Precision, SolveConfig, reference_preset
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "read_matrix",
+    "write_matrix",
+    "fixtures",
+    "EPS",
+    "eps_clamp",
+    "kl_divergence",
+    "mu_step",
+    "update_h",
+    "update_w",
+    "solve",
+    "SolveResult",
+    "SolveConfig",
+    "Precision",
+    "reference_preset",
+    "__version__",
+]

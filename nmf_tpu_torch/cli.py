@@ -1,0 +1,201 @@
+"""Command-line interface of the PyTorch port (``run``, ``gen``, ``info``).
+
+    python -m nmf_tpu_torch run X.bin W.bin H.bin -o Wout.bin Hout.bin   # on the card
+    python -m nmf_tpu_torch run X.bin --rank 32 --init random --device cpu
+    python -m nmf_tpu_torch gen ./fixtures        # seed-0 reference fixtures
+    python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
+
+The flags mirror ``python -m nmf_tpu``.  Every other ``run`` flag of the JAX
+CLI is parsed and refused with exit code 2, naming the ROADMAP.md item that
+will bring it: a flag is never silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from .io import binio, fixtures
+from .models.init import random_init
+from .models.solver import solve
+from .utils.config import SolveConfig
+from .utils.device import resolve_device
+from .utils.metrics import MetricsLogger
+
+# JAX-CLI run flags not in the port yet: flag -> (argparse kwargs, where the
+# work is queued in ROADMAP.md).
+_LATER = {
+    "--mask": ({}, "Queue 1: model families (masked solver)"),
+    "--online": ({"action": "store_const", "const": True}, "Queue 1: model families (online NMF)"),
+    "--online-passes": ({"type": int}, "Queue 1: model families (online NMF)"),
+    "--online-rho": ({"type": float}, "Queue 1: model families (online NMF)"),
+    "--online-inner-iters": ({"type": int}, "Queue 1: model families (online NMF)"),
+    "--freeze": ({"type": int}, "Queue 1: model families (semi-adaptive NMF)"),
+    "--restarts": ({"type": int}, "Queue 1: selection and batched solves"),
+    "--beta": ({"type": float}, "Queue 1: ops (beta family)"),
+    "--algorithm": ({}, "Queue 1: ops (HALS)"),
+    "--accelerate": ({"action": "store_const", "const": True}, "Queue 1: accel loop"),
+    "--l1-w": ({"type": float}, "Queue 1: ops (penalized MU)"),
+    "--l1-h": ({"type": float}, "Queue 1: ops (penalized MU)"),
+    "--l2-w": ({"type": float}, "Queue 1: ops (penalized MU)"),
+    "--l2-h": ({"type": float}, "Queue 1: ops (penalized MU)"),
+    "--dtype": ({}, "Queue 2: precision tiers and K1/K2 modes"),
+    "--x-dtype": ({}, "Queue 2: precision tiers and K1/K2 modes"),
+    "--x-quant-rows": ({"type": int}, "Queue 2: precision tiers and K1/K2 modes"),
+    "--backend": ({}, "Queue 1: backend rules and autotune"),
+    "--no-cost": ({"action": "store_const", "const": True}, "Queue 1: remaining CLI"),
+    "--live": ({"action": "store_const", "const": True}, "Queue 1: utils (live metrics)"),
+    "--validate": ({"action": "store_const", "const": True}, "Queue 1: utils (guards)"),
+    "--mesh": ({}, "Queue 1: sharded solves"),
+    "--checkpoint-dir": ({}, "Queue 1: utils (checkpoint)"),
+    "--checkpoint-every": ({"type": int}, "Queue 1: utils (checkpoint)"),
+    "--out-of-core": ({"action": "store_const", "const": True}, "Queue 1: streaming"),
+    "--block-n": ({"type": int}, "Queue 1: streaming"),
+    "--strict-compat": ({"action": "store_const", "const": True}, "Queue 1: strict.py"),
+}
+
+
+def _dest(flag: str) -> str:
+    return flag.lstrip("-").replace("-", "_")
+
+
+def _refused(args) -> list:
+    return [
+        f"{flag} (ROADMAP.md {where})"
+        for flag, (_, where) in _LATER.items()
+        if getattr(args, _dest(flag)) is not None
+    ]
+
+
+def cmd_run(args) -> int:
+    refused = _refused(args)
+    if refused:
+        print(
+            "error: not in the PyTorch port yet: " + "; ".join(refused),
+            file=sys.stderr,
+        )
+        return 2
+    dev = resolve_device(args.device)  # a missing card fails before any I/O
+    x = binio.read_matrix(args.X)
+    if bool(args.W) != bool(args.H):
+        print(
+            "error: provide BOTH initial W and H files, or neither plus "
+            "--rank (a lone init file would otherwise be silently ignored)",
+            file=sys.stderr,
+        )
+        return 2
+    if args.W and args.H:
+        w0 = binio.read_matrix(args.W)
+        h0 = binio.read_matrix(args.H)
+    elif args.rank:
+        if args.init != "random":
+            print(
+                f"error: --init {args.init or 'nndsvda (the default)'} is not "
+                "in the PyTorch port yet (ROADMAP.md Queue 1: model families); "
+                "pass --init random",
+                file=sys.stderr,
+            )
+            return 2
+        m, n = x.shape
+        w0, h0 = random_init(m, args.rank, n, seed=args.seed)
+    else:
+        print("error: provide W and H files, or --rank for generated init", file=sys.stderr)
+        return 2
+
+    config = SolveConfig(
+        max_iter=args.max_iter, thresh=args.thresh, check_every=args.check_every
+    )
+    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    with logger.timed() as t:
+        res = solve(x, w0, h0, config, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # time the run, not its enqueue
+    logger.report(res, x.shape, t.seconds, check_every=config.check_every)
+    w_out, h_out = res.w.cpu().numpy(), res.h.cpu().numpy()
+    w_path, h_path = args.output
+    binio.write_matrix(w_out, w_path)
+    binio.write_matrix(h_out, h_path)
+    if not args.quiet:
+        print(f"[nmf] wrote {w_path} {w_out.shape}, {h_path} {h_out.shape}", file=sys.stderr)
+    return 0
+
+
+def cmd_gen(args) -> int:
+    for path in fixtures.write_reference_fixtures(args.directory).values():
+        print(f"wrote {path}")
+    return 0
+
+
+def cmd_info(args) -> int:
+    for path in args.files:
+        a = binio.read_matrix(path)
+        print(
+            f"{path}: {a.shape[0]}x{a.shape[1]} f32, "
+            f"min {a.min():.6g} max {a.max():.6g} mean {a.mean():.6g}"
+        )
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="nmf_tpu_torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    run = sub.add_parser("run", help="factorize X ~= W @ H")
+    run.add_argument("X", help="input matrix .bin")
+    run.add_argument("W", nargs="?", help="initial W .bin (optional with --rank)")
+    run.add_argument("H", nargs="?", help="initial H .bin (optional with --rank)")
+    run.add_argument(
+        "-o", "--output", nargs=2, metavar=("WOUT", "HOUT"),
+        default=("Wout.bin", "Hout.bin"),
+        help="output paths (default: Wout.bin Hout.bin, as the reference)",
+    )
+    run.add_argument("--rank", "-k", type=int, help="rank for generated init")
+    run.add_argument(
+        "--init", choices=["random", "scaled", "nndsvd", "nndsvda", "nndsvdar"],
+        default=None, help="init strategy with --rank (the port has 'random')",
+    )
+    run.add_argument("--seed", type=int, default=0)
+    run.add_argument("--max-iter", type=int, default=200, help="MAX_ITER (nmf.cu:10)")
+    run.add_argument(
+        "--thresh", type=float, default=0.0,
+        help="relative cost-change convergence threshold; 0 = exactly "
+        "max-iter iterations (CONVERGE_THRESH, nmf.cu:11)",
+    )
+    run.add_argument("--check-every", type=int, default=25, help="ITER_CHECK (nmf.cu:9)")
+    run.add_argument("--jsonl", help="append run metrics to this JSONL file")
+    run.add_argument("--quiet", "-q", action="store_true")
+    run.add_argument(
+        "--device", default="cuda",
+        help="torch device: cuda (default; raises without a card) or cpu",
+    )
+    for flag, (kw, where) in _LATER.items():
+        run.add_argument(flag, default=None, help=f"not ported yet ({where})", **kw)
+    run.set_defaults(fn=cmd_run)
+
+    gen = sub.add_parser("gen", help="write the seed-0 reference fixtures")
+    gen.add_argument("directory")
+    gen.set_defaults(fn=cmd_gen)
+
+    info = sub.add_parser("info", help="describe .bin files")
+    info.add_argument("files", nargs="+")
+    info.set_defaults(fn=cmd_info)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        return args.fn(args)
+    except FileNotFoundError as e:
+        print(f"error: file not found: {e.filename or e}", file=sys.stderr)
+        return 2
+    except (NotImplementedError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,290 @@
+"""Wrappers of the fused multiplicative-update kernels K1-K3 (``csrc/fused_mu.cu``).
+
+Counterpart of ``nmf_tpu.ops.pallas.fused_mu``: the same functions and
+results, computed on Hopper by hand-written CUDA kernels instead of Pallas.
+
+* ``update_h_fused`` (K1) and ``update_w_fused`` (K2): one half-update each,
+  without materialising ``W@H`` or ``X / W@H`` in device memory.
+* ``kl_cost_fused`` (K3): the KL cost, reduced tile by tile.
+
+Each wrapper takes its plain version (:mod:`nmf_tpu_torch.ops.mu`,
+:mod:`nmf_tpu_torch.ops.divergence`) only when its tensors lie on the CPU.
+For CUDA tensors it launches the kernel or raises: there is no fallback on a
+failed build or launch.  Above the rank ceiling (:func:`supported`) both
+packages send the call to the plain ops by design; those calls are counted
+in ``PLAIN_CALLS``, apart from the kernel launches in ``LAUNCHES``.
+
+Modes of the TPU kernels not ported yet raise ``NotImplementedError``:
+bf16 state or X, int8 codes, ``numerator_only`` and ``float32_fast``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from ...utils.config import Precision
+from ..divergence import kl_divergence
+from ..elementwise import EPS, eps_clamp
+from ..mu import update_h, update_w
+
+__all__ = [
+    "LAUNCHES",
+    "PLAIN_CALLS",
+    "MAX_FUSED_K",
+    "reset_counts",
+    "supported",
+    "plan_split",
+    "update_h_fused",
+    "update_w_fused",
+    "mu_step_fused",
+    "kl_cost_fused",
+]
+
+# Launches of each kernel on the card (one per wrapper call that launched),
+# and calls sent to the plain ops on the card by the rank rule.
+LAUNCHES: Dict[str, int] = {"update_h": 0, "update_w": 0, "kl_cost": 0}
+PLAIN_CALLS: Dict[str, int] = {"update_h": 0, "update_w": 0, "kl_cost": 0}
+
+# Largest rank the fused path takes, as in nmf_tpu (fused_mu.py:63).  Up to
+# it the kernels chunk K by MAX_CHUNK and recompute W@H per chunk.
+MAX_FUSED_K = 2048
+TILE = 64          # output/recon tile edge of csrc/fused_mu.cu
+MAX_CHUNK = 256    # widest K chunk a block accumulates
+# Blocks the split planner aims for: 4 per SM of a 132-SM H100.  A fixed
+# number, not read from the card, so the split (and so the bits of every
+# result) depends on the shape alone.
+TARGET_BLOCKS = 4 * 132
+
+
+def reset_counts() -> None:
+    """Set every launch and plain-call count to 0."""
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for key in d:
+            d[key] = 0
+
+
+def supported(k=None) -> bool:
+    """Whether the fused kernels take rank ``k`` (the JAX rank rule)."""
+    return k is None or k <= MAX_FUSED_K
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chunk_width(k: int) -> int:
+    """K chunk one block accumulates: the smallest of 16, 32, ..., 256 that
+    covers ``k``, or 256 (and several chunks) above that."""
+    kc = 16
+    while kc < k and kc < MAX_CHUNK:
+        kc *= 2
+    return kc
+
+
+def plan_split(out_tiles: int, k_chunks: int, walk_tiles: int) -> Tuple[int, int]:
+    """Split the contraction walk (M tiles for K1, N tiles for K2) across
+    blocks: returns ``(splits, tiles_per_split)``.
+
+    Enough splits that about ``TARGET_BLOCKS`` blocks run, each over an
+    equal run of tiles, every split non-empty.
+    """
+    base = out_tiles * k_chunks
+    want = min(walk_tiles, max(1, _cdiv(TARGET_BLOCKS, base)))
+    per = _cdiv(walk_tiles, want)
+    return _cdiv(walk_tiles, per), per
+
+
+def _require_modes(precision: Precision, x, numerator_only: bool = False) -> None:
+    if isinstance(x, tuple):
+        raise NotImplementedError(
+            "int8 X (codes, scales) is not in the CUDA kernels yet "
+            "(ROADMAP.md Queue 2: K1/K2 modes)"
+        )
+    if numerator_only:
+        raise NotImplementedError(
+            "numerator_only is not in the CUDA kernels yet (ROADMAP.md "
+            "Queue 2: K1/K2 modes; the sharded solver needs it)"
+        )
+    if not precision.all_f32:
+        raise NotImplementedError(
+            f"{precision} is not in the CUDA kernels yet: only all-float32 "
+            "(ROADMAP.md Queue 2: bf16, int8 and split3 modes)"
+        )
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU (plain version); False when
+    every operand lies on one CUDA device (kernel); raises otherwise."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def _check_cuda_operands(w, h, x) -> Tuple[int, int, int]:
+    for name, t in (("w", w), ("h", h), ("x", x)):
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{name} is {t.dtype}; the CUDA kernels take float32 only"
+            )
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (row-major)")
+    m, k = w.shape
+    k2, n = h.shape
+    if k2 != k or tuple(x.shape) != (m, n):
+        raise ValueError(
+            f"shape mismatch: X{tuple(x.shape)} vs W{tuple(w.shape)} @ H{tuple(h.shape)}"
+        )
+    if min(m, n, k) < 1:
+        raise ValueError(f"empty operand: m={m} n={n} k={k}")
+    if max(m * n, m * k, k * n) >= 2**31:
+        raise ValueError("operands above 2**31 elements are not supported")
+    return m, n, k
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The loaded kernel library, its tile constants checked once."""
+    from ._build import load_library
+
+    lib = load_library()
+    if lib.nmf_tile() != TILE or lib.nmf_max_chunk() != MAX_CHUNK:
+        raise RuntimeError("csrc/fused_mu.cu tile constants differ from the planner's")
+    return lib
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.nmf_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def _index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _update_fused(kind: str, w, h, x, eps, precision, numerator_only):
+    _require_modes(precision, x, numerator_only)
+    plain = update_h if kind == "update_h" else update_w
+    if _on_cpu(w, h, x):
+        return plain(w, h, x, eps, precision)
+    m, n, k = _check_cuda_operands(w, h, x)
+    if not supported(k):
+        # the documented rank rule of nmf_tpu (fused_mu.py:305-313), not a
+        # path taken on failure
+        PLAIN_CALLS[kind] += 1
+        return plain(w, h, x, eps, precision)
+    kc = chunk_width(k)
+    chunks = _cdiv(k, kc)
+    m_tiles, n_tiles = _cdiv(m, TILE), _cdiv(n, TILE)
+    if kind == "update_h":
+        # column sums outside the kernel, as the JAX wrapper takes them
+        # (nmf_tpu fused_mu.py:319)
+        denom = eps_clamp(torch.sum(w, dim=0), eps)
+        splits, per = plan_split(n_tiles, chunks, m_tiles)
+        part = torch.empty((splits, k, n), dtype=torch.float32, device=w.device)
+        out = torch.empty_like(h)
+    else:
+        denom = eps_clamp(torch.sum(h, dim=1), eps)       # (fused_mu.py:444)
+        splits, per = plan_split(m_tiles, chunks, n_tiles)
+        part = torch.empty((splits, m, k), dtype=torch.float32, device=w.device)
+        out = torch.empty_like(w)
+    lib = _lib()
+    fn = lib.nmf_h_update if kind == "update_h" else lib.nmf_w_update
+    rc = fn(
+        w.data_ptr(), h.data_ptr(), x.data_ptr(), denom.data_ptr(),
+        part.data_ptr(), out.data_ptr(), m, n, k, kc, splits, per,
+        float(eps), _index(w), _stream(w),
+    )
+    _raise_on(lib, rc, kind)
+    LAUNCHES[kind] += 1
+    return out
+
+
+def update_h_fused(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+    numerator_only: bool = False,
+) -> torch.Tensor:
+    """Fused H half-update (nmf.cu:118-146), kernel K1.
+
+    ``H * (W^T (X / max(W H, eps))) / max(colsum W, eps)[:, None]``, the
+    product taken as the TPU kernel takes it: ``h * acc / sum_w``.
+    """
+    return _update_fused("update_h", w, h, x, eps, precision, numerator_only)
+
+
+def update_w_fused(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+    numerator_only: bool = False,
+) -> torch.Tensor:
+    """Fused W half-update (nmf.cu:148-176), kernel K2; ``h`` is the new H."""
+    return _update_fused("update_w", w, h, x, eps, precision, numerator_only)
+
+
+def mu_step_fused(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full fused MU iteration: drop-in for :func:`ops.mu.mu_step`."""
+    h = update_h_fused(w, h, x, eps, precision)
+    w = update_w_fused(w, h, x, eps, precision)
+    return w, h
+
+
+def kl_cost_fused(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    h: torch.Tensor,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+) -> torch.Tensor:
+    """KL divergence D(X || max(W H, eps)) with W H kept on chip, kernel K3.
+
+    Returns a 0-dim f32 tensor on the operands' device.  The reconstruction
+    is true f32, as under both f32 policies of the TPU kernel
+    (nmf_tpu fused_mu.py:586-591).
+    """
+    _require_modes(precision, x)
+    if _on_cpu(w, h, x):
+        return kl_divergence(x, w, h, eps)
+    m, n, k = _check_cuda_operands(w, h, x)
+    if not supported(k):
+        PLAIN_CALLS["kl_cost"] += 1
+        return kl_divergence(x, w, h, eps)
+    partials = torch.empty(
+        (_cdiv(m, TILE) * _cdiv(n, TILE),), dtype=torch.float32, device=w.device
+    )
+    out = torch.empty((), dtype=torch.float32, device=w.device)
+    lib = _lib()
+    rc = lib.nmf_kl_cost(
+        w.data_ptr(), h.data_ptr(), x.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), m, n, k, float(eps), _index(w), _stream(w),
+    )
+    _raise_on(lib, rc, "kl_cost")
+    LAUNCHES["kl_cost"] += 1
+    return out

@@ -1,0 +1,184 @@
+"""The port's CLI (``python -m nmf_tpu_torch``) on the CPU, and its imports.
+
+The end-to-end case runs the CLI in a subprocess (one torch thread) and
+holds its output files to an in-process ``nmf_tpu.solve`` with the solver
+tolerances of tests/test_torch_solver.py: factors rtol 1e-4 / atol 1e-6.
+"""
+
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import nmf_tpu as jt  # noqa: E402
+from nmf_tpu.io import binio as jbin  # noqa: E402
+from nmf_tpu_torch import cli  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "nmf_tpu_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "1"  # the suite runs several workers
+    return env
+
+
+def _port(*args, cwd):
+    return subprocess.run(
+        [sys.executable, "-m", "nmf_tpu_torch", *args], cwd=cwd, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_gen_then_run_matches_jax(tmp_path):
+    gen = _port("gen", ".", cwd=tmp_path)
+    assert gen.returncode == 0, gen.stderr
+    run = _port("run", "X.bin", "W.bin", "H.bin", "-o", "Wout.bin", "Hout.bin",
+                "--device", "cpu", "--max-iter", "50", "-q", "--jsonl", "run.jsonl",
+                cwd=tmp_path)
+    assert run.returncode == 0, run.stderr
+    assert run.stderr == ""  # -q
+    w_out = jbin.read_matrix(tmp_path / "Wout.bin")
+    h_out = jbin.read_matrix(tmp_path / "Hout.bin")
+    x, w, h = (jbin.read_matrix(tmp_path / f"{s}.bin") for s in "XWH")
+    ref = jt.solve(x, w, h, jt.SolveConfig(max_iter=50))
+    np.testing.assert_allclose(w_out, np.asarray(ref.w), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(h_out, np.asarray(ref.h), rtol=1e-4, atol=1e-6)
+    rec = json.loads((tmp_path / "run.jsonl").read_text().splitlines()[-1])
+    assert (rec["m"], rec["k"], rec["n"]) == (4096, 128, 350)
+    assert rec["iterations"] == 50 and [c["iteration"] for c in rec["checks"]] == [25, 50]
+    assert rec["final_cost"] == pytest.approx(float(ref.cost), rel=1e-5)
+
+
+def test_run_with_random_init(tmp_path):
+    x = np.random.RandomState(2).rand(40, 30).astype(np.float32)
+    jbin.write_matrix(x, tmp_path / "X.bin")
+    rc = cli.main(["run", str(tmp_path / "X.bin"), "--rank", "4", "--init", "random",
+                   "--seed", "3", "--device", "cpu", "--max-iter", "20", "-q",
+                   "-o", str(tmp_path / "W.bin"), str(tmp_path / "H.bin")])
+    assert rc == 0
+    from nmf_tpu.models.init import random_init
+
+    w0, h0 = random_init(40, 4, 30, seed=3)
+    ref = jt.solve(x, w0, h0, jt.SolveConfig(max_iter=20))
+    np.testing.assert_allclose(jbin.read_matrix(tmp_path / "W.bin"), np.asarray(ref.w),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--mask", "X.bin"],
+        ["--accelerate"],
+        ["--dtype", "bfloat16"],
+        ["--x-dtype", "int8"],
+        ["--backend", "jnp"],
+        ["--mesh", "2x1"],
+        ["--no-cost"],
+        ["--beta", "2"],
+        ["--checkpoint-dir", "ckpt"],
+        ["--strict-compat"],
+        ["--out-of-core"],
+        ["--restarts", "4"],
+    ],
+)
+def test_refused_flag_exits_2(capsys, flags):
+    rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert flags[0] in err and "ROADMAP.md" in err
+
+
+def test_every_jax_run_flag_is_known():
+    """Each flag of the JAX CLI's run is either supported or refused."""
+    from nmf_tpu.cli import build_parser as jax_parser
+
+    def run_flags(parser):
+        sub = next(a for a in parser._actions if a.dest == "command")
+        return {o for a in sub.choices["run"]._actions for o in a.option_strings}
+
+    ours = run_flags(cli.build_parser())
+    assert run_flags(jax_parser()) <= ours
+    assert "--device" in ours
+
+
+def test_rank_without_random_init_exits_2(tmp_path, capsys):
+    x = np.ones((6, 5), np.float32)
+    jbin.write_matrix(x, tmp_path / "X.bin")
+    rc = cli.main(["run", str(tmp_path / "X.bin"), "--rank", "2", "--device", "cpu"])
+    assert rc == 2
+    assert "--init random" in capsys.readouterr().err
+
+
+def test_lone_init_file_exits_2(tmp_path, capsys):
+    jbin.write_matrix(np.ones((6, 5), np.float32), tmp_path / "X.bin")
+    jbin.write_matrix(np.ones((6, 2), np.float32), tmp_path / "W.bin")
+    rc = cli.main(["run", str(tmp_path / "X.bin"), str(tmp_path / "W.bin"), "--device", "cpu"])
+    assert rc == 2
+    assert "BOTH" in capsys.readouterr().err
+
+
+def test_missing_input_exits_2(tmp_path, capsys):
+    rc = cli.main(["run", str(tmp_path / "nope.bin"), "--rank", "2", "--init", "random",
+                   "--device", "cpu"])
+    assert rc == 2
+    assert "file not found" in capsys.readouterr().err
+
+
+def test_cuda_run_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main(["run", str(tmp_path / "X.bin"), str(tmp_path / "W.bin"),
+                  str(tmp_path / "H.bin")])
+
+
+def test_info_prints_shapes(tmp_path, capsys):
+    jbin.write_matrix(np.full((3, 7), 2.0, np.float32), tmp_path / "A.bin")
+    assert cli.main(["info", str(tmp_path / "A.bin")]) == 0
+    out = capsys.readouterr().out
+    assert "3x7 f32" in out and "mean 2" in out
+
+
+def test_gen_writes_reference_fixtures(tmp_path, capsys):
+    assert cli.main(["gen", str(tmp_path)]) == 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["H.bin", "W.bin", "X.bin"]
+    assert (tmp_path / "X.bin").stat().st_size == 8 + 4096 * 350 * 4
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, nmf_tpu_torch, nmf_tpu_torch.cli, nmf_tpu_torch.utils.convert, "
+        "nmf_tpu_torch.utils.metrics, nmf_tpu_torch.ops.kernels.fused_mu, "
+        "nmf_tpu_torch.ops.kernels._build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nmf_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_never_import_jax_or_the_jax_package():
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|nmf_tpu)(\.|\s|,|$)")
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            assert not banned.match(line), f"{path}: {line}"
+
+
+def test_kernel_path_has_no_fallback_handler():
+    """No ``except`` on the CUDA path: a failed build or launch raises."""
+    for rel in ("ops/kernels/fused_mu.py", "ops/kernels/_build.py", "models/solver.py"):
+        src = (PKG / rel).read_text()
+        assert "except" not in src, rel
