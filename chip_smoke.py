@@ -1,29 +1,50 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``nmf_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py                     # from the root of a checkout
+    python3 chip_smoke.py --phases card,kernels,modes,quant   # a subset
 
-Five phases, in order; any failure raises and the exit code is non-zero:
+Seven phases, in order; any failure raises and the exit code is non-zero:
 
-1. the card: assert CUDA, read the card's name and power limit, build the
+1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed);
-2. kernels: K1-K3 against their plain torch versions on the card at the
-   reference, ISMIR and paper shapes (factors rtol 1e-4 / atol 1e-6, cost
-   rel 1e-5), bitwise-equal on a second call, each timed beside its plain
-   version with CUDA events (median of 10 samples of 10 back-to-back calls,
-   in turns plain, kernel, kernel, plain); then checked only at K = 8, 64,
-   300 and 2048 (every K chunk width, several chunks), and K > 2048 shown to
-   take the plain ops by the rank rule;
-3. the reference pipeline through the CLI, as subprocesses: ``gen`` then
-   ``run X.bin W.bin H.bin -o Wout.bin Hout.bin --jsonl run.jsonl``;
-   200 iterations, 8 strictly decreasing checks, final cost within 1e-4
-   of 96689.73, ``Wout.bin`` of 8 + 4096*128*4 bytes;
-4. the same pipeline in-process through ``solve``: exactly 200/200/8
-   launches of K1/K2/K3, and byte-identical factors on a second run and
-   against the CLI's output files;
-5. the flagship size 10240 x 10240, K=256, f32, 50 iterations, through the
-   kernels and through plain torch ops (cuBLAS f32): final costs agree to
-   1e-4 relative; iterations/s and TFLOP/s for both.
+2. kernels: K1-K3 in float32 against their plain torch versions on the card
+   at the reference, ISMIR and paper shapes (factors rtol 1e-4 / atol 1e-6,
+   cost rel 1e-5), bitwise-equal on a second call, each timed beside its
+   plain version with CUDA events (median of 10 samples of 10 back-to-back
+   calls, in turns plain, kernel, kernel, plain); then checked only at
+   K = 8, 64, 300 and 2048 (every K chunk width, several chunks), and
+   K > 2048 shown to take the plain ops by the rank rule;
+3. modes: each precision mode of K1-K3 (``bfloat16``, ``float32_fast``,
+   bf16 X, int8 X, and ``BF16_FULL`` with bf16 state) against its plain
+   version on the card at the reference shape (timed as in phase 2) and at
+   K = 8, 300 and 2048, bitwise-equal on a rerun, within ``MODE_LIMITS``.
+   Where a mode rounds or splits the GEMM operands (``bfloat16``,
+   ``float32_fast``, bf16 state), the same kernel without the rounding (f32
+   GEMMs) is run as a control on the same operands and must fail the
+   limits, so a kernel that skipped it could not pass; the W and H of
+   ``bfloat16`` and ``float32_fast`` are built so that skipping it biases
+   every sum one way;
+4. quant: the quantizer on the card gives the codes and scales of
+   ``quantize_columns_np`` byte for byte on the reference X, and those of
+   ``quantize_rowblocks_np`` on a row-block case;
+5. cli: the reference pipeline through the CLI, as subprocesses: ``gen``,
+   then ``run X.bin W.bin H.bin -o ... --jsonl`` at float32 and at each
+   tier (``--dtype bfloat16``, ``--dtype float32_fast``, ``--x-dtype
+   bfloat16``, ``--x-dtype int8``) and once at ``--x-dtype int8
+   --x-quant-rows 32``: 200 iterations, 8 strictly decreasing checks;
+   float32 and float32_fast within 1e-4 of the 96689.73 pin;
+6. inprocess: the same runs in-process through ``solve``, each with the
+   counts set to 0 just before it: exactly 200/200/8 launches of K1/K2/K3
+   and 0 plain calls (0 launches for ``--x-quant-rows 32``, which takes the
+   plain ops by rule); factors byte-identical on a rerun and to the CLI's
+   files; the final cost against the ``backend="jnp"`` solve within 1e-4
+   relative (1e-3 for ``bfloat16``, whose kernel cost has a bf16 recon);
+7. flagship: 10240 x 10240, K=256: one call of K1 and K2 under
+   ``float32``, ``bfloat16`` and ``float32_fast`` timed beside its plain
+   version; then 50 iterations, float32 and bfloat16, through the kernels
+   and through plain torch ops: final costs agree to 1e-4 (float32) and
+   1e-3 (bfloat16); iterations/s and TFLOP/s for both.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -31,25 +52,45 @@ a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import dataclasses
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
 PIN_COST = 96689.73               # tests/test_parity.py:144
+EPS = float(np.float32(2.2204e-16))
 SHAPES = [(4096, 350, 128), (1025, 4000, 32), (513, 3445, 30)]   # (M, N, K)
 # correctness only: K chunk widths 16 and 64, two chunks, the K=2048 ceiling
 COVERAGE_SHAPES = [(100, 70, 8), (333, 333, 64), (257, 129, 300), (300, 200, 2048)]
-RTOL, ATOL, COST_RTOL = 1e-4, 1e-6, 1e-5
+MODE_SHAPES = [(4096, 350, 128), (100, 70, 8), (257, 129, 300), (300, 200, 2048)]
+F32_TOL = (1e-4, 1e-6, 1e-5)          # phase 2: factors rtol, atol; cost rel
+# Phase 3, per kind of mode, (max, spread, cost); None: not limited.  max:
+# the largest relative error |kernel - plain| / |plain| of a factor.  spread:
+# its RMS over the entries, or under bf16 state the share of entries that
+# differ (each by one bf16 ulp at most, checked).  cost: relative error.
+# Where a mode rounds or splits, a control (the kernel without it) must
+# read above the spread and cost limits; each limit lies between the sound
+# kernels' readings and the controls' on the card (PERF.md, PR 2).  The max
+# allows bf16 flips: a last-ulp difference in W H may flip the rounding of a
+# Z entry, moving a sum over N terms by 2**-8 of one term.
+MODE_LIMITS = {
+    "f32_gemm": (1e-4, None, 1e-5),     # bf16 X, int8 X: f32 GEMMs
+    "bfloat16": (1e-3, 3e-5, 1e-5),
+    "float32_fast": (1e-4, 2e-6, 1e-5),
+    "bf16_state": (None, 1e-3, 1e-5),   # and one bf16 ulp at most
+}
 SAMPLES, CALLS = 10, 10
 KERNELS = [
     # name, TPU kernel it replaces
@@ -57,6 +98,16 @@ KERNELS = [
     ("update_w", "nmf_tpu/ops/pallas/fused_mu.py:378"),
     ("kl_cost", "nmf_tpu/ops/pallas/fused_mu.py:516"),
 ]
+# CLI tiers: name -> extra flags (the names of phase 3's modes where they match)
+TIERS = {
+    "float32": [],
+    "bfloat16": ["--dtype", "bfloat16"],
+    "float32_fast": ["--dtype", "float32_fast"],
+    "x_bfloat16": ["--x-dtype", "bfloat16"],
+    "x_int8": ["--x-dtype", "int8"],
+    "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
+}
+PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship")
 
 
 def check(cond, msg):
@@ -91,7 +142,16 @@ def event_ms(fn, samples=SAMPLES, calls=CALLS) -> float:
     return statistics.median(times)
 
 
-def phase_card(card):
+def timed_pair(kern, plain, samples=SAMPLES, calls=CALLS):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain, in one call."""
+    p1 = event_ms(plain, samples, calls)
+    k1 = event_ms(kern, samples, calls)
+    k2 = event_ms(kern, samples, calls)
+    p2 = event_ms(plain, samples, calls)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase_card(card, out):
     print(f"[{card}] phase 1: card and build")
     from nmf_tpu_torch.ops.kernels import _build
 
@@ -104,69 +164,109 @@ def phase_card(card):
           f"in {secs} s: {lib_path.relative_to(REPO)}")
     log = lib_path.parent / "build.log"
     if fresh and log.exists():
+        # one line per kernel: registers and spills from ptxas -v
+        name = None
         for line in log.read_text().splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line):
-                print(f"[{card}]   {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                m = re.search(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize)"
+                              r"(?:ILi(\d+)E)?(?:I?LNS_4ModeE(\d)E)?", entry.group(1))
+                name = m.group(1) if m else entry.group(1)
+                if m and m.group(2):
+                    name += f"<R={m.group(2)}"
+                if m and m.group(3):
+                    name += ("," if m.group(2) else "<") + ("F32", "ANY", "SPLIT3")[int(m.group(3))]
+                name += ">" if m and (m.group(2) or m.group(3)) else ""
+            elif name and ("spill" in line and " 0 bytes spill stores" not in line or "Used" in line):
+                print(f"[{card}]   {name}: {line.split('info    :')[-1].strip()}")
+    out["build_seconds"] = secs
 
 
 def _operands(m, n, k):
     rng = np.random.RandomState(m + n + k)
-    eps = np.float32(2.2204e-16)
     return tuple(
-        torch.from_numpy(np.maximum(rng.rand(*s).astype(np.float32), eps)).cuda()
+        torch.from_numpy(np.maximum(rng.rand(*s).astype(np.float32), np.float32(EPS))).cuda()
         for s in ((m, k), (k, n), (m, n))
     )
 
 
-def _check_kernel(name, kern, plain, w, h, x):
-    """Kernel vs plain on the same tensors, and a bitwise rerun; returns
-    (max abs error, description)."""
-    m, k = w.shape
-    n = h.shape[1]
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+def _where(name, w, h, label=""):
+    return f"{name} {label}{w.shape[0]}x{h.shape[1]}x{w.shape[1]}"
+
+
+def _run_pair(kern, plain, w, h, x, where):
+    """(kernel result, plain result) on the same tensors, once the kernel's
+    dtype, finiteness and a bitwise-identical second call are checked."""
     out1 = kern(w, h, x)
     torch.cuda.synchronize()
     out2 = kern(w, h, x)
     torch.cuda.synchronize()
     ref = plain(w, h, x)
     torch.cuda.synchronize()
-    check(torch.equal(out1.view(torch.int32), out2.view(torch.int32)),
-          f"{name} {m}x{n}x{k}: second call not bitwise identical")
-    check(bool(torch.isfinite(out1).all()), f"{name} {m}x{n}x{k}: non-finite output")
-    err = (out1 - ref).abs()
+    check(out1.dtype == ref.dtype, f"{where}: dtype {out1.dtype} vs plain {ref.dtype}")
+    check(torch.equal(_bits(out1), _bits(out2)), f"{where}: second call not bitwise identical")
+    check(bool(torch.isfinite(out1).all()), f"{where}: non-finite output")
+    return out1, ref
+
+
+def _check_kernel(name, kern, plain, w, h, x, tol=F32_TOL):
+    """Kernel vs plain on the same tensors, and a bitwise rerun; returns
+    (max abs error, description)."""
+    rtol, atol, cost_rtol = tol
+    where = _where(name, w, h)
+    out1, ref = _run_pair(kern, plain, w, h, x, where)
+    err = (out1.float() - ref.float()).abs()
     max_err = float(err.max())
     if name == "kl_cost":
         rel = max_err / abs(float(ref))
-        ok, what = rel <= COST_RTOL, f"rel err {rel} (limit {COST_RTOL})"
+        ok, what = rel <= cost_rtol, f"rel err {rel} (limit {cost_rtol})"
     else:
-        worst = float((err - RTOL * ref.abs()).max())
-        ok = worst <= ATOL
-        what = f"max abs err {max_err}, worst excess over rtol {worst} (atol {ATOL})"
-    check(ok, f"{name} {m}x{n}x{k}: {what}")
+        worst = float((err - rtol * ref.float().abs()).max())
+        ok = worst <= atol
+        what = (f"max abs err {max_err}, worst excess over rtol {rtol}: {worst} "
+                f"(atol {atol})")
+    check(ok, f"{where}: {what}")
     return max_err, what
 
 
-def phase_kernels(card):
-    print(f"[{card}] phase 2: kernels vs plain torch on the card")
-    from nmf_tpu_torch.ops import divergence, mu
+def _pairs(prec=None):
+    """name -> (kernel, plain) under ``prec``, X dense or a (codes, scales)
+    pair."""
+    from nmf_tpu_torch.ops import mu
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.ops.quant import dequantize
+    from nmf_tpu_torch.utils.config import Precision
+
+    prec = prec or Precision()
+
+    def dense(x):
+        return dequantize(*x) if isinstance(x, tuple) else x
+
+    return {
+        "update_h": (lambda w, h, x: fused_mu.update_h_fused(w, h, x, precision=prec),
+                     lambda w, h, x: mu.update_h(w, h, dense(x), precision=prec)),
+        "update_w": (lambda w, h, x: fused_mu.update_w_fused(w, h, x, precision=prec),
+                     lambda w, h, x: mu.update_w(w, h, dense(x), precision=prec)),
+        "kl_cost": (lambda w, h, x: fused_mu.kl_cost_fused(x, w, h, precision=prec),
+                    lambda w, h, x: fused_mu.kl_cost_plain(x, w, h, precision=prec)),
+    }
+
+
+def phase_kernels(card, out):
+    print(f"[{card}] phase 2: kernels (float32) vs plain torch on the card")
     from nmf_tpu_torch.ops.kernels import fused_mu
 
-    pairs = {
-        "update_h": (fused_mu.update_h_fused, mu.update_h),
-        "update_w": (fused_mu.update_w_fused, mu.update_w),
-        "kl_cost": (lambda w, h, x: fused_mu.kl_cost_fused(x, w, h),
-                    lambda w, h, x: divergence.kl_divergence(x, w, h)),
-    }
-    stats = {name: {"max_abs_err": 0.0} for name in pairs}
+    pairs = _pairs()
+    stats = out["kernels"]
     for si, (m, n, k) in enumerate(SHAPES):
         w, h, x = _operands(m, n, k)
         for name, (kern, plain) in pairs.items():
             max_err, what = _check_kernel(name, kern, plain, w, h, x)
-            # plain, kernel, kernel, plain: compare within one call, in turns
-            p1 = event_ms(lambda: plain(w, h, x))
-            k1 = event_ms(lambda: kern(w, h, x))
-            k2 = event_ms(lambda: kern(w, h, x))
-            p2 = event_ms(lambda: plain(w, h, x))
-            kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+            kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
             print(f"[{card}] {name:8s} {m}x{n}x{k}: kernel {kms} ms, plain {pms} ms, "
                   f"{what}, bitwise-repeatable")
             st = stats[name]
@@ -189,107 +289,319 @@ def phase_kernels(card):
     check(fused_mu.PLAIN_CALLS["update_h"] == plain_before + 1
           and fused_mu.LAUNCHES == launches, f"K={k} did not take the plain ops")
     print(f"[{card}] K={k} > MAX_FUSED_K: plain ops by the rank rule, no launch")
-    return stats
 
 
-def phase_cli(card, tmp):
-    print(f"[{card}] phase 3: reference pipeline through the CLI")
+class ModeCheck(NamedTuple):
+    prec: object            # Precision of the mode
+    state: torch.dtype      # W and H
+    xform: str              # X: "f32", "bf16" or "int8" (codes, scales)
+    limits: tuple           # (max, spread, cost): see MODE_LIMITS
+    control: object = None  # Precision of a kernel that skips the mode's rounding
+    controlled: tuple = ()  # the kernels whose arithmetic the control changes
+
+
+def _modes():
+    """mode -> ModeCheck.  A control is the same kernel under a policy that
+    skips the mode's rounding (or split), on the same operands: it must
+    fail the limit, so each run shows the limit can see that fault."""
+    from nmf_tpu_torch.utils.config import BF16_FULL, Precision
+
+    f32 = Precision()
+    bf16_state = dataclasses.replace(BF16_FULL, state_dtype="bfloat16")
+    gemms = ("update_h", "update_w")
+    return {
+        "bfloat16": ModeCheck(Precision("bfloat16"), torch.float32, "f32",
+                              MODE_LIMITS["bfloat16"], f32, (*gemms, "kl_cost")),
+        # K3 is true f32 under float32_fast: the control changes K1/K2 only
+        "float32_fast": ModeCheck(Precision("float32_fast"), torch.float32, "f32",
+                                  MODE_LIMITS["float32_fast"], f32, gemms),
+        "x_bfloat16": ModeCheck(Precision(x_dtype="bfloat16"), torch.float32, "bf16",
+                                MODE_LIMITS["f32_gemm"]),
+        "x_int8": ModeCheck(Precision(x_dtype="int8"), torch.float32, "int8",
+                            MODE_LIMITS["f32_gemm"]),
+        # bf16 W and H are their own rounding: the control skips only Z's,
+        # which K3 does not form
+        "bf16_full_state": ModeCheck(bf16_state, torch.bfloat16, "bf16",
+                                     MODE_LIMITS["bf16_state"],
+                                     dataclasses.replace(bf16_state, matmul_dtype="float32"),
+                                     gemms),
+    }
+
+
+def _exposed(rng, shape, mode):
+    """W or H values on which a kernel that skips ``mode``'s rounding is off
+    by a bias of one sign, where on uniform operands the errors mostly
+    cancel in the sums (and in the cost, below one f32 ulp at some shapes).
+
+    bfloat16: b * (1 + 2**-10), b bf16-exact, which rounds to b, 2**-10 low
+    in every operand (W H 2**-9 low).  float32_fast: hi + lo, hi a power of
+    two and lo = hi * 2**-8 * u with u in [0.5, 1) on 8 bits, which bf16
+    splits exactly into (hi, lo); split3 drops lo * lo' = 2**-16 u u' of
+    every product (W H ~8.6e-6 low)."""
+    if mode == "bfloat16":
+        b = torch.from_numpy(np.maximum(rng.rand(*shape).astype(np.float32), np.float32(EPS)))
+        return (b.to(torch.bfloat16).float() * (1 + 2.0 ** -10)).cuda()
+    hi = np.exp2(-rng.randint(0, 4, shape)).astype(np.float32)
+    u = (128 + rng.randint(0, 128, shape)).astype(np.float32) / 256
+    return torch.from_numpy(hi + hi * np.float32(2.0 ** -8) * u).cuda()
+
+
+def _mode_operands(m, n, k, mode, spec):
+    from nmf_tpu_torch.ops.quant import quantize_columns
+
+    w, h, x = _operands(m, n, k)
+    if mode in ("bfloat16", "float32_fast"):
+        rng = np.random.RandomState(m + n + k)
+        w, h = _exposed(rng, (m, k), mode), _exposed(rng, (k, n), mode)
+    w, h = w.to(spec.state), h.to(spec.state)
+    if spec.xform == "bf16":
+        x = x.to(torch.bfloat16)
+    elif spec.xform == "int8":
+        x = quantize_columns(x, EPS)
+    return w, h, x
+
+
+def _mode_err(out, ref):
+    """(largest relative error, spread, largest bf16 ulp distance) of a
+    result against its plain version.  The spread is the RMS relative error
+    of an f32 result, and for a bf16 result the share of entries that
+    differ (the entries are positive, so their bits count ulps)."""
+    rel = (out.double() - ref.double()).abs() / ref.double().abs()
+    if out.dtype == torch.bfloat16:
+        ulps = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+        return float(rel.max()), float((ulps > 0).double().mean()), int(ulps.max())
+    return float(rel.max()), float(rel.square().mean().sqrt()), 0
+
+
+def phase_modes(card, out):
+    print(f"[{card}] phase 3: precision modes of K1-K3 vs plain torch on the card")
+    stats = out["kernels"]
+    for mode, spec in _modes().items():
+        pairs = _pairs(spec.prec)
+        controls = _pairs(spec.control) if spec.control else {}
+        max_limit, spread_limit, cost_limit = spec.limits
+        for si, (m, n, k) in enumerate(MODE_SHAPES):
+            w, h, x = _mode_operands(m, n, k, mode, spec)
+            for name, (kern, plain) in pairs.items():
+                where = _where(name, w, h, f"[{mode}] ")
+                res, ref = _run_pair(kern, plain, w, h, x, where)
+                err, spread, ulps = _mode_err(res, ref)
+                spread_name = ("share of entries differing" if res.dtype == torch.bfloat16
+                               else "rms rel err")
+                if name == "kl_cost":
+                    limit, measured = cost_limit, err
+                    what = f"rel err {err} (limit {limit})"
+                else:
+                    limit, measured = spread_limit, spread
+                    check(ulps <= 1, f"{where}: an entry {ulps} bf16 ulps from plain")
+                    check(max_limit is None or err <= max_limit,
+                          f"{where}: max rel err {err} (limit {max_limit})")
+                    what = (f"max rel err {err} (limit {max_limit}), {spread_name} "
+                            f"{spread} (limit {spread_limit})")
+                check(limit is None or measured <= limit, f"{where}: {what}")
+                # "err" is what "limit" bounds: the spread of factors, the
+                # relative error of the cost
+                ms = stats[name]["modes"].setdefault(
+                    mode, {"max_abs_err": 0.0, "max_rel_err": 0.0, "err": 0.0, "limit": limit})
+                ms["max_abs_err"] = max(ms["max_abs_err"], float((res.float() - ref.float()).abs().max()))
+                ms["max_rel_err"] = max(ms["max_rel_err"], err)
+                ms["err"] = max(ms["err"], measured)
+                if name in spec.controlled:
+                    c_err, c_spread, _ = _mode_err(controls[name][0](w, h, x), ref)
+                    c_measured = c_err if name == "kl_cost" else c_spread
+                    check(c_measured > limit, f"{where}: the control ({spec.control.matmul_dtype} "
+                          f"GEMMs) reads {c_measured}, within the limit {limit}")
+                    ms["control_min"] = min(ms.get("control_min", c_measured), c_measured)
+                    what += f"; control ({spec.control.matmul_dtype} GEMMs) {c_measured}"
+                if si == 0:  # the main path's shape, timed
+                    kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
+                    ms["ms"], ms["plain_ms"] = kms, pms
+                    print(f"[{card}] {where}: kernel {kms} ms, plain {pms} ms, {what}, "
+                          "bitwise-repeatable")
+                else:
+                    print(f"[{card}] {where}: {what}, bitwise-repeatable")
+
+
+def phase_quant(card, out):
+    print(f"[{card}] phase 4: the quantizer on the card vs the NumPy twin")
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops import quant
+
+    x = nt.fixtures.as_seen_by_solver(nt.fixtures.reference_fixture_arrays()["X"])
+    x = np.maximum(x, np.float32(EPS))   # the load-time clamp
+    cases = [
+        ("columns", x, lambda a: quant.quantize_columns(a, EPS),
+         lambda a: quant.quantize_columns_np(a, EPS)),
+        # 4000 rows in blocks of 300: normalised to 14 blocks of 286 rows,
+        # the last one padded by 4 (nmf_tpu/ops/quant.py:128-137)
+        ("rowblocks 300", np.ascontiguousarray(x[:4000]),
+         lambda a: quant.quantize_rowblocks(a, EPS, 300),
+         lambda a: quant.quantize_rowblocks_np(a, EPS, 300)),
+    ]
+    for label, xa, on_card, on_host in cases:
+        q, s = (t.cpu().numpy() for t in on_card(torch.from_numpy(xa).cuda()))
+        qn, sn = on_host(xa)
+        check(q.dtype == np.uint8 and q.shape == qn.shape, f"quant {label}: codes {q.dtype} {q.shape}")
+        check(q.tobytes() == qn.tobytes(), f"quant {label}: codes differ from the NumPy twin "
+              f"at {int((q != qn).sum())} entries")
+        check(s.tobytes() == sn.tobytes(), f"quant {label}: scales differ from the NumPy twin")
+        print(f"[{card}] quantizer {label} {q.shape}: codes and {s.shape} scales "
+              f"byte-identical to the NumPy twin")
+
+
+def _cli(args, cwd):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
-    cli = [sys.executable, "-m", "nmf_tpu_torch"]
-    subprocess.run(cli + ["gen", "."], check=True, cwd=tmp, env=env)
-    t0 = time.perf_counter()
-    subprocess.run(
-        cli + ["run", "X.bin", "W.bin", "H.bin", "-o", "Wout.bin", "Hout.bin",
-               "--jsonl", "run.jsonl"],
-        check=True, cwd=tmp, env=env,
-    )
-    wall = time.perf_counter() - t0
-    rec = json.loads(pathlib.Path(tmp, "run.jsonl").read_text().splitlines()[-1])
-    costs = [c["cost"] for c in rec["checks"]]
-    check(rec["iterations"] == 200, f"CLI ran {rec['iterations']} iterations")
-    check(len(costs) == 8, f"CLI made {len(costs)} checks")
-    check(all(b < a for a, b in zip(costs, costs[1:])), f"CLI costs not decreasing: {costs}")
-    rel = abs(rec["final_cost"] - PIN_COST) / PIN_COST
-    check(rel <= 1e-4, f"CLI final cost {rec['final_cost']} vs {PIN_COST}: rel {rel}")
-    size = pathlib.Path(tmp, "Wout.bin").stat().st_size
-    check(size == 8 + 4096 * 128 * 4, f"Wout.bin is {size} bytes")
-    print(f"[{card}] CLI run: 200 iterations, final cost {rec['final_cost']} "
-          f"(rel {rel} to the pin), solve {rec['seconds']} s = {rec['iters_per_sec']} it/s, "
-          f"process wall {wall} s")
+    return subprocess.run([sys.executable, "-m", "nmf_tpu_torch", *args],
+                          check=True, cwd=cwd, env=env)
 
 
-def phase_inprocess(card, tmp):
-    print(f"[{card}] phase 4: reference pipeline in-process through solve")
+def phase_cli(card, tmp, out):
+    print(f"[{card}] phase 5: reference pipeline through the CLI, every tier")
+    _cli(["gen", "."], tmp)
+    for tier, flags in TIERS.items():
+        t0 = time.perf_counter()
+        _cli(["run", "X.bin", "W.bin", "H.bin", "-o", f"W_{tier}.bin", f"H_{tier}.bin",
+              "--jsonl", f"{tier}.jsonl", "-q", *flags], tmp)
+        wall = time.perf_counter() - t0
+        rec = json.loads(pathlib.Path(tmp, f"{tier}.jsonl").read_text().splitlines()[-1])
+        costs = [c["cost"] for c in rec["checks"]]
+        check(rec["iterations"] == 200, f"CLI {tier}: ran {rec['iterations']} iterations")
+        check(len(costs) == 8, f"CLI {tier}: made {len(costs)} checks")
+        check(all(b < a for a, b in zip(costs, costs[1:])),
+              f"CLI {tier}: costs not decreasing: {costs}")
+        rel = abs(rec["final_cost"] - PIN_COST) / PIN_COST
+        if tier in ("float32", "float32_fast"):
+            check(rel <= 1e-4, f"CLI {tier}: final cost {rec['final_cost']} vs {PIN_COST}: rel {rel}")
+        size = pathlib.Path(tmp, f"W_{tier}.bin").stat().st_size
+        check(size == 8 + 4096 * 128 * 4, f"CLI {tier}: W_{tier}.bin is {size} bytes")
+        out["cli"][tier] = rec["final_cost"]
+        print(f"[{card}] CLI {tier}: 200 iterations, 8 decreasing checks, final cost "
+              f"{rec['final_cost']} (rel {rel} to the pin), solve {rec['seconds']} s = "
+              f"{rec['iters_per_sec']} it/s, process wall {wall} s")
+
+
+def _tier_configs():
+    """tier -> (SolveConfig, ran through the CLI): the CLI tiers, parsed as
+    the CLI parses them, and bf16 state, which only the API reaches."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.cli import build_parser
+
+    tiers = {}
+    for tier, flags in TIERS.items():
+        args = build_parser().parse_args(["run", "X.bin", *flags])
+        prec = nt.Precision(matmul_dtype=args.dtype, x_dtype=args.x_dtype,
+                            x_quant_rows=args.x_quant_rows)
+        tiers[tier] = (dataclasses.replace(nt.reference_preset(), precision=prec), True)
+    prec = _modes()["bf16_full_state"][0]
+    tiers["bf16_full_state"] = (dataclasses.replace(nt.reference_preset(), precision=prec), False)
+    return tiers
+
+
+def phase_inprocess(card, tmp, out):
+    print(f"[{card}] phase 6: reference pipeline in-process through solve, every tier")
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.ops.kernels import fused_mu
 
     x, w, h = (nt.read_matrix(os.path.join(tmp, f"{s}.bin")) for s in "XWH")
-    cfg = nt.reference_preset()
-    fused_mu.reset_counts()
-    t0 = time.perf_counter()
-    res = nt.solve(x, w, h, cfg, device="cuda")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches, plain_calls = dict(fused_mu.LAUNCHES), dict(fused_mu.PLAIN_CALLS)
-    check(launches == {"update_h": 200, "update_w": 200, "kl_cost": 8},
-          f"launches {launches}")
-    check(not any(plain_calls.values()), f"plain calls on the card {plain_calls}")
-    hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
-    check(int(res.iterations) == 200 and hist.shape == (8,), "200 iterations / 8 checks")
-    check(bool(np.all(np.diff(hist) < 0)), f"costs not decreasing: {hist}")
-    cost = float(res.cost)
-    check(abs(cost - PIN_COST) / PIN_COST <= 1e-4, f"final cost {cost} vs {PIN_COST}")
-    w1, h1 = res.w.cpu().numpy(), res.h.cpu().numpy()
-    res2 = nt.solve(x, w, h, cfg, device="cuda")
-    check(w1.tobytes() == res2.w.cpu().numpy().tobytes(), "W differs on a rerun")
-    check(h1.tobytes() == res2.h.cpu().numpy().tobytes(), "H differs on a rerun")
-    wout = nt.read_matrix(os.path.join(tmp, "Wout.bin"))
-    hout = nt.read_matrix(os.path.join(tmp, "Hout.bin"))
-    check(wout.tobytes() == w1.tobytes() and hout.tobytes() == h1.tobytes(),
-          "CLI output files differ from the in-process factors")
-    print(f"[{card}] solve: {launches} launches, cost {cost}, history {hist.tolist()}, "
-          f"{secs} s (first in-process solve), byte-identical on rerun and vs the CLI files")
-    return launches
+    for tier, (cfg, via_cli) in _tier_configs().items():
+        fused_mu.reset_counts()
+        t0 = time.perf_counter()
+        res = nt.solve(x, w, h, cfg, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, plain_calls = dict(fused_mu.LAUNCHES), dict(fused_mu.PLAIN_CALLS)
+        want = ({"update_h": 0, "update_w": 0, "kl_cost": 0} if cfg.precision.x_quant_rows
+                else {"update_h": 200, "update_w": 200, "kl_cost": 8})
+        check(launches == want, f"{tier}: launches {launches}, expected {want}")
+        check(not any(plain_calls.values()), f"{tier}: plain calls on the card {plain_calls}")
+        out["launches"][tier] = launches
+        hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
+        check(int(res.iterations) == 200 and hist.shape == (8,), f"{tier}: 200 iterations / 8 checks")
+        check(bool(np.all(np.diff(hist) < 0)), f"{tier}: costs not decreasing: {hist}")
+        cost = float(res.cost)
+        w1, h1 = (t.cpu().float().numpy() for t in (res.w, res.h))
+        res2 = nt.solve(x, w, h, cfg, device="cuda")
+        check(w1.tobytes() == res2.w.cpu().float().numpy().tobytes(), f"{tier}: W differs on a rerun")
+        check(h1.tobytes() == res2.h.cpu().float().numpy().tobytes(), f"{tier}: H differs on a rerun")
+        if via_cli:
+            wout = nt.read_matrix(os.path.join(tmp, f"W_{tier}.bin"))
+            hout = nt.read_matrix(os.path.join(tmp, f"H_{tier}.bin"))
+            check(wout.tobytes() == w1.tobytes() and hout.tobytes() == h1.tobytes(),
+                  f"{tier}: CLI output files differ from the in-process factors")
+        plain = nt.solve(x, w, h, dataclasses.replace(cfg, backend="jnp"), device="cuda")
+        c_plain = float(plain.cost)
+        rel = abs(cost - c_plain) / abs(c_plain)
+        limit = 1e-3 if cfg.precision.matmul_dtype == "bfloat16" else 1e-4
+        check(rel <= limit, f"{tier}: cost {cost} vs plain (backend='jnp') {c_plain}: rel {rel}")
+        if tier in ("float32", "float32_fast"):
+            pin = abs(cost - PIN_COST) / PIN_COST
+            check(pin <= 1e-4, f"{tier}: final cost {cost} vs {PIN_COST}: rel {pin}")
+        print(f"[{card}] solve {tier}: launches {launches}, cost {cost} (plain {c_plain}, "
+              f"rel {rel}, limit {limit}), history {hist.tolist()}, {secs} s (first solve of "
+              f"the tier), byte-identical on rerun{' and vs the CLI files' if via_cli else ''}")
 
 
-def phase_flagship(card):
-    print(f"[{card}] phase 5: flagship 10240x10240, K=256, f32, 50 iterations")
+def phase_flagship(card, out):
+    print(f"[{card}] phase 7: flagship 10240x10240, K=256, 50 iterations, float32 and bfloat16")
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.utils.metrics import flops_per_iter
 
     m = n = 10240
     k = 256
+    iters = 50
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand((m, n), generator=g, device="cuda")
     w = torch.rand((m, k), generator=g, device="cuda")
     h = torch.rand((k, n), generator=g, device="cuda")
-    base = nt.SolveConfig(max_iter=50, check_every=25)
-    results = {}
-    for backend in ("auto", "jnp"):   # warm each path once (allocator, cuBLAS)
-        nt.solve(x, w, h, dataclasses.replace(base, backend=backend, max_iter=1), device="cuda")
-    torch.cuda.synchronize()
-    for backend in ("auto", "jnp", "jnp", "auto"):
-        t0 = time.perf_counter()
-        res = nt.solve(x, w, h, dataclasses.replace(base, backend=backend), device="cuda")
+    # one call of K1 and K2 under each GEMM policy, timed as in phase 2 with
+    # fewer samples (a call takes milliseconds here)
+    for dtype in ("float32", "bfloat16", "float32_fast"):
+        pairs = _pairs(nt.Precision(dtype))
+        for name in ("update_h", "update_w"):
+            kern, plain = pairs[name]
+            kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x), 5, 5)
+            out["kernels"][name]["flagship"][dtype] = {"ms": kms, "plain_ms": pms}
+            print(f"[{card}] flagship {name} [{dtype}] {m}x{n}x{k}: kernel {kms} ms, "
+                  f"plain {pms} ms")
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
+        base = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype))
+        results = {}
+        for backend in ("auto", "jnp"):   # warm each path once (allocator, cuBLAS)
+            nt.solve(x, w, h, dataclasses.replace(base, backend=backend, max_iter=1),
+                     device="cuda")
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        cost = float(res.cost)
-        check(np.isfinite(cost) and int(res.iterations) == 50, f"{backend}: cost {cost}")
-        results.setdefault(backend, []).append((secs, cost))
-    c_k, c_p = results["auto"][0][1], results["jnp"][0][1]
-    rel = abs(c_k - c_p) / abs(c_p)
-    check(rel <= 1e-4, f"flagship cost kernel {c_k} vs plain {c_p}: rel {rel}")
-    for backend, label in (("auto", "kernels"), ("jnp", "plain (cuBLAS f32)")):
-        for secs, cost in results[backend]:
-            ips = 50 / secs
-            tf = flops_per_iter(m, k, n) * ips / 1e12
-            print(f"[{card}] flagship {label}: {secs} s for 50 iterations + 2 costs, "
-                  f"{ips} it/s, {tf} TFLOP/s, final cost {cost}")
-    print(f"[{card}] flagship costs agree: rel {rel} (limit 1e-4)")
+        for backend in ("auto", "jnp", "jnp", "auto"):
+            t0 = time.perf_counter()
+            res = nt.solve(x, w, h, dataclasses.replace(base, backend=backend), device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            cost = float(res.cost)
+            check(np.isfinite(cost) and int(res.iterations) == iters,
+                  f"flagship {dtype} {backend}: cost {cost}")
+            results.setdefault(backend, []).append((secs, cost))
+        c_k, c_p = results["auto"][0][1], results["jnp"][0][1]
+        rel = abs(c_k - c_p) / abs(c_p)
+        check(rel <= limit, f"flagship {dtype}: cost kernel {c_k} vs plain {c_p}: rel {rel}")
+        for backend, label in (("auto", "kernels"), ("jnp", "plain (cuBLAS f32)")):
+            for secs, cost in results[backend]:
+                ips = iters / secs
+                tf = flops_per_iter(m, k, n) * ips / 1e12
+                out["flagship"].setdefault(f"{dtype} {label}", []).append(ips)
+                print(f"[{card}] flagship {dtype} {label}: {secs} s for {iters} iterations + "
+                      f"2 costs, {ips} it/s, {tf} TFLOP/s, final cost {cost}")
+        print(f"[{card}] flagship {dtype} costs agree: rel {rel} (limit {limit})")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no card, no result",
               file=sys.stderr)
@@ -305,26 +617,53 @@ def main() -> int:
     print(f"[{card}] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    phase_card(card)
-    stats = phase_kernels(card)
+    out = {
+        "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}}
+                    for name, _ in KERNELS},
+        "launches": {}, "cli": {}, "flagship": {},
+    }
+    t_start = time.perf_counter()
+    phase_card(card, out)  # always: every other phase needs the build
+    if "kernels" in phases:
+        phase_kernels(card, out)
+    if "modes" in phases:
+        phase_modes(card, out)
+    if "quant" in phases:
+        phase_quant(card, out)
     with tempfile.TemporaryDirectory(prefix="nmf_smoke_") as tmp:
-        phase_cli(card, tmp)
-        launches = phase_inprocess(card, tmp)
-    phase_flagship(card)
+        if "cli" in phases:
+            phase_cli(card, tmp, out)
+        if "inprocess" in phases:
+            check("cli" in phases, "phase inprocess needs phase cli (its files)")
+            phase_inprocess(card, tmp, out)
+    if "flagship" in phases:
+        phase_flagship(card, out)
+    if phases != list(PHASES):
+        print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
+              "a subset prints no result")
+        return 0
 
-    kernels = [
-        {
+    main_launches = out["launches"]["float32"]
+    kernels = []
+    for name, replaces in KERNELS:
+        st = out["kernels"][name]
+        # each mode: its kernel-vs-plain numbers and the launches of its tier's solve
+        modes = {mode: {**ms, "launches": out["launches"][mode][name]}
+                 for mode, ms in st["modes"].items()}
+        kernels.append({
             "name": name,
             "route": "cuda",
             "source": "nmf_tpu_torch/csrc/fused_mu.cu",
             "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": stats[name]["max_abs_err"],
-            "ms": stats[name]["ms"],
-            "plain_ms": stats[name]["plain_ms"],
-        }
-        for name, replaces in KERNELS
-    ]
+            "launches": main_launches[name],
+            "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "modes": modes,
+            **({"flagship": st["flagship"]} if st["flagship"] else {}),
+        })
+    print(f"[{card}] all seven phases passed in {time.perf_counter() - t_start} s "
+          f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

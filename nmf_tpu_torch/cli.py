@@ -20,7 +20,7 @@ import torch
 from .io import binio, fixtures
 from .models.init import random_init
 from .models.solver import solve
-from .utils.config import SolveConfig
+from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger
 
@@ -41,9 +41,6 @@ _LATER = {
     "--l1-h": ({"type": float}, "Queue 1: ops (penalized MU)"),
     "--l2-w": ({"type": float}, "Queue 1: ops (penalized MU)"),
     "--l2-h": ({"type": float}, "Queue 1: ops (penalized MU)"),
-    "--dtype": ({}, "Queue 2: precision tiers and K1/K2 modes"),
-    "--x-dtype": ({}, "Queue 2: precision tiers and K1/K2 modes"),
-    "--x-quant-rows": ({"type": int}, "Queue 2: precision tiers and K1/K2 modes"),
     "--backend": ({}, "Queue 1: backend rules and autotune"),
     "--no-cost": ({"action": "store_const", "const": True}, "Queue 1: remaining CLI"),
     "--live": ({"action": "store_const", "const": True}, "Queue 1: utils (live metrics)"),
@@ -105,7 +102,10 @@ def cmd_run(args) -> int:
         return 2
 
     config = SolveConfig(
-        max_iter=args.max_iter, thresh=args.thresh, check_every=args.check_every
+        max_iter=args.max_iter, thresh=args.thresh, check_every=args.check_every,
+        precision=Precision(
+            matmul_dtype=args.dtype, x_dtype=args.x_dtype, x_quant_rows=args.x_quant_rows
+        ),
     )
     logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
     with logger.timed() as t:
@@ -113,7 +113,7 @@ def cmd_run(args) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     logger.report(res, x.shape, t.seconds, check_every=config.check_every)
-    w_out, h_out = res.w.cpu().numpy(), res.h.cpu().numpy()
+    w_out, h_out = (t.cpu().float().numpy() for t in (res.w, res.h))
     w_path, h_path = args.output
     binio.write_matrix(w_out, w_path)
     binio.write_matrix(h_out, h_path)
@@ -170,6 +170,24 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument(
         "--device", default="cuda",
         help="torch device: cuda (default; raises without a card) or cpu",
+    )
+    run.add_argument(
+        "--dtype", choices=["float32", "float32_fast", "bfloat16"], default="float32",
+        help="update-GEMM precision: float32 = exact (reference parity), "
+        "float32_fast = 3-pass bf16 split-float, bfloat16 = bf16 inputs "
+        "(accumulation is always float32)",
+    )
+    run.add_argument(
+        "--x-dtype", choices=["float32", "bfloat16", "int8"], default="float32",
+        help="storage dtype of X: bfloat16 halves its stream; int8 quarters it "
+        "(uint8 codes + per-column scales, dequantized in register; opt-in, "
+        "lossy for entries far below their column peak)",
+    )
+    run.add_argument(
+        "--x-quant-rows", type=int, default=0,
+        help="int8-X scale granularity: one scale per (N-row block, column) "
+        "instead of per column; such X takes the plain torch ops (the "
+        "kernels' scales are per column)",
     )
     for flag, (kw, where) in _LATER.items():
         run.add_argument(flag, default=None, help=f"not ported yet ({where})", **kw)

@@ -1,4 +1,4 @@
-// Fused KL multiplicative-update kernels for Hopper (sm_90a), true f32 SIMT.
+// Fused KL multiplicative-update kernels for Hopper (sm_90a), SIMT.
 //
 // These replace the three Pallas TPU kernels of nmf_tpu/ops/pallas/fused_mu.py:
 //
@@ -15,11 +15,36 @@
 // is the only M x N stream (read once per kernel).
 //
 // What bounds them on this card.  One half-update costs ~4 M N K flop (two
-// GEMMs) against ~4 M N bytes of X, so at K >= 30 it is compute-bound; in
-// true f32 there are no tensor cores (TF32 is not f32), so the ceiling is
-// the SIMT FMA rate (~67 TFLOP/s on an H100 SXM at 700 W).  This first
-// version is simple and right rather than fast: 4 x 4 (phase A) and 4 x R
-// (phase B) register tiles fed from shared memory, no cp.async/TMA.
+// GEMMs) against ~4 M N bytes of X (2 for bf16 X, 1 for uint8 codes), so at
+// K >= 30 it is compute-bound.  These kernels run every policy on the SIMT
+// FMA units (~67 TFLOP/s on an H100 SXM at 700 W); the tensor-core versions
+// of the bf16 and split3 modes (mma.sync / wgmma) are later work.  Simple
+// and right rather than fast: 4 x 4 (phase A) and 4 x R (phase B) register
+// tiles fed from shared memory, no cp.async/TMA.
+//
+// Modes, as the TPU kernels have them, applied at staging (where a value is
+// written to shared memory), outside the inner FMA loops:
+//
+//   state  W and H are f32 or bf16 in memory; every value is widened to f32
+//          on load.  The epilogue multiplies by the state value itself, not
+//          by its GEMM copy, and rounds to the state dtype (nearest even):
+//          out = state(h * acc / sum) (fused_mu.py:276-278, 405-407).
+//   X      f32, bf16, or uint8 codes with per-column f32 scales, dequantized
+//          in register as float(q) * scale[col].
+//   GEMM   float32: operands as they are.  bfloat16: each staged W, H and Z
+//          value rounded to bf16 (__float2bfloat16_rn, the casts' rounding);
+//          the product of two bf16 values is exact in f32, so fmaf in f32
+//          equals bf16 MMA with f32 accumulation up to the order of the sum.
+//          float32_fast (split3): each operand
+//          staged as a bf16 (hi, lo) pair, hi = bf16(a), lo = bf16(a - hi),
+//          in the 4 bytes an f32 took, and each pair of operands costs three
+//          FMAs hi*bh + hi*bl + lo*bh (the lo*lo term dropped, as _kdot).
+//   K3     recon in true f32 under both f32 policies, on bf16-rounded
+//          inputs under bfloat16 (fused_mu.py:586-591).
+//
+// The kernels are instantiated per Mode (below): the all-f32 main path, the
+// other modes as runtime choices, and split3.  Not the cross product of
+// dtypes, rounding and chunk widths: 30 partial kernels in all.
 //
 // Design against the TPU kernel.  Pallas runs its grid in order and carries
 // the K x bn (or bm x K) accumulator across the innermost grid axis.  CUDA
@@ -28,20 +53,22 @@
 // tiles), so that axis is also split across a fixed number of blocks; each
 // writes an f32 partial and a second pass sums the partials IN A FIXED ORDER
 // and applies the epilogue.  No float atomics anywhere: the same inputs give
-// the same bits on every run.  The split count comes from the shape alone
-// (the Python planner), never from the card.
+// the same bits on every run, in every mode.  The split count comes from the
+// shape alone (the Python planner), never from the card.
 //
 // Numerics, as the reference kernels have them: the clamp is `v < eps ? eps
 // : v` so NaN stays NaN (fmaxf would return eps); eps arrives as a C float
 // (float32(2.2204e-16)); the epilogue is h * acc / sum (the TPU kernel's
-// order, fused_mu.py:277, 406); the log is the accurate logf (no fast math);
-// the cost masks the ragged edge by logical (m, n) so padding adds nothing.
+// order); the log is the accurate logf (no fast math); the cost masks the
+// ragged edge by logical (m, n) so padding adds nothing.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -50,90 +77,251 @@ constexpr int KS = 16;        // K slice staged per phase-A step
 constexpr int THREADS = 256;  // 16 x 16; tx = tid % 16, ty = tid / 16
 constexpr int WS_STRIDE = TILE + 1;  // padded transposed W slice
 
+enum XKind { X_F32 = 0, X_BF16 = 1, X_U8 = 2 };
+enum Gemm { GEMM_F32 = 0, GEMM_SPLIT3 = 1, GEMM_BF16 = 2 };
+
+// How a kernel stages its operands, fixed at compile time.  F32: W, H and X
+// are f32 and the GEMM takes them as they are (the main path); these kernels
+// hold to two blocks an SM.  ANY: the state dtype, the X storage and bf16
+// rounding are runtime choices, each taken once per staging loop.  SPLIT3:
+// as ANY, with each operand split into a bf16 (hi, lo) pair.  Sharing the
+// runtime choices cost the f32 path 47% at 10240^2, K=256 on an H100 (more
+// code and over 128 registers: one block an SM), hence its own instances.
+enum class Mode { F32, ANY, SPLIT3 };
+
+// The operands and modes of one call, passed by value to every kernel.
+struct Operands {
+  const void* w;         // (m, k) state dtype
+  const void* h;         // (k, n) state dtype
+  const void* x;         // (m, n) f32 | bf16 | uint8 codes
+  const float* scales;   // (n,) per-column scales of uint8 codes, else null
+  int m, n, k;
+  int state_bf16;        // W and H are bf16 (else f32)
+  int x_kind;            // XKind
+  int round_bf16;        // GEMM inputs rounded to bf16 (bfloat16 policy)
+  float eps;
+};
+
+// A staged GEMM operand: an f32 value, or under split3 a bf16 (hi, lo)
+// pair in the same 4 bytes, so the shared memory is the same in every mode.
+template <bool S3>
+struct Staged {
+  using T = float;
+};
+template <>
+struct Staged<true> {
+  using T = __nv_bfloat162;
+};
+static_assert(sizeof(__nv_bfloat162) == sizeof(float), "staging is 4 bytes");
+template <Mode MODE>
+using StagedT = typename Staged<MODE == Mode::SPLIT3>::T;
+
+// The same operand in registers, ready for the FMAs.
+template <bool S3>
+struct Val {
+  float v;
+  __device__ __forceinline__ void load(float e) { v = e; }
+};
+template <>
+struct Val<true> {
+  float hi, lo;
+  __device__ __forceinline__ void load(__nv_bfloat162 e) {
+    hi = __low2float(e);
+    lo = __high2float(e);
+  }
+};
+
+__device__ __forceinline__ float mac(const Val<false>& a, const Val<false>& b,
+                                     float acc) {
+  return fmaf(a.v, b.v, acc);
+}
+
+// hi*bh + hi*bl + lo*bh: _kdot's three passes, per pair of operands
+__device__ __forceinline__ float mac(const Val<true>& a, const Val<true>& b,
+                                     float acc) {
+  acc = fmaf(a.hi, b.hi, acc);
+  acc = fmaf(a.hi, b.lo, acc);
+  return fmaf(a.lo, b.hi, acc);
+}
+
 __device__ __forceinline__ float clamp_eps(float v, float eps) {
   return v < eps ? eps : v;  // keeps NaN, like the reference's `a < EPS`
 }
 
+// Element sources, each widening its dtype to f32: W or H in the state
+// dtype (indexed by position), X in its storage (position and column).
+struct F32In {
+  const float* p;
+  __device__ __forceinline__ float operator()(size_t i, int = 0) const { return p[i]; }
+};
+struct Bf16In {
+  const __nv_bfloat16* p;
+  __device__ __forceinline__ float operator()(size_t i, int = 0) const {
+    return __bfloat162float(p[i]);
+  }
+};
+struct U8In {  // uint8 codes, dequantized in register: float(q) * scale[col]
+  const uint8_t* p;
+  const float* scales;
+  __device__ __forceinline__ float operator()(size_t i, int col) const {
+    return (float)p[i] * scales[col];
+  }
+};
+
+// Staging rules of a GEMM operand: as it is, rounded to bf16 (nearest
+// even), or split into a bf16 (hi, lo) pair.
+struct AsIs {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+struct RoundBf16 {
+  __device__ __forceinline__ float operator()(float v) const {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
+struct Split3 {
+  __device__ __forceinline__ __nv_bfloat162 operator()(float v) const {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    return __halves2bfloat162(hi, __float2bfloat16_rn(v - __bfloat162float(hi)));
+  }
+};
+
+// The runtime modes are taken once per staging loop, before it: these call
+// body(...) with the source and the rule as types.  (A branch per element,
+// copied into every unrolled staging loop, doubled the kernels' code.)
+template <Mode MODE, typename Body>
+__device__ __forceinline__ void with_rule(const Operands& o, Body&& body) {
+  if constexpr (MODE == Mode::SPLIT3) {
+    body(Split3{});
+  } else if constexpr (MODE == Mode::F32) {
+    body(AsIs{});
+  } else {
+    if (o.round_bf16) body(RoundBf16{}); else body(AsIs{});
+  }
+}
+
+// body(src, rule) for W or H (p): bf16 state values are bf16 already, so
+// rounding them is the identity and needs no rule of its own.
+template <Mode MODE, typename Body>
+__device__ __forceinline__ void with_state(const void* p, const Operands& o, Body&& body) {
+  if constexpr (MODE == Mode::F32) {
+    body(F32In{static_cast<const float*>(p)}, AsIs{});
+  } else if (o.state_bf16) {
+    const Bf16In src{static_cast<const __nv_bfloat16*>(p)};
+    if constexpr (MODE == Mode::SPLIT3) body(src, Split3{}); else body(src, AsIs{});
+  } else {
+    const F32In src{static_cast<const float*>(p)};
+    with_rule<MODE>(o, [&](auto rule) { body(src, rule); });
+  }
+}
+
+// body(src) for X.
+template <Mode MODE, typename Body>
+__device__ __forceinline__ void with_x(const Operands& o, Body&& body) {
+  if constexpr (MODE == Mode::F32) {
+    body(F32In{static_cast<const float*>(o.x)});
+  } else {
+    switch (o.x_kind) {
+      case X_BF16: body(Bf16In{static_cast<const __nv_bfloat16*>(o.x)}); break;
+      case X_U8: body(U8In{static_cast<const uint8_t*>(o.x), o.scales}); break;
+      default: body(F32In{static_cast<const float*>(o.x)});
+    }
+  }
+}
+
 // Phase A: s[r][c] = sum_k W[m0 + ty + 16 r, k] * H[k, n0 + tx + 16 c] over
-// all k < K, out-of-range rows, columns and k read as 0.  ws holds the
-// W slice transposed ([KS][TILE + 1]), hs the H slice ([KS][TILE]).
-__device__ __forceinline__ void recon_tile(
-    const float* __restrict__ w, const float* __restrict__ h, int m, int n,
-    int k, int m0, int n0, float* ws, float* hs, float s[4][4]) {
+// all k < K, out-of-range rows, columns and k read as 0, each operand staged
+// in the GEMM mode.  ws holds the W slice transposed ([KS][TILE + 1]), hs
+// the H slice ([KS][TILE]).
+template <Mode MODE>
+__device__ __forceinline__ void recon_tile(const Operands& o, int m0, int n0,
+                                           StagedT<MODE>* ws, StagedT<MODE>* hs,
+                                           float s[4][4]) {
+  constexpr bool S3 = MODE == Mode::SPLIT3;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += KS) {
-    for (int e = tid; e < TILE * KS; e += THREADS) {
-      const int i = e / KS, kk = e % KS;  // neighbours along k: coalesced
-      const int gm = m0 + i, gk = k0 + kk;
-      ws[kk * WS_STRIDE + i] =
-          (gm < m && gk < k) ? w[(size_t)gm * k + gk] : 0.f;
-    }
-    for (int e = tid; e < KS * TILE; e += THREADS) {
-      const int kk = e / TILE, j = e % TILE;  // neighbours along n
-      const int gk = k0 + kk, gn = n0 + j;
-      hs[kk * TILE + j] = (gk < k && gn < n) ? h[(size_t)gk * n + gn] : 0.f;
-    }
+  for (int k0 = 0; k0 < o.k; k0 += KS) {
+    with_state<MODE>(o.w, o, [&](auto w, auto rule) {
+      for (int e = tid; e < TILE * KS; e += THREADS) {
+        const int i = e / KS, kk = e % KS;  // neighbours along k: coalesced
+        const int gm = m0 + i, gk = k0 + kk;
+        ws[kk * WS_STRIDE + i] = rule((gm < o.m && gk < o.k) ? w((size_t)gm * o.k + gk) : 0.f);
+      }
+    });
+    with_state<MODE>(o.h, o, [&](auto h, auto rule) {
+      for (int e = tid; e < KS * TILE; e += THREADS) {
+        const int kk = e / TILE, j = e % TILE;  // neighbours along n
+        const int gk = k0 + kk, gn = n0 + j;
+        hs[kk * TILE + j] = rule((gk < o.k && gn < o.n) ? h((size_t)gk * o.n + gn) : 0.f);
+      }
+    });
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      float a[4], b[4];
+      Val<S3> a[4], b[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = ws[kk * WS_STRIDE + ty + 16 * r];
+      for (int r = 0; r < 4; ++r) a[r].load(ws[kk * WS_STRIDE + ty + 16 * r]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = hs[kk * TILE + tx + 16 * c];
+      for (int c = 0; c < 4; ++c) b[c].load(hs[kk * TILE + tx + 16 * c]);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
+        for (int c = 0; c < 4; ++c) s[r][c] = mac(a[r], b[c], s[r][c]);
     }
     __syncthreads();
   }
 }
 
-// Z = X / clamp(W H) for the tile into zs ([TILE][TILE + 1]).  Positions
-// outside (m, n) hold X = 0 and W H = 0, so Z = 0 / eps = 0 there exactly.
-__device__ __forceinline__ void ratio_tile(const float* __restrict__ x, int m,
-                                           int n, int m0, int n0,
-                                           const float s[4][4], float eps,
-                                           float* zs) {
+// Z = X / clamp(W H) for the tile into zs ([TILE][TILE + 1]), staged in the
+// GEMM mode.  Positions outside (m, n) have X = 0 and W H = 0, so Z = 0 /
+// eps = 0 there exactly.  s is overwritten with Z.
+template <Mode MODE>
+__device__ __forceinline__ void ratio_tile(const Operands& o, int m0, int n0,
+                                           float s[4][4], StagedT<MODE>* zs) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  with_x<MODE>(o, [&](auto x) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = ty + 16 * r, j = tx + 16 * c;
-      const int gm = m0 + i, gn = n0 + j;
-      const float xv = (gm < m && gn < n) ? x[(size_t)gm * n + gn] : 0.f;
-      zs[i * (TILE + 1) + j] = xv / clamp_eps(s[r][c], eps);
-    }
+      for (int c = 0; c < 4; ++c) {
+        const int gm = m0 + ty + 16 * r, gn = n0 + tx + 16 * c;
+        const float xv = (gm < o.m && gn < o.n) ? x((size_t)gm * o.n + gn, gn) : 0.f;
+        s[r][c] = xv / clamp_eps(s[r][c], o.eps);
+      }
+  });
+  with_rule<MODE>(o, [&](auto rule) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        zs[(ty + 16 * r) * (TILE + 1) + tx + 16 * c] = rule(s[r][c]);
+  });
 }
 
-constexpr size_t staging_floats() {
+constexpr size_t staging_words() {
   return (size_t)KS * WS_STRIDE + (size_t)KS * TILE + (size_t)TILE * (TILE + 1);
 }
 
 // K1 pass 1.  Block (n tile, k chunk, split): for its run of M tiles,
 // acc[kk][j] += sum_i W[m0 + i, kc0 + kk] * Z[i, j], then the raw partial
 // goes to part[split][k][n].  R = KC / 16 accumulator rows per thread.
-template <int R>
-__global__ void __launch_bounds__(THREADS)
-    h_update_partial(const float* __restrict__ w, const float* __restrict__ h,
-                     const float* __restrict__ x, float* __restrict__ part,
-                     int m, int n, int k, int tiles_per_split, float eps) {
+template <int R, Mode MODE>
+__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 ? 2 : 1)
+    h_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
+  using T = StagedT<MODE>;
+  constexpr bool S3 = MODE == Mode::SPLIT3;
   constexpr int KC = 16 * R;
-  extern __shared__ float smem[];
-  float* ws = smem;
-  float* hs = ws + KS * WS_STRIDE;
-  float* zs = hs + KS * TILE;
-  float* wc = zs + TILE * (TILE + 1);  // [TILE][KC]: W rows, this k chunk
+  extern __shared__ float4 smem_raw[];
+  T* ws = reinterpret_cast<T*>(smem_raw);
+  T* hs = ws + KS * WS_STRIDE;
+  T* zs = hs + KS * TILE;
+  T* wc = zs + TILE * (TILE + 1);  // [TILE][KC]: W rows, this k chunk
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int m_tiles = (m + TILE - 1) / TILE;
+  const int m_tiles = (o.m + TILE - 1) / TILE;
   const int t_begin = blockIdx.z * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, m_tiles);
 
@@ -146,57 +334,59 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = t_begin; t < t_end; ++t) {
     const int m0 = t * TILE;
     float s[4][4];
-    recon_tile(w, h, m, n, k, m0, n0, ws, hs, s);
-    ratio_tile(x, m, n, m0, n0, s, eps, zs);
-    for (int e = tid; e < TILE * KC; e += THREADS) {
-      const int i = e / KC, kk = e % KC;
-      const int gm = m0 + i, gk = kc0 + kk;
-      wc[e] = (gm < m && gk < k) ? w[(size_t)gm * k + gk] : 0.f;
-    }
+    recon_tile<MODE>(o, m0, n0, ws, hs, s);
+    ratio_tile<MODE>(o, m0, n0, s, zs);
+    with_state<MODE>(o.w, o, [&](auto w, auto rule) {
+      for (int e = tid; e < TILE * KC; e += THREADS) {
+        const int i = e / KC, kk = e % KC;
+        const int gm = m0 + i, gk = kc0 + kk;
+        wc[e] = rule((gm < o.m && gk < o.k) ? w((size_t)gm * o.k + gk) : 0.f);
+      }
+    });
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < TILE; ++i) {
-      float a[R], b[4];
+      Val<S3> a[R], b[4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = wc[i * KC + ty + 16 * r];
+      for (int r = 0; r < R; ++r) a[r].load(wc[i * KC + ty + 16 * r]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = zs[i * (TILE + 1) + tx + 16 * c];
+      for (int c = 0; c < 4; ++c) b[c].load(zs[i * (TILE + 1) + tx + 16 * c]);
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+        for (int c = 0; c < 4; ++c) acc[r][c] = mac(a[r], b[c], acc[r][c]);
     }
     __syncthreads();
   }
 
-  float* dst = part + (size_t)blockIdx.z * k * n;
+  float* dst = part + (size_t)blockIdx.z * o.k * o.n;
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int gk = kc0 + ty + 16 * r, gn = n0 + tx + 16 * c;
-      if (gk < k && gn < n) dst[(size_t)gk * n + gn] = acc[r][c];
+      if (gk < o.k && gn < o.n) dst[(size_t)gk * o.n + gn] = acc[r][c];
     }
 }
 
 // K2 pass 1.  Block (m tile, k chunk, split): for its run of N tiles,
 // acc[i][kk] += sum_j Z[i, j] * H[kc0 + kk, n0 + j], partial to
 // part[split][m][k].  hc holds the H chunk transposed ([TILE][KC + 1]).
-template <int R>
-__global__ void __launch_bounds__(THREADS)
-    w_update_partial(const float* __restrict__ w, const float* __restrict__ h,
-                     const float* __restrict__ x, float* __restrict__ part,
-                     int m, int n, int k, int tiles_per_split, float eps) {
+template <int R, Mode MODE>
+__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 ? 2 : 1)
+    w_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
+  using T = StagedT<MODE>;
+  constexpr bool S3 = MODE == Mode::SPLIT3;
   constexpr int KC = 16 * R;
-  extern __shared__ float smem[];
-  float* ws = smem;
-  float* hs = ws + KS * WS_STRIDE;
-  float* zs = hs + KS * TILE;
-  float* hc = zs + TILE * (TILE + 1);
+  extern __shared__ float4 smem_raw[];
+  T* ws = reinterpret_cast<T*>(smem_raw);
+  T* hs = ws + KS * WS_STRIDE;
+  T* zs = hs + KS * TILE;
+  T* hc = zs + TILE * (TILE + 1);
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int n_tiles = (n + TILE - 1) / TILE;
+  const int n_tiles = (o.n + TILE - 1) / TILE;
   const int t_begin = blockIdx.z * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
 
@@ -209,54 +399,65 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * TILE;
     float s[4][4];
-    recon_tile(w, h, m, n, k, m0, n0, ws, hs, s);
-    ratio_tile(x, m, n, m0, n0, s, eps, zs);
-    for (int e = tid; e < KC * TILE; e += THREADS) {
-      const int kk = e / TILE, j = e % TILE;  // neighbours along n
-      const int gk = kc0 + kk, gn = n0 + j;
-      hc[j * (KC + 1) + kk] = (gk < k && gn < n) ? h[(size_t)gk * n + gn] : 0.f;
-    }
+    recon_tile<MODE>(o, m0, n0, ws, hs, s);
+    ratio_tile<MODE>(o, m0, n0, s, zs);
+    with_state<MODE>(o.h, o, [&](auto h, auto rule) {
+      for (int e = tid; e < KC * TILE; e += THREADS) {
+        const int kk = e / TILE, j = e % TILE;  // neighbours along n
+        const int gk = kc0 + kk, gn = n0 + j;
+        hc[j * (KC + 1) + kk] = rule((gk < o.k && gn < o.n) ? h((size_t)gk * o.n + gn) : 0.f);
+      }
+    });
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < TILE; ++j) {
-      float a[4], b[R];
+      Val<S3> a[4], b[R];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = zs[(ty + 16 * r) * (TILE + 1) + j];
+      for (int r = 0; r < 4; ++r) a[r].load(zs[(ty + 16 * r) * (TILE + 1) + j]);
 #pragma unroll
-      for (int c = 0; c < R; ++c) b[c] = hc[j * (KC + 1) + tx + 16 * c];
+      for (int c = 0; c < R; ++c) b[c].load(hc[j * (KC + 1) + tx + 16 * c]);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < R; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+        for (int c = 0; c < R; ++c) acc[r][c] = mac(a[r], b[c], acc[r][c]);
     }
     __syncthreads();
   }
 
-  float* dst = part + (size_t)blockIdx.z * m * k;
+  float* dst = part + (size_t)blockIdx.z * o.m * o.k;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < R; ++c) {
       const int gm = m0 + ty + 16 * r, gk = kc0 + tx + 16 * c;
-      if (gm < m && gk < k) dst[(size_t)gm * k + gk] = acc[r][c];
+      if (gm < o.m && gk < o.k) dst[(size_t)gm * o.k + gk] = acc[r][c];
     }
 }
 
 // Pass 2 of K1 and K2: out = base * (sum_s part[s]) / denom, the sum taken
 // in split order 0, 1, ... (fixed, so the bits never depend on scheduling).
-// denom is indexed by row (K1: sum_w[k] for out[k][n]) or by column (K2:
-// sum_h[k] for out[m][k]).
+// base and out are in the state dtype (out rounded to nearest even); denom
+// is indexed by row (K1: sum_w[k] for out[k][n]) or by column (K2: sum_h[k]
+// for out[m][k]).
 __global__ void __launch_bounds__(THREADS)
-    finalize(const float* __restrict__ base, const float* __restrict__ part,
-             const float* __restrict__ denom, float* __restrict__ out,
-             int rows, int cols, int splits, int denom_by_row) {
+    finalize(const void* __restrict__ base, int state_bf16,
+             const float* __restrict__ part, const float* __restrict__ denom,
+             void* __restrict__ out, int rows, int cols, int splits,
+             int denom_by_row) {
   const size_t total = (size_t)rows * cols;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (size_t)gridDim.x * blockDim.x) {
     float acc = 0.f;
     for (int s = 0; s < splits; ++s) acc += part[(size_t)s * total + idx];
     const float d = denom_by_row ? denom[idx / cols] : denom[idx % cols];
-    out[idx] = base[idx] * acc / d;  // h * acc / sumw: fused_mu.py:277, 406
+    // h * acc / sumw: fused_mu.py:277, 406
+    const float b = state_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[idx])
+                               : static_cast<const float*>(base)[idx];
+    const float v = b * acc / d;
+    if (state_bf16)
+      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(out)[idx] = v;
   }
 }
 
@@ -271,31 +472,34 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-// K3 pass 1: one f32 partial per 64 x 64 tile of the cost.
+// K3 pass 1: one f32 partial per 64 x 64 tile of the cost.  The recon is
+// never split: true f32, or bf16-rounded inputs under bfloat16 (MODE is F32
+// or ANY).
+template <Mode MODE>
 __global__ void __launch_bounds__(THREADS)
-    kl_partial(const float* __restrict__ w, const float* __restrict__ h,
-               const float* __restrict__ x, float* __restrict__ partials,
-               int m, int n, int k, float eps) {
+    kl_partial(Operands o, float* __restrict__ partials) {
   __shared__ float ws[KS * WS_STRIDE];
   __shared__ float hs[KS * TILE];
   __shared__ float red[THREADS];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * TILE, m0 = blockIdx.y * TILE;
   float s[4][4];
-  recon_tile(w, h, m, n, k, m0, n0, ws, hs, s);
+  recon_tile<MODE>(o, m0, n0, ws, hs, s);
   float t = 0.f;
+  with_x<MODE>(o, [&](auto x) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gm = m0 + ty + 16 * r, gn = n0 + tx + 16 * c;
-      if (gm < m && gn < n) {  // padding adds nothing, not even +y
-        const float xv = x[(size_t)gm * n + gn];
-        const float y = clamp_eps(s[r][c], eps);
-        const float xlog = xv > 0.f ? xv * (logf(xv) - logf(y)) : 0.f;
-        t += xlog - xv + y;
+      for (int c = 0; c < 4; ++c) {
+        const int gm = m0 + ty + 16 * r, gn = n0 + tx + 16 * c;
+        if (gm < o.m && gn < o.n) {  // padding adds nothing, not even +y
+          const float xv = x((size_t)gm * o.n + gn, gn);
+          const float y = clamp_eps(s[r][c], o.eps);
+          const float xlog = xv > 0.f ? xv * (logf(xv) - logf(y)) : 0.f;
+          t += xlog - xv + y;
+        }
       }
-    }
+  });
   const float sum = block_sum(t, red);
   if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = sum;
 }
@@ -311,55 +515,106 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) out[0] = sum;
 }
 
+// Shared memory in 4-byte words (an f32 or a bf16 pair), as bytes.
 template <int R>
 size_t h_smem_bytes() {
-  return (staging_floats() + (size_t)TILE * 16 * R) * sizeof(float);
+  return (staging_words() + (size_t)TILE * 16 * R) * sizeof(float);
 }
 
 template <int R>
 size_t w_smem_bytes() {
-  return (staging_floats() + (size_t)TILE * (16 * R + 1)) * sizeof(float);
+  return (staging_words() + (size_t)TILE * (16 * R + 1)) * sizeof(float);
 }
 
-template <int R>
-cudaError_t launch_h(const float* w, const float* h, const float* x,
-                     float* part, int m, int n, int k, int splits,
-                     int tiles_per_split, float eps, cudaStream_t st) {
+template <int R, Mode MODE>
+cudaError_t launch_h(const Operands& o, float* part, int splits,
+                     int tiles_per_split, cudaStream_t st) {
   const size_t smem = h_smem_bytes<R>();
   cudaError_t err = cudaFuncSetAttribute(
-      h_update_partial<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      h_update_partial<R, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + TILE - 1) / TILE, (k + 16 * R - 1) / (16 * R), splits);
-  h_update_partial<R><<<grid, THREADS, smem, st>>>(w, h, x, part, m, n, k,
-                                                   tiles_per_split, eps);
+  const dim3 grid((o.n + TILE - 1) / TILE, (o.k + 16 * R - 1) / (16 * R), splits);
+  h_update_partial<R, MODE><<<grid, THREADS, smem, st>>>(o, part, tiles_per_split);
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_w(const float* w, const float* h, const float* x,
-                     float* part, int m, int n, int k, int splits,
-                     int tiles_per_split, float eps, cudaStream_t st) {
+template <int R, Mode MODE>
+cudaError_t launch_w(const Operands& o, float* part, int splits,
+                     int tiles_per_split, cudaStream_t st) {
   const size_t smem = w_smem_bytes<R>();
   cudaError_t err = cudaFuncSetAttribute(
-      w_update_partial<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      w_update_partial<R, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((m + TILE - 1) / TILE, (k + 16 * R - 1) / (16 * R), splits);
-  w_update_partial<R><<<grid, THREADS, smem, st>>>(w, h, x, part, m, n, k,
-                                                   tiles_per_split, eps);
+  const dim3 grid((o.m + TILE - 1) / TILE, (o.k + 16 * R - 1) / (16 * R), splits);
+  w_update_partial<R, MODE><<<grid, THREADS, smem, st>>>(o, part, tiles_per_split);
   return cudaGetLastError();
 }
 
-cudaError_t launch_finalize(const float* base, const float* part,
-                            const float* denom, float* out, int rows, int cols,
+// Pass 1 of K1 (H) or K2 (W) at chunk width kc.
+template <bool H, Mode MODE>
+cudaError_t launch_partial(int kc, const Operands& o, float* part, int splits,
+                           int per, cudaStream_t st) {
+  switch (kc) {
+    case 16: return H ? launch_h<1, MODE>(o, part, splits, per, st) : launch_w<1, MODE>(o, part, splits, per, st);
+    case 32: return H ? launch_h<2, MODE>(o, part, splits, per, st) : launch_w<2, MODE>(o, part, splits, per, st);
+    case 64: return H ? launch_h<4, MODE>(o, part, splits, per, st) : launch_w<4, MODE>(o, part, splits, per, st);
+    case 128: return H ? launch_h<8, MODE>(o, part, splits, per, st) : launch_w<8, MODE>(o, part, splits, per, st);
+    case 256: return H ? launch_h<16, MODE>(o, part, splits, per, st) : launch_w<16, MODE>(o, part, splits, per, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_finalize(const void* base, int state_bf16, const float* part,
+                            const float* denom, void* out, int rows, int cols,
                             int splits, int denom_by_row, cudaStream_t st) {
   const size_t total = (size_t)rows * cols;
   size_t blocks = (total + THREADS - 1) / THREADS;
   if (blocks > 65535) blocks = 65535;  // grid-stride loop covers the rest
-  finalize<<<(unsigned)blocks, THREADS, 0, st>>>(base, part, denom, out, rows,
-                                                 cols, splits, denom_by_row);
+  finalize<<<(unsigned)blocks, THREADS, 0, st>>>(base, state_bf16, part, denom,
+                                                 out, rows, cols, splits,
+                                                 denom_by_row);
   return cudaGetLastError();
+}
+
+// The operands of a call, or an error for a mode the kernels do not have.
+cudaError_t make_operands(const void* w, const void* h, const void* x,
+                          const float* scales, int m, int n, int k,
+                          int state_bf16, int x_kind, int gemm, float eps,
+                          Operands* o) {
+  if ((state_bf16 != 0 && state_bf16 != 1) || x_kind < X_F32 || x_kind > X_U8 ||
+      gemm < GEMM_F32 || gemm > GEMM_BF16 || (x_kind == X_U8 && scales == nullptr))
+    return cudaErrorInvalidValue;
+  *o = Operands{w, h, x, scales, m, n, k, state_bf16, x_kind,
+                gemm == GEMM_BF16 ? 1 : 0, eps};
+  return cudaSuccess;
+}
+
+// W, H and X all f32: the kernels' F32 mode (when the GEMM is float32).
+bool all_f32(const Operands& o) { return !o.state_bf16 && o.x_kind == X_F32; }
+
+template <bool H>
+int update(const void* w, const void* h, const void* x, const float* scales,
+           const float* denom, float* part, void* out, int m, int n, int k,
+           int kc, int splits, int tiles_per_split, float eps, int state_bf16,
+           int x_kind, int gemm, int device, void* stream) {
+  Operands o;
+  cudaError_t err = make_operands(w, h, x, scales, m, n, k, state_bf16, x_kind,
+                                  gemm, eps, &o);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gemm == GEMM_SPLIT3)
+    err = launch_partial<H, Mode::SPLIT3>(kc, o, part, splits, tiles_per_split, st);
+  else if (all_f32(o) && gemm == GEMM_F32)
+    err = launch_partial<H, Mode::F32>(kc, o, part, splits, tiles_per_split, st);
+  else
+    err = launch_partial<H, Mode::ANY>(kc, o, part, splits, tiles_per_split, st);
+  if (err != cudaSuccess) return err;
+  return H ? launch_finalize(h, state_bf16, part, denom, out, k, n, splits, 1, st)
+           : launch_finalize(w, state_bf16, part, denom, out, m, k, splits, 0, st);
 }
 
 }  // namespace
@@ -375,56 +630,51 @@ const char* nmf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K1.  w (m,k), h (k,n), x (m,n), sum_w (k,) = max(colsum w, eps),
-// part (splits,k,n) scratch, out (k,n).  kc in {16,32,64,128,256}.
-int nmf_h_update(const float* w, const float* h, const float* x,
-                 const float* sum_w, float* part, float* out, int m, int n,
-                 int k, int kc, int splits, int tiles_per_split, float eps,
-                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kc) {
-    case 16: err = launch_h<1>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 32: err = launch_h<2>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 64: err = launch_h<4>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 128: err = launch_h<8>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 256: err = launch_h<16>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return err;
-  return launch_finalize(h, part, sum_w, out, k, n, splits, 1, st);
+// K1.  w (m,k), h (k,n) in the state dtype; x (m,n) f32 | bf16 | uint8 with
+// scales (n,); sum_w (k,) = max(colsum w, eps) in f32; part (splits,k,n)
+// f32 scratch; out (k,n) state dtype.  kc in {16,32,64,128,256};
+// state_bf16 0|1; x_kind 0 f32, 1 bf16, 2 uint8; gemm 0 float32,
+// 1 float32_fast (split3), 2 bfloat16.
+int nmf_h_update(const void* w, const void* h, const void* x,
+                 const float* scales, const float* sum_w, float* part,
+                 void* out, int m, int n, int k, int kc, int splits,
+                 int tiles_per_split, float eps, int state_bf16, int x_kind,
+                 int gemm, int device, void* stream) {
+  return update<true>(w, h, x, scales, sum_w, part, out, m, n, k, kc, splits,
+                      tiles_per_split, eps, state_bf16, x_kind, gemm, device,
+                      stream);
 }
 
-// K2.  sum_h (k,) = max(rowsum h, eps), part (splits,m,k), out (m,k).
-int nmf_w_update(const float* w, const float* h, const float* x,
-                 const float* sum_h, float* part, float* out, int m, int n,
-                 int k, int kc, int splits, int tiles_per_split, float eps,
-                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kc) {
-    case 16: err = launch_w<1>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 32: err = launch_w<2>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 64: err = launch_w<4>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 128: err = launch_w<8>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    case 256: err = launch_w<16>(w, h, x, part, m, n, k, splits, tiles_per_split, eps, st); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return err;
-  return launch_finalize(w, part, sum_h, out, m, k, splits, 0, st);
+// K2.  sum_h (k,) = max(rowsum h, eps), part (splits,m,k), out (m,k); the
+// rest as K1.
+int nmf_w_update(const void* w, const void* h, const void* x,
+                 const float* scales, const float* sum_h, float* part,
+                 void* out, int m, int n, int k, int kc, int splits,
+                 int tiles_per_split, float eps, int state_bf16, int x_kind,
+                 int gemm, int device, void* stream) {
+  return update<false>(w, h, x, scales, sum_h, part, out, m, n, k, kc, splits,
+                       tiles_per_split, eps, state_bf16, x_kind, gemm, device,
+                       stream);
 }
 
-// K3.  partials has one float per 64 x 64 tile; out is one float.
-int nmf_kl_cost(const float* w, const float* h, const float* x,
-                float* partials, float* out, int m, int n, int k, float eps,
+// K3.  partials has one float per 64 x 64 tile; out is one float.  gemm as
+// K1; split3 takes the true-f32 recon, as float32.
+int nmf_kl_cost(const void* w, const void* h, const void* x,
+                const float* scales, float* partials, float* out, int m, int n,
+                int k, float eps, int state_bf16, int x_kind, int gemm,
                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  Operands o;
+  cudaError_t err = make_operands(w, h, x, scales, m, n, k, state_bf16, x_kind,
+                                  gemm, eps, &o);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE);
-  kl_partial<<<grid, THREADS, 0, st>>>(w, h, x, partials, m, n, k, eps);
+  if (all_f32(o) && !o.round_bf16)
+    kl_partial<Mode::F32><<<grid, THREADS, 0, st>>>(o, partials);
+  else
+    kl_partial<Mode::ANY><<<grid, THREADS, 0, st>>>(o, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kl_final<<<1, THREADS, 0, st>>>(partials, (int)(grid.x * grid.y), out);

@@ -4,7 +4,10 @@ Formula of the reference's ``reduce1d_div`` (cuda/matrix.cu:592)::
 
     D(X || Y) = sum( x * (log(x) - log(y)) - x + y ),   y = clamp(W @ H, eps)
 
-:func:`kl_divergence` is the plain version of the cost kernel K3.  The
+:func:`kl_divergence` is the plain version of the cost kernel K3 under both
+f32 policies (under ``bfloat16`` K3 takes bf16-rounded recon inputs:
+``ops.kernels.fused_mu.kl_cost_plain``).  X may be f32 or bf16; it is
+widened to f32, and the recon is true f32 whatever the state dtype.  The
 Euclidean, Itakura-Saito and general beta costs are not ported yet.
 """
 

@@ -7,15 +7,19 @@ results, computed on Hopper by hand-written CUDA kernels instead of Pallas.
   without materialising ``W@H`` or ``X / W@H`` in device memory.
 * ``kl_cost_fused`` (K3): the KL cost, reduced tile by tile.
 
-Each wrapper takes its plain version (:mod:`nmf_tpu_torch.ops.mu`,
-:mod:`nmf_tpu_torch.ops.divergence`) only when its tensors lie on the CPU.
-For CUDA tensors it launches the kernel or raises: there is no fallback on a
-failed build or launch.  Above the rank ceiling (:func:`supported`) both
-packages send the call to the plain ops by design; those calls are counted
-in ``PLAIN_CALLS``, apart from the kernel launches in ``LAUNCHES``.
+Every precision policy of the TPU kernels: W and H in f32 or bf16 (the
+result takes their dtype); X as an f32 or bf16 tensor or a ``(uint8 codes,
+per-column f32 scales)`` pair from :func:`nmf_tpu_torch.ops.quant.quantize_columns`;
+GEMMs in ``float32``, ``float32_fast`` (split3) or ``bfloat16``.
 
-Modes of the TPU kernels not ported yet raise ``NotImplementedError``:
-bf16 state or X, int8 codes, ``numerator_only`` and ``float32_fast``.
+Each wrapper takes its plain version (:mod:`nmf_tpu_torch.ops.mu` and
+:func:`kl_cost_plain`, on dequantized X for a pair) only when its tensors lie
+on the CPU.  For CUDA tensors it launches the kernel or raises: there is no
+fallback on a failed build or launch, and a mode the kernels lack (per-row-
+block scales, ``numerator_only``) raises.  Above the rank ceiling
+(:func:`supported`) both packages send the call to the plain ops by design;
+those calls are counted in ``PLAIN_CALLS``, apart from the kernel launches
+in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ from typing import Dict, Tuple
 import torch
 
 from ...utils.config import Precision
-from ..divergence import kl_divergence
+from ..divergence import kl_divergence, kl_divergence_from_recon
 from ..elementwise import EPS, eps_clamp
-from ..mu import update_h, update_w
+from ..mu import matmul, update_h, update_w
+from ..quant import dequantize
 
 __all__ = [
     "LAUNCHES",
@@ -41,6 +46,7 @@ __all__ = [
     "update_w_fused",
     "mu_step_fused",
     "kl_cost_fused",
+    "kl_cost_plain",
 ]
 
 # Launches of each kernel on the card (one per wrapper call that launched),
@@ -57,6 +63,11 @@ MAX_CHUNK = 256    # widest K chunk a block accumulates
 # number, not read from the card, so the split (and so the bits of every
 # result) depends on the shape alone.
 TARGET_BLOCKS = 4 * 132
+
+# The kernels' mode codes (csrc/fused_mu.cu: XKind, Gemm).
+_STATE_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+_GEMM = {"float32": 0, "float32_fast": 1, "bfloat16": 2}
 
 
 def reset_counts() -> None:
@@ -97,22 +108,13 @@ def plan_split(out_tiles: int, k_chunks: int, walk_tiles: int) -> Tuple[int, int
     return _cdiv(walk_tiles, per), per
 
 
-def _require_modes(precision: Precision, x, numerator_only: bool = False) -> None:
-    if isinstance(x, tuple):
-        raise NotImplementedError(
-            "int8 X (codes, scales) is not in the CUDA kernels yet "
-            "(ROADMAP.md Queue 2: K1/K2 modes)"
-        )
-    if numerator_only:
-        raise NotImplementedError(
-            "numerator_only is not in the CUDA kernels yet (ROADMAP.md "
-            "Queue 2: K1/K2 modes; the sharded solver needs it)"
-        )
-    if not precision.all_f32:
-        raise NotImplementedError(
-            f"{precision} is not in the CUDA kernels yet: only all-float32 "
-            "(ROADMAP.md Queue 2: bf16, int8 and split3 modes)"
-        )
+def _dense_x(x) -> torch.Tensor:
+    """X itself, or a ``(codes, scales)`` pair dequantized (plain route)."""
+    return dequantize(*x) if isinstance(x, tuple) else x
+
+
+def _x_tensors(x) -> Tuple[torch.Tensor, ...]:
+    return tuple(x) if isinstance(x, tuple) else (x,)
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -129,18 +131,48 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return False
 
 
-def _check_cuda_operands(w, h, x) -> Tuple[int, int, int]:
-    for name, t in (("w", w), ("h", h), ("x", x)):
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{name} is {t.dtype}; the CUDA kernels take float32 only"
-            )
-        if t.dim() != 2:
-            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (row-major)")
+def _check_2d(name: str, t: torch.Tensor) -> None:
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous (row-major)")
+
+
+def _check_cuda_operands(w, h, x):
+    """Shapes, dtypes and layout for the kernels: returns (m, n, k, x data
+    tensor, scales tensor or None)."""
+    if w.dtype not in _STATE_BF16 or h.dtype != w.dtype:
+        raise NotImplementedError(
+            f"W is {w.dtype} and H {h.dtype}; the CUDA kernels take W and H "
+            "both float32 or both bfloat16"
+        )
+    _check_2d("w", w)
+    _check_2d("h", h)
     m, k = w.shape
     k2, n = h.shape
+    scales = None
+    if isinstance(x, tuple):
+        x, scales = x
+        if x.dtype != torch.uint8:
+            raise NotImplementedError(f"int8 X codes are {x.dtype}; the kernels take uint8")
+        if scales.dim() != 1:
+            raise NotImplementedError(
+                "per-row-block int8 scales (x_quant_rows > 0) are not in the "
+                "CUDA kernels, whose scales are per column: the solver sends "
+                "such X to the plain ops (nmf_tpu models/solver.py:137-143)"
+            )
+        if scales.dtype != torch.float32 or tuple(scales.shape) != (n,):
+            raise ValueError(
+                f"scales must be float32 of shape ({n},), got {scales.dtype} "
+                f"{tuple(scales.shape)}"
+            )
+        scales = scales.contiguous()
+    elif x.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"x is {x.dtype}; the CUDA kernels take float32, bfloat16, or "
+            "(uint8 codes, scales)"
+        )
+    _check_2d("x", x)
     if k2 != k or tuple(x.shape) != (m, n):
         raise ValueError(
             f"shape mismatch: X{tuple(x.shape)} vs W{tuple(w.shape)} @ H{tuple(h.shape)}"
@@ -149,7 +181,12 @@ def _check_cuda_operands(w, h, x) -> Tuple[int, int, int]:
         raise ValueError(f"empty operand: m={m} n={n} k={k}")
     if max(m * n, m * k, k * n) >= 2**31:
         raise ValueError("operands above 2**31 elements are not supported")
-    return m, n, k
+    return m, n, k, x, scales
+
+
+def _modes(w, x, precision: Precision) -> Tuple[int, int, int]:
+    """(state_bf16, x_kind, gemm) codes of a checked call."""
+    return _STATE_BF16[w.dtype], _X_KIND[x.dtype], _GEMM[precision.matmul_dtype]
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,38 +214,46 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def _update_fused(kind: str, w, h, x, eps, precision, numerator_only):
-    _require_modes(precision, x, numerator_only)
+    if numerator_only:
+        raise NotImplementedError(
+            "numerator_only is not in the CUDA kernels yet (ROADMAP.md "
+            "Queue 1 item 12: the sharded solver needs it)"
+        )
     plain = update_h if kind == "update_h" else update_w
-    if _on_cpu(w, h, x):
-        return plain(w, h, x, eps, precision)
-    m, n, k = _check_cuda_operands(w, h, x)
+    if _on_cpu(w, h, *_x_tensors(x)):
+        return plain(w, h, _dense_x(x), eps, precision)
+    m, n, k, xd, scales = _check_cuda_operands(w, h, x)
     if not supported(k):
         # the documented rank rule of nmf_tpu (fused_mu.py:305-313), not a
         # path taken on failure
         PLAIN_CALLS[kind] += 1
-        return plain(w, h, x, eps, precision)
+        return plain(w, h, _dense_x(x), eps, precision)
     kc = chunk_width(k)
     chunks = _cdiv(k, kc)
     m_tiles, n_tiles = _cdiv(m, TILE), _cdiv(n, TILE)
     if kind == "update_h":
-        # column sums outside the kernel, as the JAX wrapper takes them
+        # f32 column sums outside the kernel, as the JAX wrapper takes them
         # (nmf_tpu fused_mu.py:319)
-        denom = eps_clamp(torch.sum(w, dim=0), eps)
+        denom = eps_clamp(torch.sum(w, dim=0, dtype=torch.float32), eps)
         splits, per = plan_split(n_tiles, chunks, m_tiles)
         part = torch.empty((splits, k, n), dtype=torch.float32, device=w.device)
         out = torch.empty_like(h)
     else:
-        denom = eps_clamp(torch.sum(h, dim=1), eps)       # (fused_mu.py:444)
+        denom = eps_clamp(torch.sum(h, dim=1, dtype=torch.float32), eps)  # (:444)
         splits, per = plan_split(m_tiles, chunks, n_tiles)
         part = torch.empty((splits, m, k), dtype=torch.float32, device=w.device)
         out = torch.empty_like(w)
     lib = _lib()
     fn = lib.nmf_h_update if kind == "update_h" else lib.nmf_w_update
     rc = fn(
-        w.data_ptr(), h.data_ptr(), x.data_ptr(), denom.data_ptr(),
-        part.data_ptr(), out.data_ptr(), m, n, k, kc, splits, per,
-        float(eps), _index(w), _stream(w),
+        w.data_ptr(), h.data_ptr(), xd.data_ptr(), _ptr(scales), denom.data_ptr(),
+        part.data_ptr(), out.data_ptr(), m, n, k, kc, splits, per, float(eps),
+        *_modes(w, xd, precision), _index(w), _stream(w),
     )
     _raise_on(lib, rc, kind)
     LAUNCHES[kind] += 1
@@ -218,7 +263,7 @@ def _update_fused(kind: str, w, h, x, eps, precision, numerator_only):
 def update_h_fused(
     w: torch.Tensor,
     h: torch.Tensor,
-    x: torch.Tensor,
+    x,
     eps: float = EPS,
     precision: Precision = Precision(),
     numerator_only: bool = False,
@@ -226,7 +271,8 @@ def update_h_fused(
     """Fused H half-update (nmf.cu:118-146), kernel K1.
 
     ``H * (W^T (X / max(W H, eps))) / max(colsum W, eps)[:, None]``, the
-    product taken as the TPU kernel takes it: ``h * acc / sum_w``.
+    product taken as the TPU kernel takes it: ``h * acc / sum_w``, in the
+    dtype of ``h``.
     """
     return _update_fused("update_h", w, h, x, eps, precision, numerator_only)
 
@@ -234,7 +280,7 @@ def update_h_fused(
 def update_w_fused(
     w: torch.Tensor,
     h: torch.Tensor,
-    x: torch.Tensor,
+    x,
     eps: float = EPS,
     precision: Precision = Precision(),
     numerator_only: bool = False,
@@ -246,7 +292,7 @@ def update_w_fused(
 def mu_step_fused(
     w: torch.Tensor,
     h: torch.Tensor,
-    x: torch.Tensor,
+    x,
     eps: float = EPS,
     precision: Precision = Precision(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -256,8 +302,21 @@ def mu_step_fused(
     return w, h
 
 
+def kl_cost_plain(
+    x, w: torch.Tensor, h: torch.Tensor, eps: float = EPS,
+    precision: Precision = Precision(),
+) -> torch.Tensor:
+    """The plain version of K3: the reconstruction on bf16-rounded inputs
+    under ``bfloat16`` and true f32 under both f32 policies, as the TPU
+    kernel takes it (nmf_tpu fused_mu.py:586-591); a pair is dequantized."""
+    x = _dense_x(x)
+    if precision.matmul_dtype == "bfloat16":
+        return kl_divergence_from_recon(x, matmul(w, h, precision), eps)
+    return kl_divergence(x, w, h, eps)
+
+
 def kl_cost_fused(
-    x: torch.Tensor,
+    x,
     w: torch.Tensor,
     h: torch.Tensor,
     eps: float = EPS,
@@ -265,25 +324,24 @@ def kl_cost_fused(
 ) -> torch.Tensor:
     """KL divergence D(X || max(W H, eps)) with W H kept on chip, kernel K3.
 
-    Returns a 0-dim f32 tensor on the operands' device.  The reconstruction
-    is true f32, as under both f32 policies of the TPU kernel
-    (nmf_tpu fused_mu.py:586-591).
+    Returns a 0-dim f32 tensor on the operands' device, with the recon of
+    :func:`kl_cost_plain`.
     """
-    _require_modes(precision, x)
-    if _on_cpu(w, h, x):
-        return kl_divergence(x, w, h, eps)
-    m, n, k = _check_cuda_operands(w, h, x)
+    if _on_cpu(w, h, *_x_tensors(x)):
+        return kl_cost_plain(x, w, h, eps, precision)
+    m, n, k, xd, scales = _check_cuda_operands(w, h, x)
     if not supported(k):
         PLAIN_CALLS["kl_cost"] += 1
-        return kl_divergence(x, w, h, eps)
+        return kl_cost_plain(x, w, h, eps, precision)
     partials = torch.empty(
         (_cdiv(m, TILE) * _cdiv(n, TILE),), dtype=torch.float32, device=w.device
     )
     out = torch.empty((), dtype=torch.float32, device=w.device)
     lib = _lib()
     rc = lib.nmf_kl_cost(
-        w.data_ptr(), h.data_ptr(), x.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), m, n, k, float(eps), _index(w), _stream(w),
+        w.data_ptr(), h.data_ptr(), xd.data_ptr(), _ptr(scales), partials.data_ptr(),
+        out.data_ptr(), m, n, k, float(eps), *_modes(w, xd, precision),
+        _index(w), _stream(w),
     )
     _raise_on(lib, rc, "kl_cost")
     LAUNCHES["kl_cost"] += 1

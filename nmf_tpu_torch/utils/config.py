@@ -5,13 +5,21 @@ The reference's configuration is compile-time macros (``ITER_CHECK 25``,
 runtime fields with the reference values as :func:`reference_preset`.
 
 Precision on the card.  The JAX package maps each policy to a
-``jax.lax.Precision``; the port follows the H100 rules instead: under
-``matmul_dtype="float32"`` every GEMM is true IEEE f32, never TF32
-(``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.set_float32_matmul_precision("highest")``, set by
-:func:`nmf_tpu_torch.utils.device.resolve_device`), and accumulation is
-always f32.  The other policies validate as in the JAX package but the
-solver refuses them until their kernels exist.
+``jax.lax.Precision``; the port follows the H100 rules instead, and spells
+each policy out in its own arithmetic (:func:`nmf_tpu_torch.ops.mu.matmul`
+and ``csrc/fused_mu.cu``), never through a library precision flag:
+
+* ``"float32"``: true IEEE f32, never TF32
+  (``torch.backends.cuda.matmul.allow_tf32 = False`` and
+  ``torch.set_float32_matmul_precision("highest")``, set by
+  :func:`nmf_tpu_torch.utils.device.resolve_device`);
+* ``"float32_fast"``: the 3-pass bf16 split ``hi*bh + hi*bl + lo*bh`` of
+  the TPU kernels' ``_prep_operand``/``_kdot`` (on CUDA,
+  ``float32_matmul_precision("high")`` would mean TF32, not this);
+* ``"bfloat16"``: operands rounded to bf16 (nearest even), products summed
+  in f32.
+
+Accumulation is always f32.
 
 ``backend`` takes the JAX package's strings: ``"auto"`` and ``"pallas"``
 mean the hand-written CUDA kernels for CUDA tensors, ``"jnp"`` means plain
@@ -38,7 +46,9 @@ class Precision:
     * ``state_dtype``: dtype W and H are carried in between iterations.
     * ``x_dtype``: storage dtype of X (``"float32"``, ``"bfloat16"``,
       ``"int8"`` codes with per-column scales).
-    * ``x_quant_rows``: int8 scale granularity, 0 = one scale per column.
+    * ``x_quant_rows``: int8 scale granularity, 0 = one scale per column;
+      N > 0 = one scale per (N-row block, column), which the kernels do not
+      take: the solver sends such X to the plain ops on dequantized values.
     """
 
     matmul_dtype: str = "float32"
@@ -63,14 +73,10 @@ class Precision:
         """Dtype GEMM inputs are cast to (f32 for both f32 policies)."""
         return "bfloat16" if self.matmul_dtype == "bfloat16" else "float32"
 
-    @property
-    def all_f32(self) -> bool:
-        """True f32 GEMMs, f32 state and f32 X: the one policy the port
-        implements so far."""
-        return self == FP32
-
 
 FP32 = Precision("float32", "float32")
+BF16 = Precision("bfloat16", "float32")
+BF16_FULL = Precision("bfloat16", "float32", "bfloat16")  # bf16 X storage too
 
 
 @dataclasses.dataclass(frozen=True)

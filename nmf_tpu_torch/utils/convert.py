@@ -4,6 +4,11 @@ The port never imports ``nmf_tpu``: a JAX ``SolveConfig`` crosses over as
 ``dataclasses.asdict(cfg)``, arrays as NumPy, and a result comes back as a
 dict of NumPy values keyed by the ``SolveResult`` field names, so a test can
 compare both packages field by field.
+
+NumPy has no bf16 of its own: a JAX bf16 array comes out of ``np.asarray``
+with the ``ml_dtypes`` ``bfloat16`` dtype, and crosses bit for bit into a
+``torch.bfloat16`` tensor; a bf16 tensor goes back as an f32 array, which
+holds every bf16 value exactly.
 """
 
 from __future__ import annotations
@@ -16,7 +21,13 @@ import torch
 from .config import Precision, SolveConfig
 from .device import resolve_device
 
-__all__ = ["config_from_dict", "state_from_numpy", "result_to_numpy", "RESULT_FIELDS"]
+__all__ = [
+    "config_from_dict",
+    "state_from_numpy",
+    "result_to_numpy",
+    "to_tensor",
+    "RESULT_FIELDS",
+]
 
 RESULT_FIELDS = (
     "w", "h", "iterations", "cost", "cost_history", "num_checks",
@@ -36,21 +47,41 @@ def config_from_dict(d: Mapping) -> SolveConfig:
     return SolveConfig(precision=prec, **d)
 
 
-def state_from_numpy(x, w, h, device="cuda") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """X, W and H as contiguous f32 tensors on ``device``."""
+def to_tensor(a, device) -> torch.Tensor:
+    """A contiguous tensor of ``a`` on ``device`` keeping its dtype: bf16
+    (a tensor, or a NumPy array of the ``ml_dtypes`` bfloat16 dtype, bit
+    for bit), uint8 codes and f32 stay as they are; any other float array
+    becomes f32."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device).contiguous()
+    a = np.asarray(a)
+    if not a.flags.writeable:   # e.g. a JAX array's buffer: the tensor owns a copy
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device).contiguous()
+    if a.dtype != np.uint8:
+        a = a.astype(np.float32, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def state_from_numpy(x, w, h, device="cuda") -> Tuple:
+    """X, W and H as contiguous tensors on ``device``, each in its own
+    dtype (:func:`to_tensor`): f32 or bf16 state, f32 or bf16 X, or X as a
+    ``(uint8 codes, f32 scales)`` pair."""
     dev = resolve_device(device)
-    return tuple(
-        torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=dev)
-        for a in (x, w, h)
-    )
+    xt = tuple(to_tensor(a, dev) for a in x) if isinstance(x, tuple) else to_tensor(x, dev)
+    return xt, to_tensor(w, dev), to_tensor(h, dev)
 
 
 def result_to_numpy(res) -> Dict[str, np.ndarray]:
-    """Every ``SolveResult`` field as a NumPy array (None stays None)."""
+    """Every ``SolveResult`` field as a NumPy array (None stays None); bf16
+    factors come back as exact f32 copies."""
     out = {}
     for f in RESULT_FIELDS:
         v = getattr(res, f)
         if v is not None and hasattr(v, "detach"):
-            v = v.detach().cpu().numpy()
+            v = v.detach().cpu()
+            v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
         out[f] = None if v is None else np.asarray(v)
     return out

@@ -93,9 +93,16 @@ def test_run_with_random_init(tmp_path):
     ],
 )
 def test_refused_flag_exits_2(capsys, flags):
+    """A flag not in the port exits 2 naming its ROADMAP.md item.  The
+    precision flags, refused when this test was named, are ported: the
+    parser takes them, and the run exits 2 later, on its (here missing)
+    input."""
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
+    if flags[0] in ("--dtype", "--x-dtype"):
+        assert "file not found" in err and "ROADMAP.md" not in err
+        return
     assert flags[0] in err and "ROADMAP.md" in err
 
 

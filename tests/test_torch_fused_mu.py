@@ -9,6 +9,7 @@ factors rtol 1e-5 / atol 1e-7 against the kernel epilogue ``h * acc / sum``
 (the plain path computes ``h * (acc / sum)``), costs rel 1e-5.
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
@@ -20,6 +21,7 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from nmf_tpu.ops.pallas import fused_mu as jfm  # noqa: E402
+from nmf_tpu.utils import config as jcfg  # noqa: E402
 from nmf_tpu_torch.ops.kernels import fused_mu as tfm  # noqa: E402
 from nmf_tpu_torch.utils.config import Precision  # noqa: E402
 
@@ -204,20 +206,56 @@ def test_cuda_path_without_a_card_raises(problem):
     ],
 )
 def test_unported_modes_raise(problem, kw):
+    """Mostly parity now: the precision modes, refused when this test was
+    named, run and match the Pallas kernel in interpret mode (bf16 GEMMs:
+    rtol 2e-3, a last-ulp difference in W H may flip the bf16 rounding of a
+    Z entry; bf16 state: one bf16 ulp more).  ``numerator_only`` (the
+    sharded solver's hook) still raises."""
     x, w, h = problem
-    for fn in (tfm.update_h_fused, tfm.update_w_fused):
-        with pytest.raises(NotImplementedError):
-            fn(*_t(w, h, x), **kw)
+    if kw.get("numerator_only"):
+        for fn in (tfm.update_h_fused, tfm.update_w_fused):
+            with pytest.raises(NotImplementedError, match="numerator_only"):
+                fn(*_t(w, h, x), **kw)
+        return
+    prec = kw["precision"]
+    jprec = jcfg.Precision(*dataclasses.astuple(prec))
+    wt, ht, xt = _t(w, h, x)
+    wj, hj, xj = _j(w, h, x)
+    rtol = 2e-3 if prec.matmul_dtype == "bfloat16" else 1e-4
+    if prec.state_dtype == "bfloat16":
+        wt, ht = wt.to(torch.bfloat16), ht.to(torch.bfloat16)
+        wj, hj = wj.astype(jnp.bfloat16), hj.astype(jnp.bfloat16)
+        rtol += 2.0 ** -7
+    for ours_fn, ref_fn in ((tfm.update_h_fused, jfm.update_h_fused),
+                            (tfm.update_w_fused, jfm.update_w_fused)):
+        ours = ours_fn(wt, ht, xt, precision=prec)
+        ref = ref_fn(wj, hj, xj, precision=jprec, **BLOCKS)
+        assert ours.dtype == wt.dtype
+        np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref).astype(np.float32),
+                                   rtol=rtol, atol=1e-6)
 
 
 def test_int8_codes_raise(problem):
+    """Mostly parity now: uint8 codes with per-column scales, refused when
+    this test was named, match the Pallas kernels' in-register dequant.
+    Per-row-block scales, which the CUDA kernels lack, still raise on the
+    kernel path's operand check (it reads only dtypes and shapes, so it
+    runs here on CPU tensors)."""
+    from nmf_tpu.ops.quant import quantize_columns_np, quantize_rowblocks_np
+
     x, w, h = problem
-    wt, ht, xt = _t(w, h, x)
-    codes = (xt.to(torch.uint8), torch.ones(x.shape[1]))
-    with pytest.raises(NotImplementedError):
-        tfm.update_h_fused(wt, ht, codes)
-    with pytest.raises(NotImplementedError):
-        tfm.kl_cost_fused(codes, wt, ht)
+    wt, ht, _ = _t(w, h, x)
+    wj, hj, _ = _j(w, h, x)
+    q, s = quantize_columns_np(x, np.float32(2.2204e-16))
+    codes, codes_j = _t(q, s), _j(q, s)
+    np.testing.assert_allclose(tfm.update_h_fused(wt, ht, codes).numpy(),
+                               np.asarray(jfm.update_h_fused(wj, hj, codes_j, **BLOCKS)),
+                               rtol=RTOL, atol=ATOL)
+    assert float(tfm.kl_cost_fused(codes, wt, ht)) == pytest.approx(
+        float(jfm.kl_cost_fused(codes_j, wj, hj, **BLOCKS)), rel=COST_RTOL)
+    rows = _t(*quantize_rowblocks_np(x, np.float32(2.2204e-16), 16))
+    with pytest.raises(NotImplementedError, match="per-row-block"):
+        tfm._check_cuda_operands(wt, ht, rows)
 
 
 @pytest.mark.parametrize(

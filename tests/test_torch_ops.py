@@ -143,6 +143,23 @@ def test_update_keeps_nan(problem):
     ],
 )
 def test_unported_precision_raises(problem, prec):
+    """Parity now, under the name of the refusal it replaced: the bf16,
+    float32_fast, int8-X and bf16-state policies run and match
+    ``nmf_tpu.ops.mu`` (bf16 GEMMs: rtol 2e-3, a last-ulp difference in W H
+    may flip the bf16 rounding of a Z entry; float32_fast against XLA:CPU's
+    true f32: rtol 1e-4; bf16 state: one bf16 ulp more)."""
+    import dataclasses
+
     x, w, h = problem
-    with pytest.raises(NotImplementedError):
-        tmu.update_h(*_t(w, h, x), precision=prec)
+    wt, ht, xt = _t(w, h, x)
+    wj, hj, xj = jnp.asarray(w), jnp.asarray(h), jnp.asarray(x)
+    if prec.state_dtype == "bfloat16":
+        wt, ht = wt.to(torch.bfloat16), ht.to(torch.bfloat16)
+        wj, hj = wj.astype(jnp.bfloat16), hj.astype(jnp.bfloat16)
+    ours = tmu.update_h(wt, ht, xt, precision=prec)
+    ref = jmu.update_h(wj, hj, xj, precision=jcfg.Precision(*dataclasses.astuple(prec)))
+    assert ours.dtype == wt.dtype
+    rtol = {"bfloat16": 2e-3, "float32_fast": 1e-4, "float32": RTOL}[prec.matmul_dtype]
+    rtol += 2.0 ** -7 if prec.state_dtype == "bfloat16" else 0.0
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref).astype(np.float32),
+                               rtol=rtol, atol=ATOL)
