@@ -4,7 +4,7 @@
     python3 chip_smoke.py                     # from the root of a checkout
     python3 chip_smoke.py --phases card,kernels,modes,quant   # a subset
 
-Seven phases, in order; any failure raises and the exit code is non-zero:
+Eight phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed);
@@ -44,12 +44,28 @@ Seven phases, in order; any failure raises and the exit code is non-zero:
    ``float32``, ``bfloat16`` and ``float32_fast`` timed beside its plain
    version; then 50 iterations, float32 and bfloat16, through the kernels
    and through plain torch ops: final costs agree to 1e-4 (float32) and
-   1e-3 (bfloat16); iterations/s and TFLOP/s for both.
+   1e-3 (bfloat16); iterations/s and TFLOP/s for both;
+8. tilesparse: K5 (``h_numerator`` / ``w_numerator``) against its plain
+   version on the card at the ``tests/test_pallas.py`` problem, 160 x 200
+   with 32^2 tiles, 288 x 480 with 96 x 160 tiles, 8192^2 K=128 with 128^2
+   tiles at occupancy 0.08, and K = 300 and 2048, in every mode (float32,
+   ``bfloat16``, ``float32_fast``, bf16 tiles, bf16 state) within
+   ``MODE_LIMITS``, with phase 3's controls where a mode rounds or splits,
+   bitwise on a rerun, sentinel blocks exactly zero, each mode timed at
+   8192^2; then the tile-sparse solve at 8192^2, K=128, 200 iterations
+   under float32 and bfloat16: exactly 200 + 200 K5 launches, byte-identical
+   factors on a rerun, the cost against the ``backend="jnp"`` tiled solve
+   and (float32) the dense ``clamp_inputs=False`` solve through K1-K3,
+   iterations/s of all three; once at K=256 ``bfloat16``, and once with int8
+   tiles (the plain sweep by rule, 0 launches).
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
-a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+a JSON summary of the kernels (each with its launches on its main path,
+its time beside its plain version's, and its bound: the larger of its
+flops over the card's peak and its bytes over 3.35 TB/s, H100 SXM at 700 W;
+no single PyTorch call computes any of them, so ``library_ms`` is null);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -93,11 +109,21 @@ MODE_LIMITS = {
 }
 SAMPLES, CALLS = 10, 10
 KERNELS = [
-    # name, TPU kernel it replaces
-    ("update_h", "nmf_tpu/ops/pallas/fused_mu.py:245"),
-    ("update_w", "nmf_tpu/ops/pallas/fused_mu.py:378"),
-    ("kl_cost", "nmf_tpu/ops/pallas/fused_mu.py:516"),
+    # name, TPU kernel it replaces, source of the port's kernel
+    ("update_h", "nmf_tpu/ops/pallas/fused_mu.py:245", "nmf_tpu_torch/csrc/fused_mu.cu"),
+    ("update_w", "nmf_tpu/ops/pallas/fused_mu.py:378", "nmf_tpu_torch/csrc/fused_mu.cu"),
+    ("kl_cost", "nmf_tpu/ops/pallas/fused_mu.py:516", "nmf_tpu_torch/csrc/fused_mu.cu"),
+    ("h_numerator", "nmf_tpu/ops/pallas/tile_sparse.py:122", "nmf_tpu_torch/csrc/tile_sparse.cu"),
+    ("w_numerator", "nmf_tpu/ops/pallas/tile_sparse.py:122", "nmf_tpu_torch/csrc/tile_sparse.cu"),
 ]
+# Published peaks of one H100 SXM at 700 W (dense): f32 on the SIMT units,
+# bf16 on the tensor cores, and the HBM rate.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
+# Phase 8: the main tile-sparse problem (benchmarks/run_all.py:436-612,
+# RETUNE_r05 cells tile_sparse_*): m, n, k, tile edge, occupancy, seed
+TS_MAIN = (8192, 8192, 128, 128, 0.08, 0)
+TS_ITERS = 200
 # CLI tiers: name -> extra flags (the names of phase 3's modes where they match)
 TIERS = {
     "float32": [],
@@ -107,7 +133,7 @@ TIERS = {
     "x_int8": ["--x-dtype", "int8"],
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
-PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship")
+PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse")
 
 
 def check(cond, msg):
@@ -121,6 +147,13 @@ def card_name_and_limit() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def bound(flops, nbytes, kind="float32"):
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of ``flops`` over the peak of ``kind`` and ``nbytes`` over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def event_ms(fn, samples=SAMPLES, calls=CALLS) -> float:
@@ -165,12 +198,13 @@ def phase_card(card, out):
     log = lib_path.parent / "build.log"
     if fresh and log.exists():
         # one line per kernel: registers and spills from ptxas -v
-        name = None
+        name, spilled = None, []
         for line in log.read_text().splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
-                m = re.search(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize)"
-                              r"(?:ILi(\d+)E)?(?:I?LNS_4ModeE(\d)E)?", entry.group(1))
+                m = re.search(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize"
+                              r"|sweep_h|sweep_w)(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?",
+                              entry.group(1))
                 name = m.group(1) if m else entry.group(1)
                 if m and m.group(2):
                     name += f"<R={m.group(2)}"
@@ -179,6 +213,12 @@ def phase_card(card, out):
                 name += ">" if m and (m.group(2) or m.group(3)) else ""
             elif name and ("spill" in line and " 0 bytes spill stores" not in line or "Used" in line):
                 print(f"[{card}]   {name}: {line.split('info    :')[-1].strip()}")
+                if "spill" in line:
+                    spilled.append(name)
+        # the F32 Mode of K1/K2 holds two blocks an SM only without spills
+        # (PERF.md section 6)
+        bad = [n for n in spilled if "update_partial" in n and "F32" in n]
+        check(not bad, f"F32-Mode K1/K2 kernels spill: {bad}")
     out["build_seconds"] = secs
 
 
@@ -256,9 +296,28 @@ def _pairs(prec=None):
     }
 
 
+def _mu_bound(name, w, h, x, prec):
+    """The bound of one K1, K2 or K3 call on these operands: two GEMMs of
+    M x N x K a half-update, one for the cost (three bf16 passes each under
+    split3, which K3 does not take), X (codes and scales), W and H read
+    once, the result written once."""
+    m, k = w.shape
+    n = h.shape[1]
+    split3 = prec.matmul_dtype == "float32_fast" and name != "kl_cost"
+    kind = "float32" if prec.matmul_dtype == "float32" or not (
+        split3 or prec.matmul_dtype == "bfloat16") else "bfloat16"
+    flops = (3 if split3 else 1) * (1 if name == "kl_cost" else 2) * 2 * m * n * k
+    x_bytes = sum(t.numel() * t.element_size() for t in (x if isinstance(x, tuple) else (x,)))
+    out_bytes = {"update_h": k * n * h.element_size(), "update_w": m * k * w.element_size(),
+                 "kl_cost": 4}[name]
+    nbytes = x_bytes + (w.numel() + h.numel()) * w.element_size() + out_bytes
+    return bound(flops, nbytes, kind)
+
+
 def phase_kernels(card, out):
     print(f"[{card}] phase 2: kernels (float32) vs plain torch on the card")
     from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.utils.config import Precision
 
     pairs = _pairs()
     stats = out["kernels"]
@@ -273,6 +332,7 @@ def phase_kernels(card, out):
             st["max_abs_err"] = max(st["max_abs_err"], max_err)
             if si == 0:  # the main path's shape
                 st["ms"], st["plain_ms"] = kms, pms
+                st["bound_ms"], st["bound_by"] = _mu_bound(name, w, h, x, Precision())
     # every K chunk width and several chunks, up to the rank ceiling
     for m, n, k in COVERAGE_SHAPES:
         w, h, x = _operands(m, n, k)
@@ -415,9 +475,10 @@ def phase_modes(card, out):
                     what += f"; control ({spec.control.matmul_dtype} GEMMs) {c_measured}"
                 if si == 0:  # the main path's shape, timed
                     kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
-                    ms["ms"], ms["plain_ms"] = kms, pms
-                    print(f"[{card}] {where}: kernel {kms} ms, plain {pms} ms, {what}, "
-                          "bitwise-repeatable")
+                    b_ms, b_by = _mu_bound(name, w, h, x, spec.prec)
+                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    print(f"[{card}] {where}: kernel {kms} ms, plain {pms} ms, bound {b_ms} ms "
+                          f"({b_by}), {what}, bitwise-repeatable")
                 else:
                     print(f"[{card}] {where}: {what}, bitwise-repeatable")
 
@@ -561,9 +622,11 @@ def phase_flagship(card, out):
         for name in ("update_h", "update_w"):
             kern, plain = pairs[name]
             kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x), 5, 5)
-            out["kernels"][name]["flagship"][dtype] = {"ms": kms, "plain_ms": pms}
+            b_ms, b_by = _mu_bound(name, w, h, x, nt.Precision(dtype))
+            out["kernels"][name]["flagship"][dtype] = {"ms": kms, "plain_ms": pms,
+                                                       "bound_ms": b_ms, "bound_by": b_by}
             print(f"[{card}] flagship {name} [{dtype}] {m}x{n}x{k}: kernel {kms} ms, "
-                  f"plain {pms} ms")
+                  f"plain {pms} ms, bound {b_ms} ms ({b_by})")
     for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
         base = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype))
         results = {}
@@ -592,6 +655,345 @@ def phase_flagship(card, out):
                       f"2 costs, {ips} it/s, {tf} TFLOP/s, final cost {cost}")
         print(f"[{card}] flagship {dtype} costs agree: rel {rel} (limit {limit})")
 
+def tile_problem(m, k, n, tile, occ_frac, seed=0):
+    """Clustered-sparse X and dense W, H: the generator of the JAX package's
+    tile-sparse benchmark (benchmarks/tile_sparse_tune.py:29-41), copied
+    because its harness imports the JAX package."""
+    rng = np.random.RandomState(seed)
+    mb, nb = m // tile, n // tile
+    occ = rng.rand(mb, nb) < occ_frac
+    x = np.zeros((m, n), np.float32)
+    for i, j in zip(*np.nonzero(occ)):
+        blk = rng.rand(tile, tile).astype(np.float32)
+        blk[rng.rand(tile, tile) < 0.5] = 0
+        x[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = blk
+    w = rng.rand(m, k).astype(np.float32)
+    h = rng.rand(k, n).astype(np.float32)
+    return x, w, h
+
+
+def _fixed_tile_problem(m, k, n, tile, blocks, seed, zero_frac):
+    """X with the given occupied blocks (their entries zeroed at random),
+    W and H clamped: the problems of tests/test_pallas.py and
+    tests/test_sparse.py."""
+    rng = np.random.RandomState(seed)
+    x = np.zeros((m, n), np.float32)
+    for i, j in blocks:
+        blk = rng.rand(*tile).astype(np.float32)
+        blk[rng.rand(*tile) < zero_frac] = 0
+        rows, cols = slice(i * tile[0], (i + 1) * tile[0]), slice(j * tile[1], (j + 1) * tile[1])
+        x[rows, cols] = blk[: min(tile[0], m - i * tile[0]), : min(tile[1], n - j * tile[1])]
+    w = np.maximum(rng.rand(m, k).astype(np.float32), np.float32(EPS))
+    h = np.maximum(rng.rand(k, n).astype(np.float32), np.float32(EPS))
+    return x, w, h
+
+
+def _ts_cases():
+    """name -> (X, W, H, tile) for the K5 checks; "main" is the solve's."""
+    m, n, k, t, occ, seed = TS_MAIN
+    return {
+        "pallas 512x640 K=16": (*_fixed_tile_problem(
+            512, 16, 640, (128, 128), [(0, 0), (1, 2), (3, 4), (2, 2), (0, 4)], 3, 0.6), (128, 128)),
+        "ragged 160x200 K=8": (*_fixed_tile_problem(
+            160, 8, 200, (32, 32), [(0, 0), (1, 3), (2, 5), (4, 6), (3, 1), (0, 4)], 41, 0.5),
+            (32, 32)),
+        "96x160 tiles 288x480 K=24": (*_fixed_tile_problem(
+            288, 24, 480, (96, 160), [(0, 0), (0, 2), (1, 1), (2, 1), (2, 2)], 5, 0.5), (96, 160)),
+        "main": (*tile_problem(m, k, n, t, occ, seed), (t, t)),
+        "K=300": (*tile_problem(384, 300, 512, 128, 0.5, 1), (128, 128)),
+        "K=2048": (*tile_problem(256, 2048, 384, 128, 0.5, 2), (128, 128)),
+    }
+
+
+class SweepCase(NamedTuple):
+    w: torch.Tensor        # (Mp, K), padded with zeros
+    h: torch.Tensor        # (K, Np)
+    tiles: torch.Tensor    # (T, bm, bn)
+    plans: dict            # target -> (perm, rb, cb) int32 on the card
+    layouts: dict          # target -> SweepLayout on the card (the plain version's)
+    empty: dict            # target -> output blocks with no tile
+
+
+def _sweep_case(x, w, h, tile):
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import tile_sparse as ts
+
+    tx = nt.tiles_from_dense(x, tile)
+    bm, bn = tile
+    mb, nb = -(-x.shape[0] // bm), -(-x.shape[1] // bn)
+    wp = np.zeros((mb * bm, w.shape[1]), np.float32)
+    hp = np.zeros((h.shape[0], nb * bn), np.float32)
+    wp[: w.shape[0]], hp[:, : h.shape[1]] = w, h
+    plans, layouts, empty = {}, {}, {}
+    for target, by, n_out in (("h", "col", nb), ("w", "row", mb)):
+        plan = ts.sweep_plan(tx.rows, tx.cols, n_out, by)
+        plans[target] = tuple(torch.from_numpy(a).cuda() for a in plan)
+        layouts[target] = ts.sweep_layout(*plan, n_out, target, device="cuda")
+        key = plan[2] if by == "col" else plan[1]
+        empty[target] = sorted(set(key[plan[0] < 0].tolist()))
+    return SweepCase(torch.from_numpy(wp).cuda(), torch.from_numpy(hp).cuda(),
+                     torch.from_numpy(tx.tiles).cuda(), plans, layouts, empty)
+
+
+def _z_biased_tiles(case, bm, bn):
+    """f32 tiles on which a kernel that skips rounding Z to bf16 is off by a
+    bias of one sign: X = b * (1 + 2**-10) * Y, b the tile's own values
+    rounded to bf16 and Y = W H (bf16 W and H, in f64), so that the sound
+    Z = X / Y rounds to b and the skipped one sits 2**-10 above it."""
+    perm, rb, cb = (a.long() for a in case.plans["h"])
+    real = perm >= 0
+    perm, rb, cb = perm[real], rb[real], cb[real]
+    k = case.w.shape[1]
+    wb = case.w.to(torch.bfloat16).double().reshape(-1, bm, k)
+    hb = case.h.to(torch.bfloat16).double().reshape(k, -1, bn).permute(1, 0, 2)
+    y = torch.bmm(wb[rb], hb[cb])
+    b = case.tiles[perm].to(torch.bfloat16).double()
+    tiles = torch.empty_like(case.tiles)
+    tiles[perm] = (b * (1 + 2.0 ** -10) * y).float()
+    return tiles
+
+
+def _k5_modes():
+    """mode -> (Precision, W/H dtype, operands, limits, control Precision):
+    operands "base", "exposed" (phase 3's W and H), "bf16_tiles", or
+    "z_biased" (X built so that a skipped rounding of Z shows)."""
+    from nmf_tpu_torch.utils.config import Precision
+
+    f32 = Precision()
+    bf16_state = Precision("bfloat16", "bfloat16", "float32")
+    return {
+        "float32": (f32, torch.float32, "base", None, None),
+        "bfloat16": (Precision("bfloat16"), torch.float32, "exposed",
+                     MODE_LIMITS["bfloat16"], f32),
+        "float32_fast": (Precision("float32_fast"), torch.float32, "exposed",
+                         MODE_LIMITS["float32_fast"], f32),
+        "bf16_tiles": (Precision(x_dtype="bfloat16"), torch.float32, "bf16_tiles",
+                       MODE_LIMITS["f32_gemm"], None),
+        # W and H in bf16 are their own rounding: the control skips only Z's
+        "bf16_state": (bf16_state, torch.bfloat16, "z_biased", MODE_LIMITS["bfloat16"],
+                       dataclasses.replace(bf16_state, matmul_dtype="float32")),
+    }
+
+
+def _k5_err(out, ref, where):
+    """(largest relative error, RMS relative error) over the entries where
+    the plain version is not zero; where it is zero (blocks with no tile,
+    padding) the kernel must read exactly zero too."""
+    zero = ref == 0
+    check(bool((out[zero] == 0).all()), f"{where}: nonzero where the plain version is zero")
+    rel = ((out.double() - ref.double()).abs() / ref.double().abs())[~zero]
+    return float(rel.max()), float(rel.square().mean().sqrt())
+
+
+def _k5_bound(w, h, tiles, plan, target, prec):
+    """K5's bound on these operands: two GEMMs of bm x bn x K a real plan
+    entry (three bf16 passes each under split3), the tiles, W, H and the
+    plan read once, the numerator written once."""
+    bm, bn = tiles.shape[1:]
+    k = w.shape[1]
+    entries = int((plan[0] >= 0).sum())
+    passes = 3 if prec.matmul_dtype == "float32_fast" else 1
+    flops = passes * 4 * bm * bn * k * entries
+    out_words = k * h.shape[1] if target == "h" else w.shape[0] * k
+    nbytes = (tiles.numel() * tiles.element_size()
+              + (w.numel() + h.numel()) * w.element_size()
+              + 3 * 4 * plan[0].numel() + 4 * out_words)
+    kind = "float32" if prec.matmul_dtype == "float32" else "bfloat16"
+    return bound(flops, nbytes, kind)
+
+
+def phase_tilesparse_kernels(card, out):
+    from nmf_tpu_torch.ops.kernels import tile_sparse as ts
+
+    stats = out["kernels"]
+    modes = _k5_modes()
+    for label, (x, w, h, tile) in _ts_cases().items():
+        base = _sweep_case(x, w, h, tile)
+        bm, bn = tile
+        for mode, (prec, state, operands, limits, control) in modes.items():
+            wk, hk, tiles = base.w, base.h, base.tiles
+            if operands == "exposed":
+                rng = np.random.RandomState(sum(wk.shape) + hk.shape[1])
+                wk, hk = _exposed(rng, tuple(wk.shape), mode), _exposed(rng, tuple(hk.shape), mode)
+            elif operands == "bf16_tiles":
+                tiles = tiles.to(torch.bfloat16)
+            elif operands == "z_biased":
+                tiles = _z_biased_tiles(base, bm, bn)
+            wk, hk = wk.to(state), hk.to(state)
+            for target, fn in (("h", ts.h_numerator), ("w", ts.w_numerator)):
+                name = f"{target}_numerator"
+                plan, layout = base.plans[target], base.layouts[target]
+                where = f"{name} [{mode}] {label} tiles {bm}x{bn}"
+
+                def kern(p=prec):
+                    return fn(wk, hk, tiles, *plan, EPS, p)
+
+                def plain():
+                    return ts.sweep_plain(wk, hk, tiles, layout, EPS, prec, target)
+
+                res, ref = _run_pair(lambda *_: kern(), lambda *_: plain(), wk, hk, tiles, where)
+                n_out = res.shape[1] // bn if target == "h" else res.shape[0] // bm
+                blocks = (res.reshape(-1, n_out, bn).transpose(0, 1) if target == "h"
+                          else res.reshape(n_out, bm, -1))
+                check(all(bool((blocks[b] == 0).all()) for b in base.empty[target]),
+                      f"{where}: a block with no tile is not exactly zero")
+                err, spread = _k5_err(res, ref, where)
+                max_abs = float((res - ref).abs().max())
+                if limits is None:   # float32: phase 2's tolerance
+                    rtol, atol, _ = F32_TOL
+                    worst = float(((res - ref).abs() - rtol * ref.abs()).max())
+                    check(worst <= atol, f"{where}: worst excess over rtol {rtol}: {worst}")
+                    what = f"max abs err {max_abs}, worst excess over rtol {rtol}: {worst}"
+                else:
+                    max_limit, spread_limit, _ = limits
+                    check(max_limit is None or err <= max_limit,
+                          f"{where}: max rel err {err} (limit {max_limit})")
+                    check(spread_limit is None or spread <= spread_limit,
+                          f"{where}: rms rel err {spread} (limit {spread_limit})")
+                    what = (f"max rel err {err} (limit {max_limit}), rms rel err {spread} "
+                            f"(limit {spread_limit})")
+                st = stats[name]
+                ms = st["modes"].setdefault(mode, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                                   "err": 0.0, "limit": limits and limits[1]})
+                ms["max_abs_err"] = max(ms["max_abs_err"], max_abs)
+                ms["max_rel_err"] = max(ms["max_rel_err"], err)
+                ms["err"] = max(ms["err"], spread)
+                if mode == "float32":
+                    st["max_abs_err"] = max(st["max_abs_err"], max_abs)
+                if control is not None:
+                    _, c_spread = _k5_err(kern(control), ref, where)
+                    check(c_spread > limits[1], f"{where}: the control ({control.matmul_dtype} "
+                          f"GEMMs) reads {c_spread}, within the limit {limits[1]}")
+                    ms["control_min"] = min(ms.get("control_min", c_spread), c_spread)
+                    what += f"; control ({control.matmul_dtype} GEMMs) {c_spread}"
+                if label == "main":   # the solve's shape, timed
+                    kms, pms = timed_pair(kern, plain)
+                    b_ms, b_by = _k5_bound(wk, hk, tiles, plan, target, prec)
+                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    if mode == "float32":
+                        st.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    what = (f"kernel {kms} ms, plain {pms} ms, bound {b_ms} ms ({b_by}); "
+                            + what)
+                print(f"[{card}] {where}: {what}, bitwise-repeatable")
+
+
+def _ts_solve(x, w, h, cfg, **kw):
+    """(result, host seconds) of one tile-sparse solve on the card."""
+    import nmf_tpu_torch as nt
+
+    t0 = time.perf_counter()
+    res = nt.solve_sparse_tiled(x, w, h, cfg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _counted(fn):
+    """(fn(), K5 launches, K5 plain calls, K1-K3 launches) with every count
+    set to 0 just before."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.ops.kernels import tile_sparse as ts
+
+    fused_mu.reset_counts()
+    ts.reset_counts()
+    res = fn()
+    return res, dict(ts.LAUNCHES), dict(ts.PLAIN_CALLS), dict(fused_mu.LAUNCHES)
+
+
+def _check_history(res, where):
+    hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
+    check(int(res.iterations) == TS_ITERS and hist.shape == (TS_ITERS // 25,),
+          f"{where}: {int(res.iterations)} iterations, {hist.shape[0]} checks")
+    check(bool(np.all(np.isfinite(hist)) and np.all(np.diff(hist) < 0)),
+          f"{where}: costs not finite and decreasing: {hist}")
+    return hist
+
+
+def phase_tilesparse_solves(card, out):
+    import nmf_tpu_torch as nt
+
+    m, n, k, t, occ, seed = TS_MAIN
+    x, w, h = tile_problem(m, k, n, t, occ, seed)
+    tx = nt.tiles_from_dense(x, (t, t))
+    print(f"[{card}] tile-sparse X {m}x{n}, {t}x{t} tiles: {tx.tiles.shape[0]} occupied "
+          f"(occupancy {tx.occupancy()}), K={k}, {TS_ITERS} iterations")
+    eps = np.float32(EPS)
+    want = {"h_numerator": TS_ITERS, "w_numerator": TS_ITERS}
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
+        cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(dtype))
+        # warm both paths once (the library, the allocator, cuBLAS)
+        for backend in ("auto", "jnp"):
+            _ts_solve(tx, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2))
+        (res, secs), launches, plain_calls, dense = _counted(lambda: _ts_solve(tx, w, h, cfg))
+        where = f"tiled solve [{dtype}]"
+        check(launches == want, f"{where}: K5 launches {launches}, expected {want}")
+        check(not any(plain_calls.values()) and not any(dense.values()),
+              f"{where}: plain calls {plain_calls}, K1-K3 launches {dense}")
+        out["launches"][f"tiled {dtype}"] = launches
+        hist = _check_history(res, where)
+        res2, secs2 = _ts_solve(tx, w, h, cfg)
+        for f in ("w", "h"):
+            check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
+                  f"{where}: {f.upper()} differs on a rerun")
+        cost = float(res.cost)
+        plain, p_secs = _ts_solve(tx, w, h, dataclasses.replace(cfg, backend="jnp"))
+        rel = abs(cost - float(plain.cost)) / abs(float(plain.cost))
+        check(rel <= limit, f"{where}: cost {cost} vs the jnp tiled solve {float(plain.cost)}: "
+              f"rel {rel} (limit {limit})")
+        line = (f"[{card}] {where}: K5 {launches}, cost {cost}, history {hist.tolist()}, "
+                f"byte-identical on rerun; {TS_ITERS / secs} and {TS_ITERS / secs2} it/s through "
+                f"K5, {TS_ITERS / p_secs} it/s plain sweep (backend='jnp', cost {float(plain.cost)}, "
+                f"rel {rel}, limit {limit})")
+        out["tiled"][dtype] = {"k5_its": [TS_ITERS / secs, TS_ITERS / secs2],
+                               "plain_its": TS_ITERS / p_secs, "rel_vs_plain": rel}
+        if dtype == "float32":
+            # the exact-zero contract: the dense solve through K1-K3 with
+            # clamp_inputs=False on clamped factors
+            nt.solve(x, np.maximum(w, eps), np.maximum(h, eps),
+                     dataclasses.replace(cfg, max_iter=2), clamp_inputs=False, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (dres, _, _, dense) = _counted(lambda: nt.solve(
+                x, np.maximum(w, eps), np.maximum(h, eps), cfg, clamp_inputs=False,
+                device="cuda"))
+            torch.cuda.synchronize()
+            d_secs = time.perf_counter() - t0
+            check(dense == {"update_h": TS_ITERS, "update_w": TS_ITERS, "kl_cost": TS_ITERS // 25},
+                  f"dense solve: K1-K3 launches {dense}")
+            d_rel = abs(cost - float(dres.cost)) / abs(float(dres.cost))
+            check(d_rel <= 1e-4, f"{where}: cost {cost} vs the dense clamp_inputs=False solve "
+                  f"{float(dres.cost)}: rel {d_rel}")
+            line += (f"; dense solve through K1-K3 {TS_ITERS / d_secs} it/s (host clock incl. "
+                     f"the {x.nbytes / 1e6} MB X upload), cost {float(dres.cost)}, rel {d_rel} "
+                     "(limit 1e-4)")
+            out["tiled"]["dense_its"] = TS_ITERS / d_secs
+        print(line)
+
+    # the RETUNE cell's rank, bfloat16 (the generator draws X before W and
+    # H, so X and its tiles are the same)
+    _, wk, hk = tile_problem(m, 256, n, t, occ, seed)
+    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision("bfloat16"))
+    _ts_solve(tx, wk, hk, dataclasses.replace(cfg, max_iter=2))
+    (res, secs), launches, plain_calls, _ = _counted(lambda: _ts_solve(tx, wk, hk, cfg))
+    check(launches == want and not any(plain_calls.values()), f"K=256: K5 launches {launches}")
+    hist = _check_history(res, "tiled solve [bfloat16] K=256")
+    out["tiled"]["bfloat16 K=256"] = TS_ITERS / secs
+    print(f"[{card}] tiled solve [bfloat16] K=256: K5 {launches}, cost {float(res.cost)}, "
+          f"{TS_ITERS / secs} it/s (host clock incl. the tile upload)")
+    # int8 tiles: per-tile uint8 codes take the plain sweep by rule
+    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(x_dtype="int8"))
+    (res, secs), launches, plain_calls, dense = _counted(lambda: _ts_solve(tx, w, h, cfg))
+    check(not any(launches.values()) and not any(plain_calls.values()) and not any(dense.values()),
+          f"int8 tiles: launches {launches}, plain calls {plain_calls}, K1-K3 {dense}")
+    hist = _check_history(res, "tiled solve [int8 tiles]")
+    print(f"[{card}] tiled solve [int8 tiles]: plain sweep by rule (0 launches), cost "
+          f"{float(res.cost)}, history {hist.tolist()}, {TS_ITERS / secs} it/s")
+
+
+def phase_tilesparse(card, out):
+    print(f"[{card}] phase 8: tile-sparse K5 vs plain torch on the card, and the tiled solve")
+    phase_tilesparse_kernels(card, out)
+    phase_tilesparse_solves(card, out)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
@@ -619,8 +1021,8 @@ def main(argv=None) -> int:
 
     out = {
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}}
-                    for name, _ in KERNELS},
-        "launches": {}, "cli": {}, "flagship": {},
+                    for name, _, _ in KERNELS},
+        "launches": {}, "cli": {}, "flagship": {}, "tiled": {},
     }
     t_start = time.perf_counter()
     phase_card(card, out)  # always: every other phase needs the build
@@ -638,31 +1040,40 @@ def main(argv=None) -> int:
             phase_inprocess(card, tmp, out)
     if "flagship" in phases:
         phase_flagship(card, out)
+    if "tilesparse" in phases:
+        phase_tilesparse(card, out)
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
               "a subset prints no result")
         return 0
 
-    main_launches = out["launches"]["float32"]
     kernels = []
-    for name, replaces in KERNELS:
+    for name, replaces, source in KERNELS:
         st = out["kernels"][name]
-        # each mode: its kernel-vs-plain numbers and the launches of its tier's solve
-        modes = {mode: {**ms, "launches": out["launches"][mode][name]}
+        # each kernel's main path: the f32 reference solve for K1-K3, the
+        # f32 tiled solve for K5
+        tiled = name.endswith("_numerator")
+        main_launches = out["launches"]["tiled float32" if tiled else "float32"]
+        # each mode: its kernel-vs-plain numbers, and for K1-K3 the launches
+        # of its tier's solve
+        modes = {mode: ms if tiled else {**ms, "launches": out["launches"][mode][name]}
                  for mode, ms in st["modes"].items()}
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "nmf_tpu_torch/csrc/fused_mu.cu",
+            "source": source,
             "replaces": replaces,
             "launches": main_launches[name],
             "max_abs_err": st["max_abs_err"],
             "ms": st["ms"],
             "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"],
+            "library_ms": None,
             "modes": modes,
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
         })
-    print(f"[{card}] all seven phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] all eight phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,9 @@ KL-divergence Lee-Seung multiplicative updates with the reference's
 semantics (``recoord/nmf-gpu``), byte-compatible ``.bin`` I/O and the
 fixed-iteration determinism contract.  The update and cost hot path runs in
 hand-written CUDA kernels (``csrc/fused_mu.cu``) on CUDA tensors and in
-plain torch ops on CPU tensors.  Imports torch and NumPy, never JAX.
+plain torch ops on CPU tensors; so do the numerator sweeps of the
+tile-sparse solve (``csrc/tile_sparse.cu``).  Imports torch and NumPy,
+never JAX.
 
 Quick start::
 
@@ -16,6 +18,12 @@ Quick start::
 from .io import fixtures
 from .io.binio import read_matrix, write_matrix
 from .models.solver import SolveResult, solve
+from .models.sparse_tiled import (
+    TileSparseX,
+    solve_sparse_tiled,
+    tiles_from_coo,
+    tiles_from_dense,
+)
 from .ops.divergence import kl_divergence
 from .ops.elementwise import EPS, eps_clamp
 from .ops.mu import mu_step, update_h, update_w
@@ -35,6 +43,10 @@ __all__ = [
     "update_w",
     "solve",
     "SolveResult",
+    "TileSparseX",
+    "solve_sparse_tiled",
+    "tiles_from_coo",
+    "tiles_from_dense",
     "SolveConfig",
     "Precision",
     "reference_preset",

@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface at first use, under ``build/nmf_tpu_torch/<hash>/`` beside the
-package (the hash covers the sources and the flags, so an edit rebuilds),
-and ``ctypes`` loads it.  Nothing is built or loaded at import time: this
+``nvcc`` compiles each source (``fused_mu.cu``: K1-K3, ``tile_sparse.cu``:
+K5; both include ``mu_tile.cuh``) into an object, all at once in parallel,
+and links them into one shared library with a plain C interface at first
+use, under ``build/nmf_tpu_torch/<hash>/`` beside the package (the hash
+covers the sources, the headers and the flags, so an edit rebuilds);
+``ctypes`` loads it.  Nothing is built or loaded at import time: this
 module is imported on machines with no ``nvcc`` and no card.
 """
 
@@ -20,14 +22,16 @@ import subprocess
 __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]   # nmf_tpu_torch/
-_SOURCES = (_PKG / "csrc" / "fused_mu.cu",)
-_LIB_NAME = "libfused_mu.so"
+_CSRC = _PKG / "csrc"
+_SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "tile_sparse.cu")
+_HEADERS = (_CSRC / "mu_tile.cuh",)
+_LIB_NAME = "libnmf_kernels.so"
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no fast math:
 # the kernels rely on IEEE division and the accurate logf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -44,6 +48,10 @@ _SIGNATURES = {
     # w, h, x, scales, partials, out; m, n, k; eps; state_bf16, x_kind,
     # gemm, device; stream
     "nmf_kl_cost": ([_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),
+    # w, h, tiles, perm, rb, cb, out; mp, np, k, bm, bn, n_tiles, steps, kc;
+    # eps; state_bf16, x_kind, gemm, device; stream
+    "nmf_h_sweep": ([_P] * 7 + [_I] * 8 + [_F] + [_I] * 4 + [_P], _I),
+    "nmf_w_sweep": ([_P] * 7 + [_I] * 8 + [_F] + [_I] * 4 + [_P], _I),
 }
 
 
@@ -63,25 +71,45 @@ def _nvcc() -> str:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources lives (built or not)."""
     digest = hashlib.sha256()
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return _PKG.parent / "build" / "nmf_tpu_torch" / digest.hexdigest()[:16] / _LIB_NAME
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns (all succeeded, their joined log)."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    logs = [f"$ {' '.join(c)}\n{p.communicate()[0]}" for c, p in zip(cmds, procs)]
+    return all(p.returncode == 0 for p in procs), "".join(logs)
+
+
 def _compile(out: pathlib.Path) -> None:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    # per-process temporary name + atomic rename: concurrent first uses
+    # per-process temporary names + atomic rename: concurrent first uses
     # (a CLI subprocess beside its parent) never load a half-written file
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    pid = os.getpid()
+    tmp = out.with_name(f".{out.name}.{pid}.tmp")
+    # nvcc tells an object by its ".o" suffix
+    objs = [out.with_name(f".{src.stem}.{pid}.o") for src in _SOURCES]
+    ok, log = _run_all(
+        [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for o, src in zip(objs, _SOURCES)]
+    )
+    if ok:   # the link: the objects hold whole device code (no -rdc)
+        ok, link_log = _run_all(
+            [[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]]
+        )
+        log += link_log
     (out.parent / "build.log").write_text(log)
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if not ok:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, out)
 
 

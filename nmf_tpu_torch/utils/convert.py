@@ -25,6 +25,7 @@ __all__ = [
     "config_from_dict",
     "state_from_numpy",
     "result_to_numpy",
+    "tile_sparse_from",
     "to_tensor",
     "RESULT_FIELDS",
 ]
@@ -72,6 +73,21 @@ def state_from_numpy(x, w, h, device="cuda") -> Tuple:
     dev = resolve_device(device)
     xt = tuple(to_tensor(a, dev) for a in x) if isinstance(x, tuple) else to_tensor(x, dev)
     return xt, to_tensor(w, dev), to_tensor(h, dev)
+
+
+def tile_sparse_from(tx):
+    """The port's ``TileSparseX`` from any object with ``.tiles``, ``.rows``,
+    ``.cols`` and ``.shape`` (a JAX ``TileSparseX`` among them): the tiles
+    as a CPU tensor (f32, or bf16 bit for bit, by :func:`to_tensor`), the
+    block ids as int32 arrays."""
+    from ..models.sparse_tiled import TileSparseX
+
+    return TileSparseX(
+        tiles=to_tensor(tx.tiles, "cpu"),
+        rows=np.asarray(tx.rows, np.int32),
+        cols=np.asarray(tx.cols, np.int32),
+        shape=tuple(int(d) for d in tx.shape),
+    )
 
 
 def result_to_numpy(res) -> Dict[str, np.ndarray]:

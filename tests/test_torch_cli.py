@@ -167,6 +167,7 @@ def test_import_loads_no_jax():
     code = (
         "import sys, nmf_tpu_torch, nmf_tpu_torch.cli, nmf_tpu_torch.utils.convert, "
         "nmf_tpu_torch.utils.metrics, nmf_tpu_torch.ops.kernels.fused_mu, "
+        "nmf_tpu_torch.ops.kernels.tile_sparse, nmf_tpu_torch.models.sparse_tiled, "
         "nmf_tpu_torch.ops.kernels._build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nmf_tpu'))\n"
         "print(bad)\n"
@@ -186,6 +187,7 @@ def test_sources_never_import_jax_or_the_jax_package():
 
 def test_kernel_path_has_no_fallback_handler():
     """No ``except`` on the CUDA path: a failed build or launch raises."""
-    for rel in ("ops/kernels/fused_mu.py", "ops/kernels/_build.py", "models/solver.py"):
+    for rel in ("ops/kernels/fused_mu.py", "ops/kernels/tile_sparse.py", "ops/kernels/_build.py",
+                "models/solver.py", "models/sparse_tiled.py"):
         src = (PKG / rel).read_text()
         assert "except" not in src, rel
