@@ -4,7 +4,7 @@
     python3 chip_smoke.py                     # from the root of a checkout
     python3 chip_smoke.py --phases card,kernels,modes,quant   # a subset
 
-Eight phases, in order; any failure raises and the exit code is non-zero:
+Nine phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed);
@@ -57,15 +57,39 @@ Eight phases, in order; any failure raises and the exit code is non-zero:
    factors on a rerun, the cost against the ``backend="jnp"`` tiled solve
    and (float32) the dense ``clamp_inputs=False`` solve through K1-K3,
    iterations/s of all three; once at K=256 ``bfloat16``, and once with int8
-   tiles (the plain sweep by rule, 0 launches).
+   tiles (the plain sweep by rule, 0 launches);
+9. oocore: K1/K2 ``numerator_only`` in every mode against the plain
+   numerators at phase 3's shapes, the streamed block 1025 x 65408 x 32
+   (timed there) and the ragged last block 1025 x 30592 x 32, within
+   ``MODE_LIMITS`` with phase 3's controls (bf16 state: X built so that a
+   skipped Z rounding shows), bitwise on a rerun, the full update equal bit
+   for bit to ``base * numerator / denom`` and within the mode's limits of
+   its plain version, and K > 2048 on the plain ops by rule; the streamed
+   cost pass's K3 (f32 GEMMs; f32, bf16 and int8 X, bf16 state) against
+   ``kl_cost_plain`` at the same shapes (rel 1e-5, timed at the block);
+   then ``solve_out_of_core`` at an hour
+   of audio, 1025 x 619264, K=32 (X made on the card from ``--seed``, moved
+   to the host), 10 iterations, a cost pass every 5, in f32, bf16 and int8
+   X: exactly blocks x iterations launches of K1 and of K2
+   ``numerator_only``, blocks x passes of K3, the cost within 1e-5 of the
+   in-memory ``solve`` (f32: and of the ``jnp`` streamed solve), factors
+   within ``OOC_FACTOR_RTOL`` of it, byte-identical reruns, peak device
+   memory under a third of X, the H2D rate, the fraction of the H2D
+   roofline reached, the host's block fills (gather into pinned memory)
+   and waits on the host clock, and the device's kernel / copy / overlap /
+   idle shares (``torch.profiler``); and ``run --out-of-core --block-n 1024`` at 2048 x
+   8192, K=128, through the CLI, its files byte-equal to the in-process
+   streamed solve, its cost within 1e-5 of the in-memory solve.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
 a JSON summary of the kernels (each with its launches on its main path,
 its time beside its plain version's, and its bound: the larger of its
 flops over the card's peak and its bytes over 3.35 TB/s, H100 SXM at 700 W;
-no single PyTorch call computes any of them, so ``library_ms`` is null);
-the last line is ``{"ok": true, "device": {...}}``.
+no single PyTorch call computes any of them, so ``library_ms`` is null;
+K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
+their launches on the streamed solve); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import argparse
@@ -133,12 +157,20 @@ TIERS = {
     "x_int8": ["--x-dtype", "int8"],
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
-PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse")
+PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
+          "oocore")
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def _launches(**counts):
+    """Every K1-K3 launch count (``fused_mu.LAUNCHES``' keys), 0 unless given."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    return {key: counts.get(key, 0) for key in fused_mu.LAUNCHES}
 
 
 def card_name_and_limit() -> str:
@@ -202,7 +234,7 @@ def phase_card(card, out):
         for line in log.read_text().splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
-                m = re.search(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize"
+                m = re.search(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize|sum_splits"
                               r"|sweep_h|sweep_w)(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?",
                               entry.group(1))
                 name = m.group(1) if m else entry.group(1)
@@ -572,8 +604,8 @@ def phase_inprocess(card, tmp, out):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches, plain_calls = dict(fused_mu.LAUNCHES), dict(fused_mu.PLAIN_CALLS)
-        want = ({"update_h": 0, "update_w": 0, "kl_cost": 0} if cfg.precision.x_quant_rows
-                else {"update_h": 200, "update_w": 200, "kl_cost": 8})
+        want = _launches(**({} if cfg.precision.x_quant_rows
+                            else {"update_h": 200, "update_w": 200, "kl_cost": 8}))
         check(launches == want, f"{tier}: launches {launches}, expected {want}")
         check(not any(plain_calls.values()), f"{tier}: plain calls on the card {plain_calls}")
         out["launches"][tier] = launches
@@ -957,7 +989,7 @@ def phase_tilesparse_solves(card, out):
                 device="cuda"))
             torch.cuda.synchronize()
             d_secs = time.perf_counter() - t0
-            check(dense == {"update_h": TS_ITERS, "update_w": TS_ITERS, "kl_cost": TS_ITERS // 25},
+            check(dense == _launches(update_h=TS_ITERS, update_w=TS_ITERS, kl_cost=TS_ITERS // 25),
                   f"dense solve: K1-K3 launches {dense}")
             d_rel = abs(cost - float(dres.cost)) / abs(float(dres.cost))
             check(d_rel <= 1e-4, f"{where}: cost {cost} vs the dense clamp_inputs=False solve "
@@ -995,10 +1027,463 @@ def phase_tilesparse(card, out):
     phase_tilesparse_solves(card, out)
 
 
+# Phase 9: the out-of-core streamed solve at an hour of audio, the ISMIR
+# spectrogram (bench.py:59, BASELINE config 2: M=1025, K=32) over 172
+# frames/s x 3600 s, rounded up to a multiple of 128 (nmf_tpu/parallel/
+# mesh.py:24-26): X is 2.54 GB of f32, streamed in pick_block_n's 10 blocks.
+OOC_SHAPE = (1025, 619_264, 32)        # M, N, K
+OOC_BLOCK = 65_408                     # pick_block_n(1025, 619264): 256 MiB of f32
+OOC_ITERS, OOC_CHECK = 10, 5
+OOC_FACTOR_RTOL = 1e-4                 # streamed vs in-memory factors (max rel)
+# the JAX package's out-of-core cell (benchmarks/run_all.py:578-593,
+# bench.py:901-903): m, n, k, block_n
+OOC_CLI = (2048, 8192, 128, 1024)
+# phase 9a's mode -> the streamed run whose launches it reports
+OOC_RUNS = {"float32": "oocore float32", "x_bfloat16": "oocore bfloat16", "x_int8": "oocore int8"}
+# the modes whose streamed cost pass is a K3 call of its own (f32 GEMMs on
+# the state and X as stored; the GEMM policies' cost passes are float32's)
+OOC_COST_MODES = ("float32", "x_bfloat16", "x_int8", "bf16_state")
+
+
+def _num_modes():
+    """mode -> ModeCheck of K1/K2's numerator_only: phase 3's modes, and bf16
+    state with f32 X built so that a skipped rounding of Z shows (the
+    numerator is f32, so bf16 state has the ``bfloat16`` limits, as K5's)."""
+    from nmf_tpu_torch.utils.config import Precision
+
+    f32 = Precision()
+    bf16_state = Precision("bfloat16", "bfloat16", "float32")
+    modes = {"float32": ModeCheck(f32, torch.float32, "f32", MODE_LIMITS["f32_gemm"])}
+    modes.update((mode, spec) for mode, spec in _modes().items() if mode != "bf16_full_state")
+    modes["bf16_state"] = ModeCheck(bf16_state, torch.bfloat16, "z_biased",
+                                    MODE_LIMITS["bfloat16"],
+                                    dataclasses.replace(bf16_state, matmul_dtype="float32"),
+                                    ("update_h", "update_w"))
+    return modes
+
+
+def _num_operands(m, n, k, mode, spec):
+    """Phase 3's operands; for bf16 state X = b (1 + 2**-10) W H with b
+    bf16-exact and W H in f64 from the bf16 factors, so that the sound Z
+    rounds to b and a Z left unrounded sits 2**-10 above it."""
+    if spec.xform != "z_biased":
+        return _mode_operands(m, n, k, mode, spec)
+    w, h, x = _operands(m, n, k)
+    w, h = w.to(torch.bfloat16), h.to(torch.bfloat16)
+    y = w.double() @ h.double()
+    x = (x.to(torch.bfloat16).double() * (1 + 2.0 ** -10) * y).float()
+    return w, h, x
+
+
+def _num_pairs(prec):
+    """name -> (numerator_only kernel, its plain version) under ``prec``."""
+    from nmf_tpu_torch.ops import mu
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.ops.quant import dequantize
+
+    def dense(x):
+        return dequantize(*x) if isinstance(x, tuple) else x
+
+    return {
+        "update_h": (lambda w, h, x: fused_mu.update_h_fused(w, h, x, precision=prec,
+                                                             numerator_only=True),
+                     lambda w, h, x: mu.numerator_h(w, h, dense(x), precision=prec)),
+        "update_w": (lambda w, h, x: fused_mu.update_w_fused(w, h, x, precision=prec,
+                                                             numerator_only=True),
+                     lambda w, h, x: mu.numerator_w(w, h, dense(x), precision=prec)),
+    }
+
+
+def _num_bound(name, w, h, x, prec):
+    """A numerator's bound: the full update's flops and bytes, the output
+    written in f32 (no epilogue: W and H are read for the GEMMs alone)."""
+    m, k = w.shape
+    n = h.shape[1]
+    split3 = prec.matmul_dtype == "float32_fast"
+    kind = "float32" if prec.matmul_dtype == "float32" else "bfloat16"
+    flops = (3 if split3 else 1) * 2 * 2 * m * n * k
+    x_bytes = sum(t.numel() * t.element_size() for t in (x if isinstance(x, tuple) else (x,)))
+    out_words = k * n if name == "update_h" else m * k
+    return bound(flops, x_bytes + (w.numel() + h.numel()) * w.element_size() + 4 * out_words, kind)
+
+
+def _epilogue_of(name, w, h, num):
+    """The full update from a numerator, in the kernels' order
+    ``base * acc / denom`` (csrc/fused_mu.cu finalize), in the state dtype."""
+    from nmf_tpu_torch.ops.elementwise import eps_clamp
+
+    if name == "update_h":
+        return (h.float() * num / eps_clamp(torch.sum(w, 0, dtype=torch.float32), EPS)[:, None]).to(h.dtype)
+    return (w.float() * num / eps_clamp(torch.sum(h, 1, dtype=torch.float32), EPS)[None, :]).to(w.dtype)
+
+
+def phase_numerators(card, out):
+    print(f"[{card}] phase 9a: numerator_only of K1/K2 and the streamed K3 vs plain torch on "
+          "the card, every mode")
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    stats = out["kernels"]
+    m_o, n_o, k_o = OOC_SHAPE
+    block = (m_o, OOC_BLOCK, k_o)
+    shapes = [*MODE_SHAPES, block, (m_o, n_o - (n_o // OOC_BLOCK) * OOC_BLOCK, k_o)]
+    for mode, spec in _num_modes().items():
+        pairs, controls = _num_pairs(spec.prec), (_num_pairs(spec.control) if spec.control else {})
+        updates = _pairs(spec.prec)
+        # the streamed cost pass: K3 with f32 GEMMs on the state as stored
+        cost_prec = dataclasses.replace(spec.prec, matmul_dtype="float32")
+        cost_pair = _pairs(cost_prec)["kl_cost"] if mode in OOC_COST_MODES else None
+        max_limit, spread_limit, _ = spec.limits
+        # the full update: bf16 state rounds its output (phase 3's limits)
+        full_max, full_spread, _ = (MODE_LIMITS["bf16_state"] if spec.state == torch.bfloat16
+                                    else spec.limits)
+        for m, n, k in shapes:
+            w, h, x = _num_operands(m, n, k, mode, spec)
+            for name, (kern, plain) in pairs.items():
+                where = _where(f"{name} numerator_only", w, h, f"[{mode}] ")
+                res, ref = _run_pair(kern, plain, w, h, x, where)
+                check(res.dtype == torch.float32, f"{where}: dtype {res.dtype}")
+                check(tuple(res.shape) == ((k, n) if name == "update_h" else (m, k)),
+                      f"{where}: shape {tuple(res.shape)}")
+                err, spread, _ = _mode_err(res, ref)
+                check(max_limit is None or err <= max_limit,
+                      f"{where}: max rel err {err} (limit {max_limit})")
+                check(spread_limit is None or spread <= spread_limit,
+                      f"{where}: rms rel err {spread} (limit {spread_limit})")
+                what = (f"max rel err {err} (limit {max_limit}), rms rel err {spread} "
+                        f"(limit {spread_limit})")
+                # the full update is this numerator through the epilogue, bit
+                # for bit, and within the mode's limits of its plain version
+                upd, upd_plain = (f(w, h, x) for f in updates[name])
+                check(torch.equal(_bits(upd), _bits(_epilogue_of(name, w, h, res))),
+                      f"{where}: the full update is not base * numerator / denom bitwise")
+                f_err, f_spread, f_ulps = _mode_err(upd, upd_plain)
+                check(f_ulps <= 1 and (full_max is None or f_err <= full_max)
+                      and (full_spread is None or f_spread <= full_spread),
+                      f"{where}: the full update vs plain: max rel err {f_err} (limit {full_max}), "
+                      f"spread {f_spread} (limit {full_spread}), {f_ulps} bf16 ulps")
+                key = "numerator_only" if mode == "float32" else f"numerator_only {mode}"
+                ms = stats[name]["modes"].setdefault(
+                    key, {"max_abs_err": 0.0, "max_rel_err": 0.0, "err": 0.0, "limit": spread_limit,
+                          "launches_of": (OOC_RUNS.get(mode), f"{name}_numerator")})
+                ms["max_abs_err"] = max(ms["max_abs_err"], float((res - ref).abs().max()))
+                ms["max_rel_err"] = max(ms["max_rel_err"], err)
+                ms["err"] = max(ms["err"], spread)
+                if name in spec.controlled:
+                    _, c_spread, _ = _mode_err(controls[name][0](w, h, x), ref)
+                    check(c_spread > spread_limit, f"{where}: the control "
+                          f"({spec.control.matmul_dtype} GEMMs) reads {c_spread}, within "
+                          f"the limit {spread_limit}")
+                    ms["control_min"] = min(ms.get("control_min", c_spread), c_spread)
+                    what += f"; control ({spec.control.matmul_dtype} GEMMs) {c_spread}"
+                if (m, n, k) == block:   # the streamed block, timed
+                    kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
+                    b_ms, b_by = _num_bound(name, w, h, x, spec.prec)
+                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    what = f"kernel {kms} ms, plain {pms} ms, bound {b_ms} ms ({b_by}); " + what
+                print(f"[{card}] {where}: {what}, bitwise-repeatable, epilogue bitwise, full "
+                      f"update vs plain max rel {f_err} spread {f_spread}")
+            if cost_pair:
+                kern, plain = cost_pair
+                where = _where("kl_cost streamed", w, h, f"[{mode}] ")
+                res, ref = _run_pair(kern, plain, w, h, x, where)
+                err = _mode_err(res, ref)[0]
+                cost_limit = MODE_LIMITS["f32_gemm"][2]
+                check(err <= cost_limit, f"{where}: rel err {err} (limit {cost_limit})")
+                key = "streamed" if mode == "float32" else f"streamed {mode}"
+                ms = stats["kl_cost"]["modes"].setdefault(
+                    key, {"max_abs_err": 0.0, "max_rel_err": 0.0, "err": 0.0, "limit": cost_limit,
+                          "launches_of": (OOC_RUNS.get(mode), "kl_cost")})
+                ms["max_abs_err"] = max(ms["max_abs_err"], abs(float(res) - float(ref)))
+                ms["max_rel_err"] = ms["err"] = max(ms["err"], err)
+                what = f"rel err {err} (limit {cost_limit})"
+                if (m, n, k) == block:
+                    kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
+                    b_ms, b_by = _mu_bound("kl_cost", w, h, x, cost_prec)
+                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    what = f"kernel {kms} ms, plain {pms} ms, bound {b_ms} ms ({b_by}); " + what
+                print(f"[{card}] {where}: {what}, bitwise-repeatable")
+            del w, h, x
+    # above the rank ceiling the numerator takes the plain ops by rule
+    k = fused_mu.MAX_FUSED_K + 8
+    w, h, x = _operands(64, 96, k)
+    for name, (kern, _) in _num_pairs(_num_modes()["float32"].prec).items():
+        fused_mu.reset_counts()
+        res = kern(w, h, x)
+        check(res.dtype == torch.float32 and fused_mu.PLAIN_CALLS[f"{name}_numerator"] == 1
+              and not any(fused_mu.LAUNCHES.values()),
+              f"{name} numerator_only K={k}: did not take the plain ops by rule")
+    print(f"[{card}] numerator_only K={k} > MAX_FUSED_K: plain ops by the rank rule, no launch")
+
+
+def h2d_rate(nbytes) -> float:
+    """Bytes/s of one pinned host-to-device copy of ``nbytes``: CUDA events,
+    the median of 5 copies after a warm one."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for i in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        if i:
+            times.append(a.elapsed_time(b) / 1e3)
+    return nbytes / statistics.median(times)
+
+
+def _union(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for t0, t1 in sorted(intervals):
+        if t1 > end:
+            total += t1 - max(t0, end)
+            end = t1
+    return total
+
+
+def _device_shares(trace_path):
+    """Seconds of a chrome trace's device events: kernels, H2D copies, busy
+    (the union of every kernel, copy and memset interval) and the overlap
+    of kernels with H2D copies (both running at once)."""
+    events = json.loads(pathlib.Path(trace_path).read_text())["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(any(e["cat"] == "kernel" for e in dev), "the profiler recorded no kernel")
+    kern = [(e["ts"], e["ts"] + e["dur"]) for e in dev if e["cat"] == "kernel"]
+    h2d = [(e["ts"], e["ts"] + e["dur"]) for e in dev
+           if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    busy = _union((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    overlap = _union(kern) + _union(h2d) - _union(kern + h2d)
+    return {"kernels": sum(t1 - t0 for t0, t1 in kern) / 1e6,
+            "h2d": sum(t1 - t0 for t0, t1 in h2d) / 1e6,
+            "busy": busy / 1e6, "overlap": overlap / 1e6}
+
+
+def _host_timed(fn):
+    """(fn's value, host seconds of each ``_BlockStream._put`` and ``_fill``
+    call while it ran): ``_fill`` is a block's gather (and cast or
+    quantization) into its pinned buffer, ``_put`` that plus the wait for
+    the buffer's last copy and the copy's issue."""
+    from nmf_tpu_torch.models import streaming
+
+    cls = streaming._BlockStream
+    times = {"_put": [], "_fill": []}
+    originals = {name: getattr(cls, name) for name in times}
+
+    def timed(name, f):
+        def call(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return f(self, *args)
+            finally:
+                times[name].append(time.perf_counter() - t0)
+        return call
+
+    for name, f in originals.items():
+        setattr(cls, name, timed(name, f))
+    try:
+        return fn(), times
+    finally:
+        for name, f in originals.items():
+            setattr(cls, name, f)
+
+
+def _ooc_solve(x, w, h, cfg, **kw):
+    """(result, host seconds, K1-K3 launches, plain calls) of one streamed
+    solve on the card, the counts set to 0 just before."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    fused_mu.reset_counts()
+    t0 = time.perf_counter()
+    res = nt.solve_out_of_core(x, w, h, cfg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(fused_mu.LAUNCHES), dict(fused_mu.PLAIN_CALLS)
+
+
+def _max_rel(a, b):
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / b.abs()).max())
+
+
+def phase_oocore_solves(card, out, seed):
+    import gc
+
+    import nmf_tpu_torch as nt
+
+    m, n, k = OOC_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xd = torch.rand((m, n), generator=g, device="cuda").clamp_min_(EPS)
+    w = torch.rand((m, k), generator=g, device="cuda").clamp_min_(EPS).cpu().numpy()
+    h = torch.rand((k, n), generator=g, device="cuda").clamp_min_(EPS).cpu().numpy()
+    x = xd.cpu().numpy()
+    del xd
+    bn = nt.pick_block_n(m, n)
+    blocks = -(-n // bn)
+    check(bn == OOC_BLOCK and blocks == 10, f"pick_block_n gave {bn} ({blocks} blocks)")
+    cfg = nt.SolveConfig(max_iter=OOC_ITERS, check_every=OOC_CHECK)
+    passes = -(-OOC_ITERS // OOC_CHECK)
+    streams = OOC_ITERS + passes
+    print(f"[{card}] phase 9b: streamed solve {m}x{n}, K={k}: X {x.nbytes / 1e9} GB f32 in "
+          f"{blocks} blocks of {bn} (last {n - (blocks - 1) * bn}), {OOC_ITERS} iterations, "
+          f"cost passes every {OOC_CHECK}: {streams} streams of X")
+    want = _launches(update_h=blocks * OOC_ITERS, update_w_numerator=blocks * OOC_ITERS,
+                     kl_cost=blocks * passes)
+    results = {}
+    for xdt in ("float32", "bfloat16", "int8"):
+        c = dataclasses.replace(cfg, precision=nt.Precision(x_dtype=xdt))
+        # the in-memory solve on the same X first, freed before the
+        # streamed run's memory is read
+        t0 = time.perf_counter()
+        mem = nt.solve(x, w, h, c, device="cuda")
+        torch.cuda.synchronize()
+        mem_secs = time.perf_counter() - t0
+        mem_w, mem_h, mem_cost = mem.w.cpu(), mem.h.cpu(), float(mem.cost)
+        del mem
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res, secs, launches, plain_calls = _ooc_solve(x, w, h, c)
+        peak = torch.cuda.max_memory_allocated()
+        where = f"streamed [{xdt} X]"
+        check(launches == want, f"{where}: launches {launches}, expected {want}")
+        check(not any(plain_calls.values()), f"{where}: plain calls {plain_calls}")
+        hist = res.cost_history.numpy()[: int(res.num_checks)]
+        check(int(res.iterations) == OOC_ITERS and hist.shape == (passes,)
+              and bool(np.all(np.isfinite(hist))) and bool(np.all(np.diff(hist) < 0)),
+              f"{where}: {int(res.iterations)} iterations, history {hist}")
+        check(tuple(res.w.shape) == (m, k) and tuple(res.h.shape) == (k, n)
+              and bool(torch.isfinite(res.w).all()) and bool(torch.isfinite(res.h).all()),
+              f"{where}: factors not finite of the expected shapes")
+        cost = float(res.cost)
+        rel = abs(cost - mem_cost) / abs(mem_cost)
+        check(rel <= 1e-5, f"{where}: cost {cost} vs the in-memory solve {mem_cost}: rel {rel}")
+        fw, fh = _max_rel(res.w.cpu(), mem_w), _max_rel(res.h.cpu(), mem_h)
+        check(max(fw, fh) <= OOC_FACTOR_RTOL, f"{where}: factors vs the in-memory solve: "
+              f"max rel W {fw}, H {fh} (limit {OOC_FACTOR_RTOL})")
+        out["launches"][f"oocore {xdt}"] = launches
+        line = (f"[{card}] {where}: launches {launches}, cost {cost}, history {hist.tolist()}, "
+                f"{OOC_ITERS / secs} it/s ({secs} s, first run); in-memory solve cost "
+                f"{mem_cost} (rel {rel}, limit 1e-5), factors max rel W {fw} H {fh} (limit "
+                f"{OOC_FACTOR_RTOL}), {OOC_ITERS / mem_secs} it/s incl. its upload; peak device "
+                f"memory {peak / 1e9} GB (before the solve {base / 1e9} GB)")
+        results[xdt] = {"its": OOC_ITERS / secs, "cost": cost, "rel_vs_memory": rel,
+                        "factor_rel_vs_memory": max(fw, fh), "peak_gb": peak / 1e9}
+        if xdt == "float32":
+            wire = 4 * m * bn
+            parts = {"W": 4 * m * k, "H": 4 * k * n, "two blocks": 2 * wire, "a1": 4 * m * k}
+            line += f" = {', '.join(f'{p} {b / 1e9}' for p, b in parts.items())} GB + scratch"
+            check(peak < x.nbytes / 3, f"{where}: peak device memory {peak} B not under a "
+                  f"third of X ({x.nbytes} B)")
+            first = res
+        print(line)
+        if xdt != "float32":
+            continue
+        # reruns: timed (with host timers around each block's staging),
+        # then profiled; both byte-identical to the first
+        rate0 = h2d_rate(4 * m * bn)
+        (res2, secs2, _, _), host = _host_timed(lambda: _ooc_solve(x, w, h, c))
+        rate1 = h2d_rate(4 * m * bn)
+        check(len(host["_fill"]) == blocks * streams, f"{where}: {len(host['_fill'])} fills")
+        fill_s = sum(host["_fill"])
+        wait_s = sum(host["_put"]) - fill_s
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res3, secs3, _, _ = _ooc_solve(x, w, h, c)
+        for r, label in ((res2, "timed"), (res3, "profiled")):
+            for f in ("w", "h"):
+                check(torch.equal(_bits(getattr(r, f)), _bits(getattr(first, f))),
+                      f"{where}: {f.upper()} of the {label} rerun differs")
+        rate = statistics.median([rate0, rate1])
+        roof = streams * x.nbytes / rate
+        with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
+            trace = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(trace)
+            dev = {key: v / secs3 for key, v in _device_shares(trace).items()}
+        fills_ms = sorted(1e3 * t for t in host["_fill"])
+        results["time"] = {
+            "its_timed": OOC_ITERS / secs2, "its_profiled": OOC_ITERS / secs3,
+            "h2d_gbps": [rate0 / 1e9, rate1 / 1e9], "roofline_s": roof,
+            "roofline_fraction": roof / secs2, "fill_share": fill_s / secs2,
+            "put_wait_share": wait_s / secs2, "fill_ms_median": statistics.median(fills_ms),
+            "fill_ms_max": fills_ms[-1], "kernel_share": dev["kernels"],
+            "h2d_share": dev["h2d"], "overlap_share": dev["overlap"],
+            "idle_share": 1 - dev["busy"],
+        }
+        print(f"[{card}] {where}: reruns byte-identical; timed {OOC_ITERS / secs2} it/s "
+              f"({secs2} s for {streams} streams), profiled {OOC_ITERS / secs3} it/s; H2D "
+              f"{rate0 / 1e9} / {rate1 / 1e9} GB/s (pinned, {4 * m * bn} B, before / after); "
+              f"H2D roofline {roof} s = {roof / secs2} of the timed run reached; host over "
+              f"the timed run: block fills (gather into pinned memory) {fill_s / secs2} of the "
+              f"wall, {len(fills_ms)} fills, median {statistics.median(fills_ms)} ms, max "
+              f"{fills_ms[-1]} ms; waits for a pinned buffer's copy and copy issue "
+              f"{wait_s / secs2}; device over the profiled run: kernels {dev['kernels']}, H2D "
+              f"copies {dev['h2d']}, kernels and copies at once {dev['overlap']}, busy "
+              f"{dev['busy']}, idle {1 - dev['busy']}")
+        # the plain ops (backend="jnp") on the same stream
+        jnp, j_secs, j_launch, _ = _ooc_solve(x, w, h, dataclasses.replace(c, backend="jnp"))
+        check(not any(j_launch.values()), f"{where} jnp: launches {j_launch}")
+        j_rel = abs(cost - float(jnp.cost)) / abs(float(jnp.cost))
+        check(j_rel <= 1e-5, f"{where}: cost {cost} vs the jnp streamed solve "
+              f"{float(jnp.cost)}: rel {j_rel}")
+        results["jnp"] = {"its": OOC_ITERS / j_secs, "rel": j_rel}
+        print(f"[{card}] {where} backend='jnp': cost {float(jnp.cost)} (rel {j_rel}, limit "
+              f"1e-5), {OOC_ITERS / j_secs} it/s")
+        del res2, res3, jnp
+    out["oocore"] = results
+
+
+def phase_oocore_cli(card, tmp, out):
+    import nmf_tpu_torch as nt
+
+    m, n, k, bn = OOC_CLI
+    print(f"[{card}] phase 9c: run --out-of-core --block-n {bn} at {m}x{n}, K={k}, through the CLI")
+    rng = np.random.RandomState(0)
+    x = np.maximum(rng.rand(m, n).astype(np.float32), np.float32(EPS))
+    w, h = rng.rand(m, k).astype(np.float32), rng.rand(k, n).astype(np.float32)
+    for name, a in (("X", x), ("W", w), ("H", h)):
+        nt.write_matrix(a, os.path.join(tmp, f"ooc_{name}.bin"))
+    t0 = time.perf_counter()
+    _cli(["run", "ooc_X.bin", "ooc_W.bin", "ooc_H.bin", "-o", "ooc_Wout.bin", "ooc_Hout.bin",
+          "--out-of-core", "--block-n", str(bn), "--jsonl", "ooc.jsonl", "-q"], tmp)
+    wall = time.perf_counter() - t0
+    rec = json.loads(pathlib.Path(tmp, "ooc.jsonl").read_text().splitlines()[-1])
+    cfg = nt.reference_preset()
+    res, secs, launches, _ = _ooc_solve(nt.BinColumnSource(os.path.join(tmp, "ooc_X.bin")),
+                                        w, h, cfg, block_n=bn)
+    blocks = n // bn
+    check(launches == _launches(update_h=200 * blocks, update_w_numerator=200 * blocks,
+                                kl_cost=8 * blocks), f"CLI out-of-core in-process: launches {launches}")
+    for f, t in (("W", res.w), ("H", res.h)):
+        got = nt.read_matrix(os.path.join(tmp, f"ooc_{f}out.bin"))
+        check(got.tobytes() == t.cpu().numpy().tobytes(),
+              f"CLI --out-of-core {f} file differs from the in-process solve_out_of_core")
+    mem = nt.solve(x, w, h, cfg, device="cuda")
+    rel = abs(rec["final_cost"] - float(mem.cost)) / abs(float(mem.cost))
+    check(rel <= 1e-5, f"CLI --out-of-core cost {rec['final_cost']} vs in-memory {float(mem.cost)}")
+    out["oocore"]["cli"] = {"its": rec["iters_per_sec"], "rel_vs_memory": rel}
+    print(f"[{card}] CLI --out-of-core: {rec['iterations']} iterations, final cost "
+          f"{rec['final_cost']} (in-memory solve {float(mem.cost)}, rel {rel}, limit 1e-5), "
+          f"{rec['iters_per_sec']} it/s, process wall {wall} s; files byte-identical to the "
+          f"in-process solve_out_of_core ({200 / secs} it/s, launches {launches})")
+
+
+def phase_oocore(card, tmp, out, seed):
+    phase_numerators(card, out)
+    phase_oocore_solves(card, out, seed)
+    phase_oocore_cli(card, tmp, out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the data phase 9 makes on the card (default 0)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -1022,7 +1507,7 @@ def main(argv=None) -> int:
     out = {
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}}
                     for name, _, _ in KERNELS},
-        "launches": {}, "cli": {}, "flagship": {}, "tiled": {},
+        "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {},
     }
     t_start = time.perf_counter()
     phase_card(card, out)  # always: every other phase needs the build
@@ -1042,6 +1527,9 @@ def main(argv=None) -> int:
         phase_flagship(card, out)
     if "tilesparse" in phases:
         phase_tilesparse(card, out)
+    if "oocore" in phases:
+        with tempfile.TemporaryDirectory(prefix="nmf_ooc_") as tmp:
+            phase_oocore(card, tmp, out, args.seed)
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
               "a subset prints no result")
@@ -1055,9 +1543,18 @@ def main(argv=None) -> int:
         tiled = name.endswith("_numerator")
         main_launches = out["launches"]["tiled float32" if tiled else "float32"]
         # each mode: its kernel-vs-plain numbers, and for K1-K3 the launches
-        # of its tier's solve
-        modes = {mode: ms if tiled else {**ms, "launches": out["launches"][mode][name]}
-                 for mode, ms in st["modes"].items()}
+        # of its tier's solve; numerator_only: of the streamed solve of its
+        # X dtype (none for the GEMM policies, which no streamed run takes)
+        modes = {}
+        for mode, ms in st["modes"].items():
+            if tiled:
+                modes[mode] = ms
+            elif "launches_of" in ms:
+                run, counter = ms["launches_of"]
+                modes[mode] = {**{key: v for key, v in ms.items() if key != "launches_of"},
+                               "launches": run and out["launches"][run][counter]}
+            else:
+                modes[mode] = {**ms, "launches": out["launches"][mode][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1073,7 +1570,8 @@ def main(argv=None) -> int:
             "modes": modes,
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
         })
-    print(f"[{card}] all eight phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
+    print(f"[{card}] all nine phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

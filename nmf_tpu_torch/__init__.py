@@ -5,8 +5,9 @@ semantics (``recoord/nmf-gpu``), byte-compatible ``.bin`` I/O and the
 fixed-iteration determinism contract.  The update and cost hot path runs in
 hand-written CUDA kernels (``csrc/fused_mu.cu``) on CUDA tensors and in
 plain torch ops on CPU tensors; so do the numerator sweeps of the
-tile-sparse solve (``csrc/tile_sparse.cu``).  Imports torch and NumPy,
-never JAX.
+tile-sparse solve (``csrc/tile_sparse.cu``).  ``solve_out_of_core`` streams
+an X that the card cannot hold from the host in column blocks.  Imports
+torch and NumPy, never JAX.
 
 Quick start::
 
@@ -23,6 +24,12 @@ from .models.sparse_tiled import (
     solve_sparse_tiled,
     tiles_from_coo,
     tiles_from_dense,
+)
+from .models.streaming import (
+    ArrayColumnSource,
+    BinColumnSource,
+    pick_block_n,
+    solve_out_of_core,
 )
 from .ops.divergence import kl_divergence
 from .ops.elementwise import EPS, eps_clamp
@@ -47,6 +54,10 @@ __all__ = [
     "solve_sparse_tiled",
     "tiles_from_coo",
     "tiles_from_dense",
+    "solve_out_of_core",
+    "ArrayColumnSource",
+    "BinColumnSource",
+    "pick_block_n",
     "SolveConfig",
     "Precision",
     "reference_preset",

@@ -2,6 +2,7 @@
 
     python -m nmf_tpu_torch run X.bin W.bin H.bin -o Wout.bin Hout.bin   # on the card
     python -m nmf_tpu_torch run X.bin --rank 32 --init random --device cpu
+    python -m nmf_tpu_torch run X.bin W.bin H.bin --out-of-core --block-n 4096  # X streamed
     python -m nmf_tpu_torch gen ./fixtures        # seed-0 reference fixtures
     python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
 
@@ -20,6 +21,7 @@ import torch
 from .io import binio, fixtures
 from .models.init import random_init
 from .models.solver import solve
+from .models.streaming import BinColumnSource, solve_out_of_core, wire_itemsize
 from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger
@@ -27,12 +29,12 @@ from .utils.metrics import MetricsLogger
 # JAX-CLI run flags not in the port yet: flag -> (argparse kwargs, where the
 # work is queued in ROADMAP.md).
 _LATER = {
-    "--mask": ({}, "Queue 1: model families (masked solver)"),
+    "--mask": ({}, "Queue 1 item 8: model families (masked solver)"),
     "--online": ({"action": "store_const", "const": True}, "Queue 1: model families (online NMF)"),
     "--online-passes": ({"type": int}, "Queue 1: model families (online NMF)"),
     "--online-rho": ({"type": float}, "Queue 1: model families (online NMF)"),
     "--online-inner-iters": ({"type": int}, "Queue 1: model families (online NMF)"),
-    "--freeze": ({"type": int}, "Queue 1: model families (semi-adaptive NMF)"),
+    "--freeze": ({"type": int}, "Queue 1 item 8: model families (semi-adaptive NMF)"),
     "--restarts": ({"type": int}, "Queue 1: selection and batched solves"),
     "--beta": ({"type": float}, "Queue 1: ops (beta family)"),
     "--algorithm": ({}, "Queue 1: ops (HALS)"),
@@ -45,11 +47,9 @@ _LATER = {
     "--no-cost": ({"action": "store_const", "const": True}, "Queue 1: remaining CLI"),
     "--live": ({"action": "store_const", "const": True}, "Queue 1: utils (live metrics)"),
     "--validate": ({"action": "store_const", "const": True}, "Queue 1: utils (guards)"),
-    "--mesh": ({}, "Queue 1: sharded solves"),
-    "--checkpoint-dir": ({}, "Queue 1: utils (checkpoint)"),
-    "--checkpoint-every": ({"type": int}, "Queue 1: utils (checkpoint)"),
-    "--out-of-core": ({"action": "store_const", "const": True}, "Queue 1: streaming"),
-    "--block-n": ({"type": int}, "Queue 1: streaming"),
+    "--mesh": ({}, "Queue 1 item 12: sharded solves"),
+    "--checkpoint-dir": ({}, "Queue 1 item 13: utils (checkpoint)"),
+    "--checkpoint-every": ({"type": int}, "Queue 1 item 13: utils (checkpoint)"),
     "--strict-compat": ({"action": "store_const", "const": True}, "Queue 1: strict.py"),
 }
 
@@ -66,58 +66,107 @@ def _refused(args) -> list:
     ]
 
 
-def cmd_run(args) -> int:
-    refused = _refused(args)
-    if refused:
-        print(
-            "error: not in the PyTorch port yet: " + "; ".join(refused),
-            file=sys.stderr,
-        )
-        return 2
-    dev = resolve_device(args.device)  # a missing card fails before any I/O
-    x = binio.read_matrix(args.X)
-    if bool(args.W) != bool(args.H):
-        print(
-            "error: provide BOTH initial W and H files, or neither plus "
-            "--rank (a lone init file would otherwise be silently ignored)",
-            file=sys.stderr,
-        )
-        return 2
-    if args.W and args.H:
-        w0 = binio.read_matrix(args.W)
-        h0 = binio.read_matrix(args.H)
-    elif args.rank:
-        if args.init != "random":
-            print(
-                f"error: --init {args.init or 'nndsvda (the default)'} is not "
-                "in the PyTorch port yet (ROADMAP.md Queue 1: model families); "
-                "pass --init random",
-                file=sys.stderr,
-            )
-            return 2
-        m, n = x.shape
-        w0, h0 = random_init(m, args.rank, n, seed=args.seed)
-    else:
-        print("error: provide W and H files, or --rank for generated init", file=sys.stderr)
-        return 2
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
 
-    config = SolveConfig(
+
+def _config(args) -> SolveConfig:
+    return SolveConfig(
         max_iter=args.max_iter, thresh=args.thresh, check_every=args.check_every,
         precision=Precision(
             matmul_dtype=args.dtype, x_dtype=args.x_dtype, x_quant_rows=args.x_quant_rows
         ),
     )
+
+
+def _write_factors(res, args) -> tuple:
+    w_out, h_out = (t.cpu().float().numpy() for t in (res.w, res.h))
+    w_path, h_path = args.output
+    binio.write_matrix(w_out, w_path)
+    binio.write_matrix(h_out, h_path)
+    return w_out, h_out
+
+
+_LONE_INIT = ("provide BOTH initial W and H files, or neither plus --rank (a lone "
+              "init file would otherwise be silently ignored)")
+
+
+def _cmd_run_out_of_core(args, dev) -> int:
+    """run with --out-of-core: X streamed from its .bin in column blocks,
+    never loaded whole (``nmf_tpu/cli.py:302-368``)."""
+    source = BinColumnSource(args.X)
+    m, n = source.shape
+    if bool(args.W) != bool(args.H):
+        return _error(_LONE_INIT)
+    if args.W and args.H:
+        w0 = binio.read_matrix(args.W)
+        h0 = binio.read_matrix(args.H)
+    elif args.rank:
+        if args.init != "random":
+            return _error("--out-of-core init must be 'random' or explicit W/H "
+                          "files (other inits read all of X)")
+        w0, h0 = random_init(m, args.rank, n, seed=args.seed)
+    else:
+        return _error("provide W and H files, or --rank")
+    config = _config(args)
+    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    with logger.timed() as t:
+        res = solve_out_of_core(source, w0, h0, config, block_n=args.block_n, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # time the run, not its enqueue
+    logger.report(res, (m, n), t.seconds, check_every=config.check_every)
+    _write_factors(res, args)
+    if not args.quiet:
+        gb = m * n * wire_itemsize(config.precision.x_dtype) / 1e9
+        w_path, h_path = args.output
+        print(
+            f"[nmf] out-of-core: streamed {m}x{n} X "
+            f"({gb:.2f} GB as {config.precision.x_dtype}) per iteration; "
+            f"wrote {w_path}, {h_path}",
+            file=sys.stderr,
+        )
+    return 0
+
+
+def cmd_run(args) -> int:
+    if args.out_of_core and args.strict_compat:
+        return _error("--strict-compat (padded-EPS replication) requires the "
+                      "in-memory solver; drop --out-of-core")
+    refused = _refused(args)
+    if refused:
+        return _error("not in the PyTorch port yet: " + "; ".join(refused))
+    dev = resolve_device(args.device)  # a missing card fails before any I/O
+    if args.out_of_core:
+        return _cmd_run_out_of_core(args, dev)
+    x = binio.read_matrix(args.X)
+    if bool(args.W) != bool(args.H):
+        return _error(_LONE_INIT)
+    if args.W and args.H:
+        w0 = binio.read_matrix(args.W)
+        h0 = binio.read_matrix(args.H)
+    elif args.rank:
+        if args.init != "random":
+            return _error(
+                f"--init {args.init or 'nndsvda (the default)'} is not "
+                "in the PyTorch port yet (ROADMAP.md Queue 1: model families); "
+                "pass --init random"
+            )
+        m, n = x.shape
+        w0, h0 = random_init(m, args.rank, n, seed=args.seed)
+    else:
+        return _error("provide W and H files, or --rank for generated init")
+
+    config = _config(args)
     logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
     with logger.timed() as t:
         res = solve(x, w0, h0, config, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     logger.report(res, x.shape, t.seconds, check_every=config.check_every)
-    w_out, h_out = (t.cpu().float().numpy() for t in (res.w, res.h))
-    w_path, h_path = args.output
-    binio.write_matrix(w_out, w_path)
-    binio.write_matrix(h_out, h_path)
+    w_out, h_out = _write_factors(res, args)
     if not args.quiet:
+        w_path, h_path = args.output
         print(f"[nmf] wrote {w_path} {w_out.shape}, {h_path} {h_out.shape}", file=sys.stderr)
     return 0
 
@@ -188,6 +237,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="int8-X scale granularity: one scale per (N-row block, column) "
         "instead of per column; such X takes the plain torch ops (the "
         "kernels' scales are per column)",
+    )
+    run.add_argument(
+        "--out-of-core", action="store_true",
+        help="stream X from its .bin file in column blocks (X may exceed "
+        "device and host memory); KL MU family, one device",
+    )
+    run.add_argument(
+        "--block-n", type=int,
+        help="columns per streamed block (default: ~256 MiB of f32)",
     )
     for flag, (kw, where) in _LATER.items():
         run.add_argument(flag, default=None, help=f"not ported yet ({where})", **kw)

@@ -9,6 +9,11 @@
 //   K3  nmf_kl_cost    <- _kl_kernel / kl_cost_fused   (fused_mu.py:516, :551)
 //       sum x (log x - log y) - x + y,  y = max(W H, eps),  x -> 0 limit
 //
+// K1 and K2 also have the TPU kernels' numerator_only mode (fused_mu.py:294,
+// :421): the f32 numerator W^T (X / max(W H, eps)) or (X / max(W H, eps)) H^T
+// with no epilogue, for callers that sum it over column blocks (the
+// out-of-core solve) or devices before dividing.
+//
 // What they keep out of device memory: the M x N reconstruction W H and the
 // quotient Z = X / max(W H, eps).  Each block recomputes its 64 x 64 tile of
 // W H in registers, forms Z in shared memory and contracts it at once, so X
@@ -229,6 +234,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Pass 2 of K1 and K2 in numerator_only mode: out = sum_s part[s] in f32,
+// the same split-ordered sum finalize takes, with no epilogue
+// (fused_mu.py:280-282, 408-409).  base and denom are not read.
+__global__ void __launch_bounds__(THREADS)
+    sum_splits(const float* __restrict__ part, float* __restrict__ out,
+               size_t total, int splits) {
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) acc += part[(size_t)s * total + idx];
+    out[idx] = acc;
+  }
+}
+
 // Block-wide sum of one float per thread, in a fixed tree order.
 __device__ __forceinline__ float block_sum(float v, float* red) {
   red[threadIdx.x] = v;
@@ -334,15 +353,25 @@ cudaError_t launch_partial(int kc, const Operands& o, float* part, int splits,
   }
 }
 
+// Blocks of a grid-stride pass over `total` elements.
+unsigned pass_blocks(size_t total) {
+  size_t blocks = (total + THREADS - 1) / THREADS;
+  return (unsigned)(blocks > 65535 ? 65535 : blocks);  // the loop covers the rest
+}
+
+// Pass 2: the epilogue into the state dtype, or (numerator_only) the f32 sum.
 cudaError_t launch_finalize(const void* base, int state_bf16, const float* part,
                             const float* denom, void* out, int rows, int cols,
-                            int splits, int denom_by_row, cudaStream_t st) {
+                            int splits, int denom_by_row, int numerator_only,
+                            cudaStream_t st) {
   const size_t total = (size_t)rows * cols;
-  size_t blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 65535) blocks = 65535;  // grid-stride loop covers the rest
-  finalize<<<(unsigned)blocks, THREADS, 0, st>>>(base, state_bf16, part, denom,
-                                                 out, rows, cols, splits,
-                                                 denom_by_row);
+  if (numerator_only)
+    sum_splits<<<pass_blocks(total), THREADS, 0, st>>>(
+        part, static_cast<float*>(out), total, splits);
+  else
+    finalize<<<pass_blocks(total), THREADS, 0, st>>>(base, state_bf16, part, denom,
+                                                     out, rows, cols, splits,
+                                                     denom_by_row);
   return cudaGetLastError();
 }
 
@@ -350,7 +379,7 @@ template <bool H>
 int update(const void* w, const void* h, const void* x, const float* scales,
            const float* denom, float* part, void* out, int m, int n, int k,
            int kc, int splits, int tiles_per_split, float eps, int state_bf16,
-           int x_kind, int gemm, int device, void* stream) {
+           int x_kind, int gemm, int numerator_only, int device, void* stream) {
   Operands o;
   cudaError_t err = make_operands(w, h, x, scales, m, n, k, state_bf16, x_kind,
                                   gemm, eps, &o);
@@ -365,8 +394,10 @@ int update(const void* w, const void* h, const void* x, const float* scales,
   else
     err = launch_partial<H, Mode::ANY>(kc, o, part, splits, tiles_per_split, st);
   if (err != cudaSuccess) return err;
-  return H ? launch_finalize(h, state_bf16, part, denom, out, k, n, splits, 1, st)
-           : launch_finalize(w, state_bf16, part, denom, out, m, k, splits, 0, st);
+  return H ? launch_finalize(h, state_bf16, part, denom, out, k, n, splits, 1,
+                            numerator_only, st)
+           : launch_finalize(w, state_bf16, part, denom, out, m, k, splits, 0,
+                             numerator_only, st);
 }
 
 }  // namespace
@@ -386,27 +417,28 @@ const char* nmf_error_string(int err) {
 // scales (n,); sum_w (k,) = max(colsum w, eps) in f32; part (splits,k,n)
 // f32 scratch; out (k,n) state dtype.  kc in {16,32,64,128,256};
 // state_bf16 0|1; x_kind 0 f32, 1 bf16, 2 uint8; gemm 0 float32,
-// 1 float32_fast (split3), 2 bfloat16.
+// 1 float32_fast (split3), 2 bfloat16.  numerator_only 1: out (k,n) is f32
+// and receives the numerator, sum_w is not read (may be null).
 int nmf_h_update(const void* w, const void* h, const void* x,
                  const float* scales, const float* sum_w, float* part,
                  void* out, int m, int n, int k, int kc, int splits,
                  int tiles_per_split, float eps, int state_bf16, int x_kind,
-                 int gemm, int device, void* stream) {
+                 int gemm, int numerator_only, int device, void* stream) {
   return update<true>(w, h, x, scales, sum_w, part, out, m, n, k, kc, splits,
-                      tiles_per_split, eps, state_bf16, x_kind, gemm, device,
-                      stream);
+                      tiles_per_split, eps, state_bf16, x_kind, gemm,
+                      numerator_only, device, stream);
 }
 
 // K2.  sum_h (k,) = max(rowsum h, eps), part (splits,m,k), out (m,k); the
-// rest as K1.
+// rest as K1 (numerator_only: out (m,k) f32, sum_h not read).
 int nmf_w_update(const void* w, const void* h, const void* x,
                  const float* scales, const float* sum_h, float* part,
                  void* out, int m, int n, int k, int kc, int splits,
                  int tiles_per_split, float eps, int state_bf16, int x_kind,
-                 int gemm, int device, void* stream) {
+                 int gemm, int numerator_only, int device, void* stream) {
   return update<false>(w, h, x, scales, sum_h, part, out, m, n, k, kc, splits,
-                       tiles_per_split, eps, state_bf16, x_kind, gemm, device,
-                       stream);
+                       tiles_per_split, eps, state_bf16, x_kind, gemm,
+                       numerator_only, device, stream);
 }
 
 // K3.  partials has one float per 64 x 64 tile; out is one float.  gemm as

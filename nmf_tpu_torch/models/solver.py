@@ -244,19 +244,21 @@ def solve(
     return run_checked_loop(x, w0, h0, config, step_fn, cost_fn, c0)
 
 
+def to_state(a, config: SolveConfig, dev: torch.device, clamp: bool = True) -> torch.Tensor:
+    """A factor as a row-major tensor on ``dev`` in the state dtype, clamped
+    there (``max(w.astype(sd), sd(eps))``, the reference's load-time clamp)."""
+    sd = _DTYPES[config.precision.state_dtype]
+    a = to_tensor(a, dev).to(sd)
+    if clamp:
+        a = torch.maximum(a, torch.full((), float(config.eps), dtype=sd, device=dev))
+    return a.contiguous()
+
+
 def _prep(x, w0, h0, config: SolveConfig, clamp_inputs: bool, dev: torch.device):
     """The load-time clamp, casts and quantization, as row-major tensors on
     ``dev``."""
     prec, eps = config.precision, float(config.eps)
-    sd = _DTYPES[prec.state_dtype]
-
-    def state(a):
-        a = to_tensor(a, dev).to(sd)
-        if clamp_inputs:   # max(w.astype(sd), sd(eps)): the clamp in the state dtype
-            a = torch.maximum(a, torch.full((), eps, dtype=sd, device=dev))
-        return a.contiguous()
-
-    w0, h0 = state(w0), state(h0)
+    w0, h0 = (to_state(a, config, dev, clamp_inputs) for a in (w0, h0))
     if isinstance(x, tuple):   # clamped when it was quantized
         return tuple(to_tensor(a, dev) for a in x), w0, h0
     x = to_tensor(x, dev).to(_F32)

@@ -42,9 +42,9 @@ _SIGNATURES = {
     "nmf_max_chunk": ([], _I),
     "nmf_error_string": ([_I], ctypes.c_char_p),
     # w, h, x, scales, denom, part, out; m, n, k, kc, splits, per; eps;
-    # state_bf16, x_kind, gemm, device; stream
-    "nmf_h_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
-    "nmf_w_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    # state_bf16, x_kind, gemm, numerator_only, device; stream
+    "nmf_h_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
+    "nmf_w_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
     # w, h, x, scales, partials, out; m, n, k; eps; state_bf16, x_kind,
     # gemm, device; stream
     "nmf_kl_cost": ([_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),

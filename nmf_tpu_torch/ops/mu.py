@@ -34,7 +34,7 @@ import torch
 from ..utils.config import Precision
 from .elementwise import EPS, eps_clamp
 
-__all__ = ["matmul", "update_h", "update_w", "mu_step"]
+__all__ = ["matmul", "numerator_h", "numerator_w", "update_h", "update_w", "mu_step"]
 
 _F32 = torch.float32
 
@@ -75,6 +75,30 @@ def _recon_ratio(w, h, x, eps, precision):
     return x / eps_clamp(matmul(w, h, precision), eps)
 
 
+def numerator_h(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+) -> torch.Tensor:
+    """H's numerator ``W^T (X / clamp(W@H))``, (K, N) f32: the plain version
+    of K1's ``numerator_only`` mode (``nmf_tpu/ops/pallas/fused_mu.py:310-312``)."""
+    return matmul(w, _recon_ratio(w, h, x, eps, precision), precision, transpose_a=True)
+
+
+def numerator_w(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+) -> torch.Tensor:
+    """W's numerator ``(X / clamp(W@H)) H^T``, (M, K) f32: the plain version
+    of K2's ``numerator_only`` mode (``fused_mu.py:436-438``)."""
+    return matmul(_recon_ratio(w, h, x, eps, precision), h, precision, transpose_b=True)
+
+
 def update_h(
     w: torch.Tensor,
     h: torch.Tensor,
@@ -83,9 +107,8 @@ def update_h(
     precision: Precision = Precision(),
 ) -> torch.Tensor:
     """H half-update (nmf.cu:118-146). Returns the new H."""
-    z = _recon_ratio(w, h, x, eps, precision)
     sum_w = eps_clamp(torch.sum(w, dim=0, dtype=_F32), eps)          # (K,)
-    wtz = matmul(w, z, precision, transpose_a=True)                   # (K, N)
+    wtz = numerator_h(w, h, x, eps, precision)                        # (K, N)
     return (h * (wtz / sum_w[:, None])).to(h.dtype)
 
 
@@ -97,9 +120,8 @@ def update_w(
     precision: Precision = Precision(),
 ) -> torch.Tensor:
     """W half-update (nmf.cu:148-176). Returns the new W."""
-    z = _recon_ratio(w, h, x, eps, precision)
     sum_h = eps_clamp(torch.sum(h, dim=1, dtype=_F32), eps)          # (K,)
-    zht = matmul(z, h, precision, transpose_b=True)                   # (M, K)
+    zht = numerator_w(w, h, x, eps, precision)                        # (M, K)
     return (w * (zht / sum_h[None, :])).to(w.dtype)
 
 

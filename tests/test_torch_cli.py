@@ -88,7 +88,7 @@ def test_run_with_random_init(tmp_path):
         ["--beta", "2"],
         ["--checkpoint-dir", "ckpt"],
         ["--strict-compat"],
-        ["--out-of-core"],
+        ["--mesh", "2x1", "--out-of-core"],
         ["--restarts", "4"],
     ],
 )
@@ -96,7 +96,8 @@ def test_refused_flag_exits_2(capsys, flags):
     """A flag not in the port exits 2 naming its ROADMAP.md item.  The
     precision flags, refused when this test was named, are ported: the
     parser takes them, and the run exits 2 later, on its (here missing)
-    input."""
+    input.  ``--out-of-core`` is ported too; with ``--mesh`` it is refused
+    for the mesh."""
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
@@ -104,6 +105,89 @@ def test_refused_flag_exits_2(capsys, flags):
         assert "file not found" in err and "ROADMAP.md" not in err
         return
     assert flags[0] in err and "ROADMAP.md" in err
+
+
+def _write_problem(d, m=96, k=12, n=1000, seed=17):
+    """The tests/test_streaming.py problem as .bin files."""
+    rng = np.random.RandomState(seed)
+    for name, shape in (("X", (m, n)), ("W", (m, k)), ("H", (k, n))):
+        jbin.write_matrix(rng.rand(*shape).astype(np.float32), d / f"{name}.bin")
+
+
+def test_out_of_core_run_matches_jax_cli(tmp_path):
+    """``run --out-of-core --block-n 256`` against the JAX CLI's on the same
+    files: factors rtol 1e-5 (the blockwise-summation drift of
+    tests/test_streaming.py), the cost within 1e-5."""
+    from nmf_tpu import cli as jcli
+
+    _write_problem(tmp_path)
+    common = ["X.bin", "W.bin", "H.bin", "--out-of-core", "--block-n", "256",
+              "--max-iter", "30", "--check-every", "10"]
+    run = _port("run", *common, "-o", "Wp.bin", "Hp.bin", "--device", "cpu",
+                "--jsonl", "port.jsonl", cwd=tmp_path)
+    assert run.returncode == 0, run.stderr
+    assert "[nmf] out-of-core: streamed 96x1000 X (0.00 GB as float32)" in run.stderr
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        assert jcli.main(["run", *common, "-o", "Wj.bin", "Hj.bin", "-q",
+                          "--jsonl", "jax.jsonl"]) == 0
+    finally:
+        os.chdir(cwd)
+    for f in "WH":
+        np.testing.assert_allclose(jbin.read_matrix(tmp_path / f"{f}p.bin"),
+                                   jbin.read_matrix(tmp_path / f"{f}j.bin"), rtol=1e-5, atol=1e-8)
+    ours, ref = (json.loads((tmp_path / f"{s}.jsonl").read_text().splitlines()[-1])
+                 for s in ("port", "jax"))
+    assert ours["iterations"] == ref["iterations"] == 30
+    assert [c["iteration"] for c in ours["checks"]] == [10, 20, 30]
+    assert ours["final_cost"] == pytest.approx(ref["final_cost"], rel=1e-5)
+
+
+def test_out_of_core_with_random_init(tmp_path):
+    """--rank --init random streams too, from the init the JAX CLI draws."""
+    _write_problem(tmp_path)
+    rc = cli.main(["run", str(tmp_path / "X.bin"), "--rank", "4", "--init", "random",
+                   "--seed", "3", "--out-of-core", "--block-n", "300", "--device", "cpu",
+                   "--max-iter", "20", "-q", "-o", str(tmp_path / "W.bin"), str(tmp_path / "H.bin")])
+    assert rc == 0
+    from nmf_tpu.models.init import random_init
+    from nmf_tpu.models.streaming import solve_out_of_core
+
+    x = jbin.read_matrix(tmp_path / "X.bin")
+    w0, h0 = random_init(96, 4, 1000, seed=3)
+    ref = solve_out_of_core(x, w0, h0, jt.SolveConfig(max_iter=20), block_n=300)
+    np.testing.assert_allclose(jbin.read_matrix(tmp_path / "W.bin"), np.asarray(ref.w),
+                               rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize(
+    "flags,msg",
+    [
+        (["--strict-compat"], "requires the in-memory solver; drop --out-of-core"),
+        (["--rank", "3"], "--out-of-core init must be 'random'"),
+        (["--checkpoint-dir", "ck"], "--checkpoint-dir (ROADMAP.md Queue 1 item 13"),
+        (["--freeze", "2"], "--freeze (ROADMAP.md Queue 1 item 8"),
+    ],
+)
+def test_out_of_core_refusals_exit_2(tmp_path, capsys, flags, msg):
+    """The JAX CLI's --out-of-core messages, and the flags still refused."""
+    _write_problem(tmp_path)
+    rc = cli.main(["run", str(tmp_path / "X.bin"), "--out-of-core", "--device", "cpu", *flags])
+    assert rc == 2
+    assert msg in capsys.readouterr().err
+
+
+def test_block_n_without_out_of_core_is_ignored(tmp_path):
+    """As in the JAX CLI, ``--block-n`` alone leaves the in-memory run as it
+    is: the same files, byte for byte."""
+    _write_problem(tmp_path)
+    files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+    for tag, extra in (("a", []), ("b", ["--block-n", "64"])):
+        assert cli.main(["run", *files, "--device", "cpu", "--max-iter", "5", "-q", *extra,
+                         "-o", str(tmp_path / f"W{tag}.bin"), str(tmp_path / f"H{tag}.bin")]) == 0
+    for f in "WH":
+        assert (tmp_path / f"{f}a.bin").read_bytes() == (tmp_path / f"{f}b.bin").read_bytes()
 
 
 def test_every_jax_run_flag_is_known():
@@ -168,6 +252,7 @@ def test_import_loads_no_jax():
         "import sys, nmf_tpu_torch, nmf_tpu_torch.cli, nmf_tpu_torch.utils.convert, "
         "nmf_tpu_torch.utils.metrics, nmf_tpu_torch.ops.kernels.fused_mu, "
         "nmf_tpu_torch.ops.kernels.tile_sparse, nmf_tpu_torch.models.sparse_tiled, "
+        "nmf_tpu_torch.models.streaming, "
         "nmf_tpu_torch.ops.kernels._build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nmf_tpu'))\n"
         "print(bad)\n"
@@ -188,6 +273,6 @@ def test_sources_never_import_jax_or_the_jax_package():
 def test_kernel_path_has_no_fallback_handler():
     """No ``except`` on the CUDA path: a failed build or launch raises."""
     for rel in ("ops/kernels/fused_mu.py", "ops/kernels/tile_sparse.py", "ops/kernels/_build.py",
-                "models/solver.py", "models/sparse_tiled.py"):
+                "models/solver.py", "models/sparse_tiled.py", "models/streaming.py"):
         src = (PKG / rel).read_text()
         assert "except" not in src, rel

@@ -159,8 +159,12 @@ def test_cpu_calls_launch_nothing(problem):
     wt, ht, xt = _t(w, h, x)
     tfm.mu_step_fused(wt, ht, xt)
     tfm.kl_cost_fused(xt, wt, ht)
-    assert tfm.LAUNCHES == {"update_h": 0, "update_w": 0, "kl_cost": 0}
-    assert tfm.PLAIN_CALLS == {"update_h": 0, "update_w": 0, "kl_cost": 0}
+    tfm.update_h_fused(wt, ht, xt, numerator_only=True)
+    tfm.update_w_fused(wt, ht, xt, numerator_only=True)
+    zero = {"update_h": 0, "update_w": 0, "kl_cost": 0,
+            "update_h_numerator": 0, "update_w_numerator": 0}
+    assert tfm.LAUNCHES == zero
+    assert tfm.PLAIN_CALLS == zero
 
 
 @pytest.mark.parametrize("fn", ["update_h_fused", "update_w_fused", "kl_cost_fused"])
@@ -206,16 +210,19 @@ def test_cuda_path_without_a_card_raises(problem):
     ],
 )
 def test_unported_modes_raise(problem, kw):
-    """Mostly parity now: the precision modes, refused when this test was
-    named, run and match the Pallas kernel in interpret mode (bf16 GEMMs:
-    rtol 2e-3, a last-ulp difference in W H may flip the bf16 rounding of a
-    Z entry; bf16 state: one bf16 ulp more).  ``numerator_only`` (the
-    sharded solver's hook) still raises."""
+    """Parity now: the modes refused when this test was named run and match
+    the Pallas kernel in interpret mode (bf16 GEMMs: rtol 2e-3, a last-ulp
+    difference in W H may flip the bf16 rounding of a Z entry; bf16 state:
+    one bf16 ulp more; ``numerator_only``: the f32 numerators at rtol
+    1e-5, every mode in :func:`test_numerator_only_matches_pallas`)."""
     x, w, h = problem
     if kw.get("numerator_only"):
-        for fn in (tfm.update_h_fused, tfm.update_w_fused):
-            with pytest.raises(NotImplementedError, match="numerator_only"):
-                fn(*_t(w, h, x), **kw)
+        for ours_fn, ref_fn in ((tfm.update_h_fused, jfm.update_h_fused),
+                                (tfm.update_w_fused, jfm.update_w_fused)):
+            ours = ours_fn(*_t(w, h, x), **kw)
+            ref = np.asarray(ref_fn(*_j(w, h, x), **kw, **BLOCKS))
+            assert ours.dtype == torch.float32
+            np.testing.assert_allclose(ours.numpy(), ref, rtol=RTOL, atol=ATOL)
         return
     prec = kw["precision"]
     jprec = jcfg.Precision(*dataclasses.astuple(prec))
@@ -233,6 +240,66 @@ def test_unported_modes_raise(problem, kw):
         assert ours.dtype == wt.dtype
         np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref).astype(np.float32),
                                    rtol=rtol, atol=1e-6)
+
+
+# mode -> (Precision fields, state dtype, X form, rtol); the rtols of
+# test_unported_modes_raise (bf16 GEMMs 2e-3: a flipped bf16 rounding of one
+# Z entry), here on the f32 numerator, which takes no bf16 epilogue.
+NUMERATOR_MODES = {
+    "float32": ((), "float32", "f32", RTOL),
+    "x_bfloat16": (("float32", "float32", "bfloat16"), "float32", "bf16", RTOL),
+    "x_int8": (("float32", "float32", "int8"), "float32", "int8", RTOL),
+    "bfloat16": (("bfloat16",), "float32", "f32", 2e-3),
+    "float32_fast": (("float32_fast",), "float32", "f32", 1e-4),
+    "bf16_state": (("bfloat16", "bfloat16", "bfloat16"), "bfloat16", "bf16", 2e-3),
+}
+
+
+@pytest.mark.parametrize("target", ["h", "w"])
+@pytest.mark.parametrize("mode", list(NUMERATOR_MODES))
+def test_numerator_only_matches_pallas(problem, mode, target):
+    """``numerator_only=True`` against the Pallas kernel in interpret mode,
+    in every mode: the f32 numerator with no epilogue, whatever the state
+    dtype (nmf_tpu fused_mu.py:357, :482)."""
+    from nmf_tpu.ops.quant import quantize_columns_np
+
+    fields, state, xform, rtol = NUMERATOR_MODES[mode]
+    prec = Precision(*fields)
+    jprec = jcfg.Precision(*fields)
+    x, w, h = problem
+    if xform == "int8":
+        q, s = quantize_columns_np(x, np.float32(2.2204e-16))
+        xt, xj = _t(q, s), _j(q, s)
+    else:
+        (xt,), (xj,) = _t(x), _j(x)
+        if xform == "bf16":
+            xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
+    wt, ht = (a.to(getattr(torch, state)) for a in _t(w, h))
+    wj, hj = (a.astype(getattr(jnp, state)) for a in _j(w, h))
+    ours_fn = tfm.update_h_fused if target == "h" else tfm.update_w_fused
+    ref_fn = jfm.update_h_fused if target == "h" else jfm.update_w_fused
+    ours = ours_fn(wt, ht, xt, precision=prec, numerator_only=True)
+    ref = np.asarray(ref_fn(wj, hj, xj, precision=jprec, numerator_only=True, **BLOCKS))
+    assert ours.dtype == torch.float32 and ref.dtype == np.float32
+    assert tuple(ours.shape) == ((12, 130) if target == "h" else (96, 12))
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=rtol, atol=ATOL)
+
+
+@pytest.mark.parametrize("target", ["h", "w"])
+def test_numerator_only_large_k_goes_to_plain_ops(problem, target):
+    """Above MAX_FUSED_K the numerator takes JAX's plain branch
+    (fused_mu.py:310-312, 436-438) in both packages."""
+    x, _, _ = problem
+    k = tfm.MAX_FUSED_K + 8
+    rng = np.random.RandomState(1)
+    w2 = clamp(rng.rand(x.shape[0], k).astype(np.float32))
+    h2 = clamp(rng.rand(k, x.shape[1]).astype(np.float32))
+    ours_fn = tfm.update_h_fused if target == "h" else tfm.update_w_fused
+    ref_fn = jfm.update_h_fused if target == "h" else jfm.update_w_fused
+    ours = ours_fn(*_t(w2, h2, x), numerator_only=True)
+    ref = np.asarray(ref_fn(*_j(w2, h2, x), numerator_only=True, interpret=True))
+    assert ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
 def test_int8_codes_raise(problem):
