@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py                     # from the root of a checkout
     python3 chip_smoke.py --phases card,kernels,modes,quant   # a subset
+    python3 chip_smoke.py --phases card,modes,flagship        # after a K1/K2 edit
 
 Nine phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
-   kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed);
+   kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
+   ptxas's registers and spills per kernel (a spill in an F32- or
+   BF16-Mode K1/K2 kernel fails), and check with ``cuobjdump -sass`` of the
+   same toolkit that every BF16-Mode K1/K2 kernel holds tensor-core
+   (``HMMA``) instructions and no F32-Mode one does;
 2. kernels: K1-K3 in float32 against their plain torch versions on the card
    at the reference, ISMIR and paper shapes (factors rtol 1e-4 / atol 1e-6,
    cost rel 1e-5), bitwise-equal on a second call, each timed beside its
    plain version with CUDA events (median of 10 samples of 10 back-to-back
-   calls, in turns plain, kernel, kernel, plain); then checked only at
+   calls, in turns plain, kernel, kernel, plain), the pass-1 instance of
+   K1/K2 read at the reference shape as in phase 3; then checked only at
    K = 8, 64, 300 and 2048 (every K chunk width, several chunks), and
    K > 2048 shown to take the plain ops by the rank rule;
 3. modes: each precision mode of K1-K3 (``bfloat16``, ``float32_fast``,
@@ -24,7 +30,10 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    GEMMs) is run as a control on the same operands and must fail the
    limits, so a kernel that skipped it could not pass; the W and H of
    ``bfloat16`` and ``float32_fast`` are built so that skipping it biases
-   every sum one way;
+   every sum one way.  At the reference shape the library's count of
+   pass-1 launches per Mode (``nmf_partial_launches``) over one K1 and one
+   K2 call names the instance that ran: the tensor-core one (``mma.sync
+   bf16``) under ``bfloat16``, ``simt`` else;
 4. quant: the quantizer on the card gives the codes and scales of
    ``quantize_columns_np`` byte for byte on the reference X, and those of
    ``quantize_rowblocks_np`` on a row-block case;
@@ -42,9 +51,15 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    relative (1e-3 for ``bfloat16``, whose kernel cost has a bf16 recon);
 7. flagship: 10240 x 10240, K=256: one call of K1 and K2 under
    ``float32``, ``bfloat16`` and ``float32_fast`` timed beside its plain
-   version; then 50 iterations, float32 and bfloat16, through the kernels
-   and through plain torch ops: final costs agree to 1e-4 (float32) and
-   1e-3 (bfloat16); iterations/s and TFLOP/s for both;
+   version, its instance traced as in phase 3; then 50 iterations, float32
+   and bfloat16, through the kernels and through plain torch ops: final
+   costs agree to 1e-4 (float32) and 1e-3 (bfloat16); iterations/s and
+   TFLOP/s for both; then ``bfloat16`` K1/K2 per call where a block's
+   contraction walks farthest (``LONG_WALKS``: the flagship, and an hour of
+   audio in memory, wide and tall, 303 tiles a split), f32 state (the
+   update) and bf16 state (the f32 numerator), each within
+   ``MODE_LIMITS["bfloat16"]`` of its plain version with the f32-GEMM
+   control failing;
 8. tilesparse: K5 (``h_numerator`` / ``w_numerator``) against its plain
    version on the card at the ``tests/test_pallas.py`` problem, 160 x 200
    with 32^2 tiles, 288 x 480 with 96 x 160 tiles, 8192^2 K=128 with 128^2
@@ -60,7 +75,8 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    tiles (the plain sweep by rule, 0 launches);
 9. oocore: K1/K2 ``numerator_only`` in every mode against the plain
    numerators at phase 3's shapes, the streamed block 1025 x 65408 x 32
-   (timed there) and the ragged last block 1025 x 30592 x 32, within
+   (timed and its instance traced there) and the ragged last block
+   1025 x 30592 x 32, within
    ``MODE_LIMITS`` with phase 3's controls (bf16 state: X built so that a
    skipped Z rounding shows), bitwise on a rerun, the full update equal bit
    for bit to ``base * numerator / denom`` and within the mode's limits of
@@ -87,6 +103,8 @@ a JSON summary of the kernels (each with its launches on its main path,
 its time beside its plain version's, and its bound: the larger of its
 flops over the card's peak and its bytes over 3.35 TB/s, H100 SXM at 700 W;
 no single PyTorch call computes any of them, so ``library_ms`` is null;
+each K1/K2 entry, mode and flagship entry names the instance that ran,
+``impl``, and K1/K2 carry phase 7's ``long_walks`` readings;
 K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
 their launches on the streamed solve); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -115,6 +133,10 @@ SHAPES = [(4096, 350, 128), (1025, 4000, 32), (513, 3445, 30)]   # (M, N, K)
 # correctness only: K chunk widths 16 and 64, two chunks, the K=2048 ceiling
 COVERAGE_SHAPES = [(100, 70, 8), (333, 333, 64), (257, 129, 300), (300, 200, 2048)]
 MODE_SHAPES = [(4096, 350, 128), (100, 70, 8), (257, 129, 300), (300, 200, 2048)]
+# phase 7: bfloat16 K1/K2 per call where a block's contraction walks
+# farthest (the mma sums over a whole walk): the flagship (40 tiles a split)
+# and an hour of audio in memory, wide (K2: 303) and tall (K1: 303)
+LONG_WALKS = [(10240, 10240, 256), (1025, 619_264, 32), (619_264, 1025, 32)]
 F32_TOL = (1e-4, 1e-6, 1e-5)          # phase 2: factors rtol, atol; cost rel
 # Phase 3, per kind of mode, (max, spread, cost); None: not limited.  max:
 # the largest relative error |kernel - plain| / |plain| of a factor.  spread:
@@ -159,6 +181,12 @@ TIERS = {
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
           "oocore")
+# csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
+# of K1/K2 that each runs on
+MODES = ("F32", "ANY", "SPLIT3", "BF16")
+IMPL = {"BF16": "mma.sync bf16"}   # every other Mode: "simt"
+_KERNEL_RE = re.compile(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize|sum_splits"
+                        r"|sweep_h|sweep_w)(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?")
 
 
 def check(cond, msg):
@@ -216,6 +244,83 @@ def timed_pair(kern, plain, samples=SAMPLES, calls=CALLS):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _kernel_label(mangled):
+    """``h_update_partial<R=16,BF16>`` for a mangled kernel name, or the
+    name itself where it is none of the port's kernels."""
+    m = _KERNEL_RE.search(mangled)
+    if not m:
+        return mangled
+    args = ([f"R={m.group(2)}"] if m.group(2) else []) + ([MODES[int(m.group(3))]] if m.group(3) else [])
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def _check_sass(card, lib_path):
+    """Every BF16-Mode K1/K2 pass-1 kernel of the built library holds HMMA
+    (tensor-core) instructions and no F32-Mode one does: ``cuobjdump -sass``
+    of the toolkit that built it (a missing cuobjdump fails the phase)."""
+    from nmf_tpu_torch.ops.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    check(tool.is_file(), f"no cuobjdump beside {_build._nvcc()}: the SASS check cannot run")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    hmma, label = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            label = _kernel_label(fn.group(1))
+            hmma.setdefault(label, 0)
+        elif label and "HMMA" in line:
+            hmma[label] += 1
+    partial = {n: c for n, c in hmma.items() if "update_partial<" in n}
+    by_mode = {mode: {n: c for n, c in partial.items() if n.endswith(f",{mode}>")}
+               for mode in ("F32", "BF16")}
+    check(len(by_mode["BF16"]) == 10 and all(by_mode["BF16"].values()),
+          f"BF16-Mode K1/K2 kernels without HMMA (or missing): {by_mode['BF16']}")
+    check(len(by_mode["F32"]) == 10 and not any(by_mode["F32"].values()),
+          f"F32-Mode K1/K2 kernels with HMMA (or missing): {by_mode['F32']}")
+    print(f"[{card}] SASS ({tool}): HMMA instructions in each BF16-Mode K1/K2 kernel "
+          f"{by_mode['BF16']}, none in the 10 F32-Mode ones")
+
+
+def _impl_of_counts(counts, what):
+    """The pass-1 instance ("mma.sync bf16" or "simt") of the one Mode with
+    launches in ``counts`` (launches per Mode, in MODES' order)."""
+    ran = [mode for mode, n in zip(MODES, counts) if n]
+    check(len(ran) == 1, f"{what}: pass-1 launches per Mode {dict(zip(MODES, counts))}")
+    return IMPL.get(ran[0], "simt")
+
+
+def observed_impls(fn):
+    """{"update_h": impl, "update_w": impl} of the K1/K2 pass-1 kernels that
+    ``fn`` launched: the library counts each pass-1 launch per Mode on the
+    host as it makes it (``nmf_partial_launches``), set to 0 just before.
+    (torch.profiler traces of the call lost pass-1 kernels on the H100,
+    at the streamed block on every retry: PERF.md section 6.)"""
+    from nmf_tpu_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    lib.nmf_reset_partial_launches()
+    fn()
+    torch.cuda.synchronize()
+    impls = {}
+    for key, h in (("update_h", 1), ("update_w", 0)):
+        counts = [lib.nmf_partial_launches(h, i) for i in range(len(MODES))]
+        if any(counts):
+            impls[key] = _impl_of_counts(counts, key)
+    return impls
+
+
+def _check_impls(fn, prec, where):
+    """The K1/K2 instances ``fn`` ran, each the one its GEMM policy routes
+    to: the tensor cores under ``bfloat16``, SIMT otherwise."""
+    want = "mma.sync bf16" if prec.matmul_dtype == "bfloat16" else "simt"
+    impls = observed_impls(fn)
+    check(set(impls) == {"update_h", "update_w"} and set(impls.values()) == {want},
+          f"{where}: K1/K2 ran {impls}, expected {want}")
+    return impls
+
+
 def phase_card(card, out):
     print(f"[{card}] phase 1: card and build")
     from nmf_tpu_torch.ops.kernels import _build
@@ -234,23 +339,16 @@ def phase_card(card, out):
         for line in log.read_text().splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
-                m = re.search(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize|sum_splits"
-                              r"|sweep_h|sweep_w)(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?",
-                              entry.group(1))
-                name = m.group(1) if m else entry.group(1)
-                if m and m.group(2):
-                    name += f"<R={m.group(2)}"
-                if m and m.group(3):
-                    name += ("," if m.group(2) else "<") + ("F32", "ANY", "SPLIT3")[int(m.group(3))]
-                name += ">" if m and (m.group(2) or m.group(3)) else ""
+                name = _kernel_label(entry.group(1))
             elif name and ("spill" in line and " 0 bytes spill stores" not in line or "Used" in line):
                 print(f"[{card}]   {name}: {line.split('info    :')[-1].strip()}")
                 if "spill" in line:
                     spilled.append(name)
-        # the F32 Mode of K1/K2 holds two blocks an SM only without spills
-        # (PERF.md section 6)
-        bad = [n for n in spilled if "update_partial" in n and "F32" in n]
-        check(not bad, f"F32-Mode K1/K2 kernels spill: {bad}")
+        # the F32 and BF16 Modes of K1/K2 hold two blocks an SM only without
+        # spills (PERF.md section 6)
+        bad = [n for n in spilled if "update_partial" in n and re.search(r",(F32|BF16)>", n)]
+        check(not bad, f"F32- or BF16-Mode K1/K2 kernels spill: {bad}")
+    _check_sass(card, lib_path)
     out["build_seconds"] = secs
 
 
@@ -365,6 +463,12 @@ def phase_kernels(card, out):
             if si == 0:  # the main path's shape
                 st["ms"], st["plain_ms"] = kms, pms
                 st["bound_ms"], st["bound_by"] = _mu_bound(name, w, h, x, Precision())
+        if si == 0:   # which pass-1 instance the main path's K1/K2 ran
+            impls = _check_impls(lambda: [pairs[nm][0](w, h, x) for nm in ("update_h", "update_w")],
+                                 Precision(), f"[float32] {m}x{n}x{k}")
+            for name, impl in impls.items():
+                stats[name]["impl"] = impl
+            print(f"[{card}] [float32] {m}x{n}x{k}: K1/K2 pass 1 ran {impls}")
     # every K chunk width and several chunks, up to the rank ceiling
     for m, n, k in COVERAGE_SHAPES:
         w, h, x = _operands(m, n, k)
@@ -513,6 +617,13 @@ def phase_modes(card, out):
                           f"({b_by}), {what}, bitwise-repeatable")
                 else:
                     print(f"[{card}] {where}: {what}, bitwise-repeatable")
+            if si == 0:   # which pass-1 instance K1/K2 ran, from a trace
+                impls = _check_impls(lambda: [pairs[nm][0](w, h, x) for nm in ("update_h", "update_w")],
+                                     spec.prec, f"[{mode}] {m}x{n}x{k}")
+                for name, impl in impls.items():
+                    stats[name]["modes"][mode]["impl"] = impl
+                print(f"[{card}] [{mode}] {m}x{n}x{k}: K1/K2 pass 1 ran {impls} (the library's "
+                      "launches per Mode)")
 
 
 def phase_quant(card, out):
@@ -635,6 +746,69 @@ def phase_inprocess(card, tmp, out):
               f"the tier), byte-identical on rerun{' and vs the CLI files' if via_cli else ''}")
 
 
+def _walk_operands(m, n, k, spec):
+    """A long-walk check's operands, made on the card from a seed: X
+    uniform; f32 state: W and H as phase 3's ``bfloat16`` (``_exposed``:
+    2**-10 above bf16-exact values); bf16 state: X as phase 9a's
+    (``_num_operands``: a skipped rounding of Z shows)."""
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    w, h, x = (torch.rand(s, generator=g, device="cuda").clamp_(min=EPS)
+               for s in ((m, k), (k, n), (m, n)))
+    if spec.state == torch.bfloat16:
+        w, h = w.bfloat16(), h.bfloat16()
+        return w, h, (x.bfloat16().double() * (1 + 2.0 ** -10) * (w.double() @ h.double())).float()
+    return w.bfloat16().float() * (1 + 2.0 ** -10), h.bfloat16().float() * (1 + 2.0 ** -10), x
+
+
+def _walk_tiles(name, m, n, k):
+    """Tiles a K1 (update_h) or K2 block walks: the planner's tiles_per_split."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    chunks = -(-k // fused_mu.chunk_width(k))
+    m_tiles, n_tiles = -(-m // fused_mu.TILE), -(-n // fused_mu.TILE)
+    if name == "update_h":
+        return fused_mu.plan_split(n_tiles, chunks, m_tiles)[1]
+    return fused_mu.plan_split(m_tiles, chunks, n_tiles)[1]
+
+
+def _check_long_walks(card, out):
+    """``bfloat16`` K1/K2, one call each against its plain version on the
+    same operands, where a block's contraction walks farthest (LONG_WALKS):
+    within ``MODE_LIMITS["bfloat16"]`` (max and RMS relative error), the
+    f32-GEMM control failing the RMS limit, bitwise on a rerun.  f32 state:
+    the full update (phase 3's ``bfloat16``); bf16 state: the f32 numerator
+    (``numerator_only``, phase 9a's ``bf16_state``), which shows a drift
+    the bf16 result would round away."""
+    max_limit, spread_limit, _ = MODE_LIMITS["bfloat16"]
+    checks = {"f32 state": (_modes()["bfloat16"], _pairs),
+              "bf16 state": (_num_modes()["bf16_state"], _num_pairs)}
+    for m, n, k in LONG_WALKS:
+        for label, (spec, pairs_of) in checks.items():
+            w, h, x = _walk_operands(m, n, k, spec)
+            pairs, controls = pairs_of(spec.prec), pairs_of(spec.control)
+            for name, (kern, plain) in pairs.items():
+                if name not in ("update_h", "update_w"):
+                    continue
+                per = _walk_tiles(name, m, n, k)
+                where = _where(name, w, h, f"[bfloat16, {label}, {per} tiles a split] ")
+                res, ref = _run_pair(kern, plain, w, h, x, where)
+                check(res.dtype == torch.float32, f"{where}: dtype {res.dtype}")
+                err, spread, _ = _mode_err(res, ref)
+                c_spread = _mode_err(controls[name][0](w, h, x), ref)[1]
+                del res, ref
+                what = (f"max rel err {err} (limit {max_limit}), rms rel err {spread} (limit "
+                        f"{spread_limit}); control (f32 GEMMs) {c_spread}")
+                check(err <= max_limit and spread <= spread_limit, f"{where}: {what}")
+                check(c_spread > spread_limit, f"{where}: the control reads {c_spread}, within "
+                      f"the limit {spread_limit}")
+                out["kernels"][name]["long_walks"][f"{label} {m}x{n}x{k}"] = {
+                    "tiles_per_split": per, "max_rel_err": err, "rms_rel_err": spread,
+                    "control_rms": c_spread}
+                print(f"[{card}] {where}: {what}, bitwise-repeatable")
+            del w, h, x
+            torch.cuda.empty_cache()
+
+
 def phase_flagship(card, out):
     print(f"[{card}] phase 7: flagship 10240x10240, K=256, 50 iterations, float32 and bfloat16")
     import nmf_tpu_torch as nt
@@ -651,14 +825,17 @@ def phase_flagship(card, out):
     # fewer samples (a call takes milliseconds here)
     for dtype in ("float32", "bfloat16", "float32_fast"):
         pairs = _pairs(nt.Precision(dtype))
+        impls = _check_impls(lambda: [pairs[nm][0](w, h, x) for nm in ("update_h", "update_w")],
+                             nt.Precision(dtype), f"flagship [{dtype}]")
         for name in ("update_h", "update_w"):
             kern, plain = pairs[name]
             kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x), 5, 5)
             b_ms, b_by = _mu_bound(name, w, h, x, nt.Precision(dtype))
-            out["kernels"][name]["flagship"][dtype] = {"ms": kms, "plain_ms": pms,
-                                                       "bound_ms": b_ms, "bound_by": b_by}
+            out["kernels"][name]["flagship"][dtype] = {"ms": kms, "plain_ms": pms, "bound_ms": b_ms,
+                                                       "bound_by": b_by, "impl": impls[name]}
             print(f"[{card}] flagship {name} [{dtype}] {m}x{n}x{k}: kernel {kms} ms, "
-                  f"plain {pms} ms, bound {b_ms} ms ({b_by})")
+                  f"plain {pms} ms, bound {b_ms} ms ({b_by}), {impls[name]} "
+                  f"({2 * 2 * m * n * k / kms / 1e9} TFLOP/s)")
     for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
         base = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype))
         results = {}
@@ -686,6 +863,9 @@ def phase_flagship(card, out):
                 print(f"[{card}] flagship {dtype} {label}: {secs} s for {iters} iterations + "
                       f"2 costs, {ips} it/s, {tf} TFLOP/s, final cost {cost}")
         print(f"[{card}] flagship {dtype} costs agree: rel {rel} (limit {limit})")
+    del x, w, h
+    _check_long_walks(card, out)
+
 
 def tile_problem(m, k, n, tile, occ_frac, seed=0):
     """Clustered-sparse X and dense W, H: the generator of the JAX package's
@@ -1178,8 +1358,11 @@ def phase_numerators(card, out):
                 if (m, n, k) == block:   # the streamed block, timed
                     kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
                     b_ms, b_by = _num_bound(name, w, h, x, spec.prec)
-                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
-                    what = f"kernel {kms} ms, plain {pms} ms, bound {b_ms} ms ({b_by}); " + what
+                    impl = _check_impls(lambda: [f(w, h, x) for f, _ in pairs.values()],
+                                        spec.prec, where)[name]
+                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, impl=impl)
+                    what = (f"kernel {kms} ms ({impl}), plain {pms} ms, bound {b_ms} ms ({b_by}); "
+                            + what)
                 print(f"[{card}] {where}: {what}, bitwise-repeatable, epilogue bitwise, full "
                       f"update vs plain max rel {f_err} spread {f_spread}")
             if cost_pair:
@@ -1505,7 +1688,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
     out = {
-        "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}}
+        "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {},
     }
@@ -1567,8 +1750,10 @@ def main(argv=None) -> int:
             "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"],
             "library_ms": None,
+            **({"impl": st["impl"]} if "impl" in st else {}),
             "modes": modes,
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
+            **({"long_walks": st["long_walks"]} if st["long_walks"] else {}),
         })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
     print(f"[{card}] all nine phases passed in {time.perf_counter() - t_start} s "

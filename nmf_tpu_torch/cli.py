@@ -7,8 +7,10 @@
     python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
 
 The flags mirror ``python -m nmf_tpu``.  Every other ``run`` flag of the JAX
-CLI is parsed and refused with exit code 2, naming the ROADMAP.md item that
-will bring it: a flag is never silently ignored.
+CLI is parsed with the JAX CLI's default, and runs as the JAX CLI runs it
+when it spells out that default; any other value is refused with exit code
+2, naming the ROADMAP.md item that will bring it: a flag is never silently
+ignored.
 """
 
 from __future__ import annotations
@@ -26,32 +28,38 @@ from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger
 
-# JAX-CLI run flags not in the port yet: flag -> (argparse kwargs, where the
-# work is queued in ROADMAP.md).
+# JAX-CLI run flags not in the port yet: flag -> (argparse kwargs with the
+# JAX CLI's default, nmf_tpu/cli.py:42-114, 1188-1227; where the work is
+# queued in ROADMAP.md).  A flag that spells out its default runs as the JAX
+# CLI runs it; any other value is refused.
 _LATER = {
     "--mask": ({}, "Queue 1 item 8: model families (masked solver)"),
-    "--online": ({"action": "store_const", "const": True}, "Queue 1: model families (online NMF)"),
-    "--online-passes": ({"type": int}, "Queue 1: model families (online NMF)"),
-    "--online-rho": ({"type": float}, "Queue 1: model families (online NMF)"),
-    "--online-inner-iters": ({"type": int}, "Queue 1: model families (online NMF)"),
-    "--freeze": ({"type": int}, "Queue 1 item 8: model families (semi-adaptive NMF)"),
-    "--restarts": ({"type": int}, "Queue 1: selection and batched solves"),
-    "--beta": ({"type": float}, "Queue 1: ops (beta family)"),
-    "--algorithm": ({}, "Queue 1: ops (HALS)"),
-    "--accelerate": ({"action": "store_const", "const": True}, "Queue 1: accel loop"),
-    "--l1-w": ({"type": float}, "Queue 1: ops (penalized MU)"),
-    "--l1-h": ({"type": float}, "Queue 1: ops (penalized MU)"),
-    "--l2-w": ({"type": float}, "Queue 1: ops (penalized MU)"),
-    "--l2-h": ({"type": float}, "Queue 1: ops (penalized MU)"),
-    "--backend": ({}, "Queue 1: backend rules and autotune"),
-    "--no-cost": ({"action": "store_const", "const": True}, "Queue 1: remaining CLI"),
-    "--live": ({"action": "store_const", "const": True}, "Queue 1: utils (live metrics)"),
-    "--validate": ({"action": "store_const", "const": True}, "Queue 1: utils (guards)"),
+    "--online": ({"action": "store_true"}, "Queue 1: model families (online NMF)"),
+    "--online-passes": ({"type": int, "default": 1}, "Queue 1: model families (online NMF)"),
+    "--online-rho": ({"type": float, "default": 1.0}, "Queue 1: model families (online NMF)"),
+    "--online-inner-iters": ({"type": int, "default": 20},
+                             "Queue 1: model families (online NMF)"),
+    "--freeze": ({"type": int, "default": 0}, "Queue 1 item 8: model families (semi-adaptive NMF)"),
+    "--restarts": ({"type": int, "default": 1}, "Queue 1: selection and batched solves"),
+    "--beta": ({"type": float, "default": 1.0}, "Queue 1: ops (beta family)"),
+    "--algorithm": ({"choices": ["mu", "hals"], "default": "mu"}, "Queue 1: ops (HALS)"),
+    "--accelerate": ({"action": "store_true"}, "Queue 1: accel loop"),
+    "--l1-w": ({"type": float, "default": 0.0}, "Queue 1: ops (penalized MU)"),
+    "--l1-h": ({"type": float, "default": 0.0}, "Queue 1: ops (penalized MU)"),
+    "--l2-w": ({"type": float, "default": 0.0}, "Queue 1: ops (penalized MU)"),
+    "--l2-h": ({"type": float, "default": 0.0}, "Queue 1: ops (penalized MU)"),
+    "--live": ({"action": "store_true"}, "Queue 1: utils (live metrics)"),
+    "--validate": ({"action": "store_true"}, "Queue 1: utils (guards)"),
     "--mesh": ({}, "Queue 1 item 12: sharded solves"),
     "--checkpoint-dir": ({}, "Queue 1 item 13: utils (checkpoint)"),
-    "--checkpoint-every": ({"type": int}, "Queue 1 item 13: utils (checkpoint)"),
-    "--strict-compat": ({"action": "store_const", "const": True}, "Queue 1: strict.py"),
+    "--checkpoint-every": ({"type": int, "default": 100}, "Queue 1 item 13: utils (checkpoint)"),
+    "--strict-compat": ({"action": "store_true"}, "Queue 1: strict.py"),
 }
+_AUTOTUNE = "Queue 1 step 11 (item 7): the H100 backend rules and autotune"
+
+
+def _default(kw: dict):
+    return kw.get("default", False if kw.get("action") == "store_true" else None)
 
 
 def _dest(flag: str) -> str:
@@ -59,11 +67,14 @@ def _dest(flag: str) -> str:
 
 
 def _refused(args) -> list:
-    return [
+    refused = [
         f"{flag} (ROADMAP.md {where})"
-        for flag, (_, where) in _LATER.items()
-        if getattr(args, _dest(flag)) is not None
+        for flag, (kw, where) in _LATER.items()
+        if getattr(args, _dest(flag)) != _default(kw)
     ]
+    if args.backend == "autotune":
+        refused.append(f"--backend autotune (ROADMAP.md {_AUTOTUNE})")
+    return refused
 
 
 def _error(msg: str) -> int:
@@ -77,6 +88,7 @@ def _config(args) -> SolveConfig:
         precision=Precision(
             matmul_dtype=args.dtype, x_dtype=args.x_dtype, x_quant_rows=args.x_quant_rows
         ),
+        backend=args.backend, track_cost=not args.no_cost,
     )
 
 
@@ -247,8 +259,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--block-n", type=int,
         help="columns per streamed block (default: ~256 MiB of f32)",
     )
+    run.add_argument(
+        "--backend", choices=["auto", "jnp", "pallas", "autotune"], default="auto",
+        help="auto/pallas: the CUDA kernels on the card; jnp: plain torch ops "
+        f"(autotune: not ported yet, {_AUTOTUNE})",
+    )
+    run.add_argument("--no-cost", action="store_true", help="skip cost tracking")
     for flag, (kw, where) in _LATER.items():
-        run.add_argument(flag, default=None, help=f"not ported yet ({where})", **kw)
+        run.add_argument(flag, help=f"only its JAX default so far ({where})", **kw)
     run.set_defaults(fn=cmd_run)
 
     gen = sub.add_parser("gen", help="write the seed-0 reference fixtures")

@@ -1,4 +1,4 @@
-// Fused KL multiplicative-update kernels for Hopper (sm_90a), SIMT.
+// Fused KL multiplicative-update kernels for Hopper (sm_90a).
 //
 // These replace the three Pallas TPU kernels of nmf_tpu/ops/pallas/fused_mu.py:
 //
@@ -20,12 +20,16 @@
 // is the only M x N stream (read once per kernel).
 //
 // What bounds them on this card.  One half-update costs ~4 M N K flop (two
-// GEMMs) against ~4 M N bytes of X (2 for bf16 X, 1 for uint8 codes), so at
-// K >= 30 it is compute-bound.  These kernels run every policy on the SIMT
-// FMA units (~67 TFLOP/s on an H100 SXM at 700 W); the tensor-core versions
-// of the bf16 and split3 modes (mma.sync / wgmma) are later work.  Simple
-// and right rather than fast: 4 x 4 (phase A) and 4 x R (phase B) register
-// tiles fed from shared memory, no cp.async/TMA.
+// GEMMs) against ~4 M N bytes of X (2 for bf16 X, 1 for uint8 codes).  On
+// the SIMT FMA units (~67 TFLOP/s on an H100 SXM at 700 W) that is
+// compute-bound from K ~ 30; on the tensor cores (989 TFLOP/s bf16) the
+// bytes bound it below K ~ 500.  K1/K2 pass 1 under the bfloat16 policy
+// (Mode::BF16) runs both products of a tile on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate; mma_tile.cuh); every other
+// policy, and K3, run on the SIMT units: 4 x 4 (phase A) and 4 x R (phase B)
+// register tiles fed from shared memory.  Neither uses cp.async, TMA or
+// wgmma: each staging step waits for its global loads (the latency, not the
+// tensor cores, bounds BF16).
 //
 // Modes, as the TPU kernels have them, applied at staging (where a value is
 // written to shared memory), outside the inner FMA loops:
@@ -38,18 +42,22 @@
 //          in register as float(q) * scale[col].
 //   GEMM   float32: operands as they are.  bfloat16: each staged W, H and Z
 //          value rounded to bf16 (__float2bfloat16_rn, the casts' rounding);
-//          the product of two bf16 values is exact in f32, so fmaf in f32
-//          equals bf16 MMA with f32 accumulation up to the order of the sum.
-//          float32_fast (split3): each operand
+//          K1/K2 stage them as bf16 and multiply on the tensor cores (bf16
+//          mma, f32 accumulation); K3 fmaf's them in f32, which is the same
+//          up to the order of the sum (a product of two bf16 values is exact
+//          in f32).  float32_fast (split3): each operand
 //          staged as a bf16 (hi, lo) pair, hi = bf16(a), lo = bf16(a - hi),
 //          in the 4 bytes an f32 took, and each pair of operands costs three
 //          FMAs hi*bh + hi*bl + lo*bh (the lo*lo term dropped, as _kdot).
 //   K3     recon in true f32 under both f32 policies, on bf16-rounded
 //          inputs under bfloat16 (fused_mu.py:586-591).
 //
-// The kernels are instantiated per Mode (below): the all-f32 main path, the
-// other modes as runtime choices, and split3.  Not the cross product of
-// dtypes, rounding and chunk widths: 30 partial kernels in all.
+// The pass-1 kernels are instantiated per Mode (below): F32, the all-f32
+// main path; ANY, f32 GEMMs on bf16 state or bf16/uint8 X as runtime
+// choices; SPLIT3; and BF16, the bfloat16 GEMM policy on the tensor cores
+// for every state dtype and X storage (both runtime choices).  Not the
+// cross product of dtypes, rounding and chunk widths: 40 partial kernels in
+// all.
 //
 // Design against the TPU kernel.  Pallas runs its grid in order and carries
 // the K x bn (or bm x K) accumulator across the innermost grid axis.  CUDA
@@ -71,18 +79,22 @@
 // allocates nothing, and returns cudaGetLastError().
 //
 // The tile steps (recon_tile, ratio_tile), the staging rules and Mode live in
-// mu_tile.cuh, shared with K5 (tile_sparse.cu).
+// mu_tile.cuh, shared with K5 (tile_sparse.cu); the tensor-core pieces of
+// Mode::BF16 in mma_tile.cuh, which only this file includes.
 
-#include "mu_tile.cuh"
+#include <algorithm>
+#include <atomic>
+
+#include "mma_tile.cuh"  // and mu_tile.cuh
 
 namespace {
 
 // K1 pass 1.  Block (n tile, k chunk, split): for its run of M tiles,
 // acc[kk][j] += sum_i W[m0 + i, kc0 + kk] * Z[i, j], then the raw partial
-// goes to part[split][k][n].  R = KC / 16 accumulator rows per thread.
+// goes to part[split][k][n].  SIMT: R = KC / 16 accumulator rows per thread.
 template <int R, Mode MODE>
-__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 ? 2 : 1)
-    h_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
+__device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restrict__ part,
+                                               int tiles_per_split) {
   using T = StagedT<MODE>;
   constexpr bool S3 = MODE == Mode::SPLIT3;
   constexpr int KC = 16 * R;
@@ -144,10 +156,10 @@ __global__ void __launch_bounds__(THREADS, MODE == Mode::F32 ? 2 : 1)
 
 // K2 pass 1.  Block (m tile, k chunk, split): for its run of N tiles,
 // acc[i][kk] += sum_j Z[i, j] * H[kc0 + kk, n0 + j], partial to
-// part[split][m][k].  hc holds the H chunk transposed ([TILE][KC + 1]).
+// part[split][m][k].  SIMT: hc holds the H chunk transposed ([TILE][KC + 1]).
 template <int R, Mode MODE>
-__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 ? 2 : 1)
-    w_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
+__device__ __forceinline__ void w_partial_simt(const Operands& o, float* __restrict__ part,
+                                               int tiles_per_split) {
   using T = StagedT<MODE>;
   constexpr bool S3 = MODE == Mode::SPLIT3;
   constexpr int KC = 16 * R;
@@ -205,6 +217,174 @@ __global__ void __launch_bounds__(THREADS, MODE == Mode::F32 ? 2 : 1)
       const int gm = m0 + ty + 16 * r, gk = kc0 + tx + 16 * c;
       if (gm < o.m && gk < o.k) dst[(size_t)gm * o.k + gk] = acc[r][c];
     }
+}
+
+// Loads of the walking W or H block a thread has in flight at once beside
+// the accumulators (KC / 4 elements a thread in all): elements, or 16-byte
+// vectors.  K2 stages one element at a time: its 16-byte loads (of W, H
+// or X) spilled at KC = 256.
+constexpr int WALK_UNROLL = 4, WALK_VECTORS = 2;
+
+// K1 pass 1 on the tensor cores (Mode::BF16): the same walk and partials as
+// h_partial_simt.  Per M tile: X to xs, Wc = W[m0 .., kc0 .. +KC] to wc
+// (bf16 [TILE][KC + BPAD], k contiguous), W H into registers, Z to zs,
+// then acc (KC x TILE) += Wc^T Z over the tile's 64 rows (A = Wc^T and
+// B = Z both stored i-major: ldmatrix.trans; each k-step summed apart and
+// added in f32, mma_panel's FRESH, however long the walk).  With one k
+// chunk (K <= KC) Wc is the whole W block of the tile, and the block's H
+// columns H[.., n0 .. +64] stay in shared memory for its whole walk (hr),
+// so W H reads both from shared memory; above it W H streams both per k
+// step.
+template <int R>
+__device__ __forceinline__ void h_partial_mma(const Operands& o, float* __restrict__ part,
+                                              int tiles_per_split) {
+  using L = HTiling<R>;
+  constexpr int KC = 16 * R, WC_LD = KC + BPAD;
+  extern __shared__ float4 smem_raw[];
+  bf16* zs = reinterpret_cast<bf16*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(zs + Z_WORDS);
+  bf16* wc = zs + Z_WORDS + X_WORDS;
+  bf16* hr = wc + TILE * WC_LD;  // [KC][HS_LD] resident H, or one streamed step
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  const int n0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
+  const int m_tiles = (o.m + TILE - 1) / TILE;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, m_tiles);
+  const bool resident = o.k <= KC;
+  if (resident)  // read after the first tile's __syncthreads
+    stage_bf16<KC, TILE, HS_LD, WALK_UNROLL, WALK_VECTORS>(o, o.h, 0, n0, o.k, o.n, o.n, hr);
+
+  float acc[L::TM][L::TN][4];
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][u][c] = 0.f;
+
+#pragma unroll 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int m0 = t * TILE;
+    stage_x<true>(o, m0, n0, xs);
+    stage_bf16<TILE, KC, WC_LD, WALK_UNROLL, WALK_VECTORS>(o, o.w, m0, kc0, o.m, o.k, o.k, wc);
+    float y[1][4][4] = {};
+    if (resident) {
+      __syncthreads();
+      recon_resident<WC_LD, HS_LD, R >= 8 ? 1 : 2>(o, wc, hr, y);
+    } else {
+      recon_streamed(o, m0, n0, hr, y);
+    }
+    ratio_z(o, y, xs, zs);
+    __syncthreads();
+    mma_panel<L::TM, L::TN, true, true, WC_LD, ZS_LD, true>(acc, wc + 16 * L::TM * wm,
+                                                            zs + 8 * L::TN * wn, TILE);
+    __syncthreads();
+  }
+
+  float* dst = part + (size_t)blockIdx.z * o.k * o.n;
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gk = kc0 + 16 * (L::TM * wm + t) + (lane >> 2) + 8 * (c >> 1);
+        const int gn = n0 + 8 * (L::TN * wn + u) + 2 * (lane & 3) + (c & 1);
+        if (gk < o.k && gn < o.n) dst[(size_t)gk * o.n + gn] = acc[t][u][c];
+      }
+}
+
+// K2 pass 1 on the tensor cores.  Per N tile: X to xs, Hc = H[kc0 .. +KC,
+// n0 ..] to hc (bf16 [KC][TILE + BPAD], n contiguous), W H, Z, then
+// acc (TILE x KC) += Z Hc^T over the tile's 64 columns (A = Z and B = Hc^T
+// both stored with the contraction axis contiguous: plain ldmatrix; FRESH,
+// as K1).  With one k chunk Hc is the tile's whole H block, and the
+// block's W rows W[m0 .. +64, ..] stay in shared memory for its walk (wr).
+template <int R>
+__device__ __forceinline__ void w_partial_mma(const Operands& o, float* __restrict__ part,
+                                              int tiles_per_split) {
+  using L = WTiling<R>;
+  constexpr int KC = 16 * R, HC_LD = TILE + BPAD, WR_LD = KC + BPAD;
+  extern __shared__ float4 smem_raw[];
+  bf16* zs = reinterpret_cast<bf16*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(zs + Z_WORDS);
+  bf16* hc = zs + Z_WORDS + X_WORDS;
+  bf16* wr = hc + KC * HC_LD;  // [TILE][WR_LD] resident W, or one streamed step
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  const int m0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
+  const int n_tiles = (o.n + TILE - 1) / TILE;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const bool resident = o.k <= KC;
+  if (resident)
+    stage_bf16<TILE, KC, WR_LD, WALK_UNROLL, 0>(o, o.w, m0, 0, o.m, o.k, o.k, wr);
+
+  float acc[L::TM][L::TN][4];
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][u][c] = 0.f;
+
+#pragma unroll 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int n0 = t * TILE;
+    stage_x<false>(o, m0, n0, xs);
+    stage_bf16<KC, TILE, HC_LD, WALK_UNROLL, 0>(o, o.h, kc0, n0, o.k, o.n, o.n, hc);
+    float y[1][4][4] = {};
+    if (resident) {
+      __syncthreads();
+      recon_resident<WR_LD, HC_LD, R >= 8 ? 1 : 2>(o, wr, hc, y);
+    } else {
+      recon_streamed(o, m0, n0, wr, y);
+    }
+    ratio_z(o, y, xs, zs);
+    __syncthreads();
+    mma_panel<L::TM, L::TN, false, false, ZS_LD, HC_LD, true>(acc, zs + 16 * L::TM * wm * ZS_LD,
+                                                              hc + 8 * L::TN * wn * HC_LD, TILE);
+    __syncthreads();
+  }
+
+  float* dst = part + (size_t)blockIdx.z * o.m * o.k;
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gm = m0 + 16 * (L::TM * wm + t) + (lane >> 2) + 8 * (c >> 1);
+        const int gk = kc0 + 8 * (L::TN * wn + u) + 2 * (lane & 3) + (c & 1);
+        if (gm < o.m && gk < o.k) dst[(size_t)gm * o.k + gk] = acc[t][u][c];
+      }
+}
+
+// The pass-1 kernels: BF16 runs on the tensor cores, every other Mode on the
+// SIMT units.  F32 and BF16 hold to two blocks an SM (128 registers).  K1/K2
+// take ANY only under f32 GEMMs (update()): the bf16 rounding, constant off
+// there, leaves the staging rules' RoundBf16 arms out of those instances.
+template <int R, Mode MODE>
+__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 || MODE == Mode::BF16 ? 2 : 1)
+    h_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
+  if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
+  if constexpr (MODE == Mode::BF16)
+    h_partial_mma<R>(o, part, tiles_per_split);
+  else
+    h_partial_simt<R, MODE>(o, part, tiles_per_split);
+}
+
+template <int R, Mode MODE>
+__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 || MODE == Mode::BF16 ? 2 : 1)
+    w_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
+  if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
+  if constexpr (MODE == Mode::BF16)
+    w_partial_mma<R>(o, part, tiles_per_split);
+  else
+    w_partial_simt<R, MODE>(o, part, tiles_per_split);
 }
 
 // Pass 2 of K1 and K2: out = base * (sum_s part[s]) / denom, the sum taken
@@ -302,21 +482,29 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) out[0] = sum;
 }
 
-// Shared memory in 4-byte words (an f32 or a bf16 pair), as bytes.
-template <int R>
+// Shared memory in 4-byte words (an f32 or a bf16 pair), as bytes; BF16's
+// in bf16 words (mma_tile.cuh): Z, X, the walking chunk, and the resident
+// block or one streamed W H step (96 KiB at KC = 256: two blocks an SM).
+template <int R, Mode MODE>
 size_t h_smem_bytes() {
+  if constexpr (MODE == Mode::BF16)
+    return (Z_WORDS + X_WORDS + (size_t)TILE * (16 * R + BPAD) +
+            std::max<size_t>(16 * R * HS_LD, STEP_WORDS)) * sizeof(bf16);
   return (staging_words() + (size_t)TILE * 16 * R) * sizeof(float);
 }
 
-template <int R>
+template <int R, Mode MODE>
 size_t w_smem_bytes() {
+  if constexpr (MODE == Mode::BF16)
+    return (Z_WORDS + X_WORDS + (size_t)16 * R * (TILE + BPAD) +
+            std::max<size_t>(TILE * (16 * R + BPAD), STEP_WORDS)) * sizeof(bf16);
   return (staging_words() + (size_t)TILE * (16 * R + 1)) * sizeof(float);
 }
 
 template <int R, Mode MODE>
 cudaError_t launch_h(const Operands& o, float* part, int splits,
                      int tiles_per_split, cudaStream_t st) {
-  const size_t smem = h_smem_bytes<R>();
+  const size_t smem = h_smem_bytes<R, MODE>();
   cudaError_t err = cudaFuncSetAttribute(
       h_update_partial<R, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -329,7 +517,7 @@ cudaError_t launch_h(const Operands& o, float* part, int splits,
 template <int R, Mode MODE>
 cudaError_t launch_w(const Operands& o, float* part, int splits,
                      int tiles_per_split, cudaStream_t st) {
-  const size_t smem = w_smem_bytes<R>();
+  const size_t smem = w_smem_bytes<R, MODE>();
   cudaError_t err = cudaFuncSetAttribute(
       w_update_partial<R, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -339,18 +527,28 @@ cudaError_t launch_w(const Operands& o, float* part, int splits,
   return cudaGetLastError();
 }
 
+// Pass-1 launches of K1 (0) and K2 (1) per Mode, counted on the host as
+// each is launched: which instance a call ran (nmf_partial_launches).  The
+// kernel names of a torch.profiler trace would say the same, but on the
+// H100 a short trace lost its first kernels (PERF.md section 6).
+constexpr int MODES = static_cast<int>(Mode::BF16) + 1;  // the last Mode
+std::atomic<int> partial_launches[2][MODES];
+
 // Pass 1 of K1 (H) or K2 (W) at chunk width kc.
 template <bool H, Mode MODE>
 cudaError_t launch_partial(int kc, const Operands& o, float* part, int splits,
                            int per, cudaStream_t st) {
+  cudaError_t err;
   switch (kc) {
-    case 16: return H ? launch_h<1, MODE>(o, part, splits, per, st) : launch_w<1, MODE>(o, part, splits, per, st);
-    case 32: return H ? launch_h<2, MODE>(o, part, splits, per, st) : launch_w<2, MODE>(o, part, splits, per, st);
-    case 64: return H ? launch_h<4, MODE>(o, part, splits, per, st) : launch_w<4, MODE>(o, part, splits, per, st);
-    case 128: return H ? launch_h<8, MODE>(o, part, splits, per, st) : launch_w<8, MODE>(o, part, splits, per, st);
-    case 256: return H ? launch_h<16, MODE>(o, part, splits, per, st) : launch_w<16, MODE>(o, part, splits, per, st);
+    case 16: err = H ? launch_h<1, MODE>(o, part, splits, per, st) : launch_w<1, MODE>(o, part, splits, per, st); break;
+    case 32: err = H ? launch_h<2, MODE>(o, part, splits, per, st) : launch_w<2, MODE>(o, part, splits, per, st); break;
+    case 64: err = H ? launch_h<4, MODE>(o, part, splits, per, st) : launch_w<4, MODE>(o, part, splits, per, st); break;
+    case 128: err = H ? launch_h<8, MODE>(o, part, splits, per, st) : launch_w<8, MODE>(o, part, splits, per, st); break;
+    case 256: err = H ? launch_h<16, MODE>(o, part, splits, per, st) : launch_w<16, MODE>(o, part, splits, per, st); break;
     default: return cudaErrorInvalidValue;
   }
+  if (err == cudaSuccess) ++partial_launches[H ? 0 : 1][static_cast<int>(MODE)];
+  return err;
 }
 
 // Blocks of a grid-stride pass over `total` elements.
@@ -389,6 +587,8 @@ int update(const void* w, const void* h, const void* x, const float* scales,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gemm == GEMM_SPLIT3)
     err = launch_partial<H, Mode::SPLIT3>(kc, o, part, splits, tiles_per_split, st);
+  else if (gemm == GEMM_BF16)  // every state dtype, X kind and numerator_only
+    err = launch_partial<H, Mode::BF16>(kc, o, part, splits, tiles_per_split, st);
   else if (all_f32(o) && gemm == GEMM_F32)
     err = launch_partial<H, Mode::F32>(kc, o, part, splits, tiles_per_split, st);
   else
@@ -411,6 +611,18 @@ int nmf_max_chunk() { return 16 * 16; }
 
 const char* nmf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Pass-1 launches of K1 (h = 1) or K2 (h = 0) in Mode `mode` (its value in
+// mu_tile.cuh) since the library loaded or the last reset; -1 for a Mode
+// out of range.
+int nmf_partial_launches(int h, int mode) {
+  return mode < 0 || mode >= MODES ? -1 : partial_launches[h ? 0 : 1][mode].load();
+}
+
+void nmf_reset_partial_launches() {
+  for (auto& row : partial_launches)
+    for (auto& n : row) n = 0;
 }
 
 // K1.  w (m,k), h (k,n) in the state dtype; x (m,n) f32 | bf16 | uint8 with

@@ -1,0 +1,404 @@
+// Warp-level tensor-core pieces of K1/K2's bfloat16 mode (Mode::BF16 in
+// fused_mu.cu): bf16 staging in shared memory, ldmatrix fragment loads, the
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) wrapper, and the tile steps
+// built from them: staging, W H (from resident blocks or streamed), the
+// ratio Z = bf16(X / max(W H, eps)), and the warp tilings of the 64-deep
+// contraction of Z with a W or H chunk.
+//
+// The bfloat16 policy is what a bf16 mma computes: W, H and Z rounded to
+// bf16 (nearest even; bf16 state is taken as its bits), each product exact
+// in f32, sums in f32 (nmf_tpu/ops/pallas/fused_mu.py:215-230, 266-269).
+// The tensor core adds the 16 products of a k-step in its own order, so the
+// sums match the SIMT kernels' fmaf chains up to the order of the sum.
+//
+// Layout.  Every staged row starts on 16 bytes (ldmatrix's rule): rows are
+// padded by BPAD = 8 bf16, which also spreads the 8 rows of one 8 x 8
+// fragment over all 32 banks (a row stride of 4 mod 32 words).  Operands
+// stored with the contraction axis contiguous load with plain ldmatrix;
+// those stored with it strided load with ldmatrix.trans.  Out-of-range rows,
+// columns and k are staged as 0, so W H = 0 and Z = 0 / eps = 0 there.
+
+#pragma once
+
+#include "mu_tile.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BPAD = 8;              // bf16 pad per staged row: 16 bytes
+constexpr int RK = KS;               // k depth of one streamed W H step (16)
+constexpr int WS_LD = RK + BPAD;     // ws [TILE][WS_LD]: W slice, k contiguous
+constexpr int HS_LD = TILE + BPAD;   // hs [RK][HS_LD], H [k][HS_LD]: n contiguous
+constexpr int ZS_LD = TILE + BPAD;   // zs [TILE][ZS_LD]: Z, n contiguous
+constexpr int XS_LD = TILE + 8;      // xs [TILE][XS_LD]: X as f32 (conflict-free pairs)
+
+// Shared memory in bf16 words, each a multiple of 8 (16 bytes), so the
+// buffers after them stay aligned: Z, X (f32), and one streamed W H step.
+constexpr int Z_WORDS = TILE * ZS_LD;
+constexpr int X_WORDS = 2 * TILE * XS_LD;
+constexpr int STEP_WORDS = TILE * WS_LD + RK * HS_LD;
+
+__device__ __forceinline__ bf16 bf16_zero() { return __ushort_as_bfloat16(0); }
+
+// W or H elements staged as bf16: the bits of bf16 state, or f32 state
+// rounded to nearest even (the casts' rounding).  Indices are 32-bit here:
+// the wrapper refuses operands of 2**31 elements or more, and 64-bit
+// offsets cost the staging loops registers.
+struct Bf16Bits {
+  const bf16* p;
+  __device__ __forceinline__ bf16 operator()(int i) const { return p[i]; }
+};
+struct F32ToBf16 {
+  const float* p;
+  __device__ __forceinline__ bf16 operator()(int i) const { return __float2bfloat16_rn(p[i]); }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const bf16* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix at a shared-memory byte address: each lane passes the address of
+// one 8-element row; .x4 loads four 8 x 8 matrices (rows from lanes 0-7,
+// 8-15, 16-23, 24-31), .x2 two (lanes 0-15).  .trans hands each lane the
+// transposed elements.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d += a b for one m16n8k16 tile: a row-major 16 x 16, b column-major
+// 16 x 8, bf16; d f32.  Lane (g, t) = (lane / 4, lane % 4) holds d at rows
+// g and g + 8, columns 2t and 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += a b: in the mma, or (FRESH) summed into zeros and added in f32.
+template <bool FRESH>
+__device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  if constexpr (FRESH) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(d, a, b);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] += d[c];
+  } else {
+    mma_bf16(acc, a, b);
+  }
+}
+
+// One warp's acc[TM][TN] m16n8 tiles += A (16 TM x depth) B (depth x 8 TN),
+// depth a multiple of 16.  a points at A's element (0, 0), stored [m][k]
+// (AT false) or [k][m] (AT true) with row stride LDA; b at B's (0, 0),
+// stored [n][k] (BT false) or [k][n] (BT true).  TN is 1 or even.  Each
+// lane converts its row address to a shared-memory offset once; every
+// fragment after that sits a compile-time distance from it.
+//
+// FRESH: each k-step's 16 products are summed by an mma into zeros and
+// added to acc in f32 (round to nearest), instead of accumulating in the
+// mma.  The tensor core aligns its addends to the largest and drops the low
+// bits (toward zero), so a long chain of mma accumulations drifts low by up
+// to an ulp a step: K / 16 steps of W H at K = 2048 moved the bf16-state
+// results past their limit.  The contraction's sums run over a block's
+// whole walk (4 steps a tile, 300 tiles and more on a tall or wide X), so
+// it is FRESH too; only W H from a resident block (K <= 256: at most 16
+// steps, started afresh each tile) accumulates in the mma.  UNROLL k-steps
+// are unrolled (and their fragments loaded ahead): one where the
+// accumulators already hold many registers, or FRESH holds a sum a step
+// (K1's R = 8 contraction spilled at 4).
+template <int TM, int TN, bool AT, bool BT, int LDA, int LDB, bool FRESH = false,
+          int UNROLL = (FRESH || TM * TN >= 16 ? 1 : 4)>
+__device__ __forceinline__ void mma_panel(float (&acc)[TM][TN][4], const bf16* a, const bf16* b,
+                                          int depth) {
+  constexpr int E = sizeof(bf16);
+  const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
+  // the lane's row: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+  // (m 8-15, k 8-15) of A; (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
+  // (n 8-15, k 8-15) of a pair of B tiles, or the first two of one tile
+  const uint32_t a0 = smem_addr(a) + E * (AT ? ((q >> 1) * 8 + r) * LDA + (q & 1) * 8
+                                             : (lane & 15) * LDA + (lane >> 4) * 8);
+  const uint32_t b0 = smem_addr(b) + E * (BT ? ((q & 1) * 8 + r) * LDB + (TN == 1 ? 0 : (q >> 1) * 8)
+                                             : ((TN == 1 ? 0 : (q >> 1) * 8) + r) * LDB + (q & 1) * 8);
+  // each B fragment used as soon as it is loaded
+#pragma unroll UNROLL
+  for (int k = 0; k < depth; k += 16) {
+    uint32_t af[TM][4];
+#pragma unroll
+    for (int t = 0; t < TM; ++t) {
+      if constexpr (AT)
+        ldsm_x4_t(af[t], a0 + E * (k * LDA + 16 * t));
+      else
+        ldsm_x4(af[t], a0 + E * (16 * t * LDA + k));
+    }
+    if constexpr (TN == 1) {
+      uint32_t bfr[2];
+      if constexpr (BT)
+        ldsm_x2_t(bfr, b0 + E * k * LDB);
+      else
+        ldsm_x2(bfr, b0 + E * k);
+#pragma unroll
+      for (int t = 0; t < TM; ++t) mma_step<FRESH>(acc[t][0], af[t], bfr);
+    } else {
+#pragma unroll
+      for (int u = 0; u < TN; u += 2) {
+        uint32_t x[4];
+        if constexpr (BT)
+          ldsm_x4_t(x, b0 + E * (k * LDB + 8 * u));
+        else
+          ldsm_x4(x, b0 + E * (8 * u * LDB + k));
+        const uint32_t b_lo[2] = {x[0], x[1]}, b_hi[2] = {x[2], x[3]};
+#pragma unroll
+        for (int t = 0; t < TM; ++t) {
+          mma_step<FRESH>(acc[t][u], af[t], b_lo);
+          mma_step<FRESH>(acc[t][u + 1], af[t], b_hi);
+        }
+      }
+    }
+  }
+}
+
+// 16-byte vectors of a row-major array p of row stride `stride`: possible
+// when p and every row start on 16 bytes (v elements), so that a vector at
+// a column multiple of v never leaves its row.
+__device__ __forceinline__ bool vec_ok(const void* p, int stride, int v) {
+  return stride % v == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Whether a ROWS x COLS block splits into whole passes of the block's
+// threads, V elements a thread.
+template <int V, int ROWS, int COLS>
+constexpr bool WHOLE_PASSES =
+    COLS % V == 0 && THREADS % (COLS / V) == 0 && ROWS % (THREADS / (COLS / V)) == 0;
+
+// V elements of W or H at p as bf16 into d (2V bytes, aligned): f32 state
+// rounded (V = 4), bf16 state copied as bits (V = 8); or V zeros.
+__device__ __forceinline__ void put_vec(const float* p, bf16* d) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  reinterpret_cast<__nv_bfloat162*>(d)[0] = __floats2bfloat162_rn(a.x, a.y);
+  reinterpret_cast<__nv_bfloat162*>(d)[1] = __floats2bfloat162_rn(a.z, a.w);
+}
+__device__ __forceinline__ void put_vec(const bf16* p, bf16* d) {
+  *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(p);
+}
+template <int V>
+__device__ __forceinline__ void put_zeros(bf16* d) {
+  if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(d) = make_uint2(0, 0);
+  else
+    *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+}
+
+// The staging loops of stage_bf16.  A thread keeps its columns and walks
+// rows STEP apart: one shared address and compile-time offsets from it.
+// Element (r, c) is p[(r0 + r) * stride + c0 + c], or 0 where r0 + r >=
+// rlim or c0 + c >= clim; the vector loop needs c0 and clim multiples of V.
+template <int ROWS, int COLS, int LD, int UNROLL, typename Src>
+__device__ __forceinline__ void stage_rows(Src src, int r0, int c0, int rlim, int clim,
+                                           int stride, bf16* dst) {
+  constexpr int STEP = THREADS / COLS;
+  static_assert(WHOLE_PASSES<1, ROWS, COLS>, "whole passes of the block");
+  const int r = threadIdx.x / COLS, c = c0 + threadIdx.x % COLS;
+  const bool col_in = c < clim;
+  bf16* d = dst + r * LD + threadIdx.x % COLS;
+#pragma unroll UNROLL
+  for (int s = 0; s < ROWS / STEP; ++s) {
+    const int gr = r0 + r + s * STEP;
+    d[s * STEP * LD] = (col_in && gr < rlim) ? src(gr * stride + c) : bf16_zero();
+  }
+}
+
+template <int V, int ROWS, int COLS, int LD, int UNROLL, typename T>
+__device__ __forceinline__ void stage_rows_vec(const T* p, int r0, int c0, int rlim, int clim,
+                                               int stride, bf16* dst) {
+  constexpr int TPR = COLS / V, STEP = THREADS / TPR;
+  const int r = threadIdx.x / TPR, cv = threadIdx.x % TPR * V, c = c0 + cv;
+  const bool col_in = c < clim;  // the whole vector
+  bf16* d = dst + r * LD + cv;
+#pragma unroll UNROLL
+  for (int s = 0; s < ROWS / STEP; ++s) {
+    const int gr = r0 + r + s * STEP;
+    if (col_in && gr < rlim)
+      put_vec(p + gr * stride + c, d + s * STEP * LD);
+    else
+      put_zeros<V>(d + s * STEP * LD);
+  }
+}
+
+// Stages a ROWS x COLS block of W or H (p, the state dtype) as bf16 into
+// dst [ROWS][LD] (c0 a multiple of 8, clim == stride).  Neighbouring
+// threads take neighbouring columns (coalesced), in 16-byte vectors where
+// the rows allow (vec_ok), else one element at a time; UNROLL elements a
+// thread in flight at once, or VU vectors (4 or 8 elements each; VU = 0:
+// elements only): as many as the registers beside K1/K2's accumulators
+// allow.
+template <int ROWS, int COLS, int LD, int UNROLL, int VU>
+__device__ __forceinline__ void stage_bf16(const Operands& o, const void* p, int r0, int c0,
+                                           int rlim, int clim, int stride, bf16* dst) {
+  if (o.state_bf16) {
+    const bf16* src = static_cast<const bf16*>(p);
+    if constexpr (VU > 0 && WHOLE_PASSES<8, ROWS, COLS>) {
+      if (vec_ok(src, stride, 8)) {
+        stage_rows_vec<8, ROWS, COLS, LD, VU>(src, r0, c0, rlim, clim, stride, dst);
+        return;
+      }
+    }
+    stage_rows<ROWS, COLS, LD, UNROLL>(Bf16Bits{src}, r0, c0, rlim, clim, stride, dst);
+  } else {
+    const float* src = static_cast<const float*>(p);
+    if constexpr (VU > 0 && WHOLE_PASSES<4, ROWS, COLS>) {
+      if (vec_ok(src, stride, 4)) {
+        stage_rows_vec<4, ROWS, COLS, LD, VU>(src, r0, c0, rlim, clim, stride, dst);
+        return;
+      }
+    }
+    stage_rows<ROWS, COLS, LD, UNROLL>(F32ToBf16{src}, r0, c0, rlim, clim, stride, dst);
+  }
+}
+
+// V elements of X at p as f32 into d (16-byte aligned): f32 (V = 4) or bf16
+// widened (V = 8); or zeros.
+__device__ __forceinline__ void put_x_vec(const float* p, float* d) {
+  *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void put_x_vec(const bf16* p, float* d) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float2 lo = __bfloat1622float2(h[2 * q]), hi = __bfloat1622float2(h[2 * q + 1]);
+    reinterpret_cast<float4*>(d)[q] = make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void stage_x_vec(const Operands& o, const T* p, int m0, int n0,
+                                            float* xs) {
+  constexpr int TPR = TILE / V, STEP = THREADS / TPR;
+  const int i = threadIdx.x / TPR, jv = threadIdx.x % TPR * V, gn = n0 + jv;
+  const bool col_in = gn < o.n;  // the whole vector
+  float* d = xs + i * XS_LD + jv;
+#pragma unroll 2
+  for (int s = 0; s < TILE / STEP; ++s) {
+    const int gm = m0 + i + s * STEP;
+    if (col_in && gm < o.m) {
+      put_x_vec(p + gm * o.n + gn, d + s * STEP * XS_LD);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q)
+        reinterpret_cast<float4*>(d + s * STEP * XS_LD)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// X of the tile at (m0, n0) into xs [TILE][XS_LD] as f32, in its storage's
+// value (uint8 codes dequantized as ratio_tile does, one at a time; with
+// VEC, f32 and bf16 in 16-byte vectors where the rows allow), 0 outside
+// (m, n).  Staged whole before W H, so that no X load is in flight beside
+// the W H accumulators (the ratio's own X loads spilled at KC = 256); two
+// elements a thread in flight (four spilled K2 at KC = 256).
+template <bool VEC>
+__device__ __forceinline__ void stage_x(const Operands& o, int m0, int n0, float* xs) {
+  if constexpr (VEC) {
+    if (o.x_kind == X_F32 && vec_ok(o.x, o.n, 4))
+      return stage_x_vec<4>(o, static_cast<const float*>(o.x), m0, n0, xs);
+    if (o.x_kind == X_BF16 && vec_ok(o.x, o.n, 8))
+      return stage_x_vec<8>(o, static_cast<const bf16*>(o.x), m0, n0, xs);
+  }
+  constexpr int STEP = THREADS / TILE;
+  const int i = threadIdx.x / TILE, gn = n0 + threadIdx.x % TILE;  // neighbours along n
+  const bool col_in = gn < o.n;
+  float* d = xs + i * XS_LD + threadIdx.x % TILE;
+  with_x<Mode::BF16>(o, [&](auto x) {
+#pragma unroll 2
+    for (int s = 0; s < TILE / STEP; ++s) {
+      const int gm = m0 + i + s * STEP;
+      d[s * STEP * XS_LD] = (col_in && gm < o.m) ? x(gm * o.n + gn, gn) : 0.f;
+    }
+  });
+}
+
+// The tile's W H into y, on the tensor cores: warp (wm, wn) = (warp % 4,
+// warp / 4) holds rows 16 wm .. +16 and columns 32 wn .. +32 as four m16n8
+// tiles.  From a W block a [TILE][LDA] (k contiguous) and an H block
+// b [k][LDB] (n contiguous) already in shared memory, depth K rounded up
+// to 16 (their rows past K are 0).  UNROLL as mma_panel's: 1 beside
+// K1/K2's 32 or 64 accumulators.
+template <int LDA, int LDB, int UNROLL>
+__device__ __forceinline__ void recon_resident(const Operands& o, const bf16* a, const bf16* b,
+                                               float (&y)[1][4][4]) {
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  mma_panel<1, 4, false, true, LDA, LDB, false, UNROLL>(y, a + 16 * wm * LDA, b + 32 * wn,
+                                                        (o.k + 15) & ~15);
+}
+
+// The same, streaming W and H through ws/hs (STEP_WORDS) RK deep a step:
+// for K above one chunk, where neither block fits.
+__device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int n0, bf16* ws,
+                                               float (&y)[1][4][4]) {
+  bf16* hs = ws + TILE * WS_LD;
+#pragma unroll 1
+  for (int k0 = 0; k0 < o.k; k0 += RK) {
+    stage_bf16<TILE, RK, WS_LD, RK * TILE / THREADS, 1>(o, o.w, m0, k0, o.m, o.k, o.k, ws);
+    stage_bf16<RK, TILE, HS_LD, RK * TILE / THREADS, 1>(o, o.h, k0, n0, o.k, o.n, o.n, hs);
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+    mma_panel<1, 4, false, true, WS_LD, HS_LD, true>(y, ws + 16 * wm * WS_LD, hs + 32 * wn,
+                                                     min(RK, (o.k - k0 + 15) & ~15));
+    __syncthreads();
+  }
+}
+
+// Z = bf16(X / max(W H, eps)) at each lane's accumulator positions, from xs
+// into zs [TILE][ZS_LD] as bf16 pairs.  Not synchronised.
+__device__ __forceinline__ void ratio_z(const Operands& o, const float (&y)[1][4][4],
+                                        const float* xs, bf16* zs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp & 3, wn = warp >> 2;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = 16 * wm + (lane >> 2) + 8 * half;
+      const int j = 32 * wn + 8 * u + 2 * (lane & 3);
+      const float2 xv = *reinterpret_cast<const float2*>(xs + i * XS_LD + j);
+      *reinterpret_cast<__nv_bfloat162*>(zs + i * ZS_LD + j) =
+          __floats2bfloat162_rn(xv.x / clamp_eps(y[0][u][2 * half], o.eps),
+                                xv.y / clamp_eps(y[0][u][2 * half + 1], o.eps));
+    }
+}
+
+// Warp tilings of the contraction: the (KC/16) x 8 m16n8 output tiles of K1
+// (acc (KC x TILE) = Wc^T Z) and the 4 x (KC/8) of K2 (acc (TILE x KC) =
+// Z Hc^T), R = KC / 16 per warp, as WM x WN warps of TM x TN tiles each
+// (at KC = 256 both 4 x 4 a warp: 4 A and 2 B ldmatrix for 16 mma).
+template <int R>
+struct HTiling {
+  static constexpr int TN = R < 4 ? R : 4, WM = TN, WN = 8 / TN, TM = R / TN;
+};
+template <int R>
+struct WTiling {
+  static constexpr int TM = R < 4 ? R : 4, WM = 4 / TM, WN = 8 / WM, TN = 2 * R / WN;
+};
+
+}  // namespace

@@ -31,7 +31,7 @@ enum Gemm { GEMM_F32 = 0, GEMM_SPLIT3 = 1, GEMM_BF16 = 2 };
 // as ANY, with each operand split into a bf16 (hi, lo) pair.  Sharing the
 // runtime choices cost the f32 path 47% at 10240^2, K=256 on an H100 (more
 // code and over 128 registers: one block an SM), hence its own instances.
-enum class Mode { F32, ANY, SPLIT3 };
+enum class Mode { F32, ANY, SPLIT3, BF16 };
 
 // The operands and modes of one call, passed by value to every kernel.
 struct Operands {

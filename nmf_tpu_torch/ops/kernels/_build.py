@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles each source (``fused_mu.cu``: K1-K3, ``tile_sparse.cu``:
-K5; both include ``mu_tile.cuh``) into an object, all at once in parallel,
+``nvcc`` compiles each source (``fused_mu.cu``: K1-K3, with the
+tensor-core pieces of ``mma_tile.cuh``; ``tile_sparse.cu``: K5; both
+include ``mu_tile.cuh``) into an object, all at once in parallel,
 and links them into one shared library with a plain C interface at first
 use, under ``build/nmf_tpu_torch/<hash>/`` beside the package (the hash
 covers the sources, the headers and the flags, so an edit rebuilds);
@@ -24,7 +25,7 @@ __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 _PKG = pathlib.Path(__file__).resolve().parents[2]   # nmf_tpu_torch/
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "tile_sparse.cu")
-_HEADERS = (_CSRC / "mu_tile.cuh",)
+_HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh")
 _LIB_NAME = "libnmf_kernels.so"
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no fast math:
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "nmf_tile": ([], _I),
     "nmf_max_chunk": ([], _I),
     "nmf_error_string": ([_I], ctypes.c_char_p),
+    # K1 (1) or K2 (0), Mode: pass-1 launches since the last reset
+    "nmf_partial_launches": ([_I, _I], _I),
+    "nmf_reset_partial_launches": ([], None),
     # w, h, x, scales, denom, part, out; m, n, k, kc, splits, per; eps;
     # state_bf16, x_kind, gemm, numerator_only, device; stream
     "nmf_h_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),

@@ -1,0 +1,114 @@
+"""The kernel build's source hash, and chip_smoke.py's reading of kernel names.
+
+``_build.library_path`` names the library by a hash of every source, header
+and flag: a file the hash misses would let an edit to it load a stale
+``libnmf_kernels.so`` on the card.  chip_smoke.py reads each kernel's Mode
+from its mangled name (ptxas, cuobjdump) and which pass-1 instance a call
+ran from the library's launches per Mode; these run on the CPU.
+"""
+
+import importlib.util
+import pathlib
+import re
+import shutil
+
+import pytest
+
+pytest.importorskip("torch")
+
+from nmf_tpu_torch.ops.kernels import _build  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CSRC = REPO / "nmf_tpu_torch" / "csrc"
+LISTED = (*_build._SOURCES, *_build._HEADERS)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_every_csrc_file_is_hashed():
+    on_disk = {p.name for p in CSRC.iterdir() if p.is_file()}
+    assert on_disk == {p.name for p in LISTED}
+    assert all(p.is_file() and p.parent == CSRC for p in LISTED)
+    assert len(set(LISTED)) == len(LISTED)
+
+
+def test_every_include_is_a_hashed_header():
+    headers = {p.name for p in _build._HEADERS}
+    for src in LISTED:
+        for name in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
+            assert name in headers, f"{src.name} includes {name}"
+
+
+def test_mma_tile_is_included_by_fused_mu_alone():
+    including = sorted(p.name for p in LISTED if '#include "mma_tile.cuh"' in p.read_text())
+    assert including == ["fused_mu.cu"]
+
+
+@pytest.mark.parametrize("name", [p.name for p in LISTED])
+def test_an_edit_to_any_listed_file_moves_the_library(tmp_path, monkeypatch, name):
+    copies = {}
+    for p in LISTED:
+        copies[p.name] = tmp_path / p.name
+        shutil.copy(p, copies[p.name])
+    monkeypatch.setattr(_build, "_SOURCES", tuple(copies[p.name] for p in _build._SOURCES))
+    monkeypatch.setattr(_build, "_HEADERS", tuple(copies[p.name] for p in _build._HEADERS))
+    before = _build.library_path()
+    assert before == _build.library_path()
+    copies[name].write_text(copies[name].read_text() + "\n// edited\n")
+    after = _build.library_path()
+    assert after != before and after.parent.parent == before.parent.parent
+
+
+def test_modes_follow_the_enum():
+    """chip_smoke.MODES lists csrc/mu_tile.cuh's Mode in value order, BF16
+    appended so the older Modes keep their numbers."""
+    enum = re.search(r"enum class Mode \{([^}]*)\}", (CSRC / "mu_tile.cuh").read_text())
+    assert tuple(v.strip() for v in enum.group(1).split(",")) == _chip_smoke().MODES
+    assert _chip_smoke().MODES == ("F32", "ANY", "SPLIT3", "BF16")
+
+
+@pytest.mark.parametrize(
+    "name,label",
+    [
+        ("_ZN44_GLOBAL__N__73101337_11_fused_mu_cu_nmf_tile16h_update_partialILi16ELNS_4ModeE3EEEv"
+         "NS_8OperandsEPfi", "h_update_partial<R=16,BF16>"),
+        ("_ZN12_GLOBAL__N_116w_update_partialILi1ELNS_4ModeE0EEEvNS_8OperandsEPfi",
+         "w_update_partial<R=1,F32>"),
+        ("_ZN12_GLOBAL__N_116w_update_partialILi4ELNS_4ModeE2EEEvNS_8OperandsEPfi",
+         "w_update_partial<R=4,SPLIT3>"),
+        ("_ZN12_GLOBAL__N_110kl_partialILNS_4ModeE1EEEvNS_8OperandsEPf", "kl_partial<ANY>"),
+        ("_ZN12_GLOBAL__N_18finalizeEPKviPKfS3_Pviiii", "finalize"),
+    ],
+)
+def test_kernel_names_give_their_mode(name, label):
+    """ptxas's and cuobjdump's (mangled) names, as phase 1 prints them."""
+    assert _chip_smoke()._kernel_label(name) == label
+
+
+@pytest.mark.parametrize(
+    "counts,impl",
+    [([0, 0, 0, 2], "mma.sync bf16"), ([2, 0, 0, 0], "simt"), ([0, 1, 0, 0], "simt"),
+     ([0, 0, 3, 0], "simt")],
+)
+def test_launch_counts_give_the_instance(counts, impl):
+    """The library's pass-1 launches per Mode name the instance that ran."""
+    assert _chip_smoke()._impl_of_counts(counts, "update_h") == impl
+
+
+@pytest.mark.parametrize("counts", [[0, 0, 0, 0], [1, 0, 0, 1]])
+def test_no_or_several_instances_fail(counts):
+    with pytest.raises(RuntimeError, match="pass-1 launches per Mode"):
+        _chip_smoke()._impl_of_counts(counts, "update_w")
+
+
+def test_launch_counters_are_bound():
+    """The counters chip_smoke.py reads are exported with their C types."""
+    assert _build._SIGNATURES["nmf_partial_launches"][0] == [_build._I, _build._I]
+    src = (CSRC / "fused_mu.cu").read_text()
+    for name in ("nmf_partial_launches", "nmf_reset_partial_launches"):
+        assert name in _build._SIGNATURES and re.search(rf"\b{name}\(", src)

@@ -94,17 +94,95 @@ def test_run_with_random_init(tmp_path):
 )
 def test_refused_flag_exits_2(capsys, flags):
     """A flag not in the port exits 2 naming its ROADMAP.md item.  The
-    precision flags, refused when this test was named, are ported: the
-    parser takes them, and the run exits 2 later, on its (here missing)
-    input.  ``--out-of-core`` is ported too; with ``--mesh`` it is refused
-    for the mesh."""
+    precision flags, ``--backend jnp`` and ``--no-cost``, refused when this
+    test was named, are ported: the parser takes them, and the run exits 2
+    later, on its (here missing) input.  ``--out-of-core`` is ported too;
+    with ``--mesh`` it is refused for the mesh."""
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
-    if flags[0] in ("--dtype", "--x-dtype"):
+    if flags[0] in ("--dtype", "--x-dtype", "--backend", "--no-cost"):
         assert "file not found" in err and "ROADMAP.md" not in err
         return
     assert flags[0] in err and "ROADMAP.md" in err
+
+
+@pytest.mark.parametrize(
+    "flags,item",
+    [
+        (["--beta", "2"], "--beta (ROADMAP.md Queue 1: ops (beta family))"),
+        (["--backend", "autotune"], "--backend autotune (ROADMAP.md Queue 1 step 11"),
+        (["--algorithm", "hals"], "--algorithm (ROADMAP.md Queue 1: ops (HALS))"),
+        (["--checkpoint-every", "50"], "--checkpoint-every (ROADMAP.md Queue 1 item 13"),
+        (["--online-passes", "2"], "--online-passes (ROADMAP.md Queue 1: model families"),
+        (["--l2-h", "0.5"], "--l2-h (ROADMAP.md Queue 1: ops (penalized MU))"),
+    ],
+)
+def test_non_default_value_refused(capsys, flags, item):
+    """A value other than the JAX CLI's default is still refused, before
+    any input is read, naming its ROADMAP.md item."""
+    rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert item in err and "file not found" not in err
+
+
+# JAX-CLI run flags spelled out at their JAX defaults (nmf_tpu/cli.py:42-114,
+# 1188-1227), and the two ported solver flags
+_DEFAULT_SPELLINGS = [
+    ["--beta", "1"], ["--algorithm", "mu"], ["--restarts", "1"], ["--freeze", "0"],
+    ["--l1-w", "0"], ["--l1-h", "0"], ["--l2-w", "0"], ["--l2-h", "0"],
+    ["--checkpoint-every", "100"], ["--online-passes", "1"], ["--online-rho", "1"],
+    ["--online-inner-iters", "20"], ["--backend", "auto"], ["--backend", "jnp"], ["--no-cost"],
+]
+
+
+@pytest.fixture(scope="module")
+def gen_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("gen")
+    assert cli.main(["gen", str(d)]) == 0
+    return d
+
+
+def _jax_cli(args, cwd):
+    from nmf_tpu import cli as jcli
+
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        return jcli.main(args)
+    finally:
+        os.chdir(here)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [*_DEFAULT_SPELLINGS, [f for spelling in _DEFAULT_SPELLINGS[:12] for f in spelling]],
+    ids=[*(" ".join(f) for f in _DEFAULT_SPELLINGS), "all-defaults"],
+)
+def test_jax_default_flags_match_jax_cli(gen_dir, tmp_path, flags):
+    """Each JAX default spelled out, ``--backend jnp`` and ``--no-cost`` run
+    through both CLIs on the same ``gen`` files: factors rtol 1e-4 / atol
+    1e-6 and the final cost within 1e-5, as test_gen_then_run_matches_jax
+    holds them (none in either without a cost)."""
+    files = [str(gen_dir / f"{s}.bin") for s in "XWH"]
+    common = ["--max-iter", "10", "--check-every", "5", "-q", *flags]
+    out = {tag: [str(tmp_path / f"{f}{tag}.bin") for f in "WH"] for tag in "pj"}
+    assert cli.main(["run", *files, "-o", *out["p"], "--device", "cpu",
+                     "--jsonl", str(tmp_path / "port.jsonl"), *common]) == 0
+    assert _jax_cli(["run", *files, "-o", *out["j"], "--jsonl", "jax.jsonl", *common],
+                    tmp_path) == 0
+    for ours, ref in zip(out["p"], out["j"]):
+        np.testing.assert_allclose(jbin.read_matrix(ours), jbin.read_matrix(ref),
+                                   rtol=1e-4, atol=1e-6)
+    ours, ref = (json.loads((tmp_path / f"{s}.jsonl").read_text().splitlines()[-1])
+                 for s in ("port", "jax"))
+    assert ours["iterations"] == ref["iterations"] == 10
+    assert [c["iteration"] for c in ours["checks"]] == [c["iteration"] for c in ref["checks"]]
+    if "--no-cost" in flags:
+        assert ours["final_cost"] is None and ref["final_cost"] is None
+    else:
+        assert ours["final_cost"] == pytest.approx(ref["final_cost"], rel=1e-5)
 
 
 def _write_problem(d, m=96, k=12, n=1000, seed=17):
@@ -142,6 +220,31 @@ def test_out_of_core_run_matches_jax_cli(tmp_path):
     assert ours["iterations"] == ref["iterations"] == 30
     assert [c["iteration"] for c in ours["checks"]] == [10, 20, 30]
     assert ours["final_cost"] == pytest.approx(ref["final_cost"], rel=1e-5)
+
+
+@pytest.mark.parametrize("flags", [["--backend", "jnp"], ["--no-cost"], ["--beta", "1", "--freeze", "0"]])
+def test_out_of_core_default_flags_match_jax_cli(tmp_path, flags):
+    """``--out-of-core`` takes ``--backend``, ``--no-cost`` and the JAX
+    defaults as the JAX CLI does: the files of both CLIs agree as in
+    test_out_of_core_run_matches_jax_cli."""
+    _write_problem(tmp_path)
+    common = ["X.bin", "W.bin", "H.bin", "--out-of-core", "--block-n", "256",
+              "--max-iter", "10", "--check-every", "5", "-q", *flags]
+    run = _port("run", *common, "-o", "Wp.bin", "Hp.bin", "--device", "cpu",
+                "--jsonl", "port.jsonl", cwd=tmp_path)
+    assert run.returncode == 0, run.stderr
+    assert _jax_cli(["run", *common, "-o", "Wj.bin", "Hj.bin", "--jsonl", "jax.jsonl"],
+                    tmp_path) == 0
+    for f in "WH":
+        np.testing.assert_allclose(jbin.read_matrix(tmp_path / f"{f}p.bin"),
+                                   jbin.read_matrix(tmp_path / f"{f}j.bin"), rtol=1e-5, atol=1e-8)
+    ours, ref = (json.loads((tmp_path / f"{s}.jsonl").read_text().splitlines()[-1])
+                 for s in ("port", "jax"))
+    assert ours["iterations"] == ref["iterations"] == 10
+    if "--no-cost" in flags:
+        assert ours["final_cost"] is None and ref["final_cost"] is None
+    else:
+        assert ours["final_cost"] == pytest.approx(ref["final_cost"], rel=1e-5)
 
 
 def test_out_of_core_with_random_init(tmp_path):
