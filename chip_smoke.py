@@ -9,10 +9,10 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
-   ptxas's registers and spills per kernel (a spill in an F32- or
-   BF16-Mode K1/K2 kernel fails), and check with ``cuobjdump -sass`` of the
-   same toolkit that every BF16-Mode K1/K2 kernel holds tensor-core
-   (``HMMA``) instructions and no F32-Mode one does;
+   ptxas's registers and spills per kernel (a spill in an F32-, BF16- or
+   SPLIT3-Mode K1/K2 kernel fails), and check with ``cuobjdump -sass`` of
+   the same toolkit that every BF16- and SPLIT3-Mode K1/K2 kernel holds
+   tensor-core (``HMMA``) instructions and no F32-Mode one does;
 2. kernels: K1-K3 in float32 against their plain torch versions on the card
    at the reference, ISMIR and paper shapes (factors rtol 1e-4 / atol 1e-6,
    cost rel 1e-5), bitwise-equal on a second call, each timed beside its
@@ -22,18 +22,21 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    K = 8, 64, 300 and 2048 (every K chunk width, several chunks), and
    K > 2048 shown to take the plain ops by the rank rule;
 3. modes: each precision mode of K1-K3 (``bfloat16``, ``float32_fast``,
-   bf16 X, int8 X, and ``BF16_FULL`` with bf16 state) against its plain
+   bf16 X, int8 X, ``BF16_FULL`` with bf16 state, and ``float32_fast`` with
+   bf16 X and with bf16 state and int8 X) against its plain
    version on the card at the reference shape (timed as in phase 2) and at
-   K = 8, 300 and 2048, bitwise-equal on a rerun, within ``MODE_LIMITS``.
+   K = 8, 64, 300 and 2048, bitwise-equal on a rerun, within ``MODE_LIMITS``.
    Where a mode rounds or splits the GEMM operands (``bfloat16``,
-   ``float32_fast``, bf16 state), the same kernel without the rounding (f32
-   GEMMs) is run as a control on the same operands and must fail the
+   ``float32_fast``, bf16 state; not ``float32_fast`` on bf16 state, which
+   splits exactly), the same kernel without the rounding (f32 GEMMs) is
+   run as a control on the same operands and must fail the
    limits, so a kernel that skipped it could not pass; the W and H of
    ``bfloat16`` and ``float32_fast`` are built so that skipping it biases
    every sum one way.  At the reference shape the library's count of
    pass-1 launches per Mode (``nmf_partial_launches``) over one K1 and one
-   K2 call names the instance that ran: the tensor-core one (``mma.sync
-   bf16``) under ``bfloat16``, ``simt`` else;
+   K2 call names the instance that ran: the tensor-core ones (``mma.sync
+   bf16`` under ``bfloat16``, ``mma.sync split3`` under ``float32_fast``),
+   ``simt`` else;
 4. quant: the quantizer on the card gives the codes and scales of
    ``quantize_columns_np`` byte for byte on the reference X, and those of
    ``quantize_rowblocks_np`` on a row-block case;
@@ -51,14 +54,15 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    relative (1e-3 for ``bfloat16``, whose kernel cost has a bf16 recon);
 7. flagship: 10240 x 10240, K=256: one call of K1 and K2 under
    ``float32``, ``bfloat16`` and ``float32_fast`` timed beside its plain
-   version, its instance traced as in phase 3; then 50 iterations, float32
-   and bfloat16, through the kernels and through plain torch ops: final
-   costs agree to 1e-4 (float32) and 1e-3 (bfloat16); iterations/s and
-   TFLOP/s for both; then ``bfloat16`` K1/K2 per call where a block's
-   contraction walks farthest (``LONG_WALKS``: the flagship, and an hour of
-   audio in memory, wide and tall, 303 tiles a split), f32 state (the
-   update) and bf16 state (the f32 numerator), each within
-   ``MODE_LIMITS["bfloat16"]`` of its plain version with the f32-GEMM
+   version, its instance traced as in phase 3; then 50 iterations, float32,
+   bfloat16 and float32_fast, through the kernels and through plain torch
+   ops: final costs agree to 1e-4 (float32, float32_fast) and 1e-3
+   (bfloat16); iterations/s and TFLOP/s for each; then K1/K2 per call where
+   a block's contraction walks farthest (``LONG_WALKS``: the flagship, and
+   an hour of audio in memory, wide and tall, 303 tiles a split):
+   ``bfloat16`` with f32 state (the update) and bf16 state (the f32
+   numerator), and ``float32_fast`` with f32 state (the update), each
+   within its ``MODE_LIMITS`` of its plain version with the f32-GEMM
    control failing;
 8. tilesparse: K5 (``h_numerator`` / ``w_numerator``) against its plain
    version on the card at the ``tests/test_pallas.py`` problem, 160 x 200
@@ -132,10 +136,14 @@ EPS = float(np.float32(2.2204e-16))
 SHAPES = [(4096, 350, 128), (1025, 4000, 32), (513, 3445, 30)]   # (M, N, K)
 # correctness only: K chunk widths 16 and 64, two chunks, the K=2048 ceiling
 COVERAGE_SHAPES = [(100, 70, 8), (333, 333, 64), (257, 129, 300), (300, 200, 2048)]
-MODE_SHAPES = [(4096, 350, 128), (100, 70, 8), (257, 129, 300), (300, 200, 2048)]
-# phase 7: bfloat16 K1/K2 per call where a block's contraction walks
-# farthest (the mma sums over a whole walk): the flagship (40 tiles a split)
-# and an hour of audio in memory, wide (K2: 303) and tall (K1: 303)
+# K chunk widths 128, 16, 64 (the tensor-core kernels' R = 4 stages apart),
+# two chunks, the K=2048 ceiling
+MODE_SHAPES = [(4096, 350, 128), (100, 70, 8), (333, 333, 64), (257, 129, 300),
+               (300, 200, 2048)]
+# phase 7: bfloat16 and float32_fast K1/K2 per call where a block's
+# contraction walks farthest (the mma sums over a whole walk): the flagship
+# (40 tiles a split) and an hour of audio in memory, wide (K2: 303) and
+# tall (K1: 303)
 LONG_WALKS = [(10240, 10240, 256), (1025, 619_264, 32), (619_264, 1025, 32)]
 F32_TOL = (1e-4, 1e-6, 1e-5)          # phase 2: factors rtol, atol; cost rel
 # Phase 3, per kind of mode, (max, spread, cost); None: not limited.  max:
@@ -184,7 +192,11 @@ PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
-IMPL = {"BF16": "mma.sync bf16"}   # every other Mode: "simt"
+IMPL = {"BF16": "mma.sync bf16", "SPLIT3": "mma.sync split3"}   # F32, ANY: "simt"
+# the GEMM policy -> the K1/K2 instance it routes to
+IMPL_OF_POLICY = {"bfloat16": IMPL["BF16"], "float32_fast": IMPL["SPLIT3"]}
+# the Modes of K1/K2 on the tensor cores, each phase 1 holds to HMMA and no spill
+MMA_MODES = tuple(IMPL)
 _KERNEL_RE = re.compile(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize|sum_splits"
                         r"|sweep_h|sweep_w)(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?")
 
@@ -255,9 +267,10 @@ def _kernel_label(mangled):
 
 
 def _check_sass(card, lib_path):
-    """Every BF16-Mode K1/K2 pass-1 kernel of the built library holds HMMA
-    (tensor-core) instructions and no F32-Mode one does: ``cuobjdump -sass``
-    of the toolkit that built it (a missing cuobjdump fails the phase)."""
+    """Every BF16- and SPLIT3-Mode K1/K2 pass-1 kernel of the built library
+    holds HMMA (tensor-core) instructions and no F32-Mode one does:
+    ``cuobjdump -sass`` of the toolkit that built it (a missing cuobjdump
+    fails the phase)."""
     from nmf_tpu_torch.ops.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
@@ -274,17 +287,20 @@ def _check_sass(card, lib_path):
             hmma[label] += 1
     partial = {n: c for n, c in hmma.items() if "update_partial<" in n}
     by_mode = {mode: {n: c for n, c in partial.items() if n.endswith(f",{mode}>")}
-               for mode in ("F32", "BF16")}
-    check(len(by_mode["BF16"]) == 10 and all(by_mode["BF16"].values()),
-          f"BF16-Mode K1/K2 kernels without HMMA (or missing): {by_mode['BF16']}")
+               for mode in ("F32", *MMA_MODES)}
+    for mode in MMA_MODES:
+        check(len(by_mode[mode]) == 10 and all(by_mode[mode].values()),
+              f"{mode}-Mode K1/K2 kernels without HMMA (or missing): {by_mode[mode]}")
     check(len(by_mode["F32"]) == 10 and not any(by_mode["F32"].values()),
           f"F32-Mode K1/K2 kernels with HMMA (or missing): {by_mode['F32']}")
-    print(f"[{card}] SASS ({tool}): HMMA instructions in each BF16-Mode K1/K2 kernel "
-          f"{by_mode['BF16']}, none in the 10 F32-Mode ones")
+    for mode in MMA_MODES:
+        print(f"[{card}] SASS ({tool}): HMMA instructions in each {mode}-Mode K1/K2 kernel "
+              f"{by_mode[mode]}")
+    print(f"[{card}] SASS: no HMMA in the 10 F32-Mode K1/K2 kernels")
 
 
 def _impl_of_counts(counts, what):
-    """The pass-1 instance ("mma.sync bf16" or "simt") of the one Mode with
+    """The pass-1 instance (``IMPL``'s, or "simt") of the one Mode with
     launches in ``counts`` (launches per Mode, in MODES' order)."""
     ran = [mode for mode, n in zip(MODES, counts) if n]
     check(len(ran) == 1, f"{what}: pass-1 launches per Mode {dict(zip(MODES, counts))}")
@@ -313,8 +329,9 @@ def observed_impls(fn):
 
 def _check_impls(fn, prec, where):
     """The K1/K2 instances ``fn`` ran, each the one its GEMM policy routes
-    to: the tensor cores under ``bfloat16``, SIMT otherwise."""
-    want = "mma.sync bf16" if prec.matmul_dtype == "bfloat16" else "simt"
+    to: the tensor cores under ``bfloat16`` and ``float32_fast``, SIMT
+    under ``float32``."""
+    want = IMPL_OF_POLICY.get(prec.matmul_dtype, "simt")
     impls = observed_impls(fn)
     check(set(impls) == {"update_h", "update_w"} and set(impls.values()) == {want},
           f"{where}: K1/K2 ran {impls}, expected {want}")
@@ -345,9 +362,10 @@ def phase_card(card, out):
                 if "spill" in line:
                     spilled.append(name)
         # the F32 and BF16 Modes of K1/K2 hold two blocks an SM only without
-        # spills (PERF.md section 6)
-        bad = [n for n in spilled if "update_partial" in n and re.search(r",(F32|BF16)>", n)]
-        check(not bad, f"F32- or BF16-Mode K1/K2 kernels spill: {bad}")
+        # spills (PERF.md section 6); SPLIT3 holds one, with no spill either
+        bad = [n for n in spilled
+               if "update_partial" in n and re.search(rf",(F32|{'|'.join(MMA_MODES)})>", n)]
+        check(not bad, f"F32-, BF16- or SPLIT3-Mode K1/K2 kernels spill: {bad}")
     _check_sass(card, lib_path)
     out["build_seconds"] = secs
 
@@ -515,6 +533,14 @@ def _modes():
                                 MODE_LIMITS["f32_gemm"]),
         "x_int8": ModeCheck(Precision(x_dtype="int8"), torch.float32, "int8",
                             MODE_LIMITS["f32_gemm"]),
+        # float32_fast on the other storages of its tensor-core kernels: bf16
+        # X (W and H exposed as above), and bf16 state (split exactly, lo 0)
+        # with int8 X, which no control can tell from f32 GEMMs
+        "float32_fast_x_bf16": ModeCheck(Precision("float32_fast", x_dtype="bfloat16"),
+                                         torch.float32, "bf16", MODE_LIMITS["float32_fast"],
+                                         f32, gemms),
+        "float32_fast_bf16_state": ModeCheck(Precision("float32_fast", "bfloat16", "int8"),
+                                             torch.bfloat16, "int8", MODE_LIMITS["bf16_state"]),
         # bf16 W and H are their own rounding: the control skips only Z's,
         # which K3 does not form
         "bf16_full_state": ModeCheck(bf16_state, torch.bfloat16, "bf16",
@@ -546,9 +572,10 @@ def _mode_operands(m, n, k, mode, spec):
     from nmf_tpu_torch.ops.quant import quantize_columns
 
     w, h, x = _operands(m, n, k)
-    if mode in ("bfloat16", "float32_fast"):
+    policy = spec.prec.matmul_dtype
+    if spec.state == torch.float32 and policy in ("bfloat16", "float32_fast"):
         rng = np.random.RandomState(m + n + k)
-        w, h = _exposed(rng, (m, k), mode), _exposed(rng, (k, n), mode)
+        w, h = _exposed(rng, (m, k), policy), _exposed(rng, (k, n), policy)
     w, h = w.to(spec.state), h.to(spec.state)
     if spec.xform == "bf16":
         x = x.to(torch.bfloat16)
@@ -746,17 +773,29 @@ def phase_inprocess(card, tmp, out):
               f"the tier), byte-identical on rerun{' and vs the CLI files' if via_cli else ''}")
 
 
-def _walk_operands(m, n, k, spec):
+def _split_exposed(g, shape):
+    """Phase 3's ``float32_fast`` W or H (``_exposed``), made on the card:
+    hi + lo, hi a power of two and lo = hi * 2**-8 * u, u in [0.5, 1) on 8
+    bits."""
+    hi = torch.exp2(-torch.randint(0, 4, shape, generator=g, device="cuda").float())
+    u = (128 + torch.randint(0, 128, shape, generator=g, device="cuda")).float() / 256
+    return hi + hi * 2.0 ** -8 * u
+
+
+def _walk_operands(m, n, k, mode, spec):
     """A long-walk check's operands, made on the card from a seed: X
-    uniform; f32 state: W and H as phase 3's ``bfloat16`` (``_exposed``:
-    2**-10 above bf16-exact values); bf16 state: X as phase 9a's
-    (``_num_operands``: a skipped rounding of Z shows)."""
+    uniform; f32 state: W and H as phase 3's for ``mode`` (``_exposed``:
+    ``bfloat16`` 2**-10 above bf16-exact values, ``float32_fast`` split
+    exactly into (hi, lo)); bf16 state: X as phase 9a's (``_num_operands``:
+    a skipped rounding of Z shows)."""
     g = torch.Generator(device="cuda").manual_seed(m + n + k)
     w, h, x = (torch.rand(s, generator=g, device="cuda").clamp_(min=EPS)
                for s in ((m, k), (k, n), (m, n)))
     if spec.state == torch.bfloat16:
         w, h = w.bfloat16(), h.bfloat16()
         return w, h, (x.bfloat16().double() * (1 + 2.0 ** -10) * (w.double() @ h.double())).float()
+    if mode == "float32_fast":
+        return _split_exposed(g, (m, k)), _split_exposed(g, (k, n)), x
     return w.bfloat16().float() * (1 + 2.0 ** -10), h.bfloat16().float() * (1 + 2.0 ** -10), x
 
 
@@ -772,25 +811,27 @@ def _walk_tiles(name, m, n, k):
 
 
 def _check_long_walks(card, out):
-    """``bfloat16`` K1/K2, one call each against its plain version on the
-    same operands, where a block's contraction walks farthest (LONG_WALKS):
-    within ``MODE_LIMITS["bfloat16"]`` (max and RMS relative error), the
-    f32-GEMM control failing the RMS limit, bitwise on a rerun.  f32 state:
-    the full update (phase 3's ``bfloat16``); bf16 state: the f32 numerator
+    """``bfloat16`` and ``float32_fast`` K1/K2, one call each against its
+    plain version on the same operands, where a block's contraction walks
+    farthest (LONG_WALKS): within the mode's ``MODE_LIMITS`` (max and RMS
+    relative error), the f32-GEMM control failing the RMS limit, bitwise on
+    a rerun.  f32 state: the full update (phase 3's ``bfloat16`` and
+    ``float32_fast``); bf16 state (``bfloat16``): the f32 numerator
     (``numerator_only``, phase 9a's ``bf16_state``), which shows a drift
     the bf16 result would round away."""
-    max_limit, spread_limit, _ = MODE_LIMITS["bfloat16"]
-    checks = {"f32 state": (_modes()["bfloat16"], _pairs),
-              "bf16 state": (_num_modes()["bf16_state"], _num_pairs)}
+    checks = {("bfloat16", "f32 state"): (_modes()["bfloat16"], _pairs),
+              ("bfloat16", "bf16 state"): (_num_modes()["bf16_state"], _num_pairs),
+              ("float32_fast", "f32 state"): (_modes()["float32_fast"], _pairs)}
     for m, n, k in LONG_WALKS:
-        for label, (spec, pairs_of) in checks.items():
-            w, h, x = _walk_operands(m, n, k, spec)
+        for (mode, label), (spec, pairs_of) in checks.items():
+            max_limit, spread_limit, _ = MODE_LIMITS[mode]
+            w, h, x = _walk_operands(m, n, k, mode, spec)
             pairs, controls = pairs_of(spec.prec), pairs_of(spec.control)
             for name, (kern, plain) in pairs.items():
                 if name not in ("update_h", "update_w"):
                     continue
                 per = _walk_tiles(name, m, n, k)
-                where = _where(name, w, h, f"[bfloat16, {label}, {per} tiles a split] ")
+                where = _where(name, w, h, f"[{mode}, {label}, {per} tiles a split] ")
                 res, ref = _run_pair(kern, plain, w, h, x, where)
                 check(res.dtype == torch.float32, f"{where}: dtype {res.dtype}")
                 err, spread, _ = _mode_err(res, ref)
@@ -801,7 +842,7 @@ def _check_long_walks(card, out):
                 check(err <= max_limit and spread <= spread_limit, f"{where}: {what}")
                 check(c_spread > spread_limit, f"{where}: the control reads {c_spread}, within "
                       f"the limit {spread_limit}")
-                out["kernels"][name]["long_walks"][f"{label} {m}x{n}x{k}"] = {
+                out["kernels"][name]["long_walks"][f"{mode} {label} {m}x{n}x{k}"] = {
                     "tiles_per_split": per, "max_rel_err": err, "rms_rel_err": spread,
                     "control_rms": c_spread}
                 print(f"[{card}] {where}: {what}, bitwise-repeatable")
@@ -810,7 +851,8 @@ def _check_long_walks(card, out):
 
 
 def phase_flagship(card, out):
-    print(f"[{card}] phase 7: flagship 10240x10240, K=256, 50 iterations, float32 and bfloat16")
+    print(f"[{card}] phase 7: flagship 10240x10240, K=256, 50 iterations, float32, bfloat16 "
+          "and float32_fast")
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.utils.metrics import flops_per_iter
 
@@ -836,7 +878,7 @@ def phase_flagship(card, out):
             print(f"[{card}] flagship {name} [{dtype}] {m}x{n}x{k}: kernel {kms} ms, "
                   f"plain {pms} ms, bound {b_ms} ms ({b_by}), {impls[name]} "
                   f"({2 * 2 * m * n * k / kms / 1e9} TFLOP/s)")
-    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3), ("float32_fast", 1e-4)):
         base = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype))
         results = {}
         for backend in ("auto", "jnp"):   # warm each path once (allocator, cuBLAS)
@@ -1228,17 +1270,20 @@ OOC_COST_MODES = ("float32", "x_bfloat16", "x_int8", "bf16_state")
 def _num_modes():
     """mode -> ModeCheck of K1/K2's numerator_only: phase 3's modes, and bf16
     state with f32 X built so that a skipped rounding of Z shows (the
-    numerator is f32, so bf16 state has the ``bfloat16`` limits, as K5's)."""
+    numerator is f32, so bf16 state has the ``bfloat16`` limits, as K5's;
+    under ``float32_fast`` its own)."""
     from nmf_tpu_torch.utils.config import Precision
 
     f32 = Precision()
     bf16_state = Precision("bfloat16", "bfloat16", "float32")
     modes = {"float32": ModeCheck(f32, torch.float32, "f32", MODE_LIMITS["f32_gemm"])}
-    modes.update((mode, spec) for mode, spec in _modes().items() if mode != "bf16_full_state")
+    modes.update((mode, spec) for mode, spec in _modes().items() if spec.state == torch.float32)
     modes["bf16_state"] = ModeCheck(bf16_state, torch.bfloat16, "z_biased",
                                     MODE_LIMITS["bfloat16"],
                                     dataclasses.replace(bf16_state, matmul_dtype="float32"),
                                     ("update_h", "update_w"))
+    modes["float32_fast_bf16_state"] = _modes()["float32_fast_bf16_state"]._replace(
+        limits=MODE_LIMITS["float32_fast"])
     return modes
 
 
@@ -1736,8 +1781,8 @@ def main(argv=None) -> int:
                 run, counter = ms["launches_of"]
                 modes[mode] = {**{key: v for key, v in ms.items() if key != "launches_of"},
                                "launches": run and out["launches"][run][counter]}
-            else:
-                modes[mode] = {**ms, "launches": out["launches"][mode][name]}
+            else:   # null: a mode no solve of phase 6 runs
+                modes[mode] = {**ms, "launches": out["launches"].get(mode, {}).get(name)}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -23,13 +23,14 @@
 // GEMMs) against ~4 M N bytes of X (2 for bf16 X, 1 for uint8 codes).  On
 // the SIMT FMA units (~67 TFLOP/s on an H100 SXM at 700 W) that is
 // compute-bound from K ~ 30; on the tensor cores (989 TFLOP/s bf16) the
-// bytes bound it below K ~ 500.  K1/K2 pass 1 under the bfloat16 policy
-// (Mode::BF16) runs both products of a tile on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate; mma_tile.cuh); every other
-// policy, and K3, run on the SIMT units: 4 x 4 (phase A) and 4 x R (phase B)
-// register tiles fed from shared memory.  Neither uses cp.async, TMA or
-// wgmma: each staging step waits for its global loads (the latency, not the
-// tensor cores, bounds BF16).
+// bytes bound it below K ~ 500.  K1/K2 pass 1 under the bfloat16 and
+// float32_fast policies (Mode::BF16, Mode::SPLIT3) runs both products of a
+// tile on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate;
+// mma_tile.cuh; split3 three mma a k-step); the float32 policy, and K3, run
+// on the SIMT units: 4 x 4 (phase A) and 4 x R (phase B) register tiles fed
+// from shared memory.  Neither uses cp.async, TMA or wgmma: each staging
+// step waits for its global loads (the latency, not the tensor cores,
+// bounds BF16).
 //
 // Modes, as the TPU kernels have them, applied at staging (where a value is
 // written to shared memory), outside the inner FMA loops:
@@ -45,19 +46,20 @@
 //          K1/K2 stage them as bf16 and multiply on the tensor cores (bf16
 //          mma, f32 accumulation); K3 fmaf's them in f32, which is the same
 //          up to the order of the sum (a product of two bf16 values is exact
-//          in f32).  float32_fast (split3): each operand
-//          staged as a bf16 (hi, lo) pair, hi = bf16(a), lo = bf16(a - hi),
-//          in the 4 bytes an f32 took, and each pair of operands costs three
-//          FMAs hi*bh + hi*bl + lo*bh (the lo*lo term dropped, as _kdot).
+//          in f32).  float32_fast (split3): each operand split into
+//          hi = bf16(a), lo = bf16(a - hi), and each product taken as
+//          hi*bh + hi*bl + lo*bh (the lo*lo term dropped, as _kdot): K1/K2
+//          stage hi and lo as two bf16 planes and run three mma a k-step
+//          (mma_tile.cuh); K3 takes the true-f32 recon (below).
 //   K3     recon in true f32 under both f32 policies, on bf16-rounded
 //          inputs under bfloat16 (fused_mu.py:586-591).
 //
 // The pass-1 kernels are instantiated per Mode (below): F32, the all-f32
 // main path; ANY, f32 GEMMs on bf16 state or bf16/uint8 X as runtime
-// choices; SPLIT3; and BF16, the bfloat16 GEMM policy on the tensor cores
-// for every state dtype and X storage (both runtime choices).  Not the
-// cross product of dtypes, rounding and chunk widths: 40 partial kernels in
-// all.
+// choices; and SPLIT3 and BF16, the float32_fast and bfloat16 GEMM policies
+// on the tensor cores for every state dtype and X storage (both runtime
+// choices).  Not the cross product of dtypes, rounding and chunk widths: 40
+// partial kernels in all.
 //
 // Design against the TPU kernel.  Pallas runs its grid in order and carries
 // the K x bn (or bm x K) accumulator across the innermost grid axis.  CUDA
@@ -79,8 +81,9 @@
 // allocates nothing, and returns cudaGetLastError().
 //
 // The tile steps (recon_tile, ratio_tile), the staging rules and Mode live in
-// mu_tile.cuh, shared with K5 (tile_sparse.cu); the tensor-core pieces of
-// Mode::BF16 in mma_tile.cuh, which only this file includes.
+// mu_tile.cuh, shared with K5 (tile_sparse.cu, whose float32_fast keeps
+// the SIMT (hi, lo) pairs); the tensor-core pieces of Mode::BF16 and
+// Mode::SPLIT3 in mma_tile.cuh, which only this file includes.
 
 #include <algorithm>
 #include <atomic>
@@ -91,18 +94,18 @@ namespace {
 
 // K1 pass 1.  Block (n tile, k chunk, split): for its run of M tiles,
 // acc[kk][j] += sum_i W[m0 + i, kc0 + kk] * Z[i, j], then the raw partial
-// goes to part[split][k][n].  SIMT: R = KC / 16 accumulator rows per thread.
+// goes to part[split][k][n].  SIMT (the f32 GEMMs: Modes F32 and ANY):
+// R = KC / 16 accumulator rows per thread.
 template <int R, Mode MODE>
 __device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restrict__ part,
                                                int tiles_per_split) {
-  using T = StagedT<MODE>;
-  constexpr bool S3 = MODE == Mode::SPLIT3;
+  static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
   constexpr int KC = 16 * R;
   extern __shared__ float4 smem_raw[];
-  T* ws = reinterpret_cast<T*>(smem_raw);
-  T* hs = ws + KS * WS_STRIDE;
-  T* zs = hs + KS * TILE;
-  T* wc = zs + TILE * (TILE + 1);  // [TILE][KC]: W rows, this k chunk
+  float* ws = reinterpret_cast<float*>(smem_raw);
+  float* hs = ws + KS * WS_STRIDE;
+  float* zs = hs + KS * TILE;
+  float* wc = zs + TILE * (TILE + 1);  // [TILE][KC]: W rows, this k chunk
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
@@ -131,7 +134,7 @@ __device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restr
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < TILE; ++i) {
-      Val<S3> a[R], b[4];
+      Val<false> a[R], b[4];
 #pragma unroll
       for (int r = 0; r < R; ++r) a[r].load(wc[i * KC + ty + 16 * r]);
 #pragma unroll
@@ -156,18 +159,18 @@ __device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restr
 
 // K2 pass 1.  Block (m tile, k chunk, split): for its run of N tiles,
 // acc[i][kk] += sum_j Z[i, j] * H[kc0 + kk, n0 + j], partial to
-// part[split][m][k].  SIMT: hc holds the H chunk transposed ([TILE][KC + 1]).
+// part[split][m][k].  SIMT (Modes F32 and ANY): hc holds the H chunk
+// transposed ([TILE][KC + 1]).
 template <int R, Mode MODE>
 __device__ __forceinline__ void w_partial_simt(const Operands& o, float* __restrict__ part,
                                                int tiles_per_split) {
-  using T = StagedT<MODE>;
-  constexpr bool S3 = MODE == Mode::SPLIT3;
+  static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
   constexpr int KC = 16 * R;
   extern __shared__ float4 smem_raw[];
-  T* ws = reinterpret_cast<T*>(smem_raw);
-  T* hs = ws + KS * WS_STRIDE;
-  T* zs = hs + KS * TILE;
-  T* hc = zs + TILE * (TILE + 1);
+  float* ws = reinterpret_cast<float*>(smem_raw);
+  float* hs = ws + KS * WS_STRIDE;
+  float* zs = hs + KS * TILE;
+  float* hc = zs + TILE * (TILE + 1);
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
@@ -196,7 +199,7 @@ __device__ __forceinline__ void w_partial_simt(const Operands& o, float* __restr
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < TILE; ++j) {
-      Val<S3> a[4], b[R];
+      Val<false> a[4], b[R];
 #pragma unroll
       for (int r = 0; r < 4; ++r) a[r].load(zs[(ty + 16 * r) * (TILE + 1) + j]);
 #pragma unroll
@@ -221,30 +224,36 @@ __device__ __forceinline__ void w_partial_simt(const Operands& o, float* __restr
 
 // Loads of the walking W or H block a thread has in flight at once beside
 // the accumulators (KC / 4 elements a thread in all): elements, or 16-byte
-// vectors.  K2 stages one element at a time: its 16-byte loads (of W, H
-// or X) spilled at KC = 256.
+// vectors.  K2's BF16 instances stage one element at a time: their
+// 16-byte loads (of W, H or X) spilled at KC = 256.  SPLIT3's take them,
+// but at R = 4, where they cost the second block an SM (119 -> 153
+// registers) and ran slower.
 constexpr int WALK_UNROLL = 4, WALK_VECTORS = 2;
 
-// K1 pass 1 on the tensor cores (Mode::BF16): the same walk and partials as
-// h_partial_simt.  Per M tile: X to xs, Wc = W[m0 .., kc0 .. +KC] to wc
-// (bf16 [TILE][KC + BPAD], k contiguous), W H into registers, Z to zs,
-// then acc (KC x TILE) += Wc^T Z over the tile's 64 rows (A = Wc^T and
-// B = Z both stored i-major: ldmatrix.trans; each k-step summed apart and
-// added in f32, mma_panel's FRESH, however long the walk).  With one k
-// chunk (K <= KC) Wc is the whole W block of the tile, and the block's H
-// columns H[.., n0 .. +64] stay in shared memory for its whole walk (hr),
-// so W H reads both from shared memory; above it W H streams both per k
-// step.
-template <int R>
+// K1 pass 1 on the tensor cores (Mode::BF16, and Mode::SPLIT3 with S3):
+// the same walk and partials as h_partial_simt.  Per M tile: X to xs,
+// Wc = W[m0 .., kc0 .. +KC] to wc (bf16 [TILE][KC + BPAD], k contiguous),
+// W H into registers, Z to zs, then acc (KC x TILE) += Wc^T Z over the
+// tile's 64 rows (A = Wc^T and B = Z both stored i-major: ldmatrix.trans;
+// each k-step summed apart and added in f32, mma_panel's FRESH, however
+// long the walk).  With one k chunk (K <= KC) Wc is the whole W block of
+// the tile, and the block's H columns H[.., n0 .. +64] stay in shared
+// memory for its whole walk (hr), so W H reads both from shared memory;
+// above it W H streams both per k step.  S3: every staged block (wc, hr or
+// the step, zs) is two planes, hi then lo, and each k-step of W H too is
+// summed apart.
+template <int R, bool S3>
 __device__ __forceinline__ void h_partial_mma(const Operands& o, float* __restrict__ part,
                                               int tiles_per_split) {
   using L = HTiling<R>;
-  constexpr int KC = 16 * R, WC_LD = KC + BPAD;
+  constexpr int KC = 16 * R, WC_LD = KC + BPAD, P = S3 ? 2 : 1;
+  // the lo planes' offsets (0: no split)
+  constexpr int ZP = S3 ? Z_WORDS : 0, WP = S3 ? TILE * WC_LD : 0, HP = S3 ? KC * HS_LD : 0;
   extern __shared__ float4 smem_raw[];
   bf16* zs = reinterpret_cast<bf16*>(smem_raw);
-  float* xs = reinterpret_cast<float*>(zs + Z_WORDS);
-  bf16* wc = zs + Z_WORDS + X_WORDS;
-  bf16* hr = wc + TILE * WC_LD;  // [KC][HS_LD] resident H, or one streamed step
+  float* xs = reinterpret_cast<float*>(zs + P * Z_WORDS);
+  bf16* wc = zs + P * Z_WORDS + X_WORDS;
+  bf16* hr = wc + P * TILE * WC_LD;  // [P][KC][HS_LD] resident H, or one streamed step
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp % L::WM, wn = warp / L::WM;
@@ -254,7 +263,7 @@ __device__ __forceinline__ void h_partial_mma(const Operands& o, float* __restri
   const int t_end = min(t_begin + tiles_per_split, m_tiles);
   const bool resident = o.k <= KC;
   if (resident)  // read after the first tile's __syncthreads
-    stage_bf16<KC, TILE, HS_LD, WALK_UNROLL, WALK_VECTORS>(o, o.h, 0, n0, o.k, o.n, o.n, hr);
+    stage_bf16<KC, TILE, HS_LD, WALK_UNROLL, WALK_VECTORS, HP>(o, o.h, 0, n0, o.k, o.n, o.n, hr);
 
   float acc[L::TM][L::TN][4];
 #pragma unroll
@@ -268,18 +277,18 @@ __device__ __forceinline__ void h_partial_mma(const Operands& o, float* __restri
   for (int t = t_begin; t < t_end; ++t) {
     const int m0 = t * TILE;
     stage_x<true>(o, m0, n0, xs);
-    stage_bf16<TILE, KC, WC_LD, WALK_UNROLL, WALK_VECTORS>(o, o.w, m0, kc0, o.m, o.k, o.k, wc);
+    stage_bf16<TILE, KC, WC_LD, WALK_UNROLL, WALK_VECTORS, WP>(o, o.w, m0, kc0, o.m, o.k, o.k, wc);
     float y[1][4][4] = {};
     if (resident) {
       __syncthreads();
-      recon_resident<WC_LD, HS_LD, R >= 8 ? 1 : 2>(o, wc, hr, y);
+      recon_resident<WC_LD, HS_LD, R >= 8 ? 1 : 2, WP, HP>(o, wc, hr, y);
     } else {
-      recon_streamed(o, m0, n0, hr, y);
+      recon_streamed<S3>(o, m0, n0, hr, y);
     }
-    ratio_z(o, y, xs, zs);
+    ratio_z<ZP>(o, y, xs, zs);
     __syncthreads();
-    mma_panel<L::TM, L::TN, true, true, WC_LD, ZS_LD, true>(acc, wc + 16 * L::TM * wm,
-                                                            zs + 8 * L::TN * wn, TILE);
+    mma_panel<L::TM, L::TN, true, true, WC_LD, ZS_LD, true, 1, WP, ZP>(
+        acc, wc + 16 * L::TM * wm, zs + 8 * L::TN * wn, TILE);
     __syncthreads();
   }
 
@@ -302,16 +311,20 @@ __device__ __forceinline__ void h_partial_mma(const Operands& o, float* __restri
 // both stored with the contraction axis contiguous: plain ldmatrix; FRESH,
 // as K1).  With one k chunk Hc is the tile's whole H block, and the
 // block's W rows W[m0 .. +64, ..] stay in shared memory for its walk (wr).
-template <int R>
+// S3: two planes each, as K1.
+template <int R, bool S3>
 __device__ __forceinline__ void w_partial_mma(const Operands& o, float* __restrict__ part,
                                               int tiles_per_split) {
   using L = WTiling<R>;
-  constexpr int KC = 16 * R, HC_LD = TILE + BPAD, WR_LD = KC + BPAD;
+  constexpr int KC = 16 * R, HC_LD = TILE + BPAD, WR_LD = KC + BPAD, P = S3 ? 2 : 1;
+  constexpr int ZP = S3 ? Z_WORDS : 0, HP = S3 ? KC * HC_LD : 0, WP = S3 ? TILE * WR_LD : 0;
+  constexpr bool VEC = S3 && R != 4;  // 16-byte staging loads (above)
+  constexpr int VU = VEC ? WALK_VECTORS : 0;
   extern __shared__ float4 smem_raw[];
   bf16* zs = reinterpret_cast<bf16*>(smem_raw);
-  float* xs = reinterpret_cast<float*>(zs + Z_WORDS);
-  bf16* hc = zs + Z_WORDS + X_WORDS;
-  bf16* wr = hc + KC * HC_LD;  // [TILE][WR_LD] resident W, or one streamed step
+  float* xs = reinterpret_cast<float*>(zs + P * Z_WORDS);
+  bf16* hc = zs + P * Z_WORDS + X_WORDS;
+  bf16* wr = hc + P * KC * HC_LD;  // [P][TILE][WR_LD] resident W, or one streamed step
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp % L::WM, wn = warp / L::WM;
@@ -321,7 +334,7 @@ __device__ __forceinline__ void w_partial_mma(const Operands& o, float* __restri
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const bool resident = o.k <= KC;
   if (resident)
-    stage_bf16<TILE, KC, WR_LD, WALK_UNROLL, 0>(o, o.w, m0, 0, o.m, o.k, o.k, wr);
+    stage_bf16<TILE, KC, WR_LD, WALK_UNROLL, VU, WP>(o, o.w, m0, 0, o.m, o.k, o.k, wr);
 
   float acc[L::TM][L::TN][4];
 #pragma unroll
@@ -334,19 +347,19 @@ __device__ __forceinline__ void w_partial_mma(const Operands& o, float* __restri
 #pragma unroll 1
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * TILE;
-    stage_x<false>(o, m0, n0, xs);
-    stage_bf16<KC, TILE, HC_LD, WALK_UNROLL, 0>(o, o.h, kc0, n0, o.k, o.n, o.n, hc);
+    stage_x<VEC>(o, m0, n0, xs);
+    stage_bf16<KC, TILE, HC_LD, WALK_UNROLL, VU, HP>(o, o.h, kc0, n0, o.k, o.n, o.n, hc);
     float y[1][4][4] = {};
     if (resident) {
       __syncthreads();
-      recon_resident<WR_LD, HC_LD, R >= 8 ? 1 : 2>(o, wr, hc, y);
+      recon_resident<WR_LD, HC_LD, R >= 8 ? 1 : 2, WP, HP>(o, wr, hc, y);
     } else {
-      recon_streamed(o, m0, n0, wr, y);
+      recon_streamed<S3>(o, m0, n0, wr, y);
     }
-    ratio_z(o, y, xs, zs);
+    ratio_z<ZP>(o, y, xs, zs);
     __syncthreads();
-    mma_panel<L::TM, L::TN, false, false, ZS_LD, HC_LD, true>(acc, zs + 16 * L::TM * wm * ZS_LD,
-                                                              hc + 8 * L::TN * wn * HC_LD, TILE);
+    mma_panel<L::TM, L::TN, false, false, ZS_LD, HC_LD, true, 1, ZP, HP>(
+        acc, zs + 16 * L::TM * wm * ZS_LD, hc + 8 * L::TN * wn * HC_LD, TILE);
     __syncthreads();
   }
 
@@ -363,16 +376,18 @@ __device__ __forceinline__ void w_partial_mma(const Operands& o, float* __restri
       }
 }
 
-// The pass-1 kernels: BF16 runs on the tensor cores, every other Mode on the
-// SIMT units.  F32 and BF16 hold to two blocks an SM (128 registers).  K1/K2
-// take ANY only under f32 GEMMs (update()): the bf16 rounding, constant off
-// there, leaves the staging rules' RoundBf16 arms out of those instances.
+// The pass-1 kernels: BF16 and SPLIT3 run on the tensor cores, F32 and ANY
+// on the SIMT units.  F32 and BF16 hold to two blocks an SM (128
+// registers); SPLIT3's two planes take ~174 KiB of shared memory at
+// KC = 256, one block an SM.  K1/K2 take ANY only under f32 GEMMs
+// (update()): the bf16 rounding, constant off there, leaves the staging
+// rules' RoundBf16 arms out of those instances.
 template <int R, Mode MODE>
 __global__ void __launch_bounds__(THREADS, MODE == Mode::F32 || MODE == Mode::BF16 ? 2 : 1)
     h_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
   if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
-  if constexpr (MODE == Mode::BF16)
-    h_partial_mma<R>(o, part, tiles_per_split);
+  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3)
+    h_partial_mma<R, MODE == Mode::SPLIT3>(o, part, tiles_per_split);
   else
     h_partial_simt<R, MODE>(o, part, tiles_per_split);
 }
@@ -381,8 +396,8 @@ template <int R, Mode MODE>
 __global__ void __launch_bounds__(THREADS, MODE == Mode::F32 || MODE == Mode::BF16 ? 2 : 1)
     w_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
   if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
-  if constexpr (MODE == Mode::BF16)
-    w_partial_mma<R>(o, part, tiles_per_split);
+  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3)
+    w_partial_mma<R, MODE == Mode::SPLIT3>(o, part, tiles_per_split);
   else
     w_partial_simt<R, MODE>(o, part, tiles_per_split);
 }
@@ -482,22 +497,29 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) out[0] = sum;
 }
 
-// Shared memory in 4-byte words (an f32 or a bf16 pair), as bytes; BF16's
-// in bf16 words (mma_tile.cuh): Z, X, the walking chunk, and the resident
-// block or one streamed W H step (96 KiB at KC = 256: two blocks an SM).
+// Shared memory in f32 words, as bytes; BF16's and SPLIT3's in bf16 words
+// (mma_tile.cuh): Z, X, the walking chunk, and the resident block or one
+// streamed W H step, each but X in two planes under SPLIT3 (96 KiB at
+// KC = 256: two blocks an SM; SPLIT3 174 KiB).
 template <int R, Mode MODE>
 size_t h_smem_bytes() {
-  if constexpr (MODE == Mode::BF16)
-    return (Z_WORDS + X_WORDS + (size_t)TILE * (16 * R + BPAD) +
-            std::max<size_t>(16 * R * HS_LD, STEP_WORDS)) * sizeof(bf16);
+  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3) {
+    constexpr bool S3 = MODE == Mode::SPLIT3;
+    constexpr size_t P = S3 ? 2 : 1;
+    return (P * Z_WORDS + X_WORDS + P * TILE * (16 * R + BPAD) +
+            std::max<size_t>(P * 16 * R * HS_LD, STEP_BUF<S3>)) * sizeof(bf16);
+  }
   return (staging_words() + (size_t)TILE * 16 * R) * sizeof(float);
 }
 
 template <int R, Mode MODE>
 size_t w_smem_bytes() {
-  if constexpr (MODE == Mode::BF16)
-    return (Z_WORDS + X_WORDS + (size_t)16 * R * (TILE + BPAD) +
-            std::max<size_t>(TILE * (16 * R + BPAD), STEP_WORDS)) * sizeof(bf16);
+  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3) {
+    constexpr bool S3 = MODE == Mode::SPLIT3;
+    constexpr size_t P = S3 ? 2 : 1;
+    return (P * Z_WORDS + X_WORDS + P * 16 * R * (TILE + BPAD) +
+            std::max<size_t>(P * TILE * (16 * R + BPAD), STEP_BUF<S3>)) * sizeof(bf16);
+  }
   return (staging_words() + (size_t)TILE * (16 * R + 1)) * sizeof(float);
 }
 

@@ -1,9 +1,9 @@
-// Warp-level tensor-core pieces of K1/K2's bfloat16 mode (Mode::BF16 in
-// fused_mu.cu): bf16 staging in shared memory, ldmatrix fragment loads, the
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) wrapper, and the tile steps
-// built from them: staging, W H (from resident blocks or streamed), the
-// ratio Z = bf16(X / max(W H, eps)), and the warp tilings of the 64-deep
-// contraction of Z with a W or H chunk.
+// Warp-level tensor-core pieces of K1/K2's bfloat16 and float32_fast modes
+// (Mode::BF16 and Mode::SPLIT3 in fused_mu.cu): bf16 staging in shared
+// memory, ldmatrix fragment loads, the mma.sync m16n8k16 (bf16 in, f32
+// accumulate) wrapper, and the tile steps built from them: staging, W H
+// (from resident blocks or streamed), the ratio Z = X / max(W H, eps), and
+// the warp tilings of the 64-deep contraction of Z with a W or H chunk.
 //
 // The bfloat16 policy is what a bf16 mma computes: W, H and Z rounded to
 // bf16 (nearest even; bf16 state is taken as its bits), each product exact
@@ -11,12 +11,20 @@
 // The tensor core adds the 16 products of a k-step in its own order, so the
 // sums match the SIMT kernels' fmaf chains up to the order of the sum.
 //
+// The float32_fast policy is _kdot's split3 (fused_mu.py:215-237): each
+// operand a = hi + lo, hi = bf16(a), lo = bf16(a - hi), staged as two bf16
+// planes of the same layout (PLANE words apart), and each product
+// hi bh + hi bl + lo bh (lo bl dropped): three mma a k-step.  Z is formed
+// in f32 and split, never rounded to bf16 first; bf16 state splits as f32
+// state does (its lo is 0), so every state dtype takes one code path.
+//
 // Layout.  Every staged row starts on 16 bytes (ldmatrix's rule): rows are
 // padded by BPAD = 8 bf16, which also spreads the 8 rows of one 8 x 8
 // fragment over all 32 banks (a row stride of 4 mod 32 words).  Operands
 // stored with the contraction axis contiguous load with plain ldmatrix;
 // those stored with it strided load with ldmatrix.trans.  Out-of-range rows,
-// columns and k are staged as 0, so W H = 0 and Z = 0 / eps = 0 there.
+// columns and k are staged as 0 (both planes), so W H = 0 and Z = 0 / eps =
+// 0 there.
 
 #pragma once
 
@@ -53,6 +61,28 @@ struct F32ToBf16 {
   const float* p;
   __device__ __forceinline__ bf16 operator()(int i) const { return __float2bfloat16_rn(p[i]); }
 };
+// The same elements as f32, for the split: bf16 state widened.
+struct Bf16Wide {
+  const bf16* p;
+  __device__ __forceinline__ float operator()(int i) const { return __bfloat162float(p[i]); }
+};
+struct F32At {
+  const float* p;
+  __device__ __forceinline__ float operator()(int i) const { return p[i]; }
+};
+
+// split3 of v into d (hi) and d + plane (lo); of a pair into two bf16 pairs.
+__device__ __forceinline__ void put_split(bf16* d, int plane, float v) {
+  const bf16 hi = __float2bfloat16_rn(v);
+  d[0] = hi;
+  d[plane] = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+__device__ __forceinline__ void put_split2(bf16* d, int plane, float a, float b) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+  const float2 h = __bfloat1622float2(hi);
+  *reinterpret_cast<__nv_bfloat162*>(d) = hi;
+  *reinterpret_cast<__nv_bfloat162*>(d + plane) = __floats2bfloat162_rn(a - h.x, b - h.y);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const bf16* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -109,12 +139,31 @@ __device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&a)[4]
   }
 }
 
+// acc += a b under split3, a = (ah, al) and b = (bh, bl): one k-step's
+// three products chained in one mma started from zeros, the corrections
+// al bh and ah bl first and the main term ah bh last, and the sum added to
+// acc in f32.  The tensor core truncates each add (to the largest addend),
+// so the chain costs up to an ulp of the one k-step, never of the running
+// acc; the corrections, 2**-8 of the main term, are aligned to it once.
+__device__ __forceinline__ void mma_split3(float (&acc)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(d, al, bh);
+  mma_bf16(d, ah, bl);
+  mma_bf16(d, ah, bh);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] += d[c];
+}
+
 // One warp's acc[TM][TN] m16n8 tiles += A (16 TM x depth) B (depth x 8 TN),
 // depth a multiple of 16.  a points at A's element (0, 0), stored [m][k]
 // (AT false) or [k][m] (AT true) with row stride LDA; b at B's (0, 0),
 // stored [n][k] (BT false) or [k][n] (BT true).  TN is 1 or even.  Each
 // lane converts its row address to a shared-memory offset once; every
-// fragment after that sits a compile-time distance from it.
+// fragment after that sits a compile-time distance from it.  PA, PB > 0:
+// split3 operands, A's lo plane PA bf16 words past a and B's PB past b,
+// each k-step taken by mma_split3 (FRESH is then implied).
 //
 // FRESH: each k-step's 16 products are summed by an mma into zeros and
 // added to acc in f32 (round to nearest), instead of accumulating in the
@@ -123,16 +172,19 @@ __device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&a)[4]
 // to an ulp a step: K / 16 steps of W H at K = 2048 moved the bf16-state
 // results past their limit.  The contraction's sums run over a block's
 // whole walk (4 steps a tile, 300 tiles and more on a tall or wide X), so
-// it is FRESH too; only W H from a resident block (K <= 256: at most 16
-// steps, started afresh each tile) accumulates in the mma.  UNROLL k-steps
+// it is FRESH too; only bfloat16's W H from a resident block (K <= 256: at
+// most 16 steps, started afresh each tile) accumulates in the mma (split3's
+// three mma a step would triple that chain's drift).  UNROLL k-steps
 // are unrolled (and their fragments loaded ahead): one where the
 // accumulators already hold many registers, or FRESH holds a sum a step
 // (K1's R = 8 contraction spilled at 4).
 template <int TM, int TN, bool AT, bool BT, int LDA, int LDB, bool FRESH = false,
-          int UNROLL = (FRESH || TM * TN >= 16 ? 1 : 4)>
+          int UNROLL = (FRESH || TM * TN >= 16 ? 1 : 4), int PA = 0, int PB = 0>
 __device__ __forceinline__ void mma_panel(float (&acc)[TM][TN][4], const bf16* a, const bf16* b,
                                           int depth) {
   constexpr int E = sizeof(bf16);
+  constexpr bool S3 = PA > 0;
+  static_assert(S3 == (PB > 0), "both operands split, or neither");
   const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
   // the lane's row: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
   // (m 8-15, k 8-15) of A; (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
@@ -141,38 +193,70 @@ __device__ __forceinline__ void mma_panel(float (&acc)[TM][TN][4], const bf16* a
                                              : (lane & 15) * LDA + (lane >> 4) * 8);
   const uint32_t b0 = smem_addr(b) + E * (BT ? ((q & 1) * 8 + r) * LDB + (TN == 1 ? 0 : (q >> 1) * 8)
                                              : ((TN == 1 ? 0 : (q >> 1) * 8) + r) * LDB + (q & 1) * 8);
+  // A's fragments (both planes under split3) of the k-step at offset off
+  auto load_a = [&](uint32_t (&f)[4], int off) {
+    if constexpr (AT)
+      ldsm_x4_t(f, a0 + E * off);
+    else
+      ldsm_x4(f, a0 + E * off);
+  };
   // each B fragment used as soon as it is loaded
 #pragma unroll UNROLL
   for (int k = 0; k < depth; k += 16) {
-    uint32_t af[TM][4];
+    uint32_t af[TM][4], al[S3 ? TM : 1][4];
 #pragma unroll
     for (int t = 0; t < TM; ++t) {
-      if constexpr (AT)
-        ldsm_x4_t(af[t], a0 + E * (k * LDA + 16 * t));
-      else
-        ldsm_x4(af[t], a0 + E * (16 * t * LDA + k));
+      const int off = AT ? k * LDA + 16 * t : 16 * t * LDA + k;
+      load_a(af[t], off);
+      if constexpr (S3) load_a(al[t], PA + off);
     }
     if constexpr (TN == 1) {
-      uint32_t bfr[2];
+      uint32_t bfr[2], bl[2];
+      const int off = BT ? k * LDB : k;
       if constexpr (BT)
-        ldsm_x2_t(bfr, b0 + E * k * LDB);
+        ldsm_x2_t(bfr, b0 + E * off);
       else
-        ldsm_x2(bfr, b0 + E * k);
+        ldsm_x2(bfr, b0 + E * off);
+      if constexpr (S3) {
+        if constexpr (BT)
+          ldsm_x2_t(bl, b0 + E * (PB + off));
+        else
+          ldsm_x2(bl, b0 + E * (PB + off));
+      }
 #pragma unroll
-      for (int t = 0; t < TM; ++t) mma_step<FRESH>(acc[t][0], af[t], bfr);
+      for (int t = 0; t < TM; ++t) {
+        if constexpr (S3)
+          mma_split3(acc[t][0], af[t], al[t], bfr, bl);
+        else
+          mma_step<FRESH>(acc[t][0], af[t], bfr);
+      }
     } else {
 #pragma unroll
       for (int u = 0; u < TN; u += 2) {
-        uint32_t x[4];
+        uint32_t x[4], xl[4];
+        const int off = BT ? k * LDB + 8 * u : 8 * u * LDB + k;
         if constexpr (BT)
-          ldsm_x4_t(x, b0 + E * (k * LDB + 8 * u));
+          ldsm_x4_t(x, b0 + E * off);
         else
-          ldsm_x4(x, b0 + E * (8 * u * LDB + k));
-        const uint32_t b_lo[2] = {x[0], x[1]}, b_hi[2] = {x[2], x[3]};
+          ldsm_x4(x, b0 + E * off);
+        if constexpr (S3) {
+          if constexpr (BT)
+            ldsm_x4_t(xl, b0 + E * (PB + off));
+          else
+            ldsm_x4(xl, b0 + E * (PB + off));
+        }
+        // the two n tiles u and u + 1
+        const uint32_t b0f[2] = {x[0], x[1]}, b1f[2] = {x[2], x[3]};
 #pragma unroll
         for (int t = 0; t < TM; ++t) {
-          mma_step<FRESH>(acc[t][u], af[t], b_lo);
-          mma_step<FRESH>(acc[t][u + 1], af[t], b_hi);
+          if constexpr (S3) {
+            const uint32_t b0l[2] = {xl[0], xl[1]}, b1l[2] = {xl[2], xl[3]};
+            mma_split3(acc[t][u], af[t], al[t], b0f, b0l);
+            mma_split3(acc[t][u + 1], af[t], al[t], b1f, b1l);
+          } else {
+            mma_step<FRESH>(acc[t][u], af[t], b0f);
+            mma_step<FRESH>(acc[t][u + 1], af[t], b1f);
+          }
         }
       }
     }
@@ -209,12 +293,28 @@ __device__ __forceinline__ void put_zeros(bf16* d) {
   else
     *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
 }
+// The same V elements split3, hi at d and lo at d + plane.
+__device__ __forceinline__ void put_vec_split(const float* p, bf16* d, int plane) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  put_split2(d, plane, a.x, a.y);
+  put_split2(d + 2, plane, a.z, a.w);
+}
+__device__ __forceinline__ void put_vec_split(const bf16* p, bf16* d, int plane) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(h[q]);
+    put_split2(d + 2 * q, plane, f.x, f.y);
+  }
+}
 
 // The staging loops of stage_bf16.  A thread keeps its columns and walks
 // rows STEP apart: one shared address and compile-time offsets from it.
 // Element (r, c) is p[(r0 + r) * stride + c0 + c], or 0 where r0 + r >=
 // rlim or c0 + c >= clim; the vector loop needs c0 and clim multiples of V.
-template <int ROWS, int COLS, int LD, int UNROLL, typename Src>
+// PLANE > 0: src gives f32 values, staged split3 into two planes.
+template <int ROWS, int COLS, int LD, int UNROLL, int PLANE = 0, typename Src>
 __device__ __forceinline__ void stage_rows(Src src, int r0, int c0, int rlim, int clim,
                                            int stride, bf16* dst) {
   constexpr int STEP = THREADS / COLS;
@@ -225,11 +325,14 @@ __device__ __forceinline__ void stage_rows(Src src, int r0, int c0, int rlim, in
 #pragma unroll UNROLL
   for (int s = 0; s < ROWS / STEP; ++s) {
     const int gr = r0 + r + s * STEP;
-    d[s * STEP * LD] = (col_in && gr < rlim) ? src(gr * stride + c) : bf16_zero();
+    if constexpr (PLANE > 0)
+      put_split(d + s * STEP * LD, PLANE, (col_in && gr < rlim) ? src(gr * stride + c) : 0.f);
+    else
+      d[s * STEP * LD] = (col_in && gr < rlim) ? src(gr * stride + c) : bf16_zero();
   }
 }
 
-template <int V, int ROWS, int COLS, int LD, int UNROLL, typename T>
+template <int V, int ROWS, int COLS, int LD, int UNROLL, int PLANE, typename T>
 __device__ __forceinline__ void stage_rows_vec(const T* p, int r0, int c0, int rlim, int clim,
                                                int stride, bf16* dst) {
   constexpr int TPR = COLS / V, STEP = THREADS / TPR;
@@ -239,41 +342,52 @@ __device__ __forceinline__ void stage_rows_vec(const T* p, int r0, int c0, int r
 #pragma unroll UNROLL
   for (int s = 0; s < ROWS / STEP; ++s) {
     const int gr = r0 + r + s * STEP;
-    if (col_in && gr < rlim)
-      put_vec(p + gr * stride + c, d + s * STEP * LD);
-    else
+    if (col_in && gr < rlim) {
+      if constexpr (PLANE > 0)
+        put_vec_split(p + gr * stride + c, d + s * STEP * LD, PLANE);
+      else
+        put_vec(p + gr * stride + c, d + s * STEP * LD);
+    } else {
       put_zeros<V>(d + s * STEP * LD);
+      if constexpr (PLANE > 0) put_zeros<V>(d + s * STEP * LD + PLANE);
+    }
   }
 }
 
 // Stages a ROWS x COLS block of W or H (p, the state dtype) as bf16 into
-// dst [ROWS][LD] (c0 a multiple of 8, clim == stride).  Neighbouring
-// threads take neighbouring columns (coalesced), in 16-byte vectors where
-// the rows allow (vec_ok), else one element at a time; UNROLL elements a
-// thread in flight at once, or VU vectors (4 or 8 elements each; VU = 0:
-// elements only): as many as the registers beside K1/K2's accumulators
-// allow.
-template <int ROWS, int COLS, int LD, int UNROLL, int VU>
+// dst [ROWS][LD] (c0 a multiple of 8, clim == stride); PLANE > 0: split3,
+// hi into dst and lo into dst + PLANE.  Neighbouring threads take
+// neighbouring columns (coalesced), in 16-byte vectors where the rows allow
+// (vec_ok), else one element at a time; UNROLL elements a thread in flight
+// at once, or VU vectors (4 or 8 elements each; VU = 0: elements only): as
+// many as the registers beside K1/K2's accumulators allow.
+template <int ROWS, int COLS, int LD, int UNROLL, int VU, int PLANE = 0>
 __device__ __forceinline__ void stage_bf16(const Operands& o, const void* p, int r0, int c0,
                                            int rlim, int clim, int stride, bf16* dst) {
   if (o.state_bf16) {
     const bf16* src = static_cast<const bf16*>(p);
     if constexpr (VU > 0 && WHOLE_PASSES<8, ROWS, COLS>) {
       if (vec_ok(src, stride, 8)) {
-        stage_rows_vec<8, ROWS, COLS, LD, VU>(src, r0, c0, rlim, clim, stride, dst);
+        stage_rows_vec<8, ROWS, COLS, LD, VU, PLANE>(src, r0, c0, rlim, clim, stride, dst);
         return;
       }
     }
-    stage_rows<ROWS, COLS, LD, UNROLL>(Bf16Bits{src}, r0, c0, rlim, clim, stride, dst);
+    if constexpr (PLANE > 0)
+      stage_rows<ROWS, COLS, LD, UNROLL, PLANE>(Bf16Wide{src}, r0, c0, rlim, clim, stride, dst);
+    else
+      stage_rows<ROWS, COLS, LD, UNROLL>(Bf16Bits{src}, r0, c0, rlim, clim, stride, dst);
   } else {
     const float* src = static_cast<const float*>(p);
     if constexpr (VU > 0 && WHOLE_PASSES<4, ROWS, COLS>) {
       if (vec_ok(src, stride, 4)) {
-        stage_rows_vec<4, ROWS, COLS, LD, VU>(src, r0, c0, rlim, clim, stride, dst);
+        stage_rows_vec<4, ROWS, COLS, LD, VU, PLANE>(src, r0, c0, rlim, clim, stride, dst);
         return;
       }
     }
-    stage_rows<ROWS, COLS, LD, UNROLL>(F32ToBf16{src}, r0, c0, rlim, clim, stride, dst);
+    if constexpr (PLANE > 0)
+      stage_rows<ROWS, COLS, LD, UNROLL, PLANE>(F32At{src}, r0, c0, rlim, clim, stride, dst);
+    else
+      stage_rows<ROWS, COLS, LD, UNROLL>(F32ToBf16{src}, r0, c0, rlim, clim, stride, dst);
   }
 }
 
@@ -344,34 +458,44 @@ __device__ __forceinline__ void stage_x(const Operands& o, int m0, int n0, float
 // tiles.  From a W block a [TILE][LDA] (k contiguous) and an H block
 // b [k][LDB] (n contiguous) already in shared memory, depth K rounded up
 // to 16 (their rows past K are 0).  UNROLL as mma_panel's: 1 beside
-// K1/K2's 32 or 64 accumulators.
-template <int LDA, int LDB, int UNROLL>
+// K1/K2's 32 or 64 accumulators.  PA, PB > 0: split3 planes (mma_panel's),
+// each k-step summed apart; else W H accumulates in the mma.
+template <int LDA, int LDB, int UNROLL, int PA = 0, int PB = 0>
 __device__ __forceinline__ void recon_resident(const Operands& o, const bf16* a, const bf16* b,
                                                float (&y)[1][4][4]) {
   const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
-  mma_panel<1, 4, false, true, LDA, LDB, false, UNROLL>(y, a + 16 * wm * LDA, b + 32 * wn,
-                                                        (o.k + 15) & ~15);
+  mma_panel<1, 4, false, true, LDA, LDB, false, UNROLL, PA, PB>(y, a + 16 * wm * LDA,
+                                                                b + 32 * wn, (o.k + 15) & ~15);
 }
 
-// The same, streaming W and H through ws/hs (STEP_WORDS) RK deep a step:
+// The bf16 words of one streamed W H step: the W slice, then the H slice,
+// each hi then lo under split3.
+template <bool S3>
+constexpr int STEP_BUF = (S3 ? 2 : 1) * STEP_WORDS;
+
+// The same, streaming W and H through ws/hs (STEP_BUF) RK deep a step:
 // for K above one chunk, where neither block fits.
+template <bool S3>
 __device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int n0, bf16* ws,
                                                float (&y)[1][4][4]) {
-  bf16* hs = ws + TILE * WS_LD;
+  constexpr int WP = S3 ? TILE * WS_LD : 0, HP = S3 ? RK * HS_LD : 0;
+  bf16* hs = ws + (S3 ? 2 : 1) * TILE * WS_LD;
 #pragma unroll 1
   for (int k0 = 0; k0 < o.k; k0 += RK) {
-    stage_bf16<TILE, RK, WS_LD, RK * TILE / THREADS, 1>(o, o.w, m0, k0, o.m, o.k, o.k, ws);
-    stage_bf16<RK, TILE, HS_LD, RK * TILE / THREADS, 1>(o, o.h, k0, n0, o.k, o.n, o.n, hs);
+    stage_bf16<TILE, RK, WS_LD, RK * TILE / THREADS, 1, WP>(o, o.w, m0, k0, o.m, o.k, o.k, ws);
+    stage_bf16<RK, TILE, HS_LD, RK * TILE / THREADS, 1, HP>(o, o.h, k0, n0, o.k, o.n, o.n, hs);
     __syncthreads();
     const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
-    mma_panel<1, 4, false, true, WS_LD, HS_LD, true>(y, ws + 16 * wm * WS_LD, hs + 32 * wn,
-                                                     min(RK, (o.k - k0 + 15) & ~15));
+    mma_panel<1, 4, false, true, WS_LD, HS_LD, true, 1, WP, HP>(
+        y, ws + 16 * wm * WS_LD, hs + 32 * wn, min(RK, (o.k - k0 + 15) & ~15));
     __syncthreads();
   }
 }
 
-// Z = bf16(X / max(W H, eps)) at each lane's accumulator positions, from xs
-// into zs [TILE][ZS_LD] as bf16 pairs.  Not synchronised.
+// Z = X / max(W H, eps) at each lane's accumulator positions, from xs into
+// zs [TILE][ZS_LD] as bf16 pairs: rounded to bf16, or (PLANE > 0) split3 in
+// f32, lo into zs + PLANE.  Not synchronised.
+template <int PLANE = 0>
 __device__ __forceinline__ void ratio_z(const Operands& o, const float (&y)[1][4][4],
                                         const float* xs, bf16* zs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp & 3, wn = warp >> 2;
@@ -382,9 +506,12 @@ __device__ __forceinline__ void ratio_z(const Operands& o, const float (&y)[1][4
       const int i = 16 * wm + (lane >> 2) + 8 * half;
       const int j = 32 * wn + 8 * u + 2 * (lane & 3);
       const float2 xv = *reinterpret_cast<const float2*>(xs + i * XS_LD + j);
-      *reinterpret_cast<__nv_bfloat162*>(zs + i * ZS_LD + j) =
-          __floats2bfloat162_rn(xv.x / clamp_eps(y[0][u][2 * half], o.eps),
-                                xv.y / clamp_eps(y[0][u][2 * half + 1], o.eps));
+      const float z0 = xv.x / clamp_eps(y[0][u][2 * half], o.eps);
+      const float z1 = xv.y / clamp_eps(y[0][u][2 * half + 1], o.eps);
+      if constexpr (PLANE > 0)
+        put_split2(zs + i * ZS_LD + j, PLANE, z0, z1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(zs + i * ZS_LD + j) = __floats2bfloat162_rn(z0, z1);
     }
 }
 

@@ -28,7 +28,8 @@ enum Gemm { GEMM_F32 = 0, GEMM_SPLIT3 = 1, GEMM_BF16 = 2 };
 // are f32 and the GEMM takes them as they are (the main path); these kernels
 // hold to two blocks an SM.  ANY: the state dtype, the X storage and bf16
 // rounding are runtime choices, each taken once per staging loop.  SPLIT3:
-// as ANY, with each operand split into a bf16 (hi, lo) pair.  Sharing the
+// as ANY, with each operand split into a bf16 (hi, lo) pair (K5 on the SIMT
+// units, below; K1/K2 on the tensor cores, mma_tile.cuh).  Sharing the
 // runtime choices cost the f32 path 47% at 10240^2, K=256 on an H100 (more
 // code and over 128 registers: one block an SM), hence its own instances.
 enum class Mode { F32, ANY, SPLIT3, BF16 };

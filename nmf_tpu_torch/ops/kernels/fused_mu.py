@@ -12,10 +12,11 @@ Every precision policy of the TPU kernels: W and H in f32 or bf16 (the
 result takes their dtype); X as an f32 or bf16 tensor or a ``(uint8 codes,
 per-column f32 scales)`` pair from :func:`nmf_tpu_torch.ops.quant.quantize_columns`;
 GEMMs in ``float32``, ``float32_fast`` (split3) or ``bfloat16``.  Under
-``bfloat16`` the two products of K1's and K2's first pass run on the tensor
-cores (``mma.sync`` m16n8k16, bf16 in, f32 accumulate; ``csrc/mma_tile.cuh``),
-in every state dtype, X storage and ``numerator_only``; every other policy,
-and K3, run on the SIMT units.
+``bfloat16`` and ``float32_fast`` the two products of K1's and K2's first
+pass run on the tensor cores (``mma.sync`` m16n8k16, bf16 in, f32
+accumulate; ``csrc/mma_tile.cuh``; split3 as three products a step on bf16
+hi and lo planes), in every state dtype, X storage and ``numerator_only``;
+``float32``, and K3, run on the SIMT units.
 
 Each wrapper takes its plain version (:mod:`nmf_tpu_torch.ops.mu` and
 :func:`kl_cost_plain`, on dequantized X for a pair) only when its tensors lie

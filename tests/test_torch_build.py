@@ -93,11 +93,23 @@ def test_kernel_names_give_their_mode(name, label):
 @pytest.mark.parametrize(
     "counts,impl",
     [([0, 0, 0, 2], "mma.sync bf16"), ([2, 0, 0, 0], "simt"), ([0, 1, 0, 0], "simt"),
-     ([0, 0, 3, 0], "simt")],
+     ([0, 0, 3, 0], "mma.sync split3")],
 )
 def test_launch_counts_give_the_instance(counts, impl):
     """The library's pass-1 launches per Mode name the instance that ran."""
     assert _chip_smoke()._impl_of_counts(counts, "update_h") == impl
+
+
+@pytest.mark.parametrize(
+    "policy,impl",
+    [("bfloat16", "mma.sync bf16"), ("float32_fast", "mma.sync split3"), ("float32", "simt")],
+)
+def test_each_gemm_policy_expects_its_instance(policy, impl):
+    """The instance chip_smoke.py requires of K1/K2 under each GEMM policy:
+    the tensor cores for both bf16 policies, SIMT for float32."""
+    smoke = _chip_smoke()
+    assert smoke.IMPL_OF_POLICY.get(policy, "simt") == impl
+    assert set(smoke.MMA_MODES) == {"BF16", "SPLIT3"}
 
 
 @pytest.mark.parametrize("counts", [[0, 0, 0, 0], [1, 0, 0, 1]])
@@ -112,3 +124,19 @@ def test_launch_counters_are_bound():
     src = (CSRC / "fused_mu.cu").read_text()
     for name in ("nmf_partial_launches", "nmf_reset_partial_launches"):
         assert name in _build._SIGNATURES and re.search(rf"\b{name}\(", src)
+
+
+def test_float32_fast_runs_on_every_storage():
+    """chip_smoke.py holds the split3 kernels on the card with f32 and bf16
+    state, f32, bf16 and int8 X: phase 3's modes, and phase 9a's numerators
+    at float32_fast's own limits."""
+    smoke = _chip_smoke()
+    split = {(spec.state, spec.xform): spec for spec in smoke._modes().values()
+             if spec.prec.matmul_dtype == "float32_fast"}
+    import torch
+
+    assert set(split) == {(torch.float32, "f32"), (torch.float32, "bf16"),
+                          (torch.bfloat16, "int8")}
+    num = smoke._num_modes()
+    assert num["float32_fast_bf16_state"].limits == smoke.MODE_LIMITS["float32_fast"]
+    assert num["float32_fast_x_bf16"].control.matmul_dtype == "float32"
