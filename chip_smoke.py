@@ -9,18 +9,22 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
-   ptxas's registers and spills per kernel (a spill in an F32-, BF16- or
-   SPLIT3-Mode K1/K2 kernel fails), and check with ``cuobjdump -sass`` of
-   the same toolkit that every BF16- and SPLIT3-Mode K1/K2 kernel holds
-   tensor-core (``HMMA``) instructions and no F32-Mode one does;
+   ptxas's registers and spills per kernel (a spill in any K1/K2 pass-1
+   kernel fails) and each pass-1 instance's registers, dynamic shared
+   memory and blocks an SM as the runtime reports them, and check with
+   ``cuobjdump -sass`` of the same toolkit that every BF16- and
+   SPLIT3-Mode K1/K2 kernel holds tensor-core (``HMMA``) instructions and
+   no F32- or ANY-Mode one does;
 2. kernels: K1-K3 in float32 against their plain torch versions on the card
    at the reference, ISMIR and paper shapes (factors rtol 1e-4 / atol 1e-6,
    cost rel 1e-5), bitwise-equal on a second call, each timed beside its
    plain version with CUDA events (median of 10 samples of 10 back-to-back
    calls, in turns plain, kernel, kernel, plain), the pass-1 instance of
    K1/K2 read at the reference shape as in phase 3; then checked only at
-   K = 8, 64, 300 and 2048 (every K chunk width, several chunks), and
-   K > 2048 shown to take the plain ops by the rank rule;
+   K = 8, 64, 300 and 2048 (every K chunk width, several chunks) and at
+   65x129x17 and 127x350x255 (no row of W, H or X on 16 bytes: the SIMT
+   pass 1's 4-byte copies), and K > 2048 shown to take the plain ops by
+   the rank rule;
 3. modes: each precision mode of K1-K3 (``bfloat16``, ``float32_fast``,
    bf16 X, int8 X, ``BF16_FULL`` with bf16 state, and ``float32_fast`` with
    bf16 X and with bf16 state and int8 X) against its plain
@@ -108,7 +112,8 @@ its time beside its plain version's, and its bound: the larger of its
 flops over the card's peak and its bytes over 3.35 TB/s, H100 SXM at 700 W;
 no single PyTorch call computes any of them, so ``library_ms`` is null;
 each K1/K2 entry, mode and flagship entry names the instance that ran,
-``impl``, and K1/K2 carry phase 7's ``long_walks`` readings;
+``impl``, and K1/K2 carry phase 7's ``long_walks`` readings and phase
+1's ``pass1`` (registers, shared memory, blocks an SM per instance);
 K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
 their launches on the streamed solve); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -134,8 +139,10 @@ REPO = pathlib.Path(__file__).resolve().parent
 PIN_COST = 96689.73               # tests/test_parity.py:144
 EPS = float(np.float32(2.2204e-16))
 SHAPES = [(4096, 350, 128), (1025, 4000, 32), (513, 3445, 30)]   # (M, N, K)
-# correctness only: K chunk widths 16 and 64, two chunks, the K=2048 ceiling
-COVERAGE_SHAPES = [(100, 70, 8), (333, 333, 64), (257, 129, 300), (300, 200, 2048)]
+# correctness only: K chunk widths 16 and 64, two chunks, the K=2048 ceiling;
+# rows of W, H and X off 16 bytes (K and N odd) at chunk widths 32 and 256
+COVERAGE_SHAPES = [(100, 70, 8), (333, 333, 64), (257, 129, 300), (300, 200, 2048),
+                   (65, 129, 17), (127, 350, 255)]
 # K chunk widths 128, 16, 64 (the tensor-core kernels' R = 4 stages apart),
 # two chunks, the K=2048 ceiling
 MODE_SHAPES = [(4096, 350, 128), (100, 70, 8), (333, 333, 64), (257, 129, 300),
@@ -195,8 +202,10 @@ MODES = ("F32", "ANY", "SPLIT3", "BF16")
 IMPL = {"BF16": "mma.sync bf16", "SPLIT3": "mma.sync split3"}   # F32, ANY: "simt"
 # the GEMM policy -> the K1/K2 instance it routes to
 IMPL_OF_POLICY = {"bfloat16": IMPL["BF16"], "float32_fast": IMPL["SPLIT3"]}
-# the Modes of K1/K2 on the tensor cores, each phase 1 holds to HMMA and no spill
+# the Modes of K1/K2 on the tensor cores, each phase 1 holds to HMMA, and on
+# the SIMT units, to none
 MMA_MODES = tuple(IMPL)
+SIMT_MODES = tuple(m for m in MODES if m not in IMPL)
 _KERNEL_RE = re.compile(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize|sum_splits"
                         r"|sweep_h|sweep_w)(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?")
 
@@ -268,7 +277,7 @@ def _kernel_label(mangled):
 
 def _check_sass(card, lib_path):
     """Every BF16- and SPLIT3-Mode K1/K2 pass-1 kernel of the built library
-    holds HMMA (tensor-core) instructions and no F32-Mode one does:
+    holds HMMA (tensor-core) instructions and no F32- or ANY-Mode one does:
     ``cuobjdump -sass`` of the toolkit that built it (a missing cuobjdump
     fails the phase)."""
     from nmf_tpu_torch.ops.kernels import _build
@@ -287,16 +296,17 @@ def _check_sass(card, lib_path):
             hmma[label] += 1
     partial = {n: c for n, c in hmma.items() if "update_partial<" in n}
     by_mode = {mode: {n: c for n, c in partial.items() if n.endswith(f",{mode}>")}
-               for mode in ("F32", *MMA_MODES)}
+               for mode in MODES}
     for mode in MMA_MODES:
         check(len(by_mode[mode]) == 10 and all(by_mode[mode].values()),
               f"{mode}-Mode K1/K2 kernels without HMMA (or missing): {by_mode[mode]}")
-    check(len(by_mode["F32"]) == 10 and not any(by_mode["F32"].values()),
-          f"F32-Mode K1/K2 kernels with HMMA (or missing): {by_mode['F32']}")
+    for mode in SIMT_MODES:
+        check(len(by_mode[mode]) == 10 and not any(by_mode[mode].values()),
+              f"{mode}-Mode K1/K2 kernels with HMMA (or missing): {by_mode[mode]}")
     for mode in MMA_MODES:
         print(f"[{card}] SASS ({tool}): HMMA instructions in each {mode}-Mode K1/K2 kernel "
               f"{by_mode[mode]}")
-    print(f"[{card}] SASS: no HMMA in the 10 F32-Mode K1/K2 kernels")
+    print(f"[{card}] SASS: no HMMA in the 20 F32- and ANY-Mode K1/K2 kernels")
 
 
 def _impl_of_counts(counts, what):
@@ -363,11 +373,37 @@ def phase_card(card, out):
                     spilled.append(name)
         # the F32 and BF16 Modes of K1/K2 hold two blocks an SM only without
         # spills (PERF.md section 6); SPLIT3 holds one, with no spill either
-        bad = [n for n in spilled
-               if "update_partial" in n and re.search(rf",(F32|{'|'.join(MMA_MODES)})>", n)]
-        check(not bad, f"F32-, BF16- or SPLIT3-Mode K1/K2 kernels spill: {bad}")
+        bad = [n for n in spilled if "update_partial" in n and re.search(rf",({'|'.join(MODES)})>", n)]
+        check(not bad, f"K1/K2 pass-1 kernels spill: {bad}")
     _check_sass(card, lib_path)
     out["build_seconds"] = secs
+    out["pass1"] = _pass1_info(card)
+
+
+def _pass1_info(card):
+    """{"h_update_partial<R=16,F32>": {"registers", "smem_bytes",
+    "blocks_per_sm", "local_bytes"}, ...} of every K1/K2 pass-1 instance,
+    as the runtime reports them (``nmf_partial_info``); a kernel with local
+    memory (a spill) fails."""
+    import ctypes
+
+    from nmf_tpu_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    info = {}
+    for mode_i, mode in enumerate(MODES):
+        for h, name in ((1, "h_update_partial"), (0, "w_update_partial")):
+            for r in (1, 2, 4, 8, 16):
+                vals = (ctypes.c_int * 4)()
+                rc = lib.nmf_partial_info(h, mode_i, 16 * r, vals)
+                check(rc == 0, f"nmf_partial_info {name} R={r} {mode}: CUDA error {rc}")
+                label = f"{name}<R={r},{mode}>"
+                info[label] = dict(zip(("registers", "smem_bytes", "blocks_per_sm", "local_bytes"),
+                                       vals))
+                check(vals[3] == 0, f"{label}: {vals[3]} bytes of local memory a thread")
+                print(f"[{card}]   {label}: {vals[0]} registers, {vals[1]} bytes of dynamic "
+                      f"shared memory, {vals[2]} blocks an SM, {vals[3]} bytes local")
+    return info
 
 
 def _operands(m, n, k):
@@ -1796,6 +1832,10 @@ def main(argv=None) -> int:
             "bound_by": st["bound_by"],
             "library_ms": None,
             **({"impl": st["impl"]} if "impl" in st else {}),
+            # registers, shared memory and blocks an SM of each pass-1 instance
+            **({"pass1": {label: v for label, v in out["pass1"].items()
+                          if label.startswith(name[len("update_"):] + "_update_partial")}}
+               if name in ("update_h", "update_w") else {}),
             "modes": modes,
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
             **({"long_walks": st["long_walks"]} if st["long_walks"] else {}),

@@ -27,10 +27,13 @@
 // float32_fast policies (Mode::BF16, Mode::SPLIT3) runs both products of a
 // tile on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate;
 // mma_tile.cuh; split3 three mma a k-step); the float32 policy, and K3, run
-// on the SIMT units: 4 x 4 (phase A) and 4 x R (phase B) register tiles fed
-// from shared memory.  Neither uses cp.async, TMA or wgmma: each staging
-// step waits for its global loads (the latency, not the tensor cores,
-// bounds BF16).
+// on the SIMT units: 4 x 4 (W H) and 4 x R (the contraction) register
+// tiles fed from shared memory.  K1/K2's f32-GEMM pass 1 (simt_tile.cuh)
+// reads its fragments as 16-byte vectors, stages f32 operands by cp.async
+// with the next copies in flight beside the FMAs, and keeps the block's
+// fixed operand resident; the tensor-core kernels and K3 wait for each
+// staging step's global loads (the latency, not the tensor cores, bounds
+// BF16).  None uses TMA or wgmma.
 //
 // Modes, as the TPU kernels have them, applied at staging (where a value is
 // written to shared memory), outside the inner FMA loops:
@@ -88,139 +91,10 @@
 #include <algorithm>
 #include <atomic>
 
-#include "mma_tile.cuh"  // and mu_tile.cuh
+#include "mma_tile.cuh"   // and mu_tile.cuh
+#include "simt_tile.cuh"
 
 namespace {
-
-// K1 pass 1.  Block (n tile, k chunk, split): for its run of M tiles,
-// acc[kk][j] += sum_i W[m0 + i, kc0 + kk] * Z[i, j], then the raw partial
-// goes to part[split][k][n].  SIMT (the f32 GEMMs: Modes F32 and ANY):
-// R = KC / 16 accumulator rows per thread.
-template <int R, Mode MODE>
-__device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restrict__ part,
-                                               int tiles_per_split) {
-  static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
-  constexpr int KC = 16 * R;
-  extern __shared__ float4 smem_raw[];
-  float* ws = reinterpret_cast<float*>(smem_raw);
-  float* hs = ws + KS * WS_STRIDE;
-  float* zs = hs + KS * TILE;
-  float* wc = zs + TILE * (TILE + 1);  // [TILE][KC]: W rows, this k chunk
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int m_tiles = (o.m + TILE - 1) / TILE;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, m_tiles);
-
-  float acc[R][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int m0 = t * TILE;
-    float s[4][4];
-    recon_tile<MODE>(o, m0, n0, ws, hs, s);
-    ratio_tile<MODE>(o, m0, n0, s, zs);
-    with_state<MODE>(o.w, o, [&](auto w, auto rule) {
-      for (int e = tid; e < TILE * KC; e += THREADS) {
-        const int i = e / KC, kk = e % KC;
-        const int gm = m0 + i, gk = kc0 + kk;
-        wc[e] = rule((gm < o.m && gk < o.k) ? w((size_t)gm * o.k + gk) : 0.f);
-      }
-    });
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < TILE; ++i) {
-      Val<false> a[R], b[4];
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r].load(wc[i * KC + ty + 16 * r]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c].load(zs[i * (TILE + 1) + tx + 16 * c]);
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = mac(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-
-  float* dst = part + (size_t)blockIdx.z * o.k * o.n;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gk = kc0 + ty + 16 * r, gn = n0 + tx + 16 * c;
-      if (gk < o.k && gn < o.n) dst[(size_t)gk * o.n + gn] = acc[r][c];
-    }
-}
-
-// K2 pass 1.  Block (m tile, k chunk, split): for its run of N tiles,
-// acc[i][kk] += sum_j Z[i, j] * H[kc0 + kk, n0 + j], partial to
-// part[split][m][k].  SIMT (Modes F32 and ANY): hc holds the H chunk
-// transposed ([TILE][KC + 1]).
-template <int R, Mode MODE>
-__device__ __forceinline__ void w_partial_simt(const Operands& o, float* __restrict__ part,
-                                               int tiles_per_split) {
-  static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
-  constexpr int KC = 16 * R;
-  extern __shared__ float4 smem_raw[];
-  float* ws = reinterpret_cast<float*>(smem_raw);
-  float* hs = ws + KS * WS_STRIDE;
-  float* zs = hs + KS * TILE;
-  float* hc = zs + TILE * (TILE + 1);
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int n_tiles = (o.n + TILE - 1) / TILE;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-
-  float acc[4][R];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < R; ++c) acc[r][c] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * TILE;
-    float s[4][4];
-    recon_tile<MODE>(o, m0, n0, ws, hs, s);
-    ratio_tile<MODE>(o, m0, n0, s, zs);
-    with_state<MODE>(o.h, o, [&](auto h, auto rule) {
-      for (int e = tid; e < KC * TILE; e += THREADS) {
-        const int kk = e / TILE, j = e % TILE;  // neighbours along n
-        const int gk = kc0 + kk, gn = n0 + j;
-        hc[j * (KC + 1) + kk] = rule((gk < o.k && gn < o.n) ? h((size_t)gk * o.n + gn) : 0.f);
-      }
-    });
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < TILE; ++j) {
-      Val<false> a[4], b[R];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r].load(zs[(ty + 16 * r) * (TILE + 1) + j]);
-#pragma unroll
-      for (int c = 0; c < R; ++c) b[c].load(hc[j * (KC + 1) + tx + 16 * c]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < R; ++c) acc[r][c] = mac(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-
-  float* dst = part + (size_t)blockIdx.z * o.m * o.k;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      const int gm = m0 + ty + 16 * r, gk = kc0 + tx + 16 * c;
-      if (gm < o.m && gk < o.k) dst[(size_t)gm * o.k + gk] = acc[r][c];
-    }
-}
 
 // Loads of the walking W or H block a thread has in flight at once beside
 // the accumulators (KC / 4 elements a thread in all): elements, or 16-byte
@@ -377,13 +251,17 @@ __device__ __forceinline__ void w_partial_mma(const Operands& o, float* __restri
 }
 
 // The pass-1 kernels: BF16 and SPLIT3 run on the tensor cores, F32 and ANY
-// on the SIMT units.  F32 and BF16 hold to two blocks an SM (128
-// registers); SPLIT3's two planes take ~174 KiB of shared memory at
-// KC = 256, one block an SM.  K1/K2 take ANY only under f32 GEMMs
+// on the SIMT units.  BF16 holds to two blocks an SM (128 registers), and
+// F32 below KC = 256; at KC = 256 F32's resident block and W or H rows take
+// 167 KiB of shared memory, one block an SM (so up to 255 registers), and
+// SPLIT3's two planes ~174 KiB.  K1/K2 take ANY only under f32 GEMMs
 // (update()): the bf16 rounding, constant off there, leaves the staging
 // rules' RoundBf16 arms out of those instances.
 template <int R, Mode MODE>
-__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 || MODE == Mode::BF16 ? 2 : 1)
+constexpr int MIN_BLOCKS = MODE == Mode::BF16 || (MODE == Mode::F32 && R < 16) ? 2 : 1;
+
+template <int R, Mode MODE>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<R, MODE>)
     h_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
   if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
   if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3)
@@ -393,7 +271,7 @@ __global__ void __launch_bounds__(THREADS, MODE == Mode::F32 || MODE == Mode::BF
 }
 
 template <int R, Mode MODE>
-__global__ void __launch_bounds__(THREADS, MODE == Mode::F32 || MODE == Mode::BF16 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<R, MODE>)
     w_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
   if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
   if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3)
@@ -509,7 +387,7 @@ size_t h_smem_bytes() {
     return (P * Z_WORDS + X_WORDS + P * TILE * (16 * R + BPAD) +
             std::max<size_t>(P * 16 * R * HS_LD, STEP_BUF<S3>)) * sizeof(bf16);
   }
-  return (staging_words() + (size_t)TILE * 16 * R) * sizeof(float);
+  return simt_smem_words<R>() * sizeof(float);
 }
 
 template <int R, Mode MODE>
@@ -520,7 +398,7 @@ size_t w_smem_bytes() {
     return (P * Z_WORDS + X_WORDS + P * 16 * R * (TILE + BPAD) +
             std::max<size_t>(P * TILE * (16 * R + BPAD), STEP_BUF<S3>)) * sizeof(bf16);
   }
-  return (staging_words() + (size_t)TILE * (16 * R + 1)) * sizeof(float);
+  return simt_smem_words<R>() * sizeof(float);
 }
 
 template <int R, Mode MODE>
@@ -571,6 +449,50 @@ cudaError_t launch_partial(int kc, const Operands& o, float* part, int splits,
   }
   if (err == cudaSuccess) ++partial_launches[H ? 0 : 1][static_cast<int>(MODE)];
   return err;
+}
+
+// Registers, dynamic shared memory (bytes), resident blocks an SM and
+// local memory a thread (bytes: spills) of one pass-1 instance, as the
+// runtime reports them (nmf_partial_info).
+template <bool H, int R, Mode MODE>
+cudaError_t partial_info(int* out) {
+  const void* fn = H ? reinterpret_cast<const void*>(h_update_partial<R, MODE>)
+                     : reinterpret_cast<const void*>(w_update_partial<R, MODE>);
+  const size_t smem = H ? h_smem_bytes<R, MODE>() : w_smem_bytes<R, MODE>();
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a;
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)smem;
+  out[2] = blocks;
+  out[3] = (int)a.localSizeBytes;
+  return cudaSuccess;
+}
+
+template <bool H, Mode MODE>
+cudaError_t info_at(int kc, int* out) {
+  switch (kc) {
+    case 16: return partial_info<H, 1, MODE>(out);
+    case 32: return partial_info<H, 2, MODE>(out);
+    case 64: return partial_info<H, 4, MODE>(out);
+    case 128: return partial_info<H, 8, MODE>(out);
+    case 256: return partial_info<H, 16, MODE>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool H>
+cudaError_t info_of(int mode, int kc, int* out) {
+  switch (mode) {
+    case static_cast<int>(Mode::F32): return info_at<H, Mode::F32>(kc, out);
+    case static_cast<int>(Mode::ANY): return info_at<H, Mode::ANY>(kc, out);
+    case static_cast<int>(Mode::SPLIT3): return info_at<H, Mode::SPLIT3>(kc, out);
+    case static_cast<int>(Mode::BF16): return info_at<H, Mode::BF16>(kc, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Blocks of a grid-stride pass over `total` elements.
@@ -640,6 +562,13 @@ const char* nmf_error_string(int err) {
 // out of range.
 int nmf_partial_launches(int h, int mode) {
   return mode < 0 || mode >= MODES ? -1 : partial_launches[h ? 0 : 1][mode].load();
+}
+
+// out[4] = registers, dynamic shared memory (bytes), resident blocks an
+// SM, local memory a thread (bytes) of the pass-1 kernel of K1 (h = 1) or
+// K2 (h = 0) in Mode `mode` at chunk width kc, on the current device.
+int nmf_partial_info(int h, int mode, int kc, int* out) {
+  return h ? info_of<true>(mode, kc, out) : info_of<false>(mode, kc, out);
 }
 
 void nmf_reset_partial_launches() {

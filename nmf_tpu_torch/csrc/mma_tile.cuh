@@ -263,13 +263,6 @@ __device__ __forceinline__ void mma_panel(float (&acc)[TM][TN][4], const bf16* a
   }
 }
 
-// 16-byte vectors of a row-major array p of row stride `stride`: possible
-// when p and every row start on 16 bytes (v elements), so that a vector at
-// a column multiple of v never leaves its row.
-__device__ __forceinline__ bool vec_ok(const void* p, int stride, int v) {
-  return stride % v == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // Whether a ROWS x COLS block splits into whole passes of the block's
 // threads, V elements a thread.
 template <int V, int ROWS, int COLS>

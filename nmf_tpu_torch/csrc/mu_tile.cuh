@@ -1,11 +1,12 @@
 // Device code shared by the kernels of csrc/*.cu: the tile constants, the
 // operand modes, and the recon and ratio steps of one 64 x 64 tile.
 //
-// K1/K2 (fused_mu.cu) and K5 (tile_sparse.cu) both form Y = W H for a
-// 64 x 64 tile in registers (recon_tile) and Z = X / max(Y, eps) into shared
-// memory (ratio_tile), staged per Mode; they differ only in which tiles a
-// block walks and where its sums go.  Everything here sits in an anonymous
-// namespace, so each translation unit compiles its own copy.
+// K3 (fused_mu.cu) and K5 (tile_sparse.cu) both form Y = W H for a 64 x 64
+// tile in registers (recon_tile) and, K5, Z = X / max(Y, eps) into shared
+// memory (ratio_tile), staged per Mode; K1/K2 stage their own
+// (simt_tile.cuh, mma_tile.cuh) by the same Modes and rules.  Everything
+// here sits in an anonymous namespace, so each translation unit compiles
+// its own copy.
 
 #pragma once
 
@@ -25,9 +26,9 @@ enum XKind { X_F32 = 0, X_BF16 = 1, X_U8 = 2 };
 enum Gemm { GEMM_F32 = 0, GEMM_SPLIT3 = 1, GEMM_BF16 = 2 };
 
 // How a kernel stages its operands, fixed at compile time.  F32: W, H and X
-// are f32 and the GEMM takes them as they are (the main path); these kernels
-// hold to two blocks an SM.  ANY: the state dtype, the X storage and bf16
-// rounding are runtime choices, each taken once per staging loop.  SPLIT3:
+// are f32 and the GEMM takes them as they are (the main path).  ANY: the
+// state dtype, the X storage and bf16 rounding are runtime choices, each
+// taken once per staging loop.  SPLIT3:
 // as ANY, with each operand split into a bf16 (hi, lo) pair (K5 on the SIMT
 // units, below; K1/K2 on the tensor cores, mma_tile.cuh).  Sharing the
 // runtime choices cost the f32 path 47% at 10240^2, K=256 on an H100 (more
@@ -171,6 +172,13 @@ __device__ __forceinline__ void with_x(const Operands& o, Body&& body) {
       default: body(F32In{static_cast<const float*>(o.x)});
     }
   }
+}
+
+// 16-byte vectors of a row-major array p of row stride `stride`: possible
+// when p and every row start on 16 bytes (v elements), so that a vector at
+// a column multiple of v never leaves its row.
+__device__ __forceinline__ bool vec_ok(const void* p, int stride, int v) {
+  return stride % v == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // Phase A: s[r][c] = sum_k W[m0 + ty + 16 r, k] * H[k, n0 + tx + 16 c] over

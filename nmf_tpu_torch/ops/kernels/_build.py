@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 ``nvcc`` compiles each source (``fused_mu.cu``: K1-K3, with the
-tensor-core pieces of ``mma_tile.cuh``; ``tile_sparse.cu``: K5; both
+tensor-core pieces of ``mma_tile.cuh`` and the SIMT f32-GEMM pass 1 of
+``simt_tile.cuh``; ``tile_sparse.cu``: K5; both
 include ``mu_tile.cuh``) into an object, all at once in parallel,
 and links them into one shared library with a plain C interface at first
 use, under ``build/nmf_tpu_torch/<hash>/`` beside the package (the hash
@@ -25,7 +26,7 @@ __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 _PKG = pathlib.Path(__file__).resolve().parents[2]   # nmf_tpu_torch/
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "tile_sparse.cu")
-_HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh")
+_HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh", _CSRC / "simt_tile.cuh")
 _LIB_NAME = "libnmf_kernels.so"
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no fast math:
@@ -45,6 +46,9 @@ _SIGNATURES = {
     # K1 (1) or K2 (0), Mode: pass-1 launches since the last reset
     "nmf_partial_launches": ([_I, _I], _I),
     "nmf_reset_partial_launches": ([], None),
+    # K1 (1) or K2 (0), Mode, kc, out[4]: registers, dynamic shared memory,
+    # blocks an SM, local memory of one pass-1 instance
+    "nmf_partial_info": ([_I, _I, _I, _P], _I),
     # w, h, x, scales, denom, part, out; m, n, k, kc, splits, per; eps;
     # state_bf16, x_kind, gemm, numerator_only, device; stream
     "nmf_h_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),

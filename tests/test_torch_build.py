@@ -1,4 +1,4 @@
-"""The kernel build's source hash, and chip_smoke.py's reading of kernel names.
+"""The kernel build's source hash, and chip_smoke.py's and kernel_digest.py's readings.
 
 ``_build.library_path`` names the library by a hash of every source, header
 and flag: a file the hash misses would let an edit to it load a stale
@@ -121,9 +121,46 @@ def test_no_or_several_instances_fail(counts):
 def test_launch_counters_are_bound():
     """The counters chip_smoke.py reads are exported with their C types."""
     assert _build._SIGNATURES["nmf_partial_launches"][0] == [_build._I, _build._I]
+    assert _build._SIGNATURES["nmf_partial_info"][0] == [_build._I] * 3 + [_build._P]
     src = (CSRC / "fused_mu.cu").read_text()
-    for name in ("nmf_partial_launches", "nmf_reset_partial_launches"):
+    for name in ("nmf_partial_launches", "nmf_reset_partial_launches", "nmf_partial_info"):
         assert name in _build._SIGNATURES and re.search(rf"\b{name}\(", src)
+
+
+def test_simt_modes_are_the_f32_gemm_modes():
+    """Phase 1 holds F32 and ANY, the f32-GEMM Modes, to no HMMA."""
+    smoke = _chip_smoke()
+    assert smoke.SIMT_MODES == ("F32", "ANY")
+    assert set(smoke.SIMT_MODES) | set(smoke.MMA_MODES) == set(smoke.MODES)
+
+
+def test_coverage_has_rows_off_16_bytes():
+    """Phase 2 checks a shape whose rows of W (K), H and X (N) all start off
+    16 bytes: the SIMT pass 1's 4-byte copies."""
+    assert any(k % 4 and n % 4 for _, n, k in _chip_smoke().COVERAGE_SHAPES)
+
+
+def _digest_module():
+    spec = importlib.util.spec_from_file_location("kernel_digest", REPO / "kernel_digest.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize(
+    "other,rc",
+    [({"a": "1", "b": "2"}, 0), ({"a": "1", "b": "3"}, 1), ({"a": "1"}, 1)],
+    ids=["equal", "differ", "unmatched"],
+)
+def test_kernel_digest_compare(tmp_path, other, rc):
+    """kernel_digest.py --compare passes only where every check's digest is
+    present in both files and equal."""
+    import json
+
+    a, b = tmp_path / "a.json", tmp_path / "b.json"
+    a.write_text(json.dumps({"card": "x", "digests": {"a": "1", "b": "2"}}))
+    b.write_text(json.dumps({"card": "x", "digests": other}))
+    assert _digest_module().main(["--compare", str(a), str(b)]) == rc
 
 
 def test_float32_fast_runs_on_every_storage():
