@@ -9,12 +9,12 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
-   ptxas's registers and spills per kernel (a spill in any K1/K2 pass-1
-   kernel fails) and each pass-1 instance's registers, dynamic shared
-   memory and blocks an SM as the runtime reports them, and check with
-   ``cuobjdump -sass`` of the same toolkit that every BF16- and
-   SPLIT3-Mode K1/K2 kernel holds tensor-core (``HMMA``) instructions and
-   no F32- or ANY-Mode one does;
+   ptxas's registers and spills per kernel (a spill in any K1/K2 or K5
+   pass-1 kernel fails) and each pass-1 instance's registers, dynamic
+   shared memory, blocks an SM and local memory as the runtime reports
+   them (local memory fails), and check with ``cuobjdump -sass`` of the
+   same toolkit that every BF16- and SPLIT3-Mode K1/K2 and K5 kernel holds
+   tensor-core (``HMMA``) instructions and no F32- or ANY-Mode one does;
 2. kernels: K1-K3 in float32 against their plain torch versions on the card
    at the reference, ISMIR and paper shapes (factors rtol 1e-4 / atol 1e-6,
    cost rel 1e-5), bitwise-equal on a second call, each timed beside its
@@ -69,18 +69,25 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    within its ``MODE_LIMITS`` of its plain version with the f32-GEMM
    control failing;
 8. tilesparse: K5 (``h_numerator`` / ``w_numerator``) against its plain
-   version on the card at the ``tests/test_pallas.py`` problem, 160 x 200
-   with 32^2 tiles, 288 x 480 with 96 x 160 tiles, 8192^2 K=128 with 128^2
-   tiles at occupancy 0.08, and K = 300 and 2048, in every mode (float32,
-   ``bfloat16``, ``float32_fast``, bf16 tiles, bf16 state) within
-   ``MODE_LIMITS``, with phase 3's controls where a mode rounds or splits,
-   bitwise on a rerun, sentinel blocks exactly zero, each mode timed at
-   8192^2; then the tile-sparse solve at 8192^2, K=128, 200 iterations
-   under float32 and bfloat16: exactly 200 + 200 K5 launches, byte-identical
-   factors on a rerun, the cost against the ``backend="jnp"`` tiled solve
-   and (float32) the dense ``clamp_inputs=False`` solve through K1-K3,
-   iterations/s of all three; once at K=256 ``bfloat16``, and once with int8
-   tiles (the plain sweep by rule, 0 launches);
+   version on the card at the ``tests/test_pallas.py`` problem (and the
+   same with its tile list padded to 64 by zero tiles at block (0, 0), as
+   the tiled solve pads it), 160 x 200 with 32^2 tiles, 288 x 480 with
+   96 x 160 tiles, 8192^2 K=128 with 128^2 tiles at occupancy 0.08, K = 300
+   and 2048, and two long runs (300 full 128^2 tiles down one column
+   block, and across one row block), in every mode (float32, ``bfloat16``,
+   ``float32_fast``, bf16 tiles, bf16 state) within ``MODE_LIMITS``, with
+   phase 3's controls where a mode rounds or splits, bitwise on a rerun,
+   sentinel blocks exactly zero, the pass-1 instance each call ran read
+   from the library's launches per Mode (``nmf_sweep_launches``: BF16
+   under ``bfloat16`` and bf16 state, SPLIT3 under ``float32_fast``, F32
+   under float32, ANY for bf16 tiles), each mode timed at 8192^2; then the
+   tile-sparse solve at 8192^2, K=128, 200 iterations under float32,
+   bfloat16 and float32_fast: exactly 200 + 200 K5 launches, all in the
+   policy's instance, byte-identical factors on a rerun, the cost against
+   the ``backend="jnp"`` tiled solve and (float32) the dense
+   ``clamp_inputs=False`` solve through K1-K3, iterations/s of all three;
+   once at K=256 ``bfloat16``, and once with int8 tiles (the plain sweep by
+   rule, 0 launches);
 9. oocore: K1/K2 ``numerator_only`` in every mode against the plain
    numerators at phase 3's shapes, the streamed block 1025 x 65408 x 32
    (timed and its instance traced there) and the ragged last block
@@ -111,9 +118,10 @@ a JSON summary of the kernels (each with its launches on its main path,
 its time beside its plain version's, and its bound: the larger of its
 flops over the card's peak and its bytes over 3.35 TB/s, H100 SXM at 700 W;
 no single PyTorch call computes any of them, so ``library_ms`` is null;
-each K1/K2 entry, mode and flagship entry names the instance that ran,
-``impl``, and K1/K2 carry phase 7's ``long_walks`` readings and phase
-1's ``pass1`` (registers, shared memory, blocks an SM per instance);
+each K1/K2 and K5 entry, mode and flagship entry names the instance that
+ran, ``impl``, K1/K2 carry phase 7's ``long_walks`` readings, and K1, K2
+and K5 phase 1's ``pass1`` (registers, shared memory, blocks an SM per
+instance);
 K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
 their launches on the streamed solve); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -206,8 +214,19 @@ IMPL_OF_POLICY = {"bfloat16": IMPL["BF16"], "float32_fast": IMPL["SPLIT3"]}
 # the SIMT units, to none
 MMA_MODES = tuple(IMPL)
 SIMT_MODES = tuple(m for m in MODES if m not in IMPL)
-_KERNEL_RE = re.compile(r"(h_update_partial|w_update_partial|kl_partial|kl_final|finalize|sum_splits"
-                        r"|sweep_h|sweep_w)(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?")
+_KERNEL_RE = re.compile(r"(h_update_partial|w_update_partial|h_sweep_partial|w_sweep_partial"
+                        r"|kl_partial|kl_final|finalize|sum_splits|sweep_sum)"
+                        r"(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?")
+# the pass-1 kernels, K1/K2's and K5's, by name
+PASS1_KERNELS = (("h_update_partial", 1, "nmf_partial_info"), ("w_update_partial", 0, "nmf_partial_info"),
+                 ("h_sweep_partial", 1, "nmf_sweep_info"), ("w_sweep_partial", 0, "nmf_sweep_info"))
+# each kernel's pass-1 kernel, whose instances the result line lists
+PASS1_OF = {"update_h": "h_update_partial", "update_w": "w_update_partial",
+            "h_numerator": "h_sweep_partial", "w_numerator": "w_sweep_partial"}
+PASS1_NAMES = {name for name, _, _ in PASS1_KERNELS}
+# phase 8's K5 modes -> the Mode of the pass-1 instance each runs
+K5_MODE = {"float32": "F32", "bfloat16": "BF16", "float32_fast": "SPLIT3", "bf16_tiles": "ANY",
+           "bf16_state": "BF16"}
 
 
 def check(cond, msg):
@@ -276,10 +295,10 @@ def _kernel_label(mangled):
 
 
 def _check_sass(card, lib_path):
-    """Every BF16- and SPLIT3-Mode K1/K2 pass-1 kernel of the built library
-    holds HMMA (tensor-core) instructions and no F32- or ANY-Mode one does:
-    ``cuobjdump -sass`` of the toolkit that built it (a missing cuobjdump
-    fails the phase)."""
+    """Every BF16- and SPLIT3-Mode pass-1 kernel of the built library (K1/K2
+    and K5) holds HMMA (tensor-core) instructions and no F32- or ANY-Mode
+    one does: ``cuobjdump -sass`` of the toolkit that built it (a missing
+    cuobjdump fails the phase)."""
     from nmf_tpu_torch.ops.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
@@ -294,27 +313,47 @@ def _check_sass(card, lib_path):
             hmma.setdefault(label, 0)
         elif label and "HMMA" in line:
             hmma[label] += 1
-    partial = {n: c for n, c in hmma.items() if "update_partial<" in n}
+    partial = {n: c for n, c in hmma.items() if n.split("<")[0] in PASS1_NAMES}
     by_mode = {mode: {n: c for n, c in partial.items() if n.endswith(f",{mode}>")}
                for mode in MODES}
     for mode in MMA_MODES:
-        check(len(by_mode[mode]) == 10 and all(by_mode[mode].values()),
-              f"{mode}-Mode K1/K2 kernels without HMMA (or missing): {by_mode[mode]}")
+        check(len(by_mode[mode]) == 20 and all(by_mode[mode].values()),
+              f"{mode}-Mode K1/K2/K5 kernels without HMMA (or missing): {by_mode[mode]}")
     for mode in SIMT_MODES:
-        check(len(by_mode[mode]) == 10 and not any(by_mode[mode].values()),
-              f"{mode}-Mode K1/K2 kernels with HMMA (or missing): {by_mode[mode]}")
+        check(len(by_mode[mode]) == 20 and not any(by_mode[mode].values()),
+              f"{mode}-Mode K1/K2/K5 kernels with HMMA (or missing): {by_mode[mode]}")
     for mode in MMA_MODES:
-        print(f"[{card}] SASS ({tool}): HMMA instructions in each {mode}-Mode K1/K2 kernel "
-              f"{by_mode[mode]}")
-    print(f"[{card}] SASS: no HMMA in the 20 F32- and ANY-Mode K1/K2 kernels")
+        print(f"[{card}] SASS ({tool}): HMMA instructions in each {mode}-Mode K1/K2/K5 "
+              f"kernel {by_mode[mode]}")
+    print(f"[{card}] SASS: no HMMA in the 40 F32- and ANY-Mode K1/K2/K5 kernels")
+
+
+def _mode_of_counts(counts, what):
+    """The one Mode with launches in ``counts`` (launches per Mode, in
+    MODES' order)."""
+    ran = [mode for mode, n in zip(MODES, counts) if n]
+    check(len(ran) == 1, f"{what}: pass-1 launches per Mode {dict(zip(MODES, counts))}")
+    return ran[0]
 
 
 def _impl_of_counts(counts, what):
     """The pass-1 instance (``IMPL``'s, or "simt") of the one Mode with
-    launches in ``counts`` (launches per Mode, in MODES' order)."""
-    ran = [mode for mode, n in zip(MODES, counts) if n]
-    check(len(ran) == 1, f"{what}: pass-1 launches per Mode {dict(zip(MODES, counts))}")
-    return IMPL.get(ran[0], "simt")
+    launches in ``counts``."""
+    return IMPL.get(_mode_of_counts(counts, what), "simt")
+
+
+def sweep_counts(fn):
+    """(fn(), {"h_numerator": [launches per Mode], "w_numerator": [...]}):
+    K5's pass-1 launches per Mode as the library counts them on the host,
+    set to 0 just before ``fn``."""
+    from nmf_tpu_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    lib.nmf_reset_sweep_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {key: [lib.nmf_sweep_launches(h, i) for i in range(len(MODES))]
+                 for key, h in (("h_numerator", 1), ("w_numerator", 0))}
 
 
 def observed_impls(fn):
@@ -371,10 +410,11 @@ def phase_card(card, out):
                 print(f"[{card}]   {name}: {line.split('info    :')[-1].strip()}")
                 if "spill" in line:
                     spilled.append(name)
-        # the F32 and BF16 Modes of K1/K2 hold two blocks an SM only without
-        # spills (PERF.md section 6); SPLIT3 holds one, with no spill either
-        bad = [n for n in spilled if "update_partial" in n and re.search(rf",({'|'.join(MODES)})>", n)]
-        check(not bad, f"K1/K2 pass-1 kernels spill: {bad}")
+        # the F32 and BF16 Modes of K1/K2 and K5 hold two blocks an SM only
+        # without spills (PERF.md section 6); SPLIT3 holds one, with no spill
+        # either
+        bad = [n for n in spilled if n.split("<")[0] in PASS1_NAMES]
+        check(not bad, f"K1/K2/K5 pass-1 kernels spill: {bad}")
     _check_sass(card, lib_path)
     out["build_seconds"] = secs
     out["pass1"] = _pass1_info(card)
@@ -382,9 +422,9 @@ def phase_card(card, out):
 
 def _pass1_info(card):
     """{"h_update_partial<R=16,F32>": {"registers", "smem_bytes",
-    "blocks_per_sm", "local_bytes"}, ...} of every K1/K2 pass-1 instance,
-    as the runtime reports them (``nmf_partial_info``); a kernel with local
-    memory (a spill) fails."""
+    "blocks_per_sm", "local_bytes"}, ...} of every K1/K2 and K5 pass-1
+    instance, as the runtime reports them (``nmf_partial_info``,
+    ``nmf_sweep_info``); a kernel with local memory (a spill) fails."""
     import ctypes
 
     from nmf_tpu_torch.ops.kernels import _build
@@ -392,11 +432,11 @@ def _pass1_info(card):
     lib = _build.load_library()
     info = {}
     for mode_i, mode in enumerate(MODES):
-        for h, name in ((1, "h_update_partial"), (0, "w_update_partial")):
+        for name, h, query in PASS1_KERNELS:
             for r in (1, 2, 4, 8, 16):
                 vals = (ctypes.c_int * 4)()
-                rc = lib.nmf_partial_info(h, mode_i, 16 * r, vals)
-                check(rc == 0, f"nmf_partial_info {name} R={r} {mode}: CUDA error {rc}")
+                rc = getattr(lib, query)(h, mode_i, 16 * r, vals)
+                check(rc == 0, f"{query} {name} R={r} {mode}: CUDA error {rc}")
                 label = f"{name}<R={r},{mode}>"
                 info[label] = dict(zip(("registers", "smem_bytes", "blocks_per_sm", "local_bytes"),
                                        vals))
@@ -979,11 +1019,20 @@ def _fixed_tile_problem(m, k, n, tile, blocks, seed, zero_frac):
 
 
 def _ts_cases():
-    """name -> (X, W, H, tile) for the K5 checks; "main" is the solve's."""
+    """name -> (X, W, H, tile, pad) for the K5 checks; "main" is the
+    solve's.  pad: the tile list padded to a multiple of it with zero tiles
+    at block (0, 0), as the tiled solve pads it (1: not padded).  The long
+    runs: 300 full 128^2 tiles in one column block (the H target's run of
+    one output block crosses many pieces) and its transpose (the W
+    target's): K5's counterpart of ``LONG_WALKS``."""
     m, n, k, t, occ, seed = TS_MAIN
-    return {
-        "pallas 512x640 K=16": (*_fixed_tile_problem(
-            512, 16, 640, (128, 128), [(0, 0), (1, 2), (3, 4), (2, 2), (0, 4)], 3, 0.6), (128, 128)),
+    pallas = _fixed_tile_problem(
+        512, 16, 640, (128, 128), [(0, 0), (1, 2), (3, 4), (2, 2), (0, 4)], 3, 0.6)
+    tall = _fixed_tile_problem(38_400, 128, 128, (128, 128), [(i, 0) for i in range(300)], 7, 0.0)
+    wide = _fixed_tile_problem(128, 128, 38_400, (128, 128), [(0, j) for j in range(300)], 8, 0.0)
+    cases = {
+        "pallas 512x640 K=16": (*pallas, (128, 128)),
+        "padded 512x640 K=16": (*pallas, (128, 128), 64),
         "ragged 160x200 K=8": (*_fixed_tile_problem(
             160, 8, 200, (32, 32), [(0, 0), (1, 3), (2, 5), (4, 6), (3, 1), (0, 4)], 41, 0.5),
             (32, 32)),
@@ -992,7 +1041,10 @@ def _ts_cases():
         "main": (*tile_problem(m, k, n, t, occ, seed), (t, t)),
         "K=300": (*tile_problem(384, 300, 512, 128, 0.5, 1), (128, 128)),
         "K=2048": (*tile_problem(256, 2048, 384, 128, 0.5, 2), (128, 128)),
+        "long run 38400x128 K=128": (*tall, (128, 128)),
+        "long run 128x38400 K=128": (*wide, (128, 128)),
     }
+    return {label: case if len(case) == 5 else (*case, 1) for label, case in cases.items()}
 
 
 class SweepCase(NamedTuple):
@@ -1004,11 +1056,14 @@ class SweepCase(NamedTuple):
     empty: dict            # target -> output blocks with no tile
 
 
-def _sweep_case(x, w, h, tile):
+def _sweep_case(x, w, h, tile, pad=1):
     import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.sparse_tiled import _pad_tiles_np
     from nmf_tpu_torch.ops.kernels import tile_sparse as ts
 
     tx = nt.tiles_from_dense(x, tile)
+    tx = dataclasses.replace(tx, **dict(zip(("tiles", "rows", "cols"), _pad_tiles_np(
+        np.asarray(tx.tiles), np.asarray(tx.rows), np.asarray(tx.cols), pad))))
     bm, bn = tile
     mb, nb = -(-x.shape[0] // bm), -(-x.shape[1] // bn)
     wp = np.zeros((mb * bm, w.shape[1]), np.float32)
@@ -1097,8 +1152,8 @@ def phase_tilesparse_kernels(card, out):
 
     stats = out["kernels"]
     modes = _k5_modes()
-    for label, (x, w, h, tile) in _ts_cases().items():
-        base = _sweep_case(x, w, h, tile)
+    for label, (x, w, h, tile, pad) in _ts_cases().items():
+        base = _sweep_case(x, w, h, tile, pad)
         bm, bn = tile
         for mode, (prec, state, operands, limits, control) in modes.items():
             wk, hk, tiles = base.w, base.h, base.tiles
@@ -1121,6 +1176,11 @@ def phase_tilesparse_kernels(card, out):
                 def plain():
                     return ts.sweep_plain(wk, hk, tiles, layout, EPS, prec, target)
 
+                _, counts = sweep_counts(kern)
+                ran = _mode_of_counts(counts[name], where)
+                other = "w_numerator" if target == "h" else "h_numerator"
+                check(ran == K5_MODE[mode] and not any(counts[other]),
+                      f"{where}: K5 ran the {ran} instance ({counts}), expected {K5_MODE[mode]}")
                 res, ref = _run_pair(lambda *_: kern(), lambda *_: plain(), wk, hk, tiles, where)
                 n_out = res.shape[1] // bn if target == "h" else res.shape[0] // bm
                 blocks = (res.reshape(-1, n_out, bn).transpose(0, 1) if target == "h"
@@ -1144,7 +1204,8 @@ def phase_tilesparse_kernels(card, out):
                             f"(limit {spread_limit})")
                 st = stats[name]
                 ms = st["modes"].setdefault(mode, {"max_abs_err": 0.0, "max_rel_err": 0.0,
-                                                   "err": 0.0, "limit": limits and limits[1]})
+                                                   "err": 0.0, "limit": limits and limits[1],
+                                                   "impl": IMPL.get(ran, "simt")})
                 ms["max_abs_err"] = max(ms["max_abs_err"], max_abs)
                 ms["max_rel_err"] = max(ms["max_rel_err"], err)
                 ms["err"] = max(ms["err"], spread)
@@ -1161,10 +1222,11 @@ def phase_tilesparse_kernels(card, out):
                     b_ms, b_by = _k5_bound(wk, hk, tiles, plan, target, prec)
                     ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
                     if mode == "float32":
-                        st.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                        st.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                                  impl=IMPL.get(ran, "simt"))
                     what = (f"kernel {kms} ms, plain {pms} ms, bound {b_ms} ms ({b_by}); "
                             + what)
-                print(f"[{card}] {where}: {what}, bitwise-repeatable")
+                print(f"[{card}] {where}: {what}, bitwise-repeatable, instance {ran}")
 
 
 def _ts_solve(x, w, h, cfg, **kw):
@@ -1208,14 +1270,19 @@ def phase_tilesparse_solves(card, out):
           f"(occupancy {tx.occupancy()}), K={k}, {TS_ITERS} iterations")
     eps = np.float32(EPS)
     want = {"h_numerator": TS_ITERS, "w_numerator": TS_ITERS}
-    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3), ("float32_fast", 1e-4)):
         cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(dtype))
         # warm both paths once (the library, the allocator, cuBLAS)
         for backend in ("auto", "jnp"):
             _ts_solve(tx, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2))
-        (res, secs), launches, plain_calls, dense = _counted(lambda: _ts_solve(tx, w, h, cfg))
+        ((res, secs), per_mode), launches, plain_calls, dense = _counted(
+            lambda: sweep_counts(lambda: _ts_solve(tx, w, h, cfg)))
         where = f"tiled solve [{dtype}]"
         check(launches == want, f"{where}: K5 launches {launches}, expected {want}")
+        mode = K5_MODE[dtype]
+        check(all(counts == [TS_ITERS if m == mode else 0 for m in MODES]
+                  for counts in per_mode.values()),
+              f"{where}: K5 pass-1 launches per Mode {per_mode}, expected {TS_ITERS} {mode}")
         check(not any(plain_calls.values()) and not any(dense.values()),
               f"{where}: plain calls {plain_calls}, K1-K3 launches {dense}")
         out["launches"][f"tiled {dtype}"] = launches
@@ -1229,12 +1296,13 @@ def phase_tilesparse_solves(card, out):
         rel = abs(cost - float(plain.cost)) / abs(float(plain.cost))
         check(rel <= limit, f"{where}: cost {cost} vs the jnp tiled solve {float(plain.cost)}: "
               f"rel {rel} (limit {limit})")
-        line = (f"[{card}] {where}: K5 {launches}, cost {cost}, history {hist.tolist()}, "
+        line = (f"[{card}] {where}: K5 {launches} ({mode} instance), cost {cost}, history {hist.tolist()}, "
                 f"byte-identical on rerun; {TS_ITERS / secs} and {TS_ITERS / secs2} it/s through "
                 f"K5, {TS_ITERS / p_secs} it/s plain sweep (backend='jnp', cost {float(plain.cost)}, "
                 f"rel {rel}, limit {limit})")
         out["tiled"][dtype] = {"k5_its": [TS_ITERS / secs, TS_ITERS / secs2],
-                               "plain_its": TS_ITERS / p_secs, "rel_vs_plain": rel}
+                               "plain_its": TS_ITERS / p_secs, "rel_vs_plain": rel,
+                               "impl": IMPL.get(mode, "simt")}
         if dtype == "float32":
             # the exact-zero contract: the dense solve through K1-K3 with
             # clamp_inputs=False on clamped factors
@@ -1834,8 +1902,8 @@ def main(argv=None) -> int:
             **({"impl": st["impl"]} if "impl" in st else {}),
             # registers, shared memory and blocks an SM of each pass-1 instance
             **({"pass1": {label: v for label, v in out["pass1"].items()
-                          if label.startswith(name[len("update_"):] + "_update_partial")}}
-               if name in ("update_h", "update_w") else {}),
+                          if label.startswith(PASS1_OF[name] + "<")}}
+               if name in PASS1_OF else {}),
             "modes": modes,
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
             **({"long_walks": st["long_walks"]} if st["long_walks"] else {}),

@@ -83,201 +83,62 @@
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 //
-// The tile steps (recon_tile, ratio_tile), the staging rules and Mode live in
-// mu_tile.cuh, shared with K5 (tile_sparse.cu, whose float32_fast keeps
-// the SIMT (hi, lo) pairs); the tensor-core pieces of Mode::BF16 and
-// Mode::SPLIT3 in mma_tile.cuh, which only this file includes.
+// The pass-1 bodies and their dispatch live in pass1.cuh (with
+// mma_tile.cuh's tensor-core pieces and simt_tile.cuh's SIMT ones), shared
+// with K5 (tile_sparse.cu), which walks them over a sweep plan; here they
+// walk a dense X.  K3's recon_tile, the staging rules and Mode live in
+// mu_tile.cuh.
 
-#include <algorithm>
 #include <atomic>
 
-#include "mma_tile.cuh"   // and mu_tile.cuh
-#include "simt_tile.cuh"
+#include "pass1.cuh"
 
 namespace {
 
-// Loads of the walking W or H block a thread has in flight at once beside
-// the accumulators (KC / 4 elements a thread in all): elements, or 16-byte
-// vectors.  K2's BF16 instances stage one element at a time: their
-// 16-byte loads (of W, H or X) spilled at KC = 256.  SPLIT3's take them,
-// but at R = 4, where they cost the second block an SM (119 -> 153
-// registers) and ran slower.
-constexpr int WALK_UNROLL = 4, WALK_VECTORS = 2;
+// K1's (H) or K2's (W) dense walk: block (64-wide output tile, k chunk,
+// split) over the split's run of M tiles (K1) or N tiles (K2) of X, in
+// order; the resident operand is the block's H columns (K1) or W rows (K2),
+// the partial its split's (k, n) or (m, k) slice of part.
+template <bool H>
+struct DenseWalk {
+  const void* x;
+  int m, n, t_begin, t_end;
+  int res0, res_lim;  // n0, n (K1) or m0, m (K2)
+  float* out;
+  int ld, out0, out_lim;
 
-// K1 pass 1 on the tensor cores (Mode::BF16, and Mode::SPLIT3 with S3):
-// the same walk and partials as h_partial_simt.  Per M tile: X to xs,
-// Wc = W[m0 .., kc0 .. +KC] to wc (bf16 [TILE][KC + BPAD], k contiguous),
-// W H into registers, Z to zs, then acc (KC x TILE) += Wc^T Z over the
-// tile's 64 rows (A = Wc^T and B = Z both stored i-major: ldmatrix.trans;
-// each k-step summed apart and added in f32, mma_panel's FRESH, however
-// long the walk).  With one k chunk (K <= KC) Wc is the whole W block of
-// the tile, and the block's H columns H[.., n0 .. +64] stay in shared
-// memory for its whole walk (hr), so W H reads both from shared memory;
-// above it W H streams both per k step.  S3: every staged block (wc, hr or
-// the step, zs) is two planes, hi then lo, and each k-step of W H too is
-// summed apart.
-template <int R, bool S3>
-__device__ __forceinline__ void h_partial_mma(const Operands& o, float* __restrict__ part,
-                                              int tiles_per_split) {
-  using L = HTiling<R>;
-  constexpr int KC = 16 * R, WC_LD = KC + BPAD, P = S3 ? 2 : 1;
-  // the lo planes' offsets (0: no split)
-  constexpr int ZP = S3 ? Z_WORDS : 0, WP = S3 ? TILE * WC_LD : 0, HP = S3 ? KC * HS_LD : 0;
-  extern __shared__ float4 smem_raw[];
-  bf16* zs = reinterpret_cast<bf16*>(smem_raw);
-  float* xs = reinterpret_cast<float*>(zs + P * Z_WORDS);
-  bf16* wc = zs + P * Z_WORDS + X_WORDS;
-  bf16* hr = wc + P * TILE * WC_LD;  // [P][KC][HS_LD] resident H, or one streamed step
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp % L::WM, wn = warp / L::WM;
-  const int n0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int m_tiles = (o.m + TILE - 1) / TILE;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, m_tiles);
-  const bool resident = o.k <= KC;
-  if (resident)  // read after the first tile's __syncthreads
-    stage_bf16<KC, TILE, HS_LD, WALK_UNROLL, WALK_VECTORS, HP>(o, o.h, 0, n0, o.k, o.n, o.n, hr);
-
-  float acc[L::TM][L::TN][4];
-#pragma unroll
-  for (int t = 0; t < L::TM; ++t)
-#pragma unroll
-    for (int u = 0; u < L::TN; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[t][u][c] = 0.f;
-
-#pragma unroll 1
-  for (int t = t_begin; t < t_end; ++t) {
-    const int m0 = t * TILE;
-    stage_x<true>(o, m0, n0, xs);
-    stage_bf16<TILE, KC, WC_LD, WALK_UNROLL, WALK_VECTORS, WP>(o, o.w, m0, kc0, o.m, o.k, o.k, wc);
-    float y[1][4][4] = {};
-    if (resident) {
-      __syncthreads();
-      recon_resident<WC_LD, HS_LD, R >= 8 ? 1 : 2, WP, HP>(o, wc, hr, y);
-    } else {
-      recon_streamed<S3>(o, m0, n0, hr, y);
-    }
-    ratio_z<ZP>(o, y, xs, zs);
-    __syncthreads();
-    mma_panel<L::TM, L::TN, true, true, WC_LD, ZS_LD, true, 1, WP, ZP>(
-        acc, wc + 16 * L::TM * wm, zs + 8 * L::TN * wn, TILE);
-    __syncthreads();
+  __device__ DenseWalk(const Operands& o, float* part, int tiles_per_split)
+      : x(o.x), m(o.m), n(o.n) {
+    const int walk_tiles = ((H ? o.m : o.n) + TILE - 1) / TILE;
+    t_begin = blockIdx.z * tiles_per_split;
+    t_end = min(t_begin + tiles_per_split, walk_tiles);
+    res0 = out0 = blockIdx.x * TILE;
+    res_lim = out_lim = H ? o.n : o.m;
+    out = part + (size_t)blockIdx.z * o.k * (H ? o.n : o.m);
+    ld = o.n;
   }
-
-  float* dst = part + (size_t)blockIdx.z * o.k * o.n;
-#pragma unroll
-  for (int t = 0; t < L::TM; ++t)
-#pragma unroll
-    for (int u = 0; u < L::TN; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gk = kc0 + 16 * (L::TM * wm + t) + (lane >> 2) + 8 * (c >> 1);
-        const int gn = n0 + 8 * (L::TN * wn + u) + 2 * (lane & 3) + (c & 1);
-        if (gk < o.k && gn < o.n) dst[(size_t)gk * o.n + gn] = acc[t][u][c];
-      }
-}
-
-// K2 pass 1 on the tensor cores.  Per N tile: X to xs, Hc = H[kc0 .. +KC,
-// n0 ..] to hc (bf16 [KC][TILE + BPAD], n contiguous), W H, Z, then
-// acc (TILE x KC) += Z Hc^T over the tile's 64 columns (A = Z and B = Hc^T
-// both stored with the contraction axis contiguous: plain ldmatrix; FRESH,
-// as K1).  With one k chunk Hc is the tile's whole H block, and the
-// block's W rows W[m0 .. +64, ..] stay in shared memory for its walk (wr).
-// S3: two planes each, as K1.
-template <int R, bool S3>
-__device__ __forceinline__ void w_partial_mma(const Operands& o, float* __restrict__ part,
-                                              int tiles_per_split) {
-  using L = WTiling<R>;
-  constexpr int KC = 16 * R, HC_LD = TILE + BPAD, WR_LD = KC + BPAD, P = S3 ? 2 : 1;
-  constexpr int ZP = S3 ? Z_WORDS : 0, HP = S3 ? KC * HC_LD : 0, WP = S3 ? TILE * WR_LD : 0;
-  constexpr bool VEC = S3 && R != 4;  // 16-byte staging loads (above)
-  constexpr int VU = VEC ? WALK_VECTORS : 0;
-  extern __shared__ float4 smem_raw[];
-  bf16* zs = reinterpret_cast<bf16*>(smem_raw);
-  float* xs = reinterpret_cast<float*>(zs + P * Z_WORDS);
-  bf16* hc = zs + P * Z_WORDS + X_WORDS;
-  bf16* wr = hc + P * KC * HC_LD;  // [P][TILE][WR_LD] resident W, or one streamed step
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp % L::WM, wn = warp / L::WM;
-  const int m0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int n_tiles = (o.n + TILE - 1) / TILE;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const bool resident = o.k <= KC;
-  if (resident)
-    stage_bf16<TILE, KC, WR_LD, WALK_UNROLL, VU, WP>(o, o.w, m0, 0, o.m, o.k, o.k, wr);
-
-  float acc[L::TM][L::TN][4];
-#pragma unroll
-  for (int t = 0; t < L::TM; ++t)
-#pragma unroll
-    for (int u = 0; u < L::TN; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[t][u][c] = 0.f;
-
-#pragma unroll 1
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * TILE;
-    stage_x<VEC>(o, m0, n0, xs);
-    stage_bf16<KC, TILE, HC_LD, WALK_UNROLL, VU, HP>(o, o.h, kc0, n0, o.k, o.n, o.n, hc);
-    float y[1][4][4] = {};
-    if (resident) {
-      __syncthreads();
-      recon_resident<WR_LD, HC_LD, R >= 8 ? 1 : 2, WP, HP>(o, wr, hc, y);
-    } else {
-      recon_streamed<S3>(o, m0, n0, wr, y);
-    }
-    ratio_z<ZP>(o, y, xs, zs);
-    __syncthreads();
-    mma_panel<L::TM, L::TN, false, false, ZS_LD, HC_LD, true, 1, ZP, HP>(
-        acc, zs + 16 * L::TM * wm * ZS_LD, hc + 8 * L::TN * wn * HC_LD, TILE);
-    __syncthreads();
+  __device__ int steps() const { return t_end - t_begin; }
+  __device__ WalkStep step(int t) const {
+    const int w0 = (t_begin + t) * TILE;
+    if constexpr (H)
+      return {w0, m, {x, n, w0, res0, m, n}};
+    else
+      return {w0, n, {x, n, res0, w0, m, n}};
   }
-
-  float* dst = part + (size_t)blockIdx.z * o.m * o.k;
-#pragma unroll
-  for (int t = 0; t < L::TM; ++t)
-#pragma unroll
-    for (int u = 0; u < L::TN; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gm = m0 + 16 * (L::TM * wm + t) + (lane >> 2) + 8 * (c >> 1);
-        const int gk = kc0 + 8 * (L::TN * wn + u) + 2 * (lane & 3) + (c & 1);
-        if (gm < o.m && gk < o.k) dst[(size_t)gm * o.k + gk] = acc[t][u][c];
-      }
-}
+};
 
 // The pass-1 kernels: BF16 and SPLIT3 run on the tensor cores, F32 and ANY
-// on the SIMT units.  BF16 holds to two blocks an SM (128 registers), and
-// F32 below KC = 256; at KC = 256 F32's resident block and W or H rows take
-// 167 KiB of shared memory, one block an SM (so up to 255 registers), and
-// SPLIT3's two planes ~174 KiB.  K1/K2 take ANY only under f32 GEMMs
-// (update()): the bf16 rounding, constant off there, leaves the staging
-// rules' RoundBf16 arms out of those instances.
-template <int R, Mode MODE>
-constexpr int MIN_BLOCKS = MODE == Mode::BF16 || (MODE == Mode::F32 && R < 16) ? 2 : 1;
-
+// on the SIMT units (pass1.cuh).
 template <int R, Mode MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<R, MODE>)
     h_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
-  if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
-  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3)
-    h_partial_mma<R, MODE == Mode::SPLIT3>(o, part, tiles_per_split);
-  else
-    h_partial_simt<R, MODE>(o, part, tiles_per_split);
+  pass1<true, R, MODE>(o, DenseWalk<true>(o, part, tiles_per_split));
 }
 
 template <int R, Mode MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<R, MODE>)
     w_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
-  if constexpr (MODE == Mode::ANY) o.round_bf16 = 0;
-  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3)
-    w_partial_mma<R, MODE == Mode::SPLIT3>(o, part, tiles_per_split);
-  else
-    w_partial_simt<R, MODE>(o, part, tiles_per_split);
+  pass1<false, R, MODE>(o, DenseWalk<false>(o, part, tiles_per_split));
 }
 
 // Pass 2 of K1 and K2: out = base * (sum_s part[s]) / denom, the sum taken
@@ -375,124 +236,48 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) out[0] = sum;
 }
 
-// Shared memory in f32 words, as bytes; BF16's and SPLIT3's in bf16 words
-// (mma_tile.cuh): Z, X, the walking chunk, and the resident block or one
-// streamed W H step, each but X in two planes under SPLIT3 (96 KiB at
-// KC = 256: two blocks an SM; SPLIT3 174 KiB).
-template <int R, Mode MODE>
-size_t h_smem_bytes() {
-  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3) {
-    constexpr bool S3 = MODE == Mode::SPLIT3;
-    constexpr size_t P = S3 ? 2 : 1;
-    return (P * Z_WORDS + X_WORDS + P * TILE * (16 * R + BPAD) +
-            std::max<size_t>(P * 16 * R * HS_LD, STEP_BUF<S3>)) * sizeof(bf16);
-  }
-  return simt_smem_words<R>() * sizeof(float);
-}
-
-template <int R, Mode MODE>
-size_t w_smem_bytes() {
-  if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3) {
-    constexpr bool S3 = MODE == Mode::SPLIT3;
-    constexpr size_t P = S3 ? 2 : 1;
-    return (P * Z_WORDS + X_WORDS + P * 16 * R * (TILE + BPAD) +
-            std::max<size_t>(P * TILE * (16 * R + BPAD), STEP_BUF<S3>)) * sizeof(bf16);
-  }
-  return simt_smem_words<R>() * sizeof(float);
-}
-
-template <int R, Mode MODE>
-cudaError_t launch_h(const Operands& o, float* part, int splits,
-                     int tiles_per_split, cudaStream_t st) {
-  const size_t smem = h_smem_bytes<R, MODE>();
-  cudaError_t err = cudaFuncSetAttribute(
-      h_update_partial<R, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((o.n + TILE - 1) / TILE, (o.k + 16 * R - 1) / (16 * R), splits);
-  h_update_partial<R, MODE><<<grid, THREADS, smem, st>>>(o, part, tiles_per_split);
-  return cudaGetLastError();
-}
-
-template <int R, Mode MODE>
-cudaError_t launch_w(const Operands& o, float* part, int splits,
-                     int tiles_per_split, cudaStream_t st) {
-  const size_t smem = w_smem_bytes<R, MODE>();
-  cudaError_t err = cudaFuncSetAttribute(
-      w_update_partial<R, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((o.m + TILE - 1) / TILE, (o.k + 16 * R - 1) / (16 * R), splits);
-  w_update_partial<R, MODE><<<grid, THREADS, smem, st>>>(o, part, tiles_per_split);
-  return cudaGetLastError();
+template <bool H, int R, Mode MODE>
+auto partial_kernel() {
+  return H ? h_update_partial<R, MODE> : w_update_partial<R, MODE>;
 }
 
 // Pass-1 launches of K1 (0) and K2 (1) per Mode, counted on the host as
 // each is launched: which instance a call ran (nmf_partial_launches).  The
 // kernel names of a torch.profiler trace would say the same, but on the
 // H100 a short trace lost its first kernels (PERF.md section 6).
-constexpr int MODES = static_cast<int>(Mode::BF16) + 1;  // the last Mode
 std::atomic<int> partial_launches[2][MODES];
 
 // Pass 1 of K1 (H) or K2 (W) at chunk width kc.
 template <bool H, Mode MODE>
 cudaError_t launch_partial(int kc, const Operands& o, float* part, int splits,
                            int per, cudaStream_t st) {
-  cudaError_t err;
-  switch (kc) {
-    case 16: err = H ? launch_h<1, MODE>(o, part, splits, per, st) : launch_w<1, MODE>(o, part, splits, per, st); break;
-    case 32: err = H ? launch_h<2, MODE>(o, part, splits, per, st) : launch_w<2, MODE>(o, part, splits, per, st); break;
-    case 64: err = H ? launch_h<4, MODE>(o, part, splits, per, st) : launch_w<4, MODE>(o, part, splits, per, st); break;
-    case 128: err = H ? launch_h<8, MODE>(o, part, splits, per, st) : launch_w<8, MODE>(o, part, splits, per, st); break;
-    case 256: err = H ? launch_h<16, MODE>(o, part, splits, per, st) : launch_w<16, MODE>(o, part, splits, per, st); break;
-    default: return cudaErrorInvalidValue;
-  }
+  cudaError_t err = at_width(kc, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    constexpr size_t smem = pass1_smem_bytes<H, R, MODE>();
+    auto kernel = partial_kernel<H, R, MODE>();
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(((H ? o.n : o.m) + TILE - 1) / TILE, (o.k + 16 * R - 1) / (16 * R), splits);
+    kernel<<<grid, THREADS, smem, st>>>(o, part, per);
+    return cudaGetLastError();
+  });
   if (err == cudaSuccess) ++partial_launches[H ? 0 : 1][static_cast<int>(MODE)];
   return err;
 }
 
-// Registers, dynamic shared memory (bytes), resident blocks an SM and
-// local memory a thread (bytes: spills) of one pass-1 instance, as the
-// runtime reports them (nmf_partial_info).
-template <bool H, int R, Mode MODE>
-cudaError_t partial_info(int* out) {
-  const void* fn = H ? reinterpret_cast<const void*>(h_update_partial<R, MODE>)
-                     : reinterpret_cast<const void*>(w_update_partial<R, MODE>);
-  const size_t smem = H ? h_smem_bytes<R, MODE>() : w_smem_bytes<R, MODE>();
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  cudaFuncAttributes a;
-  int blocks = 0;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = a.numRegs;
-  out[1] = (int)smem;
-  out[2] = blocks;
-  out[3] = (int)a.localSizeBytes;
-  return cudaSuccess;
-}
-
-template <bool H, Mode MODE>
-cudaError_t info_at(int kc, int* out) {
-  switch (kc) {
-    case 16: return partial_info<H, 1, MODE>(out);
-    case 32: return partial_info<H, 2, MODE>(out);
-    case 64: return partial_info<H, 4, MODE>(out);
-    case 128: return partial_info<H, 8, MODE>(out);
-    case 256: return partial_info<H, 16, MODE>(out);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
+// Registers, dynamic shared memory, blocks an SM and local memory of one
+// pass-1 instance (nmf_partial_info).
 template <bool H>
-cudaError_t info_of(int mode, int kc, int* out) {
-  switch (mode) {
-    case static_cast<int>(Mode::F32): return info_at<H, Mode::F32>(kc, out);
-    case static_cast<int>(Mode::ANY): return info_at<H, Mode::ANY>(kc, out);
-    case static_cast<int>(Mode::SPLIT3): return info_at<H, Mode::SPLIT3>(kc, out);
-    case static_cast<int>(Mode::BF16): return info_at<H, Mode::BF16>(kc, out);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t partial_info(int mode, int kc, int* out) {
+  return at_mode(mode, [&](auto m) {
+    constexpr Mode MODE = decltype(m)::value;
+    return at_width(kc, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return kernel_info(reinterpret_cast<const void*>(partial_kernel<H, R, MODE>()),
+                         pass1_smem_bytes<H, R, MODE>(), out);
+    });
+  });
 }
 
 // Blocks of a grid-stride pass over `total` elements.
@@ -529,14 +314,9 @@ int update(const void* w, const void* h, const void* x, const float* scales,
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gemm == GEMM_SPLIT3)
-    err = launch_partial<H, Mode::SPLIT3>(kc, o, part, splits, tiles_per_split, st);
-  else if (gemm == GEMM_BF16)  // every state dtype, X kind and numerator_only
-    err = launch_partial<H, Mode::BF16>(kc, o, part, splits, tiles_per_split, st);
-  else if (all_f32(o) && gemm == GEMM_F32)
-    err = launch_partial<H, Mode::F32>(kc, o, part, splits, tiles_per_split, st);
-  else
-    err = launch_partial<H, Mode::ANY>(kc, o, part, splits, tiles_per_split, st);
+  err = at_mode(static_cast<int>(mode_of(o, gemm)), [&](auto m) {
+    return launch_partial<H, decltype(m)::value>(kc, o, part, splits, tiles_per_split, st);
+  });
   if (err != cudaSuccess) return err;
   return H ? launch_finalize(h, state_bf16, part, denom, out, k, n, splits, 1,
                             numerator_only, st)
@@ -568,7 +348,7 @@ int nmf_partial_launches(int h, int mode) {
 // SM, local memory a thread (bytes) of the pass-1 kernel of K1 (h = 1) or
 // K2 (h = 0) in Mode `mode` at chunk width kc, on the current device.
 int nmf_partial_info(int h, int mode, int kc, int* out) {
-  return h ? info_of<true>(mode, kc, out) : info_of<false>(mode, kc, out);
+  return h ? partial_info<true>(mode, kc, out) : partial_info<false>(mode, kc, out);
 }
 
 void nmf_reset_partial_launches() {

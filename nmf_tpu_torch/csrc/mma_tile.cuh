@@ -1,9 +1,11 @@
 // Warp-level tensor-core pieces of K1/K2's bfloat16 and float32_fast modes
-// (Mode::BF16 and Mode::SPLIT3 in fused_mu.cu): bf16 staging in shared
-// memory, ldmatrix fragment loads, the mma.sync m16n8k16 (bf16 in, f32
-// accumulate) wrapper, and the tile steps built from them: staging, W H
-// (from resident blocks or streamed), the ratio Z = X / max(W H, eps), and
-// the warp tilings of the 64-deep contraction of Z with a W or H chunk.
+// (Mode::BF16 and Mode::SPLIT3; fused_mu.cu, and K5 in tile_sparse.cu
+// through pass1.cuh): bf16 staging in shared memory, ldmatrix fragment
+// loads, the mma.sync m16n8k16 (bf16 in, f32 accumulate) wrapper, the tile
+// steps built from them (staging, W H from resident blocks or streamed, the
+// ratio Z = X / max(W H, eps), the warp tilings of the 64-deep contraction
+// of Z with a W or H chunk), and the two pass-1 bodies, each over a Walk
+// (simt_tile.cuh says what a Walk gives).
 //
 // The bfloat16 policy is what a bf16 mma computes: W, H and Z rounded to
 // bf16 (nearest even; bf16 state is taken as its bits), each product exact
@@ -348,10 +350,10 @@ __device__ __forceinline__ void stage_rows_vec(const T* p, int r0, int c0, int r
 }
 
 // Stages a ROWS x COLS block of W or H (p, the state dtype) as bf16 into
-// dst [ROWS][LD] (c0 a multiple of 8, clim == stride); PLANE > 0: split3,
-// hi into dst and lo into dst + PLANE.  Neighbouring threads take
-// neighbouring columns (coalesced), in 16-byte vectors where the rows allow
-// (vec_ok), else one element at a time; UNROLL elements a thread in flight
+// dst [ROWS][LD]; PLANE > 0: split3, hi into dst and lo into dst + PLANE.
+// Neighbouring threads take neighbouring columns (coalesced), in 16-byte
+// vectors where the rows and columns allow (vec_ok, and c0 and clim on a
+// vector), else one element at a time; UNROLL elements a thread in flight
 // at once, or VU vectors (4 or 8 elements each; VU = 0: elements only): as
 // many as the registers beside K1/K2's accumulators allow.
 template <int ROWS, int COLS, int LD, int UNROLL, int VU, int PLANE = 0>
@@ -360,7 +362,7 @@ __device__ __forceinline__ void stage_bf16(const Operands& o, const void* p, int
   if (o.state_bf16) {
     const bf16* src = static_cast<const bf16*>(p);
     if constexpr (VU > 0 && WHOLE_PASSES<8, ROWS, COLS>) {
-      if (vec_ok(src, stride, 8)) {
+      if (vec_ok(src, stride, 8) && ((c0 | clim) & 7) == 0) {
         stage_rows_vec<8, ROWS, COLS, LD, VU, PLANE>(src, r0, c0, rlim, clim, stride, dst);
         return;
       }
@@ -372,7 +374,7 @@ __device__ __forceinline__ void stage_bf16(const Operands& o, const void* p, int
   } else {
     const float* src = static_cast<const float*>(p);
     if constexpr (VU > 0 && WHOLE_PASSES<4, ROWS, COLS>) {
-      if (vec_ok(src, stride, 4)) {
+      if (vec_ok(src, stride, 4) && ((c0 | clim) & 3) == 0) {
         stage_rows_vec<4, ROWS, COLS, LD, VU, PLANE>(src, r0, c0, rlim, clim, stride, dst);
         return;
       }
@@ -400,17 +402,17 @@ __device__ __forceinline__ void put_x_vec(const bf16* p, float* d) {
 }
 
 template <int V, typename T>
-__device__ __forceinline__ void stage_x_vec(const Operands& o, const T* p, int m0, int n0,
-                                            float* xs) {
+__device__ __forceinline__ void stage_x_vec(const XSrc& x, float* xs) {
   constexpr int TPR = TILE / V, STEP = THREADS / TPR;
-  const int i = threadIdx.x / TPR, jv = threadIdx.x % TPR * V, gn = n0 + jv;
-  const bool col_in = gn < o.n;  // the whole vector
+  const T* p = static_cast<const T*>(x.p);
+  const int i = threadIdx.x / TPR, jv = threadIdx.x % TPR * V, gc = x.c0 + jv;
+  const bool col_in = gc < x.clim;  // the whole vector
   float* d = xs + i * XS_LD + jv;
 #pragma unroll 2
   for (int s = 0; s < TILE / STEP; ++s) {
-    const int gm = m0 + i + s * STEP;
-    if (col_in && gm < o.m) {
-      put_x_vec(p + gm * o.n + gn, d + s * STEP * XS_LD);
+    const int gr = x.r0 + i + s * STEP;
+    if (col_in && gr < x.rlim) {
+      put_x_vec(p + gr * x.stride + gc, d + s * STEP * XS_LD);
     } else {
 #pragma unroll
       for (int q = 0; q < V / 4; ++q)
@@ -419,29 +421,29 @@ __device__ __forceinline__ void stage_x_vec(const Operands& o, const T* p, int m
   }
 }
 
-// X of the tile at (m0, n0) into xs [TILE][XS_LD] as f32, in its storage's
-// value (uint8 codes dequantized as ratio_tile does, one at a time; with
-// VEC, f32 and bf16 in 16-byte vectors where the rows allow), 0 outside
-// (m, n).  Staged whole before W H, so that no X load is in flight beside
-// the W H accumulators (the ratio's own X loads spilled at KC = 256); two
-// elements a thread in flight (four spilled K2 at KC = 256).
+// The step's X (XSrc) into xs [TILE][XS_LD] as f32, in its storage's value
+// (uint8 codes dequantized, one at a time; with VEC, f32 and bf16 in
+// 16-byte vectors where the rows and columns allow), 0 outside its limits.
+// Staged whole before W H, so that no X load is in flight beside the W H
+// accumulators (the ratio's own X loads spilled at KC = 256); two elements
+// a thread in flight (four spilled K2 at KC = 256).
 template <bool VEC>
-__device__ __forceinline__ void stage_x(const Operands& o, int m0, int n0, float* xs) {
+__device__ __forceinline__ void stage_x(const Operands& o, const XSrc& x, float* xs) {
   if constexpr (VEC) {
-    if (o.x_kind == X_F32 && vec_ok(o.x, o.n, 4))
-      return stage_x_vec<4>(o, static_cast<const float*>(o.x), m0, n0, xs);
-    if (o.x_kind == X_BF16 && vec_ok(o.x, o.n, 8))
-      return stage_x_vec<8>(o, static_cast<const bf16*>(o.x), m0, n0, xs);
+    if (o.x_kind == X_F32 && vec_ok(x.p, x.stride, 4) && ((x.c0 | x.clim) & 3) == 0)
+      return stage_x_vec<4, float>(x, xs);
+    if (o.x_kind == X_BF16 && vec_ok(x.p, x.stride, 8) && ((x.c0 | x.clim) & 7) == 0)
+      return stage_x_vec<8, bf16>(x, xs);
   }
   constexpr int STEP = THREADS / TILE;
-  const int i = threadIdx.x / TILE, gn = n0 + threadIdx.x % TILE;  // neighbours along n
-  const bool col_in = gn < o.n;
+  const int i = threadIdx.x / TILE, gc = x.c0 + threadIdx.x % TILE;  // neighbours along n
+  const bool col_in = gc < x.clim;
   float* d = xs + i * XS_LD + threadIdx.x % TILE;
-  with_x<Mode::BF16>(o, [&](auto x) {
+  with_x<Mode::BF16>(o, x.p, [&](auto src) {
 #pragma unroll 2
     for (int s = 0; s < TILE / STEP; ++s) {
-      const int gm = m0 + i + s * STEP;
-      d[s * STEP * XS_LD] = (col_in && gm < o.m) ? x(gm * o.n + gn, gn) : 0.f;
+      const int gr = x.r0 + i + s * STEP;
+      d[s * STEP * XS_LD] = (col_in && gr < x.rlim) ? src(gr * x.stride + gc, gc) : 0.f;
     }
   });
 }
@@ -466,17 +468,18 @@ __device__ __forceinline__ void recon_resident(const Operands& o, const bf16* a,
 template <bool S3>
 constexpr int STEP_BUF = (S3 ? 2 : 1) * STEP_WORDS;
 
-// The same, streaming W and H through ws/hs (STEP_BUF) RK deep a step:
-// for K above one chunk, where neither block fits.
+// The same, streaming W rows m0.. (below mlim) and H columns n0.. (below
+// nlim) through ws/hs (STEP_BUF) RK deep a step: for K above one chunk,
+// where neither block fits.
 template <bool S3>
-__device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int n0, bf16* ws,
-                                               float (&y)[1][4][4]) {
+__device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int mlim, int n0,
+                                               int nlim, bf16* ws, float (&y)[1][4][4]) {
   constexpr int WP = S3 ? TILE * WS_LD : 0, HP = S3 ? RK * HS_LD : 0;
   bf16* hs = ws + (S3 ? 2 : 1) * TILE * WS_LD;
 #pragma unroll 1
   for (int k0 = 0; k0 < o.k; k0 += RK) {
-    stage_bf16<TILE, RK, WS_LD, RK * TILE / THREADS, 1, WP>(o, o.w, m0, k0, o.m, o.k, o.k, ws);
-    stage_bf16<RK, TILE, HS_LD, RK * TILE / THREADS, 1, HP>(o, o.h, k0, n0, o.k, o.n, o.n, hs);
+    stage_bf16<TILE, RK, WS_LD, RK * TILE / THREADS, 1, WP>(o, o.w, m0, k0, mlim, o.k, o.k, ws);
+    stage_bf16<RK, TILE, HS_LD, RK * TILE / THREADS, 1, HP>(o, o.h, k0, n0, o.k, nlim, o.n, hs);
     __syncthreads();
     const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
     mma_panel<1, 4, false, true, WS_LD, HS_LD, true, 1, WP, HP>(
@@ -520,5 +523,154 @@ template <int R>
 struct WTiling {
   static constexpr int TM = R < 4 ? R : 4, WM = 4 / TM, WN = 8 / WM, TN = 2 * R / WN;
 };
+
+// Loads of the walking W or H block a thread has in flight at once beside
+// the accumulators (KC / 4 elements a thread in all): elements, or 16-byte
+// vectors.  K2's BF16 instances stage one element at a time: their
+// 16-byte loads (of W, H or X) spilled at KC = 256.  SPLIT3's take them,
+// but at R = 4, where they cost the second block an SM (119 -> 153
+// registers) and ran slower.
+constexpr int WALK_UNROLL = 4, WALK_VECTORS = 2;
+
+// K1 pass 1 on the tensor cores (Mode::BF16, and Mode::SPLIT3 with S3):
+// the same walk and partials as h_partial_simt.  Per step: X to xs,
+// Wc = W[st.r0 .., kc0 .. +KC] to wc (bf16 [TILE][KC + BPAD], k contiguous),
+// W H into registers, Z to zs, then acc (KC x TILE) += Wc^T Z over the
+// step's 64 rows (A = Wc^T and B = Z both stored i-major: ldmatrix.trans;
+// each k-step summed apart and added in f32, mma_panel's FRESH, however
+// long the walk).  With one k chunk (K <= KC) Wc is the whole W block of
+// the step, and the block's H columns (walk.res0 ..) stay in shared memory
+// for its whole walk (hr), so W H reads both from shared memory; above it
+// W H streams both per k step.  S3: every staged block (wc, hr or the
+// step, zs) is two planes, hi then lo, and each k-step of W H too is
+// summed apart.
+template <int R, bool S3, typename Walk>
+__device__ __forceinline__ void h_partial_mma(const Operands& o, const Walk& walk) {
+  using L = HTiling<R>;
+  constexpr int KC = 16 * R, WC_LD = KC + BPAD, P = S3 ? 2 : 1;
+  // the lo planes' offsets (0: no split)
+  constexpr int ZP = S3 ? Z_WORDS : 0, WP = S3 ? TILE * WC_LD : 0, HP = S3 ? KC * HS_LD : 0;
+  extern __shared__ float4 smem_raw[];
+  bf16* zs = reinterpret_cast<bf16*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(zs + P * Z_WORDS);
+  bf16* wc = zs + P * Z_WORDS + X_WORDS;
+  bf16* hr = wc + P * TILE * WC_LD;  // [P][KC][HS_LD] resident H, or one streamed step
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  const int kc0 = blockIdx.y * KC;
+  const int steps = walk.steps();
+  const bool resident = o.k <= KC;
+  if (resident)  // read after the first step's __syncthreads
+    stage_bf16<KC, TILE, HS_LD, WALK_UNROLL, WALK_VECTORS, HP>(o, o.h, 0, walk.res0, o.k,
+                                                               walk.res_lim, o.n, hr);
+
+  float acc[L::TM][L::TN][4];
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][u][c] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const WalkStep st = walk.step(t);
+    stage_x<true>(o, st.x, xs);
+    stage_bf16<TILE, KC, WC_LD, WALK_UNROLL, WALK_VECTORS, WP>(o, o.w, st.r0, kc0, st.lim, o.k,
+                                                               o.k, wc);
+    float y[1][4][4] = {};
+    if (resident) {
+      __syncthreads();
+      recon_resident<WC_LD, HS_LD, R >= 8 ? 1 : 2, WP, HP>(o, wc, hr, y);
+    } else {
+      recon_streamed<S3>(o, st.r0, st.lim, walk.res0, walk.res_lim, hr, y);
+    }
+    ratio_z<ZP>(o, y, xs, zs);
+    __syncthreads();
+    mma_panel<L::TM, L::TN, true, true, WC_LD, ZS_LD, true, 1, WP, ZP>(
+        acc, wc + 16 * L::TM * wm, zs + 8 * L::TN * wn, TILE);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gk = kc0 + 16 * (L::TM * wm + t) + (lane >> 2) + 8 * (c >> 1);
+        const int gn = walk.out0 + 8 * (L::TN * wn + u) + 2 * (lane & 3) + (c & 1);
+        if (gk < o.k && gn < walk.out_lim) walk.out[(size_t)gk * walk.ld + gn] = acc[t][u][c];
+      }
+}
+
+// K2 pass 1 on the tensor cores.  Per step: X to xs, Hc = H[kc0 .. +KC,
+// st.r0 ..] to hc (bf16 [KC][TILE + BPAD], n contiguous), W H, Z, then
+// acc (TILE x KC) += Z Hc^T over the step's 64 columns (A = Z and B = Hc^T
+// both stored with the contraction axis contiguous: plain ldmatrix; FRESH,
+// as K1).  With one k chunk Hc is the step's whole H block, and the
+// block's W rows (walk.res0 ..) stay in shared memory for its walk (wr).
+// S3: two planes each, as K1.
+template <int R, bool S3, typename Walk>
+__device__ __forceinline__ void w_partial_mma(const Operands& o, const Walk& walk) {
+  using L = WTiling<R>;
+  constexpr int KC = 16 * R, HC_LD = TILE + BPAD, WR_LD = KC + BPAD, P = S3 ? 2 : 1;
+  constexpr int ZP = S3 ? Z_WORDS : 0, HP = S3 ? KC * HC_LD : 0, WP = S3 ? TILE * WR_LD : 0;
+  constexpr bool VEC = S3 && R != 4;  // 16-byte staging loads (above)
+  constexpr int VU = VEC ? WALK_VECTORS : 0;
+  extern __shared__ float4 smem_raw[];
+  bf16* zs = reinterpret_cast<bf16*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(zs + P * Z_WORDS);
+  bf16* hc = zs + P * Z_WORDS + X_WORDS;
+  bf16* wr = hc + P * KC * HC_LD;  // [P][TILE][WR_LD] resident W, or one streamed step
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  const int kc0 = blockIdx.y * KC;
+  const int steps = walk.steps();
+  const bool resident = o.k <= KC;
+  if (resident)
+    stage_bf16<TILE, KC, WR_LD, WALK_UNROLL, VU, WP>(o, o.w, walk.res0, 0, walk.res_lim, o.k,
+                                                     o.k, wr);
+
+  float acc[L::TM][L::TN][4];
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][u][c] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const WalkStep st = walk.step(t);
+    stage_x<VEC>(o, st.x, xs);
+    stage_bf16<KC, TILE, HC_LD, WALK_UNROLL, VU, HP>(o, o.h, kc0, st.r0, o.k, st.lim, o.n, hc);
+    float y[1][4][4] = {};
+    if (resident) {
+      __syncthreads();
+      recon_resident<WR_LD, HC_LD, R >= 8 ? 1 : 2, WP, HP>(o, wr, hc, y);
+    } else {
+      recon_streamed<S3>(o, walk.res0, walk.res_lim, st.r0, st.lim, wr, y);
+    }
+    ratio_z<ZP>(o, y, xs, zs);
+    __syncthreads();
+    mma_panel<L::TM, L::TN, false, false, ZS_LD, HC_LD, true, 1, ZP, HP>(
+        acc, zs + 16 * L::TM * wm * ZS_LD, hc + 8 * L::TN * wn * HC_LD, TILE);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int t = 0; t < L::TM; ++t)
+#pragma unroll
+    for (int u = 0; u < L::TN; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gm = walk.out0 + 16 * (L::TM * wm + t) + (lane >> 2) + 8 * (c >> 1);
+        const int gk = kc0 + 8 * (L::TN * wn + u) + 2 * (lane & 3) + (c & 1);
+        if (gm < walk.out_lim && gk < o.k) walk.out[(size_t)gm * o.k + gk] = acc[t][u][c];
+      }
+}
 
 }  // namespace

@@ -1,12 +1,12 @@
 // Device code shared by the kernels of csrc/*.cu: the tile constants, the
-// operand modes, and the recon and ratio steps of one 64 x 64 tile.
+// operand modes, the sources a pass-1 walk stages from, and K3's recon of
+// one 64 x 64 tile.
 //
-// K3 (fused_mu.cu) and K5 (tile_sparse.cu) both form Y = W H for a 64 x 64
-// tile in registers (recon_tile) and, K5, Z = X / max(Y, eps) into shared
-// memory (ratio_tile), staged per Mode; K1/K2 stage their own
-// (simt_tile.cuh, mma_tile.cuh) by the same Modes and rules.  Everything
-// here sits in an anonymous namespace, so each translation unit compiles
-// its own copy.
+// K3 (fused_mu.cu) forms Y = W H for a 64 x 64 tile in registers
+// (recon_tile); K1/K2's pass 1 and K5 (tile_sparse.cu), which runs the same
+// pass 1 over a sweep plan (pass1.cuh), stage their own (simt_tile.cuh,
+// mma_tile.cuh) by the same Modes and rules.  Everything here sits in an
+// anonymous namespace, so each translation unit compiles its own copy.
 
 #pragma once
 
@@ -28,11 +28,11 @@ enum Gemm { GEMM_F32 = 0, GEMM_SPLIT3 = 1, GEMM_BF16 = 2 };
 // How a kernel stages its operands, fixed at compile time.  F32: W, H and X
 // are f32 and the GEMM takes them as they are (the main path).  ANY: the
 // state dtype, the X storage and bf16 rounding are runtime choices, each
-// taken once per staging loop.  SPLIT3:
-// as ANY, with each operand split into a bf16 (hi, lo) pair (K5 on the SIMT
-// units, below; K1/K2 on the tensor cores, mma_tile.cuh).  Sharing the
-// runtime choices cost the f32 path 47% at 10240^2, K=256 on an H100 (more
-// code and over 128 registers: one block an SM), hence its own instances.
+// taken once per staging loop.  SPLIT3 and BF16: the float32_fast and
+// bfloat16 GEMM policies on the tensor cores (mma_tile.cuh), every state
+// dtype and X storage.  Sharing the runtime choices cost the f32 path 47%
+// at 10240^2, K=256 on an H100 (more code and over 128 registers: one block
+// an SM), hence its own instances.
 enum class Mode { F32, ANY, SPLIT3, BF16 };
 
 // The operands and modes of one call, passed by value to every kernel.
@@ -47,48 +47,6 @@ struct Operands {
   int round_bf16;        // GEMM inputs rounded to bf16 (bfloat16 policy)
   float eps;
 };
-
-// A staged GEMM operand: an f32 value, or under split3 a bf16 (hi, lo)
-// pair in the same 4 bytes, so the shared memory is the same in every mode.
-template <bool S3>
-struct Staged {
-  using T = float;
-};
-template <>
-struct Staged<true> {
-  using T = __nv_bfloat162;
-};
-static_assert(sizeof(__nv_bfloat162) == sizeof(float), "staging is 4 bytes");
-template <Mode MODE>
-using StagedT = typename Staged<MODE == Mode::SPLIT3>::T;
-
-// The same operand in registers, ready for the FMAs.
-template <bool S3>
-struct Val {
-  float v;
-  __device__ __forceinline__ void load(float e) { v = e; }
-};
-template <>
-struct Val<true> {
-  float hi, lo;
-  __device__ __forceinline__ void load(__nv_bfloat162 e) {
-    hi = __low2float(e);
-    lo = __high2float(e);
-  }
-};
-
-__device__ __forceinline__ float mac(const Val<false>& a, const Val<false>& b,
-                                     float acc) {
-  return fmaf(a.v, b.v, acc);
-}
-
-// hi*bh + hi*bl + lo*bh: _kdot's three passes, per pair of operands
-__device__ __forceinline__ float mac(const Val<true>& a, const Val<true>& b,
-                                     float acc) {
-  acc = fmaf(a.hi, b.hi, acc);
-  acc = fmaf(a.hi, b.lo, acc);
-  return fmaf(a.lo, b.hi, acc);
-}
 
 __device__ __forceinline__ float clamp_eps(float v, float eps) {
   return v < eps ? eps : v;  // keeps NaN, like the reference's `a < EPS`
@@ -114,8 +72,8 @@ struct U8In {  // uint8 codes, dequantized in register: float(q) * scale[col]
   }
 };
 
-// Staging rules of a GEMM operand: as it is, rounded to bf16 (nearest
-// even), or split into a bf16 (hi, lo) pair.
+// Staging rules of a GEMM operand: as it is, or rounded to bf16 (nearest
+// even).
 struct AsIs {
   __device__ __forceinline__ float operator()(float v) const { return v; }
 };
@@ -124,21 +82,12 @@ struct RoundBf16 {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
-struct Split3 {
-  __device__ __forceinline__ __nv_bfloat162 operator()(float v) const {
-    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-    return __halves2bfloat162(hi, __float2bfloat16_rn(v - __bfloat162float(hi)));
-  }
-};
-
 // The runtime modes are taken once per staging loop, before it: these call
 // body(...) with the source and the rule as types.  (A branch per element,
 // copied into every unrolled staging loop, doubled the kernels' code.)
 template <Mode MODE, typename Body>
 __device__ __forceinline__ void with_rule(const Operands& o, Body&& body) {
-  if constexpr (MODE == Mode::SPLIT3) {
-    body(Split3{});
-  } else if constexpr (MODE == Mode::F32) {
+  if constexpr (MODE == Mode::F32) {
     body(AsIs{});
   } else {
     if (o.round_bf16) body(RoundBf16{}); else body(AsIs{});
@@ -152,27 +101,46 @@ __device__ __forceinline__ void with_state(const void* p, const Operands& o, Bod
   if constexpr (MODE == Mode::F32) {
     body(F32In{static_cast<const float*>(p)}, AsIs{});
   } else if (o.state_bf16) {
-    const Bf16In src{static_cast<const __nv_bfloat16*>(p)};
-    if constexpr (MODE == Mode::SPLIT3) body(src, Split3{}); else body(src, AsIs{});
+    body(Bf16In{static_cast<const __nv_bfloat16*>(p)}, AsIs{});
   } else {
     const F32In src{static_cast<const float*>(p)};
     with_rule<MODE>(o, [&](auto rule) { body(src, rule); });
   }
 }
 
-// body(src) for X.
+// body(src) for X at p (in the storage o.x_kind names), or at o.x.
 template <Mode MODE, typename Body>
-__device__ __forceinline__ void with_x(const Operands& o, Body&& body) {
+__device__ __forceinline__ void with_x(const Operands& o, const void* p, Body&& body) {
   if constexpr (MODE == Mode::F32) {
-    body(F32In{static_cast<const float*>(o.x)});
+    body(F32In{static_cast<const float*>(p)});
   } else {
     switch (o.x_kind) {
-      case X_BF16: body(Bf16In{static_cast<const __nv_bfloat16*>(o.x)}); break;
-      case X_U8: body(U8In{static_cast<const uint8_t*>(o.x), o.scales}); break;
-      default: body(F32In{static_cast<const float*>(o.x)});
+      case X_BF16: body(Bf16In{static_cast<const __nv_bfloat16*>(p)}); break;
+      case X_U8: body(U8In{static_cast<const uint8_t*>(p), o.scales}); break;
+      default: body(F32In{static_cast<const float*>(p)});
     }
   }
 }
+template <Mode MODE, typename Body>
+__device__ __forceinline__ void with_x(const Operands& o, Body&& body) {
+  with_x<MODE>(o, o.x, body);
+}
+
+// Where one step of a pass-1 walk reads its 64 x 64 tile of X: element
+// (r, c) is p[(r0 + r) * stride + c0 + c] (column c0 + c for the scales of
+// uint8 codes), 0 where r0 + r >= rlim or c0 + c >= clim.
+struct XSrc {
+  const void* p;
+  int stride, r0, c0, rlim, clim;
+};
+
+// One step of a pass-1 walk: the walked operand's 64 rows of W (K1's side)
+// or 64 columns of H (K2's side) from r0, staged as 0 from lim on, and the
+// step's X.
+struct WalkStep {
+  int r0, lim;
+  XSrc x;
+};
 
 // 16-byte vectors of a row-major array p of row stride `stride`: possible
 // when p and every row start on 16 bytes (v elements), so that a vector at
@@ -181,15 +149,13 @@ __device__ __forceinline__ bool vec_ok(const void* p, int stride, int v) {
   return stride % v == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Phase A: s[r][c] = sum_k W[m0 + ty + 16 r, k] * H[k, n0 + tx + 16 c] over
-// all k < K, out-of-range rows, columns and k read as 0, each operand staged
-// in the GEMM mode.  ws holds the W slice transposed ([KS][TILE + 1]), hs
-// the H slice ([KS][TILE]).
+// K3's recon: s[r][c] = sum_k W[m0 + ty + 16 r, k] * H[k, n0 + tx + 16 c]
+// over all k < K, out-of-range rows, columns and k read as 0, each operand
+// staged by the mode's rule (F32 or ANY).  ws holds the W slice transposed
+// ([KS][TILE + 1]), hs the H slice ([KS][TILE]).
 template <Mode MODE>
-__device__ __forceinline__ void recon_tile(const Operands& o, int m0, int n0,
-                                           StagedT<MODE>* ws, StagedT<MODE>* hs,
-                                           float s[4][4]) {
-  constexpr bool S3 = MODE == Mode::SPLIT3;
+__device__ __forceinline__ void recon_tile(const Operands& o, int m0, int n0, float* ws,
+                                           float* hs, float s[4][4]) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -213,48 +179,18 @@ __device__ __forceinline__ void recon_tile(const Operands& o, int m0, int n0,
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      Val<S3> a[4], b[4];
+      float a[4], b[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r].load(ws[kk * WS_STRIDE + ty + 16 * r]);
+      for (int r = 0; r < 4; ++r) a[r] = ws[kk * WS_STRIDE + ty + 16 * r];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) b[c].load(hs[kk * TILE + tx + 16 * c]);
+      for (int c = 0; c < 4; ++c) b[c] = hs[kk * TILE + tx + 16 * c];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = mac(a[r], b[c], s[r][c]);
+        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
     }
     __syncthreads();
   }
-}
-
-// Z = X / clamp(W H) for the tile into zs ([TILE][TILE + 1]), staged in the
-// GEMM mode.  Positions outside (m, n) have X = 0 and W H = 0, so Z = 0 /
-// eps = 0 there exactly.  s is overwritten with Z.
-template <Mode MODE>
-__device__ __forceinline__ void ratio_tile(const Operands& o, int m0, int n0,
-                                           float s[4][4], StagedT<MODE>* zs) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  with_x<MODE>(o, [&](auto x) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gm = m0 + ty + 16 * r, gn = n0 + tx + 16 * c;
-        const float xv = (gm < o.m && gn < o.n) ? x((size_t)gm * o.n + gn, gn) : 0.f;
-        s[r][c] = xv / clamp_eps(s[r][c], o.eps);
-      }
-  });
-  with_rule<MODE>(o, [&](auto rule) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        zs[(ty + 16 * r) * (TILE + 1) + tx + 16 * c] = rule(s[r][c]);
-  });
-}
-
-constexpr size_t staging_words() {
-  return (size_t)KS * WS_STRIDE + (size_t)KS * TILE + (size_t)TILE * (TILE + 1);
 }
 
 // The operands of a call, or an error for a mode the kernels do not have.

@@ -1,6 +1,6 @@
-// SIMT pieces of K1/K2's pass 1 under f32 GEMMs (Mode::F32 and Mode::ANY
-// in fused_mu.cu), staged for Hopper's shared memory and its asynchronous
-// copies.  The float32 policy has no tensor-core form (TF32 keeps ~10 bits),
+// SIMT pieces of K1/K2's pass 1 under f32 GEMMs (Mode::F32 and Mode::ANY;
+// fused_mu.cu, and K5 in tile_sparse.cu through pass1.cuh), staged for
+// Hopper's shared memory and its asynchronous copies.  The float32 policy has no tensor-core form (TF32 keeps ~10 bits),
 // so both products of a tile run as true IEEE f32 FMAs on the SIMT units.
 //
 // What bounds them.  One warp-FMA a clock on each of an SM's four
@@ -37,6 +37,14 @@
 // over the tile's 64 rows (K1) or columns (K2) ascending, padding included;
 // the walk and the split are the planner's.  So every result equals the
 // earlier kernels' bit for bit.
+//
+// The walk.  A body takes its steps from a Walk (pass1.cuh): K1/K2's dense
+// walk over a run of M or N tiles, or K5's over the sub-tiles of a piece of
+// a sweep plan (tile_sparse.cu).  Walk gives steps() and step(t) (a
+// WalkStep: the walked W rows or H columns and their limit, the step's X),
+// res0 and res_lim (the resident H columns or W rows and their limit), and
+// the partial: out, ld (K1's row stride), out0 and out_lim (the block's
+// first output column (K1) or row (K2) and the limit).
 
 #pragma once
 
@@ -91,14 +99,15 @@ __device__ __forceinline__ void cp_wait(int n) {
 
 // Element (r, c) of a ROWS x COLS block into dst [ROWS][LD]: src at
 // (r0 + r) * stride + c0 + c, or 0 where r0 + r >= rlim or c0 + c >= clim.
-// An f32 source is copied by cp.async (in flight until waited for), any
-// other widened in register and stored.
+// An f32 source is copied by cp.async (in flight until waited for; 16
+// bytes a copy where p, stride and c0 allow it), any other widened in
+// register and stored.
 template <int ROWS, int COLS, int LD, typename Src>
 __device__ __forceinline__ void stage(Src src, int r0, int c0, int rlim, int clim, int stride,
                                       float* dst) {
   if constexpr (std::is_same<Src, F32In>::value) {
     const float* p = src.p;
-    if (vec_ok(p, stride, 4)) {  // c0 is a multiple of 4: a run never leaves its row
+    if (vec_ok(p, stride, 4) && (c0 & 3) == 0) {  // a run never leaves its row
       constexpr int CPR = COLS / 4, STEP = THREADS / CPR;
       static_assert(COLS % 4 == 0 && THREADS % CPR == 0, "whole rows of 16-byte runs");
       const int cv = 4 * (threadIdx.x % CPR), gc = c0 + cv;
@@ -124,23 +133,26 @@ __device__ __forceinline__ void stage(Src src, int r0, int c0, int rlim, int cli
   }
 }
 
-// W (rows m0.., columns k0..) or H (rows k0.., columns n0..) in the state
-// dtype, and X of the tile, staged by stage(); f32 GEMMs, so no rounding.
+// W (rows r0.. below rlim, columns k0..) or H (rows k0.., columns c0..
+// below clim) in the state dtype, and a step's X, staged by stage(); f32
+// GEMMs, so no rounding.
 template <Mode MODE, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void stage_w(const Operands& o, int m0, int k0, float* dst) {
+__device__ __forceinline__ void stage_w(const Operands& o, int r0, int k0, int rlim, float* dst) {
   with_state<MODE>(o.w, o, [&](auto w, auto) {
-    stage<ROWS, COLS, LD>(w, m0, k0, o.m, o.k, o.k, dst);
+    stage<ROWS, COLS, LD>(w, r0, k0, rlim, o.k, o.k, dst);
   });
 }
 template <Mode MODE, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void stage_h(const Operands& o, int k0, int n0, float* dst) {
+__device__ __forceinline__ void stage_h(const Operands& o, int k0, int c0, int clim, float* dst) {
   with_state<MODE>(o.h, o, [&](auto h, auto) {
-    stage<ROWS, COLS, LD>(h, k0, n0, o.k, o.n, o.n, dst);
+    stage<ROWS, COLS, LD>(h, k0, c0, o.k, clim, o.n, dst);
   });
 }
 template <Mode MODE>
-__device__ __forceinline__ void stage_xs(const Operands& o, int m0, int n0, float* xs) {
-  with_x<MODE>(o, [&](auto x) { stage<TILE, TILE, SLD>(x, m0, n0, o.m, o.n, o.n, xs); });
+__device__ __forceinline__ void stage_xs(const Operands& o, const XSrc& x, float* xs) {
+  with_x<MODE>(o, x.p, [&](auto src) {
+    stage<TILE, TILE, SLD>(src, x.r0, x.c0, x.rlim, x.clim, x.stride, xs);
+  });
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -208,17 +220,19 @@ __device__ __forceinline__ void recon_groups(const float* a, const float* b, int
   }
 }
 
-// W H with both operands streamed RS deep a step through buf (K > KC).
-// Ends synchronised with every copy group in.
+// W H with both operands streamed RS deep a step through buf (K > KC): W
+// rows m0.. below mlim, H columns n0.. below nlim.  Ends synchronised with
+// every copy group in.
 template <Mode MODE>
-__device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int n0, int depth,
-                                               float* buf, float (&s)[4][4]) {
+__device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int mlim, int n0,
+                                               int nlim, int depth, float* buf,
+                                               float (&s)[4][4]) {
   constexpr int LDA = RS + 4;
   float* hs = buf + TILE * LDA;
 #pragma unroll 1
   for (int k0 = 0; k0 < depth; k0 += RS) {
-    stage_w<MODE, TILE, RS, LDA>(o, m0, k0, buf);
-    stage_h<MODE, RS, TILE, SLD>(o, k0, n0, hs);
+    stage_w<MODE, TILE, RS, LDA>(o, m0, k0, mlim, buf);
+    stage_h<MODE, RS, TILE, SLD>(o, k0, n0, nlim, hs);
     cp_commit();
     cp_wait<0>();
     __syncthreads();
@@ -366,26 +380,23 @@ constexpr size_t simt_smem_words() {
   return (size_t)16 * R * SLD + (size_t)TILE * (16 * R + 4) + 2 * (size_t)TILE * SLD;
 }
 
-// K1 pass 1 (SIMT): block (n tile, k chunk, split) walks its run of M
-// tiles; per tile X and W rows staged (X of the next tile already in
-// flight during this one's contraction), W H, Z, then acc (KC x TILE) +=
-// Wc^T Z; the raw partial to part[split][k][n].
-template <int R, Mode MODE>
-__device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restrict__ part,
-                                               int tiles_per_split) {
+// K1 pass 1 (SIMT): the block's walk (its 64 columns, a k chunk); per step
+// X and W rows staged (X of the next step already in flight during this
+// one's contraction), W H, Z, then acc (KC x TILE) += Wc^T Z; the raw
+// partial to walk.out[k][out0 ..].
+template <int R, Mode MODE, typename Walk>
+__device__ __forceinline__ void h_partial_simt(const Operands& o, const Walk& walk) {
   static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
   constexpr int KC = 16 * R, LDW = KC + 4, NG = KC > KSL ? KC / KSL : 1, GW = KC / NG;
   using L = HRuns<R>;
   extern __shared__ float4 smem_raw[];
   float* hr = reinterpret_cast<float*>(smem_raw);  // [KC][SLD] resident H, or W H's steps
-  float* wt = hr + KC * SLD;                        // [TILE][LDW] the tile's W, this chunk
+  float* wt = hr + KC * SLD;                        // [TILE][LDW] the step's W, this chunk
   float* zs = wt + TILE * LDW;
   float* xs = zs + TILE * SLD;
 
-  const int n0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int m_tiles = (o.m + TILE - 1) / TILE;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, m_tiles);
+  const int kc0 = blockIdx.y * KC;
+  const int steps = walk.steps();
   const bool resident = R < 16 || o.k <= KC;  // the planner's chunk covers K below 256
   const int depth = (o.k + 3) & ~3;            // staged k past K are zeros
 
@@ -395,35 +406,34 @@ __device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restr
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
-  if (t_begin < t_end) {
-    if (resident) stage_h<MODE, KC, TILE, SLD>(o, 0, n0, hr);
-    stage_xs<MODE>(o, t_begin * TILE, n0, xs);
+  if (steps > 0) {
+    if (resident) stage_h<MODE, KC, TILE, SLD>(o, 0, walk.res0, walk.res_lim, hr);
+    stage_xs<MODE>(o, walk.step(0).x, xs);
     cp_commit();
   }
 #pragma unroll 1
-  for (int t = t_begin; t < t_end; ++t) {
-    const int m0 = t * TILE;
+  for (int t = 0; t < steps; ++t) {
+    const WalkStep st = walk.step(t);
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      stage_w<MODE, TILE, GW, LDW>(o, m0, kc0 + g * GW, wt + g * GW);
+      stage_w<MODE, TILE, GW, LDW>(o, st.r0, kc0 + g * GW, st.lim, wt + g * GW);
       cp_commit();
     }
     float s[4][4] = {};
     if (resident)
       recon_groups<NG, LDW, (R > 2)>(wt, hr, depth, s);
     else
-      recon_streamed<MODE>(o, m0, n0, depth, hr, s);
+      recon_streamed<MODE>(o, st.r0, st.lim, walk.res0, walk.res_lim, depth, hr, s);
     ratio_f32(o.eps, s, xs, zs);
     __syncthreads();  // Z in; X read
-    if (t + 1 < t_end) {
-      stage_xs<MODE>(o, m0 + TILE, n0, xs);
+    if (t + 1 < steps) {
+      stage_xs<MODE>(o, walk.step(t + 1).x, xs);
       cp_commit();
     }
     contract_h<R, LDW>(wt, zs, acc);
     __syncthreads();  // W and Z read
   }
 
-  float* dst = part + (size_t)blockIdx.z * o.k * o.n;
   const int ty = grid_ty(), tx = grid_tx();
 #pragma unroll
   for (int q = 0; q < L::NQ; ++q)
@@ -431,29 +441,26 @@ __device__ __forceinline__ void h_partial_simt(const Operands& o, float* __restr
     for (int e = 0; e < L::KR; ++e)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int gk = kc0 + L::KR * ty + 16 * L::KR * q + e, gn = n0 + 4 * tx + c;
-        if (gk < o.k && gn < o.n) dst[(size_t)gk * o.n + gn] = acc[q * L::KR + e][c];
+        const int gk = kc0 + L::KR * ty + 16 * L::KR * q + e, gn = walk.out0 + 4 * tx + c;
+        if (gk < o.k && gn < walk.out_lim) walk.out[(size_t)gk * walk.ld + gn] = acc[q * L::KR + e][c];
       }
 }
 
-// K2 pass 1 (SIMT): block (m tile, k chunk, split) walks its run of N
-// tiles; per tile X and H columns staged, W H, Z, then acc (TILE x KC) +=
-// Z Hc^T; the raw partial to part[split][m][k].
-template <int R, Mode MODE>
-__device__ __forceinline__ void w_partial_simt(const Operands& o, float* __restrict__ part,
-                                               int tiles_per_split) {
+// K2 pass 1 (SIMT): the block's walk (its 64 rows, a k chunk); per step X
+// and H columns staged, W H, Z, then acc (TILE x KC) += Z Hc^T; the raw
+// partial to walk.out[out0 ..][k].
+template <int R, Mode MODE, typename Walk>
+__device__ __forceinline__ void w_partial_simt(const Operands& o, const Walk& walk) {
   static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
   constexpr int KC = 16 * R, LDW = KC + 4, NG = KC > KSL ? KC / KSL : 1, GW = KC / NG;
   extern __shared__ float4 smem_raw[];
   float* wr = reinterpret_cast<float*>(smem_raw);  // [TILE][LDW] resident W, or W H's steps
-  float* ht = wr + TILE * LDW;                      // [KC][SLD] the tile's H, this chunk
+  float* ht = wr + TILE * LDW;                      // [KC][SLD] the step's H, this chunk
   float* zs = ht + KC * SLD;
   float* xs = zs + TILE * SLD;
 
-  const int m0 = blockIdx.x * TILE, kc0 = blockIdx.y * KC;
-  const int n_tiles = (o.n + TILE - 1) / TILE;
-  const int t_begin = blockIdx.z * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int kc0 = blockIdx.y * KC;
+  const int steps = walk.steps();
   const bool resident = R < 16 || o.k <= KC;
   const int depth = (o.k + 3) & ~3;
 
@@ -463,42 +470,41 @@ __device__ __forceinline__ void w_partial_simt(const Operands& o, float* __restr
 #pragma unroll
     for (int c = 0; c < R; ++c) acc[r][c] = 0.f;
 
-  if (t_begin < t_end) {
-    if (resident) stage_w<MODE, TILE, KC, LDW>(o, m0, 0, wr);
-    stage_xs<MODE>(o, m0, t_begin * TILE, xs);
+  if (steps > 0) {
+    if (resident) stage_w<MODE, TILE, KC, LDW>(o, walk.res0, 0, walk.res_lim, wr);
+    stage_xs<MODE>(o, walk.step(0).x, xs);
     cp_commit();
   }
 #pragma unroll 1
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * TILE;
+  for (int t = 0; t < steps; ++t) {
+    const WalkStep st = walk.step(t);
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      stage_h<MODE, GW, TILE, SLD>(o, kc0 + g * GW, n0, ht + g * GW * SLD);
+      stage_h<MODE, GW, TILE, SLD>(o, kc0 + g * GW, st.r0, st.lim, ht + g * GW * SLD);
       cp_commit();
     }
     float s[4][4] = {};
     if (resident)
       recon_groups<NG, LDW, (R > 2)>(wr, ht, depth, s);
     else
-      recon_streamed<MODE>(o, m0, n0, depth, wr, s);
+      recon_streamed<MODE>(o, walk.res0, walk.res_lim, st.r0, st.lim, depth, wr, s);
     ratio_f32(o.eps, s, xs, zs);
     __syncthreads();
-    if (t + 1 < t_end) {
-      stage_xs<MODE>(o, m0, n0 + TILE, xs);
+    if (t + 1 < steps) {
+      stage_xs<MODE>(o, walk.step(t + 1).x, xs);
       cp_commit();
     }
     contract_w<R>(zs, ht, acc);
     __syncthreads();
   }
 
-  float* dst = part + (size_t)blockIdx.z * o.m * o.k;
   const int ty = grid_ty(), tx = grid_tx();
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < R; ++c) {
-      const int gm = m0 + ty + 16 * r, gk = kc0 + tx + 16 * c;
-      if (gm < o.m && gk < o.k) dst[(size_t)gm * o.k + gk] = acc[r][c];
+      const int gm = walk.out0 + ty + 16 * r, gk = kc0 + tx + 16 * c;
+      if (gm < walk.out_lim && gk < o.k) walk.out[(size_t)gm * o.k + gk] = acc[r][c];
     }
 }
 

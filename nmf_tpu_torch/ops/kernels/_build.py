@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles each source (``fused_mu.cu``: K1-K3, with the
-tensor-core pieces of ``mma_tile.cuh`` and the SIMT f32-GEMM pass 1 of
-``simt_tile.cuh``; ``tile_sparse.cu``: K5; both
-include ``mu_tile.cuh``) into an object, all at once in parallel,
+``nvcc`` compiles each source (``fused_mu.cu``: K1-K3; ``tile_sparse.cu``:
+K5; both include ``pass1.cuh``, K1/K2's pass 1 for a dense walk or a sweep
+plan's, built from the tensor-core pieces of ``mma_tile.cuh``, the SIMT
+f32-GEMM pieces of ``simt_tile.cuh`` and ``mu_tile.cuh``) into an object,
+all at once in parallel,
 and links them into one shared library with a plain C interface at first
 use, under ``build/nmf_tpu_torch/<hash>/`` beside the package (the hash
 covers the sources, the headers and the flags, so an edit rebuilds);
@@ -26,7 +27,8 @@ __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 _PKG = pathlib.Path(__file__).resolve().parents[2]   # nmf_tpu_torch/
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "tile_sparse.cu")
-_HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh", _CSRC / "simt_tile.cuh")
+_HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh", _CSRC / "simt_tile.cuh",
+            _CSRC / "pass1.cuh")
 _LIB_NAME = "libnmf_kernels.so"
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no fast math:
@@ -56,10 +58,15 @@ _SIGNATURES = {
     # w, h, x, scales, partials, out; m, n, k; eps; state_bf16, x_kind,
     # gemm, device; stream
     "nmf_kl_cost": ([_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),
-    # w, h, tiles, perm, rb, cb, out; mp, np, k, bm, bn, n_tiles, steps, kc;
-    # eps; state_bf16, x_kind, gemm, device; stream
-    "nmf_h_sweep": ([_P] * 7 + [_I] * 8 + [_F] + [_I] * 4 + [_P], _I),
-    "nmf_w_sweep": ([_P] * 7 + [_I] * 8 + [_F] + [_I] * 4 + [_P], _I),
+    # w, h, tiles, perm, rb, cb, part, out; mp, np, k, bm, bn, n_tiles,
+    # steps, per, kc; eps; state_bf16, x_kind, gemm, device; stream
+    "nmf_h_sweep": ([_P] * 8 + [_I] * 9 + [_F] + [_I] * 4 + [_P], _I),
+    "nmf_w_sweep": ([_P] * 8 + [_I] * 9 + [_F] + [_I] * 4 + [_P], _I),
+    # K5's H target (1) or W target (0), Mode: pass-1 launches and info, as
+    # K1/K2's
+    "nmf_sweep_launches": ([_I, _I], _I),
+    "nmf_reset_sweep_launches": ([], None),
+    "nmf_sweep_info": ([_I, _I, _I, _P], _I),
 }
 
 

@@ -14,6 +14,23 @@ GEMMs in ``float32``, ``float32_fast`` (split3) or ``bfloat16``.  Per-tile
 uint8 codes are not a mode of the kernel in either package: the solver
 sends them to :func:`sweep_plain` on dequantized tiles.
 
+On the card K5 runs K1's (H) or K2's (W) pass 1 over the plan: under
+``bfloat16`` and ``float32_fast`` on the tensor cores, under ``float32``
+on the SIMT units.  Its pass 1 cuts the plan into chunks of ``per``
+consecutive entries, each cut again where the output block changes, and
+runs one block per piece, 64-wide slice of the output block and K chunk;
+each writes a raw f32 partial to its slot, and pass 2 sums each output
+block's partials in plan order.  :func:`sweep_split` gives ``per`` and the
+slot count from sizes the host knows without reading the plan (``steps``,
+``n_out``, the slices, the K chunks): the largest ``per``, up to the mean
+run length ``ceil(steps / n_out)``, at which the expected pieces
+(``steps / per`` chunks, and the ``n_out (per - 1) / per`` runs that start
+inside one) still launch ``SWEEP_BLOCKS`` = 264 working blocks, two an SM
+of an H100 (3 at the main 8192^2 shape: about 300 blocks); and
+``ceil(steps / per) + n_out`` slots.  The wrapper allocates the partials
+from torch's caching allocator, ``slots * K * bn`` (H) or ``slots * bm *
+K`` (W) f32, and never reads the plan back to the host.
+
 Each wrapper takes its plain version (:func:`sweep_plain`) only when its
 tensors lie on the CPU.  For CUDA tensors it launches K5 or raises: there
 is no fallback on a failed build or launch.  Above the rank ceiling
@@ -38,6 +55,7 @@ from ..elementwise import eps_clamp
 from ..mu import matmul
 from .fused_mu import (
     MAX_FUSED_K,
+    TILE,
     _GEMM,
     _STATE_BF16,
     _check_2d,
@@ -55,6 +73,7 @@ __all__ = [
     "SweepLayout",
     "reset_counts",
     "supported",
+    "sweep_split",
     "sweep_plan",
     "sweep_layout",
     "sweep_plain",
@@ -66,6 +85,14 @@ __all__ = [
 # sent to the plain version on the card by the rank rule.
 LAUNCHES: Dict[str, int] = {"h_numerator": 0, "w_numerator": 0}
 PLAIN_CALLS: Dict[str, int] = {"h_numerator": 0, "w_numerator": 0}
+
+# Working pass-1 blocks K5 aims for: two an SM of a 132-SM H100.  A fixed
+# number, not read from the card, so the split (and the bits) depend on the
+# plan's sizes alone.  At the 8192^2 K=128 main shape 3 entries a chunk
+# (~300 blocks) ran as fast as 1 (~640) or faster (to 25%) in every mode
+# but f32's W target (6% slower), and 2 (~390) and 4 (~256) ran slower
+# (probe_timings.py sweep-per on an H100; PERF.md section 6).
+SWEEP_BLOCKS = 2 * 132
 
 _F32 = torch.float32
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,6 +108,22 @@ def reset_counts() -> None:
 def supported(k: int) -> bool:
     """Whether K5 takes rank ``k``: the rank rule shared with K1/K2."""
     return k <= MAX_FUSED_K
+
+
+def sweep_split(steps: int, n_out: int, slices: int, k_chunks: int) -> Tuple[int, int]:
+    """``(per, slots)`` of K5's pass 1: plan entries a chunk, and partial
+    slots (one a chunk, and one an output block for a piece that starts a
+    run inside a chunk).  ``slices`` are the 64-wide slices of an output
+    block, ``k_chunks`` the K chunks: a fixed rule on the shape, not read
+    from the card or the plan.  ``per`` is the largest, up to the mean run
+    ``ceil(steps / n_out)``, with ``(steps + n_out (per - 1)) * slices *
+    k_chunks >= SWEEP_BLOCKS * per`` (the expected pieces' blocks)."""
+    per = -(-steps // max(n_out, 1))
+    spare = SWEEP_BLOCKS - n_out * slices * k_chunks
+    if spare > 0:
+        per = min(per, (steps - n_out) * slices * k_chunks // spare)
+    per = max(1, per)
+    return per, -(-steps // per) + n_out
 
 
 def sweep_plan(
@@ -235,14 +278,18 @@ def _sweep(target: str, w, h, tiles, perm, rb, cb, eps, precision):
         PLAIN_CALLS[name] += 1
         layout = sweep_layout(*plan, n_out, target, device=w.device)
         return sweep_plain(w, h, tiles, layout, eps, precision, target)
-    shape = (k, np_) if target == "h" else (mp, k)
-    out = torch.empty(shape, dtype=_F32, device=w.device)
+    kc = chunk_width(k)
+    edge = bn if target == "h" else bm
+    per, slots = sweep_split(steps, n_out, -(-edge // TILE), -(-k // kc))
+    part = torch.empty((slots, k, bn) if target == "h" else (slots, bm, k), dtype=_F32,
+                       device=w.device)
+    out = torch.empty((k, np_) if target == "h" else (mp, k), dtype=_F32, device=w.device)
     lib = _lib()
     fn = lib.nmf_h_sweep if target == "h" else lib.nmf_w_sweep
     rc = fn(
         w.data_ptr(), h.data_ptr(), tiles.data_ptr(), perm.data_ptr(), rb.data_ptr(),
-        cb.data_ptr(), out.data_ptr(), mp, np_, k, bm, bn, tiles.shape[0], steps,
-        chunk_width(k), float(eps), _STATE_BF16[w.dtype], _X_KIND[tiles.dtype],
+        cb.data_ptr(), part.data_ptr(), out.data_ptr(), mp, np_, k, bm, bn, tiles.shape[0],
+        steps, per, kc, float(eps), _STATE_BF16[w.dtype], _X_KIND[tiles.dtype],
         _GEMM[precision.matmul_dtype], _index(w), _stream(w),
     )
     _raise_on(lib, rc, name)

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Timing probes beside ``chip_smoke.py``, on one NVIDIA card.
+
+    python3 probe_timings.py sweep-per                 # K5 against its chunk length
+    python3 probe_timings.py flagship --root PATH      # K1/K2 of the port under PATH
+
+``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
+K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
+bf16 tiles, through its C entry with ``per`` = 1, 2, 3, 4 and 6 plan
+entries a chunk (the wrapper picks ``per`` by ``tile_sparse.sweep_split``);
+each result's largest relative difference to the wrapper's.
+
+``flagship``: K1 and K2 once per GEMM policy at the 10240^2 K=256
+flagship (``chip_smoke.py`` phase 7's operands), importing
+``nmf_tpu_torch`` and building its kernels from PATH: run it for two trees
+in turns (A, B, B, A) in one call to compare them on one card.
+
+Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
+calls); every line names the card and its power limit.
+"""
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parent
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_probe", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sweep_per(cs, card):
+    import torch
+
+    from nmf_tpu_torch.ops.kernels import _build, fused_mu, tile_sparse as ts
+    from nmf_tpu_torch.utils.config import Precision
+
+    lib = _build.load_library()
+    m, n, k, t, occ, seed = cs.TS_MAIN
+    base = cs._sweep_case(*cs.tile_problem(m, k, n, t, occ, seed), (t, t))
+    modes = {"float32": (Precision(), torch.float32),
+             "bfloat16": (Precision("bfloat16"), torch.float32),
+             "float32_fast": (Precision("float32_fast"), torch.float32),
+             "bf16_tiles": (Precision(x_dtype="bfloat16"), torch.bfloat16)}
+    for mode, (prec, tile_dtype) in modes.items():
+        tiles = base.tiles.to(tile_dtype)
+        for target in ("h", "w"):
+            plan = base.plans[target]
+            steps = plan[0].shape[0]
+            wrapper = ts.h_numerator if target == "h" else ts.w_numerator
+            ref = wrapper(base.w, base.h, tiles, *plan, cs.EPS, prec)
+            fn = lib.nmf_h_sweep if target == "h" else lib.nmf_w_sweep
+            for per in (1, 2, 3, 4, 6):
+                part = torch.empty((-(-steps // per) + n // t, k, t), device="cuda")
+                out = torch.empty_like(ref)
+
+                def call():
+                    rc = fn(base.w.data_ptr(), base.h.data_ptr(), tiles.data_ptr(),
+                            *(a.data_ptr() for a in plan), part.data_ptr(), out.data_ptr(),
+                            m, n, k, t, t, tiles.shape[0], steps, per, fused_mu.chunk_width(k),
+                            cs.EPS, 0, ts._X_KIND[tile_dtype], fused_mu._GEMM[prec.matmul_dtype],
+                            torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+                    cs.check(rc == 0, f"K5 {mode} {target} per={per}: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                rel = float(((out - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+                ms = [cs.event_ms(call) for _ in range(2)]
+                print(json.dumps({"card": card, "probe": "sweep-per", "mode": mode,
+                                  "target": target, "per": per, "ms": ms,
+                                  "max_rel_vs_wrapper": rel}), flush=True)
+
+
+def flagship(cs, card, root):
+    import torch
+
+    import nmf_tpu_torch as nt
+
+    pkg = pathlib.Path(nt.__file__).resolve()
+    cs.check(root.resolve() in pkg.parents, f"nmf_tpu_torch came from {pkg}, not from {root}")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, w, h = (torch.rand(s, generator=g, device="cuda")
+               for s in ((10240, 10240), (10240, 256), (256, 10240)))
+    res = {}
+    for dtype in ("float32", "bfloat16", "float32_fast"):
+        for name, (kern, _) in cs._pairs(nt.Precision(dtype)).items():
+            if name != "kl_cost":
+                res[f"{name} {dtype}"] = cs.event_ms(lambda: kern(w, h, x))
+    print(json.dumps({"card": card, "probe": "flagship", "root": str(root), "ms": res}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("probe", choices=("sweep-per", "flagship"))
+    ap.add_argument("--root", type=pathlib.Path, default=HERE,
+                    help="tree whose nmf_tpu_torch to time (default: this one)")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe_timings: no card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(args.root))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cs = _smoke()
+    card = cs.card_name_and_limit()
+    if args.probe == "sweep-per":
+        sweep_per(cs, card)
+    else:
+        flagship(cs, card, args.root)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -44,9 +44,16 @@ def test_every_include_is_a_hashed_header():
             assert name in headers, f"{src.name} includes {name}"
 
 
-def test_mma_tile_is_included_by_fused_mu_alone():
-    including = sorted(p.name for p in LISTED if '#include "mma_tile.cuh"' in p.read_text())
-    assert including == ["fused_mu.cu"]
+def _includers(header):
+    return sorted(p.name for p in LISTED if f'#include "{header}"' in p.read_text())
+
+
+def test_pass1_pieces_are_included_through_pass1():
+    """K1/K2 (fused_mu.cu) and K5 (tile_sparse.cu) share one pass 1: both
+    include pass1.cuh, and only it includes the tensor-core and SIMT pieces."""
+    assert _includers("mma_tile.cuh") == ["pass1.cuh"]
+    assert _includers("simt_tile.cuh") == ["pass1.cuh"]
+    assert _includers("pass1.cuh") == ["fused_mu.cu", "tile_sparse.cu"]
 
 
 @pytest.mark.parametrize("name", [p.name for p in LISTED])
@@ -83,6 +90,18 @@ def test_modes_follow_the_enum():
          "w_update_partial<R=4,SPLIT3>"),
         ("_ZN12_GLOBAL__N_110kl_partialILNS_4ModeE1EEEvNS_8OperandsEPf", "kl_partial<ANY>"),
         ("_ZN12_GLOBAL__N_18finalizeEPKviPKfS3_Pviiii", "finalize"),
+        ("_ZN47_GLOBAL__N__e2f0a41c_14_tile_sparse_cu_e5cbc7d915h_sweep_partialILi16ELNS_4ModeE0EE"
+         "EvNS_8OperandsENS_4PlanEPf", "h_sweep_partial<R=16,F32>"),
+        ("_ZN47_GLOBAL__N__e2f0a41c_14_tile_sparse_cu_e5cbc7d915h_sweep_partialILi8ELNS_4ModeE3EEE"
+         "vNS_8OperandsENS_4PlanEPf", "h_sweep_partial<R=8,BF16>"),
+        ("_ZN47_GLOBAL__N__e2f0a41c_14_tile_sparse_cu_e5cbc7d915w_sweep_partialILi16ELNS_4ModeE1EE"
+         "EvNS_8OperandsENS_4PlanEPf", "w_sweep_partial<R=16,ANY>"),
+        ("_ZN12_GLOBAL__N_115w_sweep_partialILi2ELNS_4ModeE2EEEvNS_8OperandsENS_4PlanEPf",
+         "w_sweep_partial<R=2,SPLIT3>"),
+        ("_ZN12_GLOBAL__N_115w_sweep_partialILi4ELNS_4ModeE3EEEvNS_8OperandsENS_4PlanEPf",
+         "w_sweep_partial<R=4,BF16>"),
+        ("_ZN47_GLOBAL__N__e2f0a41c_14_tile_sparse_cu_e5cbc7d99sweep_sumILb1EEEvNS_4PlanEPKfPfii",
+         "sweep_sum"),
     ],
 )
 def test_kernel_names_give_their_mode(name, label):
@@ -112,6 +131,31 @@ def test_each_gemm_policy_expects_its_instance(policy, impl):
     assert set(smoke.MMA_MODES) == {"BF16", "SPLIT3"}
 
 
+@pytest.mark.parametrize(
+    "mode,counts,impl",
+    [("float32", [200, 0, 0, 0], "simt"), ("bf16_tiles", [0, 1, 0, 0], "simt"),
+     ("float32_fast", [0, 0, 200, 0], "mma.sync split3"),
+     ("bfloat16", [0, 0, 0, 200], "mma.sync bf16"), ("bf16_state", [0, 0, 0, 1], "mma.sync bf16")],
+)
+def test_k5_launch_counts_give_the_instance(mode, counts, impl):
+    """K5's pass-1 launches per Mode (``nmf_sweep_launches``) name the Mode
+    each of phase 8's modes must run, and its instance."""
+    smoke = _chip_smoke()
+    ran = smoke._mode_of_counts(counts, "h_numerator")
+    assert ran == smoke.K5_MODE[mode]
+    assert smoke.IMPL.get(ran, "simt") == impl == smoke._impl_of_counts(counts, "h_numerator")
+
+
+def test_k5_modes_cover_every_instance():
+    """Phase 8's modes reach every Mode of K5, and each tiled solve's GEMM
+    policy its K1/K2 instance."""
+    smoke = _chip_smoke()
+    assert set(smoke.K5_MODE) == set(smoke._k5_modes())
+    assert set(smoke.K5_MODE.values()) == set(smoke.MODES)
+    for policy in ("float32", "bfloat16", "float32_fast"):
+        assert smoke.IMPL.get(smoke.K5_MODE[policy], "simt") == smoke.IMPL_OF_POLICY.get(policy, "simt")
+
+
 @pytest.mark.parametrize("counts", [[0, 0, 0, 0], [1, 0, 0, 1]])
 def test_no_or_several_instances_fail(counts):
     with pytest.raises(RuntimeError, match="pass-1 launches per Mode"):
@@ -125,6 +169,31 @@ def test_launch_counters_are_bound():
     src = (CSRC / "fused_mu.cu").read_text()
     for name in ("nmf_partial_launches", "nmf_reset_partial_launches", "nmf_partial_info"):
         assert name in _build._SIGNATURES and re.search(rf"\b{name}\(", src)
+
+
+def test_sweep_counters_are_bound():
+    """K5's launch counters and instance info are exported with their C
+    types, and the sweeps take the partial buffer and the chunk length."""
+    assert _build._SIGNATURES["nmf_sweep_launches"][0] == [_build._I, _build._I]
+    assert _build._SIGNATURES["nmf_sweep_info"][0] == [_build._I] * 3 + [_build._P]
+    src = (CSRC / "tile_sparse.cu").read_text()
+    for name in ("nmf_sweep_launches", "nmf_reset_sweep_launches", "nmf_sweep_info"):
+        assert name in _build._SIGNATURES and re.search(rf"\b{name}\(", src)
+    for name in ("nmf_h_sweep", "nmf_w_sweep"):
+        args = _build._SIGNATURES[name][0]
+        c_args = re.search(rf"int {name}\(([^)]*)\)", src).group(1).split(",")
+        assert len(args) == len(c_args) == 23
+
+
+def test_phase1_lists_every_pass1_kernel():
+    """Phase 1 reads registers, shared memory and blocks an SM of K1's, K2's
+    and K5's pass-1 kernels, each through its library query."""
+    smoke = _chip_smoke()
+    assert [k[0] for k in smoke.PASS1_KERNELS] == [
+        "h_update_partial", "w_update_partial", "h_sweep_partial", "w_sweep_partial"]
+    for _, _, query in smoke.PASS1_KERNELS:
+        assert query in _build._SIGNATURES
+    assert set(smoke.PASS1_OF.values()) == {k[0] for k in smoke.PASS1_KERNELS}
 
 
 def test_simt_modes_are_the_f32_gemm_modes():
@@ -161,6 +230,21 @@ def test_kernel_digest_compare(tmp_path, other, rc):
     a.write_text(json.dumps({"card": "x", "digests": {"a": "1", "b": "2"}}))
     b.write_text(json.dumps({"card": "x", "digests": other}))
     assert _digest_module().main(["--compare", str(a), str(b)]) == rc
+
+
+@pytest.mark.parametrize("argv", [["sweep-per"], ["flagship"]])
+def test_probe_timings_needs_a_card(argv, capsys):
+    """probe_timings.py measures on the card only: without one it exits 1
+    and prints no result."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    spec = importlib.util.spec_from_file_location("probe_timings", REPO / "probe_timings.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(argv) == 1
+    assert capsys.readouterr().out == ""
 
 
 def test_float32_fast_runs_on_every_storage():

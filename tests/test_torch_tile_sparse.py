@@ -316,6 +316,172 @@ def test_sentinel_blocks_are_exact_zeros(sweep_case):
     np.testing.assert_allclose(out, w.T @ z, rtol=1e-5, atol=1e-6)
 
 
+def _long_problem():
+    """12 tiles down column block 0 of a 1536 x 256 X (and one in column
+    block 1), K=8, 128^2 tiles: the H target's run of block 0 crosses many
+    of K5's pieces."""
+    rng = np.random.RandomState(23)
+    m, k, n = 1536, 8, 256
+    x = np.zeros((m, n), np.float32)
+    for (i, j) in [(i, 0) for i in range(12)] + [(3, 1)]:
+        blk = rng.rand(128, 128).astype(np.float32)
+        blk[rng.rand(128, 128) < 0.5] = 0
+        x[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] = blk
+    return x, clamp(rng.rand(m, k).astype(np.float32)), clamp(rng.rand(k, n).astype(np.float32))
+
+
+# plans whose runs are longer than K5's pieces: name -> (problem, pad)
+LONG_PLANS = {
+    "padded": (_pallas_problem, 16),   # 11 duplicate zero tiles at block (0, 0)
+    "long": (_long_problem, 1),
+}
+
+
+@pytest.fixture(scope="module")
+def long_cases():
+    """Per plan: the operands, the plans and nmf_tpu's numerators (Pallas K5
+    in interpret mode) per mode and target."""
+    cases = {}
+    for name, (make, pad) in LONG_PLANS.items():
+        x, w, h = make()
+        tx = jst.tiles_from_dense(x, (128, 128))
+        tiles, rows, cols = pst._pad_tiles_np(np.asarray(tx.tiles), np.asarray(tx.rows),
+                                              np.asarray(tx.cols), pad)
+        mb, nb = x.shape[0] // 128, x.shape[1] // 128
+        plans = {"h": jts.sweep_plan(rows, cols, nb, "col"), "w": jts.sweep_plan(rows, cols, mb, "row")}
+        ref = {}
+        for mode, (fields, state_bf16, tiles_bf16, _) in MODES.items():
+            wj, hj, tj = jnp.asarray(w), jnp.asarray(h), jnp.asarray(tiles)
+            if state_bf16:
+                wj, hj = wj.astype(jnp.bfloat16), hj.astype(jnp.bfloat16)
+            if tiles_bf16:
+                tj = tj.astype(jnp.bfloat16)
+            for target, fn in (("h", jts.h_numerator), ("w", jts.w_numerator)):
+                out = fn(wj, hj, tj, *(jnp.asarray(a) for a in plans[target]), EPS,
+                         _jprec(fields), interpret=True)
+                ref[mode, target] = np.asarray(out)
+        cases[name] = (w, h, tiles, plans, ref)
+    return cases
+
+
+@pytest.mark.parametrize("target", ["h", "w"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case", list(LONG_PLANS))
+def test_numerator_on_long_runs_matches_pallas_interpret(long_cases, case, mode, target):
+    """A plan whose output block's run is longer than K5's pieces (chunk
+    padding's duplicate zero tiles at block (0, 0), or one tall column
+    block), in every mode, against the Pallas kernel in interpret mode."""
+    w, h, tiles, plans, ref = long_cases[case]
+    fields, state_bf16, tiles_bf16, rtol = MODES[mode]
+    key = plans[target][2] if target == "h" else plans[target][1]
+    n_out = int(key.max()) + 1
+    per, _ = pts.sweep_split(len(key), n_out, 2, 1)
+    assert np.bincount(key).max() > per   # the run is cut into pieces
+    conv = _bf16_t if state_bf16 else torch.from_numpy
+    fn = pts.h_numerator if target == "h" else pts.w_numerator
+    out = fn(conv(w), conv(h), _bf16_t(tiles) if tiles_bf16 else torch.from_numpy(tiles),
+             *(torch.from_numpy(a) for a in plans[target]), EPS, pt.Precision(*fields))
+    assert tuple(out.shape) == ref[mode, target].shape
+    np.testing.assert_allclose(out.numpy(), ref[mode, target], rtol=rtol, atol=F32_TOL[1])
+
+
+def _pieces_np(key, per):
+    """K5's pass-1 pieces of a sorted plan, in NumPy: chunks of ``per``
+    entries, each cut where the output block changes; (start, end, slot),
+    slot the chunk's for a piece that starts it, else n_chunks + block."""
+    steps = len(key)
+    n_chunks = -(-steps // per)
+    starts = np.flatnonzero((np.arange(steps) % per == 0) | np.r_[True, key[1:] != key[:-1]])
+    ends = np.r_[starts[1:], steps]
+    slots = np.where(starts % per == 0, starts // per, n_chunks + key[starts])
+    return list(zip(starts.tolist(), ends.tolist(), slots.tolist()))
+
+
+def _piece_of(key, per, n_out, slot):
+    """csrc/tile_sparse.cu piece_of, line for line: the piece a pass-1
+    block of ``slot`` walks, or None."""
+    steps = len(key)
+    n_chunks = -(-steps // per)
+    if slot < n_chunks:
+        start = slot * per
+    else:
+        start = int(np.searchsorted(key, slot - n_chunks))
+        if start >= steps or key[start] != slot - n_chunks or start % per == 0:
+            return None
+    b = int(key[start])
+    if not 0 <= b < n_out:
+        return None
+    chunk_end = min((start // per + 1) * per, steps)
+    return start, max(start + 1, min(int(np.searchsorted(key, b + 1)), chunk_end)), b
+
+
+def _sum_order(key, per, b):
+    """csrc/tile_sparse.cu sweep_sum: the slots output block b sums, in order."""
+    n_chunks = -(-len(key) // per)
+    t0, t1 = np.searchsorted(key, b), np.searchsorted(key, b + 1)
+    if t1 <= t0:
+        return []
+    first = t0 // per if t0 % per == 0 else n_chunks + b
+    return [first] + list(range(t0 // per + 1, (t1 - 1) // per + 1))
+
+
+# random plans: (block grid, occupancy, duplicate zero tiles at (0, 0), slices, K chunks)
+SPLIT_CASES = [
+    ((8, 8), 0.3, 0, 2, 1),
+    ((64, 64), 0.08, 0, 2, 1),      # the main shape's plan
+    ((64, 64), 0.08, 64, 2, 1),
+    ((3, 5), 0.0, 0, 1, 1),         # one tile, sentinels everywhere else
+    ((300, 1), 1.0, 0, 2, 1),       # one run of 300
+    ((1, 300), 1.0, 0, 2, 2),
+    ((40, 40), 0.5, 0, 3, 8),
+    ((100, 7), 0.2, 17, 1, 1),
+    ((16, 200), 0.9, 0, 2, 1),
+    ((5, 5), 0.6, 100, 2, 4),
+    ((128, 128), 0.02, 0, 1, 1),
+    ((20, 30), 0.0, 33, 2, 1),      # padding only
+]
+
+
+@pytest.mark.parametrize("by", ["col", "row"])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_sweep_split_matches_the_pieces(case, by):
+    """The wrapper's per rule and slot count against a NumPy count of the
+    pieces of random plans; every slot a pass-1 block finds (piece_of) is a
+    piece, every entry in exactly one, and pass 2 sums each output block's
+    pieces in plan order."""
+    (mb, nb), occ, pad, slices, k_chunks = SPLIT_CASES[case]
+    rng = np.random.RandomState(case)
+    occupied = np.argwhere(rng.rand(mb, nb) < occ)
+    if len(occupied) == 0:
+        occupied = np.array([[mb - 1, nb - 1]])
+    tiles = np.zeros((len(occupied), 1, 1), np.float32)
+    _, rows, cols = pst._pad_tiles_np(tiles, occupied[:, 0].astype(np.int32),
+                                      occupied[:, 1].astype(np.int32), len(occupied) + pad)
+    n_out = nb if by == "col" else mb
+    perm, rr, cc = pts.sweep_plan(rows, cols, n_out, by)
+    key = cc if by == "col" else rr
+    steps = len(key)
+    per, slots = pts.sweep_split(steps, n_out, slices, k_chunks)
+    # the largest per, up to the mean run, whose expected pieces give
+    # SWEEP_BLOCKS blocks
+    sk, mean_run = slices * k_chunks, -(-steps // n_out)
+    expected_blocks = lambda p: (steps + n_out * (p - 1)) * sk / p  # noqa: E731
+    assert 1 <= per <= mean_run
+    assert per == 1 or expected_blocks(per) >= pts.SWEEP_BLOCKS
+    assert per == mean_run or expected_blocks(per + 1) < pts.SWEEP_BLOCKS
+    pieces = _pieces_np(key, per)
+    assert -(-steps // per) <= len(pieces) <= slots == -(-steps // per) + n_out
+    assert len({s for _, _, s in pieces}) == len(pieces) and max(s for _, _, s in pieces) < slots
+    assert max(b - a for a, b, _ in pieces) <= per
+    found = {slot: _piece_of(key, per, n_out, slot) for slot in range(slots)}
+    assert {(p[0], p[1], s) for s, p in found.items() if p} == set(pieces)
+    covered = np.concatenate([np.arange(a, b) for a, b, _ in pieces])
+    assert np.array_equal(np.sort(covered), np.arange(steps))
+    for b in range(n_out):
+        mine = sorted((a, s) for a, _, s in pieces if key[a] == b)
+        assert _sum_order(key, per, b) == [s for _, s in mine]
+
+
 @pytest.mark.parametrize("fn", [pts.h_numerator, pts.w_numerator])
 def test_empty_tiles_raise(fn):
     w, h = torch.ones((4, 2)), torch.ones((2, 4))
