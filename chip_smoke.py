@@ -9,11 +9,12 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
-   ptxas's registers and spills per kernel (a spill in any K1/K2 or K5
+   ptxas's registers and spills per kernel (a spill in any K1/K2, K3 or K5
    pass-1 kernel fails) and each pass-1 instance's registers, dynamic
    shared memory, blocks an SM and local memory as the runtime reports
-   them (local memory fails), and check with ``cuobjdump -sass`` of the
-   same toolkit that every BF16- and SPLIT3-Mode K1/K2 and K5 kernel holds
+   them (K3's 15 instances too; local memory fails), and check with
+   ``cuobjdump -sass`` of the same toolkit that every BF16- and
+   SPLIT3-Mode K1/K2 and K5 kernel and every BF16 K3 kernel holds
    tensor-core (``HMMA``) instructions and no F32- or ANY-Mode one does;
 2. kernels: K1-K3 in float32 against their plain torch versions on the card
    at the reference, ISMIR and paper shapes (factors rtol 1e-4 / atol 1e-6,
@@ -23,8 +24,11 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    K1/K2 read at the reference shape as in phase 3; then checked only at
    K = 8, 64, 300 and 2048 (every K chunk width, several chunks) and at
    65x129x17 and 127x350x255 (no row of W, H or X on 16 bytes: the SIMT
-   pass 1's 4-byte copies), and K > 2048 shown to take the plain ops by
-   the rank rule;
+   pass 1's 4-byte copies), K3 also where its walk has edges
+   (``KL_SHAPES``: M < 64, N < 64, N = 1, runs of two tiles split 157
+   ways), each K3 call's instance read from the library's launches per Mode
+   (``nmf_kl_launches``: F32 here), and K > 2048 shown to take the plain
+   ops by the rank rule;
 3. modes: each precision mode of K1-K3 (``bfloat16``, ``float32_fast``,
    bf16 X, int8 X, ``BF16_FULL`` with bf16 state, and ``float32_fast`` with
    bf16 X and with bf16 state and int8 X) against its plain
@@ -40,7 +44,10 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    pass-1 launches per Mode (``nmf_partial_launches``) over one K1 and one
    K2 call names the instance that ran: the tensor-core ones (``mma.sync
    bf16`` under ``bfloat16``, ``mma.sync split3`` under ``float32_fast``),
-   ``simt`` else;
+   ``simt`` else; K3 in every mode also at ``KL_SHAPES`` and phase 2's
+   rows off 16 bytes, each call's instance read from ``nmf_kl_launches``
+   (``kl_mode_expected``: BF16 under ``bfloat16``, F32 on f32 operands
+   under both f32 policies, ANY for bf16 X, int8 X or bf16 state there);
 4. quant: the quantizer on the card gives the codes and scales of
    ``quantize_columns_np`` byte for byte on the reference X, and those of
    ``quantize_rowblocks_np`` on a row-block case;
@@ -61,13 +68,17 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    version, its instance traced as in phase 3; then 50 iterations, float32,
    bfloat16 and float32_fast, through the kernels and through plain torch
    ops: final costs agree to 1e-4 (float32, float32_fast) and 1e-3
-   (bfloat16); iterations/s and TFLOP/s for each; then K1/K2 per call where
+   (bfloat16); iterations/s and TFLOP/s for each, and exactly 50/50/2
+   launches of K1/K2/K3 in each solve through the kernels; K3 timed once
+   per policy beside ``kl_cost_plain``; then K1/K2 per call where
    a block's contraction walks farthest (``LONG_WALKS``: the flagship, and
    an hour of audio in memory, wide and tall, 303 tiles a split):
    ``bfloat16`` with f32 state (the update) and bf16 state (the f32
    numerator), and ``float32_fast`` with f32 state (the update), each
    within its ``MODE_LIMITS`` of its plain version with the f32-GEMM
-   control failing;
+   control failing; and K3 at the same shapes under ``float32``,
+   ``bfloat16`` (the f32-recon control failing) and ``float32_fast``,
+   within cost rel 1e-5;
 8. tilesparse: K5 (``h_numerator`` / ``w_numerator``) against its plain
    version on the card at the ``tests/test_pallas.py`` problem (and the
    same with its tile list padded to 64 by zero tiles at block (0, 0), as
@@ -97,7 +108,8 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    for bit to ``base * numerator / denom`` and within the mode's limits of
    its plain version, and K > 2048 on the plain ops by rule; the streamed
    cost pass's K3 (f32 GEMMs; f32, bf16 and int8 X, bf16 state) against
-   ``kl_cost_plain`` at the same shapes (rel 1e-5, timed at the block);
+   ``kl_cost_plain`` at the same shapes (rel 1e-5, timed at the block, its
+   instance read there);
    then ``solve_out_of_core`` at an hour
    of audio, 1025 x 619264, K=32 (X made on the card from ``--seed``, moved
    to the host), 10 iterations, a cost pass every 5, in f32, bf16 and int8
@@ -119,9 +131,10 @@ its time beside its plain version's, and its bound: the larger of its
 flops over the card's peak and its bytes over 3.35 TB/s, H100 SXM at 700 W;
 no single PyTorch call computes any of them, so ``library_ms`` is null;
 each K1/K2 and K5 entry, mode and flagship entry names the instance that
-ran, ``impl``, K1/K2 carry phase 7's ``long_walks`` readings, and K1, K2
+ran, ``impl``, K1-K3 carry phase 7's ``long_walks`` readings, and K1-K3
 and K5 phase 1's ``pass1`` (registers, shared memory, blocks an SM per
-instance);
+instance); K3 its instance in each mode and its launches on the
+reference, streamed and flagship solves (``solve_launches``);
 K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
 their launches on the streamed solve); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -160,6 +173,11 @@ MODE_SHAPES = [(4096, 350, 128), (100, 70, 8), (333, 333, 64), (257, 129, 300),
 # (40 tiles a split) and an hour of audio in memory, wide (K2: 303) and
 # tall (K1: 303)
 LONG_WALKS = [(10240, 10240, 256), (1025, 619_264, 32), (619_264, 1025, 32)]
+# K3 where its walk (K1's side: 64 columns, a run of M tiles) has edges:
+# M < 64, N < 64, N = 1, and runs of two tiles split 157 ways (the last
+# one tile); phase 3 also checks phase 2's rows off 16 bytes in every mode
+KL_SHAPES = [(40, 333, 24), (700, 50, 40), (300, 1, 8), (20_000, 100, 16)]
+KL_MODE_SHAPES = [(65, 129, 17), (127, 350, 255), *KL_SHAPES]
 F32_TOL = (1e-4, 1e-6, 1e-5)          # phase 2: factors rtol, atol; cost rel
 # Phase 3, per kind of mode, (max, spread, cost); None: not limited.  max:
 # the largest relative error |kernel - plain| / |plain| of a factor.  spread:
@@ -222,8 +240,11 @@ PASS1_KERNELS = (("h_update_partial", 1, "nmf_partial_info"), ("w_update_partial
                  ("h_sweep_partial", 1, "nmf_sweep_info"), ("w_sweep_partial", 0, "nmf_sweep_info"))
 # each kernel's pass-1 kernel, whose instances the result line lists
 PASS1_OF = {"update_h": "h_update_partial", "update_w": "w_update_partial",
-            "h_numerator": "h_sweep_partial", "w_numerator": "w_sweep_partial"}
+            "h_numerator": "h_sweep_partial", "w_numerator": "w_sweep_partial",
+            "kl_cost": "kl_partial"}
 PASS1_NAMES = {name for name, _, _ in PASS1_KERNELS}
+# K3's Modes (no SPLIT3: its recon is true f32 under float32_fast)
+KL_MODES = ("F32", "ANY", "BF16")
 # phase 8's K5 modes -> the Mode of the pass-1 instance each runs
 K5_MODE = {"float32": "F32", "bfloat16": "BF16", "float32_fast": "SPLIT3", "bf16_tiles": "ANY",
            "bf16_state": "BF16"}
@@ -322,10 +343,62 @@ def _check_sass(card, lib_path):
     for mode in SIMT_MODES:
         check(len(by_mode[mode]) == 20 and not any(by_mode[mode].values()),
               f"{mode}-Mode K1/K2/K5 kernels with HMMA (or missing): {by_mode[mode]}")
+    kl = {n: c for n, c in hmma.items() if n.startswith("kl_partial<")}
+    kl_by_mode = {mode: {n: c for n, c in kl.items() if n.endswith(f",{mode}>")} for mode in KL_MODES}
+    check(len(kl) == 15 and all(len(v) == 5 for v in kl_by_mode.values()),
+          f"K3 kernels missing: {kl}")
+    check(all(kl_by_mode["BF16"].values()), f"BF16 K3 kernels without HMMA: {kl_by_mode['BF16']}")
+    check(not any(c for mode in ("F32", "ANY") for c in kl_by_mode[mode].values()),
+          f"F32/ANY K3 kernels with HMMA: {kl_by_mode}")
     for mode in MMA_MODES:
         print(f"[{card}] SASS ({tool}): HMMA instructions in each {mode}-Mode K1/K2/K5 "
               f"kernel {by_mode[mode]}")
     print(f"[{card}] SASS: no HMMA in the 40 F32- and ANY-Mode K1/K2/K5 kernels")
+    print(f"[{card}] SASS: HMMA instructions in each BF16 K3 kernel {kl_by_mode['BF16']}, none in "
+          "the 10 F32 and ANY ones")
+
+
+def kl_counts(fn):
+    """(fn(), K3's pass-1 launches per Mode, in MODES' order) as the library
+    counts them on the host (``nmf_kl_launches``), set to 0 just before."""
+    from nmf_tpu_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    lib.nmf_reset_kl_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, [lib.nmf_kl_launches(i) for i in range(len(MODES))]
+
+
+def kl_mode_expected(prec, w, x):
+    """The Mode a K3 call must run: BF16 under ``bfloat16`` (any state and
+    X), F32 on f32 W, H and X under both f32 policies, else ANY."""
+    if prec.matmul_dtype == "bfloat16":
+        return "BF16"
+    dense_f32 = not isinstance(x, tuple) and x.dtype == torch.float32
+    return "F32" if w.dtype == torch.float32 and dense_f32 else "ANY"
+
+
+def kl_instance(mode, k):
+    """K3's instance label at rank ``k``, as phase 1 lists it."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    return f"kl_partial<R={fused_mu.chunk_width(k) // 16},{mode}>"
+
+
+def _kl_impl(instance):
+    """``mma.sync bf16`` for a BF16 K3 instance, ``simt`` for F32 and ANY."""
+    return IMPL["BF16"] if instance.endswith(",BF16>") else "simt"
+
+
+def _check_kl_mode(kern, w, h, x, prec, where):
+    """One more K3 call, counted: the Mode it ran must be the one
+    ``kl_mode_expected`` names; returns its instance label."""
+    _, counts = kl_counts(lambda: kern(w, h, x))
+    ran = _mode_of_counts(counts, where)
+    want = kl_mode_expected(prec, w, x)
+    check(ran == want, f"{where}: K3 ran the {ran} instance, expected {want}")
+    return kl_instance(ran, w.shape[1])
 
 
 def _mode_of_counts(counts, what):
@@ -413,8 +486,8 @@ def phase_card(card, out):
         # the F32 and BF16 Modes of K1/K2 and K5 hold two blocks an SM only
         # without spills (PERF.md section 6); SPLIT3 holds one, with no spill
         # either
-        bad = [n for n in spilled if n.split("<")[0] in PASS1_NAMES]
-        check(not bad, f"K1/K2/K5 pass-1 kernels spill: {bad}")
+        bad = [n for n in spilled if n.split("<")[0] in PASS1_NAMES | {"kl_partial"}]
+        check(not bad, f"K1/K2/K3/K5 pass-1 kernels spill: {bad}")
     _check_sass(card, lib_path)
     out["build_seconds"] = secs
     out["pass1"] = _pass1_info(card)
@@ -422,9 +495,10 @@ def phase_card(card, out):
 
 def _pass1_info(card):
     """{"h_update_partial<R=16,F32>": {"registers", "smem_bytes",
-    "blocks_per_sm", "local_bytes"}, ...} of every K1/K2 and K5 pass-1
+    "blocks_per_sm", "local_bytes"}, ...} of every K1/K2, K3 and K5 pass-1
     instance, as the runtime reports them (``nmf_partial_info``,
-    ``nmf_sweep_info``); a kernel with local memory (a spill) fails."""
+    ``nmf_kl_info``, ``nmf_sweep_info``); a kernel with local memory (a
+    spill) fails."""
     import ctypes
 
     from nmf_tpu_torch.ops.kernels import _build
@@ -443,6 +517,16 @@ def _pass1_info(card):
                 check(vals[3] == 0, f"{label}: {vals[3]} bytes of local memory a thread")
                 print(f"[{card}]   {label}: {vals[0]} registers, {vals[1]} bytes of dynamic "
                       f"shared memory, {vals[2]} blocks an SM, {vals[3]} bytes local")
+    for mode in KL_MODES:   # K3's instances (nmf_kl_info)
+        for r in (1, 2, 4, 8, 16):
+            vals = (ctypes.c_int * 4)()
+            rc = lib.nmf_kl_info(MODES.index(mode), 16 * r, vals)
+            label = f"kl_partial<R={r},{mode}>"
+            check(rc == 0, f"nmf_kl_info {label}: CUDA error {rc}")
+            info[label] = dict(zip(("registers", "smem_bytes", "blocks_per_sm", "local_bytes"), vals))
+            check(vals[3] == 0, f"{label}: {vals[3]} bytes of local memory a thread")
+            print(f"[{card}]   {label}: {vals[0]} registers, {vals[1]} bytes of dynamic "
+                  f"shared memory, {vals[2]} blocks an SM, {vals[3]} bytes local")
     return info
 
 
@@ -557,18 +641,27 @@ def phase_kernels(card, out):
             if si == 0:  # the main path's shape
                 st["ms"], st["plain_ms"] = kms, pms
                 st["bound_ms"], st["bound_by"] = _mu_bound(name, w, h, x, Precision())
+        inst = _check_kl_mode(pairs["kl_cost"][0], w, h, x, Precision(), _where("kl_cost", w, h))
+        if si == 0:   # which instance the main path's K3 ran
+            stats["kl_cost"].update(impl="simt", instance=inst)
+            print(f"[{card}] [float32] {m}x{n}x{k}: K3 ran {inst} (the library's launches per Mode)")
         if si == 0:   # which pass-1 instance the main path's K1/K2 ran
             impls = _check_impls(lambda: [pairs[nm][0](w, h, x) for nm in ("update_h", "update_w")],
                                  Precision(), f"[float32] {m}x{n}x{k}")
             for name, impl in impls.items():
                 stats[name]["impl"] = impl
             print(f"[{card}] [float32] {m}x{n}x{k}: K1/K2 pass 1 ran {impls}")
-    # every K chunk width and several chunks, up to the rank ceiling
-    for m, n, k in COVERAGE_SHAPES:
+    # every K chunk width and several chunks, up to the rank ceiling; K3
+    # also where its walk has edges
+    for m, n, k in [*COVERAGE_SHAPES, *KL_SHAPES]:
         w, h, x = _operands(m, n, k)
         for name, (kern, plain) in pairs.items():
+            if (m, n, k) in KL_SHAPES and name != "kl_cost":
+                continue
             max_err, what = _check_kernel(name, kern, plain, w, h, x)
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], max_err)
+            if name == "kl_cost":
+                what += f", {_check_kl_mode(kern, w, h, x, Precision(), _where(name, w, h))}"
             print(f"[{card}] {name:8s} {m}x{n}x{k}: {what}, bitwise-repeatable")
     # above the rank ceiling the wrappers take the plain ops by rule
     k = fused_mu.MAX_FUSED_K + 8
@@ -679,9 +772,12 @@ def phase_modes(card, out):
         pairs = _pairs(spec.prec)
         controls = _pairs(spec.control) if spec.control else {}
         max_limit, spread_limit, cost_limit = spec.limits
-        for si, (m, n, k) in enumerate(MODE_SHAPES):
+        # K1-K3 at MODE_SHAPES, then K3 alone at the edges of its walk
+        for si, (m, n, k) in enumerate([*MODE_SHAPES, *KL_MODE_SHAPES]):
             w, h, x = _mode_operands(m, n, k, mode, spec)
             for name, (kern, plain) in pairs.items():
+                if si >= len(MODE_SHAPES) and name != "kl_cost":
+                    continue
                 where = _where(name, w, h, f"[{mode}] ")
                 res, ref = _run_pair(kern, plain, w, h, x, where)
                 err, spread, ulps = _mode_err(res, ref)
@@ -689,7 +785,8 @@ def phase_modes(card, out):
                                else "rms rel err")
                 if name == "kl_cost":
                     limit, measured = cost_limit, err
-                    what = f"rel err {err} (limit {limit})"
+                    inst = _check_kl_mode(kern, w, h, x, spec.prec, where)
+                    what = f"rel err {err} (limit {limit}), {inst}"
                 else:
                     limit, measured = spread_limit, spread
                     check(ulps <= 1, f"{where}: an entry {ulps} bf16 ulps from plain")
@@ -716,6 +813,8 @@ def phase_modes(card, out):
                     kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
                     b_ms, b_by = _mu_bound(name, w, h, x, spec.prec)
                     ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    if name == "kl_cost":
+                        ms.update(impl=_kl_impl(inst), instance=inst)
                     print(f"[{card}] {where}: kernel {kms} ms, plain {pms} ms, bound {b_ms} ms "
                           f"({b_by}), {what}, bitwise-repeatable")
                 else:
@@ -930,6 +1029,7 @@ def phase_flagship(card, out):
     print(f"[{card}] phase 7: flagship 10240x10240, K=256, 50 iterations, float32, bfloat16 "
           "and float32_fast")
     import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import fused_mu
     from nmf_tpu_torch.utils.metrics import flops_per_iter
 
     m = n = 10240
@@ -954,6 +1054,20 @@ def phase_flagship(card, out):
             print(f"[{card}] flagship {name} [{dtype}] {m}x{n}x{k}: kernel {kms} ms, "
                   f"plain {pms} ms, bound {b_ms} ms ({b_by}), {impls[name]} "
                   f"({2 * 2 * m * n * k / kms / 1e9} TFLOP/s)")
+        # K3 under the same policy: checked, its instance read, timed
+        kern, plain = pairs["kl_cost"]
+        where = f"flagship kl_cost [{dtype}] {m}x{n}x{k}"
+        res, ref = _run_pair(kern, plain, w, h, x, where)
+        rel = _mode_err(res, ref)[0]
+        check(rel <= MODE_LIMITS["f32_gemm"][2], f"{where}: rel err {rel} (limit 1e-5)")
+        inst = _check_kl_mode(kern, w, h, x, nt.Precision(dtype), where)
+        kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x), 5, 5)
+        b_ms, b_by = _mu_bound("kl_cost", w, h, x, nt.Precision(dtype))
+        out["kernels"]["kl_cost"]["flagship"][dtype] = {
+            "ms": kms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "impl": _kl_impl(inst),
+            "instance": inst, "rel_err": rel}
+        print(f"[{card}] {where}: kernel {kms} ms, plain {pms} ms, bound {b_ms} ms ({b_by}), {inst}, "
+              f"rel err {rel}, {2 * m * n * k / kms / 1e9} TFLOP/s of its recon")
     for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3), ("float32_fast", 1e-4)):
         base = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype))
         results = {}
@@ -962,11 +1076,18 @@ def phase_flagship(card, out):
                      device="cuda")
         torch.cuda.synchronize()
         for backend in ("auto", "jnp", "jnp", "auto"):
+            fused_mu.reset_counts()
             t0 = time.perf_counter()
             res = nt.solve(x, w, h, dataclasses.replace(base, backend=backend), device="cuda")
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             cost = float(res.cost)
+            if backend == "auto":   # 50 iterations, a cost every 25: 50/50/2
+                want = _launches(update_h=iters, update_w=iters, kl_cost=iters // 25)
+                check(fused_mu.LAUNCHES == want and not any(fused_mu.PLAIN_CALLS.values()),
+                      f"flagship {dtype}: launches {fused_mu.LAUNCHES}, plain calls "
+                      f"{fused_mu.PLAIN_CALLS}, expected {want}")
+                out["launches"][f"flagship {dtype}"] = dict(fused_mu.LAUNCHES)
             check(np.isfinite(cost) and int(res.iterations) == iters,
                   f"flagship {dtype} {backend}: cost {cost}")
             results.setdefault(backend, []).append((secs, cost))
@@ -983,6 +1104,43 @@ def phase_flagship(card, out):
         print(f"[{card}] flagship {dtype} costs agree: rel {rel} (limit {limit})")
     del x, w, h
     _check_long_walks(card, out)
+    _check_kl_long_walks(card, out)
+
+
+def _check_kl_long_walks(card, out):
+    """K3 where its blocks walk farthest (LONG_WALKS: 40, 17 and 303 tiles
+    a split) on phase 3's ``bfloat16`` operands (2**-10 above bf16-exact
+    values): ``bfloat16`` (BF16) with the f32-recon control failing, and
+    ``float32`` and ``float32_fast`` (F32), each within cost rel 1e-5 of
+    ``kl_cost_plain``, bitwise on a rerun."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.utils.config import Precision
+
+    limit = MODE_LIMITS["bfloat16"][2]
+    spec = _modes()["bfloat16"]
+    for m, n, k in LONG_WALKS:
+        w, h, x = _walk_operands(m, n, k, "bfloat16", spec)
+        per = fused_mu.kl_split(m, n, k)[2]
+        for dtype in ("bfloat16", "float32", "float32_fast"):
+            prec = Precision(dtype)
+            kern, plain = _pairs(prec)["kl_cost"]
+            where = _where("kl_cost", w, h, f"[{dtype}, {per} tiles a split] ")
+            res, ref = _run_pair(kern, plain, w, h, x, where)
+            rel = _mode_err(res, ref)[0]
+            inst = _check_kl_mode(kern, w, h, x, prec, where)
+            what = f"rel err {rel} (limit {limit}), {inst}"
+            check(rel <= limit, f"{where}: {what}")
+            entry = {"tiles_per_split": per, "rel_err": rel, "instance": inst}
+            if dtype == "bfloat16":
+                c_rel = _mode_err(_pairs(spec.control)["kl_cost"][0](w, h, x), ref)[0]
+                check(c_rel > limit, f"{where}: the control (f32 recon) reads {c_rel}, within "
+                      f"the limit {limit}")
+                entry["control_rel"] = c_rel
+                what += f"; control (f32 recon) {c_rel}"
+            out["kernels"]["kl_cost"]["long_walks"][f"{dtype} {m}x{n}x{k}"] = entry
+            print(f"[{card}] {where}: {what}, bitwise-repeatable")
+        del w, h, x
+        torch.cuda.empty_cache()
 
 
 def tile_problem(m, k, n, tile, occ_frac, seed=0):
@@ -1527,11 +1685,13 @@ def phase_numerators(card, out):
                           "launches_of": (OOC_RUNS.get(mode), "kl_cost")})
                 ms["max_abs_err"] = max(ms["max_abs_err"], abs(float(res) - float(ref)))
                 ms["max_rel_err"] = ms["err"] = max(ms["err"], err)
-                what = f"rel err {err} (limit {cost_limit})"
+                inst = _check_kl_mode(kern, w, h, x, cost_prec, where)
+                what = f"rel err {err} (limit {cost_limit}), {inst}"
                 if (m, n, k) == block:
                     kms, pms = timed_pair(lambda: kern(w, h, x), lambda: plain(w, h, x))
                     b_ms, b_by = _mu_bound("kl_cost", w, h, x, cost_prec)
-                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+                    ms.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                              impl=_kl_impl(inst), instance=inst)
                     what = f"kernel {kms} ms, plain {pms} ms, bound {b_ms} ms ({b_by}); " + what
                 print(f"[{card}] {where}: {what}, bitwise-repeatable")
             del w, h, x
@@ -1900,6 +2060,13 @@ def main(argv=None) -> int:
             "bound_by": st["bound_by"],
             "library_ms": None,
             **({"impl": st["impl"]} if "impl" in st else {}),
+            **({"instance": st["instance"]} if "instance" in st else {}),
+            # K3: its launches on the reference, streamed and flagship solves
+            **({"solve_launches": {
+                "reference": main_launches[name],
+                "streamed": out["launches"]["oocore float32"][name],
+                "flagship": out["launches"]["flagship float32"][name]}}
+               if name == "kl_cost" else {}),
             # registers, shared memory and blocks an SM of each pass-1 instance
             **({"pass1": {label: v for label, v in out["pass1"].items()
                           if label.startswith(PASS1_OF[name] + "<")}}

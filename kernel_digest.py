@@ -4,14 +4,17 @@ of the port to each other bit for bit on one card.
 
     python3 kernel_digest.py --root PATH --out A.json   # nmf_tpu_torch under PATH
     python3 kernel_digest.py --compare A.json B.json    # exit 1 where they differ
+    python3 kernel_digest.py --compare A.json B.json --changed kl_cost
 
 With ``--root``, runs phases 2, 3, 8 and 9a of the ``chip_smoke.py`` beside
 this file (its shapes, modes and operands, its plain-version checks; no
 timing), importing ``nmf_tpu_torch`` and building its kernels from PATH,
 and records the SHA-256 of every kernel result by the check that computed
-it; then K1 and K2 once at the 10240^2 K=256 flagship under each GEMM
+it; then K1-K3 once at the 10240^2 K=256 flagship under each GEMM
 policy (phase 7's operands).  Two trees give equal digests exactly where
-their kernels give equal bits.
+their kernels give equal bits.  ``--compare`` counts equal, differing and
+unmatched checks per kernel (the kernel named in each check); with
+``--changed``, only the kernels named there may differ or be unmatched.
 """
 
 import argparse
@@ -73,13 +76,21 @@ def digest(root: pathlib.Path) -> dict:
                for s in ((10240, 10240), (10240, 256), (256, 10240)))
     for dtype in ("float32", "bfloat16", "float32_fast"):
         for name, (kern, _) in smoke._pairs(nt.Precision(dtype)).items():
-            if name != "kl_cost":
-                record(f"flagship {name} [{dtype}]", kern(w, h, x))
+            record(f"flagship {name} [{dtype}]", kern(w, h, x))
     torch.cuda.synchronize()
     return {"card": card, "digests": digests}
 
 
-def compare(a_path, b_path) -> int:
+KERNEL_NAMES = ("update_h", "update_w", "kl_cost", "h_numerator", "w_numerator")
+
+
+def kernel_of(check):
+    """The kernel a check's name names (its first word among KERNEL_NAMES),
+    or "?"."""
+    return next((w for w in check.replace("[", " ").split() if w in KERNEL_NAMES), "?")
+
+
+def compare(a_path, b_path, changed=()) -> int:
     a, b = (json.loads(pathlib.Path(p).read_text())["digests"] for p in (a_path, b_path))
     same = [k for k in a if b.get(k) == a[k]]
     differ = [k for k in a if k in b and b[k] != a[k]]
@@ -88,8 +99,14 @@ def compare(a_path, b_path) -> int:
         print(f"differs: {k}")
     for k in only:
         print(f"in one file only: {k}")
-    print(json.dumps({"equal": len(same), "differ": len(differ), "unmatched": len(only)}))
-    return 1 if differ or only else 0
+    by_kernel = {}
+    for what, keys in (("equal", same), ("differ", differ), ("unmatched", only)):
+        for k in keys:
+            counts = by_kernel.setdefault(kernel_of(k), {"equal": 0, "differ": 0, "unmatched": 0})
+            counts[what] += 1
+    print(json.dumps({"equal": len(same), "differ": len(differ), "unmatched": len(only),
+                      "by_kernel": by_kernel, "changed": list(changed)}))
+    return 1 if any(kernel_of(k) not in changed for k in (*differ, *only)) else 0
 
 
 def main(argv=None) -> int:
@@ -97,9 +114,11 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=pathlib.Path, help="tree whose nmf_tpu_torch to digest")
     ap.add_argument("--out", type=pathlib.Path, help="JSON file of the digests")
     ap.add_argument("--compare", nargs=2, metavar="JSON", help="two digest files to compare")
+    ap.add_argument("--changed", nargs="*", default=(), choices=KERNEL_NAMES,
+                    help="kernels whose results may differ between the two files")
     args = ap.parse_args(argv)
     if args.compare:
-        return compare(*args.compare)
+        return compare(*args.compare, changed=tuple(args.changed))
     if not (args.root and args.out):
         ap.error("give --root and --out, or --compare")
     import torch

@@ -16,24 +16,25 @@
 //
 // What they keep out of device memory: the M x N reconstruction W H and the
 // quotient Z = X / max(W H, eps).  Each block recomputes its 64 x 64 tile of
-// W H in registers, forms Z in shared memory and contracts it at once, so X
-// is the only M x N stream (read once per kernel).
+// W H in registers, forms Z in shared memory and contracts it at once (K3:
+// sums its terms at once), so X is the only M x N stream (read once per
+// kernel).
 //
 // What bounds them on this card.  One half-update costs ~4 M N K flop (two
-// GEMMs) against ~4 M N bytes of X (2 for bf16 X, 1 for uint8 codes).  On
-// the SIMT FMA units (~67 TFLOP/s on an H100 SXM at 700 W) that is
-// compute-bound from K ~ 30; on the tensor cores (989 TFLOP/s bf16) the
-// bytes bound it below K ~ 500.  K1/K2 pass 1 under the bfloat16 and
-// float32_fast policies (Mode::BF16, Mode::SPLIT3) runs both products of a
-// tile on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate;
-// mma_tile.cuh; split3 three mma a k-step); the float32 policy, and K3, run
-// on the SIMT units: 4 x 4 (W H) and 4 x R (the contraction) register
-// tiles fed from shared memory.  K1/K2's f32-GEMM pass 1 (simt_tile.cuh)
-// reads its fragments as 16-byte vectors, stages f32 operands by cp.async
-// with the next copies in flight beside the FMAs, and keeps the block's
-// fixed operand resident; the tensor-core kernels and K3 wait for each
-// staging step's global loads (the latency, not the tensor cores, bounds
-// BF16).  None uses TMA or wgmma.
+// GEMMs) against ~4 M N bytes of X (2 for bf16 X, 1 for uint8 codes); the
+// cost ~2 M N K flop and two accurate logf an element.  On the SIMT FMA
+// units (~67 TFLOP/s on an H100 SXM at 700 W) that is compute-bound from
+// K ~ 30; on the tensor cores (989 TFLOP/s bf16) the bytes bound it below
+// K ~ 500.  Under the bfloat16 and float32_fast policies (Mode::BF16,
+// Mode::SPLIT3) K1/K2's pass 1 runs both products of a tile on the tensor
+// cores (mma.sync m16n8k16, bf16 in, f32 accumulate; mma_tile.cuh; split3
+// three mma a k-step), and under bfloat16 K3 its recon; f32 GEMMs run on
+// the SIMT units: 4 x 4 (W H) and 4 x R (the contraction) register tiles
+// fed from shared memory (simt_tile.cuh), fragments read as 16-byte
+// vectors, f32 operands staged by cp.async with the next copies in flight
+// beside the FMAs, the block's fixed operand resident.  The tensor-core
+// kernels wait for each step's W staging loads (the latency, not the
+// tensor cores, bounds BF16).  None uses TMA or wgmma.
 //
 // Modes, as the TPU kernels have them, applied at staging (where a value is
 // written to shared memory), outside the inner FMA loops:
@@ -45,34 +46,34 @@
 //   X      f32, bf16, or uint8 codes with per-column f32 scales, dequantized
 //          in register as float(q) * scale[col].
 //   GEMM   float32: operands as they are.  bfloat16: each staged W, H and Z
-//          value rounded to bf16 (__float2bfloat16_rn, the casts' rounding);
-//          K1/K2 stage them as bf16 and multiply on the tensor cores (bf16
-//          mma, f32 accumulation); K3 fmaf's them in f32, which is the same
-//          up to the order of the sum (a product of two bf16 values is exact
-//          in f32).  float32_fast (split3): each operand split into
+//          value rounded to bf16 (__float2bfloat16_rn, the casts' rounding),
+//          staged as bf16 and multiplied on the tensor cores (bf16 mma, f32
+//          accumulation).  float32_fast (split3): each operand split into
 //          hi = bf16(a), lo = bf16(a - hi), and each product taken as
 //          hi*bh + hi*bl + lo*bh (the lo*lo term dropped, as _kdot): K1/K2
 //          stage hi and lo as two bf16 planes and run three mma a k-step
 //          (mma_tile.cuh); K3 takes the true-f32 recon (below).
-//   K3     recon in true f32 under both f32 policies, on bf16-rounded
-//          inputs under bfloat16 (fused_mu.py:586-591).
+//   K3     recon in true f32 under both f32 policies (Mode::F32 or ANY),
+//          on bf16-rounded inputs under bfloat16 (Mode::BF16: the tensor
+//          cores) (fused_mu.py:586-591).
 //
 // The pass-1 kernels are instantiated per Mode (below): F32, the all-f32
 // main path; ANY, f32 GEMMs on bf16 state or bf16/uint8 X as runtime
 // choices; and SPLIT3 and BF16, the float32_fast and bfloat16 GEMM policies
 // on the tensor cores for every state dtype and X storage (both runtime
 // choices).  Not the cross product of dtypes, rounding and chunk widths: 40
-// partial kernels in all.
+// partial kernels in all, and 15 of K3 (F32, ANY, BF16; no SPLIT3).
 //
 // Design against the TPU kernel.  Pallas runs its grid in order and carries
-// the K x bn (or bm x K) accumulator across the innermost grid axis.  CUDA
+// the K x bn (or bm x K) accumulator (K3: one scalar) across the grid.  CUDA
 // blocks run in no order, so a block walks its share of the contraction
-// axis in a loop instead.  At the reference shape N is only 350 (6 column
-// tiles), so that axis is also split across a fixed number of blocks; each
-// writes an f32 partial and a second pass sums the partials IN A FIXED ORDER
-// and applies the epilogue.  No float atomics anywhere: the same inputs give
-// the same bits on every run, in every mode.  The split count comes from the
-// shape alone (the Python planner), never from the card.
+// axis in a loop instead (K3: K1's walk, a run of M tiles under 64
+// columns).  At the reference shape N is only 350 (6 column tiles), so that
+// axis is also split across a fixed number of blocks; each writes an f32
+// partial (K3: one float a block) and a second pass sums the partials IN A
+// FIXED ORDER and applies the epilogue.  No float atomics anywhere: the same
+// inputs give the same bits on every run, in every mode.  The split count
+// comes from the shape alone (the Python planner), never from the card.
 //
 // Numerics, as the reference kernels have them: the clamp is `v < eps ? eps
 // : v` so NaN stays NaN (fmaxf would return eps); eps arrives as a C float
@@ -83,10 +84,10 @@
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 //
-// The pass-1 bodies and their dispatch live in pass1.cuh (with
-// mma_tile.cuh's tensor-core pieces and simt_tile.cuh's SIMT ones), shared
-// with K5 (tile_sparse.cu), which walks them over a sweep plan; here they
-// walk a dense X.  K3's recon_tile, the staging rules and Mode live in
+// The pass-1 bodies, K3's cost walk and their dispatch live in pass1.cuh
+// (with mma_tile.cuh's tensor-core pieces and simt_tile.cuh's SIMT ones),
+// shared with K5 (tile_sparse.cu), which walks them over a sweep plan; here
+// they walk a dense X.  The staging rules, Mode and K3's terms live in
 // mu_tile.cuh.
 
 #include <atomic>
@@ -193,39 +194,21 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-// K3 pass 1: one f32 partial per 64 x 64 tile of the cost.  The recon is
-// never split: true f32, or bf16-rounded inputs under bfloat16 (MODE is F32
-// or ANY).
-template <Mode MODE>
-__global__ void __launch_bounds__(THREADS)
-    kl_partial(Operands o, float* __restrict__ partials) {
-  __shared__ float ws[KS * WS_STRIDE];
-  __shared__ float hs[KS * TILE];
+// K3 pass 1 (pass1.cuh: kl_walk): block (64-wide column block, 1, split)
+// walks the split's run of M tiles as K1's does and writes one partial, its
+// threads' sums added by a fixed tree, to slot split * gridDim.x + column
+// block.
+template <int R, Mode MODE>
+__global__ void __launch_bounds__(THREADS, KL_MIN_BLOCKS<R, MODE>)
+    kl_partial(Operands o, float* __restrict__ partials, int tiles_per_split) {
   __shared__ float red[THREADS];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * TILE, m0 = blockIdx.y * TILE;
-  float s[4][4];
-  recon_tile<MODE>(o, m0, n0, ws, hs, s);
-  float t = 0.f;
-  with_x<MODE>(o, [&](auto x) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gm = m0 + ty + 16 * r, gn = n0 + tx + 16 * c;
-        if (gm < o.m && gn < o.n) {  // padding adds nothing, not even +y
-          const float xv = x((size_t)gm * o.n + gn, gn);
-          const float y = clamp_eps(s[r][c], o.eps);
-          const float xlog = xv > 0.f ? xv * (logf(xv) - logf(y)) : 0.f;
-          t += xlog - xv + y;
-        }
-      }
-  });
+  // the walk's partial pointer is K1's and never written here
+  const float t = kl_walk<R, MODE>(o, DenseWalk<true>(o, partials, tiles_per_split));
   const float sum = block_sum(t, red);
-  if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = sum;
+  if (threadIdx.x == 0) partials[blockIdx.z * gridDim.x + blockIdx.x] = sum;
 }
 
-// K3 pass 2: one block sums the partials, strided then by tree: fixed order.
+// K3 pass 2: one block sums the slots, strided then by tree: fixed order.
 __global__ void __launch_bounds__(THREADS)
     kl_final(const float* __restrict__ partials, int count,
              float* __restrict__ out) {
@@ -234,6 +217,43 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = threadIdx.x; i < count; i += THREADS) t += partials[i];
   const float sum = block_sum(t, red);
   if (threadIdx.x == 0) out[0] = sum;
+}
+
+// K3 under bfloat16 on f32 state: W and H rounded to bf16 (nearest even,
+// the casts' rounding) once a call, into the caller's scratch (wb, hb), so
+// that every step of the walk stages bf16 bits by cp.async.
+__global__ void __launch_bounds__(THREADS)
+    to_bf16(const float* __restrict__ w, size_t mk, const float* __restrict__ h, size_t kn,
+            __nv_bfloat16* __restrict__ wb, __nv_bfloat16* __restrict__ hb) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mk + kn;
+       i += (size_t)gridDim.x * blockDim.x) {
+    if (i < mk)
+      wb[i] = __float2bfloat16_rn(w[i]);
+    else
+      hb[i - mk] = __float2bfloat16_rn(h[i - mk]);
+  }
+}
+
+// K3's pass-1 launches per Mode (nmf_kl_launches), counted on the host as
+// K1/K2's are.
+std::atomic<int> kl_launches[MODES];
+
+// The Mode of K3 on a call's operands: BF16 under bfloat16, else F32 for
+// all-f32 operands and ANY (float32_fast takes the f32 recon).
+Mode kl_mode_of(const Operands& o, int gemm) {
+  return gemm == GEMM_BF16 ? Mode::BF16 : all_f32(o) ? Mode::F32 : Mode::ANY;
+}
+
+// f(std::integral_constant<Mode, MODE>, std::integral_constant<int, R>) for
+// a K3 instance; SPLIT3 has none.
+template <typename F>
+cudaError_t at_kl(int mode, int kc, F&& f) {
+  return at_mode(mode, [&](auto m) {
+    if constexpr (decltype(m)::value == Mode::SPLIT3)
+      return cudaErrorInvalidValue;
+    else
+      return at_width(kc, [&](auto r) { return f(m, r); });
+  });
 }
 
 template <bool H, int R, Mode MODE>
@@ -384,12 +404,22 @@ int nmf_w_update(const void* w, const void* h, const void* x,
                        numerator_only, device, stream);
 }
 
-// K3.  partials has one float per 64 x 64 tile; out is one float.  gemm as
-// K1; split3 takes the true-f32 recon, as float32.
+// K3.  w, h, x, scales, state_bf16, x_kind and gemm as K1 (float32_fast
+// takes the true-f32 recon, as float32); kc the chunk width (K <= kc: H
+// resident); the M tiles walked in `splits` runs of tiles_per_split
+// (fused_mu.kl_split); partials (splits * ceil(n / 64),) f32 scratch, one
+// slot a block; out one float.  scratch: under bfloat16 on f32 state,
+// (ceil(m k / 8) * 8 + k n,) bf16 for W and H rounded; else not read (may
+// be null).
 int nmf_kl_cost(const void* w, const void* h, const void* x,
-                const float* scales, float* partials, float* out, int m, int n,
-                int k, float eps, int state_bf16, int x_kind, int gemm,
-                int device, void* stream) {
+                const float* scales, float* partials, void* scratch, float* out,
+                int m, int n, int k, int kc, int splits, int tiles_per_split,
+                float eps, int state_bf16, int x_kind, int gemm, int device,
+                void* stream) {
+  const int m_tiles = (m + TILE - 1) / TILE;
+  if (splits < 1 || splits > 65535 || tiles_per_split < 1 ||
+      (splits - 1) * tiles_per_split >= m_tiles || splits * tiles_per_split < m_tiles)
+    return cudaErrorInvalidValue;  // every split non-empty, every M tile walked once
   Operands o;
   cudaError_t err = make_operands(w, h, x, scales, m, n, k, state_bf16, x_kind,
                                   gemm, eps, &o);
@@ -397,15 +427,58 @@ int nmf_kl_cost(const void* w, const void* h, const void* x,
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE);
-  if (all_f32(o) && !o.round_bf16)
-    kl_partial<Mode::F32><<<grid, THREADS, 0, st>>>(o, partials);
-  else
-    kl_partial<Mode::ANY><<<grid, THREADS, 0, st>>>(o, partials);
-  err = cudaGetLastError();
+  const Mode mode = kl_mode_of(o, gemm);
+  if (mode == Mode::BF16 && !o.state_bf16) {  // the BF16 walk stages bf16 bits
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    const size_t mk = (size_t)m * k, kn = (size_t)k * n;
+    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(scratch);
+    __nv_bfloat16* hb = wb + (mk + 7) / 8 * 8;  // on 16 bytes
+    to_bf16<<<pass_blocks(mk + kn), THREADS, 0, st>>>(static_cast<const float*>(w), mk,
+                                                      static_cast<const float*>(h), kn, wb, hb);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    o.w = wb;
+    o.h = hb;
+    o.state_bf16 = 1;
+  }
+  const dim3 grid((n + TILE - 1) / TILE, 1, splits);
+  err = at_kl(static_cast<int>(mode), kc, [&](auto md, auto r) {
+    constexpr Mode MODE = decltype(md)::value;
+    constexpr int R = decltype(r)::value;
+    constexpr size_t smem = kl_smem_bytes<R, MODE>();
+    auto kernel = kl_partial<R, MODE>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, THREADS, smem, st>>>(o, partials, tiles_per_split);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
-  kl_final<<<1, THREADS, 0, st>>>(partials, (int)(grid.x * grid.y), out);
+  ++kl_launches[static_cast<int>(mode)];
+  kl_final<<<1, THREADS, 0, st>>>(partials, (int)(grid.x * grid.z), out);
   return cudaGetLastError();
+}
+
+// K3's pass-1 launches in Mode `mode` since the library loaded or the last
+// reset (0 for SPLIT3, which has no instance); -1 for a Mode out of range.
+int nmf_kl_launches(int mode) {
+  return mode < 0 || mode >= MODES ? -1 : kl_launches[mode].load();
+}
+
+void nmf_reset_kl_launches() {
+  for (auto& n : kl_launches) n = 0;
+}
+
+// out[4] = registers, dynamic shared memory (bytes), resident blocks an
+// SM, local memory a thread (bytes) of K3's pass-1 kernel in Mode `mode`
+// at chunk width kc, on the current device; an error for SPLIT3.
+int nmf_kl_info(int mode, int kc, int* out) {
+  return at_kl(mode, kc, [&](auto md, auto r) {
+    constexpr Mode MODE = decltype(md)::value;
+    constexpr int R = decltype(r)::value;
+    auto kernel = kl_partial<R, MODE>;
+    return kernel_info(reinterpret_cast<const void*>(kernel), kl_smem_bytes<R, MODE>(), out);
+  });
 }
 
 }  // extern "C"

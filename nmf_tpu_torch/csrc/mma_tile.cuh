@@ -1,6 +1,6 @@
 // Warp-level tensor-core pieces of K1/K2's bfloat16 and float32_fast modes
 // (Mode::BF16 and Mode::SPLIT3; fused_mu.cu, and K5 in tile_sparse.cu
-// through pass1.cuh): bf16 staging in shared memory, ldmatrix fragment
+// through pass1.cuh; K3's bfloat16 recon takes the staging and W H): bf16 staging in shared memory, ldmatrix fragment
 // loads, the mma.sync m16n8k16 (bf16 in, f32 accumulate) wrapper, the tile
 // steps built from them (staging, W H from resident blocks or streamed, the
 // ratio Z = X / max(W H, eps), the warp tilings of the 64-deep contraction
@@ -174,8 +174,8 @@ __device__ __forceinline__ void mma_split3(float (&acc)[4], const uint32_t (&ah)
 // to an ulp a step: K / 16 steps of W H at K = 2048 moved the bf16-state
 // results past their limit.  The contraction's sums run over a block's
 // whole walk (4 steps a tile, 300 tiles and more on a tall or wide X), so
-// it is FRESH too; only bfloat16's W H from a resident block (K <= 256: at
-// most 16 steps, started afresh each tile) accumulates in the mma (split3's
+// it is FRESH too; only K1/K2's bfloat16 W H from a resident block (K <= 256:
+// at most 16 steps, started afresh each tile) accumulates in the mma (split3's
 // three mma a step would triple that chain's drift).  UNROLL k-steps
 // are unrolled (and their fragments loaded ahead): one where the
 // accumulators already hold many registers, or FRESH holds a sum a step
@@ -454,12 +454,14 @@ __device__ __forceinline__ void stage_x(const Operands& o, const XSrc& x, float*
 // b [k][LDB] (n contiguous) already in shared memory, depth K rounded up
 // to 16 (their rows past K are 0).  UNROLL as mma_panel's: 1 beside
 // K1/K2's 32 or 64 accumulators.  PA, PB > 0: split3 planes (mma_panel's),
-// each k-step summed apart; else W H accumulates in the mma.
-template <int LDA, int LDB, int UNROLL, int PA = 0, int PB = 0>
+// each k-step summed apart; else W H accumulates in the mma, or (FRESH:
+// K3, whose cost adds up every recon of X, so that a drift of each one the
+// same way would add up too) each k-step is summed apart.
+template <int LDA, int LDB, int UNROLL, int PA = 0, int PB = 0, bool FRESH = false>
 __device__ __forceinline__ void recon_resident(const Operands& o, const bf16* a, const bf16* b,
                                                float (&y)[1][4][4]) {
   const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
-  mma_panel<1, 4, false, true, LDA, LDB, false, UNROLL, PA, PB>(y, a + 16 * wm * LDA,
+  mma_panel<1, 4, false, true, LDA, LDB, FRESH, UNROLL, PA, PB>(y, a + 16 * wm * LDA,
                                                                 b + 32 * wn, (o.k + 15) & ~15);
 }
 

@@ -1,5 +1,6 @@
 // SIMT pieces of K1/K2's pass 1 under f32 GEMMs (Mode::F32 and Mode::ANY;
-// fused_mu.cu, and K5 in tile_sparse.cu through pass1.cuh), staged for
+// fused_mu.cu, and K5 in tile_sparse.cu through pass1.cuh; K3's f32 recon
+// takes the staging and W H), staged for
 // Hopper's shared memory and its asynchronous copies.  The float32 policy has no tensor-core form (TF32 keeps ~10 bits),
 // so both products of a tile run as true IEEE f32 FMAs on the SIMT units.
 //
@@ -134,24 +135,24 @@ __device__ __forceinline__ void stage(Src src, int r0, int c0, int rlim, int cli
 }
 
 // W (rows r0.. below rlim, columns k0..) or H (rows k0.., columns c0..
-// below clim) in the state dtype, and a step's X, staged by stage(); f32
-// GEMMs, so no rounding.
+// below clim) in the state dtype, and a step's X ([TILE][LD]), staged by
+// stage(); f32 GEMMs, so no rounding.
 template <Mode MODE, int ROWS, int COLS, int LD>
 __device__ __forceinline__ void stage_w(const Operands& o, int r0, int k0, int rlim, float* dst) {
-  with_state<MODE>(o.w, o, [&](auto w, auto) {
+  with_state<MODE>(o.w, o, [&](auto w) {
     stage<ROWS, COLS, LD>(w, r0, k0, rlim, o.k, o.k, dst);
   });
 }
 template <Mode MODE, int ROWS, int COLS, int LD>
 __device__ __forceinline__ void stage_h(const Operands& o, int k0, int c0, int clim, float* dst) {
-  with_state<MODE>(o.h, o, [&](auto h, auto) {
+  with_state<MODE>(o.h, o, [&](auto h) {
     stage<ROWS, COLS, LD>(h, k0, c0, o.k, clim, o.n, dst);
   });
 }
-template <Mode MODE>
+template <Mode MODE, int LD = SLD>
 __device__ __forceinline__ void stage_xs(const Operands& o, const XSrc& x, float* xs) {
   with_x<MODE>(o, x.p, [&](auto src) {
-    stage<TILE, TILE, SLD>(src, x.r0, x.c0, x.rlim, x.clim, x.stride, xs);
+    stage<TILE, TILE, LD>(src, x.r0, x.c0, x.rlim, x.clim, x.stride, xs);
   });
 }
 

@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles each source (``fused_mu.cu``: K1-K3; ``tile_sparse.cu``:
 K5; both include ``pass1.cuh``, K1/K2's pass 1 for a dense walk or a sweep
-plan's, built from the tensor-core pieces of ``mma_tile.cuh``, the SIMT
-f32-GEMM pieces of ``simt_tile.cuh`` and ``mu_tile.cuh``) into an object,
+plan's and K3's cost walk, built from the tensor-core pieces of
+``mma_tile.cuh``, the SIMT f32-GEMM pieces of ``simt_tile.cuh`` and
+``mu_tile.cuh``) into an object,
 all at once in parallel,
 and links them into one shared library with a plain C interface at first
 use, under ``build/nmf_tpu_torch/<hash>/`` beside the package (the hash
@@ -55,9 +56,14 @@ _SIGNATURES = {
     # state_bf16, x_kind, gemm, numerator_only, device; stream
     "nmf_h_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
     "nmf_w_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
-    # w, h, x, scales, partials, out; m, n, k; eps; state_bf16, x_kind,
-    # gemm, device; stream
-    "nmf_kl_cost": ([_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P], _I),
+    # w, h, x, scales, partials, scratch, out; m, n, k, kc, splits, per;
+    # eps; state_bf16, x_kind, gemm, device; stream
+    "nmf_kl_cost": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    # K3's Mode: pass-1 launches since the last reset; Mode, kc, out[4]:
+    # registers, dynamic shared memory, blocks an SM, local memory
+    "nmf_kl_launches": ([_I], _I),
+    "nmf_reset_kl_launches": ([], None),
+    "nmf_kl_info": ([_I, _I, _P], _I),
     # w, h, tiles, perm, rb, cb, part, out; mp, np, k, bm, bn, n_tiles,
     # steps, per, kc; eps; state_bf16, x_kind, gemm, device; stream
     "nmf_h_sweep": ([_P] * 8 + [_I] * 9 + [_F] + [_I] * 4 + [_P], _I),

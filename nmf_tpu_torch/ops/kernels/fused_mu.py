@@ -6,7 +6,8 @@ results, computed on Hopper by hand-written CUDA kernels instead of Pallas.
 * ``update_h_fused`` (K1) and ``update_w_fused`` (K2): one half-update each,
   without materialising ``W@H`` or ``X / W@H`` in device memory; with
   ``numerator_only=True`` the f32 numerator alone, no epilogue.
-* ``kl_cost_fused`` (K3): the KL cost, reduced tile by tile.
+* ``kl_cost_fused`` (K3): the KL cost, K1's walk with the cost's terms
+  summed in place of the contraction, one partial a block.
 
 Every precision policy of the TPU kernels: W and H in f32 or bf16 (the
 result takes their dtype); X as an f32 or bf16 tensor or a ``(uint8 codes,
@@ -15,8 +16,9 @@ GEMMs in ``float32``, ``float32_fast`` (split3) or ``bfloat16``.  Under
 ``bfloat16`` and ``float32_fast`` the two products of K1's and K2's first
 pass run on the tensor cores (``mma.sync`` m16n8k16, bf16 in, f32
 accumulate; ``csrc/mma_tile.cuh``; split3 as three products a step on bf16
-hi and lo planes), in every state dtype, X storage and ``numerator_only``;
-``float32``, and K3, run on the SIMT units.
+hi and lo planes), in every state dtype, X storage and ``numerator_only``,
+and under ``bfloat16`` K3's recon too; ``float32`` GEMMs, and K3's true-f32
+recon under both f32 policies, run on the SIMT units.
 
 Each wrapper takes its plain version (:mod:`nmf_tpu_torch.ops.mu` and
 :func:`kl_cost_plain`, on dequantized X for a pair) only when its tensors lie
@@ -49,6 +51,7 @@ __all__ = [
     "reset_counts",
     "supported",
     "plan_split",
+    "kl_split",
     "update_h_fused",
     "update_w_fused",
     "mu_step_fused",
@@ -114,6 +117,21 @@ def plan_split(out_tiles: int, k_chunks: int, walk_tiles: int) -> Tuple[int, int
     want = min(walk_tiles, max(1, _cdiv(TARGET_BLOCKS, base)))
     per = _cdiv(walk_tiles, want)
     return _cdiv(walk_tiles, per), per
+
+
+def kl_split(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
+    """K3's launch plan from the shape alone: ``(kc, splits,
+    tiles_per_split, slots)``.
+
+    A K3 block owns 64 columns of the cost and walks a run of M tiles, as
+    K1's side does; the recon needs all of K, so there is no k-chunk axis
+    (``kc`` covers K up to ``MAX_CHUNK``, above which W H streams both
+    operands).  The runs are cut by K1's planner with one chunk; each block
+    writes one partial, so ``slots`` is the grid's block count.
+    """
+    n_tiles = _cdiv(n, TILE)
+    splits, per = plan_split(n_tiles, 1, _cdiv(m, TILE))
+    return chunk_width(k), splits, per, splits * n_tiles
 
 
 def _dense_x(x) -> torch.Tensor:
@@ -353,15 +371,19 @@ def kl_cost_fused(
     if not supported(k):
         PLAIN_CALLS["kl_cost"] += 1
         return kl_cost_plain(x, w, h, eps, precision)
-    partials = torch.empty(
-        (_cdiv(m, TILE) * _cdiv(n, TILE),), dtype=torch.float32, device=w.device
-    )
+    kc, splits, per, slots = kl_split(m, n, k)
+    partials = torch.empty((slots,), dtype=torch.float32, device=w.device)
+    # under bfloat16 on f32 state the kernel rounds W and H to bf16 once
+    # into this scratch (H's copy starting on 16 bytes)
+    scratch = None
+    if precision.matmul_dtype == "bfloat16" and w.dtype == torch.float32:
+        scratch = torch.empty((_cdiv(m * k, 8) * 8 + k * n,), dtype=torch.bfloat16, device=w.device)
     out = torch.empty((), dtype=torch.float32, device=w.device)
     lib = _lib()
     rc = lib.nmf_kl_cost(
         w.data_ptr(), h.data_ptr(), xd.data_ptr(), _ptr(scales), partials.data_ptr(),
-        out.data_ptr(), m, n, k, float(eps), *_modes(w, xd, precision),
-        _index(w), _stream(w),
+        _ptr(scratch), out.data_ptr(), m, n, k, kc, splits, per, float(eps),
+        *_modes(w, xd, precision), _index(w), _stream(w),
     )
     _raise_on(lib, rc, "kl_cost")
     LAUNCHES["kl_cost"] += 1

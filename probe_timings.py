@@ -3,6 +3,7 @@
 
     python3 probe_timings.py sweep-per                 # K5 against its chunk length
     python3 probe_timings.py flagship --root PATH      # K1/K2 of the port under PATH
+    python3 probe_timings.py kl --root PATH            # K3 of the port under PATH
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -14,6 +15,13 @@ each result's largest relative difference to the wrapper's.
 flagship (``chip_smoke.py`` phase 7's operands), importing
 ``nmf_tpu_torch`` and building its kernels from PATH: run it for two trees
 in turns (A, B, B, A) in one call to compare them on one card.
+
+``kl``: K3 (``kl_cost_fused``) of the tree under PATH beside
+``kl_cost_plain`` and its bound, at the reference shape in each of phase
+3's modes (its operands), at the streamed block 1025 x 65408 x 32 in each
+mode of the streamed cost pass (phase 9a's operands, f32 recon), and at
+the flagship under ``float32``, ``bfloat16`` and ``float32_fast`` (phase
+7's operands); run it for two trees in turns, as ``flagship``.
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -95,9 +103,45 @@ def flagship(cs, card, root):
     print(json.dumps({"card": card, "probe": "flagship", "root": str(root), "ms": res}), flush=True)
 
 
+def kl(cs, card, root):
+    import dataclasses
+
+    import torch
+
+    import nmf_tpu_torch as nt
+
+    pkg = pathlib.Path(nt.__file__).resolve()
+    cs.check(root.resolve() in pkg.parents, f"nmf_tpu_torch came from {pkg}, not from {root}")
+    res = {}
+
+    def time_cost(label, prec, w, h, x):
+        kern, plain = cs._pairs(prec)["kl_cost"]
+        b_ms, b_by = cs._mu_bound("kl_cost", w, h, x, prec)
+        res[label] = {"ms": cs.event_ms(lambda: kern(w, h, x)),
+                      "plain_ms": cs.event_ms(lambda: plain(w, h, x)),
+                      "bound_ms": b_ms, "bound_by": b_by}
+
+    m, n, k = cs.SHAPES[0]
+    time_cost("reference float32", nt.Precision(), *cs._operands(m, n, k))
+    for mode, spec in cs._modes().items():
+        time_cost(f"reference {mode}", spec.prec, *cs._mode_operands(m, n, k, mode, spec))
+    m, n, k = cs.OOC_SHAPE[0], cs.OOC_BLOCK, cs.OOC_SHAPE[2]
+    for mode, spec in cs._num_modes().items():
+        if mode in cs.OOC_COST_MODES:
+            time_cost(f"streamed {mode}", dataclasses.replace(spec.prec, matmul_dtype="float32"),
+                      *cs._num_operands(m, n, k, mode, spec))
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, w, h = (torch.rand(s, generator=g, device="cuda")
+               for s in ((10240, 10240), (10240, 256), (256, 10240)))
+    for dtype in ("float32", "bfloat16", "float32_fast"):
+        time_cost(f"flagship {dtype}", nt.Precision(dtype), w, h, x)
+    print(json.dumps({"card": card, "probe": "kl", "root": str(root), "ms": res}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("sweep-per", "flagship"))
+    ap.add_argument("probe", choices=("sweep-per", "flagship", "kl"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -113,8 +157,10 @@ def main(argv=None) -> int:
     card = cs.card_name_and_limit()
     if args.probe == "sweep-per":
         sweep_per(cs, card)
-    else:
+    elif args.probe == "flagship":
         flagship(cs, card, args.root)
+    else:
+        kl(cs, card, args.root)
     return 0
 
 

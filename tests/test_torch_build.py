@@ -187,13 +187,101 @@ def test_sweep_counters_are_bound():
 
 def test_phase1_lists_every_pass1_kernel():
     """Phase 1 reads registers, shared memory and blocks an SM of K1's, K2's
-    and K5's pass-1 kernels, each through its library query."""
+    and K5's pass-1 kernels, each through its library query, and of K3's
+    (``nmf_kl_info``)."""
     smoke = _chip_smoke()
     assert [k[0] for k in smoke.PASS1_KERNELS] == [
         "h_update_partial", "w_update_partial", "h_sweep_partial", "w_sweep_partial"]
     for _, _, query in smoke.PASS1_KERNELS:
         assert query in _build._SIGNATURES
-    assert set(smoke.PASS1_OF.values()) == {k[0] for k in smoke.PASS1_KERNELS}
+    assert set(smoke.PASS1_OF.values()) == {k[0] for k in smoke.PASS1_KERNELS} | {"kl_partial"}
+
+
+def test_phase1_lists_the_k3_instances():
+    """Phase 1 lists K3's 15 instances (Modes F32, ANY and BF16 at every
+    chunk width; no SPLIT3, whose cost takes the f32 recon) through
+    ``nmf_kl_info``, and the result line gives them as K3's ``pass1``."""
+    smoke = _chip_smoke()
+    assert smoke.KL_MODES == ("F32", "ANY", "BF16")
+    assert set(smoke.KL_MODES) <= set(smoke.MODES) and "SPLIT3" not in smoke.KL_MODES
+    assert smoke.PASS1_OF["kl_cost"] == "kl_partial"
+    assert "nmf_kl_info(MODES.index(mode), 16 * r, vals)" in (REPO / "chip_smoke.py").read_text()
+
+
+@pytest.mark.parametrize(
+    "name,label",
+    [
+        ("_ZN44_GLOBAL__N__73101337_11_fused_mu_cu_nmf_tile10kl_partialILi16ELNS_4ModeE3EEEvNS_8Ope"
+         "randsEPfi", "kl_partial<R=16,BF16>"),
+        ("_ZN12_GLOBAL__N_110kl_partialILi1ELNS_4ModeE0EEEvNS_8OperandsEPfi", "kl_partial<R=1,F32>"),
+        ("_ZN12_GLOBAL__N_110kl_partialILi8ELNS_4ModeE1EEEvNS_8OperandsEPfi", "kl_partial<R=8,ANY>"),
+        ("_ZN12_GLOBAL__N_18kl_finalEPKfiPf", "kl_final"),
+    ],
+)
+def test_k3_kernel_names_give_their_mode(name, label):
+    """K3's pass-1 instances, templated on the chunk width and the Mode, as
+    ptxas and cuobjdump name them."""
+    assert _chip_smoke()._kernel_label(name) == label
+
+
+@pytest.mark.parametrize(
+    "mode,want",
+    [("float32", "F32"), ("bfloat16", "BF16"), ("float32_fast", "F32"), ("x_bfloat16", "ANY"),
+     ("x_int8", "ANY"), ("float32_fast_x_bf16", "ANY"), ("float32_fast_bf16_state", "ANY"),
+     ("bf16_full_state", "BF16")],
+)
+def test_k3_launch_counts_give_the_instance(mode, want):
+    """The Mode each of phase 3's modes must run K3 in: BF16 under
+    bfloat16 (bf16 state too), F32 on f32 operands under both f32
+    policies, ANY for bf16 X, int8 X or bf16 state under f32 recon; the
+    library's launches per Mode (``nmf_kl_launches``) name it."""
+    import torch
+
+    smoke = _chip_smoke()
+    spec = smoke._modes().get(mode) or smoke._num_modes()[mode]
+    w = torch.zeros((2, 2), dtype=spec.state)
+    x = ((torch.zeros((2, 2), dtype=torch.uint8), torch.ones(2)) if spec.xform == "int8"
+         else torch.zeros((2, 2), dtype=torch.bfloat16 if spec.xform == "bf16" else torch.float32))
+    assert smoke.kl_mode_expected(spec.prec, w, x) == want
+    counts = [int(m == want) * 8 for m in smoke.MODES]
+    assert smoke._mode_of_counts(counts, "kl_cost") == want
+    assert smoke.kl_instance(want, 128) == f"kl_partial<R=8,{want}>"
+    assert smoke._kl_impl(smoke.kl_instance(want, 128)) == (
+        "mma.sync bf16" if want == "BF16" else "simt")
+
+
+def test_k3_counters_are_bound():
+    """K3's launch counters and instance info are exported with their C
+    types."""
+    assert _build._SIGNATURES["nmf_kl_launches"][0] == [_build._I]
+    assert _build._SIGNATURES["nmf_reset_kl_launches"][0] == []
+    assert _build._SIGNATURES["nmf_kl_info"][0] == [_build._I, _build._I, _build._P]
+    src = (CSRC / "fused_mu.cu").read_text()
+    for name in ("nmf_kl_launches", "nmf_reset_kl_launches", "nmf_kl_info"):
+        assert re.search(rf"\b{name}\(", src)
+
+
+def test_k3_entry_takes_the_split():
+    """``nmf_kl_cost``'s C parameters match the bound signature: the chunk
+    width, the splits and the tiles a split (``fused_mu.kl_split``) and a
+    scratch for W and H rounded to bf16, beside K1's operands and modes."""
+    args = _build._SIGNATURES["nmf_kl_cost"][0]
+    src = (CSRC / "fused_mu.cu").read_text()
+    c_args = [a.split()[-1].lstrip("*") for a in
+              re.search(r"int nmf_kl_cost\(([^)]*)\)", src).group(1).split(",")]
+    assert len(args) == len(c_args) == 19
+    assert c_args[4:6] == ["partials", "scratch"]
+    assert c_args[7:14] == ["m", "n", "k", "kc", "splits", "tiles_per_split", "eps"]
+    assert args[:7] == [_build._P] * 7
+    assert args[7:13] == [_build._I] * 6 and args[13] == _build._F
+
+
+def test_recon_tile_is_gone():
+    """K3 stages through the pass-1 pieces: the first K3's one-tile recon
+    and its transposed W slice are gone from every source."""
+    for path in LISTED:
+        text = path.read_text()
+        assert "recon_tile" not in text and "WS_STRIDE" not in text, path.name
 
 
 def test_simt_modes_are_the_f32_gemm_modes():
@@ -232,7 +320,27 @@ def test_kernel_digest_compare(tmp_path, other, rc):
     assert _digest_module().main(["--compare", str(a), str(b)]) == rc
 
 
-@pytest.mark.parametrize("argv", [["sweep-per"], ["flagship"]])
+@pytest.mark.parametrize(
+    "other,rc",
+    [({"kl_cost 9x9x9": "3", "update_h 9x9x9": "1"}, 0),
+     ({"kl_cost 9x9x9": "2", "update_h 9x9x9": "1", "flagship kl_cost [bfloat16]": "4"}, 0),
+     ({"kl_cost 9x9x9": "2", "update_h 9x9x9": "5"}, 1),
+     ({"kl_cost 9x9x9": "2"}, 1)],
+    ids=["k3_differs", "k3_new_check", "k1_differs", "k1_unmatched"],
+)
+def test_kernel_digest_compare_allows_named_kernels(tmp_path, other, rc):
+    """``--changed kl_cost`` lets K3's checks differ or be new, and still
+    holds every other kernel's checks equal and present in both files."""
+    import json
+
+    a, b = tmp_path / "a.json", tmp_path / "b.json"
+    a.write_text(json.dumps({"card": "x", "digests": {"kl_cost 9x9x9": "2",
+                                                      "update_h 9x9x9": "1"}}))
+    b.write_text(json.dumps({"card": "x", "digests": other}))
+    assert _digest_module().main(["--compare", str(a), str(b), "--changed", "kl_cost"]) == rc
+
+
+@pytest.mark.parametrize("argv", [["sweep-per"], ["flagship"], ["kl"]])
 def test_probe_timings_needs_a_card(argv, capsys):
     """probe_timings.py measures on the card only: without one it exits 1
     and prints no result."""
