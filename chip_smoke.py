@@ -4,8 +4,9 @@
     python3 chip_smoke.py                     # from the root of a checkout
     python3 chip_smoke.py --phases card,kernels,modes,quant   # a subset
     python3 chip_smoke.py --phases card,modes,flagship        # after a K1/K2 edit
+    python3 chip_smoke.py --phases card,accel                 # the accelerated solves
 
-Nine phases, in order; any failure raises and the exit code is non-zero:
+Ten phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
@@ -56,7 +57,11 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    tier (``--dtype bfloat16``, ``--dtype float32_fast``, ``--x-dtype
    bfloat16``, ``--x-dtype int8``) and once at ``--x-dtype int8
    --x-quant-rows 32``: 200 iterations, 8 strictly decreasing checks;
-   float32 and float32_fast within 1e-4 of the 96689.73 pin;
+   float32 and float32_fast within 1e-4 of the 96689.73 pin; then ``run
+   X.bin --rank 128`` at the default init (nndsvda) and ``run ...
+   --accelerate``, each byte-equal to the in-process solve (from
+   ``nndsvd_init(X, 128, "nndsvda")``), and ``run ... --strict-compat``
+   twice: de-padded to 4096 x 128 and 128 x 350, byte-equal on the rerun;
 6. inprocess: the same runs in-process through ``solve``, each with the
    counts set to 0 just before it: exactly 200/200/8 launches of K1/K2/K3
    and 0 plain calls (0 launches for ``--x-quant-rows 32``, which takes the
@@ -122,7 +127,28 @@ Nine phases, in order; any failure raises and the exit code is non-zero:
    and waits on the host clock, and the device's kernel / copy / overlap /
    idle shares (``torch.profiler``); and ``run --out-of-core --block-n 1024`` at 2048 x
    8192, K=128, through the CLI, its files byte-equal to the in-process
-   streamed solve, its cost within 1e-5 of the in-memory solve.
+   streamed solve, its cost within 1e-5 of the in-memory solve;
+10. accel: ``accelerate=True``, each solve with the counts set to 0 just
+   before it.  (a) The reference pipeline (seed-0 fixtures, 200 iterations,
+   f32 through K1-K3): K1/K2 launched ``iterations + 25 x rejects`` times,
+   K3 ``1 (seed) + 8 + rejects``, 0 plain calls, the rejects read from the
+   counts; the history non-increasing, the final cost at most the plain
+   kernel solve's and within 1e-4 of the ``backend="jnp"`` accelerated
+   solve, with its rejects (counted on its step and cost calls) and its
+   momentum bit for bit; a bitwise rerun; the reject path forced by
+   ``initial_cost=0`` (no seed cost, one block redone); it/s of the
+   accelerated, accelerated ``jnp`` and plain kernel solves in turns; the
+   extrapolation's time on W and H (CUDA events) and the device busy share
+   of an accelerated and a plain solve (``torch.profiler``).  (b) The
+   flagship, 50 iterations, ``bfloat16`` and ``float32``: launches, the
+   cost against the ``jnp`` accelerated solve (1e-3 / 1e-4), it/s.  (c) The
+   tile-sparse solve at 8192^2, K=128, 200 iterations, f32 and ``bfloat16``:
+   K5 launched ``iterations + 25 x rejects`` times a sweep, a bitwise
+   rerun, the cost against the ``jnp`` tiled accelerated solve.  (d) The
+   streamed solve at the hour of audio, 10 iterations, a check every 5, f32
+   and int8 X: blocks x (iterations + 5 x rejects) launches of K1 and K2
+   ``numerator_only``, blocks x (1 + checks + rejects) of K3, the cost
+   within 1e-5 of the in-memory accelerated solve, a bitwise rerun, it/s.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -136,7 +162,8 @@ and K5 phase 1's ``pass1`` (registers, shared memory, blocks an SM per
 instance); K3 its instance in each mode and its launches on the
 reference, streamed and flagship solves (``solve_launches``);
 K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
-their launches on the streamed solve); the last line is ``{"ok": true,
+their launches on the streamed solve; every kernel its launches on phase
+10's accelerated solves, ``accel_launches``); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -221,7 +248,7 @@ TIERS = {
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
-          "oocore")
+          "oocore", "accel")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -885,6 +912,58 @@ def phase_cli(card, tmp, out):
         print(f"[{card}] CLI {tier}: 200 iterations, 8 decreasing checks, final cost "
               f"{rec['final_cost']} (rel {rel} to the pin), solve {rec['seconds']} s = "
               f"{rec['iters_per_sec']} it/s, process wall {wall} s")
+    _cli_solver_flags(card, tmp, out)
+
+
+def _cli_files(tmp, tag):
+    import nmf_tpu_torch as nt
+
+    return tuple(nt.read_matrix(os.path.join(tmp, f"{f}_{tag}.bin")) for f in "WH")
+
+
+def _cli_solver_flags(card, tmp, out):
+    """``run X.bin --rank 128`` at the default init (nndsvda), ``run
+    --accelerate`` and ``run --strict-compat`` on the reference fixtures:
+    the first two byte-equal to the in-process solve, the third de-padded
+    and byte-equal on a rerun."""
+    import nmf_tpu_torch as nt
+
+    x, w, h = (nt.read_matrix(os.path.join(tmp, f"{s}.bin")) for s in "XWH")
+    runs = {"nndsvda": ["X.bin", "--rank", "128"],
+            "accelerate": ["X.bin", "W.bin", "H.bin", "--accelerate"],
+            "strict": ["X.bin", "W.bin", "H.bin", "--strict-compat"],
+            "strict_rerun": ["X.bin", "W.bin", "H.bin", "--strict-compat"]}
+    recs = {}
+    for tag, args in runs.items():
+        _cli(["run", *args, "-o", f"W_{tag}.bin", f"H_{tag}.bin", "--jsonl", f"{tag}.jsonl",
+              "-q"], tmp)
+        recs[tag] = json.loads(pathlib.Path(tmp, f"{tag}.jsonl").read_text().splitlines()[-1])
+        check(recs[tag]["iterations"] == 200, f"CLI {tag}: {recs[tag]['iterations']} iterations")
+    w0, h0 = nt.nndsvd_init(x, 128, "nndsvda")
+    cfg = nt.reference_preset()
+    for tag, (w_in, h_in, c) in {"nndsvda": (w0, h0, cfg),
+                                 "accelerate": (w, h, dataclasses.replace(cfg, accelerate=True))
+                                 }.items():
+        res = nt.solve(x, w_in, h_in, c, device="cuda")
+        w_out, h_out = _cli_files(tmp, tag)
+        check(w_out.tobytes() == res.w.cpu().numpy().tobytes()
+              and h_out.tobytes() == res.h.cpu().numpy().tobytes(),
+              f"CLI {tag}: files differ from the in-process solve")
+        costs = [c_["cost"] for c_ in recs[tag]["checks"]]
+        check(len(costs) == 8 and all(b <= a for a, b in zip(costs, costs[1:])),
+              f"CLI {tag}: checks {costs}")
+        out["cli"][tag] = recs[tag]["final_cost"]
+        print(f"[{card}] CLI run {' '.join(runs[tag])}: files byte-equal to the in-process solve, "
+              f"final cost {recs[tag]['final_cost']}, history {costs}, {recs[tag]['iters_per_sec']} it/s")
+    strict, again = _cli_files(tmp, "strict"), _cli_files(tmp, "strict_rerun")
+    check(strict[0].shape == (4096, 128) and strict[1].shape == (128, 350),
+          f"CLI strict: shapes {strict[0].shape}, {strict[1].shape}")
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(strict, again)),
+          "CLI strict: files differ on a rerun")
+    out["cli"]["strict"] = recs["strict"]["final_cost"]
+    print(f"[{card}] CLI run --strict-compat: de-padded to 4096x128 / 128x350, byte-identical on a "
+          f"rerun, final cost {recs['strict']['final_cost']} (over the padded 4096x352 buffers; "
+          f"rel {abs(recs['strict']['final_cost'] - PIN_COST) / PIN_COST} to the pin)")
 
 
 def _tier_configs():
@@ -1970,12 +2049,353 @@ def phase_oocore(card, tmp, out, seed):
     phase_oocore_cli(card, tmp, out)
 
 
+# Phase 10: the accelerated loop (accelerate=True) on each solve: the
+# reference shape, the flagship, the tile-sparse solve and the streamed one.
+ACCEL_ITERS = 200
+ACCEL_FLAGSHIP = (10240, 10240, 256, 50)   # M, N, K, iterations (phase 7's)
+
+
+def _calls(fn, module, names):
+    """(fn(), {name: calls}) with ``module``'s functions ``names`` wrapped to
+    count their calls: the plain path's step and cost (``backend="jnp"``),
+    which no kernel count sees."""
+    calls = dict.fromkeys(names, 0)
+    originals = {name: getattr(module, name) for name in names}
+
+    def counting(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return originals[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(module, name, counting(name))
+    try:
+        return fn(), calls
+    finally:
+        for name, f in originals.items():
+            setattr(module, name, f)
+
+
+def _rejects(steps, costs, res, chunk, where, blocks=1, seeded=True):
+    """Rejected check blocks from a solve's step and cost counts, which must
+    agree: steps = blocks x (iterations + chunk x rejects), costs = blocks x
+    (seed + checks + rejects)."""
+    it, checks = int(res.iterations), int(res.num_checks)
+    extra = steps - blocks * it
+    check(extra >= 0 and extra % (blocks * chunk) == 0,
+          f"{where}: {steps} steps for {it} iterations in blocks of {chunk}")
+    rejects = extra // (blocks * chunk)
+    check(costs == blocks * (int(seeded) + checks + rejects),
+          f"{where}: {costs} costs for {checks} checks and {rejects} rejects")
+    return rejects
+
+
+def _timed(fn):
+    """(fn(), host seconds) of work that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _accel_history(res, where, checks):
+    hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
+    check(hist.shape == (checks,) and bool(np.all(np.isfinite(hist)))
+          and bool(np.all(np.diff(hist) <= 0)),
+          f"{where}: history {hist} not {checks} finite non-increasing checks")
+    return hist
+
+
+def _same_bits(a, b, where):
+    for f in ("w", "h", "cost_history", "momentum"):
+        check(torch.equal(_bits(getattr(a, f)), _bits(getattr(b, f))),
+              f"{where}: {f} differs on a rerun")
+
+
+def _counted_accel(x, w, h, cfg, where, **kw):
+    """(result, seconds, launches, rejects) of one accelerated solve through
+    K1-K3, the counts set to 0 just before; the launches match the rejects
+    and no call took the plain ops."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    fused_mu.reset_counts()
+    res, secs = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda", **kw))
+    launches = dict(fused_mu.LAUNCHES)
+    chunk = cfg.check_every
+    seeded = "initial_cost" not in kw
+    rejects = _rejects(launches["update_h"], launches["kl_cost"], res, chunk, where,
+                       seeded=seeded)
+    steps = int(res.iterations) + chunk * rejects
+    want = _launches(update_h=steps, update_w=steps,
+                     kl_cost=int(seeded) + int(res.num_checks) + rejects)
+    check(launches == want and not any(fused_mu.PLAIN_CALLS.values()),
+          f"{where}: launches {launches}, plain calls {fused_mu.PLAIN_CALLS}, expected {want}")
+    return res, secs, launches, rejects
+
+
+def _plain_accel(x, w, h, cfg, where, **kw):
+    """(result, seconds, rejects) of the same accelerated solve on the plain
+    ops (``backend="jnp"``), its rejects read from its step and cost calls."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import solver
+
+    (res, secs), calls = _calls(
+        lambda: _timed(lambda: nt.solve(x, w, h, dataclasses.replace(cfg, backend="jnp"),
+                                        device="cuda", **kw)),
+        solver, ("mu_step", "kl_divergence"))
+    rejects = _rejects(calls["mu_step"], calls["kl_divergence"], res, cfg.check_every,
+                       f"{where} jnp", seeded="initial_cost" not in kw)
+    return res, secs, rejects
+
+
+def phase_accel_reference(card, out):
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.solver import extrapolate
+
+    fx = nt.fixtures
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    cfg = dataclasses.replace(nt.reference_preset(), accelerate=True)
+    plain_cfg = nt.reference_preset()
+    checks = ACCEL_ITERS // cfg.check_every
+    print(f"[{card}] phase 10a: accelerated reference solve 4096x350, K=128, {ACCEL_ITERS} "
+          "iterations, float32, a check every 25")
+    for c in (cfg, dataclasses.replace(cfg, backend="jnp"), plain_cfg):   # warm each path
+        nt.solve(x, w, h, dataclasses.replace(c, max_iter=2), device="cuda")
+    where = "accel reference"
+    res, secs, launches, rejects = _counted_accel(x, w, h, cfg, where)
+    out["launches"][where] = launches
+    hist = _accel_history(res, where, checks)
+    _same_bits(res, nt.solve(x, w, h, cfg, device="cuda"), where)
+    jres, j_secs, j_rejects = _plain_accel(x, w, h, cfg, where)
+    cost, j_cost = float(res.cost), float(jres.cost)
+    rel = abs(cost - j_cost) / abs(j_cost)
+    check(rel <= 1e-4, f"{where}: cost {cost} vs the jnp accelerated solve {j_cost}: rel {rel}")
+    check(j_rejects == rejects, f"{where}: {rejects} rejects, the jnp solve {j_rejects}")
+    check(torch.equal(_bits(res.momentum), _bits(jres.momentum)),
+          f"{where}: momentum {float(res.momentum)} vs jnp {float(jres.momentum)}")
+    pres, p_secs = _timed(lambda: nt.solve(x, w, h, plain_cfg, device="cuda"))
+    p_cost = float(pres.cost)
+    check(cost <= p_cost, f"{where}: cost {cost} above the plain kernel solve's {p_cost}")
+    reach = int(np.argmax(hist <= p_cost)) if bool(np.any(hist <= p_cost)) else None
+    reach_its = None if reach is None else (reach + 1) * cfg.check_every
+    # it/s in turns: accelerated through K1-K3, accelerated plain, plain
+    # through K1-K3, twice
+    its = {"accel": [], "accel_jnp": [], "plain": []}
+    for _ in range(2):
+        for key, c in (("accel", cfg), ("accel_jnp", dataclasses.replace(cfg, backend="jnp")),
+                       ("plain", plain_cfg)):
+            its[key].append(ACCEL_ITERS / _timed(lambda: nt.solve(x, w, h, c, device="cuda"))[1])
+    # the reject path on the card: a baseline below any cost rejects the
+    # first block, redone with K1/K2 from its start (no seed cost)
+    fres, _, f_launches, f_rejects = _counted_accel(x, w, h, cfg, f"{where} initial_cost=0",
+                                                    initial_cost=0.0)
+    check(f_rejects >= 1, f"{where} initial_cost=0: no block rejected")
+    fj, _, fj_rejects = _plain_accel(x, w, h, cfg, f"{where} initial_cost=0", initial_cost=0.0)
+    f_rel = abs(float(fres.cost) - float(fj.cost)) / abs(float(fj.cost))
+    check(fj_rejects == f_rejects and f_rel <= 1e-4
+          and torch.equal(_bits(fres.momentum), _bits(fj.momentum)),
+          f"{where} initial_cost=0: rejects {f_rejects} / jnp {fj_rejects}, rel {f_rel}")
+    # the extrapolation's own cost: its elementwise passes on W and H
+    m = np.float32(res.momentum.item())
+    w_ms = event_ms(lambda: extrapolate(res.w, pres.w, m, EPS))
+    h_ms = event_ms(lambda: extrapolate(res.h, pres.h, m, EPS))
+    # device busy share of one accelerated and one plain solve
+    from torch.profiler import ProfilerActivity, profile
+
+    shares = {}
+    for key, c in (("accel", cfg), ("plain", plain_cfg)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, s = _timed(lambda: nt.solve(x, w, h, c, device="cuda"))
+        with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
+            trace = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(trace)
+            dev = _device_shares(trace)
+        shares[key] = {"busy": dev["busy"] / s, "kernels_ms": 1e3 * dev["kernels"], "wall_ms": 1e3 * s}
+    out["accel"]["reference"] = {
+        "rejects": rejects, "momentum": float(res.momentum), "cost": cost, "jnp_cost": j_cost,
+        "plain_cost": p_cost, "reach_plain_cost_its": reach_its, "its": its,
+        "extrap_ms": {"w": w_ms, "h": h_ms}, "profile": shares}
+    print(f"[{card}] {where}: launches {launches} ({rejects} rejects), cost {cost}, history "
+          f"{hist.tolist()}, momentum {float(res.momentum)}, bitwise on rerun; jnp accelerated "
+          f"cost {j_cost} (rel {rel}, limit 1e-4, {j_rejects} rejects, momentum bit-equal); plain "
+          f"kernel solve cost {p_cost}, reached by the accelerated history at iteration "
+          f"{reach_its}; it/s accelerated {its['accel']}, accelerated jnp {its['accel_jnp']}, "
+          f"plain kernels {its['plain']} (first timed runs {ACCEL_ITERS / secs}, "
+          f"{ACCEL_ITERS / j_secs}, {ACCEL_ITERS / p_secs})")
+    print(f"[{card}] {where} initial_cost=0: launches {f_launches} ({f_rejects} reject), "
+          f"cost {float(fres.cost)} (jnp {float(fj.cost)}, rel {f_rel}), momentum "
+          f"{float(fres.momentum)} bit-equal to jnp's")
+    print(f"[{card}] {where}: extrapolation {w_ms} ms on W (4096x128), {h_ms} ms on H (128x350) "
+          f"a call (CUDA events); profiled: accelerated busy {shares['accel']['busy']} "
+          f"({shares['accel']['kernels_ms']} ms of kernels in {shares['accel']['wall_ms']} ms), "
+          f"plain busy {shares['plain']['busy']} ({shares['plain']['kernels_ms']} ms in "
+          f"{shares['plain']['wall_ms']} ms)")
+
+
+def phase_accel_flagship(card, out):
+    import nmf_tpu_torch as nt
+
+    m, n, k, iters = ACCEL_FLAGSHIP
+    print(f"[{card}] phase 10b: accelerated flagship {m}x{n}, K={k}, {iters} iterations")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((m, n), generator=g, device="cuda")
+    w = torch.rand((m, k), generator=g, device="cuda")
+    h = torch.rand((k, n), generator=g, device="cuda")
+    for dtype, limit in (("bfloat16", 1e-3), ("float32", 1e-4)):
+        cfg = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype),
+                             accelerate=True)
+        for backend in ("auto", "jnp"):
+            nt.solve(x, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2), device="cuda")
+        where = f"accel flagship {dtype}"
+        res, secs, launches, rejects = _counted_accel(x, w, h, cfg, where)
+        out["launches"][where] = launches
+        hist = _accel_history(res, where, iters // 25)
+        jres, j_secs, j_rejects = _plain_accel(x, w, h, cfg, where)
+        cost, j_cost = float(res.cost), float(jres.cost)
+        rel = abs(cost - j_cost) / abs(j_cost)
+        check(rel <= limit, f"{where}: cost {cost} vs jnp {j_cost}: rel {rel} (limit {limit})")
+        _, secs2 = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))
+        _, j_secs2 = _timed(lambda: nt.solve(x, w, h, dataclasses.replace(cfg, backend="jnp"),
+                                             device="cuda"))
+        plain = dataclasses.replace(cfg, accelerate=False)
+        pres, p_secs = _timed(lambda: nt.solve(x, w, h, plain, device="cuda"))
+        its = {"accel": [iters / secs, iters / secs2], "accel_jnp": [iters / j_secs, iters / j_secs2],
+               "plain": iters / p_secs}
+        out["accel"][f"flagship {dtype}"] = {"rejects": rejects, "jnp_rejects": j_rejects,
+                                            "cost": cost, "jnp_cost": j_cost,
+                                            "plain_cost": float(pres.cost), "its": its}
+        print(f"[{card}] {where}: launches {launches} ({rejects} rejects; jnp {j_rejects}), cost "
+              f"{cost} (jnp {j_cost}, rel {rel}, limit {limit}; plain kernel solve "
+              f"{float(pres.cost)}), history {hist.tolist()}; it/s accelerated {its['accel']}, "
+              f"accelerated jnp {its['accel_jnp']}, plain kernels {its['plain']}")
+    del x, w, h
+    torch.cuda.empty_cache()
+
+
+def phase_accel_tiled(card, out):
+    import nmf_tpu_torch as nt
+
+    m, n, k, t, occ, seed = TS_MAIN
+    x, w, h = tile_problem(m, k, n, t, occ, seed)
+    tx = nt.tiles_from_dense(x, (t, t))
+    print(f"[{card}] phase 10c: accelerated tile-sparse solve {m}x{n}, K={k}, "
+          f"{tx.tiles.shape[0]} {t}x{t} tiles, {TS_ITERS} iterations")
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
+        cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(dtype),
+                             accelerate=True)
+        for backend in ("auto", "jnp"):
+            _ts_solve(tx, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2))
+        where = f"accel tiled {dtype}"
+        (res, secs), launches, plain_calls, dense = _counted(lambda: _ts_solve(tx, w, h, cfg))
+        extra = launches["h_numerator"] - TS_ITERS
+        check(extra >= 0 and extra % 25 == 0, f"{where}: K5 launches {launches}")
+        rejects = extra // 25
+        want = dict.fromkeys(("h_numerator", "w_numerator"), TS_ITERS + 25 * rejects)
+        check(launches == want and not any(plain_calls.values()) and not any(dense.values()),
+              f"{where}: K5 launches {launches} (expected {want}), plain calls {plain_calls}, "
+              f"K1-K3 {dense}")
+        out["launches"][where] = launches
+        hist = _accel_history(res, where, TS_ITERS // 25)
+        res2, secs2 = _ts_solve(tx, w, h, cfg)
+        _same_bits(res, res2, where)
+        jres, j_secs = _ts_solve(tx, w, h, dataclasses.replace(cfg, backend="jnp"))
+        rel = abs(float(res.cost) - float(jres.cost)) / abs(float(jres.cost))
+        check(rel <= limit, f"{where}: cost {float(res.cost)} vs the jnp tiled accelerated solve "
+              f"{float(jres.cost)}: rel {rel} (limit {limit})")
+        out["accel"][f"tiled {dtype}"] = {"rejects": rejects, "cost": float(res.cost),
+                                         "its": [TS_ITERS / secs, TS_ITERS / secs2],
+                                         "jnp_its": TS_ITERS / j_secs}
+        print(f"[{card}] {where}: K5 {launches} ({rejects} rejects), cost {float(res.cost)} "
+              f"(jnp {float(jres.cost)}, rel {rel}, limit {limit}), history {hist.tolist()}, "
+              f"byte-identical on rerun; {TS_ITERS / secs} and {TS_ITERS / secs2} it/s through "
+              f"K5, {TS_ITERS / j_secs} it/s plain sweep")
+
+
+def phase_accel_oocore(card, out, seed):
+    import gc
+
+    import nmf_tpu_torch as nt
+
+    m, n, k = OOC_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xd = torch.rand((m, n), generator=g, device="cuda").clamp_min_(EPS)
+    w = torch.rand((m, k), generator=g, device="cuda").clamp_min_(EPS).cpu().numpy()
+    h = torch.rand((k, n), generator=g, device="cuda").clamp_min_(EPS).cpu().numpy()
+    x = xd.cpu().numpy()
+    del xd
+    blocks = -(-n // nt.pick_block_n(m, n))
+    cfg = nt.SolveConfig(max_iter=OOC_ITERS, check_every=OOC_CHECK, accelerate=True)
+    print(f"[{card}] phase 10d: accelerated streamed solve {m}x{n}, K={k}, {blocks} blocks, "
+          f"{OOC_ITERS} iterations, a check every {OOC_CHECK}")
+    for xdt in ("float32", "int8"):
+        c = dataclasses.replace(cfg, precision=nt.Precision(x_dtype=xdt))
+        mem, mem_secs = _timed(lambda: nt.solve(x, w, h, c, device="cuda"))
+        mem_cost, mem_mom = float(mem.cost), float(mem.momentum)
+        del mem
+        gc.collect()
+        torch.cuda.empty_cache()
+        where = f"accel oocore {xdt}"
+        res, secs, launches, plain_calls = _ooc_solve(x, w, h, c)
+        rejects = _rejects(launches["update_h"], launches["kl_cost"], res, OOC_CHECK, where,
+                           blocks=blocks)
+        steps = blocks * (OOC_ITERS + OOC_CHECK * rejects)
+        want = _launches(update_h=steps, update_w_numerator=steps,
+                         kl_cost=blocks * (1 + int(res.num_checks) + rejects))
+        check(launches == want and not any(plain_calls.values()),
+              f"{where}: launches {launches} (expected {want}), plain calls {plain_calls}")
+        out["launches"][where] = launches
+        hist = _accel_history(res, where, OOC_ITERS // OOC_CHECK)
+        cost = float(res.cost)
+        rel = abs(cost - mem_cost) / abs(mem_cost)
+        check(rel <= 1e-5, f"{where}: cost {cost} vs the in-memory accelerated solve {mem_cost}: "
+              f"rel {rel}")
+        res2, secs2, _, _ = _ooc_solve(x, w, h, c)
+        for f in ("w", "h", "cost_history"):
+            check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
+                  f"{where}: {f} differs on a rerun")
+        out["accel"][f"oocore {xdt}"] = {"rejects": rejects, "cost": cost, "rel_vs_memory": rel,
+                                        "its": [OOC_ITERS / secs, OOC_ITERS / secs2]}
+        print(f"[{card}] {where}: launches {launches} ({rejects} rejects), cost {cost}, history "
+              f"{hist.tolist()}, momentum {float(res.momentum)}; in-memory accelerated solve "
+              f"cost {mem_cost} (rel {rel}, limit 1e-5; momentum {mem_mom}; {OOC_ITERS / mem_secs} "
+              f"it/s incl. its upload); byte-identical on rerun; {OOC_ITERS / secs} and "
+              f"{OOC_ITERS / secs2} it/s")
+        del res, res2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_accel(card, out, seed):
+    print(f"[{card}] phase 10: accelerate=True on the reference, flagship, tile-sparse and "
+          "streamed solves")
+    phase_accel_reference(card, out)
+    phase_accel_flagship(card, out)
+    phase_accel_tiled(card, out)
+    phase_accel_oocore(card, out, seed)
+
+
+def _accel_launches(launches, name):
+    """A kernel's launches on each accelerated solve of phase 10 (the
+    streamed ones under K1's and K2's ``numerator_only`` key where it ran)."""
+    out = {}
+    for run, counts in launches.items():
+        if not run.startswith("accel "):
+            continue
+        for key in (name, f"{name}_numerator"):
+            if counts.get(key):
+                out[run[6:] + ("" if key == name else " numerator_only")] = counts[key]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the data phase 9 makes on the card (default 0)")
+                    help="seed of the data phases 9 and 10 make on the card (default 0)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -1999,7 +2419,7 @@ def main(argv=None) -> int:
     out = {
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
                     for name, _, _ in KERNELS},
-        "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {},
+        "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
     }
     t_start = time.perf_counter()
     phase_card(card, out)  # always: every other phase needs the build
@@ -2022,6 +2442,8 @@ def main(argv=None) -> int:
     if "oocore" in phases:
         with tempfile.TemporaryDirectory(prefix="nmf_ooc_") as tmp:
             phase_oocore(card, tmp, out, args.seed)
+    if "accel" in phases:
+        phase_accel(card, out, args.seed)
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
               "a subset prints no result")
@@ -2074,9 +2496,11 @@ def main(argv=None) -> int:
             "modes": modes,
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
             **({"long_walks": st["long_walks"]} if st["long_walks"] else {}),
+            "accel_launches": _accel_launches(out["launches"], name),
         })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
-    print(f"[{card}] all nine phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] accel summary: {json.dumps(out['accel'])}")
+    print(f"[{card}] all ten phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,8 +6,10 @@ fixed-iteration determinism contract.  The update and cost hot path runs in
 hand-written CUDA kernels (``csrc/fused_mu.cu``) on CUDA tensors and in
 plain torch ops on CPU tensors; so do the numerator sweeps of the
 tile-sparse solve (``csrc/tile_sparse.cu``).  ``solve_out_of_core`` streams
-an X that the card cannot hold from the host in column blocks.  Imports
-torch and NumPy, never JAX.
+an X that the card cannot hold from the host in column blocks.  Each solve
+takes ``accelerate=True`` (the safeguarded Nesterov loop); ``solve_strict``
+replays the reference's padded-EPS numerics.  Imports torch and NumPy,
+never JAX.
 
 Quick start::
 
@@ -18,6 +20,7 @@ Quick start::
 
 from .io import fixtures
 from .io.binio import read_matrix, write_matrix
+from .models.init import nndsvd_init, random_init, scaled_random_init
 from .models.solver import SolveResult, solve
 from .models.sparse_tiled import (
     TileSparseX,
@@ -31,6 +34,7 @@ from .models.streaming import (
     pick_block_n,
     solve_out_of_core,
 )
+from .models.strict import solve_strict
 from .ops.divergence import kl_divergence
 from .ops.elementwise import EPS, eps_clamp
 from .ops.mu import mu_step, update_h, update_w
@@ -49,7 +53,11 @@ __all__ = [
     "update_h",
     "update_w",
     "solve",
+    "solve_strict",
     "SolveResult",
+    "random_init",
+    "scaled_random_init",
+    "nndsvd_init",
     "TileSparseX",
     "solve_sparse_tiled",
     "tiles_from_coo",

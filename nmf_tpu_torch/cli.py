@@ -1,7 +1,9 @@
 """Command-line interface of the PyTorch port (``run``, ``gen``, ``info``).
 
     python -m nmf_tpu_torch run X.bin W.bin H.bin -o Wout.bin Hout.bin   # on the card
-    python -m nmf_tpu_torch run X.bin --rank 32 --init random --device cpu
+    python -m nmf_tpu_torch run X.bin --rank 32 --device cpu   # NNDSVDa init
+    python -m nmf_tpu_torch run X.bin W.bin H.bin --accelerate       # Nesterov loop
+    python -m nmf_tpu_torch run X.bin W.bin H.bin --strict-compat    # padded-EPS replay
     python -m nmf_tpu_torch run X.bin W.bin H.bin --out-of-core --block-n 4096  # X streamed
     python -m nmf_tpu_torch gen ./fixtures        # seed-0 reference fixtures
     python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
@@ -21,9 +23,10 @@ import sys
 import torch
 
 from .io import binio, fixtures
-from .models.init import random_init
+from .models import init as init_mod
 from .models.solver import solve
 from .models.streaming import BinColumnSource, solve_out_of_core, wire_itemsize
+from .models.strict import solve_strict
 from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger
@@ -43,7 +46,6 @@ _LATER = {
     "--restarts": ({"type": int, "default": 1}, "Queue 1: selection and batched solves"),
     "--beta": ({"type": float, "default": 1.0}, "Queue 1: ops (beta family)"),
     "--algorithm": ({"choices": ["mu", "hals"], "default": "mu"}, "Queue 1: ops (HALS)"),
-    "--accelerate": ({"action": "store_true"}, "Queue 1: accel loop"),
     "--l1-w": ({"type": float, "default": 0.0}, "Queue 1: ops (penalized MU)"),
     "--l1-h": ({"type": float, "default": 0.0}, "Queue 1: ops (penalized MU)"),
     "--l2-w": ({"type": float, "default": 0.0}, "Queue 1: ops (penalized MU)"),
@@ -53,7 +55,6 @@ _LATER = {
     "--mesh": ({}, "Queue 1 item 12: sharded solves"),
     "--checkpoint-dir": ({}, "Queue 1 item 13: utils (checkpoint)"),
     "--checkpoint-every": ({"type": int, "default": 100}, "Queue 1 item 13: utils (checkpoint)"),
-    "--strict-compat": ({"action": "store_true"}, "Queue 1: strict.py"),
 }
 _AUTOTUNE = "Queue 1 step 11 (item 7): the H100 backend rules and autotune"
 
@@ -88,7 +89,7 @@ def _config(args) -> SolveConfig:
         precision=Precision(
             matmul_dtype=args.dtype, x_dtype=args.x_dtype, x_quant_rows=args.x_quant_rows
         ),
-        backend=args.backend, track_cost=not args.no_cost,
+        backend=args.backend, track_cost=not args.no_cost, accelerate=args.accelerate,
     )
 
 
@@ -118,7 +119,7 @@ def _cmd_run_out_of_core(args, dev) -> int:
         if args.init != "random":
             return _error("--out-of-core init must be 'random' or explicit W/H "
                           "files (other inits read all of X)")
-        w0, h0 = random_init(m, args.rank, n, seed=args.seed)
+        w0, h0 = init_mod.random_init(m, args.rank, n, seed=args.seed)
     else:
         return _error("provide W and H files, or --rank")
     config = _config(args)
@@ -158,21 +159,23 @@ def cmd_run(args) -> int:
         w0 = binio.read_matrix(args.W)
         h0 = binio.read_matrix(args.H)
     elif args.rank:
-        if args.init != "random":
-            return _error(
-                f"--init {args.init or 'nndsvda (the default)'} is not "
-                "in the PyTorch port yet (ROADMAP.md Queue 1: model families); "
-                "pass --init random"
-            )
         m, n = x.shape
-        w0, h0 = random_init(m, args.rank, n, seed=args.seed)
+        if args.init == "random":
+            w0, h0 = init_mod.random_init(m, args.rank, n, seed=args.seed)
+        elif args.init == "scaled":
+            w0, h0 = init_mod.scaled_random_init(x, args.rank, seed=args.seed)
+        else:
+            w0, h0 = init_mod.nndsvd_init(x, args.rank, variant=args.init, seed=args.seed)
     else:
         return _error("provide W and H files, or --rank for generated init")
 
     config = _config(args)
     logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    # a ValueError of solve_strict (--accelerate: strict mode replays one
+    # algorithm) exits 2 through main() with its message
+    run = solve_strict if args.strict_compat else solve
     with logger.timed() as t:
-        res = solve(x, w0, h0, config, device=dev)
+        res = run(x, w0, h0, config, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     logger.report(res, x.shape, t.seconds, check_every=config.check_every)
@@ -216,7 +219,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--rank", "-k", type=int, help="rank for generated init")
     run.add_argument(
         "--init", choices=["random", "scaled", "nndsvd", "nndsvda", "nndsvdar"],
-        default=None, help="init strategy with --rank (the port has 'random')",
+        default="nndsvda",
+        help="init strategy with --rank (default nndsvda: SVD-based, MU-safe; "
+        "--out-of-core takes random only)",
     )
     run.add_argument("--seed", type=int, default=0)
     run.add_argument("--max-iter", type=int, default=200, help="MAX_ITER (nmf.cu:10)")
@@ -265,6 +270,17 @@ def build_parser() -> argparse.ArgumentParser:
         f"(autotune: not ported yet, {_AUTOTUNE})",
     )
     run.add_argument("--no-cost", action="store_true", help="skip cost tracking")
+    run.add_argument(
+        "--accelerate", action="store_true",
+        help="safeguarded Nesterov-accelerated MU (fewer iterations to a "
+        "given cost; the history still never rises); reads one cost back "
+        "per check block",
+    )
+    run.add_argument(
+        "--strict-compat", action="store_true",
+        help="replay the reference's padded-EPS numerics (buffers padded to "
+        "32-multiples, true f32, plain torch ops); in-memory only",
+    )
     for flag, (kw, where) in _LATER.items():
         run.add_argument(flag, help=f"only its JAX default so far ({where})", **kw)
     run.set_defaults(fn=cmd_run)

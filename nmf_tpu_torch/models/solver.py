@@ -1,9 +1,9 @@
 """The NMF solve loop: check-blocked, with no host sync when ``thresh == 0``.
 
-Counterpart of ``nmf_tpu.models.solver`` (plain loop only).  The JAX package
-builds one ``jit(lax.while_loop)``; PyTorch runs eagerly, so the loop is a
-Python loop that enqueues kernels on the current stream and keeps every
-device value on the device:
+Counterpart of ``nmf_tpu.models.solver``.  The JAX package builds one
+``jit(lax.while_loop)``; PyTorch runs eagerly, so the loop is a Python loop
+that enqueues kernels on the current stream and keeps every device value on
+the device:
 
 * ``chunk = min(check_every, max_iter - it)`` steps per check block;
 * the cost is taken at the end of each block into a device-side history
@@ -12,12 +12,17 @@ device value on the device:
   ``max_iter`` iterations run (nmf.cu:11); with ``thresh > 0`` one scalar
   is read per check to decide whether to stop.
 
+``accelerate=True`` runs the safeguarded Nesterov loop
+(:func:`_run_accel_loop`).  Its accept/reject decision is made on the host:
+one cost is read back per check block (two on a rejected block), so under
+``accelerate`` even ``thresh == 0`` syncs once a block.
+
 Every precision policy runs: the state in f32 or bf16, X as f32, bf16 or
 uint8 codes with scales (quantized at load, or passed in as a pair).
 
 Not in the port yet, and refused with ``NotImplementedError``:
-``accelerate``, ``live_metrics``, ``beta != 1``, ``algorithm="hals"``,
-penalties, and ``backend="autotune"``.
+``live_metrics``, ``beta != 1``, ``algorithm="hals"``, penalties, and
+``backend="autotune"``.
 """
 
 from __future__ import annotations
@@ -50,10 +55,14 @@ CostFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 class SolveResult:
     """Factorization result, the fields of ``nmf_tpu``'s ``SolveResult``.
 
-    ``w``, ``h``, ``cost`` and ``cost_history`` stay on the solve's device;
-    ``iterations``, ``num_checks`` and ``converged`` are known on the host
-    and are CPU tensors.  ``momentum`` is NaN: the accelerated loop is not
-    ported yet.
+    ``w``, ``h``, ``cost``, ``cost_history`` and ``momentum`` stay on the
+    solve's device; ``iterations``, ``num_checks`` and ``converged`` are
+    known on the host and are CPU tensors.  ``momentum`` is the accelerated
+    loop's final momentum coefficient, NaN for a plain solve.  ``w_ex`` and
+    ``h_ex`` are the accelerated loop's extrapolation carry, set only when
+    the solve was given ``initial_extrap`` (a segment of a longer run): a
+    segment fed ``momentum`` and ``(w_ex, h_ex)`` back as
+    ``initial_momentum`` and ``initial_extrap`` continues the run exactly.
     """
 
     w: torch.Tensor
@@ -63,12 +72,13 @@ class SolveResult:
     cost_history: torch.Tensor   # f32 [num_check_slots]
     num_checks: torch.Tensor     # i32 scalar: populated history entries
     converged: torch.Tensor      # bool scalar: stopped via threshold
-    momentum: torch.Tensor = None
+    momentum: torch.Tensor = None   # f32 scalar: final accel momentum (NaN if none)
+    w_ex: torch.Tensor = None
+    h_ex: torch.Tensor = None
 
 
 def _refuse_unported(config: SolveConfig) -> None:
     later = {
-        "accelerate=True": config.accelerate,
         "live_metrics=True": config.live_metrics,
         f"beta={config.beta}": config.beta != 1.0,
         f"algorithm={config.algorithm!r}": config.algorithm != "mu",
@@ -79,7 +89,7 @@ def _refuse_unported(config: SolveConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{', '.join(missing)} not in the PyTorch port yet (see "
-            "ROADMAP.md: accel loop, model families)"
+            "ROADMAP.md Queue 1: ops, model families, utils, backend rules)"
         )
 
 
@@ -142,12 +152,19 @@ def run_checked_loop(
     step_fn: StepFn,
     cost_fn: CostFn,
     initial_cost: Optional[float] = None,
+    initial_momentum: Optional[float] = None,
+    initial_extrap: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> SolveResult:
     """The check-blocked loop (``solver.py:402-498`` of the JAX package).
 
     ``initial_cost`` seeds the convergence baseline (None/NaN: the first
-    check never converges).
+    check never converges).  ``config.accelerate`` sends the run to
+    :func:`_run_accel_loop`, with ``initial_momentum`` and
+    ``initial_extrap``.
     """
+    if config.accelerate:
+        return _run_accel_loop(x, w, h, config, step_fn, cost_fn, initial_cost,
+                               initial_momentum, initial_extrap)
     max_iter = int(config.max_iter)
     check_every = int(config.check_every)
     thresh = float(config.thresh)
@@ -186,6 +203,109 @@ def run_checked_loop(
     )
 
 
+def extrapolate(new: torch.Tensor, old: torch.Tensor, m: float, eps: float) -> torch.Tensor:
+    """``max(f32(new) + m (f32(new) - f32(old)), f32(eps))`` in the dtype of
+    ``new`` (bf16: rounded to nearest even), with ``m`` and ``eps`` rounded
+    to f32: the JAX loops' ``_extrap``, whose multiply-add XLA fuses into
+    one FMA, as ``torch.add(..., alpha=m)`` computes it.  Plain torch ops,
+    three elementwise passes on f32 state; the inputs are not written."""
+    n32 = new.to(_F32)
+    e = torch.add(n32, torch.sub(n32, old.to(_F32)), alpha=float(m)).clamp_min_(float(eps))
+    return e.to(new.dtype)
+
+
+def _run_accel_loop(
+    x, w, h, config: SolveConfig, step_fn: StepFn, cost_fn: CostFn,
+    initial_cost: Optional[float] = None,
+    initial_momentum: Optional[float] = None,
+    initial_extrap: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> SolveResult:
+    """Safeguarded Nesterov-extrapolated loop (``config.accelerate``;
+    ``solver.py:501-649`` of the JAX package).
+
+    Each step runs from the extrapolated point ``(we, he)``
+    (:func:`extrapolate` of the new iterate against the last one); the
+    recorded iterate is the step's output.  At each block end the cost of
+    the iterate decides: kept if it did not rise (the momentum grows by
+    ``accel_grow`` up to ``accel_momentum_max``), else the block is redone
+    with plain steps from its start, the extrapolation carry restarts at the
+    new iterate and the momentum shrinks by ``accel_shrink``.  A NaN cost
+    rejects.  So the recorded history never rises.
+
+    The momentum is an f32 scalar, multiplied and capped in f32 as the JAX
+    loop does on the device, so the final ``momentum`` is JAX's bit for bit
+    wherever the accept/reject sequence is.  JAX decides on the device
+    (``lax.cond``); here each block's cost is read back to decide, so this
+    loop syncs the host once a block (twice on a reject).  The costs live on
+    the host as f32, the history goes to the device at the end.
+
+    The seed cost is taken up front unless ``initial_cost`` is given (not
+    NaN); the carry starts at the iterate unless ``initial_extrap`` (in the
+    state dtype, on the device) is given, and then comes back in
+    ``w_ex``/``h_ex``.
+    """
+    max_iter = int(config.max_iter)
+    check_every = int(config.check_every)
+    thresh = np.float32(config.thresh)
+    eps = config.eps
+    n_slots = max(config.num_checks, 1)
+    m = np.float32(config.accel_momentum)
+    if initial_momentum is not None and not np.isnan(initial_momentum):
+        m = np.float32(initial_momentum)
+    m_max = np.float32(config.accel_momentum_max)
+    grow = np.float32(config.accel_grow)
+    shrink = np.float32(config.accel_shrink)
+
+    def cost_of(w, h):
+        # the host read: the accept test and the stop test are f32 compares
+        return np.float32(cost_fn(x, w, h).to(_F32).item())
+
+    if initial_cost is None or np.isnan(initial_cost):
+        cost = cost_of(w, h)
+    else:
+        cost = np.float32(initial_cost)
+    we, he = (w, h) if initial_extrap is None else initial_extrap
+    hist = np.full((n_slots,), np.nan, np.float32)
+    it, chk, done = 0, 0, False
+    while it < max_iter and not done:
+        chunk = min(check_every, max_iter - it)
+        w0, h0 = w, h           # the wrappers return fresh tensors: no copy
+        for _ in range(chunk):
+            wn, hn = step_fn(we, he, x)
+            we, he = extrapolate(wn, w, m, eps), extrapolate(hn, h, m, eps)
+            w, h = wn, hn
+        c = cost_of(w, h)
+        if c <= cost:
+            m = min(np.float32(m * grow), m_max)
+        else:                   # rejected (NaN too): redo the block plain
+            w, h = w0, h0
+            for _ in range(chunk):
+                w, h = step_fn(w, h, x)
+            c = cost_of(w, h)
+            we, he = w, h
+            m = np.float32(m * shrink)
+        it += chunk
+        prev, cost = cost, c
+        hist[chk] = cost
+        if thresh > 0:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                done = bool(np.abs(prev - cost) / np.abs(cost) < thresh)
+        chk += 1
+    dev = w.device
+    return SolveResult(
+        w=w,
+        h=h,
+        iterations=torch.tensor(it, dtype=torch.int32),
+        cost=torch.tensor(cost, dtype=_F32).to(dev),
+        cost_history=torch.from_numpy(hist).to(dev),
+        num_checks=torch.tensor(chk, dtype=torch.int32),
+        converged=torch.tensor(done, dtype=torch.bool),
+        momentum=torch.tensor(m, dtype=_F32).to(dev),
+        w_ex=we if initial_extrap is not None else None,
+        h_ex=he if initial_extrap is not None else None,
+    )
+
+
 def _shape(a) -> Tuple[int, ...]:
     return tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
 
@@ -198,6 +318,8 @@ def solve(
     clamp_inputs: bool = True,
     initial_cost: float = float("nan"),
     device="cuda",
+    initial_momentum: float = float("nan"),
+    initial_extrap=None,
 ) -> SolveResult:
     """Factorize ``x ~= w @ h`` (the reference's ``run_async``, nmf.cu:76-116).
 
@@ -211,6 +333,14 @@ def solve(
     ``x_dtype`` or quantized; without it they are cast or quantized
     directly.  A pair passes through untouched.  The prep writes fresh
     tensors, so the caller's arrays are never modified.
+
+    ``initial_cost`` seeds the convergence baseline of a resumed run;
+    ``initial_momentum`` seeds the accelerated loop's momentum (NaN: start
+    at ``config.accel_momentum``), and ``initial_extrap``, a ``(w_ex,
+    h_ex)`` pair cast to the state dtype, its extrapolation carry; then the
+    result's ``w_ex``/``h_ex`` hold the carry for the next segment
+    (``utils.convert.accel_state_from`` reads both from a result of either
+    package).
     """
     config.validate()
     quant = config.precision.x_dtype == "int8"
@@ -240,8 +370,11 @@ def solve(
     cost_fn = _cost_fn(config)
     dev = resolve_device(device)
     x, w0, h0 = _prep(x, w0, h0, config, clamp_inputs, dev)
+    if initial_extrap is not None:
+        initial_extrap = tuple(to_state(a, config, dev, clamp=False) for a in initial_extrap)
     c0 = None if np.isnan(initial_cost) else initial_cost
-    return run_checked_loop(x, w0, h0, config, step_fn, cost_fn, c0)
+    return run_checked_loop(x, w0, h0, config, step_fn, cost_fn, c0,
+                            float(initial_momentum), initial_extrap)
 
 
 def to_state(a, config: SolveConfig, dev: torch.device, clamp: bool = True) -> torch.Tensor:

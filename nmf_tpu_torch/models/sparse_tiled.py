@@ -192,7 +192,6 @@ def _validate_hand_built(tx: TileSparseX, mb: int, nb: int) -> None:
 def _refuse_unported(config: SolveConfig, mesh) -> None:
     later = {
         "mesh (ROADMAP.md Queue 1 item 12: the sharded solver)": mesh is not None,
-        "accelerate=True (ROADMAP.md Queue 1 item 5: the accel loop)": config.accelerate,
         "live_metrics=True (ROADMAP.md Queue 1 item 5)": config.live_metrics,
         "backend='autotune' (ROADMAP.md Queue 1 item 7)": config.backend == "autotune",
     }
@@ -376,9 +375,13 @@ def solve_sparse_tiled(
     per-tile f32 scales (each tile's own max/510 error bound), swept by the
     plain version.  ``initial_cost`` seeds the convergence baseline.  The
     inputs go to ``device`` (``"cuda"`` by default; a CUDA request without
-    a card raises).  Refused with ``NotImplementedError``: ``mesh``,
-    ``accelerate``, ``live_metrics``, ``backend='autotune'``, ``beta != 1``,
-    penalties and ``algorithm != 'mu'``.
+    a card raises).  ``accelerate=True`` runs the accelerated loop on the
+    PADDED factors, as ``nmf_tpu`` does: its eps clamp lifts the padded W
+    rows and H columns of the extrapolated point from 0 to eps, so on a
+    ragged problem they enter the next step's sums (by O(pad * eps)); they
+    see zero numerators, so the iterate's padding stays 0.  Refused with ``NotImplementedError``: ``mesh``,
+    ``live_metrics``, ``backend='autotune'``, ``beta != 1``, penalties and
+    ``algorithm != 'mu'``.
     """
     config.validate()
     _refuse_unported(config, mesh)

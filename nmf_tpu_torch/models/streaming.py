@@ -35,11 +35,16 @@ scales (quantized once on the host by ``quantize_policy_np``; the codes are
 kept on the host up to ``NMF_TPU_QCACHE_BYTES``, the scales on the card).
 
 Device memory: W + H + the accumulators + two blocks + the kernels'
-scratch, independent of N.
+scratch, independent of N (``accelerate``: W and H twice more, the
+extrapolated point and the block-start snapshot).
+
+``accelerate=True`` runs the safeguarded Nesterov loop over the same sweep
+(:func:`_accel_loop`): a seed cost pass, then a cost pass at every check,
+and a rejected block re-streams X ``chunk + 1`` times more.
 
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh``, ``mask``, ``n_frozen``, ``checkpoint_dir``, the
-accelerated loop, ``live_metrics``, the beta, penalized and HALS families,
+ROADMAP.md item: ``mesh``, ``mask``, ``n_frozen``, ``checkpoint_dir``,
+``live_metrics``, the beta, penalized and HALS families,
 ``backend="autotune"``; ``transform_out_of_core`` waits for the H-only solve.
 """
 
@@ -61,7 +66,7 @@ from ..ops.mu import numerator_w, update_h
 from ..ops.quant import dequantize, quantize_policy_np
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
-from .solver import SolveResult, _use_kernels, to_state
+from .solver import SolveResult, _use_kernels, extrapolate, to_state
 
 __all__ = [
     "ArrayColumnSource",
@@ -375,7 +380,6 @@ def _refuse_unported(config: SolveConfig, mesh, mask, n_frozen, checkpoint_dir) 
         "mask (ROADMAP.md Queue 1 item 8: masked streaming)": mask is not None,
         "n_frozen (ROADMAP.md Queue 1 item 8: semi-adaptive streaming)": bool(n_frozen),
         "checkpoint_dir (ROADMAP.md Queue 1 item 13: checkpoint/resume)": bool(checkpoint_dir),
-        "accelerate=True (ROADMAP.md 'What remains': the accel loop)": config.accelerate,
         "live_metrics=True (ROADMAP.md Queue 1 item 13: live metrics)": config.live_metrics,
         f"beta={config.beta} (ROADMAP.md Queue 1 item 8: beta streaming)": config.beta != 1.0,
         f"algorithm={config.algorithm!r} (ROADMAP.md Queue 1 item 8: HALS streaming)":
@@ -458,27 +462,43 @@ def solve_out_of_core(
     check_every = int(config.check_every)
     thresh = float(config.thresh)
     need_cost = config.track_cost or thresh > 0.0
-    it, converged = 0, False
-    hist_list: List[float] = []
-    prev_cost = float("nan")
-    while it < max_iter and not converged:
+
+    def sweep(w_src, get_h, set_h):
+        """One iteration: one double-buffered sweep over the blocks, reading
+        each block's H through ``get_h`` and committing the new one through
+        ``set_h`` (``streaming.py:1108-1125`` of the JAX package); the plain
+        and the accelerated loops run this one body.  Returns the new W."""
         # the accumulators are made on the device each sweep, not uploaded
         a1 = torch.zeros((m, k), dtype=_F32, device=dev)
         a2 = torch.zeros((k,), dtype=_F32, device=dev)
         for idx, x_j in stream.sweep():
-            h_blocks[idx] = step_acc(w, h_blocks[idx], x_j, a1, a2)
-        w = w_epilogue(w, a1, a2)
-        it += 1
-        if need_cost and (it % check_every == 0 or it == max_iter):
-            # per-block costs stay on the device, summed in block order:
-            # one host read per cost pass
-            parts = [cost_block(w, h_blocks[idx], x_j) for idx, x_j in stream.sweep()]
-            total = float(torch.sum(torch.stack(parts)))
-            hist_list.append(total)
-            rel = abs(prev_cost - total) / abs(total) if total else float("nan")
-            if thresh > 0.0 and rel < thresh:
-                converged = True
-            prev_cost = total
+            set_h(idx, step_acc(w_src, get_h(idx), x_j, a1, a2))
+        return w_epilogue(w_src, a1, a2)
+
+    def cost_pass(w_c, h_list) -> float:
+        """Stream X once more; per-block costs stay on the device, summed in
+        block order: one host read per cost pass."""
+        parts = [cost_block(w_c, h_list[idx], x_j) for idx, x_j in stream.sweep()]
+        return float(torch.sum(torch.stack(parts)))
+
+    it, converged = 0, False
+    hist_list: List[float] = []
+    prev_cost = float("nan")
+    mom = float("nan")
+    if config.accelerate:
+        w, prev_cost, mom, it, converged = _accel_loop(
+            config, sweep, cost_pass, w, h_blocks, hist_list)
+    else:
+        while it < max_iter and not converged:
+            w = sweep(w, h_blocks.__getitem__, h_blocks.__setitem__)
+            it += 1
+            if need_cost and (it % check_every == 0 or it == max_iter):
+                total = cost_pass(w, h_blocks)
+                hist_list.append(total)
+                rel = abs(prev_cost - total) / abs(total) if total else float("nan")
+                if thresh > 0.0 and rel < thresh:
+                    converged = True
+                prev_cost = total
     del stream   # the block buffers go before H is joined
 
     hist = np.full((max(len(hist_list), 1),), np.nan, np.float32)
@@ -491,5 +511,68 @@ def solve_out_of_core(
         cost_history=torch.from_numpy(hist),
         num_checks=torch.tensor(len(hist_list), dtype=torch.int32),
         converged=torch.tensor(converged, dtype=torch.bool),
-        momentum=torch.tensor(float("nan"), dtype=_F32),
+        momentum=torch.tensor(mom, dtype=_F32),
     )
+
+
+def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list):
+    """The safeguarded Nesterov-accelerated streamed loop
+    (``streaming.py:1152-1262`` of the JAX package, without its checkpoint
+    and mesh branches): the in-memory ``_run_accel_loop`` restated over
+    streamed blocks.
+
+    Each sweep runs from the extrapolated ``(w_ex, h_ex)`` and commits the
+    plain iterate; the cost is taken at every check, against a seed cost
+    pass made up front.  A block whose cost rose (or is NaN) restores the
+    block-start snapshot and is redone with plain sweeps, and the carry
+    restarts at the iterate.  The momentum is a Python float (float64), as
+    in JAX's host loop; :func:`~nmf_tpu_torch.models.solver.extrapolate`
+    rounds it to f32.  The snapshot copies the LIST of H blocks: the sweep
+    replaces list entries and never writes a tensor in place, so holding the
+    tensors is enough.  Updates ``h_blocks`` and ``hist_list`` in place;
+    returns ``(w, cost, momentum, iterations, converged)``.
+    """
+    max_iter = int(config.max_iter)
+    check_every = int(config.check_every)
+    thresh = float(config.thresh)
+    eps = config.eps
+    mom = float(config.accel_momentum)
+    m_hi = float(config.accel_momentum_max)
+    grow = float(config.accel_grow)
+    shrink = float(config.accel_shrink)
+    it, converged = 0, False
+    baseline = cost_pass(w, h_blocks) if max_iter > 0 else float("nan")
+    w_ex, h_ex = w, list(h_blocks)
+    w_snap, h_snap = w, list(h_blocks)
+
+    def set_h_extrapolated(idx, h_new):
+        # commit the plain iterate; the next sweep runs from the
+        # extrapolated point (at the momentum of the current block)
+        h_ex[idx] = extrapolate(h_new, h_blocks[idx], mom, eps)
+        h_blocks[idx] = h_new
+
+    while it < max_iter and not converged:
+        chunk = min(check_every, max_iter - it)
+        for _ in range(chunk):
+            w_new = sweep(w_ex, h_ex.__getitem__, set_h_extrapolated)
+            w_ex = extrapolate(w_new, w, mom, eps)
+            w = w_new
+        it += chunk
+        total = cost_pass(w, h_blocks)
+        if total <= baseline:
+            mom = min(mom * grow, m_hi)
+        else:
+            w = w_snap
+            h_blocks[:] = h_snap
+            for _ in range(chunk):
+                w = sweep(w, h_blocks.__getitem__, h_blocks.__setitem__)
+            total = cost_pass(w, h_blocks)
+            w_ex, h_ex[:] = w, h_blocks
+            mom = mom * shrink
+        w_snap, h_snap = w, list(h_blocks)
+        rel = abs(baseline - total) / abs(total) if total else float("nan")
+        hist_list.append(total)
+        baseline = total
+        if thresh > 0.0 and rel < thresh:
+            converged = True
+    return w, baseline, mom, it, converged

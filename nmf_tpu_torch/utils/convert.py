@@ -13,7 +13,7 @@ holds every bf16 value exactly.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ from .config import Precision, SolveConfig
 from .device import resolve_device
 
 __all__ = [
+    "accel_state_from",
     "config_from_dict",
     "state_from_numpy",
     "result_to_numpy",
@@ -32,7 +33,7 @@ __all__ = [
 
 RESULT_FIELDS = (
     "w", "h", "iterations", "cost", "cost_history", "num_checks",
-    "converged", "momentum",
+    "converged", "momentum", "w_ex", "h_ex",
 )
 
 
@@ -73,6 +74,22 @@ def state_from_numpy(x, w, h, device="cuda") -> Tuple:
     dev = resolve_device(device)
     xt = tuple(to_tensor(a, dev) for a in x) if isinstance(x, tuple) else to_tensor(x, dev)
     return xt, to_tensor(w, dev), to_tensor(h, dev)
+
+
+def accel_state_from(res, device="cuda") -> Tuple[float, Optional[Tuple]]:
+    """The accelerated loop's resume state in a result of either package,
+    as ``solve``'s ``(initial_momentum, initial_extrap)``: the momentum as
+    a float (the f32 value exactly; NaN for a plain solve), and ``(w_ex,
+    h_ex)`` as tensors on ``device`` in their own dtype (bf16 bit for bit,
+    :func:`to_tensor`), or None where the result carries none."""
+    mom = res.momentum
+    if isinstance(mom, torch.Tensor):
+        mom = mom.detach().cpu().numpy()
+    momentum = float(np.asarray(mom, np.float32))
+    if getattr(res, "w_ex", None) is None:
+        return momentum, None
+    dev = resolve_device(device)
+    return momentum, (to_tensor(res.w_ex, dev), to_tensor(res.h_ex, dev))
 
 
 def tile_sparse_from(tx):

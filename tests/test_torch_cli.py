@@ -92,12 +92,25 @@ def test_run_with_random_init(tmp_path):
         ["--restarts", "4"],
     ],
 )
-def test_refused_flag_exits_2(capsys, flags):
+def test_refused_flag_exits_2(capsys, tmp_path, flags):
     """A flag not in the port exits 2 naming its ROADMAP.md item.  The
     precision flags, ``--backend jnp`` and ``--no-cost``, refused when this
     test was named, are ported: the parser takes them, and the run exits 2
     later, on its (here missing) input.  ``--out-of-core`` is ported too;
-    with ``--mesh`` it is refused for the mesh."""
+    with ``--mesh`` it is refused for the mesh.  ``--accelerate`` and
+    ``--strict-compat`` are ported: they run on a small problem through
+    both CLIs, whose files agree to rtol 1e-4 / atol 1e-6."""
+    if flags[0] in ("--accelerate", "--strict-compat"):
+        _write_problem(tmp_path, 40, 4, 30, 2)
+        files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+        common = ["--max-iter", "50", "--check-every", "10", "-q", *flags]
+        out = {tag: [str(tmp_path / f"{f}{tag}.bin") for f in "WH"] for tag in "pj"}
+        assert cli.main(["run", *files, "-o", *out["p"], "--device", "cpu", *common]) == 0
+        assert _jax_cli(["run", *files, "-o", *out["j"], *common], tmp_path) == 0
+        for ours, ref in zip(out["p"], out["j"]):
+            np.testing.assert_allclose(jbin.read_matrix(ours), jbin.read_matrix(ref),
+                                       rtol=1e-4, atol=1e-6)
+        return
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
@@ -186,7 +199,7 @@ def test_jax_default_flags_match_jax_cli(gen_dir, tmp_path, flags):
 
 
 def _write_problem(d, m=96, k=12, n=1000, seed=17):
-    """The tests/test_streaming.py problem as .bin files."""
+    """The tests/test_streaming.py problem as .bin files (or another size)."""
     rng = np.random.RandomState(seed)
     for name, shape in (("X", (m, n)), ("W", (m, k)), ("H", (k, n))):
         jbin.write_matrix(rng.rand(*shape).astype(np.float32), d / f"{name}.bin")
@@ -307,11 +320,113 @@ def test_every_jax_run_flag_is_known():
 
 
 def test_rank_without_random_init_exits_2(tmp_path, capsys):
+    """``run X.bin --rank 2`` with no ``--init``, refused when this test was
+    named, runs at the JAX CLI's default ``--init nndsvda`` through both
+    CLIs and writes the same bytes: the inits are byte-equal
+    (tests/test_torch_init.py), and on this X (all ones, whose rank-2
+    NNDSVDa start is exact) every f32 sum of both packages agrees."""
     x = np.ones((6, 5), np.float32)
     jbin.write_matrix(x, tmp_path / "X.bin")
-    rc = cli.main(["run", str(tmp_path / "X.bin"), "--rank", "2", "--device", "cpu"])
-    assert rc == 2
-    assert "--init random" in capsys.readouterr().err
+    args = ["run", str(tmp_path / "X.bin"), "--rank", "2", "-q"]
+    out = {tag: [str(tmp_path / f"{f}{tag}.bin") for f in "WH"] for tag in "pj"}
+    assert cli.main([*args, "-o", *out["p"], "--device", "cpu"]) == 0
+    assert _jax_cli([*args, "-o", *out["j"]], tmp_path) == 0
+    assert capsys.readouterr().err == ""
+    for f in "WH":
+        assert (tmp_path / f"{f}p.bin").read_bytes() == (tmp_path / f"{f}j.bin").read_bytes()
+    assert jbin.read_matrix(tmp_path / "Wp.bin").shape == (6, 2)
+
+
+@pytest.mark.parametrize("init", ["random", "scaled", "nndsvd", "nndsvda", "nndsvdar"])
+def test_rank_init_matches_jax_cli(tmp_path, init):
+    """``run X.bin --rank 4 --init ...`` through both CLIs: the same init
+    (byte-equal in process), then files within rtol 1e-4 / atol 1e-6, as
+    test_gen_then_run_matches_jax holds them."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    args = ["run", str(tmp_path / "X.bin"), "--rank", "4", "--init", init, "--seed", "5",
+            "--max-iter", "50", "-q"]
+    out = {tag: [str(tmp_path / f"{f}{tag}.bin") for f in "WH"] for tag in "pj"}
+    assert cli.main([*args, "-o", *out["p"], "--device", "cpu"]) == 0
+    assert _jax_cli([*args, "-o", *out["j"]], tmp_path) == 0
+    for f in "WH":
+        np.testing.assert_allclose(jbin.read_matrix(tmp_path / f"{f}p.bin"),
+                                   jbin.read_matrix(tmp_path / f"{f}j.bin"), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("flags", [["--accelerate"], ["--accelerate", "--thresh", "1e-4"],
+                                   ["--accelerate", "--x-dtype", "int8"], ["--strict-compat"],
+                                   ["--strict-compat", "--no-cost"]])
+def test_ported_solver_flags_match_jax_cli(tmp_path, flags):
+    """``--accelerate`` (in memory) and ``--strict-compat`` through both
+    CLIs on the same files: iterations and checks equal, files within rtol
+    1e-4 / atol 1e-6, the final cost within 1e-5."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+    common = ["--max-iter", "60", "--check-every", "10", "-q", *flags]
+    assert cli.main(["run", *files, "-o", str(tmp_path / "Wp.bin"), str(tmp_path / "Hp.bin"),
+                     "--device", "cpu", "--jsonl", str(tmp_path / "port.jsonl"), *common]) == 0
+    assert _jax_cli(["run", *files, "-o", "Wj.bin", "Hj.bin", "--jsonl", "jax.jsonl", *common],
+                    tmp_path) == 0
+    for f in "WH":
+        np.testing.assert_allclose(jbin.read_matrix(tmp_path / f"{f}p.bin"),
+                                   jbin.read_matrix(tmp_path / f"{f}j.bin"), rtol=1e-4, atol=1e-6)
+    ours, ref = (json.loads((tmp_path / f"{s}.jsonl").read_text().splitlines()[-1])
+                 for s in ("port", "jax"))
+    assert ours["iterations"] == ref["iterations"]
+    assert [c["iteration"] for c in ours["checks"]] == [c["iteration"] for c in ref["checks"]]
+    if ref["final_cost"] is None:
+        assert ours["final_cost"] is None
+    else:
+        assert ours["final_cost"] == pytest.approx(ref["final_cost"], rel=1e-5)
+
+
+def test_strict_compat_with_accelerate_exits_2_like_jax(tmp_path, capsys):
+    """strict mode replays one algorithm: both CLIs exit 2 with the same message."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+    assert cli.main(["run", *files, "--device", "cpu", "--strict-compat", "--accelerate"]) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(["run", *files, "--strict-compat", "--accelerate"], tmp_path) == 2
+    assert ours == capsys.readouterr().err and "replicates" in ours
+
+
+def test_strict_compat_files_are_depadded_and_repeatable(tmp_path):
+    """The logical shapes, bit for bit on a rerun."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+    for tag in "ab":
+        assert cli.main(["run", *files, "--device", "cpu", "--strict-compat", "--max-iter", "20",
+                         "-q", "-o", str(tmp_path / f"W{tag}.bin"), str(tmp_path / f"H{tag}.bin")]) == 0
+    assert jbin.read_matrix(tmp_path / "Wa.bin").shape == (40, 4)
+    assert jbin.read_matrix(tmp_path / "Ha.bin").shape == (4, 30)
+    for f in "WH":
+        assert (tmp_path / f"{f}a.bin").read_bytes() == (tmp_path / f"{f}b.bin").read_bytes()
+
+
+@pytest.mark.parametrize("block_n", ["256", "384"])
+def test_out_of_core_accelerate_matches_jax_cli(tmp_path, block_n):
+    """``run --out-of-core --accelerate`` through both CLIs: the costs agree
+    to 1e-5, the files to rtol 1e-3 / atol 1e-6 after 30 iterations.  The
+    plain streamed files agree to 1e-5 (test_out_of_core_run_matches_jax_cli);
+    each extrapolation scales a difference by up to 1 + momentum, so the
+    blockwise summation-order drift grows: measured 2.3e-4 on one entry of
+    12000."""
+    _write_problem(tmp_path)
+    common = ["X.bin", "W.bin", "H.bin", "--out-of-core", "--block-n", block_n, "--accelerate",
+              "--max-iter", "30", "--check-every", "10", "-q"]
+    run = _port("run", *common, "-o", "Wp.bin", "Hp.bin", "--device", "cpu",
+                "--jsonl", "port.jsonl", cwd=tmp_path)
+    assert run.returncode == 0, run.stderr
+    assert _jax_cli(["run", *common, "-o", "Wj.bin", "Hj.bin", "--jsonl", "jax.jsonl"],
+                    tmp_path) == 0
+    for f in "WH":
+        np.testing.assert_allclose(jbin.read_matrix(tmp_path / f"{f}p.bin"),
+                                   jbin.read_matrix(tmp_path / f"{f}j.bin"), rtol=1e-3, atol=1e-6)
+    ours, ref = (json.loads((tmp_path / f"{s}.jsonl").read_text().splitlines()[-1])
+                 for s in ("port", "jax"))
+    assert ours["iterations"] == ref["iterations"] == 30
+    assert [c["iteration"] for c in ours["checks"]] == [10, 20, 30]
+    assert ours["final_cost"] == pytest.approx(ref["final_cost"], rel=1e-5)
 
 
 def test_lone_init_file_exits_2(tmp_path, capsys):
@@ -355,8 +470,8 @@ def test_import_loads_no_jax():
         "import sys, nmf_tpu_torch, nmf_tpu_torch.cli, nmf_tpu_torch.utils.convert, "
         "nmf_tpu_torch.utils.metrics, nmf_tpu_torch.ops.kernels.fused_mu, "
         "nmf_tpu_torch.ops.kernels.tile_sparse, nmf_tpu_torch.models.sparse_tiled, "
-        "nmf_tpu_torch.models.streaming, "
-        "nmf_tpu_torch.ops.kernels._build\n"
+        "nmf_tpu_torch.models.streaming, nmf_tpu_torch.models.strict, "
+        "nmf_tpu_torch.models.init, nmf_tpu_torch.ops.kernels._build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nmf_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
