@@ -5,8 +5,9 @@
     python3 chip_smoke.py --phases card,kernels,modes,quant   # a subset
     python3 chip_smoke.py --phases card,modes,flagship        # after a K1/K2 edit
     python3 chip_smoke.py --phases card,accel                 # the accelerated solves
+    python3 chip_smoke.py --phases card,families,transform    # the families, the H-only path
 
-Ten phases, in order; any failure raises and the exit code is non-zero:
+Twelve phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
@@ -148,7 +149,38 @@ Ten phases, in order; any failure raises and the exit code is non-zero:
    streamed solve at the hour of audio, 10 iterations, a check every 5, f32
    and int8 X: blocks x (iterations + 5 x rejects) launches of K1 and K2
    ``numerator_only``, blocks x (1 + checks + rejects) of K3, the cost
-   within 1e-5 of the in-memory accelerated solve, a bitwise rerun, it/s.
+   within 1e-5 of the in-memory accelerated solve, a bitwise rerun, it/s;
+11. families: the beta (2, 0, 0.5, 3), HALS and penalized KL (``l1_h =
+   l2_w = 0.1``) solves, and ``accelerate=True`` for beta 2 and HALS, at
+   the reference fixtures, 200 iterations, f32, on the card: plain torch
+   ops by rule, so 0 launches of K1-K3 and K5 (the counts set to 0 just
+   before each); the final cost within ``FAMILY_COST_RTOL`` of the same
+   solve on the CPU; a history that does not rise for beta >= 1, HALS and
+   the accelerated solves; a bitwise rerun; it/s; one HALS sweep of H and
+   of W timed (CUDA events) and the kernels one HALS iteration launches
+   (torch.profiler);
+12. transform: the H-only path at the ISMIR shape 1025 x 4000, K=32 (X
+   from ``--seed`` on the card, W from a 200-iteration solve).  (a)
+   ``solve_h_only``, 200 iterations, under float32, ``bfloat16``,
+   ``float32_fast``, bf16 X and int8 X: exactly 200 K1, 0 K2 and 8 K3
+   launches and 0 plain calls, every K3 launch in its F32 instance (ANY
+   for bf16 or int8 X, read from ``nmf_kl_launches``), never BF16: the
+   H-only cost has a true-f32 recon in every policy; the cost within 1e-4
+   of the ``backend="jnp"`` H-only solve (1e-3 under ``bfloat16``), a
+   bitwise rerun, it/s; and ``solve_w_only``: 200 K1 launches on the
+   transposed problem, against ``jnp``.  (b) ``transform_out_of_core`` at
+   the hour of audio (phase 9's 1025 x 619,264, K=32, 10 blocks), 50
+   iterations a block, f32 and int8 X: blocks x 50 K1 and blocks x 2 K3
+   launches, the block costs summed within 1e-5 of the in-memory
+   ``solve_h_only`` from the same explicit H0 and H within
+   ``OOC_FACTOR_RTOL`` of it, peak device memory under a third of X, the
+   H2D rate and it/s.  (c) ``NMF(n_components=32, init="nndsvda").fit``
+   (200/200/8 launches), ``transform`` of 1000 new columns (200/0/8), then
+   ``normalize_factors``: W H moved by at most 1e-6 relative.  (d) The CLI
+   as subprocesses: ``transform X W -o H``, in memory and ``--out-of-core
+   --block-n 1024``, and ``run`` at the reference fixtures with ``--beta
+   2``, ``--algorithm hals --beta 2`` and ``--l1-h 0.1``, each file
+   byte-equal to the in-process result.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -163,8 +195,9 @@ instance); K3 its instance in each mode and its launches on the
 reference, streamed and flagship solves (``solve_launches``);
 K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
 their launches on the streamed solve; every kernel its launches on phase
-10's accelerated solves, ``accel_launches``); the last line is ``{"ok": true,
-"device": {...}}``.
+10's accelerated solves, ``accel_launches``; K1-K3 their launches on each
+run of phase 12, ``transform_launches``, K2's all 0); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -248,7 +281,7 @@ TIERS = {
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
-          "oocore", "accel")
+          "oocore", "accel", "families", "transform")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -2390,12 +2423,406 @@ def _accel_launches(launches, name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the beta, penalized and HALS families (plain ops by rule)
+
+# the reference solve's families: name -> SolveConfig fields
+FAMILY_RUNS = {
+    "beta2": dict(beta=2.0),
+    "beta0": dict(beta=0.0),
+    "beta0.5": dict(beta=0.5),
+    "beta3": dict(beta=3.0),
+    "hals": dict(beta=2.0, algorithm="hals"),
+    "kl l1_h=l2_w=0.1": dict(l1_h=0.1, l2_w=0.1),
+    "beta2 accelerate": dict(beta=2.0, accelerate=True),
+    "hals accelerate": dict(beta=2.0, algorithm="hals", accelerate=True),
+}
+FAMILY_ITERS = 200
+FAMILY_COST_RTOL = 1e-4   # the card's final cost against the same solve on the CPU
+DEVICE = "cuda"           # phases 11 and 12 run their solves here
+
+
+def _all_counts():
+    """Every kernel count, K1-K3's and K5's launches and plain calls."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.ops.kernels import tile_sparse as ts
+
+    return {**dict(fused_mu.LAUNCHES), **{f"plain {k}": v for k, v in fused_mu.PLAIN_CALLS.items()},
+            **{f"K5 {k}": v for k, v in ts.LAUNCHES.items()},
+            **{f"K5 plain {k}": v for k, v in ts.PLAIN_CALLS.items()}}
+
+
+def _reset_all():
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.ops.kernels import tile_sparse as ts
+
+    fused_mu.reset_counts()
+    ts.reset_counts()
+
+
+def _kernel_launches(fn) -> int:
+    """Kernels the card ran for ``fn()`` (torch.profiler, CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        events = json.loads(pathlib.Path(trace).read_text())["traceEvents"]
+    return sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+
+
+def phase_families(card, out):
+    """The beta, penalized and HALS families at the reference fixtures:
+    plain ops on the card by rule (no K1-K3 or K5 launch), each against the
+    same solve on the CPU, a bitwise rerun, it/s; one HALS sweep timed."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops import hals
+    from nmf_tpu_torch.ops.mu import matmul
+
+    fx = nt.fixtures
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    iters = FAMILY_ITERS
+    print(f"[{card}] phase 11: the beta, penalized and HALS families, {x.shape[0]}x{x.shape[1]}, "
+          f"K={w.shape[1]}, {iters} iterations, float32, plain torch ops on the card by rule")
+    results = {}
+    for name, fields in FAMILY_RUNS.items():
+        cfg = nt.SolveConfig(max_iter=iters, **fields)
+        where = f"families {name}"
+        nt.solve(x, w, h, dataclasses.replace(cfg, max_iter=2), device=DEVICE)   # warm
+        _reset_all()
+        res, secs = _timed(lambda: nt.solve(x, w, h, cfg, device=DEVICE))
+        counts = _all_counts()
+        check(not any(counts.values()), f"{where}: kernel counts {counts}")
+        out["launches"][where] = {key: counts[key] for key in _launches()}
+        hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
+        check(int(res.iterations) == iters and hist.shape == (cfg.num_checks,)
+              and bool(np.all(np.isfinite(hist))),
+              f"{where}: {int(res.iterations)} iterations, history {hist}")
+        monotone = cfg.beta >= 1.0 or cfg.algorithm == "hals" or cfg.accelerate
+        if monotone:
+            check(bool(np.all(np.diff(hist) <= 0)), f"{where}: history rises: {hist}")
+        res2, secs2 = _timed(lambda: nt.solve(x, w, h, cfg, device=DEVICE))
+        for f in ("w", "h", "cost_history"):
+            check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
+                  f"{where}: {f} differs on a rerun")
+        t0 = time.perf_counter()
+        cpu = nt.solve(x, w, h, cfg, device="cpu")
+        cpu_secs = time.perf_counter() - t0
+        cost, c_cpu = float(res.cost), float(cpu.cost)
+        rel = abs(cost - c_cpu) / abs(c_cpu)
+        check(rel <= FAMILY_COST_RTOL, f"{where}: cost {cost} vs the CPU solve {c_cpu}: rel {rel} "
+              f"(limit {FAMILY_COST_RTOL})")
+        results[name] = {"cost": cost, "cpu_cost": c_cpu, "rel": rel, "its": [iters / secs, iters / secs2],
+                         "cpu_its": iters / cpu_secs, "monotone_checked": monotone}
+        print(f"[{card}] {where}: no kernel launched (K1-K3 and K5 counts all 0), cost {cost}, "
+              f"CPU {c_cpu} (rel "
+              f"{rel}, limit {FAMILY_COST_RTOL}), history {hist.tolist()}"
+              f"{' non-increasing' if monotone else ''}, bitwise on rerun; "
+              f"{iters / secs} / {iters / secs2} it/s on the card, {iters / cpu_secs} on the CPU")
+    # one HALS sweep of H and of W on the reference operands, and the
+    # kernels one HALS iteration launches
+    xt, wt, ht = (torch.from_numpy(a).to(DEVICE) for a in (x, w, h))
+    eps = nt.SolveConfig().eps
+    wtx, wtw = matmul(wt, xt, transpose_a=True), matmul(wt, wt, transpose_a=True)
+    xht, hht = matmul(xt, ht, transpose_b=True), matmul(ht, ht, transpose_b=True)
+    sweep_h = event_ms(lambda: hals.cd_sweep_h(ht, wtx, wtw, eps), samples=5, calls=5)
+    sweep_w = event_ms(lambda: hals.cd_sweep_w(wt, xht, hht, eps), samples=5, calls=5)
+    step_ms = event_ms(lambda: hals.hals_step(wt, ht, xt, eps), samples=5, calls=5)
+    per_iter = _kernel_launches(lambda: hals.hals_step(wt, ht, xt, eps))
+    results["hals_sweep"] = {"h_ms": sweep_h, "w_ms": sweep_w, "step_ms": step_ms,
+                             "launches_per_iteration": per_iter}
+    out["families"] = results
+    print(f"[{card}] families HALS: one sweep of H's {w.shape[1]} rows {sweep_h} ms, of W's "
+          f"columns {sweep_w} ms, one iteration {step_ms} ms (CUDA events); {per_iter} kernel "
+          f"launches an iteration (torch.profiler): K sequential row updates, launch-bound")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the H-only path: solve_h_only, solve_w_only, transform_out_of_core,
+# NMF and the CLI's transform (K1 and K3)
+
+TR_SHAPE = (1025, 4000, 32)         # the ISMIR spectrogram (bench.py:54-59): M, N, K
+TR_ITERS = 200
+TR_OOC_ITERS = 50                   # a block's H-only iterations at the hour of audio
+TR_OOC_CLI_BLOCK = 1024
+
+
+def _tr_policies():
+    import nmf_tpu_torch as nt
+
+    return {"float32": nt.Precision(), "bfloat16": nt.Precision("bfloat16"),
+            "float32_fast": nt.Precision("float32_fast"),
+            "x_bfloat16": nt.Precision(x_dtype="bfloat16"), "x_int8": nt.Precision(x_dtype="int8")}
+
+
+def _counted_kl(fn, where, want):
+    """(fn(), host seconds, K3's Mode) with every count set to 0 just
+    before: K1-K3 launched exactly ``want``, no plain call, and every K3
+    launch in one Mode, F32 or ANY (the H-only cost's f32 recon), never
+    BF16."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    _reset_all()
+    (res, secs), counts = kl_counts(lambda: _timed(fn))
+    launches = dict(fused_mu.LAUNCHES)
+    check(launches == want and not any(fused_mu.PLAIN_CALLS.values()),
+          f"{where}: launches {launches}, plain calls {fused_mu.PLAIN_CALLS}, expected {want}")
+    mode = _mode_of_counts(counts, f"{where} K3") if want["kl_cost"] else None
+    check(mode != "BF16", f"{where}: K3 ran its BF16 instance (the H-only cost is f32)")
+    return res, secs, mode, launches
+
+
+def _tr_problem(seed):
+    """X (M x N, on the host), W from a 200-iteration solve, and an H0,
+    all made on the card from ``seed``."""
+    import nmf_tpu_torch as nt
+
+    m, n, k = TR_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 12)
+    rand = lambda *s: torch.rand(s, generator=g, device=DEVICE).clamp_min_(EPS)  # noqa: E731
+    x, w0, h0, h_start = rand(m, n), rand(m, k), rand(k, n), rand(k, n)
+    fit = nt.solve(x, w0, h0, nt.reference_preset(), device=DEVICE)
+    return (x.cpu().numpy(), fit.w.cpu().numpy(), fit.h.cpu().numpy(), h_start.cpu().numpy(),
+            float(fit.cost))
+
+
+def phase_transform_h_only(card, out, x, w, h_fit, h0):
+    import nmf_tpu_torch as nt
+
+    m, n, k = TR_SHAPE
+    want = _launches(update_h=TR_ITERS, kl_cost=TR_ITERS // 25)
+    print(f"[{card}] phase 12a: solve_h_only and solve_w_only, {TR_ITERS} iterations")
+    results = {}
+    for pol, prec in _tr_policies().items():
+        cfg = nt.SolveConfig(max_iter=TR_ITERS, precision=prec)
+        where = f"transform h_only {pol}"
+        nt.solve_h_only(x, w, h0, dataclasses.replace(cfg, max_iter=2), device=DEVICE)  # warm
+        res, secs, mode, launches = _counted_kl(
+            lambda: nt.solve_h_only(x, w, h0, cfg, device=DEVICE), where, want)
+        f32_operands = prec.x_dtype == "float32" and prec.state_dtype == "float32"
+        check(mode == ("F32" if f32_operands else "ANY"), f"{where}: K3 ran {mode}")
+        out["launches"][where] = launches
+        hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
+        check(hist.shape == (8,) and bool(np.all(np.isfinite(hist))) and bool(np.all(np.diff(hist) <= 0)),
+              f"{where}: history {hist}")
+        res2, secs2 = _timed(lambda: nt.solve_h_only(x, w, h0, cfg, device=DEVICE))
+        for f in ("h", "cost_history"):
+            check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
+                  f"{where}: {f} differs on a rerun")
+        plain, p_secs = _timed(lambda: nt.solve_h_only(
+            x, w, h0, dataclasses.replace(cfg, backend="jnp"), device=DEVICE))
+        cost, c_plain = float(res.cost), float(plain.cost)
+        rel = abs(cost - c_plain) / abs(c_plain)
+        limit = 1e-3 if prec.matmul_dtype == "bfloat16" else 1e-4
+        check(rel <= limit, f"{where}: cost {cost} vs the jnp H-only solve {c_plain}: rel {rel}")
+        results[pol] = {"its": [TR_ITERS / secs, TR_ITERS / secs2], "jnp_its": TR_ITERS / p_secs,
+                        "cost": cost, "jnp_cost": c_plain, "rel": rel,
+                        "k3": kl_instance(mode, k)}
+        print(f"[{card}] {where} {m}x{n}, K={k}: launches {launches}, K3 {kl_instance(mode, k)}, "
+              f"cost {cost} (jnp {c_plain}, rel {rel}, limit {limit}), bitwise on rerun; "
+              f"{TR_ITERS / secs} / {TR_ITERS / secs2} it/s through K1 and K3, "
+              f"{TR_ITERS / p_secs} plain")
+    # solve_w_only: the H-only solve of the transposed problem
+    cfg = nt.SolveConfig(max_iter=TR_ITERS)
+    where = "transform w_only float32"
+    w_start = np.ascontiguousarray(np.roll(w, 1, axis=0))
+    res, secs, mode, launches = _counted_kl(
+        lambda: nt.solve_w_only(x, w_start, h_fit, cfg, device=DEVICE), where, want)
+    check(mode == "F32", f"{where}: K3 ran {mode}")
+    out["launches"][where] = launches
+    plain = nt.solve_w_only(x, w_start, h_fit, dataclasses.replace(cfg, backend="jnp"),
+                            device=DEVICE)
+    rel = abs(float(res.cost) - float(plain.cost)) / abs(float(plain.cost))
+    fro = float(torch.linalg.norm(res.w - plain.w) / torch.linalg.norm(plain.w))
+    check(tuple(res.w.shape) == (m, k) and tuple(res.h.shape) == (k, n)
+          and res.w.is_contiguous(), f"{where}: W {tuple(res.w.shape)}, H {tuple(res.h.shape)}")
+    check(rel <= 1e-4 and fro <= 1e-4, f"{where}: cost rel {rel}, W relative Frobenius {fro} "
+          "against the jnp W-only solve (limits 1e-4)")
+    results["w_only"] = {"its": TR_ITERS / secs, "rel": rel, "w_fro": fro}
+    print(f"[{card}] {where}: {TR_ITERS} K1 launches on the transposed problem ({launches}), "
+          f"cost {float(res.cost)} (jnp {float(plain.cost)}, rel {rel}), W relative Frobenius "
+          f"{fro} (limits 1e-4), {TR_ITERS / secs} it/s")
+    out["transform"]["h_only"] = results
+
+
+def phase_transform_oocore(card, out, seed, w):
+    import gc
+
+    import nmf_tpu_torch as nt
+
+    m, n, k = OOC_SHAPE
+    check(w.shape == (m, k), f"W {w.shape} for the hour of audio")
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    x = torch.rand((m, n), generator=g, device=DEVICE).clamp_min_(EPS).cpu().numpy()
+    h0 = torch.rand((k, n), generator=g, device=DEVICE).clamp_min_(EPS).cpu().numpy()
+    bn = nt.pick_block_n(m, n)
+    blocks = -(-n // bn)
+    checks = TR_OOC_ITERS // 25
+    print(f"[{card}] phase 12b: transform_out_of_core {m}x{n}, K={k}: X {x.nbytes / 1e9} GB f32 "
+          f"in {blocks} blocks of {bn}, {TR_OOC_ITERS} H-only iterations a block, one stream of X")
+    want = _launches(update_h=blocks * TR_OOC_ITERS, kl_cost=blocks * checks)
+    rate = h2d_rate(4 * m * bn)
+    results = {"h2d_gbps": rate / 1e9}
+    for xdt in ("float32", "int8"):
+        cfg = nt.SolveConfig(max_iter=TR_OOC_ITERS, precision=nt.Precision(x_dtype=xdt))
+        where = f"transform_out_of_core {xdt}"
+        t0 = time.perf_counter()
+        mem = nt.solve_h_only(x, w, h0, cfg, device=DEVICE)
+        mem_h, mem_cost = mem.h.cpu(), float(mem.cost)
+        mem_secs = time.perf_counter() - t0
+        del mem
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (res, secs, mode, launches), host = _host_timed(lambda: _counted_kl(
+            lambda: nt.transform_out_of_core(x, w, h0=h0, config=cfg, device=DEVICE), where, want))
+        peak = torch.cuda.max_memory_allocated()
+        check(len(host["_fill"]) == blocks, f"{where}: {len(host['_fill'])} block fills")
+        fill_s = sum(host["_fill"])
+        out["launches"][f"transform out_of_core {xdt}"] = launches
+        check(res.blocks == [(j, min(j + bn, n)) for j in range(0, n, bn)]
+              and list(res.iterations) == [TR_OOC_ITERS] * blocks and not res.converged.any(),
+              f"{where}: blocks {res.blocks}, iterations {res.iterations}")
+        check(res.h.shape == (k, n) and bool(np.isfinite(res.h).all()), f"{where}: H not finite")
+        summed = float(np.sum(res.block_costs, dtype=np.float64))
+        rel = abs(summed - mem_cost) / abs(mem_cost)
+        check(rel <= 1e-5 and abs(res.cost - summed) <= 1e-6 * abs(summed),
+              f"{where}: block costs sum to {summed} (cost {res.cost}) vs the in-memory "
+              f"solve_h_only {mem_cost}: rel {rel} (limit 1e-5)")
+        h_rel = _max_rel(torch.from_numpy(res.h), mem_h)
+        check(h_rel <= OOC_FACTOR_RTOL, f"{where}: H vs the in-memory solve: max rel {h_rel} "
+              f"(limit {OOC_FACTOR_RTOL})")
+        check(peak < x.nbytes / 3, f"{where}: peak device memory {peak} B not under a third of "
+              f"X ({x.nbytes} B)")
+        wire = x.nbytes // (4 if xdt == "int8" else 1)
+        roof = wire / rate
+        results[xdt] = {"its": TR_OOC_ITERS / secs, "seconds": secs, "fill_share": fill_s / secs,
+                        "fill_ms_median": 1e3 * statistics.median(host["_fill"]),
+                        "rel": rel, "h_rel": h_rel,
+                        "peak_gb": peak / 1e9, "roofline_s": roof, "roofline_fraction": roof / secs,
+                        "k3": kl_instance(mode, k), "in_memory_its": TR_OOC_ITERS / mem_secs}
+        print(f"[{card}] {where}: launches {launches}, K3 {kl_instance(mode, k)}, cost "
+              f"{res.cost}, block costs summed {summed} vs the in-memory solve_h_only {mem_cost} "
+              f"(rel {rel}, limit 1e-5), H max rel {h_rel} (limit {OOC_FACTOR_RTOL}); "
+              f"{secs} s = {TR_OOC_ITERS / secs} full-width it/s; H2D {rate / 1e9} GB/s "
+              f"(pinned), {wire / 1e9} GB on the wire, roofline {roof} s = {roof / secs} of it "
+              f"reached; block fills (host clock: gather, cast or quantization into pinned "
+              f"memory) {fill_s / secs} of the wall, median "
+              f"{1e3 * statistics.median(host['_fill'])} ms a block; peak device memory "
+              f"{peak / 1e9} GB; in-memory {TR_OOC_ITERS / mem_secs} it/s incl. its upload")
+    out["transform"]["oocore"] = results
+
+
+def phase_transform_nmf(card, out, x, seed):
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    m, n, k = TR_SHAPE
+    where = "transform NMF"
+    print(f"[{card}] phase 12c: NMF(n_components={k}, init='nndsvda') fit, transform, "
+          "normalize_factors")
+    est = nt.NMF(n_components=k, init="nndsvda", device=DEVICE)
+    _reset_all()
+    _, fit_secs = _timed(lambda: est.fit(x))
+    launches = dict(fused_mu.LAUNCHES)
+    check(launches == _launches(update_h=200, update_w=200, kl_cost=8),
+          f"{where} fit: launches {launches}")
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 14)
+    x_new = torch.rand((m, 1000), generator=g, device=DEVICE).cpu().numpy()
+    h_new, secs, mode, t_launches = _counted_kl(lambda: est.transform(x_new), f"{where}.transform",
+                                                _launches(update_h=200, kl_cost=8))
+    out["launches"]["transform NMF.transform"] = t_launches
+    check(est.w_.shape == (m, k) and h_new.shape == (k, 1000) and bool(np.isfinite(h_new).all())
+          and np.isfinite(est.reconstruction_err_) and est.n_iter_ == 200,
+          f"{where}: W {est.w_.shape}, H {h_new.shape}, err {est.reconstruction_err_}")
+    wn, hn = nt.normalize_factors(est.w_, h_new)
+    before = est.w_.astype(np.float64) @ h_new.astype(np.float64)
+    after = wn.astype(np.float64) @ hn.astype(np.float64)
+    inv = float(np.max(np.abs(after - before) / np.abs(before)))
+    check(inv <= 1e-6 and np.allclose(wn.sum(axis=0), 1.0, rtol=1e-5),
+          f"{where}: normalize_factors moved W H by {inv} (limit 1e-6)")
+    out["transform"]["nmf"] = {"fit_its": 200 / fit_secs, "transform_its": 200 / secs,
+                               "reconstruction_err": est.reconstruction_err_, "invariance": inv}
+    print(f"[{card}] {where}: fit {m}x{n} K={k} (nndsvda) launches {launches}, "
+          f"reconstruction_err_ {est.reconstruction_err_}, {200 / fit_secs} it/s incl. the init; "
+          f"transform of {m}x1000 new columns launches {t_launches}, K3 {kl_instance(mode, k)}, "
+          f"{200 / secs} it/s; normalize_factors: W H moved by {inv} relative (limit 1e-6)")
+
+
+def phase_transform_cli(card, tmp, out, x, w):
+    """``transform`` (in memory and ``--out-of-core``) and ``run`` with a
+    family, as subprocesses, each file byte-equal to the in-process result."""
+    import nmf_tpu_torch as nt
+
+    m, n, k = TR_SHAPE
+    print(f"[{card}] phase 12d: the CLI's transform and run with a family, as subprocesses")
+    nt.write_matrix(x, os.path.join(tmp, "tr_X.bin"))
+    nt.write_matrix(w, os.path.join(tmp, "tr_W.bin"))
+    xf, wf = (nt.read_matrix(os.path.join(tmp, f"tr_{s}.bin")) for s in "XW")
+    _cli(["transform", "tr_X.bin", "tr_W.bin", "-o", "tr_H.bin", "-q"], tmp)
+    h0 = np.random.RandomState(0).rand(k, n).astype(np.float32)
+    ref = nt.solve_h_only(xf, wf, h0, nt.SolveConfig(), device=DEVICE).h.cpu().numpy()
+    check(nt.read_matrix(os.path.join(tmp, "tr_H.bin")).tobytes() == ref.tobytes(),
+          "CLI transform: H differs from the in-process solve_h_only")
+    bn = TR_OOC_CLI_BLOCK
+    _cli(["transform", "tr_X.bin", "tr_W.bin", "-o", "tr_Hooc.bin", "--out-of-core",
+          "--block-n", str(bn), "-q"], tmp)
+    ref = nt.transform_out_of_core(os.path.join(tmp, "tr_X.bin"), wf, block_n=bn,
+                                   device=DEVICE).h
+    check(nt.read_matrix(os.path.join(tmp, "tr_Hooc.bin")).tobytes() == ref.tobytes(),
+          "CLI transform --out-of-core: H differs from the in-process transform_out_of_core")
+    print(f"[{card}] CLI transform {m}x{n} K={k}, in memory and --out-of-core --block-n {bn}: "
+          "files byte-equal to the in-process solve_h_only / transform_out_of_core")
+    _cli(["gen", "."], tmp)
+    xr, wr, hr = (nt.read_matrix(os.path.join(tmp, f"{s}.bin")) for s in "XWH")
+    runs = {"beta2": (["--beta", "2"], dict(beta=2.0)),
+            "hals": (["--algorithm", "hals", "--beta", "2"], dict(beta=2.0, algorithm="hals")),
+            "l1_h": (["--l1-h", "0.1"], dict(l1_h=0.1))}
+    cli = {}
+    for tag, (flags, fields) in runs.items():
+        _cli(["run", "X.bin", "W.bin", "H.bin", "-o", f"W_{tag}.bin", f"H_{tag}.bin", "-q",
+              "--jsonl", f"{tag}.jsonl", *flags], tmp)
+        res = nt.solve(xr, wr, hr, nt.SolveConfig(**fields), device=DEVICE)
+        for f in "WH":
+            got = nt.read_matrix(os.path.join(tmp, f"{f}_{tag}.bin"))
+            check(got.tobytes() == getattr(res, f.lower()).cpu().numpy().tobytes(),
+                  f"CLI run {' '.join(flags)}: {f} differs from the in-process solve")
+        rec = json.loads(pathlib.Path(tmp, f"{tag}.jsonl").read_text().splitlines()[-1])
+        cli[tag] = {"final_cost": rec["final_cost"], "its": rec["iters_per_sec"]}
+        print(f"[{card}] CLI run X.bin W.bin H.bin {' '.join(flags)}: files byte-equal to the "
+              f"in-process solve, final cost {rec['final_cost']}, {rec['iters_per_sec']} it/s")
+    out["transform"]["cli"] = cli
+
+
+def phase_transform(card, tmp, out, seed):
+    m, n, k = TR_SHAPE
+    print(f"[{card}] phase 12: the H-only path at the ISMIR shape {m}x{n}, K={k} (X from "
+          f"--seed, W from a 200-iteration solve): solve_h_only, solve_w_only, "
+          f"transform_out_of_core, NMF, CLI transform")
+    x, w, h_fit, h0, fit_cost = _tr_problem(seed)
+    out["transform"]["w_fit_cost"] = fit_cost
+    phase_transform_h_only(card, out, x, w, h_fit, h0)
+    phase_transform_oocore(card, out, seed, w)
+    phase_transform_nmf(card, out, x, seed)
+    phase_transform_cli(card, tmp, out, x, w)
+
+
+def _transform_launches(launches, name):
+    """A kernel's launches on each run of phase 12."""
+    return {run[10:]: counts[name] for run, counts in launches.items()
+            if run.startswith("transform ")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the data phases 9 and 10 make on the card (default 0)")
+                    help="seed of the data phases 9, 10 and 12 make on the card (default 0)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -2420,6 +2847,7 @@ def main(argv=None) -> int:
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
+        "families": {}, "transform": {},
     }
     t_start = time.perf_counter()
     phase_card(card, out)  # always: every other phase needs the build
@@ -2444,6 +2872,11 @@ def main(argv=None) -> int:
             phase_oocore(card, tmp, out, args.seed)
     if "accel" in phases:
         phase_accel(card, out, args.seed)
+    if "families" in phases:
+        phase_families(card, out)
+    if "transform" in phases:
+        with tempfile.TemporaryDirectory(prefix="nmf_tr_") as tmp:
+            phase_transform(card, tmp, out, args.seed)
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
               "a subset prints no result")
@@ -2497,10 +2930,15 @@ def main(argv=None) -> int:
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
             **({"long_walks": st["long_walks"]} if st["long_walks"] else {}),
             "accel_launches": _accel_launches(out["launches"], name),
+            # K1-K3: their launches on phase 12's H-only runs (K2: none)
+            **({"transform_launches": _transform_launches(out["launches"], name)}
+               if name in ("update_h", "update_w", "kl_cost") else {}),
         })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
     print(f"[{card}] accel summary: {json.dumps(out['accel'])}")
-    print(f"[{card}] all ten phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] families summary: {json.dumps(out['families'])}")
+    print(f"[{card}] transform summary: {json.dumps(out['transform'])}")
+    print(f"[{card}] all twelve phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

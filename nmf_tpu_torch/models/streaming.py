@@ -42,10 +42,15 @@ extrapolated point and the block-start snapshot).
 (:func:`_accel_loop`): a seed cost pass, then a cost pass at every check,
 and a rejected block re-streams X ``chunk + 1`` times more.
 
+:func:`transform_out_of_core` is the inference pass: W fixed, each block
+visited once and solved in full by the H-only solve
+(:func:`nmf_tpu_torch.solve_h_only`'s step and loop) while the next block is
+copied in, so X crosses the link once per run.
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
 ROADMAP.md item: ``mesh``, ``mask``, ``n_frozen``, ``checkpoint_dir``,
-``live_metrics``, the beta, penalized and HALS families,
-``backend="autotune"``; ``transform_out_of_core`` waits for the H-only solve.
+``live_metrics``, the beta, penalized and HALS families of the streamed
+solve (the transform takes them), ``backend="autotune"``.
 """
 
 from __future__ import annotations
@@ -66,13 +71,17 @@ from ..ops.mu import numerator_w, update_h
 from ..ops.quant import dequantize, quantize_policy_np
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
-from .solver import SolveResult, _use_kernels, extrapolate, to_state
+from .nmf import _h_only_step_cost
+from .solver import SolveResult, _use_kernels, extrapolate, run_checked_loop, to_state
+from .solver import _refuse_unported as _refuse_solver
 
 __all__ = [
     "ArrayColumnSource",
     "BinColumnSource",
+    "TransformResult",
     "solve_out_of_core",
     "pick_block_n",
+    "transform_out_of_core",
 ]
 
 _F32 = torch.float32
@@ -381,10 +390,12 @@ def _refuse_unported(config: SolveConfig, mesh, mask, n_frozen, checkpoint_dir) 
         "n_frozen (ROADMAP.md Queue 1 item 8: semi-adaptive streaming)": bool(n_frozen),
         "checkpoint_dir (ROADMAP.md Queue 1 item 13: checkpoint/resume)": bool(checkpoint_dir),
         "live_metrics=True (ROADMAP.md Queue 1 item 13: live metrics)": config.live_metrics,
-        f"beta={config.beta} (ROADMAP.md Queue 1 item 8: beta streaming)": config.beta != 1.0,
-        f"algorithm={config.algorithm!r} (ROADMAP.md Queue 1 item 8: HALS streaming)":
+        f"beta={config.beta} (ROADMAP.md Queue 1 step 6, item 8c: beta streaming)":
+            config.beta != 1.0,
+        f"algorithm={config.algorithm!r} (ROADMAP.md Queue 1 step 6, item 8c: HALS streaming)":
             config.algorithm != "mu",
-        "L1/L2 penalties (ROADMAP.md Queue 1 item 8: penalized streaming)": config.regularized,
+        "L1/L2 penalties (ROADMAP.md Queue 1 step 6, item 8c: penalized streaming)":
+            config.regularized,
         "backend='autotune' (ROADMAP.md Queue 1 item 7: autotune)": config.backend == "autotune",
     }
     missing = [name for name, on in later.items() if on]
@@ -576,3 +587,147 @@ def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list):
         if thresh > 0.0 and rel < thresh:
             converged = True
     return w, baseline, mom, it, converged
+
+
+@dataclasses.dataclass
+class TransformResult:
+    """Out-of-core H-only result.  ``h`` lives on the host (N may exceed
+    device memory); the per-block fields are aligned with ``blocks``."""
+
+    h: np.ndarray                # (K, N) float32
+    cost: float                  # total divergence over all columns (NaN if untracked)
+    iterations: np.ndarray       # i32 [n_blocks]: solve iterations per block
+    converged: np.ndarray        # bool [n_blocks]
+    block_costs: np.ndarray      # f32 [n_blocks]
+    blocks: List[Tuple[int, int]]
+
+
+class _Fetch:
+    """One block's H (as f32) and cost on their way to the host: copied
+    without blocking (into pinned memory on the card), read by
+    :meth:`result` once the copy has landed."""
+
+    def __init__(self, res: SolveResult):
+        h, cost = res.h.to(_F32), res.cost
+        self.iterations, self.converged = int(res.iterations), bool(res.converged)
+        if h.device.type == "cuda":
+            self.h = torch.empty(h.shape, dtype=_F32, pin_memory=True)
+            self.cost = torch.empty((), dtype=_F32, pin_memory=True)
+            self.h.copy_(h, non_blocking=True)
+            self.cost.copy_(cost, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record()
+        else:
+            self.h, self.cost, self.done = h, cost, None
+
+    def result(self):
+        if self.done is not None:
+            self.done.synchronize()
+        return self.h.numpy(), float(self.cost), self.iterations, self.converged
+
+
+def transform_out_of_core(
+    x,
+    w,
+    h0=None,
+    config: SolveConfig = SolveConfig(),
+    block_n=None,
+    mesh=None,
+    seed: int = 0,
+    mask=None,
+    device="cuda",
+) -> TransformResult:
+    """Solve H against a fixed W with X streamed from the host (inference).
+
+    H's update is column-local, so each block needs one visit: it is copied
+    in (double-buffered, as :func:`solve_out_of_core` streams it), solved in
+    full by the H-only step and loop of :func:`nmf_tpu_torch.solve_h_only`
+    (per-block convergence), and its H copied back while the next block
+    solves (``streaming.py:1306-1574`` of the JAX package).
+
+    ``x`` is an array, memmap, ``.bin`` path or column source; ``h0`` an
+    optional (K, N) start, sliced per block, else block ``i`` starts from
+    ``RandomState(seed + i).rand(K, width)``, clamped to eps.  W is clamped
+    to eps in f32, then cast to the state dtype.  ``cost`` is the sum of the
+    block costs (divergences are column-separable), NaN when the cost is not
+    tracked.  Every H-only family (KL through K1 and K3, beta, penalized,
+    HALS), f32, bf16 and int8 X.  ``device`` as in :func:`solve_out_of_core`.
+    """
+    config.validate()
+    if config.live_metrics:
+        # per-block restarts of the iteration counter are noise, not signal
+        config = dataclasses.replace(config, live_metrics=False)
+    if config.precision.x_quant_rows and config.backend == "pallas":
+        raise NotImplementedError(
+            "per-row-block int8 scales (x_quant_rows) take the jnp path — "
+            "the fused kernels' scales operand is per-column; drop "
+            "backend='pallas' or x_quant_rows"
+        )
+    if mask is not None:
+        raise NotImplementedError(
+            "transform_out_of_core: mask (ROADMAP.md Queue 1 step 6, item 8c: "
+            "masked streaming) not in the PyTorch port yet"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "transform_out_of_core: mesh (ROADMAP.md Queue 1 step 12, item 12: "
+            "sharded solves) not in the PyTorch port yet"
+        )
+    _refuse_solver(config)
+    source = _as_source(x)
+    m, n = source.shape
+    w = np.asarray(w, np.float32)
+    if w.ndim != 2 or w.shape[0] != m:
+        raise ValueError(f"W {w.shape} does not match X {(m, n)}")
+    k = w.shape[1]
+    if h0 is not None:
+        h0 = np.asarray(h0, np.float32)
+        if h0.shape != (k, n):
+            raise ValueError(f"h0 {h0.shape} must be ({k}, {n})")
+    eps = np.float32(config.eps)
+    if block_n is not None and int(block_n) < 1:
+        raise ValueError(f"block_n must be >= 1, got {block_n}")
+    bn = int(block_n) if block_n is not None else pick_block_n(m, n)
+    blocks: List[Tuple[int, int]] = [(j, min(j + bn, n)) for j in range(0, n, bn)]
+    dev = resolve_device(device)
+    step, cost = _h_only_step_cost(config)
+    w_dev = to_state(np.maximum(w, eps), config, dev, clamp=False)
+    prec = config.precision
+
+    def h_start(idx: int) -> torch.Tensor:
+        j0, j1 = blocks[idx]
+        if h0 is not None:
+            h = np.maximum(h0[:, j0:j1], eps)
+        else:
+            # clamped like every random init: an exact zero is an absorbing
+            # state under multiplicative updates
+            h = np.maximum(np.random.RandomState(seed + idx).rand(k, j1 - j0)
+                           .astype(np.float32), eps)
+        h = torch.from_numpy(h)
+        if dev.type == "cuda":   # no wait on the block that is solving
+            h = h.pin_memory().to(dev, non_blocking=True)
+        return to_state(h, config, dev, clamp=False)
+
+    # one visit a block: the codes are never read twice, so none are cached
+    stream = _BlockStream(source, blocks, dev, prec.x_dtype, config.eps,
+                          prec.x_quant_rows, qcache_budget=0)
+    parts = []
+    pending = None
+    for idx, x_j in stream.sweep():
+        fetch = _Fetch(run_checked_loop(x_j, w_dev, h_start(idx), config, step, cost))
+        if pending is not None:
+            parts.append(pending.result())   # block idx - 1, while idx solves
+        pending = fetch
+    parts.append(pending.result())
+    del stream
+
+    h_parts, costs, iters, convs = zip(*parts)
+    need_cost = config.track_cost or config.thresh > 0.0
+    return TransformResult(
+        h=np.concatenate(h_parts, axis=1),
+        cost=float(np.sum(costs)) if need_cost else float("nan"),
+        iterations=np.asarray(iters, np.int32),
+        converged=np.asarray(convs, np.bool_),
+        block_costs=np.asarray(costs, np.float32),
+        blocks=blocks,
+    )

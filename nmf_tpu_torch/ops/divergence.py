@@ -1,4 +1,4 @@
-"""The KL divergence, counterpart of ``nmf_tpu.ops.divergence`` (KL only).
+"""Divergences (costs) of NMF, counterpart of ``nmf_tpu.ops.divergence``.
 
 Formula of the reference's ``reduce1d_div`` (cuda/matrix.cu:592)::
 
@@ -6,9 +6,10 @@ Formula of the reference's ``reduce1d_div`` (cuda/matrix.cu:592)::
 
 :func:`kl_divergence` is the plain version of the cost kernel K3 under both
 f32 policies (under ``bfloat16`` K3 takes bf16-rounded recon inputs:
-``ops.kernels.fused_mu.kl_cost_plain``).  X may be f32 or bf16; it is
-widened to f32, and the recon is true f32 whatever the state dtype.  The
-Euclidean, Itakura-Saito and general beta costs are not ported yet.
+``ops.kernels.fused_mu.kl_cost_plain``).  The Euclidean, Itakura-Saito and
+general beta-divergence costs (beta = 2, 0, any) have no kernel in either
+package.  X may be f32 or bf16; it is widened to f32, and the recon is true
+f32 whatever the state dtype.  The clamps are JAX's, site for site.
 """
 
 from __future__ import annotations
@@ -17,7 +18,13 @@ import torch
 
 from .elementwise import EPS, eps_clamp
 
-__all__ = ["kl_divergence", "kl_divergence_from_recon"]
+__all__ = [
+    "kl_divergence",
+    "kl_divergence_from_recon",
+    "euclidean_cost",
+    "itakura_saito",
+    "beta_divergence",
+]
 
 _F32 = torch.float32
 
@@ -47,3 +54,38 @@ def kl_divergence(
 ) -> torch.Tensor:
     """Generalized KL divergence D(X || W@H), a 0-dim f32 tensor."""
     return kl_divergence_from_recon(x, _recon(w, h), eps)
+
+
+def euclidean_cost(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """0.5 * ||X - W@H||_F^2 (the beta = 2 member of the family)."""
+    d = x.to(_F32) - _recon(w, h)
+    return 0.5 * torch.sum(d * d)
+
+
+def itakura_saito(
+    x: torch.Tensor, w: torch.Tensor, h: torch.Tensor, eps: float = EPS
+) -> torch.Tensor:
+    """Itakura-Saito divergence sum(x/y - log(x/y) - 1) (beta = 0); X is
+    clamped as well as Y (``divergence.py:78-79`` of the JAX package)."""
+    y = eps_clamp(_recon(w, h), eps)
+    r = eps_clamp(x.to(_F32), eps) / y
+    return torch.sum(r - torch.log(r) - 1.0)
+
+
+def beta_divergence(
+    x: torch.Tensor, w: torch.Tensor, h: torch.Tensor, beta: float, eps: float = EPS
+) -> torch.Tensor:
+    """General beta-divergence D_beta(X || W@H): beta = 2 Euclidean, 1 the
+    generalized KL, 0 Itakura-Saito.  ``beta`` is a Python float that picks
+    the formula, as in JAX; the general term clamps both X and Y."""
+    if beta == 2.0:
+        return euclidean_cost(x, w, h)
+    if beta == 1.0:
+        return kl_divergence(x, w, h, eps)
+    if beta == 0.0:
+        return itakura_saito(x, w, h, eps)
+    xf = eps_clamp(x.to(_F32), eps)
+    y = eps_clamp(_recon(w, h), eps)
+    b = float(beta)
+    term = (xf ** b + (b - 1.0) * y ** b - b * xf * y ** (b - 1.0)) / (b * (b - 1.0))
+    return torch.sum(term)

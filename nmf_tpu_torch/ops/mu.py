@@ -23,6 +23,11 @@ through ``torch.set_float32_matmul_precision``, which on CUDA means TF32):
 
 Z is an operand of the second product, so it is rounded (or split) like W
 and H, as both JAX paths do.
+
+The beta-divergence MU (:func:`mu_step_beta`) and the penalized KL MU
+(:func:`mu_step_kl_reg`) have no kernel in either package: JAX sends them to
+plain ops on every platform (``nmf_tpu/models/solver.py:113-127``), and so
+does the port.
 """
 
 from __future__ import annotations
@@ -34,7 +39,10 @@ import torch
 from ..utils.config import Precision
 from .elementwise import EPS, eps_clamp
 
-__all__ = ["matmul", "numerator_h", "numerator_w", "update_h", "update_w", "mu_step"]
+__all__ = [
+    "matmul", "numerator_h", "numerator_w", "update_h", "update_w", "mu_step",
+    "mu_step_beta", "mu_step_kl_reg",
+]
 
 _F32 = torch.float32
 
@@ -136,4 +144,88 @@ def mu_step(
     new H (one reference graph replay, nmf.cu:108-109)."""
     h = update_h(w, h, x, eps, precision)
     w = update_w(w, h, x, eps, precision)
+    return w, h
+
+
+def _beta_ratios(w, h, x, beta: float, eps: float, precision: Precision):
+    """The beta-MU factors ``(X Y^(b-2), Y^(b-1))``, ``Y = clamp(W@H)``
+    (``nmf_tpu/ops/mu.py:140-154``); beta = 0 takes ``x * inv * inv``."""
+    y = eps_clamp(matmul(w, h, precision), eps)
+    b = float(beta)
+    if b == 2.0:
+        return x, y
+    if b == 1.0:
+        return x / y, torch.ones_like(y)
+    if b == 0.0:
+        inv = 1.0 / y
+        return x * inv * inv, inv
+    return x * y ** (b - 2.0), y ** (b - 1.0)
+
+
+def mu_step_beta(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    beta: float,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One beta-divergence MU iteration (Fevotte & Idier 2011)::
+
+        H <- H * (W^T (X Y^(b-2))) / clamp(W^T Y^(b-1)),  Y = clamp(W@H)
+        W <- W * ((X Y^(b-2)) H^T) / clamp(Y^(b-1) H^T)   (Y with the new H)
+
+    At beta = 1 the denominators are the clamped column and row sums, as
+    in JAX (``mu.py:176-186``).
+    """
+    num, den = _beta_ratios(w, h, x, beta, eps, precision)
+    h_num = matmul(w, num, precision, transpose_a=True)
+    if beta == 1.0:
+        h_den = eps_clamp(torch.sum(w, dim=0, dtype=_F32), eps)[:, None]
+    else:
+        h_den = eps_clamp(matmul(w, den, precision, transpose_a=True), eps)
+    h = (h * (h_num / h_den)).to(h.dtype)
+
+    num, den = _beta_ratios(w, h, x, beta, eps, precision)
+    w_num = matmul(num, h, precision, transpose_b=True)
+    if beta == 1.0:
+        w_den = eps_clamp(torch.sum(h, dim=1, dtype=_F32), eps)[None, :]
+    else:
+        w_den = eps_clamp(matmul(den, h, precision, transpose_b=True), eps)
+    w = (w * (w_num / w_den)).to(w.dtype)
+    return w, h
+
+
+def update_h_kl_reg(w, h, x, eps: float, precision: Precision, l1_h: float, l2_h: float):
+    """H's penalized KL half-update: the penalty gradient joins the
+    denominator, ``H * (W^T Z) / (colsum(W)[:, None] + l1_h + l2_h H)``."""
+    sum_w = eps_clamp(torch.sum(w, dim=0, dtype=_F32), eps)
+    numer = matmul(w, _recon_ratio(w, h, x, eps, precision), precision, transpose_a=True)
+    denom = sum_w[:, None] + l1_h + l2_h * h.to(_F32)
+    return (h * (numer / denom)).to(h.dtype)
+
+
+def mu_step_kl_reg(
+    w: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    eps: float = EPS,
+    precision: Precision = Precision(),
+    l1_w: float = 0.0,
+    l1_h: float = 0.0,
+    l2_w: float = 0.0,
+    l2_h: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KL MU iteration with L1/L2 factor penalties in the denominators::
+
+        H <- H * (W^T Z) / (colsum(W)[:, None] + l1_h + l2_h * H)
+        W <- W * (Z H^T) / (rowsum(H)[None, :] + l1_w + l2_w * W)
+
+    Zero penalties give :func:`mu_step`'s values.
+    """
+    h = update_h_kl_reg(w, h, x, eps, precision, l1_h, l2_h)
+    sum_h = eps_clamp(torch.sum(h, dim=1, dtype=_F32), eps)
+    numer = matmul(_recon_ratio(w, h, x, eps, precision), h, precision, transpose_b=True)
+    denom = sum_h[None, :] + l1_w + l2_w * w.to(_F32)
+    w = (w * (numer / denom)).to(w.dtype)
     return w, h

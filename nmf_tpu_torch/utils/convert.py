@@ -13,6 +13,7 @@ holds every bf16 value exactly.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -24,6 +25,7 @@ from .device import resolve_device
 __all__ = [
     "accel_state_from",
     "config_from_dict",
+    "nmf_from_params",
     "state_from_numpy",
     "result_to_numpy",
     "tile_sparse_from",
@@ -47,6 +49,30 @@ def config_from_dict(d: Mapping) -> SolveConfig:
     elif prec is None:
         prec = Precision()
     return SolveConfig(precision=prec, **d)
+
+
+def nmf_from_params(params: Mapping, w_, components_, device="cuda"):
+    """The port's fitted ``NMF`` from an estimator's ``get_params()`` (a JAX
+    ``nmf_tpu.NMF``'s among them) and its fitted ``w_`` and ``components_``
+    as NumPy (bf16 ones as exact f32): a dictionary learned in either
+    package serves ``transform`` in the port.  ``precision`` crosses as its
+    fields; ``mesh`` must be None (a JAX mesh does not cross)."""
+    from ..models.nmf import NMF
+
+    p = dict(params)
+    if p.pop("mesh", None) is not None:
+        raise NotImplementedError(
+            "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves) is not "
+            "in the PyTorch port yet"
+        )
+    p.pop("device", None)
+    prec = p.get("precision")
+    if prec is not None and not isinstance(prec, Precision):
+        p["precision"] = Precision(**dataclasses.asdict(prec))
+    est = NMF(**p, device=device)
+    est.w_ = np.asarray(w_, np.float32)
+    est.components_ = np.asarray(components_, np.float32)
+    return est
 
 
 def to_tensor(a, device) -> torch.Tensor:

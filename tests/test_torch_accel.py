@@ -643,4 +643,4 @@ def test_chip_smoke_lists_accel_launches():
         "reference": 225, "oocore int8 numerator_only": 100}
     assert smoke._accel_launches(launches, "kl_cost") == {"reference": 10, "oocore int8": 30}
     assert smoke._accel_launches(launches, "h_numerator") == {"tiled float32": 200}
-    assert "accel" in smoke.PHASES and smoke.PHASES[-1] == "accel"
+    assert smoke.PHASES[-3:] == ("accel", "families", "transform")

@@ -97,19 +97,11 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     precision flags, ``--backend jnp`` and ``--no-cost``, refused when this
     test was named, are ported: the parser takes them, and the run exits 2
     later, on its (here missing) input.  ``--out-of-core`` is ported too;
-    with ``--mesh`` it is refused for the mesh.  ``--accelerate`` and
-    ``--strict-compat`` are ported: they run on a small problem through
-    both CLIs, whose files agree to rtol 1e-4 / atol 1e-6."""
-    if flags[0] in ("--accelerate", "--strict-compat"):
-        _write_problem(tmp_path, 40, 4, 30, 2)
-        files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
-        common = ["--max-iter", "50", "--check-every", "10", "-q", *flags]
-        out = {tag: [str(tmp_path / f"{f}{tag}.bin") for f in "WH"] for tag in "pj"}
-        assert cli.main(["run", *files, "-o", *out["p"], "--device", "cpu", *common]) == 0
-        assert _jax_cli(["run", *files, "-o", *out["j"], *common], tmp_path) == 0
-        for ours, ref in zip(out["p"], out["j"]):
-            np.testing.assert_allclose(jbin.read_matrix(ours), jbin.read_matrix(ref),
-                                       rtol=1e-4, atol=1e-6)
+    with ``--mesh`` it is refused for the mesh.  ``--accelerate``,
+    ``--strict-compat`` and ``--beta 2`` are ported: they run on a small
+    problem through both CLIs (:func:`_run_both_clis`)."""
+    if flags[0] in ("--accelerate", "--strict-compat", "--beta"):
+        _run_both_clis(tmp_path, flags)
         return
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
@@ -131,13 +123,33 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
         (["--l2-h", "0.5"], "--l2-h (ROADMAP.md Queue 1: ops (penalized MU))"),
     ],
 )
-def test_non_default_value_refused(capsys, flags, item):
+def test_non_default_value_refused(capsys, tmp_path, flags, item):
     """A value other than the JAX CLI's default is still refused, before
-    any input is read, naming its ROADMAP.md item."""
+    any input is read, naming its ROADMAP.md item.  ``--beta 2``,
+    ``--algorithm hals`` (with the ``--beta 2`` HALS requires in both CLIs)
+    and ``--l2-h 0.5``, refused when this test was named, are ported: they
+    run through both CLIs (:func:`_run_both_clis`)."""
+    if flags[0] in ("--beta", "--algorithm", "--l2-h"):
+        _run_both_clis(tmp_path, flags + (["--beta", "2"] if flags[0] == "--algorithm" else []))
+        return
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
     assert item in err and "file not found" not in err
+
+
+def _run_both_clis(tmp_path, flags):
+    """``run`` with ``flags`` through both CLIs on a small problem: the files
+    agree to rtol 1e-4 / atol 1e-6 (test_gen_then_run_matches_jax's)."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+    common = ["--max-iter", "50", "--check-every", "10", "-q", *flags]
+    out = {tag: [str(tmp_path / f"{f}{tag}.bin") for f in "WH"] for tag in "pj"}
+    assert cli.main(["run", *files, "-o", *out["p"], "--device", "cpu", *common]) == 0
+    assert _jax_cli(["run", *files, "-o", *out["j"], *common], tmp_path) == 0
+    for ours, ref in zip(out["p"], out["j"]):
+        np.testing.assert_allclose(jbin.read_matrix(ours), jbin.read_matrix(ref),
+                                   rtol=1e-4, atol=1e-6)
 
 
 # JAX-CLI run flags spelled out at their JAX defaults (nmf_tpu/cli.py:42-114,
@@ -471,7 +483,8 @@ def test_import_loads_no_jax():
         "nmf_tpu_torch.utils.metrics, nmf_tpu_torch.ops.kernels.fused_mu, "
         "nmf_tpu_torch.ops.kernels.tile_sparse, nmf_tpu_torch.models.sparse_tiled, "
         "nmf_tpu_torch.models.streaming, nmf_tpu_torch.models.strict, "
-        "nmf_tpu_torch.models.init, nmf_tpu_torch.ops.kernels._build\n"
+        "nmf_tpu_torch.models.init, nmf_tpu_torch.ops.kernels._build, "
+        "nmf_tpu_torch.models.nmf, nmf_tpu_torch.ops.hals\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nmf_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -491,6 +504,124 @@ def test_sources_never_import_jax_or_the_jax_package():
 def test_kernel_path_has_no_fallback_handler():
     """No ``except`` on the CUDA path: a failed build or launch raises."""
     for rel in ("ops/kernels/fused_mu.py", "ops/kernels/tile_sparse.py", "ops/kernels/_build.py",
-                "models/solver.py", "models/sparse_tiled.py", "models/streaming.py"):
+                "models/solver.py", "models/sparse_tiled.py", "models/streaming.py",
+                "models/nmf.py"):
         src = (PKG / rel).read_text()
         assert "except" not in src, rel
+
+
+@pytest.mark.parametrize(
+    "flags,msg",
+    [
+        (["--out-of-core", "--beta", "2"], "--beta with --out-of-core (ROADMAP.md Queue 1 step 6"),
+        (["--out-of-core", "--algorithm", "hals", "--beta", "2"],
+         "--algorithm with --out-of-core (ROADMAP.md Queue 1 step 6"),
+        (["--out-of-core", "--l1-h", "0.1"], "--l1-h with --out-of-core (ROADMAP.md Queue 1 step 6"),
+    ],
+)
+def test_streamed_families_exit_2(tmp_path, capsys, flags, msg):
+    """The families run in memory; the streamed solve refuses them, before
+    any input is read, naming the ROADMAP.md step that brings them."""
+    rc = cli.main(["run", str(tmp_path / "X.bin"), "W.bin", "H.bin", "--device", "cpu", *flags])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert msg in err and "file not found" not in err
+
+
+@pytest.mark.parametrize("flags", [["--beta", "2"], ["--algorithm", "hals", "--beta", "2"],
+                                   ["--l1-h", "0.1"]])
+def test_strict_compat_with_a_family_exits_2_like_jax(tmp_path, capsys, flags):
+    """strict mode replays the KL MU alone: both CLIs exit 2 with
+    solve_strict's message."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+    assert cli.main(["run", *files, "--device", "cpu", "--strict-compat", *flags]) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(["run", *files, "--strict-compat", *flags], tmp_path) == 2
+    assert ours == capsys.readouterr().err and "replicates" in ours
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--beta", "0"], ["--beta", "0.5", "--dtype", "bfloat16"], ["--l1-w", "0.1", "--l2-h", "0.2"],
+     ["--algorithm", "hals", "--beta", "2", "--accelerate"], ["--beta", "3", "--x-dtype", "int8"]],
+)
+def test_families_match_jax_cli(tmp_path, flags):
+    """The in-memory families through both CLIs: files within rtol 1e-4 /
+    atol 1e-6 (accelerated HALS: relative Frobenius norm 1e-4, as its
+    clipped coordinate steps carry last-ulp differences further, measured
+    1.9e-5 after 40 iterations), iterations and checks equal, the final cost
+    within 1e-5."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
+    common = ["--max-iter", "40", "--check-every", "10", "-q", *flags]
+    assert cli.main(["run", *files, "-o", str(tmp_path / "Wp.bin"), str(tmp_path / "Hp.bin"),
+                     "--device", "cpu", "--jsonl", str(tmp_path / "port.jsonl"), *common]) == 0
+    assert _jax_cli(["run", *files, "-o", "Wj.bin", "Hj.bin", "--jsonl", "jax.jsonl", *common],
+                    tmp_path) == 0
+    for f in "WH":
+        ours, ref = (jbin.read_matrix(tmp_path / f"{f}{t}.bin") for t in "pj")
+        if "--accelerate" in flags:
+            assert np.linalg.norm(ours - ref) <= 1e-4 * np.linalg.norm(ref), f
+        else:
+            np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-6)
+    ours, ref = (json.loads((tmp_path / f"{s}.jsonl").read_text().splitlines()[-1])
+                 for s in ("port", "jax"))
+    assert ours["iterations"] == ref["iterations"] == 40
+    assert [c["iteration"] for c in ours["checks"]] == [c["iteration"] for c in ref["checks"]]
+    assert ours["final_cost"] == pytest.approx(ref["final_cost"], rel=1e-5)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [[], ["--h0", "H.bin"], ["--seed", "7", "--thresh", "1e-3", "--check-every", "5"],
+     ["--beta", "2", "--algorithm", "hals"], ["--l1-h", "0.2"], ["--x-dtype", "int8"],
+     ["--out-of-core", "--block-n", "7"], ["--out-of-core", "--block-n", "12", "--h0", "H.bin"],
+     ["--out-of-core", "--block-n", "16", "--beta", "0.5"],
+     ["--out-of-core", "--block-n", "8", "--x-dtype", "bfloat16"]],
+)
+def test_transform_matches_jax_cli(tmp_path, flags):
+    """``transform X W -o H`` through both CLIs, in memory and
+    ``--out-of-core`` (ragged last blocks): without ``--h0`` both draw the
+    start from ``RandomState(seed)`` (per block: ``seed + i``), so the files
+    agree to rtol 1e-4 / atol 1e-6."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    common = ["X.bin", "W.bin", "--max-iter", "40", "-q", *flags]
+    run = _port("transform", *common, "-o", "Hp.bin", "--device", "cpu", cwd=tmp_path)
+    assert run.returncode == 0, run.stderr
+    assert _jax_cli(["transform", *common, "-o", "Hj.bin"], tmp_path) == 0
+    ours, ref = (jbin.read_matrix(tmp_path / f"H{t}.bin") for t in "pj")
+    assert ours.shape == ref.shape == (4, 30)
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "flags,msg",
+    [
+        (["--mask", "X.bin"], "--mask (ROADMAP.md Queue 1 step 6"),
+        (["--mesh", "2x1"], "--mesh (ROADMAP.md Queue 1 step 12"),
+        (["--validate"], "--validate (ROADMAP.md Queue 1 step 9"),
+        (["--live"], "--live (ROADMAP.md Queue 1 step 9"),
+        (["--backend", "autotune"], "--backend autotune (ROADMAP.md Queue 1 step 11"),
+        (["--checkpoint-dir", "ck"], "transform does not checkpoint"),
+        (["--strict-compat"], "--strict-compat is a full-solve replication mode (use 'run')"),
+    ],
+)
+def test_transform_refusals_exit_2(tmp_path, capsys, flags, msg):
+    """transform's flags not in the port, and the two the JAX CLI refuses
+    with its own message, exit 2 before any input is read."""
+    rc = cli.main(["transform", str(tmp_path / "X.bin"), "W.bin", "--device", "cpu", *flags])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert msg in err and "file not found" not in err
+
+
+def test_every_jax_transform_flag_is_known():
+    """Each flag of the JAX CLI's transform is either supported or refused."""
+    from nmf_tpu.cli import build_parser as jax_parser
+
+    def flags(parser):
+        sub = next(a for a in parser._actions if a.dest == "command")
+        return {o for a in sub.choices["transform"]._actions for o in a.option_strings}
+
+    assert flags(jax_parser()) <= flags(cli.build_parser())
