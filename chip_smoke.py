@@ -6,8 +6,9 @@
     python3 chip_smoke.py --phases card,modes,flagship        # after a K1/K2 edit
     python3 chip_smoke.py --phases card,accel                 # the accelerated solves
     python3 chip_smoke.py --phases card,families,transform    # the families, the H-only path
+    python3 chip_smoke.py --phases card,models                # separate, semi, masked, online
 
-Twelve phases, in order; any failure raises and the exit code is non-zero:
+Thirteen phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
@@ -180,7 +181,47 @@ Twelve phases, in order; any failure raises and the exit code is non-zero:
    as subprocesses: ``transform X W -o H``, in memory and ``--out-of-core
    --block-n 1024``, and ``run`` at the reference fixtures with ``--beta
    2``, ``--algorithm hals --beta 2`` and ``--l1-h 0.1``, each file
-   byte-equal to the in-process result.
+   byte-equal to the in-process result;
+13. models: the models of ROADMAP.md Queue 1 step 6, each run with every
+   count set to 0 just before it.  (a) ``separate`` at the paper's workload:
+   20 s of audio at 44.1 kHz made from ``--seed`` (tones and noise bursts),
+   ``n_fft`` 1024, hop 256 (X 513 x 3446), K=32, 200 iterations at thresh
+   0: exactly 200/200/8 launches of K1/K2/K3, no plain call; the sources
+   summed within 1e-4 of the peak of the mixture on the samples whose
+   frames the Wiener masks cover; the cost within 1e-4 of the ``jnp`` solve
+   of the same spectrogram; a bitwise rerun; the host seconds of the STFT,
+   the solve and the masks with their ISTFTs.  (b) ``separate(w_template=)``
+   with 8 templates learned from a 5 s clip of ``--seed + 1``: 200/200/8,
+   the 8 columns bit-equal to the clamped templates, and
+   ``adapt_template=True`` moving them.  (c) ``solve_semi`` at the ISMIR
+   shape 1025 x 4000, K=32 (X from ``--seed``): ``n_frozen=0`` bitwise the
+   kernel ``solve``, ``n_frozen=32`` H bitwise ``solve_h_only``;
+   ``n_frozen=8`` under float32, ``bfloat16``, ``float32_fast``, bf16 X and
+   int8 X: 200/200/8 launches, K1/K2 in their policy's instance
+   (``nmf_partial_launches``) and K3 in its Mode, the frozen columns
+   bit-equal, the cost within 1e-4 of the ``jnp`` semi solve (1e-3 under
+   ``bfloat16``); ``accelerate=True`` keeping the columns bit-equal.  (d)
+   ``solve_masked`` and ``solve_masked_h_only`` at the reference fixtures
+   with 20% of X missing (NaN): no K1-K3 or K5 launch, the cost within 1e-5
+   of the same solve on the CPU, a bitwise rerun, it/s; a mask of ones
+   within 1e-5 of the ``jnp`` solve.  (e) ``solve_out_of_core`` at the hour
+   of audio (phase 9's shape, 10 blocks), 5 iterations and one cost pass,
+   f32 X: beta 2, HALS, penalized KL (``l1_h = l2_w = 0.1``), masked (10%
+   missing) and ``n_frozen=8``, each within 1e-5 of the in-memory solve of
+   the same family; ``n_frozen=8`` launching blocks x 5 K1 and K2
+   ``numerator_only`` and blocks x 1 K3, the plain families nothing; the
+   H2D roofline share (the mask's bytes counted), block fills, and peak
+   device memory under a third of X (and the mask).  (f) ``solve_online``
+   at the hour of audio, one pass, 20 inner iterations, blocks of 65,408:
+   no launch, the learning curve per column falling from the first block
+   to the last, a bitwise rerun, blocks/s and the host-fill share; at
+   1025 x 4000, blocks of 500, W within 1e-5 (relative Frobenius norm) of
+   the CPU run.  (g) The CLI, nine subprocesses at once: ``run --mask`` in
+   memory and ``--out-of-core --block-n 1024``, ``run --freeze 8`` in
+   memory and streamed, ``run --out-of-core --beta 2`` and ``--algorithm
+   hals --beta 2``, ``run --online``, ``transform --mask`` and ``separate``
+   of (a)'s audio written as a WAV: each file byte-equal to its in-process
+   result.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -196,7 +237,8 @@ reference, streamed and flagship solves (``solve_launches``);
 K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
 their launches on the streamed solve; every kernel its launches on phase
 10's accelerated solves, ``accel_launches``; K1-K3 their launches on each
-run of phase 12, ``transform_launches``, K2's all 0); the last line is
+run of phase 12, ``transform_launches``, K2's all 0, and on each run of
+phase 13, ``models_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -281,7 +323,7 @@ TIERS = {
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
-          "oocore", "accel", "families", "transform")
+          "oocore", "accel", "families", "transform", "models")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -2817,12 +2859,551 @@ def _transform_launches(launches, name):
             if run.startswith("transform ")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the models of Queue 1 step 6: separate and solve_semi on K1-K3,
+# the masked solves, the streamed families, the online learner and their CLI
+
+PAPER_RATE, PAPER_SECONDS = 44_100, 20       # the paper's clip: 20 s at 44.1 kHz
+PAPER_FFT, PAPER_HOP, PAPER_K = 1024, 256, 32
+MODELS_ITERS = 200
+SEMI_FROZEN = 8
+MASK_MISSING = 0.2                           # (d): the reference fixtures' missing share
+STREAM_MISSING = 0.1                         # (e): the hour of audio's
+STREAM_ITERS = 5                             # (e): one cost pass, at the last iteration
+ONLINE_INNER = 20
+ONLINE_SMALL = (1025, 4000, 32, 500)         # (f): W against the CPU run, M N K block_n
+MODELS_CLI_ITERS = 50                        # (g): the streamed CLI runs
+
+
+def _paper_audio(seed, seconds=PAPER_SECONDS):
+    """Mono audio made on the host from ``seed``: four tones under slow
+    envelopes and a short noise burst every half second (a drum stand-in),
+    peak 1, f32."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(PAPER_RATE * seconds) / PAPER_RATE
+    audio = np.zeros_like(t)
+    for f in rng.uniform(110.0, 1760.0, size=4):
+        audio += np.sin(2 * np.pi * f * t) * (0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.1, 0.5) * t))
+    burst = int(0.05 * PAPER_RATE)
+    for start in range(0, t.size - burst, PAPER_RATE // 2):
+        audio[start:start + burst] += rng.randn(burst) * np.exp(-np.arange(burst) / (0.01 * PAPER_RATE))
+    return (audio / np.abs(audio).max()).astype(np.float32)
+
+
+def _separate_timed(fn):
+    """(fn(), {"stft", "solve", "masks": host seconds}) with the STFT, the
+    solve (synchronized) and the Wiener masks and ISTFTs timed apart."""
+    from nmf_tpu_torch.models import semi, separation
+
+    times = {"stft": 0.0, "solve": 0.0, "masks": 0.0}
+    patched = [(separation, "_stft_np", "stft", False), (separation, "solve", "solve", True),
+               (semi, "solve_semi", "solve", True),
+               (separation, "_masked_sources", "masks", False)]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _, _ in patched]
+
+    def timed(f, key, sync):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            r = f(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            times[key] += time.perf_counter() - t0
+            return r
+        return call
+
+    for (mod, name, key, sync), (_, _, f) in zip(patched, originals):
+        setattr(mod, name, timed(f, key, sync))
+    try:
+        return fn(), times
+    finally:
+        for mod, name, f in originals:
+            setattr(mod, name, f)
+
+
+def _covered_samples(w, h, n_samples):
+    """Samples every frame over which has W H >= 1e-12 in all bins (where
+    the Wiener masks of all components sum to 1)."""
+    bad = ~(w.astype(np.float64) @ h.astype(np.float64) >= 1e-12).all(axis=0)
+    pad = PAPER_FFT // 2
+    touched = np.zeros(n_samples + 2 * pad + PAPER_FFT, np.int64)
+    for f in np.flatnonzero(bad):
+        touched[f * PAPER_HOP: f * PAPER_HOP + PAPER_FFT] += 1
+    return touched[pad: pad + n_samples] == 0
+
+
+def _counted_models(fn, where, want):
+    """(fn(), host seconds, launches): every count set to 0 just before,
+    K1-K3 launched exactly ``want`` (``_launches``' keys), no plain call
+    and no K5 launch."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    _reset_all()
+    res, secs = _timed(fn)
+    counts = _all_counts()
+    launches = dict(fused_mu.LAUNCHES)
+    rest = {k: v for k, v in counts.items() if k not in launches}
+    check(launches == want and not any(rest.values()),
+          f"{where}: launches {launches}, other counts {rest}, expected {want}")
+    return res, secs, launches
+
+
+def phase_models_separate(card, tmp, out, seed):
+    """(a) separate at the paper's workload; (b) with 8 frozen templates."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import separation
+
+    audio = _paper_audio(seed)
+    n_bins = PAPER_FFT // 2 + 1
+    cfg = nt.SolveConfig(max_iter=MODELS_ITERS, thresh=0.0, check_every=25)
+    want = _launches(update_h=MODELS_ITERS, update_w=MODELS_ITERS, kl_cost=MODELS_ITERS // 25)
+    print(f"[{card}] phase 13a: separate, {PAPER_SECONDS} s at {PAPER_RATE} Hz "
+          f"({audio.size} samples from --seed), n_fft {PAPER_FFT}, hop {PAPER_HOP}, "
+          f"K={PAPER_K}, {MODELS_ITERS} iterations, thresh 0")
+    kw = dict(n_components=PAPER_K, n_fft=PAPER_FFT, hop=PAPER_HOP, config=cfg, seed=seed,
+              device=DEVICE)
+    nt.separate(audio[:PAPER_RATE], **{**kw, "config": dataclasses.replace(cfg, max_iter=2)})  # warm
+    (res, parts), secs, launches = _counted_models(
+        lambda: _separate_timed(lambda: nt.separate(audio, **kw)), "models separate", want)
+    out["launches"]["models separate"] = launches
+    spec = separation._stft_np(audio, PAPER_FFT, PAPER_HOP)
+    check(spec.shape == (n_bins, 3446) and res.w.shape == (n_bins, PAPER_K)
+          and res.h.shape == (PAPER_K, 3446) and res.sources.shape == (PAPER_K, audio.size)
+          and bool(np.isfinite(res.sources).all()),
+          f"separate: X {spec.shape}, W {res.w.shape}, H {res.h.shape}, sources "
+          f"{res.sources.shape}")
+    covered = _covered_samples(res.w, res.h, audio.size)
+    peak = float(np.abs(audio).max())
+    mix_err = float(np.abs(res.sources.sum(axis=0, dtype=np.float64) - audio)[covered].max()) / peak
+    check(covered.mean() > 0.99 and mix_err <= 1e-4,
+          f"separate: the sources sum to the mixture within {mix_err} of the peak on "
+          f"{covered.mean()} of the samples (limit 1e-4)")
+    mag = np.abs(spec).astype(np.float32)
+    w0, h0 = nt.scaled_random_init(mag, PAPER_K, seed=seed)
+    plain, p_secs = _timed(lambda: nt.solve(mag, w0, h0, dataclasses.replace(cfg, backend="jnp"),
+                                            device=DEVICE))
+    cost, c_plain = float(res.solve_result.cost), float(plain.cost)
+    rel = abs(cost - c_plain) / abs(c_plain)
+    check(rel <= 1e-4, f"separate: cost {cost} vs the jnp solve {c_plain}: rel {rel}")
+    again = nt.separate(audio, **kw)
+    check(again.sources.tobytes() == res.sources.tobytes() and again.w.tobytes() == res.w.tobytes()
+          and again.h.tobytes() == res.h.tobytes(), "separate: differs on a rerun")
+    hist = res.solve_result.cost_history.cpu().numpy()
+    check(hist.shape == (8,) and bool(np.all(np.diff(hist) < 0)), f"separate: history {hist}")
+    results = {"launches": launches, "seconds": secs, "host_seconds": parts, "cost": cost,
+               "jnp_cost": c_plain, "rel": rel, "mix_err_over_peak": mix_err,
+               "covered_share": float(covered.mean()), "solve_its": MODELS_ITERS / parts["solve"],
+               "jnp_its": MODELS_ITERS / p_secs}
+    print(f"[{card}] separate: X {n_bins}x{spec.shape[1]}, launches {launches}, cost {cost} (jnp "
+          f"{c_plain}, rel {rel}, limit 1e-4), history {hist.tolist()}, sources sum to the "
+          f"mixture within {mix_err} of the peak on {covered.mean()} of the samples (limit "
+          f"1e-4), bitwise on rerun; host seconds: STFT {parts['stft']}, solve {parts['solve']} "
+          f"({MODELS_ITERS / parts['solve']} it/s through K1-K3; jnp {MODELS_ITERS / p_secs}), "
+          f"Wiener masks and {PAPER_K} ISTFTs {parts['masks']}, all {secs}")
+    from scipy.io import wavfile
+
+    wavfile.write(os.path.join(tmp, "paper.wav"), PAPER_RATE, (audio * 32767).astype(np.int16))
+
+    # (b) 8 templates learned from a separate clip, frozen in the mix's solve
+    print(f"[{card}] phase 13b: separate(w_template=...), {SEMI_FROZEN} templates learned from a "
+          f"5 s clip of --seed + 1, frozen")
+    clip = _paper_audio(seed + 1, seconds=5)
+    tmpl = nt.separate(clip, n_components=SEMI_FROZEN, n_fft=PAPER_FFT, hop=PAPER_HOP, config=cfg,
+                       seed=seed, device=DEVICE).w
+    res_t, secs_t, launches_t = _counted_models(
+        lambda: nt.separate(audio, w_template=tmpl, **kw), "models separate templates", want)
+    out["launches"]["models separate templates"] = launches_t
+    clamped = np.ascontiguousarray(np.maximum(tmpl, np.float32(EPS)))
+    check(np.ascontiguousarray(res_t.w[:, :SEMI_FROZEN]).tobytes() == clamped.tobytes(),
+          "separate(w_template): the frozen columns moved")
+    free_moved = not np.array_equal(res_t.w[:, SEMI_FROZEN:], res.w[:, SEMI_FROZEN:])
+    adapt = nt.separate(audio, w_template=tmpl, adapt_template=True, **kw)
+    moved = float(np.abs(adapt.w[:, :SEMI_FROZEN] - clamped).max() / np.abs(clamped).max())
+    check(moved > 0 and free_moved and bool(np.isfinite(res_t.sources).all()),
+          f"separate(adapt_template=True): templates moved by {moved}")
+    results["templates"] = {"launches": launches_t, "seconds": secs_t,
+                            "cost": float(res_t.solve_result.cost),
+                            "adapt_cost": float(adapt.solve_result.cost), "adapt_moved": moved}
+    print(f"[{card}] separate(w_template): launches {launches_t}, the {SEMI_FROZEN} frozen columns "
+          f"bit-equal to the clamped templates, cost {float(res_t.solve_result.cost)}, {secs_t} s; "
+          f"adapt_template=True moves them by {moved} of their peak, cost "
+          f"{float(adapt.solve_result.cost)}")
+    out["models"]["separate"] = results
+
+
+def phase_models_semi(card, out, seed):
+    """(c) solve_semi at the ISMIR shape."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.solver import to_state
+
+    m, n, k = TR_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 15)
+    rand = lambda *s: torch.rand(s, generator=g, device=DEVICE).clamp_min_(EPS)  # noqa: E731
+    x, w, h = (t.cpu().numpy() for t in (rand(m, n), rand(m, k), rand(k, n)))
+    print(f"[{card}] phase 13c: solve_semi {m}x{n}, K={k} (X from --seed), {MODELS_ITERS} "
+          f"iterations")
+    cfg = nt.SolveConfig(max_iter=MODELS_ITERS)
+    want = _launches(update_h=MODELS_ITERS, update_w=MODELS_ITERS, kl_cost=MODELS_ITERS // 25)
+    results = {}
+    semi0 = nt.solve_semi(x, w, h, cfg, n_frozen=0, device=DEVICE)
+    ref = nt.solve(x, w, h, cfg, device=DEVICE)
+    for f in ("w", "h", "cost_history"):
+        check(torch.equal(_bits(getattr(semi0, f)), _bits(getattr(ref, f))),
+              f"solve_semi(n_frozen=0): {f} differs from the kernel solve")
+    semik = nt.solve_semi(x, w, h, cfg, n_frozen=k, device=DEVICE)
+    h_only = nt.solve_h_only(x, w, h, cfg, device=DEVICE)
+    check(torch.equal(_bits(semik.h), _bits(h_only.h)),
+          "solve_semi(n_frozen=K): H differs from solve_h_only's")
+    print(f"[{card}] solve_semi n_frozen=0: W, H and history bit-equal to solve; n_frozen={k}: "
+          "H bit-equal to solve_h_only")
+    for pol, prec in _tr_policies().items():
+        c = dataclasses.replace(cfg, precision=prec)
+        where = f"models semi {pol}"
+        fn = lambda: nt.solve_semi(x, w, h, c, n_frozen=SEMI_FROZEN, device=DEVICE)  # noqa: E731
+        (res, secs, launches), k3 = kl_counts(lambda: _counted_models(fn, where, want))
+        impls = _check_impls(fn, prec, where)
+        k3_mode = _mode_of_counts(k3, f"{where} K3")
+        # the solve's cost: BF16 under bfloat16, F32 on f32 X, ANY on bf16 or int8 X
+        k3_want = ("BF16" if prec.matmul_dtype == "bfloat16"
+                   else "F32" if prec.x_dtype == "float32" else "ANY")
+        check(k3_mode == k3_want, f"{where}: K3 ran {k3_mode}, expected {k3_want}")
+        w_prep = to_state(w, c, torch.device(DEVICE))
+        out["launches"][where] = launches
+        check(torch.equal(_bits(res.w[:, :SEMI_FROZEN]), _bits(w_prep[:, :SEMI_FROZEN])),
+              f"{where}: the frozen columns moved")
+        hist = res.cost_history.cpu().numpy()
+        check(bool(np.all(np.diff(hist) <= 0)), f"{where}: history rises: {hist}")
+        plain, p_secs = _timed(lambda: nt.solve_semi(
+            x, w, h, dataclasses.replace(c, backend="jnp"), n_frozen=SEMI_FROZEN, device=DEVICE))
+        rel = abs(float(res.cost) - float(plain.cost)) / abs(float(plain.cost))
+        limit = 1e-3 if prec.matmul_dtype == "bfloat16" else 1e-4
+        check(rel <= limit, f"{where}: cost {float(res.cost)} vs the jnp semi solve "
+              f"{float(plain.cost)}: rel {rel} (limit {limit})")
+        results[pol] = {"launches": launches, "impls": impls, "k3": kl_instance(k3_mode, k),
+                        "cost": float(res.cost), "jnp_cost": float(plain.cost), "rel": rel,
+                        "its": MODELS_ITERS / secs, "jnp_its": MODELS_ITERS / p_secs}
+        print(f"[{card}] {where} n_frozen={SEMI_FROZEN}: launches {launches}, K1/K2 {impls}, K3 "
+              f"{kl_instance(k3_mode, k)}, frozen columns bit-equal, cost {float(res.cost)} (jnp "
+              f"{float(plain.cost)}, rel {rel}, limit {limit}), {MODELS_ITERS / secs} it/s, jnp "
+              f"{MODELS_ITERS / p_secs}")
+    c = dataclasses.replace(cfg, accelerate=True)
+    res, secs = _timed(lambda: nt.solve_semi(x, w, h, c, n_frozen=SEMI_FROZEN, device=DEVICE))
+    w_prep = to_state(w, c, torch.device(DEVICE))
+    check(torch.equal(_bits(res.w[:, :SEMI_FROZEN]), _bits(w_prep[:, :SEMI_FROZEN])),
+          "solve_semi accelerate: the frozen columns moved")
+    _accel_history(res, "solve_semi accelerate", 8)
+    results["accelerate"] = {"cost": float(res.cost), "its": MODELS_ITERS / secs,
+                             "momentum": float(res.momentum)}
+    print(f"[{card}] solve_semi accelerate n_frozen={SEMI_FROZEN}: frozen columns bit-equal, "
+          f"history non-increasing, cost {float(res.cost)} (plain {results['float32']['cost']}), "
+          f"{MODELS_ITERS / secs} it/s")
+    out["models"]["semi"] = results
+
+
+def phase_models_masked(card, out, seed):
+    """(d) solve_masked and solve_masked_h_only at the reference fixtures."""
+    import nmf_tpu_torch as nt
+
+    fx = nt.fixtures
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    mask = (np.random.RandomState(seed + 16).rand(*x.shape) >= MASK_MISSING).astype(np.float32)
+    xn = x.copy()
+    xn[mask == 0] = np.nan
+    cfg = nt.SolveConfig(max_iter=MODELS_ITERS)
+    none = _launches()
+    print(f"[{card}] phase 13d: solve_masked and solve_masked_h_only {x.shape[0]}x{x.shape[1]}, "
+          f"K={w.shape[1]}, {MASK_MISSING} of X missing (NaN), {MODELS_ITERS} iterations, plain "
+          "torch ops by rule")
+    results = {}
+    for name, fn in (("solve_masked", lambda d, c: nt.solve_masked(xn, w, h, mask, c, device=d)),
+                     ("solve_masked_h_only",
+                      lambda d, c: nt.solve_masked_h_only(xn, w, h, mask, c, device=d))):
+        where = f"models {name}"
+        fn(DEVICE, dataclasses.replace(cfg, max_iter=2))   # warm
+        res, secs, launches = _counted_models(lambda: fn(DEVICE, cfg), where, none)
+        out["launches"][where] = launches
+        check(bool(torch.isfinite(res.w).all()) and bool(torch.isfinite(res.h).all()),
+              f"{where}: factors not finite")
+        again = fn(DEVICE, cfg)
+        for f in ("w", "h", "cost_history"):
+            check(torch.equal(_bits(getattr(res, f)), _bits(getattr(again, f))),
+                  f"{where}: {f} differs on a rerun")
+        t0 = time.perf_counter()
+        cpu = fn("cpu", cfg)
+        cpu_secs = time.perf_counter() - t0
+        rel = abs(float(res.cost) - float(cpu.cost)) / abs(float(cpu.cost))
+        check(rel <= 1e-5, f"{where}: cost {float(res.cost)} vs the CPU's {float(cpu.cost)}: "
+              f"rel {rel} (limit 1e-5)")
+        results[name] = {"cost": float(res.cost), "cpu_cost": float(cpu.cost), "rel": rel,
+                         "its": MODELS_ITERS / secs, "cpu_its": MODELS_ITERS / cpu_secs}
+        print(f"[{card}] {where}: launches {launches}, no K5 launch, cost {float(res.cost)} (CPU "
+              f"{float(cpu.cost)}, rel {rel}, limit 1e-5), bitwise on rerun, "
+              f"{MODELS_ITERS / secs} it/s on the card, {MODELS_ITERS / cpu_secs} on the CPU")
+    ones = nt.solve_masked(x, w, h, np.ones_like(x), cfg, device=DEVICE)
+    plain = nt.solve(x, w, h, dataclasses.replace(cfg, backend="jnp"), device=DEVICE)
+    rel = abs(float(ones.cost) - float(plain.cost)) / abs(float(plain.cost))
+    check(rel <= 1e-5, f"solve_masked with a mask of ones: cost {float(ones.cost)} vs the jnp "
+          f"solve {float(plain.cost)}: rel {rel} (limit 1e-5)")
+    results["ones_rel_vs_jnp"] = rel
+    print(f"[{card}] solve_masked with a mask of ones: cost {float(ones.cost)} vs the jnp solve "
+          f"{float(plain.cost)} (rel {rel}, limit 1e-5)")
+    out["models"]["masked"] = results
+
+
+def _hour_of_audio(seed):
+    """(X, W0, H0) of phase 9's shape made on the card from ``seed``, on the host."""
+    m, n, k = OOC_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    rand = lambda *s: torch.rand(s, generator=g, device=DEVICE).clamp_min_(EPS)  # noqa: E731
+    return tuple(rand(*s).cpu().numpy() for s in ((m, n), (m, k), (k, n)))
+
+
+STREAM_RUNS = {
+    "beta2": dict(beta=2.0),
+    "hals": dict(beta=2.0, algorithm="hals"),
+    "kl l1_h=l2_w=0.1": dict(l1_h=0.1, l2_w=0.1),
+    "masked": dict(),
+    "n_frozen=8": dict(),
+}
+
+
+def phase_models_streamed(card, out, x, w, h, seed):
+    """(e) the streamed families at the hour of audio."""
+    import gc
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.solver import to_state
+
+    m, n, k = OOC_SHAPE
+    bn = nt.pick_block_n(m, n)
+    blocks = -(-n // bn)
+    mask = (np.random.RandomState(seed + 18).rand(m, n) >= STREAM_MISSING).astype(np.float32)
+    rate = h2d_rate(4 * m * bn)
+    streams = STREAM_ITERS + 1
+    print(f"[{card}] phase 13e: the streamed families {m}x{n}, K={k}, {blocks} blocks of {bn}, "
+          f"{STREAM_ITERS} iterations and one cost pass, f32 X; H2D {rate / 1e9} GB/s (pinned)")
+    results = {"h2d_gbps": rate / 1e9}
+    for name, fields in STREAM_RUNS.items():
+        cfg = nt.SolveConfig(max_iter=STREAM_ITERS, check_every=STREAM_ITERS, **fields)
+        where = f"models streamed {name}"
+        kw = {"mask": mask} if name == "masked" else (
+            {"n_frozen": SEMI_FROZEN} if name.startswith("n_frozen") else {})
+        if name == "masked":
+            mem = nt.solve_masked(x, w, h, mask, cfg, device=DEVICE)
+        elif name.startswith("n_frozen"):
+            mem = nt.solve_semi(x, w, h, cfg, n_frozen=SEMI_FROZEN, device=DEVICE)
+        else:
+            mem = nt.solve(x, w, h, cfg, device=DEVICE)
+        mem_cost = float(mem.cost)
+        del mem
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        want = (_launches(update_h=blocks * STREAM_ITERS, update_w_numerator=blocks * STREAM_ITERS,
+                          kl_cost=blocks) if "n_frozen" in kw else _launches())
+        (res, secs, launches), host = _host_timed(lambda: _counted_models(
+            lambda: nt.solve_out_of_core(x, w, h, cfg, device=DEVICE, **kw), where, want))
+        peak = torch.cuda.max_memory_allocated()
+        out["launches"][where] = launches
+        cost = float(res.cost)
+        rel = abs(cost - mem_cost) / abs(mem_cost)
+        check(int(res.iterations) == STREAM_ITERS and int(res.num_checks) == 1 and np.isfinite(cost),
+              f"{where}: {int(res.iterations)} iterations, {int(res.num_checks)} checks, cost {cost}")
+        check(rel <= 1e-5, f"{where}: cost {cost} vs the in-memory solve {mem_cost}: rel {rel} "
+              "(limit 1e-5)")
+        wire = x.nbytes + (mask.nbytes if name == "masked" else 0)
+        check(peak < wire / 3, f"{where}: peak device memory {peak} B not under a third of "
+              f"X{' and the mask' if name == 'masked' else ''} ({wire} B)")
+        if "n_frozen" in kw:
+            w_prep = to_state(w, cfg, torch.device(DEVICE))
+            check(torch.equal(_bits(res.w[:, :SEMI_FROZEN]), _bits(w_prep[:, :SEMI_FROZEN])),
+                  f"{where}: the frozen columns moved")
+        roof = streams * wire / rate
+        fill_s = sum(host["_fill"])
+        results[name] = {"launches": launches, "cost": cost, "in_memory_cost": mem_cost,
+                         "rel": rel, "its": STREAM_ITERS / secs, "seconds": secs,
+                         "wire_gb_per_stream": wire / 1e9, "roofline_s": roof,
+                         "roofline_fraction": roof / secs, "fill_share": fill_s / secs,
+                         "peak_gb": peak / 1e9}
+        print(f"[{card}] {where}: launches {launches}, cost {cost} (in-memory {mem_cost}, rel "
+              f"{rel}, limit 1e-5), {STREAM_ITERS / secs} it/s ({secs} s for {streams} streams "
+              f"of {wire / 1e9} GB{' (X and the mask)' if name == 'masked' else ''}), H2D "
+              f"roofline {roof} s = {roof / secs} of it reached, block fills {fill_s / secs} of "
+              f"the wall, peak device memory {peak / 1e9} GB (limit {wire / 3e9})")
+    out["models"]["streamed"] = results
+
+
+def phase_models_online(card, out, x, w, seed):
+    """(f) solve_online at the hour of audio, and W against the CPU run."""
+    import nmf_tpu_torch as nt
+
+    m, n, k = OOC_SHAPE
+    bn = OOC_BLOCK
+    blocks = -(-n // bn)
+    cfg = nt.SolveConfig()
+    print(f"[{card}] phase 13f: solve_online {m}x{n}, K={k}, one pass, inner_iters "
+          f"{ONLINE_INNER}, {blocks} blocks of {bn}, plain torch ops by rule")
+    fn = lambda: nt.solve_online(x, w, cfg, block_n=bn, inner_iters=ONLINE_INNER,  # noqa: E731
+                                 seed=seed, device=DEVICE)
+    (res, secs, launches), host = _host_timed(
+        lambda: _counted_models(fn, "models online", _launches()))
+    out["launches"]["models online"] = launches
+    widths = np.asarray([j1 - j0 for j0, j1 in res.blocks], np.float64)
+    per_col = res.learning_curve / widths
+    check(len(res.blocks) == blocks and bool(np.isfinite(res.w).all())
+          and per_col[-1] < per_col[0],
+          f"online: {len(res.blocks)} blocks, the learning curve per column {per_col.tolist()}")
+    again = fn()
+    check(again.w.tobytes() == res.w.tobytes() and again.block_costs == res.block_costs,
+          "online: differs on a rerun")
+    fill_s = sum(host["_fill"])
+    ms, ns, ks, bns = ONLINE_SMALL
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 19)
+    xs, ws = (torch.rand(s, generator=g, device=DEVICE).clamp_min_(EPS).cpu().numpy()
+              for s in ((ms, ns), (ms, ks)))
+    card_w = nt.solve_online(xs, ws, cfg, block_n=bns, inner_iters=ONLINE_INNER, seed=seed,
+                             device=DEVICE).w
+    cpu_w = nt.solve_online(xs, ws, cfg, block_n=bns, inner_iters=ONLINE_INNER, seed=seed,
+                            device="cpu").w
+    fro = float(np.linalg.norm(card_w - cpu_w) / np.linalg.norm(cpu_w))
+    check(fro <= 1e-5, f"online {ms}x{ns}: W relative Frobenius {fro} from the CPU run (limit 1e-5)")
+    out["models"]["online"] = {"blocks_per_s": blocks / secs, "seconds": secs,
+                               "fill_share": fill_s / secs, "curve_per_column": per_col.tolist(),
+                               "small_w_fro_vs_cpu": fro}
+    print(f"[{card}] online: launches {launches}, learning curve per column {per_col.tolist()} "
+          f"(falls from the first block to the last), bitwise on rerun; {blocks / secs} blocks/s "
+          f"({secs} s), block fills {fill_s / secs} of the wall; at {ms}x{ns} K={ks}, block_n "
+          f"{bns}: W relative Frobenius {fro} from the CPU run (limit 1e-5)")
+
+
+def _cli_all(runs, cwd):
+    """Every CLI run of ``runs`` (tag -> args) as its own subprocess, all at
+    once; waits for each and fails on the first that did not exit 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    procs = {tag: subprocess.Popen([sys.executable, "-m", "nmf_tpu_torch", *args, "-q"], cwd=cwd,
+                                   env=env) for tag, args in runs.items()}
+    codes = {tag: p.wait() for tag, p in procs.items()}
+    check(not any(codes.values()), f"CLI runs exited {codes}")
+
+
+def phase_models_cli(card, tmp, out):
+    """(g) the step's CLI flags as subprocesses, each file byte-equal to its
+    in-process result."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch import cli
+    from nmf_tpu_torch.models import init as init_mod
+
+    print(f"[{card}] phase 13g: run --mask / --freeze / --online / the streamed families, "
+          "transform --mask and separate, as subprocesses at once")
+    _cli(["gen", "."], tmp)
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    x, w, h = (nt.read_matrix(j(f"{s}.bin")) for s in "XWH")
+    mask = (np.random.RandomState(1).rand(*x.shape) >= MASK_MISSING).astype(np.float32)
+    nt.write_matrix(mask, j("M.bin"))
+    m, n, k, bn = OOC_CLI
+    rng = np.random.RandomState(0)
+    ox = np.maximum(rng.rand(m, n).astype(np.float32), np.float32(EPS))
+    ow, oh = rng.rand(m, k).astype(np.float32), rng.rand(k, n).astype(np.float32)
+    om = (rng.rand(m, n) >= MASK_MISSING).astype(np.float32)
+    for name, a in (("X", ox), ("W", ow), ("H", oh), ("M", om)):
+        nt.write_matrix(a, j(f"m_ooc_{name}.bin"))
+    ooc = ["m_ooc_X.bin", "m_ooc_W.bin", "m_ooc_H.bin", "--out-of-core", "--block-n", str(bn),
+           "--max-iter", str(MODELS_CLI_ITERS)]
+    online_bn = 100
+    runs = {
+        "mask": ["run", "X.bin", "W.bin", "H.bin", "--mask", "M.bin"],
+        "mask_ooc": ["run", *ooc, "--mask", "m_ooc_M.bin"],
+        "freeze": ["run", "X.bin", "W.bin", "H.bin", "--freeze", str(SEMI_FROZEN)],
+        "freeze_ooc": ["run", *ooc, "--freeze", str(SEMI_FROZEN)],
+        "beta2_ooc": ["run", *ooc, "--beta", "2"],
+        "hals_ooc": ["run", *ooc, "--algorithm", "hals", "--beta", "2"],
+        "online": ["run", "X.bin", "--rank", "128", "--init", "random", "--online", "--block-n",
+                   str(online_bn)],
+        "tmask": ["transform", "X.bin", "W.bin", "--mask", "M.bin", "-o", "H_tmask.bin"],
+        "separate": ["separate", "paper.wav", "--out-dir", "sep_cli"],
+    }
+    for tag, args in runs.items():
+        if args[0] == "run":
+            args += ["-o", f"W_{tag}.bin", f"H_{tag}.bin"]
+    t0 = time.perf_counter()
+    _cli_all(runs, tmp)
+    wall = time.perf_counter() - t0
+    cfg = nt.SolveConfig()
+    ocfg = nt.SolveConfig(max_iter=MODELS_CLI_ITERS)
+    src = lambda: nt.BinColumnSource(j("m_ooc_X.bin"))  # noqa: E731
+    refs = {
+        "mask": lambda: nt.solve_masked(x, w, h, mask, cfg, device=DEVICE),
+        "mask_ooc": lambda: nt.solve_out_of_core(src(), ow, oh, ocfg, block_n=bn, device=DEVICE,
+                                                 mask=nt.BinColumnSource(j("m_ooc_M.bin"))),
+        "freeze": lambda: nt.solve_semi(x, w, h, cfg, n_frozen=SEMI_FROZEN, device=DEVICE),
+        "freeze_ooc": lambda: nt.solve_out_of_core(src(), ow, oh, ocfg, block_n=bn,
+                                                   n_frozen=SEMI_FROZEN, device=DEVICE),
+        "beta2_ooc": lambda: nt.solve_out_of_core(src(), ow, oh, dataclasses.replace(ocfg, beta=2.0),
+                                                  block_n=bn, device=DEVICE),
+        "hals_ooc": lambda: nt.solve_out_of_core(
+            src(), ow, oh, dataclasses.replace(ocfg, beta=2.0, algorithm="hals"), block_n=bn,
+            device=DEVICE),
+    }
+    for tag, fn in refs.items():
+        res = fn()
+        for f in "WH":
+            got = nt.read_matrix(j(f"{f}_{tag}.bin"))
+            check(got.tobytes() == getattr(res, f.lower()).cpu().float().numpy().tobytes(),
+                  f"CLI {' '.join(runs[tag][:-3])}: {f} differs from the in-process result")
+    w0 = init_mod.random_init(x.shape[0], 128, 1, seed=0)[0]
+    onl = nt.solve_online(j("X.bin"), w0, cfg, block_n=online_bn, inner_iters=20, seed=0,
+                          device=DEVICE)
+    tr = nt.transform_out_of_core(j("X.bin"), onl.w, config=cfg, block_n=online_bn, seed=0,
+                                  device=DEVICE)
+    check(nt.read_matrix(j("W_online.bin")).tobytes() == onl.w.tobytes()
+          and nt.read_matrix(j("H_online.bin")).tobytes() == tr.h.tobytes(),
+          "CLI run --online: files differ from solve_online + transform_out_of_core")
+    h0 = np.random.RandomState(0).rand(w.shape[1], x.shape[1]).astype(np.float32)
+    th = nt.solve_masked_h_only(x, w, h0, mask, cfg, device=DEVICE).h.cpu().numpy()
+    check(nt.read_matrix(j("H_tmask.bin")).tobytes() == th.tobytes(),
+          "CLI transform --mask: H differs from solve_masked_h_only")
+    rate, audio = cli._read_wav(j("paper.wav"))
+    sep = nt.separate(audio, n_components=PAPER_K, config=nt.SolveConfig(thresh=1e-5),
+                      device=DEVICE)
+    paths = cli.write_sources(sep.sources, rate, j("sep_inproc"))
+    check(len(paths) == PAPER_K and all(
+        pathlib.Path(p).read_bytes() == pathlib.Path(j("sep_cli", os.path.basename(p))).read_bytes()
+        for p in paths), "CLI separate: the WAVs differ from the in-process separate")
+    out["models"]["cli"] = {"wall_s": wall, "runs": list(runs)}
+    print(f"[{card}] CLI: {', '.join(' '.join(a[:-3] if a[0] == 'run' else a) for a in runs.values())}"
+          f": every file byte-equal to its in-process result ({len(runs)} processes at once, "
+          f"{wall} s of wall)")
+
+
+def phase_models(card, tmp, out, seed):
+    phase_models_separate(card, tmp, out, seed)
+    phase_models_semi(card, out, seed)
+    phase_models_masked(card, out, seed)
+    x, w, h = _hour_of_audio(seed)
+    phase_models_streamed(card, out, x, w, h, seed)
+    phase_models_online(card, out, x, w, seed)
+    del x, w, h
+    phase_models_cli(card, tmp, out)
+
+
+def _models_launches(launches, name):
+    """A kernel's launches on each run of phase 13, 0 included (the streamed
+    ``n_frozen`` run's K1 and K2 also under their ``numerator_only`` key)."""
+    out = {}
+    for run, counts in launches.items():
+        if run.startswith("models "):
+            out[run[7:]] = counts[name]
+            if counts.get(f"{name}_numerator"):
+                out[run[7:] + " numerator_only"] = counts[f"{name}_numerator"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the data phases 9, 10 and 12 make on the card (default 0)")
+                    help="seed of the data phases 9, 10, 12 and 13 make (default 0)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -2847,36 +3428,40 @@ def main(argv=None) -> int:
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
-        "families": {}, "transform": {},
+        "families": {}, "transform": {}, "models": {},
     }
     t_start = time.perf_counter()
-    phase_card(card, out)  # always: every other phase needs the build
-    if "kernels" in phases:
-        phase_kernels(card, out)
-    if "modes" in phases:
-        phase_modes(card, out)
-    if "quant" in phases:
-        phase_quant(card, out)
+    seconds = {}
+
+    def run(name, fn, *args):
+        """Phase ``name`` if it was asked for (card always: every other
+        phase needs the build), its wall seconds printed."""
+        if name in phases or name == "card":
+            t0 = time.perf_counter()
+            fn(card, *args)
+            seconds[name] = time.perf_counter() - t0
+            print(f"[{card}] phase {name}: {seconds[name]} s")
+
+    run("card", phase_card, out)
+    run("kernels", phase_kernels, out)
+    run("modes", phase_modes, out)
+    run("quant", phase_quant, out)
     with tempfile.TemporaryDirectory(prefix="nmf_smoke_") as tmp:
-        if "cli" in phases:
-            phase_cli(card, tmp, out)
-        if "inprocess" in phases:
-            check("cli" in phases, "phase inprocess needs phase cli (its files)")
-            phase_inprocess(card, tmp, out)
-    if "flagship" in phases:
-        phase_flagship(card, out)
-    if "tilesparse" in phases:
-        phase_tilesparse(card, out)
-    if "oocore" in phases:
-        with tempfile.TemporaryDirectory(prefix="nmf_ooc_") as tmp:
-            phase_oocore(card, tmp, out, args.seed)
-    if "accel" in phases:
-        phase_accel(card, out, args.seed)
-    if "families" in phases:
-        phase_families(card, out)
-    if "transform" in phases:
-        with tempfile.TemporaryDirectory(prefix="nmf_tr_") as tmp:
-            phase_transform(card, tmp, out, args.seed)
+        run("cli", phase_cli, tmp, out)
+        check("inprocess" not in phases or "cli" in phases,
+              "phase inprocess needs phase cli (its files)")
+        run("inprocess", phase_inprocess, tmp, out)
+    run("flagship", phase_flagship, out)
+    run("tilesparse", phase_tilesparse, out)
+    with tempfile.TemporaryDirectory(prefix="nmf_ooc_") as tmp:
+        run("oocore", phase_oocore, tmp, out, args.seed)
+    run("accel", phase_accel, out, args.seed)
+    run("families", phase_families, out)
+    with tempfile.TemporaryDirectory(prefix="nmf_tr_") as tmp:
+        run("transform", phase_transform, tmp, out, args.seed)
+    with tempfile.TemporaryDirectory(prefix="nmf_models_") as tmp:
+        run("models", phase_models, tmp, out, args.seed)
+    print(f"[{card}] phase seconds: {json.dumps(seconds)}")
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
               "a subset prints no result")
@@ -2931,14 +3516,16 @@ def main(argv=None) -> int:
             **({"long_walks": st["long_walks"]} if st["long_walks"] else {}),
             "accel_launches": _accel_launches(out["launches"], name),
             # K1-K3: their launches on phase 12's H-only runs (K2: none)
-            **({"transform_launches": _transform_launches(out["launches"], name)}
+            **({"transform_launches": _transform_launches(out["launches"], name),
+                "models_launches": _models_launches(out["launches"], name)}
                if name in ("update_h", "update_w", "kl_cost") else {}),
         })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
     print(f"[{card}] accel summary: {json.dumps(out['accel'])}")
     print(f"[{card}] families summary: {json.dumps(out['families'])}")
     print(f"[{card}] transform summary: {json.dumps(out['transform'])}")
-    print(f"[{card}] all twelve phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] models summary: {json.dumps(out['models'])}")
+    print(f"[{card}] all thirteen phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,7 +12,12 @@ replays the reference's padded-EPS numerics.  The beta-divergence, HALS and
 penalized KL families run on plain torch ops, as in JAX.  ``NMF`` (fit /
 transform), ``solve_h_only``, ``solve_w_only`` and ``transform_out_of_core``
 are the inference path: H refit against a fixed W, through K1 and K3 on
-the KL family.  Imports torch and NumPy, never JAX.
+the KL family.  ``solve_semi`` freezes the first dictionary columns (the
+paper's drum templates) and ``separate`` runs the paper's pipeline (STFT,
+KL-NMF through K1-K3, Wiener masks, ISTFT); ``solve_masked`` and
+``solve_masked_h_only`` fit the observed entries of X, and
+``solve_online`` learns W in one pass over a column stream, on plain torch
+ops as in JAX.  Imports torch and NumPy, never JAX.
 
 Quick start::
 
@@ -26,7 +31,11 @@ Quick start::
 from .io import fixtures
 from .io.binio import read_matrix, write_matrix
 from .models.init import nndsvd_init, random_init, scaled_random_init
+from .models.masked import solve_masked, solve_masked_h_only
 from .models.nmf import NMF, normalize_factors, solve_h_only, solve_w_only
+from .models.online import OnlineResult, solve_online
+from .models.semi import solve_semi
+from .models.separation import separate
 from .models.solver import SolveResult, solve
 from .models.sparse_tiled import (
     TileSparseX,
@@ -66,6 +75,12 @@ __all__ = [
     "update_w",
     "solve",
     "solve_strict",
+    "solve_semi",
+    "solve_masked",
+    "solve_masked_h_only",
+    "separate",
+    "solve_online",
+    "OnlineResult",
     "solve_h_only",
     "solve_w_only",
     "normalize_factors",

@@ -10,9 +10,11 @@ cost K3 (``kl_cost_fused``) with a true-f32 recon in every policy, as JAX's
 H-only cost is ``kl_divergence`` whatever the policy (``nmf.py:115``); the
 beta, penalized and HALS H-steps take plain ops, as in JAX.
 
+``NMF.transform(mask=...)`` scores partially observed columns through the
+masked H-only solve (in memory, or streamed with ``out_of_core``).
+
 Not in the port yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh`` (Queue 1 step 12), ``n_restarts > 1`` (step 7)
-and ``transform(mask=...)`` (step 6).
+ROADMAP.md item: ``mesh`` (Queue 1 step 12) and ``n_restarts > 1`` (step 7).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..utils.config import Precision, SolveConfig
 from ..utils.device import resolve_device
 from .init import nndsvd_init, random_init, scaled_random_init
 from .solver import (
+    _MESH,
     SolveResult,
     _dequant_wrap_cost,
     _dequant_wrap_step,
@@ -45,7 +48,6 @@ from .solver import (
 __all__ = ["NMF", "solve_h_only", "solve_w_only", "normalize_factors"]
 
 _F32 = torch.float32
-_MESH = "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves) is not in the PyTorch port yet"
 
 
 def _host(a) -> np.ndarray:
@@ -349,15 +351,13 @@ class NMF:
         ``h0``, H starts from ``RandomState(random_state).rand(K, N_new)``,
         as in JAX.  With ``out_of_core`` the columns stream from the host
         (:func:`~nmf_tpu_torch.transform_out_of_core`): ``x`` may also be a
-        ``.bin`` path or a memmap.
+        ``.bin`` path or a memmap.  ``mask`` (X's shape; 0 = missing) lets
+        only the observed entries drive the fit
+        (:func:`~nmf_tpu_torch.solve_masked_h_only`; with ``out_of_core`` it
+        streams beside X).
         """
         if self.w_ is None:
             raise RuntimeError("transform() before fit()")
-        if mask is not None:
-            raise NotImplementedError(
-                "transform(mask=...) (ROADMAP.md Queue 1 step 6, item 8c: masked "
-                "solver) is not in the PyTorch port yet"
-            )
         if self.mesh is not None:
             raise NotImplementedError(_MESH)
         if out_of_core:
@@ -367,15 +367,21 @@ class NMF:
             shape = _as_source(x).shape
             res = transform_out_of_core(
                 x, self.w_, h0=h0, config=self._config(max_iter, shape=shape),
-                seed=self.random_state, device=self.device,
+                seed=self.random_state, mask=mask, device=self.device,
             )
             return res.h
         x = np.asarray(_host(x), np.float32)
         if h0 is None:
             rng = np.random.RandomState(self.random_state)
             h0 = rng.rand(self.n_components, x.shape[1]).astype(np.float32)
-        res = solve_h_only(x, self.w_, h0, self._config(max_iter, shape=x.shape),
-                           device=self.device)
+        config = self._config(max_iter, shape=x.shape)
+        if mask is not None:
+            from .masked import solve_masked_h_only
+
+            res = solve_masked_h_only(x, self.w_, h0, np.asarray(_host(mask), np.float32),
+                                      config, device=self.device)
+        else:
+            res = solve_h_only(x, self.w_, h0, config, device=self.device)
         return _host(res.h)
 
     def inverse_transform(self, h) -> np.ndarray:

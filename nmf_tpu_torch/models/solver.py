@@ -51,6 +51,8 @@ __all__ = ["SolveResult", "solve", "resolve_step_fn", "run_checked_loop"]
 
 _F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the refusal of ``mesh=`` by every solve that takes it
+_MESH = "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves) is not in the PyTorch port yet"
 
 StepFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 CostFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]

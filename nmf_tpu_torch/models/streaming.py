@@ -34,23 +34,40 @@ bf16 (clamped and cast on the host), or uint8 codes with per-column f32
 scales (quantized once on the host by ``quantize_policy_np``; the codes are
 kept on the host up to ``NMF_TPU_QCACHE_BYTES``, the scales on the card).
 
-Device memory: W + H + the accumulators + two blocks + the kernels'
-scratch, independent of N (``accelerate``: W and H twice more, the
-extrapolated point and the block-start snapshot).
+Device memory: W + H + the accumulators + two blocks (and two mask blocks)
++ the kernels' scratch, independent of N (``accelerate``: W and H twice
+more, the extrapolated point and the block-start snapshot).
 
 ``accelerate=True`` runs the safeguarded Nesterov loop over the same sweep
 (:func:`_accel_loop`): a seed cost pass, then a cost pass at every check,
 and a rejected block re-streams X ``chunk + 1`` times more.
 
+Every family of the JAX package streams (``streaming.py:192-400`` there):
+the KL MU above, through the kernels; the beta MU, whose W denominator is a
+GEMM that also sums over blocks, so it carries a second (M, K) accumulator;
+the penalized KL MU, whose W penalty joins the epilogue and whose cost adds
+it once a pass; HALS, whose H row sweep is column-local and whose W sweep
+takes X H^T and H H^T summed over blocks (a (K, K) second accumulator); and
+the masked KL MU (``mask=``), whose mask streams beside X in a second pair
+of pinned and device buffers under the same events, on the wire as bf16
+when X is bf16 and as f32 otherwise (int8 X included), and whose
+denominators are GEMMs summed over blocks.  The unobserved entries of X are
+zeroed before anything reads them (NaN and Inf too): on the card after the
+copy for f32 X, on the host before the cast or quantization for bf16 and
+int8 X.  The families other than KL take plain torch ops, as in JAX.
+``n_frozen`` puts the first columns of W back after each W epilogue (the
+streamed :func:`~nmf_tpu_torch.solve_semi`; MU families), so the KL family
+stays on K1, K2 ``numerator_only`` and K3.
+
 :func:`transform_out_of_core` is the inference pass: W fixed, each block
 visited once and solved in full by the H-only solve
-(:func:`nmf_tpu_torch.solve_h_only`'s step and loop) while the next block is
-copied in, so X crosses the link once per run.
+(:func:`nmf_tpu_torch.solve_h_only`'s step and loop, or with ``mask=`` the
+masked H-only solve's) while the next block is copied in, so X crosses the
+link once per run.
 
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh``, ``mask``, ``n_frozen``, ``checkpoint_dir``,
-``live_metrics``, the beta, penalized and HALS families of the streamed
-solve (the transform takes them), ``backend="autotune"``.
+ROADMAP.md item: ``mesh``, ``checkpoint_dir``, ``live_metrics``,
+``backend="autotune"``.
 """
 
 from __future__ import annotations
@@ -64,13 +81,15 @@ import numpy as np
 import torch
 
 from ..io import binio
-from ..ops.divergence import kl_divergence
+from ..ops.divergence import beta_partial, kl_divergence
 from ..ops.elementwise import eps_clamp
+from ..ops.hals import cd_sweep_h, cd_sweep_w
 from ..ops.kernels import fused_mu
-from ..ops.mu import numerator_w, update_h
+from ..ops.mu import _beta_ratios, matmul, numerator_w, update_h, update_h_kl_reg
 from ..ops.quant import dequantize, quantize_policy_np
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
+from .masked import masked_h_step_cost, masked_kl, masked_update_h
 from .nmf import _h_only_step_cost
 from .solver import SolveResult, _use_kernels, extrapolate, run_checked_loop, to_state
 from .solver import _refuse_unported as _refuse_solver
@@ -91,6 +110,11 @@ _WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": to
 # Edge of the tiles of the host transpose of a .bin block (128 x 128 f32,
 # 64 KB a tile, stays in cache; 5x a plain strided copy on one core).
 _TRANSPOSE_TILE = 128
+# Columns of a block the plain families' ops take at once: their
+# block-sized temporaries (W H, the ratios, the cost's terms) stay near
+# 16 MiB of f32 each, so that the device holds two blocks and H and little
+# more, as on the kernel path.
+_PLAIN_CHUNK_BYTES = 16 * 1024 * 1024
 
 
 def _copy_into(out: np.ndarray, src: np.ndarray) -> None:
@@ -192,20 +216,38 @@ def wire_itemsize(x_dtype: str) -> int:
     return _WIRE_DTYPES[x_dtype].itemsize
 
 
-def _host_prep(blk: np.ndarray, eps: float, x_dtype: str, qrows: int = 0, out=None):
+def mask_wire_dtype(x_dtype: str) -> torch.dtype:
+    """The dtype a streamed mask takes on the wire: bf16 beside bf16 X
+    (lossless for 0/1 masks), f32 beside f32 and int8 X (JAX's
+    ``_cast_mask``, ``streaming.py:149-156``)."""
+    return torch.bfloat16 if x_dtype == "bfloat16" else torch.float32
+
+
+def _zero_unobserved(x: torch.Tensor, mask: torch.Tensor) -> None:
+    """``x <- where(mask > 0, x, 0)`` in place: the masked prep's invariant
+    that unobserved entries, NaN and Inf included, are exact zeros."""
+    x.masked_fill_(~(mask > 0), 0.0)
+
+
+def _host_prep(blk: np.ndarray, eps: float, x_dtype: str, qrows: int = 0, out=None,
+               mask=None):
     """The load-time clamp (nmf.cu:211) and the storage cast of an f32 block
     of bf16 or int8 X, on the host so that the wire carries the final bytes
-    (``streaming.py:709-733`` of the JAX package, without the mask; f32 X is
-    clamped on the device instead).
+    (``streaming.py:709-733`` of the JAX package; f32 X is clamped on the
+    device instead).  With ``mask`` (the block's f32 mask) the unobserved
+    entries are zeroed after the clamp and before the cast or quantization,
+    which keeps NaN out of the int8 scales.
 
     Clamps ``blk`` IN PLACE (it is the caller's scratch); bf16: casts it
     into the bf16 tensor ``out`` and returns ``out``; int8: returns the
     uint8 codes and f32 scales of ``quantize_policy_np``.
     """
-    torch.from_numpy(blk).clamp_min_(eps)   # np.maximum's bits, on torch's threads
+    t = torch.from_numpy(blk).clamp_min_(eps)   # np.maximum's bits, on torch's threads
+    if mask is not None:
+        _zero_unobserved(t, torch.from_numpy(mask))
     if x_dtype == "int8":
         return quantize_policy_np(blk, eps, qrows)
-    return out.copy_(torch.from_numpy(blk))
+    return out.copy_(t)
 
 
 _NUMBER = re.compile(r"\s*[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?\s*")
@@ -227,28 +269,31 @@ class _BlockStream:
 
     :meth:`sweep` yields ``(idx, x_j)`` for every block in order, ``x_j`` on
     the device in its storage form (an f32 or bf16 tensor, or a ``(uint8
-    codes, f32 scales)`` pair).  A block is valid until the caller asks for
-    the next one; the work the caller enqueued on the current stream by
-    then is what the buffer's next copy waits for.
+    codes, f32 scales)`` pair), or ``(x_j, mask_j)`` when a ``mask_source``
+    streams beside X (``mask_j`` in :func:`mask_wire_dtype`).  A block is
+    valid until the caller asks for the next one; the work the caller
+    enqueued on the current stream by then is what the buffer's next copy
+    waits for.
 
     On the CPU the staging buffers are the blocks themselves: the same
     loop, with no pinned memory, no stream and no events.
     """
 
     def __init__(self, source, blocks, dev: torch.device, x_dtype: str,
-                 eps: float, qrows: int, qcache_budget: int):
+                 eps: float, qrows: int, qcache_budget: int, mask_source=None):
         self.source, self.blocks, self.dev = source, blocks, dev
         self.x_dtype, self.eps, self.qrows = x_dtype, float(eps), qrows
+        self.mask_source = mask_source
         self.cuda = dev.type == "cuda"
         m = source.shape[0]
         size = m * max(j1 - j0 for j0, j1 in blocks)
-        wire = _WIRE_DTYPES[x_dtype]
-        # pinned staging; a failed pinned allocation raises
-        self._host = [torch.empty(size, dtype=wire, pin_memory=self.cuda) for _ in range(2)]
-        self._dev = ([torch.empty(size, dtype=wire, device=dev) for _ in range(2)]
-                     if self.cuda else self._host)
+        self._host, self._dev = self._buffers(size, _WIRE_DTYPES[x_dtype])
         # bf16 and int8 are made from an f32 gather
         self._scratch = None if x_dtype == "float32" else np.empty(size, np.float32)
+        if mask_source is not None:
+            self._mhost, self._mdev = self._buffers(size, mask_wire_dtype(x_dtype))
+            # a bf16 mask is cast from an f32 gather, which bf16 X's prep reads
+            self._mscratch = np.empty(size, np.float32) if x_dtype == "bfloat16" else None
         self._next = 0
         if self.cuda:
             self._copy_stream = torch.cuda.Stream(dev)
@@ -256,38 +301,61 @@ class _BlockStream:
             self._read = [torch.cuda.Event() for _ in range(2)]     # compute on slot done
         # int8: codes quantized once, kept on the host up to the budget
         # (re-quantizing a block beyond it gives the same codes); the
-        # per-column scales always on the device
+        # per-column scales always on the device.  A stream holds one mask
+        # for its whole life, so codes made from masked blocks stay valid.
         self.qcache = {}
         self.qcache_bytes = 0
         self.qcache_budget = qcache_budget
         self.scales = {}
 
-    def _view(self, buf: torch.Tensor, idx: int) -> torch.Tensor:
+    def _buffers(self, size: int, dtype: torch.dtype):
+        """Two pinned staging buffers and two device buffers of ``size``
+        elements (on the CPU the staging buffers serve as both); a failed
+        pinned allocation raises."""
+        host = [torch.empty(size, dtype=dtype, pin_memory=self.cuda) for _ in range(2)]
+        dev = [torch.empty(size, dtype=dtype, device=self.dev) for _ in range(2)] if self.cuda else host
+        return host, dev
+
+    def _view(self, buf, idx: int):
         j0, j1 = self.blocks[idx]
         m = self.source.shape[0]
-        return buf[: m * (j1 - j0)].view(m, j1 - j0)
+        return buf[: m * (j1 - j0)].reshape(m, j1 - j0)
 
     def _gather(self, idx: int) -> np.ndarray:
         j0, j1 = self.blocks[idx]
-        blk = self._scratch[: self.source.shape[0] * (j1 - j0)].reshape(-1, j1 - j0)
+        blk = self._view(self._scratch, idx)
         self.source.columns_into(j0, j1, blk)
         return blk
 
+    def _fill_mask(self, idx: int, slot: int):
+        """Host side: block ``idx``'s mask into staging buffer ``slot``;
+        returns it as an f32 array for the host prep of bf16 and int8 X."""
+        j0, j1 = self.blocks[idx]
+        dst = self._view(self._mhost[slot], idx)
+        if self._mscratch is None:   # f32 on the wire: gathered straight in
+            self.mask_source.columns_into(j0, j1, dst.numpy())
+            return dst.numpy()
+        blk = self._view(self._mscratch, idx)
+        self.mask_source.columns_into(j0, j1, blk)
+        dst.copy_(torch.from_numpy(blk))
+        return blk
+
     def _fill(self, idx: int, slot: int):
-        """Host side: block ``idx`` in its wire form into staging buffer
-        ``slot``; returns the block's new f32 scales (int8, first sweep) or
-        None."""
+        """Host side: block ``idx`` (and its mask) in wire form into staging
+        buffer ``slot``; returns the block's new f32 scales (int8, first
+        sweep) or None."""
+        mask = self._fill_mask(idx, slot) if self.mask_source is not None else None
         dst = self._view(self._host[slot], idx)
-        if self.x_dtype == "float32":   # clamped on the device after the copy
+        if self.x_dtype == "float32":   # clamped (and masked) on the device after the copy
             j0, j1 = self.blocks[idx]
             self.source.columns_into(j0, j1, dst.numpy())
             return None
         if self.x_dtype == "bfloat16":
-            _host_prep(self._gather(idx), self.eps, "bfloat16", out=dst)
+            _host_prep(self._gather(idx), self.eps, "bfloat16", out=dst, mask=mask)
             return None
         codes, new_scales = self.qcache.get(idx), None
         if codes is None:
-            codes, scales = _host_prep(self._gather(idx), self.eps, "int8", self.qrows)
+            codes, scales = _host_prep(self._gather(idx), self.eps, "int8", self.qrows, mask=mask)
             if idx not in self.scales:
                 new_scales = torch.from_numpy(scales)
             if self.qcache_bytes + codes.nbytes <= self.qcache_budget:
@@ -304,16 +372,20 @@ class _BlockStream:
             if scales is not None:
                 self.scales[idx] = scales
             return slot
-        self._copied[slot].synchronize()   # the pinned buffer's last copy is done
+        self._copied[slot].synchronize()   # the pinned buffers' last copies are done
         scales = self._fill(idx, slot)
         if scales is not None:
             # allocated on the compute stream, which reads it after the copy
             self.scales[idx] = torch.empty(scales.shape, dtype=_F32, device=self.dev)
             scales = scales.pin_memory()
+        pairs = [(self._dev, self._host)]
+        if self.mask_source is not None:
+            pairs.append((self._mdev, self._mhost))
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(self._read[slot])
             n = self._view(self._host[slot], idx).numel()
-            self._dev[slot][:n].copy_(self._host[slot][:n], non_blocking=True)
+            for dev_bufs, host_bufs in pairs:
+                dev_bufs[slot][:n].copy_(host_bufs[slot][:n], non_blocking=True)
             if scales is not None:
                 self.scales[idx].copy_(scales, non_blocking=True)
             self._copied[slot].record(self._copy_stream)
@@ -324,11 +396,14 @@ class _BlockStream:
         if self.cuda:
             torch.cuda.current_stream(self.dev).wait_event(self._copied[slot])
         x = self._view(self._dev[slot], idx)
+        mask = None if self.mask_source is None else self._view(self._mdev[slot], idx)
         if self.x_dtype == "float32":
             x.clamp_min_(self.eps)    # in place: no third block-sized buffer
+            if mask is not None:
+                _zero_unobserved(x, mask)
         elif self.x_dtype == "int8":
             x = (x, self.scales[idx])
-        return x
+        return x if mask is None else (x, mask)
 
     def sweep(self):
         """Yield ``(idx, x_j)`` for every block; the next block is gathered
@@ -346,56 +421,199 @@ def _dense(x_j):
     return dequantize(*x_j) if isinstance(x_j, tuple) else x_j
 
 
-def _block_fns(config: SolveConfig, kernels: bool):
-    """(step_acc, w_epilogue, cost_block) of the KL family
-    (``streaming.py:330-364`` of the JAX package), as plain functions.
+def _column_chunks(step_acc, cost_block, masked: bool):
+    """``step_acc`` and ``cost_block`` over a block's columns in chunks of
+    ``_PLAIN_CHUNK_BYTES`` of f32 at W's height: the new H is the chunks'
+    H joined, the accumulators take one fold a chunk, the cost is the sum
+    of the chunks' costs (every family's H update and cost are
+    column-separable).  A block within one chunk runs unsplit."""
 
-    ``kernels``: K1 in full, K2 ``numerator_only`` and K3 (each takes its
-    plain version for CPU tensors); otherwise the plain ops on dequantized X.
+    def x_cols(x, c0, c1):
+        if isinstance(x, tuple):          # (codes, scales (N,) or (R, N))
+            return x[0][:, c0:c1], x[1][..., c0:c1]
+        return x[:, c0:c1]
+
+    def cols(d, c0, c1):
+        return (x_cols(d[0], c0, c1), d[1][:, c0:c1]) if masked else x_cols(d, c0, c1)
+
+    def spans(w, h_j):
+        width = max(1, _PLAIN_CHUNK_BYTES // (4 * w.shape[0]))
+        n = h_j.shape[1]
+        return [(c, min(c + width, n)) for c in range(0, n, width)]
+
+    def step(w, h_j, x_j, a1, a2):
+        parts = spans(w, h_j)
+        if len(parts) == 1:
+            return step_acc(w, h_j, x_j, a1, a2)
+        return torch.cat([step_acc(w, h_j[:, c0:c1], cols(x_j, c0, c1), a1, a2)
+                          for c0, c1 in parts], dim=1)
+
+    def cost(w, h_j, x_j):
+        parts = spans(w, h_j)
+        if len(parts) == 1:
+            return cost_block(w, h_j, x_j)
+        return torch.sum(torch.stack([cost_block(w, h_j[:, c0:c1], cols(x_j, c0, c1))
+                                      for c0, c1 in parts]))
+
+    return step, cost
+
+
+def _penalty_fns(config: SolveConfig):
+    """(masked_epilogue, reg_epilogue, cost_extra) of the penalized families
+    (``streaming.py:159-190`` of the JAX package): the W epilogues whose
+    denominators take the W penalty gradients, and the W penalty a cost
+    pass adds once (None without penalties)."""
+    eps = config.eps
+    l1_w, l2_w = config.l1_w, config.l2_w
+
+    def masked_epilogue(w, a1, a2):
+        den = eps_clamp(a2, eps) + l1_w + l2_w * w.to(_F32)
+        return (w * (a1 / den)).to(w.dtype)
+
+    def reg_epilogue(w, a1, a2):
+        den = eps_clamp(a2, eps)[None, :] + l1_w + l2_w * w.to(_F32)
+        return (w * (a1 / den)).to(w.dtype)
+
+    cost_extra = None
+    if config.regularized:
+        def cost_extra(w):
+            wf = w.to(_F32)
+            return l1_w * torch.sum(torch.abs(wf)) + 0.5 * l2_w * torch.sum(wf * wf)
+
+    return masked_epilogue, reg_epilogue, cost_extra
+
+
+def _h_penalty(config: SolveConfig, h_j) -> torch.Tensor:
+    """Block j's share of the H penalty in a cost pass."""
+    hf = h_j.to(_F32)
+    return config.l1_h * torch.sum(torch.abs(hf)) + 0.5 * config.l2_h * torch.sum(hf * hf)
+
+
+def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
+    """(step_acc, w_epilogue, cost_block, cost_extra, a2_shape) of the
+    config's family (``streaming.py:192-400`` of the JAX package), as plain
+    functions.
+
+    ``step_acc(w, h_j, x_j, a1, a2)`` updates H_j and folds block j's W-side
+    terms into the accumulators in place; it returns the new H_j.  ``a1`` is
+    (M, K) f32; ``a2_shape`` names the second accumulator: "mk" (M, K) for
+    the beta and masked families (their W denominators are GEMMs summed
+    over blocks), "kk" (K, K) for HALS (H H^T), None for rowsum(H) (K,).
+    ``cost_extra`` is the W penalty a cost pass adds once, or None.
+
+    ``kernels`` (the KL family alone): K1 in full, K2 ``numerator_only`` and
+    K3, each taking its plain version for CPU tensors.  Every other family,
+    and KL under ``kernels=False``, takes plain ops on dequantized X over
+    column chunks (:func:`_column_chunks`).  Under ``masked`` the data
+    operand is ``(x_j, mask_j)``.
     """
     eps, prec = config.eps, config.precision
+    beta = float(config.beta)
+    l1_h, l2_h = config.l1_h, config.l2_h
     # the cost's recon is always true f32 (streaming.py:357-362)
     cost_prec = dataclasses.replace(prec, matmul_dtype="float32")
+    masked_epilogue, reg_epilogue, cost_extra = _penalty_fns(config)
 
-    def step_acc(w, h_j, x_j, a1, a2):
-        """H_j's full update; block j's W numerator and rowsum(H_j) folded
-        into ``a1`` and ``a2`` in place.  Returns the new H_j."""
-        if kernels:
-            h_new = fused_mu.update_h_fused(w, h_j, x_j, eps, prec)
-            wnum = fused_mu.update_w_fused(w, h_new, x_j, eps, prec, numerator_only=True)
-        else:
-            x_j = _dense(x_j)
-            h_new = update_h(w, h_j, x_j, eps, prec)
-            wnum = numerator_w(w, h_new, x_j, eps, prec)
-        a1 += wnum
-        a2 += torch.sum(h_new, dim=1, dtype=_F32)
-        return h_new
+    def plain(step_acc, w_epilogue, cost_block, a2_shape):
+        step_acc, cost_block = _column_chunks(step_acc, cost_block, masked)
+        return step_acc, w_epilogue, cost_block, cost_extra, a2_shape
 
-    def w_epilogue(w, a1, a2):
+    def kl_epilogue(w, a1, a2):
         # JAX's order w * (a1 / sum), not K2's w * acc / sum
         return (w * (a1 / eps_clamp(a2, eps)[None, :])).to(w.dtype)
 
-    def cost_block(w, h_j, x_j):
-        if kernels:
+    if config.algorithm == "hals":
+        # the H row sweep is column-local; W's sweep takes X H^T and H H^T
+        # summed over blocks (W^T W is recomputed a block, as in JAX)
+        def step_acc(w, h_j, x_j, a1, a2):
+            x_j = _dense(x_j)
+            wtx = matmul(w, x_j, prec, transpose_a=True)
+            wtw = matmul(w, w, prec, transpose_a=True)
+            h_new = cd_sweep_h(h_j, wtx, wtw, eps)
+            a1 += matmul(x_j, h_new, prec, transpose_b=True)
+            a2 += matmul(h_new, h_new, prec, transpose_b=True)
+            return h_new
+
+        def cost_block(w, h_j, x_j):
+            return beta_partial(_dense(x_j), w, h_j, 2.0, eps)
+
+        return plain(step_acc, lambda w, a1, a2: cd_sweep_w(w, a1, a2, eps), cost_block, "kk")
+
+    if masked:
+        # the masked step restated per block: both W-side GEMMs accumulate
+        def step_acc(w, h_j, xm_j, a1, a2):
+            x_j, m_j = xm_j
+            x_j = _dense(x_j)
+            h_new = masked_update_h(w, h_j, x_j, m_j, eps, prec, l1_h, l2_h)
+            z = m_j * (x_j / eps_clamp(matmul(w, h_new, prec), eps))
+            a1 += matmul(z, h_new, prec, transpose_b=True)
+            a2 += matmul(m_j, h_new, prec, transpose_b=True)
+            return h_new
+
+        def cost_block(w, h_j, xm_j):
+            x_j, m_j = xm_j
+            return masked_kl(_dense(x_j), w, h_j, m_j, eps) + _h_penalty(config, h_j)
+
+        return plain(step_acc, masked_epilogue, cost_block, "mk")
+
+    if beta == 1.0 and config.regularized:
+        # the penalty gradients join H's denominator and W's epilogue
+        def step_acc(w, h_j, x_j, a1, a2):
+            x_j = _dense(x_j)
+            h_new = update_h_kl_reg(w, h_j, x_j, eps, prec, l1_h, l2_h)
+            a1 += numerator_w(w, h_new, x_j, eps, prec)
+            a2 += torch.sum(h_new, dim=1, dtype=_F32)
+            return h_new
+
+        def cost_block(w, h_j, x_j):
+            return kl_divergence(_dense(x_j), w, h_j, eps) + _h_penalty(config, h_j)
+
+        return plain(step_acc, reg_epilogue, cost_block, None)
+
+    if beta == 1.0 and kernels:
+        def step_acc(w, h_j, x_j, a1, a2):
+            h_new = fused_mu.update_h_fused(w, h_j, x_j, eps, prec)
+            a1 += fused_mu.update_w_fused(w, h_new, x_j, eps, prec, numerator_only=True)
+            a2 += torch.sum(h_new, dim=1, dtype=_F32)
+            return h_new
+
+        def cost_block(w, h_j, x_j):
             return fused_mu.kl_cost_fused(x_j, w, h_j, eps, cost_prec)
-        return kl_divergence(_dense(x_j), w, h_j, eps)
 
-    return step_acc, w_epilogue, cost_block
+        return step_acc, kl_epilogue, cost_block, cost_extra, None
+
+    if beta == 1.0:
+        def step_acc(w, h_j, x_j, a1, a2):
+            x_j = _dense(x_j)
+            h_new = update_h(w, h_j, x_j, eps, prec)
+            a1 += numerator_w(w, h_new, x_j, eps, prec)
+            a2 += torch.sum(h_new, dim=1, dtype=_F32)
+            return h_new
+
+        return plain(step_acc, kl_epilogue,
+                     lambda w, h_j, x_j: kl_divergence(_dense(x_j), w, h_j, eps), None)
+
+    # the beta MU: H_j's update, then both W-side GEMMs of block j
+    def step_acc(w, h_j, x_j, a1, a2):
+        x_j = _dense(x_j)
+        num, den = _beta_ratios(w, h_j, x_j, beta, eps, prec)
+        h_num = matmul(w, num, prec, transpose_a=True)
+        h_den = eps_clamp(matmul(w, den, prec, transpose_a=True), eps)
+        h_new = (h_j * (h_num / h_den)).to(h_j.dtype)
+        num, den = _beta_ratios(w, h_new, x_j, beta, eps, prec)
+        a1 += matmul(num, h_new, prec, transpose_b=True)
+        a2 += matmul(den, h_new, prec, transpose_b=True)
+        return h_new
+
+    return plain(step_acc, lambda w, a1, a2: (w * (a1 / eps_clamp(a2, eps))).to(w.dtype),
+                 lambda w, h_j, x_j: beta_partial(_dense(x_j), w, h_j, beta, eps), "mk")
 
 
-def _refuse_unported(config: SolveConfig, mesh, mask, n_frozen, checkpoint_dir) -> None:
+def _refuse_unported(config: SolveConfig, mesh, checkpoint_dir) -> None:
     later = {
         "mesh (ROADMAP.md Queue 1 item 12: sharded solves)": mesh is not None,
-        "mask (ROADMAP.md Queue 1 item 8: masked streaming)": mask is not None,
-        "n_frozen (ROADMAP.md Queue 1 item 8: semi-adaptive streaming)": bool(n_frozen),
         "checkpoint_dir (ROADMAP.md Queue 1 item 13: checkpoint/resume)": bool(checkpoint_dir),
         "live_metrics=True (ROADMAP.md Queue 1 item 13: live metrics)": config.live_metrics,
-        f"beta={config.beta} (ROADMAP.md Queue 1 step 6, item 8c: beta streaming)":
-            config.beta != 1.0,
-        f"algorithm={config.algorithm!r} (ROADMAP.md Queue 1 step 6, item 8c: HALS streaming)":
-            config.algorithm != "mu",
-        "L1/L2 penalties (ROADMAP.md Queue 1 step 6, item 8c: penalized streaming)":
-            config.regularized,
         "backend='autotune' (ROADMAP.md Queue 1 item 7: autotune)": config.backend == "autotune",
     }
     missing = [name for name, on in later.items() if on]
@@ -432,6 +650,12 @@ def solve_out_of_core(
     raises) or ``"cpu"``.  ``w`` and ``h`` of the result stay on it; the
     history (NaN-padded to at least one slot) and the scalars are CPU
     tensors, known on the host.
+
+    Every family: KL MU (through K1, K2 ``numerator_only`` and K3 on the
+    card), beta MU, penalized KL, HALS, and masked KL with ``mask`` (an
+    array, memmap, ``.bin`` path or column source of X's shape, streamed
+    beside X; 0 = missing, or real-valued weights).  ``n_frozen`` keeps the
+    first columns of W at their clamped initial values (MU families).
     """
     config.validate()
     if config.precision.x_quant_rows and config.backend == "pallas":
@@ -440,13 +664,27 @@ def solve_out_of_core(
             "the fused kernels' scales operand is per-column; drop "
             "backend='pallas' or x_quant_rows"
         )
-    _refuse_unported(config, mesh, mask, n_frozen, checkpoint_dir)
+    if mask is not None and config.beta != 1.0:
+        raise NotImplementedError(
+            "masked streaming implements the (optionally penalized) KL family"
+        )
+    _refuse_unported(config, mesh, checkpoint_dir)
     if checkpoint_every <= 0:
         raise ValueError("checkpoint_every must be >= 1")
+    if n_frozen and config.algorithm == "hals":
+        raise NotImplementedError(
+            "HALS's in-place W sweep reads columns mid-update; frozen "
+            "columns need the MU families (see models.semi)"
+        )
     kernels = _use_kernels(config)
 
     source = _as_source(x)
     m, n = source.shape
+    mask_source = None
+    if mask is not None:
+        mask_source = _as_source(mask)
+        if mask_source.shape != (m, n):
+            raise ValueError(f"mask shape {mask_source.shape} != X shape {(m, n)}")
     w0 = np.asarray(w0, np.float32)
     h0 = np.asarray(h0, np.float32)
     if (m, n) != (w0.shape[0], h0.shape[1]) or w0.shape[1] != h0.shape[0]:
@@ -463,11 +701,25 @@ def solve_out_of_core(
 
     # factors resident on the device for the whole run, clamped once
     w = to_state(w0, config, dev)
+    freeze = None
+    if n_frozen:
+        # the template columns (models.semi) stream too: put back after
+        # every W epilogue, from the prepped W, which nothing writes into
+        if not (0 <= int(n_frozen) <= k):
+            raise ValueError(f"n_frozen must be in [0, {k}], got {n_frozen}")
+        mk = (torch.arange(k, device=dev) < int(n_frozen))[None, :]
+        w_frz = w
+
+        def freeze(w_new):
+            return torch.where(mk, w_frz, w_new).to(w_new.dtype)
+
     h_blocks = [to_state(h0[:, j0:j1], config, dev) for j0, j1 in blocks]
-    step_acc, w_epilogue, cost_block = _block_fns(config, kernels)
+    step_acc, w_epilogue, cost_block, cost_extra, a2_shape = _block_fns(
+        config, kernels, masked=mask_source is not None)
+    a2_dims = {"mk": (m, k), "kk": (k, k)}.get(a2_shape, (k,))
     prec = config.precision
     stream = _BlockStream(source, blocks, dev, prec.x_dtype, config.eps,
-                          prec.x_quant_rows, qcache_budget)
+                          prec.x_quant_rows, qcache_budget, mask_source)
 
     max_iter = int(config.max_iter)
     check_every = int(config.check_every)
@@ -481,16 +733,19 @@ def solve_out_of_core(
         and the accelerated loops run this one body.  Returns the new W."""
         # the accumulators are made on the device each sweep, not uploaded
         a1 = torch.zeros((m, k), dtype=_F32, device=dev)
-        a2 = torch.zeros((k,), dtype=_F32, device=dev)
+        a2 = torch.zeros(a2_dims, dtype=_F32, device=dev)
         for idx, x_j in stream.sweep():
             set_h(idx, step_acc(w_src, get_h(idx), x_j, a1, a2))
-        return w_epilogue(w_src, a1, a2)
+        w_new = w_epilogue(w_src, a1, a2)
+        return w_new if freeze is None else freeze(w_new)
 
     def cost_pass(w_c, h_list) -> float:
         """Stream X once more; per-block costs stay on the device, summed in
-        block order: one host read per cost pass."""
+        block order, and the W penalty added once: one host read per cost
+        pass (two with penalties, as JAX reads them)."""
         parts = [cost_block(w_c, h_list[idx], x_j) for idx, x_j in stream.sweep()]
-        return float(torch.sum(torch.stack(parts)))
+        total = float(torch.sum(torch.stack(parts)))
+        return total if cost_extra is None else total + float(cost_extra(w_c))
 
     it, converged = 0, False
     hist_list: List[float] = []
@@ -589,6 +844,24 @@ def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list):
     return w, baseline, mom, it, converged
 
 
+def seeded_block_h(seed: int, k: int, width: int, eps) -> np.ndarray:
+    """A block's start H: ``RandomState(seed).rand(k, width)`` in f32,
+    clamped to eps like every random init (an exact zero is an absorbing
+    state under multiplicative updates)."""
+    h = np.random.RandomState(seed).rand(k, width).astype(np.float32)
+    return np.maximum(h, np.float32(eps))
+
+
+def upload_state(h: np.ndarray, config: SolveConfig, dev: torch.device) -> torch.Tensor:
+    """A host factor cast to the state dtype on ``dev`` without a clamp; on
+    the card through pinned memory without blocking, so that the upload
+    does not wait for the block that is solving."""
+    t = torch.from_numpy(h)
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    return to_state(t, config, dev, clamp=False)
+
+
 @dataclasses.dataclass
 class TransformResult:
     """Out-of-core H-only result.  ``h`` lives on the host (N may exceed
@@ -651,7 +924,11 @@ def transform_out_of_core(
     to eps in f32, then cast to the state dtype.  ``cost`` is the sum of the
     block costs (divergences are column-separable), NaN when the cost is not
     tracked.  Every H-only family (KL through K1 and K3, beta, penalized,
-    HALS), f32, bf16 and int8 X.  ``device`` as in :func:`solve_out_of_core`.
+    HALS), f32, bf16 and int8 X.  ``mask`` (an array, ``.bin`` path or
+    column source of X's shape) streams beside X and each block runs the
+    masked H-only solve (:func:`~nmf_tpu_torch.solve_masked_h_only`'s step
+    and cost: the KL MU family, f32 or bf16 X).  ``device`` as in
+    :func:`solve_out_of_core`.
     """
     config.validate()
     if config.live_metrics:
@@ -663,11 +940,6 @@ def transform_out_of_core(
             "the fused kernels' scales operand is per-column; drop "
             "backend='pallas' or x_quant_rows"
         )
-    if mask is not None:
-        raise NotImplementedError(
-            "transform_out_of_core: mask (ROADMAP.md Queue 1 step 6, item 8c: "
-            "masked streaming) not in the PyTorch port yet"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "transform_out_of_core: mesh (ROADMAP.md Queue 1 step 12, item 12: "
@@ -676,6 +948,15 @@ def transform_out_of_core(
     _refuse_solver(config)
     source = _as_source(x)
     m, n = source.shape
+    mask_source = None
+    if mask is not None:
+        if config.beta != 1.0 or config.algorithm != "mu":
+            raise NotImplementedError("masked transforms implement the KL (beta=1) MU family")
+        if config.precision.x_dtype == "int8":
+            raise NotImplementedError("masked transforms take dense f32/bf16 X")
+        mask_source = _as_source(mask)
+        if mask_source.shape != (m, n):
+            raise ValueError(f"mask shape {mask_source.shape} != X shape {(m, n)}")
     w = np.asarray(w, np.float32)
     if w.ndim != 2 or w.shape[0] != m:
         raise ValueError(f"W {w.shape} does not match X {(m, n)}")
@@ -690,7 +971,7 @@ def transform_out_of_core(
     bn = int(block_n) if block_n is not None else pick_block_n(m, n)
     blocks: List[Tuple[int, int]] = [(j, min(j + bn, n)) for j in range(0, n, bn)]
     dev = resolve_device(device)
-    step, cost = _h_only_step_cost(config)
+    step, cost = masked_h_step_cost(config) if mask_source is not None else _h_only_step_cost(config)
     w_dev = to_state(np.maximum(w, eps), config, dev, clamp=False)
     prec = config.precision
 
@@ -699,18 +980,12 @@ def transform_out_of_core(
         if h0 is not None:
             h = np.maximum(h0[:, j0:j1], eps)
         else:
-            # clamped like every random init: an exact zero is an absorbing
-            # state under multiplicative updates
-            h = np.maximum(np.random.RandomState(seed + idx).rand(k, j1 - j0)
-                           .astype(np.float32), eps)
-        h = torch.from_numpy(h)
-        if dev.type == "cuda":   # no wait on the block that is solving
-            h = h.pin_memory().to(dev, non_blocking=True)
-        return to_state(h, config, dev, clamp=False)
+            h = seeded_block_h(seed + idx, k, j1 - j0, eps)
+        return upload_state(h, config, dev)
 
     # one visit a block: the codes are never read twice, so none are cached
     stream = _BlockStream(source, blocks, dev, prec.x_dtype, config.eps,
-                          prec.x_quant_rows, qcache_budget=0)
+                          prec.x_quant_rows, 0, mask_source)
     parts = []
     pending = None
     for idx, x_j in stream.sweep():

@@ -8,7 +8,9 @@ Formula of the reference's ``reduce1d_div`` (cuda/matrix.cu:592)::
 f32 policies (under ``bfloat16`` K3 takes bf16-rounded recon inputs:
 ``ops.kernels.fused_mu.kl_cost_plain``).  The Euclidean, Itakura-Saito and
 general beta-divergence costs (beta = 2, 0, any) have no kernel in either
-package.  X may be f32 or bf16; it is widened to f32, and the recon is true
+package.  :func:`beta_partial` is the cost of one streamed column block of
+the beta and HALS families (``nmf_tpu/parallel/sharded.py:411``): its
+Euclidean term takes the clamped recon, unlike :func:`euclidean_cost`.  X may be f32 or bf16; it is widened to f32, and the recon is true
 f32 whatever the state dtype.  The clamps are JAX's, site for site.
 """
 
@@ -24,6 +26,7 @@ __all__ = [
     "euclidean_cost",
     "itakura_saito",
     "beta_divergence",
+    "beta_partial",
 ]
 
 _F32 = torch.float32
@@ -89,3 +92,26 @@ def beta_divergence(
     b = float(beta)
     term = (xf ** b + (b - 1.0) * y ** b - b * xf * y ** (b - 1.0)) / (b * (b - 1.0))
     return torch.sum(term)
+
+
+def beta_partial(
+    x: torch.Tensor, w: torch.Tensor, h: torch.Tensor, beta: float, eps: float = EPS
+) -> torch.Tensor:
+    """One block's beta-divergence partial sum (elementwise in (x, y)), the
+    streamed beta and HALS families' block cost: ``y = clamp(W @ H)`` in
+    true f32, then the term of :func:`beta_divergence` for ``beta``, the
+    Euclidean one on the clamped ``y`` (``sharded.py:411-427`` of the JAX
+    package)."""
+    b = float(beta)
+    if b == 1.0:
+        return kl_divergence(x, w, h, eps)
+    y = eps_clamp(_recon(w, h), eps)
+    xf = x.to(_F32)
+    if b == 2.0:
+        d = xf - y
+        return 0.5 * torch.sum(d * d)
+    if b == 0.0:
+        r = eps_clamp(xf, eps) / y
+        return torch.sum(r - torch.log(r) - 1.0)
+    xc = eps_clamp(xf, eps)
+    return torch.sum((xc ** b + (b - 1.0) * y ** b - b * xc * y ** (b - 1.0)) / (b * (b - 1.0)))

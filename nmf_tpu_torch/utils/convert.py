@@ -133,14 +133,30 @@ def tile_sparse_from(tx):
     )
 
 
-def result_to_numpy(res) -> Dict[str, np.ndarray]:
-    """Every ``SolveResult`` field as a NumPy array (None stays None); bf16
-    factors come back as exact f32 copies."""
-    out = {}
-    for f in RESULT_FIELDS:
-        v = getattr(res, f)
-        if v is not None and hasattr(v, "detach"):
-            v = v.detach().cpu()
-            v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
-        out[f] = None if v is None else np.asarray(v)
-    return out
+def _numpy(v) -> np.ndarray:
+    """A tensor (bf16 as exact f32) or an array of either package as NumPy."""
+    if hasattr(v, "detach"):
+        v = v.detach().cpu()
+        v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+def result_to_numpy(res) -> Dict[str, object]:
+    """A result of either package as NumPy values, for field-by-field
+    comparison.  A ``SolveResult``: every field (None stays None; bf16
+    factors as exact f32 copies).  An ``OnlineResult``: ``w``, the
+    ``learning_curve``, ``block_costs`` as lists of floats, ``blocks`` and
+    ``passes``.  A ``SeparationResult``: ``sources``, ``w`` and ``h``, and
+    its ``solve_result`` as a nested dict."""
+    if hasattr(res, "learning_curve"):
+        return {
+            "w": _numpy(res.w),
+            "learning_curve": np.asarray(res.learning_curve, np.float64),
+            "block_costs": [[float(c) for c in p] for p in res.block_costs],
+            "blocks": [tuple(int(j) for j in b) for b in res.blocks],
+            "passes": int(res.passes),
+        }
+    if hasattr(res, "sources"):
+        return {"sources": _numpy(res.sources), "w": _numpy(res.w), "h": _numpy(res.h),
+                "solve_result": result_to_numpy(res.solve_result)}
+    return {f: None if getattr(res, f) is None else _numpy(getattr(res, f)) for f in RESULT_FIELDS}

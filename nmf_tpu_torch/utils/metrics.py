@@ -159,6 +159,16 @@ class MetricsLogger:
     def timed(self) -> "_Timer":
         return self._Timer()
 
+    def report_raw(self, record: dict) -> None:
+        """Emit a free-form record, for runs whose shape does not fit one
+        ``SolveResult`` (the online learner's passes, a separation)."""
+        if self.verbose:
+            self.stream.write(f"[nmf] {json.dumps(record)}\n")
+            self.stream.flush()
+        if self.jsonl_path:
+            with open(self.jsonl_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
     def report(
         self,
         result,

@@ -643,4 +643,14 @@ def test_chip_smoke_lists_accel_launches():
         "reference": 225, "oocore int8 numerator_only": 100}
     assert smoke._accel_launches(launches, "kl_cost") == {"reference": 10, "oocore int8": 30}
     assert smoke._accel_launches(launches, "h_numerator") == {"tiled float32": 200}
-    assert smoke.PHASES[-3:] == ("accel", "families", "transform")
+    assert smoke.PHASES[-4:] == ("accel", "families", "transform", "models")
+    # phase 13's runs: K1-K3 under their own keys, K2's numerator_only beside
+    models = {"models separate": {"update_h": 200, "update_w": 200, "kl_cost": 8},
+              "models streamed n_frozen=8": {"update_h": 50, "update_w": 0,
+                                             "update_w_numerator": 50, "kl_cost": 10},
+              "models online": {"update_h": 0, "update_w": 0, "kl_cost": 0}}
+    assert smoke._models_launches({**launches, **models}, "update_w") == {
+        "separate": 200, "streamed n_frozen=8": 0, "streamed n_frozen=8 numerator_only": 50,
+        "online": 0}
+    assert smoke._models_launches(models, "kl_cost") == {
+        "separate": 8, "streamed n_frozen=8": 10, "online": 0}

@@ -98,9 +98,12 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     test was named, are ported: the parser takes them, and the run exits 2
     later, on its (here missing) input.  ``--out-of-core`` is ported too;
     with ``--mesh`` it is refused for the mesh.  ``--accelerate``,
-    ``--strict-compat`` and ``--beta 2`` are ported: they run on a small
-    problem through both CLIs (:func:`_run_both_clis`)."""
-    if flags[0] in ("--accelerate", "--strict-compat", "--beta"):
+    ``--strict-compat``, ``--beta 2`` and ``--mask`` are ported: they run on
+    a small problem through both CLIs (:func:`_run_both_clis`; the mask is
+    X.bin itself, real-valued weights).  ``--restarts`` stays refused."""
+    if flags[0] == "--mask":
+        flags = ["--mask", str(tmp_path / "X.bin")]
+    if flags[0] in ("--accelerate", "--strict-compat", "--beta", "--mask"):
         _run_both_clis(tmp_path, flags)
         return
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
@@ -128,7 +131,11 @@ def test_non_default_value_refused(capsys, tmp_path, flags, item):
     any input is read, naming its ROADMAP.md item.  ``--beta 2``,
     ``--algorithm hals`` (with the ``--beta 2`` HALS requires in both CLIs)
     and ``--l2-h 0.5``, refused when this test was named, are ported: they
-    run through both CLIs (:func:`_run_both_clis`)."""
+    run through both CLIs (:func:`_run_both_clis`); so is ``--online-passes
+    2``, with the ``--online`` it applies to (:func:`_online_both_clis`)."""
+    if flags[0] == "--online-passes":
+        _online_both_clis(tmp_path, flags)
+        return
     if flags[0] in ("--beta", "--algorithm", "--l2-h"):
         _run_both_clis(tmp_path, flags + (["--beta", "2"] if flags[0] == "--algorithm" else []))
         return
@@ -299,7 +306,12 @@ def test_out_of_core_with_random_init(tmp_path):
     ],
 )
 def test_out_of_core_refusals_exit_2(tmp_path, capsys, flags, msg):
-    """The JAX CLI's --out-of-core messages, and the flags still refused."""
+    """The JAX CLI's --out-of-core messages, and the flags still refused.
+    ``--freeze 2``, refused when this test was named, is ported: it streams
+    through both CLIs (:func:`_ooc_both_clis`)."""
+    if flags[0] == "--freeze":
+        _ooc_both_clis(tmp_path, flags)
+        return
     _write_problem(tmp_path)
     rc = cli.main(["run", str(tmp_path / "X.bin"), "--out-of-core", "--device", "cpu", *flags])
     assert rc == 2
@@ -505,7 +517,8 @@ def test_kernel_path_has_no_fallback_handler():
     """No ``except`` on the CUDA path: a failed build or launch raises."""
     for rel in ("ops/kernels/fused_mu.py", "ops/kernels/tile_sparse.py", "ops/kernels/_build.py",
                 "models/solver.py", "models/sparse_tiled.py", "models/streaming.py",
-                "models/nmf.py"):
+                "models/nmf.py", "models/semi.py", "models/masked.py", "models/online.py",
+                "models/separation.py"):
         src = (PKG / rel).read_text()
         assert "except" not in src, rel
 
@@ -520,12 +533,10 @@ def test_kernel_path_has_no_fallback_handler():
     ],
 )
 def test_streamed_families_exit_2(tmp_path, capsys, flags, msg):
-    """The families run in memory; the streamed solve refuses them, before
-    any input is read, naming the ROADMAP.md step that brings them."""
-    rc = cli.main(["run", str(tmp_path / "X.bin"), "W.bin", "H.bin", "--device", "cpu", *flags])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert msg in err and "file not found" not in err
+    """The families stream: refused when this test was named, ``--out-of-core``
+    with ``--beta 2``, ``--algorithm hals`` and ``--l1-h`` runs through both
+    CLIs on the same files (:func:`_ooc_both_clis`)."""
+    _ooc_both_clis(tmp_path, flags[1:], hals="hals" in flags)
 
 
 @pytest.mark.parametrize("flags", [["--beta", "2"], ["--algorithm", "hals", "--beta", "2"],
@@ -609,7 +620,12 @@ def test_transform_matches_jax_cli(tmp_path, flags):
 )
 def test_transform_refusals_exit_2(tmp_path, capsys, flags, msg):
     """transform's flags not in the port, and the two the JAX CLI refuses
-    with its own message, exit 2 before any input is read."""
+    with its own message, exit 2 before any input is read.  ``--mask``,
+    refused when this test was named, is ported: ``transform --mask`` runs
+    through both CLIs (:func:`_transform_mask_both_clis`)."""
+    if flags[0] == "--mask":
+        _transform_mask_both_clis(tmp_path, [])
+        return
     rc = cli.main(["transform", str(tmp_path / "X.bin"), "W.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
@@ -623,5 +639,300 @@ def test_every_jax_transform_flag_is_known():
     def flags(parser):
         sub = next(a for a in parser._actions if a.dest == "command")
         return {o for a in sub.choices["transform"]._actions for o in a.option_strings}
+
+    assert flags(jax_parser()) <= flags(cli.build_parser())
+
+
+# --- Queue 1 step 6: --mask, --freeze, --online*, the streamed families,
+# transform --mask and separate, through both CLIs on the same files.  The
+# files agree to rtol 1e-4 / atol 1e-6 (test_gen_then_run_matches_jax's);
+# HALS and the int16 WAVs as stated where they are compared.
+
+
+def _port_cli(args, cwd):
+    """The port's CLI in-process from ``cwd`` (so both CLIs take the same
+    relative paths), on the CPU."""
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        return cli.main([*args, "--device", "cpu"])
+    finally:
+        os.chdir(here)
+
+
+def _assert_files_close(tmp_path, names, hals=False):
+    for name in names:
+        ours, ref = (jbin.read_matrix(tmp_path / f"{name}{t}.bin") for t in "pj")
+        assert ours.shape == ref.shape, name
+        if hals:
+            assert np.linalg.norm(ours - ref) <= 1e-4 * np.linalg.norm(ref), name
+        else:
+            np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+def _write_mask(tmp_path, nan_x=True, seed=5):
+    """M.bin, a 0/1 mask of X.bin's shape (80% observed); with ``nan_x``
+    the unobserved entries of X.bin become NaN, which both CLIs must ignore."""
+    x = jbin.read_matrix(tmp_path / "X.bin")
+    mask = (np.random.RandomState(seed).rand(*x.shape) > 0.2).astype(np.float32)
+    if nan_x:
+        x[mask == 0] = np.nan
+        jbin.write_matrix(x, tmp_path / "X.bin")
+    jbin.write_matrix(mask, tmp_path / "M.bin")
+    return mask
+
+
+def _both_run(tmp_path, args, hals=False):
+    common = [*args, "--max-iter", "20", "--check-every", "10", "-q"]
+    assert _port_cli(["run", *common, "-o", "Wp.bin", "Hp.bin"], tmp_path) == 0
+    assert _jax_cli(["run", *common, "-o", "Wj.bin", "Hj.bin"], tmp_path) == 0
+    _assert_files_close(tmp_path, "WH", hals=hals)
+
+
+def _ooc_both_clis(tmp_path, flags, hals=False):
+    """``run --out-of-core --block-n 8`` (ragged last block) with ``flags``
+    through both CLIs on a 40 x 30, K=4 problem."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _both_run(tmp_path, ["X.bin", "W.bin", "H.bin", "--out-of-core", "--block-n", "8", *flags],
+              hals=hals)
+
+
+def _online_both_clis(tmp_path, flags):
+    """``run X.bin --rank 4 --init random --online`` with ``flags`` through
+    both CLIs: W learned online, H by the streamed transform."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _both_run(tmp_path, ["X.bin", "--rank", "4", "--init", "random", "--online",
+                         "--block-n", "8", *flags])
+
+
+def _transform_mask_both_clis(tmp_path, flags):
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _write_mask(tmp_path)
+    common = ["transform", "X.bin", "W.bin", "--mask", "M.bin", "--max-iter", "30", "-q", *flags]
+    assert _port_cli([*common, "-o", "Hp.bin"], tmp_path) == 0
+    assert _jax_cli([*common, "-o", "Hj.bin"], tmp_path) == 0
+    _assert_files_close(tmp_path, "H")
+
+
+@pytest.mark.parametrize("where", [[], ["--out-of-core", "--block-n", "8"]],
+                         ids=["in_memory", "out_of_core"])
+@pytest.mark.parametrize("flags", [[], ["--l1-h", "0.1", "--l2-w", "0.2"], ["--x-dtype", "bfloat16"]],
+                         ids=["kl", "penalized", "bf16_x"])
+def test_run_mask_matches_jax_cli(tmp_path, where, flags):
+    """``run --mask`` (NaN in the unobserved entries of X) in memory and
+    streamed, through both CLIs: the same files to rtol 1e-4 / atol 1e-6,
+    all finite."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _write_mask(tmp_path)
+    _both_run(tmp_path, ["X.bin", "W.bin", "H.bin", "--mask", "M.bin", *where, *flags])
+    for f in "WH":
+        assert np.isfinite(jbin.read_matrix(tmp_path / f"{f}p.bin")).all()
+
+
+def test_run_mask_file_is_the_in_process_solve_bytes(tmp_path):
+    """The CLI's files are ``solve_masked``'s factors byte for byte."""
+    import nmf_tpu_torch as nt
+
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    mask = _write_mask(tmp_path)
+    assert _port_cli(["run", "X.bin", "W.bin", "H.bin", "--mask", "M.bin", "--max-iter", "20",
+                      "-q", "-o", "Wp.bin", "Hp.bin"], tmp_path) == 0
+    x, w, h = (jbin.read_matrix(tmp_path / f"{s}.bin") for s in "XWH")
+    res = nt.solve_masked(x, w, h, mask, nt.SolveConfig(max_iter=20), device="cpu")
+    for f in "WH":
+        assert (jbin.read_matrix(tmp_path / f"{f}p.bin").tobytes()
+                == getattr(res, f.lower()).numpy().tobytes()), f
+
+
+@pytest.mark.parametrize(
+    "flags,msg",
+    [(["--mask", "M.bin", "--freeze", "2"], "--freeze is not implemented for masked solves"),
+     (["--mask", "M.bin", "--strict-compat"], "--mask runs the masked solver"),
+     (["--freeze", "2", "--strict-compat"], "--freeze composes with the plain"),
+     (["--mask", "W.bin"], "mask shape (40, 4) != X shape (40, 30)")],
+)
+def test_mask_and_freeze_refusals_match_jax_cli(tmp_path, capsys, flags, msg):
+    """The combinations the JAX CLI refuses exit 2 in both CLIs with the same
+    message."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _write_mask(tmp_path, nan_x=False)
+    args = ["run", "X.bin", "W.bin", "H.bin", "--max-iter", "2", "-q", *flags]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(args, tmp_path) == 2
+    assert msg in ours and ours == capsys.readouterr().err
+
+
+@pytest.mark.parametrize("where", [[], ["--out-of-core", "--block-n", "8"]],
+                         ids=["in_memory", "out_of_core"])
+@pytest.mark.parametrize("flags", [[], ["--beta", "2"], ["--accelerate"]],
+                         ids=["kl", "beta2", "accelerate"])
+def test_run_freeze_matches_jax_cli(tmp_path, where, flags):
+    """``run --freeze 2`` in memory and streamed through both CLIs: the same
+    files, and the two frozen columns of W are W.bin's, bit for bit."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _both_run(tmp_path, ["X.bin", "W.bin", "H.bin", "--freeze", "2", *where, *flags])
+    w0, w_out = (jbin.read_matrix(tmp_path / f) for f in ("W.bin", "Wp.bin"))
+    assert w_out[:, :2].tobytes() == np.ascontiguousarray(w0[:, :2]).tobytes()
+    assert not np.array_equal(w_out[:, 2:], w0[:, 2:])
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [[], ["--online-passes", "2", "--online-rho", "0.9"], ["--online-inner-iters", "5"],
+     ["--x-dtype", "bfloat16"], ["--x-dtype", "int8"], ["--no-cost"]],
+    ids=["default", "passes_rho", "inner", "bf16_x", "int8_x", "no_cost"],
+)
+def test_run_online_matches_jax_cli(tmp_path, flags):
+    """``run --online`` through both CLIs: W learned in one pass (or two),
+    H from the streamed transform, the same files."""
+    _online_both_clis(tmp_path, flags)
+
+
+def test_run_online_from_a_w_file_and_its_jsonl(tmp_path):
+    """``--online`` from a W init file, and the free-form JSONL record both
+    CLIs write (pass cost sums and the transform cost within 1e-5)."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    common = ["run", "X.bin", "W.bin", "--online", "--block-n", "8", "--max-iter", "20", "-q"]
+    assert _port_cli([*common, "-o", "Wp.bin", "Hp.bin", "--jsonl", "p.jsonl"], tmp_path) == 0
+    assert _jax_cli([*common, "-o", "Wj.bin", "Hj.bin", "--jsonl", "j.jsonl"], tmp_path) == 0
+    _assert_files_close(tmp_path, "WH")
+    ours, ref = (json.loads((tmp_path / f"{t}.jsonl").read_text().splitlines()[-1]) for t in "pj")
+    assert ours["mode"] == ref["mode"] == "online"
+    assert (ours["shape"], ours["rank"], ours["passes"], ours["blocks"]) == (
+        ref["shape"], ref["rank"], ref["passes"], ref["blocks"])
+    np.testing.assert_allclose(ours["pass_cost_sums"], ref["pass_cost_sums"], rtol=1e-5)
+    assert ours["transform_cost"] == pytest.approx(ref["transform_cost"], rel=1e-5)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--out-of-core"], ["--strict-compat"], ["--freeze", "1"], ["--mask", "X.bin"],
+     ["--online-rho", "0"], ["--online-passes", "0"], ["--init", "nndsvda"], ["W.bin", "H.bin"]],
+)
+def test_run_online_refusals_match_jax_cli(tmp_path, capsys, flags):
+    """What the JAX CLI refuses of ``--online`` exits 2 in both CLIs with the
+    same message."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = flags if flags[0] == "W.bin" else []
+    flags = [] if files else flags
+    args = ["run", "X.bin", *files, "--rank", "4", "--online", "-q", *flags]
+    if "--init" not in flags:
+        args += ["--init", "random"]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(args, tmp_path) == 2
+    assert ours.startswith("error: ") and ours == capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [[], ["--l1-h", "0.1"], ["--x-dtype", "bfloat16"], ["--h0", "H.bin"]],
+                         ids=["kl", "l1_h", "bf16_x", "h0"])
+def test_transform_mask_matches_jax_cli(tmp_path, flags):
+    """``transform --mask`` in memory through both CLIs: the same H."""
+    _transform_mask_both_clis(tmp_path, flags)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_transform_mask_out_of_core_matches_jax(tmp_path, x_dtype):
+    """``transform --mask --out-of-core`` streams the mask beside X (the JAX
+    CLI refuses the pair; its library streams it): H equals
+    ``nmf_tpu.transform_out_of_core(mask=...)``'s to rtol 1e-4 / atol 1e-6."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _write_mask(tmp_path)
+    assert _port_cli(["transform", "X.bin", "W.bin", "--mask", "M.bin", "--out-of-core",
+                      "--block-n", "8", "--max-iter", "30", "--x-dtype", x_dtype, "-q",
+                      "-o", "Hp.bin"], tmp_path) == 0
+    ref = jt.transform_out_of_core(
+        str(tmp_path / "X.bin"), jbin.read_matrix(tmp_path / "W.bin"),
+        config=jt.SolveConfig(max_iter=30, precision=jt.Precision(x_dtype=x_dtype)),
+        block_n=8, mask=str(tmp_path / "M.bin"))
+    np.testing.assert_allclose(jbin.read_matrix(tmp_path / "Hp.bin"), ref.h, rtol=1e-4, atol=1e-6)
+
+
+def _write_wav(path, kind="int16", seed=0, seconds=0.5, rate=8000):
+    """A two-tone clip with noise, as a WAV of ``kind`` samples (stereo for
+    "stereo16")."""
+    from scipy.io import wavfile
+
+    t = np.arange(int(seconds * rate)) / rate
+    rng = np.random.RandomState(seed)
+    a = 0.5 * np.sin(2 * np.pi * 440 * t) + 0.3 * np.sin(2 * np.pi * 1250 * t) * (t > seconds / 2)
+    a = (a + 0.05 * rng.randn(t.size)).clip(-1, 1)
+    if kind == "uint8":
+        data = ((a + 1) * 127.5).astype(np.uint8)
+    elif kind == "float32":
+        data = a.astype(np.float32)
+    elif kind == "stereo16":
+        data = (np.stack([a, 0.5 * a], axis=1) * 32767).astype(np.int16)
+    else:
+        data = (a * 32767).astype(np.int16)
+    wavfile.write(path, rate, data)
+
+
+def _read_sources(d):
+    from scipy.io import wavfile
+
+    files = sorted(os.listdir(d))
+    return files, np.stack([wavfile.read(os.path.join(d, f))[1] for f in files])
+
+
+@pytest.mark.parametrize("kind", ["int16", "uint8", "float32", "stereo16"])
+def test_separate_matches_jax_cli(tmp_path, kind):
+    """``separate clip.wav`` through both CLIs: the same ``source_%03d.wav``
+    files, int16 samples within 4 steps of each other (the sources within
+    1e-4 of the peak, which the files scale to 32767), and the port's files
+    byte-equal to its in-process ``separate`` written by ``write_sources``."""
+    import nmf_tpu_torch as nt
+
+    _write_wav(tmp_path / "clip.wav", kind)
+    common = ["separate", "clip.wav", "--rank", "4", "--n-fft", "256", "--hop", "64",
+              "--max-iter", "50", "-q"]
+    assert _port_cli([*common, "--out-dir", "sp"], tmp_path) == 0
+    assert _jax_cli([*common, "--out-dir", "sj"], tmp_path) == 0
+    files, ours = _read_sources(tmp_path / "sp")
+    ref_files, ref = _read_sources(tmp_path / "sj")
+    assert files == ref_files == [f"source_{i:03d}.wav" for i in range(4)]
+    assert ours.dtype == np.int16 and ours.shape == ref.shape
+    assert np.abs(ours.astype(np.int32) - ref).max() <= 4
+    rate, audio = cli._read_wav(str(tmp_path / "clip.wav"))
+    res = nt.separate(audio, n_components=4, n_fft=256, hop=64,
+                      config=nt.SolveConfig(max_iter=50, thresh=1e-5), device="cpu")
+    cli.write_sources(res.sources, rate, str(tmp_path / "inproc"))
+    for f in files:
+        assert (tmp_path / "sp" / f).read_bytes() == (tmp_path / "inproc" / f).read_bytes(), f
+
+
+@pytest.mark.parametrize(
+    "flags,msg",
+    [(["--out-of-core"], "--out-of-core does not apply to 'separate'"),
+     (["--block-n", "8"], "--block-n does not apply to 'separate'"),
+     (["--strict-compat"], "--strict-compat does not apply to 'separate'"),
+     (["--checkpoint-dir", "ck"], "--checkpoint-dir does not apply to 'separate'"),
+     (["--mesh", "2x1"], "--mesh does not apply to 'separate'")],
+)
+def test_separate_refusals_match_jax_cli(tmp_path, capsys, flags, msg):
+    """The flags that do not apply to ``separate`` exit 2 in both CLIs with
+    the JAX CLI's message, before the WAV is read."""
+    args = ["separate", "missing.wav", "-q", *flags]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(args, tmp_path) == 2
+    assert msg in ours and ours == capsys.readouterr().err
+
+
+def test_separate_restarts_still_refused(tmp_path, capsys):
+    """``--restarts 2`` stays refused, naming its ROADMAP.md step."""
+    _write_wav(tmp_path / "clip.wav")
+    assert _port_cli(["separate", "clip.wav", "--restarts", "2", "-q"], tmp_path) == 2
+    assert "Queue 1 step 7" in capsys.readouterr().err
+
+
+def test_every_jax_separate_flag_is_known():
+    """Each flag of the JAX CLI's separate is in the port's."""
+    from nmf_tpu.cli import build_parser as jax_parser
+
+    def flags(parser):
+        sub = next(a for a in parser._actions if a.dest == "command")
+        return {o for a in sub.choices["separate"]._actions for o in a.option_strings}
 
     assert flags(jax_parser()) <= flags(cli.build_parser())

@@ -37,6 +37,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import nmf_tpu as jt  # noqa: E402
+from nmf_tpu.io import binio as jbin  # noqa: E402
 import nmf_tpu_torch as pt  # noqa: E402
 from nmf_tpu_torch.models import nmf as tnmf  # noqa: E402
 from nmf_tpu_torch.ops.kernels import fused_mu as tfm  # noqa: E402
@@ -331,6 +332,40 @@ def test_nmf_transform_matches_jax(case):
         np.testing.assert_allclose(hp, hj, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("out_of_core", [False, True], ids=["in_memory", "out_of_core"])
+@pytest.mark.parametrize("case", ["kl_nndsvda", "alpha"])
+def test_nmf_transform_with_a_mask_matches_jax(tmp_path, case, out_of_core):
+    """``transform(mask=...)`` against ``nmf_tpu.NMF.transform(mask=...)``:
+    the masked H-only solve in memory, or streamed beside X from ``.bin``
+    files with ``out_of_core`` (NaN in the unobserved entries of X)."""
+    x, _, _ = _problem()
+    rng = np.random.RandomState(6)
+    x_new = rng.rand(48, 23).astype(np.float32)
+    mask = (rng.rand(48, 23) > 0.25).astype(np.float32)
+    x_new[mask == 0] = np.nan
+    ej, ep = _estimators(**FITS[case])
+    ej.fit(x)
+    ep.fit(x)
+    src, msrc = x_new, mask
+    if out_of_core:
+        src, msrc = str(tmp_path / "X.bin"), str(tmp_path / "M.bin")
+        jbin.write_matrix(x_new, src)
+        jbin.write_matrix(mask, msrc)
+    hj = np.asarray(ej.transform(src, max_iter=40, out_of_core=out_of_core, mask=msrc))
+    hp = ep.transform(src, max_iter=40, out_of_core=out_of_core, mask=msrc)
+    assert hp.shape == (5, 23) and isinstance(hp, np.ndarray) and np.isfinite(hp).all()
+    np.testing.assert_allclose(hp, hj, rtol=RTOL, atol=ATOL)
+
+
+def test_nmf_masked_transform_of_ones_is_the_plain_transform():
+    """A mask of ones gives the plain transform's H to f32 rounding."""
+    x, _, _ = _problem()
+    ep = pt.NMF(n_components=5, max_iter=60, device="cpu").fit(x)
+    x_new = np.random.RandomState(5).rand(48, 23).astype(np.float32)
+    np.testing.assert_allclose(ep.transform(x_new, mask=np.ones_like(x_new)),
+                               ep.transform(x_new), rtol=1e-4, atol=ATOL)
+
+
 def test_nmf_transform_with_explicit_h0_and_inverse():
     x, _, h = _problem()
     ej, ep = _estimators()
@@ -379,13 +414,16 @@ def test_nmf_sklearn_clone():
         (dict(n_restarts=3), "fit", NotImplementedError, "step 7"),
         (dict(n_restarts=3), "fit_w0", ValueError, "cannot honor explicit"),
         (dict(mesh=object()), "fit", NotImplementedError, "step 12"),
-        (dict(), "mask", NotImplementedError, "step 6"),
+        (dict(beta_loss=2.0), "mask", NotImplementedError, "KL \\(beta=1\\) MU family"),
         (dict(), "transform_unfitted", RuntimeError, "before fit"),
         (dict(), "inverse_unfitted", RuntimeError, "before fit"),
     ],
     ids=["restarts", "restarts_with_w0", "mesh", "mask", "transform_unfitted", "inverse_unfitted"],
 )
 def test_nmf_refusals(kw, call, err, match):
+    """What ``NMF`` refuses.  ``transform(mask=...)``, refused when this test
+    was named, is ported: a masked transform of the Euclidean family is
+    refused as ``nmf_tpu`` refuses it (the masked solve is KL MU)."""
     x, w, h = _problem()
     ep = pt.NMF(n_components=5, max_iter=3, device="cpu", **kw)
     with pytest.raises(err, match=match):

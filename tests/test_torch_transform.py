@@ -205,7 +205,8 @@ def test_nmf_transform_out_of_core_matches_jax(tmp_path):
 @pytest.mark.parametrize(
     "kw,err,match",
     [
-        (dict(mask=np.ones((M, N), np.float32)), NotImplementedError, "step 6"),
+        (dict(mask=np.ones((M, N), np.float32), config=pt.SolveConfig(beta=2.0)),
+         NotImplementedError, "KL \\(beta=1\\) MU family"),
         (dict(mesh=object()), NotImplementedError, "step 12"),
         (dict(config=pt.SolveConfig(backend="pallas",
                                     precision=pt.Precision(x_dtype="int8", x_quant_rows=8))),
@@ -218,6 +219,9 @@ def test_nmf_transform_out_of_core_matches_jax(tmp_path):
     ids=["mask", "mesh", "pallas_rows", "autotune", "h0_shape", "block_n", "w_shape"],
 )
 def test_transform_refusals(kw, err, match):
+    """What the streamed transform refuses.  ``mask``, refused when this test
+    was named, is ported: a masked transform of the Euclidean family is
+    refused with ``nmf_tpu``'s message."""
     x, w, _ = _problem()
     kw = {"w": w, **kw}
     with pytest.raises(err, match=match):
