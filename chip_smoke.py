@@ -2947,6 +2947,41 @@ def _counted_models(fn, where, want):
     return res, secs, launches
 
 
+def _torch_stft_checked(card, audio, spec):
+    """The torch ``stft`` and ``istft`` on the card at the paper's clip:
+    each within 1e-5 of the peak of the host ``_stft_np`` / ``_istft_np``
+    (the ISTFT of the same host spectrogram), bit-equal on a rerun (the
+    overlap-add has no atomics), and their seconds beside the host's."""
+    from nmf_tpu_torch.models import separation
+
+    def over_peak(ours, ref):
+        return float(np.abs(ours - ref).max() / np.abs(ref).max())
+
+    fwd = lambda: separation.stft(audio, PAPER_FFT, PAPER_HOP, device=DEVICE)  # noqa: E731
+    inv = lambda: separation.istft(spec, PAPER_FFT, PAPER_HOP, length=audio.size,  # noqa: E731
+                                   device=DEVICE)
+    fwd(), inv()                                   # warm: cuFFT plans
+    (s_t, s_secs), (i_t, i_secs) = _timed(fwd), _timed(inv)
+    s_host, i_host = _timed(lambda: separation._stft_np(audio, PAPER_FFT, PAPER_HOP)), _timed(
+        lambda: separation._istft_np(spec, PAPER_FFT, PAPER_HOP, audio.size))
+    s_np, i_np = s_t.cpu().numpy(), i_t.cpu().numpy()
+    s_err = over_peak(s_np, spec)
+    i_err = over_peak(i_np, i_host[0])
+    check(s_t.is_cuda and i_t.is_cuda and s_np.shape == spec.shape and i_np.shape == audio.shape
+          and s_err <= 1e-5 and i_err <= 1e-5,
+          f"torch stft/istft on the card: {s_np.shape} / {i_np.shape}, {s_err} / {i_err} of the "
+          "peak from the host's (limit 1e-5)")
+    check(fwd().cpu().numpy().tobytes() == s_np.tobytes()
+          and inv().cpu().numpy().tobytes() == i_np.tobytes(),
+          "torch stft/istft on the card: differ on a rerun")
+    print(f"[{card}] torch stft/istft on the card: {s_err} / {i_err} of the peak from _stft_np / "
+          f"_istft_np (limit 1e-5), bitwise on rerun; seconds stft {s_secs} (host {s_host[1]}), "
+          f"istft {i_secs} (host {i_host[1]})")
+    return {"stft_err": s_err, "istft_err": i_err, "stft_seconds": s_secs,
+            "istft_seconds": i_secs, "host_stft_seconds": s_host[1],
+            "host_istft_seconds": i_host[1]}
+
+
 def phase_models_separate(card, tmp, out, seed):
     """(a) separate at the paper's workload; (b) with 8 frozen templates."""
     import nmf_tpu_torch as nt
@@ -2999,6 +3034,7 @@ def phase_models_separate(card, tmp, out, seed):
           f"1e-4), bitwise on rerun; host seconds: STFT {parts['stft']}, solve {parts['solve']} "
           f"({MODELS_ITERS / parts['solve']} it/s through K1-K3; jnp {MODELS_ITERS / p_secs}), "
           f"Wiener masks and {PAPER_K} ISTFTs {parts['masks']}, all {secs}")
+    results["torch_stft"] = _torch_stft_checked(card, audio, spec)
     from scipy.io import wavfile
 
     wavfile.write(os.path.join(tmp, "paper.wav"), PAPER_RATE, (audio * 32767).astype(np.int16))

@@ -44,13 +44,28 @@ __all__ = ["mu_step_masked", "masked_kl", "solve_masked", "solve_masked_h_only"]
 _F32 = torch.float32
 
 
+def _masked_ratio(w, h, x, mask, eps, precision):
+    """``M .* X ./ clamp(W H)``, the ratio both halves of the update take."""
+    return mask * (x / eps_clamp(matmul(w, h, precision), eps))
+
+
 def masked_update_h(w, h, x, mask, eps, precision, l1_h=0.0, l2_h=0.0):
     """H's masked half-update (the first half of :func:`mu_step_masked`);
     the streamed masked family takes it a block."""
-    z = mask * (x / eps_clamp(matmul(w, h, precision), eps))
+    z = _masked_ratio(w, h, x, mask, eps, precision)
     numer = matmul(w, z, precision, transpose_a=True)
     denom = eps_clamp(matmul(w, mask, precision, transpose_a=True), eps) + l1_h + l2_h * h.to(_F32)
     return (h * (numer / denom)).to(h.dtype)
+
+
+def masked_w_terms(w, h, x, mask, eps, precision):
+    """The two W-side GEMMs of the masked update at the new H:
+    ``(M .* X ./ clamp(W H)) H^T`` and ``M H^T``, both (M, K).  The W half
+    of :func:`mu_step_masked`; the streamed masked family sums them over
+    blocks."""
+    z = _masked_ratio(w, h, x, mask, eps, precision)
+    return (matmul(z, h, precision, transpose_b=True),
+            matmul(mask, h, precision, transpose_b=True))
 
 
 def mu_step_masked(
@@ -59,9 +74,8 @@ def mu_step_masked(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One masked MU iteration: H's half, then W's with the new H."""
     h = masked_update_h(w, h, x, mask, eps, precision, l1_h, l2_h)
-    z = mask * (x / eps_clamp(matmul(w, h, precision), eps))
-    numer = matmul(z, h, precision, transpose_b=True)
-    denom = eps_clamp(matmul(mask, h, precision, transpose_b=True), eps) + l1_w + l2_w * w.to(_F32)
+    numer, mh = masked_w_terms(w, h, x, mask, eps, precision)
+    denom = eps_clamp(mh, eps) + l1_w + l2_w * w.to(_F32)
     w = (w * (numer / denom)).to(w.dtype)
     return w, h
 

@@ -12,7 +12,8 @@ The NMF runs on the card through :func:`~nmf_tpu_torch.solve` (or
 kernels K1-K3; the STFT, the Wiener masks and the ISTFT are host-side NumPy
 (``_stft_np``, ``_istft_np``, ``_masked_sources``), as in JAX.
 :func:`stft` and :func:`istft` are the torch versions for on-device
-pipelines: ``torch.fft`` with the periodic Hann window, and an overlap-add
+pipelines (on ``device``, ``"cuda"`` by default, as every entry point of the
+port): ``torch.fft`` with the periodic Hann window, and an overlap-add
 that sums the frames in a fixed order (slices added one frame phase at a
 time: ``index_add_`` is atomic on the card, and its bits would change from
 run to run).
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.config import SolveConfig
+from ..utils.device import resolve_device
 from .init import scaled_random_init
 from .solver import SolveResult, solve
 
@@ -40,11 +42,12 @@ def _hann_np(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
-def stft(audio, n_fft: int = 1024, hop: int = 256) -> torch.Tensor:
-    """Complex STFT of mono ``audio`` (a tensor on any device, or an array):
-    frames of ``n_fft`` samples every ``hop``, centred by ``n_fft // 2`` of
-    zero padding, Hann-windowed.  Returns (n_fft // 2 + 1, n_frames)."""
-    audio = torch.as_tensor(audio, dtype=torch.float32)
+def stft(audio, n_fft: int = 1024, hop: int = 256, device="cuda") -> torch.Tensor:
+    """Complex STFT of mono ``audio`` (a tensor or an array, moved to
+    ``device``): frames of ``n_fft`` samples every ``hop``, centred by
+    ``n_fft // 2`` of zero padding, Hann-windowed.  Returns
+    (n_fft // 2 + 1, n_frames) on ``device``."""
+    audio = torch.as_tensor(audio, dtype=torch.float32, device=resolve_device(device))
     pad = n_fft // 2
     x = torch.nn.functional.pad(audio, (pad, pad))
     frames = x.unfold(0, n_fft, hop) * torch.from_numpy(_hann_np(n_fft)).to(x.device)
@@ -68,10 +71,12 @@ def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     return out.reshape(-1)[: n + hop * (n_frames - 1)]
 
 
-def istft(spec, n_fft: int = 1024, hop: int = 256, length: Optional[int] = None) -> torch.Tensor:
-    """Inverse of :func:`stft`: windowed overlap-add, normalised by the
-    summed squared window."""
-    spec = torch.as_tensor(spec)
+def istft(
+    spec, n_fft: int = 1024, hop: int = 256, length: Optional[int] = None, device="cuda"
+) -> torch.Tensor:
+    """Inverse of :func:`stft` on ``device`` (``spec`` is moved there):
+    windowed overlap-add, normalised by the summed squared window."""
+    spec = torch.as_tensor(spec, device=resolve_device(device))
     win = torch.from_numpy(_hann_np(n_fft)).to(spec.device)
     frames = torch.fft.irfft(spec.T, n=n_fft, dim=1).to(torch.float32) * win
     out = _overlap_add(frames, hop)

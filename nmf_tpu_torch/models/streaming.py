@@ -89,7 +89,7 @@ from ..ops.mu import _beta_ratios, matmul, numerator_w, update_h, update_h_kl_re
 from ..ops.quant import dequantize, quantize_policy_np
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
-from .masked import masked_h_step_cost, masked_kl, masked_update_h
+from .masked import masked_h_step_cost, masked_kl, masked_update_h, masked_w_terms
 from .nmf import _h_only_step_cost
 from .solver import SolveResult, _use_kernels, extrapolate, run_checked_loop, to_state
 from .solver import _refuse_unported as _refuse_solver
@@ -421,12 +421,14 @@ def _dense(x_j):
     return dequantize(*x_j) if isinstance(x_j, tuple) else x_j
 
 
-def _column_chunks(step_acc, cost_block, masked: bool):
+def _column_chunks(step_acc, cost_block, masked: bool, chunk_step: bool = True):
     """``step_acc`` and ``cost_block`` over a block's columns in chunks of
     ``_PLAIN_CHUNK_BYTES`` of f32 at W's height: the new H is the chunks'
     H joined, the accumulators take one fold a chunk, the cost is the sum
     of the chunks' costs (every family's H update and cost are
-    column-separable).  A block within one chunk runs unsplit."""
+    column-separable).  A block within one chunk runs unsplit.  Under
+    ``chunk_step=False`` only the cost is chunked: for a step that makes no
+    (M, width) temporary, chunks would only multiply its launches."""
 
     def x_cols(x, c0, c1):
         if isinstance(x, tuple):          # (codes, scales (N,) or (R, N))
@@ -442,7 +444,7 @@ def _column_chunks(step_acc, cost_block, masked: bool):
         return [(c, min(c + width, n)) for c in range(0, n, width)]
 
     def step(w, h_j, x_j, a1, a2):
-        parts = spans(w, h_j)
+        parts = spans(w, h_j) if chunk_step else [(0, h_j.shape[1])]
         if len(parts) == 1:
             return step_acc(w, h_j, x_j, a1, a2)
         return torch.cat([step_acc(w, h_j[:, c0:c1], cols(x_j, c0, c1), a1, a2)
@@ -502,10 +504,11 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
     ``cost_extra`` is the W penalty a cost pass adds once, or None.
 
     ``kernels`` (the KL family alone): K1 in full, K2 ``numerator_only`` and
-    K3, each taking its plain version for CPU tensors.  Every other family,
-    and KL under ``kernels=False``, takes plain ops on dequantized X over
-    column chunks (:func:`_column_chunks`).  Under ``masked`` the data
-    operand is ``(x_j, mask_j)``.
+    K3, each taking its plain version for CPU tensors; under
+    ``kernels=False`` the same family takes plain ops on whole dequantized
+    blocks.  Every other family takes plain ops over column chunks
+    (:func:`_column_chunks`; HALS chunks only its cost).  Under ``masked``
+    the data operand is ``(x_j, mask_j)``.
     """
     eps, prec = config.eps, config.precision
     beta = float(config.beta)
@@ -514,8 +517,8 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
     cost_prec = dataclasses.replace(prec, matmul_dtype="float32")
     masked_epilogue, reg_epilogue, cost_extra = _penalty_fns(config)
 
-    def plain(step_acc, w_epilogue, cost_block, a2_shape):
-        step_acc, cost_block = _column_chunks(step_acc, cost_block, masked)
+    def plain(step_acc, w_epilogue, cost_block, a2_shape, chunk_step=True):
+        step_acc, cost_block = _column_chunks(step_acc, cost_block, masked, chunk_step)
         return step_acc, w_epilogue, cost_block, cost_extra, a2_shape
 
     def kl_epilogue(w, a1, a2):
@@ -524,7 +527,9 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
 
     if config.algorithm == "hals":
         # the H row sweep is column-local; W's sweep takes X H^T and H H^T
-        # summed over blocks (W^T W is recomputed a block, as in JAX)
+        # summed over blocks (W^T W is recomputed a block, as in JAX).  The
+        # step's temporaries are (K, width) at most, so it takes the whole
+        # block; only the cost, which builds W H, runs over chunks
         def step_acc(w, h_j, x_j, a1, a2):
             x_j = _dense(x_j)
             wtx = matmul(w, x_j, prec, transpose_a=True)
@@ -537,7 +542,8 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
         def cost_block(w, h_j, x_j):
             return beta_partial(_dense(x_j), w, h_j, 2.0, eps)
 
-        return plain(step_acc, lambda w, a1, a2: cd_sweep_w(w, a1, a2, eps), cost_block, "kk")
+        return plain(step_acc, lambda w, a1, a2: cd_sweep_w(w, a1, a2, eps), cost_block, "kk",
+                     chunk_step=False)
 
     if masked:
         # the masked step restated per block: both W-side GEMMs accumulate
@@ -545,9 +551,9 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
             x_j, m_j = xm_j
             x_j = _dense(x_j)
             h_new = masked_update_h(w, h_j, x_j, m_j, eps, prec, l1_h, l2_h)
-            z = m_j * (x_j / eps_clamp(matmul(w, h_new, prec), eps))
-            a1 += matmul(z, h_new, prec, transpose_b=True)
-            a2 += matmul(m_j, h_new, prec, transpose_b=True)
+            zh, mh = masked_w_terms(w, h_new, x_j, m_j, eps, prec)
+            a1 += zh
+            a2 += mh
             return h_new
 
         def cost_block(w, h_j, xm_j):
@@ -583,6 +589,7 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
         return step_acc, kl_epilogue, cost_block, cost_extra, None
 
     if beta == 1.0:
+        # the reference the kernels are held against: whole blocks, unsplit
         def step_acc(w, h_j, x_j, a1, a2):
             x_j = _dense(x_j)
             h_new = update_h(w, h_j, x_j, eps, prec)
@@ -590,8 +597,10 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
             a2 += torch.sum(h_new, dim=1, dtype=_F32)
             return h_new
 
-        return plain(step_acc, kl_epilogue,
-                     lambda w, h_j, x_j: kl_divergence(_dense(x_j), w, h_j, eps), None)
+        def cost_block(w, h_j, x_j):
+            return kl_divergence(_dense(x_j), w, h_j, eps)
+
+        return step_acc, kl_epilogue, cost_block, cost_extra, None
 
     # the beta MU: H_j's update, then both W-side GEMMs of block j
     def step_acc(w, h_j, x_j, a1, a2):

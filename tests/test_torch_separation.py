@@ -56,7 +56,7 @@ FFT_CASES = [(1024, 256), (512, 128), (256, 64), (200, 50), (100, 30)]
 @pytest.mark.parametrize("n_fft,hop", FFT_CASES)
 def test_stft_matches_jnp(n_fft, hop):
     audio = _noise()
-    ours = ts.stft(torch.from_numpy(audio), n_fft, hop)
+    ours = ts.stft(torch.from_numpy(audio), n_fft, hop, device="cpu")
     ref = np.asarray(js.stft(jnp.asarray(audio), n_fft, hop))
     assert ours.dtype == torch.complex64 and tuple(ours.shape) == ref.shape
     assert _over_peak(ours.numpy(), ref) <= 1e-5
@@ -65,7 +65,7 @@ def test_stft_matches_jnp(n_fft, hop):
 @pytest.mark.parametrize("n_fft,hop", FFT_CASES)
 def test_istft_matches_jnp(n_fft, hop):
     spec = js._stft_np(_noise(), n_fft, hop)
-    ours = ts.istft(torch.from_numpy(spec), n_fft, hop, length=6000)
+    ours = ts.istft(torch.from_numpy(spec), n_fft, hop, length=6000, device="cpu")
     ref = np.asarray(js.istft(jnp.asarray(spec), n_fft, hop, length=6000))
     assert ours.dtype == torch.float32 and tuple(ours.shape) == ref.shape
     assert _over_peak(ours.numpy(), ref) <= 1e-5
@@ -85,13 +85,14 @@ def test_overlap_add_is_the_host_loop_bit_for_bit(n_fft, hop):
 
 def test_stft_shape_is_the_paper_convention():
     """513 bins for a 1024-point FFT; 3446 frames for 20 s at 44.1 kHz, hop 256."""
-    spec = ts.stft(torch.zeros(882_000), 1024, 256)
+    spec = ts.stft(torch.zeros(882_000), 1024, 256, device="cpu")
     assert tuple(spec.shape) == (513, 3446)
 
 
 def test_stft_istft_roundtrip():
     audio = np.random.RandomState(0).randn(16384).astype(np.float32)
-    back = ts.istft(ts.stft(torch.from_numpy(audio), 512, 128), 512, 128, length=16384).numpy()
+    spec = ts.stft(torch.from_numpy(audio), 512, 128, device="cpu")
+    back = ts.istft(spec, 512, 128, length=16384, device="cpu").numpy()
     a, b = back[512:-512], audio[512:-512]
     assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-3
 
@@ -223,11 +224,19 @@ def test_separate_runs_the_kl_solve_through_the_kernel_wrappers(two_tones, monke
         assert calls == {"update_h_fused": 30, "update_w_fused": 30, "kl_cost_fused": 3}
 
 
-def test_cuda_request_without_a_card_raises(two_tones):
+@pytest.mark.parametrize("entry", ["separate", "stft", "istft"])
+def test_cuda_request_without_a_card_raises(two_tones, entry):
+    """Each entry point runs on the card unless the caller asks for the CPU,
+    arrays included: with no card the default request raises."""
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a card")
+    call = {
+        "separate": lambda: ts.separate(two_tones, config=pt.SolveConfig(max_iter=1)),
+        "stft": lambda: ts.stft(two_tones, 256, 64),
+        "istft": lambda: ts.istft(ts._stft_np(two_tones, 256, 64), 256, 64),
+    }[entry]
     with pytest.raises(RuntimeError, match="is_available"):
-        ts.separate(two_tones, config=pt.SolveConfig(max_iter=1))
+        call()
 
 
 def test_public_names():

@@ -135,8 +135,9 @@ def test_streamed_family_converges_on_the_jax_iteration(problem):
     "family", ["beta2", "beta0.5", "hals", "kl_reg", "masked", "kl_plain", "int8_rows"])
 def test_column_chunks_match_jax(problem, monkeypatch, family):
     """The plain families take a block's columns in chunks (16 columns here:
-    four a block, three in the last): the same solve as JAX's unsplit
-    blocks, to this file's tolerances."""
+    four a block, three in the last; HALS its cost alone, the unpenalized
+    KL none): the same solve as JAX's unsplit blocks, to this file's
+    tolerances."""
     monkeypatch.setattr(ts, "_PLAIN_CHUNK_BYTES", 4 * M * 16)
     x, w, h, mask = problem
     fields = {**FAMILIES, "masked": {}, "kl_plain": dict(backend="jnp"),
@@ -144,6 +145,33 @@ def test_column_chunks_match_jax(problem, monkeypatch, family):
     kw = dict(mask=mask) if family == "masked" else {}
     jcfg = jt.SolveConfig(max_iter=10, check_every=5, **fields)
     _assert_match(*_run_both(x, w, h, jcfg, **kw), hals=family == "hals")
+
+
+@pytest.mark.parametrize("family,fn,whole", [
+    ("hals", "cd_sweep_h", True), ("kl_plain", "update_h", True), ("beta2", "_beta_ratios", False)])
+def test_which_steps_take_whole_blocks(problem, monkeypatch, family, fn, whole):
+    """HALS's step makes no (M, width) temporary and the unpenalized KL step
+    is the kernels' reference: both take whole blocks however small the
+    chunks.  The beta step builds W H, and runs a chunk at a time."""
+    monkeypatch.setattr(ts, "_PLAIN_CHUNK_BYTES", 4 * M * 16)
+    widths = []
+    orig = getattr(ts, fn)
+    h_arg = 0 if fn == "cd_sweep_h" else 1
+
+    def counted(*a, **k):
+        widths.append(int(a[h_arg].shape[1]))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ts, fn, counted)
+    x, w, h, _ = problem
+    fields = {**FAMILIES, "kl_plain": dict(backend="jnp")}[family]
+    pt.solve_out_of_core(x, w, h, pt.SolveConfig(max_iter=2, check_every=2, **fields),
+                         block_n=BLOCK, device="cpu")
+    blocks = [BLOCK] * (N // BLOCK) + [N % BLOCK]
+    if whole:
+        assert widths == blocks * 2
+    else:
+        assert widths and max(widths) <= 16
 
 
 @pytest.mark.parametrize("beta", [2.0, 0.0, 0.5, 3.0, 1.0])
