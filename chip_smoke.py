@@ -7,8 +7,9 @@
     python3 chip_smoke.py --phases card,accel                 # the accelerated solves
     python3 chip_smoke.py --phases card,families,transform    # the families, the H-only path
     python3 chip_smoke.py --phases card,models                # separate, semi, masked, online
+    python3 chip_smoke.py --phases card,selection             # batched solves, restarts, sweeps
 
-Thirteen phases, in order; any failure raises and the exit code is non-zero:
+Fourteen phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
@@ -54,7 +55,8 @@ Thirteen phases, in order; any failure raises and the exit code is non-zero:
 4. quant: the quantizer on the card gives the codes and scales of
    ``quantize_columns_np`` byte for byte on the reference X, and those of
    ``quantize_rowblocks_np`` on a row-block case;
-5. cli: the reference pipeline through the CLI, as subprocesses: ``gen``,
+5. cli: the reference pipeline through the CLI, as subprocesses (every
+   ``run`` below at once, then each checked): ``gen``,
    then ``run X.bin W.bin H.bin -o ... --jsonl`` at float32 and at each
    tier (``--dtype bfloat16``, ``--dtype float32_fast``, ``--x-dtype
    bfloat16``, ``--x-dtype int8``) and once at ``--x-dtype int8
@@ -221,7 +223,34 @@ Thirteen phases, in order; any failure raises and the exit code is non-zero:
    memory and streamed, ``run --out-of-core --beta 2`` and ``--algorithm
    hals --beta 2``, ``run --online``, ``transform --mask`` and ``separate``
    of (a)'s audio written as a WAV: each file byte-equal to its in-process
-   result.
+   result;
+14. selection: the batched solves of ROADMAP.md Queue 1 step 7, each run
+   with every count set to 0 just before it.  (a) Config 4: 128 x 513 x
+   2000, K=32 (``benchmarks/run_all.py:569``), X made on the card from
+   ``--seed``: K1-K3 over the member axis once each against the plain
+   batched version (cuBLAS batched GEMMs; rel 1e-4, cost 1e-5), timed as
+   phase 2 times (5 samples of 5), members 0, 63 and 127 bit-equal to the
+   2-D call, the partials' bytes; then ``solve_batched``, 100 iterations,
+   ``track_cost=False``, under ``float32`` and ``bfloat16``, through the
+   kernels and through ``backend="jnp"``: problem-iterations/s and TFLOP/s
+   of each, 100/100/0 launches serving 12,800 member-calls each, members
+   0, 63 and 127 bit-equal to their 2-D ``solve``, peak device memory.
+   (b) ``solve_restarts`` R=16 at 512 x 1024, K=32, 100 iterations against
+   16 sequential ``solve``s: every member bit-equal, ``best_index`` the
+   argmin, and with ``n_frozen=8`` the frozen columns bit-equal.  (c)
+   ``solve_rank_sweep([8, 16, 24, 32] x 2)``: the embedded slots exact
+   zeros, each cost within 1e-5 of the single rank-k solve.  (d)
+   ``rank_stability`` ranks 4, 8, 12, 16 x 8 restarts: the solve's and the
+   host consensus's seconds apart.  (e) The plain paths, no launch:
+   ``solve_batched(mask=)`` 16 x 513 x 2000 with 20% missing, each cost
+   within 1e-5 of the member's ``solve_masked``; ``solve_sparse_tiled_batched``
+   of 4 members of phase 8's layout cut to 4096^2, K=128, each within
+   1e-5 of its ``solve_sparse_tiled``; and a ``thresh=1e-4`` batch of 8
+   whose members stop at different iterations, each its own solve's count
+   and bits.  (f) The CLI, four subprocesses at once: ``batch`` on 16
+   files, ``select --ranks 8,16,24,32 --stability -o``, ``run --restarts
+   8 -o`` and ``separate --restarts 4``, each file byte-equal to the same
+   call in-process.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -238,7 +267,8 @@ K1's and K2's ``numerator_only`` modes and K3's ``streamed`` modes carry
 their launches on the streamed solve; every kernel its launches on phase
 10's accelerated solves, ``accel_launches``; K1-K3 their launches on each
 run of phase 12, ``transform_launches``, K2's all 0, and on each run of
-phase 13, ``models_launches``); the last line is
+phase 13, ``models_launches``, and of phase 14, ``selection_launches``,
+with phase 14's config-4 call in ``batched``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -323,7 +353,7 @@ TIERS = {
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
-          "oocore", "accel", "families", "transform", "models")
+          "oocore", "accel", "families", "transform", "models", "selection")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -964,14 +994,26 @@ def _cli(args, cwd):
                           check=True, cwd=cwd, env=env)
 
 
+# phase 5's runs beside the tiers: tag -> run's inputs and flags
+CLI_FLAG_RUNS = {"nndsvda": ["X.bin", "--rank", "128"],
+                 "accelerate": ["X.bin", "W.bin", "H.bin", "--accelerate"],
+                 "strict": ["X.bin", "W.bin", "H.bin", "--strict-compat"],
+                 "strict_rerun": ["X.bin", "W.bin", "H.bin", "--strict-compat"]}
+
+
 def phase_cli(card, tmp, out):
     print(f"[{card}] phase 5: reference pipeline through the CLI, every tier")
     _cli(["gen", "."], tmp)
-    for tier, flags in TIERS.items():
-        t0 = time.perf_counter()
-        _cli(["run", "X.bin", "W.bin", "H.bin", "-o", f"W_{tier}.bin", f"H_{tier}.bin",
-              "--jsonl", f"{tier}.jsonl", "-q", *flags], tmp)
-        wall = time.perf_counter() - t0
+    # every tier's run and the solver flags' runs as subprocesses at once
+    runs = {tier: ["run", "X.bin", "W.bin", "H.bin", *flags] for tier, flags in TIERS.items()}
+    runs.update({tag: ["run", *args] for tag, args in CLI_FLAG_RUNS.items()})
+    for tag, args in runs.items():
+        args += ["-o", f"W_{tag}.bin", f"H_{tag}.bin", "--jsonl", f"{tag}.jsonl"]
+    t0 = time.perf_counter()
+    _cli_all(runs, tmp)
+    wall = time.perf_counter() - t0
+    out["cli"]["wall_s"] = wall
+    for tier in TIERS:
         rec = json.loads(pathlib.Path(tmp, f"{tier}.jsonl").read_text().splitlines()[-1])
         costs = [c["cost"] for c in rec["checks"]]
         check(rec["iterations"] == 200, f"CLI {tier}: ran {rec['iterations']} iterations")
@@ -986,7 +1028,9 @@ def phase_cli(card, tmp, out):
         out["cli"][tier] = rec["final_cost"]
         print(f"[{card}] CLI {tier}: 200 iterations, 8 decreasing checks, final cost "
               f"{rec['final_cost']} (rel {rel} to the pin), solve {rec['seconds']} s = "
-              f"{rec['iters_per_sec']} it/s, process wall {wall} s")
+              f"{rec['iters_per_sec']} it/s")
+    print(f"[{card}] CLI: {len(runs)} run processes at once (every tier and the solver "
+          f"flags), {wall} s of wall")
     _cli_solver_flags(card, tmp, out)
 
 
@@ -997,21 +1041,17 @@ def _cli_files(tmp, tag):
 
 
 def _cli_solver_flags(card, tmp, out):
-    """``run X.bin --rank 128`` at the default init (nndsvda), ``run
-    --accelerate`` and ``run --strict-compat`` on the reference fixtures:
-    the first two byte-equal to the in-process solve, the third de-padded
-    and byte-equal on a rerun."""
+    """The files of ``run X.bin --rank 128`` at the default init (nndsvda),
+    ``run --accelerate`` and ``run --strict-compat`` on the reference
+    fixtures (``CLI_FLAG_RUNS``, run by :func:`phase_cli`): the first two
+    byte-equal to the in-process solve, the third de-padded and byte-equal
+    on a rerun."""
     import nmf_tpu_torch as nt
 
     x, w, h = (nt.read_matrix(os.path.join(tmp, f"{s}.bin")) for s in "XWH")
-    runs = {"nndsvda": ["X.bin", "--rank", "128"],
-            "accelerate": ["X.bin", "W.bin", "H.bin", "--accelerate"],
-            "strict": ["X.bin", "W.bin", "H.bin", "--strict-compat"],
-            "strict_rerun": ["X.bin", "W.bin", "H.bin", "--strict-compat"]}
+    runs = CLI_FLAG_RUNS
     recs = {}
-    for tag, args in runs.items():
-        _cli(["run", *args, "-o", f"W_{tag}.bin", f"H_{tag}.bin", "--jsonl", f"{tag}.jsonl",
-              "-q"], tmp)
+    for tag in runs:   # run by phase_cli, with the tiers
         recs[tag] = json.loads(pathlib.Path(tmp, f"{tag}.jsonl").read_text().splitlines()[-1])
         check(recs[tag]["iterations"] == 200, f"CLI {tag}: {recs[tag]['iterations']} iterations")
     w0, h0 = nt.nndsvd_init(x, 128, "nndsvda")
@@ -3434,12 +3474,404 @@ def _models_launches(launches, name):
     return out
 
 
+# --- phase 14: the batched solves (ROADMAP.md Queue 1 step 7) -------------
+
+BATCH_SHAPE = (128, 513, 2000, 32)      # (a) config 4: B, M, N, K (benchmarks/run_all.py:569)
+BATCH_ITERS = 100
+BATCH_CHECK = (0, 63, 127)              # members held to their 2-D solve bit for bit
+SEL_SHAPE = (512, 1024, 32)             # (b)-(d): run_all.py:202-267, 574
+SEL_ITERS = 100
+SEL_RESTARTS = 16
+SEL_FROZEN = 8
+SWEEP_RANKS = [8, 16, 24, 32] * 2
+STAB_RANKS, STAB_RESTARTS = [4, 8, 12, 16], 8
+MASKED_MEMBERS, PLAIN_ITERS = 16, 50
+TILED_BATCH = (4, 4096, 4096, 128, 128, 0.08)   # (e): phase 8's layout cut to 4096^2
+STOP_MEMBERS, STOP_THRESH = 8, 1e-4
+CLI_BATCH_FILES, CLI_BATCH_SHAPE, CLI_ITERS = 16, (513, 2000), 100
+
+
+def _member_bits_equal(a, b):
+    return _bits(a.contiguous()).cpu().numpy().tobytes() == _bits(b.contiguous()).cpu().numpy().tobytes()
+
+
+def _counted_members(fn, where, want, members=None):
+    """:func:`_counted_models`, and the members its launches served
+    (``fused_mu.MEMBERS``), checked against ``members`` where given."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    res, secs, launches = _counted_models(fn, where, want)
+    served = dict(fused_mu.MEMBERS)
+    if members is not None:
+        check(served == members, f"{where}: members served {served}, expected {members}")
+    return res, secs, launches, served
+
+
+def _kl_batched_plain(x, w, h, eps=EPS):
+    """K3's plain version over a member axis (true f32 recon, x -> 0 limit),
+    one cost a member: the reference of the batched K3 call."""
+    y = torch.clamp_min(torch.matmul(w.float(), h.float()), eps)
+    xf = x.float()
+    t = torch.where(xf > 0, xf * (torch.log(torch.clamp_min(xf, eps)) - torch.log(y)), 0.0) - xf + y
+    return t.sum(dim=(-2, -1))
+
+
+def _batched_calls(card, out, x, w, h):
+    """K1-K3 once each over config 4's 128 members (f32): bits of members
+    0, 63, 127 against the 2-D call, error and time against the plain
+    batched version (cuBLAS batched GEMMs), the bound and the partials'
+    bytes."""
+    from nmf_tpu_torch.ops import mu
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    b, m, n, k = BATCH_SHAPE
+    pairs = {
+        "update_h": (lambda: fused_mu.update_h_fused(w, h, x), lambda: mu.update_h(w, h, x)),
+        "update_w": (lambda: fused_mu.update_w_fused(w, h, x), lambda: mu.update_w(w, h, x)),
+        "kl_cost": (lambda: fused_mu.kl_cost_fused(x, w, h), lambda: _kl_batched_plain(x, w, h)),
+    }
+    chunks = -(-k // fused_mu.chunk_width(k))
+    mt, nt = -(-m // fused_mu.TILE), -(-n // fused_mu.TILE)
+    partial_bytes = {
+        "update_h": b * fused_mu.plan_split(nt, chunks, mt)[0] * k * n * 4,
+        "update_w": b * fused_mu.plan_split(mt, chunks, nt)[0] * m * k * 4,
+        "kl_cost": b * fused_mu.kl_split(m, n, k)[3] * 4,
+    }
+    for name, (kern, plain) in pairs.items():
+        got, ref = kern(), plain()
+        rel = float((torch.abs(got - ref) / torch.abs(ref).clamp_min(1e-30)).max())
+        limit = F32_TOL[2] if name == "kl_cost" else F32_TOL[0]
+        check(rel <= limit, f"batched {name}: max rel {rel} to the plain batched version")
+        for i in BATCH_CHECK:
+            one = (fused_mu.kl_cost_fused(x[i], w[i], h[i]) if name == "kl_cost" else
+                   getattr(fused_mu, f"{name}_fused")(w[i].contiguous(), h[i].contiguous(), x[i]))
+            check(_member_bits_equal(got[i], one), f"batched {name}: member {i} differs from the 2-D call")
+        ms, plain_ms = timed_pair(kern, plain, samples=5, calls=5)
+        # K1/K2's per-member denominators (one torch.sum a member, the 2-D
+        # call's bits), part of each call's time
+        sums_ms = None if name == "kl_cost" else event_ms(
+            lambda: fused_mu._sums(w, -2) if name == "update_h" else fused_mu._sums(h, -1),
+            samples=5, calls=5)
+        flops = (1 if name == "kl_cost" else 2) * 2 * b * m * n * k
+        nbytes = b * (m * n + m * k + k * n) * 4 + {"update_h": b * k * n * 4, "update_w": b * m * k * 4,
+                                                     "kl_cost": b * 4}[name]
+        bound_ms, by = bound(flops, nbytes)
+        out["kernels"][name]["batched"] = {
+            "shape": list(BATCH_SHAPE), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "max_rel_err": rel, "partial_bytes": partial_bytes[name],
+            "denominators_ms": sums_ms, "members_bit_equal": list(BATCH_CHECK)}
+        sums = "" if sums_ms is None else f"; its {b} per-member denominators alone {sums_ms} ms"
+        print(f"[{card}] batched {name} {b} x {m}x{n} K={k} f32: {ms} ms a call (one pass-1 "
+              f"launch for all members{sums}), plain batched {plain_ms} ms, bound {bound_ms} ms "
+              f"({by}), "
+              f"max rel {rel}, partials {partial_bytes[name]} bytes, members {list(BATCH_CHECK)} "
+              f"bit-equal to the 2-D call")
+
+
+def phase_selection_batched(card, out, seed):
+    """(a) config 4 through the kernels and through ``backend="jnp"``."""
+    import nmf_tpu_torch as nt
+
+    b, m, n, k = BATCH_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.clamp_min(torch.rand((b, m, n), generator=g, device="cuda"), EPS)
+    w = torch.clamp_min(torch.rand((b, m, k), generator=g, device="cuda"), EPS)
+    h = torch.clamp_min(torch.rand((b, k, n), generator=g, device="cuda"), EPS)
+    _batched_calls(card, out, x, w, h)
+    runs = {}
+    for policy in ("float32", "bfloat16"):
+        cfg = nt.SolveConfig(max_iter=BATCH_ITERS, check_every=25, track_cost=False,
+                             precision=nt.Precision(policy))
+        nt.solve_batched(x[:2], w[:2], h[:2], dataclasses.replace(cfg, max_iter=2), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res, secs, launches, served = _counted_members(
+            lambda: nt.solve_batched(x, w, h, cfg, device="cuda"), f"batched {policy}",
+            _launches(update_h=BATCH_ITERS, update_w=BATCH_ITERS),
+            dict(_launches(update_h=b * BATCH_ITERS, update_w=b * BATCH_ITERS)))
+        peak = torch.cuda.max_memory_allocated() - base
+        check(res.iterations.tolist() == [BATCH_ITERS] * b, f"batched {policy}: iterations")
+        for i in BATCH_CHECK:
+            one = nt.solve(x[i], w[i], h[i], cfg, device="cuda")
+            check(_member_bits_equal(res.w[i], one.w) and _member_bits_equal(res.h[i], one.h),
+                  f"batched {policy}: member {i} differs from its 2-D solve")
+        jcfg = dataclasses.replace(cfg, backend="jnp")
+        nt.solve_batched(x[:2], w[:2], h[:2], dataclasses.replace(jcfg, max_iter=2), device="cuda")
+        plain, plain_secs, _, _ = _counted_members(
+            lambda: nt.solve_batched(x, w, h, jcfg, device="cuda"), f"batched {policy} jnp",
+            _launches())
+        c_k = nt.kl_divergence(x[0], res.w[0], res.h[0])
+        c_p = nt.kl_divergence(x[0], plain.w[0], plain.h[0])
+        rel = abs(float(c_k) - float(c_p)) / abs(float(c_p))
+        check(rel <= (1e-3 if policy == "bfloat16" else 1e-4),
+              f"batched {policy}: member 0 cost {float(c_k)} vs jnp {float(c_p)}")
+        rate, plain_rate = b * BATCH_ITERS / secs, b * BATCH_ITERS / plain_secs
+        runs[policy] = {
+            "seconds": secs, "problem_iters_per_s": rate, "tflops": 8 * m * n * k * rate / 1e12,
+            "jnp_seconds": plain_secs, "jnp_problem_iters_per_s": plain_rate,
+            "jnp_tflops": 8 * m * n * k * plain_rate / 1e12, "peak_bytes": peak,
+            "x_bytes": x.numel() * 4, "launches": launches, "members": served,
+            "member0_cost_rel_to_jnp": rel}
+        out["launches"][f"selection batched {policy}"] = launches
+        print(f"[{card}] solve_batched {b} x {m}x{n} K={k} {policy}, {BATCH_ITERS} iterations: "
+              f"{rate} problem-it/s ({8 * m * n * k * rate / 1e12} TFLOP/s) through the kernels, "
+              f"{plain_rate} ({8 * m * n * k * plain_rate / 1e12}) through backend='jnp'; "
+              f"launches {launches} for {served} member-calls; peak {peak} bytes over "
+              f"{x.numel() * 4} of X; members {list(BATCH_CHECK)} bit-equal to their 2-D solves; "
+              f"member 0 cost rel {rel} to jnp")
+    out["selection"]["batched"] = runs
+    del x, w, h
+
+
+def _sel_problem(seed):
+    """X of (b)-(d): a planted rank-32 structure and noise, on the host."""
+    m, n, k = SEL_SHAPE
+    rng = np.random.RandomState(seed + 14)
+    x = rng.rand(m, k).astype(np.float32) @ rng.rand(k, n).astype(np.float32)
+    return (x + 0.1 * rng.rand(m, n)).astype(np.float32)
+
+
+def phase_selection_restarts(card, out, x):
+    """(b) restarts against sequential solves, and with frozen columns."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.init import scaled_random_init
+
+    m, n, k = SEL_SHAPE
+    r = SEL_RESTARTS
+    cfg = nt.SolveConfig(max_iter=SEL_ITERS, check_every=25)
+    checks = SEL_ITERS // 25
+    nt.solve_restarts(x, rank=k, n_restarts=2, config=dataclasses.replace(cfg, max_iter=2),
+                      device="cuda")
+    sel, secs, launches, served = _counted_members(
+        lambda: nt.solve_restarts(x, rank=k, n_restarts=r, config=cfg, seed=0, device="cuda"),
+        "restarts", _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks),
+        dict(_launches(update_h=r * SEL_ITERS, update_w=r * SEL_ITERS, kl_cost=r * checks)))
+    out["launches"]["selection restarts"] = launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()   # the sequential solves make their inits, as solve_restarts does
+    inits = [scaled_random_init(x, k, seed=i) for i in range(r)]
+    ones = [nt.solve(x, w0, h0, cfg, device="cuda") for w0, h0 in inits]
+    torch.cuda.synchronize()
+    seq_secs = time.perf_counter() - t0
+    for i, one in enumerate(ones):
+        check(_member_bits_equal(sel.results.w[i], one.w) and _member_bits_equal(sel.results.h[i], one.h)
+              and _member_bits_equal(sel.results.cost[i], one.cost),
+              f"restarts: member {i} differs from its sequential solve")
+    check(sel.best_index == int(np.argmin(sel.costs)), "restarts: best_index is not the argmin")
+    f = SEL_FROZEN
+    w0s = np.stack([np.concatenate([inits[0][0][:, :f], w0[:, f:]], axis=1) for w0, _ in inits])
+    h0s = np.stack([h0 for _, h0 in inits])
+    frz, frz_secs, _, _ = _counted_members(
+        lambda: nt.solve_restarts(x, w0s=w0s, h0s=h0s, config=cfg, n_frozen=f, device="cuda"),
+        "restarts n_frozen", _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks))
+    clamped = np.maximum(inits[0][0][:, :f], np.float32(EPS))
+    check(all(frz.results.w[i, :, :f].cpu().numpy().tobytes() == clamped.tobytes() for i in range(r)),
+          "restarts n_frozen: frozen columns moved")
+    rate, seq_rate = r * SEL_ITERS / secs, r * SEL_ITERS / seq_secs
+    out["selection"]["restarts"] = {
+        "seconds": secs, "problem_iters_per_s": rate, "sequential_seconds": seq_secs,
+        "sequential_problem_iters_per_s": seq_rate, "frozen_seconds": frz_secs,
+        "best_index": sel.best_index, "launches": launches, "members": served}
+    print(f"[{card}] solve_restarts R={r} at {m}x{n} K={k}, {SEL_ITERS} iterations: {rate} "
+          f"problem-it/s against {seq_rate} for {r} sequential solves; launches {launches}; every "
+          f"member bit-equal to its sequential solve; best #{sel.best_index} (argmin); "
+          f"n_frozen={f}: columns bit-equal, {frz_secs} s")
+
+
+def phase_selection_sweep(card, out, x):
+    """(c) the rank sweep against single rank-k solves; (d) stability."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import selection, stability
+
+    cfg = nt.SolveConfig(max_iter=SEL_ITERS, check_every=25)
+    checks = SEL_ITERS // 25
+    sweep, secs, launches, _ = _counted_members(
+        lambda: nt.solve_rank_sweep(x, SWEEP_RANKS, cfg, seed=0, device="cuda"), "rank sweep",
+        _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks))
+    out["launches"]["selection sweep"] = launches
+    w0s, h0s = selection._member_inits(x, SWEEP_RANKS, "scaled", 0)
+    worst = 0.0
+    for i, k in enumerate(SWEEP_RANKS):
+        check(not sweep.results.w[i, :, k:].any() and not sweep.results.h[i, k:, :].any(),
+              f"rank sweep: member {i}'s embedded slots are not exact zeros")
+        one = nt.solve(x, w0s[i, :, :k], h0s[i, :k, :], cfg, device="cuda")
+        rel = abs(float(sweep.costs[i]) - float(one.cost)) / abs(float(one.cost))
+        worst = max(worst, rel)
+        check(rel <= 1e-5, f"rank sweep: member {i} (rank {k}) cost rel {rel} to its rank-{k} solve")
+    out["selection"]["sweep"] = {"seconds": secs, "max_cost_rel": worst, "launches": launches}
+    print(f"[{card}] solve_rank_sweep {SWEEP_RANKS} at 512x1024: {secs} s, launches {launches}, "
+          f"embedded slots exact zeros, costs within {worst} of the single rank-k solves")
+    solve_secs = []
+    inner = stability.solve_rank_sweep
+
+    def timed_sweep(*a, **kw):
+        res, s = _timed(lambda: inner(*a, **kw))
+        solve_secs.append(s)
+        return res
+
+    stability.solve_rank_sweep = timed_sweep
+    try:
+        st, total = _timed(lambda: nt.rank_stability(
+            x, STAB_RANKS, n_restarts=STAB_RESTARTS, config=cfg, seed=0, device="cuda"))
+    finally:
+        stability.solve_rank_sweep = inner
+    check(st.cophenetic.shape == (len(STAB_RANKS),) and np.isfinite(st.cophenetic).all(),
+          f"stability: cophenetic {st.cophenetic}")
+    out["selection"]["stability"] = {"solve_seconds": solve_secs[0],
+                                     "consensus_seconds": total - solve_secs[0],
+                                     "cophenetic": st.cophenetic.tolist(), "best_rank": st.best_rank()}
+    print(f"[{card}] rank_stability ranks {STAB_RANKS} x {STAB_RESTARTS} restarts at 512x1024: "
+          f"solve {solve_secs[0]} s, host consensus {total - solve_secs[0]} s, cophenetic "
+          f"{st.cophenetic.tolist()}, best rank {st.best_rank()}")
+
+
+def phase_selection_plain(card, out, seed):
+    """(e) the plain batched paths, and members stopping at their own check."""
+    import nmf_tpu_torch as nt
+
+    rng = np.random.RandomState(seed + 15)
+    b, m, n, k = MASKED_MEMBERS, BATCH_SHAPE[1], BATCH_SHAPE[2], BATCH_SHAPE[3]
+    xs = np.maximum(rng.rand(b, m, n).astype(np.float32), np.float32(EPS))
+    ws, hs = rng.rand(b, m, k).astype(np.float32), rng.rand(b, k, n).astype(np.float32)
+    masks = (rng.rand(b, m, n) >= MASK_MISSING).astype(np.float32)
+    cfg = nt.SolveConfig(max_iter=PLAIN_ITERS, check_every=25)
+    res, secs, _, _ = _counted_members(
+        lambda: nt.solve_batched(xs, ws, hs, cfg, mask=masks, device="cuda"), "batched masked",
+        _launches())
+    worst = max(abs(float(res.cost[i]) - float(one.cost)) / abs(float(one.cost)) for i, one in
+                enumerate(nt.solve_masked(xs[i], ws[i], hs[i], masks[i], cfg, device="cuda")
+                          for i in range(b)))
+    check(worst <= 1e-5, f"batched masked: cost rel {worst} to the members' solve_masked")
+    out["selection"]["masked"] = {"seconds": secs, "max_cost_rel": worst}
+    print(f"[{card}] solve_batched(mask=) {b} x 513x2000, 20% missing, {PLAIN_ITERS} iterations: "
+          f"0 launches, {secs} s, costs within {worst} of each member's solve_masked")
+
+    tb, tm, tn, tk, tile, occ = TILED_BATCH
+    probs = [tile_problem(tm, tk, tn, tile, occ, seed=s) for s in range(tb)]
+    xs_t = [p[0] for p in probs]
+    ws_t, hs_t = np.stack([p[1] for p in probs]), np.stack([p[2] for p in probs])
+    res, secs, _, _ = _counted_members(
+        lambda: nt.solve_sparse_tiled_batched(xs_t, ws_t, hs_t, cfg, device="cuda"),
+        "tiled batched", _launches())
+    worst = 0.0
+    for i in range(tb):
+        one = nt.solve_sparse_tiled(xs_t[i], ws_t[i], hs_t[i], cfg, device="cuda")
+        worst = max(worst, abs(float(res.cost[i]) - float(one.cost)) / abs(float(one.cost)))
+    check(worst <= 1e-5, f"tiled batched: cost rel {worst} to the members' solve_sparse_tiled")
+    out["selection"]["tiled"] = {"seconds": secs, "max_cost_rel": worst}
+    print(f"[{card}] solve_sparse_tiled_batched {tb} x 4096^2 K=128, occupancy {occ}, "
+          f"{PLAIN_ITERS} iterations: 0 K5 launches, {secs} s, costs within {worst} of each "
+          f"member's solve_sparse_tiled (which runs K5)")
+
+    sm, sn, sk = SEL_SHAPE
+    # uniform noise raised to these powers converges at 500-900 iterations
+    # at this threshold, a member a power
+    powers = np.linspace(0.5, 4.0, STOP_MEMBERS)
+    xs_s = np.stack([np.maximum(rng.rand(sm, sn).astype(np.float32) ** np.float32(pw),
+                                np.float32(EPS)) for pw in powers])
+    ws_s = rng.rand(STOP_MEMBERS, sm, sk).astype(np.float32)
+    hs_s = rng.rand(STOP_MEMBERS, sk, sn).astype(np.float32)
+    scfg = nt.SolveConfig(max_iter=1000, thresh=STOP_THRESH, check_every=10)
+    res, secs = _timed(lambda: nt.solve_batched(xs_s, ws_s, hs_s, scfg, device="cuda"))
+    its = res.iterations.tolist()
+    for i in range(STOP_MEMBERS):
+        one = nt.solve(xs_s[i], ws_s[i], hs_s[i], scfg, device="cuda")
+        check(int(one.iterations) == its[i] and _member_bits_equal(res.w[i], one.w),
+              f"thresh batch: member {i} ran {its[i]} iterations, its solve {int(one.iterations)}")
+    check(len(set(its)) > 1, f"thresh batch: every member stopped at {its[0]}")
+    out["selection"]["thresh"] = {"iterations": its, "seconds": secs}
+    print(f"[{card}] thresh={STOP_THRESH} batch of {STOP_MEMBERS}: members stopped at {its}, each "
+          f"its own solve's count and bits ({secs} s)")
+
+
+def phase_selection_cli(card, tmp, out, x, seed):
+    """(f) batch, select --stability, run --restarts and separate --restarts
+    as subprocesses at once, each file byte-equal to the same call made
+    in-process."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch import cli
+    from scipy.io import wavfile
+
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    rng = np.random.RandomState(seed + 16)
+    os.makedirs(j("specs"))
+    xs = [rng.rand(*CLI_BATCH_SHAPE).astype(np.float32) for _ in range(CLI_BATCH_FILES)]
+    for i, xi in enumerate(xs):
+        nt.write_matrix(xi, j("specs", f"s{i:02d}.bin"))
+    nt.write_matrix(x, j("X.bin"))
+    audio = _paper_audio(seed)
+    wavfile.write(j("paper.wav"), PAPER_RATE, (audio * 32767).astype(np.int16))
+    it = ["--max-iter", str(CLI_ITERS)]
+    runs = {
+        "batch": ["batch", "specs", "--rank", "32", "--out-dir", "batch_out", *it],
+        "select": ["select", "X.bin", "--ranks", "8,16,24,32", "--stability", "-o", "W_sel.bin",
+                   "H_sel.bin", *it],
+        "restarts": ["run", "X.bin", "--rank", "32", "--restarts", "8", "-o", "W_rs.bin", "H_rs.bin",
+                     *it],
+        "separate": ["separate", "paper.wav", "--restarts", "4", "--out-dir", "sep_cli"],
+    }
+    t0 = time.perf_counter()
+    _cli_all(runs, tmp)
+    wall = time.perf_counter() - t0
+    cfg = nt.SolveConfig(max_iter=CLI_ITERS)
+    brng = np.random.RandomState(0)
+    b = CLI_BATCH_FILES
+    ws = brng.rand(b, CLI_BATCH_SHAPE[0], 32).astype(np.float32)
+    hs = brng.rand(b, 32, CLI_BATCH_SHAPE[1]).astype(np.float32)
+    res = nt.solve_batched(np.stack(xs), ws, hs, cfg, device=DEVICE)
+    for i in range(b):
+        for f, t in (("W", res.w[i]), ("H", res.h[i])):
+            check(nt.read_matrix(j("batch_out", f"s{i:02d}.{f}.bin")).tobytes() == t.cpu().numpy().tobytes(),
+                  f"CLI batch: s{i:02d}.{f}.bin differs from solve_batched")
+    st = nt.rank_stability(x, [8, 16, 24, 32], n_restarts=4, config=cfg, init="scaled", device=DEVICE)
+    rec = st.best_rank()
+    at = np.nonzero(st.sweep.ranks == rec)[0]
+    w_b, h_b = st.sweep.factors(int(at[np.argmin(st.sweep.costs[at])]))
+    check(nt.read_matrix(j("W_sel.bin")).tobytes() == w_b.cpu().numpy().tobytes()
+          and nt.read_matrix(j("H_sel.bin")).tobytes() == h_b.cpu().numpy().tobytes(),
+          "CLI select: files differ from rank_stability")
+    sel = nt.solve_restarts(x, rank=32, n_restarts=8, config=cfg, init="scaled", device=DEVICE)
+    w_b, h_b = sel.best
+    check(nt.read_matrix(j("W_rs.bin")).tobytes() == w_b.cpu().numpy().tobytes()
+          and nt.read_matrix(j("H_rs.bin")).tobytes() == h_b.cpu().numpy().tobytes(),
+          "CLI run --restarts: files differ from solve_restarts")
+    rate, audio = cli._read_wav(j("paper.wav"))
+    sep = nt.separate(audio, n_components=32, config=nt.SolveConfig(thresh=1e-5), n_restarts=4,
+                      device=DEVICE)
+    paths = cli.write_sources(sep.sources, rate, j("sep_inproc"))
+    check(len(paths) == 32 and all(
+        pathlib.Path(p).read_bytes() == pathlib.Path(j("sep_cli", os.path.basename(p))).read_bytes()
+        for p in paths), "CLI separate --restarts: the WAVs differ from the in-process separate")
+    out["selection"]["cli"] = {"wall_s": wall, "runs": list(runs), "select_rank": rec}
+    print(f"[{card}] CLI batch ({b} files), select --stability (rank {rec}), run --restarts 8 and "
+          f"separate --restarts 4 as subprocesses at once: every file byte-equal to its in-process "
+          f"call ({wall} s of wall)")
+
+
+def phase_selection(card, tmp, out, seed):
+    print(f"[{card}] phase 14: batched solves, restarts, rank sweeps, stability (K1-K3 over a "
+          "member axis), the plain batched paths and the CLI")
+    phase_selection_batched(card, out, seed)
+    x = _sel_problem(seed)
+    phase_selection_restarts(card, out, x)
+    phase_selection_sweep(card, out, x)
+    phase_selection_plain(card, out, seed)
+    phase_selection_cli(card, tmp, out, x, seed)
+
+
+def _selection_launches(launches, name):
+    """A kernel's launches on each run of phase 14 (one a batched launch,
+    whatever its members)."""
+    return {run[10:]: counts[name] for run, counts in launches.items()
+            if run.startswith("selection ")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the data phases 9, 10, 12 and 13 make (default 0)")
+                    help="seed of the data phases 9, 10, 12, 13 and 14 make (default 0)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -3464,7 +3896,7 @@ def main(argv=None) -> int:
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
-        "families": {}, "transform": {}, "models": {},
+        "families": {}, "transform": {}, "models": {}, "selection": {},
     }
     t_start = time.perf_counter()
     seconds = {}
@@ -3497,6 +3929,8 @@ def main(argv=None) -> int:
         run("transform", phase_transform, tmp, out, args.seed)
     with tempfile.TemporaryDirectory(prefix="nmf_models_") as tmp:
         run("models", phase_models, tmp, out, args.seed)
+    with tempfile.TemporaryDirectory(prefix="nmf_sel_") as tmp:
+        run("selection", phase_selection, tmp, out, args.seed)
     print(f"[{card}] phase seconds: {json.dumps(seconds)}")
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
@@ -3553,7 +3987,10 @@ def main(argv=None) -> int:
             "accel_launches": _accel_launches(out["launches"], name),
             # K1-K3: their launches on phase 12's H-only runs (K2: none)
             **({"transform_launches": _transform_launches(out["launches"], name),
-                "models_launches": _models_launches(out["launches"], name)}
+                "models_launches": _models_launches(out["launches"], name),
+                # phase 14: one launch a batched call, whatever its members
+                "selection_launches": _selection_launches(out["launches"], name),
+                "batched": st["batched"]}
                if name in ("update_h", "update_w", "kl_cost") else {}),
         })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
@@ -3561,7 +3998,8 @@ def main(argv=None) -> int:
     print(f"[{card}] families summary: {json.dumps(out['families'])}")
     print(f"[{card}] transform summary: {json.dumps(out['transform'])}")
     print(f"[{card}] models summary: {json.dumps(out['models'])}")
-    print(f"[{card}] all thirteen phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] selection summary: {json.dumps(out['selection'])}")
+    print(f"[{card}] all fourteen phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

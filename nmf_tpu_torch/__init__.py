@@ -17,7 +17,11 @@ paper's drum templates) and ``separate`` runs the paper's pipeline (STFT,
 KL-NMF through K1-K3, Wiener masks, ISTFT); ``solve_masked`` and
 ``solve_masked_h_only`` fit the observed entries of X, and
 ``solve_online`` learns W in one pass over a column stream, on plain torch
-ops as in JAX.  Imports torch and NumPy, never JAX.
+ops as in JAX.  ``solve_batched`` factorizes a stack of problems, and
+``solve_restarts``, ``solve_rank_sweep`` and ``rank_stability`` run model
+selection, each as one batched solve whose K1-K3 launches serve every
+member (``solve_sparse_tiled_batched`` on the plain sweeps).  Imports
+torch and NumPy, never JAX.
 
 Quick start::
 
@@ -34,12 +38,14 @@ from .models.init import nndsvd_init, random_init, scaled_random_init
 from .models.masked import solve_masked, solve_masked_h_only
 from .models.nmf import NMF, normalize_factors, solve_h_only, solve_w_only
 from .models.online import OnlineResult, solve_online
+from .models.selection import SelectionResult, solve_rank_sweep, solve_restarts
 from .models.semi import solve_semi
 from .models.separation import separate
 from .models.solver import SolveResult, solve
 from .models.sparse_tiled import (
     TileSparseX,
     solve_sparse_tiled,
+    solve_sparse_tiled_batched,
     tiles_from_coo,
     tiles_from_dense,
 )
@@ -51,10 +57,12 @@ from .models.streaming import (
     solve_out_of_core,
     transform_out_of_core,
 )
+from .models.stability import StabilityResult, consensus_matrix, rank_stability
 from .models.strict import solve_strict
 from .ops.divergence import beta_divergence, euclidean_cost, itakura_saito, kl_divergence
 from .ops.elementwise import EPS, eps_clamp
 from .ops.mu import mu_step, mu_step_beta, update_h, update_w
+from .parallel.batched import solve_batched
 from .utils.config import Precision, SolveConfig, reference_preset
 
 __version__ = "0.1.0"
@@ -91,6 +99,7 @@ __all__ = [
     "nndsvd_init",
     "TileSparseX",
     "solve_sparse_tiled",
+    "solve_sparse_tiled_batched",
     "tiles_from_coo",
     "tiles_from_dense",
     "solve_out_of_core",
@@ -99,6 +108,13 @@ __all__ = [
     "pick_block_n",
     "transform_out_of_core",
     "TransformResult",
+    "solve_batched",
+    "solve_restarts",
+    "solve_rank_sweep",
+    "SelectionResult",
+    "rank_stability",
+    "consensus_matrix",
+    "StabilityResult",
     "SolveConfig",
     "Precision",
     "reference_preset",

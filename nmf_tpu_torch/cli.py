@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch port (``run``, ``transform``,
-``separate``, ``gen``, ``info``).
+``separate``, ``select``, ``batch``, ``gen``, ``info``).
 
     python -m nmf_tpu_torch run X.bin W.bin H.bin -o Wout.bin Hout.bin   # on the card
     python -m nmf_tpu_torch run X.bin --rank 32 --device cpu   # NNDSVDa init
@@ -10,14 +10,17 @@
     python -m nmf_tpu_torch run X.bin W.bin H.bin --mask M.bin   # observed entries only
     python -m nmf_tpu_torch run X.bin W.bin H.bin --freeze 8     # first 8 columns of W fixed
     python -m nmf_tpu_torch run X.bin --rank 32 --init random --online   # one-pass learner
+    python -m nmf_tpu_torch run X.bin --rank 32 --restarts 8     # keep the best of 8 seeds
     python -m nmf_tpu_torch transform X.bin W.bin -o H.bin       # H against a fixed W
     python -m nmf_tpu_torch transform X.bin W.bin -o H.bin --out-of-core --block-n 4096
     python -m nmf_tpu_torch separate song.wav --rank 32 --out-dir sources   # the paper's pipeline
+    python -m nmf_tpu_torch select X.bin --ranks 4:32:4 --stability   # rank selection
+    python -m nmf_tpu_torch batch specs/ --rank 32 --out-dir out    # a directory in one solve
     python -m nmf_tpu_torch gen ./fixtures        # seed-0 reference fixtures
     python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
 
 The flags mirror ``python -m nmf_tpu``.  Every other flag of the JAX CLI's
-``run`` and ``transform`` is parsed with the JAX CLI's default, and runs as
+subcommands is parsed with the JAX CLI's default, and runs as
 the JAX CLI runs it when it spells out that default; any other value is
 refused with exit code 2, naming the ROADMAP.md item that will bring it: a
 flag is never silently ignored.
@@ -26,6 +29,8 @@ flag is never silently ignored.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import sys
 
@@ -37,6 +42,7 @@ from .models import init as init_mod
 from .models.masked import solve_masked, solve_masked_h_only
 from .models.nmf import solve_h_only
 from .models.online import solve_online
+from .models.selection import solve_rank_sweep, solve_restarts
 from .models.semi import solve_semi
 from .models.separation import separate
 from .models.solver import solve
@@ -46,7 +52,9 @@ from .models.streaming import (
     transform_out_of_core,
     wire_itemsize,
 )
+from .models.stability import rank_stability
 from .models.strict import solve_strict
+from .parallel.batched import solve_batched
 from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger
@@ -54,18 +62,14 @@ from .utils.metrics import MetricsLogger
 # JAX-CLI flags not in the port yet: flag -> (argparse kwargs with the JAX
 # CLI's default, nmf_tpu/cli.py:42-114, 1188-1227; where the work is queued
 # in ROADMAP.md).  A flag that spells out its default runs as the JAX CLI
-# runs it; any other value is refused.  _SOLVER_LATER is common to run and
-# transform (the JAX CLI's _add_solver_flags), _RUN_LATER is run's own.
+# runs it; any other value is refused.  _SOLVER_LATER is common to every
+# solving subcommand (the JAX CLI's _add_solver_flags).
 _SOLVER_LATER = {
     "--live": ({"action": "store_true"}, "Queue 1 step 9, item 13: utils (live metrics)"),
     "--validate": ({"action": "store_true"}, "Queue 1 step 9, item 13: utils (guards)"),
     "--mesh": ({}, "Queue 1 step 12, item 12: sharded solves"),
     "--checkpoint-dir": ({}, "Queue 1 item 13: utils (checkpoint)"),
     "--checkpoint-every": ({"type": int, "default": 100}, "Queue 1 item 13: utils (checkpoint)"),
-}
-_RUN_LATER = {
-    "--restarts": ({"type": int, "default": 1},
-                   "Queue 1 step 7, item 9: selection and batched solves"),
 }
 _AUTOTUNE = "Queue 1 step 11 (item 7): the H100 backend rules and autotune"
 
@@ -211,9 +215,11 @@ def cmd_run(args) -> int:
     if args.out_of_core and args.strict_compat:
         return _error("--strict-compat (padded-EPS replication) requires the "
                       "in-memory solver; drop --out-of-core")
-    refused = _refused(args, {**_SOLVER_LATER, **_RUN_LATER})
+    refused = _refused(args, _SOLVER_LATER)
     if refused:
         return _error("not in the PyTorch port yet: " + "; ".join(refused))
+    if args.restarts > 1 and (args.out_of_core or args.online):
+        return _error("--restarts batches whole in-memory solves (no --out-of-core / --online)")
     if args.online and args.out_of_core:
         return _error("pick one streaming mode — --out-of-core (full alternating "
                       "solve, one X stream per iteration) or --online (one-pass "
@@ -231,7 +237,9 @@ def cmd_run(args) -> int:
         h0 = binio.read_matrix(args.H)
     elif args.rank:
         m, n = x.shape
-        if args.init == "random":
+        if args.restarts > 1:
+            w0 = h0 = None  # solve_restarts makes each member's seeded init
+        elif args.init == "random":
             w0, h0 = init_mod.random_init(m, args.rank, n, seed=args.seed)
         elif args.init == "scaled":
             w0, h0 = init_mod.scaled_random_init(x, args.rank, seed=args.seed)
@@ -254,6 +262,8 @@ def cmd_run(args) -> int:
         return _error("--freeze composes with the plain / --mesh / --out-of-core solvers only")
     if mask is not None and args.freeze:
         return _error("--freeze is not implemented for masked solves")
+    if args.restarts > 1:
+        return _cmd_run_restarts(args, x, config, logger, mask, dev)
     with logger.timed() as t:
         if mask is not None:
             res = solve_masked(x, w0, h0, mask, config, device=dev)
@@ -271,6 +281,36 @@ def cmd_run(args) -> int:
     if not args.quiet:
         w_path, h_path = args.output
         print(f"[nmf] wrote {w_path} {w_out.shape}, {h_path} {h_out.shape}", file=sys.stderr)
+    return 0
+
+
+def _cmd_run_restarts(args, x, config, logger, mask, dev) -> int:
+    """run with --restarts N: N seeded solves in one batched solve, the
+    lowest-cost one written (``nmf_tpu/cli.py:458-523``)."""
+    if not args.rank or args.W or args.H:
+        return _error("--restarts generates its own seeded inits; use --rank (not W/H files)")
+    if args.strict_compat or mask is not None or args.freeze:
+        return _error("--restarts composes with --mesh only (no --strict-compat / "
+                      "--checkpoint-dir / --mask / --freeze)")
+    # the deterministic nndsvd variants would make identical members
+    init = args.init if args.init in ("random", "scaled", "nndsvdar") else "scaled"
+    if init != args.init and not args.quiet:
+        print(f"[nmf] --init {args.init} is deterministic (identical restart members); "
+              "using 'scaled' with per-member seeds", file=sys.stderr)
+    with logger.timed() as t:
+        sel = solve_restarts(x, rank=args.rank, n_restarts=args.restarts, config=config,
+                             seed=args.seed, init=init, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # time the run, not its enqueue
+    w_b, h_b = sel.best
+    res = dataclasses.replace(sel.best_solve_result(), w=w_b, h=h_b)
+    logger.report(res, x.shape, t.seconds, check_every=config.check_every)
+    if not args.quiet:
+        costs = ", ".join(f"{c:.6g}" for c in sel.costs)
+        print(f"[nmf] {args.restarts} restarts (seeds {args.seed}.."
+              f"{args.seed + args.restarts - 1}): costs [{costs}]; kept #{sel.best_index}",
+              file=sys.stderr)
+    _write_factors(res, args)
     return 0
 
 
@@ -401,6 +441,169 @@ def cmd_separate(args) -> int:
             f"cost {float(res.solve_result.cost):.4e}, {t.seconds:.2f}s)",
             file=sys.stderr,
         )
+    return 0
+
+
+def _parse_ranks(spec: str) -> list:
+    """'8,16,32' or 'START:STOP:STEP' (stop inclusive) -> sorted ranks."""
+    try:
+        if ":" in spec:
+            parts = [int(v) for v in spec.split(":")]
+            if len(parts) == 2:
+                parts.append(1)
+            start, stop, step = parts
+            ranks = list(range(start, stop + 1, step))
+        else:
+            ranks = [int(v) for v in spec.split(",")]
+    except ValueError:
+        ranks = []
+    if not ranks or any(r < 1 for r in ranks):
+        raise ValueError(
+            f"--ranks must be a comma list ('8,16,32') or START:STOP:STEP "
+            f"('4:40:4', stop inclusive) of positive ranks, got {spec!r}"
+        )
+    return sorted(set(ranks))
+
+
+def _in_memory_only(args, what: str):
+    """The exit of a flag that needs a mode ``select`` and ``batch`` lack,
+    in the JAX CLI's words, or None."""
+    for flag, name in ((args.checkpoint_dir, "--checkpoint-dir"),
+                       (args.out_of_core, "--out-of-core"),
+                       (args.strict_compat, "--strict-compat"),
+                       (args.block_n, "--block-n")):
+        if flag:
+            return _error(f"{name} is not supported for {what}")
+    refused = _refused(args, _SOLVER_LATER)
+    if refused:
+        return _error("not in the PyTorch port yet: " + "; ".join(refused))
+    return None
+
+
+def cmd_select(args) -> int:
+    """Rank selection: candidate ranks swept in one batched solve; with
+    --stability, Brunet's consensus clustering recommends the rank
+    (``nmf_tpu/cli.py:899-1016``)."""
+    rc = _in_memory_only(args, "rank selection (the sweep is one in-memory batched solve)")
+    if rc is not None:
+        return rc
+    dev = resolve_device(args.device)  # a missing card fails before any I/O
+    x = binio.read_matrix(args.X)
+    config = _config(args)
+    ranks = _parse_ranks(args.ranks)
+    restarts = args.restarts
+    if args.stability:
+        restarts = 4 if restarts is None else restarts
+        st = rank_stability(x, ranks, n_restarts=restarts, config=config, seed=args.seed,
+                            init=args.init, device=dev)
+        sel, rec = st.sweep, st.best_rank()
+    else:
+        restarts = 1 if restarts is None else restarts
+        if restarts < 1:
+            raise ValueError(f"--restarts must be >= 1, got {restarts}")
+        members = [r for r in ranks for _ in range(restarts)]
+        sel = solve_rank_sweep(x, members, config, seed=args.seed, init=args.init, device=dev)
+        st, rec = None, None
+    member_ranks = np.asarray(sel.ranks)
+    costs = np.asarray(sel.costs, np.float64)
+    per_rank = {r: float(np.min(costs[member_ranks == r])) for r in ranks}
+    if not args.quiet:
+        hdr = f"{'rank':>6s} {'best cost':>14s}"
+        if st is not None:
+            hdr += f" {'cophenetic':>11s} {'dispersion':>11s}"
+        print(hdr, file=sys.stderr)
+        for i, r in enumerate(ranks):
+            line = f"{r:6d} {per_rank[r]:14.6g}"
+            if st is not None:
+                line += f" {st.cophenetic[i]:11.4f} {st.dispersion[i]:11.4f}"
+            print(line, file=sys.stderr)
+        if st is not None:
+            print(f"[nmf] recommended rank (Brunet first-drop): {rec}", file=sys.stderr)
+        else:
+            print("[nmf] note: the divergence decreases monotonically with rank — use "
+                  "--stability for a principled recommendation", file=sys.stderr)
+    if args.jsonl:
+        with open(args.jsonl, "a") as f:
+            f.write(json.dumps({
+                "command": "select",
+                "ranks": ranks,
+                "restarts": restarts,
+                "best_cost_per_rank": per_rank,
+                "cophenetic": [float(v) for v in st.cophenetic] if st is not None else None,
+                "recommended_rank": rec,
+            }) + "\n")
+    if args.output:
+        if rec is None and len(ranks) > 1:
+            return _error("-o needs one rank to write — pass --stability (the "
+                          "recommendation picks it) or a single --ranks value")
+        target = rec if rec is not None else ranks[0]
+        at_rank = np.nonzero(member_ranks == target)[0]
+        w_b, h_b = sel.factors(int(at_rank[np.argmin(costs[at_rank])]))
+        w_out, h_out = (t.cpu().float().numpy() for t in (w_b, h_b))
+        binio.write_matrix(w_out, args.output[0])
+        binio.write_matrix(h_out, args.output[1])
+        if not args.quiet:
+            print(f"[nmf] wrote {args.output[0]} {w_out.shape}, {args.output[1]} "
+                  f"{h_out.shape} at rank {target}", file=sys.stderr)
+    return 0
+
+
+def _load_batch_dir(directory: str):
+    """(paths, [B, M, N] f32) of a directory's same-shaped ``.bin`` files,
+    sorted by name (the JAX CLI's ``BinDataset``, ``nmf_tpu/io/dataset.py``)."""
+    paths = sorted(p for p in (os.path.join(directory, f) for f in os.listdir(directory))
+                   if p.endswith(".bin") and os.path.isfile(p))
+    if not paths:
+        raise ValueError(f"no .bin files found in {directory!r}")
+    mats = [binio.read_matrix(paths[0])]
+    for path in paths[1:]:
+        a = binio.read_matrix(path)
+        if a.shape != mats[0].shape:
+            raise ValueError(f"{path}: shape {a.shape} != dataset shape {mats[0].shape} "
+                             f"(from {paths[0]})")
+        mats.append(a)
+    return paths, np.stack(mats)
+
+
+def cmd_batch(args) -> int:
+    """Factorize every .bin matrix of a directory in one batched solve
+    (``nmf_tpu/cli.py:1017-1096``): ``<stem>.W.bin`` and ``<stem>.H.bin``
+    for each, from random inits drawn from ``--seed``."""
+    rc = _in_memory_only(args, "batch runs (the batch is one in-memory batched solve)")
+    if rc is not None:
+        return rc
+    dev = resolve_device(args.device)  # a missing card fails before any I/O
+    paths, xs = _load_batch_dir(args.directory)
+    b, m, n = xs.shape
+    rng = np.random.RandomState(args.seed)
+    ws = rng.rand(b, m, args.rank).astype(np.float32)
+    hs = rng.rand(b, args.rank, n).astype(np.float32)
+    config = _config(args)
+    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    with logger.timed() as t:
+        res = solve_batched(xs, ws, hs, config, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # time the run, not its enqueue
+    os.makedirs(args.out_dir, exist_ok=True)
+    w_all, h_all = (a.cpu().float().numpy() for a in (res.w, res.h))
+    for i, path in enumerate(paths):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        binio.write_matrix(w_all[i], os.path.join(args.out_dir, f"{stem}.W.bin"))
+        binio.write_matrix(h_all[i], os.path.join(args.out_dir, f"{stem}.H.bin"))
+    costs = res.cost.cpu().numpy()
+    if args.jsonl:
+        logger.report_raw({
+            "kind": "batch",
+            "batch": int(b),
+            "shape": [int(m), int(n)],
+            "rank": int(args.rank),
+            "seconds": t.seconds,
+            "median_cost": float(np.median(costs)),
+            "iterations": res.iterations.tolist(),
+        })
+    if not args.quiet:
+        print(f"[nmf] batch of {b} ({m}x{n}, rank {args.rank}): {t.seconds:.2f}s, median "
+              f"cost {np.median(costs):.4e}, outputs in {args.out_dir}", file=sys.stderr)
     return 0
 
 
@@ -539,8 +742,11 @@ def build_parser() -> argparse.ArgumentParser:
         "(template-based fitting; order template columns first); in memory and "
         "with --out-of-core",
     )
-    for flag, (kw, where) in _RUN_LATER.items():
-        run.add_argument(flag, help=f"only its JAX default so far ({where})", **kw)
+    run.add_argument(
+        "--restarts", type=int, default=1,
+        help="solve from N seeded inits (--rank; seeds --seed..--seed+N-1) in one "
+        "batched solve and keep the lowest-divergence factorization",
+    )
     _add_solver_flags(run)
     run.set_defaults(fn=cmd_run)
 
@@ -569,10 +775,45 @@ def build_parser() -> argparse.ArgumentParser:
     sep.add_argument("--hop", type=int, default=256)
     sep.add_argument("--seed", type=int, default=0)
     sep.add_argument("--restarts", type=int, default=1,
-                     help="only 1 so far (ROADMAP.md Queue 1 step 7, item 9: selection "
-                     "and batched solves)")
+                     help="factorize from N seeded inits in one batched solve and keep "
+                     "the lowest-divergence decomposition")
     _add_solver_flags(sep)
     sep.set_defaults(fn=cmd_separate, thresh=1e-5)
+
+    sel = sub.add_parser(
+        "select",
+        help="rank selection: sweep candidate ranks in one batched solve (every member "
+        "is the lower-rank factorization); --stability adds Brunet consensus "
+        "clustering and a recommendation",
+    )
+    sel.add_argument("X", help="input matrix .bin")
+    sel.add_argument("--ranks", required=True,
+                     help="candidate ranks: comma list ('8,16,32') or START:STOP:STEP "
+                     "('4:40:4', stop inclusive)")
+    sel.add_argument("--restarts", type=int, default=None,
+                     help="restarts per rank (default 1; with --stability 4: a consensus "
+                     "needs several seeded members)")
+    sel.add_argument("--stability", action="store_true",
+                     help="consensus-clustering study (Brunet 2004): per-rank cophenetic "
+                     "correlation and the first-drop rank recommendation")
+    sel.add_argument("--init", choices=["random", "scaled", "nndsvdar"], default="scaled",
+                     help="seed-sensitive init families only (nndsvd/nndsvda would make "
+                     "identical restart members)")
+    sel.add_argument("--seed", type=int, default=0)
+    sel.add_argument("-o", "--output", nargs=2, metavar=("WOUT", "HOUT"), default=None,
+                     help="write the best factors at the recommended rank (--stability) "
+                     "or at a single --ranks value")
+    _add_solver_flags(sel)
+    sel.set_defaults(fn=cmd_select)
+
+    batch = sub.add_parser("batch",
+                           help="factorize a directory of .bin matrices in one batched solve")
+    batch.add_argument("directory", help="directory of same-shaped .bin files")
+    batch.add_argument("--rank", "-k", type=int, required=True)
+    batch.add_argument("--out-dir", default="batch_out")
+    batch.add_argument("--seed", type=int, default=0)
+    _add_solver_flags(batch)
+    batch.set_defaults(fn=cmd_batch)
 
     gen = sub.add_parser("gen", help="write the seed-0 reference fixtures")
     gen.add_argument("directory")

@@ -84,6 +84,12 @@
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 //
+// The *_batched entry points take a member axis in front of every operand,
+// as jax.vmap gives the TPU kernels one (the batched, restart and rank-sweep
+// solves): one pass-1 and one pass-2 launch serve all members, each member
+// walked at the plan of its own shape, X per member or shared by all
+// (struct Members).  The 2-D entry points are the one-member case.
+//
 // The pass-1 bodies, K3's cost walk and their dispatch live in pass1.cuh
 // (with mma_tile.cuh's tensor-core pieces and simt_tile.cuh's SIMT ones),
 // shared with K5 (tile_sparse.cu), which walks them over a sweep plan; here
@@ -96,35 +102,111 @@
 
 namespace {
 
+// The member axis of a batched call, the counterpart of jax.vmap over the
+// TPU kernels: one launch serves every member.  The grid's z holds `splits`
+// blocks of each member (member = blockIdx.z / splits); member b's W, H, X
+// and scales lie b byte strides past the first member's (X's and the
+// scales' strides 0 when all members share one X, jax.vmap's in_axes=None),
+// its partial slice b * part floats past the first.  Each member runs the
+// 2-D call's plan on its own shape, so member b of a batched launch gives
+// the bits of the 2-D call on member b; the 2-D call is one member.
+struct Members {
+  int splits;                   // blocks of one member along z
+  size_t w, h, x, scales;       // bytes from one member to the next
+  size_t part;                  // floats from one member's partials to the next
+
+  __device__ int member() const { return blockIdx.z / splits; }
+  __device__ int split() const { return blockIdx.z % splits; }
+  __host__ __device__ Operands of(Operands o, int b) const {
+    o.w = static_cast<const char*>(o.w) + b * w;
+    o.h = static_cast<const char*>(o.h) + b * h;
+    o.x = static_cast<const char*>(o.x) + b * x;
+    if (o.scales != nullptr)
+      o.scales = reinterpret_cast<const float*>(reinterpret_cast<const char*>(o.scales) + b * scales);
+    return o;
+  }
+};
+
+// A block's member, in shared memory: its operands and its split's partial,
+// written once by member_block.
+struct MemberBlock {
+  Operands o;
+  float* out;
+};
+
+// One member's operands as the walk reads them: the shapes and modes are
+// the launch's, in the parameter space as the 2-D kernels read them; the
+// pointers the member's, read from the block's MemberBlock where each is
+// used.  So no member offset holds a register across the walk (held in
+// registers, or the shapes read from shared memory too, the BF16 Mode's
+// R = 16 kernels and K3's ANY ones spilled).
+struct MemberOperands {
+  const void* const& w;
+  const void* const& h;
+  const void* const& x;
+  const float* const& scales;
+  const int& m;
+  const int& n;
+  const int& k;
+  const int& state_bf16;
+  const int& x_kind;
+  const float& eps;
+};
+
+__device__ __forceinline__ MemberOperands member_view(const Operands& o, const MemberBlock& blk) {
+  return {blk.o.w, blk.o.h, blk.o.x, blk.o.scales, o.m, o.n, o.k, o.state_bf16, o.x_kind, o.eps};
+}
+
+// The block's MemberBlock: member b's operands and split s's (k, n) (K1,
+// K3) or (m, k) (K2) slice of part.
+template <bool H>
+__device__ __forceinline__ void member_block(const Operands& o, float* part, const Members& b,
+                                             MemberBlock& blk) {
+  if (threadIdx.x == 0) {
+    const int mb = b.member();
+    blk.o = b.of(o, mb);
+    blk.out = part + mb * b.part + (size_t)b.split() * o.k * (H ? o.n : o.m);
+  }
+  __syncthreads();
+}
+
+// walk.out[i]: the split's partial, its pointer read from shared memory
+// where the partial is written.
+struct SharedPartial {
+  float* const* p;
+  __device__ float& operator[](size_t i) const { return (*p)[i]; }
+};
+
 // K1's (H) or K2's (W) dense walk: block (64-wide output tile, k chunk,
-// split) over the split's run of M tiles (K1) or N tiles (K2) of X, in
-// order; the resident operand is the block's H columns (K1) or W rows (K2),
-// the partial its split's (k, n) or (m, k) slice of part.
+// member x split) over the split's run of M tiles (K1) or N tiles (K2) of
+// X, in order; the resident operand is the block's H columns (K1) or W
+// rows (K2), the partial its split's slice of part.  The member's X and
+// partial pointers are read from its MemberBlock; the shapes are the
+// launch's.
 template <bool H>
 struct DenseWalk {
-  const void* x;
+  const void* const* x;
   int m, n, t_begin, t_end;
   int res0, res_lim;  // n0, n (K1) or m0, m (K2)
-  float* out;
+  SharedPartial out;
   int ld, out0, out_lim;
 
-  __device__ DenseWalk(const Operands& o, float* part, int tiles_per_split)
-      : x(o.x), m(o.m), n(o.n) {
+  __device__ DenseWalk(const Operands& o, const MemberBlock& blk, int tiles_per_split, int split)
+      : x(&blk.o.x), m(o.m), n(o.n), out{&blk.out} {
     const int walk_tiles = ((H ? o.m : o.n) + TILE - 1) / TILE;
-    t_begin = blockIdx.z * tiles_per_split;
+    t_begin = split * tiles_per_split;
     t_end = min(t_begin + tiles_per_split, walk_tiles);
     res0 = out0 = blockIdx.x * TILE;
     res_lim = out_lim = H ? o.n : o.m;
-    out = part + (size_t)blockIdx.z * o.k * (H ? o.n : o.m);
     ld = o.n;
   }
   __device__ int steps() const { return t_end - t_begin; }
   __device__ WalkStep step(int t) const {
     const int w0 = (t_begin + t) * TILE;
     if constexpr (H)
-      return {w0, m, {x, n, w0, res0, m, n}};
+      return {w0, m, {*x, n, w0, res0, m, n}};
     else
-      return {w0, n, {x, n, res0, w0, m, n}};
+      return {w0, n, {*x, n, res0, w0, m, n}};
   }
 };
 
@@ -132,36 +214,43 @@ struct DenseWalk {
 // on the SIMT units (pass1.cuh).
 template <int R, Mode MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<R, MODE>)
-    h_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
-  pass1<true, R, MODE>(o, DenseWalk<true>(o, part, tiles_per_split));
+    h_update_partial(const __grid_constant__ Operands o, float* __restrict__ part,
+                     int tiles_per_split, Members b) {
+  __shared__ MemberBlock blk;
+  member_block<true>(o, part, b, blk);
+  pass1<true, R, MODE>(member_view(o, blk), DenseWalk<true>(o, blk, tiles_per_split, b.split()));
 }
 
 template <int R, Mode MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<R, MODE>)
-    w_update_partial(Operands o, float* __restrict__ part, int tiles_per_split) {
-  pass1<false, R, MODE>(o, DenseWalk<false>(o, part, tiles_per_split));
+    w_update_partial(const __grid_constant__ Operands o, float* __restrict__ part,
+                     int tiles_per_split, Members b) {
+  __shared__ MemberBlock blk;
+  member_block<false>(o, part, b, blk);
+  pass1<false, R, MODE>(member_view(o, blk), DenseWalk<false>(o, blk, tiles_per_split, b.split()));
 }
 
 // Pass 2 of K1 and K2: out = base * (sum_s part[s]) / denom, the sum taken
 // in split order 0, 1, ... (fixed, so the bits never depend on scheduling).
 // base and out are in the state dtype (out rounded to nearest even); denom
 // is indexed by row (K1: sum_w[k] for out[k][n]) or by column (K2: sum_h[k]
-// for out[m][k]).
+// for out[m][k]).  Over `members` members, each rows x cols with its own
+// partials (splits of them) and denominator, one after another.
 __global__ void __launch_bounds__(THREADS)
     finalize(const void* __restrict__ base, int state_bf16,
              const float* __restrict__ part, const float* __restrict__ denom,
              void* __restrict__ out, int rows, int cols, int splits,
-             int denom_by_row) {
-  const size_t total = (size_t)rows * cols;
+             int denom_by_row, int members) {
+  const size_t per = (size_t)rows * cols, total = per * members;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (size_t)gridDim.x * blockDim.x) {
+    const size_t b = idx / per, i = idx - b * per;
     float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += part[(size_t)s * total + idx];
-    const float d = denom_by_row ? denom[idx / cols] : denom[idx % cols];
+    for (int s = 0; s < splits; ++s) acc += part[(b * splits + s) * per + i];
+    const float d = denom_by_row ? denom[b * rows + i / cols] : denom[b * cols + i % cols];
     // h * acc / sumw: fused_mu.py:277, 406
-    const float b = state_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[idx])
-                               : static_cast<const float*>(base)[idx];
-    const float v = b * acc / d;
+    const float v = (state_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[idx])
+                                : static_cast<const float*>(base)[idx]) * acc / d;
     if (state_bf16)
       static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
     else
@@ -171,14 +260,17 @@ __global__ void __launch_bounds__(THREADS)
 
 // Pass 2 of K1 and K2 in numerator_only mode: out = sum_s part[s] in f32,
 // the same split-ordered sum finalize takes, with no epilogue
-// (fused_mu.py:280-282, 408-409).  base and denom are not read.
+// (fused_mu.py:280-282, 408-409), over `members` members of `per` values.
+// base and denom are not read.
 __global__ void __launch_bounds__(THREADS)
     sum_splits(const float* __restrict__ part, float* __restrict__ out,
-               size_t total, int splits) {
+               size_t per, int splits, int members) {
+  const size_t total = per * members;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (size_t)gridDim.x * blockDim.x) {
+    const size_t b = idx / per, i = idx - b * per;
     float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += part[(size_t)s * total + idx];
+    for (int s = 0; s < splits; ++s) acc += part[(b * splits + s) * per + i];
     out[idx] = acc;
   }
 }
@@ -194,43 +286,50 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-// K3 pass 1 (pass1.cuh: kl_walk): block (64-wide column block, 1, split)
-// walks the split's run of M tiles as K1's does and writes one partial, its
-// threads' sums added by a fixed tree, to slot split * gridDim.x + column
-// block.
+// K3 pass 1 (pass1.cuh: kl_walk): block (64-wide column block, 1, member
+// x split) walks the split's run of M tiles as K1's does and writes one
+// partial, its threads' sums added by a fixed tree, to slot blockIdx.z *
+// gridDim.x + column block: each member's slots in a run of their own.
 template <int R, Mode MODE>
 __global__ void __launch_bounds__(THREADS, KL_MIN_BLOCKS<R, MODE>)
-    kl_partial(Operands o, float* __restrict__ partials, int tiles_per_split) {
+    kl_partial(const __grid_constant__ Operands o, float* __restrict__ partials,
+               int tiles_per_split, Members b) {
   __shared__ float red[THREADS];
+  __shared__ MemberBlock blk;
   // the walk's partial pointer is K1's and never written here
-  const float t = kl_walk<R, MODE>(o, DenseWalk<true>(o, partials, tiles_per_split));
+  member_block<true>(o, partials, b, blk);
+  const float t = kl_walk<R, MODE>(member_view(o, blk), DenseWalk<true>(o, blk, tiles_per_split,
+                                                                         b.split()));
   const float sum = block_sum(t, red);
   if (threadIdx.x == 0) partials[blockIdx.z * gridDim.x + blockIdx.x] = sum;
 }
 
-// K3 pass 2: one block sums the slots, strided then by tree: fixed order.
+// K3 pass 2: block b sums member b's `count` slots, strided then by tree:
+// fixed order.
 __global__ void __launch_bounds__(THREADS)
     kl_final(const float* __restrict__ partials, int count,
              float* __restrict__ out) {
   __shared__ float red[THREADS];
+  const float* p = partials + (size_t)blockIdx.x * count;
   float t = 0.f;
-  for (int i = threadIdx.x; i < count; i += THREADS) t += partials[i];
+  for (int i = threadIdx.x; i < count; i += THREADS) t += p[i];
   const float sum = block_sum(t, red);
-  if (threadIdx.x == 0) out[0] = sum;
+  if (threadIdx.x == 0) out[blockIdx.x] = sum;
 }
 
-// K3 under bfloat16 on f32 state: W and H rounded to bf16 (nearest even,
-// the casts' rounding) once a call, into the caller's scratch (wb, hb), so
-// that every step of the walk stages bf16 bits by cp.async.
+// K3 under bfloat16 on f32 state: W or H of `members` members, `len`
+// values each, rounded to bf16 (nearest even, the casts' rounding) once a
+// call into the caller's scratch, member b's at dst + b * ld (ld a multiple
+// of 8: each member's copy on 16 bytes), so that every step of the walk
+// stages bf16 bits by cp.async.
 __global__ void __launch_bounds__(THREADS)
-    to_bf16(const float* __restrict__ w, size_t mk, const float* __restrict__ h, size_t kn,
-            __nv_bfloat16* __restrict__ wb, __nv_bfloat16* __restrict__ hb) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mk + kn;
+    to_bf16(const float* __restrict__ src, size_t len, int members,
+            __nv_bfloat16* __restrict__ dst, size_t ld) {
+  const size_t total = len * members;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
-    if (i < mk)
-      wb[i] = __float2bfloat16_rn(w[i]);
-    else
-      hb[i - mk] = __float2bfloat16_rn(h[i - mk]);
+    const size_t b = i / len;
+    dst[b * ld + (i - b * len)] = __float2bfloat16_rn(src[i]);
   }
 }
 
@@ -267,10 +366,10 @@ auto partial_kernel() {
 // H100 a short trace lost its first kernels (PERF.md section 6).
 std::atomic<int> partial_launches[2][MODES];
 
-// Pass 1 of K1 (H) or K2 (W) at chunk width kc.
+// Pass 1 of K1 (H) or K2 (W) at chunk width kc, for `members` members.
 template <bool H, Mode MODE>
 cudaError_t launch_partial(int kc, const Operands& o, float* part, int splits,
-                           int per, cudaStream_t st) {
+                           int per, const Members& b, int members, cudaStream_t st) {
   cudaError_t err = at_width(kc, [&](auto r) {
     constexpr int R = decltype(r)::value;
     constexpr size_t smem = pass1_smem_bytes<H, R, MODE>();
@@ -278,8 +377,9 @@ cudaError_t launch_partial(int kc, const Operands& o, float* part, int splits,
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
-    const dim3 grid(((H ? o.n : o.m) + TILE - 1) / TILE, (o.k + 16 * R - 1) / (16 * R), splits);
-    kernel<<<grid, THREADS, smem, st>>>(o, part, per);
+    const dim3 grid(((H ? o.n : o.m) + TILE - 1) / TILE, (o.k + 16 * R - 1) / (16 * R),
+                    splits * members);
+    kernel<<<grid, THREADS, smem, st>>>(o, part, per, b);
     return cudaGetLastError();
   });
   if (err == cudaSuccess) ++partial_launches[H ? 0 : 1][static_cast<int>(MODE)];
@@ -310,23 +410,41 @@ unsigned pass_blocks(size_t total) {
 cudaError_t launch_finalize(const void* base, int state_bf16, const float* part,
                             const float* denom, void* out, int rows, int cols,
                             int splits, int denom_by_row, int numerator_only,
-                            cudaStream_t st) {
-  const size_t total = (size_t)rows * cols;
+                            int members, cudaStream_t st) {
+  const size_t per = (size_t)rows * cols;
   if (numerator_only)
-    sum_splits<<<pass_blocks(total), THREADS, 0, st>>>(
-        part, static_cast<float*>(out), total, splits);
+    sum_splits<<<pass_blocks(per * members), THREADS, 0, st>>>(
+        part, static_cast<float*>(out), per, splits, members);
   else
-    finalize<<<pass_blocks(total), THREADS, 0, st>>>(base, state_bf16, part, denom,
-                                                     out, rows, cols, splits,
-                                                     denom_by_row);
+    finalize<<<pass_blocks(per * members), THREADS, 0, st>>>(
+        base, state_bf16, part, denom, out, rows, cols, splits, denom_by_row, members);
   return cudaGetLastError();
 }
+
+size_t x_bytes(int x_kind) { return x_kind == X_F32 ? 4 : x_kind == X_BF16 ? 2 : 1; }
+
+// The member strides of a call: W (m, k) and H (k, n) per member in the
+// state dtype, X (m, n) and its scales (n,) per member or shared
+// (x_shared: stride 0).
+Members members_of(const Operands& o, int x_shared, int splits, size_t part) {
+  const size_t state = o.state_bf16 ? 2 : 4;
+  return Members{splits, (size_t)o.m * o.k * state, (size_t)o.k * o.n * state,
+                 x_shared ? 0 : (size_t)o.m * o.n * x_bytes(o.x_kind),
+                 x_shared ? 0 : (size_t)o.n * sizeof(float), part};
+}
+
+// Members a launch takes: gridDim.z (splits a member) is at most 65535, so
+// a batch past that is launched in groups of this many members.
+int group_of(int splits) { return 65535 / splits; }
 
 template <bool H>
 int update(const void* w, const void* h, const void* x, const float* scales,
            const float* denom, float* part, void* out, int m, int n, int k,
            int kc, int splits, int tiles_per_split, float eps, int state_bf16,
-           int x_kind, int gemm, int numerator_only, int device, void* stream) {
+           int x_kind, int gemm, int numerator_only, int device, void* stream,
+           int members, int x_shared) {
+  if (members < 1 || splits < 1 || splits > 65535 || (x_shared != 0 && x_shared != 1))
+    return cudaErrorInvalidValue;
   Operands o;
   cudaError_t err = make_operands(w, h, x, scales, m, n, k, state_bf16, x_kind,
                                   gemm, eps, &o);
@@ -334,14 +452,91 @@ int update(const void* w, const void* h, const void* x, const float* scales,
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = at_mode(static_cast<int>(mode_of(o, gemm)), [&](auto m) {
-    return launch_partial<H, decltype(m)::value>(kc, o, part, splits, tiles_per_split, st);
-  });
+  // the output's rows x cols: (k, n) for K1, (m, k) for K2
+  const int rows = H ? k : m, cols = H ? n : k;
+  const size_t per = (size_t)rows * cols;
+  const Members b = members_of(o, x_shared, splits, per * splits);
+  const size_t out_bytes = per * (numerator_only ? sizeof(float) : state_bf16 ? 2 : 4);
+  const int group = group_of(splits);
+  for (int g0 = 0; g0 < members && err == cudaSuccess; g0 += group) {
+    const int gb = std::min(group, members - g0);
+    const Operands og = b.of(o, g0);
+    float* pg = part + g0 * b.part;
+    err = at_mode(static_cast<int>(mode_of(o, gemm)), [&](auto md) {
+      return launch_partial<H, decltype(md)::value>(kc, og, pg, splits, tiles_per_split, b,
+                                                    gb, st);
+    });
+    if (err != cudaSuccess) return err;
+    err = launch_finalize(H ? og.h : og.w, state_bf16, pg, denom == nullptr ? nullptr : denom + (size_t)g0 * k,
+                          static_cast<char*>(out) + g0 * out_bytes, rows, cols, splits, H ? 1 : 0,
+                          numerator_only, gb, st);
+  }
+  return err;
+}
+
+// K3 over `members` members (kl_split's plan of one member), one f32 a
+// member into out.
+int kl_cost(const void* w, const void* h, const void* x, const float* scales,
+            float* partials, void* scratch, float* out, int m, int n, int k, int kc,
+            int splits, int tiles_per_split, float eps, int state_bf16, int x_kind,
+            int gemm, int device, void* stream, int members, int x_shared) {
+  const int m_tiles = (m + TILE - 1) / TILE;
+  if (splits < 1 || splits > 65535 || tiles_per_split < 1 ||
+      (splits - 1) * tiles_per_split >= m_tiles || splits * tiles_per_split < m_tiles)
+    return cudaErrorInvalidValue;  // every split non-empty, every M tile walked once
+  if (members < 1 || (x_shared != 0 && x_shared != 1)) return cudaErrorInvalidValue;
+  Operands o;
+  cudaError_t err = make_operands(w, h, x, scales, m, n, k, state_bf16, x_kind,
+                                  gemm, eps, &o);
   if (err != cudaSuccess) return err;
-  return H ? launch_finalize(h, state_bf16, part, denom, out, k, n, splits, 1,
-                            numerator_only, st)
-           : launch_finalize(w, state_bf16, part, denom, out, m, k, splits, 0,
-                             numerator_only, st);
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Mode mode = kl_mode_of(o, gemm);
+  const int col_blocks = (n + TILE - 1) / TILE, slots = splits * col_blocks;
+  Members b = members_of(o, x_shared, splits, slots);
+  if (mode == Mode::BF16 && !o.state_bf16) {  // the BF16 walk stages bf16 bits
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    const size_t mk = (size_t)m * k, kn = (size_t)k * n;
+    const size_t wld = (mk + 7) / 8 * 8, hld = (kn + 7) / 8 * 8;  // on 16 bytes
+    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(scratch);
+    __nv_bfloat16* hb = wb + wld * members;
+    to_bf16<<<pass_blocks(mk * members), THREADS, 0, st>>>(static_cast<const float*>(w), mk,
+                                                           members, wb, wld);
+    to_bf16<<<pass_blocks(kn * members), THREADS, 0, st>>>(static_cast<const float*>(h), kn,
+                                                           members, hb, hld);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    o.w = wb;
+    o.h = hb;
+    o.state_bf16 = 1;
+    b.w = wld * sizeof(__nv_bfloat16);
+    b.h = hld * sizeof(__nv_bfloat16);
+  }
+  const int group = group_of(splits);
+  for (int g0 = 0; g0 < members; g0 += group) {
+    const int gb = std::min(group, members - g0);
+    const Operands og = b.of(o, g0);
+    float* pg = partials + (size_t)g0 * slots;
+    const dim3 grid(col_blocks, 1, splits * gb);
+    err = at_kl(static_cast<int>(mode), kc, [&](auto md, auto r) {
+      constexpr Mode MODE = decltype(md)::value;
+      constexpr int R = decltype(r)::value;
+      constexpr size_t smem = kl_smem_bytes<R, MODE>();
+      auto kernel = kl_partial<R, MODE>;
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, THREADS, smem, st>>>(og, pg, tiles_per_split, b);
+      return cudaGetLastError();
+    });
+    if (err != cudaSuccess) return err;
+    ++kl_launches[static_cast<int>(mode)];
+    kl_final<<<gb, THREADS, 0, st>>>(pg, slots, out + g0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return err;
 }
 
 }  // namespace
@@ -389,7 +584,7 @@ int nmf_h_update(const void* w, const void* h, const void* x,
                  int gemm, int numerator_only, int device, void* stream) {
   return update<true>(w, h, x, scales, sum_w, part, out, m, n, k, kc, splits,
                       tiles_per_split, eps, state_bf16, x_kind, gemm,
-                      numerator_only, device, stream);
+                      numerator_only, device, stream, 1, 0);
 }
 
 // K2.  sum_h (k,) = max(rowsum h, eps), part (splits,m,k), out (m,k); the
@@ -401,7 +596,36 @@ int nmf_w_update(const void* w, const void* h, const void* x,
                  int gemm, int numerator_only, int device, void* stream) {
   return update<false>(w, h, x, scales, sum_h, part, out, m, n, k, kc, splits,
                        tiles_per_split, eps, state_bf16, x_kind, gemm,
-                       numerator_only, device, stream);
+                       numerator_only, device, stream, 1, 0);
+}
+
+// K1 and K2 over a member axis: as nmf_h_update / nmf_w_update on
+// `members` members stacked in front of every operand (w (B,m,k), h
+// (B,k,n), the denominator (B,k), part (B,splits,...), out (B,...)), each
+// member at the 2-D call's plan (splits, tiles_per_split of its shape);
+// x (m,n) and scales (n,) shared by all members when x_shared is 1, else
+// (B,m,n) and (B,n).  One pass-1 and one pass-2 launch for all members
+// (a group of 65535 / splits members a launch past gridDim.z's limit).
+int nmf_h_update_batched(const void* w, const void* h, const void* x,
+                         const float* scales, const float* sum_w, float* part,
+                         void* out, int m, int n, int k, int kc, int splits,
+                         int tiles_per_split, float eps, int state_bf16, int x_kind,
+                         int gemm, int numerator_only, int device, void* stream,
+                         int members, int x_shared) {
+  return update<true>(w, h, x, scales, sum_w, part, out, m, n, k, kc, splits,
+                      tiles_per_split, eps, state_bf16, x_kind, gemm,
+                      numerator_only, device, stream, members, x_shared);
+}
+
+int nmf_w_update_batched(const void* w, const void* h, const void* x,
+                         const float* scales, const float* sum_h, float* part,
+                         void* out, int m, int n, int k, int kc, int splits,
+                         int tiles_per_split, float eps, int state_bf16, int x_kind,
+                         int gemm, int numerator_only, int device, void* stream,
+                         int members, int x_shared) {
+  return update<false>(w, h, x, scales, sum_h, part, out, m, n, k, kc, splits,
+                       tiles_per_split, eps, state_bf16, x_kind, gemm,
+                       numerator_only, device, stream, members, x_shared);
 }
 
 // K3.  w, h, x, scales, state_bf16, x_kind and gemm as K1 (float32_fast
@@ -416,47 +640,23 @@ int nmf_kl_cost(const void* w, const void* h, const void* x,
                 int m, int n, int k, int kc, int splits, int tiles_per_split,
                 float eps, int state_bf16, int x_kind, int gemm, int device,
                 void* stream) {
-  const int m_tiles = (m + TILE - 1) / TILE;
-  if (splits < 1 || splits > 65535 || tiles_per_split < 1 ||
-      (splits - 1) * tiles_per_split >= m_tiles || splits * tiles_per_split < m_tiles)
-    return cudaErrorInvalidValue;  // every split non-empty, every M tile walked once
-  Operands o;
-  cudaError_t err = make_operands(w, h, x, scales, m, n, k, state_bf16, x_kind,
-                                  gemm, eps, &o);
-  if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Mode mode = kl_mode_of(o, gemm);
-  if (mode == Mode::BF16 && !o.state_bf16) {  // the BF16 walk stages bf16 bits
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    const size_t mk = (size_t)m * k, kn = (size_t)k * n;
-    __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(scratch);
-    __nv_bfloat16* hb = wb + (mk + 7) / 8 * 8;  // on 16 bytes
-    to_bf16<<<pass_blocks(mk + kn), THREADS, 0, st>>>(static_cast<const float*>(w), mk,
-                                                      static_cast<const float*>(h), kn, wb, hb);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    o.w = wb;
-    o.h = hb;
-    o.state_bf16 = 1;
-  }
-  const dim3 grid((n + TILE - 1) / TILE, 1, splits);
-  err = at_kl(static_cast<int>(mode), kc, [&](auto md, auto r) {
-    constexpr Mode MODE = decltype(md)::value;
-    constexpr int R = decltype(r)::value;
-    constexpr size_t smem = kl_smem_bytes<R, MODE>();
-    auto kernel = kl_partial<R, MODE>;
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<grid, THREADS, smem, st>>>(o, partials, tiles_per_split);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return err;
-  ++kl_launches[static_cast<int>(mode)];
-  kl_final<<<1, THREADS, 0, st>>>(partials, (int)(grid.x * grid.z), out);
-  return cudaGetLastError();
+  return kl_cost(w, h, x, scales, partials, scratch, out, m, n, k, kc, splits,
+                 tiles_per_split, eps, state_bf16, x_kind, gemm, device, stream, 1, 0);
+}
+
+// K3 over a member axis: out (B,) f32, one cost a member; partials (B *
+// splits * ceil(n / 64),); scratch under bfloat16 on f32 state (B *
+// (ceil(m k / 8) + ceil(k n / 8)) * 8,) bf16; the rest as
+// nmf_h_update_batched.  One kl_partial and one kl_final launch (one
+// block a member) for all members.
+int nmf_kl_cost_batched(const void* w, const void* h, const void* x,
+                        const float* scales, float* partials, void* scratch, float* out,
+                        int m, int n, int k, int kc, int splits, int tiles_per_split,
+                        float eps, int state_bf16, int x_kind, int gemm, int device,
+                        void* stream, int members, int x_shared) {
+  return kl_cost(w, h, x, scales, partials, scratch, out, m, n, k, kc, splits,
+                 tiles_per_split, eps, state_bf16, x_kind, gemm, device, stream, members,
+                 x_shared);
 }
 
 // K3's pass-1 launches in Mode `mode` since the library loaded or the last

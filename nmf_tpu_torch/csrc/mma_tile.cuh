@@ -356,8 +356,8 @@ __device__ __forceinline__ void stage_rows_vec(const T* p, int r0, int c0, int r
 // vector), else one element at a time; UNROLL elements a thread in flight
 // at once, or VU vectors (4 or 8 elements each; VU = 0: elements only): as
 // many as the registers beside K1/K2's accumulators allow.
-template <int ROWS, int COLS, int LD, int UNROLL, int VU, int PLANE = 0>
-__device__ __forceinline__ void stage_bf16(const Operands& o, const void* p, int r0, int c0,
+template <int ROWS, int COLS, int LD, int UNROLL, int VU, int PLANE = 0, typename Ops>
+__device__ __forceinline__ void stage_bf16(const Ops& o, const void* p, int r0, int c0,
                                            int rlim, int clim, int stride, bf16* dst) {
   if (o.state_bf16) {
     const bf16* src = static_cast<const bf16*>(p);
@@ -427,8 +427,8 @@ __device__ __forceinline__ void stage_x_vec(const XSrc& x, float* xs) {
 // Staged whole before W H, so that no X load is in flight beside the W H
 // accumulators (the ratio's own X loads spilled at KC = 256); two elements
 // a thread in flight (four spilled K2 at KC = 256).
-template <bool VEC>
-__device__ __forceinline__ void stage_x(const Operands& o, const XSrc& x, float* xs) {
+template <bool VEC, typename Ops>
+__device__ __forceinline__ void stage_x(const Ops& o, const XSrc& x, float* xs) {
   if constexpr (VEC) {
     if (o.x_kind == X_F32 && vec_ok(x.p, x.stride, 4) && ((x.c0 | x.clim) & 3) == 0)
       return stage_x_vec<4, float>(x, xs);
@@ -457,8 +457,8 @@ __device__ __forceinline__ void stage_x(const Operands& o, const XSrc& x, float*
 // each k-step summed apart; else W H accumulates in the mma, or (FRESH:
 // K3, whose cost adds up every recon of X, so that a drift of each one the
 // same way would add up too) each k-step is summed apart.
-template <int LDA, int LDB, int UNROLL, int PA = 0, int PB = 0, bool FRESH = false>
-__device__ __forceinline__ void recon_resident(const Operands& o, const bf16* a, const bf16* b,
+template <int LDA, int LDB, int UNROLL, int PA = 0, int PB = 0, bool FRESH = false, typename Ops>
+__device__ __forceinline__ void recon_resident(const Ops& o, const bf16* a, const bf16* b,
                                                float (&y)[1][4][4]) {
   const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
   mma_panel<1, 4, false, true, LDA, LDB, FRESH, UNROLL, PA, PB>(y, a + 16 * wm * LDA,
@@ -473,8 +473,8 @@ constexpr int STEP_BUF = (S3 ? 2 : 1) * STEP_WORDS;
 // The same, streaming W rows m0.. (below mlim) and H columns n0.. (below
 // nlim) through ws/hs (STEP_BUF) RK deep a step: for K above one chunk,
 // where neither block fits.
-template <bool S3>
-__device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int mlim, int n0,
+template <bool S3, typename Ops>
+__device__ __forceinline__ void recon_streamed(const Ops& o, int m0, int mlim, int n0,
                                                int nlim, bf16* ws, float (&y)[1][4][4]) {
   constexpr int WP = S3 ? TILE * WS_LD : 0, HP = S3 ? RK * HS_LD : 0;
   bf16* hs = ws + (S3 ? 2 : 1) * TILE * WS_LD;
@@ -493,8 +493,8 @@ __device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int ml
 // Z = X / max(W H, eps) at each lane's accumulator positions, from xs into
 // zs [TILE][ZS_LD] as bf16 pairs: rounded to bf16, or (PLANE > 0) split3 in
 // f32, lo into zs + PLANE.  Not synchronised.
-template <int PLANE = 0>
-__device__ __forceinline__ void ratio_z(const Operands& o, const float (&y)[1][4][4],
+template <int PLANE = 0, typename Ops>
+__device__ __forceinline__ void ratio_z(const Ops& o, const float (&y)[1][4][4],
                                         const float* xs, bf16* zs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp & 3, wn = warp >> 2;
 #pragma unroll
@@ -546,8 +546,8 @@ constexpr int WALK_UNROLL = 4, WALK_VECTORS = 2;
 // W H streams both per k step.  S3: every staged block (wc, hr or the
 // step, zs) is two planes, hi then lo, and each k-step of W H too is
 // summed apart.
-template <int R, bool S3, typename Walk>
-__device__ __forceinline__ void h_partial_mma(const Operands& o, const Walk& walk) {
+template <int R, bool S3, typename Walk, typename Ops>
+__device__ __forceinline__ void h_partial_mma(const Ops& o, const Walk& walk) {
   using L = HTiling<R>;
   constexpr int KC = 16 * R, WC_LD = KC + BPAD, P = S3 ? 2 : 1;
   // the lo planes' offsets (0: no split)
@@ -614,8 +614,8 @@ __device__ __forceinline__ void h_partial_mma(const Operands& o, const Walk& wal
 // as K1).  With one k chunk Hc is the step's whole H block, and the
 // block's W rows (walk.res0 ..) stay in shared memory for its walk (wr).
 // S3: two planes each, as K1.
-template <int R, bool S3, typename Walk>
-__device__ __forceinline__ void w_partial_mma(const Operands& o, const Walk& walk) {
+template <int R, bool S3, typename Walk, typename Ops>
+__device__ __forceinline__ void w_partial_mma(const Ops& o, const Walk& walk) {
   using L = WTiling<R>;
   constexpr int KC = 16 * R, HC_LD = TILE + BPAD, WR_LD = KC + BPAD, P = S3 ? 2 : 1;
   constexpr int ZP = S3 ? Z_WORDS : 0, HP = S3 ? KC * HC_LD : 0, WP = S3 ? TILE * WR_LD : 0;

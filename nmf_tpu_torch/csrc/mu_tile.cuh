@@ -35,6 +35,9 @@ enum Gemm { GEMM_F32 = 0, GEMM_SPLIT3 = 1, GEMM_BF16 = 2 };
 enum class Mode { F32, ANY, SPLIT3, BF16 };
 
 // The operands and modes of one call, passed by value to every kernel.
+// The device pieces take their operands' type as a template parameter
+// (Ops): this struct, or a view with the same fields (fused_mu.cu's
+// MemberOperands, one member of a batched launch).
 struct Operands {
   const void* w;         // (m, k) state dtype
   const void* h;         // (k, n) state dtype
@@ -75,8 +78,8 @@ struct U8In {  // uint8 codes, dequantized in register: float(q) * scale[col]
 // every unrolled staging loop, doubled the kernels' code.)
 //
 // body(src) for W or H (p) in the state dtype.
-template <Mode MODE, typename Body>
-__device__ __forceinline__ void with_state(const void* p, const Operands& o, Body&& body) {
+template <Mode MODE, typename Body, typename Ops>
+__device__ __forceinline__ void with_state(const void* p, const Ops& o, Body&& body) {
   if constexpr (MODE == Mode::F32) {
     body(F32In{static_cast<const float*>(p)});
   } else if (o.state_bf16) {
@@ -87,8 +90,8 @@ __device__ __forceinline__ void with_state(const void* p, const Operands& o, Bod
 }
 
 // body(src) for X at p (in the storage o.x_kind names).
-template <Mode MODE, typename Body>
-__device__ __forceinline__ void with_x(const Operands& o, const void* p, Body&& body) {
+template <Mode MODE, typename Body, typename Ops>
+__device__ __forceinline__ void with_x(const Ops& o, const void* p, Body&& body) {
   if constexpr (MODE == Mode::F32) {
     body(F32In{static_cast<const float*>(p)});
   } else {

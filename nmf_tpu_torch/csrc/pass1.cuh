@@ -40,8 +40,8 @@ template <int R, Mode MODE>
 constexpr int MIN_BLOCKS = MODE == Mode::BF16 || (MODE == Mode::F32 && R < 16) ? 2 : 1;
 
 // The body of K1's side (H) or K2's (W) in MODE at chunk width 16 R.
-template <bool H, int R, Mode MODE, typename Walk>
-__device__ __forceinline__ void pass1(const Operands& o, const Walk& walk) {
+template <bool H, int R, Mode MODE, typename Walk, typename Ops>
+__device__ __forceinline__ void pass1(const Ops& o, const Walk& walk) {
   if constexpr (MODE == Mode::BF16 || MODE == Mode::SPLIT3) {
     if constexpr (H)
       h_partial_mma<R, MODE == Mode::SPLIT3>(o, walk);
@@ -157,8 +157,8 @@ __device__ __forceinline__ void stage_bits(const bf16* p, int r0, int c0, int rl
 // 16-byte vectors (8 elements), uint8 codes 4 a load with their 4 scales as
 // one float4 (float(q) * scale, as U8In), where the rows and columns allow;
 // an element at a time otherwise.
-template <Mode MODE>
-__device__ __forceinline__ void stage_x_kl(const Operands& o, const XSrc& x, float* xs) {
+template <Mode MODE, typename Ops>
+__device__ __forceinline__ void stage_x_kl(const Ops& o, const XSrc& x, float* xs) {
   if constexpr (MODE != Mode::F32) {
     if (o.x_kind == X_BF16 && vec_ok(x.p, x.stride, 8) && ((x.c0 | x.clim) & 7) == 0)
       return stage_x_vec<8, bf16>(x, xs);
@@ -203,8 +203,8 @@ __device__ __forceinline__ void stage_x_kl(const Operands& o, const XSrc& x, flo
 // added into the thread's running sum with Kahan's compensation
 // (KahanSum): a chain of 16 adds a step, and about one rounding over the
 // whole walk, however long (303 steps on an hour of audio held tall).
-template <int R, Mode MODE, typename Walk>
-__device__ __forceinline__ float kl_walk(const Operands& o, const Walk& walk) {
+template <int R, Mode MODE, typename Walk, typename Ops>
+__device__ __forceinline__ float kl_walk(const Ops& o, const Walk& walk) {
   static_assert(MODE != Mode::SPLIT3, "K3's recon is true f32 under float32_fast");
   constexpr bool MMA = MODE == Mode::BF16;
   constexpr int KC = 16 * R, LDW = KC + (MMA ? BPAD : 4);

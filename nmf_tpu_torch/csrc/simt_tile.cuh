@@ -137,20 +137,20 @@ __device__ __forceinline__ void stage(Src src, int r0, int c0, int rlim, int cli
 // W (rows r0.. below rlim, columns k0..) or H (rows k0.., columns c0..
 // below clim) in the state dtype, and a step's X ([TILE][LD]), staged by
 // stage(); f32 GEMMs, so no rounding.
-template <Mode MODE, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void stage_w(const Operands& o, int r0, int k0, int rlim, float* dst) {
+template <Mode MODE, int ROWS, int COLS, int LD, typename Ops>
+__device__ __forceinline__ void stage_w(const Ops& o, int r0, int k0, int rlim, float* dst) {
   with_state<MODE>(o.w, o, [&](auto w) {
     stage<ROWS, COLS, LD>(w, r0, k0, rlim, o.k, o.k, dst);
   });
 }
-template <Mode MODE, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void stage_h(const Operands& o, int k0, int c0, int clim, float* dst) {
+template <Mode MODE, int ROWS, int COLS, int LD, typename Ops>
+__device__ __forceinline__ void stage_h(const Ops& o, int k0, int c0, int clim, float* dst) {
   with_state<MODE>(o.h, o, [&](auto h) {
     stage<ROWS, COLS, LD>(h, k0, c0, o.k, clim, o.n, dst);
   });
 }
-template <Mode MODE, int LD = SLD>
-__device__ __forceinline__ void stage_xs(const Operands& o, const XSrc& x, float* xs) {
+template <Mode MODE, int LD = SLD, typename Ops>
+__device__ __forceinline__ void stage_xs(const Ops& o, const XSrc& x, float* xs) {
   with_x<MODE>(o, x.p, [&](auto src) {
     stage<TILE, TILE, LD>(src, x.r0, x.c0, x.rlim, x.clim, x.stride, xs);
   });
@@ -224,8 +224,8 @@ __device__ __forceinline__ void recon_groups(const float* a, const float* b, int
 // W H with both operands streamed RS deep a step through buf (K > KC): W
 // rows m0.. below mlim, H columns n0.. below nlim.  Ends synchronised with
 // every copy group in.
-template <Mode MODE>
-__device__ __forceinline__ void recon_streamed(const Operands& o, int m0, int mlim, int n0,
+template <Mode MODE, typename Ops>
+__device__ __forceinline__ void recon_streamed(const Ops& o, int m0, int mlim, int n0,
                                                int nlim, int depth, float* buf,
                                                float (&s)[4][4]) {
   constexpr int LDA = RS + 4;
@@ -385,8 +385,8 @@ constexpr size_t simt_smem_words() {
 // X and W rows staged (X of the next step already in flight during this
 // one's contraction), W H, Z, then acc (KC x TILE) += Wc^T Z; the raw
 // partial to walk.out[k][out0 ..].
-template <int R, Mode MODE, typename Walk>
-__device__ __forceinline__ void h_partial_simt(const Operands& o, const Walk& walk) {
+template <int R, Mode MODE, typename Walk, typename Ops>
+__device__ __forceinline__ void h_partial_simt(const Ops& o, const Walk& walk) {
   static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
   constexpr int KC = 16 * R, LDW = KC + 4, NG = KC > KSL ? KC / KSL : 1, GW = KC / NG;
   using L = HRuns<R>;
@@ -450,8 +450,8 @@ __device__ __forceinline__ void h_partial_simt(const Operands& o, const Walk& wa
 // K2 pass 1 (SIMT): the block's walk (its 64 rows, a k chunk); per step X
 // and H columns staged, W H, Z, then acc (TILE x KC) += Z Hc^T; the raw
 // partial to walk.out[out0 ..][k].
-template <int R, Mode MODE, typename Walk>
-__device__ __forceinline__ void w_partial_simt(const Operands& o, const Walk& walk) {
+template <int R, Mode MODE, typename Walk, typename Ops>
+__device__ __forceinline__ void w_partial_simt(const Ops& o, const Walk& walk) {
   static_assert(MODE == Mode::F32 || MODE == Mode::ANY, "f32 GEMMs only");
   constexpr int KC = 16 * R, LDW = KC + 4, NG = KC > KSL ? KC / KSL : 1, GW = KC / NG;
   extern __shared__ float4 smem_raw[];

@@ -2,16 +2,25 @@
 strict reference-replication solve, the out-of-core streamed solve and
 transform, the tile-sparse solve, the H-only and W-only solves and the
 ``NMF`` estimator; the semi-adaptive solve and source separation, the
-masked solves and the online learner; the factor inits."""
+masked solves and the online learner; restarts, rank sweeps and the
+stability study, and the batched tile-sparse solve; the factor inits."""
 
 from .init import nndsvd_init, random_init, scaled_random_init
 from .masked import mu_step_masked, masked_kl, solve_masked, solve_masked_h_only
 from .nmf import NMF, normalize_factors, solve_h_only, solve_w_only
 from .online import OnlineResult, solve_online
+from .selection import SelectionResult, solve_rank_sweep, solve_restarts
 from .semi import solve_semi
 from .separation import SeparationResult, istft, separate, stft
 from .solver import SolveResult, resolve_step_fn, run_checked_loop, solve
-from .sparse_tiled import TileSparseX, solve_sparse_tiled, tiles_from_coo, tiles_from_dense
+from .sparse_tiled import (
+    TileSparseX,
+    solve_sparse_tiled,
+    solve_sparse_tiled_batched,
+    tiles_from_coo,
+    tiles_from_dense,
+)
+from .stability import StabilityResult, consensus_matrix, rank_stability
 from .streaming import (
     ArrayColumnSource,
     BinColumnSource,
@@ -28,11 +37,14 @@ __all__ = [
     "PAD_MULT",
     "ArrayColumnSource",
     "BinColumnSource",
+    "SelectionResult",
     "SeparationResult",
     "SolveResult",
+    "StabilityResult",
     "TileSparseX",
     "TransformResult",
     "pick_block_n",
+    "consensus_matrix",
     "istft",
     "masked_kl",
     "mu_step_masked",
@@ -40,6 +52,7 @@ __all__ = [
     "normalize_factors",
     "pad_to_mult",
     "random_init",
+    "rank_stability",
     "resolve_step_fn",
     "run_checked_loop",
     "scaled_random_init",
@@ -50,8 +63,11 @@ __all__ = [
     "solve_masked_h_only",
     "solve_online",
     "solve_out_of_core",
+    "solve_rank_sweep",
+    "solve_restarts",
     "solve_semi",
     "solve_sparse_tiled",
+    "solve_sparse_tiled_batched",
     "solve_strict",
     "solve_w_only",
     "stft",

@@ -13,8 +13,11 @@ beta, penalized and HALS H-steps take plain ops, as in JAX.
 ``NMF.transform(mask=...)`` scores partially observed columns through the
 masked H-only solve (in memory, or streamed with ``out_of_core``).
 
+``NMF(n_restarts > 1)`` fits through :func:`~nmf_tpu_torch.solve_restarts`
+(all restarts in one batched solve) and keeps the lowest-cost member.
+
 Not in the port yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh`` (Queue 1 step 12) and ``n_restarts > 1`` (step 7).
+ROADMAP.md item: ``mesh`` (Queue 1 step 12).
 """
 
 from __future__ import annotations
@@ -215,7 +218,8 @@ class NMF:
     ``precision``, ``backend``, ``solver`` ('mu', or 'cd'/'hals' for HALS),
     ``alpha_W`` / ``alpha_H`` / ``l1_ratio`` (sklearn's regularization
     scaling, KL-MU family) and ``accelerate``; plus ``device`` (``"cuda"``
-    by default).  ``mesh`` and ``n_restarts > 1`` are refused at ``fit``.
+    by default), and ``n_restarts`` (restarts in one batched solve, the
+    lowest cost kept).  ``mesh`` is refused at ``fit``.
 
     In the X = W @ H orientation ``w_`` is W (M x K) and ``components_`` is
     H, both NumPy f32; ``reconstruction_err_`` is the raw final divergence
@@ -310,13 +314,10 @@ class NMF:
                 "honor explicit w0/h0 templates (all restarts would be "
                 "identical); pass n_restarts=1 or drop the templates"
             )
-        if self.n_restarts > 1:
-            raise NotImplementedError(
-                "n_restarts > 1 (ROADMAP.md Queue 1 step 7, item 9: selection "
-                "and batched solves) is not in the PyTorch port yet"
-            )
         if self.mesh is not None:
             raise NotImplementedError(_MESH)
+        if self.n_restarts > 1:
+            return self._fit_restarts(x)
         if w0 is None or h0 is None:
             wi, hi = self._init_factors(x)
             w0 = wi if w0 is None else w0
@@ -326,6 +327,33 @@ class NMF:
         self.components_ = _host(res.h)
         self.reconstruction_err_ = self._pure_err(x, float(res.cost))
         self.n_iter_ = int(res.iterations)
+        return self.w_
+
+    def _fit_restarts(self, x: np.ndarray) -> np.ndarray:
+        """All restarts in one batched solve; the lowest-cost fit is kept
+        (``nmf_tpu/models/nmf.py:416-463``).  The deterministic nndsvd
+        inits would make identical members: they take 'scaled' instead."""
+        from .selection import solve_restarts
+
+        init = self.init if self.init in ("random", "scaled", "nndsvdar") else "scaled"
+        if init != self.init:
+            import warnings
+
+            warnings.warn(
+                f"init={self.init!r} is deterministic and would make "
+                f"identical restart members; using 'scaled' with seeds "
+                f"{self.random_state}..{self.random_state + self.n_restarts - 1}",
+                stacklevel=3,
+            )
+        sel = solve_restarts(x, rank=self.n_components, n_restarts=self.n_restarts,
+                             config=self._config(shape=x.shape), seed=self.random_state,
+                             init=init, device=self.device)
+        best = sel.best_index
+        w_b, h_b = sel.factors(best)
+        self.w_ = _host(w_b)
+        self.components_ = _host(h_b)
+        self.reconstruction_err_ = self._pure_err(x, sel.best_cost)
+        self.n_iter_ = int(sel.iterations[best])
         return self.w_
 
     def _pure_err(self, x: np.ndarray, solver_cost: float) -> float:

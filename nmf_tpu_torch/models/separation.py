@@ -18,7 +18,9 @@ that sums the frames in a fixed order (slices added one frame phase at a
 time: ``index_add_`` is atomic on the card, and its bits would change from
 run to run).
 
-Not ported: ``n_restarts > 1`` (ROADMAP.md Queue 1 step 7, selection).
+``n_restarts > 1`` runs the restarts in one batched solve
+(:func:`~nmf_tpu_torch.solve_restarts`) and keeps the lowest cost; with
+templates, each member re-seeds only the free columns.
 """
 
 from __future__ import annotations
@@ -167,14 +169,11 @@ def separate(
     (:func:`~nmf_tpu_torch.solve_semi`); ``sources[:F]`` are then the
     template stems.  ``adapt_template=True`` lets the templates train too.
     The default config is 200 iterations, ``thresh=1e-5``, a check every 25.
+    ``n_restarts > 1`` keeps the lowest-cost of that many seeded solves
+    (seeds ``seed``, ``seed + 1``, ...), run as one batched solve.
     """
     if n_restarts < 1:
         raise ValueError(f"n_restarts must be >= 1, got {n_restarts}")
-    if n_restarts > 1:
-        raise NotImplementedError(
-            "n_restarts > 1 (ROADMAP.md Queue 1 step 7, item 9: selection and "
-            "batched solves) is not in the PyTorch port yet"
-        )
     audio = np.asarray(audio, np.float32)
     if audio.ndim != 1:
         raise ValueError("separate() expects mono audio (1-D)")
@@ -195,10 +194,28 @@ def separate(
         f = w_template.shape[1]
         if f > n_components:
             raise ValueError(f"{f} template columns exceed n_components={n_components}")
-        w_rand, h0 = scaled_random_init(mag, n_components, seed=seed)
-        w0 = np.concatenate([w_template, w_rand[:, f:]], axis=1)
-        res = solve_semi(mag, w0, h0, config, n_frozen=0 if adapt_template else f,
-                         device=device)
+        if n_restarts > 1:
+            # restart only the FREE columns: the templates frozen, each
+            # member re-seeding the rest (selection's n_frozen)
+            from .selection import solve_restarts
+
+            inits = [scaled_random_init(mag, n_components, seed=seed + s)
+                     for s in range(n_restarts)]
+            w0s = np.stack([np.concatenate([w_template, w[:, f:]], axis=1) for w, _ in inits])
+            h0s = np.stack([h for _, h in inits])
+            res = solve_restarts(mag, w0s=w0s, h0s=h0s, config=config,
+                                 n_frozen=0 if adapt_template else f,
+                                 device=device).best_solve_result()
+        else:
+            w_rand, h0 = scaled_random_init(mag, n_components, seed=seed)
+            w0 = np.concatenate([w_template, w_rand[:, f:]], axis=1)
+            res = solve_semi(mag, w0, h0, config, n_frozen=0 if adapt_template else f,
+                             device=device)
+    elif n_restarts > 1:
+        from .selection import solve_restarts
+
+        res = solve_restarts(mag, rank=n_components, n_restarts=n_restarts, config=config,
+                             seed=seed, device=device).best_solve_result()
     else:
         w0, h0 = scaled_random_init(mag, n_components, seed=seed)
         res = solve(mag, w0, h0, config, device=device)

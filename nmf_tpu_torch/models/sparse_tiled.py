@@ -19,9 +19,13 @@ on CUDA tensors, or in its plain version (:func:`~nmf_tpu_torch.ops.kernels.tile
 by the route rules of :func:`sweep_route`.  The cost is the JAX scan's math
 in torch ops, chunk by chunk.
 
-Not in the port yet: the mesh path, the batched solve
-(``solve_sparse_tiled_batched``) and checkpointed segments (ROADMAP.md
-Queue 1 items 9, 12 and 13).
+:func:`solve_sparse_tiled_batched` solves B problems of one shape in one
+batched loop: each member's tile list padded with inert zero tiles to a
+common count, the plain sweeps member by member (JAX vmaps its XLA scan
+here, never its Pallas kernel, so the port launches no K5 there either).
+
+Not in the port yet: the mesh path and checkpointed segments (ROADMAP.md
+Queue 1 items 12 and 13).
 """
 
 from __future__ import annotations
@@ -37,11 +41,13 @@ from ..ops.kernels import tile_sparse as ts
 from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
+from ..parallel.batched import per_member_cost, per_member_step, run_batched_loop
 from .solver import SolveResult, run_checked_loop
 
 __all__ = [
     "TileSparseX",
     "solve_sparse_tiled",
+    "solve_sparse_tiled_batched",
     "sweep_route",
     "tiles_from_coo",
     "tiles_from_dense",
@@ -225,10 +231,11 @@ def _shape(a) -> Tuple[int, ...]:
     return tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
 
 
-def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev):
-    """One-time preparation: tile bucketing, chunk padding, per-tile
-    quantization, factor padding and clamp, the sweep plans, and one upload
-    of each to ``dev``.  Returns ``(xarg, w, h, info)``."""
+def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to=None):
+    """One-time preparation: tile bucketing, chunk padding (to a multiple
+    of ``pad_to`` where given), per-tile quantization, factor padding and
+    clamp, the sweep plans, and one upload of each to ``dev``.  Returns
+    ``(xarg, w, h, info)``."""
     tx = x if isinstance(x, TileSparseX) else tiles_from_dense(x, tile)
     m, n = tx.shape
     bm, bn = tx.tile_shape
@@ -259,8 +266,9 @@ def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev):
     tiles = to_tensor(tx.tiles, "cpu")   # f32, or bf16 bit for bit
     rows = _host(tx.rows).astype(np.int32)
     cols = _host(tx.cols).astype(np.int32)
-    if tiles.shape[0] % chunk:
-        t_np, rows, cols = _pad_tiles_np(tiles.to(_F32).numpy(), rows, cols, chunk)
+    pad_to = pad_to or chunk
+    if tiles.shape[0] % pad_to:
+        t_np, rows, cols = _pad_tiles_np(tiles.to(_F32).numpy(), rows, cols, pad_to)
         tiles = torch.from_numpy(t_np)
     scales = None
     if prec.x_dtype == "int8":
@@ -402,4 +410,76 @@ def _crop_tiled(res: SolveResult, info) -> SolveResult:
             w=res.w[: info["m"]].contiguous(),
             h=res.h[:, : info["n"]].contiguous(),
         )
+    return res
+
+
+def solve_sparse_tiled_batched(
+    xs,
+    w0s,
+    h0s,
+    config: SolveConfig = SolveConfig(),
+    chunk: int = _CHUNK,
+    tile: Tuple[int, int] = (_TILE, _TILE),
+    device="cuda",
+) -> SolveResult:
+    """B independent tile-sparse factorizations in one batched loop
+    (``nmf_tpu/models/sparse_tiled.py:866-985``).
+
+    ``xs`` is a sequence of problems (TileSparseX or dense-like) of one
+    logical and tile shape; ``w0s``/``h0s`` are ``(B, M, K)`` / ``(B, K,
+    N)``.  Member tile lists are padded with inert zero tiles to a common
+    count that is a multiple of ``chunk``, and the plain sweeps run member
+    by member (module docstring).  Returns the batched
+    :class:`SolveResult` (member axis first), with the batched solver's
+    per-member convergence.  ``backend="pallas"`` is refused, as in JAX.
+    """
+    config.validate()
+    if config.live_metrics:
+        # as the dense batched solve: per-member streams are noise
+        config = dataclasses.replace(config, live_metrics=False)
+    if config.beta != 1.0 or config.regularized or config.algorithm != "mu":
+        raise NotImplementedError("tile-sparse solve implements the KL (beta=1) MU family")
+    if config.backend == "pallas":
+        raise NotImplementedError(
+            "the batched tile-sparse solve runs the vmapped XLA scan (the "
+            "Pallas scalar-prefetch kernels are single-problem); drop "
+            "backend='pallas' or batch"
+        )
+    _refuse_unported(config, None)
+    txs = [x if isinstance(x, TileSparseX) else tiles_from_dense(x, tile) for x in xs]
+    if not txs:
+        raise ValueError("xs must be non-empty")
+    shape, tshape = txs[0].shape, txs[0].tile_shape
+    if any(t.shape != shape or t.tile_shape != tshape for t in txs):
+        raise ValueError("all members must share one logical and tile shape")
+    w0s = np.asarray(w0s.detach().cpu() if isinstance(w0s, torch.Tensor) else w0s, np.float32)
+    h0s = np.asarray(h0s.detach().cpu() if isinstance(h0s, torch.Tensor) else h0s, np.float32)
+    b, (m, n) = len(txs), shape
+    if w0s.ndim != 3 or h0s.ndim != 3:
+        raise ValueError(
+            "solve_sparse_tiled_batched expects 3-D [batch, rows, cols] "
+            f"factors, got W{w0s.shape} H{h0s.shape}"
+        )
+    k = w0s.shape[2]
+    if w0s.shape != (b, m, k) or h0s.shape != (b, k, n):
+        raise ValueError(
+            f"member shapes disagree: {b} problems of X{shape} vs "
+            f"W{w0s.shape} @ H{h0s.shape}"
+        )
+    mb, nb = -(-m // tshape[0]), -(-n // tshape[1])
+    for t in txs:
+        _validate_hand_built(t, mb, nb)
+    t_max = max(max(int(t.tiles.shape[0]) for t in txs), 1)
+    t_max = -(-t_max // int(chunk)) * int(chunk)
+    dev = resolve_device(device)
+    plain = dataclasses.replace(config, backend="jnp")   # the plain sweeps
+    preps = [_prepare_tiled(t, w0s[i], h0s[i], plain, int(chunk), tile, dev, pad_to=t_max)
+             for i, t in enumerate(txs)]
+    step, cost = _tiled_fns(plain, int(chunk), "plain")
+    res = run_batched_loop([p[0] for p in preps], torch.stack([p[1] for p in preps]),
+                           torch.stack([p[2] for p in preps]), config,
+                           per_member_step(step), per_member_cost(cost))
+    info = preps[0][3]
+    if (info["mp"], info["np_"]) != (m, n):
+        res = dataclasses.replace(res, w=res.w[:, :m].contiguous(), h=res.h[:, :, :n].contiguous())
     return res

@@ -59,6 +59,10 @@ _SIGNATURES = {
     # w, h, x, scales, partials, scratch, out; m, n, k, kc, splits, per;
     # eps; state_bf16, x_kind, gemm, device; stream
     "nmf_kl_cost": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    # the same over a member axis, then members, x_shared
+    "nmf_h_update_batched": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P] + [_I] * 2, _I),
+    "nmf_w_update_batched": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P] + [_I] * 2, _I),
+    "nmf_kl_cost_batched": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P] + [_I] * 2, _I),
     # K3's Mode: pass-1 launches since the last reset; Mode, kc, out[4]:
     # registers, dynamic shared memory, blocks an SM, local memory
     "nmf_kl_launches": ([_I], _I),

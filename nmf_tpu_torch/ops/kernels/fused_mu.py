@@ -29,10 +29,23 @@ packages send the call to the plain ops by design; those calls are counted
 in ``PLAIN_CALLS``, apart from the kernel launches in ``LAUNCHES``.  The
 ``numerator_only`` mode of K1 and K2 counts under its own keys
 (``update_h_numerator``, ``update_w_numerator``).
+
+A member axis, as ``jax.vmap`` gives the TPU kernels one (the batched,
+restart and rank-sweep solves): W ``[B, M, K]`` and H ``[B, K, N]``, with X
+per member (``[B, M, N]``, or codes ``[B, M, N]`` with scales ``[B, N]``)
+or shared by all members (``[M, N]``, or codes with scales ``[N]``, the
+counterpart of ``in_axes=None``).  The results take the member axis in
+front (K3: ``[B]`` f32).  On CUDA tensors one batched call is one pass-1
+and one pass-2 launch for all members (K3: one ``kl_partial``, one
+``kl_final``), each member at the plan of its own shape, so member i gives
+the bits of the 2-D call on member i; ``LAUNCHES`` counts the call once
+and ``MEMBERS`` the members it served.  On CPU tensors the plain version
+runs member by member.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Dict, Tuple
 
@@ -46,6 +59,7 @@ from ..quant import dequantize
 
 __all__ = [
     "LAUNCHES",
+    "MEMBERS",
     "PLAIN_CALLS",
     "MAX_FUSED_K",
     "reset_counts",
@@ -64,6 +78,8 @@ __all__ = [
 _KEYS = ("update_h", "update_w", "kl_cost", "update_h_numerator", "update_w_numerator")
 LAUNCHES: Dict[str, int] = dict.fromkeys(_KEYS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(_KEYS, 0)
+# Members served by those launches: 1 a 2-D launch, B a batched one.
+MEMBERS: Dict[str, int] = dict.fromkeys(_KEYS, 0)
 
 # Largest rank the fused path takes, as in nmf_tpu (fused_mu.py:63).  Up to
 # it the kernels chunk K by MAX_CHUNK and recompute W@H per chunk.
@@ -83,7 +99,7 @@ _GEMM = {"float32": 0, "float32_fast": 1, "bfloat16": 2}
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to 0."""
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, MEMBERS):
         for key in d:
             d[key] = 0
 
@@ -210,6 +226,73 @@ def _check_cuda_operands(w, h, x):
     return m, n, k, x, scales
 
 
+def _check_batched_operands(w, h, x):
+    """A batched call's shapes, dtypes and layout: returns (b, m, n, k, x
+    data tensor, scales tensor or None, x shared)."""
+    if w.dtype not in _STATE_BF16 or h.dtype != w.dtype:
+        raise NotImplementedError(
+            f"W is {w.dtype} and H {h.dtype}; the CUDA kernels take W and H "
+            "both float32 or both bfloat16"
+        )
+    for name, t in (("w", w), ("h", h)):
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [B, rows, cols] stack, "
+                             f"got shape {tuple(t.shape)}")
+    b, m, k = w.shape
+    b2, k2, n = h.shape
+    scales = None
+    if isinstance(x, tuple):
+        x, scales = x
+        if x.dtype != torch.uint8:
+            raise NotImplementedError(f"int8 X codes are {x.dtype}; the kernels take uint8")
+    elif x.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"x is {x.dtype}; the CUDA kernels take float32, bfloat16, or "
+            "(uint8 codes, scales)"
+        )
+    shared = x.dim() == 2
+    want = (m, n) if shared else (b, m, n)
+    if b2 != b or k2 != k or tuple(x.shape) != want:
+        raise ValueError(
+            f"shape mismatch: X{tuple(x.shape)} vs W{tuple(w.shape)} @ H{tuple(h.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (row-major)")
+    if scales is not None:
+        want_s = (n,) if shared else (b, n)
+        if scales.dim() == len(want_s) + 1:
+            raise NotImplementedError(
+                "per-row-block int8 scales (x_quant_rows > 0) are not in the "
+                "CUDA kernels, whose scales are per column: the solver sends "
+                "such X to the plain ops (nmf_tpu models/solver.py:137-143)"
+            )
+        if scales.dtype != torch.float32 or tuple(scales.shape) != want_s:
+            raise ValueError(
+                f"scales must be float32 of shape {want_s}, got {scales.dtype} "
+                f"{tuple(scales.shape)}"
+            )
+        scales = scales.contiguous()
+    if min(b, m, n, k) < 1:
+        raise ValueError(f"empty operand: b={b} m={m} n={n} k={k}")
+    if max(m * n, m * k, k * n) >= 2**31:
+        raise ValueError("operands above 2**31 elements a member are not supported")
+    return b, m, n, k, x, scales, shared
+
+
+def _member_x(x, i: int):
+    """Member i's X of a batched call: X itself when shared (2-D), else its
+    slice, a ``(codes, scales)`` pair sliced together."""
+    if isinstance(x, tuple):
+        return x if x[0].dim() == 2 else (x[0][i], x[1][i])
+    return x if x.dim() == 2 else x[i]
+
+
+def _per_member(fn, w, h, x, *args):
+    """The plain version member by member, stacked (the CPU route of a
+    batched call, and the rank rule's)."""
+    return torch.stack([fn(w[i], h[i], _member_x(x, i), *args) for i in range(w.shape[0])])
+
+
 def _modes(w, x, precision: Precision) -> Tuple[int, int, int]:
     """(state_bf16, x_kind, gemm) codes of a checked call."""
     return _STATE_BF16[w.dtype], _X_KIND[x.dtype], _GEMM[precision.matmul_dtype]
@@ -244,6 +327,40 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+# The member sums of a batched call as CUDA graphs, keyed by the source's
+# address and layout: a solve's W and H come back from the caching
+# allocator at a few addresses, so its loop replays a few graphs.
+_SUM_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_SUM_GRAPHS_MAX = 16
+
+
+def _member_sums(t: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.stack([torch.sum(t[i], dim=dim, dtype=torch.float32) for i in range(t.shape[0])])
+
+
+def _sums(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 sums of ``t`` over ``dim`` (-2: W's columns, -1: H's rows), on a
+    member axis member by member: torch's reduction of a stack may sum in
+    another order than of one member (seen on the H100 at 513 x 32), and
+    member i must take the 2-D call's bits.  The B sums of a stack run as
+    one graph replay (B host calls a half-step made the batched call
+    host-bound); the result is read before the next call replays it."""
+    if t.dim() == 2:
+        return torch.sum(t, dim=dim, dtype=torch.float32)
+    key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype, dim, t.device)
+    entry = _SUM_GRAPHS.get(key)
+    if entry is None:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = _member_sums(t, dim)
+        entry = _SUM_GRAPHS[key] = (graph, out)
+        if len(_SUM_GRAPHS) > _SUM_GRAPHS_MAX:
+            _SUM_GRAPHS.popitem(last=False)
+    _SUM_GRAPHS.move_to_end(key)
+    entry[0].replay()
+    return entry[1]
+
+
 _PLAIN = {
     ("update_h", False): update_h, ("update_h", True): numerator_h,
     ("update_w", False): update_w, ("update_w", True): numerator_w,
@@ -253,42 +370,61 @@ _PLAIN = {
 def _update_fused(kind: str, w, h, x, eps, precision, numerator_only):
     numerator_only = bool(numerator_only)
     plain = _PLAIN[kind, numerator_only]
-    if _on_cpu(w, h, *_x_tensors(x)):
+    batched = w.dim() == 3
+
+    def plain_call():
+        if batched:
+            return _per_member(lambda w_, h_, x_: plain(w_, h_, _dense_x(x_), eps, precision),
+                               w, h, x)
         return plain(w, h, _dense_x(x), eps, precision)
+
+    if _on_cpu(w, h, *_x_tensors(x)):
+        return plain_call()
     key = f"{kind}_numerator" if numerator_only else kind
-    m, n, k, xd, scales = _check_cuda_operands(w, h, x)
+    if batched:
+        b, m, n, k, xd, scales, shared = _check_batched_operands(w, h, x)
+    else:
+        b, shared = 1, False
+        m, n, k, xd, scales = _check_cuda_operands(w, h, x)
     if not supported(k):
         # the documented rank rule of nmf_tpu (fused_mu.py:305-313), not a
         # path taken on failure
         PLAIN_CALLS[key] += 1
-        return plain(w, h, _dense_x(x), eps, precision)
+        return plain_call()
     kc = chunk_width(k)
     chunks = _cdiv(k, kc)
     m_tiles, n_tiles = _cdiv(m, TILE), _cdiv(n, TILE)
     # the numerator is f32 whatever the state dtype (fused_mu.py:357, :482),
     # and takes no denominator (the JAX wrapper ships a placeholder)
     f32 = dict(dtype=torch.float32, device=w.device)
+    lead = (b,) if batched else ()
     if kind == "update_h":
         # f32 column sums outside the kernel, as the JAX wrapper takes them
         # (nmf_tpu fused_mu.py:319)
-        denom = None if numerator_only else eps_clamp(torch.sum(w, dim=0, dtype=torch.float32), eps)
+        denom = None if numerator_only else eps_clamp(_sums(w, -2), eps)
         splits, per = plan_split(n_tiles, chunks, m_tiles)
-        part = torch.empty((splits, k, n), **f32)
-        out = torch.empty((k, n), **f32) if numerator_only else torch.empty_like(h)
+        part = torch.empty((*lead, splits, k, n), **f32)
+        out = torch.empty((*lead, k, n), **f32) if numerator_only else torch.empty_like(h)
     else:
-        denom = None if numerator_only else eps_clamp(torch.sum(h, dim=1, dtype=torch.float32), eps)  # (:444)
+        denom = None if numerator_only else eps_clamp(_sums(h, -1), eps)  # (:444)
         splits, per = plan_split(m_tiles, chunks, n_tiles)
-        part = torch.empty((splits, m, k), **f32)
-        out = torch.empty((m, k), **f32) if numerator_only else torch.empty_like(w)
+        part = torch.empty((*lead, splits, m, k), **f32)
+        out = torch.empty((*lead, m, k), **f32) if numerator_only else torch.empty_like(w)
     lib = _lib()
-    fn = lib.nmf_h_update if kind == "update_h" else lib.nmf_w_update
-    rc = fn(
+    args = (
         w.data_ptr(), h.data_ptr(), xd.data_ptr(), _ptr(scales), _ptr(denom),
         part.data_ptr(), out.data_ptr(), m, n, k, kc, splits, per, float(eps),
         *_modes(w, xd, precision), int(numerator_only), _index(w), _stream(w),
     )
+    if batched:
+        fn = lib.nmf_h_update_batched if kind == "update_h" else lib.nmf_w_update_batched
+        rc = fn(*args, b, int(shared))
+    else:
+        fn = lib.nmf_h_update if kind == "update_h" else lib.nmf_w_update
+        rc = fn(*args)
     _raise_on(lib, rc, key)
     LAUNCHES[key] += 1
+    MEMBERS[key] += b
     return out
 
 
@@ -363,28 +499,44 @@ def kl_cost_fused(
     """KL divergence D(X || max(W H, eps)) with W H kept on chip, kernel K3.
 
     Returns a 0-dim f32 tensor on the operands' device, with the recon of
-    :func:`kl_cost_plain`.
+    :func:`kl_cost_plain`; on a member axis, a ``[B]`` f32 tensor, one cost
+    a member.
     """
-    if _on_cpu(w, h, *_x_tensors(x)):
+    batched = w.dim() == 3
+
+    def plain_call():
+        if batched:
+            return _per_member(lambda w_, h_, x_: kl_cost_plain(x_, w_, h_, eps, precision),
+                               w, h, x)
         return kl_cost_plain(x, w, h, eps, precision)
-    m, n, k, xd, scales = _check_cuda_operands(w, h, x)
+
+    if _on_cpu(w, h, *_x_tensors(x)):
+        return plain_call()
+    if batched:
+        b, m, n, k, xd, scales, shared = _check_batched_operands(w, h, x)
+    else:
+        b, shared = 1, False
+        m, n, k, xd, scales = _check_cuda_operands(w, h, x)
     if not supported(k):
         PLAIN_CALLS["kl_cost"] += 1
-        return kl_cost_plain(x, w, h, eps, precision)
+        return plain_call()
     kc, splits, per, slots = kl_split(m, n, k)
-    partials = torch.empty((slots,), dtype=torch.float32, device=w.device)
+    partials = torch.empty((b * slots,), dtype=torch.float32, device=w.device)
     # under bfloat16 on f32 state the kernel rounds W and H to bf16 once
-    # into this scratch (H's copy starting on 16 bytes)
+    # into this scratch (each member's W and H copies starting on 16 bytes)
     scratch = None
     if precision.matmul_dtype == "bfloat16" and w.dtype == torch.float32:
-        scratch = torch.empty((_cdiv(m * k, 8) * 8 + k * n,), dtype=torch.bfloat16, device=w.device)
-    out = torch.empty((), dtype=torch.float32, device=w.device)
+        words = _cdiv(m * k, 8) * 8 + (_cdiv(k * n, 8) * 8 if batched else k * n)
+        scratch = torch.empty((b * words,), dtype=torch.bfloat16, device=w.device)
+    out = torch.empty((b,) if batched else (), dtype=torch.float32, device=w.device)
     lib = _lib()
-    rc = lib.nmf_kl_cost(
+    args = (
         w.data_ptr(), h.data_ptr(), xd.data_ptr(), _ptr(scales), partials.data_ptr(),
         _ptr(scratch), out.data_ptr(), m, n, k, kc, splits, per, float(eps),
         *_modes(w, xd, precision), _index(w), _stream(w),
     )
+    rc = lib.nmf_kl_cost_batched(*args, b, int(shared)) if batched else lib.nmf_kl_cost(*args)
     _raise_on(lib, rc, "kl_cost")
     LAUNCHES["kl_cost"] += 1
+    MEMBERS["kl_cost"] += b
     return out

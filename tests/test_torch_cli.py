@@ -100,7 +100,9 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     with ``--mesh`` it is refused for the mesh.  ``--accelerate``,
     ``--strict-compat``, ``--beta 2`` and ``--mask`` are ported: they run on
     a small problem through both CLIs (:func:`_run_both_clis`; the mask is
-    X.bin itself, real-valued weights).  ``--restarts`` stays refused."""
+    X.bin itself, real-valued weights).  ``--restarts`` is ported too: the
+    parser takes it and the run exits 2 on its missing input
+    (``test_run_restarts_matches_jax_cli`` runs it)."""
     if flags[0] == "--mask":
         flags = ["--mask", str(tmp_path / "X.bin")]
     if flags[0] in ("--accelerate", "--strict-compat", "--beta", "--mask"):
@@ -109,7 +111,7 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
-    if flags[0] in ("--dtype", "--x-dtype", "--backend", "--no-cost"):
+    if flags[0] in ("--dtype", "--x-dtype", "--backend", "--no-cost", "--restarts"):
         assert "file not found" in err and "ROADMAP.md" not in err
         return
     assert flags[0] in err and "ROADMAP.md" in err
@@ -921,10 +923,26 @@ def test_separate_refusals_match_jax_cli(tmp_path, capsys, flags, msg):
 
 
 def test_separate_restarts_still_refused(tmp_path, capsys):
-    """``--restarts 2`` stays refused, naming its ROADMAP.md step."""
+    """``--restarts 2``, refused when this test was named, is ported: the
+    port's files are byte-equal to its in-process ``separate(n_restarts=2)``
+    and within 4 int16 steps of the JAX CLI's."""
+    import nmf_tpu_torch as nt
+
     _write_wav(tmp_path / "clip.wav")
-    assert _port_cli(["separate", "clip.wav", "--restarts", "2", "-q"], tmp_path) == 2
-    assert "Queue 1 step 7" in capsys.readouterr().err
+    common = ["separate", "clip.wav", "--rank", "4", "--n-fft", "256", "--hop", "64",
+              "--max-iter", "30", "--restarts", "2", "-q"]
+    assert _port_cli([*common, "--out-dir", "sp"], tmp_path) == 0
+    assert capsys.readouterr().err == ""
+    assert _jax_cli([*common, "--out-dir", "sj"], tmp_path) == 0
+    files, ours = _read_sources(tmp_path / "sp")
+    ref_files, ref = _read_sources(tmp_path / "sj")
+    assert files == ref_files and np.abs(ours.astype(np.int32) - ref).max() <= 4
+    rate, audio = cli._read_wav(str(tmp_path / "clip.wav"))
+    res = nt.separate(audio, n_components=4, n_fft=256, hop=64, n_restarts=2,
+                      config=nt.SolveConfig(max_iter=30, thresh=1e-5), device="cpu")
+    cli.write_sources(res.sources, rate, str(tmp_path / "inproc"))
+    for f in files:
+        assert (tmp_path / "sp" / f).read_bytes() == (tmp_path / "inproc" / f).read_bytes(), f
 
 
 def test_every_jax_separate_flag_is_known():
@@ -936,3 +954,224 @@ def test_every_jax_separate_flag_is_known():
         return {o for a in sub.choices["separate"]._actions for o in a.option_strings}
 
     assert flags(jax_parser()) <= flags(cli.build_parser())
+
+
+# --- Queue 1 step 7: run --restarts, select and batch, through both CLIs
+# on the same files.  The port's files are byte-equal to its in-process
+# solve (one torch thread in both); against the JAX CLI's, rtol 5e-5 /
+# atol 1e-7 (tests/test_torch_batched.py's F32).
+
+
+def _write_x(tmp_path, m=48, n=40, seed=0):
+    x = np.random.RandomState(seed).rand(m, n).astype(np.float32)
+    jbin.write_matrix(x, tmp_path / "X.bin")
+    return x
+
+
+def _close_files(a, b):
+    np.testing.assert_allclose(jbin.read_matrix(a), jbin.read_matrix(b), rtol=5e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("init", ["random", "scaled", "nndsvda"])
+def test_run_restarts_matches_jax_cli(tmp_path, capsys, init):
+    """``run X.bin --rank 4 --restarts 3``: the lowest-cost member written,
+    the same member as the JAX CLI keeps; a deterministic init is replaced
+    by 'scaled' with the JAX CLI's notice."""
+    import nmf_tpu_torch as nt
+
+    x = _write_x(tmp_path)
+    common = ["run", "X.bin", "--rank", "4", "--restarts", "3", "--init", init, "--seed", "2",
+              "--max-iter", "20", "--check-every", "5"]
+    assert _port_cli([*common, "-o", "Wp.bin", "Hp.bin"], tmp_path) == 0
+    ours = capsys.readouterr().err
+    assert _jax_cli([*common, "-o", "Wj.bin", "Hj.bin"], tmp_path) == 0
+    ref = capsys.readouterr().err
+    kept = [line for line in ours.splitlines() if "restarts (seeds" in line]
+    assert len(kept) == 1 and kept[0].split("kept")[1] in ref
+    assert ("deterministic" in ours) == ("deterministic" in ref) == (init == "nndsvda")
+    for f in "WH":
+        _close_files(tmp_path / f"{f}p.bin", tmp_path / f"{f}j.bin")
+    sel = nt.solve_restarts(x, rank=4, n_restarts=3, seed=2, device="cpu",
+                            init="scaled" if init == "nndsvda" else init,
+                            config=nt.SolveConfig(max_iter=20, check_every=5))
+    w, h = sel.best
+    assert jbin.read_matrix(tmp_path / "Wp.bin").tobytes() == w.numpy().tobytes()
+    assert jbin.read_matrix(tmp_path / "Hp.bin").tobytes() == h.numpy().tobytes()
+
+
+@pytest.mark.parametrize(
+    "flags,files",
+    [(["--restarts", "2", "--out-of-core"], False), (["--restarts", "2", "--online"], False),
+     (["--restarts", "2"], True), (["--restarts", "2", "--rank", "4", "--freeze", "2"], False),
+     (["--restarts", "2", "--rank", "4", "--strict-compat"], False),
+     (["--restarts", "2", "--rank", "4", "--mask", "X.bin"], False)],
+    ids=["out_of_core", "online", "init_files", "freeze", "strict", "mask"],
+)
+def test_run_restarts_refusals_match_jax_cli(tmp_path, capsys, flags, files):
+    """What ``--restarts`` refuses, with the JAX CLI's exit code and words."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    args = ["run", "X.bin", *(["W.bin", "H.bin"] if files else []), *flags, "-q"]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(args, tmp_path) == 2
+    assert ours == capsys.readouterr().err and "--restarts" in ours
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--ranks", "2,4,6"], ["--ranks", "2:6:2", "--restarts", "2"],
+     ["--ranks", "3,5", "--stability", "--restarts", "3"],
+     ["--ranks", "4", "--init", "random"]],
+    ids=["list", "range_restarts", "stability", "single_rank"],
+)
+def test_select_matches_jax_cli(tmp_path, capsys, flags):
+    """``select``: the same table and recommendation on stderr and JSONL
+    record as the JAX CLI (costs to 1e-5); with a recommended or single
+    rank, ``-o`` files byte-equal to the in-process sweep's member and
+    within F32 of the JAX CLI's."""
+    import json
+
+    import nmf_tpu_torch as nt
+
+    x = _write_x(tmp_path)
+    common = ["select", "X.bin", *flags, "--max-iter", "20", "--check-every", "10"]
+    writes = "--stability" in flags or flags[1].isdigit()
+    out = lambda tag: ["-o", f"W{tag}.bin", f"H{tag}.bin"] if writes else []  # noqa: E731
+    assert _port_cli([*common, *out("p"), "--jsonl", "p.jsonl"], tmp_path) == 0
+    ours = capsys.readouterr().err
+    assert _jax_cli([*common, *out("j"), "--jsonl", "j.jsonl"], tmp_path) == 0
+    ref = capsys.readouterr().err
+    strip = lambda e: [ln.split()[0] for ln in e.splitlines()]  # noqa: E731
+    assert strip(ours) == strip(ref)
+    rp, rj = (json.loads((tmp_path / f"{t}.jsonl").read_text()) for t in "pj")
+    assert rp["ranks"] == rj["ranks"] and rp["restarts"] == rj["restarts"]
+    assert rp["recommended_rank"] == rj["recommended_rank"]
+    for k, v in rj["best_cost_per_rank"].items():
+        assert rp["best_cost_per_rank"][k] == pytest.approx(v, rel=1e-5)
+    if not writes:
+        return
+    for f in "WH":
+        _close_files(tmp_path / f"{f}p.bin", tmp_path / f"{f}j.bin")
+    target = rp["recommended_rank"] or rp["ranks"][0]
+    cfg = nt.SolveConfig(max_iter=20, check_every=10)
+    init = "random" if "random" in flags else "scaled"
+    if "--stability" in flags:
+        sel = nt.rank_stability(x, rp["ranks"], n_restarts=3, config=cfg, init=init,
+                                device="cpu").sweep
+    else:
+        sel = nt.solve_rank_sweep(x, [target], cfg, init=init, device="cpu")
+    at = np.nonzero(sel.ranks == target)[0]
+    w, h = sel.factors(int(at[np.argmin(sel.costs[at])]))
+    assert jbin.read_matrix(tmp_path / "Wp.bin").tobytes() == w.numpy().tobytes()
+    assert jbin.read_matrix(tmp_path / "Hp.bin").tobytes() == h.numpy().tobytes()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--ranks", "2,4", "-o", "W.bin", "H.bin"], ["--ranks", "0,2"], ["--ranks", "a:b"],
+     ["--ranks", "4", "--out-of-core"], ["--ranks", "4", "--block-n", "8"],
+     ["--ranks", "4", "--strict-compat"], ["--ranks", "4", "--restarts", "0"]],
+    ids=["o_needs_one_rank", "zero_rank", "bad_spec", "out_of_core", "block_n", "strict",
+         "zero_restarts"],
+)
+def test_select_refusals_match_jax_cli(tmp_path, capsys, flags):
+    _write_x(tmp_path)
+    args = ["select", "X.bin", *flags, "--max-iter", "2", "-q"]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(args, tmp_path) == 2
+    ref = capsys.readouterr().err
+    assert ours.split(":")[:2] == ref.split(":")[:2]
+
+
+def _write_batch_dir(tmp_path, b=3, m=30, n=20):
+    d = tmp_path / "d"
+    d.mkdir()
+    rng = np.random.RandomState(5)
+    xs = [rng.rand(m, n).astype(np.float32) for _ in range(b)]
+    for i, x in enumerate(xs):
+        jbin.write_matrix(x, d / f"m{i}.bin")
+    (d / "notes.txt").write_text("not a matrix")
+    return np.stack(xs)
+
+
+@pytest.mark.parametrize("extra", [[], ["--thresh", "1e-3", "--check-every", "2"],
+                                   ["--x-dtype", "int8"]], ids=["plain", "thresh", "int8"])
+def test_batch_matches_jax_cli(tmp_path, capsys, extra):
+    """``batch d/``: one ``<stem>.W.bin`` / ``<stem>.H.bin`` per matrix, the
+    JAX CLI's names and JSONL record, files byte-equal to the in-process
+    ``solve_batched`` from the same seeded inits."""
+    import json
+
+    import nmf_tpu_torch as nt
+
+    xs = _write_batch_dir(tmp_path)
+    common = ["batch", "d", "--rank", "3", "--seed", "4", "--max-iter", "12", *extra, "-q"]
+    assert _port_cli([*common, "--out-dir", "bp", "--jsonl", "p.jsonl"], tmp_path) == 0
+    assert _jax_cli([*common, "--out-dir", "bj", "--jsonl", "j.jsonl"], tmp_path) == 0
+    names = sorted(os.listdir(tmp_path / "bp"))
+    assert names == sorted(os.listdir(tmp_path / "bj")) == sorted(
+        f"m{i}.{f}.bin" for i in range(3) for f in "WH")
+    for name in names:
+        _close_files(tmp_path / "bp" / name, tmp_path / "bj" / name)
+    rp, rj = (json.loads((tmp_path / f"{t}.jsonl").read_text()) for t in "pj")
+    assert {k: rp[k] for k in ("kind", "batch", "shape", "rank", "iterations")} == \
+        {k: rj[k] for k in ("kind", "batch", "shape", "rank", "iterations")}
+    rng = np.random.RandomState(4)
+    ws = rng.rand(3, 30, 3).astype(np.float32)
+    hs = rng.rand(3, 3, 20).astype(np.float32)
+    args = cli.build_parser().parse_args(common)
+    res = nt.solve_batched(xs, ws, hs, cli._config(args), device="cpu")
+    for i in range(3):
+        assert jbin.read_matrix(tmp_path / "bp" / f"m{i}.W.bin").tobytes() == \
+            res.w[i].numpy().tobytes()
+
+
+@pytest.mark.parametrize("case", ["empty", "shapes", "out_of_core", "mesh"])
+def test_batch_refusals(tmp_path, capsys, case):
+    """An empty directory and mixed shapes exit 2 with the JAX CLI's words;
+    the modes a batch lacks exit 2, ``--mesh`` naming its ROADMAP.md step."""
+    d = tmp_path / "d"
+    d.mkdir()
+    flags = {"out_of_core": ["--out-of-core"], "mesh": ["--mesh", "2x1"]}.get(case, [])
+    if case != "empty":
+        jbin.write_matrix(np.ones((4, 5), np.float32), d / "a.bin")
+        jbin.write_matrix(np.ones((4, 6 if case == "shapes" else 5), np.float32), d / "b.bin")
+    args = ["batch", "d", "--rank", "2", "--max-iter", "2", "-q", *flags]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    if case == "mesh":
+        assert "--mesh" in ours and "ROADMAP.md" in ours
+        return
+    assert _jax_cli(args, tmp_path) == 2
+    ref = capsys.readouterr().err
+    assert ours.split("(")[0].replace(str(tmp_path), "") == ref.split("(")[0].replace(
+        str(tmp_path), "")
+
+
+@pytest.mark.parametrize("sub", ["select", "batch"])
+def test_every_jax_flag_of_the_step7_subcommands_is_known(sub):
+    """Each flag of the JAX CLI's select and batch is in the port's."""
+    from nmf_tpu.cli import build_parser as jax_parser
+
+    def flags(parser):
+        action = next(a for a in parser._actions if a.dest == "command")
+        return {o for a in action.choices[sub]._actions for o in a.option_strings}
+
+    assert flags(jax_parser()) <= flags(cli.build_parser())
+
+
+@pytest.mark.parametrize("args", [["select", "X.bin", "--ranks", "2"],
+                                  ["batch", "d", "--rank", "2"]], ids=["select", "batch"])
+def test_select_and_batch_default_to_the_card(tmp_path, args):
+    """Without ``--device`` both run on the card, and raise without one
+    before reading their input."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    here = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        with pytest.raises(RuntimeError, match="no usable NVIDIA card"):
+            cli.main([*args, "-q"])
+    finally:
+        os.chdir(here)

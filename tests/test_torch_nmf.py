@@ -411,7 +411,7 @@ def test_nmf_sklearn_clone():
 @pytest.mark.parametrize(
     "kw,call,err,match",
     [
-        (dict(n_restarts=3), "fit", NotImplementedError, "step 7"),
+        (dict(n_restarts=3, mesh=object()), "fit", NotImplementedError, "step 12"),
         (dict(n_restarts=3), "fit_w0", ValueError, "cannot honor explicit"),
         (dict(mesh=object()), "fit", NotImplementedError, "step 12"),
         (dict(beta_loss=2.0), "mask", NotImplementedError, "KL \\(beta=1\\) MU family"),
@@ -423,7 +423,9 @@ def test_nmf_sklearn_clone():
 def test_nmf_refusals(kw, call, err, match):
     """What ``NMF`` refuses.  ``transform(mask=...)``, refused when this test
     was named, is ported: a masked transform of the Euclidean family is
-    refused as ``nmf_tpu`` refuses it (the masked solve is KL MU)."""
+    refused as ``nmf_tpu`` refuses it (the masked solve is KL MU).
+    ``n_restarts > 1`` is ported too (``test_nmf_restarts_match_nmf_tpu``):
+    with a mesh it is refused for the mesh."""
     x, w, h = _problem()
     ep = pt.NMF(n_components=5, max_iter=3, device="cpu", **kw)
     with pytest.raises(err, match=match):
@@ -486,3 +488,44 @@ def test_h_only_step_cost_routes():
     (_, h1), c = step(w, h, x), cost(x, w, h)
     assert torch.equal(h1, tfm.update_h_fused(w, h, x, precision=pt.Precision("bfloat16")))
     assert torch.equal(c, pt.kl_divergence(x, w, h))
+
+
+@pytest.mark.parametrize("init", ["random", "scaled", "nndsvdar"])
+def test_nmf_restarts_match_nmf_tpu(init):
+    """``NMF(n_restarts > 1)`` runs the restarts as one batched solve and
+    keeps the lowest-cost member, as ``nmf_tpu.NMF`` (``nmf.py:416-463``):
+    the same member, its factors within RTOL / ATOL, ``reconstruction_err_``
+    within COST_RTOL, ``n_iter_`` equal."""
+    x, _, _ = _problem()
+    kw = dict(n_components=4, n_restarts=3, max_iter=30, init=init, random_state=2)
+    ours = pt.NMF(device="cpu", **kw).fit(x)
+    ref = jt.NMF(**kw).fit(x)
+    np.testing.assert_allclose(ours.w_, np.asarray(ref.w_), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ours.components_, np.asarray(ref.components_), rtol=RTOL, atol=ATOL)
+    assert ours.reconstruction_err_ == pytest.approx(ref.reconstruction_err_, rel=COST_RTOL)
+    assert ours.n_iter_ == ref.n_iter_ == 30
+    sel = pt.solve_restarts(x, rank=4, n_restarts=3, seed=2, init=init, device="cpu",
+                            config=ours._config(shape=x.shape))
+    assert ours.w_.tobytes() == sel.best[0].numpy().tobytes()
+
+
+def test_nmf_restarts_warn_on_a_deterministic_init():
+    """The default nndsvda would make identical members: 'scaled' is taken,
+    with nmf_tpu's warning."""
+    x, _, _ = _problem()
+    with pytest.warns(UserWarning, match="deterministic"):
+        ours = pt.NMF(n_components=4, n_restarts=2, max_iter=5, device="cpu").fit(x)
+    with pytest.warns(UserWarning, match="deterministic"):
+        ref = jt.NMF(n_components=4, n_restarts=2, max_iter=5).fit(x)
+    np.testing.assert_allclose(ours.w_, np.asarray(ref.w_), rtol=RTOL, atol=ATOL)
+
+
+def test_nmf_restarts_with_penalties_score_the_pure_divergence():
+    """With regularization the kept member's ``reconstruction_err_`` is the
+    pure divergence, taken again from its factors, as in nmf_tpu."""
+    x, _, _ = _problem()
+    kw = dict(n_components=4, n_restarts=2, max_iter=20, init="random", alpha_W=0.01,
+              l1_ratio=0.5)
+    ours = pt.NMF(device="cpu", **kw).fit(x)
+    ref = jt.NMF(**kw).fit(x)
+    assert ours.reconstruction_err_ == pytest.approx(ref.reconstruction_err_, rel=COST_RTOL)

@@ -200,8 +200,32 @@ def test_separate_refusals_match_jax(two_tones):
 
 
 def test_separate_restarts_refused_naming_their_step(two_tones):
-    with pytest.raises(NotImplementedError, match="Queue 1 step 7"):
-        ts.separate(two_tones, n_restarts=2, device="cpu")
+    """``n_restarts > 1``, refused when this test was named, is ported: the
+    lowest-cost of the seeded solves, run as one batched solve, as
+    ``nmf_tpu.separate`` keeps it (``separation.py:218-226``)."""
+    cfg = JConfig(max_iter=30, check_every=10)
+    kw = dict(n_components=3, n_fft=512, hop=128, n_restarts=2, seed=1)
+    sj = js.separate(two_tones, config=cfg, **kw)
+    sp = ts.separate(two_tones, config=config_from_dict(dataclasses.asdict(cfg)), device="cpu",
+                     **kw)
+    _assert_separations_match(sp, sj)
+
+
+@pytest.mark.parametrize("adapt", [False, True], ids=["frozen", "adapt_template"])
+def test_separate_restarts_with_templates_match_jax(two_tones, adapt):
+    """Restarts re-seed only the free columns; frozen templates stay the
+    clamped templates bit for bit in the kept member (``n_frozen``)."""
+    cfg = JConfig(max_iter=30, check_every=10)
+    templates = np.array(js.separate(two_tones, n_components=2, n_fft=512, hop=128,
+                                     config=cfg).w)
+    kw = dict(n_components=4, n_fft=512, hop=128, w_template=templates, adapt_template=adapt,
+              n_restarts=3)
+    sj = js.separate(two_tones, config=cfg, **kw)
+    sp = ts.separate(two_tones, config=config_from_dict(dataclasses.asdict(cfg)), device="cpu",
+                     **kw)
+    _assert_separations_match(sp, sj)
+    clamped = np.ascontiguousarray(np.maximum(templates, EPS))
+    assert (np.ascontiguousarray(sp.w[:, :2]).tobytes() == clamped.tobytes()) != adapt
 
 
 def test_separate_runs_the_kl_solve_through_the_kernel_wrappers(two_tones, monkeypatch):
