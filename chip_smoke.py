@@ -8,8 +8,9 @@
     python3 chip_smoke.py --phases card,families,transform    # the families, the H-only path
     python3 chip_smoke.py --phases card,models                # separate, semi, masked, online
     python3 chip_smoke.py --phases card,selection             # batched solves, restarts, sweeps
+    python3 chip_smoke.py --phases card,utils                 # I/O, checkpoints, live, doctor
 
-Fourteen phases, in order; any failure raises and the exit code is non-zero:
+Fifteen phases, in order; any failure raises and the exit code is non-zero:
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
@@ -250,7 +251,30 @@ Fourteen phases, in order; any failure raises and the exit code is non-zero:
    and bits.  (f) The CLI, four subprocesses at once: ``batch`` on 16
    files, ``select --ranks 8,16,24,32 --stability -o``, ``run --restarts
    8 -o`` and ``separate --restarts 4``, each file byte-equal to the same
-   call in-process.
+   call in-process;
+15. utils: ``native/binio.cpp`` built with the host compiler into
+   ``build/nmf_tpu_torch/native/`` (``NMF_TPU_NATIVE_LIB`` pointed there;
+   ``native/`` is never written), then (a) ``BinDataset`` over 128 files
+   of 513 x 2000 (config 4's input, 525 MB) with the native reader and
+   with NumPy's (``NMF_TPU_NO_NATIVE=1``), in turns, bit-equal, seconds of
+   each; (b) ``solve_out_of_core`` from a 1025 x 65408 ``.bin`` (K=32, 5
+   iterations and a cost pass) with native and with NumPy reads, at 16352
+   columns a block and at 16384 (rows a power of two apart in the native
+   transpose): the factors bit-equal, native column reads above 0 (none
+   on NumPy's), the host fill seconds of each; (c) ``solve_with_checkpoints`` on the reference
+   pipeline (200 iterations, every 50): 200/200/8 K1/K2/K3 launches, the
+   straight ``solve``'s bits, and a run stopped after two segments and
+   resumed bit-equal to the uninterrupted one, also under
+   ``accelerate=True`` (momentum and carry too); (d) the streamed solve
+   at (b)'s shape checkpointed every 5 of 10 iterations, blocks x 10 /
+   blocks x 10 / blocks x 2 launches, stopped at 5 and resumed bit-equal;
+   (e) the checkpointed tile-sparse solve at 8192^2, K=128: 200 + 200 K5
+   launches, the straight tiled solve's bits, resumed bit-equal; (f)
+   ``live_metrics`` on the reference solve: 200/200/8 launches, the
+   factors bit-equal to live off, the 8 emissions the history, it/s on and
+   off in turns; (g) ``stage_timings`` at the reference shape (ms) and a
+   ``trace`` whose kernels name K1 and K2; (h) ``python -m nmf_tpu_torch
+   doctor --json`` as a subprocess: exit 0, ``up``, the card's name.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -268,11 +292,13 @@ their launches on the streamed solve; every kernel its launches on phase
 10's accelerated solves, ``accel_launches``; K1-K3 their launches on each
 run of phase 12, ``transform_launches``, K2's all 0, and on each run of
 phase 13, ``models_launches``, and of phase 14, ``selection_launches``,
-with phase 14's config-4 call in ``batched``); the last line is
+with phase 14's config-4 call in ``batched``; every kernel its launches on
+phase 15's runs, ``utils_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -353,7 +379,7 @@ TIERS = {
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
-          "oocore", "accel", "families", "transform", "models", "selection")
+          "oocore", "accel", "families", "transform", "models", "selection", "utils")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -3866,6 +3892,362 @@ def _selection_launches(launches, name):
             if run.startswith("selection ")}
 
 
+# --- phase 15: utils (BinDataset, the native reader, checkpoints, live, profiling, doctor)
+
+UTILS_FILES, UTILS_FILE_SHAPE = 128, (513, 2000)   # BASELINE.json config 4's input
+UTILS_OOC = (1025, 65_408, 32)     # phase 9's streamed block as a whole X
+# (b)'s block widths: 16352 columns (4 blocks), and 16384, whose rows lie a
+# power of two apart (64 KiB) in the native reader's transpose (PR 15's
+# first run: native fills 4.5x NumPy's there)
+UTILS_OOC_BLOCKS = (16_352, 16_384)
+UTILS_OOC_ITERS = 10
+UTILS_CKPT_EVERY = 50
+
+
+def _build_native(card, out):
+    """``native/binio.cpp`` built with the host compiler into
+    ``build/nmf_tpu_torch/native/`` (``native/`` is never written), and
+    ``NMF_TPU_NATIVE_LIB`` pointed at it."""
+    import shutil
+
+    from nmf_tpu_torch.io import native
+
+    lib = REPO / "build" / "nmf_tpu_torch" / "native" / "libnmfio.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    check(cxx is not None, "no host C++ compiler for native/binio.cpp")
+    t0 = time.perf_counter()
+    subprocess.run([cxx, "-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared", "-o",
+                    str(lib), str(REPO / "native" / "binio.cpp")],
+                   check=True, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    os.environ["NMF_TPU_NATIVE_LIB"] = str(lib)
+    os.environ.pop("NMF_TPU_NO_NATIVE", None)
+    native._lib = None          # load the new build, whatever was loaded before
+    check(native.available() and native.has_read_columns(), f"{lib} does not load")
+    out["utils"]["native_build_s"] = secs
+    print(f"[{card}] native/binio.cpp built with {cxx} into {lib} in {secs} s")
+
+
+class _NumpyReads:
+    """Inside: the NumPy reads (``NMF_TPU_NO_NATIVE=1``)."""
+
+    def __enter__(self):
+        os.environ["NMF_TPU_NO_NATIVE"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop("NMF_TPU_NO_NATIVE", None)
+        return False
+
+
+def phase_utils_dataset(card, tmp, out, seed):
+    """(a) BinDataset over config 4's input, native reads against NumPy's."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import native
+
+    d = os.path.join(tmp, "specs")
+    os.makedirs(d)
+    rng = np.random.RandomState(seed + 15)
+    for i in range(UTILS_FILES):
+        nt.write_matrix(rng.rand(*UTILS_FILE_SHAPE).astype(np.float32), os.path.join(d, f"s{i:03d}.bin"))
+    ds = nt.BinDataset(d)
+    check(len(ds) == UTILS_FILES and ds.shape == UTILS_FILE_SHAPE, f"BinDataset: {len(ds)} x {ds.shape}")
+    loads, ref = {"numpy": [], "native": []}, None
+    for path in ("numpy", "native", "native", "numpy"):
+        native.reset_counts()
+        t0 = time.perf_counter()
+        if path == "numpy":
+            with _NumpyReads():
+                xs = ds.load_batch()
+        else:
+            xs = ds.load_batch()
+        loads[path].append(time.perf_counter() - t0)
+        want = UTILS_FILES if path == "native" else 0
+        check(native.READS["matrix"] == want, f"BinDataset {path}: {native.READS} native reads")
+        if ref is None:
+            ref = xs
+        check(xs.shape == (UTILS_FILES, *UTILS_FILE_SHAPE) and xs.tobytes() == ref.tobytes(),
+              f"BinDataset: the {path} load differs from the NumPy load")
+    gb = ref.nbytes / 1e9
+    out["utils"]["dataset"] = {"bytes": ref.nbytes, "numpy_s": loads["numpy"], "native_s": loads["native"]}
+    print(f"[{card}] BinDataset {UTILS_FILES} x {UTILS_FILE_SHAPE} ({gb} GB, page cache): NumPy "
+          f"{loads['numpy']} s, native {loads['native']} s (in turns), bit-equal")
+
+
+def _ooc_problem(tmp, seed):
+    """X of UTILS_OOC as a .bin file, and W0, H0."""
+    import nmf_tpu_torch as nt
+
+    m, n, k = UTILS_OOC
+    rng = np.random.RandomState(seed + 150)
+    path = os.path.join(tmp, "X_ooc.bin")
+    nt.write_matrix(rng.rand(m, n).astype(np.float32), path)
+    return path, rng.rand(m, k).astype(np.float32), rng.rand(k, n).astype(np.float32)
+
+
+def _ooc_blocks(block_n):
+    return -(-UTILS_OOC[1] // block_n)
+
+
+def phase_utils_streamed(card, out, path, w, h):
+    """(b) the streamed solve from the .bin file, native reads against
+    NumPy's, at each of UTILS_OOC_BLOCKS (the first in turns, native,
+    NumPy, NumPy, native; the second once each)."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import native
+
+    cfg = nt.SolveConfig(max_iter=5, check_every=5)
+    rec = {}
+    for block_n, order in zip(UTILS_OOC_BLOCKS, (("native", "numpy", "numpy", "native"),
+                                                 ("native", "numpy"))):
+        runs, first = {}, None
+        for tag in order:
+            native.reset_counts()
+            with (_NumpyReads() if tag == "numpy" else contextlib.nullcontext()):
+                (res, secs, launches, plain), fills = _host_timed(
+                    lambda: _ooc_solve(path, w, h, cfg, block_n=block_n))
+            reads = native.READS["columns"]
+            check((reads > 0) == (tag == "native"), f"streamed {tag}: {reads} native column reads")
+            check(launches["update_h"] == 5 * _ooc_blocks(block_n) and not any(plain.values()),
+                  f"streamed from .bin: launches {launches}, plain {plain}")
+            first = first or res
+            for f in ("w", "h", "cost_history"):
+                check(torch.equal(_bits(getattr(res, f)), _bits(getattr(first, f))),
+                      f"streamed from .bin, block {block_n}: {f} of a {tag} run differs")
+            runs.setdefault(tag, []).append({"seconds": secs, "fill_s": sum(fills["_fill"]),
+                                              "fills": len(fills["_fill"]), "native_reads": reads})
+        rec[block_n] = runs
+        print(f"[{card}] solve_out_of_core from a {UTILS_OOC[0]}x{UTILS_OOC[1]} .bin, K={UTILS_OOC[2]}, "
+              f"block {block_n} ({_ooc_blocks(block_n)} blocks), 5 iterations + 1 cost pass: native "
+              f"reads {[r['native_reads'] for r in runs['native']]}; fills native "
+              f"{[r['fill_s'] for r in runs['native']]} s, NumPy {[r['fill_s'] for r in runs['numpy']]} s "
+              f"(sums over {runs['native'][0]['fills']} fills); solve native "
+              f"{[r['seconds'] for r in runs['native']]} s, NumPy {[r['seconds'] for r in runs['numpy']]} s; "
+              "factors bit-equal")
+    out["utils"]["streamed"] = rec
+
+
+def _state_bits_equal(a, b):
+    return all(np.asarray(getattr(a, f), np.float32).tobytes() == np.asarray(getattr(b, f), np.float32).tobytes()
+               for f in ("w", "h")) and np.float32(a.cost_history).tobytes() == np.float32(b.cost_history).tobytes()
+
+
+def phase_utils_checkpoint(card, tmp, out):
+    """(c) the checkpointed reference solve: against the straight solve,
+    stopped after two segments and resumed, plain and accelerated."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import fixtures as fx
+    from nmf_tpu_torch.utils import solve_with_checkpoints
+
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    cfg = nt.SolveConfig()
+    half = dataclasses.replace(cfg, max_iter=cfg.max_iter // 2)
+    straight = nt.solve(x, w, h, cfg, device="cuda")
+    _, straight_s = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))
+    rec = {"straight_s": straight_s}
+    for name, c, hc in (("plain", cfg, half),
+                        ("accelerate", dataclasses.replace(cfg, accelerate=True),
+                         dataclasses.replace(half, accelerate=True))):
+        d = os.path.join(tmp, f"ck_{name}")
+        want = _launches(update_h=200, update_w=200, kl_cost=8) if name == "plain" else None
+        if want is not None:
+            full, secs, launches = _counted_models(
+                lambda: solve_with_checkpoints(x, w, h, c, d + "_full", every=UTILS_CKPT_EVERY,
+                                               device="cuda"), f"checkpointed {name}", want)
+        else:
+            _reset_all()
+            full, secs = _timed(lambda: solve_with_checkpoints(x, w, h, c, d + "_full",
+                                                               every=UTILS_CKPT_EVERY, device="cuda"))
+            launches = _all_counts()
+        out["launches"][f"utils checkpointed {name}"] = {k: launches[k] for k in _launches()}
+        steps = sorted(os.listdir(d + "_full"))
+        check(steps == [f"step_{i:08d}" for i in (50, 100, 150, 200)], f"checkpointed {name}: {steps}")
+        check(full.iteration == 200 and len(full.cost_history) == 8, f"checkpointed {name}: {full}")
+        if name == "plain":
+            check(full.w.tobytes() == straight.w.cpu().numpy().tobytes()
+                  and full.h.tobytes() == straight.h.cpu().numpy().tobytes()
+                  and np.float32(full.cost_history).tobytes() == straight.cost_history.cpu().numpy().tobytes(),
+                  "checkpointed reference solve: not the straight solve's bits")
+        first, s1 = _timed(lambda: solve_with_checkpoints(x, w, h, hc, d, every=UTILS_CKPT_EVERY,
+                                                          device="cuda"))
+        check(sorted(os.listdir(d)) == steps[:2], f"{name}: stopped run wrote {os.listdir(d)}")
+        _reset_all()
+        resumed, s2 = _timed(lambda: solve_with_checkpoints(x, w, h, c, d, every=UTILS_CKPT_EVERY,
+                                                            device="cuda"))
+        res_launches = {k: v for k, v in _all_counts().items() if k in _launches()}
+        check(_state_bits_equal(resumed, full) and resumed.check_iterations == full.check_iterations,
+              f"checkpointed {name}: the resumed run differs from the uninterrupted one")
+        if name == "accelerate":
+            check(np.float32(resumed.momentum) == np.float32(full.momentum)
+                  and np.asarray(resumed.w_ex).tobytes() == np.asarray(full.w_ex).tobytes(),
+                  "accelerated resume: momentum or carry differs")
+        rec[name] = {"seconds": secs, "launches": out["launches"][f"utils checkpointed {name}"],
+                     "stopped_s": s1, "resumed_s": s2, "resumed_launches": res_launches,
+                     "final_cost": full.cost_history[-1]}
+        print(f"[{card}] solve_with_checkpoints reference {name}, every {UTILS_CKPT_EVERY}: {secs} s, "
+              f"launches {rec[name]['launches']}; stopped at 100 ({s1} s) and resumed ({s2} s, "
+              f"launches {res_launches}): bit-equal to the uninterrupted run"
+              + (f"; the straight solve's bits (straight: {straight_s} s)" if name == "plain" else ""))
+    out["utils"]["checkpoint"] = rec
+
+
+def phase_utils_streamed_ckpt(card, tmp, out, path, w, h):
+    """(d) the streamed solve's checkpoint and resume at (b)'s shape."""
+    import nmf_tpu_torch as nt
+
+    block_n = UTILS_OOC_BLOCKS[0]
+    blocks, half = _ooc_blocks(block_n), UTILS_OOC_ITERS // 2
+    cfg = nt.SolveConfig(max_iter=UTILS_OOC_ITERS, check_every=half)
+    kw = dict(block_n=block_n, checkpoint_every=half)
+    full, secs, launches, plain = _ooc_solve(path, w, h, cfg, checkpoint_dir=os.path.join(tmp, "sf"), **kw)
+    want = _launches(update_h=UTILS_OOC_ITERS * blocks, update_w_numerator=UTILS_OOC_ITERS * blocks,
+                     kl_cost=2 * blocks)
+    check(launches == want and not any(plain.values()),
+          f"streamed checkpointed: launches {launches}, plain {plain}, expected {want}")
+    out["launches"]["utils streamed checkpointed"] = launches
+    d = os.path.join(tmp, "sc")
+    _ooc_solve(path, w, h, dataclasses.replace(cfg, max_iter=half), checkpoint_dir=d, **kw)
+    check(sorted(os.listdir(d)) == [f"step_{half:08d}"], f"streamed stopped run wrote {os.listdir(d)}")
+    resumed, s2, l2, _ = _ooc_solve(path, w, h, cfg, checkpoint_dir=d, **kw)
+    for f in ("w", "h", "cost_history"):
+        check(torch.equal(_bits(getattr(resumed, f)), _bits(getattr(full, f))),
+              f"streamed resume: {f} differs from the uninterrupted run")
+    out["utils"]["streamed_ckpt"] = {"seconds": secs, "launches": launches, "resumed_s": s2,
+                                     "resumed_launches": l2}
+    print(f"[{card}] solve_out_of_core checkpointed every {half} of {UTILS_OOC_ITERS} (block "
+          f"{block_n}): {secs} s, launches {launches}; stopped at {half} and resumed ({s2} s, "
+          f"launches {l2}): bit-equal")
+
+
+def phase_utils_tiled_ckpt(card, tmp, out):
+    """(e) the checkpointed tile-sparse solve at 8192^2, K=128 (K5)."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.utils import solve_with_checkpoints
+
+    m, n, k, t, occ, seed = TS_MAIN
+    x, w, h = tile_problem(m, k, n, t, occ, seed)
+    tx = nt.tiles_from_dense(x, (t, t))
+    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25)
+    straight, _ = _ts_solve(tx, w, h, cfg)
+    d = os.path.join(tmp, "tiled")
+    (full, k5, k5_plain, k13), secs = _timed(lambda: _counted(
+        lambda: solve_with_checkpoints(tx, w, h, cfg, d + "_full", every=UTILS_CKPT_EVERY,
+                                       device="cuda")))
+    check(k5 == {"h_numerator": TS_ITERS, "w_numerator": TS_ITERS} and not any(k5_plain.values())
+          and not any(k13.values()), f"checkpointed tiled: K5 {k5}, plain {k5_plain}, K1-K3 {k13}")
+    out["launches"]["utils tiled checkpointed"] = {**_launches(), **k5}
+    check(full.w.tobytes() == straight.w.cpu().numpy().tobytes()
+          and full.h.tobytes() == straight.h.cpu().numpy().tobytes(),
+          "checkpointed tiled: not the straight tiled solve's bits")
+    solve_with_checkpoints(tx, w, h, dataclasses.replace(cfg, max_iter=TS_ITERS // 2), d,
+                           every=UTILS_CKPT_EVERY, device="cuda")
+    resumed, s2 = _timed(lambda: solve_with_checkpoints(tx, w, h, cfg, d, every=UTILS_CKPT_EVERY,
+                                                        device="cuda"))
+    check(_state_bits_equal(resumed, full), "checkpointed tiled: the resumed run differs")
+    out["utils"]["tiled_ckpt"] = {"seconds": secs, "k5": k5, "resumed_s": s2}
+    print(f"[{card}] solve_with_checkpoints tile-sparse {m}^2 K={k}, every {UTILS_CKPT_EVERY}: {secs} s, "
+          f"K5 {k5}; the straight solve's bits; stopped at {TS_ITERS // 2} and resumed ({s2} s): bit-equal")
+
+
+def phase_utils_live(card, out):
+    """(f) live metrics on the reference solve."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import fixtures as fx
+    from nmf_tpu_torch.utils import metrics
+
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    on_cfg = nt.SolveConfig(live_metrics=True)
+    off_cfg = nt.SolveConfig()
+    events = []
+    metrics.set_live_handler(lambda *e: events.append(e))
+    try:
+        on, _, launches = _counted_models(lambda: nt.solve(x, w, h, on_cfg, device="cuda"), "live",
+                                          _launches(update_h=200, update_w=200, kl_cost=8))
+        out["launches"]["utils live"] = launches
+        times = {"off": [], "on": []}
+        for tag in ("off", "on", "on", "off"):
+            cfg = on_cfg if tag == "on" else off_cfg
+            _, secs = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))
+            times[tag].append(secs)
+    finally:
+        metrics.set_live_handler(None)
+    off = nt.solve(x, w, h, off_cfg, device="cuda")
+    for f in ("w", "h", "cost_history"):
+        check(torch.equal(_bits(getattr(on, f)), _bits(getattr(off, f))), f"live: {f} differs from live off")
+    hist = on.cost_history.cpu().numpy()
+    first = events[:8]
+    check([e[0] for e in first] == [25 * (i + 1) for i in range(8)]
+          and np.float32([e[1] for e in first]).tobytes() == hist.tobytes() and np.isnan(first[0][2]),
+          f"live: emissions {first} against the history {hist}")
+    check(len(events) == 8 * 3, f"live: {len(events)} emissions over three live solves")
+    its = {tag: [200 / s for s in v] for tag, v in times.items()}
+    out["utils"]["live"] = {"it_per_s": its, "launches": launches}
+    print(f"[{card}] live metrics on the reference solve: 8 emissions = the history, factors "
+          f"bit-equal to live off; it/s on {its['on']}, off {its['off']} (in turns)")
+
+
+def phase_utils_profiling(card, tmp, out):
+    """(g) stage_timings at the reference shape; trace names K1 and K2."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import fixtures as fx
+    from nmf_tpu_torch.utils import profiling
+
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    st = profiling.stage_timings(x, w, h, repeats=20)
+    check(set(st) == {"recon_divide", "h_numerator", "w_numerator", "sums", "epilogues", "kl_cost",
+                      "full_step", "fused_step", "null_dispatch"} and all(v > 0 for v in st.values()),
+          f"stage_timings: {st}")
+    log = os.path.join(tmp, "trace")
+    with profiling.trace(log):
+        nt.solve(x, w, h, nt.SolveConfig(max_iter=5, check_every=5), device="cuda")
+    path = os.path.join(log, "trace.json")
+    names = {e.get("name", "") for e in json.loads(pathlib.Path(path).read_text())["traceEvents"]
+             if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in names if k in n)[:1] for k in ("h_update_partial", "w_update_partial")}
+    check(all(found.values()), f"trace: no K1/K2 kernel among {sorted(names)[:20]}")
+    out["utils"]["stage_ms"] = {k: v * 1e3 for k, v in st.items()}
+    print(f"[{card}] stage_timings at 4096x350 K=128 (ms, best of 20, CUDA events): "
+          f"{json.dumps(out['utils']['stage_ms'])}; trace {os.path.getsize(path)} bytes naming "
+          f"{found['h_update_partial'][0][:40]} and {found['w_update_partial'][0][:40]}")
+
+
+def phase_utils_doctor(card, out):
+    """(h) ``python -m nmf_tpu_torch doctor --json`` in a subprocess."""
+    proc = subprocess.run([sys.executable, "-m", "nmf_tpu_torch", "doctor", "--json"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"doctor: exit {proc.returncode}: {proc.stderr[-400:]}")
+    rep = json.loads(proc.stdout)
+    kind = torch.cuda.get_device_name(0)
+    check(rep["up"] is True and rep["backend"]["device_kind"] == kind
+          and rep["backend"]["platform"] == "cuda", f"doctor: {rep}")
+    out["utils"]["doctor"] = {k: rep["backend"][k] for k in ("device_kind", "dispatch_s", "h2d_gbps",
+                                                             "d2h_gbps")}
+    out["utils"]["doctor"]["kernel_build"] = rep["kernel_build"]
+    print(f"[{card}] doctor --json: up, {kind}, H2D {rep['backend']['h2d_gbps']} GB/s, D2H "
+          f"{rep['backend']['d2h_gbps']} GB/s, kernel build {rep['kernel_build']}")
+
+
+def phase_utils(card, tmp, out, seed):
+    print(f"[{card}] phase 15: utils (BinDataset and the native reader, checkpoint/resume, live "
+          "metrics, profiling, doctor)")
+    _build_native(card, out)
+    phase_utils_dataset(card, tmp, out, seed)
+    path, w, h = _ooc_problem(tmp, seed)
+    phase_utils_streamed(card, out, path, w, h)
+    phase_utils_checkpoint(card, tmp, out)
+    phase_utils_streamed_ckpt(card, tmp, out, path, w, h)
+    phase_utils_tiled_ckpt(card, tmp, out)
+    phase_utils_live(card, out)
+    phase_utils_profiling(card, tmp, out)
+    phase_utils_doctor(card, out)
+
+
+def _utils_launches(launches, name):
+    """A kernel's launches on each run of phase 15."""
+    return {run[6:]: counts.get(name, 0) for run, counts in launches.items()
+            if run.startswith("utils ")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3896,7 +4278,7 @@ def main(argv=None) -> int:
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
-        "families": {}, "transform": {}, "models": {}, "selection": {},
+        "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
     }
     t_start = time.perf_counter()
     seconds = {}
@@ -3931,6 +4313,8 @@ def main(argv=None) -> int:
         run("models", phase_models, tmp, out, args.seed)
     with tempfile.TemporaryDirectory(prefix="nmf_sel_") as tmp:
         run("selection", phase_selection, tmp, out, args.seed)
+    with tempfile.TemporaryDirectory(prefix="nmf_utils_") as tmp:
+        run("utils", phase_utils, tmp, out, args.seed)
     print(f"[{card}] phase seconds: {json.dumps(seconds)}")
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
@@ -3985,6 +4369,9 @@ def main(argv=None) -> int:
             **({"flagship": st["flagship"]} if st["flagship"] else {}),
             **({"long_walks": st["long_walks"]} if st["long_walks"] else {}),
             "accel_launches": _accel_launches(out["launches"], name),
+            # phase 15: the checkpointed, live and streamed-resume runs
+            # (K1-K3) and the checkpointed tile-sparse run (K5)
+            "utils_launches": _utils_launches(out["launches"], name),
             # K1-K3: their launches on phase 12's H-only runs (K2: none)
             **({"transform_launches": _transform_launches(out["launches"], name),
                 "models_launches": _models_launches(out["launches"], name),
@@ -3999,7 +4386,8 @@ def main(argv=None) -> int:
     print(f"[{card}] transform summary: {json.dumps(out['transform'])}")
     print(f"[{card}] models summary: {json.dumps(out['models'])}")
     print(f"[{card}] selection summary: {json.dumps(out['selection'])}")
-    print(f"[{card}] all fourteen phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] utils summary: {json.dumps(out['utils'])}")
+    print(f"[{card}] all fifteen phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

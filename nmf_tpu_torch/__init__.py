@@ -20,8 +20,13 @@ KL-NMF through K1-K3, Wiener masks, ISTFT); ``solve_masked`` and
 ops as in JAX.  ``solve_batched`` factorizes a stack of problems, and
 ``solve_restarts``, ``solve_rank_sweep`` and ``rank_stability`` run model
 selection, each as one batched solve whose K1-K3 launches serve every
-member (``solve_sparse_tiled_batched`` on the plain sweeps).  Imports
-torch and NumPy, never JAX.
+member (``solve_sparse_tiled_batched`` on the plain sweeps).
+``BinDataset`` reads a directory of ``.bin`` files as one batch, through
+the native C++ reader (``native/binio.cpp``) when it is built;
+``utils.solve_with_checkpoints`` and ``solve_out_of_core(checkpoint_dir=)``
+checkpoint and resume in JAX's format, ``live_metrics`` streams each check,
+``utils.profiling`` times the stages and ``python -m nmf_tpu_torch doctor``
+checks the card.  Imports torch and NumPy, never JAX.
 
 Quick start::
 
@@ -34,6 +39,7 @@ Quick start::
 
 from .io import fixtures
 from .io.binio import read_matrix, write_matrix
+from .io.dataset import BinDataset
 from .models.init import nndsvd_init, random_init, scaled_random_init
 from .models.masked import solve_masked, solve_masked_h_only
 from .models.nmf import NMF, normalize_factors, solve_h_only, solve_w_only
@@ -70,6 +76,7 @@ __version__ = "0.1.0"
 __all__ = [
     "read_matrix",
     "write_matrix",
+    "BinDataset",
     "fixtures",
     "EPS",
     "eps_clamp",

@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch port (``run``, ``transform``,
-``separate``, ``select``, ``batch``, ``gen``, ``info``).
+``separate``, ``select``, ``batch``, ``gen``, ``info``, ``doctor``).
 
     python -m nmf_tpu_torch run X.bin W.bin H.bin -o Wout.bin Hout.bin   # on the card
     python -m nmf_tpu_torch run X.bin --rank 32 --device cpu   # NNDSVDa init
@@ -11,6 +11,8 @@
     python -m nmf_tpu_torch run X.bin W.bin H.bin --freeze 8     # first 8 columns of W fixed
     python -m nmf_tpu_torch run X.bin --rank 32 --init random --online   # one-pass learner
     python -m nmf_tpu_torch run X.bin --rank 32 --restarts 8     # keep the best of 8 seeds
+    python -m nmf_tpu_torch run X.bin W.bin H.bin --checkpoint-dir ck   # resumable
+    python -m nmf_tpu_torch run X.bin W.bin H.bin --live --validate     # each check as it runs
     python -m nmf_tpu_torch transform X.bin W.bin -o H.bin       # H against a fixed W
     python -m nmf_tpu_torch transform X.bin W.bin -o H.bin --out-of-core --block-n 4096
     python -m nmf_tpu_torch separate song.wav --rank 32 --out-dir sources   # the paper's pipeline
@@ -18,6 +20,7 @@
     python -m nmf_tpu_torch batch specs/ --rank 32 --out-dir out    # a directory in one solve
     python -m nmf_tpu_torch gen ./fixtures        # seed-0 reference fixtures
     python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
+    python -m nmf_tpu_torch doctor --json         # is the card usable?
 
 The flags mirror ``python -m nmf_tpu``.  Every other flag of the JAX CLI's
 subcommands is parsed with the JAX CLI's default, and runs as
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from .io import binio, fixtures
+from .io.dataset import BinDataset
 from .models import init as init_mod
 from .models.masked import solve_masked, solve_masked_h_only
 from .models.nmf import solve_h_only
@@ -45,7 +49,7 @@ from .models.online import solve_online
 from .models.selection import solve_rank_sweep, solve_restarts
 from .models.semi import solve_semi
 from .models.separation import separate
-from .models.solver import solve
+from .models.solver import SolveResult, solve
 from .models.streaming import (
     BinColumnSource,
     solve_out_of_core,
@@ -55,8 +59,10 @@ from .models.streaming import (
 from .models.stability import rank_stability
 from .models.strict import solve_strict
 from .parallel.batched import solve_batched
+from .utils.checkpoint import solve_with_checkpoints
 from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
+from .utils.guards import validate_input, validate_result
 from .utils.metrics import MetricsLogger
 
 # JAX-CLI flags not in the port yet: flag -> (argparse kwargs with the JAX
@@ -65,11 +71,7 @@ from .utils.metrics import MetricsLogger
 # runs it; any other value is refused.  _SOLVER_LATER is common to every
 # solving subcommand (the JAX CLI's _add_solver_flags).
 _SOLVER_LATER = {
-    "--live": ({"action": "store_true"}, "Queue 1 step 9, item 13: utils (live metrics)"),
-    "--validate": ({"action": "store_true"}, "Queue 1 step 9, item 13: utils (guards)"),
     "--mesh": ({}, "Queue 1 step 12, item 12: sharded solves"),
-    "--checkpoint-dir": ({}, "Queue 1 item 13: utils (checkpoint)"),
-    "--checkpoint-every": ({"type": int, "default": 100}, "Queue 1 item 13: utils (checkpoint)"),
 }
 _AUTOTUNE = "Queue 1 step 11 (item 7): the H100 backend rules and autotune"
 
@@ -104,7 +106,8 @@ def _config(args) -> SolveConfig:
         precision=Precision(
             matmul_dtype=args.dtype, x_dtype=args.x_dtype, x_quant_rows=args.x_quant_rows
         ),
-        backend=args.backend, track_cost=not args.no_cost, accelerate=args.accelerate,
+        backend=args.backend, track_cost=not args.no_cost, live_metrics=args.live,
+        accelerate=args.accelerate,
         beta=args.beta, algorithm=args.algorithm,
         l1_w=args.l1_w, l1_h=args.l1_h, l2_w=args.l2_w, l2_h=args.l2_h,
     )
@@ -154,6 +157,9 @@ def _cmd_run_online(args, dev) -> int:
                            passes=args.online_passes, seed=args.seed, device=dev)
         tr = transform_out_of_core(args.X, res.w, config=config, block_n=args.block_n,
                                    seed=args.seed, device=dev)
+    if args.validate:
+        validate_input("W", res.w)
+        validate_input("H", tr.h)
     logger.report_raw({
         "mode": "online",
         "shape": list(source.shape),
@@ -193,11 +199,15 @@ def _cmd_run_out_of_core(args, dev) -> int:
     mask = BinColumnSource(args.mask) if args.mask else None
     logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
     with logger.timed() as t:
-        res = solve_out_of_core(source, w0, h0, config, block_n=args.block_n, mask=mask,
+        res = solve_out_of_core(source, w0, h0, config, block_n=args.block_n,
+                                checkpoint_dir=args.checkpoint_dir,
+                                checkpoint_every=args.checkpoint_every, mask=mask,
                                 n_frozen=args.freeze, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     logger.report(res, (m, n), t.seconds, check_every=config.check_every)
+    if args.validate:
+        validate_result(res)
     _write_factors(res, args)
     if not args.quiet:
         gb = m * n * wire_itemsize(config.precision.x_dtype) / 1e9
@@ -255,15 +265,25 @@ def cmd_run(args) -> int:
         mask = binio.read_matrix(args.mask)
         if mask.shape != x.shape:
             return _error(f"mask shape {mask.shape} != X shape {x.shape}")
-        if args.strict_compat:
+        if args.strict_compat or args.checkpoint_dir:
             return _error("--mask runs the masked solver (no --strict-compat / "
                           "--checkpoint-dir; use --out-of-core for resumable masked runs)")
-    if args.freeze and args.strict_compat:
+    if args.validate:
+        validate_input("X", x)
+        if w0 is not None:   # --restarts makes its inits later
+            validate_input("W0", w0)
+            validate_input("H0", h0)
+    if args.freeze and (args.strict_compat or args.checkpoint_dir):
         return _error("--freeze composes with the plain / --mesh / --out-of-core solvers only")
     if mask is not None and args.freeze:
         return _error("--freeze is not implemented for masked solves")
     if args.restarts > 1:
         return _cmd_run_restarts(args, x, config, logger, mask, dev)
+    if args.strict_compat and args.checkpoint_dir:
+        return _error("--strict-compat is a single-device exact-replication mode "
+                      "(no --mesh / --checkpoint-dir)")
+    if args.checkpoint_dir:
+        return _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev)
     with logger.timed() as t:
         if mask is not None:
             res = solve_masked(x, w0, h0, mask, config, device=dev)
@@ -277,10 +297,47 @@ def cmd_run(args) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     logger.report(res, x.shape, t.seconds, check_every=config.check_every)
+    if args.validate:
+        validate_result(res)
     w_out, h_out = _write_factors(res, args)
     if not args.quiet:
         w_path, h_path = args.output
         print(f"[nmf] wrote {w_path} {w_out.shape}, {h_path} {h_out.shape}", file=sys.stderr)
+    return 0
+
+
+def _state_as_result(state) -> SolveResult:
+    """A checkpointed run's final state in the shape of a ``SolveResult``,
+    for the metrics report and the guards (``nmf_tpu/cli.py:197-214``): its
+    stitched cost history plays the solver's history."""
+    hist = np.asarray(state.cost_history, dtype=np.float32)
+    return SolveResult(
+        w=state.w, h=state.h, iterations=np.int32(state.iteration),
+        cost=hist[-1] if hist.size else np.float32("nan"), cost_history=hist,
+        num_checks=np.int32(hist.size), converged=np.bool_(state.converged),
+        momentum=np.float32(state.momentum),
+    )
+
+
+def _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev) -> int:
+    """run with --checkpoint-dir: the solve in segments of
+    --checkpoint-every iterations, each checkpointed, resumed from the
+    newest checkpoint there (``nmf_tpu/cli.py:548-570``)."""
+    with logger.timed() as t:
+        state = solve_with_checkpoints(x, w0, h0, config, args.checkpoint_dir,
+                                       every=args.checkpoint_every, device=dev)
+    res = _state_as_result(state)
+    logger.report(res, x.shape, t.seconds, check_every=config.check_every,
+                  check_iterations=state.check_iterations)
+    if args.validate:
+        validate_result(res)
+    w_path, h_path = args.output
+    binio.write_matrix(state.w, w_path)
+    binio.write_matrix(state.h, h_path)
+    if not args.quiet:
+        print(f"[nmf] checkpointed run: {state.iteration} iters, converged={state.converged}, "
+              f"{t.seconds:.2f}s", file=sys.stderr)
+        print(f"[nmf] wrote {w_path} {state.w.shape}, {h_path} {state.h.shape}", file=sys.stderr)
     return 0
 
 
@@ -289,7 +346,7 @@ def _cmd_run_restarts(args, x, config, logger, mask, dev) -> int:
     lowest-cost one written (``nmf_tpu/cli.py:458-523``)."""
     if not args.rank or args.W or args.H:
         return _error("--restarts generates its own seeded inits; use --rank (not W/H files)")
-    if args.strict_compat or mask is not None or args.freeze:
+    if args.strict_compat or args.checkpoint_dir or mask is not None or args.freeze:
         return _error("--restarts composes with --mesh only (no --strict-compat / "
                       "--checkpoint-dir / --mask / --freeze)")
     # the deterministic nndsvd variants would make identical members
@@ -305,6 +362,8 @@ def _cmd_run_restarts(args, x, config, logger, mask, dev) -> int:
     w_b, h_b = sel.best
     res = dataclasses.replace(sel.best_solve_result(), w=w_b, h=h_b)
     logger.report(res, x.shape, t.seconds, check_every=config.check_every)
+    if args.validate:
+        validate_result(res)
     if not args.quiet:
         costs = ", ".join(f"{c:.6g}" for c in sel.costs)
         print(f"[nmf] {args.restarts} restarts (seeds {args.seed}.."
@@ -324,8 +383,7 @@ def cmd_transform(args) -> int:
                       "solved in one visit; re-running re-does only unfinished work)")
     if args.strict_compat:
         return _error("--strict-compat is a full-solve replication mode (use 'run')")
-    later = {flag: v for flag, v in _SOLVER_LATER.items() if flag != "--checkpoint-every"}
-    refused = _refused(args, later)
+    refused = _refused(args, _SOLVER_LATER)
     if refused:
         return _error("not in the PyTorch port yet: " + "; ".join(refused))
     dev = resolve_device(args.device)  # a missing card fails before any I/O
@@ -339,6 +397,11 @@ def cmd_transform(args) -> int:
             res = transform_out_of_core(args.X, w, h0=h0, config=config, block_n=args.block_n,
                                         seed=args.seed, mask=mask, device=dev)
         h_out = res.h
+        if args.validate:
+            validate_input("H", h_out)
+            if config.track_cost and not np.isfinite(res.cost):
+                print("error: non-finite transform cost", file=sys.stderr)
+                return 1
         if not args.quiet:
             print(
                 f"[nmf] transform (out-of-core): {len(res.blocks)} blocks, "
@@ -359,6 +422,8 @@ def cmd_transform(args) -> int:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)  # time the run, not its enqueue
         logger.report(res, x.shape, t.seconds, check_every=config.check_every)
+        if args.validate:
+            validate_result(res)
         h_out = res.h.cpu().float().numpy()
     binio.write_matrix(h_out, args.output)
     if not args.quiet:
@@ -409,9 +474,7 @@ def cmd_separate(args) -> int:
             return _error(f"{name} does not apply to 'separate' (it runs an "
                           "in-memory spectrogram factorization; factorize the "
                           "spectrogram .bin with 'run' for those modes)")
-    later = {flag: v for flag, v in _SOLVER_LATER.items()
-             if flag not in ("--checkpoint-dir", "--checkpoint-every", "--mesh")}
-    refused = _refused(args, later)
+    refused = _refused(args, {})
     if refused:
         return _error("not in the PyTorch port yet: " + "; ".join(refused))
     dev = resolve_device(args.device)  # a missing card fails before any I/O
@@ -421,6 +484,11 @@ def cmd_separate(args) -> int:
     with logger.timed() as t:
         res = separate(audio, n_components=args.rank, n_fft=args.n_fft, hop=args.hop,
                        config=config, seed=args.seed, n_restarts=args.restarts, device=dev)
+    if args.validate:
+        validate_result(res.solve_result)
+        if not np.all(np.isfinite(res.sources)):
+            print("error: non-finite separated sources", file=sys.stderr)
+            return 1
     if args.jsonl:
         logger.report_raw({
             "kind": "separate",
@@ -489,6 +557,8 @@ def cmd_select(args) -> int:
         return rc
     dev = resolve_device(args.device)  # a missing card fails before any I/O
     x = binio.read_matrix(args.X)
+    if args.validate:
+        validate_input("X", x)
     config = _config(args)
     ranks = _parse_ranks(args.ranks)
     restarts = args.restarts
@@ -548,23 +618,6 @@ def cmd_select(args) -> int:
     return 0
 
 
-def _load_batch_dir(directory: str):
-    """(paths, [B, M, N] f32) of a directory's same-shaped ``.bin`` files,
-    sorted by name (the JAX CLI's ``BinDataset``, ``nmf_tpu/io/dataset.py``)."""
-    paths = sorted(p for p in (os.path.join(directory, f) for f in os.listdir(directory))
-                   if p.endswith(".bin") and os.path.isfile(p))
-    if not paths:
-        raise ValueError(f"no .bin files found in {directory!r}")
-    mats = [binio.read_matrix(paths[0])]
-    for path in paths[1:]:
-        a = binio.read_matrix(path)
-        if a.shape != mats[0].shape:
-            raise ValueError(f"{path}: shape {a.shape} != dataset shape {mats[0].shape} "
-                             f"(from {paths[0]})")
-        mats.append(a)
-    return paths, np.stack(mats)
-
-
 def cmd_batch(args) -> int:
     """Factorize every .bin matrix of a directory in one batched solve
     (``nmf_tpu/cli.py:1017-1096``): ``<stem>.W.bin`` and ``<stem>.H.bin``
@@ -573,8 +626,11 @@ def cmd_batch(args) -> int:
     if rc is not None:
         return rc
     dev = resolve_device(args.device)  # a missing card fails before any I/O
-    paths, xs = _load_batch_dir(args.directory)
+    ds = BinDataset(args.directory)
+    xs = ds.load_batch()
     b, m, n = xs.shape
+    if args.validate:
+        validate_input("X batch", xs)
     rng = np.random.RandomState(args.seed)
     ws = rng.rand(b, m, args.rank).astype(np.float32)
     hs = rng.rand(b, args.rank, n).astype(np.float32)
@@ -586,7 +642,7 @@ def cmd_batch(args) -> int:
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     os.makedirs(args.out_dir, exist_ok=True)
     w_all, h_all = (a.cpu().float().numpy() for a in (res.w, res.h))
-    for i, path in enumerate(paths):
+    for i, path in enumerate(ds.paths):
         stem = os.path.splitext(os.path.basename(path))[0]
         binio.write_matrix(w_all[i], os.path.join(args.out_dir, f"{stem}.W.bin"))
         binio.write_matrix(h_all[i], os.path.join(args.out_dir, f"{stem}.H.bin"))
@@ -611,6 +667,17 @@ def cmd_gen(args) -> int:
     for path in fixtures.write_reference_fixtures(args.directory).values():
         print(f"wrote {path}")
     return 0
+
+
+def cmd_doctor(args) -> int:
+    """Environment diagnosis (``utils/doctor.py``): exit 0 iff a bounded
+    subprocess ran the matmul check on the device and fetched the verified
+    result."""
+    from .utils import doctor
+
+    report = doctor.diagnose(platform=args.platform, timeout=args.timeout)
+    print(json.dumps(report) if args.json else doctor.format_report(report))
+    return 0 if report["up"] else 1
 
 
 def cmd_info(args) -> int:
@@ -682,6 +749,17 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
         f"(autotune: not ported yet, {_AUTOTUNE})",
     )
     p.add_argument("--no-cost", action="store_true", help="skip cost tracking")
+    p.add_argument(
+        "--live", action="store_true",
+        help="print each check's cost and relative change as the solve runs "
+        "(one host read a check; the factors do not change)",
+    )
+    p.add_argument("--validate", action="store_true",
+                   help="check inputs (finite, non-negative) and results (finite)")
+    p.add_argument("--checkpoint-dir",
+                   help="checkpoint/resume directory (run: in memory and --out-of-core)")
+    p.add_argument("--checkpoint-every", type=int, default=100,
+                   help="iterations per checkpoint")
     p.add_argument(
         "--accelerate", action="store_true",
         help="safeguarded Nesterov-accelerated updates (fewer iterations to a "
@@ -822,6 +900,19 @@ def build_parser() -> argparse.ArgumentParser:
     info = sub.add_parser("info", help="describe .bin files")
     info.add_argument("files", nargs="+")
     info.set_defaults(fn=cmd_info)
+
+    doc = sub.add_parser(
+        "doctor",
+        help="diagnose the environment: a bounded device probe (an exact matmul, "
+        "a paired copy), versions and the kernel build directory",
+    )
+    doc.add_argument("--platform", default=None,
+                     help="probe this device type instead of cuda (e.g. cpu)")
+    doc.add_argument("--timeout", type=float, default=180.0,
+                     help="seconds before the device probe is declared hung (it runs in "
+                     "a subprocess, so a hang cannot wedge this process)")
+    doc.add_argument("--json", action="store_true", help="machine-readable output")
+    doc.set_defaults(fn=cmd_doctor)
     return ap
 
 

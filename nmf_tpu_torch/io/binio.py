@@ -5,9 +5,11 @@ Format (reference ``cuda/nmf.cu:188-259``)::
     u32 rows | u32 cols | rows*cols float32 payload, **column-major**
 
 Counterpart of ``nmf_tpu.io.binio``: the same bytes in both directions, the
-same errors for truncated and missing files.  This is the NumPy path only;
-the ctypes ``native/`` loader is not part of the port yet.  Arrays are
-NumPy here: the solver moves them to its device.
+same errors for truncated and missing files.  Reads and writes go through
+the native C++ library (:mod:`nmf_tpu_torch.io.native`) when it is built,
+as in JAX, and through NumPy otherwise or when ``NMF_TPU_NO_NATIVE=1``;
+both give the same bytes.  Arrays are NumPy here: the solver moves them to
+its device.
 """
 
 from __future__ import annotations
@@ -46,6 +48,16 @@ def read_header(f: BinaryIO) -> Tuple[int, int]:
     return rows, cols
 
 
+def _native():
+    """The native library's module, or None (``NMF_TPU_NO_NATIVE=1``
+    disables it)."""
+    if os.environ.get("NMF_TPU_NO_NATIVE") == "1":
+        return None
+    from . import native
+
+    return native if native.available() else None
+
+
 def read_matrix(path: Union[str, os.PathLike]) -> np.ndarray:
     """Read a ``.bin`` matrix exactly as the reference reader does.
 
@@ -54,6 +66,9 @@ def read_matrix(path: Union[str, os.PathLike]) -> np.ndarray:
     """
     if not os.path.exists(path):
         raise FileNotFoundError(2, "no such .bin file", os.fspath(path))
+    nat = _native()
+    if nat is not None:
+        return nat.read_matrix_native(os.fspath(path))
     with open(path, "rb") as f:
         rows, cols = read_header(f)
         count = rows * cols
@@ -76,6 +91,10 @@ def write_matrix(arr, path: Union[str, os.PathLike]) -> None:
     if arr.ndim != 2:
         raise ValueError(f".bin format is 2-D only, got shape {arr.shape}")
     arr = arr.astype("<f4", copy=False)
+    nat = _native()
+    if nat is not None:
+        nat.write_matrix_native(arr, os.fspath(path))
+        return
     rows, cols = arr.shape
     with open(path, "wb") as f:
         f.write(_HEADER.pack(rows, cols))

@@ -17,6 +17,13 @@ the device:
 one cost is read back per check block (two on a rejected block), so under
 ``accelerate`` even ``thresh == 0`` syncs once a block.
 
+``live_metrics=True`` calls :func:`~nmf_tpu_torch.utils.metrics.emit_live`
+at each check with ``(iteration, cost, rel_change)``, the values of JAX's
+loops (``rel_change`` NaN at the first check of a run with no baseline).
+The plain loop reads the cost and the relative change back for it, one
+read a check, which a ``thresh == 0`` run does not make otherwise; the
+accelerated loop reads its costs anyway.  No value of the solve changes.
+
 Every precision policy runs: the state in f32 or bf16, X as f32, bf16 or
 uint8 codes with scales (quantized at load, or passed in as a pair).
 
@@ -26,7 +33,7 @@ plain ops by :func:`_use_kernels`), and the beta-divergence MU (``beta !=
 take plain ops on every device, as in JAX (``solver.py:113-127``).
 
 Not in the port yet, and refused with ``NotImplementedError``:
-``live_metrics`` and ``backend="autotune"``.
+``backend="autotune"``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ..ops.quant import dequantize, quantize_policy
 from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
+from ..utils.metrics import emit_live
 
 __all__ = ["SolveResult", "solve", "resolve_step_fn", "run_checked_loop"]
 
@@ -86,8 +94,6 @@ class SolveResult:
 
 def _refuse_unported(config: SolveConfig) -> None:
     later = {
-        "live_metrics=True (ROADMAP.md Queue 1 step 9, item 13: live metrics)":
-            config.live_metrics,
         "backend='autotune' (ROADMAP.md Queue 1 step 11, item 7: autotune)":
             config.backend == "autotune",
     }
@@ -198,7 +204,8 @@ def run_checked_loop(
     ``initial_cost`` seeds the convergence baseline (None/NaN: the first
     check never converges).  ``config.accelerate`` sends the run to
     :func:`_run_accel_loop`, with ``initial_momentum`` and
-    ``initial_extrap``.
+    ``initial_extrap``.  ``config.live_metrics`` emits each check (module
+    docstring).
     """
     if config.accelerate:
         return _run_accel_loop(x, w, h, config, step_fn, cost_fn, initial_cost,
@@ -208,6 +215,7 @@ def run_checked_loop(
     thresh = float(config.thresh)
     # with thresh == 0 and no tracking the cost GEMM is skipped entirely
     need_cost = config.track_cost or thresh > 0.0
+    live = bool(config.live_metrics)
     n_slots = max(config.num_checks, 1)
     dev = w.device
     hist = torch.full((n_slots,), float("nan"), dtype=_F32, device=dev)
@@ -223,11 +231,14 @@ def run_checked_loop(
             prev = cost
             cost = cost_fn(x, w, h).to(_F32)
             hist[chk] = cost          # device-to-device copy, no sync
-            if thresh > 0.0:
+            if thresh > 0.0 or live:
                 # the one host read per check, compared in f32 as the JAX
                 # loop compares; NaN (the first check) never stops
                 rel = torch.abs(prev - cost) / torch.abs(cost)
-                done = bool(rel < thresh)
+                if live:
+                    emit_live(it, *torch.stack((cost, rel)).tolist())
+                if thresh > 0.0:
+                    done = bool(rel < thresh)
             chk += 1
     return SolveResult(
         w=w,
@@ -325,9 +336,12 @@ def _run_accel_loop(
         it += chunk
         prev, cost = cost, c
         hist[chk] = cost
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rel = np.abs(prev - cost) / np.abs(cost)   # f32, as on JAX's device
+        if config.live_metrics:
+            emit_live(it, cost, rel)
         if thresh > 0:
-            with np.errstate(divide="ignore", invalid="ignore"):
-                done = bool(np.abs(prev - cost) / np.abs(cost) < thresh)
+            done = bool(rel < thresh)
         chk += 1
     dev = w.device
     return SolveResult(

@@ -24,8 +24,10 @@ batched loop: each member's tile list padded with inert zero tiles to a
 common count, the plain sweeps member by member (JAX vmaps its XLA scan
 here, never its Pallas kernel, so the port launches no K5 there either).
 
-Not in the port yet: the mesh path and checkpointed segments (ROADMAP.md
-Queue 1 items 12 and 13).
+A checkpointed tile-sparse solve runs through
+:func:`nmf_tpu_torch.utils.checkpoint.solve_with_checkpoints`, whose
+segments are :func:`_run_tiled` calls on the factors prepared once.  Not in
+the port yet: the mesh path (ROADMAP.md Queue 1 step 12).
 """
 
 from __future__ import annotations
@@ -197,9 +199,8 @@ def _validate_hand_built(tx: TileSparseX, mb: int, nb: int) -> None:
 
 def _refuse_unported(config: SolveConfig, mesh) -> None:
     later = {
-        "mesh (ROADMAP.md Queue 1 item 12: the sharded solver)": mesh is not None,
-        "live_metrics=True (ROADMAP.md Queue 1 item 5)": config.live_metrics,
-        "backend='autotune' (ROADMAP.md Queue 1 item 7)": config.backend == "autotune",
+        "mesh (ROADMAP.md Queue 1 step 12: the sharded solver)": mesh is not None,
+        "backend='autotune' (ROADMAP.md Queue 1 step 11: autotune)": config.backend == "autotune",
     }
     missing = [name for name, on in later.items() if on]
     if missing:
@@ -299,7 +300,7 @@ def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to
             ts.sweep_layout(*plan_w, mb, "w", device=dev),
             scales,
         )
-    info = dict(m=m, n=n, mp=mp, np_=np_, route=route)
+    info = dict(m=m, n=n, mp=mp, np_=np_, route=route, chunk=chunk)
     return xarg, w_pad.to(sd).to(dev), h_pad.to(sd).to(dev), info
 
 
@@ -387,19 +388,30 @@ def solve_sparse_tiled(
     PADDED factors, as ``nmf_tpu`` does: its eps clamp lifts the padded W
     rows and H columns of the extrapolated point from 0 to eps, so on a
     ragged problem they enter the next step's sums (by O(pad * eps)); they
-    see zero numerators, so the iterate's padding stays 0.  Refused with ``NotImplementedError``: ``mesh``,
-    ``live_metrics``, ``backend='autotune'``, ``beta != 1``, penalties and
-    ``algorithm != 'mu'``.
+    see zero numerators, so the iterate's padding stays 0.
+    ``live_metrics`` emits each check, as the dense solve does.  Refused
+    with ``NotImplementedError``: ``mesh``, ``backend='autotune'``, ``beta
+    != 1``, penalties and ``algorithm != 'mu'``.
     """
     config.validate()
     _refuse_unported(config, mesh)
     dev = resolve_device(device)
-    chunk = int(chunk)
-    xarg, w, h, info = _prepare_tiled(x, w0, h0, config, chunk, tile, dev)
-    step, cost = _tiled_fns(config, chunk, info["route"])
+    xarg, w, h, info = _prepare_tiled(x, w0, h0, config, int(chunk), tile, dev)
+    return _crop_tiled(_run_tiled(xarg, w, h, config, info, initial_cost), info)
+
+
+def _run_tiled(xarg, w, h, config: SolveConfig, info, initial_cost=float("nan"),
+               initial_momentum: float = float("nan"), initial_extrap=None) -> SolveResult:
+    """One solve (or one segment of a checkpointed one) on the prepared
+    payload and the PADDED factors of :func:`_prepare_tiled`
+    (``sparse_tiled.py:782-817`` of the JAX package).  ``initial_momentum``
+    and ``initial_extrap`` (padded like the factors) resume the accelerated
+    loop's state, as the dense solve's parameters do; the result stays
+    padded (:func:`_crop_tiled`)."""
+    step, cost = _tiled_fns(config, info["chunk"], info["route"])
     c0 = None if np.isnan(initial_cost) else initial_cost
-    res = run_checked_loop(xarg, w, h, config, step, cost, c0)
-    return _crop_tiled(res, info)
+    return run_checked_loop(xarg, w, h, config, step, cost, c0,
+                            float(initial_momentum), initial_extrap)
 
 
 def _crop_tiled(res: SolveResult, info) -> SolveResult:

@@ -65,9 +65,16 @@ visited once and solved in full by the H-only solve
 masked H-only solve's) while the next block is copied in, so X crosses the
 link once per run.
 
+``checkpoint_dir`` writes a checkpoint of W, H, the iteration, the cost
+history and (``accelerate``) the momentum and the extrapolated pair every
+``checkpoint_every`` iterations and at the end, in the ``.bin`` and
+``meta.json`` format of :mod:`nmf_tpu_torch.utils.checkpoint` (JAX's, byte
+for byte), and with ``resume`` continues from the newest one: a resumed
+run gives the bits of the uninterrupted one.  ``live_metrics`` emits each
+check (``utils.metrics.emit_live``).
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh``, ``checkpoint_dir``, ``live_metrics``,
-``backend="autotune"``.
+ROADMAP.md item: ``mesh`` and ``backend="autotune"``.
 """
 
 from __future__ import annotations
@@ -80,15 +87,17 @@ from typing import List, Tuple, Union
 import numpy as np
 import torch
 
-from ..io import binio
+from ..io import binio, native
 from ..ops.divergence import beta_partial, kl_divergence
 from ..ops.elementwise import eps_clamp
 from ..ops.hals import cd_sweep_h, cd_sweep_w
 from ..ops.kernels import fused_mu
 from ..ops.mu import _beta_ratios, matmul, numerator_w, update_h, update_h_kl_reg
 from ..ops.quant import dequantize, quantize_policy_np
+from ..utils import checkpoint as ckpt
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
+from ..utils.metrics import emit_live
 from .masked import masked_h_step_cost, masked_kl, masked_update_h, masked_w_terms
 from .nmf import _h_only_step_cost
 from .solver import SolveResult, _use_kernels, extrapolate, run_checked_loop, to_state
@@ -148,8 +157,13 @@ class BinColumnSource:
 
     The payload is column-major (nmf.cu:189), so columns [j0, j1) are one
     contiguous span at byte offset ``8 + j0*rows*4``: X never needs to fit
-    in host memory either.  The NumPy read only (the ``native`` fast path
-    of the JAX package is not ported).
+    in host memory either.  The span is read by the native C++ reader
+    (:func:`nmf_tpu_torch.io.native.read_columns_native`: one bulk read and
+    a cache-blocked transpose, straight into the caller's buffer) when the
+    library is built and ``NMF_TPU_NO_NATIVE`` is not ``"1"``, as in JAX
+    (``streaming.py:106-113`` there), else by NumPy; both give the same
+    bytes, and a short file the same error.  ``native.READS["columns"]``
+    counts the native reads.
     """
 
     def __init__(self, path: Union[str, os.PathLike]):
@@ -165,6 +179,25 @@ class BinColumnSource:
             )
         self.shape = (rows, cols)
 
+    def _native(self) -> bool:
+        """Whether this read takes the native reader, the file checked to
+        hold the span first (the native error would name no column)."""
+        return os.environ.get("NMF_TPU_NO_NATIVE") != "1" and native.has_read_columns()
+
+    def _short_read(self, j0: int, count: int, got: int) -> ValueError:
+        return ValueError(
+            f"short read in {self._path}: wanted {count} words at column "
+            f"{j0}, got {got}"
+        )
+
+    def _check_span(self, j0: int, j1: int) -> None:
+        """The NumPy path's short-read error, before a native read."""
+        rows = self.shape[0]
+        count = (j1 - j0) * rows
+        got = max(0, (os.path.getsize(self._path) - 8 - j0 * rows * 4) // 4)
+        if got < count:
+            raise self._short_read(j0, count, got)
+
     def _payload(self, j0: int, j1: int) -> np.ndarray:
         """Columns [j0, j1) as they lie in the file: (j1 - j0, rows)."""
         rows = self.shape[0]
@@ -173,17 +206,23 @@ class BinColumnSource:
             f.seek(8 + j0 * rows * 4)
             payload = np.fromfile(f, dtype="<f4", count=count)
         if payload.size != count:
-            raise ValueError(
-                f"short read in {self._path}: wanted {count} words at column "
-                f"{j0}, got {payload.size}"
-            )
+            raise self._short_read(j0, count, payload.size)
         return payload.reshape((j1 - j0, rows))
 
     def columns(self, j0: int, j1: int) -> np.ndarray:
+        if self._native():
+            self._check_span(j0, j1)
+            return native.read_columns_native(self._path, *self.shape, j0, j1)
         return np.ascontiguousarray(self._payload(j0, j1).T)
 
     def columns_into(self, j0: int, j1: int, out: np.ndarray) -> None:
-        """The payload transposed into ``out`` tile by tile."""
+        """Columns [j0, j1) as f32 into ``out`` (rows, j1 - j0): read
+        natively straight into it, or the payload transposed in tile by
+        tile."""
+        if self._native() and out.dtype == np.float32 and out.flags.c_contiguous:
+            self._check_span(j0, j1)
+            native.read_columns_native(self._path, *self.shape, j0, j1, out=out)
+            return
         payload, t = self._payload(j0, j1), _TRANSPOSE_TILE
         for c in range(0, payload.shape[0], t):
             for r in range(0, payload.shape[1], t):
@@ -618,12 +657,11 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
                  lambda w, h_j, x_j: beta_partial(_dense(x_j), w, h_j, beta, eps), "mk")
 
 
-def _refuse_unported(config: SolveConfig, mesh, checkpoint_dir) -> None:
+def _refuse_unported(config: SolveConfig, mesh) -> None:
     later = {
-        "mesh (ROADMAP.md Queue 1 item 12: sharded solves)": mesh is not None,
-        "checkpoint_dir (ROADMAP.md Queue 1 item 13: checkpoint/resume)": bool(checkpoint_dir),
-        "live_metrics=True (ROADMAP.md Queue 1 item 13: live metrics)": config.live_metrics,
-        "backend='autotune' (ROADMAP.md Queue 1 item 7: autotune)": config.backend == "autotune",
+        "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves)": mesh is not None,
+        "backend='autotune' (ROADMAP.md Queue 1 step 11, item 7: autotune)":
+            config.backend == "autotune",
     }
     missing = [name for name, on in later.items() if on]
     if missing:
@@ -665,6 +703,16 @@ def solve_out_of_core(
     array, memmap, ``.bin`` path or column source of X's shape, streamed
     beside X; 0 = missing, or real-valued weights).  ``n_frozen`` keeps the
     first columns of W at their clamped initial values (MU families).
+
+    ``checkpoint_dir`` checkpoints every ``checkpoint_every`` iterations and
+    at the end (``streaming.py:758-792, 903-981`` of the JAX package: the
+    plain loop after any iteration, the accelerated one at its checks),
+    and with ``resume`` the run continues from the newest checkpoint there,
+    its shapes checked against ``w0``/``h0`` and its config fingerprint
+    against ``config``; the saved factors (and the accelerated pair) go in
+    unclamped, so the resumed run is the uninterrupted one bit for bit
+    (``nmf_tpu`` clamps them again).  X is not checkpointed: it is the
+    input.
     """
     config.validate()
     if config.precision.x_quant_rows and config.backend == "pallas":
@@ -677,7 +725,7 @@ def solve_out_of_core(
         raise NotImplementedError(
             "masked streaming implements the (optionally penalized) KL family"
         )
-    _refuse_unported(config, mesh, checkpoint_dir)
+    _refuse_unported(config, mesh)
     if checkpoint_every <= 0:
         raise ValueError("checkpoint_every must be >= 1")
     if n_frozen and config.algorithm == "hals":
@@ -708,8 +756,28 @@ def solve_out_of_core(
     qcache_budget = _qcache_budget()
     dev = resolve_device(device)
 
-    # factors resident on the device for the whole run, clamped once
-    w = to_state(w0, config, dev)
+    it, converged = 0, False
+    hist_list: List[float] = []
+    labels: List[int] = []          # the global iteration of each check
+    resumed = None
+    if checkpoint_dir and resume:
+        latest = ckpt.latest_checkpoint(checkpoint_dir)
+        if latest is not None:
+            resumed = ckpt.load_checkpoint(latest, config)
+            if np.shape(resumed.w) != w0.shape or np.shape(resumed.h) != h0.shape:
+                raise ValueError(
+                    f"checkpoint shapes {np.shape(resumed.w)}/{np.shape(resumed.h)} "
+                    f"do not match inputs {w0.shape}/{h0.shape}"
+                )
+            w0, h0 = resumed.w, resumed.h
+            it, converged = resumed.iteration, resumed.converged
+            hist_list = list(resumed.cost_history)
+            labels = list(resumed.check_iterations or [])
+
+    # factors resident on the device for the whole run, clamped once; a
+    # resumed run's go in as they were saved (utils.checkpoint's docstring)
+    fresh = resumed is None
+    w = to_state(w0, config, dev, clamp=fresh)
     freeze = None
     if n_frozen:
         # the template columns (models.semi) stream too: put back after
@@ -722,7 +790,7 @@ def solve_out_of_core(
         def freeze(w_new):
             return torch.where(mk, w_frz, w_new).to(w_new.dtype)
 
-    h_blocks = [to_state(h0[:, j0:j1], config, dev) for j0, j1 in blocks]
+    h_blocks = [to_state(h0[:, j0:j1], config, dev, clamp=fresh) for j0, j1 in blocks]
     step_acc, w_epilogue, cost_block, cost_extra, a2_shape = _block_fns(
         config, kernels, masked=mask_source is not None)
     a2_dims = {"mk": (m, k), "kk": (k, k)}.get(a2_shape, (k,))
@@ -756,24 +824,46 @@ def solve_out_of_core(
         total = float(torch.sum(torch.stack(parts)))
         return total if cost_extra is None else total + float(cost_extra(w_c))
 
-    it, converged = 0, False
-    hist_list: List[float] = []
-    prev_cost = float("nan")
+    save = None
+    if checkpoint_dir:
+        def save(it, converged, w_c, h_list, mom=float("nan"), w_ex=None, h_ex=None):
+            """A checkpoint of the run so far (``_save`` of the JAX loop)."""
+            ckpt.save_checkpoint(checkpoint_dir, ckpt.CheckpointState(
+                w=w_c, h=torch.cat(h_list, dim=1), iteration=it, cost_history=hist_list,
+                converged=converged, check_iterations=labels, momentum=mom,
+                w_ex=w_ex, h_ex=None if h_ex is None else torch.cat(h_ex, dim=1),
+            ), config)
+
+    prev_cost = hist_list[-1] if hist_list else float("nan")
     mom = float("nan")
     if config.accelerate:
+        ex = None
+        if resumed is not None and resumed.w_ex is not None:
+            hx = np.asarray(resumed.h_ex, np.float32)
+            ex = (to_state(resumed.w_ex, config, dev, clamp=False),
+                  [to_state(hx[:, j0:j1], config, dev, clamp=False) for j0, j1 in blocks])
         w, prev_cost, mom, it, converged = _accel_loop(
-            config, sweep, cost_pass, w, h_blocks, hist_list)
+            config, sweep, cost_pass, w, h_blocks, hist_list, labels, it, converged,
+            prev_cost, float("nan") if resumed is None else resumed.momentum, ex,
+            save, checkpoint_every)
     else:
+        start_iter = it
         while it < max_iter and not converged:
             w = sweep(w, h_blocks.__getitem__, h_blocks.__setitem__)
             it += 1
             if need_cost and (it % check_every == 0 or it == max_iter):
                 total = cost_pass(w, h_blocks)
                 hist_list.append(total)
+                labels.append(it)
                 rel = abs(prev_cost - total) / abs(total) if total else float("nan")
+                if config.live_metrics:
+                    emit_live(it, total, rel)
                 if thresh > 0.0 and rel < thresh:
                     converged = True
                 prev_cost = total
+            if save is not None and ((it - start_iter) % checkpoint_every == 0
+                                     or it == max_iter or converged):
+                save(it, converged, w, h_blocks)
     del stream   # the block buffers go before H is joined
 
     hist = np.full((max(len(hist_list), 1),), np.nan, np.float32)
@@ -790,35 +880,45 @@ def solve_out_of_core(
     )
 
 
-def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list):
+def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list, labels,
+                it: int, converged: bool, baseline: float, mom: float, ex, save,
+                checkpoint_every: int):
     """The safeguarded Nesterov-accelerated streamed loop
-    (``streaming.py:1152-1262`` of the JAX package, without its checkpoint
-    and mesh branches): the in-memory ``_run_accel_loop`` restated over
-    streamed blocks.
+    (``streaming.py:1152-1262`` of the JAX package, without its mesh
+    branch): the in-memory ``_run_accel_loop`` restated over streamed
+    blocks.
 
     Each sweep runs from the extrapolated ``(w_ex, h_ex)`` and commits the
-    plain iterate; the cost is taken at every check, against a seed cost
-    pass made up front.  A block whose cost rose (or is NaN) restores the
-    block-start snapshot and is redone with plain sweeps, and the carry
-    restarts at the iterate.  The momentum is a Python float (float64), as
-    in JAX's host loop; :func:`~nmf_tpu_torch.models.solver.extrapolate`
-    rounds it to f32.  The snapshot copies the LIST of H blocks: the sweep
-    replaces list entries and never writes a tensor in place, so holding the
-    tensors is enough.  Updates ``h_blocks`` and ``hist_list`` in place;
-    returns ``(w, cost, momentum, iterations, converged)``.
+    plain iterate; the cost is taken at every check, against ``baseline``
+    (a resumed run's last check) or a seed cost pass made up front.  A block
+    whose cost rose (or is NaN) restores the block-start snapshot and is
+    redone with plain sweeps, and the carry restarts at the iterate.  The
+    momentum is a Python float (float64), as in JAX's host loop; ``mom``
+    resumes it (NaN: ``config.accel_momentum``) and ``ex``, a ``(w_ex,
+    h_ex blocks)`` pair, the carry (None: at the iterate).
+    :func:`~nmf_tpu_torch.models.solver.extrapolate` rounds the momentum to
+    f32.  The snapshot copies the LIST of H blocks: the sweep replaces list
+    entries and never writes a tensor in place, so holding the tensors is
+    enough.  ``save`` (or None) is called at a check at least
+    ``checkpoint_every`` iterations after the last save, at the end and on
+    convergence, with the whole resume state.  Updates ``h_blocks``,
+    ``hist_list`` and ``labels`` in place; returns ``(w, cost, momentum,
+    iterations, converged)``.
     """
     max_iter = int(config.max_iter)
     check_every = int(config.check_every)
     thresh = float(config.thresh)
     eps = config.eps
-    mom = float(config.accel_momentum)
+    if mom != mom:   # NaN: a fresh run
+        mom = float(config.accel_momentum)
     m_hi = float(config.accel_momentum_max)
     grow = float(config.accel_grow)
     shrink = float(config.accel_shrink)
-    it, converged = 0, False
-    baseline = cost_pass(w, h_blocks) if max_iter > 0 else float("nan")
-    w_ex, h_ex = w, list(h_blocks)
+    if baseline != baseline and it < max_iter and not converged:
+        baseline = cost_pass(w, h_blocks)
+    w_ex, h_ex = (w, list(h_blocks)) if ex is None else (ex[0], list(ex[1]))
     w_snap, h_snap = w, list(h_blocks)
+    last_save = it
 
     def set_h_extrapolated(idx, h_new):
         # commit the plain iterate; the next sweep runs from the
@@ -847,9 +947,16 @@ def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list):
         w_snap, h_snap = w, list(h_blocks)
         rel = abs(baseline - total) / abs(total) if total else float("nan")
         hist_list.append(total)
+        labels.append(it)
         baseline = total
+        if config.live_metrics:
+            emit_live(it, total, rel)
         if thresh > 0.0 and rel < thresh:
             converged = True
+        if save is not None and (it - last_save >= checkpoint_every or it == max_iter
+                                 or converged):
+            save(it, converged, w, h_blocks, mom, w_ex, h_ex)
+            last_save = it
     return w, baseline, mom, it, converged
 
 

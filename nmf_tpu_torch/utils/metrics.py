@@ -2,8 +2,16 @@
 
 Per-check KL cost, relative change, iterations/s and achieved TFLOP/s, as
 human-readable lines and/or JSONL.  Results are read field by field with
-NumPy; a CUDA tensor is brought to the host here, after the run.  The live
-per-check stream (``live_metrics``) is not ported yet.
+NumPy; a CUDA tensor is brought to the host here, after the run.
+
+The live per-check stream (``SolveConfig.live_metrics``): the solve loops
+call :func:`emit_live` with ``(iteration, cost, rel_change)`` at each check,
+the values JAX's loops emit, and it hands them to the handler that
+:func:`set_live_handler` set (a line on stderr by default).  The port's
+loops are eager, so emitting is a plain host call; its price is one read of
+the cost and the relative change at each check, which a ``thresh == 0``
+solve otherwise never makes (JAX's chunked live loop, ``run_live_chunked``,
+makes the same trade).  Nothing it reads changes a bit of the solve.
 """
 
 from __future__ import annotations
@@ -22,7 +30,31 @@ __all__ = [
     "MetricsLogger",
     "summarize_result",
     "flops_per_iter",
+    "emit_live",
+    "set_live_handler",
 ]
+
+
+def _default_live_handler(iteration: int, cost: float, rel_change: float) -> None:
+    sys.stderr.write(
+        f"[nmf] iter {iteration:>6d}  cost {cost:.6e}  "
+        f"rel_change {rel_change:.3e}  (live)\n"
+    )
+    sys.stderr.flush()
+
+
+_live_handler = _default_live_handler
+
+
+def set_live_handler(handler) -> None:
+    """Replace the live-metrics sink (None restores the stderr default)."""
+    global _live_handler
+    _live_handler = handler if handler is not None else _default_live_handler
+
+
+def emit_live(iteration, cost, rel_change) -> None:
+    """The solve loops' call at each check of a ``live_metrics`` run."""
+    _live_handler(int(iteration), float(cost), float(rel_change))
 
 
 def _host(v) -> np.ndarray:

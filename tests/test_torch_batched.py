@@ -363,4 +363,5 @@ def test_chip_smoke_lists_selection_launches():
                                                                 "restarts": 100}
     assert smoke._selection_launches(launches, "kl_cost") == {"batched float32": 0,
                                                                "restarts": 4}
-    assert smoke.PHASES[-1] == "selection" and smoke.BATCH_SHAPE == (128, 513, 2000, 32)
+    # phase 15 (utils) follows phase 14
+    assert smoke.PHASES[-2:] == ("selection", "utils") and smoke.BATCH_SHAPE == (128, 513, 2000, 32)

@@ -9,6 +9,7 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 
@@ -102,7 +103,11 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     a small problem through both CLIs (:func:`_run_both_clis`; the mask is
     X.bin itself, real-valued weights).  ``--restarts`` is ported too: the
     parser takes it and the run exits 2 on its missing input
-    (``test_run_restarts_matches_jax_cli`` runs it)."""
+    (``test_run_restarts_matches_jax_cli`` runs it).  ``--checkpoint-dir``
+    is ported: it runs through both CLIs (:func:`_ckpt_both_clis`)."""
+    if flags[0] == "--checkpoint-dir":
+        _ckpt_both_clis(tmp_path, [])
+        return
     if flags[0] == "--mask":
         flags = ["--mask", str(tmp_path / "X.bin")]
     if flags[0] in ("--accelerate", "--strict-compat", "--beta", "--mask"):
@@ -134,7 +139,12 @@ def test_non_default_value_refused(capsys, tmp_path, flags, item):
     ``--algorithm hals`` (with the ``--beta 2`` HALS requires in both CLIs)
     and ``--l2-h 0.5``, refused when this test was named, are ported: they
     run through both CLIs (:func:`_run_both_clis`); so is ``--online-passes
-    2``, with the ``--online`` it applies to (:func:`_online_both_clis`)."""
+    2``, with the ``--online`` it applies to (:func:`_online_both_clis`),
+    and ``--checkpoint-every 50``, which without ``--checkpoint-dir`` leaves
+    the run as it is in both CLIs."""
+    if flags[0] == "--checkpoint-every":
+        _run_both_clis(tmp_path, flags)
+        return
     if flags[0] == "--online-passes":
         _online_both_clis(tmp_path, flags)
         return
@@ -310,7 +320,11 @@ def test_out_of_core_with_random_init(tmp_path):
 def test_out_of_core_refusals_exit_2(tmp_path, capsys, flags, msg):
     """The JAX CLI's --out-of-core messages, and the flags still refused.
     ``--freeze 2``, refused when this test was named, is ported: it streams
-    through both CLIs (:func:`_ooc_both_clis`)."""
+    through both CLIs (:func:`_ooc_both_clis`); so is ``--checkpoint-dir``
+    (:func:`_ckpt_both_clis`)."""
+    if flags[0] == "--checkpoint-dir":
+        _ckpt_both_clis(tmp_path, ["--out-of-core", "--block-n", "8"])
+        return
     if flags[0] == "--freeze":
         _ooc_both_clis(tmp_path, flags)
         return
@@ -624,9 +638,20 @@ def test_transform_refusals_exit_2(tmp_path, capsys, flags, msg):
     """transform's flags not in the port, and the two the JAX CLI refuses
     with its own message, exit 2 before any input is read.  ``--mask``,
     refused when this test was named, is ported: ``transform --mask`` runs
-    through both CLIs (:func:`_transform_mask_both_clis`)."""
+    through both CLIs (:func:`_transform_mask_both_clis`); so do
+    ``--validate`` and ``--live``, each leaving the file as it is without
+    the flag."""
     if flags[0] == "--mask":
         _transform_mask_both_clis(tmp_path, [])
+        return
+    if flags[0] in ("--validate", "--live"):
+        _write_problem(tmp_path, 40, 4, 30, 2)
+        common = ["transform", "X.bin", "W.bin", "--max-iter", "30", "-q"]
+        assert _port_cli([*common, "-o", "Hp.bin", flags[0]], tmp_path) == 0
+        assert _jax_cli([*common, "-o", "Hj.bin", flags[0]], tmp_path) == 0
+        _assert_files_close(tmp_path, "H")
+        assert _port_cli([*common, "-o", "Hq.bin"], tmp_path) == 0
+        assert (tmp_path / "Hp.bin").read_bytes() == (tmp_path / "Hq.bin").read_bytes()
         return
     rc = cli.main(["transform", str(tmp_path / "X.bin"), "W.bin", "--device", "cpu", *flags])
     assert rc == 2
@@ -1175,3 +1200,267 @@ def test_select_and_batch_default_to_the_card(tmp_path, args):
             cli.main([*args, "-q"])
     finally:
         os.chdir(here)
+
+
+# --- step 9: --checkpoint-dir, --live, --validate, doctor --------------------------
+
+
+def _ckpt_both_clis(tmp_path, where, flags=()):
+    """``run ... --checkpoint-dir`` (every 8 of 20 iterations) through both
+    CLIs, each into its own directory: the files agree as in
+    :func:`_assert_files_close`, both CLIs write the same steps, the last
+    step's ``W.bin`` and ``H.bin`` are the output files' bytes, and a rerun
+    of the port's CLI resumes the finished run and writes the same bytes."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    common = ["run", "X.bin", "W.bin", "H.bin", *where, "--max-iter", "20", "--check-every", "5",
+              "--checkpoint-every", "8", "-q", *flags]
+    assert _port_cli([*common, "--checkpoint-dir", "ckp", "-o", "Wp.bin", "Hp.bin"], tmp_path) == 0
+    assert _jax_cli([*common, "--checkpoint-dir", "ckj", "-o", "Wj.bin", "Hj.bin"], tmp_path) == 0
+    _assert_files_close(tmp_path, "WH")
+    steps = sorted(os.listdir(tmp_path / "ckp"))
+    assert steps == sorted(os.listdir(tmp_path / "ckj")) and steps[-1] == "step_00000020"
+    for f in "WH":
+        assert (tmp_path / "ckp" / steps[-1] / f"{f}.bin").read_bytes() == \
+            (tmp_path / f"{f}p.bin").read_bytes()
+    assert _port_cli([*common, "--checkpoint-dir", "ckp", "-o", "Wq.bin", "Hq.bin"], tmp_path) == 0
+    for f in "WH":
+        assert (tmp_path / f"{f}q.bin").read_bytes() == (tmp_path / f"{f}p.bin").read_bytes()
+
+
+@pytest.mark.parametrize("where", [[], ["--out-of-core", "--block-n", "8"]],
+                         ids=["in_memory", "out_of_core"])
+@pytest.mark.parametrize("flags", [[], ["--accelerate"], ["--x-dtype", "int8"],
+                                   ["--x-dtype", "bfloat16"]],
+                         ids=["plain", "accelerate", "int8_x", "bf16_x"])
+def test_run_checkpoint_dir_matches_jax_cli(tmp_path, where, flags):
+    _ckpt_both_clis(tmp_path, where, flags)
+
+
+def test_run_checkpoint_dir_equals_in_process(tmp_path):
+    """The port's checkpointed files, byte for byte, are
+    ``solve_with_checkpoints``' (in memory) and ``solve_out_of_core``'s
+    (streamed); the JSONL labels the checks with their global iterations."""
+    import json
+
+    import nmf_tpu_torch as nt
+
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    x, w, h = (jbin.read_matrix(tmp_path / f"{s}.bin") for s in "XWH")
+    cfg = nt.SolveConfig(max_iter=20, check_every=6)
+    common = ["run", "X.bin", "W.bin", "H.bin", "--max-iter", "20", "--check-every", "6",
+              "--checkpoint-every", "8", "-q"]
+    assert _port_cli([*common, "--checkpoint-dir", "a", "-o", "Wa.bin", "Ha.bin",
+                      "--jsonl", "a.jsonl"], tmp_path) == 0
+    st = nt.utils.solve_with_checkpoints(x, w, h, cfg, str(tmp_path / "a2"), every=8, device="cpu")
+    assert jbin.read_matrix(tmp_path / "Wa.bin").tobytes() == st.w.tobytes()
+    rec = json.loads((tmp_path / "a.jsonl").read_text())
+    assert [c["iteration"] for c in rec["checks"]] == st.check_iterations == [6, 8, 14, 16, 20]
+    assert _port_cli([*common, "--out-of-core", "--block-n", "8", "--checkpoint-dir", "b",
+                      "-o", "Wb.bin", "Hb.bin"], tmp_path) == 0
+    ref = nt.solve_out_of_core(x, w, h, cfg, block_n=8, device="cpu")
+    assert jbin.read_matrix(tmp_path / "Hb.bin").tobytes() == ref.h.numpy().tobytes()
+
+
+@pytest.mark.parametrize(
+    "flags,msg",
+    [(["--mask", "X.bin"], "--mask runs the masked solver (no --strict-compat / --checkpoint-dir"),
+     (["--freeze", "2"], "--freeze composes with the plain / --mesh / --out-of-core solvers only"),
+     (["--strict-compat"], "--strict-compat is a single-device exact-replication mode"),
+     (["--rank", "3", "--restarts", "2"], "--restarts composes with --mesh only"),
+     (["--rank", "3", "--init", "random", "--online"], "--online composes with --mesh only")],
+    ids=["mask", "freeze", "strict", "restarts", "online"],
+)
+def test_checkpoint_dir_refusals_match_jax_cli(tmp_path, capsys, flags, msg):
+    """The modes that do not checkpoint exit 2 with the JAX CLI's message."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    files = [] if "--rank" in flags else ["W.bin", "H.bin"]
+    args = ["run", "X.bin", *files, *flags, "--checkpoint-dir", "ck", "--max-iter", "2", "-q"]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(args, tmp_path) == 2
+    assert msg in ours and ours == capsys.readouterr().err
+    assert not (tmp_path / "ck").exists()
+
+
+@pytest.mark.parametrize("sub", ["transform", "separate", "select", "batch"])
+def test_checkpoint_dir_refused_where_jax_refuses_it(tmp_path, capsys, sub):
+    """transform, separate, select and batch never checkpoint, as in JAX:
+    the same exit and message in both CLIs, before any input is read."""
+    args = {"transform": ["transform", "X.bin", "W.bin"], "separate": ["separate", "a.wav"],
+            "select": ["select", "X.bin", "--ranks", "2"],
+            "batch": ["batch", "d", "--rank", "2"]}[sub]
+    args = [*args, "--checkpoint-dir", "ck", "-q"]
+    assert _port_cli(args, tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli(args, tmp_path) == 2
+    # batch names its solve its own way ("batched", JAX's "vmapped")
+    assert "checkpoint" in ours and ours.split("(")[0] == capsys.readouterr().err.split("(")[0]
+
+
+@pytest.mark.parametrize("where", [[], ["--out-of-core", "--block-n", "8"], ["--accelerate"],
+                                   ["--checkpoint-dir", "ck", "--checkpoint-every", "10"]],
+                         ids=["in_memory", "out_of_core", "accelerate", "checkpointed"])
+def test_run_live_prints_each_check(tmp_path, capsys, where):
+    """``run --live`` prints one ``(live)`` line a check on stderr, as the
+    solve runs, and writes the bytes of the run without it; the JAX CLI's
+    files agree as in :func:`_assert_files_close`."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    common = ["run", "X.bin", "W.bin", "H.bin", *where, "--max-iter", "20", "--check-every", "5"]
+    assert _port_cli([*common, "-q", "-o", "Wq.bin", "Hq.bin"], tmp_path) == 0
+    shutil.rmtree(tmp_path / "ck", ignore_errors=True)   # else the live run resumes a finished one
+    capsys.readouterr()
+    assert _port_cli([*common, "-q", "--live", "-o", "Wp.bin", "Hp.bin"], tmp_path) == 0
+    live = [ln for ln in capsys.readouterr().err.splitlines() if ln.endswith("(live)")]
+    assert len(live) == 4, live
+    if "--checkpoint-dir" not in where:   # a segment counts its own iterations
+        assert [int(ln.split()[2]) for ln in live] == [5, 10, 15, 20]
+    for f in "WH":
+        assert (tmp_path / f"{f}p.bin").read_bytes() == (tmp_path / f"{f}q.bin").read_bytes()
+    jwhere = ["--checkpoint-dir", "ckj", "--checkpoint-every", "10"] if "--checkpoint-dir" in where \
+        else where
+    common_j = ["run", "X.bin", "W.bin", "H.bin", *jwhere, "--max-iter", "20", "--check-every", "5"]
+    assert _jax_cli([*common_j, "-q", "--live", "-o", "Wj.bin", "Hj.bin"], tmp_path) == 0
+    _assert_files_close(tmp_path, "WH")
+
+
+def _bad_x(tmp_path, name="X.bin"):
+    x = jbin.read_matrix(tmp_path / name)
+    x[1, 2] = -5.0
+    jbin.write_matrix(x, tmp_path / name)
+
+
+# subcommand -> (args with {t} for the output tag, whether it checks its input)
+_VALIDATE = {
+    "run": (["run", "X.bin", "W.bin", "H.bin", "-o", "W{t}.bin", "H{t}.bin"], True),
+    "run_rank": (["run", "X.bin", "--rank", "3", "--init", "random", "-o", "W{t}.bin", "H{t}.bin"],
+                 True),
+    "run_out_of_core": (["run", "X.bin", "W.bin", "H.bin", "--out-of-core", "--block-n", "8",
+                         "-o", "W{t}.bin", "H{t}.bin"], False),
+    "run_checkpointed": (["run", "X.bin", "W.bin", "H.bin", "--checkpoint-dir", "ck{t}",
+                          "--checkpoint-every", "4", "-o", "W{t}.bin", "H{t}.bin"], True),
+    "run_restarts": (["run", "X.bin", "--rank", "3", "--restarts", "2", "-o", "W{t}.bin",
+                      "H{t}.bin"], True),
+    "run_online": (["run", "X.bin", "--rank", "3", "--init", "random", "--online", "--block-n",
+                    "8", "-o", "W{t}.bin", "H{t}.bin"], False),
+    "transform": (["transform", "X.bin", "W.bin", "-o", "H{t}.bin"], False),
+    "transform_out_of_core": (["transform", "X.bin", "W.bin", "--out-of-core", "--block-n", "8",
+                               "-o", "H{t}.bin"], False),
+    "select": (["select", "X.bin", "--ranks", "2,3", "--restarts", "2", "--init", "random"],
+               True),
+    "batch": (["batch", "d", "--rank", "3", "--out-dir", "b{t}"], True),
+    "separate": (["separate", "clip.wav", "--rank", "3", "--n-fft", "128", "--hop", "32",
+                  "--out-dir", "s{t}"], False),
+}
+
+
+@pytest.mark.parametrize("sub", list(_VALIDATE))
+def test_validate_on_every_subcommand(tmp_path, capsys, sub):
+    """``--validate`` wherever the JAX CLI takes it: clean inputs run in both
+    CLIs (exit 0, the port's files the bytes of its run without the flag);
+    where the JAX CLI checks the input, X with a negative entry exits 2 in
+    both with the same message."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    _write_batch_dir(tmp_path)
+    _write_wav(tmp_path / "clip.wav")
+    args, checks_input = _VALIDATE[sub]
+    common = ["--max-iter", "8", "--check-every", "4", "-q"]
+
+    def with_tag(t):
+        return [a.format(t=t) for a in args] + common
+
+    assert _port_cli([*with_tag("p"), "--validate"], tmp_path) == 0
+    assert _port_cli(with_tag("q"), tmp_path) == 0
+    assert _jax_cli([*with_tag("j"), "--validate"], tmp_path) == 0
+    outs = [f"{f}p.bin" for f in "WH" if f"{f}{{t}}.bin" in args]
+    for name in outs:
+        assert (tmp_path / name).read_bytes() == (tmp_path / name.replace("p.", "q.")).read_bytes()
+    if not checks_input:
+        return
+    _bad_x(tmp_path)
+    _bad_x(tmp_path, "d/m1.bin")
+    capsys.readouterr()
+    assert _port_cli([*with_tag("r"), "--validate"], tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli([*with_tag("s"), "--validate"], tmp_path) == 2
+    ref = capsys.readouterr().err
+    assert "negative entries" in ours and ours == ref
+
+
+def test_validate_rejects_a_non_finite_result(tmp_path, capsys):
+    """A result with NaN (here from NaN in X) exits 2 in both CLIs with the
+    guard's message; without ``--validate`` the port writes it."""
+    _write_problem(tmp_path, 40, 4, 30, 2)
+    x = jbin.read_matrix(tmp_path / "X.bin")
+    x[0, 0] = np.nan
+    jbin.write_matrix(x, tmp_path / "X.bin")
+    args = ["run", "X.bin", "W.bin", "H.bin", "--out-of-core", "--block-n", "8", "--max-iter",
+            "4", "-q", "--validate"]
+    assert _port_cli([*args, "-o", "Wp.bin", "Hp.bin"], tmp_path) == 2
+    ours = capsys.readouterr().err
+    assert _jax_cli([*args, "-o", "Wj.bin", "Hj.bin"], tmp_path) == 2
+    assert "non-finite entries" in ours and ours.split(" entries")[0].split(":")[1] == \
+        capsys.readouterr().err.split(" entries")[0].split(":")[1]
+
+
+def test_batch_reads_through_bindataset(tmp_path, monkeypatch):
+    """``batch`` loads its directory with ``BinDataset`` (sorted paths, the
+    ``.bin`` files only): the files are ``solve_batched`` of its batch."""
+    import nmf_tpu_torch as nt
+
+    _write_batch_dir(tmp_path)
+    seen = []
+    load = nt.BinDataset.load_batch
+
+    def spy(self, indices=None):
+        seen.append(list(self.paths))
+        return load(self, indices)
+
+    monkeypatch.setattr(nt.BinDataset, "load_batch", spy)
+    args = ["batch", "d", "--rank", "3", "--max-iter", "5", "-q", "--out-dir", "b"]
+    assert _port_cli(args, tmp_path) == 0
+    assert [os.path.basename(p) for p in seen[0]] == ["m0.bin", "m1.bin", "m2.bin"]
+    xs = nt.BinDataset(tmp_path / "d").load_batch()
+    rng = np.random.RandomState(0)
+    ws, hs = rng.rand(3, 30, 3).astype(np.float32), rng.rand(3, 3, 20).astype(np.float32)
+    res = nt.solve_batched(xs, ws, hs, nt.SolveConfig(max_iter=5), device="cpu")
+    for i in range(3):
+        assert jbin.read_matrix(tmp_path / "b" / f"m{i}.H.bin").tobytes() == res.h[i].numpy().tobytes()
+
+
+def test_doctor_cpu_json_through_both_clis(tmp_path, capsys):
+    """``doctor --platform cpu --json``: the port's in a subprocess exits 0
+    with ``up: true`` and the matmul check passed on the CPU; the JAX CLI's
+    says the same of its CPU backend."""
+    run = _port("doctor", "--platform", "cpu", "--json", cwd=tmp_path)
+    assert run.returncode == 0, run.stderr
+    ours = json.loads(run.stdout)
+    assert ours["up"] is True and ours["backend"]["matmul_ok"] is True
+    assert ours["backend"]["platform"] == "cpu" and ours["versions"]["torch"] == torch.__version__
+    assert _jax_cli(["doctor", "--platform", "cpu", "--json"], tmp_path) == 0
+    ref = json.loads(capsys.readouterr().out)
+    assert ref["up"] is True and ref["backend"]["platform"] == "cpu"
+    assert set(ours["backend"]) <= set(ref["backend"])
+
+
+def test_doctor_human_report_and_down_exit(capsys, monkeypatch):
+    """The text report names the state; a probe that is down exits 1."""
+    from nmf_tpu_torch.utils import doctor
+
+    assert cli.main(["doctor", "--platform", "cpu"]) == 0
+    assert "UP" in capsys.readouterr().out
+    monkeypatch.setattr(doctor, "diagnose", lambda **kw: {
+        "up": False, "error": "probe subprocess crashed: boom", "probe_s": 0.1,
+        "versions": {"python": "3", "torch": "t", "cuda": None, "numpy": "n"},
+        "kernel_build": {"dir": "b", "libraries": 0, "bytes": 0, "current_built": False}})
+    assert cli.main(["doctor", "--platform", "cpu"]) == 1
+    assert "DOWN" in capsys.readouterr().out
+
+
+def test_every_jax_doctor_flag_is_known():
+    from nmf_tpu.cli import build_parser as jax_parser
+
+    def flags(parser):
+        action = next(a for a in parser._actions if a.dest == "command")
+        return {o for a in action.choices["doctor"]._actions for o in a.option_strings}
+
+    assert flags(jax_parser()) == flags(cli.build_parser())

@@ -335,6 +335,22 @@ def test_family_history_does_not_rise(family):
 @pytest.mark.parametrize("kw,what", [(dict(live_metrics=True), "live_metrics"),
                                      (dict(backend="autotune"), "autotune")])
 def test_still_refused(kw, what):
+    """``live_metrics``, refused when this test was named, runs: in every
+    family the emissions are JAX's (tests/test_torch_live.py's bars) and
+    the bits are those of the run without it."""
     x, w, h = _problem(8, 2, 6)
+    if what == "live_metrics":
+        from test_torch_live import (assert_emissions_match, jax_emissions, port_emissions,
+                                     same_bits)
+
+        for fam in FAMILIES.values():
+            cfg = dict(max_iter=10, check_every=5, **fam)
+            res, ours = port_emissions(lambda: pt.solve(
+                x, w, h, pt.SolveConfig(**cfg, **kw), device="cpu"))
+            _, ref = jax_emissions(lambda: jt.solve(x, w, h, jt.SolveConfig(**cfg, **kw)))
+            assert_emissions_match(ours, ref)
+            off = pt.solve(x, w, h, pt.SolveConfig(**cfg), device="cpu")
+            assert same_bits(res.w, off.w) and same_bits(res.h, off.h)
+        return
     with pytest.raises(NotImplementedError, match=what):
         pt.solve(x, w, h, pt.SolveConfig(max_iter=2, **kw), device="cpu")

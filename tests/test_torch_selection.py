@@ -2,8 +2,10 @@
 
 Each case of ``tests/test_selection.py`` that needs no mesh, run through
 both packages on the same seeded NumPy inputs.  Tolerances: the JAX
-tests' own where they hold a member to a single solve (W rtol 2e-6, cost
-rel 1e-6; frozen columns and HALS rtol 5e-5), and between the two
+tests' own where they hold a member to a single solve (cost rel 1e-6;
+frozen columns and HALS rtol 5e-5; a rank-sweep member's W rtol 1e-5, see
+the test: JAX's 2e-6 sits inside the spread of CPU BLAS summation orders
+over a zero-padded K), and between the two
 packages those of ``tests/test_torch_batched.py`` (factors rtol 5e-5 /
 atol 1e-7, costs rel 1e-5; HALS rtol 5e-4, atol 1e-5 of the largest
 entry).  ``_member_inits`` is held to JAX's byte for byte.
@@ -118,7 +120,15 @@ def test_rank_sweep_member_equals_lower_rank_solve(problem):
     for i, k in enumerate(ranks):
         one = pt.solve(problem, w0s[i, :, :k], h0s[i, :k, :], tc, device="cpu")
         w_i, _ = res.factors(i)
-        np.testing.assert_allclose(_np(w_i), _np(one.w), rtol=2e-6)
+        # Bound 1e-5: the member runs at the zero-padded K=16 (bmm), the
+        # 2-D solve at K=4 (mm); the zeros add nothing, but CPU BLAS sums
+        # the nonzero terms in another order.  Three valid f32 orders of
+        # these 40 iterations spread by at most 3.1e-6 here (member vs 2-D
+        # 2.54e-6 at rank 4, 2.71e-6 at rank 8, bitwise at 16; the port's
+        # 2-D solve vs JAX's 3.1e-6): 1e-5 leaves 3x for another CPU's BLAS
+        # and stays 5x inside the cross-package F32 bar.  The costs, and the
+        # embedding's exact zeros below, are held as before.
+        np.testing.assert_allclose(_np(w_i), _np(one.w), rtol=1e-5)
         np.testing.assert_allclose(res.costs[i], float(one.cost), rtol=1e-6)
         np.testing.assert_allclose(_np(w_i), np.asarray(ref.factors(i)[0]), **F32)
         assert np.all(_np(res.results.w[i])[:, k:] == 0.0)

@@ -220,7 +220,23 @@ def test_refusals_match_jax(case, exc):
     ids=["mesh", "live_metrics", "autotune"],
 )
 def test_unported_options_refused(kw, match):
+    """``live_metrics``, refused when this test was named, runs: the
+    emissions are JAX's (tests/test_torch_live.py's bars) and the bits
+    those of the run without it."""
     x, w, h = _problem()
+    if match == "live":
+        from test_torch_live import (assert_emissions_match, jax_emissions, port_emissions,
+                                     same_bits)
+
+        cfg = dict(max_iter=20, check_every=5, live_metrics=True)
+        res, ours = port_emissions(lambda: pt.solve_semi(x, w, h, pt.SolveConfig(**cfg),
+                                                         n_frozen=1, device="cpu"))
+        _, ref = jax_emissions(lambda: jt.solve_semi(x, w, h, jt.SolveConfig(**cfg), n_frozen=1))
+        assert_emissions_match(ours, ref)
+        off = pt.solve_semi(x, w, h, pt.SolveConfig(max_iter=20, check_every=5), n_frozen=1,
+                            device="cpu")
+        assert same_bits(res.w, off.w) and same_bits(res.h, off.h)
+        return
     with pytest.raises(NotImplementedError, match=match):
         pt.solve_semi(x, w, h, n_frozen=1, device="cpu", **kw)
 

@@ -174,9 +174,9 @@ def test_prequantized_pair_requires_int8(problem):
     ],
 )
 def test_unported_options_raise(problem, kw):
-    """Options still to port raise; the precision policies, ``accelerate``
-    and the beta, HALS and penalized families, refused when this test was
-    named, run and match ``nmf_tpu.solve`` (bf16 GEMMs: cost rel 1e-4; 2
+    """Options still to port raise; the precision policies, ``accelerate``,
+    ``live_metrics`` and the beta, HALS and penalized families, refused when
+    this test was named, run and match ``nmf_tpu.solve`` (bf16 GEMMs: cost rel 1e-4; 2
     iterations keep the factors within rtol 2e-3; ``accelerate`` and the
     families: this file's tolerances, and the momentum bit for bit)."""
     x, w, h = problem
@@ -193,6 +193,16 @@ def test_unported_options_raise(problem, kw):
             else:
                 np.testing.assert_allclose(rp[f], rj[f], rtol=RTOL, atol=ATOL)
         assert rp["momentum"].tobytes() == rj["momentum"].tobytes()
+        return
+    if "live_metrics" in kw:
+        # ported: the emissions are JAX's (tests/test_torch_live.py's bars)
+        from test_torch_live import assert_emissions_match, jax_emissions, port_emissions
+
+        rp, ours = port_emissions(lambda: pt.solve(x, w, h, pt.SolveConfig(max_iter=2, **kw),
+                                                   device="cpu"))
+        _, ref = jax_emissions(lambda: jt.solve(x, w, h, jt.SolveConfig(max_iter=2, **kw)))
+        assert len(ours) == int(rp.num_checks) == 1
+        assert_emissions_match(ours, ref)
         return
     if "precision" not in kw:
         with pytest.raises(NotImplementedError):

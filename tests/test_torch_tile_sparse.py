@@ -632,7 +632,8 @@ def _refusal_cases():
 def test_refusals(problems, case):
     """Each case raises its error; ``accelerate``, refused when this test
     was named, runs on the same hand-built tiles and matches
-    ``nmf_tpu.solve_sparse_tiled`` (SOLVE_TOL, the momentum bit for bit)."""
+    ``nmf_tpu.solve_sparse_tiled`` (SOLVE_TOL, the momentum bit for bit);
+    so does ``live_metrics``, its emissions JAX's."""
     kw, err, match = _refusal_cases()[case]
     _, w, h = problems["tiled"]
     if case == "accelerate":
@@ -642,6 +643,18 @@ def test_refusals(problems, case):
         rp = pt.solve_sparse_tiled(kw["x"], w, h, _pconfig(cfg), chunk=4, device="cpu")
         _assert_solves_agree(rj, rp, SOLVE_TOL)
         assert np.asarray(rj.momentum).tobytes() == rp.momentum.numpy().tobytes()
+        return
+    if case == "live_metrics":
+        # ported: the emissions are JAX's (tests/test_torch_live.py's bars)
+        from test_torch_live import assert_emissions_match, jax_emissions, port_emissions
+
+        cfg = jt.SolveConfig(max_iter=4, check_every=2, live_metrics=True)
+        tx = jst.tiles_from_dense(problems["tiled"][0], (32, 32))
+        _, ref = jax_emissions(lambda: jst.solve_sparse_tiled(tx, w, h, cfg, chunk=4))
+        rp, ours = port_emissions(lambda: pt.solve_sparse_tiled(
+            kw["x"], w, h, _pconfig(cfg), chunk=4, device="cpu"))
+        assert len(ours) == int(rp.num_checks) == 2
+        assert_emissions_match(ours, ref)
         return
     args = dict(w0=w, h0=h, config=pt.SolveConfig(max_iter=2), chunk=4, device="cpu")
     args.update(kw)
