@@ -9,8 +9,16 @@
     python3 chip_smoke.py --phases card,models                # separate, semi, masked, online
     python3 chip_smoke.py --phases card,selection             # batched solves, restarts, sweeps
     python3 chip_smoke.py --phases card,utils                 # I/O, checkpoints, live, doctor
+    python3 chip_smoke.py --phases card,sparse                # the COO solve
+    python3 chip_smoke.py --phases card,backend --backend-out backend_s1.json
+                                                              # one session of the backend rule
 
-Fifteen phases, in order; any failure raises and the exit code is non-zero:
+Seventeen phases, in order; any failure raises and the exit code is non-zero.
+Every check that holds the kernels passes ``backend="pallas"``: under
+``"auto"`` a solve takes the card's backend rule (``utils/autotune.py``),
+which sends some shapes to cuBLAS.  The default path is held to that rule
+in phase 6 (the reference pipeline's launches follow the rule's choice) and
+phase 17.
 
 1. card: assert CUDA, read the card's name and power limit, build the
    kernels from ``nmf_tpu_torch/csrc/`` (build seconds printed), print
@@ -274,7 +282,37 @@ Fifteen phases, in order; any failure raises and the exit code is non-zero:
    factors bit-equal to live off, the 8 emissions the history, it/s on and
    off in turns; (g) ``stage_timings`` at the reference shape (ms) and a
    ``trace`` whose kernels name K1 and K2; (h) ``python -m nmf_tpu_torch
-   doctor --json`` as a subprocess: exit 0, ``up``, the card's name.
+   doctor --json`` as a subprocess: exit 0, ``up``, the card's name;
+16. sparse: the deprecated COO ``solve_sparse`` (plain torch ops: no TPU
+   kernel exists for it) at phase 8's layout, 8192^2, K=128, 128^2 tiles at
+   occupancy 0.08, seed 0 (~5.2M nonzeros), 20 iterations, a check every 5:
+   no K1-K3 or K5 launch, bitwise on a rerun (the nonzeros sorted once on
+   the host, summed per index in a fixed order: no atomics), cost and
+   factors (relative Frobenius norm) within 1e-5 of the dense
+   ``clamp_inputs=False`` solve; its it/s beside the tile-sparse solve's
+   and the dense solve's, and its peak device memory beside dense X's
+   bytes;
+17. backend: the H100 backend rule.  (a) Each shape of ``BACKEND_SHAPES``
+   (paper, ismir, reference and flagship under ``float32``,
+   ``float32_fast`` and ``bfloat16``; bf16 and int8 X at the reference
+   shape and the flagship; the streamed block; config 4 batched in f32 and
+   ``bfloat16``) measured as ``pick_backend`` measures it
+   (``autotune._measure``: a loop of 10 steps through the kernels and
+   through the plain ops between CUDA events, 5 samples each in turns),
+   and K5 against the plain sweep at 8192^2 (phase 8's layout), K = 128,
+   256 and 384, each policy: both medians, the faster, the rule's choice
+   and whether they agree (a disagreement is printed, not failed: one
+   session is noise; ``--backend-out`` writes the samples, and
+   ``backend_rule.py`` pools three sessions).  (b) An ``auto`` solve at each
+   shape through ``solve`` (and at the f32 shapes ``solve_semi`` and
+   ``solve_h_only``), the streamed solve (a full block of 65408 columns and
+   a ragged one), ``solve_batched`` at config 4 and ``solve_sparse_tiled``
+   at 8192^2: the K1/K2 (K5) launches of the rule's choice, iterations or
+   0, and the choice counted in ``autotune.CHOICES``.  (c)
+   ``backend="autotune"`` twice at the ISMIR shape with a fresh cache file:
+   the first solve measures once and writes a key naming the card, the
+   second measures nothing.  (d) ``doctor --json``'s ``chip_spec``: the
+   card's name and both peaks of its row (989 / 67 TFLOP/s on the H100).
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -379,7 +417,8 @@ TIERS = {
     "x_int8_rows32": ["--x-dtype", "int8", "--x-quant-rows", "32"],
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
-          "oocore", "accel", "families", "transform", "models", "selection", "utils")
+          "oocore", "accel", "families", "transform", "models", "selection", "utils", "sparse",
+          "backend")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -411,6 +450,14 @@ K5_MODE = {"float32": "F32", "bfloat16": "BF16", "float32_fast": "SPLIT3", "bf16
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def _auto_choice(cfg, m, k, n, members=1):
+    """What ``cfg``'s backend resolves to for a solve of this shape on the
+    card (``autotune.resolve_backend``, counted under ``"chip_smoke"``)."""
+    from nmf_tpu_torch.utils import autotune
+
+    return autotune.resolve_backend(cfg, m, k, n, "cuda", "chip_smoke", members)
 
 
 def _launches(**counts):
@@ -1137,8 +1184,9 @@ def phase_inprocess(card, tmp, out):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches, plain_calls = dict(fused_mu.LAUNCHES), dict(fused_mu.PLAIN_CALLS)
-        want = _launches(**({} if cfg.precision.x_quant_rows
-                            else {"update_h": 200, "update_w": 200, "kl_cost": 8}))
+        # the default path: the launches follow the backend rule's choice
+        want = _launches(**({"update_h": 200, "update_w": 200, "kl_cost": 8}
+                            if _auto_choice(cfg, 4096, 128, 350) == "pallas" else {}))
         check(launches == want, f"{tier}: launches {launches}, expected {want}")
         check(not any(plain_calls.values()), f"{tier}: plain calls on the card {plain_calls}")
         out["launches"][tier] = launches
@@ -1291,18 +1339,18 @@ def phase_flagship(card, out):
     for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3), ("float32_fast", 1e-4)):
         base = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype))
         results = {}
-        for backend in ("auto", "jnp"):   # warm each path once (allocator, cuBLAS)
+        for backend in ("pallas", "jnp"):   # warm each path once (allocator, cuBLAS)
             nt.solve(x, w, h, dataclasses.replace(base, backend=backend, max_iter=1),
                      device="cuda")
         torch.cuda.synchronize()
-        for backend in ("auto", "jnp", "jnp", "auto"):
+        for backend in ("pallas", "jnp", "jnp", "pallas"):
             fused_mu.reset_counts()
             t0 = time.perf_counter()
             res = nt.solve(x, w, h, dataclasses.replace(base, backend=backend), device="cuda")
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             cost = float(res.cost)
-            if backend == "auto":   # 50 iterations, a cost every 25: 50/50/2
+            if backend == "pallas":   # 50 iterations, a cost every 25: 50/50/2
                 want = _launches(update_h=iters, update_w=iters, kl_cost=iters // 25)
                 check(fused_mu.LAUNCHES == want and not any(fused_mu.PLAIN_CALLS.values()),
                       f"flagship {dtype}: launches {fused_mu.LAUNCHES}, plain calls "
@@ -1311,10 +1359,10 @@ def phase_flagship(card, out):
             check(np.isfinite(cost) and int(res.iterations) == iters,
                   f"flagship {dtype} {backend}: cost {cost}")
             results.setdefault(backend, []).append((secs, cost))
-        c_k, c_p = results["auto"][0][1], results["jnp"][0][1]
+        c_k, c_p = results["pallas"][0][1], results["jnp"][0][1]
         rel = abs(c_k - c_p) / abs(c_p)
         check(rel <= limit, f"flagship {dtype}: cost kernel {c_k} vs plain {c_p}: rel {rel}")
-        for backend, label in (("auto", "kernels"), ("jnp", "plain (cuBLAS f32)")):
+        for backend, label in (("pallas", "kernels"), ("jnp", "plain (cuBLAS f32)")):
             for secs, cost in results[backend]:
                 ips = iters / secs
                 tf = flops_per_iter(m, k, n) * ips / 1e12
@@ -1649,9 +1697,10 @@ def phase_tilesparse_solves(card, out):
     eps = np.float32(EPS)
     want = {"h_numerator": TS_ITERS, "w_numerator": TS_ITERS}
     for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3), ("float32_fast", 1e-4)):
-        cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(dtype))
+        cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(dtype),
+                             backend="pallas")
         # warm both paths once (the library, the allocator, cuBLAS)
-        for backend in ("auto", "jnp"):
+        for backend in ("pallas", "jnp"):
             _ts_solve(tx, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2))
         ((res, secs), per_mode), launches, plain_calls, dense = _counted(
             lambda: sweep_counts(lambda: _ts_solve(tx, w, h, cfg)))
@@ -1707,7 +1756,8 @@ def phase_tilesparse_solves(card, out):
     # the RETUNE cell's rank, bfloat16 (the generator draws X before W and
     # H, so X and its tiles are the same)
     _, wk, hk = tile_problem(m, 256, n, t, occ, seed)
-    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision("bfloat16"))
+    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision("bfloat16"),
+                         backend="pallas")
     _ts_solve(tx, wk, hk, dataclasses.replace(cfg, max_iter=2))
     (res, secs), launches, plain_calls, _ = _counted(lambda: _ts_solve(tx, wk, hk, cfg))
     check(launches == want and not any(plain_calls.values()), f"K=256: K5 launches {launches}")
@@ -2035,7 +2085,7 @@ def phase_oocore_solves(card, out, seed):
     bn = nt.pick_block_n(m, n)
     blocks = -(-n // bn)
     check(bn == OOC_BLOCK and blocks == 10, f"pick_block_n gave {bn} ({blocks} blocks)")
-    cfg = nt.SolveConfig(max_iter=OOC_ITERS, check_every=OOC_CHECK)
+    cfg = nt.SolveConfig(max_iter=OOC_ITERS, check_every=OOC_CHECK, backend="pallas")
     passes = -(-OOC_ITERS // OOC_CHECK)
     streams = OOC_ITERS + passes
     print(f"[{card}] phase 9b: streamed solve {m}x{n}, K={k}: X {x.nbytes / 1e9} GB f32 in "
@@ -2298,8 +2348,8 @@ def phase_accel_reference(card, out):
 
     fx = nt.fixtures
     x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
-    cfg = dataclasses.replace(nt.reference_preset(), accelerate=True)
-    plain_cfg = nt.reference_preset()
+    plain_cfg = dataclasses.replace(nt.reference_preset(), backend="pallas")
+    cfg = dataclasses.replace(plain_cfg, accelerate=True)
     checks = ACCEL_ITERS // cfg.check_every
     print(f"[{card}] phase 10a: accelerated reference solve 4096x350, K=128, {ACCEL_ITERS} "
           "iterations, float32, a check every 25")
@@ -2387,8 +2437,8 @@ def phase_accel_flagship(card, out):
     h = torch.rand((k, n), generator=g, device="cuda")
     for dtype, limit in (("bfloat16", 1e-3), ("float32", 1e-4)):
         cfg = nt.SolveConfig(max_iter=iters, check_every=25, precision=nt.Precision(dtype),
-                             accelerate=True)
-        for backend in ("auto", "jnp"):
+                             accelerate=True, backend="pallas")
+        for backend in ("pallas", "jnp"):
             nt.solve(x, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2), device="cuda")
         where = f"accel flagship {dtype}"
         res, secs, launches, rejects = _counted_accel(x, w, h, cfg, where)
@@ -2426,8 +2476,8 @@ def phase_accel_tiled(card, out):
           f"{tx.tiles.shape[0]} {t}x{t} tiles, {TS_ITERS} iterations")
     for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-3)):
         cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(dtype),
-                             accelerate=True)
-        for backend in ("auto", "jnp"):
+                             accelerate=True, backend="pallas")
+        for backend in ("pallas", "jnp"):
             _ts_solve(tx, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2))
         where = f"accel tiled {dtype}"
         (res, secs), launches, plain_calls, dense = _counted(lambda: _ts_solve(tx, w, h, cfg))
@@ -2468,7 +2518,8 @@ def phase_accel_oocore(card, out, seed):
     x = xd.cpu().numpy()
     del xd
     blocks = -(-n // nt.pick_block_n(m, n))
-    cfg = nt.SolveConfig(max_iter=OOC_ITERS, check_every=OOC_CHECK, accelerate=True)
+    cfg = nt.SolveConfig(max_iter=OOC_ITERS, check_every=OOC_CHECK, accelerate=True,
+                         backend="pallas")
     print(f"[{card}] phase 10d: accelerated streamed solve {m}x{n}, K={k}, {blocks} blocks, "
           f"{OOC_ITERS} iterations, a check every {OOC_CHECK}")
     for xdt in ("float32", "int8"):
@@ -2706,7 +2757,7 @@ def phase_transform_h_only(card, out, x, w, h_fit, h0):
     print(f"[{card}] phase 12a: solve_h_only and solve_w_only, {TR_ITERS} iterations")
     results = {}
     for pol, prec in _tr_policies().items():
-        cfg = nt.SolveConfig(max_iter=TR_ITERS, precision=prec)
+        cfg = nt.SolveConfig(max_iter=TR_ITERS, precision=prec, backend="pallas")
         where = f"transform h_only {pol}"
         nt.solve_h_only(x, w, h0, dataclasses.replace(cfg, max_iter=2), device=DEVICE)  # warm
         res, secs, mode, launches = _counted_kl(
@@ -2735,7 +2786,7 @@ def phase_transform_h_only(card, out, x, w, h_fit, h0):
               f"{TR_ITERS / secs} / {TR_ITERS / secs2} it/s through K1 and K3, "
               f"{TR_ITERS / p_secs} plain")
     # solve_w_only: the H-only solve of the transposed problem
-    cfg = nt.SolveConfig(max_iter=TR_ITERS)
+    cfg = nt.SolveConfig(max_iter=TR_ITERS, backend="pallas")
     where = "transform w_only float32"
     w_start = np.ascontiguousarray(np.roll(w, 1, axis=0))
     res, secs, mode, launches = _counted_kl(
@@ -2776,7 +2827,8 @@ def phase_transform_oocore(card, out, seed, w):
     rate = h2d_rate(4 * m * bn)
     results = {"h2d_gbps": rate / 1e9}
     for xdt in ("float32", "int8"):
-        cfg = nt.SolveConfig(max_iter=TR_OOC_ITERS, precision=nt.Precision(x_dtype=xdt))
+        cfg = nt.SolveConfig(max_iter=TR_OOC_ITERS, precision=nt.Precision(x_dtype=xdt),
+                             backend="pallas")
         where = f"transform_out_of_core {xdt}"
         t0 = time.perf_counter()
         mem = nt.solve_h_only(x, w, h0, cfg, device=DEVICE)
@@ -2833,7 +2885,7 @@ def phase_transform_nmf(card, out, x, seed):
     where = "transform NMF"
     print(f"[{card}] phase 12c: NMF(n_components={k}, init='nndsvda') fit, transform, "
           "normalize_factors")
-    est = nt.NMF(n_components=k, init="nndsvda", device=DEVICE)
+    est = nt.NMF(n_components=k, init="nndsvda", backend="pallas", device=DEVICE)
     _reset_all()
     _, fit_secs = _timed(lambda: est.fit(x))
     launches = dict(fused_mu.LAUNCHES)
@@ -3055,7 +3107,7 @@ def phase_models_separate(card, tmp, out, seed):
 
     audio = _paper_audio(seed)
     n_bins = PAPER_FFT // 2 + 1
-    cfg = nt.SolveConfig(max_iter=MODELS_ITERS, thresh=0.0, check_every=25)
+    cfg = nt.SolveConfig(max_iter=MODELS_ITERS, thresh=0.0, check_every=25, backend="pallas")
     want = _launches(update_h=MODELS_ITERS, update_w=MODELS_ITERS, kl_cost=MODELS_ITERS // 25)
     print(f"[{card}] phase 13a: separate, {PAPER_SECONDS} s at {PAPER_RATE} Hz "
           f"({audio.size} samples from --seed), n_fft {PAPER_FFT}, hop {PAPER_HOP}, "
@@ -3143,7 +3195,7 @@ def phase_models_semi(card, out, seed):
     x, w, h = (t.cpu().numpy() for t in (rand(m, n), rand(m, k), rand(k, n)))
     print(f"[{card}] phase 13c: solve_semi {m}x{n}, K={k} (X from --seed), {MODELS_ITERS} "
           f"iterations")
-    cfg = nt.SolveConfig(max_iter=MODELS_ITERS)
+    cfg = nt.SolveConfig(max_iter=MODELS_ITERS, backend="pallas")
     want = _launches(update_h=MODELS_ITERS, update_w=MODELS_ITERS, kl_cost=MODELS_ITERS // 25)
     results = {}
     semi0 = nt.solve_semi(x, w, h, cfg, n_frozen=0, device=DEVICE)
@@ -3264,7 +3316,7 @@ STREAM_RUNS = {
     "hals": dict(beta=2.0, algorithm="hals"),
     "kl l1_h=l2_w=0.1": dict(l1_h=0.1, l2_w=0.1),
     "masked": dict(),
-    "n_frozen=8": dict(),
+    "n_frozen=8": dict(backend="pallas"),
 }
 
 
@@ -3607,7 +3659,7 @@ def phase_selection_batched(card, out, seed):
     runs = {}
     for policy in ("float32", "bfloat16"):
         cfg = nt.SolveConfig(max_iter=BATCH_ITERS, check_every=25, track_cost=False,
-                             precision=nt.Precision(policy))
+                             precision=nt.Precision(policy), backend="pallas")
         nt.solve_batched(x[:2], w[:2], h[:2], dataclasses.replace(cfg, max_iter=2), device="cuda")
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -3664,7 +3716,7 @@ def phase_selection_restarts(card, out, x):
 
     m, n, k = SEL_SHAPE
     r = SEL_RESTARTS
-    cfg = nt.SolveConfig(max_iter=SEL_ITERS, check_every=25)
+    cfg = nt.SolveConfig(max_iter=SEL_ITERS, check_every=25, backend="pallas")
     checks = SEL_ITERS // 25
     nt.solve_restarts(x, rank=k, n_restarts=2, config=dataclasses.replace(cfg, max_iter=2),
                       device="cuda")
@@ -3709,7 +3761,7 @@ def phase_selection_sweep(card, out, x):
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.models import selection, stability
 
-    cfg = nt.SolveConfig(max_iter=SEL_ITERS, check_every=25)
+    cfg = nt.SolveConfig(max_iter=SEL_ITERS, check_every=25, backend="pallas")
     checks = SEL_ITERS // 25
     sweep, secs, launches, _ = _counted_members(
         lambda: nt.solve_rank_sweep(x, SWEEP_RANKS, cfg, seed=0, device="cuda"), "rank sweep",
@@ -3797,7 +3849,7 @@ def phase_selection_plain(card, out, seed):
                                 np.float32(EPS)) for pw in powers])
     ws_s = rng.rand(STOP_MEMBERS, sm, sk).astype(np.float32)
     hs_s = rng.rand(STOP_MEMBERS, sk, sn).astype(np.float32)
-    scfg = nt.SolveConfig(max_iter=1000, thresh=STOP_THRESH, check_every=10)
+    scfg = nt.SolveConfig(max_iter=1000, thresh=STOP_THRESH, check_every=10, backend="pallas")
     res, secs = _timed(lambda: nt.solve_batched(xs_s, ws_s, hs_s, scfg, device="cuda"))
     its = res.iterations.tolist()
     for i in range(STOP_MEMBERS):
@@ -3996,7 +4048,7 @@ def phase_utils_streamed(card, out, path, w, h):
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.io import native
 
-    cfg = nt.SolveConfig(max_iter=5, check_every=5)
+    cfg = nt.SolveConfig(max_iter=5, check_every=5, backend="pallas")
     rec = {}
     for block_n, order in zip(UTILS_OOC_BLOCKS, (("native", "numpy", "numpy", "native"),
                                                  ("native", "numpy"))):
@@ -4040,7 +4092,7 @@ def phase_utils_checkpoint(card, tmp, out):
     from nmf_tpu_torch.utils import solve_with_checkpoints
 
     x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
-    cfg = nt.SolveConfig()
+    cfg = nt.SolveConfig(backend="pallas")
     half = dataclasses.replace(cfg, max_iter=cfg.max_iter // 2)
     straight = nt.solve(x, w, h, cfg, device="cuda")
     _, straight_s = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))
@@ -4097,7 +4149,7 @@ def phase_utils_streamed_ckpt(card, tmp, out, path, w, h):
 
     block_n = UTILS_OOC_BLOCKS[0]
     blocks, half = _ooc_blocks(block_n), UTILS_OOC_ITERS // 2
-    cfg = nt.SolveConfig(max_iter=UTILS_OOC_ITERS, check_every=half)
+    cfg = nt.SolveConfig(max_iter=UTILS_OOC_ITERS, check_every=half, backend="pallas")
     kw = dict(block_n=block_n, checkpoint_every=half)
     full, secs, launches, plain = _ooc_solve(path, w, h, cfg, checkpoint_dir=os.path.join(tmp, "sf"), **kw)
     want = _launches(update_h=UTILS_OOC_ITERS * blocks, update_w_numerator=UTILS_OOC_ITERS * blocks,
@@ -4127,7 +4179,7 @@ def phase_utils_tiled_ckpt(card, tmp, out):
     m, n, k, t, occ, seed = TS_MAIN
     x, w, h = tile_problem(m, k, n, t, occ, seed)
     tx = nt.tiles_from_dense(x, (t, t))
-    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25)
+    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, backend="pallas")
     straight, _ = _ts_solve(tx, w, h, cfg)
     d = os.path.join(tmp, "tiled")
     (full, k5, k5_plain, k13), secs = _timed(lambda: _counted(
@@ -4156,8 +4208,8 @@ def phase_utils_live(card, out):
     from nmf_tpu_torch.utils import metrics
 
     x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
-    on_cfg = nt.SolveConfig(live_metrics=True)
-    off_cfg = nt.SolveConfig()
+    on_cfg = nt.SolveConfig(live_metrics=True, backend="pallas")
+    off_cfg = nt.SolveConfig(backend="pallas")
     events = []
     metrics.set_live_handler(lambda *e: events.append(e))
     try:
@@ -4199,7 +4251,8 @@ def phase_utils_profiling(card, tmp, out):
           f"stage_timings: {st}")
     log = os.path.join(tmp, "trace")
     with profiling.trace(log):
-        nt.solve(x, w, h, nt.SolveConfig(max_iter=5, check_every=5), device="cuda")
+        nt.solve(x, w, h, nt.SolveConfig(max_iter=5, check_every=5, backend="pallas"),
+                 device="cuda")
     path = os.path.join(log, "trace.json")
     names = {e.get("name", "") for e in json.loads(pathlib.Path(path).read_text())["traceEvents"]
              if e.get("cat") == "kernel"}
@@ -4248,12 +4301,348 @@ def _utils_launches(launches, name):
             if run.startswith("utils ")}
 
 
+SPARSE_ITERS, SPARSE_CHECK = 20, 5      # phase 16: the COO solve at phase 8's layout
+SPARSE_RTOL = 1e-5                      # cost and factors (relative Frobenius) vs the dense solve
+
+
+def _rel_fro(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def phase_sparse(card, out):
+    """16: the COO ``solve_sparse`` at phase 8's tile-sparse layout."""
+    import warnings
+
+    import nmf_tpu_torch as nt
+
+    m, n, k, t, occ, seed = TS_MAIN
+    x, w, h = tile_problem(m, k, n, t, occ, seed)
+    sx = nt.sparse_from_dense(x)
+    nnz = int(sx.data.shape[0])
+    cfg = nt.SolveConfig(max_iter=SPARSE_ITERS, check_every=SPARSE_CHECK)
+    print(f"[{card}] phase 16: COO solve_sparse {m}x{n}, K={k}, {nnz} nonzeros ({t}x{t} tiles at "
+          f"occupancy {occ}, seed {seed}), {SPARSE_ITERS} iterations, a check every {SPARSE_CHECK}")
+
+    def coo():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return nt.solve_sparse(sx, w, h, cfg, device="cuda")
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (res, secs), k5, k5_plain, k13 = _counted(lambda: _timed(coo))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(not any(k5.values()) and not any(k5_plain.values()) and not any(k13.values()),
+          f"sparse: kernel launches K1-K3 {k13}, K5 {k5}, K5 plain {k5_plain} (expected none)")
+    hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
+    check(int(res.iterations) == SPARSE_ITERS and hist.shape == (SPARSE_ITERS // SPARSE_CHECK,)
+          and bool(np.all(np.isfinite(hist)) and np.all(np.diff(hist) < 0)),
+          f"sparse: {int(res.iterations)} iterations, history {hist}")
+    res2, secs2 = _timed(coo)
+    for f in ("w", "h", "cost_history"):
+        check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
+              f"sparse: {f} differs on a rerun")
+    eps = np.float32(EPS)
+    dense, d_secs = _timed(lambda: nt.solve(x, np.maximum(w, eps), np.maximum(h, eps), cfg,
+                                            clamp_inputs=False, device="cuda"))
+    c_rel = abs(float(res.cost) - float(dense.cost)) / abs(float(dense.cost))
+    w_rel, h_rel = _rel_fro(res.w, dense.w), _rel_fro(res.h, dense.h)
+    check(max(c_rel, w_rel, h_rel) <= SPARSE_RTOL,
+          f"sparse: vs the dense clamp_inputs=False solve: cost rel {c_rel}, W {w_rel}, H {h_rel} "
+          f"(limit {SPARSE_RTOL})")
+    tx = nt.tiles_from_dense(x, (t, t))
+    tcfg = dataclasses.replace(cfg, backend="pallas")
+    _ts_solve(tx, w, h, dataclasses.replace(tcfg, max_iter=2))
+    tiled, t_secs = _ts_solve(tx, w, h, tcfg)
+    t_rel = abs(float(res.cost) - float(tiled.cost)) / abs(float(tiled.cost))
+    out["sparse"] = {"nnz": nnz, "its": [SPARSE_ITERS / secs, SPARSE_ITERS / secs2],
+                     "tiled_its": SPARSE_ITERS / t_secs, "dense_its": SPARSE_ITERS / d_secs,
+                     "cost_rel_dense": c_rel, "w_rel_dense": w_rel, "h_rel_dense": h_rel,
+                     "cost_rel_tiled": t_rel, "peak_bytes": peak, "dense_x_bytes": x.nbytes}
+    print(f"[{card}] sparse: 0 kernel launches, cost {float(res.cost)}, history {hist.tolist()}, "
+          f"bitwise on rerun; vs the dense clamp_inputs=False solve: cost rel {c_rel}, W {w_rel}, "
+          f"H {h_rel} (relative Frobenius; limit {SPARSE_RTOL}); {SPARSE_ITERS / secs} and "
+          f"{SPARSE_ITERS / secs2} it/s (host clock incl. the sort and upload) against the "
+          f"tile-sparse solve's {SPARSE_ITERS / t_secs} (K5; cost rel {t_rel}) and the dense "
+          f"solve's {SPARSE_ITERS / d_secs} (incl. the {x.nbytes / 1e6} MB X upload); peak device "
+          f"memory {peak / 1e6} MB against dense X's {x.nbytes / 1e6} MB")
+
+
+# phase 17: the shapes the H100 backend rule was derived from (bench.py:54-59,
+# PERF.md section 4): label -> (M, K, N, matmul, X, state, members)
+BACKEND_SHAPES = {
+    **{f"{name} {pol}": (m, k, n, pol, "float32", "float32", 1)
+       for name, (m, k, n) in (("paper", (512, 30, 3445)), ("ismir", (1025, 32, 4000)),
+                               ("reference", (4096, 128, 350)), ("flagship", (10240, 256, 10240)))
+       for pol in ("float32", "float32_fast", "bfloat16")},
+    **{f"{name} {xd} X": (m, k, n, "float32", xd, "float32", 1)
+       for name, (m, k, n) in (("reference", (4096, 128, 350)), ("flagship", (10240, 256, 10240)))
+       for xd in ("bfloat16", "int8")},
+    "streamed block float32": (1025, 32, 65408, "float32", "float32", "float32", 1),
+    **{f"config 4 {pol}": (513, 32, 2000, pol, "float32", "float32", 128)
+       for pol in ("float32", "bfloat16")},
+    "select 16 float32": (512, 32, 1024, "float32", "float32", "float32", 16),
+}
+BACKEND_TILED_K = (128, 256, 384)       # tile-sparse 8192^2, 128^2 tiles at occupancy 0.08
+BACKEND_ITERS = 4                       # each auto solve: iterations, a check every 2
+BACKEND_AUTOTUNE = "ismir float32"      # the autotune cache check's shape
+
+
+def _backend_cfg(shape):
+    import nmf_tpu_torch as nt
+
+    m, k, n, mm, xd, sd, members = shape
+    return nt.SolveConfig(max_iter=BACKEND_ITERS, check_every=2,
+                          precision=nt.Precision(matmul_dtype=mm, x_dtype=xd, state_dtype=sd))
+
+
+def _record(card, out, label, times, rule):
+    """One shape's samples, medians, winner and the rule's choice."""
+    med = {b: statistics.median(v) for b, v in times.items()}
+    winner = min(med, key=lambda b: (med[b], b != "pallas"))
+    out["backend"]["measured"][label] = {"samples": times, "median": med, "winner": winner,
+                                         "rule": rule}
+    agree = "agrees" if winner == rule else "DISAGREES (one session: printed, not failed)"
+    print(f"[{card}] backend {label}: kernels {med['pallas']} ms, plain {med['jnp']} ms a "
+          f"step (median of {len(times['pallas'])} loops); faster: {winner}; the rule picks "
+          f"{rule}: {agree}")
+
+
+def _backend_measure(card, out):
+    """(a) pick_backend's own measurement (``autotune._measure``) per shape,
+    and K5 against the plain sweep per rank and policy."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import sparse_tiled as st
+    from nmf_tpu_torch.ops.kernels import tile_sparse as ts
+    from nmf_tpu_torch.utils import autotune
+
+    for label, shape in BACKEND_SHAPES.items():
+        m, k, n, mm, xd, sd, members = shape
+        t_p, t_j = autotune._measure(_backend_cfg(shape), m, k, n, members=members)
+        rule = _auto_choice(_backend_cfg(shape), m, k, n, members)
+        _record(card, out, label, {"pallas": t_p, "jnp": t_j}, rule)
+        torch.cuda.empty_cache()
+    m, n, _, t, occ, seed = TS_MAIN
+    x, _, _ = tile_problem(m, 8, n, t, occ, seed)
+    tx = nt.tiles_from_dense(x, (t, t))
+    dev = torch.device("cuda")
+    for k in BACKEND_TILED_K:
+        _, w, h = tile_problem(m, k, n, t, occ, seed)
+        for pol in ("float32", "float32_fast", "bfloat16"):
+            cfg = nt.SolveConfig(precision=nt.Precision(pol))
+            fns = {}
+            for backend, route in (("pallas", "k5"), ("jnp", "plain")):
+                c = dataclasses.replace(cfg, backend=backend)
+                xarg, wd, hd, _ = st._prepare_tiled(tx, w, h, c, st._CHUNK, (t, t), dev)
+                step, _ = st._tiled_fns(c, st._CHUNK, route)
+                state = [wd, hd]
+
+                def run(step=step, state=state, xarg=xarg):
+                    state[0], state[1] = step(state[0], state[1], xarg)
+
+                fns[backend] = run
+            times = autotune.time_interleaved(fns)
+            rule = "pallas" if ts.preferred(k, t, t, cfg.precision) else "jnp"
+            _record(card, out, f"tiled K={k} {pol}", times, rule)
+            del fns
+            torch.cuda.empty_cache()
+
+
+def _dense_problem(shape, seed=0):
+    m, k, n, *_ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.rand(s, generator=g, device="cuda").clamp_min_(EPS)
+                 for s in ((m, n), (m, k), (k, n)))
+
+
+def _route_launches(choice, iters, checks, h_only=False):
+    if choice != "pallas":
+        return _launches()
+    return _launches(update_h=iters, kl_cost=checks, **({} if h_only else {"update_w": iters}))
+
+
+def _backend_auto_solves(card, out):
+    """(b) auto solves whose K1/K2 launches follow the rule's choice, through
+    each entry point that resolves it."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.utils import autotune
+
+    it, checks = BACKEND_ITERS, BACKEND_ITERS // 2
+    rec = {}
+
+    def counted(entry, fn, choice, want, label):
+        _reset_all()
+        autotune.reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        got = dict(fused_mu.LAUNCHES)
+        check(got == want and not any(fused_mu.PLAIN_CALLS.values()),
+              f"backend auto {entry} {label}: launches {got}, expected {want} ({choice})")
+        check(autotune.CHOICES.get((entry, choice), 0) >= 1,
+              f"backend auto {entry} {label}: choices {dict(autotune.CHOICES)}, expected {choice}")
+        rec[f"{entry} {label}"] = {"choice": choice, "launches": got}
+
+    for label, shape in BACKEND_SHAPES.items():
+        m, k, n, mm, xd, sd, members = shape
+        cfg = _backend_cfg(shape)
+        choice = _auto_choice(cfg, m, k, n, members)
+        if members > 1 or label.startswith("streamed"):
+            continue
+        x, w, h = _dense_problem(shape)
+        counted("solve", lambda: nt.solve(x, w, h, cfg, device="cuda"), choice,
+                _route_launches(choice, it, checks), label)
+        if xd == "float32" and mm == "float32":
+            counted("semi", lambda: nt.solve_semi(x, w, h, cfg, n_frozen=2, device="cuda"), choice,
+                    _route_launches(choice, it, checks), label)
+            counted("h_only", lambda: nt.solve_h_only(x, w, h, cfg, device="cuda"), choice,
+                    _route_launches(choice, it, checks, h_only=True), label)
+        del x, w, h
+        torch.cuda.empty_cache()
+    # the streamed solve: full blocks of the streamed block's width and a ragged one
+    m, k, bn = 1025, 32, 65408
+    n = bn + 16384
+    cfg = nt.SolveConfig(max_iter=2, check_every=2)
+    choices = [_auto_choice(cfg, m, k, wd) for wd in (bn, n - bn)]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xs, ws, hs = (torch.rand(s, generator=g, device="cuda").clamp_min_(EPS).cpu().numpy()
+                  for s in ((m, n), (m, k), (k, n)))
+    _reset_all()
+    autotune.reset_counts()
+    nt.solve_out_of_core(xs, ws, hs, cfg, block_n=bn, device="cuda")
+    torch.cuda.synchronize()
+    got = dict(fused_mu.LAUNCHES)
+    kern = sum(c == "pallas" for c in choices)
+    want = _launches(update_h=2 * kern, update_w_numerator=2 * kern, kl_cost=kern)
+    check(got == want and sum(autotune.CHOICES.values()) == 2,
+          f"backend auto streamed: launches {got}, expected {want}; choices "
+          f"{dict(autotune.CHOICES)} (widths {bn}, {n - bn}: {choices})")
+    rec["streamed"] = {"choices": choices, "launches": got}
+    del xs, ws, hs
+    # the batched solve at config 4
+    for pol in ("float32", "bfloat16"):
+        b, m, k, n = 128, 513, 32, 2000
+        cfg = nt.SolveConfig(max_iter=it, check_every=2, track_cost=False,
+                             precision=nt.Precision(pol))
+        choice = _auto_choice(cfg, m, k, n, b)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        x, w, h = (torch.rand(s, generator=g, device="cuda").clamp_min_(EPS)
+                   for s in ((b, m, n), (b, m, k), (b, k, n)))
+        counted("batched", lambda: nt.solve_batched(x, w, h, cfg, device="cuda"), choice,
+                _launches(update_h=it, update_w=it) if choice == "pallas" else _launches(),
+                f"config 4 {pol}")
+        del x, w, h
+    # the tile-sparse solve at phase 8's layout: K5 where preferred holds
+    from nmf_tpu_torch.ops.kernels import tile_sparse as ts
+
+    m, n, k, t, occ, seed = TS_MAIN
+    x, w, h = tile_problem(m, k, n, t, occ, seed)
+    tx = nt.tiles_from_dense(x, (t, t))
+    for pol in ("float32", "bfloat16"):
+        cfg = nt.SolveConfig(max_iter=it, check_every=2, precision=nt.Precision(pol))
+        pref = ts.preferred(k, t, t, cfg.precision)
+        (_, _), k5, _, _ = _counted(lambda: _ts_solve(tx, w, h, cfg))
+        want = {"h_numerator": it, "w_numerator": it} if pref else {"h_numerator": 0,
+                                                                    "w_numerator": 0}
+        check(k5 == want, f"backend auto tiled {pol}: K5 {k5}, expected {want}")
+        rec[f"tiled {pol}"] = {"preferred": pref, "launches": k5}
+    out["backend"]["auto"] = rec
+    print(f"[{card}] backend: every auto solve launched what the rule chose: "
+          f"{json.dumps({key: v.get('choice', v.get('choices', v.get('preferred'))) for key, v in rec.items()})}")
+
+
+def _backend_autotune(card, out, tmp):
+    """(c) backend="autotune" twice with a fresh cache file: the first call
+    measures and writes the card's key, the second measures nothing."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import fused_mu
+    from nmf_tpu_torch.utils import autotune
+
+    shape = BACKEND_SHAPES[BACKEND_AUTOTUNE]
+    m, k, n, *_ = shape
+    cfg = dataclasses.replace(_backend_cfg(shape), backend="autotune")
+    x, w, h = _dense_problem(shape)
+    path = os.path.join(tmp, "autotune.json")
+    old = os.environ.get(autotune._CACHE_ENV)
+    os.environ[autotune._CACHE_ENV] = path
+    try:
+        autotune.clear_cache()
+        runs = []
+        for _ in range(2):
+            autotune.reset_counts()
+            _reset_all()
+            nt.solve(x, w, h, cfg, device="cuda")
+            torch.cuda.synchronize()
+            runs.append((autotune.MEASURED["pick_backend"], dict(autotune.CHOICES),
+                         dict(fused_mu.LAUNCHES)))
+            autotune.clear_cache()      # the second call reads the file, as a new process would
+        data = json.loads(pathlib.Path(path).read_text())
+    finally:
+        if old is None:
+            os.environ.pop(autotune._CACHE_ENV, None)
+        else:
+            os.environ[autotune._CACHE_ENV] = old
+    kind = torch.cuda.get_device_name(0)
+    check(runs[0][0] == 1 and runs[1][0] == 0, f"autotune: measurements {runs[0][0]}, {runs[1][0]}")
+    # the measurement's own kernel steps count as launches: warm-up and samples
+    measure_steps = autotune._WARMUP + autotune._REPEATS * autotune._ITERS
+    check(len(data) == 1 and next(iter(data)).startswith(kind + "|"),
+          f"autotune: cache file {data} does not name {kind}")
+    choice = next(iter(data.values()))
+    for measured, choices, launches in runs:
+        want = _route_launches(choice, BACKEND_ITERS, BACKEND_ITERS // 2)
+        for key in ("update_h", "update_w"):
+            want[key] += measured * measure_steps
+        check(choices == {("solve", choice): 1} and launches == want,
+              f"autotune: choices {choices}, launches {launches} for {choice}, expected {want}")
+    out["backend"]["autotune"] = {"file": data, "measured": [r[0] for r in runs]}
+    print(f"[{card}] backend autotune at {BACKEND_AUTOTUNE}: the first solve measured once and "
+          f"wrote {data}; the second read it and measured nothing; both launched {choice}'s route")
+
+
+def _backend_doctor(card, out):
+    """(d) doctor --json's chip_spec names the card's row with both peaks."""
+    from nmf_tpu_torch.utils.device import chip_spec_for
+
+    proc = subprocess.run([sys.executable, "-m", "nmf_tpu_torch", "doctor", "--json"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"doctor: exit {proc.returncode}: {proc.stderr[-400:]}")
+    cs = json.loads(proc.stdout)["chip_spec"]
+    kind = torch.cuda.get_device_name(0)
+    spec = chip_spec_for(kind)
+    check(cs == {"device_kind": kind, "bf16_tflops": spec.peak_tflops("bfloat16"),
+                 "f32_tflops": spec.peak_tflops("float32")}, f"doctor chip_spec: {cs}")
+    if "H100 80GB HBM3" in kind:
+        check(cs["bf16_tflops"] == 989.0 and cs["f32_tflops"] == 67.0, f"doctor chip_spec: {cs}")
+    out["backend"]["doctor_chip_spec"] = cs
+    print(f"[{card}] doctor --json chip_spec: {cs} (row {spec.family})")
+
+
+def phase_backend(card, tmp, out, backend_out):
+    print(f"[{card}] phase 17: the H100 backend rule: each shape measured as pick_backend "
+          "measures it, auto solves through every entry point, autotune's cache, doctor")
+    out["backend"] = {"measured": {}, "card": card}
+    _backend_measure(card, out)
+    if backend_out:
+        os.makedirs(os.path.dirname(os.path.abspath(backend_out)), exist_ok=True)
+        pathlib.Path(backend_out).write_text(json.dumps(
+            {"card": card, "measured": out["backend"]["measured"]}, indent=1))
+        print(f"[{card}] backend samples written to {backend_out}")
+    _backend_auto_solves(card, out)
+    _backend_autotune(card, out, tmp)
+    _backend_doctor(card, out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the data phases 9, 10, 12, 13 and 14 make (default 0)")
+    ap.add_argument("--backend-out", default=None,
+                    help="phase backend: write its measured samples to this JSON file "
+                    "(backend_rule.py pools the files of several sessions)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -4279,6 +4668,7 @@ def main(argv=None) -> int:
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
         "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
+        "sparse": {}, "backend": {},
     }
     t_start = time.perf_counter()
     seconds = {}
@@ -4315,6 +4705,9 @@ def main(argv=None) -> int:
         run("selection", phase_selection, tmp, out, args.seed)
     with tempfile.TemporaryDirectory(prefix="nmf_utils_") as tmp:
         run("utils", phase_utils, tmp, out, args.seed)
+    run("sparse", phase_sparse, out)
+    with tempfile.TemporaryDirectory(prefix="nmf_backend_") as tmp:
+        run("backend", phase_backend, tmp, out, args.backend_out)
     print(f"[{card}] phase seconds: {json.dumps(seconds)}")
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
@@ -4387,7 +4780,9 @@ def main(argv=None) -> int:
     print(f"[{card}] models summary: {json.dumps(out['models'])}")
     print(f"[{card}] selection summary: {json.dumps(out['selection'])}")
     print(f"[{card}] utils summary: {json.dumps(out['utils'])}")
-    print(f"[{card}] all fifteen phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] sparse summary: {json.dumps(out['sparse'])}")
+    print(f"[{card}] backend summary: {json.dumps(out['backend']['auto'])}")
+    print(f"[{card}] all seventeen phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

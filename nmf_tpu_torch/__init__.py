@@ -19,8 +19,13 @@ KL-NMF through K1-K3, Wiener masks, ISTFT); ``solve_masked`` and
 ``solve_online`` learns W in one pass over a column stream, on plain torch
 ops as in JAX.  ``solve_batched`` factorizes a stack of problems, and
 ``solve_restarts``, ``solve_rank_sweep`` and ``rank_stability`` run model
-selection, each as one batched solve whose K1-K3 launches serve every
+selection, each as one batched solve whose K1-K3 launches (under
+``backend="pallas"``, or where the rule keeps the kernels) serve every
 member (``solve_sparse_tiled_batched`` on the plain sweeps).
+``backend="auto"`` picks the kernels or cuBLAS per shape by the card's
+measured rule, ``"autotune"`` by a measurement cached on disk
+(``utils.autotune``).  ``solve_sparse`` (deprecated) factorizes COO
+nonzeros on plain torch ops.
 ``BinDataset`` reads a directory of ``.bin`` files as one batch, through
 the native C++ reader (``native/binio.cpp``) when it is built;
 ``utils.solve_with_checkpoints`` and ``solve_out_of_core(checkpoint_dir=)``
@@ -48,6 +53,7 @@ from .models.selection import SelectionResult, solve_rank_sweep, solve_restarts
 from .models.semi import solve_semi
 from .models.separation import separate
 from .models.solver import SolveResult, solve
+from .models.sparse import SparseX, solve_sparse, sparse_from_dense
 from .models.sparse_tiled import (
     TileSparseX,
     solve_sparse_tiled,
@@ -104,6 +110,9 @@ __all__ = [
     "random_init",
     "scaled_random_init",
     "nndsvd_init",
+    "SparseX",
+    "solve_sparse",
+    "sparse_from_dense",
     "TileSparseX",
     "solve_sparse_tiled",
     "solve_sparse_tiled_batched",

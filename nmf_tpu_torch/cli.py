@@ -73,7 +73,6 @@ from .utils.metrics import MetricsLogger
 _SOLVER_LATER = {
     "--mesh": ({}, "Queue 1 step 12, item 12: sharded solves"),
 }
-_AUTOTUNE = "Queue 1 step 11 (item 7): the H100 backend rules and autotune"
 
 
 def _default(kw: dict):
@@ -85,14 +84,11 @@ def _dest(flag: str) -> str:
 
 
 def _refused(args, later: dict) -> list:
-    refused = [
+    return [
         f"{flag} (ROADMAP.md {where})"
         for flag, (kw, where) in later.items()
         if getattr(args, _dest(flag)) != _default(kw)
     ]
-    if args.backend == "autotune":
-        refused.append(f"--backend autotune (ROADMAP.md {_AUTOTUNE})")
-    return refused
 
 
 def _error(msg: str) -> int:
@@ -474,9 +470,6 @@ def cmd_separate(args) -> int:
             return _error(f"{name} does not apply to 'separate' (it runs an "
                           "in-memory spectrogram factorization; factorize the "
                           "spectrogram .bin with 'run' for those modes)")
-    refused = _refused(args, {})
-    if refused:
-        return _error("not in the PyTorch port yet: " + "; ".join(refused))
     dev = resolve_device(args.device)  # a missing card fails before any I/O
     sr, audio = _read_wav(args.audio)
     config = _config(args)
@@ -745,8 +738,10 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--backend", choices=["auto", "jnp", "pallas", "autotune"], default="auto",
-        help="auto/pallas: the CUDA kernels on the card; jnp: plain torch ops "
-        f"(autotune: not ported yet, {_AUTOTUNE})",
+        help="pallas: the CUDA kernels on the card; jnp: plain torch ops (cuBLAS); "
+        "auto: the card's measured rule per shape; autotune: measure both once per "
+        "shape, cached in ~/.cache/nmf_tpu_torch/autotune.json "
+        "(NMF_TPU_TORCH_AUTOTUNE_CACHE names another file)",
     )
     p.add_argument("--no-cost", action="store_true", help="skip cost tracking")
     p.add_argument(

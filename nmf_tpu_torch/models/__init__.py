@@ -3,7 +3,8 @@ strict reference-replication solve, the out-of-core streamed solve and
 transform, the tile-sparse solve, the H-only and W-only solves and the
 ``NMF`` estimator; the semi-adaptive solve and source separation, the
 masked solves and the online learner; restarts, rank sweeps and the
-stability study, and the batched tile-sparse solve; the factor inits."""
+stability study, and the batched tile-sparse solve; the deprecated COO
+sparse solve; the factor inits."""
 
 from .init import nndsvd_init, random_init, scaled_random_init
 from .masked import mu_step_masked, masked_kl, solve_masked, solve_masked_h_only
@@ -12,7 +13,8 @@ from .online import OnlineResult, solve_online
 from .selection import SelectionResult, solve_rank_sweep, solve_restarts
 from .semi import solve_semi
 from .separation import SeparationResult, istft, separate, stft
-from .solver import SolveResult, resolve_step_fn, run_checked_loop, solve
+from .solver import SolveResult, resolve_step_fn, run_checked_loop, solve, solve_jit
+from .sparse import SparseX, solve_sparse, sparse_from_dense
 from .sparse_tiled import (
     TileSparseX,
     solve_sparse_tiled,
@@ -41,6 +43,7 @@ __all__ = [
     "SeparationResult",
     "SolveResult",
     "StabilityResult",
+    "SparseX",
     "TileSparseX",
     "TransformResult",
     "pick_block_n",
@@ -66,10 +69,13 @@ __all__ = [
     "solve_rank_sweep",
     "solve_restarts",
     "solve_semi",
+    "solve_sparse",
     "solve_sparse_tiled",
     "solve_sparse_tiled_batched",
     "solve_strict",
+    "solve_jit",
     "solve_w_only",
+    "sparse_from_dense",
     "stft",
     "tiles_from_coo",
     "tiles_from_dense",

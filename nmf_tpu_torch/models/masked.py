@@ -33,7 +33,6 @@ from .solver import (
     _DTYPES,
     _MESH,
     SolveResult,
-    _refuse_unported,
     _shape,
     run_checked_loop,
     to_state,
@@ -133,7 +132,6 @@ def _validate_and_prep(x, w0, h0, mask, config: SolveConfig, mesh, device):
         raise ValueError(f"mask shape {_shape(mask)} != X shape {sx}")
     if sx != (sw[0], sh[1]) or sw[1] != sh[0]:
         raise ValueError(f"shape mismatch: X{sx} vs W{sw} @ H{sh}")
-    _refuse_unported(config)
     return _masked_prep(x, w0, h0, mask, config, resolve_device(device))
 
 

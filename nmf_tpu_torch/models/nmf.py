@@ -8,7 +8,9 @@ with the loop of :func:`~nmf_tpu_torch.solve` (plain or accelerated).  On
 the KL family its step is the fused kernel K1 (``update_h_fused``) and its
 cost K3 (``kl_cost_fused``) with a true-f32 recon in every policy, as JAX's
 H-only cost is ``kl_divergence`` whatever the policy (``nmf.py:115``); the
-beta, penalized and HALS H-steps take plain ops, as in JAX.
+beta, penalized and HALS H-steps take plain ops, as in JAX.  On CUDA
+tensors ``backend="auto"`` and ``"autotune"`` resolve per shape as
+:func:`~nmf_tpu_torch.solve`'s do (JAX's ``nmf.py:218-240``).
 
 ``NMF.transform(mask=...)`` scores partially observed columns through the
 masked H-only solve (in memory, or streamed with ``out_of_core``).
@@ -32,6 +34,7 @@ from ..ops import hals, mu
 from ..ops.divergence import beta_divergence, kl_divergence
 from ..ops.elementwise import eps_clamp
 from ..ops.kernels import fused_mu
+from ..utils.autotune import resolve_config
 from ..utils.config import Precision, SolveConfig
 from ..utils.device import resolve_device
 from .init import nndsvd_init, random_init, scaled_random_init
@@ -41,7 +44,7 @@ from .solver import (
     _dequant_wrap_cost,
     _dequant_wrap_step,
     _prep,
-    _refuse_unported,
+    _shape,
     _use_kernels,
     check_inputs,
     run_checked_loop,
@@ -161,10 +164,12 @@ def solve_h_only(
     config.validate()
     if mesh is not None:
         raise NotImplementedError(_MESH)
-    _refuse_unported(config)
     check_inputs(x, w, h0, config)
+    dev = resolve_device(device)
+    (m, k), n = _shape(w), _shape(h0)[1]
+    config = resolve_config(config, m, k, n, dev, "h_only")
     step, cost = _h_only_step_cost(config)
-    x, w, h0 = _prep(x, w, h0, config, True, resolve_device(device))
+    x, w, h0 = _prep(x, w, h0, config, True, dev)
     return run_checked_loop(x, w, h0, config, step, cost)
 
 

@@ -24,7 +24,11 @@ with ``in_axes=None``.
   semantics); MU families only.
 
 The selection signal is the final cost, so ``track_cost`` is forced on.
-Per-member convergence is the batched solver's.  Not in the port yet:
+Per-member convergence is the batched solver's.  ``backend="auto"`` takes
+the card's rule for a member axis (``utils.autotune.rule_pick`` with
+``members``): at K <= 32 on the H100 cuBLAS's batched GEMMs, where the
+member-axis kernels measured slower; ``backend="pallas"`` keeps the
+kernels and their member-i-equals-2-D bits.  Not in the port yet:
 ``mesh`` (ROADMAP.md Queue 1 step 12).
 """
 
@@ -38,11 +42,12 @@ import torch
 
 from ..ops.quant import quantize_policy
 from ..parallel.batched import batched_step_cost, run_batched_loop
+from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
 from .init import nndsvd_init, random_init, scaled_random_init
-from .solver import _DTYPES, _MESH, SolveResult, _refuse_unported
+from .solver import _DTYPES, _MESH, SolveResult
 
 __all__ = ["SelectionResult", "solve_restarts", "solve_rank_sweep"]
 
@@ -147,7 +152,6 @@ def _solve_selection(x, w0s, h0s, ranks: np.ndarray, config: SolveConfig, mesh,
         config = dataclasses.replace(config, track_cost=True)
     if config.live_metrics:
         config = dataclasses.replace(config, live_metrics=False)
-    _refuse_unported(config)
     r, kmax = int(np.shape(w0s)[0]), int(np.shape(w0s)[2])
     masked = bool(np.any(ranks < kmax))
     if n_frozen:
@@ -168,6 +172,7 @@ def _solve_selection(x, w0s, h0s, ranks: np.ndarray, config: SolveConfig, mesh,
         )
     mks = (np.arange(kmax)[None, :] < np.asarray(ranks)[:, None]).astype(np.float32)
     dev = resolve_device(device)
+    config = resolve_config(config, m, kmax, n, dev, "selection", members=r)
     x, w0s, h0s, mks = _prep_selection(x, w0s, h0s, mks, config, clamp_inputs, masked, dev)
     step_fn, cost_fn = batched_step_cost(config)
     step = step_fn

@@ -22,15 +22,17 @@ accelerated loop's ``extrapolate``), so it needs no copy.  Under
 with ``new == old``, which leaves it bit-equal.
 
 The frozen columns are the FIRST ``n_frozen`` of ``w0``: order the template
-columns first.  Not ported: ``mesh`` (ROADMAP.md Queue 1 step 12) and
-JAX's TPU backend rule (the port's ``auto`` already sends CUDA tensors to
-the kernels).
+columns first.  ``backend="auto"`` and ``"autotune"`` resolve per shape as
+:func:`~nmf_tpu_torch.solve`'s do (JAX's ``semi.py:143-158``), so that
+``n_frozen=0`` stays the solve's kernels and bits.  Not ported: ``mesh``
+(ROADMAP.md Queue 1 step 12).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
 from .solver import (
@@ -82,9 +84,10 @@ def solve_semi(
     k = sw[1]
     if not (0 <= int(n_frozen) <= k):
         raise ValueError(f"n_frozen must be in [0, {k}], got {n_frozen}")
+    dev = resolve_device(device)
+    config = resolve_config(config, sw[0], k, sh[1], dev, "semi")
     step_fn = resolve_step_fn(config)
     cost_fn = _cost_fn(config)
-    dev = resolve_device(device)
     # the frozen values are the clamped initial columns (nmf.cu:211)
     x, w0, h0 = _prep(x, w0, h0, config, True, dev)
     mk = (torch.arange(k, device=dev) < int(n_frozen))[None, :]

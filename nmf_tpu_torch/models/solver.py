@@ -32,8 +32,11 @@ plain ops by :func:`_use_kernels`), and the beta-divergence MU (``beta !=
 1``), HALS (``algorithm="hals"``) and the penalized KL MU (L1/L2), which
 take plain ops on every device, as in JAX (``solver.py:113-127``).
 
-Not in the port yet, and refused with ``NotImplementedError``:
-``backend="autotune"``.
+:func:`solve` resolves ``backend="auto"`` and ``"autotune"`` per shape
+before it builds the step, as JAX's ``solve`` does
+(:func:`nmf_tpu_torch.utils.autotune.resolve_config`): on CUDA tensors the
+card's measured rule, or a measurement cached on disk; on CPU tensors the
+kernel wrappers, which take their plain versions there.
 """
 
 from __future__ import annotations
@@ -50,12 +53,13 @@ from ..ops.hals import hals_step
 from ..ops.kernels import fused_mu
 from ..ops.mu import mu_step, mu_step_beta, mu_step_kl_reg
 from ..ops.quant import dequantize, quantize_policy
+from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
 from ..utils.metrics import emit_live
 
-__all__ = ["SolveResult", "solve", "resolve_step_fn", "run_checked_loop"]
+__all__ = ["SolveResult", "solve", "solve_jit", "resolve_step_fn", "run_checked_loop"]
 
 _F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -92,20 +96,13 @@ class SolveResult:
     h_ex: torch.Tensor = None
 
 
-def _refuse_unported(config: SolveConfig) -> None:
-    later = {
-        "backend='autotune' (ROADMAP.md Queue 1 step 11, item 7: autotune)":
-            config.backend == "autotune",
-    }
-    missing = [name for name, on in later.items() if on]
-    if missing:
-        raise NotImplementedError(f"{', '.join(missing)} not in the PyTorch port yet")
-
-
 def _use_kernels(config: SolveConfig) -> bool:
     """Whether the step and cost go to the fused kernels.
 
-    ``"jnp"`` means plain torch ops.  Per-row-block int8 scales are not in
+    ``"jnp"`` means plain torch ops; ``"pallas"`` the kernels, and so do
+    ``"auto"`` and ``"autotune"`` where nothing resolved them by shape
+    (:func:`nmf_tpu_torch.utils.autotune.resolve_config` does, at every
+    entry point).  Per-row-block int8 scales are not in
     the kernels: ``"pallas"`` raises, ``"auto"`` takes the plain ops on
     dequantized X (``nmf_tpu/models/solver.py:137-151``).  The JAX rule that
     ``auto`` sends int8 X to jnp is a TPU rule (Mosaic's slow uint8 path)
@@ -158,7 +155,6 @@ def resolve_step_fn(config: SolveConfig) -> StepFn:
     dequantize int8 X themselves) or plain torch ops, by :func:`_use_kernels`.
     """
     config.validate()
-    _refuse_unported(config)
     fn = _family_step(config)
     if fn is None:
         if _use_kernels(config):
@@ -358,6 +354,42 @@ def _run_accel_loop(
     )
 
 
+@functools.lru_cache(maxsize=32)
+def solve_jit(config: SolveConfig, platform: Optional[str] = None):
+    """The solver of a config, built once and cached (``solve_jit`` of
+    ``nmf_tpu.models.solver``): ``_solve(x, w, h, initial_cost,
+    initial_momentum=None, initial_extrap=None)`` runs
+    :func:`run_checked_loop` with the config's step and cost on tensors
+    already prepared (clamped, cast or quantized, on their device, as
+    :func:`solve` prepares them).
+
+    ``platform`` names the device type the tensors lie on, ``"cuda"`` or
+    ``"cpu"`` (None: either); it keys the cache, as JAX's platform does,
+    and the step is the same, because the kernel wrappers take their plain
+    version for CPU tensors.  A config with ``backend="auto"`` or
+    ``"autotune"`` takes the kernels here; :func:`solve` resolves the
+    backend by the shape's rule before it builds the solver.
+
+    JAX donates W and H to the jitted call.  Nothing here writes into the
+    caller's ``w`` and ``h``: every step returns new tensors, so they keep
+    their values, and the result's factors are new tensors.  ``initial_cost``
+    (NaN or None: no baseline) and ``initial_momentum`` are host numbers or
+    0-d tensors.
+    """
+    if platform not in (None, "cuda", "cpu"):
+        raise ValueError(f"unsupported platform {platform!r}: use 'cuda' or 'cpu'")
+    step_fn = resolve_step_fn(config)
+    cost_fn = _cost_fn(config)
+
+    def _solve(x, w, h, initial_cost, initial_momentum=None, initial_extrap=None):
+        c0 = None if initial_cost is None else float(initial_cost)
+        m0 = None if initial_momentum is None else float(initial_momentum)
+        return run_checked_loop(x, w, h, config, step_fn, cost_fn,
+                                None if c0 is None or np.isnan(c0) else c0, m0, initial_extrap)
+
+    return _solve
+
+
 def _shape(a) -> Tuple[int, ...]:
     return tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
 
@@ -424,9 +456,11 @@ def solve(
     """
     config.validate()
     check_inputs(x, w0, h0, config)
+    dev = resolve_device(device)
+    (m, k), n = _shape(w0), _shape(h0)[1]
+    config = resolve_config(config, m, k, n, dev, "solve")
     step_fn = resolve_step_fn(config)
     cost_fn = _cost_fn(config)
-    dev = resolve_device(device)
     x, w0, h0 = _prep(x, w0, h0, config, clamp_inputs, dev)
     if initial_extrap is not None:
         initial_extrap = tuple(to_state(a, config, dev, clamp=False) for a in initial_extrap)

@@ -40,6 +40,7 @@ import torch
 
 from ..ops.elementwise import eps_clamp
 from ..ops.kernels import tile_sparse as ts
+from ..utils import autotune
 from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
@@ -200,7 +201,6 @@ def _validate_hand_built(tx: TileSparseX, mb: int, nb: int) -> None:
 def _refuse_unported(config: SolveConfig, mesh) -> None:
     later = {
         "mesh (ROADMAP.md Queue 1 step 12: the sharded solver)": mesh is not None,
-        "backend='autotune' (ROADMAP.md Queue 1 step 11: autotune)": config.backend == "autotune",
     }
     missing = [name for name, on in later.items() if on]
     if missing:
@@ -214,18 +214,28 @@ def _refuse_unported(config: SolveConfig, mesh) -> None:
         )
 
 
-def sweep_route(config: SolveConfig) -> str:
+def sweep_route(config: SolveConfig, k: int = 0, tile: Tuple[int, int] = (_TILE, _TILE),
+                device=None) -> str:
     """Where the numerator sweeps go: ``"k5"`` (the wrappers, which launch
     K5 on CUDA tensors and send K > 2048 to the plain sweep by the rank
     rule) or ``"plain"`` (:func:`sweep_plain` directly).
 
     ``jnp`` means the plain sweep; int8 tiles (per-tile uint8 codes) take it
     under every backend, as in ``nmf_tpu``, since the kernel has no uint8
-    mode.  ``auto`` and ``pallas`` mean K5.
+    mode.  ``pallas`` means K5.  ``auto`` and ``autotune`` consult
+    :func:`~nmf_tpu_torch.ops.kernels.tile_sparse.preferred` at rank ``k``
+    and ``tile`` for a CUDA ``device`` (JAX's ``sparse_tiled.py:747-755``
+    consults its rule on a TPU); for CPU tensors (``device`` None or the
+    CPU) they mean K5's wrappers, which take the plain sweep there.  A
+    choice on CUDA is counted in ``autotune.CHOICES`` under ``"tiled"``.
     """
     if config.precision.x_dtype == "int8" or config.backend == "jnp":
         return "plain"
-    return "k5"
+    if config.backend == "pallas" or device is None or torch.device(device).type != "cuda":
+        return "k5"
+    choice = "pallas" if ts.preferred(k, *tile, config.precision) else "jnp"
+    autotune.CHOICES[("tiled", choice)] += 1
+    return "k5" if choice == "pallas" else "plain"
 
 
 def _shape(a) -> Tuple[int, ...]:
@@ -286,7 +296,7 @@ def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to
     # the sweep plans: host-side index metadata, built and uploaded once
     plan_h = ts.sweep_plan(rows, cols, nb, "col")
     plan_w = ts.sweep_plan(rows, cols, mb, "row")
-    route = sweep_route(config)
+    route = sweep_route(config, k, (bm, bn), dev)
     if route == "k5":
         xarg = (
             tx_dev,
@@ -389,9 +399,10 @@ def solve_sparse_tiled(
     rows and H columns of the extrapolated point from 0 to eps, so on a
     ragged problem they enter the next step's sums (by O(pad * eps)); they
     see zero numerators, so the iterate's padding stays 0.
-    ``live_metrics`` emits each check, as the dense solve does.  Refused
-    with ``NotImplementedError``: ``mesh``, ``backend='autotune'``, ``beta
-    != 1``, penalties and ``algorithm != 'mu'``.
+    ``live_metrics`` emits each check, as the dense solve does.
+    ``backend="auto"`` and ``"autotune"`` take :func:`sweep_route`'s rule.
+    Refused with ``NotImplementedError``: ``mesh``, ``beta != 1``,
+    penalties and ``algorithm != 'mu'``.
     """
     config.validate()
     _refuse_unported(config, mesh)

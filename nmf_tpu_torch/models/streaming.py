@@ -73,8 +73,14 @@ for byte), and with ``resume`` continues from the newest one: a resumed
 run gives the bits of the uninterrupted one.  ``live_metrics`` emits each
 check (``utils.metrics.emit_live``).
 
+``backend="auto"`` and ``"autotune"`` resolve per block width, for the
+solve and the transform (JAX's ``streaming.py:218-228, 1415-1430``): each
+distinct width (the full blocks, and a ragged last block, which may resolve
+otherwise) takes :func:`nmf_tpu_torch.utils.autotune.resolve_config` on
+(M, K, width) once, and its blocks run the chosen step and cost.
+
 Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh`` and ``backend="autotune"``.
+ROADMAP.md item: ``mesh``.
 """
 
 from __future__ import annotations
@@ -95,13 +101,13 @@ from ..ops.kernels import fused_mu
 from ..ops.mu import _beta_ratios, matmul, numerator_w, update_h, update_h_kl_reg
 from ..ops.quant import dequantize, quantize_policy_np
 from ..utils import checkpoint as ckpt
+from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
 from ..utils.metrics import emit_live
 from .masked import masked_h_step_cost, masked_kl, masked_update_h, masked_w_terms
 from .nmf import _h_only_step_cost
 from .solver import SolveResult, _use_kernels, extrapolate, run_checked_loop, to_state
-from .solver import _refuse_unported as _refuse_solver
 
 __all__ = [
     "ArrayColumnSource",
@@ -660,8 +666,6 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
 def _refuse_unported(config: SolveConfig, mesh) -> None:
     later = {
         "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves)": mesh is not None,
-        "backend='autotune' (ROADMAP.md Queue 1 step 11, item 7: autotune)":
-            config.backend == "autotune",
     }
     missing = [name for name, on in later.items() if on]
     if missing:
@@ -733,7 +737,6 @@ def solve_out_of_core(
             "HALS's in-place W sweep reads columns mid-update; frozen "
             "columns need the MU families (see models.semi)"
         )
-    kernels = _use_kernels(config)
 
     source = _as_source(x)
     m, n = source.shape
@@ -791,8 +794,18 @@ def solve_out_of_core(
             return torch.where(mk, w_frz, w_new).to(w_new.dtype)
 
     h_blocks = [to_state(h0[:, j0:j1], config, dev, clamp=fresh) for j0, j1 in blocks]
-    step_acc, w_epilogue, cost_block, cost_extra, a2_shape = _block_fns(
-        config, kernels, masked=mask_source is not None)
+    masked = mask_source is not None
+    block_fns = {}
+
+    def fns_of(idx: int):
+        """The block functions of block idx's width, resolved once a width."""
+        width = blocks[idx][1] - blocks[idx][0]
+        if width not in block_fns:
+            cfg = config if masked else resolve_config(config, m, k, width, dev, "streamed")
+            block_fns[width] = _block_fns(cfg, _use_kernels(cfg), masked=masked)
+        return block_fns[width]
+
+    _, w_epilogue, _, cost_extra, a2_shape = fns_of(0)
     a2_dims = {"mk": (m, k), "kk": (k, k)}.get(a2_shape, (k,))
     prec = config.precision
     stream = _BlockStream(source, blocks, dev, prec.x_dtype, config.eps,
@@ -812,7 +825,7 @@ def solve_out_of_core(
         a1 = torch.zeros((m, k), dtype=_F32, device=dev)
         a2 = torch.zeros(a2_dims, dtype=_F32, device=dev)
         for idx, x_j in stream.sweep():
-            set_h(idx, step_acc(w_src, get_h(idx), x_j, a1, a2))
+            set_h(idx, fns_of(idx)[0](w_src, get_h(idx), x_j, a1, a2))
         w_new = w_epilogue(w_src, a1, a2)
         return w_new if freeze is None else freeze(w_new)
 
@@ -820,7 +833,7 @@ def solve_out_of_core(
         """Stream X once more; per-block costs stay on the device, summed in
         block order, and the W penalty added once: one host read per cost
         pass (two with penalties, as JAX reads them)."""
-        parts = [cost_block(w_c, h_list[idx], x_j) for idx, x_j in stream.sweep()]
+        parts = [fns_of(idx)[2](w_c, h_list[idx], x_j) for idx, x_j in stream.sweep()]
         total = float(torch.sum(torch.stack(parts)))
         return total if cost_extra is None else total + float(cost_extra(w_c))
 
@@ -1061,7 +1074,6 @@ def transform_out_of_core(
             "transform_out_of_core: mesh (ROADMAP.md Queue 1 step 12, item 12: "
             "sharded solves) not in the PyTorch port yet"
         )
-    _refuse_solver(config)
     source = _as_source(x)
     m, n = source.shape
     mask_source = None
@@ -1087,7 +1099,19 @@ def transform_out_of_core(
     bn = int(block_n) if block_n is not None else pick_block_n(m, n)
     blocks: List[Tuple[int, int]] = [(j, min(j + bn, n)) for j in range(0, n, bn)]
     dev = resolve_device(device)
-    step, cost = masked_h_step_cost(config) if mask_source is not None else _h_only_step_cost(config)
+    step_costs = {}
+
+    def step_cost(idx: int):
+        """The H-only step and cost of block idx's width, resolved once a width."""
+        width = blocks[idx][1] - blocks[idx][0]
+        if width not in step_costs:
+            if mask_source is not None:
+                step_costs[width] = masked_h_step_cost(config)
+            else:
+                cfg = resolve_config(config, m, k, width, dev, "transform")
+                step_costs[width] = _h_only_step_cost(cfg)
+        return step_costs[width]
+
     w_dev = to_state(np.maximum(w, eps), config, dev, clamp=False)
     prec = config.precision
 
@@ -1105,7 +1129,7 @@ def transform_out_of_core(
     parts = []
     pending = None
     for idx, x_j in stream.sweep():
-        fetch = _Fetch(run_checked_loop(x_j, w_dev, h_start(idx), config, step, cost))
+        fetch = _Fetch(run_checked_loop(x_j, w_dev, h_start(idx), config, *step_cost(idx)))
         if pending is not None:
             parts.append(pending.result())   # block idx - 1, while idx solves
         pending = fetch

@@ -7,7 +7,7 @@ from .divergence import (
     kl_divergence,
     kl_divergence_from_recon,
 )
-from .elementwise import EPS, eps_clamp
+from .elementwise import EPS, element_divide, element_multiply, eps_clamp
 from .hals import cd_sweep_h, cd_sweep_w, hals_step
 from .mu import matmul, mu_step, mu_step_beta, mu_step_kl_reg, update_h, update_w
 
@@ -16,6 +16,8 @@ __all__ = [
     "beta_divergence",
     "cd_sweep_h",
     "cd_sweep_w",
+    "element_divide",
+    "element_multiply",
     "eps_clamp",
     "euclidean_cost",
     "hals_step",

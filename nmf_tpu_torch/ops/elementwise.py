@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["EPS", "eps_clamp"]
+__all__ = ["EPS", "eps_clamp", "element_divide", "element_multiply"]
 
 # float32(2.2204e-16), bit-identical to the reference constant; the
 # kernels receive it as a C float, never as the double 2.2204e-16.
@@ -24,3 +24,13 @@ def eps_clamp(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     ``jnp.maximum``; ``torch.clamp_min`` propagates NaN the same way.
     """
     return torch.clamp_min(x, float(eps))
+
+
+def element_divide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` elementwise (the reference's ``vec_div``, cuda/matrix.cu:146-152)."""
+    return a / b
+
+
+def element_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b`` elementwise (the reference's ``vec_mul``, cuda/matrix.cu:174-180)."""
+    return a * b

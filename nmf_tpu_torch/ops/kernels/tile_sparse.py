@@ -39,8 +39,11 @@ in ``PLAIN_CALLS`` apart from the launches in ``LAUNCHES``.
 
 The TPU rules of the JAX module are not carried over: ``supported`` there
 also asks for a TPU and for (8|16, 128)-aligned tiles (K5 takes any tile
-shape), and ``preferred`` is a TPU v5e crossover (the scan beats the Pallas
-kernel under ``bfloat16`` below K = 384), measured on that chip alone.
+shape), and its ``preferred`` is a TPU v5e crossover (the scan beats the
+Pallas kernel under ``bfloat16`` below K = 384), measured on that chip
+alone.  :func:`preferred` here is the H100's rule, which the tile-sparse
+solve consults under ``backend="auto"`` and ``"autotune"`` for CUDA
+tensors (``models/sparse_tiled.sweep_route``).
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ __all__ = [
     "LAUNCHES",
     "PLAIN_CALLS",
     "SweepLayout",
+    "preferred",
     "reset_counts",
     "supported",
     "sweep_split",
@@ -108,6 +112,47 @@ def reset_counts() -> None:
 def supported(k: int) -> bool:
     """Whether K5 takes rank ``k``: the rank rule shared with K1/K2."""
     return k <= MAX_FUSED_K
+
+
+def preferred(k: int, bm: int, bn: int, precision: Precision) -> bool:
+    """The auto backend rule of the sweeps on an H100: whether K5 beats the
+    plain sweep (:func:`sweep_plain`, cuBLAS batched GEMMs over the tiles)
+    at rank ``k`` with ``bm`` x ``bn`` tiles under ``precision``.
+
+    Measured by ``chip_smoke.py --phases card,backend`` in three sessions
+    at 8192^2 with 128^2 tiles at occupancy 0.08, K = 128, 256 and 384,
+    under ``float32``, ``float32_fast`` and ``bfloat16`` (PERF.md,
+    "Backend rule"): K5 won and separated in every cell but the f32 one at
+    K = 384, where the plain sweep won (K5 walks the plan once per K chunk
+    of 256 above K = 256).  So the f32 sweeps on f32 tiles and state above
+    the row's ``tiled_f32_max_k`` (256 on the H100) take the plain sweep,
+    and K5 takes the rest.  JAX's v5e rule (the scan under ``bfloat16``
+    below K = 384) is not carried over.  Per-tile uint8 codes are not a
+    mode of K5 (the plain sweep by rule), and ranks above
+    :func:`supported` take the plain sweep by the rank rule.  ``bm`` and
+    ``bn`` are JAX's arguments; K5 takes any tile shape.
+
+    Milliseconds a step (both sweeps and the epilogues), the median of each
+    of three sessions (NVIDIA H100 80GB HBM3, power limit 700.00 W):
+
+        shape                    K5 ms                plain sweep ms        rule
+        tiled K=128 float32      0.343/0.337/0.337    0.839/0.582/0.565     pallas
+        tiled K=128 float32_fast 0.316/0.309/0.309    1.722/1.676/1.678     pallas
+        tiled K=128 bfloat16     0.263/0.282/0.263    0.788/1.013/0.771     pallas
+        tiled K=256 float32      0.616/0.617/0.621    0.887/0.895/0.896     pallas
+        tiled K=256 float32_fast 0.540/0.538/0.535    2.892/2.892/2.888     pallas
+        tiled K=256 bfloat16     0.369/0.373/0.383    1.296/1.295/1.305     pallas
+        tiled K=384 float32      1.766/1.766/1.767    1.204/1.200/1.199     jnp
+        tiled K=384 float32_fast 1.819/1.817/1.809    3.979/3.978/3.974     pallas
+        tiled K=384 bfloat16     1.141/1.145/1.150    1.761/1.767/1.766     pallas
+    """
+    from ...utils.device import chip_spec
+
+    if not supported(k) or precision.x_dtype == "int8":
+        return False
+    cap = chip_spec().tiled_f32_max_k
+    f32 = (precision.matmul_dtype, precision.x_dtype, precision.state_dtype) == ("float32",) * 3
+    return not (f32 and cap is not None and k > cap)
 
 
 def sweep_split(steps: int, n_out: int, slices: int, k_chunks: int) -> Tuple[int, int]:

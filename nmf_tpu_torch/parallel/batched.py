@@ -19,7 +19,12 @@ member from one read of the B costs a check block; a block any member
 rejects is redone plain for all members and kept for the rejecting ones,
 as the vmapped ``lax.cond`` selects.
 
-Not in the port yet: ``mesh`` (ROADMAP.md Queue 1 step 12).
+``backend="auto"`` and ``"autotune"`` resolve by the card's rule for a
+member axis (:func:`nmf_tpu_torch.utils.autotune.rule_pick` with
+``members``; JAX sends every batched solve to ``jnp`` on a TPU,
+``batched.py:202-211``): CUDA tensors at small K take cuBLAS's batched
+GEMMs, where the member-axis kernels measured slower.  Not in the port
+yet: ``mesh`` (ROADMAP.md Queue 1 step 12).
 """
 
 from __future__ import annotations
@@ -38,7 +43,6 @@ from ..models.solver import (
     SolveResult,
     _cost_fn,
     _family_step,
-    _refuse_unported,
     _use_kernels,
     extrapolate,
 )
@@ -46,6 +50,7 @@ from ..ops.divergence import kl_divergence
 from ..ops.kernels import fused_mu
 from ..ops.mu import mu_step
 from ..ops.quant import dequantize, quantize_policy
+from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
@@ -313,7 +318,6 @@ def solve_batched(
     if config.live_metrics:
         # a per-member-per-check stream is noise (nmf_tpu batched.py:80-86)
         config = dataclasses.replace(config, live_metrics=False)
-    _refuse_unported(config)
     if isinstance(x, tuple):
         raise ValueError(
             "solve_batched takes the dense [B, M, N] stack and quantizes "
@@ -333,6 +337,8 @@ def solve_batched(
     if mask is not None and _shape(mask) != sx:
         raise ValueError(f"mask shape {_shape(mask)} != X shape {sx}")
     dev = resolve_device(device)
+    if mask is None:
+        config = resolve_config(config, sw[1], sw[2], sh[2], dev, "batched", members=sw[0])
     x, w0, h0, mask = _prep_members(x, w0, h0, config, clamp_inputs, mask, dev)
     if mask is not None:
         eps, prec = config.eps, config.precision

@@ -1,5 +1,6 @@
-"""Configuration, device selection, cross-package conversion, metrics,
-checkpointing, guards, profiling and the environment doctor."""
+"""Configuration, device selection and the card's tuning row, the backend
+rule and autotuning, cross-package conversion, metrics, checkpointing,
+guards, profiling and the environment doctor."""
 
 from .checkpoint import (
     CheckpointState,

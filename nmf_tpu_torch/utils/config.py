@@ -21,9 +21,12 @@ and ``csrc/fused_mu.cu``), never through a library precision flag:
 
 Accumulation is always f32.
 
-``backend`` takes the JAX package's strings: ``"auto"`` and ``"pallas"``
-mean the hand-written CUDA kernels for CUDA tensors, ``"jnp"`` means plain
-torch ops.
+``backend`` takes the JAX package's strings: ``"pallas"`` means the
+hand-written CUDA kernels for CUDA tensors, ``"jnp"`` plain torch ops
+(cuBLAS on the card); ``"auto"`` picks one of the two per shape by the
+card's measured rule and ``"autotune"`` by a measurement cached on disk
+(:mod:`nmf_tpu_torch.utils.autotune`).  CPU tensors keep the kernel
+wrappers' plain versions under ``"auto"`` and ``"autotune"``.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ not that a device was listed.  The child:
 * times one paired 8 MiB host-to-device and device-to-host copy.
 
 The parent adds the host facts: the Python, torch, CUDA and NumPy versions,
-and in place of JAX's compile-cache statistics the size of the port's
-kernel build directory (``build/nmf_tpu_torch/``: each built library is one
+the card's row of the tuning table (``chip_spec``: the device name and the
+bf16 and f32 peaks, ``None`` for a card the table does not hold, as JAX's
+doctor reports them), and in place of JAX's compile-cache statistics the
+size of the port's kernel build directory (``build/nmf_tpu_torch/``: each built library is one
 set of kernel sources, and the first call of a solve on a fresh checkout
 pays the ``nvcc`` build).  A child whose sentinel line is not JSON reads as
 down with the line in the error, not as a traceback.
@@ -162,6 +164,15 @@ def diagnose(platform: Optional[str] = None, timeout: float = 180.0,
         return report
     report["backend"] = backend
     report["up"] = bool(backend.get("matmul_ok"))
+    # the tuning table's row: a host-side lookup, None peaks for an unknown kind
+    from .device import chip_spec_for
+
+    spec = chip_spec_for(backend.get("device_kind", ""))
+    report["chip_spec"] = {
+        "device_kind": backend.get("device_kind", ""),
+        "bf16_tflops": spec.peak_tflops("bfloat16"),
+        "f32_tflops": spec.peak_tflops("float32"),
+    }
     return report
 
 
@@ -185,4 +196,8 @@ def format_report(report: dict) -> str:
     lines.append(f"  device: {b['platform']} x{b['n_devices']} ({b['device_kind']}) — "
                  f"enumerate {b['enumerate_s']}s, first matmul {b['dispatch_s']}s")
     lines.append(f"  link: H2D {b['h2d_gbps']} GB/s, D2H {b['d2h_gbps']} GB/s (one 8 MiB copy each)")
+    cs = report.get("chip_spec")
+    if cs:
+        lines.append(f"  peaks: bf16 {cs['bf16_tflops']} TFLOP/s, f32 {cs['f32_tflops']} TFLOP/s "
+                     "(None: a card the tuning table does not hold)")
     return "\n".join(lines)

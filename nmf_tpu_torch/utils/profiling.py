@@ -80,11 +80,13 @@ def stage_timings(x, w, h, eps: Optional[float] = None, repeats: int = 5,
     w_numerator (Z H^T), sums (colsum W, rowsum H, clamped), epilogues (the
     row and column scalings), kl_cost (the per-check cost), full_step (also
     keyed ``fused_step``, JAX's legacy name: one whole iteration of the
-    step the solve runs, K1 and K2 on the card) and null_dispatch (a
-    trivial op, the floor under every number).  The inputs go to ``device``
-    as f32.
+    step the solve runs at this shape, its backend resolved as ``solve``
+    resolves it: K1 and K2 where the card's rule keeps the kernels) and
+    null_dispatch (a trivial op, the floor under every number).  The inputs
+    go to ``device`` as f32.
     """
     from ..models.solver import resolve_step_fn
+    from .autotune import resolve_config
     from ..ops.divergence import kl_divergence
     from ..ops.elementwise import EPS, eps_clamp
     from ..ops.mu import matmul
@@ -101,7 +103,8 @@ def stage_timings(x, w, h, eps: Optional[float] = None, repeats: int = 5,
         return x / eps_clamp(matmul(w, h, prec), eps)
 
     z = recon(w, h, x)
-    step = resolve_step_fn(SolveConfig(eps=eps))
+    (m, k), n = w.shape, h.shape[1]
+    step = resolve_step_fn(resolve_config(SolveConfig(eps=eps), m, k, n, dev, "profiling"))
     stages = {
         "recon_divide": (recon, (w, h, x)),
         "h_numerator": (lambda w, z: matmul(w, z, prec, transpose_a=True), (w, z)),

@@ -384,6 +384,54 @@ def test_a_finished_run_resumes_to_itself(tmp_path):
     assert b.cost_history == a.cost_history and b.check_iterations == a.check_iterations
 
 
+def test_an_entry_below_eps_resumes_as_saved_in_the_port_and_clamped_in_jax(tmp_path):
+    """A checkpoint whose W holds an entry below eps (an accelerated step
+    can take one there).  ``nmf_tpu``'s resume clamps it to eps again; the
+    port's takes it as it was saved, so that the resumed run is the
+    uninterrupted one: the same bits as an unclamped ``solve`` continued
+    from the saved state.  A run already complete returns the loaded
+    factors: eps in JAX's, the saved 1e-30 in the port's."""
+    x, w, h = _problem()
+    cfg = dict(max_iter=10, check_every=5)
+    mid = pt.solve(x, w, h, pt.SolveConfig(max_iter=5, check_every=5), device="cpu")
+    w5, h5 = mid.w.numpy().copy(), mid.h.numpy().copy()
+    w5[0, 0] = np.float32(1e-30)
+    eps = np.float32(pt.SolveConfig().eps)
+    assert w5[0, 0] < eps
+    c5 = float(mid.cost)
+    state = pck.CheckpointState(w=w5, h=h5, iteration=5, cost_history=[c5], converged=False,
+                                check_iterations=[5])
+    dirs = {}
+    for pkg in ("port", "jax"):
+        dirs[pkg] = str(tmp_path / pkg)
+        pck.save_checkpoint(dirs[pkg], state, pt.SolveConfig(**cfg))
+
+    done_p = pck.solve_with_checkpoints(x, w, h, pt.SolveConfig(max_iter=5, check_every=5),
+                                        dirs["port"], every=5, device="cpu")
+    done_j = jck.solve_with_checkpoints(x, w, h, jt.SolveConfig(max_iter=5, check_every=5),
+                                        dirs["jax"], every=5)
+    assert np.asarray(done_p.w)[0, 0] == np.float32(1e-30)
+    assert np.asarray(done_j.w, np.float32)[0, 0] == eps
+
+    ours = pck.solve_with_checkpoints(x, w, h, pt.SolveConfig(**cfg), dirs["port"], every=5,
+                                      device="cpu")
+    ref = jck.solve_with_checkpoints(x, w, h, jt.SolveConfig(**cfg), dirs["jax"], every=5)
+    assert ours.iteration == ref.iteration == 10
+    x_dev = torch.clamp_min(torch.from_numpy(x), float(eps))
+    straight = pt.solve(x_dev, torch.from_numpy(w5), torch.from_numpy(h5),
+                        pt.SolveConfig(max_iter=5, check_every=5), clamp_inputs=False,
+                        initial_cost=c5, device="cpu")
+    assert ours.w.tobytes() == straight.w.numpy().tobytes()
+    assert ours.h.tobytes() == straight.h.numpy().tobytes()
+    w5c = np.maximum(w5, eps)
+    jstraight = jt.solve(np.maximum(x, eps), w5c, h5, jt.SolveConfig(max_iter=5, check_every=5),
+                         clamp_inputs=False, initial_cost=c5)
+    assert np.asarray(ref.w, np.float32).tobytes() == np.asarray(jstraight.w, np.float32).tobytes()
+    # the two resumes start one entry apart, so they part after it
+    np.testing.assert_allclose(np.asarray(ours.w), np.asarray(ref.w, np.float32),
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_resume_false_starts_over(tmp_path):
     x, w, h = _problem()
     cfg = pt.SolveConfig(max_iter=20, check_every=10)
@@ -472,4 +520,5 @@ def test_chip_smoke_lists_utils_launches():
                                                             "tiled checkpointed": 0}
     assert smoke._utils_launches(launches, "h_numerator") == {"checkpointed plain": 0,
                                                                "tiled checkpointed": 200}
-    assert smoke.PHASES[-1] == "utils" and smoke.UTILS_CKPT_EVERY == 50
+    # phases 16 and 17 (sparse, backend) follow phase 15 (utils)
+    assert smoke.PHASES[-3:] == ("utils", "sparse", "backend") and smoke.UTILS_CKPT_EVERY == 50

@@ -141,8 +141,9 @@ def test_non_default_value_refused(capsys, tmp_path, flags, item):
     run through both CLIs (:func:`_run_both_clis`); so is ``--online-passes
     2``, with the ``--online`` it applies to (:func:`_online_both_clis`),
     and ``--checkpoint-every 50``, which without ``--checkpoint-dir`` leaves
-    the run as it is in both CLIs."""
-    if flags[0] == "--checkpoint-every":
+    the run as it is in both CLIs, and ``--backend autotune`` (on the CPU it
+    measures nothing in either package)."""
+    if flags[0] in ("--checkpoint-every", "--backend"):
         _run_both_clis(tmp_path, flags)
         return
     if flags[0] == "--online-passes":
@@ -640,15 +641,16 @@ def test_transform_refusals_exit_2(tmp_path, capsys, flags, msg):
     refused when this test was named, is ported: ``transform --mask`` runs
     through both CLIs (:func:`_transform_mask_both_clis`); so do
     ``--validate`` and ``--live``, each leaving the file as it is without
-    the flag."""
+    the flag, and ``--backend autotune`` (on the CPU: no measurement, the
+    bits of ``auto``)."""
     if flags[0] == "--mask":
         _transform_mask_both_clis(tmp_path, [])
         return
-    if flags[0] in ("--validate", "--live"):
+    if flags[0] in ("--validate", "--live", "--backend"):
         _write_problem(tmp_path, 40, 4, 30, 2)
         common = ["transform", "X.bin", "W.bin", "--max-iter", "30", "-q"]
-        assert _port_cli([*common, "-o", "Hp.bin", flags[0]], tmp_path) == 0
-        assert _jax_cli([*common, "-o", "Hj.bin", flags[0]], tmp_path) == 0
+        assert _port_cli([*common, "-o", "Hp.bin", *flags], tmp_path) == 0
+        assert _jax_cli([*common, "-o", "Hj.bin", *flags], tmp_path) == 0
         _assert_files_close(tmp_path, "H")
         assert _port_cli([*common, "-o", "Hq.bin"], tmp_path) == 0
         assert (tmp_path / "Hp.bin").read_bytes() == (tmp_path / "Hq.bin").read_bytes()

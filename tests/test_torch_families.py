@@ -337,8 +337,25 @@ def test_family_history_does_not_rise(family):
 def test_still_refused(kw, what):
     """``live_metrics``, refused when this test was named, runs: in every
     family the emissions are JAX's (tests/test_torch_live.py's bars) and
-    the bits are those of the run without it."""
+    the bits are those of the run without it.  ``backend="autotune"``,
+    refused when this test was named, runs in every family: on the CPU it
+    measures nothing, the families take their plain ops, and the bits are
+    those of ``auto``."""
     x, w, h = _problem(8, 2, 6)
+    if what == "autotune":
+        from test_torch_live import same_bits
+
+        from nmf_tpu_torch.utils import autotune
+
+        autotune.reset_counts()
+        for fam in FAMILIES.values():
+            cfg = dict(max_iter=10, check_every=5, **fam)
+            res = pt.solve(x, w, h, pt.SolveConfig(**cfg, **kw), device="cpu")
+            auto = pt.solve(x, w, h, pt.SolveConfig(**cfg), device="cpu")
+            assert same_bits(res.w, auto.w) and same_bits(res.h, auto.h)
+            assert same_bits(res.cost_history, auto.cost_history)
+        assert autotune.MEASURED["pick_backend"] == 0
+        return
     if what == "live_metrics":
         from test_torch_live import (assert_emissions_match, jax_emissions, port_emissions,
                                      same_bits)
@@ -352,5 +369,3 @@ def test_still_refused(kw, what):
             off = pt.solve(x, w, h, pt.SolveConfig(**cfg), device="cpu")
             assert same_bits(res.w, off.w) and same_bits(res.h, off.h)
         return
-    with pytest.raises(NotImplementedError, match=what):
-        pt.solve(x, w, h, pt.SolveConfig(max_iter=2, **kw), device="cpu")

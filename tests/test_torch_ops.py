@@ -55,6 +55,25 @@ def test_eps_clamp_keeps_nan_and_matches():
     np.testing.assert_array_equal(ours, ref)
 
 
+@pytest.mark.parametrize("name", ["element_divide", "element_multiply"])
+def test_elementwise_ops_match_bit_for_bit(problem, name):
+    """``a / b`` and ``a * b`` (the reference's ``vec_div`` and ``vec_mul``)
+    give JAX's bits, NaN, inf and zeros included; both are exported from
+    ``ops`` as in ``nmf_tpu.ops``."""
+    import nmf_tpu.ops as jops
+    import nmf_tpu_torch.ops as tops
+
+    x, w, _ = problem
+    a = np.concatenate([x[:, :12].ravel(), [0.0, 1.0, np.nan, np.inf, -2.0]]).astype(np.float32)
+    b = np.concatenate([w.ravel(), [0.0, 0.0, 1.0, 3.0, np.inf]]).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ours = getattr(tops, name)(*_t(a, b)).numpy()
+        ref = np.asarray(getattr(jops, name)(jnp.asarray(a), jnp.asarray(b)))
+    assert ours.dtype == ref.dtype == np.float32
+    assert ours.tobytes() == ref.tobytes()
+    assert name in tops.__all__ and name in tel.__all__
+
+
 @pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True)])
 def test_matmul_transposes(problem, ta, tb):
     x, w, h = problem

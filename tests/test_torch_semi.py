@@ -222,8 +222,19 @@ def test_refusals_match_jax(case, exc):
 def test_unported_options_refused(kw, match):
     """``live_metrics``, refused when this test was named, runs: the
     emissions are JAX's (tests/test_torch_live.py's bars) and the bits
-    those of the run without it."""
+    those of the run without it.  ``backend="autotune"``, refused when this
+    test was named, runs: on the CPU the bits of ``auto`` (the wrappers'
+    plain versions)."""
     x, w, h = _problem()
+    if match == "autotune":
+        from test_torch_live import same_bits
+
+        cfg = dict(max_iter=20, check_every=5)
+        res = pt.solve_semi(x, w, h, pt.SolveConfig(**cfg, backend="autotune"), n_frozen=1,
+                            device="cpu")
+        auto = pt.solve_semi(x, w, h, pt.SolveConfig(**cfg), n_frozen=1, device="cpu")
+        assert same_bits(res.w, auto.w) and same_bits(res.h, auto.h)
+        return
     if match == "live":
         from test_torch_live import (assert_emissions_match, jax_emissions, port_emissions,
                                      same_bits)

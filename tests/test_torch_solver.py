@@ -178,7 +178,11 @@ def test_unported_options_raise(problem, kw):
     ``live_metrics`` and the beta, HALS and penalized families, refused when
     this test was named, run and match ``nmf_tpu.solve`` (bf16 GEMMs: cost rel 1e-4; 2
     iterations keep the factors within rtol 2e-3; ``accelerate`` and the
-    families: this file's tolerances, and the momentum bit for bit)."""
+    families: this file's tolerances, and the momentum bit for bit).
+    ``backend="autotune"``, refused when this test was named, runs too: on
+    CPU tensors it measures nothing and gives the bits of ``auto`` (the
+    wrappers' plain versions), within this file's tolerances of
+    ``nmf_tpu``'s autotune solve (its jnp path off a TPU)."""
     x, w, h = problem
     if "accelerate" in kw or "beta" in kw or "l1_w" in kw:
         rj = _jax_dict(jt.solve(x, w, h, jt.SolveConfig(max_iter=2, **kw)))
@@ -204,9 +208,19 @@ def test_unported_options_raise(problem, kw):
         assert len(ours) == int(rp.num_checks) == 1
         assert_emissions_match(ours, ref)
         return
-    if "precision" not in kw:
-        with pytest.raises(NotImplementedError):
-            pt.solve(x, w, h, pt.SolveConfig(max_iter=2, **kw), device="cpu")
+    if "backend" in kw:
+        from nmf_tpu_torch.utils import autotune
+
+        autotune.reset_counts()
+        rj = _jax_dict(jt.solve(x, w, h, jt.SolveConfig(max_iter=2, **kw)))
+        res = pt.solve(x, w, h, pt.SolveConfig(max_iter=2, **kw), device="cpu")
+        auto = pt.solve(x, w, h, pt.SolveConfig(max_iter=2), device="cpu")
+        assert autotune.MEASURED["pick_backend"] == 0
+        assert autotune.CHOICES[("solve", "pallas")] == 2
+        rp = result_to_numpy(res)
+        for f in ("w", "h", "cost_history"):
+            assert getattr(res, f).numpy().tobytes() == getattr(auto, f).numpy().tobytes(), f
+            np.testing.assert_allclose(rp[f], rj[f], rtol=RTOL, atol=ATOL)
         return
     jprec = jt.Precision(*dataclasses.astuple(kw["precision"]))
     rj = jt.solve(x, w, h, jt.SolveConfig(max_iter=2, precision=jprec))
@@ -293,3 +307,28 @@ def test_full_reference_workload_pin():
     assert float(res.cost) == pytest.approx(PIN_COST, rel=1e-4)
     assert tuple(res.w.shape) == (4096, 128) and tuple(res.h.shape) == (128, 350)
     assert not any(tfm.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("accel", [False, True], ids=["plain", "accelerated"])
+def test_solve_jit_gives_solves_bits_and_is_cached(problem, accel):
+    """``solve_jit(config)`` (``nmf_tpu.models.solver.solve_jit``'s
+    counterpart) on tensors prepared as ``solve`` prepares them gives the
+    bits of ``solve``; a second call with an equal config (and platform)
+    returns the same object, and the caller's W and H keep their values
+    (JAX donates them; nothing here writes into them)."""
+    from nmf_tpu_torch.models import solver as ps
+
+    x, w, h = problem
+    cfg = pt.SolveConfig(max_iter=12, check_every=5, accelerate=accel)
+    ref = pt.solve(x, w, h, cfg, device="cpu")
+    xp, wp, hp = ps._prep(x, w, h, cfg, True, torch.device("cpu"))
+    w_before, h_before = wp.clone(), hp.clone()
+    fn = ps.solve_jit(cfg, "cpu")
+    assert ps.solve_jit(pt.SolveConfig(max_iter=12, check_every=5, accelerate=accel), "cpu") is fn
+    assert ps.solve_jit(cfg) is not fn and "solve_jit" in ps.__all__
+    res = fn(xp, wp, hp, torch.tensor(float("nan")))
+    for f in ("w", "h", "cost", "cost_history", "iterations", "num_checks", "converged"):
+        assert getattr(res, f).numpy().tobytes() == getattr(ref, f).numpy().tobytes(), f
+    assert torch.equal(wp, w_before) and torch.equal(hp, h_before)
+    with pytest.raises(ValueError, match="platform"):
+        ps.solve_jit(cfg, "tpu")

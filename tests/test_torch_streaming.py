@@ -449,7 +449,9 @@ def test_unported_options_are_refused_naming_their_item(problem, tmp_path, kw, i
     named, run too: the checkpointed run matches ``nmf_tpu``'s
     (this file's tolerances) and writes the same steps with the same
     ``meta.json`` keys, its last ``W.bin`` the bytes of its result; the
-    live emissions are JAX's (tests/test_torch_live.py's bars)."""
+    live emissions are JAX's (tests/test_torch_live.py's bars).
+    ``backend="autotune"`` (ROADMAP.md item 7), refused when this test was
+    named, runs too: the bits of ``auto`` on the CPU."""
     x, w, h = problem
     kw = dict(kw)
     if "checkpoint_dir" in kw:
@@ -479,6 +481,18 @@ def test_unported_options_are_refused_naming_their_item(problem, tmp_path, kw, i
         ours, ev_p = port_emissions(lambda: _port(x, w, h, tc, block_n=256))
         _assert_match(ours, ref)
         assert_emissions_match(ev_p, ev_j)
+        return
+    if item == "item 7":
+        # backend="autotune", refused when this test was named under its
+        # ROADMAP.md item, runs: on the CPU it measures nothing and gives
+        # the bits of auto, within this file's tolerances of nmf_tpu's
+        jc, tc = _configs(max_iter=10, check_every=5, **kw.pop("config"))
+        ref = js.solve_out_of_core(x, w, h, jc, block_n=256)
+        ours = _port(x, w, h, tc, block_n=256)
+        auto = _port(x, w, h, dataclasses.replace(tc, backend="auto"), block_n=256)
+        _assert_match(ours, ref)
+        for f in ("w", "h", "cost_history"):
+            assert getattr(ours, f).numpy().tobytes() == getattr(auto, f).numpy().tobytes(), f
         return
     if item in ("accel loop", "ported"):
         jc, tc = _configs(max_iter=10, check_every=5, **kw.pop("config", {}))

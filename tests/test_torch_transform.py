@@ -221,8 +221,18 @@ def test_nmf_transform_out_of_core_matches_jax(tmp_path):
 def test_transform_refusals(kw, err, match):
     """What the streamed transform refuses.  ``mask``, refused when this test
     was named, is ported: a masked transform of the Euclidean family is
-    refused with ``nmf_tpu``'s message."""
+    refused with ``nmf_tpu``'s message.  ``backend="autotune"``, refused
+    when this test was named, runs: on the CPU each block width resolves to
+    the wrappers' plain versions, the bits of ``auto``."""
     x, w, _ = _problem()
+    if match == "autotune":
+        cfg = dict(max_iter=20, check_every=10)
+        res = pt.transform_out_of_core(x, w, config=pt.SolveConfig(**cfg, backend="autotune"),
+                                       block_n=BLOCK, device="cpu")
+        auto = pt.transform_out_of_core(x, w, config=pt.SolveConfig(**cfg), block_n=BLOCK,
+                                        device="cpu")
+        assert res.h.tobytes() == auto.h.tobytes() and res.cost == auto.cost
+        return
     kw = {"w": w, **kw}
     with pytest.raises(err, match=match):
         pt.transform_out_of_core(x, kw.pop("w"), device="cpu", **kw)
