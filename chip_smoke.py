@@ -10,10 +10,11 @@
     python3 chip_smoke.py --phases card,selection             # batched solves, restarts, sweeps
     python3 chip_smoke.py --phases card,utils                 # I/O, checkpoints, live, doctor
     python3 chip_smoke.py --phases card,sparse                # the COO solve
+    python3 chip_smoke.py --phases card,mesh                  # the mesh, sharded solves
     python3 chip_smoke.py --phases card,backend --backend-out backend_s1.json
                                                               # one session of the backend rule
 
-Seventeen phases, in order; any failure raises and the exit code is non-zero.
+Eighteen phases, in order; any failure raises and the exit code is non-zero.
 Every check that holds the kernels passes ``backend="pallas"``: under
 ``"auto"`` a solve takes the card's backend rule (``utils/autotune.py``),
 which sends some shapes to cuBLAS.  The default path is held to that rule
@@ -312,7 +313,37 @@ phase 17.
    ``backend="autotune"`` twice at the ISMIR shape with a fresh cache file:
    the first solve measures once and writes a key naming the card, the
    second measures nothing.  (d) ``doctor --json``'s ``chip_spec``: the
-   card's name and both peaks of its row (989 / 67 TFLOP/s on the H100).
+   card's name and both peaks of its row (989 / 67 TFLOP/s on the H100);
+18. mesh: the sharded solves of ROADMAP.md Queue 1 step 12a, each run with
+   every count set to 0 just before it.  (a) An in-process 1x1 mesh over a
+   one-rank NCCL group, the reference pipeline (200 iterations, 8 checks)
+   with ``backend="pallas"``: exactly 200/200 K1/K2 ``numerator_only``
+   launches and no full K1/K2, K3 or K5 launch (the mesh cost is plain, as
+   JAX's); the cost within 1e-4 of the pin; a bitwise rerun; the cost
+   within 1e-5 and W, H within 1e-4 (relative Frobenius) of the
+   single-device card ``solve``; it/s of both in turns; four NCCL
+   all-reduces of a step's sizes on the one rank timed (the 1x1 mesh skips
+   them); kernels a step and the device's busy share of both solves
+   (``torch.profiler``).  (b) The flagship 10240^2, K=256, 50 iterations on the 1x1 mesh
+   under ``auto``, ``float32`` and ``bfloat16``: the route
+   ``rule_pick`` gives the local shape (counted in ``autotune.CHOICES``
+   under ``sharded``) and its launches (50/50 ``numerator_only`` or none),
+   the cost within 1e-5 of the single-device solve's, it/s of both.
+   (c) Four ranks spawned on the one card (``chip_smoke.py --mesh-rank``)
+   over gloo, a 2x2 mesh (local 2048 x 175), the reference with ``backend="pallas"``: every rank 200/200
+   ``numerator_only`` and no other launch, twice, the rerun's gathered bits
+   equal; the gathered W, H and the cost held at (a)'s limits against the
+   single-device solve and against the same 2x2 mesh on the plain route
+   (``backend="jnp"``, no launch); int8 X under ``auto``: no launch (the
+   plain route), the cost within 1e-5 of the single-device plain int8
+   solve.  (d) ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1 -m nmf_tpu_torch run ... --mesh 1x1``: the cost
+   within 1e-4 of the pin, ``Wm.bin`` byte-equal to (a)'s W.  (e) K1/K2
+   ``numerator_only`` against ``mu.numerator_h``/``numerator_w`` at the
+   shapes the mesh gives them, as phase 9a holds them (its limits, and its
+   control where the mode has one): a 2048 x 175 x 128 block in every mode
+   of phase 9a, the reference fixture's four blocks of (c), and (b)'s
+   bfloat16 flagship on phase 7's exposed operands and on (b)'s own.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -331,7 +362,8 @@ their launches on the streamed solve; every kernel its launches on phase
 run of phase 12, ``transform_launches``, K2's all 0, and on each run of
 phase 13, ``models_launches``, and of phase 14, ``selection_launches``,
 with phase 14's config-4 call in ``batched``; every kernel its launches on
-phase 15's runs, ``utils_launches``); the last line is
+phase 15's runs, ``utils_launches``, and on phase 18's mesh solves,
+``mesh_launches``: K1's and K2's ``numerator_only`` launches, K3's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -418,7 +450,7 @@ TIERS = {
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
           "oocore", "accel", "families", "transform", "models", "selection", "utils", "sparse",
-          "backend")
+          "backend", "mesh")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -4634,6 +4666,406 @@ def phase_backend(card, tmp, out, backend_out):
     _backend_doctor(card, out)
 
 
+# phase 18: the mesh (ROADMAP.md Queue 1 step 12a)
+MESH_ITERS = 200                       # the reference pipeline's
+MESH_FLAGSHIP = (10240, 256, 10240)    # (M, K, N), 50 iterations
+MESH_FLAGSHIP_ITERS = 50
+MESH_RANK_SECONDS = 300                # each spawned rank's wall-clock limit
+MESH_BLOCK = (2048, 175, 128)          # (M, N, K) of a rank's block of the 2x2 reference
+
+
+def _mesh_reference():
+    import nmf_tpu_torch as nt
+
+    fx = nt.fixtures
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    return x, w, h, dataclasses.replace(nt.reference_preset(), backend="pallas")
+
+
+def _mesh_counted(fn):
+    """(fn(), host seconds, every count), the counts set to 0 just before."""
+    _reset_all()
+    res, secs = _timed(fn)
+    return res, secs, _all_counts()
+
+
+def _numerator_launches(iters):
+    return {**_launches(update_h_numerator=iters, update_w_numerator=iters),
+            **{k: 0 for k in _all_counts() if k not in _launches()}}
+
+
+def _mesh_rank_main(rank: int, d: str) -> int:
+    """One of phase 18c's four ranks on ``cuda:0`` over gloo (``chip_smoke.py
+    --mesh-rank R --mesh-dir D``): the reference pipeline on a 2x2 mesh
+    through K1/K2 ``numerator_only`` twice, then on the plain route
+    (``backend="jnp"``), then int8 X under ``auto``; its counts to
+    ``D/rank<R>.json``, rank 0's gathered factors to ``D/mesh.npz``."""
+    import torch.distributed as dist
+
+    import nmf_tpu_torch as nt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank, world_size=4)
+    mesh = nt.make_mesh((2, 2), device="cuda")
+    x, w, h, cfg = _mesh_reference()
+    rec, full = {}, []
+    for tag in ("first", "rerun"):
+        res, secs, counts = _mesh_counted(lambda: nt.solve_sharded(x, w, h, cfg, mesh=mesh))
+        rec[tag] = {"counts": counts, "seconds": secs, "cost": float(res.cost)}
+        full.append(nt.gather_result(res, mesh))
+    rec["bitwise"] = all(torch.equal(_bits(getattr(full[0], f)), _bits(getattr(full[1], f)))
+                         for f in ("w", "h", "cost_history"))
+    cfgp = dataclasses.replace(cfg, backend="jnp")
+    resp, secsp, countsp = _mesh_counted(lambda: nt.solve_sharded(x, w, h, cfgp, mesh=mesh))
+    rec["plain"] = {"counts": countsp, "seconds": secsp, "cost": float(resp.cost)}
+    plain = nt.gather_result(resp, mesh)
+    cfg8 = dataclasses.replace(cfg, backend="auto", precision=nt.Precision(x_dtype="int8"))
+    res8, secs8, counts8 = _mesh_counted(lambda: nt.solve_sharded(x, w, h, cfg8, mesh=mesh))
+    rec["int8"] = {"counts": counts8, "seconds": secs8, "cost": float(res8.cost)}
+    if rank == 0:
+        np.savez(os.path.join(d, "mesh.npz"), w=full[0].w.cpu().numpy(),
+                 h=full[0].h.cpu().numpy(), hist=full[0].cost_history.cpu().numpy(),
+                 wp=plain.w.cpu().numpy(), hp=plain.h.cpu().numpy())
+    pathlib.Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_1x1(card, out, mesh, ref, ref_secs):
+    """(a) the reference pipeline on the in-process 1x1 NCCL mesh."""
+    import nmf_tpu_torch as nt
+
+    x, w, h, cfg = _mesh_reference()
+    where = "mesh 1x1 reference"
+    solve = lambda: nt.solve_sharded(x, w, h, cfg, mesh=mesh)   # noqa: E731
+    res, secs, counts = _mesh_counted(solve)
+    want = _numerator_launches(MESH_ITERS)
+    check(counts == want, f"{where}: counts {counts}, expected {want}")
+    out["launches"][where] = counts
+    cost = float(res.cost)
+    pin = abs(cost - PIN_COST) / PIN_COST
+    check(pin <= 1e-4, f"{where}: cost {cost} vs the pin {PIN_COST}: rel {pin}")
+    again = solve()
+    for f in ("w", "h", "cost_history"):
+        check(torch.equal(_bits(getattr(res, f)), _bits(getattr(again, f))),
+              f"{where}: {f} differs on a rerun")
+    full = nt.gather_result(res, mesh)
+    rel = abs(cost - float(ref.cost)) / abs(float(ref.cost))
+    fro = (_rel_fro(full.w, ref.w), _rel_fro(full.h, ref.h))
+    check(rel <= 1e-5 and max(fro) <= 1e-4,
+          f"{where}: cost rel {rel}, W/H rel Frobenius {fro} to the single-device solve")
+    # it/s in turns: mesh, single, single, mesh, twice
+    secs_m, secs_s = [secs], [ref_secs]
+    for _ in range(2):
+        secs_m.append(_timed(solve)[1])
+        secs_s.append(_timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))[1])
+        secs_s.append(_timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))[1])
+        secs_m.append(_timed(solve)[1])
+    its_m = [MESH_ITERS / s for s in secs_m]
+    its_s = [MESH_ITERS / s for s in secs_s]
+    # kernels a step and the device's busy share of each (torch.profiler)
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_rec = {}
+    for key, fn in (("mesh", solve), ("single", lambda: nt.solve(x, w, h, cfg, device="cuda"))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, s = _timed(fn)
+        with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
+            trace = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(trace)
+            dev = _device_shares(trace)
+            events = json.loads(pathlib.Path(trace).read_text())["traceEvents"]
+        kernels = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+        prof_rec[key] = {"kernels_per_iter": kernels / MESH_ITERS, "busy": dev["busy"] / s,
+                         "kernels_ms": 1e3 * dev["kernels"], "wall_ms": 1e3 * s}
+    # what four NCCL all-reduces of one KL step would cost here (the 1x1
+    # mesh skips its one-rank sums, as XLA drops a psum over one device)
+    import torch.distributed as dist
+
+    k, n, m = 128, 350, 4096
+    bufs = [torch.ones(s, device="cuda") for s in ((k, n), (k,), (m, k), (k,))]
+    for b in bufs:
+        dist.all_reduce(b)
+    torch.cuda.synchronize()
+    reps = 100
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        for b in bufs:
+            dist.all_reduce(b)
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    dev_ms = start.elapsed_time(end) / reps
+    out["mesh"]["1x1"] = {
+        "cost": cost, "pin_rel": pin, "cost_rel_single": rel, "fro_w_h": fro,
+        "launches": counts, "its_mesh": its_m, "its_single": its_s, "profile": prof_rec,
+        "nccl_4_allreduce_ms": {"device": dev_ms, "host": host_ms}, "card": card}
+    print(f"[{card}] 18a mesh 1x1 (NCCL, in-process) reference, backend pallas: K1/K2 "
+          f"numerator_only {counts['update_h_numerator']}/{counts['update_w_numerator']}, full "
+          f"K1/K2 {counts['update_h']}/{counts['update_w']}, K3 {counts['kl_cost']}; cost {cost} "
+          f"(rel {pin} to the pin; {rel} to the single-device solve; W/H rel Frobenius {fro}); "
+          f"bitwise rerun; it/s mesh {its_m} against single-device {its_s}; profiled: "
+          f"{json.dumps(prof_rec)}; four NCCL "
+          f"all-reduces of a step's sizes on one rank: {dev_ms} ms device, {host_ms} ms host")
+
+
+def _mesh_flagship(card, out, mesh):
+    """(b) the flagship on the 1x1 mesh under auto: the rule's route at the
+    local shape, it/s beside the single-device solve's."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.utils import autotune
+
+    m, k, n = MESH_FLAGSHIP
+    x, w, h = _dense_problem((m, k, n))
+    rec = {}
+    for pol in ("float32", "bfloat16"):
+        where = f"mesh 1x1 flagship {pol}"
+        cfg = nt.SolveConfig(max_iter=MESH_FLAGSHIP_ITERS, check_every=25,
+                             precision=nt.Precision(pol))
+        choice = autotune.rule_pick(m, k, n, pol, "float32", "float32")
+        autotune.reset_counts()
+        res, secs, counts = _mesh_counted(lambda: nt.solve_sharded(x, w, h, cfg, mesh=mesh))
+        it = MESH_FLAGSHIP_ITERS
+        want = _numerator_launches(it if choice == "pallas" else 0)
+        check(counts == want, f"{where}: counts {counts}, expected {want} ({choice})")
+        check(dict(autotune.CHOICES) == {("sharded", choice): 1},
+              f"{where}: choices {dict(autotune.CHOICES)}, expected sharded {choice}")
+        out["launches"][where] = counts
+        single, s_secs = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))
+        rel = abs(float(res.cost) - float(single.cost)) / abs(float(single.cost))
+        check(rel <= 1e-5, f"{where}: cost {float(res.cost)} vs the single-device solve "
+              f"{float(single.cost)}: rel {rel} (limit 1e-5)")
+        secs_m, secs_s = [secs], [s_secs]
+        secs_s.append(_timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))[1])
+        secs_m.append(_timed(lambda: nt.solve_sharded(x, w, h, cfg, mesh=mesh))[1])
+        rec[pol] = {"choice": choice, "launches": counts, "cost_rel_single": rel,
+                    "its_mesh": [it / s for s in secs_m], "its_single": [it / s for s in secs_s]}
+        print(f"[{card}] 18b {where}: rule_pick at the local shape {m}x{n}x{k} = {choice}; "
+              f"K1/K2 numerator_only {counts['update_h_numerator']}/"
+              f"{counts['update_w_numerator']}; cost rel {rel} to the single-device solve; it/s "
+              f"mesh {rec[pol]['its_mesh']} against single-device {rec[pol]['its_single']}")
+    out["mesh"]["flagship"] = rec
+    del x, w, h
+    torch.cuda.empty_cache()
+
+
+def _mesh_2x2(card, out, ref, ref8):
+    """(c) four spawned ranks on the one card over gloo, 2x2."""
+    with tempfile.TemporaryDirectory(prefix="nmf_mesh_") as d:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+        logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(4)]
+        procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank",
+                                   str(r), "--mesh-dir", d], stdout=logs[r],
+                                  stderr=subprocess.STDOUT, env=env) for r in range(4)]
+        t0 = time.perf_counter()
+        deadline = t0 + MESH_RANK_SECONDS
+        failed = None
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            if time.perf_counter() > deadline:
+                failed = "timeout"
+            time.sleep(0.1)
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs) if p.returncode != 0), None)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+        wall = time.perf_counter() - t0
+        if failed is not None:
+            r = 0 if failed == "timeout" else failed
+            tail = pathlib.Path(d, f"rank{r}.log").read_text()[-3000:]
+            check(False, f"18c: rank group failed ({failed}):\n{tail}")
+        recs = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text()) for r in range(4)]
+        got = np.load(os.path.join(d, "mesh.npz"))
+        w2, h2, wp, hp = (torch.from_numpy(got[k]).cuda() for k in ("w", "h", "wp", "hp"))
+    want = _numerator_launches(MESH_ITERS)
+    for r, rec in enumerate(recs):
+        for tag in ("first", "rerun"):
+            check(rec[tag]["counts"] == want,
+                  f"18c rank {r} {tag}: counts {rec[tag]['counts']}, expected {want}")
+        check(rec["bitwise"], f"18c rank {r}: the rerun's gathered bits differ")
+        i8 = rec["int8"]["counts"]
+        check(not any(i8.values()), f"18c rank {r}: int8 X under auto launched {i8}")
+        check(not any(rec["plain"]["counts"].values()),
+              f"18c rank {r}: the plain route launched {rec['plain']['counts']}")
+    costs = {rec[t]["cost"] for rec in recs for t in ("first", "rerun")}
+    check(len(costs) == 1, f"18c: costs differ across ranks or runs: {costs}")
+    cost = costs.pop()
+    rel = abs(cost - float(ref.cost)) / abs(float(ref.cost))
+    pin = abs(cost - PIN_COST) / PIN_COST
+    fro = (_rel_fro(w2, ref.w), _rel_fro(h2, ref.h))
+    check(rel <= 1e-5 and pin <= 1e-4 and max(fro) <= 1e-4,
+          f"18c: cost {cost} rel {rel} to the single-device solve ({pin} to the pin), W/H rel "
+          f"Frobenius {fro}")
+    # the same mesh on the plain route: a reference that runs no kernel at
+    # the 2048 x 175 blocks
+    p_costs = {rec["plain"]["cost"] for rec in recs}
+    check(len(p_costs) == 1, f"18c plain: costs differ across ranks: {p_costs}")
+    p_cost = p_costs.pop()
+    p_rel = abs(cost - p_cost) / abs(p_cost)
+    p_fro = (_rel_fro(w2, wp), _rel_fro(h2, hp))
+    check(p_rel <= 1e-5 and max(p_fro) <= 1e-4,
+          f"18c: cost {cost} rel {p_rel} to the plain-route 2x2 solve's {p_cost}, W/H rel "
+          f"Frobenius {p_fro}")
+    i8_costs = {rec["int8"]["cost"] for rec in recs}
+    check(len(i8_costs) == 1, f"18c int8: costs differ across ranks: {i8_costs}")
+    i8_cost = i8_costs.pop()
+    i8_rel = abs(i8_cost - float(ref8.cost)) / abs(float(ref8.cost))
+    check(i8_rel <= 1e-5, f"18c int8: cost {i8_cost}, rel {i8_rel} to the single-device plain "
+          f"int8 solve's {float(ref8.cost)}")
+    secs = [max(rec[t]["seconds"] for rec in recs) for t in ("first", "rerun")]
+    out["launches"]["mesh 2x2 reference"] = recs[0]["first"]["counts"]
+    out["mesh"]["2x2"] = {
+        "cost": cost, "cost_rel_single": rel, "pin_rel": pin, "fro_w_h": fro,
+        "cost_rel_plain_mesh": p_rel, "fro_w_h_plain_mesh": p_fro,
+        "rank_launches": [rec["first"]["counts"] for rec in recs],
+        "its": [MESH_ITERS / s for s in secs], "int8_cost": i8_cost, "int8_rel_single": i8_rel,
+        "int8_launches": recs[0]["int8"]["counts"], "wall_s": wall, "card": card}
+    print(f"[{card}] 18c mesh 2x2, four ranks on cuda:0 over gloo, reference, backend pallas: "
+          f"every rank K1/K2 numerator_only {MESH_ITERS}/{MESH_ITERS}, no other launch; cost "
+          f"{cost} (rel {rel} to the single-device solve, {pin} to the pin), W/H rel Frobenius "
+          f"{fro}; against the plain-route 2x2 solve: cost rel {p_rel}, W/H rel Frobenius "
+          f"{p_fro}; rerun bitwise on every rank; {out['mesh']['2x2']['its']} it/s (gloo stages "
+          f"each sum through the host); int8 X under auto: no launch (plain route), cost "
+          f"{i8_cost} (rel {i8_rel} to the single-device plain int8 solve); {wall} s for the four "
+          "processes")
+
+
+def _mesh_cli(card, out, tmp, mesh_w):
+    """(d) run --mesh 1x1 under torch.distributed.run."""
+    import nmf_tpu_torch as nt
+
+    nt.fixtures.write_reference_fixtures(tmp)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "nmf_tpu_torch", "run", "X.bin", "W.bin", "H.bin", "-o", "Wm.bin", "Hm.bin",
+           "--mesh", "1x1", "--jsonl", "mesh.jsonl"]
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"18d: {' '.join(cmd[2:])}: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rec = json.loads(pathlib.Path(tmp, "mesh.jsonl").read_text().splitlines()[-1])
+    pin = abs(rec["final_cost"] - PIN_COST) / PIN_COST
+    check(rec["iterations"] == MESH_ITERS and pin <= 1e-4,
+          f"18d: {rec['iterations']} iterations, final cost {rec['final_cost']}: rel {pin}")
+    w_file = nt.read_matrix(os.path.join(tmp, "Wm.bin"))
+    same = w_file.tobytes() == mesh_w.cpu().numpy().tobytes()
+    check(same, "18d: Wm.bin differs from the in-process 1x1 mesh solve's W")
+    out["mesh"]["cli"] = {"final_cost": rec["final_cost"], "pin_rel": pin,
+                          "iters_per_sec": rec["iters_per_sec"]}
+    print(f"[{card}] 18d torch.distributed.run --nproc-per-node 1 ... run --mesh 1x1: "
+          f"{rec['iterations']} iterations, final cost {rec['final_cost']} (rel {pin} to the "
+          f"pin), Wm.bin byte-equal to the in-process mesh solve's W; {rec['iters_per_sec']} it/s")
+
+
+def _hold_numerators(card, rec, label, w, h, x, prec, limits, control=None):
+    """K1/K2 ``numerator_only`` against ``mu.numerator_h``/``numerator_w``
+    on the same operands, as phase 9a holds them: f32, finite, bitwise on a
+    rerun, the max and RMS relative errors within ``limits`` and, given a
+    ``control`` policy, the control's RMS outside the limit."""
+    max_limit, spread_limit, _ = limits
+    controls = _num_pairs(control) if control else {}
+    m, k = w.shape
+    n = h.shape[1]
+    for name, (kern, plain) in _num_pairs(prec).items():
+        where = _where(f"{name} numerator_only", w, h, f"[{label}] ")
+        res, ref = _run_pair(kern, plain, w, h, x, where)
+        check(res.dtype == torch.float32
+              and tuple(res.shape) == ((k, n) if name == "update_h" else (m, k)),
+              f"18e {where}: {res.dtype} {tuple(res.shape)}")
+        err, spread, _ = _mode_err(res, ref)
+        what = (f"max rel err {err} (limit {max_limit}), rms rel err {spread} (limit "
+                f"{spread_limit})")
+        check((max_limit is None or err <= max_limit)
+              and (spread_limit is None or spread <= spread_limit), f"18e {where}: {what}")
+        entry = {"max_rel_err": err, "rms_rel_err": spread,
+                 "max_abs_err": float((res - ref).abs().max())}
+        if control:
+            c_spread = _mode_err(controls[name][0](w, h, x), ref)[1]
+            check(c_spread > spread_limit, f"18e {where}: the control ({control.matmul_dtype} "
+                  f"GEMMs) reads {c_spread}, within the limit {spread_limit}")
+            entry["control_rms"] = c_spread
+            what += f"; control ({control.matmul_dtype} GEMMs) {c_spread}"
+        rec[f"{label} {name}"] = entry
+        print(f"[{card}] 18e {where}: {what}, bitwise-repeatable")
+        del res, ref
+
+
+def _mesh_numerators(card, out):
+    """(e) K1/K2 ``numerator_only`` at the shapes the mesh path gives them,
+    against their plain versions: a rank's block of (c) in every mode of
+    phase 9a (its operands, limits and controls) and on the fixture's four
+    real blocks, and (b)'s bfloat16 flagship on phase 7's exposed operands
+    (with the f32-GEMM control) and on (b)'s own."""
+    rec = out["mesh"]["numerators"] = {}
+    m, n, k = MESH_BLOCK
+    for mode, spec in _num_modes().items():
+        w, h, x = _num_operands(m, n, k, mode, spec)
+        _hold_numerators(card, rec, f"block {mode}", w, h, x, spec.prec, spec.limits,
+                         spec.control)
+    x, w, h, _ = _mesh_reference()
+    f32 = _num_modes()["float32"]
+    for r in range(2):
+        for c in range(2):
+            blk = (w[r * m:(r + 1) * m], h[:, c * n:(c + 1) * n],
+                   x[r * m:(r + 1) * m, c * n:(c + 1) * n])
+            wb, hb, xb = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+                          for a in blk)
+            _hold_numerators(card, rec, f"reference block ({r}, {c})", wb, hb, xb, f32.prec,
+                             f32.limits)
+    fm, fk, fn = MESH_FLAGSHIP
+    spec = _modes()["bfloat16"]
+    w, h, x = _walk_operands(fm, fn, fk, "bfloat16", spec)
+    _hold_numerators(card, rec, "bfloat16 flagship, exposed", w, h, x, spec.prec, spec.limits,
+                     spec.control)
+    del w, h, x
+    x, w, h = _dense_problem((fm, fk, fn))
+    _hold_numerators(card, rec, "bfloat16 flagship, (b)'s operands", w, h, x, spec.prec,
+                     spec.limits)
+    del w, h, x
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(card, tmp, out):
+    """18: the mesh and the sharded solves (ROADMAP.md Queue 1 step 12a)."""
+    import nmf_tpu_torch as nt
+
+    print(f"[{card}] phase 18: the mesh: 1x1 NCCL in-process (reference, flagship), 2x2 on "
+          "four gloo ranks, the CLI under torch.distributed.run, K1/K2 numerator_only at the "
+          "mesh's shapes")
+    out["mesh"] = {}
+    x, w, h, cfg = _mesh_reference()
+    for c in (cfg, dataclasses.replace(cfg, max_iter=2)):    # warm the single-device path
+        nt.solve(x, w, h, c, device="cuda")
+    ref, ref_secs = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda"))
+    mesh = nt.make_mesh((1, 1), device="cuda")
+    _mesh_1x1(card, out, mesh, ref, ref_secs)
+    _mesh_flagship(card, out, mesh)
+    cfg8 = dataclasses.replace(cfg, backend="jnp", precision=nt.Precision(x_dtype="int8"))
+    _mesh_2x2(card, out, ref, nt.solve(x, w, h, cfg8, device="cuda"))
+    mesh_w = nt.gather_result(nt.solve_sharded(x, w, h, cfg, mesh=mesh), mesh).w
+    torch.distributed.destroy_process_group()   # make_mesh's one-rank NCCL group
+    _mesh_cli(card, out, tmp, mesh_w)
+    _mesh_numerators(card, out)
+
+
+def _mesh_launches(launches, name):
+    """A kernel's launches on phase 18's runs (K5: none run there)."""
+    runs = ("mesh 1x1 reference", "mesh 2x2 reference", "mesh 1x1 flagship float32",
+            "mesh 1x1 flagship bfloat16")
+    key = {"update_h": "update_h_numerator", "update_w": "update_w_numerator"}.get(name, name)
+    return {run: launches.get(run, {}).get(key, 0) for run in runs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4643,7 +5075,18 @@ def main(argv=None) -> int:
     ap.add_argument("--backend-out", default=None,
                     help="phase backend: write its measured samples to this JSON file "
                     "(backend_rule.py pools the files of several sessions)")
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_rank is not None:      # one of phase 18c's spawned ranks
+        sys.path.insert(0, str(REPO))
+        code = _mesh_rank_main(args.mesh_rank, args.mesh_dir)
+        # its groups destroyed and its results written: leave without the
+        # interpreter's teardown, where a gloo rank has aborted ("terminate
+        # called without an active exception"; ROADMAP.md Queue 3 f)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -4668,7 +5111,7 @@ def main(argv=None) -> int:
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
         "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
-        "sparse": {}, "backend": {},
+        "sparse": {}, "backend": {}, "mesh": {},
     }
     t_start = time.perf_counter()
     seconds = {}
@@ -4708,6 +5151,8 @@ def main(argv=None) -> int:
     run("sparse", phase_sparse, out)
     with tempfile.TemporaryDirectory(prefix="nmf_backend_") as tmp:
         run("backend", phase_backend, tmp, out, args.backend_out)
+    with tempfile.TemporaryDirectory(prefix="nmf_mesh_cli_") as tmp:
+        run("mesh", phase_mesh, tmp, out)
     print(f"[{card}] phase seconds: {json.dumps(seconds)}")
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
@@ -4765,6 +5210,8 @@ def main(argv=None) -> int:
             # phase 15: the checkpointed, live and streamed-resume runs
             # (K1-K3) and the checkpointed tile-sparse run (K5)
             "utils_launches": _utils_launches(out["launches"], name),
+            # phase 18: K1/K2 numerator_only (K3: none) on the mesh solves
+            "mesh_launches": _mesh_launches(out["launches"], name),
             # K1-K3: their launches on phase 12's H-only runs (K2: none)
             **({"transform_launches": _transform_launches(out["launches"], name),
                 "models_launches": _models_launches(out["launches"], name),
@@ -4782,7 +5229,8 @@ def main(argv=None) -> int:
     print(f"[{card}] utils summary: {json.dumps(out['utils'])}")
     print(f"[{card}] sparse summary: {json.dumps(out['sparse'])}")
     print(f"[{card}] backend summary: {json.dumps(out['backend']['auto'])}")
-    print(f"[{card}] all seventeen phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] mesh summary: {json.dumps(out['mesh'])}")
+    print(f"[{card}] all eighteen phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

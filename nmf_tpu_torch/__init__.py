@@ -22,6 +22,11 @@ ops as in JAX.  ``solve_batched`` factorizes a stack of problems, and
 selection, each as one batched solve whose K1-K3 launches (under
 ``backend="pallas"``, or where the rule keeps the kernels) serve every
 member (``solve_sparse_tiled_batched`` on the plain sweeps).
+``make_mesh`` and ``solve_sharded`` shard a solve over the ranks of a
+``torch.distributed`` mesh (one process a card; K1/K2 ``numerator_only``
+on each rank's block, K-sized all-reduces), and so do ``mesh=`` of
+``solve_h_only``, ``solve_semi``, ``solve_masked``, ``solve_masked_h_only``
+and ``NMF``; ``gather_result`` puts the global W and H on every rank.
 ``backend="auto"`` picks the kernels or cuBLAS per shape by the card's
 measured rule, ``"autotune"`` by a measurement cached on disk
 (``utils.autotune``).  ``solve_sparse`` (deprecated) factorizes COO
@@ -75,6 +80,8 @@ from .ops.divergence import beta_divergence, euclidean_cost, itakura_saito, kl_d
 from .ops.elementwise import EPS, eps_clamp
 from .ops.mu import mu_step, mu_step_beta, update_h, update_w
 from .parallel.batched import solve_batched
+from .parallel.mesh import COL_AXIS, ROW_AXIS, init_distributed, make_mesh, nmf_shardings, shard_problem
+from .parallel.sharded import gather_result, mu_step_sharded, solve_sharded
 from .utils.config import Precision, SolveConfig, reference_preset
 
 __version__ = "0.1.0"
@@ -125,6 +132,15 @@ __all__ = [
     "transform_out_of_core",
     "TransformResult",
     "solve_batched",
+    "make_mesh",
+    "solve_sharded",
+    "gather_result",
+    "init_distributed",
+    "ROW_AXIS",
+    "COL_AXIS",
+    "nmf_shardings",
+    "shard_problem",
+    "mu_step_sharded",
     "solve_restarts",
     "solve_rank_sweep",
     "SelectionResult",

@@ -13,6 +13,8 @@
     python -m nmf_tpu_torch run X.bin --rank 32 --restarts 8     # keep the best of 8 seeds
     python -m nmf_tpu_torch run X.bin W.bin H.bin --checkpoint-dir ck   # resumable
     python -m nmf_tpu_torch run X.bin W.bin H.bin --live --validate     # each check as it runs
+    python -m torch.distributed.run --nproc-per-node 4 -m nmf_tpu_torch run X.bin W.bin H.bin \
+        --mesh 2x2                                               # sharded over 4 ranks
     python -m nmf_tpu_torch transform X.bin W.bin -o H.bin       # H against a fixed W
     python -m nmf_tpu_torch transform X.bin W.bin -o H.bin --out-of-core --block-n 4096
     python -m nmf_tpu_torch separate song.wav --rank 32 --out-dir sources   # the paper's pipeline
@@ -22,11 +24,12 @@
     python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
     python -m nmf_tpu_torch doctor --json         # is the card usable?
 
-The flags mirror ``python -m nmf_tpu``.  Every other flag of the JAX CLI's
-subcommands is parsed with the JAX CLI's default, and runs as
-the JAX CLI runs it when it spells out that default; any other value is
-refused with exit code 2, naming the ROADMAP.md item that will bring it: a
-flag is never silently ignored.
+The flags mirror ``python -m nmf_tpu``, and every flag of the JAX CLI's
+subcommands is parsed.  A combination the port lacks (``--mesh`` with
+``--out-of-core``, ``--online``, ``--restarts``, ``--checkpoint-dir``,
+``select`` or ``batch``) exits 2 naming the ROADMAP.md item that will
+bring it: a flag is never silently ignored.  Under ``--mesh`` every rank
+reads the input files and rank 0 reports and writes the gathered factors.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .io import binio, fixtures
 from .io.dataset import BinDataset
@@ -59,36 +63,67 @@ from .models.streaming import (
 from .models.stability import rank_stability
 from .models.strict import solve_strict
 from .parallel.batched import solve_batched
+from .parallel.mesh import init_distributed, make_mesh
+from .parallel.sharded import gather_result, solve_sharded
 from .utils.checkpoint import solve_with_checkpoints
 from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
 from .utils.guards import validate_input, validate_result
 from .utils.metrics import MetricsLogger
 
-# JAX-CLI flags not in the port yet: flag -> (argparse kwargs with the JAX
-# CLI's default, nmf_tpu/cli.py:42-114, 1188-1227; where the work is queued
-# in ROADMAP.md).  A flag that spells out its default runs as the JAX CLI
-# runs it; any other value is refused.  _SOLVER_LATER is common to every
-# solving subcommand (the JAX CLI's _add_solver_flags).
-_SOLVER_LATER = {
-    "--mesh": ({}, "Queue 1 step 12, item 12: sharded solves"),
-}
+# where the --mesh combinations the JAX CLI has and the port lacks are queued
+_MESH_LATER = ("ROADMAP.md Queue 1 step 12b: the streamed, tiled, batched, online and "
+               "checkpointed solves on a mesh")
 
 
-def _default(kw: dict):
-    return kw.get("default", False if kw.get("action") == "store_true" else None)
+def _parse_mesh_shape(spec: str):
+    """ROWSxCOLS (e.g. '4x2') -> (rows, cols), with the JAX CLI's error."""
+    parts = spec.lower().split("x")
+    try:
+        r, c = (int(v) for v in parts)
+    except ValueError:
+        r = c = 0
+    if len(parts) != 2 or r < 1 or c < 1:
+        raise ValueError(f"--mesh must be ROWSxCOLS with positive factors (e.g. 4x2), got {spec!r}")
+    return r, c
 
 
-def _dest(flag: str) -> str:
-    return flag.lstrip("-").replace("-", "_")
+def _mesh_later(args, *flags) -> int:
+    """Exit 2 for ``--mesh`` with any of ``flags`` (name, set) that is set."""
+    for name, on in flags:
+        if args.mesh and on:
+            return _error(f"--mesh with {name} is not in the PyTorch port yet ({_MESH_LATER})")
+    return 0
 
 
-def _refused(args, later: dict) -> list:
-    return [
-        f"{flag} (ROADMAP.md {where})"
-        for flag, (kw, where) in later.items()
-        if getattr(args, _dest(flag)) != _default(kw)
-    ]
+def _mesh_from(args, dev):
+    """The RxC mesh of ``--mesh`` (None without it) over the launcher's
+    ranks: ``python -m torch.distributed.run --nproc-per-node R*C -m
+    nmf_tpu_torch ...`` (NCCL on the card, one rank a GPU; gloo with
+    ``--device cpu``).  A world of another size is a ValueError (exit 2)."""
+    if not args.mesh:
+        return None
+    r, c = _parse_mesh_shape(args.mesh)
+    if "RANK" in os.environ:    # under a launcher
+        init_distributed(dev)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != r * c:
+        raise ValueError(
+            f"--mesh {args.mesh} needs {r * c} ranks and the world has {world}: launch it "
+            f"with python -m torch.distributed.run --nproc-per-node {r * c} -m nmf_tpu_torch ..."
+        )
+    return make_mesh((r, c), dev)
+
+
+def _lead(mesh) -> bool:
+    """Whether this process reports and writes: always without a mesh,
+    rank 0 with one."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def _logger(args, mesh) -> MetricsLogger:
+    lead = _lead(mesh)
+    return MetricsLogger(verbose=lead and not args.quiet, jsonl_path=args.jsonl if lead else None)
 
 
 def _error(msg: str) -> int:
@@ -221,9 +256,13 @@ def cmd_run(args) -> int:
     if args.out_of_core and args.strict_compat:
         return _error("--strict-compat (padded-EPS replication) requires the "
                       "in-memory solver; drop --out-of-core")
-    refused = _refused(args, _SOLVER_LATER)
-    if refused:
-        return _error("not in the PyTorch port yet: " + "; ".join(refused))
+    if args.strict_compat and args.mesh:
+        return _error("--strict-compat is a single-device exact-replication mode "
+                      "(no --mesh / --checkpoint-dir)")
+    rc = _mesh_later(args, ("--out-of-core", args.out_of_core), ("--online", args.online),
+                     ("--restarts", args.restarts > 1), ("--checkpoint-dir", args.checkpoint_dir))
+    if rc:
+        return rc
     if args.restarts > 1 and (args.out_of_core or args.online):
         return _error("--restarts batches whole in-memory solves (no --out-of-core / --online)")
     if args.online and args.out_of_core:
@@ -231,6 +270,7 @@ def cmd_run(args) -> int:
                       "solve, one X stream per iteration) or --online (one-pass "
                       "dictionary learning)")
     dev = resolve_device(args.device)  # a missing card fails before any I/O
+    mesh = _mesh_from(args, dev)
     if args.online:
         return _cmd_run_online(args, dev)
     if args.out_of_core:
@@ -255,7 +295,7 @@ def cmd_run(args) -> int:
         return _error("provide W and H files, or --rank for generated init")
 
     config = _config(args)
-    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    logger = _logger(args, mesh)
     mask = None
     if args.mask:
         mask = binio.read_matrix(args.mask)
@@ -282,9 +322,11 @@ def cmd_run(args) -> int:
         return _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev)
     with logger.timed() as t:
         if mask is not None:
-            res = solve_masked(x, w0, h0, mask, config, device=dev)
+            res = solve_masked(x, w0, h0, mask, config, mesh=mesh, device=dev)
         elif args.freeze:
-            res = solve_semi(x, w0, h0, config, n_frozen=args.freeze, device=dev)
+            res = solve_semi(x, w0, h0, config, n_frozen=args.freeze, mesh=mesh, device=dev)
+        elif mesh is not None:
+            res = solve_sharded(x, w0, h0, config, mesh=mesh)
         else:
             # a ValueError of solve_strict (--accelerate, --beta, --algorithm
             # hals, penalties: strict mode replays one algorithm) exits 2
@@ -292,9 +334,13 @@ def cmd_run(args) -> int:
             res = (solve_strict if args.strict_compat else solve)(x, w0, h0, config, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
+    if mesh is not None:
+        res = gather_result(res, mesh)   # the global W and H on every rank
     logger.report(res, x.shape, t.seconds, check_every=config.check_every)
     if args.validate:
         validate_result(res)
+    if not _lead(mesh):
+        return 0
     w_out, h_out = _write_factors(res, args)
     if not args.quiet:
         w_path, h_path = args.output
@@ -379,14 +425,15 @@ def cmd_transform(args) -> int:
                       "solved in one visit; re-running re-does only unfinished work)")
     if args.strict_compat:
         return _error("--strict-compat is a full-solve replication mode (use 'run')")
-    refused = _refused(args, _SOLVER_LATER)
-    if refused:
-        return _error("not in the PyTorch port yet: " + "; ".join(refused))
+    rc = _mesh_later(args, ("--out-of-core", args.out_of_core))
+    if rc:
+        return rc
     dev = resolve_device(args.device)  # a missing card fails before any I/O
+    mesh = _mesh_from(args, dev)
     config = _config(args)
     w = binio.read_matrix(args.W)
     h0 = binio.read_matrix(args.h0) if args.h0 else None
-    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    logger = _logger(args, mesh)
     if args.out_of_core:
         mask = BinColumnSource(args.mask) if args.mask else None
         with logger.timed() as t:
@@ -412,15 +459,19 @@ def cmd_transform(args) -> int:
         with logger.timed() as t:
             if args.mask:
                 res = solve_masked_h_only(x, w, h0, binio.read_matrix(args.mask), config,
-                                          device=dev)
+                                          mesh=mesh, device=dev)
             else:
-                res = solve_h_only(x, w, h0, config, device=dev)
+                res = solve_h_only(x, w, h0, config, mesh=mesh, device=dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)  # time the run, not its enqueue
+        if mesh is not None:
+            res = gather_result(res, mesh)
         logger.report(res, x.shape, t.seconds, check_every=config.check_every)
         if args.validate:
             validate_result(res)
         h_out = res.h.cpu().float().numpy()
+        if not _lead(mesh):
+            return 0
     binio.write_matrix(h_out, args.output)
     if not args.quiet:
         print(f"[nmf] wrote {args.output} {h_out.shape}", file=sys.stderr)
@@ -535,9 +586,8 @@ def _in_memory_only(args, what: str):
                        (args.block_n, "--block-n")):
         if flag:
             return _error(f"{name} is not supported for {what}")
-    refused = _refused(args, _SOLVER_LATER)
-    if refused:
-        return _error("not in the PyTorch port yet: " + "; ".join(refused))
+    if args.mesh:
+        return _error(f"--mesh is not in the PyTorch port yet for {what} ({_MESH_LATER})")
     return None
 
 
@@ -766,8 +816,13 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
         help="replay the reference's padded-EPS numerics (buffers padded to "
         "32-multiples, true f32, plain torch ops); run, in memory only",
     )
-    for flag, (kw, where) in _SOLVER_LATER.items():
-        p.add_argument(flag, help=f"only its JAX default so far ({where})", **kw)
+    p.add_argument(
+        "--mesh",
+        help="shard over a ROWSxCOLS mesh of ranks, e.g. --mesh 2x2, launched as "
+        "python -m torch.distributed.run --nproc-per-node R*C -m nmf_tpu_torch ... "
+        "(NCCL, one rank a card; gloo with --device cpu); run (plain, --freeze, "
+        "--mask) and transform (plain, --mask) in memory",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -913,6 +968,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    grouped = dist.is_initialized()
     try:
         return args.fn(args)
     except FileNotFoundError as e:
@@ -921,6 +977,9 @@ def main(argv=None) -> int:
     except (NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    finally:
+        if dist.is_initialized() and not grouped:   # the group --mesh joined
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

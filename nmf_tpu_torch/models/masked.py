@@ -13,8 +13,8 @@ package has a kernel for the mask GEMMs.  L1/L2 penalties join the
 denominators after their clamp, as in ``mu_step_kl_reg``.
 
 Unobserved entries may hold anything, NaN and Inf included: the prep zeroes
-them before anything else reads X.  Not ported: ``mesh`` (ROADMAP.md
-Queue 1 step 12).
+them before anything else reads X.  ``mesh=`` runs both solves sharded
+(:mod:`nmf_tpu_torch.parallel.sharded`), the mask split like X.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
 from .solver import (
     _DTYPES,
-    _MESH,
     SolveResult,
     _shape,
     run_checked_loop,
@@ -107,11 +106,15 @@ def _masked_prep(x, w0, h0, mask, config: SolveConfig, dev: torch.device):
     """The masked load-time prep (``_masked_prep_jit_cached`` of the JAX
     package), in its order: W and H cast to the state dtype and clamped
     there; X clamped in f32; the unobserved entries of X zeroed before
-    anything else reads it (0 * NaN would be NaN); X cast or quantized."""
+    anything else reads it (0 * NaN would be NaN); X cast or quantized.  A
+    ``(codes, scales)`` pair is X so prepped already (the mesh's prep
+    quantizes on the host)."""
     prec, eps = config.precision, float(config.eps)
     w, h = (to_state(a, config, dev) for a in (w0, h0))
-    x = torch.clamp_min(to_tensor(x, dev).to(_F32), eps)
     mask = to_tensor(mask, dev).to(_F32)
+    if isinstance(x, tuple):
+        return tuple(to_tensor(a, dev) for a in x), w, h, mask.contiguous()
+    x = torch.clamp_min(to_tensor(x, dev).to(_F32), eps)
     x = torch.where(mask > 0, x, 0.0)
     if prec.x_dtype == "int8":
         x = tuple(t.contiguous() for t in quantize_policy(x, eps, prec.x_quant_rows))
@@ -121,10 +124,9 @@ def _masked_prep(x, w0, h0, mask, config: SolveConfig, dev: torch.device):
 
 
 def _validate_and_prep(x, w0, h0, mask, config: SolveConfig, mesh, device):
-    """The checks of ``_masked_validate_and_prep``, then the prep on ``device``."""
+    """The checks of ``_masked_validate_and_prep``, then the prep on
+    ``device``, or of this rank's blocks on a mesh (None beyond it)."""
     config.validate()
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     if config.beta != 1.0 or config.algorithm != "mu":
         raise NotImplementedError("masked solve implements the KL (beta=1) MU family")
     sx, sw, sh = _shape(x), _shape(w0), _shape(h0)
@@ -132,6 +134,14 @@ def _validate_and_prep(x, w0, h0, mask, config: SolveConfig, mesh, device):
         raise ValueError(f"mask shape {_shape(mask)} != X shape {sx}")
     if sx != (sw[0], sh[1]) or sw[1] != sh[0]:
         raise ValueError(f"shape mismatch: X{sx} vs W{sw} @ H{sh}")
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh, mesh_coordinate
+
+        if mesh_coordinate(check_mesh(mesh)) is None:
+            return None
+        from ..parallel.sharded import _local_problem
+
+        return _local_problem(x, w0, h0, config, True, mesh, mask=mask)
     return _masked_prep(x, w0, h0, mask, config, resolve_device(device))
 
 
@@ -160,8 +170,17 @@ def solve_masked_h_only(
     """Iterate the H half of the masked update with W fixed: score partially
     observed new columns against a learned dictionary (``mask`` 0 =
     missing, or real-valued weights).  The loop of
-    :func:`~nmf_tpu_torch.solve_h_only`; the H penalties compose."""
-    x, w, h0, mask = _validate_and_prep(x, w, h0, mask, config, mesh, device)
+    :func:`~nmf_tpu_torch.solve_h_only`; the H penalties compose.  With
+    ``mesh`` each rank gets its blocks (the mask split like X)."""
+    prepped = _validate_and_prep(x, w, h0, mask, config, mesh, device)
+    if mesh is not None:
+        from ..parallel.sharded import build_sharded_masked_h_solver
+
+        if prepped is None:
+            return None
+        x, w, h0, mask = prepped
+        return build_sharded_masked_h_solver(config, mesh)((x, mask), w, h0)
+    x, w, h0, mask = prepped
     step, cost = masked_h_step_cost(config)
     return run_checked_loop((x, mask), w, h0, config, step, cost)
 
@@ -174,9 +193,19 @@ def solve_masked(
 
     Unobserved entries are ignored entirely, NaN and Inf included.  Every
     precision policy; the loop of :func:`~nmf_tpu_torch.solve` (plain or
-    accelerated); ``device`` as there.
+    accelerated); ``device`` as there.  With ``mesh`` the solve runs
+    sharded, the mask split like X, and each rank gets its blocks
+    (:mod:`nmf_tpu_torch.parallel.sharded`).
     """
-    x, w0, h0, mask = _validate_and_prep(x, w0, h0, mask, config, mesh, device)
+    prepped = _validate_and_prep(x, w0, h0, mask, config, mesh, device)
+    if mesh is not None:
+        from ..parallel.sharded import build_sharded_masked_solver
+
+        if prepped is None:
+            return None
+        x, w0, h0, mask = prepped
+        return build_sharded_masked_solver(config, mesh)(x, w0, h0, mask)
+    x, w0, h0, mask = prepped
     eps, prec = config.eps, config.precision
     pens = dict(l1_w=config.l1_w, l1_h=config.l1_h, l2_w=config.l2_w, l2_h=config.l2_h)
 

@@ -18,8 +18,12 @@ masked H-only solve (in memory, or streamed with ``out_of_core``).
 ``NMF(n_restarts > 1)`` fits through :func:`~nmf_tpu_torch.solve_restarts`
 (all restarts in one batched solve) and keeps the lowest-cost member.
 
-Not in the port yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh`` (Queue 1 step 12).
+``mesh=`` (a ``DeviceMesh`` of :func:`~nmf_tpu_torch.make_mesh`) runs the
+H-only solve and ``NMF``'s fit and transform sharded over the mesh's ranks
+(:mod:`nmf_tpu_torch.parallel.sharded`; every rank calls with the same
+inputs).  Not in the port yet, and refused with ``NotImplementedError``
+naming its ROADMAP.md item: ``NMF(mesh=)`` with ``n_restarts > 1`` or
+``transform(out_of_core=True)`` (Queue 1 step 12b).
 """
 
 from __future__ import annotations
@@ -160,11 +164,19 @@ def solve_h_only(
     passes through); per iteration the reference's ``update_h``
     (nmf.cu:118-146) without the ``update_w`` after it.  ``device`` as in
     ``solve``; the factors of the result stay on it.
+
+    With ``mesh`` the solve runs sharded over the canonical layout (W's row
+    blocks fixed and replicated over 'mc', only K-sized products summed a
+    step; every family, the KL step on plain ops as in JAX): each rank
+    gets its blocks on the mesh's device (``device`` is not read), as
+    :func:`~nmf_tpu_torch.parallel.sharded.solve_sharded` returns them.
     """
     config.validate()
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     check_inputs(x, w, h0, config)
+    if mesh is not None:
+        from ..parallel.sharded import solve_h_only_sharded
+
+        return solve_h_only_sharded(x, w, h0, config, mesh)
     dev = resolve_device(device)
     (m, k), n = _shape(w), _shape(h0)[1]
     config = resolve_config(config, m, k, n, dev, "h_only")
@@ -188,7 +200,11 @@ def solve_w_only(
     The H-only solve of the transposed problem, ``D(X || W H) = D(X^T ||
     H^T W^T)``: X^T, H^T and W0^T are made contiguous once, before the loop
     (the kernels take row-major operands), and the W and H penalties swap
-    places (``nmf.py:255-297`` of the JAX package).
+    places (``nmf.py:255-297`` of the JAX package).  With ``mesh`` the
+    transposed problem is sharded: ``res.w`` is this rank's block of W with
+    its rows split over 'mc', ``res.h`` its block of H with its columns
+    split over 'mr' (``gather_result(res, mesh, w_spec=(COL_AXIS, None),
+    h_spec=(None, ROW_AXIS))``).
     """
     if isinstance(x, tuple):
         raise NotImplementedError(
@@ -201,6 +217,8 @@ def solve_w_only(
             config, l1_h=config.l1_w, l2_h=config.l2_w, l1_w=config.l1_h, l2_w=config.l2_h,
         )
     res = solve_h_only(_t(x), _t(h), _t(w0), config, mesh=mesh, device=device)
+    if res is None:     # a rank outside the mesh
+        return None
     return SolveResult(
         w=res.h.t().contiguous(),
         h=res.w.t().contiguous(),
@@ -224,7 +242,11 @@ class NMF:
     ``alpha_W`` / ``alpha_H`` / ``l1_ratio`` (sklearn's regularization
     scaling, KL-MU family) and ``accelerate``; plus ``device`` (``"cuda"``
     by default), and ``n_restarts`` (restarts in one batched solve, the
-    lowest cost kept).  ``mesh`` is refused at ``fit``.
+    lowest cost kept).  ``mesh`` (a ``DeviceMesh`` of
+    :func:`~nmf_tpu_torch.make_mesh`) fits and transforms sharded over its
+    ranks, each rank calling with the same data, and gathers the global
+    ``w_`` and ``components_`` onto every rank; the mesh's device is used
+    and ``device`` only by ``score``.
 
     In the X = W @ H orientation ``w_`` is W (M x K) and ``components_`` is
     H, both NumPy f32; ``reconstruction_err_`` is the raw final divergence
@@ -319,7 +341,7 @@ class NMF:
                 "honor explicit w0/h0 templates (all restarts would be "
                 "identical); pass n_restarts=1 or drop the templates"
             )
-        if self.mesh is not None:
+        if self.mesh is not None and self.n_restarts > 1:
             raise NotImplementedError(_MESH)
         if self.n_restarts > 1:
             return self._fit_restarts(x)
@@ -327,12 +349,26 @@ class NMF:
             wi, hi = self._init_factors(x)
             w0 = wi if w0 is None else w0
             h0 = hi if h0 is None else h0
-        res = solve(x, w0, h0, self._config(shape=x.shape), device=self.device)
+        if self.mesh is not None:
+            from ..parallel.sharded import gather_result, solve_sharded
+
+            res = self._on_mesh(solve_sharded(x, w0, h0, self._config(shape=x.shape),
+                                              mesh=self.mesh))
+            res = gather_result(res, self.mesh)
+        else:
+            res = solve(x, w0, h0, self._config(shape=x.shape), device=self.device)
         self.w_ = _host(res.w)
         self.components_ = _host(res.h)
         self.reconstruction_err_ = self._pure_err(x, float(res.cost))
         self.n_iter_ = int(res.iterations)
         return self.w_
+
+    def _on_mesh(self, res):
+        """A sharded solve's result, or ``ValueError`` on a rank beyond the
+        mesh (it has no blocks to fit)."""
+        if res is None:
+            raise ValueError(f"this rank is outside the mesh {tuple(self.mesh.shape)}")
+        return res
 
     def _fit_restarts(self, x: np.ndarray) -> np.ndarray:
         """All restarts in one batched solve; the lowest-cost fit is kept
@@ -391,9 +427,9 @@ class NMF:
         """
         if self.w_ is None:
             raise RuntimeError("transform() before fit()")
-        if self.mesh is not None:
-            raise NotImplementedError(_MESH)
         if out_of_core:
+            if self.mesh is not None:
+                raise NotImplementedError(_MESH)
             from .streaming import _as_source, transform_out_of_core
 
             # the regularization scaling takes the global dims
@@ -412,9 +448,13 @@ class NMF:
             from .masked import solve_masked_h_only
 
             res = solve_masked_h_only(x, self.w_, h0, np.asarray(_host(mask), np.float32),
-                                      config, device=self.device)
+                                      config, mesh=self.mesh, device=self.device)
         else:
-            res = solve_h_only(x, self.w_, h0, config, device=self.device)
+            res = solve_h_only(x, self.w_, h0, config, mesh=self.mesh, device=self.device)
+        if self.mesh is not None:
+            from ..parallel.sharded import gather_result
+
+            res = gather_result(self._on_mesh(res), self.mesh)
         return _host(res.h)
 
     def inverse_transform(self, h) -> np.ndarray:

@@ -24,7 +24,7 @@ kernel would change the bits of the reference's plain step (ROADMAP.md,
 and each block's cost (taken after its H fit, before its W step) is read
 back one block late.  Activations are not kept: run
 :func:`~nmf_tpu_torch.transform_out_of_core` for an H.  Not ported:
-``mesh`` (ROADMAP.md Queue 1 step 12).
+``mesh`` (ROADMAP.md Queue 1 step 12b).
 """
 
 from __future__ import annotations

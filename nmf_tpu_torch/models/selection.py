@@ -29,7 +29,7 @@ the card's rule for a member axis (``utils.autotune.rule_pick`` with
 ``members``): at K <= 32 on the H100 cuBLAS's batched GEMMs, where the
 member-axis kernels measured slower; ``backend="pallas"`` keeps the
 kernels and their member-i-equals-2-D bits.  Not in the port yet:
-``mesh`` (ROADMAP.md Queue 1 step 12).
+``mesh`` (ROADMAP.md Queue 1 step 12b).
 """
 
 from __future__ import annotations

@@ -24,8 +24,10 @@ with ``new == old``, which leaves it bit-equal.
 The frozen columns are the FIRST ``n_frozen`` of ``w0``: order the template
 columns first.  ``backend="auto"`` and ``"autotune"`` resolve per shape as
 :func:`~nmf_tpu_torch.solve`'s do (JAX's ``semi.py:143-158``), so that
-``n_frozen=0`` stays the solve's kernels and bits.  Not ported: ``mesh``
-(ROADMAP.md Queue 1 step 12).
+``n_frozen=0`` stays the solve's kernels and bits.  ``mesh=`` runs the
+solve sharded (:func:`~nmf_tpu_torch.parallel.sharded.solve_semi_sharded`:
+K1/K2 ``numerator_only`` on each rank's block where the kernels apply, the
+frozen columns those of each rank's prepped W block).
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
 from .solver import (
-    _MESH,
     SolveResult,
     _cost_fn,
     _prep,
@@ -61,11 +62,11 @@ def solve_semi(
 
     The MU families (KL, beta, penalized; HALS raises) and every precision
     policy; ``x`` is the float X (a ``(codes, scales)`` pair raises: the
-    prep quantizes X itself).  ``device`` as in :func:`~nmf_tpu_torch.solve`.
+    prep quantizes X itself).  ``device`` as in :func:`~nmf_tpu_torch.solve`;
+    with ``mesh`` each rank gets its blocks on the mesh's device (the
+    result contract of :mod:`nmf_tpu_torch.parallel.sharded`).
     """
     config.validate()
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     if config.algorithm == "hals":
         raise NotImplementedError(
             "HALS's in-place W sweep reads columns mid-update; frozen "
@@ -84,6 +85,10 @@ def solve_semi(
     k = sw[1]
     if not (0 <= int(n_frozen) <= k):
         raise ValueError(f"n_frozen must be in [0, {k}], got {n_frozen}")
+    if mesh is not None:
+        from ..parallel.sharded import solve_semi_sharded
+
+        return solve_semi_sharded(x, w0, h0, config, n_frozen, mesh)
     dev = resolve_device(device)
     config = resolve_config(config, sw[0], k, sh[1], dev, "semi")
     step_fn = resolve_step_fn(config)

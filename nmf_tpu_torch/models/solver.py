@@ -64,7 +64,8 @@ __all__ = ["SolveResult", "solve", "solve_jit", "resolve_step_fn", "run_checked_
 _F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the refusal of ``mesh=`` by every solve that takes it
-_MESH = "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves) is not in the PyTorch port yet"
+_MESH = ("mesh (ROADMAP.md Queue 1 step 12b: the streamed, tiled, batched, online and "
+         "checkpointed solves on a mesh) is not in the PyTorch port yet")
 
 StepFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 CostFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -94,6 +95,10 @@ class SolveResult:
     momentum: torch.Tensor = None   # f32 scalar: final accel momentum (NaN if none)
     w_ex: torch.Tensor = None
     h_ex: torch.Tensor = None
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
 
 
 def _use_kernels(config: SolveConfig) -> bool:
@@ -194,6 +199,8 @@ def run_checked_loop(
     initial_cost: Optional[float] = None,
     initial_momentum: Optional[float] = None,
     initial_extrap: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    all_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    live_emit: Optional[Callable] = None,
 ) -> SolveResult:
     """The check-blocked loop (``solver.py:402-498`` of the JAX package).
 
@@ -201,11 +208,18 @@ def run_checked_loop(
     check never converges).  ``config.accelerate`` sends the run to
     :func:`_run_accel_loop`, with ``initial_momentum`` and
     ``initial_extrap``.  ``config.live_metrics`` emits each check (module
-    docstring).
+    docstring) through ``live_emit`` (default :func:`emit_live`).
+
+    ``all_reduce`` sums a cost partial over the ranks of a mesh (the
+    sharded solves; default: the identity): it runs before the check's
+    host read, so every rank reads the same cost and takes the same stop,
+    and the loop stays uniform across ranks.
     """
+    all_reduce = _identity if all_reduce is None else all_reduce
+    emit = emit_live if live_emit is None else live_emit
     if config.accelerate:
         return _run_accel_loop(x, w, h, config, step_fn, cost_fn, initial_cost,
-                               initial_momentum, initial_extrap)
+                               initial_momentum, initial_extrap, all_reduce, emit)
     max_iter = int(config.max_iter)
     check_every = int(config.check_every)
     thresh = float(config.thresh)
@@ -225,14 +239,14 @@ def run_checked_loop(
         it += chunk
         if need_cost:
             prev = cost
-            cost = cost_fn(x, w, h).to(_F32)
+            cost = all_reduce(cost_fn(x, w, h)).to(_F32)
             hist[chk] = cost          # device-to-device copy, no sync
             if thresh > 0.0 or live:
                 # the one host read per check, compared in f32 as the JAX
                 # loop compares; NaN (the first check) never stops
                 rel = torch.abs(prev - cost) / torch.abs(cost)
                 if live:
-                    emit_live(it, *torch.stack((cost, rel)).tolist())
+                    emit(it, *torch.stack((cost, rel)).tolist())
                 if thresh > 0.0:
                     done = bool(rel < thresh)
             chk += 1
@@ -264,6 +278,8 @@ def _run_accel_loop(
     initial_cost: Optional[float] = None,
     initial_momentum: Optional[float] = None,
     initial_extrap: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    all_reduce: Callable[[torch.Tensor], torch.Tensor] = _identity,
+    emit: Callable = emit_live,
 ) -> SolveResult:
     """Safeguarded Nesterov-extrapolated loop (``config.accelerate``;
     ``solver.py:501-649`` of the JAX package).
@@ -284,8 +300,10 @@ def _run_accel_loop(
     loop syncs the host once a block (twice on a reject).  The costs live on
     the host as f32, the history goes to the device at the end.
 
-    The seed cost is taken up front unless ``initial_cost`` is given (not
-    NaN); the carry starts at the iterate unless ``initial_extrap`` (in the
+    ``all_reduce`` and ``emit`` are :func:`run_checked_loop`'s: every cost
+    read is summed over the mesh first, so each rank accepts or rejects
+    alike.  The seed cost is taken up front unless ``initial_cost`` is
+    given (not NaN); the carry starts at the iterate unless ``initial_extrap`` (in the
     state dtype, on the device) is given, and then comes back in
     ``w_ex``/``h_ex``.
     """
@@ -303,7 +321,7 @@ def _run_accel_loop(
 
     def cost_of(w, h):
         # the host read: the accept test and the stop test are f32 compares
-        return np.float32(cost_fn(x, w, h).to(_F32).item())
+        return np.float32(all_reduce(cost_fn(x, w, h)).to(_F32).item())
 
     if initial_cost is None or np.isnan(initial_cost):
         cost = cost_of(w, h)
@@ -335,7 +353,7 @@ def _run_accel_loop(
         with np.errstate(divide="ignore", invalid="ignore"):
             rel = np.abs(prev - cost) / np.abs(cost)   # f32, as on JAX's device
         if config.live_metrics:
-            emit_live(it, cost, rel)
+            emit(it, cost, rel)
         if thresh > 0:
             done = bool(rel < thresh)
         chk += 1

@@ -27,7 +27,7 @@ here, never its Pallas kernel, so the port launches no K5 there either).
 A checkpointed tile-sparse solve runs through
 :func:`nmf_tpu_torch.utils.checkpoint.solve_with_checkpoints`, whose
 segments are :func:`_run_tiled` calls on the factors prepared once.  Not in
-the port yet: the mesh path (ROADMAP.md Queue 1 step 12).
+the port yet: the mesh path (ROADMAP.md Queue 1 step 12b).
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ def _validate_hand_built(tx: TileSparseX, mb: int, nb: int) -> None:
 
 def _refuse_unported(config: SolveConfig, mesh) -> None:
     later = {
-        "mesh (ROADMAP.md Queue 1 step 12: the sharded solver)": mesh is not None,
+        "mesh (ROADMAP.md Queue 1 step 12b: the tiled mesh path)": mesh is not None,
     }
     missing = [name for name, on in later.items() if on]
     if missing:

@@ -665,7 +665,7 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
 
 def _refuse_unported(config: SolveConfig, mesh) -> None:
     later = {
-        "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves)": mesh is not None,
+        "mesh (ROADMAP.md Queue 1 step 12b: the streamed mesh path)": mesh is not None,
     }
     missing = [name for name, on in later.items() if on]
     if missing:
@@ -1071,8 +1071,8 @@ def transform_out_of_core(
         )
     if mesh is not None:
         raise NotImplementedError(
-            "transform_out_of_core: mesh (ROADMAP.md Queue 1 step 12, item 12: "
-            "sharded solves) not in the PyTorch port yet"
+            "transform_out_of_core: mesh (ROADMAP.md Queue 1 step 12b: the streamed "
+            "mesh path) not in the PyTorch port yet"
         )
     source = _as_source(x)
     m, n = source.shape

@@ -24,7 +24,7 @@ member axis (:func:`nmf_tpu_torch.utils.autotune.rule_pick` with
 ``members``; JAX sends every batched solve to ``jnp`` on a TPU,
 ``batched.py:202-211``): CUDA tensors at small K take cuBLAS's batched
 GEMMs, where the member-axis kernels measured slower.  Not in the port
-yet: ``mesh`` (ROADMAP.md Queue 1 step 12).
+yet: ``mesh`` (ROADMAP.md Queue 1 step 12b).
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ checkpoints itself (``solve_out_of_core(checkpoint_dir=...)``).
 
 Not in the port yet: the sharded checkpoints (``save_checkpoint_sharded``,
 ``load_checkpoint_sharded``, ``sharded_checkpoints=True``) and ``mesh=``,
-ROADMAP.md Queue 1 step 12.
+ROADMAP.md Queue 1 step 12b.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ __all__ = [
 ]
 
 _META = "meta.json"
-_SHARDED = ("sharded checkpoints and mesh= (ROADMAP.md Queue 1 step 12: sharded solves) "
+_SHARDED = ("sharded checkpoints and mesh= (ROADMAP.md Queue 1 step 12b: checkpoints on a mesh) "
             "are not in the PyTorch port yet")
 
 
@@ -231,12 +231,12 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 
 
 def save_checkpoint_sharded(*args, **kwargs):
-    """Refused: the sharded (orbax) checkpoints are ROADMAP.md Queue 1 step 12."""
+    """Refused: the sharded (orbax) checkpoints are ROADMAP.md Queue 1 step 12b."""
     raise NotImplementedError(_SHARDED)
 
 
 def load_checkpoint_sharded(*args, **kwargs):
-    """Refused: the sharded (orbax) checkpoints are ROADMAP.md Queue 1 step 12."""
+    """Refused: the sharded (orbax) checkpoints are ROADMAP.md Queue 1 step 12b."""
     raise NotImplementedError(_SHARDED)
 
 
@@ -285,7 +285,7 @@ def solve_with_checkpoints(x, w0, h0, config: SolveConfig, directory: str, every
     promises.  Fresh inputs get the reference's load-time clamp in both.
 
     ``mesh`` and ``sharded_checkpoints`` are refused (ROADMAP.md Queue 1
-    step 12).
+    step 12b).
     """
     import torch
 

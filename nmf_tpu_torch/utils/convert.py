@@ -56,15 +56,15 @@ def nmf_from_params(params: Mapping, w_, components_, device="cuda"):
     ``nmf_tpu.NMF``'s among them) and its fitted ``w_`` and ``components_``
     as NumPy (bf16 ones as exact f32): a dictionary learned in either
     package serves ``transform`` in the port.  ``precision`` crosses as its
-    fields; ``mesh`` must be None (a JAX mesh does not cross)."""
+    fields; ``mesh`` must be None or the port's ``DeviceMesh`` (a JAX mesh
+    does not cross: ``TypeError``)."""
     from ..models.nmf import NMF
 
     p = dict(params)
-    if p.pop("mesh", None) is not None:
-        raise NotImplementedError(
-            "mesh (ROADMAP.md Queue 1 step 12, item 12: sharded solves) is not "
-            "in the PyTorch port yet"
-        )
+    if p.get("mesh") is not None:
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(p["mesh"])
     p.pop("device", None)
     prec = p.get("precision")
     if prec is not None and not isinstance(prec, Precision):

@@ -643,9 +643,9 @@ def test_chip_smoke_lists_accel_launches():
         "reference": 225, "oocore int8 numerator_only": 100}
     assert smoke._accel_launches(launches, "kl_cost") == {"reference": 10, "oocore int8": 30}
     assert smoke._accel_launches(launches, "h_numerator") == {"tiled float32": 200}
-    # phase 15 (utils) follows phase 14; phases 16 and 17 (sparse, backend) follow it
-    assert smoke.PHASES[-8:] == ("accel", "families", "transform", "models", "selection", "utils",
-                                 "sparse", "backend")
+    # phase 15 (utils) follows phase 14; phases 16-18 (sparse, backend, mesh) follow it
+    assert smoke.PHASES[-9:] == ("accel", "families", "transform", "models", "selection", "utils",
+                                 "sparse", "backend", "mesh")
     # phase 13's runs: K1-K3 under their own keys, K2's numerator_only beside
     models = {"models separate": {"update_h": 200, "update_w": 200, "kl_cost": 8},
               "models streamed n_frozen=8": {"update_h": 50, "update_w": 0,

@@ -363,6 +363,6 @@ def test_chip_smoke_lists_selection_launches():
                                                                 "restarts": 100}
     assert smoke._selection_launches(launches, "kl_cost") == {"batched float32": 0,
                                                                "restarts": 4}
-    # phase 15 (utils) follows phase 14, and phases 16-17 (sparse, backend) it
-    assert smoke.PHASES[-4:] == ("selection", "utils", "sparse", "backend")
+    # phase 15 (utils) follows phase 14, and phases 16-18 (sparse, backend, mesh) it
+    assert smoke.PHASES[-5:] == ("selection", "utils", "sparse", "backend", "mesh")
     assert smoke.BATCH_SHAPE == (128, 513, 2000, 32)

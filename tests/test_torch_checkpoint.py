@@ -520,5 +520,5 @@ def test_chip_smoke_lists_utils_launches():
                                                             "tiled checkpointed": 0}
     assert smoke._utils_launches(launches, "h_numerator") == {"checkpointed plain": 0,
                                                                "tiled checkpointed": 200}
-    # phases 16 and 17 (sparse, backend) follow phase 15 (utils)
-    assert smoke.PHASES[-3:] == ("utils", "sparse", "backend") and smoke.UTILS_CKPT_EVERY == 50
+    # phases 16-18 (sparse, backend, mesh) follow phase 15 (utils)
+    assert smoke.PHASES[-4:] == ("utils", "sparse", "backend", "mesh") and smoke.UTILS_CKPT_EVERY == 50

@@ -104,7 +104,11 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     X.bin itself, real-valued weights).  ``--restarts`` is ported too: the
     parser takes it and the run exits 2 on its missing input
     (``test_run_restarts_matches_jax_cli`` runs it).  ``--checkpoint-dir``
-    is ported: it runs through both CLIs (:func:`_ckpt_both_clis`)."""
+    is ported: it runs through both CLIs (:func:`_ckpt_both_clis`).
+    ``--mesh`` is ported (tests/test_torch_mesh.py runs it under
+    ``torch.distributed.run``): without a launcher a 2x1 mesh exits 2 naming
+    the launcher; with ``--out-of-core`` it is refused naming ROADMAP.md
+    step 12b."""
     if flags[0] == "--checkpoint-dir":
         _ckpt_both_clis(tmp_path, [])
         return
@@ -118,6 +122,9 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     err = capsys.readouterr().err
     if flags[0] in ("--dtype", "--x-dtype", "--backend", "--no-cost", "--restarts"):
         assert "file not found" in err and "ROADMAP.md" not in err
+        return
+    if flags == ["--mesh", "2x1"]:
+        assert "--mesh 2x1 needs 2 ranks" in err and "torch.distributed.run" in err
         return
     assert flags[0] in err and "ROADMAP.md" in err
 
@@ -525,7 +532,7 @@ def test_import_loads_no_jax():
 
 def test_sources_never_import_jax_or_the_jax_package():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|nmf_tpu)(\.|\s|,|$)")
-    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "tests" / "torch_mesh_ranks.py"]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), f"{path}: {line}"
 
@@ -535,7 +542,7 @@ def test_kernel_path_has_no_fallback_handler():
     for rel in ("ops/kernels/fused_mu.py", "ops/kernels/tile_sparse.py", "ops/kernels/_build.py",
                 "models/solver.py", "models/sparse_tiled.py", "models/streaming.py",
                 "models/nmf.py", "models/semi.py", "models/masked.py", "models/online.py",
-                "models/separation.py"):
+                "models/separation.py", "parallel/sharded.py"):
         src = (PKG / rel).read_text()
         assert "except" not in src, rel
 
@@ -627,7 +634,8 @@ def test_transform_matches_jax_cli(tmp_path, flags):
     "flags,msg",
     [
         (["--mask", "X.bin"], "--mask (ROADMAP.md Queue 1 step 6"),
-        (["--mesh", "2x1"], "--mesh (ROADMAP.md Queue 1 step 12"),
+        (["--mesh", "2x1"], "--mesh 2x1 needs 2 ranks and the world has 1: launch it with "
+                            "python -m torch.distributed.run --nproc-per-node 2"),
         (["--validate"], "--validate (ROADMAP.md Queue 1 step 9"),
         (["--live"], "--live (ROADMAP.md Queue 1 step 9"),
         (["--backend", "autotune"], "--backend autotune (ROADMAP.md Queue 1 step 11"),
@@ -637,7 +645,9 @@ def test_transform_matches_jax_cli(tmp_path, flags):
 )
 def test_transform_refusals_exit_2(tmp_path, capsys, flags, msg):
     """transform's flags not in the port, and the two the JAX CLI refuses
-    with its own message, exit 2 before any input is read.  ``--mask``,
+    with its own message, exit 2 before any input is read.  ``--mesh``,
+    refused when this test was named, is ported (tests/test_torch_mesh.py):
+    without a launcher a 2x1 mesh exits 2 naming it.  ``--mask``,
     refused when this test was named, is ported: ``transform --mask`` runs
     through both CLIs (:func:`_transform_mask_both_clis`); so do
     ``--validate`` and ``--live``, each leaving the file as it is without

@@ -257,8 +257,11 @@ def test_h_only_pallas_with_row_block_scales_raises():
 
 @pytest.mark.parametrize("fn", ["solve_h_only", "solve_w_only"])
 def test_mesh_is_refused(fn):
+    """``mesh``, refused when this test was named, runs (the H-only and
+    W-only solves on a mesh match ``nmf_tpu``'s in tests/test_torch_mesh.py);
+    what is not a ``make_mesh`` DeviceMesh is refused."""
     x, w, h = _problem()
-    with pytest.raises(NotImplementedError, match="step 12"):
+    with pytest.raises(TypeError, match="make_mesh"):
         getattr(pt, fn)(x, w, h, pt.SolveConfig(), mesh=object(), device="cpu")
 
 
@@ -411,9 +414,9 @@ def test_nmf_sklearn_clone():
 @pytest.mark.parametrize(
     "kw,call,err,match",
     [
-        (dict(n_restarts=3, mesh=object()), "fit", NotImplementedError, "step 12"),
+        (dict(n_restarts=3, mesh=object()), "fit", NotImplementedError, "step 12b"),
         (dict(n_restarts=3), "fit_w0", ValueError, "cannot honor explicit"),
-        (dict(mesh=object()), "fit", NotImplementedError, "step 12"),
+        (dict(mesh=object()), "fit", TypeError, "make_mesh"),
         (dict(beta_loss=2.0), "mask", NotImplementedError, "KL \\(beta=1\\) MU family"),
         (dict(), "transform_unfitted", RuntimeError, "before fit"),
         (dict(), "inverse_unfitted", RuntimeError, "before fit"),
@@ -425,7 +428,9 @@ def test_nmf_refusals(kw, call, err, match):
     was named, is ported: a masked transform of the Euclidean family is
     refused as ``nmf_tpu`` refuses it (the masked solve is KL MU).
     ``n_restarts > 1`` is ported too (``test_nmf_restarts_match_nmf_tpu``):
-    with a mesh it is refused for the mesh."""
+    with a mesh it is refused for the mesh (ROADMAP.md step 12b).  ``mesh``
+    is ported (tests/test_torch_mesh.py): what is not a ``make_mesh``
+    DeviceMesh is refused."""
     x, w, h = _problem()
     ep = pt.NMF(n_components=5, max_iter=3, device="cpu", **kw)
     with pytest.raises(err, match=match):
@@ -474,7 +479,8 @@ def test_nmf_from_params_of_a_jax_fit(state):
 
 
 def test_nmf_from_params_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="step 12"):
+    """A JAX mesh does not cross to the port (the port's DeviceMesh does)."""
+    with pytest.raises(TypeError, match="make_mesh"):
         nmf_from_params({**jt.NMF(3).get_params(), "mesh": object()}, np.ones((4, 3)),
                         np.ones((3, 5)), device="cpu")
 

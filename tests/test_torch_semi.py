@@ -215,12 +215,15 @@ def test_refusals_match_jax(case, exc):
 
 @pytest.mark.parametrize(
     "kw,match",
-    [(dict(mesh=object()), "step 12"), (dict(config=pt.SolveConfig(live_metrics=True)), "live"),
+    [(dict(mesh=object()), "make_mesh"), (dict(config=pt.SolveConfig(live_metrics=True)), "live"),
      (dict(config=pt.SolveConfig(backend="autotune")), "autotune")],
     ids=["mesh", "live_metrics", "autotune"],
 )
 def test_unported_options_refused(kw, match):
-    """``live_metrics``, refused when this test was named, runs: the
+    """``mesh``, refused when this test was named, runs: ``solve_semi`` on a
+    mesh matches ``nmf_tpu``'s in tests/test_torch_mesh.py, and what is not
+    a ``make_mesh`` DeviceMesh raises ``TypeError``.  ``live_metrics``,
+    refused when this test was named, runs: the
     emissions are JAX's (tests/test_torch_live.py's bars) and the bits
     those of the run without it.  ``backend="autotune"``, refused when this
     test was named, runs: on the CPU the bits of ``auto`` (the wrappers'
@@ -248,7 +251,7 @@ def test_unported_options_refused(kw, match):
                             device="cpu")
         assert same_bits(res.w, off.w) and same_bits(res.h, off.h)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         pt.solve_semi(x, w, h, n_frozen=1, device="cpu", **kw)
 
 

@@ -421,7 +421,7 @@ def test_validation_errors_match_jax(problem, kw, exc):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"mesh": object()}, "item 12"),
+        ({"mesh": object()}, "step 12b"),
         ({"mask": np.ones((96, 1000), np.float32)}, "ported"),
         ({"n_frozen": 2}, "ported"),
         ({"checkpoint_dir": "ck"}, "item 13"),
