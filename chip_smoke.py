@@ -4729,8 +4729,9 @@ def _mesh_rank_main(rank: int, d: str) -> int:
                  h=full[0].h.cpu().numpy(), hist=full[0].cost_history.cpu().numpy(),
                  wp=plain.w.cpu().numpy(), hp=plain.h.cpu().numpy())
     pathlib.Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
-    dist.barrier()
-    dist.destroy_process_group()
+    from nmf_tpu_torch.parallel.mesh import shutdown
+
+    shutdown()
     return 0
 
 
@@ -5002,10 +5003,11 @@ def _hold_numerators(card, rec, label, w, h, x, prec, limits, control=None):
 
 def _mesh_numerators(card, out):
     """(e) K1/K2 ``numerator_only`` at the shapes the mesh path gives them,
-    against their plain versions: a rank's block of (c) in every mode of
-    phase 9a (its operands, limits and controls) and on the fixture's four
-    real blocks, and (b)'s bfloat16 flagship on phase 7's exposed operands
-    (with the f32-GEMM control) and on (b)'s own."""
+    against their plain versions: a rank's block of (c) and a rank's piece
+    of (g)'s streamed 1x4 block, each in every mode of phase 9a (its
+    operands, limits and controls) and on its problem's four real blocks at
+    f32, and (b)'s bfloat16 flagship on phase 7's exposed operands (with
+    the f32-GEMM control) and on (b)'s own."""
     rec = out["mesh"]["numerators"] = {}
     m, n, k = MESH_BLOCK
     for mode, spec in _num_modes().items():
@@ -5022,6 +5024,18 @@ def _mesh_numerators(card, out):
                           for a in blk)
             _hold_numerators(card, rec, f"reference block ({r}, {c})", wb, hb, xb, f32.prec,
                              f32.limits)
+    # (g)'s streamed 1x4 mesh: each rank's (M, bn / 4) piece of the one block
+    pm, pn, pk = MP_OOC[0], MP_OOC[1] // 4, MP_OOC[2]
+    for mode, spec in _num_modes().items():
+        w, h, x = _num_operands(pm, pn, pk, mode, spec)
+        _hold_numerators(card, rec, f"streamed piece {mode}", w, h, x, spec.prec, spec.limits,
+                         spec.control)
+    x, w, h = _mp_stream_problem(0)
+    for c in range(4):
+        piece = (w, h[:, c * pn:(c + 1) * pn], x[:, c * pn:(c + 1) * pn])
+        wb, hb, xb = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in piece)
+        _hold_numerators(card, rec, f"streamed piece (0, {c})", wb, hb, xb, f32.prec, f32.limits)
+    del x, w, h, wb, hb, xb
     fm, fk, fn = MESH_FLAGSHIP
     spec = _modes()["bfloat16"]
     w, h, x = _walk_operands(fm, fn, fk, "bfloat16", spec)
@@ -5035,13 +5049,616 @@ def _mesh_numerators(card, out):
     torch.cuda.empty_cache()
 
 
+MP_OOC = (1025, 65_408, 32)           # (M, N, K): phase 15's streamed block as a whole X
+MP_OOC_ITERS, MP_OOC_CHECK = 100, 50
+MP_TR_BLOCK, MP_TR_ITERS = 16_384, 50
+MP_TILED_ITERS = 50
+MP_TILED_RTOL = 1e-4                  # K5 against the plain sweep: phase 8's f32 limit
+MP_ONLINE_BLOCK, MP_ONLINE_INNER = 4096, 20
+MP_CKPT_EVERY = 50
+MP_COST_RTOL, MP_FRO = 1e-5, 1e-4     # cost relative, W / H relative Frobenius
+MP_RANK_SECONDS = 420                 # 18g's four ranks' wall-clock limit
+MP_CLI_FRO = 1e-5                     # a CLI run's files against the same call in process
+
+
+def _mp_stream_problem(seed):
+    """(X, W0, H0) of the streamed mesh runs, made on the host from ``seed``."""
+    m, n, k = MP_OOC
+    rng = np.random.RandomState(seed + 180)
+    return (rng.rand(m, n).astype(np.float32), rng.rand(m, k).astype(np.float32),
+            rng.rand(k, n).astype(np.float32))
+
+
+def _mp_configs():
+    import nmf_tpu_torch as nt
+
+    return {
+        "stream": nt.SolveConfig(max_iter=MP_OOC_ITERS, check_every=MP_OOC_CHECK,
+                                 backend="pallas"),
+        "transform": nt.SolveConfig(max_iter=MP_TR_ITERS, check_every=25),
+        "online": nt.SolveConfig(max_iter=MP_ONLINE_INNER),
+        "tiled": nt.SolveConfig(max_iter=MP_TILED_ITERS, check_every=25),
+        "batched": nt.SolveConfig(max_iter=BATCH_ITERS, check_every=25, track_cost=False,
+                                  backend="pallas"),
+        "restarts": nt.SolveConfig(max_iter=SEL_ITERS, check_every=25, backend="pallas"),
+        "reference": dataclasses.replace(nt.reference_preset(), backend="pallas"),
+    }
+
+
+def _mp_batch(seed):
+    b, m, n, k = BATCH_SHAPE
+    rng = np.random.RandomState(seed + 181)
+    return tuple(np.maximum(rng.rand(*s).astype(np.float32), np.float32(EPS))
+                 for s in ((b, m, n), (b, m, k), (b, k, n)))
+
+
+def _mp_tiled():
+    import nmf_tpu_torch as nt
+
+    m, n, k, t, occ, ts_seed = TS_MAIN
+    x, w, h = tile_problem(m, k, n, t, occ, ts_seed)
+    return nt.tiles_from_dense(x, (t, t)), w, h
+
+
+def _mp_tiled_split(tx, w, h, cfg, mesh):
+    """(prepare seconds, loop seconds) of one tiled solve, single-device
+    for ``mesh`` None: ``_prepare_tiled`` (the rank's tiles, the plans,
+    the uploads), then ``_run_tiled`` (the checked loop)."""
+    from nmf_tpu_torch.models import sparse_tiled as st
+
+    dev = None if mesh is not None else torch.device(DEVICE)
+    (xarg, wp, hp, info), prep = _timed(lambda: st._prepare_tiled(
+        tx, w, h, cfg, st._CHUNK, tx.tile_shape, dev, mesh=mesh))
+    return prep, _timed(lambda: st._run_tiled(xarg, wp, hp, cfg, info))[1]
+
+
+def _mp_psum_us(mesh, k, calls=2000):
+    """Host microseconds of one ``psum`` of a K-vector over 'mr' on the 1x1
+    mesh, where it makes no call."""
+    from nmf_tpu_torch.parallel.mesh import ROW_AXIS, psum
+
+    t = torch.zeros(k, device=DEVICE)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        psum(t, mesh, ROW_AXIS)
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _mp_counts(fn):
+    """(fn(), host seconds, every kernel count): the counts set to 0 just
+    before ``fn`` and read just after."""
+    _reset_all()
+    res, secs = _timed(fn)
+    return res, secs, _all_counts()
+
+
+def _mp_want(**counts):
+    """Every count (``_all_counts``' keys), 0 unless given."""
+    return {key: counts.get(key, 0) for key in _all_counts()}
+
+
+def _mp_stream_want():
+    """K1/K2 ``numerator_only`` on every rank's piece of the one block, an
+    iteration; the cost plain (``kl_partial``), as in JAX."""
+    return _mp_want(update_h_numerator=MP_OOC_ITERS, update_w_numerator=MP_OOC_ITERS)
+
+
+def _mp_tiled_want(k5: bool):
+    n = MP_TILED_ITERS if k5 else 0
+    return _mp_want(**{"K5 h_numerator": n, "K5 w_numerator": n})
+
+
+def _mp_batched_want():
+    """K1-K3 over a rank's members: one launch a call, whatever its members;
+    config 4 tracks no cost."""
+    return _mp_want(update_h=BATCH_ITERS, update_w=BATCH_ITERS)
+
+
+def _mp_restarts_want():
+    return _mp_want(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=SEL_ITERS // 25)
+
+
+def _mp_rel(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def _mp_fro(a, b):
+    a, b = (torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v) else v)) for v in (a, b))
+    return _rel_fro(a, b)
+
+
+def _mp_hold(where, cost, cost_ref, pairs, cost_rtol=MP_COST_RTOL):
+    """Check a result against its twin: cost relative, factors relative
+    Frobenius; returns the numbers."""
+    rel = _mp_rel(cost, cost_ref)
+    fro = [_mp_fro(a, b) for a, b in pairs]
+    check(rel <= cost_rtol and max(fro, default=0.0) <= MP_FRO,
+          f"{where}: cost rel {rel} (limit {cost_rtol}), rel Frobenius {fro} (limit {MP_FRO})")
+    return {"cost_rel": rel, "fro": fro}
+
+
+def _mp_state_bits(a, b) -> bool:
+    return all(np.asarray(getattr(a, f)).tobytes() == np.asarray(getattr(b, f)).tobytes()
+               for f in ("w", "h", "iteration")) and list(a.cost_history) == list(b.cost_history)
+
+
+def _mp_ckpt(mesh, x, w, h, cfg, d, sharded):
+    """The checkpointed reference solve on ``mesh``: uninterrupted, and
+    stopped at half and resumed; (state, resumed-equals-uninterrupted)."""
+    from nmf_tpu_torch.utils.checkpoint import solve_with_checkpoints
+
+    whole = solve_with_checkpoints(x, w, h, cfg, os.path.join(d, "whole"), every=MP_CKPT_EVERY,
+                                   mesh=mesh, sharded_checkpoints=sharded)
+    half = dataclasses.replace(cfg, max_iter=cfg.max_iter // 2)
+    solve_with_checkpoints(x, w, h, half, os.path.join(d, "parts"), every=MP_CKPT_EVERY,
+                           mesh=mesh, sharded_checkpoints=sharded)
+    again = solve_with_checkpoints(x, w, h, cfg, os.path.join(d, "parts"), every=MP_CKPT_EVERY,
+                                   mesh=mesh, sharded_checkpoints=sharded)
+    return whole, _mp_state_bits(again, whole)
+
+
+def _mp_paths_rank_main(rank: int, d: str) -> int:
+    """One of 18g's four ranks on ``cuda:0`` over gloo (``chip_smoke.py
+    --mesh-paths-rank R --mesh-dir D``): on a 1x4 mesh the streamed solve
+    (K1/K2 ``numerator_only``), its transform and the online learner; on a
+    2x2 mesh the tiled solve under ``auto`` (K5) and on the plain sweeps,
+    config 4's batch (K1-K3, 32 members a rank), the R = 16 restarts (8
+    members a rank over 'mr') and the checkpointed reference solve,
+    gathered and sharded.  Its counts to ``D/rank<R>.json``; rank 0's
+    results to ``D/paths.npz``.  The rank leaves through
+    ``parallel.mesh.shutdown`` and exits normally."""
+    import torch.distributed as dist
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.parallel.mesh import BOTH, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank, world_size=4)
+    cfgs = _mp_configs()
+    rec, arrays = {}, {}
+    row = nt.make_mesh((1, 4), device=DEVICE)
+    x, w, h = _mp_stream_problem(0)
+    res, secs, counts = _mp_counts(lambda: nt.solve_out_of_core(
+        x, w, h, cfgs["stream"], block_n=MP_OOC[1], mesh=row))
+    rec["stream"] = {"counts": counts, "seconds": secs, "cost": float(res.cost)}
+    arrays.update(stream_w=res.w.cpu().numpy(), stream_h=res.h.cpu().numpy())
+    tr, secs, _ = _mp_counts(lambda: nt.transform_out_of_core(
+        x, w, config=cfgs["transform"], block_n=MP_TR_BLOCK, mesh=row))
+    rec["transform"] = {"seconds": secs, "cost": float(tr.cost)}
+    arrays["transform_h"] = tr.h
+    on, secs, counts = _mp_counts(lambda: nt.solve_online(
+        x, w, cfgs["online"], block_n=MP_ONLINE_BLOCK, inner_iters=MP_ONLINE_INNER, mesh=row))
+    rec["online"] = {"counts": counts, "seconds": secs}
+    arrays.update(online_w=on.w, online_curve=on.learning_curve)
+    del x, w, h
+    grid = nt.make_mesh((2, 2), device=DEVICE)
+    tx, w, h = _mp_tiled()
+    for backend in ("auto", "jnp"):
+        cfg = dataclasses.replace(cfgs["tiled"], backend=backend)
+        res, secs, counts = _mp_counts(lambda: nt.solve_sparse_tiled(tx, w, h, cfg, mesh=grid))
+        full = nt.gather_result(res, grid)
+        rec[f"tiled {backend}"] = {"counts": counts, "seconds": secs, "cost": float(res.cost)}
+        arrays.update({f"tiled_{backend}_w": full.w.cpu().numpy(),
+                       f"tiled_{backend}_h": full.h.cpu().numpy()})
+    del tx, w, h
+    xs, ws, hs = _mp_batch(0)
+    res, secs, counts = _mp_counts(lambda: nt.solve_batched(xs, ws, hs, cfgs["batched"],
+                                                            mesh=grid))
+    full = nt.gather_result(res, grid, w_spec=(BOTH, None, None), h_spec=(BOTH, None, None))
+    rec["batched"] = {"counts": counts, "seconds": secs, "members": int(res.w.shape[0]),
+                      "iterations": res.iterations.tolist()}
+    arrays.update(batched_w=full.w.cpu().numpy(), batched_h=full.h.cpu().numpy())
+    del xs, ws, hs, res, full
+    xsel = _sel_problem(0)
+    sel, secs, counts = _mp_counts(lambda: nt.solve_restarts(
+        xsel, rank=SEL_SHAPE[2], n_restarts=SEL_RESTARTS, config=cfgs["restarts"], seed=0,
+        mesh=grid))
+    rec["restarts"] = {"counts": counts, "seconds": secs, "costs": sel.costs.tolist(),
+                       "best": sel.best_index}
+    x, w, h, _ = _mesh_reference()
+    for sharded in (False, True):
+        tag = "sharded" if sharded else "gathered"
+        cd = os.path.join(d, f"ckpt_{tag}")
+        (state, bits), secs, _ = _mp_counts(lambda: _mp_ckpt(grid, x, w, h, cfgs["reference"],
+                                                             cd, sharded))
+        rec[f"ckpt {tag}"] = {"seconds": secs, "bitwise": bits, "cost": state.cost_history[-1]}
+        if not sharded:
+            arrays.update(ckpt_w=state.w, ckpt_h=state.h)
+    if rank == 0:
+        np.savez(os.path.join(d, "paths.npz"), **arrays)
+    pathlib.Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    shutdown()
+    return 0
+
+
+def _mp_spawn(d: str, flag: str, seconds: float):
+    """Four ``chip_smoke.py`` ranks with ``flag`` on the card; (wall
+    seconds, each rank's record), or a failed check with the tail of the
+    first failing rank's log."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(4)]
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), flag, str(r),
+                               "--mesh-dir", d], stdout=logs[r], stderr=subprocess.STDOUT,
+                              env=env) for r in range(4)]
+    t0 = time.perf_counter()
+    failed = None
+    while failed is None and any(p.poll() is None for p in procs):
+        failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+        if time.perf_counter() > t0 + seconds:
+            failed = "timeout"
+        time.sleep(0.1)
+    if failed is None:
+        failed = next((r for r, p in enumerate(procs) if p.returncode != 0), None)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+    wall = time.perf_counter() - t0
+    if failed is not None:
+        r = 0 if failed == "timeout" else failed
+        tail = pathlib.Path(d, f"rank{r}.log").read_text()[-3000:]
+        check(False, f"{flag}: rank group failed ({failed}):\n{tail}")
+    return wall, [json.loads(pathlib.Path(d, f"rank{r}.json").read_text()) for r in range(4)]
+
+
+def _mp_turns(mesh_fn, single_fn, iters):
+    """it/s of the mesh and the single-device run in turns: mesh, single,
+    single, mesh."""
+    secs_m, secs_s = [], []
+    for fn, acc in ((mesh_fn, secs_m), (single_fn, secs_s), (single_fn, secs_s),
+                    (mesh_fn, secs_m)):
+        acc.append(_timed(fn)[1])
+    return [iters / s for s in secs_m], [iters / s for s in secs_s]
+
+
+def _mp_1x1(card, out, tmp):
+    """(f) every new mesh path on the in-process 1x1 NCCL mesh, each against
+    its single-device twin; returns the twins 18g is held to."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.parallel.mesh import BOTH
+
+    cfgs = _mp_configs()
+    mesh = nt.make_mesh((1, 1), device=DEVICE)
+    rec = out["mesh"]["paths"] = {"card": card}
+    twins = {}
+    x, w, h = _mp_stream_problem(0)
+    bn = MP_OOC[1]
+    mesh_fn = lambda: nt.solve_out_of_core(x, w, h, cfgs["stream"], block_n=bn, mesh=mesh)  # noqa: E731
+    single_fn = lambda: nt.solve_out_of_core(x, w, h, cfgs["stream"], block_n=bn,  # noqa: E731
+                                             device=DEVICE)
+    res, secs, counts = _mp_counts(mesh_fn)
+    want = _mp_stream_want()
+    check(counts == want, f"18f streamed 1x1: counts {counts}, expected {want}")
+    out["launches"]["mesh paths 1x1 streamed"] = counts
+    single, s_secs = _timed(single_fn)
+    twins["stream"] = single
+    held = _mp_hold("18f streamed 1x1", res.cost, single.cost,
+                    [(res.w, single.w), (res.h, single.h)])
+    its_m, its_s = _mp_turns(mesh_fn, single_fn, MP_OOC_ITERS)
+    rec["streamed 1x1"] = {"launches": counts, **held, "its_mesh": [MP_OOC_ITERS / secs] + its_m,
+                           "its_single": [MP_OOC_ITERS / s_secs] + its_s}
+    print(f"[{card}] 18f streamed {MP_OOC[0]}x{MP_OOC[1]} K={MP_OOC[2]} on the 1x1 NCCL mesh, "
+          f"pallas, {MP_OOC_ITERS} iterations: K1/K2 numerator_only "
+          f"{counts['update_h_numerator']}/{counts['update_w_numerator']}, full K1 "
+          f"{counts['update_h']}, K3 {counts['kl_cost']}; {held} to the single-device streamed "
+          f"solve; it/s mesh {rec['streamed 1x1']['its_mesh']} against single-device "
+          f"{rec['streamed 1x1']['its_single']}")
+    tr_cfg = cfgs["transform"]
+    tr, t_secs, _ = _mp_counts(lambda: nt.transform_out_of_core(
+        x, w, config=tr_cfg, block_n=MP_TR_BLOCK, mesh=mesh))
+    tr1, t1_secs = _timed(lambda: nt.transform_out_of_core(x, w, config=tr_cfg,
+                                                           block_n=MP_TR_BLOCK, device=DEVICE))
+    twins["transform"] = tr1
+    held = _mp_hold("18f transform 1x1", tr.cost, tr1.cost, [(tr.h, tr1.h)])
+    rec["transform 1x1"] = {**held, "seconds_mesh": t_secs, "seconds_single": t1_secs}
+    print(f"[{card}] 18f transform_out_of_core on the 1x1 mesh (block {MP_TR_BLOCK}, "
+          f"{MP_TR_ITERS} iterations a block): {held} to the single-device transform; "
+          f"{t_secs} s against {t1_secs} s")
+    on_fn = lambda m_: nt.solve_online(x, w, cfgs["online"], block_n=MP_ONLINE_BLOCK,  # noqa: E731
+                                       inner_iters=MP_ONLINE_INNER, mesh=m_, device=DEVICE)
+    on, o_secs, counts = _mp_counts(lambda: on_fn(mesh))
+    check(counts == _mp_want(), f"18f online 1x1: counts {counts}, expected none")
+    on1, o1_secs = _timed(lambda: on_fn(None))
+    twins["online"] = on1
+    held = _mp_hold("18f online 1x1", on.learning_curve[-1], on1.learning_curve[-1],
+                    [(on.w, on1.w)])
+    blocks = len(on.blocks)
+    rec["online 1x1"] = {**held, "blocks_per_s_mesh": blocks / o_secs,
+                         "blocks_per_s_single": blocks / o1_secs}
+    print(f"[{card}] 18f online on the 1x1 mesh ({blocks} blocks of {MP_ONLINE_BLOCK}): no "
+          f"launch (plain, as JAX); {held} to the single-device learner; "
+          f"{blocks / o_secs} blocks/s against {blocks / o1_secs}")
+    del x, w, h, res, single
+    torch.cuda.empty_cache()
+    tx, w, h = _mp_tiled()
+    for backend in ("auto", "jnp"):
+        cfg = dataclasses.replace(cfgs["tiled"], backend=backend)
+        for kw in (dict(device=DEVICE), dict(mesh=mesh)):      # warm both
+            nt.solve_sparse_tiled(tx, w, h, dataclasses.replace(cfg, max_iter=2), **kw)
+        res, secs, counts = _mp_counts(lambda: nt.solve_sparse_tiled(tx, w, h, cfg, mesh=mesh))
+        want = _mp_tiled_want(backend == "auto")
+        check(counts == want, f"18f tiled 1x1 {backend}: counts {counts}, expected {want}")
+        out["launches"][f"mesh paths 1x1 tiled {backend}"] = counts
+        one, one_secs = _timed(lambda: nt.solve_sparse_tiled(tx, w, h, cfg, device=DEVICE))
+        twins[f"tiled {backend}"] = one
+        held = _mp_hold(f"18f tiled 1x1 {backend}", res.cost, one.cost,
+                        [(res.w, one.w), (res.h, one.h)])
+        bits = all(torch.equal(_bits(getattr(res, f)), _bits(getattr(one, f))) for f in "wh")
+        split = {"mesh": [], "single": []}
+        for tag in ("mesh", "single", "single", "mesh"):
+            split[tag].append(_mp_tiled_split(tx, w, h, cfg, mesh if tag == "mesh" else None))
+        psum_us = _mp_psum_us(mesh, w.shape[1])
+        rec[f"tiled 1x1 {backend}"] = {"launches": counts, **held, "bitwise_single": bits,
+                                       "its_mesh": MP_TILED_ITERS / secs,
+                                       "its_single": MP_TILED_ITERS / one_secs,
+                                       "prepare_loop_s_mesh": split["mesh"],
+                                       "prepare_loop_s_single": split["single"],
+                                       "psum_host_us": psum_us}
+        print(f"[{card}] 18f tiled {tx.shape[0]}^2 K={w.shape[1]}, {tx.tiles.shape[0]} tiles on "
+              f"the 1x1 mesh, {backend}: K5 {counts['K5 h_numerator']}/"
+              f"{counts['K5 w_numerator']}; {held} to the single-device tiled solve (bitwise "
+              f"{bits}); {MP_TILED_ITERS / secs} it/s against {MP_TILED_ITERS / one_secs}; "
+              f"(prepare s, loop s) in turns mesh {split['mesh']} single {split['single']}; "
+              f"a K-sized psum over one axis of the 1x1 mesh {psum_us} us of host time")
+    del tx, w, h
+    xs, ws, hs = _mp_batch(0)
+    b = xs.shape[0]
+    nt.solve_batched(xs[:2], ws[:2], hs[:2], dataclasses.replace(cfgs["batched"], max_iter=2),
+                     device=DEVICE)
+    res, secs, counts = _mp_counts(lambda: nt.solve_batched(xs, ws, hs, cfgs["batched"],
+                                                            mesh=mesh))
+    want = _mp_batched_want()
+    check(counts == want, f"18f batched 1x1: counts {counts}, expected {want}")
+    out["launches"]["mesh paths 1x1 batched"] = counts
+    one, one_secs = _timed(lambda: nt.solve_batched(xs, ws, hs, cfgs["batched"], device=DEVICE))
+    twins["batched"] = one
+    bits = torch.equal(_bits(res.w), _bits(one.w)) and torch.equal(_bits(res.h), _bits(one.h))
+    fro = max(_mp_fro(res.w[i], one.w[i]) for i in BATCH_CHECK)
+    check(fro <= MP_FRO, f"18f batched 1x1: member rel Frobenius {fro} to the single device")
+    rec["batched 1x1"] = {"launches": counts, "bitwise_single": bits, "fro": fro,
+                          "problem_its_mesh": b * BATCH_ITERS / secs,
+                          "problem_its_single": b * BATCH_ITERS / one_secs}
+    print(f"[{card}] 18f config 4 batch ({b} x {BATCH_SHAPE[1]}x{BATCH_SHAPE[2]} K="
+          f"{BATCH_SHAPE[3]}) on the 1x1 mesh, pallas: K1/K2/K3 {counts['update_h']}/"
+          f"{counts['update_w']}/{counts['kl_cost']}; bitwise to the single-device batch {bits}; "
+          f"{b * BATCH_ITERS / secs} problem-it/s against {b * BATCH_ITERS / one_secs}")
+    del xs, ws, hs, res
+    xsel = _sel_problem(0)
+    one = nt.solve_restarts(xsel, rank=SEL_SHAPE[2], n_restarts=SEL_RESTARTS,
+                            config=cfgs["restarts"], seed=0, device=DEVICE)
+    twins["restarts"] = one
+    x, w, h, _ = _mesh_reference()
+    cfg = cfgs["reference"]
+    single = nt.solve(x, w, h, cfg, device=DEVICE)
+    twins["reference"] = single
+    for sharded in (False, True):
+        tag = "sharded" if sharded else "gathered"
+        (state, bits), secs, counts = _mp_counts(lambda: _mp_ckpt(
+            mesh, x, w, h, cfg, os.path.join(tmp, f"ckpt_{tag}"), sharded))
+        check(bits, f"18f checkpoints 1x1 {tag}: the resumed run differs from the uninterrupted")
+        held = _mp_hold(f"18f checkpoints 1x1 {tag}", state.cost_history[-1], single.cost,
+                        [(state.w, single.w), (state.h, single.h)])
+        rec[f"ckpt 1x1 {tag}"] = {**held, "bitwise_resume": bits, "seconds": secs,
+                                  "launches": counts}
+        print(f"[{card}] 18f checkpointed reference solve on the 1x1 mesh ({tag}, every "
+              f"{MP_CKPT_EVERY}; uninterrupted, then half and resumed): resume bit-equal; "
+              f"{held} to the single-device solve; {secs} s for the three runs; launches "
+              f"{counts['update_h_numerator']}/{counts['update_w_numerator']} numerator_only")
+    from nmf_tpu_torch.parallel.mesh import shutdown
+
+    shutdown()       # make_mesh's one-rank NCCL group
+    return twins
+
+
+def _mp_4(card, out, twins):
+    """(g) four gloo ranks on the card, one launch: 1x4 streamed, transform
+    and online; 2x2 tiled, batched, restarts and checkpoints."""
+    with tempfile.TemporaryDirectory(prefix="nmf_mesh_paths_") as d:
+        wall, recs = _mp_spawn(d, "--mesh-paths-rank", MP_RANK_SECONDS)
+        got = dict(np.load(os.path.join(d, "paths.npz")))
+    rec = out["mesh"]["paths"]
+    for r, rr in enumerate(recs):
+        checks = (("stream", _mp_stream_want()), ("online", _mp_want()),
+                  ("tiled auto", _mp_tiled_want(True)), ("tiled jnp", _mp_tiled_want(False)),
+                  ("batched", _mp_batched_want()),
+                  ("restarts", _mp_restarts_want()))
+        for tag, want in checks:
+            check(rr[tag]["counts"] == want,
+                  f"18g rank {r} {tag}: counts {rr[tag]['counts']}, expected {want}")
+        check(rr["batched"]["members"] == BATCH_SHAPE[0] // 4,
+              f"18g rank {r}: {rr['batched']['members']} batched members")
+        for tag in ("ckpt gathered", "ckpt sharded"):
+            check(rr[tag]["bitwise"], f"18g rank {r} {tag}: the resume differs in bits")
+    for tag in ("stream", "transform", "tiled auto", "tiled jnp", "ckpt gathered",
+                "ckpt sharded"):
+        costs = {rr[tag]["cost"] for rr in recs}
+        check(len(costs) == 1, f"18g {tag}: costs differ across ranks: {costs}")
+    r0 = recs[0]
+    st = twins["stream"]
+    held = {"streamed 1x4": _mp_hold("18g streamed 1x4", r0["stream"]["cost"], st.cost,
+                                     [(got["stream_w"], st.w), (got["stream_h"], st.h)]),
+            "transform 1x4": _mp_hold("18g transform 1x4", r0["transform"]["cost"],
+                                      twins["transform"].cost,
+                                      [(got["transform_h"], twins["transform"].h)]),
+            "online 1x4": _mp_hold("18g online 1x4", got["online_curve"][-1],
+                                   twins["online"].learning_curve[-1],
+                                   [(got["online_w"], twins["online"].w)]),
+            # the K5 grid against the same grid on the plain sweeps
+            "tiled 2x2": _mp_hold("18g tiled 2x2 auto vs jnp", r0["tiled auto"]["cost"],
+                                  r0["tiled jnp"]["cost"],
+                                  [(got["tiled_auto_w"], got["tiled_jnp_w"]),
+                                   (got["tiled_auto_h"], got["tiled_jnp_h"])], MP_TILED_RTOL),
+            "ckpt 2x2": _mp_hold("18g checkpoints 2x2", r0["ckpt gathered"]["cost"],
+                                 twins["reference"].cost,
+                                 [(got["ckpt_w"], twins["reference"].w),
+                                  (got["ckpt_h"], twins["reference"].h)])}
+    one = twins["batched"]
+    bfro = max(_mp_fro(got["batched_w"][i], one.w[i]) for i in BATCH_CHECK)
+    check(bfro <= MP_FRO, f"18g batched 2x2: member rel Frobenius {bfro} to the single device")
+    bbits = (np.asarray(got["batched_w"]).tobytes() == one.w.cpu().numpy().tobytes()
+             and np.asarray(got["batched_h"]).tobytes() == one.h.cpu().numpy().tobytes())
+    sel = twins["restarts"]
+    srel = float(np.max(np.abs(np.asarray(r0["restarts"]["costs"]) - sel.costs)
+                        / np.abs(sel.costs)))
+    check(srel <= MP_COST_RTOL and r0["restarts"]["best"] == sel.best_index,
+          f"18g restarts 2x2: costs rel {srel}, best {r0['restarts']['best']} against "
+          f"{sel.best_index}")
+    its = {"streamed 1x4": MP_OOC_ITERS / max(rr["stream"]["seconds"] for rr in recs),
+           "tiled 2x2 auto": MP_TILED_ITERS / max(rr["tiled auto"]["seconds"] for rr in recs),
+           "tiled 2x2 jnp": MP_TILED_ITERS / max(rr["tiled jnp"]["seconds"] for rr in recs),
+           "batched 2x2 problem": BATCH_SHAPE[0] * BATCH_ITERS / max(
+               rr["batched"]["seconds"] for rr in recs)}
+    for tag, key in (("stream", "mesh paths 1x4 streamed"), ("tiled auto", "mesh paths 2x2 tiled"),
+                     ("batched", "mesh paths 2x2 batched"),
+                     ("restarts", "mesh paths 2x2 restarts")):
+        out["launches"][key] = r0[tag]["counts"]
+    rec["four ranks"] = {**held, "batched_fro": bfro, "batched_bitwise_single": bbits,
+                         "restarts_cost_rel": srel, "its": its, "wall_s": wall,
+                         "rank_launches": {tag: [rr[tag]["counts"] for rr in recs]
+                                           for tag in ("stream", "tiled auto", "batched",
+                                                       "restarts")}}
+    print(f"[{card}] 18g four gloo ranks on cuda:0, one launch ({wall} s): streamed 1x4 every "
+          f"rank K1/K2 numerator_only {MP_OOC_ITERS}/{MP_OOC_ITERS}; online no launch; tiled "
+          f"2x2 auto every rank K5 {MP_TILED_ITERS}/{MP_TILED_ITERS}, jnp none; config 4 on 2x2 "
+          f"{BATCH_SHAPE[0] // 4} members a rank, K1/K2 {BATCH_ITERS}/{BATCH_ITERS} a rank "
+          f"(bitwise to the single-device batch {bbits}, member rel Frobenius {bfro}); R = "
+          f"{SEL_RESTARTS} restarts over 'mr' ({SEL_RESTARTS // 2} a rank) K1/K2/K3 "
+          f"{SEL_ITERS}/{SEL_ITERS}/{SEL_ITERS // 25} a rank, costs rel {srel}; checkpoints "
+          f"2x2 gathered and sharded: every resume bit-equal; held {json.dumps(held)}; it/s "
+          f"{json.dumps(its)}")
+
+
+def _mp_cli_commands():
+    """(name, torchrun arguments, files it writes) of 18h's six runs."""
+    run = ["run", "X.bin", "W.bin", "H.bin"]
+    return {
+        "run_ooc": run + ["-o", "Wo.bin", "Ho.bin", "--mesh", "1x1", "--out-of-core",
+                          "--block-n", "128"],
+        "run_ckpt": run + ["-o", "Wc.bin", "Hc.bin", "--mesh", "1x1", "--checkpoint-dir", "ck",
+                           "--checkpoint-every", "50"],
+        "run_online": ["run", "X.bin", "W.bin", "-o", "Wl.bin", "Hl.bin", "--mesh", "1x1",
+                       "--online", "--block-n", "128"],
+        "run_restarts": ["run", "X.bin", "--rank", "16", "--restarts", "4", "-o", "Wr.bin",
+                         "Hr.bin", "--mesh", "1x1"],
+        "select": ["select", "X.bin", "--ranks", "8,16", "--restarts", "2", "--mesh", "1x1",
+                   "--jsonl", "sel.jsonl"],
+        "batch": ["batch", "d", "--rank", "8", "--max-iter", "20", "--out-dir", "bout",
+                  "--mesh", "1x1"],
+    }
+
+
+def _mp_cli(card, out, tmp):
+    """(h) the CLI's mesh runs under ``torch.distributed.run`` (one rank
+    each, all six at once), each against the same call in process on a 1x1
+    mesh."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import binio
+    from nmf_tpu_torch.parallel.mesh import FlatMesh, shutdown
+
+    nt.fixtures.write_reference_fixtures(tmp)
+    os.makedirs(os.path.join(tmp, "d"), exist_ok=True)
+    x = binio.read_matrix(os.path.join(tmp, "X.bin"))
+    for i in range(2):
+        binio.write_matrix(x[:, i * 100:(i + 1) * 100], os.path.join(tmp, "d", f"m{i}.bin"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    cmds = _mp_cli_commands()
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "nmf_tpu_torch", *args, "-q"],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in cmds.items()}
+    errs = {name: p.communicate(timeout=300)[1] for name, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for name, p in procs.items():
+        check(p.returncode == 0, f"18h {name}: exit {p.returncode}: {errs[name][-2000:]}")
+    # the same calls in process, on a 1x1 mesh, each with the config its
+    # command line gives
+    from nmf_tpu_torch import cli as ncli
+
+    mesh = nt.make_mesh((1, 1), device=DEVICE)
+    w, h = (binio.read_matrix(os.path.join(tmp, f)) for f in ("W.bin", "H.bin"))
+    cfg = ncli._config(ncli.build_parser().parse_args(cmds["run_ooc"]))
+    read = lambda f: binio.read_matrix(os.path.join(tmp, f))  # noqa: E731
+    from nmf_tpu_torch.utils.checkpoint import solve_with_checkpoints
+
+    ooc = nt.solve_out_of_core(os.path.join(tmp, "X.bin"), w, h, cfg, block_n=128, mesh=mesh)
+    ck = solve_with_checkpoints(x, w, h, cfg, os.path.join(tmp, "ck_in"), every=50, mesh=mesh)
+    on = nt.solve_online(os.path.join(tmp, "X.bin"), w, cfg, block_n=128, mesh=mesh)
+    sel = nt.solve_restarts(x, rank=16, n_restarts=4, config=cfg, seed=0,
+                            mesh=FlatMesh(mesh, "b"))
+    sw = nt.solve_rank_sweep(x, [8, 8, 16, 16], ncli._config(ncli.build_parser().parse_args(
+        cmds["select"])), seed=0, mesh=FlatMesh(mesh, "members"))
+    xs = np.stack([read(os.path.join("d", f"m{i}.bin")) for i in range(2)])
+    rng = np.random.RandomState(0)
+    ws = rng.rand(2, xs.shape[1], 8).astype(np.float32)
+    hs = rng.rand(2, 8, xs.shape[2]).astype(np.float32)
+    bt = nt.solve_batched(xs, ws, hs, ncli._config(ncli.build_parser().parse_args(cmds["batch"])),
+                          mesh=FlatMesh(mesh, "batch"))
+    shutdown()
+    pairs = {"run_ooc": [(read("Wo.bin"), ooc.w), (read("Ho.bin"), ooc.h)],
+             "run_ckpt": [(read("Wc.bin"), ck.w), (read("Hc.bin"), ck.h)],
+             "run_online": [(read("Wl.bin"), on.w)],
+             "run_restarts": [(read("Wr.bin"), sel.best[0]), (read("Hr.bin"), sel.best[1])],
+             "batch": [(read("bout/m0.W.bin"), bt.w[0]), (read("bout/m1.H.bin"), bt.h[1])]}
+    rec = {}
+    for name, ps in pairs.items():
+        fro = [_mp_fro(a, b) for a, b in ps]
+        same = all(np.asarray(a).tobytes() == np.asarray(b.cpu() if torch.is_tensor(b) else b,
+                                                         np.float32).tobytes() for a, b in ps)
+        check(max(fro) <= MP_CLI_FRO, f"18h {name}: rel Frobenius {fro} to the in-process run")
+        rec[name] = {"fro": fro, "bytes_equal": same}
+    got = json.loads(pathlib.Path(tmp, "sel.jsonl").read_text().splitlines()[-1])
+    costs = sw.costs
+    want = {str(k): float(np.min(costs[np.asarray(sw.ranks) == k])) for k in (8, 16)}
+    srel = max(abs(got["best_cost_per_rank"][k] - v) / abs(v) for k, v in want.items())
+    check(srel <= MP_COST_RTOL,
+          f"18h select: best costs {got['best_cost_per_rank']} against {want}")
+    rec["select"] = {"cost_rel": srel}
+    out["mesh"]["paths"]["cli"] = {"runs": rec, "wall_s": wall}
+    print(f"[{card}] 18h torch.distributed.run --nproc-per-node 1, six at once ({wall} s): "
+          f"run --mesh 1x1 with --out-of-core, --checkpoint-dir, --online, --restarts, select "
+          f"--mesh 1x1, batch --mesh 1x1: every exit 0, each output against the same call in "
+          f"process: {json.dumps(rec)}")
+
+
+_MP_RUNS = ("mesh paths 1x1 streamed", "mesh paths 1x4 streamed", "mesh paths 1x1 tiled auto",
+            "mesh paths 2x2 tiled", "mesh paths 1x1 batched", "mesh paths 2x2 batched",
+            "mesh paths 2x2 restarts")
+
+
+def _mesh_paths_launches(launches, name):
+    """A kernel's launches on 18f-18g's runs (on the four-rank grids, each
+    rank's): K1/K2 their ``numerator_only`` launches on the streamed runs
+    and their full ones on the batched and restart runs, K3 its own, K5
+    its own on the tiled runs."""
+    def key(run):
+        if name in ("h_numerator", "w_numerator"):
+            return f"K5 {name}"
+        if "streamed" in run and name in ("update_h", "update_w"):
+            return f"{name}_numerator"
+        return name
+
+    return {run: launches.get(run, {}).get(key(run), 0) for run in _MP_RUNS}
+
+
 def phase_mesh(card, tmp, out):
-    """18: the mesh and the sharded solves (ROADMAP.md Queue 1 step 12a)."""
+    """18: the mesh and the sharded solves (ROADMAP.md Queue 1 step 12a), then
+    the streamed, tiled, batched, online and checkpointed solves on a mesh
+    and the CLI's mesh runs (step 12b: (f)-(h))."""
     import nmf_tpu_torch as nt
 
     print(f"[{card}] phase 18: the mesh: 1x1 NCCL in-process (reference, flagship), 2x2 on "
           "four gloo ranks, the CLI under torch.distributed.run, K1/K2 numerator_only at the "
-          "mesh's shapes")
+          "mesh's shapes; then every other path on a mesh: 1x1 in process, 1x4 and 2x2 on "
+          "four gloo ranks, the CLI's mesh runs")
     out["mesh"] = {}
     x, w, h, cfg = _mesh_reference()
     for c in (cfg, dataclasses.replace(cfg, max_iter=2)):    # warm the single-device path
@@ -5053,9 +5670,18 @@ def phase_mesh(card, tmp, out):
     cfg8 = dataclasses.replace(cfg, backend="jnp", precision=nt.Precision(x_dtype="int8"))
     _mesh_2x2(card, out, ref, nt.solve(x, w, h, cfg8, device="cuda"))
     mesh_w = nt.gather_result(nt.solve_sharded(x, w, h, cfg, mesh=mesh), mesh).w
-    torch.distributed.destroy_process_group()   # make_mesh's one-rank NCCL group
+    from nmf_tpu_torch.parallel.mesh import shutdown
+
+    shutdown()   # make_mesh's one-rank NCCL group
     _mesh_cli(card, out, tmp, mesh_w)
     _mesh_numerators(card, out)
+    # step 12b's paths: the streamed, transform, online, tiled, batched,
+    # restart and checkpointed solves on a mesh, and the CLI's
+    with tempfile.TemporaryDirectory(prefix="nmf_mesh_paths_") as d:
+        twins = _mp_1x1(card, out, d)
+    _mp_4(card, out, twins)
+    with tempfile.TemporaryDirectory(prefix="nmf_mesh_paths_cli_") as d:
+        _mp_cli(card, out, d)
 
 
 def _mesh_launches(launches, name):
@@ -5076,17 +5702,15 @@ def main(argv=None) -> int:
                     help="phase backend: write its measured samples to this JSON file "
                     "(backend_rule.py pools the files of several sessions)")
     ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-paths-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.mesh_rank is not None:      # one of phase 18c's spawned ranks
         sys.path.insert(0, str(REPO))
-        code = _mesh_rank_main(args.mesh_rank, args.mesh_dir)
-        # its groups destroyed and its results written: leave without the
-        # interpreter's teardown, where a gloo rank has aborted ("terminate
-        # called without an active exception"; ROADMAP.md Queue 3 f)
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(code)
+        return _mesh_rank_main(args.mesh_rank, args.mesh_dir)
+    if args.mesh_paths_rank is not None:    # one of phase 18g's
+        sys.path.insert(0, str(REPO))
+        return _mp_paths_rank_main(args.mesh_paths_rank, args.mesh_dir)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -5212,6 +5836,8 @@ def main(argv=None) -> int:
             "utils_launches": _utils_launches(out["launches"], name),
             # phase 18: K1/K2 numerator_only (K3: none) on the mesh solves
             "mesh_launches": _mesh_launches(out["launches"], name),
+            # 18f-18g: the streamed, tiled, batched and restart solves on a mesh
+            "mesh_paths_launches": _mesh_paths_launches(out["launches"], name),
             # K1-K3: their launches on phase 12's H-only runs (K2: none)
             **({"transform_launches": _transform_launches(out["launches"], name),
                 "models_launches": _models_launches(out["launches"], name),

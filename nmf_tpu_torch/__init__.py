@@ -27,6 +27,9 @@ member (``solve_sparse_tiled_batched`` on the plain sweeps).
 on each rank's block, K-sized all-reduces), and so do ``mesh=`` of
 ``solve_h_only``, ``solve_semi``, ``solve_masked``, ``solve_masked_h_only``
 and ``NMF``; ``gather_result`` puts the global W and H on every rank.
+The streamed solve and transform, the online learner, the tile-sparse,
+batched and selection solves and the checkpointed solve take ``mesh=``
+too, each in the JAX package's layout.
 ``backend="auto"`` picks the kernels or cuBLAS per shape by the card's
 measured rule, ``"autotune"`` by a measurement cached on disk
 (``utils.autotune``).  ``solve_sparse`` (deprecated) factorizes COO

@@ -25,11 +25,12 @@
     python -m nmf_tpu_torch doctor --json         # is the card usable?
 
 The flags mirror ``python -m nmf_tpu``, and every flag of the JAX CLI's
-subcommands is parsed.  A combination the port lacks (``--mesh`` with
-``--out-of-core``, ``--online``, ``--restarts``, ``--checkpoint-dir``,
-``select`` or ``batch``) exits 2 naming the ROADMAP.md item that will
-bring it: a flag is never silently ignored.  Under ``--mesh`` every rank
-reads the input files and rank 0 reports and writes the gathered factors.
+subcommands is parsed: a flag is never silently ignored.  Under ``--mesh``
+(launched by ``python -m torch.distributed.run``) every rank reads the
+input files and rank 0 reports and writes the gathered factors;
+``--restarts``, ``select`` and ``batch`` read the mesh's ranks as one
+member axis, as the JAX CLI flattens its mesh.  A run leaves its process
+group through :func:`~nmf_tpu_torch.parallel.mesh.shutdown`.
 """
 
 from __future__ import annotations
@@ -63,18 +64,13 @@ from .models.streaming import (
 from .models.stability import rank_stability
 from .models.strict import solve_strict
 from .parallel.batched import solve_batched
-from .parallel.mesh import init_distributed, make_mesh
+from .parallel.mesh import BOTH, FlatMesh, axis_size, init_distributed, make_mesh, shutdown
 from .parallel.sharded import gather_result, solve_sharded
 from .utils.checkpoint import solve_with_checkpoints
 from .utils.config import Precision, SolveConfig
 from .utils.device import resolve_device
 from .utils.guards import validate_input, validate_result
 from .utils.metrics import MetricsLogger
-
-# where the --mesh combinations the JAX CLI has and the port lacks are queued
-_MESH_LATER = ("ROADMAP.md Queue 1 step 12b: the streamed, tiled, batched, online and "
-               "checkpointed solves on a mesh")
-
 
 def _parse_mesh_shape(spec: str):
     """ROWSxCOLS (e.g. '4x2') -> (rows, cols), with the JAX CLI's error."""
@@ -86,14 +82,6 @@ def _parse_mesh_shape(spec: str):
     if len(parts) != 2 or r < 1 or c < 1:
         raise ValueError(f"--mesh must be ROWSxCOLS with positive factors (e.g. 4x2), got {spec!r}")
     return r, c
-
-
-def _mesh_later(args, *flags) -> int:
-    """Exit 2 for ``--mesh`` with any of ``flags`` (name, set) that is set."""
-    for name, on in flags:
-        if args.mesh and on:
-            return _error(f"--mesh with {name} is not in the PyTorch port yet ({_MESH_LATER})")
-    return 0
 
 
 def _mesh_from(args, dev):
@@ -156,7 +144,7 @@ _LONE_INIT = ("provide BOTH initial W and H files, or neither plus --rank (a lon
               "init file would otherwise be silently ignored)")
 
 
-def _cmd_run_online(args, dev) -> int:
+def _cmd_run_online(args, dev, mesh) -> int:
     """run with --online: one-pass dictionary learning, then an out-of-core
     transform for H, X streamed from its .bin (``nmf_tpu/cli.py:211-290``)."""
     if args.strict_compat or args.checkpoint_dir or args.mask or args.freeze:
@@ -181,13 +169,15 @@ def _cmd_run_online(args, dev) -> int:
     else:
         return _error("provide a W init or --rank")
     config = _config(args)
-    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    logger = _logger(args, mesh)
     with logger.timed() as t:
         res = solve_online(args.X, w0, config, block_n=args.block_n,
                            inner_iters=args.online_inner_iters, rho=args.online_rho,
-                           passes=args.online_passes, seed=args.seed, device=dev)
+                           passes=args.online_passes, seed=args.seed, mesh=mesh, device=dev)
         tr = transform_out_of_core(args.X, res.w, config=config, block_n=args.block_n,
-                                   seed=args.seed, device=dev)
+                                   seed=args.seed, mesh=mesh, device=dev)
+    if not _lead(mesh):
+        return 0
     if args.validate:
         validate_input("W", res.w)
         validate_input("H", tr.h)
@@ -209,7 +199,7 @@ def _cmd_run_online(args, dev) -> int:
     return 0
 
 
-def _cmd_run_out_of_core(args, dev) -> int:
+def _cmd_run_out_of_core(args, dev, mesh) -> int:
     """run with --out-of-core: X (and a --mask) streamed from its .bin in
     column blocks, never loaded whole (``nmf_tpu/cli.py:293-368``)."""
     source = BinColumnSource(args.X)
@@ -228,17 +218,19 @@ def _cmd_run_out_of_core(args, dev) -> int:
         return _error("provide W and H files, or --rank")
     config = _config(args)
     mask = BinColumnSource(args.mask) if args.mask else None
-    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    logger = _logger(args, mesh)
     with logger.timed() as t:
         res = solve_out_of_core(source, w0, h0, config, block_n=args.block_n,
                                 checkpoint_dir=args.checkpoint_dir,
-                                checkpoint_every=args.checkpoint_every, mask=mask,
+                                checkpoint_every=args.checkpoint_every, mesh=mesh, mask=mask,
                                 n_frozen=args.freeze, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     logger.report(res, (m, n), t.seconds, check_every=config.check_every)
     if args.validate:
         validate_result(res)
+    if not _lead(mesh):
+        return 0
     _write_factors(res, args)
     if not args.quiet:
         gb = m * n * wire_itemsize(config.precision.x_dtype) / 1e9
@@ -259,10 +251,6 @@ def cmd_run(args) -> int:
     if args.strict_compat and args.mesh:
         return _error("--strict-compat is a single-device exact-replication mode "
                       "(no --mesh / --checkpoint-dir)")
-    rc = _mesh_later(args, ("--out-of-core", args.out_of_core), ("--online", args.online),
-                     ("--restarts", args.restarts > 1), ("--checkpoint-dir", args.checkpoint_dir))
-    if rc:
-        return rc
     if args.restarts > 1 and (args.out_of_core or args.online):
         return _error("--restarts batches whole in-memory solves (no --out-of-core / --online)")
     if args.online and args.out_of_core:
@@ -272,9 +260,9 @@ def cmd_run(args) -> int:
     dev = resolve_device(args.device)  # a missing card fails before any I/O
     mesh = _mesh_from(args, dev)
     if args.online:
-        return _cmd_run_online(args, dev)
+        return _cmd_run_online(args, dev, mesh)
     if args.out_of_core:
-        return _cmd_run_out_of_core(args, dev)
+        return _cmd_run_out_of_core(args, dev, mesh)
     x = binio.read_matrix(args.X)
     if bool(args.W) != bool(args.H):
         return _error(_LONE_INIT)
@@ -314,12 +302,12 @@ def cmd_run(args) -> int:
     if mask is not None and args.freeze:
         return _error("--freeze is not implemented for masked solves")
     if args.restarts > 1:
-        return _cmd_run_restarts(args, x, config, logger, mask, dev)
+        return _cmd_run_restarts(args, x, config, logger, mask, dev, mesh)
     if args.strict_compat and args.checkpoint_dir:
         return _error("--strict-compat is a single-device exact-replication mode "
                       "(no --mesh / --checkpoint-dir)")
     if args.checkpoint_dir:
-        return _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev)
+        return _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev, mesh)
     with logger.timed() as t:
         if mask is not None:
             res = solve_masked(x, w0, h0, mask, config, mesh=mesh, device=dev)
@@ -361,18 +349,21 @@ def _state_as_result(state) -> SolveResult:
     )
 
 
-def _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev) -> int:
+def _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev, mesh) -> int:
     """run with --checkpoint-dir: the solve in segments of
     --checkpoint-every iterations, each checkpointed, resumed from the
-    newest checkpoint there (``nmf_tpu/cli.py:548-570``)."""
+    newest checkpoint there (``nmf_tpu/cli.py:548-570``); on a mesh the
+    factors are gathered and rank 0 writes the .bin checkpoints."""
     with logger.timed() as t:
         state = solve_with_checkpoints(x, w0, h0, config, args.checkpoint_dir,
-                                       every=args.checkpoint_every, device=dev)
+                                       every=args.checkpoint_every, mesh=mesh, device=dev)
     res = _state_as_result(state)
     logger.report(res, x.shape, t.seconds, check_every=config.check_every,
                   check_iterations=state.check_iterations)
     if args.validate:
         validate_result(res)
+    if not _lead(mesh):
+        return 0
     w_path, h_path = args.output
     binio.write_matrix(state.w, w_path)
     binio.write_matrix(state.h, h_path)
@@ -383,14 +374,22 @@ def _cmd_run_checkpointed(args, x, w0, h0, config, logger, dev) -> int:
     return 0
 
 
-def _cmd_run_restarts(args, x, config, logger, mask, dev) -> int:
+def _cmd_run_restarts(args, x, config, logger, mask, dev, mesh) -> int:
     """run with --restarts N: N seeded solves in one batched solve, the
-    lowest-cost one written (``nmf_tpu/cli.py:458-523``)."""
+    lowest-cost one written (``nmf_tpu/cli.py:458-523``); on a mesh the
+    members split over all its ranks."""
     if not args.rank or args.W or args.H:
         return _error("--restarts generates its own seeded inits; use --rank (not W/H files)")
     if args.strict_compat or args.checkpoint_dir or mask is not None or args.freeze:
         return _error("--restarts composes with --mesh only (no --strict-compat / "
                       "--checkpoint-dir / --mask / --freeze)")
+    if mesh is not None:
+        # restarts are pure data parallelism over members: one flat axis
+        n_dev = axis_size(mesh, BOTH)
+        mesh = FlatMesh(mesh, "b")
+        if args.restarts % n_dev:
+            return _error(f"--restarts {args.restarts} must be a multiple of the mesh "
+                          f"device count {n_dev}")
     # the deterministic nndsvd variants would make identical members
     init = args.init if args.init in ("random", "scaled", "nndsvdar") else "scaled"
     if init != args.init and not args.quiet:
@@ -398,7 +397,7 @@ def _cmd_run_restarts(args, x, config, logger, mask, dev) -> int:
               "using 'scaled' with per-member seeds", file=sys.stderr)
     with logger.timed() as t:
         sel = solve_restarts(x, rank=args.rank, n_restarts=args.restarts, config=config,
-                             seed=args.seed, init=init, device=dev)
+                             seed=args.seed, init=init, mesh=mesh, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
     w_b, h_b = sel.best
@@ -406,6 +405,8 @@ def _cmd_run_restarts(args, x, config, logger, mask, dev) -> int:
     logger.report(res, x.shape, t.seconds, check_every=config.check_every)
     if args.validate:
         validate_result(res)
+    if mesh is not None and not _lead(mesh.mesh):
+        return 0
     if not args.quiet:
         costs = ", ".join(f"{c:.6g}" for c in sel.costs)
         print(f"[nmf] {args.restarts} restarts (seeds {args.seed}.."
@@ -425,9 +426,6 @@ def cmd_transform(args) -> int:
                       "solved in one visit; re-running re-does only unfinished work)")
     if args.strict_compat:
         return _error("--strict-compat is a full-solve replication mode (use 'run')")
-    rc = _mesh_later(args, ("--out-of-core", args.out_of_core))
-    if rc:
-        return rc
     dev = resolve_device(args.device)  # a missing card fails before any I/O
     mesh = _mesh_from(args, dev)
     config = _config(args)
@@ -438,8 +436,10 @@ def cmd_transform(args) -> int:
         mask = BinColumnSource(args.mask) if args.mask else None
         with logger.timed() as t:
             res = transform_out_of_core(args.X, w, h0=h0, config=config, block_n=args.block_n,
-                                        seed=args.seed, mask=mask, device=dev)
+                                        mesh=mesh, seed=args.seed, mask=mask, device=dev)
         h_out = res.h
+        if not _lead(mesh):
+            return 0
         if args.validate:
             validate_input("H", h_out)
             if config.track_cost and not np.isfinite(res.cost):
@@ -586,8 +586,6 @@ def _in_memory_only(args, what: str):
                        (args.block_n, "--block-n")):
         if flag:
             return _error(f"{name} is not supported for {what}")
-    if args.mesh:
-        return _error(f"--mesh is not in the PyTorch port yet for {what} ({_MESH_LATER})")
     return None
 
 
@@ -603,20 +601,26 @@ def cmd_select(args) -> int:
     if args.validate:
         validate_input("X", x)
     config = _config(args)
+    mesh2d = _mesh_from(args, dev)
+    # the member axis is pure data parallelism: all R*C ranks (cli.py:923-930)
+    mesh = None if mesh2d is None else FlatMesh(mesh2d, "members")
     ranks = _parse_ranks(args.ranks)
     restarts = args.restarts
     if args.stability:
         restarts = 4 if restarts is None else restarts
         st = rank_stability(x, ranks, n_restarts=restarts, config=config, seed=args.seed,
-                            init=args.init, device=dev)
+                            init=args.init, mesh=mesh, device=dev)
         sel, rec = st.sweep, st.best_rank()
     else:
         restarts = 1 if restarts is None else restarts
         if restarts < 1:
             raise ValueError(f"--restarts must be >= 1, got {restarts}")
         members = [r for r in ranks for _ in range(restarts)]
-        sel = solve_rank_sweep(x, members, config, seed=args.seed, init=args.init, device=dev)
+        sel = solve_rank_sweep(x, members, config, seed=args.seed, init=args.init, mesh=mesh,
+                               device=dev)
         st, rec = None, None
+    if not _lead(mesh2d):
+        return 0
     member_ranks = np.asarray(sel.ranks)
     costs = np.asarray(sel.costs, np.float64)
     per_rank = {r: float(np.min(costs[member_ranks == r])) for r in ranks}
@@ -677,12 +681,24 @@ def cmd_batch(args) -> int:
     rng = np.random.RandomState(args.seed)
     ws = rng.rand(b, m, args.rank).astype(np.float32)
     hs = rng.rand(b, args.rank, n).astype(np.float32)
+    mesh = _mesh_from(args, dev)
+    if mesh is not None:
+        # pure data parallelism over the batch: all R*C ranks (cli.py:1048-1063)
+        n_dev = axis_size(mesh, BOTH)
+        if b % n_dev:
+            return _error(f"batch of {b} matrices must be a multiple of the mesh device "
+                          f"count {n_dev}")
     config = _config(args)
-    logger = MetricsLogger(verbose=not args.quiet, jsonl_path=args.jsonl)
+    logger = _logger(args, mesh)
     with logger.timed() as t:
-        res = solve_batched(xs, ws, hs, config, device=dev)
+        res = solve_batched(xs, ws, hs, config, mesh=None if mesh is None else
+                            FlatMesh(mesh, "batch"), device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # time the run, not its enqueue
+    if mesh is not None:     # every member's factors, for rank 0 to write
+        res = gather_result(res, mesh, w_spec=(BOTH, None, None), h_spec=(BOTH, None, None))
+        if not _lead(mesh):
+            return 0
     os.makedirs(args.out_dir, exist_ok=True)
     w_all, h_all = (a.cpu().float().numpy() for a in (res.w, res.h))
     for i, path in enumerate(ds.paths):
@@ -969,17 +985,23 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     grouped = dist.is_initialized()
+    rc = 1
     try:
-        return args.fn(args)
+        rc = args.fn(args)
+        return rc
     except FileNotFoundError as e:
         print(f"error: file not found: {e.filename or e}", file=sys.stderr)
-        return 2
+        rc = 2
+        return rc
     except (NotImplementedError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
-        return 2
+        rc = 2
+        return rc
     finally:
         if dist.is_initialized() and not grouped:   # the group --mesh joined
-            dist.destroy_process_group()
+            # the ranks meet before they leave only when this one finished:
+            # a failed rank must not wait for peers still in a collective
+            shutdown(barrier=rc == 0)
 
 
 if __name__ == "__main__":

@@ -21,9 +21,10 @@ masked H-only solve (in memory, or streamed with ``out_of_core``).
 ``mesh=`` (a ``DeviceMesh`` of :func:`~nmf_tpu_torch.make_mesh`) runs the
 H-only solve and ``NMF``'s fit and transform sharded over the mesh's ranks
 (:mod:`nmf_tpu_torch.parallel.sharded`; every rank calls with the same
-inputs).  Not in the port yet, and refused with ``NotImplementedError``
-naming its ROADMAP.md item: ``NMF(mesh=)`` with ``n_restarts > 1`` or
-``transform(out_of_core=True)`` (Queue 1 step 12b).
+inputs).  With ``n_restarts > 1`` the mesh's ranks form one member axis
+(:class:`~nmf_tpu_torch.parallel.mesh.FlatMesh`), and
+``transform(out_of_core=True)`` streams onto the mesh
+(:func:`~nmf_tpu_torch.transform_out_of_core`).
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from ..utils.config import Precision, SolveConfig
 from ..utils.device import resolve_device
 from .init import nndsvd_init, random_init, scaled_random_init
 from .solver import (
-    _MESH,
     SolveResult,
     _dequant_wrap_cost,
     _dequant_wrap_step,
@@ -341,8 +341,6 @@ class NMF:
                 "honor explicit w0/h0 templates (all restarts would be "
                 "identical); pass n_restarts=1 or drop the templates"
             )
-        if self.mesh is not None and self.n_restarts > 1:
-            raise NotImplementedError(_MESH)
         if self.n_restarts > 1:
             return self._fit_restarts(x)
         if w0 is None or h0 is None:
@@ -386,9 +384,16 @@ class NMF:
                 f"{self.random_state}..{self.random_state + self.n_restarts - 1}",
                 stacklevel=3,
             )
+        mesh = self.mesh
+        if mesh is not None:
+            # restarts are pure data parallelism over members: the mesh's
+            # ranks read as one member axis (nmf.py:439-450 of JAX)
+            from ..parallel.mesh import FlatMesh, check_mesh
+
+            mesh = FlatMesh(check_mesh(mesh), "members")
         sel = solve_restarts(x, rank=self.n_components, n_restarts=self.n_restarts,
                              config=self._config(shape=x.shape), seed=self.random_state,
-                             init=init, device=self.device)
+                             init=init, mesh=mesh, device=self.device)
         best = sel.best_index
         w_b, h_b = sel.factors(best)
         self.w_ = _host(w_b)
@@ -428,16 +433,16 @@ class NMF:
         if self.w_ is None:
             raise RuntimeError("transform() before fit()")
         if out_of_core:
-            if self.mesh is not None:
-                raise NotImplementedError(_MESH)
             from .streaming import _as_source, transform_out_of_core
 
             # the regularization scaling takes the global dims
             shape = _as_source(x).shape
             res = transform_out_of_core(
                 x, self.w_, h0=h0, config=self._config(max_iter, shape=shape),
-                seed=self.random_state, mask=mask, device=self.device,
+                mesh=self.mesh, seed=self.random_state, mask=mask, device=self.device,
             )
+            if self.mesh is not None:
+                self._on_mesh(res)
             return res.h
         x = np.asarray(_host(x), np.float32)
         if h0 is None:

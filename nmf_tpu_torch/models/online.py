@@ -23,8 +23,15 @@ kernel would change the bits of the reference's plain step (ROADMAP.md,
 ``_BlockStream``, so the next block's fill overlaps this block's compute,
 and each block's cost (taken after its H fit, before its W step) is read
 back one block late.  Activations are not kept: run
-:func:`~nmf_tpu_torch.transform_out_of_core` for an H.  Not ported:
-``mesh`` (ROADMAP.md Queue 1 step 12b).
+:func:`~nmf_tpu_torch.transform_out_of_core` for an H.
+
+``mesh=`` (``online.py:65-120, 242-306`` of the JAX package): W and A are
+row-sharded, each block's X cut into the ranks' (M/r, width/c) pieces
+(each rank copies only its own), H column-sharded, c replicated.  The
+inner H loop is the plain ``update_h_sharded`` (sums over 'mr'), as in
+JAX; A's and c's block terms are summed over 'mc' and the cost over both
+axes; int8 X is dequantized block-locally.  The result's W is the global
+one, on every rank.
 """
 
 from __future__ import annotations
@@ -38,13 +45,28 @@ import torch
 from ..ops.divergence import kl_divergence
 from ..ops.elementwise import eps_clamp
 from ..ops.mu import _recon_ratio, matmul, update_h
+from ..parallel.mesh import (
+    BOTH,
+    COL_AXIS,
+    ROW_AXIS,
+    Placement,
+    axis_size,
+    check_mesh,
+    gather,
+    mesh_coordinate,
+    mesh_device,
+    psum,
+)
+from ..parallel.sharded import _dequant_local, kl_partial, update_h_sharded
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
-from .solver import _MESH, to_state
+from .solver import to_state
 from .streaming import (
     _BlockStream,
     _as_source,
+    _check_mesh_dims,
     _dense,
+    _mesh_layout,
     _qcache_budget,
     pick_block_n,
     seeded_block_h,
@@ -94,11 +116,11 @@ def solve_online(
     stored as ``precision.x_dtype`` (f32, bf16 or int8 on the wire).  With
     ``track_cost=False`` no block cost is taken, and ``block_costs`` holds
     one empty list a pass.  ``device`` is ``"cuda"`` by default (a CUDA
-    request without a card raises) or ``"cpu"``.
+    request without a card raises) or ``"cpu"``.  ``mesh`` (module
+    docstring): ``block_n`` must be a multiple of the mesh's column count,
+    and every rank gets the global W.
     """
     config.validate()
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     if config.backend == "pallas":
         raise NotImplementedError(
             "online NMF's per-block statistics updates run as XLA ops "
@@ -134,16 +156,36 @@ def solve_online(
     k = w0.shape[1]
     eps, prec = config.eps, config.precision
     bn = block_n if block_n is not None else pick_block_n(m, n)
+    if mesh is not None:
+        mesh = check_mesh(mesh)
+        rounded, cdev = _check_mesh_dims(mesh, m, n, bn), axis_size(mesh, COL_AXIS)
+        if block_n is not None and block_n % cdev:
+            # rounding would cut the stream into other blocks than a
+            # single-device run with the same arguments (online.py:258)
+            raise ValueError(
+                f"block_n={block_n} must be a multiple of the mesh column "
+                f"count {cdev} (block partitions define the learning "
+                f"trajectory)"
+            )
+        bn = rounded
     blocks: List[Tuple[int, int]] = [(j, min(j + bn, n)) for j in range(0, n, bn)]
-    dev = resolve_device(device)
+    rows, local = None, blocks
+    if mesh is not None:
+        if mesh_coordinate(mesh) is None:
+            return None
+        dev = mesh_device(mesh)
+        rows, local = _mesh_layout(mesh, m, n, blocks)
+        w0 = w0[rows[0]:rows[1]]
+    else:
+        dev = resolve_device(device)
 
     w = to_state(w0, config, dev)
-    a = torch.zeros((m, k), dtype=_F32, device=dev)
+    a = torch.zeros((w0.shape[0], k), dtype=_F32, device=dev)
     c = torch.zeros((k,), dtype=_F32, device=dev)
     rho_t = torch.tensor(rho, dtype=_F32, device=dev)
     track = bool(config.track_cost)
-    stream = _BlockStream(source, blocks, dev, prec.x_dtype, eps, prec.x_quant_rows,
-                          _qcache_budget())
+    stream = _BlockStream(source, local, dev, prec.x_dtype, eps, prec.x_quant_rows,
+                          _qcache_budget(), rows=rows)
 
     def block_update(w, a, c, x_b, h):
         x_b = _dense(x_b)
@@ -156,19 +198,39 @@ def solve_online(
         w = (w * (a / eps_clamp(c, eps)[None, :])).to(w.dtype)
         return w, a, c, cost
 
+    def block_update_sharded(w, a, c, x_b, h):
+        # _online_sharded_jit's block_update (online.py:78-102 of JAX)
+        if isinstance(x_b, tuple):
+            x_b = _dequant_local(x_b, mesh)
+        for _ in range(int(inner_iters)):
+            h = update_h_sharded(w, h, x_b, eps, prec, mesh=mesh)
+        cost = psum(kl_partial(x_b, w, h, eps), mesh, BOTH) if track else None
+        z = _recon_ratio(w, h, x_b, eps, prec)
+        a = rho_t * a + psum(matmul(z, h, prec, transpose_b=True), mesh, COL_AXIS)
+        c = rho_t * c + psum(torch.sum(h, dim=1, dtype=_F32), mesh, COL_AXIS)
+        w = (w * (a / eps_clamp(c, eps)[None, :])).to(w.dtype)
+        return w, a, c, cost
+
+    update = block_update if mesh is None else block_update_sharded
     all_costs: List[List[float]] = []
     for _ in range(passes):
         pass_costs: List[float] = []
         pend = None
         for idx, x_b in stream.sweep():
             j0, j1 = blocks[idx]
-            h0 = upload_state(seeded_block_h(seed + idx, k, j1 - j0, eps), config, dev)
-            w, a, c, cost = block_update(w, a, c, x_b, h0)
+            h0 = seeded_block_h(seed + idx, k, j1 - j0, eps)
+            if mesh is not None:     # this rank's piece of the block's columns
+                l0, l1 = local[idx]
+                h0 = np.ascontiguousarray(h0[:, l0 - j0:l1 - j0])
+            h0 = upload_state(h0, config, dev)
+            w, a, c, cost = update(w, a, c, x_b, h0)
             if pend is not None:
                 pass_costs.append(float(pend))   # block idx - 1, while idx computes
             pend = cost
         if track:
             pass_costs.append(float(pend))
         all_costs.append(pass_costs)
+    if mesh is not None:
+        w = gather(w, Placement(mesh, (ROW_AXIS, None)))
     return OnlineResult(w=w.to(_F32).cpu().numpy(), block_costs=all_costs, blocks=blocks,
                         passes=passes)

@@ -28,8 +28,18 @@ Per-member convergence is the batched solver's.  ``backend="auto"`` takes
 the card's rule for a member axis (``utils.autotune.rule_pick`` with
 ``members``): at K <= 32 on the H100 cuBLAS's batched GEMMs, where the
 member-axis kernels measured slower; ``backend="pallas"`` keeps the
-kernels and their member-i-equals-2-D bits.  Not in the port yet:
-``mesh`` (ROADMAP.md Queue 1 step 12b).
+kernels and their member-i-equals-2-D bits.
+
+**On a mesh** (``selection.py:252-262`` of the JAX package) the members
+are split over the mesh's FIRST axis ('mr') and replicated over the
+second: the ranks of a mesh row run the same members, as JAX replicates
+them, and X is whole on every rank.  A
+:class:`~nmf_tpu_torch.parallel.mesh.FlatMesh` (the CLI's ``select``
+and ``--restarts``, ``NMF(n_restarts > 1)``) splits them over all the
+ranks instead.  Each rank runs its members through the batched kernels
+(the rule resolving at its member count); then every member's factors
+and scalars are gathered onto every rank, so the :class:`SelectionResult`
+is the same everywhere and the best member is chosen from all of them.
 """
 
 from __future__ import annotations
@@ -47,7 +57,17 @@ from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
 from .init import nndsvd_init, random_init, scaled_random_init
-from .solver import _DTYPES, _MESH, SolveResult
+from ..parallel.batched import gather_members, member_split
+from ..parallel.mesh import (
+    BOTH,
+    ROW_AXIS,
+    FlatMesh,
+    axis_size,
+    check_mesh,
+    mesh_coordinate,
+    mesh_device,
+)
+from .solver import _DTYPES, SolveResult
 
 __all__ = ["SelectionResult", "solve_restarts", "solve_rank_sweep"]
 
@@ -145,8 +165,6 @@ def _mask_factors(w, h, mk):
 def _solve_selection(x, w0s, h0s, ranks: np.ndarray, config: SolveConfig, mesh,
                      clamp_inputs: bool, n_frozen: int, device) -> SelectionResult:
     config.validate()
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     # final costs are the selection signal: always track them
     if not config.track_cost and config.thresh == 0.0:
         config = dataclasses.replace(config, track_cost=True)
@@ -171,7 +189,24 @@ def _solve_selection(x, w0s, h0s, ranks: np.ndarray, config: SolveConfig, mesh,
             f"@ H{tuple(np.shape(h0s))}"
         )
     mks = (np.arange(kmax)[None, :] < np.asarray(ranks)[:, None]).astype(np.float32)
-    dev = resolve_device(device)
+    axes = None
+    if mesh is not None:
+        # members over the first axis, or over every rank of a FlatMesh
+        if isinstance(mesh, FlatMesh):
+            mesh, axes, label = mesh.mesh, BOTH, mesh.name
+        else:
+            mesh = check_mesh(mesh)
+            axes = label = ROW_AXIS
+        size = axis_size(mesh, axes)
+        if r % size:
+            raise ValueError(f"members {r} must be a multiple of mesh axis {label}={size}")
+        if mesh_coordinate(mesh) is None:
+            return None
+        span = member_split(mesh, axes, r)
+        w0s, h0s, mks = w0s[span], h0s[span], mks[span]
+        r, dev = r // size, mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
     config = resolve_config(config, m, kmax, n, dev, "selection", members=r)
     x, w0s, h0s, mks = _prep_selection(x, w0s, h0s, mks, config, clamp_inputs, masked, dev)
     step_fn, cost_fn = batched_step_cost(config)
@@ -190,6 +225,8 @@ def _solve_selection(x, w0s, h0s, ranks: np.ndarray, config: SolveConfig, mesh,
             return w2, h2
 
     res = run_batched_loop(x, w0s, h0s, config, step, cost_fn)
+    if mesh is not None:
+        res = gather_members(res, mesh, axes, factors=True)
     return SelectionResult(results=res, ranks=np.asarray(ranks, np.int64))
 
 
@@ -245,8 +282,8 @@ def solve_restarts(
     ``[R, M, K]`` / ``[R, K, N]``, which define the rank and member count.
     ``n_frozen`` keeps each member's first columns of W at their initial
     values (:func:`solve_semi` semantics).  The inputs go to ``device``
-    (``"cuda"`` by default; a CUDA request without a card raises);
-    ``mesh`` is refused.
+    (``"cuda"`` by default; a CUDA request without a card raises), or with
+    ``mesh`` to the mesh's devices (module docstring).
     """
     if (w0s is None) != (h0s is None):
         raise ValueError("provide both w0s and h0s, or neither")

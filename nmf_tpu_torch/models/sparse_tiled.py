@@ -26,8 +26,23 @@ here, never its Pallas kernel, so the port launches no K5 there either).
 
 A checkpointed tile-sparse solve runs through
 :func:`nmf_tpu_torch.utils.checkpoint.solve_with_checkpoints`, whose
-segments are :func:`_run_tiled` calls on the factors prepared once.  Not in
-the port yet: the mesh path (ROADMAP.md Queue 1 step 12b).
+segments are :func:`_run_tiled` calls on the factors prepared once.
+
+``mesh=`` (``sparse_tiled.py:382-590, 644-720`` of the JAX package) shards
+the canonical ('mr', 'mc') layout: the block grid is padded to multiples
+of R and C, and each rank holds only its own tiles (their block indices
+made local) and its blocks of the padded W and H.  The H numerator is
+summed over 'mr' and the W numerator over 'mc'; the cost sums its x-part
+over both axes and adds colsum(W) . rowsum(H), from the summed factor
+sums, once.  JAX pads every rank's list to one length only because
+``shard_map`` stacks them; the port pads each rank's list to its own
+chunk multiple, which changes no value (the padding tiles add exact
+zeros).  JAX refuses ``backend="pallas"`` on a mesh (its Pallas kernels
+are single-device) and runs its XLA scan there; the port refuses it in
+JAX's words too, but under ``"auto"`` each rank sweeps its tiles through
+K5 wherever :func:`sweep_route` keeps it (the rule reads K and the tile,
+which are the same on every rank), as the single-device solve does.
+int8 tiles are quantized per tile on the host and take the plain sweep.
 """
 
 from __future__ import annotations
@@ -198,15 +213,7 @@ def _validate_hand_built(tx: TileSparseX, mb: int, nb: int) -> None:
         )
 
 
-def _refuse_unported(config: SolveConfig, mesh) -> None:
-    later = {
-        "mesh (ROADMAP.md Queue 1 step 12b: the tiled mesh path)": mesh is not None,
-    }
-    missing = [name for name, on in later.items() if on]
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: not in the PyTorch port's tile-sparse solve yet"
-        )
+def _check_family(config: SolveConfig) -> None:
     if config.beta != 1.0 or config.regularized or config.algorithm != "mu":
         # nmf_tpu refuses these too (sparse_tiled.py:633-636)
         raise NotImplementedError(
@@ -228,6 +235,10 @@ def sweep_route(config: SolveConfig, k: int = 0, tile: Tuple[int, int] = (_TILE,
     consults its rule on a TPU); for CPU tensors (``device`` None or the
     CPU) they mean K5's wrappers, which take the plain sweep there.  A
     choice on CUDA is counted in ``autotune.CHOICES`` under ``"tiled"``.
+    On a mesh the same rule routes each rank's tiles (K and the tile are
+    every rank's): ``auto`` may run K5 there, where JAX runs its XLA scan
+    and refuses ``backend="pallas"`` (the port refuses it in JAX's words
+    in :func:`_prepare_tiled`).
     """
     if config.precision.x_dtype == "int8" or config.backend == "jnp":
         return "plain"
@@ -242,11 +253,27 @@ def _shape(a) -> Tuple[int, ...]:
     return tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
 
 
-def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to=None):
+def _partition_tiles_np(tiles, rows, cols, mb_pad: int, nb_pad: int, mesh):
+    """This rank's tiles: those in its (row-range, col-range) of the padded
+    block grid, their block indices made local (JAX's
+    ``_partition_tiles_np`` for one rank, without the common padding)."""
+    from ..parallel.mesh import COL_AXIS, ROW_AXIS, axis_size, mesh_coordinate
+
+    p, q = mesh_coordinate(mesh)
+    rows_per = mb_pad // axis_size(mesh, ROW_AXIS)
+    cols_per = nb_pad // axis_size(mesh, COL_AXIS)
+    sel = (rows // rows_per == p) & (cols // cols_per == q)
+    return (tiles[torch.from_numpy(sel)], (rows[sel] - p * rows_per).astype(np.int32),
+            (cols[sel] - q * cols_per).astype(np.int32))
+
+
+def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to=None,
+                   mesh=None):
     """One-time preparation: tile bucketing, chunk padding (to a multiple
     of ``pad_to`` where given), per-tile quantization, factor padding and
     clamp, the sweep plans, and one upload of each to ``dev``.  Returns
-    ``(xarg, w, h, info)``."""
+    ``(xarg, w, h, info)``.  On a ``mesh``: this rank's tiles and its
+    blocks of the padded factors, on the mesh's device."""
     tx = x if isinstance(x, TileSparseX) else tiles_from_dense(x, tile)
     m, n = tx.shape
     bm, bn = tx.tile_shape
@@ -258,6 +285,18 @@ def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to
     k = shape_w[1]
     mb, nb = -(-m // bm), -(-n // bn)
     _validate_hand_built(tx, mb, nb)
+    if mesh is not None:
+        if config.backend == "pallas":
+            raise NotImplementedError(
+                "the tile-sparse mesh path runs the XLA scan (the Pallas "
+                "scalar-prefetch kernels are single-device); drop "
+                "backend='pallas' or mesh"
+            )
+        from ..parallel.mesh import COL_AXIS, ROW_AXIS, axis_size, mesh_device
+
+        r, c = axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)
+        mb, nb = -(-mb // r) * r, -(-nb // c) * c
+        dev = mesh_device(mesh)
     mp, np_ = mb * bm, nb * bn
     prec = config.precision
     sd = _DTYPES[prec.state_dtype]
@@ -277,8 +316,16 @@ def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to
     tiles = to_tensor(tx.tiles, "cpu")   # f32, or bf16 bit for bit
     rows = _host(tx.rows).astype(np.int32)
     cols = _host(tx.cols).astype(np.int32)
+    if mesh is not None:
+        from ..parallel.mesh import Placement, local_block
+
+        tiles, rows, cols = _partition_tiles_np(tiles, rows, cols, mb, nb, mesh)
+        w_pad = local_block(w_pad, Placement(mesh, (ROW_AXIS, None)), "cpu")
+        h_pad = local_block(h_pad, Placement(mesh, (None, COL_AXIS)), "cpu")
+        mb, nb = mb // r, nb // c       # the rank's block grid
     pad_to = pad_to or chunk
-    if tiles.shape[0] % pad_to:
+    # (a mesh rank may own no tile: it sweeps one chunk of zero tiles)
+    if tiles.shape[0] % pad_to or not tiles.shape[0]:
         t_np, rows, cols = _pad_tiles_np(tiles.to(_F32).numpy(), rows, cols, pad_to)
         tiles = torch.from_numpy(t_np)
     scales = None
@@ -310,14 +357,30 @@ def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to
             ts.sweep_layout(*plan_w, mb, "w", device=dev),
             scales,
         )
-    info = dict(m=m, n=n, mp=mp, np_=np_, route=route, chunk=chunk)
+    info = dict(m=m, n=n, mp=mp, np_=np_, route=route, chunk=chunk, mesh=mesh)
     return xarg, w_pad.to(sd).to(dev), h_pad.to(sd).to(dev), info
 
 
-def _tiled_fns(config: SolveConfig, chunk: int, route: str):
-    """(step, cost) of the tile-sparse solve on the route's payload."""
+def _tiled_fns(config: SolveConfig, chunk: int, route: str, mesh=None):
+    """(step, cost) of the tile-sparse solve on the route's payload; on a
+    ``mesh``, with the sums of ``sparse_tiled.py:427-590`` of JAX."""
     eps = config.eps
     prec = config.precision
+    if mesh is not None:
+        from ..parallel.mesh import BOTH, COL_AXIS, ROW_AXIS, axis_size, psum
+
+        # the axes with more than one rank, resolved once and not at each
+        # sum of the step: a DeviceMesh's shape is slow to read
+        summed = {a for a in BOTH if axis_size(mesh, a) > 1}
+
+        def over(t, axis):
+            axes = tuple(a for a in ((axis,) if isinstance(axis, str) else axis) if a in summed)
+            return psum(t, mesh, axes) if axes else t
+    else:
+        def over(t, axis):
+            return t
+
+        ROW_AXIS = COL_AXIS = BOTH = None
 
     if route == "k5":
 
@@ -337,12 +400,12 @@ def _tiled_fns(config: SolveConfig, chunk: int, route: str):
         """One full MU iteration in reference order (H half, then W half
         with the new H), in the JAX tiled step's order on the f32
         numerator: ``h * (numer / sum_w)``, not K1's ``h * acc / sum``."""
-        numer = numerator("h", w, h, xarg)
-        sum_w = eps_clamp(torch.sum(w, dim=0, dtype=_F32), eps)
+        numer = over(numerator("h", w, h, xarg), ROW_AXIS)
+        sum_w = eps_clamp(over(torch.sum(w, dim=0, dtype=_F32), ROW_AXIS), eps)
         h = (h * (numer / sum_w[:, None])).to(h.dtype)
 
-        numer = numerator("w", w, h, xarg)
-        sum_h = eps_clamp(torch.sum(h, dim=1, dtype=_F32), eps)
+        numer = over(numerator("w", w, h, xarg), COL_AXIS)
+        sum_h = eps_clamp(over(torch.sum(h, dim=1, dtype=_F32), COL_AXIS), eps)
         w = (w * (numer / sum_h[None, :])).to(w.dtype)
         return w, h
 
@@ -369,8 +432,11 @@ def _tiled_fns(config: SolveConfig, chunk: int, route: str):
                 tf > 0, tf * (torch.log(torch.clamp_min(tf, eps)) - torch.log(y)) - tf, 0.0
             )
             x_part = x_part + torch.sum(term)
-        total_y = torch.dot(torch.sum(w, dim=0, dtype=_F32), torch.sum(h, dim=1, dtype=_F32))
-        return x_part + total_y
+        # on a mesh the tiles are disjoint across ranks, and the '+y' mass
+        # comes from the summed factor sums, the same on every rank: once
+        total_y = torch.dot(over(torch.sum(w, dim=0, dtype=_F32), ROW_AXIS),
+                            over(torch.sum(h, dim=1, dtype=_F32), COL_AXIS))
+        return over(x_part, BOTH) + total_y
 
     return step, cost
 
@@ -401,13 +467,25 @@ def solve_sparse_tiled(
     see zero numerators, so the iterate's padding stays 0.
     ``live_metrics`` emits each check, as the dense solve does.
     ``backend="auto"`` and ``"autotune"`` take :func:`sweep_route`'s rule.
-    Refused with ``NotImplementedError``: ``mesh``, ``beta != 1``,
-    penalties and ``algorithm != 'mu'``.
+    Refused with ``NotImplementedError``: ``beta != 1``, penalties,
+    ``algorithm != 'mu'``, and ``backend="pallas"`` with a mesh.
+
+    With ``mesh`` (module docstring) every rank calls it with the same
+    global X and gets its blocks of the PADDED factors (the block grid
+    padded to multiples of R and C; None on a rank outside the mesh), the
+    scalars replicated: ``gather_result(res, mesh)`` and then ``[:M]`` /
+    ``[:, :N]`` give the global ones.
     """
     config.validate()
-    _refuse_unported(config, mesh)
-    dev = resolve_device(device)
-    xarg, w, h, info = _prepare_tiled(x, w0, h0, config, int(chunk), tile, dev)
+    _check_family(config)
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh, mesh_coordinate
+
+        mesh = check_mesh(mesh)
+        if mesh_coordinate(mesh) is None:
+            return None
+    dev = None if mesh is not None else resolve_device(device)
+    xarg, w, h, info = _prepare_tiled(x, w0, h0, config, int(chunk), tile, dev, mesh=mesh)
     return _crop_tiled(_run_tiled(xarg, w, h, config, info, initial_cost), info)
 
 
@@ -419,15 +497,22 @@ def _run_tiled(xarg, w, h, config: SolveConfig, info, initial_cost=float("nan"),
     and ``initial_extrap`` (padded like the factors) resume the accelerated
     loop's state, as the dense solve's parameters do; the result stays
     padded (:func:`_crop_tiled`)."""
-    step, cost = _tiled_fns(config, info["chunk"], info["route"])
+    mesh = info.get("mesh")
+    step, cost = _tiled_fns(config, info["chunk"], info["route"], mesh)
     c0 = None if np.isnan(initial_cost) else initial_cost
+    emit = None
+    if mesh is not None:
+        from ..parallel.sharded import _emit_live_origin
+
+        emit = _emit_live_origin(mesh)    # the cost sums itself over the mesh
     return run_checked_loop(xarg, w, h, config, step, cost, c0,
-                            float(initial_momentum), initial_extrap)
+                            float(initial_momentum), initial_extrap, live_emit=emit)
 
 
 def _crop_tiled(res: SolveResult, info) -> SolveResult:
-    """De-pad the factors to the logical shape."""
-    if (info["mp"], info["np_"]) != (info["m"], info["n"]):
+    """De-pad the factors to the logical shape (on a mesh the rank keeps
+    its blocks of the padded ones)."""
+    if info.get("mesh") is None and (info["mp"], info["np_"]) != (info["m"], info["n"]):
         return dataclasses.replace(
             res,
             w=res.w[: info["m"]].contiguous(),
@@ -468,7 +553,7 @@ def solve_sparse_tiled_batched(
             "Pallas scalar-prefetch kernels are single-problem); drop "
             "backend='pallas' or batch"
         )
-    _refuse_unported(config, None)
+    _check_family(config)
     txs = [x if isinstance(x, TileSparseX) else tiles_from_dense(x, tile) for x in xs]
     if not txs:
         raise ValueError("xs must be non-empty")

@@ -79,8 +79,22 @@ distinct width (the full blocks, and a ragged last block, which may resolve
 otherwise) takes :func:`nmf_tpu_torch.utils.autotune.resolve_config` on
 (M, K, width) once, and its blocks run the chosen step and cost.
 
-Not ported yet, and refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh``.
+``mesh=`` (``streaming.py:402-660, 839-960, 1401-1560`` of the JAX
+package) streams onto the ('mr', 'mc') mesh of
+:mod:`nmf_tpu_torch.parallel.mesh`: the block width is rounded to a
+multiple of the column count, and each rank reads whole columns on the
+host and copies to its device only its (M/r, width/c) piece of each block,
+so no device holds a whole block.  W's rows, the H pieces and the (M/r, K)
+accumulators stay on the rank for the whole run; per block the K-sized
+sums cross ranks as in the in-memory sharded step
+(:func:`_sharded_block_fns`), and the KL family takes K1 and K2
+``numerator_only`` where ``sharded._use_fused`` keeps them at the rank's
+piece of a full block (one decision a run, as JAX makes it).  A cost pass
+sums the ranks' partials once.  The result holds the global W and H on
+every rank (gathered once at the end); the transform's result is global
+on every rank too.  A mesh run checkpoints in the port's sharded format
+(:func:`~nmf_tpu_torch.utils.checkpoint.save_checkpoint_sharded`), each
+rank its own blocks.
 """
 
 from __future__ import annotations
@@ -105,6 +119,32 @@ from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
 from ..utils.metrics import emit_live
+from ..parallel.mesh import (
+    BOTH,
+    COL_AXIS,
+    ROW_AXIS,
+    Placement,
+    axis_size,
+    check_mesh,
+    gather,
+    mesh_coordinate,
+    mesh_device,
+    psum,
+)
+from ..parallel.sharded import (
+    _dequant_local,
+    _emit_live_origin,
+    _use_fused,
+    build_sharded_h_solver,
+    build_sharded_masked_h_solver,
+    hals_update_h_sharded,
+    kl_partial,
+    masked_kl_partial,
+    update_h_sharded,
+    update_h_sharded_beta,
+    update_h_sharded_masked,
+    update_h_sharded_reg,
+)
 from .masked import masked_h_step_cost, masked_kl, masked_update_h, masked_w_terms
 from .nmf import _h_only_step_cost
 from .solver import SolveResult, _use_kernels, extrapolate, run_checked_loop, to_state
@@ -325,20 +365,29 @@ class _BlockStream:
     """
 
     def __init__(self, source, blocks, dev: torch.device, x_dtype: str,
-                 eps: float, qrows: int, qcache_budget: int, mask_source=None):
+                 eps: float, qrows: int, qcache_budget: int, mask_source=None, rows=None):
         self.source, self.blocks, self.dev = source, blocks, dev
         self.x_dtype, self.eps, self.qrows = x_dtype, float(eps), qrows
         self.mask_source = mask_source
         self.cuda = dev.type == "cuda"
-        m = source.shape[0]
-        size = m * max(j1 - j0 for j0, j1 in blocks)
+        # ``rows``: a mesh rank's row span; the host reads whole columns and
+        # the wire carries the span only (int8's scales read every row)
+        self.m_full = source.shape[0]
+        self.rows = (0, self.m_full) if rows is None else tuple(rows)
+        self.partial = self.rows != (0, self.m_full)
+        self.m = self.rows[1] - self.rows[0]
+        width = max(j1 - j0 for j0, j1 in blocks)
+        size = self.m * width
         self._host, self._dev = self._buffers(size, _WIRE_DTYPES[x_dtype])
-        # bf16 and int8 are made from an f32 gather
-        self._scratch = None if x_dtype == "float32" else np.empty(size, np.float32)
+        # bf16 and int8 are made from an f32 gather, a row span is cut from one
+        gather = x_dtype != "float32" or self.partial
+        self._scratch = np.empty(self.m_full * width, np.float32) if gather else None
         if mask_source is not None:
             self._mhost, self._mdev = self._buffers(size, mask_wire_dtype(x_dtype))
-            # a bf16 mask is cast from an f32 gather, which bf16 X's prep reads
-            self._mscratch = np.empty(size, np.float32) if x_dtype == "bfloat16" else None
+            # a bf16 mask is cast from an f32 gather, which bf16 X's prep
+            # reads; a row span is cut from a whole-height one
+            cut = x_dtype == "bfloat16" or self.partial
+            self._mscratch = np.empty(self.m_full * width, np.float32) if cut else None
         self._next = 0
         if self.cuda:
             self._copy_stream = torch.cuda.Stream(dev)
@@ -361,29 +410,35 @@ class _BlockStream:
         dev = [torch.empty(size, dtype=dtype, device=self.dev) for _ in range(2)] if self.cuda else host
         return host, dev
 
-    def _view(self, buf, idx: int):
+    def _view(self, buf, idx: int, m=None):
         j0, j1 = self.blocks[idx]
-        m = self.source.shape[0]
+        m = self.m if m is None else m
         return buf[: m * (j1 - j0)].reshape(m, j1 - j0)
 
     def _gather(self, idx: int) -> np.ndarray:
+        """Block ``idx``'s whole columns, every row, as f32."""
         j0, j1 = self.blocks[idx]
-        blk = self._view(self._scratch, idx)
+        blk = self._view(self._scratch, idx, self.m_full)
         self.source.columns_into(j0, j1, blk)
         return blk
 
+    def _span(self, a: np.ndarray) -> np.ndarray:
+        """The row span of a whole-height block (contiguous: C order)."""
+        return a[self.rows[0]:self.rows[1]] if self.partial else a
+
     def _fill_mask(self, idx: int, slot: int):
         """Host side: block ``idx``'s mask into staging buffer ``slot``;
-        returns it as an f32 array for the host prep of bf16 and int8 X."""
+        returns it as an f32 array for the host prep of bf16 X (the row
+        span) and int8 X (every row: the scales read them all)."""
         j0, j1 = self.blocks[idx]
         dst = self._view(self._mhost[slot], idx)
-        if self._mscratch is None:   # f32 on the wire: gathered straight in
+        if self._mscratch is None:   # f32 on the wire, whole height: gathered straight in
             self.mask_source.columns_into(j0, j1, dst.numpy())
             return dst.numpy()
-        blk = self._view(self._mscratch, idx)
+        blk = self._view(self._mscratch, idx, self.m_full)
         self.mask_source.columns_into(j0, j1, blk)
-        dst.copy_(torch.from_numpy(blk))
-        return blk
+        dst.copy_(torch.from_numpy(self._span(blk)))
+        return blk if self.x_dtype == "int8" else self._span(blk)
 
     def _fill(self, idx: int, slot: int):
         """Host side: block ``idx`` (and its mask) in wire form into staging
@@ -392,15 +447,19 @@ class _BlockStream:
         mask = self._fill_mask(idx, slot) if self.mask_source is not None else None
         dst = self._view(self._host[slot], idx)
         if self.x_dtype == "float32":   # clamped (and masked) on the device after the copy
-            j0, j1 = self.blocks[idx]
-            self.source.columns_into(j0, j1, dst.numpy())
+            if self.partial:
+                dst.copy_(torch.from_numpy(self._span(self._gather(idx))))
+            else:
+                j0, j1 = self.blocks[idx]
+                self.source.columns_into(j0, j1, dst.numpy())
             return None
         if self.x_dtype == "bfloat16":
-            _host_prep(self._gather(idx), self.eps, "bfloat16", out=dst, mask=mask)
+            _host_prep(self._span(self._gather(idx)), self.eps, "bfloat16", out=dst, mask=mask)
             return None
         codes, new_scales = self.qcache.get(idx), None
         if codes is None:
             codes, scales = _host_prep(self._gather(idx), self.eps, "int8", self.qrows, mask=mask)
+            codes = np.ascontiguousarray(self._span(codes))
             if idx not in self.scales:
                 new_scales = torch.from_numpy(scales)
             if self.qcache_bytes + codes.nbytes <= self.qcache_budget:
@@ -503,6 +562,11 @@ def _column_chunks(step_acc, cost_block, masked: bool, chunk_step: bool = True):
                                       for c0, c1 in parts]))
 
     return step, cost
+
+
+def _sum_parts(parts) -> torch.Tensor:
+    """A cost pass's sum of the block partials, in block order."""
+    return torch.sum(torch.stack(parts))
 
 
 def _penalty_fns(config: SolveConfig):
@@ -663,15 +727,153 @@ def _block_fns(config: SolveConfig, kernels: bool, masked: bool = False):
                  lambda w, h_j, x_j: beta_partial(_dense(x_j), w, h_j, beta, eps), "mk")
 
 
-def _refuse_unported(config: SolveConfig, mesh) -> None:
-    later = {
-        "mesh (ROADMAP.md Queue 1 step 12b: the streamed mesh path)": mesh is not None,
-    }
-    missing = [name for name, on in later.items() if on]
-    if missing:
-        raise NotImplementedError(
-            f"solve_out_of_core: {', '.join(missing)} not in the PyTorch port yet"
+def _sharded_block_fns(config: SolveConfig, mesh, fused: bool = False, masked: bool = False):
+    """The mesh variant of :func:`_block_fns` (``streaming.py:402-660`` of
+    the JAX package), on a rank's (M/r, width/c) piece of each block, and
+    the cost pass's sum.
+
+    Per block the H_j update is the in-memory sharded step's H half
+    (:mod:`nmf_tpu_torch.parallel.sharded`: its K-sized terms summed over
+    'mr'), and the block's W-side terms are summed over 'mc' into the
+    row-sharded (M/r, K) accumulators: KL carries (numerator, rowsum), beta
+    and masked (numerator, denominator), HALS (X H^T, H H^T).  ``fused``
+    (the KL family): the H update on K1 ``numerator_only`` and the W
+    numerator K2 ``numerator_only``.  ``cost_block`` is the rank's partial
+    (its H penalty divided by the r copies of H); ``total`` sums a pass's
+    partials over both axes once, and ``cost_extra`` is the W penalty,
+    summed over 'mr'.  int8 X is dequantized block-locally
+    (``sharded._dequant_local``)."""
+    eps, prec = config.eps, config.precision
+    beta = float(config.beta)
+    l1_h, l2_h = config.l1_h, config.l2_h
+    n_row = axis_size(mesh, ROW_AXIS)
+    quant = prec.x_dtype == "int8"
+    masked_epilogue, reg_epilogue, cost_extra = _penalty_fns(config)
+
+    def local_x(x):
+        return _dequant_local(x, mesh) if quant else x
+
+    def over_mc(t):
+        return psum(t, mesh, COL_AXIS)
+
+    if config.algorithm == "hals":
+        def step_acc(w, h, x, a1, a2):
+            x = local_x(x)
+            h_new = hals_update_h_sharded(w, h, x, eps, prec, mesh=mesh)
+            a1 += over_mc(matmul(x, h_new, prec, transpose_b=True))
+            a2 += over_mc(matmul(h_new, h_new, prec, transpose_b=True))
+            return h_new
+
+        def cost_block(w, h, x):
+            return beta_partial(local_x(x), w, h, 2.0, eps)
+
+        w_epilogue, a2_shape = (lambda w, a1, a2: cd_sweep_w(w, a1, a2, eps)), "kk"
+    elif masked:
+        def step_acc(w, h, xm, a1, a2):
+            x, mk = local_x(xm[0]), xm[1]
+            h_new = update_h_sharded_masked(w, h, x, mk, eps, prec, l1_h, l2_h, mesh=mesh)
+            zh, mh = masked_w_terms(w, h_new, x, mk, eps, prec)
+            a1 += over_mc(zh)
+            a2 += over_mc(mh)
+            return h_new
+
+        def cost_block(w, h, xm):
+            return masked_kl_partial(local_x(xm[0]), w, h, xm[1], eps) + \
+                _h_penalty(config, h) / n_row
+
+        w_epilogue, a2_shape = masked_epilogue, "mk"
+    elif beta == 1.0:
+        def step_acc(w, h, x, a1, a2):
+            x = local_x(x)
+            if config.regularized:
+                h_new = update_h_sharded_reg(w, h, x, eps, prec, l1_h, l2_h, mesh=mesh)
+            else:
+                h_new = update_h_sharded(w, h, x, eps, prec, fused, mesh=mesh)
+            if fused:
+                num = fused_mu.update_w_fused(w, h_new, x, eps, prec, numerator_only=True)
+            else:
+                num = numerator_w(w, h_new, x, eps, prec)
+            a1 += over_mc(num)
+            a2 += over_mc(torch.sum(h_new, dim=1, dtype=_F32))
+            return h_new
+
+        def cost_block(w, h, x):
+            part = kl_partial(local_x(x), w, h, eps)
+            return part + _h_penalty(config, h) / n_row if config.regularized else part
+
+        def kl_epilogue(w, a1, a2):
+            return (w * (a1 / eps_clamp(a2, eps)[None, :])).to(w.dtype)
+
+        w_epilogue = reg_epilogue if config.regularized else kl_epilogue
+        a2_shape = None
+    else:
+        def step_acc(w, h, x, a1, a2):
+            x = local_x(x)
+            h_new = update_h_sharded_beta(w, h, x, beta, eps, prec, mesh=mesh)
+            num, den = _beta_ratios(w, h_new, x, beta, eps, prec)
+            a1 += over_mc(matmul(num, h_new, prec, transpose_b=True))
+            a2 += over_mc(matmul(den, h_new, prec, transpose_b=True))
+            return h_new
+
+        def cost_block(w, h, x):
+            return beta_partial(local_x(x), w, h, beta, eps)
+
+        w_epilogue = lambda w, a1, a2: (w * (a1 / eps_clamp(a2, eps))).to(w.dtype)  # noqa: E731
+        a2_shape = "mk"
+
+    extra = None
+    if cost_extra is not None:
+        def extra(w):
+            return psum(cost_extra(w), mesh, ROW_AXIS)
+
+    def total(parts):
+        return psum(_sum_parts(parts), mesh, BOTH)
+
+    return step_acc, w_epilogue, cost_block, extra, a2_shape, total
+
+
+def _mesh_layout(mesh, m: int, n: int, blocks):
+    """(rows, local blocks) of this rank: its row span of X and its
+    (width / c)-column piece of each block."""
+    ri, ci = mesh_coordinate(mesh)
+    r, c = axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)
+    ml = m // r
+    local = []
+    for j0, j1 in blocks:
+        wl = (j1 - j0) // c
+        local.append((j0 + ci * wl, j0 + (ci + 1) * wl))
+    return (ri * ml, (ri + 1) * ml), local
+
+
+def _check_mesh_dims(mesh, m: int, n: int, bn: int) -> int:
+    """JAX's divisibility refusal; the block width rounded to shard evenly
+    over 'mc' (``streaming.py:839-848``)."""
+    r, c = axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)
+    if m % r or n % c:
+        raise ValueError(
+            f"global dims (M={m}, N={n}) must divide the mesh "
+            f"{ {ROW_AXIS: r, COL_AXIS: c} }"
         )
+    return max(c, (bn // c) * c)
+
+
+def _gather_blocks_h(h_loc: torch.Tensor, mesh, blocks, local_blocks) -> torch.Tensor:
+    """The global (K, N) H on every rank from each rank's pieces of the
+    blocks joined in block order: one gather over 'mc', then the columns
+    put back in block order."""
+    c = axis_size(mesh, COL_AXIS)
+    g = gather(h_loc, Placement(mesh, (None, COL_AXIS)))
+    if c == 1:
+        return g
+    n_loc = h_loc.shape[1]
+    order = np.empty(g.shape[1], np.int64)
+    off = 0
+    for (j0, j1), (l0, l1) in zip(blocks, local_blocks):
+        wl = l1 - l0
+        for q in range(c):
+            order[j0 + q * wl: j0 + (q + 1) * wl] = q * n_loc + off + np.arange(wl)
+        off += wl
+    return g[:, torch.from_numpy(order).to(g.device)].contiguous()
 
 
 def solve_out_of_core(
@@ -717,6 +919,11 @@ def solve_out_of_core(
     unclamped, so the resumed run is the uninterrupted one bit for bit
     (``nmf_tpu`` clamps them again).  X is not checkpointed: it is the
     input.
+
+    ``mesh`` (module docstring): every rank calls with the same inputs and
+    ``device`` is not read; the result's W and H are the global factors on
+    every rank, and a rank outside the mesh gets None.  A mesh run
+    checkpoints each rank's blocks in the sharded format.
     """
     config.validate()
     if config.precision.x_quant_rows and config.backend == "pallas":
@@ -729,7 +936,6 @@ def solve_out_of_core(
         raise NotImplementedError(
             "masked streaming implements the (optionally penalized) KL family"
         )
-    _refuse_unported(config, mesh)
     if checkpoint_every <= 0:
         raise ValueError("checkpoint_every must be >= 1")
     if n_frozen and config.algorithm == "hals":
@@ -755,9 +961,21 @@ def solve_out_of_core(
     if block_n is not None and int(block_n) < 1:
         raise ValueError(f"block_n must be >= 1, got {block_n}")
     bn = int(block_n) if block_n is not None else pick_block_n(m, n)
+    if mesh is not None:
+        mesh = check_mesh(mesh)
+        bn = _check_mesh_dims(mesh, m, n, bn)
     blocks: List[Tuple[int, int]] = [(j, min(j + bn, n)) for j in range(0, n, bn)]
     qcache_budget = _qcache_budget()
-    dev = resolve_device(device)
+    rows, local, emit, layout = None, blocks, emit_live, None
+    if mesh is not None:
+        if mesh_coordinate(mesh) is None:
+            return None
+        dev = mesh_device(mesh)
+        rows, local = _mesh_layout(mesh, m, n, blocks)
+        emit, layout = _emit_live_origin(mesh), f"streamed:{bn}"
+    else:
+        dev = resolve_device(device)
+    m_loc = m if rows is None else rows[1] - rows[0]
 
     it, converged = 0, False
     hist_list: List[float] = []
@@ -766,20 +984,37 @@ def solve_out_of_core(
     if checkpoint_dir and resume:
         latest = ckpt.latest_checkpoint(checkpoint_dir)
         if latest is not None:
-            resumed = ckpt.load_checkpoint(latest, config)
-            if np.shape(resumed.w) != w0.shape or np.shape(resumed.h) != h0.shape:
+            if mesh is None:
+                resumed = ckpt.load_checkpoint(latest, config)
+                want_w, want_h = w0.shape, h0.shape
+            else:
+                # each rank reads its own blocks: W's rows, H's pieces joined
+                resumed = ckpt.load_checkpoint_sharded(latest, mesh, config, layout=layout)
+                want_w = (m_loc, k)
+                want_h = (k, sum(l1 - l0 for l0, l1 in local))
+            if np.shape(resumed.w) != want_w or np.shape(resumed.h) != want_h:
                 raise ValueError(
                     f"checkpoint shapes {np.shape(resumed.w)}/{np.shape(resumed.h)} "
-                    f"do not match inputs {w0.shape}/{h0.shape}"
+                    f"do not match inputs {want_w}/{want_h}"
                 )
             w0, h0 = resumed.w, resumed.h
             it, converged = resumed.iteration, resumed.converged
             hist_list = list(resumed.cost_history)
             labels = list(resumed.check_iterations or [])
 
+    def h_pieces(h_arr):
+        """The run's H blocks (this rank's pieces on a mesh) of a global H,
+        or of a mesh checkpoint's pieces joined in block order."""
+        if mesh is not None and resumed is not None:
+            cuts = np.cumsum([0] + [l1 - l0 for l0, l1 in local])
+            return [h_arr[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+        return [h_arr[:, j0:j1] for j0, j1 in local]
+
     # factors resident on the device for the whole run, clamped once; a
     # resumed run's go in as they were saved (utils.checkpoint's docstring)
     fresh = resumed is None
+    if mesh is not None and fresh:
+        w0 = w0[rows[0]:rows[1]]
     w = to_state(w0, config, dev, clamp=fresh)
     freeze = None
     if n_frozen:
@@ -793,12 +1028,25 @@ def solve_out_of_core(
         def freeze(w_new):
             return torch.where(mk, w_frz, w_new).to(w_new.dtype)
 
-    h_blocks = [to_state(h0[:, j0:j1], config, dev, clamp=fresh) for j0, j1 in blocks]
+    h_blocks = [to_state(hb, config, dev, clamp=fresh) for hb in h_pieces(h0)]
     masked = mask_source is not None
     block_fns = {}
+    total_fn = _sum_parts
+    if mesh is not None:
+        # one decision for every block, at the rank's piece of a full block
+        # (streaming.py:858-872 of the JAX package)
+        r, c = axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)
+        fused = (config.beta == 1.0 and not config.regularized and not masked
+                 and fused_mu.supported(k)
+                 and _use_fused(config, m // r, k, max(1, bn // c), dev,
+                                config.precision.x_dtype == "int8", "streamed_sharded"))
+        *mesh_fns, total_fn = _sharded_block_fns(config, mesh, fused, masked)
 
     def fns_of(idx: int):
-        """The block functions of block idx's width, resolved once a width."""
+        """The block functions of block idx's width, resolved once a width
+        (on a mesh: the one set of the run)."""
+        if mesh is not None:
+            return mesh_fns
         width = blocks[idx][1] - blocks[idx][0]
         if width not in block_fns:
             cfg = config if masked else resolve_config(config, m, k, width, dev, "streamed")
@@ -806,10 +1054,10 @@ def solve_out_of_core(
         return block_fns[width]
 
     _, w_epilogue, _, cost_extra, a2_shape = fns_of(0)
-    a2_dims = {"mk": (m, k), "kk": (k, k)}.get(a2_shape, (k,))
+    a2_dims = {"mk": (m_loc, k), "kk": (k, k)}.get(a2_shape, (k,))
     prec = config.precision
-    stream = _BlockStream(source, blocks, dev, prec.x_dtype, config.eps,
-                          prec.x_quant_rows, qcache_budget, mask_source)
+    stream = _BlockStream(source, local, dev, prec.x_dtype, config.eps,
+                          prec.x_quant_rows, qcache_budget, mask_source, rows)
 
     max_iter = int(config.max_iter)
     check_every = int(config.check_every)
@@ -822,7 +1070,7 @@ def solve_out_of_core(
         ``set_h`` (``streaming.py:1108-1125`` of the JAX package); the plain
         and the accelerated loops run this one body.  Returns the new W."""
         # the accumulators are made on the device each sweep, not uploaded
-        a1 = torch.zeros((m, k), dtype=_F32, device=dev)
+        a1 = torch.zeros((m_loc, k), dtype=_F32, device=dev)
         a2 = torch.zeros(a2_dims, dtype=_F32, device=dev)
         for idx, x_j in stream.sweep():
             set_h(idx, fns_of(idx)[0](w_src, get_h(idx), x_j, a1, a2))
@@ -834,31 +1082,36 @@ def solve_out_of_core(
         block order, and the W penalty added once: one host read per cost
         pass (two with penalties, as JAX reads them)."""
         parts = [fns_of(idx)[2](w_c, h_list[idx], x_j) for idx, x_j in stream.sweep()]
-        total = float(torch.sum(torch.stack(parts)))
+        total = float(total_fn(parts))
         return total if cost_extra is None else total + float(cost_extra(w_c))
 
     save = None
     if checkpoint_dir:
         def save(it, converged, w_c, h_list, mom=float("nan"), w_ex=None, h_ex=None):
-            """A checkpoint of the run so far (``_save`` of the JAX loop)."""
-            ckpt.save_checkpoint(checkpoint_dir, ckpt.CheckpointState(
+            """A checkpoint of the run so far (``_save`` of the JAX loop): on
+            a mesh each rank writes its own blocks (its H pieces joined)."""
+            state = ckpt.CheckpointState(
                 w=w_c, h=torch.cat(h_list, dim=1), iteration=it, cost_history=hist_list,
                 converged=converged, check_iterations=labels, momentum=mom,
                 w_ex=w_ex, h_ex=None if h_ex is None else torch.cat(h_ex, dim=1),
-            ), config)
+            )
+            if mesh is None:
+                ckpt.save_checkpoint(checkpoint_dir, state, config)
+            else:
+                ckpt.save_checkpoint_sharded(checkpoint_dir, state, config, mesh=mesh,
+                                             layout=layout)
 
     prev_cost = hist_list[-1] if hist_list else float("nan")
     mom = float("nan")
     if config.accelerate:
         ex = None
         if resumed is not None and resumed.w_ex is not None:
-            hx = np.asarray(resumed.h_ex, np.float32)
             ex = (to_state(resumed.w_ex, config, dev, clamp=False),
-                  [to_state(hx[:, j0:j1], config, dev, clamp=False) for j0, j1 in blocks])
+                  [to_state(hb, config, dev, clamp=False) for hb in h_pieces(resumed.h_ex)])
         w, prev_cost, mom, it, converged = _accel_loop(
             config, sweep, cost_pass, w, h_blocks, hist_list, labels, it, converged,
             prev_cost, float("nan") if resumed is None else resumed.momentum, ex,
-            save, checkpoint_every)
+            save, checkpoint_every, emit)
     else:
         start_iter = it
         while it < max_iter and not converged:
@@ -870,7 +1123,7 @@ def solve_out_of_core(
                 labels.append(it)
                 rel = abs(prev_cost - total) / abs(total) if total else float("nan")
                 if config.live_metrics:
-                    emit_live(it, total, rel)
+                    emit(it, total, rel)
                 if thresh > 0.0 and rel < thresh:
                     converged = True
                 prev_cost = total
@@ -879,11 +1132,15 @@ def solve_out_of_core(
                 save(it, converged, w, h_blocks)
     del stream   # the block buffers go before H is joined
 
+    h = torch.cat(h_blocks, dim=1)
+    if mesh is not None:   # the global factors on every rank, gathered once
+        w = gather(w, Placement(mesh, (ROW_AXIS, None)))
+        h = _gather_blocks_h(h, mesh, blocks, local)
     hist = np.full((max(len(hist_list), 1),), np.nan, np.float32)
     hist[: len(hist_list)] = hist_list
     return SolveResult(
         w=w,
-        h=torch.cat(h_blocks, dim=1),
+        h=h,
         iterations=torch.tensor(it, dtype=torch.int32),
         cost=torch.tensor(prev_cost, dtype=_F32),
         cost_history=torch.from_numpy(hist),
@@ -895,11 +1152,12 @@ def solve_out_of_core(
 
 def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list, labels,
                 it: int, converged: bool, baseline: float, mom: float, ex, save,
-                checkpoint_every: int):
+                checkpoint_every: int, emit=emit_live):
     """The safeguarded Nesterov-accelerated streamed loop
-    (``streaming.py:1152-1262`` of the JAX package, without its mesh
-    branch): the in-memory ``_run_accel_loop`` restated over streamed
-    blocks.
+    (``streaming.py:1152-1262`` of the JAX package): the in-memory
+    ``_run_accel_loop`` restated over streamed blocks (on a mesh, a rank's
+    pieces of them: ``cost_pass`` gives every rank the same cost, so every
+    rank accepts and rejects alike; ``emit`` is the live emitter).
 
     Each sweep runs from the extrapolated ``(w_ex, h_ex)`` and commits the
     plain iterate; the cost is taken at every check, against ``baseline``
@@ -963,7 +1221,7 @@ def _accel_loop(config: SolveConfig, sweep, cost_pass, w, h_blocks, hist_list, l
         labels.append(it)
         baseline = total
         if config.live_metrics:
-            emit_live(it, total, rel)
+            emit(it, total, rel)
         if thresh > 0.0 and rel < thresh:
             converged = True
         if save is not None and (it - last_save >= checkpoint_every or it == max_iter
@@ -1057,7 +1315,8 @@ def transform_out_of_core(
     column source of X's shape) streams beside X and each block runs the
     masked H-only solve (:func:`~nmf_tpu_torch.solve_masked_h_only`'s step
     and cost: the KL MU family, f32 or bf16 X).  ``device`` as in
-    :func:`solve_out_of_core`.
+    :func:`solve_out_of_core`.  ``mesh``: each block is the sharded H-only
+    solve of the ranks' pieces, and the result is global on every rank.
     """
     config.validate()
     if config.live_metrics:
@@ -1068,11 +1327,6 @@ def transform_out_of_core(
             "per-row-block int8 scales (x_quant_rows) take the jnp path — "
             "the fused kernels' scales operand is per-column; drop "
             "backend='pallas' or x_quant_rows"
-        )
-    if mesh is not None:
-        raise NotImplementedError(
-            "transform_out_of_core: mesh (ROADMAP.md Queue 1 step 12b: the streamed "
-            "mesh path) not in the PyTorch port yet"
         )
     source = _as_source(x)
     m, n = source.shape
@@ -1097,8 +1351,22 @@ def transform_out_of_core(
     if block_n is not None and int(block_n) < 1:
         raise ValueError(f"block_n must be >= 1, got {block_n}")
     bn = int(block_n) if block_n is not None else pick_block_n(m, n)
+    if mesh is not None:
+        mesh = check_mesh(mesh)
+        bn = _check_mesh_dims(mesh, m, n, bn)
     blocks: List[Tuple[int, int]] = [(j, min(j + bn, n)) for j in range(0, n, bn)]
-    dev = resolve_device(device)
+    rows, local, solver = None, blocks, None
+    if mesh is not None:
+        if mesh_coordinate(mesh) is None:
+            return None
+        dev = mesh_device(mesh)
+        rows, local = _mesh_layout(mesh, m, n, blocks)
+        # the sharded H-only solve a block (streaming.py:1497-1560 of JAX):
+        # its KL step is the plain numerator, and H is gathered over 'mc'
+        solver = (build_sharded_masked_h_solver if mask_source is not None
+                  else build_sharded_h_solver)(config, mesh)
+    else:
+        dev = resolve_device(device)
     step_costs = {}
 
     def step_cost(idx: int):
@@ -1112,7 +1380,14 @@ def transform_out_of_core(
                 step_costs[width] = _h_only_step_cost(cfg)
         return step_costs[width]
 
-    w_dev = to_state(np.maximum(w, eps), config, dev, clamp=False)
+    def solve_block(idx, x_j, h_j):
+        if solver is None:
+            return run_checked_loop(x_j, w_dev, h_j, config, *step_cost(idx))
+        res = solver(x_j, w_dev, h_j)
+        return dataclasses.replace(res, h=gather(res.h, Placement(mesh, (None, COL_AXIS))))
+
+    w_c = np.maximum(w, eps)
+    w_dev = to_state(w_c if rows is None else w_c[rows[0]:rows[1]], config, dev, clamp=False)
     prec = config.precision
 
     def h_start(idx: int) -> torch.Tensor:
@@ -1121,15 +1396,18 @@ def transform_out_of_core(
             h = np.maximum(h0[:, j0:j1], eps)
         else:
             h = seeded_block_h(seed + idx, k, j1 - j0, eps)
+        if rows is not None:     # this rank's piece of the block's columns
+            l0, l1 = local[idx]
+            h = np.ascontiguousarray(h[:, l0 - j0:l1 - j0])
         return upload_state(h, config, dev)
 
     # one visit a block: the codes are never read twice, so none are cached
-    stream = _BlockStream(source, blocks, dev, prec.x_dtype, config.eps,
-                          prec.x_quant_rows, 0, mask_source)
+    stream = _BlockStream(source, local, dev, prec.x_dtype, config.eps,
+                          prec.x_quant_rows, 0, mask_source, rows)
     parts = []
     pending = None
     for idx, x_j in stream.sweep():
-        fetch = _Fetch(run_checked_loop(x_j, w_dev, h_start(idx), config, *step_cost(idx)))
+        fetch = _Fetch(solve_block(idx, x_j, h_start(idx)))
         if pending is not None:
             parts.append(pending.result())   # block idx - 1, while idx solves
         pending = fetch

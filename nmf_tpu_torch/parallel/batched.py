@@ -23,8 +23,23 @@ as the vmapped ``lax.cond`` selects.
 member axis (:func:`nmf_tpu_torch.utils.autotune.rule_pick` with
 ``members``; JAX sends every batched solve to ``jnp`` on a TPU,
 ``batched.py:202-211``): CUDA tensors at small K take cuBLAS's batched
-GEMMs, where the member-axis kernels measured slower.  Not in the port
-yet: ``mesh`` (ROADMAP.md Queue 1 step 12b).
+GEMMs, where the member-axis kernels measured slower.
+
+**On a mesh** (``batched.py:212-228`` of the JAX package) the member axis
+is split over ALL the mesh's ranks, row-major (rank (i, j) of an R x C
+mesh holds members ``[(i*C + j) * B/(R*C), ...)``; a
+:class:`~nmf_tpu_torch.parallel.mesh.FlatMesh` is the same split).  Each
+rank copies only its members to its device and runs them through the
+same loop, and the same kernels (K1-K3 over its members, the rule
+resolving at its member count); members are independent, so no value
+crosses ranks while they run.  **Result contract:** ``w`` and ``h`` are
+this rank's members; ``iterations``, ``cost``, ``cost_history``,
+``num_checks``, ``converged`` and ``momentum`` are every member's, on
+every rank (gathered once at the end), so any rank can pick a member;
+``gather_result(res, mesh, w_spec=(BOTH, None, None), h_spec=(BOTH,
+None, None))`` gives every member's factors.  The selection solves
+(:mod:`nmf_tpu_torch.models.selection`) split their members over the
+mesh's first axis instead, as JAX does.
 """
 
 from __future__ import annotations
@@ -39,7 +54,6 @@ import torch
 from ..models.masked import masked_kl, mu_step_masked
 from ..models.solver import (
     _DTYPES,
-    _MESH,
     SolveResult,
     _cost_fn,
     _family_step,
@@ -54,8 +68,19 @@ from ..utils.autotune import resolve_config
 from ..utils.config import SolveConfig
 from ..utils.convert import to_tensor
 from ..utils.device import resolve_device
+from .mesh import (
+    BOTH,
+    FlatMesh,
+    Placement,
+    axis_index,
+    axis_size,
+    check_mesh,
+    gather,
+    mesh_coordinate,
+    mesh_device,
+)
 
-__all__ = ["solve_batched", "run_batched_loop", "batched_step_cost"]
+__all__ = ["solve_batched", "run_batched_loop", "batched_step_cost", "gather_members"]
 
 _F32 = torch.float32
 
@@ -266,6 +291,33 @@ def _shape(a):
     return tuple(a.shape) if hasattr(a, "shape") else tuple(np.shape(a))
 
 
+def member_split(mesh, axes, b: int):
+    """This rank's span of ``b`` members split along ``axes`` of ``mesh``."""
+    size = axis_size(mesh, axes)
+    i, per = axis_index(mesh, axes), b // size
+    return slice(i * per, (i + 1) * per)
+
+
+def gather_members(res: SolveResult, mesh, axes, factors: bool = False) -> SolveResult:
+    """``res`` (this rank's members, split along ``axes``) with every
+    member's scalars on every rank, and with ``factors`` every member's W
+    and H too: a zero-padded sum over the axes, exact."""
+    dev = mesh_device(mesh)
+
+    def full(t):
+        if t is None:
+            return None
+        spec = (axes,) + (None,) * (t.dim() - 1)
+        dt, home = t.dtype, t.device
+        v = t.to(dev).to(torch.int32) if dt == torch.bool else t.to(dev)
+        return gather(v.contiguous(), Placement(mesh, spec)).to(dt).to(home)
+
+    names = ["iterations", "cost", "cost_history", "num_checks", "converged", "momentum"]
+    if factors:
+        names += ["w", "h", "w_ex", "h_ex"]
+    return dataclasses.replace(res, **{f: full(getattr(res, f)) for f in names})
+
+
 def _prep_members(x, w0, h0, config: SolveConfig, clamp_inputs: bool, mask, dev):
     """``_batched_prep_jit_cached`` (``nmf_tpu/parallel/batched.py:47-76``):
     clamp and casts, the unobserved entries zeroed, and int8 X quantized
@@ -310,11 +362,11 @@ def solve_batched(
     each member seeing only its own ``mask != 0`` entries (unobserved X may
     be NaN or Inf).  ``live_metrics`` is turned off, as in JAX.  The inputs
     go to ``device`` (``"cuda"`` by default; a CUDA request without a card
-    raises); ``mesh`` is refused.  Per-member convergence: module docstring.
+    raises), or with ``mesh`` (a ``DeviceMesh`` or ``FlatMesh``) to the
+    mesh's devices, each rank its members (module docstring).  Per-member
+    convergence: module docstring.
     """
     config.validate()
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     if config.live_metrics:
         # a per-member-per-check stream is noise (nmf_tpu batched.py:80-86)
         config = dataclasses.replace(config, live_metrics=False)
@@ -336,9 +388,33 @@ def solve_batched(
         raise ValueError(f"shape mismatch: X{sx} vs W{sw} @ H{sh}")
     if mask is not None and _shape(mask) != sx:
         raise ValueError(f"mask shape {_shape(mask)} != X shape {sx}")
-    dev = resolve_device(device)
+    b = sw[0]
+    if mesh is not None:
+        mesh = mesh.mesh if isinstance(mesh, FlatMesh) else check_mesh(mesh)
+        n_dev = axis_size(mesh, BOTH)
+        if b % n_dev:
+            raise ValueError(
+                f"batch {b} must divide the mesh's {n_dev} devices "
+                f"(the batch axis shards over ALL mesh axes)"
+            )
+        if mesh_coordinate(mesh) is None:
+            return None
+        # this rank's members only reach its device
+        span = member_split(mesh, BOTH, b)
+        x, w0, h0 = x[span], w0[span], h0[span]
+        mask = None if mask is None else mask[span]
+        b, dev = b // n_dev, mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
+    res = _solve_members(x, w0, h0, config, clamp_inputs, mask, dev, b)
+    return res if mesh is None else gather_members(res, mesh, BOTH)
+
+
+def _solve_members(x, w0, h0, config: SolveConfig, clamp_inputs: bool, mask, dev, b: int):
+    """The batched solve of ``b`` members on ``dev`` (checks done)."""
+    sw, sh = _shape(w0), _shape(h0)
     if mask is None:
-        config = resolve_config(config, sw[1], sw[2], sh[2], dev, "batched", members=sw[0])
+        config = resolve_config(config, sw[1], sw[2], sh[2], dev, "batched", members=b)
     x, w0, h0, mask = _prep_members(x, w0, h0, config, clamp_inputs, mask, dev)
     if mask is not None:
         eps, prec = config.eps, config.precision

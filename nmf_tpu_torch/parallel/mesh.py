@@ -23,15 +23,22 @@ the axis it is split over or None.  :func:`local_block` cuts a rank's
 block out of a global array; :func:`gather` puts the blocks of all ranks
 back together on every rank.
 
+A spec entry may also be a tuple of axes (JAX's ``P(('mr', 'mc'))``): the
+dimension is split over their ranks taken together, row-major (rank
+``(i, j)`` of an R x C mesh holds piece ``i * C + j``).  :class:`FlatMesh`
+reads a mesh's ranks as one such axis (JAX's ``Mesh(devices.flat,
+(name,))``), as the batched and restart solves flatten it.
+
 A rank beyond ``R * C`` of the world has no coordinate on the mesh and
 takes no part, as JAX's mesh takes the first ``R * C`` devices.
+:func:`shutdown` leaves a process group in order at the end of a run.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +52,7 @@ __all__ = [
     "ROW_AXIS",
     "COL_AXIS",
     "Placement",
+    "FlatMesh",
     "make_mesh",
     "check_mesh",
     "mesh_shape",
@@ -60,21 +68,34 @@ __all__ = [
     "psum",
     "gather",
     "init_distributed",
+    "shutdown",
 ]
 
 ROW_AXIS = "mr"  # shards M (rows of X / rows of W)
 COL_AXIS = "mc"  # shards N (cols of X / cols of H)
 BOTH = (ROW_AXIS, COL_AXIS)
 
-Spec = Tuple[Optional[str], ...]
+Axis = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Axis, ...]
 
 
 class Placement(NamedTuple):
     """A layout on a mesh: ``spec[d]`` is the axis that splits dimension
-    ``d``, or None (replicated) - JAX's ``NamedSharding(mesh, P(*spec))``."""
+    ``d``, a tuple of axes that split it together, or None (replicated) -
+    JAX's ``NamedSharding(mesh, P(*spec))``."""
 
     mesh: DeviceMesh
     spec: Spec
+
+
+class FlatMesh(NamedTuple):
+    """The ranks of a 2-D mesh read as ONE axis named ``name``: JAX's
+    ``Mesh(np.asarray(list(mesh.devices.flat)), (name,))``, which its CLI
+    and ``NMF`` build for pure data parallelism over members.  Its axis is
+    ``BOTH`` in a spec; it makes no process group of its own."""
+
+    mesh: DeviceMesh
+    name: str = "members"
 
 
 def mesh_shape(n: int, shape: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
@@ -148,9 +169,23 @@ def _dim(mesh: DeviceMesh, axis: str) -> int:
     return mesh.mesh_dim_names.index(axis)
 
 
-def axis_size(mesh: DeviceMesh, axis: str) -> int:
-    """The number of ranks along ``axis``."""
-    return int(mesh.shape[_dim(mesh, axis)])
+def _axes(axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axis_size(mesh: DeviceMesh, axis) -> int:
+    """The number of ranks along ``axis`` (a tuple of axes: their product)."""
+    return int(np.prod([int(mesh.shape[_dim(mesh, a)]) for a in _axes(axis)]))
+
+
+def axis_index(mesh: DeviceMesh, axis) -> int:
+    """This rank's index along ``axis``; along a tuple of axes, row-major
+    (JAX's order of ``P(('mr', 'mc'))``)."""
+    coord = mesh.get_coordinate()
+    i = 0
+    for a in _axes(axis):
+        i = i * int(mesh.shape[_dim(mesh, a)]) + int(coord[_dim(mesh, a)])
+    return i
 
 
 def factor_shapes(m: int, k: int, n: int, mesh: DeviceMesh) -> Tuple[Tuple[int, int], ...]:
@@ -217,7 +252,7 @@ def local_block(a, placement: Placement, device=None) -> torch.Tensor:
                 f"different mesh shape"
             )
         step = shape[d] // size
-        i = int(coord[_dim(mesh, axis)])
+        i = axis_index(mesh, axis)
         idx.append(slice(i * step, (i + 1) * step))
     dev = mesh_device(mesh) if device is None else device
     return to_tensor(a[tuple(idx)], dev).contiguous()
@@ -241,7 +276,7 @@ def psum(t: torch.Tensor, mesh: DeviceMesh, axis) -> torch.Tensor:
     or both as a tuple) and return it: JAX's ``lax.psum``.  A sum over one
     rank is the identity and makes no call, as XLA drops a psum over an
     axis of size 1.  Both axes: the row sum, then the column sum."""
-    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    axes = _axes(axis)
     if all(axis_size(mesh, a) == 1 for a in axes):
         return t
     buf = t.view(1) if t.dim() == 0 else t
@@ -260,16 +295,15 @@ def gather(t: torch.Tensor, placement: Placement) -> torch.Tensor:
     bits, and the sum runs on every backend (gloo takes no CUDA
     ``all_gather``)."""
     mesh, spec = placement
-    coord = mesh.get_coordinate()
     shape, idx, axes = list(t.shape), [], []
     for d, axis in enumerate(spec):
         if axis is None:
             idx.append(slice(None))
             continue
-        size, i = axis_size(mesh, axis), int(coord[_dim(mesh, axis)])
+        size, i = axis_size(mesh, axis), axis_index(mesh, axis)
         idx.append(slice(i * t.shape[d], (i + 1) * t.shape[d]))
         shape[d] = t.shape[d] * size
-        axes.append(axis)
+        axes.extend(_axes(axis))
     if all(axis_size(mesh, a) == 1 for a in axes):
         return t
     out = torch.zeros(shape, dtype=t.dtype, device=t.device)
@@ -327,3 +361,14 @@ def init_distributed(device="cuda", **kwargs) -> None:
             stacklevel=2,
         )
 
+
+def shutdown(barrier: bool = True) -> None:
+    """Leave this process's process groups in order at the end of a run:
+    a barrier (no rank tears down while another still sums; ``barrier=False``
+    for a rank that failed, whose peers may be inside a collective), then
+    every group destroyed.  A no-op without a group."""
+    if not dist.is_initialized():
+        return
+    if barrier:
+        dist.barrier()
+    dist.destroy_process_group()

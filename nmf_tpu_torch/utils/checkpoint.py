@@ -22,9 +22,15 @@ prepared (clamped, cast or quantized) once for the whole run and the
 factors kept on the device between segments.  The streamed solve
 checkpoints itself (``solve_out_of_core(checkpoint_dir=...)``).
 
-Not in the port yet: the sharded checkpoints (``save_checkpoint_sharded``,
-``load_checkpoint_sharded``, ``sharded_checkpoints=True``) and ``mesh=``,
-ROADMAP.md Queue 1 step 12b.
+On a mesh (``mesh=``, one process a rank) the segments are the sharded
+solve's (:func:`~nmf_tpu_torch.solve_sharded`'s loop on each rank's
+blocks, X prepared once).  By default the factors are gathered and rank 0
+writes the ``.bin`` checkpoint above, which either package and any mesh
+shape resumes.  ``sharded_checkpoints=True`` writes the port's own sharded
+format instead (:func:`save_checkpoint_sharded`: each rank its own blocks,
+``format`` ``"nmf_tpu_torch.sharded.v1"``).  The JAX package's sharded
+checkpoints are orbax directories (``"nmf_tpu.sharded.v1"``): neither
+package reads the other's sharded checkpoints, and each loader says so.
 """
 
 from __future__ import annotations
@@ -52,8 +58,9 @@ __all__ = [
 ]
 
 _META = "meta.json"
-_SHARDED = ("sharded checkpoints and mesh= (ROADMAP.md Queue 1 step 12b: checkpoints on a mesh) "
-            "are not in the PyTorch port yet")
+_FORMAT = "nmf_tpu.v1"
+SHARDED_FORMAT = "nmf_tpu_torch.sharded.v1"
+_JAX_SHARDED_FORMAT = "nmf_tpu.sharded.v1"   # the JAX package's orbax directories
 
 
 @dataclasses.dataclass
@@ -161,7 +168,7 @@ def save_checkpoint(directory: str, state: CheckpointState,
             # null when NaN: portable JSON
             "momentum": float(state.momentum) if state.momentum == state.momentum else None,
             "config": _config_fingerprint(config) if config else None,
-            "format": "nmf_tpu.v1",
+            "format": _FORMAT,
         }
         with open(os.path.join(tmp, _META), "w") as f:
             json.dump(meta, f)
@@ -190,16 +197,12 @@ def save_checkpoint(directory: str, state: CheckpointState,
 def load_checkpoint(step_dir: str, config: Optional[SolveConfig] = None) -> CheckpointState:
     """Load a checkpoint; with ``config``, refuse one written under another
     objective or trajectory (its fingerprint)."""
-    with open(os.path.join(step_dir, _META)) as f:
-        meta = json.load(f)
-    if config is not None and meta.get("config") is not None:
-        want = _config_fingerprint(config)
-        have = meta["config"]
-        if _fingerprint_mismatch(have, want):
-            raise ValueError(
-                f"checkpoint {step_dir} was written with config {have}, "
-                f"resume requested with {want}; refusing to mix objectives"
-            )
+    meta = _read_meta(step_dir, config)
+    if meta.get("format") in (SHARDED_FORMAT, _JAX_SHARDED_FORMAT):
+        raise ValueError(
+            f"checkpoint {step_dir} is a sharded checkpoint (format {meta['format']!r}), "
+            f"not a .bin one: {_SHARDED_READER[meta['format']]}"
+        )
     wex_path = os.path.join(step_dir, "Wex.bin")
     has_ex = os.path.exists(wex_path)
     return CheckpointState(
@@ -230,33 +233,203 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return os.path.join(directory, steps[-1]) if steps else None
 
 
-def save_checkpoint_sharded(*args, **kwargs):
-    """Refused: the sharded (orbax) checkpoints are ROADMAP.md Queue 1 step 12b."""
-    raise NotImplementedError(_SHARDED)
+_SHARDED_READER = {
+    SHARDED_FORMAT: "load it with load_checkpoint_sharded on the mesh shape that wrote it",
+    _JAX_SHARDED_FORMAT: "it is the JAX package's orbax format, which the PyTorch port "
+                         "does not read (resume it with nmf_tpu, or write .bin checkpoints)",
+}
 
 
-def load_checkpoint_sharded(*args, **kwargs):
-    """Refused: the sharded (orbax) checkpoints are ROADMAP.md Queue 1 step 12b."""
-    raise NotImplementedError(_SHARDED)
+def _read_meta(step_dir: str, config: Optional[SolveConfig]) -> dict:
+    """A step's ``meta.json``; with ``config``, the fingerprint refusal."""
+    with open(os.path.join(step_dir, _META)) as f:
+        meta = json.load(f)
+    if config is not None and meta.get("config") is not None:
+        want = _config_fingerprint(config)
+        have = meta["config"]
+        if _fingerprint_mismatch(have, want):
+            raise ValueError(
+                f"checkpoint {step_dir} was written with config {have}, "
+                f"resume requested with {want}; refusing to mix objectives"
+            )
+    return meta
 
 
-def _resume(directory: str, config: SolveConfig, w0, h0) -> Optional[CheckpointState]:
-    """The newest checkpoint's state, its shapes checked against the inputs."""
+def _durable(path: str, write) -> None:
+    """``write(f)`` into a staging file beside ``path``, fsynced, then
+    renamed onto ``path``: a reader sees the old file or the whole new one."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), prefix=".tmp_")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _shard_file(step_dir: str, coord) -> str:
+    return os.path.join(step_dir, f"shard_r{coord[0]:04d}_c{coord[1]:04d}.npz")
+
+
+def _all_ok(mesh, ok: bool) -> bool:
+    """A barrier over the mesh's ranks that also tells whether every rank
+    got through its part (a one-element sum over both axes, read back)."""
+    import torch
+
+    from ..parallel.mesh import BOTH, mesh_device, psum
+
+    bad = torch.tensor([0 if ok else 1], dtype=torch.int32, device=mesh_device(mesh))
+    return int(psum(bad, mesh, BOTH).cpu()[0]) == 0
+
+
+def _step_of_mesh(mesh, step_dir: str, part) -> None:
+    """Run ``part()`` on every rank of the mesh, then agree: if any rank
+    failed, every rank raises (the failed one its own error)."""
+    err = None
+    try:
+        part()
+    except BaseException as e:   # re-raised below, after the others have heard
+        err = e
+    if not _all_ok(mesh, err is None):
+        if err is not None:
+            raise err
+        raise RuntimeError(f"sharded checkpoint {step_dir}: another rank failed its part")
+
+
+def save_checkpoint_sharded(directory: str, state: CheckpointState,
+                            config: Optional[SolveConfig] = None, *, mesh,
+                            layout: str = "canonical") -> str:
+    """A checkpoint whose factors stay sharded: each rank of ``mesh`` writes
+    only its own blocks (``state.w``/``state.h``, and the extrapolated
+    pair, as tensors or arrays: the rank's blocks) to
+    ``step_NNNNNNNN/shard_rRRRR_cCCCC.npz``.  Every rank calls it.
+
+    The pod-safety rules of the JAX package's (``checkpoint.py:277-357``):
+    ``meta.json`` is written by the rank at (0, 0) only, and only after
+    every rank's shard is durable (each fsynced and renamed into place),
+    itself fsynced and renamed into place; a step being rewritten loses
+    its meta first; :func:`latest_checkpoint` sees a step only once it has
+    its meta; and the ranks meet after each part, so that none returns (or
+    reads the step) while another is still writing, and a failure on one
+    rank raises on all.  The meta records the mesh shape and the blocks'
+    ``layout`` (``"canonical"``, or the streamed solve's
+    ``"streamed:<block width>"``), which :func:`load_checkpoint_sharded`
+    checks.  Returns the step's path.
+    """
+    from ..parallel.mesh import COL_AXIS, ROW_AXIS, axis_size, check_mesh, mesh_coordinate
+
+    mesh = check_mesh(mesh)
+    coord = mesh_coordinate(mesh)
+    lead = coord == (0, 0)
+    step_dir = os.path.abspath(os.path.join(directory, f"step_{state.iteration:08d}"))
+    meta_path = os.path.join(step_dir, _META)
+
+    def hide():
+        os.makedirs(step_dir, exist_ok=True)
+        if lead and os.path.exists(meta_path):
+            os.unlink(meta_path)    # a rewritten step is invisible until its new meta
+
+    def shard():
+        arrays = {"w": _f32(state.w), "h": _f32(state.h)}
+        if state.w_ex is not None:
+            arrays.update(w_ex=_f32(state.w_ex), h_ex=_f32(state.h_ex))
+        _durable(_shard_file(step_dir, coord), lambda f: np.savez(f, **arrays))
+
+    def meta():
+        if not lead:
+            return
+        body = {
+            "iteration": int(state.iteration),
+            "cost_history": [float(c) for c in state.cost_history],
+            "converged": bool(state.converged),
+            "check_iterations": (
+                [int(i) for i in state.check_iterations]
+                if state.check_iterations is not None else None
+            ),
+            "momentum": float(state.momentum) if state.momentum == state.momentum else None,
+            "has_extrap": state.w_ex is not None,
+            "config": _config_fingerprint(config) if config else None,
+            "format": SHARDED_FORMAT,
+            "mesh": [axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)],
+            "layout": layout,
+        }
+        _durable(meta_path, lambda f: f.write(json.dumps(body).encode()))
+
+    for part in (hide, shard, meta):
+        _step_of_mesh(mesh, step_dir, part)
+    return step_dir
+
+
+def load_checkpoint_sharded(step_dir: str, mesh, config: Optional[SolveConfig] = None,
+                            layout: Optional[str] = "canonical") -> CheckpointState:
+    """This rank's blocks of a :func:`save_checkpoint_sharded` step (f32
+    NumPy arrays), with the replicated scalars.  With ``config``, the
+    fingerprint refusal of :func:`load_checkpoint`.  A step written on
+    another mesh shape, or in another ``layout`` (None: any), raises
+    ``ValueError``: each rank's file holds the writer's blocks."""
+    from ..parallel.mesh import COL_AXIS, ROW_AXIS, axis_size, check_mesh, mesh_coordinate
+
+    mesh = check_mesh(mesh)
+    meta = _read_meta(step_dir, config)
+    fmt = meta.get("format")
+    if fmt != SHARDED_FORMAT:
+        hint = (_SHARDED_READER[_JAX_SHARDED_FORMAT] if fmt == _JAX_SHARDED_FORMAT
+                else "load it with load_checkpoint")
+        raise ValueError(f"checkpoint {step_dir} is not a sharded checkpoint of the PyTorch "
+                         f"port (format {fmt!r}): {hint}")
+    here = [axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)]
+    if list(meta["mesh"]) != here:
+        raise ValueError(
+            f"checkpoint {step_dir} was written on a {meta['mesh'][0]}x{meta['mesh'][1]} mesh "
+            f"and this run's mesh is {here[0]}x{here[1]}: each rank's shard holds the writer's "
+            f"blocks; resume on the writer's mesh shape, or write gathered .bin checkpoints "
+            f"(sharded_checkpoints=False), which any mesh resumes"
+        )
+    if layout is not None and meta.get("layout") != layout:
+        raise ValueError(f"checkpoint {step_dir} holds the {meta.get('layout')!r} layout of "
+                         f"the factors, this run reads {layout!r}")
+    with np.load(_shard_file(step_dir, mesh_coordinate(mesh))) as z:
+        arrays = {key: z[key] for key in z.files}
+    return CheckpointState(
+        w=arrays["w"], h=arrays["h"], w_ex=arrays.get("w_ex"), h_ex=arrays.get("h_ex"),
+        iteration=int(meta["iteration"]),
+        cost_history=list(meta.get("cost_history", [])),
+        converged=bool(meta.get("converged", False)),
+        check_iterations=meta.get("check_iterations"),
+        momentum=float(meta["momentum"]) if meta.get("momentum") is not None else float("nan"),
+    )
+
+
+def _resume(directory: str, config: SolveConfig, w0, h0, mesh=None,
+            sharded: bool = False) -> Optional[CheckpointState]:
+    """The newest checkpoint's state, its shapes checked against the inputs
+    (a sharded one's against this rank's blocks of them)."""
     latest = latest_checkpoint(directory)
     if latest is None:
         return None
-    state = load_checkpoint(latest, config)
-    if tuple(np.shape(state.w)) != tuple(np.shape(w0)) or tuple(np.shape(state.h)) != tuple(np.shape(h0)):
+    want_w, want_h = tuple(np.shape(w0)), tuple(np.shape(h0))
+    if sharded:
+        from ..parallel.mesh import factor_shapes
+
+        state = load_checkpoint_sharded(latest, mesh, config)
+        _, want_w, want_h = factor_shapes(want_w[0], want_w[1], want_h[1], mesh)
+    else:
+        state = load_checkpoint(latest, config)
+    if tuple(np.shape(state.w)) != want_w or tuple(np.shape(state.h)) != want_h:
         raise ValueError(
             f"checkpoint shapes {np.shape(state.w)}/{np.shape(state.h)} "
-            f"do not match inputs {np.shape(w0)}/{np.shape(h0)}"
+            f"do not match inputs {want_w}/{want_h}"
         )
     return state
 
 
 def solve_with_checkpoints(x, w0, h0, config: SolveConfig, directory: str, every: int = 100,
                            resume: bool = True, mesh=None, sharded_checkpoints: bool = False,
-                           device="cuda") -> CheckpointState:
+                           device="cuda") -> Optional[CheckpointState]:
     """Checkpointed (and resumable) solve (``checkpoint.py:420-704`` of the
     JAX package).
 
@@ -284,8 +457,14 @@ def solve_with_checkpoints(x, w0, h0, config: SolveConfig, directory: str, every
     that resumed equals uninterrupted bit for bit, as JAX's docstring
     promises.  Fresh inputs get the reference's load-time clamp in both.
 
-    ``mesh`` and ``sharded_checkpoints`` are refused (ROADMAP.md Queue 1
-    step 12b).
+    ``mesh`` (every rank calls it with the same global inputs): each rank
+    prepares its blocks of X once (the tiled solve: its tiles) and each
+    segment is the sharded loop on its blocks, on the mesh's devices.  By
+    default the factors are gathered and the rank at (0, 0) writes the
+    ``.bin`` checkpoint, and every rank returns the global state;
+    ``sharded_checkpoints=True`` writes :func:`save_checkpoint_sharded`'s
+    format, each rank its own blocks, and returns this rank's blocks
+    (dense X only, as in JAX).  A rank outside the mesh gets None.
     """
     import torch
 
@@ -298,14 +477,42 @@ def solve_with_checkpoints(x, w0, h0, config: SolveConfig, directory: str, every
         raise ValueError("every must be >= 1")
     if sharded_checkpoints and mesh is None:
         raise ValueError("sharded_checkpoints=True requires a mesh")
-    if mesh is not None or sharded_checkpoints:
-        raise NotImplementedError(_SHARDED)
-    dev = resolve_device(device)
+    tiled = isinstance(x, TileSparseX)
+    if tiled and sharded_checkpoints:
+        raise NotImplementedError(
+            "tile-sparse checkpointing stores the cropped logical "
+            "factors; orbax sharded checkpoints would need padded-shape "
+            "restore plumbing — use the default host checkpoints"
+        )
+    if mesh is not None:
+        from ..parallel.mesh import (
+            COL_AXIS,
+            ROW_AXIS,
+            Placement,
+            check_mesh,
+            local_block,
+            mesh_coordinate,
+            mesh_device,
+        )
+        from ..parallel.sharded import (
+            _fused_for,
+            _local_problem,
+            build_sharded_solver,
+            gather_result,
+        )
+
+        mesh = check_mesh(mesh)
+        if mesh_coordinate(mesh) is None:
+            return None
+        dev = mesh_device(mesh)
+        w_place, h_place = Placement(mesh, (ROW_AXIS, None)), Placement(mesh, (None, COL_AXIS))
+    else:
+        dev = resolve_device(device)
 
     start_iter, cost_history, check_iterations = 0, [], []
     last_mom, last_ex, converged = float("nan"), None, False
     w, h = w0, h0
-    state = _resume(directory, config, w0, h0) if resume else None
+    state = _resume(directory, config, w0, h0, mesh, sharded_checkpoints) if resume else None
     if state is not None:
         w, h, start_iter = state.w, state.h, state.iteration
         cost_history = state.cost_history
@@ -315,23 +522,56 @@ def solve_with_checkpoints(x, w0, h0, config: SolveConfig, directory: str, every
         if state.w_ex is not None:
             last_ex = (state.w_ex, state.h_ex)
 
-    if isinstance(x, TileSparseX):
+    def lay(a, place):
+        """A resumed factor as this run holds it: a gathered checkpoint's
+        global factor cut to this rank's block on a mesh."""
+        if mesh is None or sharded_checkpoints:
+            return a
+        return local_block(a, place, "cpu")
+
+    if tiled:
         # tiles, plans and padded factors prepared once; the files hold the
         # cropped factors, and a resumed carry is padded back with zeros
         # (the padded rows and columns see zero numerators)
-        xarg, w_dev, h_dev, info = _prepare_tiled(x, w, h, config, _CHUNK, x.tile_shape, dev)
+        xarg, w_dev, h_dev, info = _prepare_tiled(x, w, h, config, _CHUNK, x.tile_shape, dev,
+                                                  mesh=mesh)
         m, n = info["m"], info["n"]
+
+        def padded(a, like, rows: bool):
+            """A cropped global factor padded with zeros (this rank's block
+            of it on a mesh), unclamped, in the state dtype."""
+            full = torch.zeros((info["mp"], like.shape[1]) if rows else
+                               (like.shape[0], info["np_"]), dtype=torch.float32)
+            t = torch.from_numpy(np.asarray(a, np.float32))
+            if rows:
+                full[:m] = t
+            else:
+                full[:, :n] = t
+            if mesh is not None:
+                full = local_block(full, w_place if rows else h_place, "cpu")
+            return to_state(full, config, dev, clamp=False)
+
         if state is not None:   # resumed factors go in unclamped (docstring)
-            w_dev[:m] = to_state(state.w, config, dev, clamp=False)
-            h_dev[:, :n] = to_state(state.h, config, dev, clamp=False)
+            w_dev, h_dev = padded(state.w, w_dev, True), padded(state.h, h_dev, False)
         if last_ex is not None:
-            wex, hex_ = torch.zeros_like(w_dev), torch.zeros_like(h_dev)
-            wex[:m] = to_state(last_ex[0], config, dev, clamp=False)
-            hex_[:, :n] = to_state(last_ex[1], config, dev, clamp=False)
-            last_ex = (wex, hex_)
+            last_ex = (padded(last_ex[0], w_dev, True), padded(last_ex[1], h_dev, False))
 
         def segment(w_dev, h_dev, seg_cfg, last_cost, last_mom, last_ex):
             return _run_tiled(xarg, w_dev, h_dev, seg_cfg, info, last_cost, last_mom, last_ex)
+    elif mesh is not None:
+        m = n = None
+        fused = _fused_for(config, w0, h0, mesh, "sharded")
+        x_dev, w_dev, h_dev = _local_problem(x, w0, h0, config, True, mesh)
+        if state is not None:   # resumed factors go in unclamped (docstring)
+            w_dev = to_state(lay(state.w, w_place), config, dev, clamp=False)
+            h_dev = to_state(lay(state.h, h_place), config, dev, clamp=False)
+        if last_ex is not None:
+            last_ex = (to_state(lay(last_ex[0], w_place), config, dev, clamp=False),
+                       to_state(lay(last_ex[1], h_place), config, dev, clamp=False))
+
+        def segment(w_dev, h_dev, seg_cfg, last_cost, last_mom, last_ex):
+            return build_sharded_solver(seg_cfg, mesh, fused)(
+                x_dev, w_dev, h_dev, last_cost, last_mom, initial_extrap=last_ex)
     else:
         m = n = None   # nothing to crop
         x_dev, w_dev, h_dev = _prep(x, w, h, config, True, dev)
@@ -346,9 +586,26 @@ def solve_with_checkpoints(x, w0, h0, config: SolveConfig, directory: str, every
                          initial_extrap=last_ex)
     del w, h
 
-    def host(w_t, h_t):
-        """The logical (cropped) factors as f32 NumPy arrays."""
-        return _f32(w_t[:m]), _f32(h_t[:, :n])
+    def host(res):
+        """The state's factors (and carry) as f32 NumPy arrays: global and
+        cropped, or this rank's blocks under ``sharded_checkpoints``."""
+        if mesh is not None and not sharded_checkpoints:
+            res = gather_result(res, mesh)
+        out = []
+        for a, rows in ((res.w, True), (res.h, False), (res.w_ex, True), (res.h_ex, False)):
+            if a is not None and not sharded_checkpoints:
+                a = a[:m] if rows else a[:, :n]
+            out.append(None if a is None else _f32(a))
+        return out
+
+    def write(state):
+        if sharded_checkpoints:
+            save_checkpoint_sharded(directory, state, config, mesh=mesh)
+        elif mesh is None:
+            save_checkpoint(directory, state, config)
+        else:   # the (0, 0) rank writes, and the mesh meets after it
+            _step_of_mesh(mesh, directory, lambda: mesh_coordinate(mesh) == (0, 0)
+                          and save_checkpoint(directory, state, config))
 
     it = start_iter
     last_cost = cost_history[-1] if cost_history else float("nan")
@@ -372,12 +629,16 @@ def solve_with_checkpoints(x, w0, h0, config: SolveConfig, directory: str, every
         if res.w_ex is not None:
             last_ex = (res.w_ex, res.h_ex)
         converged = bool(res.converged)
-        w_ex, h_ex = host(res.w_ex, res.h_ex) if res.w_ex is not None else (None, None)
-        state = CheckpointState(*host(res.w, res.h), it, cost_history, converged,
-                                check_iterations, momentum=last_mom, w_ex=w_ex, h_ex=h_ex)
-        save_checkpoint(directory, state, config)
+        w_h, h_h, w_ex, h_ex = host(res)
+        state = CheckpointState(w_h, h_h, it, cost_history, converged, check_iterations,
+                                momentum=last_mom, w_ex=w_ex, h_ex=h_ex)
+        write(state)
     if state is None:
         # a resumed run that was already complete: no segment ran
-        state = CheckpointState(*host(w_dev, h_dev), it, cost_history, converged,
-                                check_iterations, momentum=last_mom)
+        from ..models.solver import SolveResult
+
+        w_h, h_h, _, _ = host(SolveResult(w=w_dev, h=h_dev, iterations=None, cost=None,
+                                          cost_history=None, num_checks=None, converged=None))
+        state = CheckpointState(w_h, h_h, it, cost_history, converged, check_iterations,
+                                momentum=last_mom)
     return state

@@ -4,6 +4,7 @@
     python3 probe_timings.py sweep-per                 # K5 against its chunk length
     python3 probe_timings.py flagship --root PATH      # K1/K2 of the port under PATH
     python3 probe_timings.py kl --root PATH            # K3 of the port under PATH
+    python3 probe_timings.py tiled-mesh                # the tiled loop on a 1x1 mesh
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -22,6 +23,13 @@ in turns (A, B, B, A) in one call to compare them on one card.
 mode of the streamed cost pass (phase 9a's operands, f32 recon), and at
 the flagship under ``float32``, ``bfloat16`` and ``float32_fast`` (phase
 7's operands); run it for two trees in turns, as ``flagship``.
+
+``tiled-mesh``: the tile-sparse loop at ``chip_smoke.TS_MAIN`` under
+``auto`` (K5), 200 iterations, on one device before any process group
+exists, then on a 1x1 NCCL mesh and on one device in turns (host seconds
+of ``_run_tiled`` on prepared payloads, ending in a synchronize), and one
+loop of each under ``torch.profiler``: its device busy seconds, kernel
+launches and host-side operator events.
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -139,9 +147,59 @@ def kl(cs, card, root):
     print(json.dumps({"card": card, "probe": "kl", "root": str(root), "ms": res}), flush=True)
 
 
+def tiled_mesh(cs, card):
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import sparse_tiled as st
+    from nmf_tpu_torch.parallel.mesh import shutdown
+
+    m, n, k, t, occ, seed = cs.TS_MAIN
+    x, w, h = cs.tile_problem(m, k, n, t, occ, seed)
+    tx = nt.tiles_from_dense(x, (t, t))
+    cfg = nt.SolveConfig(max_iter=200, check_every=25)
+
+    def prepared(mesh):
+        dev = None if mesh is not None else torch.device("cuda")
+        prep = st._prepare_tiled(tx, w, h, cfg, st._CHUNK, (t, t), dev, mesh=mesh)
+        st._run_tiled(*prep[:3], dataclasses.replace(cfg, max_iter=2), prep[3])   # warm
+        return prep
+
+    def loop_s(prep):
+        return cs._timed(lambda: st._run_tiled(*prep[:3], cfg, prep[3]))[1]
+
+    def profiled(prep, d):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loop_s(prep)
+        path = f"{d}/trace.json"
+        prof.export_chrome_trace(path)
+        events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+        return {"busy_s": cs._device_shares(path)["busy"],
+                "kernels": sum(e.get("cat") == "kernel" for e in events),
+                "cpu_ops": sum(e.get("cat") == "cpu_op" for e in events)}
+
+    single = prepared(None)
+    res = {"single, no group": [loop_s(single) for _ in range(3)], "mesh": [], "single": []}
+    mesh = nt.make_mesh((1, 1), device="cuda")
+    meshed = prepared(mesh)
+    for i in range(4):
+        for tag in (("mesh", "single") if i % 2 == 0 else ("single", "mesh")):
+            res[tag].append(loop_s(meshed if tag == "mesh" else single))
+    with tempfile.TemporaryDirectory(prefix="nmf_probe_") as d:
+        prof = {tag: profiled(prep, d) for tag, prep in (("mesh", meshed), ("single", single))}
+    shutdown()
+    print(json.dumps({"card": card, "probe": "tiled-mesh", "iterations": cfg.max_iter,
+                      "loop_s": res, "profile": prof}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("sweep-per", "flagship", "kl"))
+    ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -159,6 +217,8 @@ def main(argv=None) -> int:
         sweep_per(cs, card)
     elif args.probe == "flagship":
         flagship(cs, card, args.root)
+    elif args.probe == "tiled-mesh":
+        tiled_mesh(cs, card)
     else:
         kl(cs, card, args.root)
     return 0

@@ -252,8 +252,10 @@ def test_solve_batched_refuses_as_nmf_tpu(case):
 
 
 def test_solve_batched_refuses_a_mesh():
+    """A mesh is ported (tests/test_torch_mesh_paths.py): what is not a
+    ``make_mesh`` DeviceMesh (or a FlatMesh of one) is refused."""
     xs, ws, hs = _stack(3, b=2)
-    with pytest.raises(NotImplementedError, match="step 12"):
+    with pytest.raises(TypeError, match="make_mesh"):
         pt.solve_batched(xs, ws, hs, mesh=object(), device="cpu")
 
 

@@ -466,17 +466,34 @@ def test_refusals_match_jax(tmp_path, case):
 
 @pytest.mark.parametrize("call", ["mesh", "sharded", "save_sharded", "load_sharded"])
 def test_sharded_paths_name_step_12(tmp_path, call):
+    """The mesh paths and the sharded checkpoints, refused naming ROADMAP.md
+    Queue 1 step 12 when this test was named, are ported
+    (tests/test_torch_mesh_paths.py runs them on gloo ranks): what is not a
+    ``make_mesh`` DeviceMesh is refused, and a sharded checkpoint of the
+    JAX package (an orbax directory) is refused by both loaders, naming its
+    format."""
+    import json
+
     x, w, h = _problem()
+    if call == "load_sharded":
+        step = tmp_path / "step_00000010"
+        step.mkdir()
+        (step / "meta.json").write_text(json.dumps({"iteration": 10,
+                                                    "format": "nmf_tpu.sharded.v1"}))
+        with pytest.raises(ValueError, match="orbax format"):
+            pck.load_checkpoint(str(step))
+        with pytest.raises(TypeError, match="make_mesh"):
+            pck.load_checkpoint_sharded(str(step), None)
+        return
     fn = {
         "mesh": lambda: pck.solve_with_checkpoints(x, w, h, pt.SolveConfig(), str(tmp_path),
                                                    mesh=object(), device="cpu"),
         "sharded": lambda: pck.solve_with_checkpoints(x, w, h, pt.SolveConfig(), str(tmp_path),
                                                       mesh=object(), sharded_checkpoints=True,
                                                       device="cpu"),
-        "save_sharded": lambda: pck.save_checkpoint_sharded(str(tmp_path), None),
-        "load_sharded": lambda: pck.load_checkpoint_sharded(str(tmp_path), None, None),
+        "save_sharded": lambda: pck.save_checkpoint_sharded(str(tmp_path), None, mesh=object()),
     }[call]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 step 12"):
+    with pytest.raises(TypeError, match="make_mesh"):
         fn()
 
 

@@ -89,7 +89,7 @@ def test_run_with_random_init(tmp_path):
         ["--beta", "2"],
         ["--checkpoint-dir", "ckpt"],
         ["--strict-compat"],
-        ["--mesh", "2x1", "--out-of-core"],
+        ["--mesh", "1x1", "--out-of-core"],
         ["--restarts", "4"],
     ],
 )
@@ -107,8 +107,11 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     is ported: it runs through both CLIs (:func:`_ckpt_both_clis`).
     ``--mesh`` is ported (tests/test_torch_mesh.py runs it under
     ``torch.distributed.run``): without a launcher a 2x1 mesh exits 2 naming
-    the launcher; with ``--out-of-core`` it is refused naming ROADMAP.md
-    step 12b."""
+    the launcher.  ``--mesh`` with ``--out-of-core``, refused naming
+    ROADMAP.md step 12b when this test was named, runs: a 1x1 mesh in this
+    process matches the JAX CLI's single-device streamed run
+    (tests/test_torch_mesh_paths.py runs wider meshes under
+    ``torch.distributed.run``)."""
     if flags[0] == "--checkpoint-dir":
         _ckpt_both_clis(tmp_path, [])
         return
@@ -117,13 +120,16 @@ def test_refused_flag_exits_2(capsys, tmp_path, flags):
     if flags[0] in ("--accelerate", "--strict-compat", "--beta", "--mask"):
         _run_both_clis(tmp_path, flags)
         return
+    if flags[:2] == ["--mesh", "1x1"]:
+        _run_both_clis(tmp_path, flags, jax_flags=flags[2:])
+        return
     rc = cli.main(["run", "X.bin", "W.bin", "H.bin", "--device", "cpu", *flags])
     assert rc == 2
     err = capsys.readouterr().err
     if flags[0] in ("--dtype", "--x-dtype", "--backend", "--no-cost", "--restarts"):
         assert "file not found" in err and "ROADMAP.md" not in err
         return
-    if flags == ["--mesh", "2x1"]:
+    if flags[:2] == ["--mesh", "2x1"]:
         assert "--mesh 2x1 needs 2 ranks" in err and "torch.distributed.run" in err
         return
     assert flags[0] in err and "ROADMAP.md" in err
@@ -165,15 +171,17 @@ def test_non_default_value_refused(capsys, tmp_path, flags, item):
     assert item in err and "file not found" not in err
 
 
-def _run_both_clis(tmp_path, flags):
-    """``run`` with ``flags`` through both CLIs on a small problem: the files
-    agree to rtol 1e-4 / atol 1e-6 (test_gen_then_run_matches_jax's)."""
+def _run_both_clis(tmp_path, flags, jax_flags=None):
+    """``run`` with ``flags`` through both CLIs (the JAX CLI with
+    ``jax_flags`` where given) on a small problem: the files agree to rtol
+    1e-4 / atol 1e-6 (test_gen_then_run_matches_jax's)."""
     _write_problem(tmp_path, 40, 4, 30, 2)
     files = [str(tmp_path / f"{s}.bin") for s in "XWH"]
-    common = ["--max-iter", "50", "--check-every", "10", "-q", *flags]
+    common = ["--max-iter", "50", "--check-every", "10", "-q"]
+    jax_flags = flags if jax_flags is None else jax_flags
     out = {tag: [str(tmp_path / f"{f}{tag}.bin") for f in "WH"] for tag in "pj"}
-    assert cli.main(["run", *files, "-o", *out["p"], "--device", "cpu", *common]) == 0
-    assert _jax_cli(["run", *files, "-o", *out["j"], *common], tmp_path) == 0
+    assert cli.main(["run", *files, "-o", *out["p"], "--device", "cpu", *common, *flags]) == 0
+    assert _jax_cli(["run", *files, "-o", *out["j"], *common, *jax_flags], tmp_path) == 0
     for ours, ref in zip(out["p"], out["j"]):
         np.testing.assert_allclose(jbin.read_matrix(ours), jbin.read_matrix(ref),
                                    rtol=1e-4, atol=1e-6)
@@ -1167,7 +1175,9 @@ def test_batch_matches_jax_cli(tmp_path, capsys, extra):
 @pytest.mark.parametrize("case", ["empty", "shapes", "out_of_core", "mesh"])
 def test_batch_refusals(tmp_path, capsys, case):
     """An empty directory and mixed shapes exit 2 with the JAX CLI's words;
-    the modes a batch lacks exit 2, ``--mesh`` naming its ROADMAP.md step."""
+    the modes a batch lacks exit 2.  ``--mesh``, refused naming its ROADMAP.md
+    step when this test was named, is ported (tests/test_torch_mesh_paths.py
+    runs it on gloo ranks): without a launcher it exits 2 naming one."""
     d = tmp_path / "d"
     d.mkdir()
     flags = {"out_of_core": ["--out-of-core"], "mesh": ["--mesh", "2x1"]}.get(case, [])
@@ -1178,7 +1188,7 @@ def test_batch_refusals(tmp_path, capsys, case):
     assert _port_cli(args, tmp_path) == 2
     ours = capsys.readouterr().err
     if case == "mesh":
-        assert "--mesh" in ours and "ROADMAP.md" in ours
+        assert "--mesh 2x1 needs 2 ranks" in ours and "torch.distributed.run" in ours
         return
     assert _jax_cli(args, tmp_path) == 2
     ref = capsys.readouterr().err

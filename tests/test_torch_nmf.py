@@ -414,7 +414,7 @@ def test_nmf_sklearn_clone():
 @pytest.mark.parametrize(
     "kw,call,err,match",
     [
-        (dict(n_restarts=3, mesh=object()), "fit", NotImplementedError, "step 12b"),
+        (dict(n_restarts=3), "fit_mesh", None, None),
         (dict(n_restarts=3), "fit_w0", ValueError, "cannot honor explicit"),
         (dict(mesh=object()), "fit", TypeError, "make_mesh"),
         (dict(beta_loss=2.0), "mask", NotImplementedError, "KL \\(beta=1\\) MU family"),
@@ -427,11 +427,29 @@ def test_nmf_refusals(kw, call, err, match):
     """What ``NMF`` refuses.  ``transform(mask=...)``, refused when this test
     was named, is ported: a masked transform of the Euclidean family is
     refused as ``nmf_tpu`` refuses it (the masked solve is KL MU).
-    ``n_restarts > 1`` is ported too (``test_nmf_restarts_match_nmf_tpu``):
-    with a mesh it is refused for the mesh (ROADMAP.md step 12b).  ``mesh``
-    is ported (tests/test_torch_mesh.py): what is not a ``make_mesh``
-    DeviceMesh is refused."""
+    ``n_restarts > 1`` is ported too (``test_nmf_restarts_match_nmf_tpu``),
+    and so is it on a mesh, refused naming ROADMAP.md step 12b when this
+    case was written: on a one-rank (1x1) gloo mesh in this process it keeps
+    nmf_tpu's member and factors (``test_nmf_restarts_match_nmf_tpu``'s
+    tolerances); tests/test_torch_mesh_paths.py runs it on four ranks.
+    ``mesh`` is ported (tests/test_torch_mesh.py): what is not a
+    ``make_mesh`` DeviceMesh is refused."""
     x, w, h = _problem()
+    if call == "fit_mesh":
+        from nmf_tpu_torch.parallel.mesh import shutdown
+
+        fit = dict(n_components=4, max_iter=30, init="random", random_state=2, **kw)
+        ref = jt.NMF(**fit).fit(x)
+        mesh = pt.make_mesh((1, 1), device="cpu")
+        try:
+            ours = pt.NMF(mesh=mesh, **fit).fit(x)
+        finally:
+            shutdown()
+        np.testing.assert_allclose(ours.w_, np.asarray(ref.w_), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(ours.components_, np.asarray(ref.components_), rtol=RTOL,
+                                   atol=ATOL)
+        assert ours.reconstruction_err_ == pytest.approx(ref.reconstruction_err_, rel=COST_RTOL)
+        return
     ep = pt.NMF(n_components=5, max_iter=3, device="cpu", **kw)
     with pytest.raises(err, match=match):
         if call == "fit":

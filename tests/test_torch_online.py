@@ -200,8 +200,10 @@ def test_refusals_match_jax(planted, cfg, kw, exc):
 
 
 def test_mesh_refused(planted):
+    """A mesh is ported (tests/test_torch_mesh_paths.py): what is not a
+    ``make_mesh`` DeviceMesh is refused."""
     x, w0 = planted
-    with pytest.raises(NotImplementedError, match="step 12"):
+    with pytest.raises(TypeError, match="make_mesh"):
         pt.solve_online(x, w0, mesh=object(), device="cpu")
 
 

@@ -232,7 +232,9 @@ def test_selection_refuses_as_nmf_tpu(problem, call):
 
 
 def test_selection_refuses_a_mesh(problem):
-    with pytest.raises(NotImplementedError, match="step 12"):
+    """A mesh is ported (tests/test_torch_mesh_paths.py): what is not a
+    ``make_mesh`` DeviceMesh (or a FlatMesh of one) is refused."""
+    with pytest.raises(TypeError, match="make_mesh"):
         pt.solve_restarts(problem, rank=4, n_restarts=2, mesh=object(), device="cpu")
 
 

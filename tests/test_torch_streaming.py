@@ -421,7 +421,7 @@ def test_validation_errors_match_jax(problem, kw, exc):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"mesh": object()}, "step 12b"),
+        pytest.param({"mesh": "1x1"}, "mesh", id="kw0-step 12b"),
         ({"mask": np.ones((96, 1000), np.float32)}, "ported"),
         ({"n_frozen": 2}, "ported"),
         ({"checkpoint_dir": "ck"}, "item 13"),
@@ -451,9 +451,25 @@ def test_unported_options_are_refused_naming_their_item(problem, tmp_path, kw, i
     ``meta.json`` keys, its last ``W.bin`` the bytes of its result; the
     live emissions are JAX's (tests/test_torch_live.py's bars).
     ``backend="autotune"`` (ROADMAP.md item 7), refused when this test was
-    named, runs too: the bits of ``auto`` on the CPU."""
+    named, runs too: the bits of ``auto`` on the CPU.  ``mesh`` (ROADMAP.md
+    step 12b when this test was named) runs too: on a one-rank (1x1) gloo
+    mesh in this process it matches ``nmf_tpu``'s single-device streamed
+    solve to this file's tolerances (tests/test_torch_mesh_paths.py holds
+    the wider meshes to it)."""
     x, w, h = problem
     kw = dict(kw)
+    if item == "mesh":
+        from nmf_tpu_torch.parallel.mesh import make_mesh, shutdown
+
+        jc, tc = _configs(max_iter=10, check_every=5)
+        ref = js.solve_out_of_core(x, w, h, jc, block_n=256)
+        mesh = make_mesh((1, 1), device="cpu")
+        try:
+            ours = ts.solve_out_of_core(x, w, h, tc, block_n=256, mesh=mesh)
+        finally:
+            shutdown()
+        _assert_match(ours, ref)
+        return
     if "checkpoint_dir" in kw:
         import json
         import os

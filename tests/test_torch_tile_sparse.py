@@ -611,7 +611,7 @@ def _refusal_cases():
     bad_ids = dataclasses.replace(tx, rows=np.asarray(tx.rows) * 32)   # element indices
     neg = dataclasses.replace(tx, tiles=-np.asarray(tx.tiles))
     return {
-        "mesh": (dict(x=tx, mesh=object()), NotImplementedError, "mesh"),
+        "mesh": (dict(x=tx, mesh=object()), TypeError, "make_mesh"),
         "accelerate": (dict(x=tx, config=dataclasses.replace(cfg, accelerate=True)),
                        NotImplementedError, "accelerate"),
         "live_metrics": (dict(x=tx, config=dataclasses.replace(cfg, live_metrics=True)),
@@ -633,7 +633,9 @@ def test_refusals(problems, case):
     """Each case raises its error; ``accelerate``, refused when this test
     was named, runs on the same hand-built tiles and matches
     ``nmf_tpu.solve_sparse_tiled`` (SOLVE_TOL, the momentum bit for bit);
-    so does ``live_metrics``, its emissions JAX's."""
+    so does ``live_metrics``, its emissions JAX's.  ``mesh``, refused when
+    this test was named, is ported (tests/test_torch_mesh_paths.py): what
+    is not a ``make_mesh`` DeviceMesh is refused."""
     kw, err, match = _refusal_cases()[case]
     _, w, h = problems["tiled"]
     if case == "accelerate":

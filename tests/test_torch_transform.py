@@ -207,7 +207,7 @@ def test_nmf_transform_out_of_core_matches_jax(tmp_path):
     [
         (dict(mask=np.ones((M, N), np.float32), config=pt.SolveConfig(beta=2.0)),
          NotImplementedError, "KL \\(beta=1\\) MU family"),
-        (dict(mesh=object()), NotImplementedError, "step 12"),
+        (dict(mesh=object()), TypeError, "make_mesh"),
         (dict(config=pt.SolveConfig(backend="pallas",
                                     precision=pt.Precision(x_dtype="int8", x_quant_rows=8))),
          NotImplementedError, "per-row-block"),

@@ -7,8 +7,9 @@ ROWS x COLS mesh of ``nmf_tpu_torch`` on the CPU and runs every case of
 ``GROUPS[(ROWS, COLS)]`` on the problem of ``tests/test_sharded.py``
 (``RandomState(3)``, 128 x 16 x 160).  Rank 0 writes each case's gathered
 result to ``OUT_DIR/<case>.npz``; every rank writes its own scalars, its
-live-metrics lines and any error to ``OUT_DIR/<case>.r<RANK>.json``.  Imports
-torch, NumPy and ``nmf_tpu_torch`` only.
+live-metrics lines and any error to ``OUT_DIR/<case>.r<RANK>.json``.  The rank
+leaves through ``nmf_tpu_torch.parallel.mesh.shutdown`` and exits normally.
+Imports torch, NumPy and ``nmf_tpu_torch`` only.
 """
 
 from __future__ import annotations
@@ -147,6 +148,7 @@ def main(argv) -> int:
     torch.set_num_threads(1)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import nmf_tpu_torch as nt
+    from nmf_tpu_torch.parallel.mesh import shutdown
 
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
     mesh = nt.make_mesh((rows, cols), device="cpu")
@@ -162,16 +164,9 @@ def main(argv) -> int:
             info = {"error": type(e).__name__, "message": str(e)}
         with open(os.path.join(out, f"{case}.r{rank}.json"), "w") as f:
             json.dump(info, f)
-    dist.barrier()
-    dist.destroy_process_group()
+    shutdown()
     return 0
 
 
 if __name__ == "__main__":
-    code = main(sys.argv)
-    # the groups destroyed and every result written: leave without the
-    # interpreter's teardown, where a gloo rank has aborted ("terminate
-    # called without an active exception"; ROADMAP.md Queue 3 f)
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(code)
+    sys.exit(main(sys.argv))
