@@ -11,10 +11,11 @@
     python3 chip_smoke.py --phases card,utils                 # I/O, checkpoints, live, doctor
     python3 chip_smoke.py --phases card,sparse                # the COO solve
     python3 chip_smoke.py --phases card,mesh                  # the mesh, sharded solves
+    python3 chip_smoke.py --phases card,serving               # serving artifacts, export/serve
     python3 chip_smoke.py --phases card,backend --backend-out backend_s1.json
                                                               # one session of the backend rule
 
-Eighteen phases, in order; any failure raises and the exit code is non-zero.
+Nineteen phases, in order; any failure raises and the exit code is non-zero.
 Every check that holds the kernels passes ``backend="pallas"``: under
 ``"auto"`` a solve takes the card's backend rule (``utils/autotune.py``),
 which sends some shapes to cuBLAS.  The default path is held to that rule
@@ -165,7 +166,8 @@ phase 17.
    within 1e-5 of the in-memory accelerated solve, a bitwise rerun, it/s;
 11. families: the beta (2, 0, 0.5, 3), HALS and penalized KL (``l1_h =
    l2_w = 0.1``) solves, and ``accelerate=True`` for beta 2 and HALS, at
-   the reference fixtures, 200 iterations, f32, on the card: plain torch
+   the reference fixtures, 200 iterations (HALS 100: launch-bound), f32,
+   on the card: plain torch
    ops by rule, so 0 launches of K1-K3 and K5 (the counts set to 0 just
    before each); the final cost within ``FAMILY_COST_RTOL`` of the same
    solve on the CPU; a history that does not rise for beta >= 1, HALS and
@@ -344,6 +346,39 @@ phase 17.
    control where the mode has one): a 2048 x 175 x 128 block in every mode
    of phase 9a, the reference fixture's four blocks of (c), and (b)'s
    bfloat16 flagship on phase 7's exposed operands and on (b)'s own.
+19. serving: the artifacts of ROADMAP.md Queue 1 step 13, each served call
+   with every count set to 0 just before it.  (a) ``bench.py``'s serving
+   rows, 2048 x 16384, K=128, blocks of 2048, 50 iterations, a check at
+   50, X and W from ``--seed``: an ``auto`` and a ``jnp`` artifact on the
+   f32 wire, an int8 quantized-input one and an in-program int8 one.
+   ``auto`` resolves once at load (``autotune.CHOICES`` under ``serve``)
+   to the kernels: a served call launches K1 8 x 50 = 400 times and K3 8
+   times, the ``jnp`` artifact nothing; every block bit-equal to
+   ``solve_h_only`` on it at the resolved backend; ``auto`` against
+   ``jnp``: cost rel 1e-5, H relative Frobenius 1e-4; quantized-input
+   bit-equal to in-program int8, ``prefetch=False`` to the pipelined
+   call; cols/s (median of 3 after a warm call) on each wire, the share of
+   the pinned H2D roofline (wire bytes as ``bench.py:345-349`` counts them,
+   over a pinned copy's rate of the same run), the host's seconds a call
+   by part, the device's busy share (torch.profiler), and K1/K3 at the
+   block beside their plain versions.  (b) The ISMIR shape 1025 x 4000,
+   K=32, blocks of 1024 (the last padded), 20% missing as NaN: the masked
+   f32 and v4 masked x quantized artifacts (plain ops, no launch), v4
+   bit-equal to the masked in-program int8 artifact, block 0 bit-equal to
+   ``solve_masked_h_only``, ``stream_bin`` with and without ``out_path``
+   byte-equal to the call.  (c) The CLI at the reference fixtures, blocks
+   of 128: ``export`` plain, ``--quantized-input``, ``--masked`` and
+   ``--mesh 1x1``; ``serve`` as a subprocess, ``--out-of-core``,
+   ``--no-prefetch``, the quantized and the masked serves and ``info`` in
+   process, each file byte-equal to the in-process call; a JAX-format zip
+   refused by ``serve`` (exit 2) and carried across by
+   ``utils.convert.serving_from_jax``.  (d) Mesh artifacts at the
+   reference shape, 50 iterations, plain ops: a 1x1 NCCL artifact in
+   process and a 2x2 one on four gloo ranks sharing the card
+   (``chip_smoke.py --serve-rank``), each within cost rel 1e-5 and H 1e-4
+   (relative Frobenius) of the single-device ``jnp`` artifact, every
+   rank's counts 0; ``serve --mesh 1x1`` under ``torch.distributed.run``
+   byte-equal to the in-process call.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -363,7 +398,8 @@ run of phase 12, ``transform_launches``, K2's all 0, and on each run of
 phase 13, ``models_launches``, and of phase 14, ``selection_launches``,
 with phase 14's config-4 call in ``batched``; every kernel its launches on
 phase 15's runs, ``utils_launches``, and on phase 18's mesh solves,
-``mesh_launches``: K1's and K2's ``numerator_only`` launches, K3's); the last line is
+``mesh_launches``: K1's and K2's ``numerator_only`` launches, K3's), and on
+phase 19's served calls, ``serve_launches``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -450,7 +486,7 @@ TIERS = {
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
           "oocore", "accel", "families", "transform", "models", "selection", "utils", "sparse",
-          "backend", "mesh")
+          "backend", "mesh", "serving")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -2629,6 +2665,7 @@ FAMILY_RUNS = {
     "hals accelerate": dict(beta=2.0, algorithm="hals", accelerate=True),
 }
 FAMILY_ITERS = 200
+FAMILY_HALS_ITERS = 100   # HALS is launch-bound (~1656 launches an iteration): half the depth
 FAMILY_COST_RTOL = 1e-4   # the card's final cost against the same solve on the CPU
 DEVICE = "cuda"           # phases 11 and 12 run their solves here
 
@@ -2676,11 +2713,12 @@ def phase_families(card, out):
 
     fx = nt.fixtures
     x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
-    iters = FAMILY_ITERS
     print(f"[{card}] phase 11: the beta, penalized and HALS families, {x.shape[0]}x{x.shape[1]}, "
-          f"K={w.shape[1]}, {iters} iterations, float32, plain torch ops on the card by rule")
+          f"K={w.shape[1]}, {FAMILY_ITERS} iterations (HALS {FAMILY_HALS_ITERS}), float32, "
+          "plain torch ops on the card by rule")
     results = {}
     for name, fields in FAMILY_RUNS.items():
+        iters = FAMILY_HALS_ITERS if fields.get("algorithm") == "hals" else FAMILY_ITERS
         cfg = nt.SolveConfig(max_iter=iters, **fields)
         where = f"families {name}"
         nt.solve(x, w, h, dataclasses.replace(cfg, max_iter=2), device=DEVICE)   # warm
@@ -5692,6 +5730,500 @@ def _mesh_launches(launches, name):
     return {run: launches.get(run, {}).get(key, 0) for run in runs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: serving (Queue 1 step 13): artifacts, the served H-only block on
+# K1 and K3, stream_bin, the CLI's export and serve, mesh artifacts
+
+SERVE_SHAPE = (2048, 16384, 128, 2048)   # M, N, K, n_block: bench.py:923-924's serving rows
+SERVE_ITERS = 50                         # a check every 50 (bench.py:312-315)
+SERVE_REPS = 3                           # timed calls after a warm one
+SERVE_ISMIR = (1025, 4000, 32, 1024)     # 19b: M, N, K, n_block
+SERVE_ISMIR_ITERS = 50
+SERVE_MESH_BLOCK = 128                   # 19d: the reference shape in three blocks, one padded
+SERVE_MESH_ITERS = 50
+SERVE_RANK_SECONDS = 240                 # 19d's four ranks' wall-clock limit
+SERVE_COST_RTOL, SERVE_H_FRO = 1e-5, 1e-4
+_SERVE_RUNS = ("serve auto float32", "serve jnp float32", "serve auto int8 quantized",
+               "serve auto int8 in-program", "serve masked", "serve masked quantized",
+               "serve masked int8 in-program", "serve mesh 1x1", "serve mesh 2x2")
+
+
+def _served(t, x, **kw):
+    """(result, host seconds, every count) of one served call, the counts set
+    to 0 just before (the call returns H on the host: it ends synced)."""
+    _reset_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = t(x, **kw)
+    return res, time.perf_counter() - t0, _all_counts()
+
+
+def _serve_want(backend, blocks, iters, checks):
+    """The counts of a served call: K1 each iteration and K3 each check of
+    each block where the backend resolved to the kernels, nothing else."""
+    want = {key: 0 for key in _all_counts()}
+    if backend == "pallas":
+        want.update(update_h=blocks * iters, kl_cost=blocks * checks)
+    return want
+
+
+def _block_h0(k, width, idx):
+    """A served block's default start: ``RandomState(idx)``, clamped to eps."""
+    return np.maximum(np.random.RandomState(idx).rand(k, width).astype(np.float32),
+                      np.float32(EPS))
+
+
+def _hold_served(where, res, ref):
+    """A served result against another: the summed cost within
+    ``SERVE_COST_RTOL`` and H within ``SERVE_H_FRO`` (relative Frobenius)."""
+    rel = abs(res.cost - ref.cost) / abs(ref.cost)
+    fro = _rel_fro(torch.from_numpy(res.h), torch.from_numpy(ref.h))
+    check(rel <= SERVE_COST_RTOL and fro <= SERVE_H_FRO
+          and np.array_equal(res.block_iterations, ref.block_iterations),
+          f"{where}: cost rel {rel}, H relative Frobenius {fro}, iterations "
+          f"{res.block_iterations} / {ref.block_iterations}")
+    return {"cost_rel": rel, "h_fro": fro}
+
+
+def _serve_host_timed(fn):
+    """(fn(), {part: host seconds} of one served call): a block's start H
+    (``_h0_block``), its wire arrays (``_place_block``: the padding's
+    output, host quantization), the copy into pinned memory and the copy's
+    start (``_Uploads.put``), the program's enqueue (``_dispatch``), the
+    wait for H on the host (``_fetched``), and the call's wall."""
+    from nmf_tpu_torch import serving
+
+    parts = {"_h0_block": serving.ServingTransform, "_place_block": serving.ServingTransform,
+             "put": serving._Uploads, "_dispatch": serving.ServingTransform,
+             "_fetched": serving.ServingTransform}
+    times = dict.fromkeys(parts, 0.0)
+    originals = {name: cls.__dict__[name] for name, cls in parts.items()}
+
+    def timed(name, f):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kw)
+            finally:
+                times[name] += time.perf_counter() - t0
+        return call
+
+    for name, cls in parts.items():
+        f = originals[name]
+        setattr(cls, name, staticmethod(timed(name, f.__func__)) if isinstance(f, staticmethod)
+                else timed(name, f))
+    try:
+        res, wall = _timed(fn)
+    finally:
+        for name, cls in parts.items():
+            setattr(cls, name, originals[name])
+    return res, {**times, "wall": wall}
+
+
+def _serve_bench(card, out, tmp, seed):
+    """(a) bench.py's serving shape: auto and jnp on the f32 wire, int8 on
+    the quantized wire and in the program."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.quant import quantize_columns_np
+    from nmf_tpu_torch.utils import autotune
+
+    m, n, k, nb = SERVE_SHAPE
+    blocks = n // nb
+    rng = np.random.RandomState(seed)
+    eps = np.float32(EPS)
+    x = np.maximum(rng.rand(m, n).astype(np.float32), eps)
+    w = np.maximum(rng.rand(m, k).astype(np.float32), eps)
+    base = nt.SolveConfig(max_iter=SERVE_ITERS, check_every=SERVE_ITERS)
+    int8 = dataclasses.replace(base, precision=nt.Precision(x_dtype="int8"))
+    arts = {"auto float32": (base, False),
+            "jnp float32": (dataclasses.replace(base, backend="jnp"), False),
+            "auto int8 quantized": (int8, True), "auto int8 in-program": (int8, False)}
+    autotune.reset_counts()
+    ts = {}
+    for tag, (cfg, quant) in arts.items():
+        path = os.path.join(tmp, f"serve_{tag.replace(' ', '_')}.nmfz")
+        nt.save_transform(path, w, nb, cfg, quantized_input=quant)
+        ts[tag] = nt.load_transform(path)
+    serve_choices = sum(v for (entry, _), v in autotune.CHOICES.items() if entry == "serve")
+    check(ts["auto float32"].backend == "pallas" and serve_choices == 3,
+          f"19a: the auto f32 artifact resolved to {ts['auto float32'].backend}, "
+          f"{serve_choices} serve choices for three auto artifacts (one a load)")
+    res, secs = {}, {}
+    for tag, t in ts.items():
+        t(x[:, :nb])
+        t(x)                  # warm: the first calls and the whole pipeline
+        r, s, counts = _served(t, x)
+        want = _serve_want(t.backend, blocks, SERVE_ITERS, 1)
+        check(counts == want, f"19a serve {tag} ({t.backend}): counts {counts}, expected {want}")
+        out["launches"][f"serve {tag}"] = counts
+        res[tag] = r
+        secs[tag] = [s] + [_served(t, x)[1] for _ in range(SERVE_REPS - 1)]
+        check(r.h.shape == (k, n) and bool(np.all(np.isfinite(r.h)))
+              and bool(np.all(np.isfinite(r.block_costs))), f"19a serve {tag}: H or costs")
+    # each served block is solve_h_only on the same block at the resolved backend
+    for tag in ("auto float32", "auto int8 quantized"):
+        t = ts[tag]
+        cfg = dataclasses.replace(arts[tag][0], backend=t.backend)
+        for b in range(blocks):
+            xb = x[:, b * nb:(b + 1) * nb]
+            xin = quantize_columns_np(xb, EPS) if t.quantized else xb
+            ref = nt.solve_h_only(xin, w, _block_h0(k, nb, b), cfg, device="cuda")
+            check(res[tag].h[:, b * nb:(b + 1) * nb].tobytes() == ref.h.cpu().numpy().tobytes()
+                  and np.float32(res[tag].block_costs[b]) == np.float32(ref.cost.item()),
+                  f"19a serve {tag}: block {b} differs from solve_h_only at {t.backend}")
+    held = _hold_served("19a auto against jnp", res["auto float32"], res["jnp float32"])
+    q, p = res["auto int8 quantized"], res["auto int8 in-program"]
+    check(q.h.tobytes() == p.h.tobytes() and q.block_costs.tobytes() == p.block_costs.tobytes(),
+          "19a: the quantized-input artifact differs from the in-program int8 artifact")
+    serial = ts["auto float32"](x, prefetch=False)
+    check(serial.h.tobytes() == res["auto float32"].h.tobytes()
+          and serial.block_costs.tobytes() == res["auto float32"].block_costs.tobytes(),
+          "19a: prefetch=False differs from the pipelined call")
+    # rates: cols/s (median of SERVE_REPS), the pinned H2D roofline share
+    rates = {}
+    for tag, s in secs.items():
+        quant = ts[tag].quantized
+        wire = x.nbytes // (4 if quant else 1) + (4 * n if quant else 0) + 4 * k * n
+        h2d = h2d_rate(wire // blocks)
+        med = statistics.median(s)
+        rates[tag] = {"cols_per_s": n / med, "seconds": s, "wire_bytes": wire,
+                      "h2d_gb_s": h2d / 1e9, "roofline_share": (wire / h2d) / med}
+    # the host's share of a served call: each block's start, padding and
+    # wire arrays (quantization on the quantized wire), its copy into
+    # pinned memory, the program's enqueue, and the wait for its H
+    host = {tag: _serve_host_timed(lambda: ts[tag](x))[1]
+            for tag in ("auto float32", "auto int8 quantized")}
+    # the device's busy share over a served call, and K1/K3 at the block
+    from torch.profiler import ProfilerActivity, profile
+
+    shares = {}
+    for tag in ("auto float32", "jnp float32", "auto int8 quantized"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, s = _timed(lambda: ts[tag](x))
+        with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
+            trace = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(trace)
+            dev = _device_shares(trace)
+        shares[tag] = {"busy": dev["busy"] / s, "kernels": dev["kernels"] / s,
+                       "h2d": dev["h2d"] / s, "wall_ms": 1e3 * s}
+    wd = torch.from_numpy(w).cuda()
+    hd = torch.from_numpy(_block_h0(k, nb, 0)).cuda()
+    xd = torch.from_numpy(np.ascontiguousarray(x[:, :nb])).cuda()
+    per_block = {}
+    for name in ("update_h", "kl_cost"):
+        kern, plain = _pairs()[name]
+        ms, plain_ms = timed_pair(lambda: kern(wd, hd, xd), lambda: plain(wd, hd, xd))
+        bms, by = _mu_bound(name, wd, hd, xd, nt.Precision())
+        per_block[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    out["serving"]["bench"] = {"rates": rates, "held_auto_jnp": held, "profile": shares,
+                               "host": host,
+                               "per_block": per_block, "backend": ts["auto float32"].backend,
+                               "int8_backend": ts["auto int8 quantized"].backend}
+    print(f"[{card}] 19a serving {m}x{n}, K={k}, blocks of {nb}, {SERVE_ITERS} iterations: auto "
+          f"resolved to {ts['auto float32'].backend} (int8 {ts['auto int8 quantized'].backend}); "
+          f"a served call launches {out['launches']['serve auto float32']} (jnp: none); every "
+          f"block bit-equal to solve_h_only at the resolved backend; auto against jnp {held}; "
+          "quantized-input bit-equal to in-program int8; prefetch=False bit-equal")
+    for tag, r in rates.items():
+        sh = shares.get(tag)
+        print(f"[{card}] 19a serve {tag}: {r['cols_per_s']} cols/s (median of {SERVE_REPS}: "
+              f"{r['seconds']} s), {r['wire_bytes']} wire bytes, pinned H2D "
+              f"{r['h2d_gb_s']} GB/s, roofline share {r['roofline_share']}"
+              + (f"; profiled busy {sh['busy']}, kernels {sh['kernels']}, H2D {sh['h2d']} of "
+                 f"{sh['wall_ms']} ms" if sh else ""))
+    for tag, hs in host.items():
+        print(f"[{card}] 19a serve {tag}, host seconds a call ({hs['wall']} s): "
+              + ", ".join(f"{part} {v}" for part, v in hs.items() if part != "wall"))
+    print(f"[{card}] 19a at the served block {m}x{nb}x{k}: K1 {per_block['update_h']} ms, "
+          f"K3 {per_block['kl_cost']} ms (CUDA events, beside the plain versions and bounds)")
+
+
+def _serve_ismir(card, out, tmp, seed):
+    """(b) the ISMIR shape: masked artifacts (plain ops), stream_bin."""
+    import nmf_tpu_torch as nt
+
+    m, n, k, nb = SERVE_ISMIR
+    blocks = -(-n // nb)
+    rng = np.random.RandomState(seed + 19)
+    x = rng.rand(m, n).astype(np.float32)
+    w = (rng.rand(m, k) + 0.05).astype(np.float32)
+    mask = (rng.rand(m, n) > 0.2).astype(np.float32)
+    x[mask == 0] = np.nan           # unobserved entries are garbage by contract
+    cfg = nt.SolveConfig(max_iter=SERVE_ISMIR_ITERS, check_every=25)
+    int8 = dataclasses.replace(cfg, precision=nt.Precision(x_dtype="int8"))
+    arts = {"masked": (cfg, False), "masked quantized": (int8, True),
+            "masked int8 in-program": (int8, False)}
+    res, ts, rates = {}, {}, {}
+    for tag, (c, quant) in arts.items():
+        path = os.path.join(tmp, f"serve_{tag.replace(' ', '_')}.nmfz")
+        nt.save_transform(path, w, nb, c, masked=True, quantized_input=quant)
+        ts[tag] = t = nt.load_transform(path)
+        t(x, mask=mask)         # warm
+        r, s, counts = _served(t, x, mask=mask)
+        check(counts == _serve_want("jnp", 0, 0, 0),
+              f"19b serve {tag}: counts {counts}: masked artifacts run plain ops")
+        check(bool(np.all(np.isfinite(r.h))) and r.h.shape == (k, n), f"19b serve {tag}: H")
+        out["launches"][f"serve {tag}"] = counts
+        res[tag], rates[tag] = r, n / s
+    check(ts["masked quantized"].meta["format_version"] == 4, "19b: the v4 artifact's version")
+    q, p = res["masked quantized"], res["masked int8 in-program"]
+    check(q.h.tobytes() == p.h.tobytes() and q.block_costs.tobytes() == p.block_costs.tobytes(),
+          "19b: masked x quantized differs from the masked in-program int8 artifact")
+    ref = nt.solve_masked_h_only(x[:, :nb], w, _block_h0(k, nb, 0), mask[:, :nb],
+                                 dataclasses.replace(cfg, backend="jnp"), device="cuda")
+    check(res["masked"].h[:, :nb].tobytes() == ref.h.cpu().numpy().tobytes(),
+          "19b: the masked artifact's block 0 differs from solve_masked_h_only")
+    xp, mp = os.path.join(tmp, "serve_X.bin"), os.path.join(tmp, "serve_M.bin")
+    nt.write_matrix(x, xp)
+    nt.write_matrix(mask, mp)
+    for tag in ("masked", "masked quantized"):
+        t = ts[tag]
+        streamed = t.stream_bin(xp, mask_path=mp)
+        hp = os.path.join(tmp, f"serve_H_{tag.replace(' ', '_')}.bin")
+        disk = t.stream_bin(xp, out_path=hp, mask_path=mp)
+        check(streamed.h.tobytes() == res[tag].h.tobytes() and disk.h is None
+              and nt.read_matrix(hp).tobytes() == res[tag].h.tobytes()
+              and disk.block_costs.tobytes() == res[tag].block_costs.tobytes(),
+              f"19b {tag}: stream_bin differs from the in-memory call")
+    out["serving"]["ismir"] = {"cols_per_s": rates, "costs": {t: r.cost for t, r in res.items()}}
+    print(f"[{card}] 19b ISMIR {m}x{n}, K={k}, {blocks} blocks of {nb} (the last padded), 20% "
+          f"missing as NaN: masked f32 and v4 masked x quantized artifacts, no launch; v4 "
+          f"bit-equal to the masked in-program int8 artifact; block 0 bit-equal to "
+          f"solve_masked_h_only; stream_bin with and without out_path byte-equal to the call; "
+          f"cols/s {rates}")
+
+
+def _jax_format_zip(path, w, n_block):
+    """A zip in the JAX package's artifact layout, written by hand from its
+    meta.json (magic 'nmf_tpu-serving'), w.npy and an empty program.bin."""
+    import io
+    import zipfile
+
+    import nmf_tpu_torch as nt
+
+    cfg = dataclasses.asdict(nt.SolveConfig(backend="jnp"))
+    meta = {"magic": "nmf_tpu-serving", "format_version": 1, "m": int(w.shape[0]),
+            "k": int(w.shape[1]), "n_block": int(n_block), "masked": False,
+            "quantized_input": False, "mesh_shape": None, "platforms": ["tpu", "cpu"],
+            "config": cfg, "jax_version": "0.4.35"}
+    buf = io.BytesIO()
+    np.save(buf, w)
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("meta.json", json.dumps(meta))
+        zf.writestr("program.bin", b"")
+        zf.writestr("w.npy", buf.getvalue())
+
+
+def _serve_cli_start(tmp):
+    """(c), first half: ``export`` (plain, ``--quantized-input``,
+    ``--masked``, ``--mesh 1x1``) in process (it needs no device); then
+    three subprocesses started together (``serve``, ``serve`` of a
+    JAX-format zip, ``serve --mesh 1x1`` under torch.distributed.run),
+    and, in process, ``serve --out-of-core``, ``--no-prefetch``, a
+    quantized and a masked serve and ``info``.  Returns what
+    :func:`_serve_cli_finish` checks once the subprocesses end."""
+    import contextlib
+    import io
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch import cli
+
+    nb = SERVE_MESH_BLOCK
+    nt.fixtures.write_reference_fixtures(tmp)
+    x, w = (nt.read_matrix(os.path.join(tmp, f"{s}.bin")) for s in "XW")
+    mask = (np.random.RandomState(19).rand(*x.shape) > 0.2).astype(np.float32)
+
+    def at(name):
+        return os.path.join(tmp, name)
+
+    nt.write_matrix(mask, at("M.bin"))
+    _jax_format_zip(at("jax.nmfz"), w, nb)
+    t0 = time.perf_counter()
+    common = [at("W.bin"), "--block-cols", str(nb), "-q"]
+    for name, flags in (("plain", []), ("quant", ["--x-dtype", "int8", "--quantized-input"]),
+                        ("masked", ["--masked"]),
+                        ("mesh11", ["--mesh", "1x1", "--backend", "jnp", "--max-iter",
+                                    str(SERVE_MESH_ITERS)])):
+        rc = cli.main(["export", *common, "-o", at(f"{name}.nmfz"), *flags])
+        check(rc == 0, f"19c export {name}: exit {rc}")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    py = [sys.executable, "-m", "nmf_tpu_torch"]
+    cmds = {
+        "plain": py + ["serve", "plain.nmfz", "X.bin", "-o", "H_plain.bin", "-q"],
+        "jax": py + ["serve", "jax.nmfz", "X.bin", "-o", "H_jax.bin"],
+        "mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "1", "-m", "nmf_tpu_torch", "serve", "mesh11.nmfz", "X.bin",
+                 "-o", "H_mesh11.bin", "--mesh", "1x1", "-q"],
+    }
+    procs = {tag: subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for tag, cmd in cmds.items()}
+    for name, flags in (("ooc", ["--out-of-core"]), ("serial", ["--no-prefetch"])):
+        rc = cli.main(["serve", at("plain.nmfz"), at("X.bin"), "-o", at(f"H_{name}.bin"), "-q",
+                       *flags])
+        check(rc == 0, f"19c serve {' '.join(flags)}: exit {rc}")
+    check(cli.main(["serve", at("quant.nmfz"), at("X.bin"), "-o", at("H_quant.bin"), "-q"]) == 0,
+          "19c serve of the quantized artifact")
+    check(cli.main(["serve", at("masked.nmfz"), at("X.bin"), "-o", at("H_masked.bin"), "--mask",
+                    at("M.bin"), "-q"]) == 0, "19c serve of the masked artifact")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["info", *(at(f"{n}.nmfz") for n in ("plain", "quant", "masked", "jax"))])
+    info = text.getvalue().splitlines()
+    check(rc == 0 and len(info) == 4 and "serving artifact v1" in info[0]
+          and "quantized-input" in info[1] and "masked" in info[2]
+          and "JAX package's serving artifact" in info[3], f"19c info: {info}")
+    return {"procs": procs, "t0": t0, "x": x, "mask": mask}
+
+
+def _serve_cli_finish(card, out, tmp, started, mesh11_h):
+    """(c), second half: the subprocesses' exits and every file against the
+    in-process call (``mesh11_h``: the 1x1 mesh artifact's H in process)."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.utils.convert import serving_from_jax
+
+    def at(name):
+        return os.path.join(tmp, name)
+
+    done = {tag: (p.communicate(timeout=300), p.returncode)
+            for tag, p in started["procs"].items()}
+    wall = time.perf_counter() - started["t0"]
+    for tag, ((_, err), rc) in done.items():
+        if tag != "jax":
+            check(rc == 0, f"19c serve {tag} (subprocess): exit {rc}: {err[-2000:]}")
+    (_, err), rc = done["jax"]
+    check(rc == 2 and "JAX package's serving artifact" in err and not os.path.exists(
+        at("H_jax.bin")), f"19c: a JAX-format zip served: exit {rc}: {err[-500:]}")
+
+    def read(name):
+        return nt.read_matrix(at(name)).tobytes()
+
+    x, mask = started["x"], started["mask"]
+    plain = nt.load_transform(at("plain.nmfz"))(x)
+    for name in ("H_plain.bin", "H_ooc.bin", "H_serial.bin"):
+        check(read(name) == plain.h.tobytes(), f"19c {name} differs from the in-process call")
+    quant = nt.load_transform(at("quant.nmfz"))(x)
+    check(read("H_quant.bin") == quant.h.tobytes(), "19c H_quant.bin differs from in-process")
+    masked = nt.load_transform(at("masked.nmfz"))(x, mask=mask)
+    check(read("H_masked.bin") == masked.h.tobytes(), "19c H_masked.bin differs from in-process")
+    check(read("H_mesh11.bin") == mesh11_h.tobytes(),
+          "19d: serve --mesh 1x1 under torch.distributed.run differs from the in-process call")
+    serving_from_jax(at("jax.nmfz"), at("converted.nmfz"))
+    jnp_t = nt.load_transform(at("converted.nmfz"))
+    check(jnp_t.backend == "jnp", f"19c: the converted artifact resolved to {jnp_t.backend}")
+    out["serving"]["cli"] = {"wall_s": wall, "plain_cost": plain.cost}
+    print(f"[{card}] 19c the CLI ({wall} s, its subprocesses beside 19d): export plain, "
+          "--quantized-input, --masked and --mesh 1x1; serve (a subprocess), --out-of-core "
+          "and --no-prefetch byte-equal to the in-process call, quantized and masked serves "
+          "byte-equal; info describes the three artifacts and names the JAX-format zip, which "
+          "serve refuses (exit 2) and serving_from_jax carries across; serve --mesh 1x1 under "
+          "torch.distributed.run byte-equal to the in-process 1x1 call")
+
+
+def _serve_rank_main(rank: int, d: str) -> int:
+    """One of 19d's four ranks on ``cuda:0`` over gloo (``chip_smoke.py
+    --serve-rank R --mesh-dir D``): ``D/mesh.nmfz`` (2x2) served on the
+    reference fixture's X; its counts and block results to
+    ``D/rank<R>.json``, rank 0's H to ``D/serve.npz``."""
+    import torch.distributed as dist
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.parallel.mesh import shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank, world_size=4)
+    grid = nt.make_mesh((2, 2), device="cuda")
+    t = nt.load_transform(os.path.join(d, "mesh.nmfz"), mesh=grid)
+    x = _mesh_reference()[0]
+    t(x[:, :SERVE_MESH_BLOCK])      # warm
+    res, secs, counts = _served(t, x)
+    if rank == 0:
+        np.savez(os.path.join(d, "serve.npz"), h=res.h)
+    pathlib.Path(d, f"rank{rank}.json").write_text(json.dumps({
+        "counts": counts, "seconds": secs, "block_costs": res.block_costs.tolist(),
+        "block_iterations": res.block_iterations.tolist(), "shape": list(t.mesh_shape)}))
+    shutdown()
+    return 0
+
+
+def _serve_mesh(card, out, tmp, cli_x):
+    """(d) mesh artifacts at the reference shape, against the single-device
+    jnp artifact: 1x1 NCCL in process, 2x2 on four gloo ranks sharing the
+    card; returns the CLI's 1x1 artifact's H served in process on
+    ``cli_x``, for (c) to hold its torch.distributed.run file to."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.parallel.mesh import shutdown
+
+    x, w, _, _ = _mesh_reference()
+    nb = SERVE_MESH_BLOCK
+    cfg = nt.SolveConfig(max_iter=SERVE_MESH_ITERS, check_every=25, backend="jnp")
+    one = os.path.join(tmp, "serve_single.nmfz")
+    nt.save_transform(one, w, nb, cfg)
+    single = nt.load_transform(one)
+    single(x)
+    ref, ref_s, _ = _served(single, x)
+    mesh = nt.make_mesh((1, 1), device="cuda")
+    p11 = os.path.join(tmp, "serve_mesh11.nmfz")
+    nt.save_transform(p11, w, nb, cfg, mesh_shape=(1, 1))
+    t11 = nt.load_transform(p11, mesh=mesh)
+    t11(x)
+    r11, s11, counts = _served(t11, x)
+    check(counts == _serve_want("jnp", 0, 0, 0), f"19d 1x1: counts {counts}: no kernel on a mesh")
+    out["launches"]["serve mesh 1x1"] = counts
+    held = {"1x1": _hold_served("19d 1x1 against the single-device jnp artifact", r11, ref)}
+    cli11 = nt.load_transform(os.path.join(tmp, "mesh11.nmfz"), mesh=mesh)(cli_x).h
+    shutdown()      # make_mesh's one-rank NCCL group
+    with tempfile.TemporaryDirectory(prefix="nmf_serve_mesh_") as d:
+        nt.save_transform(os.path.join(d, "mesh.nmfz"), w, nb, cfg, mesh_shape=(2, 2))
+        wall, recs = _mp_spawn(d, "--serve-rank", SERVE_RANK_SECONDS)
+        h22 = np.load(os.path.join(d, "serve.npz"))["h"]
+    for r, rr in enumerate(recs):
+        check(rr["counts"] == _serve_want("jnp", 0, 0, 0) and rr["shape"] == [2, 2],
+              f"19d 2x2 rank {r}: counts {rr['counts']}")
+        check(rr["block_costs"] == recs[0]["block_costs"], f"19d 2x2 rank {r}: block costs")
+    out["launches"]["serve mesh 2x2"] = recs[0]["counts"]
+    r22 = dataclasses.replace(ref, h=h22, block_costs=np.asarray(recs[0]["block_costs"],
+                                                                  np.float32),
+                              block_iterations=np.asarray(recs[0]["block_iterations"], np.int32))
+    held["2x2"] = _hold_served("19d 2x2 against the single-device jnp artifact", r22, ref)
+    n = x.shape[1]
+    cols = {"single": n / ref_s, "1x1": n / s11,
+            "2x2": n / max(rr["seconds"] for rr in recs)}
+    out["serving"]["mesh"] = {"held": held, "cols_per_s": cols, "wall_s": wall}
+    print(f"[{card}] 19d mesh artifacts {x.shape[0]}x{n}, K={w.shape[1]}, blocks of {nb} (the "
+          f"last padded), {SERVE_MESH_ITERS} iterations, plain ops (no launch): 1x1 NCCL in "
+          f"process {held['1x1']}; 2x2 on four gloo ranks ({wall} s) {held['2x2']}; cols/s "
+          f"{cols}")
+    return cli11
+
+
+def phase_serving(card, tmp, out, seed):
+    """19: serving artifacts (ROADMAP.md Queue 1 step 13)."""
+    print(f"[{card}] phase 19: serving: bench.py's serving shape through K1/K3 and jnp, "
+          "masked and quantized artifacts, stream_bin, the CLI's export and serve, mesh artifacts")
+    out["serving"] = {}
+    _serve_bench(card, out, tmp, seed)
+    _serve_ismir(card, out, tmp, seed)
+    started = _serve_cli_start(tmp)     # its subprocesses run while (d) does
+    try:
+        mesh11_h = _serve_mesh(card, out, tmp, started["x"])
+        _serve_cli_finish(card, out, tmp, started, mesh11_h)
+    finally:        # a failed check leaves no subprocess behind
+        for p in started["procs"].values():
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+
+def _serve_launches(launches, name):
+    """A kernel's launches on phase 19's served calls (K2 and K5: none)."""
+    key = {"h_numerator": "K5 h_numerator", "w_numerator": "K5 w_numerator"}.get(name, name)
+    return {run[6:]: launches.get(run, {}).get(key, 0) for run in _SERVE_RUNS}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5703,6 +6235,7 @@ def main(argv=None) -> int:
                     "(backend_rule.py pools the files of several sessions)")
     ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-paths-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.mesh_rank is not None:      # one of phase 18c's spawned ranks
@@ -5711,6 +6244,9 @@ def main(argv=None) -> int:
     if args.mesh_paths_rank is not None:    # one of phase 18g's
         sys.path.insert(0, str(REPO))
         return _mp_paths_rank_main(args.mesh_paths_rank, args.mesh_dir)
+    if args.serve_rank is not None:         # one of phase 19d's
+        sys.path.insert(0, str(REPO))
+        return _serve_rank_main(args.serve_rank, args.mesh_dir)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -5735,7 +6271,7 @@ def main(argv=None) -> int:
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
         "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
-        "sparse": {}, "backend": {}, "mesh": {},
+        "sparse": {}, "backend": {}, "mesh": {}, "serving": {},
     }
     t_start = time.perf_counter()
     seconds = {}
@@ -5777,6 +6313,8 @@ def main(argv=None) -> int:
         run("backend", phase_backend, tmp, out, args.backend_out)
     with tempfile.TemporaryDirectory(prefix="nmf_mesh_cli_") as tmp:
         run("mesh", phase_mesh, tmp, out)
+    with tempfile.TemporaryDirectory(prefix="nmf_serve_") as tmp:
+        run("serving", phase_serving, tmp, out, args.seed)
     print(f"[{card}] phase seconds: {json.dumps(seconds)}")
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
@@ -5838,6 +6376,8 @@ def main(argv=None) -> int:
             "mesh_launches": _mesh_launches(out["launches"], name),
             # 18f-18g: the streamed, tiled, batched and restart solves on a mesh
             "mesh_paths_launches": _mesh_paths_launches(out["launches"], name),
+            # phase 19: each served call (K1 and K3 on the auto artifacts)
+            "serve_launches": _serve_launches(out["launches"], name),
             # K1-K3: their launches on phase 12's H-only runs (K2: none)
             **({"transform_launches": _transform_launches(out["launches"], name),
                 "models_launches": _models_launches(out["launches"], name),
@@ -5856,7 +6396,8 @@ def main(argv=None) -> int:
     print(f"[{card}] sparse summary: {json.dumps(out['sparse'])}")
     print(f"[{card}] backend summary: {json.dumps(out['backend']['auto'])}")
     print(f"[{card}] mesh summary: {json.dumps(out['mesh'])}")
-    print(f"[{card}] all eighteen phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] serving summary: {json.dumps(out['serving'])}")
+    print(f"[{card}] all nineteen phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

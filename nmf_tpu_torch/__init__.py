@@ -39,7 +39,9 @@ the native C++ reader (``native/binio.cpp``) when it is built;
 ``utils.solve_with_checkpoints`` and ``solve_out_of_core(checkpoint_dir=)``
 checkpoint and resume in JAX's format, ``live_metrics`` streams each check,
 ``utils.profiling`` times the stages and ``python -m nmf_tpu_torch doctor``
-checks the card.  Imports torch and NumPy, never JAX.
+checks the card.  ``save_transform`` writes a serving artifact (W and the
+H-only solve's config) and ``load_transform`` serves it, block by block,
+through K1 and K3 on the card.  Imports torch and NumPy, never JAX.
 
 Quick start::
 
@@ -85,6 +87,13 @@ from .ops.mu import mu_step, mu_step_beta, update_h, update_w
 from .parallel.batched import solve_batched
 from .parallel.mesh import COL_AXIS, ROW_AXIS, init_distributed, make_mesh, nmf_shardings, shard_problem
 from .parallel.sharded import gather_result, mu_step_sharded, solve_sharded
+from .serving import (
+    ServingResult,
+    ServingTransform,
+    export_transform,
+    load_transform,
+    save_transform,
+)
 from .utils.config import Precision, SolveConfig, reference_preset
 
 __version__ = "0.1.0"
@@ -150,6 +159,11 @@ __all__ = [
     "rank_stability",
     "consensus_matrix",
     "StabilityResult",
+    "export_transform",
+    "save_transform",
+    "load_transform",
+    "ServingTransform",
+    "ServingResult",
     "SolveConfig",
     "Precision",
     "reference_preset",

@@ -1,5 +1,6 @@
 """Command-line interface of the PyTorch port (``run``, ``transform``,
-``separate``, ``select``, ``batch``, ``gen``, ``info``, ``doctor``).
+``separate``, ``select``, ``batch``, ``export``, ``serve``, ``gen``,
+``info``, ``doctor``).
 
     python -m nmf_tpu_torch run X.bin W.bin H.bin -o Wout.bin Hout.bin   # on the card
     python -m nmf_tpu_torch run X.bin --rank 32 --device cpu   # NNDSVDa init
@@ -20,8 +21,11 @@
     python -m nmf_tpu_torch separate song.wav --rank 32 --out-dir sources   # the paper's pipeline
     python -m nmf_tpu_torch select X.bin --ranks 4:32:4 --stability   # rank selection
     python -m nmf_tpu_torch batch specs/ --rank 32 --out-dir out    # a directory in one solve
+    python -m nmf_tpu_torch export Wout.bin -o model.nmfz --block-cols 1024   # serving artifact
+    python -m nmf_tpu_torch serve model.nmfz X.bin -o H.bin      # H from the artifact alone
+    python -m nmf_tpu_torch serve model.nmfz X.bin -o H.bin --out-of-core   # X streamed
     python -m nmf_tpu_torch gen ./fixtures        # seed-0 reference fixtures
-    python -m nmf_tpu_torch info fixtures/X.bin   # header/stats of .bin files
+    python -m nmf_tpu_torch info fixtures/X.bin   # .bin header/stats, or an artifact's meta
     python -m nmf_tpu_torch doctor --json         # is the card usable?
 
 The flags mirror ``python -m nmf_tpu``, and every flag of the JAX CLI's
@@ -40,6 +44,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -739,8 +744,118 @@ def cmd_doctor(args) -> int:
     return 0 if report["up"] else 1
 
 
+def cmd_export(args) -> int:
+    """Package W and the H-only solve's config into a ``.nmfz`` serving
+    artifact (``nmf_tpu/cli.py:700-753``); ``--mesh RxC`` bakes the sharded
+    solve in and needs no process group.  Exporting needs no device."""
+    for flag, name in ((args.out_of_core, "--out-of-core"),
+                       (args.checkpoint_dir, "--checkpoint-dir"),
+                       (args.live, "--live"),
+                       (args.strict_compat, "--strict-compat"),
+                       # the STREAMING block flag; the artifact's width is --block-cols
+                       (args.block_n, "--block-n"),
+                       (args.jsonl, "--jsonl")):
+        if flag:
+            return _error(f"{name} does not apply to an exported program (the artifact is "
+                          "a fixed-shape solve; stream on the serving side by calling it "
+                          "per block)")
+    from .serving import save_transform
+
+    config = _config(args)
+    mesh_shape = _parse_mesh_shape(args.mesh) if args.mesh else None
+    w = binio.read_matrix(args.W)
+    if args.validate:
+        validate_input("W", w)
+    platforms = tuple(p.strip() for p in args.platforms.split(",") if p.strip())
+    save_transform(args.output, w, args.block_cols, config, platforms, mesh_shape=mesh_shape,
+                   masked=args.masked, quantized_input=args.quantized_input)
+    if not args.quiet:
+        notes = (f", mesh {args.mesh}" if mesh_shape else "") + (
+            ", masked" if args.masked else "") + (
+            ", quantized-input" if args.quantized_input else "")
+        print(f"[nmf] exported {args.output}: W {w.shape[0]}x{w.shape[1]}, block "
+              f"{args.block_cols} cols, platforms {','.join(platforms)}{notes}, "
+              f"{os.path.getsize(args.output)} bytes", file=sys.stderr)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """H for new data from an exported artifact alone (``nmf_tpu/cli.py:
+    756-795``): in memory, or ``--out-of-core`` with X (and a mask)
+    streamed off disk and H appended block by block.  A mesh artifact
+    serves on ``--mesh`` (under ``torch.distributed.run``; rank 0 writes)
+    or on a mesh of its shape over the world."""
+    from .serving import load_transform
+
+    dev = resolve_device(args.device)  # a missing card fails before any I/O
+    mesh = _mesh_from(args, dev)
+    t = load_transform(args.artifact, mesh=mesh, device=dev)
+    h0 = binio.read_matrix(args.h0) if args.h0 else None
+    t0 = time.perf_counter()
+    prefetch = not args.no_prefetch
+    lead = _lead(t.mesh)
+    if args.out_of_core:
+        # host memory stays at one block whatever N is
+        res = t.stream_bin(args.X, out_path=args.output, h0=h0, seed=args.seed,
+                           prefetch=prefetch, mask_path=args.mask or None)
+        n_cols, shape = None, None
+    else:
+        x = binio.read_matrix(args.X)
+        mask = binio.read_matrix(args.mask) if args.mask else None
+        res = t(x, h0=h0, seed=args.seed, prefetch=prefetch, mask=mask)
+        n_cols, shape = x.shape[1], res.h.shape
+        if lead:
+            binio.write_matrix(res.h, args.output)
+    dt = time.perf_counter() - t0
+    if lead and not args.quiet:
+        n_note = f"{n_cols} cols in " if n_cols is not None else ""
+        print(f"[nmf] serve: {n_note}{len(res.block_iterations)} blocks of {res.n_block}, "
+              f"iters/block max {res.iterations}, cost {res.cost:.6g}, {dt:.2f}s",
+              file=sys.stderr)
+        shape_note = f" {shape}" if shape is not None else " (streamed)"
+        print(f"[nmf] wrote {args.output}{shape_note}", file=sys.stderr)
+    return 0
+
+
+def _describe_artifact(path: str) -> str:
+    """``info``'s line for a zip: a serving artifact described from its
+    ``meta.json`` alone (no device, nothing loaded)."""
+    import zipfile
+
+    from .serving import _JAX_MAGIC, _MAGIC
+
+    with zipfile.ZipFile(path) as zf:
+        if "meta.json" not in zf.namelist():
+            # e.g. an .npz is a zip too
+            return f"{path}: zip, but not an nmf_tpu_torch serving artifact"
+        meta = json.loads(zf.read("meta.json"))
+    if meta.get("magic") == _JAX_MAGIC:
+        return (f"{path}: the JAX package's serving artifact v{meta.get('format_version')} "
+                "(a jax.export program); carry it across with "
+                "nmf_tpu_torch.utils.convert.serving_from_jax")
+    if meta.get("magic") != _MAGIC:
+        return f"{path}: zip, but not an nmf_tpu_torch serving artifact"
+    cfg = meta.get("config", {})
+    mesh = meta.get("mesh_shape")
+    notes = f", mesh {mesh[0]}x{mesh[1]}" if mesh else ""
+    if meta.get("masked"):
+        notes += ", masked (serve needs --mask)"
+    if meta.get("quantized_input"):
+        notes += ", quantized-input (host int8 quantization)"
+    return (f"{path}: serving artifact v{meta['format_version']} — W {meta['m']}x{meta['k']}, "
+            f"block {meta['n_block']} cols, platforms {','.join(meta['platforms'])}{notes}, "
+            f"max_iter {cfg.get('max_iter')} thresh {cfg.get('thresh')} "
+            f"{cfg.get('algorithm')}/beta={cfg.get('beta')} backend {cfg.get('backend')}, "
+            f"torch {meta.get('torch_version')}")
+
+
 def cmd_info(args) -> int:
+    import zipfile
+
     for path in args.files:
+        if zipfile.is_zipfile(path):
+            print(_describe_artifact(path))
+            continue
         a = binio.read_matrix(path)
         print(
             f"{path}: {a.shape[0]}x{a.shape[1]} f32, "
@@ -959,11 +1074,60 @@ def build_parser() -> argparse.ArgumentParser:
     _add_solver_flags(batch)
     batch.set_defaults(fn=cmd_batch)
 
+    exp = sub.add_parser(
+        "export",
+        help="package W and the H-only solve into a serving artifact (.nmfz; the config "
+        "is rebuilt at load, the backend resolved on the serving device)",
+    )
+    exp.add_argument("W", help="learned dictionary W .bin")
+    exp.add_argument("-o", "--output", default="model.nmfz", help="artifact output path")
+    exp.add_argument("--block-cols", type=int, default=1024,
+                     help="columns a program call serves (the artifact's fixed X width; "
+                     "serve pads the tail block)")
+    exp.add_argument("--platforms", default="cuda,cpu",
+                     help="comma-separated device types the artifact may serve on (cuda, cpu)")
+    exp.add_argument("--masked", action="store_true",
+                     help="export the MASKED transform (missing-data scoring): 'serve' then "
+                     "requires --mask with the observed-entry weights")
+    exp.add_argument("--quantized-input", action="store_true",
+                     help="int8 configs only: the program takes host-quantized (codes, "
+                     "scales) instead of f32 X — a quarter of the serve-time transfer, the "
+                     "same results (composes with --mesh and --masked)")
+    _add_solver_flags(exp)
+    exp.set_defaults(fn=cmd_export)
+
+    srv = sub.add_parser(
+        "serve",
+        help="H-only inference from an exported artifact: no W file; the dictionary and "
+        "the solve's config come from the .nmfz",
+    )
+    srv.add_argument("artifact", help=".nmfz from 'export'")
+    srv.add_argument("X", help="input matrix .bin (new columns)")
+    srv.add_argument("-o", "--output", default="Hout.bin", help="output H path")
+    srv.add_argument("--h0", help="optional warm-start H .bin")
+    srv.add_argument("--mask", help="observed-entry mask .bin (same shape as X; 0 = "
+                     "missing), required by artifacts exported with --masked; with "
+                     "--out-of-core its column blocks stream off disk alongside X's")
+    srv.add_argument("--seed", type=int, default=0)
+    srv.add_argument("--mesh", help="serve a mesh artifact on a ROWSxCOLS mesh of ranks "
+                     "(its export shape), launched as python -m torch.distributed.run "
+                     "--nproc-per-node R*C -m nmf_tpu_torch serve ...; rank 0 writes")
+    srv.add_argument("--out-of-core", action="store_true",
+                     help="stream X from its .bin in column blocks and append H blocks to "
+                     "the output as they finish (X and H never load into host memory)")
+    srv.add_argument("--no-prefetch", action="store_true",
+                     help="serve blocks strictly one at a time instead of overlapping the "
+                     "next block's copy with the current solve (same bytes)")
+    srv.add_argument("--device", default="cuda",
+                     help="torch device: cuda (default; raises without a card) or cpu")
+    srv.add_argument("--quiet", "-q", action="store_true")
+    srv.set_defaults(fn=cmd_serve)
+
     gen = sub.add_parser("gen", help="write the seed-0 reference fixtures")
     gen.add_argument("directory")
     gen.set_defaults(fn=cmd_gen)
 
-    info = sub.add_parser("info", help="describe .bin files")
+    info = sub.add_parser("info", help="describe .bin files and serving artifacts")
     info.add_argument("files", nargs="+")
     info.set_defaults(fn=cmd_info)
 

@@ -9,6 +9,11 @@ NumPy has no bf16 of its own: a JAX bf16 array comes out of ``np.asarray``
 with the ``ml_dtypes`` ``bfloat16`` dtype, and crosses bit for bit into a
 ``torch.bfloat16`` tensor; a bf16 tensor goes back as an f32 array, which
 holds every bf16 value exactly.
+
+A JAX serving artifact (``.nmfz``: a ``jax.export`` program, W and the
+config) crosses by :func:`serving_from_jax`, which reads its ``meta.json``
+and ``w.npy`` with ``zipfile`` and NumPy alone and writes the port's
+artifact for the same W and config.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ __all__ = [
     "nmf_from_params",
     "state_from_numpy",
     "result_to_numpy",
+    "serving_from_jax",
     "tile_sparse_from",
     "to_tensor",
     "RESULT_FIELDS",
@@ -160,3 +166,35 @@ def result_to_numpy(res) -> Dict[str, object]:
         return {"sources": _numpy(res.sources), "w": _numpy(res.w), "h": _numpy(res.h),
                 "solve_result": result_to_numpy(res.solve_result)}
     return {f: None if getattr(res, f) is None else _numpy(getattr(res, f)) for f in RESULT_FIELDS}
+
+
+def serving_from_jax(path, out_path, platforms=("cuda", "cpu")) -> None:
+    """The port's serving artifact (:func:`nmf_tpu_torch.serving.
+    save_transform`) at ``out_path`` for the JAX artifact at ``path``: the
+    same W, ``n_block``, ``masked``, ``quantized_input``, ``mesh_shape`` and
+    config, served on ``platforms``.  Only ``meta.json`` and ``w.npy`` are
+    read, with ``zipfile`` and NumPy (never ``program.bin``), under JAX's
+    magic, version and W-shape checks; unknown config fields warn and are
+    dropped.  The backend stays as JAX stored it, ``'jnp'``, the path JAX's
+    program runs."""
+    import json
+    import zipfile
+
+    from ..serving import _JAX_MAGIC, _check_version, _checked_w, _config_from_dict, save_transform
+
+    with zipfile.ZipFile(path, "r") as zf:
+        members = set(zf.namelist())
+        if "meta.json" not in members:
+            raise ValueError(f"{path}: not an nmf_tpu serving artifact")
+        meta = json.loads(zf.read("meta.json"))
+        if meta.get("magic") != _JAX_MAGIC:
+            raise ValueError(f"{path}: not an nmf_tpu serving artifact")
+        _check_version(path, meta)
+        if "w.npy" not in members:
+            raise ValueError(f"{path}: truncated artifact (missing ['w.npy'])")
+        w = _checked_w(path, meta, zf.read("w.npy"))
+    ms = meta.get("mesh_shape")
+    save_transform(out_path, w, int(meta["n_block"]), _config_from_dict(meta["config"]),
+                   platforms, mesh_shape=tuple(ms) if ms else None,
+                   masked=bool(meta.get("masked")),
+                   quantized_input=bool(meta.get("quantized_input")))

@@ -538,4 +538,5 @@ def test_chip_smoke_lists_utils_launches():
     assert smoke._utils_launches(launches, "h_numerator") == {"checkpointed plain": 0,
                                                                "tiled checkpointed": 200}
     # phases 16-18 (sparse, backend, mesh) follow phase 15 (utils)
-    assert smoke.PHASES[-4:] == ("utils", "sparse", "backend", "mesh") and smoke.UTILS_CKPT_EVERY == 50
+    assert smoke.PHASES[-5:] == ("utils", "sparse", "backend", "mesh", "serving")
+    assert smoke.UTILS_CKPT_EVERY == 50

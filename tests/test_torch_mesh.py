@@ -334,7 +334,7 @@ def test_chip_smoke_phase_18_reads_the_mesh_launches():
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.PHASES[-1] == "mesh" and len(smoke.PHASES) == 18
+    assert smoke.PHASES[-2:] == ("mesh", "serving") and len(smoke.PHASES) == 19
     launches = {"mesh 1x1 reference": {"update_h": 0, "update_h_numerator": 200,
                                        "update_w_numerator": 200, "kl_cost": 0},
                 "mesh 1x1 flagship bfloat16": {"update_h_numerator": 50,

@@ -448,7 +448,7 @@ def test_chip_smoke_mesh_paths_read_their_launches():
                                                   tm.REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.PHASES[-1] == "mesh"
+    assert smoke.PHASES[-2:] == ("mesh", "serving")
     want = smoke._mp_stream_want()
     assert {k: v for k, v in want.items() if v} == {
         "update_h_numerator": smoke.MP_OOC_ITERS, "update_w_numerator": smoke.MP_OOC_ITERS}
