@@ -12,10 +12,11 @@
     python3 chip_smoke.py --phases card,sparse                # the COO solve
     python3 chip_smoke.py --phases card,mesh                  # the mesh, sharded solves
     python3 chip_smoke.py --phases card,serving               # serving artifacts, export/serve
+    python3 chip_smoke.py --phases card,examples              # nmf_tpu_torch.examples
     python3 chip_smoke.py --phases card,backend --backend-out backend_s1.json
                                                               # one session of the backend rule
 
-Nineteen phases, in order; any failure raises and the exit code is non-zero.
+Twenty phases, in order; any failure raises and the exit code is non-zero.
 Every check that holds the kernels passes ``backend="pallas"``: under
 ``"auto"`` a solve takes the card's backend rule (``utils/autotune.py``),
 which sends some shapes to cuBLAS.  The default path is held to that rule
@@ -379,6 +380,26 @@ phase 17.
    (relative Frobenius) of the single-device ``jnp`` artifact, every
    rank's counts 0; ``serve --mesh 1x1`` under ``torch.distributed.run``
    byte-equal to the in-process call.
+20. examples: the five of ``nmf_tpu_torch.examples`` (ROADMAP.md Queue 1
+   step 14), each through its ``main`` with a ``section`` hook that sets
+   every count to 0 just before each section and reads it just after.  (a)
+   Each at full size on the card: no figure NaN; each section's K1-K3 and
+   K5 launches those of its route (``EX_ROUTES``; the choice read from
+   ``autotune.CHOICES``): its iterations and checks where the rule keeps
+   the kernels (K5 30 + 30 in the tile-sparse section, K1/K2
+   ``numerator_only`` on the 1x1 mesh, the accelerated sections' rejects
+   read from the counts), 0 in the restarts, sweep and stability sections
+   (batched cuBLAS by the rule) and in the plain ones; the precision
+   sections' K1/K2 and K3 Modes (``EX_MODES``); ``basic_usage``'s files
+   round-tripping, ``stream_bin`` bitwise, the frozen columns intact, the
+   out-of-core cost within 1e-5 of the in-memory one; wall and section
+   seconds.  (b) Each quick (``NMF_TPU_EXAMPLE_QUICK=1``) on the card and
+   on the CPU in this process, every returned figure held at the
+   tolerances of ``tests/test_torch_examples.py``.  (c) ``distributed``:
+   (a)'s in-process 1x1 NCCL run and a 2x2 gloo group of four ranks on the
+   card under ``torch.distributed.run`` (``chip_smoke.py --example-rank``),
+   every rank exiting 0 with its launches and its placement line, each
+   run's costs within 1e-5 of the same work on one device.
 
 Every number printed carries the card's name and power limit.  The line
 before the last is the card as ``nvidia-smi`` names it, the one before that
@@ -399,7 +420,8 @@ phase 13, ``models_launches``, and of phase 14, ``selection_launches``,
 with phase 14's config-4 call in ``batched``; every kernel its launches on
 phase 15's runs, ``utils_launches``, and on phase 18's mesh solves,
 ``mesh_launches``: K1's and K2's ``numerator_only`` launches, K3's), and on
-phase 19's served calls, ``serve_launches``; the last line is
+phase 19's served calls, ``serve_launches``, and on each section of
+phase 20a's examples, ``examples_launches``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -486,7 +508,7 @@ TIERS = {
 }
 PHASES = ("card", "kernels", "modes", "quant", "cli", "inprocess", "flagship", "tilesparse",
           "oocore", "accel", "families", "transform", "models", "selection", "utils", "sparse",
-          "backend", "mesh", "serving")
+          "backend", "mesh", "serving", "examples")
 # csrc/mu_tile.cuh's Mode, in the order of its values; the pass-1 instance
 # of K1/K2 that each runs on
 MODES = ("F32", "ANY", "SPLIT3", "BF16")
@@ -5088,7 +5110,7 @@ def _mesh_numerators(card, out):
 
 
 MP_OOC = (1025, 65_408, 32)           # (M, N, K): phase 15's streamed block as a whole X
-MP_OOC_ITERS, MP_OOC_CHECK = 100, 50
+MP_OOC_ITERS, MP_OOC_CHECK = 50, 25   # 100, 50 before phase 20 came (the 1200 s limit)
 MP_TR_BLOCK, MP_TR_ITERS = 16_384, 50
 MP_TILED_ITERS = 50
 MP_TILED_RTOL = 1e-4                  # K5 against the plain sweep: phase 8's f32 limit
@@ -5591,13 +5613,11 @@ def _mp_cli_commands():
     }
 
 
-def _mp_cli(card, out, tmp):
+def _mp_cli_start(tmp):
     """(h) the CLI's mesh runs under ``torch.distributed.run`` (one rank
-    each, all six at once), each against the same call in process on a 1x1
-    mesh."""
+    each, all six at once), started: {"procs", "t0"}."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.io import binio
-    from nmf_tpu_torch.parallel.mesh import FlatMesh, shutdown
 
     nt.fixtures.write_reference_fixtures(tmp)
     os.makedirs(os.path.join(tmp, "d"), exist_ok=True)
@@ -5606,21 +5626,33 @@ def _mp_cli(card, out, tmp):
         binio.write_matrix(x[:, i * 100:(i + 1) * 100], os.path.join(tmp, "d", f"m{i}.bin"))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
-    cmds = _mp_cli_commands()
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
          "-m", "nmf_tpu_torch", *args, "-q"],
         cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name, args in cmds.items()}
+        for name, args in _mp_cli_commands().items()}
+    return {"procs": procs, "t0": t0}
+
+
+def _mp_cli_finish(card, out, tmp, started):
+    """(h) the six runs of :func:`_mp_cli_start` waited for, each against
+    the same call in process on a 1x1 mesh."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import binio
+    from nmf_tpu_torch.parallel.mesh import FlatMesh, shutdown
+
+    procs = started["procs"]
     errs = {name: p.communicate(timeout=300)[1] for name, p in procs.items()}
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - started["t0"]
     for name, p in procs.items():
         check(p.returncode == 0, f"18h {name}: exit {p.returncode}: {errs[name][-2000:]}")
     # the same calls in process, on a 1x1 mesh, each with the config its
     # command line gives
     from nmf_tpu_torch import cli as ncli
 
+    cmds = _mp_cli_commands()
+    x = binio.read_matrix(os.path.join(tmp, "X.bin"))
     mesh = nt.make_mesh((1, 1), device=DEVICE)
     w, h = (binio.read_matrix(os.path.join(tmp, f)) for f in ("W.bin", "H.bin"))
     cfg = ncli._config(ncli.build_parser().parse_args(cmds["run_ooc"]))
@@ -5661,7 +5693,8 @@ def _mp_cli(card, out, tmp):
           f"18h select: best costs {got['best_cost_per_rank']} against {want}")
     rec["select"] = {"cost_rel": srel}
     out["mesh"]["paths"]["cli"] = {"runs": rec, "wall_s": wall}
-    print(f"[{card}] 18h torch.distributed.run --nproc-per-node 1, six at once ({wall} s): "
+    print(f"[{card}] 18h torch.distributed.run --nproc-per-node 1, six at once, beside (g) "
+          f"({wall} s from their start): "
           f"run --mesh 1x1 with --out-of-core, --checkpoint-dir, --online, --restarts, select "
           f"--mesh 1x1, batch --mesh 1x1: every exit 0, each output against the same call in "
           f"process: {json.dumps(rec)}")
@@ -5717,9 +5750,16 @@ def phase_mesh(card, tmp, out):
     # restart and checkpointed solves on a mesh, and the CLI's
     with tempfile.TemporaryDirectory(prefix="nmf_mesh_paths_") as d:
         twins = _mp_1x1(card, out, d)
-    _mp_4(card, out, twins)
     with tempfile.TemporaryDirectory(prefix="nmf_mesh_paths_cli_") as d:
-        _mp_cli(card, out, d)
+        started = _mp_cli_start(d)      # (h)'s subprocesses run while (g) does
+        try:
+            _mp_4(card, out, twins)
+            _mp_cli_finish(card, out, d, started)
+        finally:        # a failed check leaves no subprocess behind
+            for p in started["procs"].values():
+                if p.poll() is None:
+                    p.kill()
+                p.communicate()
 
 
 def _mesh_launches(launches, name):
@@ -6224,6 +6264,382 @@ def _serve_launches(launches, name):
     return {run[6:]: launches.get(run, {}).get(key, 0) for run in _SERVE_RUNS}
 
 
+# Phase 20: the examples (ROADMAP.md Queue 1 step 14), each through its main
+EX_NAMES = ("basic_usage", "separation_demo", "serving_pipeline", "advanced_features",
+            "distributed")
+EX_BLOCK_N = 128            # advanced_features' block_n (its streamed sections)
+EX_COST_RTOL = 1e-5         # out-of-core against in-memory; 20c against one device
+EX_RANK_SECONDS = 300       # 20c's rank group's wall-clock limit
+# tests/test_torch_examples.py's tolerances, which 20b holds the card to
+# against the CPU: cost rel (bfloat16, separate), factor rtol (COO), atol
+EX_COST, EX_BF16_COST, EX_SEP_COST = 1e-5, 1e-3, 1e-4
+EX_FRTOL, EX_COO_FRTOL, EX_FATOL = 1e-4, 1e-3, 1e-6
+# the route each section's solves take on the H100: "pallas" (K1-K3, K5),
+# "jnp" (the rule's batched cuBLAS: the member axis at K <= 32 under
+# float32) or "plain" (no kernel exists for the work, or the config asks
+# for the plain ops); "pallas" unless named
+EX_ROUTES = {
+    "advanced_features": {"strict": "plain", "sparse": "plain", "hals": "plain",
+                          "online": "plain", "serving": "plain", "restarts": "jnp",
+                          "rank_sweep": "jnp", "stability": "jnp"},
+    "serving_pipeline": {"masked": "plain", "masked_stream": "plain"},
+    "distributed": {"serving": "plain"},
+}
+# the library's pass-1 Mode of K1/K2 and of K3 in each precision section
+EX_MODES = {"tier float32": ("F32", "F32"), "tier float32_fast": ("SPLIT3", "F32"),
+            "tier bfloat16": ("BF16", "BF16"), "int8": ("ANY", "ANY")}
+
+
+def _ex_module(name):
+    import importlib
+
+    return importlib.import_module(f"nmf_tpu_torch.examples.{name}")
+
+
+class _ExSections:
+    """The ``section`` hook of an example's ``main``: every count (K1-K3's
+    and K5's, the backend choices of ``autotune.CHOICES`` and, on the card,
+    the library's pass-1 launches per Mode) set to 0 just before each
+    section and read just after, with its host seconds."""
+
+    def __init__(self, card_modes=True):
+        self.card_modes, self.records = card_modes, {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        from nmf_tpu_torch.ops.kernels import _build
+        from nmf_tpu_torch.utils import autotune
+
+        lib = _build.load_library() if self.card_modes else None
+        if lib is not None:
+            lib.nmf_reset_partial_launches()
+            lib.nmf_reset_kl_launches()
+        _reset_all()
+        autotune.reset_counts()
+        if lib is not None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        if lib is not None:
+            torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0, "counts": _all_counts(),
+               "routes": sorted({choice for _, choice in autotune.CHOICES})}
+        if lib is not None:
+            rec["modes"] = {"update_h": [lib.nmf_partial_launches(1, i) for i in range(len(MODES))],
+                            "kl_cost": [lib.nmf_kl_launches(i) for i in range(len(MODES))]}
+        self.records[name] = rec
+
+
+def _ex_figures(out, name):
+    """Section ``name``'s figures in an example's returned dict."""
+    return out["tiers"][name[5:]] if name.startswith("tier ") else out[name]
+
+
+def _ex_checks(it, every):
+    """The checks of a plain loop of ``it`` iterations: one every ``every``
+    and one at the last."""
+    return -(-int(it) // every)
+
+
+def _ex_rejects(steps, costs, f, chunk, where, blocks=1):
+    """:func:`_rejects` of an accelerated section, from its figures."""
+    return _rejects(steps, costs, argparse.Namespace(**f), chunk, where, blocks)
+
+
+def _ex_want(example, name, out, rec):
+    """Every count section ``name`` must show: where its route is
+    "pallas", K1-K3 (K5) once a step (sweep) and K3 once a check, read
+    from its figures; nothing else, and nothing at all on another route."""
+    want = {key: 0 for key in _all_counts()}
+    if EX_ROUTES.get(example, {}).get(name, "pallas") != "pallas":
+        return want
+    f, counts, where = _ex_figures(out, name), rec["counts"], f"20a {example} {name}"
+    if name == "tile_sparse":
+        want.update({"K5 h_numerator": f["iterations"], "K5 w_numerator": f["iterations"]})
+    elif name == "transform":
+        # NMF.transform's H-only solve (its iterations are not returned):
+        # K1 once an iteration, K3 once a check
+        k1 = counts["update_h"]
+        check(0 < k1 <= 200, f"{where}: {k1} K1 launches")
+        want.update(update_h=k1, kl_cost=_ex_checks(k1, 25))
+    elif name in ("serve", "stream", "quantized"):     # a check at 30 of 30 a block
+        its = out["quantized" if name == "quantized" else "serve"]["block_iterations"]
+        want.update(update_h=int(np.sum(its)), kl_cost=sum(_ex_checks(i, 30) for i in its))
+    elif name == "ooc_transform":
+        its = f["iterations"]
+        want.update(update_h=int(np.sum(its)), kl_cost=sum(_ex_checks(i, 25) for i in its))
+    elif name in ("out_of_core", "ooc_accel"):
+        # K1 in full and K2 numerator_only on each block, K3 on each block
+        # at each cost pass (a seed pass and one a reject when accelerated)
+        blocks = -(-f["h"].shape[1] // EX_BLOCK_N)
+        steps, costs = f["iterations"], blocks * f["num_checks"]
+        if name == "ooc_accel":
+            rej = _ex_rejects(counts["update_h"], counts["kl_cost"], f, 10, where, blocks)
+            steps, costs = f["iterations"] + 10 * rej, blocks * (1 + f["num_checks"] + rej)
+        want.update(update_h=blocks * steps, update_w_numerator=blocks * steps, kl_cost=costs)
+    elif name == "train":       # serving_pipeline's accelerated solve, a check every 20
+        rej = _ex_rejects(counts["update_h"], counts["kl_cost"], f, 20, where)
+        steps = f["iterations"] + 20 * rej
+        want.update(update_h=steps, update_w=steps, kl_cost=1 + f["num_checks"] + rej)
+    elif name == "sharded":     # K1/K2 numerator_only; the mesh cost is plain, as JAX's
+        want.update(update_h_numerator=f["iterations"], update_w_numerator=f["iterations"])
+    elif name == "batched":     # one member a rank
+        it = int(np.max(f["iterations"]))
+        want.update(update_h=it, update_w=it, kl_cost=int(np.max(f["num_checks"])))
+    else:                       # a plain solve loop
+        it = f["iterations"]
+        want.update(update_h=it, update_w=it, kl_cost=f.get("num_checks", _ex_checks(it, 25)))
+    return want
+
+
+def _ex_finite(where, obj):
+    """Every number among an example's figures is finite."""
+    if isinstance(obj, dict):
+        for key, v in obj.items():
+            _ex_finite(f"{where}.{key}", v)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _ex_finite(f"{where}[{i}]", v)
+    elif isinstance(obj, (float, np.ndarray)) and np.asarray(obj).dtype.kind == "f":
+        check(bool(np.all(np.isfinite(obj))), f"{where}: not finite")
+
+
+def _ex_check_sections(example, out, records, launches):
+    """Each section's route (``autotune.CHOICES``), its counts against
+    :func:`_ex_want` and, in the precision sections, the Modes K1/K2 and K3
+    ran; its launches into ``launches``."""
+    for name, rec in records.items():
+        where = f"20a {example} {name}"
+        route = EX_ROUTES.get(example, {}).get(name, "pallas")
+        # a section that resolved a backend resolved its route (a served
+        # call resolves nothing: its artifact resolved at load)
+        if rec["routes"] and route != "plain":
+            check(rec["routes"] == [route], f"{where}: resolved to {rec['routes']}, not {route}")
+        want = _ex_want(example, name, out, rec)
+        check(rec["counts"] == want, f"{where}: counts {rec['counts']}, expected {want}")
+        if name in EX_MODES:
+            k12, k3 = EX_MODES[name]
+            ran = (_mode_of_counts(rec["modes"]["update_h"], where),
+                   _mode_of_counts(rec["modes"]["kl_cost"], where))
+            check(ran == (k12, k3), f"{where}: K1/K2 and K3 ran {ran}, expected {(k12, k3)}")
+        launches[f"example {example} {name}"] = rec["counts"]
+
+
+def phase_examples_full(card, tmp, out):
+    """(a) every example at full size on the card; returns the figures of
+    ``distributed`` (its 1x1 NCCL run, for (c))."""
+    import nmf_tpu_torch as nt
+
+    figures = {}
+    for name in EX_NAMES:
+        argv = ["--device", "cuda"] + (["--out-dir", tmp] if name == "basic_usage" else [])
+        hook = _ExSections()
+        fig, wall = _timed(lambda: _ex_module(name).main(argv, section=hook))
+        _ex_finite(f"20a {name}", fig)
+        _ex_check_sections(name, fig, hook.records, out["launches"])
+        figures[name] = fig
+        out["examples"]["full"][name] = {
+            "wall_s": wall, "sections": {
+                sec: {"seconds": rec["seconds"],
+                      "launches": {k: v for k, v in rec["counts"].items() if v}}
+                for sec, rec in hook.records.items()}}
+        print(f"[{card}] 20a {name}: {wall} s; each section's seconds and launches "
+              f"{json.dumps(out['examples']['full'][name]['sections'])}")
+    bu, sp, af = figures["basic_usage"], figures["serving_pipeline"], figures["advanced_features"]
+    for path, want in zip(bu["write"]["paths"], (bu["A"]["w"], bu["A"]["h"])):
+        check(np.array_equal(nt.read_matrix(path), want), f"20a basic_usage: {path} round trip")
+    check(sp["stream"]["bitwise"], "20a serving_pipeline: stream_bin differs from the call")
+    check(af["semi"]["frozen_ok"], "20a advanced_features: the frozen columns moved")
+    rel = abs(af["out_of_core"]["cost"] - af["in_memory"]["cost"]) / af["in_memory"]["cost"]
+    check(rel <= EX_COST_RTOL, f"20a advanced_features: out-of-core cost rel {rel}")
+    print(f"[{card}] 20a: the basic_usage files round-trip, stream_bin bitwise, the frozen "
+          f"columns intact, the out-of-core cost {rel} (relative) from the in-memory one")
+    return figures["distributed"]
+
+
+def _ex_hold(where, a, b, held, section=""):
+    """The card's figures ``a`` against the CPU's ``b`` at the CPU tests'
+    tolerances (``section``: the section, or the tier, they belong to); the
+    largest relative deviation of each kind into ``held``."""
+    if isinstance(a, list) and a and isinstance(a[0], dict):       # separate's components
+        check([(c["peak_hz"], c["kind"]) for c in a] == [(c["peak_hz"], c["kind"]) for c in b],
+              f"{where}: components {a} / {b}")
+        return
+    if not isinstance(a, dict):
+        check(np.array_equal(np.asarray(a), np.asarray(b)), f"{where}: {a} / {b}")
+        return
+    check(set(a) == set(b), f"{where}: figures {sorted(a)} / {sorted(b)}")
+    for key in a:
+        sub = key if section in ("", "tiers") else section
+        x, y = a[key], b[key]
+        if key in ("paths", "bytes", "spread"):
+            continue    # where it wrote, the artifact's size, a derived share
+        if key in ("w", "h"):
+            if section in ("bfloat16", "hals", "separate"):
+                continue    # as the CPU test: the cost alone
+            rtol = EX_COO_FRTOL if section == "sparse" else EX_FRTOL
+            x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
+            check(x.shape == y.shape and np.allclose(x, y, rtol=rtol, atol=EX_FATOL),
+                  f"{where}.{key}: largest difference {np.max(np.abs(x - y))}")
+            dev = np.max(np.abs(x - y) / np.maximum(np.abs(y), EX_FATOL / rtol))
+            held["factor"] = max(held.get("factor", 0.0), float(dev))
+        elif key in ("cost", "costs", "pass_costs"):
+            rtol = {"bfloat16": EX_BF16_COST, "separate": EX_SEP_COST}.get(section, EX_COST)
+            x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+            rel = float(np.max(np.abs(x - y) / np.abs(y)))
+            check(rel <= rtol, f"{where}.{key}: relative {rel} > {rtol}")
+            held["cost"] = max(held.get("cost", 0.0), rel)
+        elif key == "cophenetic":
+            dev = float(np.max(np.abs(np.asarray(x) - np.asarray(y))))
+            check(dev <= 1e-6, f"{where}.{key}: {dev} > 1e-6")
+            held["cophenetic_abs"] = max(held.get("cophenetic_abs", 0.0), dev)
+        else:
+            _ex_hold(f"{where}.{key}", x, y, held, sub)
+
+
+def phase_examples_quick(card, tmp, out):
+    """(b) every example quick on the card and on the CPU in this process,
+    figure by figure at the CPU tests' tolerances."""
+    from nmf_tpu_torch.examples._common import QUICK_ENV
+
+    os.environ[QUICK_ENV] = "1"
+    try:
+        for name in EX_NAMES:
+            figs = {}
+            for dev in ("cuda", "cpu"):
+                argv = ["--device", dev] + (["--out-dir", os.path.join(tmp, dev)]
+                                            if name == "basic_usage" else [])
+                os.makedirs(os.path.join(tmp, dev), exist_ok=True)
+                figs[dev] = _ex_module(name).main(argv)
+            held = {}
+            _ex_hold(f"20b {name}", figs["cuda"], figs["cpu"], held)
+            out["examples"]["quick"][name] = held
+            print(f"[{card}] 20b {name} quick, the card against the CPU: largest relative "
+                  f"deviations {held}")
+    finally:
+        del os.environ[QUICK_ENV]
+
+
+def _example_rank_main(d: str, gloo: bool) -> int:
+    """One process of 20c (``chip_smoke.py --example-rank D``): the
+    ``distributed`` example at full size on the card, under
+    ``torch.distributed.run`` (``--example-gloo``: four ranks on one card
+    over gloo) or alone (a 1x1 NCCL mesh); its figures and each section's
+    counts to ``D/rank<R>.json``, its global W to ``D/rank<R>.npz``."""
+    from nmf_tpu_torch.examples import distributed
+
+    hook = _ExSections(card_modes=False)
+    fig = distributed.main(["--device", "cuda"] + (["--gloo"] if gloo else []), section=hook)
+    rank = os.environ.get("RANK", "0")
+    np.savez(os.path.join(d, f"rank{rank}.npz"), w=fig["sharded"]["w"])
+    scalars = {"mesh": fig["mesh"], "iterations": fig["sharded"]["iterations"],
+               "num_checks": fig["sharded"]["num_checks"], "cost": fig["sharded"]["cost"],
+               "w_rows": fig["sharded"]["w_rows"],
+               "batched_costs": fig["batched"]["costs"].tolist(),
+               "batched_iterations": fig["batched"]["iterations"].tolist(),
+               "batched_num_checks": fig["batched"]["num_checks"].tolist(),
+               "serving_cost": fig["serving"]["cost"],
+               "counts": {sec: rec["counts"] for sec, rec in hook.records.items()},
+               "routes": {sec: rec["routes"] for sec, rec in hook.records.items()}}
+    pathlib.Path(d, f"rank{rank}.json").write_text(json.dumps(scalars))
+    return 0
+
+
+def _ex_one_device(x, w0, h0, xs, ws, hs, w_mesh, cols):
+    """The costs of ``distributed``'s three parts on one device (no mesh)."""
+    import nmf_tpu_torch as nt
+
+    res = nt.solve(x, w0, h0, nt.SolveConfig(max_iter=100, thresh=1e-4, check_every=25),
+                   device="cuda")
+    bres = nt.solve_batched(xs, ws, hs, nt.SolveConfig(max_iter=50), device="cuda")
+    with tempfile.TemporaryDirectory(prefix="nmf_ex_") as td:
+        art = os.path.join(td, "one.nmfz")
+        nt.save_transform(art, w_mesh, n_block=cols // 2,
+                          config=nt.SolveConfig(max_iter=40, backend="jnp"))
+        served = nt.load_transform(art, device="cuda")(x)
+    return {"cost": float(res.cost), "batched_costs": bres.cost.cpu().numpy(),
+            "serving_cost": float(served.cost)}
+
+
+def _ex_hold_run(where, run, ref):
+    """A ``distributed`` run's costs against one device's (rel 1e-5)."""
+    rels = {}
+    for key in ("cost", "batched_costs", "serving_cost"):
+        x, y = np.asarray(run[key], np.float64), np.asarray(ref[key], np.float64)
+        rels[key] = float(np.max(np.abs(x - y) / np.abs(y)))
+        check(x.shape == y.shape and rels[key] <= EX_COST_RTOL,
+              f"{where}: {key} {x} against one device's {y} (relative {rels[key]})")
+    return rels
+
+
+def phase_examples_distributed(card, out, one):
+    """(c) ``distributed``: (a)'s in-process 1x1 NCCL run and a 2x2 gloo
+    group of four ranks on the card under ``torch.distributed.run``, each
+    against the same work on one device."""
+    from nmf_tpu_torch.examples import distributed
+
+    (x, w0, h0), (xs, ws, hs) = distributed.inputs(4096, 2048, 128, 1, False)
+    ref1 = _ex_one_device(x, w0, h0, xs, ws, hs, one["sharded"]["w"], 2048)
+    run1 = {"cost": one["sharded"]["cost"], "batched_costs": one["batched"]["costs"],
+            "serving_cost": one["serving"]["cost"]}
+    rel1 = _ex_hold_run("20c 1x1", run1, ref1)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    with tempfile.TemporaryDirectory(prefix="nmf_ex_ranks_") as d:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "4", str(REPO / "chip_smoke.py"), "--example-rank", d,
+               "--example-gloo"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=EX_RANK_SECONDS)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"20c 2x2: torch.distributed.run exit {proc.returncode}:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        recs = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text()) for r in range(4)]
+        w22 = np.load(os.path.join(d, "rank0.npz"))["w"]
+    for r, rec in enumerate(recs):
+        where = f"20c 2x2 rank {r}"
+        check(rec["mesh"] == {"shape": [2, 2], "world": 4}, f"{where}: mesh {rec['mesh']}")
+        check(rec["w_rows"] == [r // 2 * 2048, r // 2 * 2048 + 2048], f"{where}: W rows {rec}")
+        check(f"W: rank {r} holds rows {r // 2 * 2048}:{r // 2 * 2048 + 2048}, cols 0:128"
+              in proc.stdout, f"{where}: no placement line")
+        f = {"sharded": {"iterations": rec["iterations"]},
+             "batched": {"iterations": rec["batched_iterations"],
+                         "num_checks": rec["batched_num_checks"]}}
+        for sec, counts in rec["counts"].items():
+            want = _ex_want("distributed", sec, f, {"counts": counts, "routes": rec["routes"][sec]})
+            check(counts == want, f"{where} {sec}: counts {counts}, expected {want}")
+        for key in ("cost", "batched_costs", "serving_cost"):
+            check(rec[key] == recs[0][key], f"{where}: {key} differs from rank 0's")
+    (x, w0, h0), (xs, ws, hs) = distributed.inputs(4096, 2048, 128, 4, False)
+    ref4 = _ex_one_device(x, w0, h0, xs, ws, hs, w22, 2048)
+    rel4 = _ex_hold_run("20c 2x2", recs[0], ref4)
+    out["launches"]["example distributed 2x2 rank 0"] = recs[0]["counts"]
+    out["examples"]["distributed"] = {"1x1": rel1, "2x2": rel4, "2x2_wall_s": wall}
+    print(f"[{card}] 20c distributed at 4096x2048, K=128: 1x1 NCCL in process {rel1}; 2x2 "
+          f"gloo on four ranks under torch.distributed.run ({wall} s, every rank exit 0, "
+          f"K1/K2 numerator_only on each) {rel4} (relative, against one device)")
+
+
+def phase_examples(card, tmp, out):
+    """20: the five examples (ROADMAP.md Queue 1 step 14)."""
+    print(f"[{card}] phase 20: examples: each at full size with its sections' launches, "
+          "quick on the card against the CPU, distributed on 1x1 NCCL and 2x2 gloo")
+    out["examples"] = {"full": {}, "quick": {}}
+    one = phase_examples_full(card, tmp, out)
+    phase_examples_quick(card, tmp, out)
+    phase_examples_distributed(card, out, one)
+
+
+def _examples_launches(launches, name):
+    """A kernel's launches on each section of phase 20a (K1's and K2's:
+    in full and ``numerator_only``)."""
+    keys = {"h_numerator": ("K5 h_numerator",), "w_numerator": ("K5 w_numerator",),
+            "kl_cost": ("kl_cost",)}.get(name, (name, f"{name}_numerator"))
+    return {run[8:]: sum(counts.get(key, 0) for key in keys)
+            for run, counts in launches.items() if run.startswith("example ")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive nmf_tpu_torch on one NVIDIA card")
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6237,6 +6653,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-paths-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--serve-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--example-rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--example-gloo", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.mesh_rank is not None:      # one of phase 18c's spawned ranks
         sys.path.insert(0, str(REPO))
@@ -6247,6 +6665,9 @@ def main(argv=None) -> int:
     if args.serve_rank is not None:         # one of phase 19d's
         sys.path.insert(0, str(REPO))
         return _serve_rank_main(args.serve_rank, args.mesh_dir)
+    if args.example_rank is not None:       # one of phase 20c's
+        sys.path.insert(0, str(REPO))
+        return _example_rank_main(args.example_rank, args.example_gloo)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -6271,7 +6692,7 @@ def main(argv=None) -> int:
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
         "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
-        "sparse": {}, "backend": {}, "mesh": {}, "serving": {},
+        "sparse": {}, "backend": {}, "mesh": {}, "serving": {}, "examples": {},
     }
     t_start = time.perf_counter()
     seconds = {}
@@ -6315,6 +6736,8 @@ def main(argv=None) -> int:
         run("mesh", phase_mesh, tmp, out)
     with tempfile.TemporaryDirectory(prefix="nmf_serve_") as tmp:
         run("serving", phase_serving, tmp, out, args.seed)
+    with tempfile.TemporaryDirectory(prefix="nmf_examples_") as tmp:
+        run("examples", phase_examples, tmp, out)
     print(f"[{card}] phase seconds: {json.dumps(seconds)}")
     if phases != list(PHASES):
         print(f"[{card}] phases {phases} passed in {time.perf_counter() - t_start} s; "
@@ -6378,6 +6801,8 @@ def main(argv=None) -> int:
             "mesh_paths_launches": _mesh_paths_launches(out["launches"], name),
             # phase 19: each served call (K1 and K3 on the auto artifacts)
             "serve_launches": _serve_launches(out["launches"], name),
+            # phase 20a: each section of each example at full size
+            "examples_launches": _examples_launches(out["launches"], name),
             # K1-K3: their launches on phase 12's H-only runs (K2: none)
             **({"transform_launches": _transform_launches(out["launches"], name),
                 "models_launches": _models_launches(out["launches"], name),
@@ -6397,7 +6822,8 @@ def main(argv=None) -> int:
     print(f"[{card}] backend summary: {json.dumps(out['backend']['auto'])}")
     print(f"[{card}] mesh summary: {json.dumps(out['mesh'])}")
     print(f"[{card}] serving summary: {json.dumps(out['serving'])}")
-    print(f"[{card}] all nineteen phases passed in {time.perf_counter() - t_start} s "
+    print(f"[{card}] examples summary: {json.dumps(out['examples'])}")
+    print(f"[{card}] all twenty phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -366,9 +366,17 @@ def shutdown(barrier: bool = True) -> None:
     """Leave this process's process groups in order at the end of a run:
     a barrier (no rank tears down while another still sums; ``barrier=False``
     for a rank that failed, whose peers may be inside a collective), then
-    every group destroyed.  A no-op without a group."""
+    every group destroyed and the port's solvers cached for a mesh dropped.
+    A group lives on, with its gloo or NCCL threads, while any
+    ``DeviceMesh`` over it does: the caller drops its meshes after this
+    call, so that the threads end before the interpreter's teardown (a gloo
+    group torn down there aborted a rank now and then: "terminate called
+    without an active exception").  A no-op without a group."""
     if not dist.is_initialized():
         return
     if barrier:
         dist.barrier()
     dist.destroy_process_group()
+    from .sharded import drop_cached_solvers
+
+    drop_cached_solvers()

@@ -621,3 +621,15 @@ def build_sharded_masked_h_solver(config: SolveConfig, mesh):
         return masked_kl_partial(dq(xm[0]), w, h, xm[1], eps) + _pen(l1_h, l2_h, h) / r
 
     return _segment(step, cost, config, mesh)
+
+
+def drop_cached_solvers() -> None:
+    """Empty the solver caches keyed by a mesh: each cached solver holds its
+    ``DeviceMesh``, and so the mesh's process groups and their threads, for
+    the life of the process.  :func:`~nmf_tpu_torch.parallel.mesh.shutdown`
+    calls it, so that the groups end when the caller drops its mesh and not
+    in the interpreter's teardown."""
+    for builder in (_build_sharded_solver_cached, build_sharded_masked_solver,
+                    build_sharded_h_solver, build_sharded_semi_solver,
+                    build_sharded_masked_h_solver):
+        builder.cache_clear()

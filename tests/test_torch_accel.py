@@ -643,9 +643,10 @@ def test_chip_smoke_lists_accel_launches():
         "reference": 225, "oocore int8 numerator_only": 100}
     assert smoke._accel_launches(launches, "kl_cost") == {"reference": 10, "oocore int8": 30}
     assert smoke._accel_launches(launches, "h_numerator") == {"tiled float32": 200}
-    # phase 15 (utils) follows phase 14; phases 16-19 (sparse, backend, mesh, serving) follow it
-    assert smoke.PHASES[-10:] == ("accel", "families", "transform", "models", "selection",
-                                  "utils", "sparse", "backend", "mesh", "serving")
+    # phase 15 (utils) follows phase 14; phases 16-20 (sparse, backend, mesh, serving,
+    # examples) follow it
+    assert smoke.PHASES[-11:] == ("accel", "families", "transform", "models", "selection",
+                                  "utils", "sparse", "backend", "mesh", "serving", "examples")
     # phase 13's runs: K1-K3 under their own keys, K2's numerator_only beside
     models = {"models separate": {"update_h": 200, "update_w": 200, "kl_cost": 8},
               "models streamed n_frozen=8": {"update_h": 50, "update_w": 0,

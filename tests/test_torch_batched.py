@@ -365,6 +365,8 @@ def test_chip_smoke_lists_selection_launches():
                                                                 "restarts": 100}
     assert smoke._selection_launches(launches, "kl_cost") == {"batched float32": 0,
                                                                "restarts": 4}
-    # phase 15 (utils) follows phase 14, and phases 16-19 (sparse, backend, mesh, serving) it
-    assert smoke.PHASES[-6:] == ("selection", "utils", "sparse", "backend", "mesh", "serving")
+    # phase 15 (utils) follows phase 14, and phases 16-20 (sparse, backend, mesh, serving,
+    # examples) it
+    assert smoke.PHASES[-7:] == ("selection", "utils", "sparse", "backend", "mesh", "serving",
+                                 "examples")
     assert smoke.BATCH_SHAPE == (128, 513, 2000, 32)

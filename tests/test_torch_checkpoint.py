@@ -537,6 +537,6 @@ def test_chip_smoke_lists_utils_launches():
                                                             "tiled checkpointed": 0}
     assert smoke._utils_launches(launches, "h_numerator") == {"checkpointed plain": 0,
                                                                "tiled checkpointed": 200}
-    # phases 16-18 (sparse, backend, mesh) follow phase 15 (utils)
-    assert smoke.PHASES[-5:] == ("utils", "sparse", "backend", "mesh", "serving")
+    # phases 16-20 (sparse, backend, mesh, serving, examples) follow phase 15 (utils)
+    assert smoke.PHASES[-6:] == ("utils", "sparse", "backend", "mesh", "serving", "examples")
     assert smoke.UTILS_CKPT_EVERY == 50

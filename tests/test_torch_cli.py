@@ -540,8 +540,10 @@ def test_import_loads_no_jax():
 
 def test_sources_never_import_jax_or_the_jax_package():
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|nmf_tpu)(\.|\s|,|$)")
-    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py", REPO / "tests" / "torch_mesh_ranks.py",
-                 REPO / "tests" / "torch_serving_ranks.py"]:
+    helpers = ("torch_mesh_ranks.py", "torch_mesh_paths_ranks.py", "torch_serving_ranks.py",
+               "torch_example_ranks.py")
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
+                 *(REPO / "tests" / name for name in helpers)]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), f"{path}: {line}"
 

@@ -235,6 +235,44 @@ def test_thresh_stops_every_rank_at_nmf_tpus_iteration(tmp_path_factory):
     assert all(i["converged"] for i in infos)
 
 
+@pytest.mark.parametrize("shape", list(ranks.GROUPS), ids=lambda s: f"{s[0]}x{s[1]}")
+def test_ranks_leave_no_gloo_thread_behind(tmp_path_factory, shape):
+    """After ``shutdown`` and its mesh dropped, no rank of a group runs a
+    gloo thread: the groups end before the interpreter's teardown, where a
+    group torn down with its threads alive aborted a rank now and then
+    ("terminate called without an active exception")."""
+    out = _group(tmp_path_factory, shape)
+    for i in range(shape[0] * shape[1]):
+        assert json.loads((out / f"exit.r{i}.json").read_text()) == {"gloo_threads": []}, i
+
+
+def test_shutdown_drops_the_solvers_that_hold_a_mesh():
+    """A sharded solve caches its solver, which holds the mesh and so the
+    mesh's groups and their gloo threads; ``shutdown`` empties those caches,
+    so that dropping the mesh ends the threads (one rank, a 1x1 mesh)."""
+    code = (
+        "import os, sys, numpy as np\n"
+        "import nmf_tpu_torch as nt\n"
+        "from nmf_tpu_torch.parallel.mesh import shutdown\n"
+        "def gloo():\n"
+        "    names = (open(f'/proc/self/task/{t}/comm').read().strip()\n"
+        "             for t in os.listdir('/proc/self/task'))\n"
+        "    return sorted(n for n in names if 'gloo' in n)\n"
+        "mesh = nt.make_mesh((1, 1), device='cpu')\n"
+        "rng = np.random.RandomState(0)\n"
+        "nt.solve_sharded(rng.rand(8, 6), rng.rand(8, 2), rng.rand(2, 6),\n"
+        "                 nt.SolveConfig(max_iter=5), mesh=mesh)\n"
+        "print(len(gloo()) > 0)\n"
+        "shutdown()\n"
+        "del mesh\n"
+        "print(gloo())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                          text=True, timeout=RANK_SECONDS, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines() == ["True", "[]"]
+
+
 @pytest.mark.parametrize("n", range(1, 9))
 def test_mesh_shape_is_jaxs_rule(n):
     """The default factorization of a world of n ranks is JAX's of n devices."""
@@ -326,7 +364,7 @@ def test_cli_mesh_under_torchrun_matches_nmf_tpu(tmp_path, sub):
 
 
 def test_chip_smoke_phase_18_reads_the_mesh_launches():
-    """``chip_smoke.py`` phase 18 comes last and reports K1's and K2's
+    """``chip_smoke.py`` phase 18 comes before 19 and 20 and reports K1's and K2's
     ``numerator_only`` launches (K3's own) on each mesh solve."""
     import importlib.util
 
@@ -334,7 +372,7 @@ def test_chip_smoke_phase_18_reads_the_mesh_launches():
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.PHASES[-2:] == ("mesh", "serving") and len(smoke.PHASES) == 19
+    assert smoke.PHASES[-3:] == ("mesh", "serving", "examples") and len(smoke.PHASES) == 20
     launches = {"mesh 1x1 reference": {"update_h": 0, "update_h_numerator": 200,
                                        "update_w_numerator": 200, "kl_cost": 0},
                 "mesh 1x1 flagship bfloat16": {"update_h_numerator": 50,

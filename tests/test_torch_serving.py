@@ -1149,7 +1149,7 @@ def test_chip_smoke_phase_19_reads_the_serve_launches():
                                                   tm.REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.PHASES[-1] == "serving"
+    assert smoke.PHASES[-2:] == ("serving", "examples")
     m, n, k, nb = smoke.SERVE_SHAPE
     assert (m, n, k, nb, smoke.SERVE_ITERS) == (2048, 16384, 128, 2048, 50)
     want = smoke._serve_want("pallas", n // nb, smoke.SERVE_ITERS, 1)

@@ -9,7 +9,8 @@ selection, tiled and checkpointed solves on a mesh, on the problem of
 :func:`problem` (``RandomState(5)``, 48 x 6 x 96).  Rank 0 writes each
 case's result to ``OUT_DIR/<case>.npz``; every rank writes its scalars and
 any error to ``OUT_DIR/<case>.r<RANK>.json``.  The rank leaves through
-``nmf_tpu_torch.parallel.mesh.shutdown`` and exits normally.  Imports
+``nmf_tpu_torch.parallel.mesh.shutdown``, drops its mesh, records the gloo
+threads still alive (``torch_mesh_ranks.record_exit``) and exits normally.  Imports
 torch, NumPy and ``nmf_tpu_torch`` only.
 """
 
@@ -274,6 +275,7 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.parallel.mesh import shutdown
+    from torch_mesh_ranks import record_exit
 
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
     mesh = nt.make_mesh((rows, cols), device="cpu")
@@ -294,6 +296,8 @@ def main(argv) -> int:
         with open(os.path.join(out, f"{case}.r{rank}.json"), "w") as f:
             json.dump(info, f, default=lambda v: v.tolist() if hasattr(v, "tolist") else str(v))
     shutdown()
+    del mesh        # the last reference to the mesh: its groups end here
+    record_exit(out, rank)
     return 0
 
 

@@ -8,7 +8,9 @@ ROWS x COLS mesh of ``nmf_tpu_torch`` on the CPU and runs every case of
 (``RandomState(3)``, 128 x 16 x 160).  Rank 0 writes each case's gathered
 result to ``OUT_DIR/<case>.npz``; every rank writes its own scalars, its
 live-metrics lines and any error to ``OUT_DIR/<case>.r<RANK>.json``.  The rank
-leaves through ``nmf_tpu_torch.parallel.mesh.shutdown`` and exits normally.
+leaves through ``nmf_tpu_torch.parallel.mesh.shutdown``, drops its mesh,
+records the gloo threads still alive (:func:`record_exit`) and exits
+normally.
 Imports torch, NumPy and ``nmf_tpu_torch`` only.
 """
 
@@ -139,6 +141,17 @@ def _run(nt, case, mesh):
     }, lines
 
 
+def record_exit(out, rank):
+    """The names of the native threads gloo still runs in this process
+    (its transport loops, the process groups' workers; from ``/proc``) to
+    ``OUT_DIR/exit.r<RANK>.json``: none once the groups are destroyed and
+    the last mesh over them dropped."""
+    names = (open(f"/proc/self/task/{t}/comm").read().strip()
+             for t in os.listdir("/proc/self/task"))
+    with open(os.path.join(out, f"exit.r{rank}.json"), "w") as f:
+        json.dump({"gloo_threads": sorted(n for n in names if "gloo" in n)}, f)
+
+
 def main(argv) -> int:
     rank, world, store, rows, cols, out = argv[1:7]
     rank, world, rows, cols = int(rank), int(world), int(rows), int(cols)
@@ -165,6 +178,8 @@ def main(argv) -> int:
         with open(os.path.join(out, f"{case}.r{rank}.json"), "w") as f:
             json.dump(info, f)
     shutdown()
+    del mesh        # the last reference to the mesh: its groups end here
+    record_exit(out, rank)
     return 0
 
 
