@@ -481,6 +481,10 @@ MODE_LIMITS = {
     "bf16_state": (None, 1e-3, 1e-5),   # and one bf16 ulp at most
 }
 SAMPLES, CALLS = 10, 10
+# phase 7: the GEMM policies whose flagship K1 and K2 must take no longer
+# than their plain versions in the same call (bfloat16: 4.0 against 3.6 ms
+# while its 2-D call ran the member-axis instances, 1.8 before; PERF.md)
+FLAGSHIP_GATED = ("bfloat16",)
 KERNELS = [
     # name, TPU kernel it replaces, source of the port's kernel
     ("update_h", "nmf_tpu/ops/pallas/fused_mu.py:245", "nmf_tpu_torch/csrc/fused_mu.cu"),
@@ -521,10 +525,14 @@ MMA_MODES = tuple(IMPL)
 SIMT_MODES = tuple(m for m in MODES if m not in IMPL)
 _KERNEL_RE = re.compile(r"(h_update_partial|w_update_partial|h_sweep_partial|w_sweep_partial"
                         r"|kl_partial|kl_final|finalize|sum_splits|sweep_sum)"
-                        r"(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?")
+                        r"(?:ILi(\d+)E)?(?:I?LNS\d*_4ModeE(\d)E)?(?:Lb([01])E)?")
 # the pass-1 kernels, K1/K2's and K5's, by name
 PASS1_KERNELS = (("h_update_partial", 1, "nmf_partial_info"), ("w_update_partial", 0, "nmf_partial_info"),
                  ("h_sweep_partial", 1, "nmf_sweep_info"), ("w_sweep_partial", 0, "nmf_sweep_info"))
+# K1/K2's pass-1 kernels are built twice: for the 2-D call and, as the
+# instances labelled with MEMBER_TAG, for a member axis (phase 1 queries
+# them apart: nmf_member_partial_info); K3's serve both
+MEMBER_TAG = "members"
 # each kernel's pass-1 kernel, whose instances the result line lists
 PASS1_OF = {"update_h": "h_update_partial", "update_w": "w_update_partial",
             "h_numerator": "h_sweep_partial", "w_numerator": "w_sweep_partial",
@@ -601,13 +609,21 @@ def timed_pair(kern, plain, samples=SAMPLES, calls=CALLS):
 
 
 def _kernel_label(mangled):
-    """``h_update_partial<R=16,BF16>`` for a mangled kernel name, or the
-    name itself where it is none of the port's kernels."""
+    """``h_update_partial<R=16,BF16>`` for a mangled kernel name (a member
+    axis's instance ``h_update_partial<R=16,BF16,members>``), or the name
+    itself where it is none of the port's kernels."""
     m = _KERNEL_RE.search(mangled)
     if not m:
         return mangled
     args = ([f"R={m.group(2)}"] if m.group(2) else []) + ([MODES[int(m.group(3))]] if m.group(3) else [])
+    args += [MEMBER_TAG] if m.group(4) == "1" else []
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def _label_mode(label):
+    """The Mode of a pass-1 instance's label (None for another kernel)."""
+    m = re.search(rf",({'|'.join(MODES)})(?:,{MEMBER_TAG})?>$", label)
+    return m.group(1) if m else None
 
 
 def _check_sass(card, lib_path):
@@ -630,16 +646,17 @@ def _check_sass(card, lib_path):
         elif label and "HMMA" in line:
             hmma[label] += 1
     partial = {n: c for n, c in hmma.items() if n.split("<")[0] in PASS1_NAMES}
-    by_mode = {mode: {n: c for n, c in partial.items() if n.endswith(f",{mode}>")}
+    by_mode = {mode: {n: c for n, c in partial.items() if _label_mode(n) == mode}
                for mode in MODES}
+    # per Mode: K1/K2's 2-D and member instances and K5's, at five widths
     for mode in MMA_MODES:
-        check(len(by_mode[mode]) == 20 and all(by_mode[mode].values()),
+        check(len(by_mode[mode]) == 30 and all(by_mode[mode].values()),
               f"{mode}-Mode K1/K2/K5 kernels without HMMA (or missing): {by_mode[mode]}")
     for mode in SIMT_MODES:
-        check(len(by_mode[mode]) == 20 and not any(by_mode[mode].values()),
+        check(len(by_mode[mode]) == 30 and not any(by_mode[mode].values()),
               f"{mode}-Mode K1/K2/K5 kernels with HMMA (or missing): {by_mode[mode]}")
     kl = {n: c for n, c in hmma.items() if n.startswith("kl_partial<")}
-    kl_by_mode = {mode: {n: c for n, c in kl.items() if n.endswith(f",{mode}>")} for mode in KL_MODES}
+    kl_by_mode = {mode: {n: c for n, c in kl.items() if _label_mode(n) == mode} for mode in KL_MODES}
     check(len(kl) == 15 and all(len(v) == 5 for v in kl_by_mode.values()),
           f"K3 kernels missing: {kl}")
     check(all(kl_by_mode["BF16"].values()), f"BF16 K3 kernels without HMMA: {kl_by_mode['BF16']}")
@@ -648,7 +665,7 @@ def _check_sass(card, lib_path):
     for mode in MMA_MODES:
         print(f"[{card}] SASS ({tool}): HMMA instructions in each {mode}-Mode K1/K2/K5 "
               f"kernel {by_mode[mode]}")
-    print(f"[{card}] SASS: no HMMA in the 40 F32- and ANY-Mode K1/K2/K5 kernels")
+    print(f"[{card}] SASS: no HMMA in the 60 F32- and ANY-Mode K1/K2/K5 kernels")
     print(f"[{card}] SASS: HMMA instructions in each BF16 K3 kernel {kl_by_mode['BF16']}, none in "
           "the 10 F32 and ANY ones")
 
@@ -792,36 +809,38 @@ def _pass1_info(card):
     """{"h_update_partial<R=16,F32>": {"registers", "smem_bytes",
     "blocks_per_sm", "local_bytes"}, ...} of every K1/K2, K3 and K5 pass-1
     instance, as the runtime reports them (``nmf_partial_info``,
-    ``nmf_kl_info``, ``nmf_sweep_info``); a kernel with local memory (a
-    spill) fails."""
+    ``nmf_kl_info``, ``nmf_sweep_info``), and of K1/K2's member instances
+    (``h_update_partial<R=16,F32,members>``, ...: ``nmf_member_partial_info``);
+    a kernel with local memory (a spill) fails."""
     import ctypes
 
     from nmf_tpu_torch.ops.kernels import _build
 
     lib = _build.load_library()
     info = {}
+
+    def record(fn, rc, label, vals):
+        check(rc == 0, f"{fn} {label}: CUDA error {rc}")
+        info[label] = dict(zip(("registers", "smem_bytes", "blocks_per_sm", "local_bytes"), vals))
+        check(vals[3] == 0, f"{label}: {vals[3]} bytes of local memory a thread")
+        print(f"[{card}]   {label}: {vals[0]} registers, {vals[1]} bytes of dynamic "
+              f"shared memory, {vals[2]} blocks an SM, {vals[3]} bytes local")
+
     for mode_i, mode in enumerate(MODES):
         for name, h, query in PASS1_KERNELS:
             for r in (1, 2, 4, 8, 16):
                 vals = (ctypes.c_int * 4)()
                 rc = getattr(lib, query)(h, mode_i, 16 * r, vals)
-                check(rc == 0, f"{query} {name} R={r} {mode}: CUDA error {rc}")
-                label = f"{name}<R={r},{mode}>"
-                info[label] = dict(zip(("registers", "smem_bytes", "blocks_per_sm", "local_bytes"),
-                                       vals))
-                check(vals[3] == 0, f"{label}: {vals[3]} bytes of local memory a thread")
-                print(f"[{card}]   {label}: {vals[0]} registers, {vals[1]} bytes of dynamic "
-                      f"shared memory, {vals[2]} blocks an SM, {vals[3]} bytes local")
+                record(query, rc, f"{name}<R={r},{mode}>", vals)
+                if query == "nmf_partial_info":   # K1/K2's member instance beside it
+                    vals = (ctypes.c_int * 4)()
+                    rc = lib.nmf_member_partial_info(h, mode_i, 16 * r, vals)
+                    record("nmf_member_partial_info", rc, f"{name}<R={r},{mode},{MEMBER_TAG}>", vals)
     for mode in KL_MODES:   # K3's instances (nmf_kl_info)
         for r in (1, 2, 4, 8, 16):
             vals = (ctypes.c_int * 4)()
             rc = lib.nmf_kl_info(MODES.index(mode), 16 * r, vals)
-            label = f"kl_partial<R={r},{mode}>"
-            check(rc == 0, f"nmf_kl_info {label}: CUDA error {rc}")
-            info[label] = dict(zip(("registers", "smem_bytes", "blocks_per_sm", "local_bytes"), vals))
-            check(vals[3] == 0, f"{label}: {vals[3]} bytes of local memory a thread")
-            print(f"[{card}]   {label}: {vals[0]} registers, {vals[1]} bytes of dynamic "
-                  f"shared memory, {vals[2]} blocks an SM, {vals[3]} bytes local")
+            record("nmf_kl_info", rc, f"kl_partial<R={r},{mode}>", vals)
     return info
 
 
@@ -1412,6 +1431,9 @@ def phase_flagship(card, out):
             print(f"[{card}] flagship {name} [{dtype}] {m}x{n}x{k}: kernel {kms} ms, "
                   f"plain {pms} ms, bound {b_ms} ms ({b_by}), {impls[name]} "
                   f"({2 * 2 * m * n * k / kms / 1e9} TFLOP/s)")
+            if dtype in FLAGSHIP_GATED:
+                check(kms <= pms, f"flagship {name} [{dtype}] {m}x{n}x{k}: the kernel takes "
+                                  f"{kms} ms, its plain version {pms} ms")
         # K3 under the same policy: checked, its instance read, timed
         kern, plain = pairs["kl_cost"]
         where = f"flagship kl_cost [{dtype}] {m}x{n}x{k}"

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles each source (``fused_mu.cu``: K1-K3; ``tile_sparse.cu``:
-K5; both include ``pass1.cuh``, K1/K2's pass 1 for a dense walk or a sweep
-plan's and K3's cost walk, built from the tensor-core pieces of
-``mma_tile.cuh``, the SIMT f32-GEMM pieces of ``simt_tile.cuh`` and
-``mu_tile.cuh``) into an object,
+``nvcc`` compiles each source (``fused_mu.cu``: K1/K2's 2-D calls and K3;
+``fused_mu_batched.cu``: K1/K2 over a member axis, both through
+``fused_mu.cuh``; ``tile_sparse.cu``: K5; all include ``pass1.cuh``, K1/K2's
+pass 1 for a dense walk or a sweep plan's and K3's cost walk, built from the
+tensor-core pieces of ``mma_tile.cuh``, the SIMT f32-GEMM pieces of
+``simt_tile.cuh`` and ``mu_tile.cuh``) into an object,
 all at once in parallel,
 and links them into one shared library with a plain C interface at first
 use, under ``build/nmf_tpu_torch/<hash>/`` beside the package (the hash
@@ -27,9 +28,9 @@ __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]   # nmf_tpu_torch/
 _CSRC = _PKG / "csrc"
-_SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "tile_sparse.cu")
+_SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "fused_mu_batched.cu", _CSRC / "tile_sparse.cu")
 _HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh", _CSRC / "simt_tile.cuh",
-            _CSRC / "pass1.cuh")
+            _CSRC / "pass1.cuh", _CSRC / "fused_mu.cuh")
 _LIB_NAME = "libnmf_kernels.so"
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no fast math:
@@ -50,8 +51,10 @@ _SIGNATURES = {
     "nmf_partial_launches": ([_I, _I], _I),
     "nmf_reset_partial_launches": ([], None),
     # K1 (1) or K2 (0), Mode, kc, out[4]: registers, dynamic shared memory,
-    # blocks an SM, local memory of one pass-1 instance
+    # blocks an SM, local memory of one pass-1 instance of the 2-D call, or
+    # (member) of a batched call
     "nmf_partial_info": ([_I, _I, _I, _P], _I),
+    "nmf_member_partial_info": ([_I, _I, _I, _P], _I),
     # w, h, x, scales, denom, part, out; m, n, k, kc, splits, per; eps;
     # state_bf16, x_kind, gemm, numerator_only, device; stream
     "nmf_h_update": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),

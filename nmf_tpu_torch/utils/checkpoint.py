@@ -294,10 +294,17 @@ def _step_of_mesh(mesh, step_dir: str, part) -> None:
         part()
     except BaseException as e:   # re-raised below, after the others have heard
         err = e
-    if not _all_ok(mesh, err is None):
-        if err is not None:
-            raise err
-        raise RuntimeError(f"sharded checkpoint {step_dir}: another rank failed its part")
+    try:
+        if not _all_ok(mesh, err is None):
+            if err is not None:
+                raise err
+            raise RuntimeError(f"sharded checkpoint {step_dir}: another rank failed its part")
+    finally:
+        # the raised error's traceback holds this frame: without this, the
+        # frame's err would close a cycle that keeps every caller's frame
+        # (the mesh, its groups and their gloo threads) alive until the
+        # collector runs
+        err = None
 
 
 def save_checkpoint_sharded(directory: str, state: CheckpointState,

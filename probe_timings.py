@@ -5,6 +5,7 @@
     python3 probe_timings.py flagship --root PATH      # K1/K2 of the port under PATH
     python3 probe_timings.py kl --root PATH            # K3 of the port under PATH
     python3 probe_timings.py tiled-mesh                # the tiled loop on a 1x1 mesh
+    python3 probe_timings.py sass --root PATH          # K1-K3's R=16 SASS under PATH
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -13,7 +14,8 @@ entries a chunk (the wrapper picks ``per`` by ``tile_sparse.sweep_split``);
 each result's largest relative difference to the wrapper's.
 
 ``flagship``: K1 and K2 once per GEMM policy at the 10240^2 K=256
-flagship (``chip_smoke.py`` phase 7's operands), importing
+flagship (``chip_smoke.py`` phase 7's operands), and under ``float32``
+with bf16 X and with int8 X (every Mode of the pass-1 kernels), importing
 ``nmf_tpu_torch`` and building its kernels from PATH: run it for two trees
 in turns (A, B, B, A) in one call to compare them on one card.
 
@@ -22,7 +24,8 @@ in turns (A, B, B, A) in one call to compare them on one card.
 3's modes (its operands), at the streamed block 1025 x 65408 x 32 in each
 mode of the streamed cost pass (phase 9a's operands, f32 recon), and at
 the flagship under ``float32``, ``bfloat16`` and ``float32_fast`` (phase
-7's operands); run it for two trees in turns, as ``flagship``.
+7's operands) and under ``float32`` with bf16 X and with int8 X; run it
+for two trees in turns, as ``flagship``.
 
 ``tiled-mesh``: the tile-sparse loop at ``chip_smoke.TS_MAIN`` under
 ``auto`` (K5), 200 iterations, on one device before any process group
@@ -30,6 +33,13 @@ exists, then on a 1x1 NCCL mesh and on one device in turns (host seconds
 of ``_run_tiled`` on prepared payloads, ending in a synchronize), and one
 loop of each under ``torch.profiler``: its device busy seconds, kernel
 launches and host-side operator events.
+
+``sass``: the memory instructions of the R = 16 pass-1 instances of K1,
+K2 and K3 in the library built from PATH (``cuobjdump -sass``, the
+flagship's chunk width), per instance as phase 1 labels it: all
+instructions, global (``LDG``/``STG``), generic (``LD``/``ST``), shared
+(``LDS``/``STS``) and tensor-core (``HMMA``) ones and the divergence
+brackets (``BSSY``).
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -93,6 +103,24 @@ def sweep_per(cs, card):
                                   "max_rel_vs_wrapper": rel}), flush=True)
 
 
+def _flagship_cases(cs):
+    """(label, Precision, (w, h, x)) of the 10240^2 K=256 flagship (phase
+    7's operands) under each GEMM policy on f32 X, then under ``float32``
+    with bf16 X and with int8 X (codes, scales): every Mode of K1-K3."""
+    import torch
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.quant import quantize_columns
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, w, h = (torch.rand(s, generator=g, device="cuda")
+               for s in ((10240, 10240), (10240, 256), (256, 10240)))
+    for dtype in ("float32", "bfloat16", "float32_fast"):
+        yield dtype, nt.Precision(dtype), (w, h, x)
+    yield "x_bfloat16", nt.Precision(x_dtype="bfloat16"), (w, h, x.to(torch.bfloat16))
+    yield "x_int8", nt.Precision(x_dtype="int8"), (w, h, quantize_columns(x, cs.EPS))
+
+
 def flagship(cs, card, root):
     import torch
 
@@ -100,14 +128,11 @@ def flagship(cs, card, root):
 
     pkg = pathlib.Path(nt.__file__).resolve()
     cs.check(root.resolve() in pkg.parents, f"nmf_tpu_torch came from {pkg}, not from {root}")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x, w, h = (torch.rand(s, generator=g, device="cuda")
-               for s in ((10240, 10240), (10240, 256), (256, 10240)))
     res = {}
-    for dtype in ("float32", "bfloat16", "float32_fast"):
-        for name, (kern, _) in cs._pairs(nt.Precision(dtype)).items():
+    for label, prec, (w, h, x) in _flagship_cases(cs):
+        for name, (kern, _) in cs._pairs(prec).items():
             if name != "kl_cost":
-                res[f"{name} {dtype}"] = cs.event_ms(lambda: kern(w, h, x))
+                res[f"{name} {label}"] = cs.event_ms(lambda: kern(w, h, x))
     print(json.dumps({"card": card, "probe": "flagship", "root": str(root), "ms": res}), flush=True)
 
 
@@ -139,11 +164,8 @@ def kl(cs, card, root):
             time_cost(f"streamed {mode}", dataclasses.replace(spec.prec, matmul_dtype="float32"),
                       *cs._num_operands(m, n, k, mode, spec))
     torch.cuda.empty_cache()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x, w, h = (torch.rand(s, generator=g, device="cuda")
-               for s in ((10240, 10240), (10240, 256), (256, 10240)))
-    for dtype in ("float32", "bfloat16", "float32_fast"):
-        time_cost(f"flagship {dtype}", nt.Precision(dtype), w, h, x)
+    for label, prec, (w, h, x) in _flagship_cases(cs):
+        time_cost(f"flagship {label}", prec, w, h, x)
     print(json.dumps({"card": card, "probe": "kl", "root": str(root), "ms": res}), flush=True)
 
 
@@ -197,9 +219,43 @@ def tiled_mesh(cs, card):
                       "loop_s": res, "profile": prof}), flush=True)
 
 
+def sass(cs, card, root):
+    import collections
+    import re
+    import subprocess
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import _build
+
+    pkg = pathlib.Path(nt.__file__).resolve()
+    cs.check(root.resolve() in pkg.parents, f"nmf_tpu_torch came from {pkg}, not from {root}")
+    _build.load_library()
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    kinds = ("LDG", "STG", "LD", "ST", "LDS", "STS", "HMMA", "BSSY")
+    res, label = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            label = cs._kernel_label(fn.group(1))
+            if not re.match(r"(h_update_partial|w_update_partial|kl_partial)<R=16,", label):
+                label = None
+            elif label not in res:
+                res[label] = collections.Counter()
+            continue
+        op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if label and op:
+            res[label]["all"] += 1
+            if op.group(1) in kinds:
+                res[label][op.group(1)] += 1
+    print(json.dumps({"card": card, "probe": "sass", "root": str(root),
+                      "instructions": {k: dict(v) for k, v in sorted(res.items())}}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh"))
+    ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -219,6 +275,8 @@ def main(argv=None) -> int:
         flagship(cs, card, args.root)
     elif args.probe == "tiled-mesh":
         tiled_mesh(cs, card)
+    elif args.probe == "sass":
+        sass(cs, card, args.root)
     else:
         kl(cs, card, args.root)
     return 0

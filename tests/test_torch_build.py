@@ -49,11 +49,14 @@ def _includers(header):
 
 
 def test_pass1_pieces_are_included_through_pass1():
-    """K1/K2 (fused_mu.cu) and K5 (tile_sparse.cu) share one pass 1: both
-    include pass1.cuh, and only it includes the tensor-core and SIMT pieces."""
+    """K1/K2 (fused_mu.cuh, the kernels of fused_mu.cu's 2-D calls and of
+    fused_mu_batched.cu's member axis) and K5 (tile_sparse.cu) share one
+    pass 1: both include pass1.cuh, and only it includes the tensor-core and
+    SIMT pieces."""
     assert _includers("mma_tile.cuh") == ["pass1.cuh"]
     assert _includers("simt_tile.cuh") == ["pass1.cuh"]
-    assert _includers("pass1.cuh") == ["fused_mu.cu", "tile_sparse.cu"]
+    assert _includers("pass1.cuh") == ["fused_mu.cuh", "tile_sparse.cu"]
+    assert _includers("fused_mu.cuh") == ["fused_mu.cu", "fused_mu_batched.cu"]
 
 
 @pytest.mark.parametrize("name", [p.name for p in LISTED])
@@ -248,6 +251,70 @@ def test_k3_launch_counts_give_the_instance(mode, want):
     assert smoke.kl_instance(want, 128) == f"kl_partial<R=8,{want}>"
     assert smoke._kl_impl(smoke.kl_instance(want, 128)) == (
         "mma.sync bf16" if want == "BF16" else "simt")
+
+
+@pytest.mark.parametrize(
+    "name,label",
+    [
+        ("_ZN12_GLOBAL__N_116w_update_partialILi16ELNS_4ModeE3ELb0EEEvNS_8OperandsEPfiNS_7MembersE",
+         "w_update_partial<R=16,BF16>"),
+        ("_ZN12_GLOBAL__N_116w_update_partialILi16ELNS_4ModeE3ELb1EEEvNS_8OperandsEPfiNS_7MembersE",
+         "w_update_partial<R=16,BF16,members>"),
+        ("_ZN55_GLOBAL__N__1f2e3d4c_20_fused_mu_batched_cu_0a1b2c3d16h_update_partialILi1ELNS_4Mode"
+         "E0ELb1EEEvNS_8OperandsEPfiNS_7MembersE", "h_update_partial<R=1,F32,members>"),
+        ("_ZN12_GLOBAL__N_116w_update_partialILi2ELNS_4ModeE2ELb0EEEvNS_8OperandsEPfiNS_7MembersE",
+         "w_update_partial<R=2,SPLIT3>"),
+        ("_ZN12_GLOBAL__N_110kl_partialILi8ELNS_4ModeE1EEEvNS_8OperandsEPfiNS_7MembersE",
+         "kl_partial<R=8,ANY>"),
+    ],
+)
+def test_member_instances_are_told_apart(name, label):
+    """K1/K2's pass-1 kernels, built for the 2-D call and for a member axis
+    (their last template argument), carry the Mode either way and the
+    member tag only on the member axis's instance, so that phase 1 lists
+    the two apart; K3's one instance a Mode and width serves both."""
+    smoke = _chip_smoke()
+    assert smoke._kernel_label(name) == label
+    assert smoke._label_mode(label) == label.split(",")[1].rstrip(">")
+
+
+def _c_entries(path):
+    """{name: number of parameters} of the extern "C" definitions of a source."""
+    text = path.read_text()
+    return {m.group(1): len(m.group(2).split(","))
+            for m in re.finditer(r"^(?:int|void|const char\*) (nmf_\w+)\(([^)]*)\) \{", text, re.M)}
+
+
+def test_each_unit_defines_its_entry_points():
+    """fused_mu.cu defines K1/K2's 2-D entry points, K3's (2-D and
+    batched), the launch counters and the instances' queries;
+    fused_mu_batched.cu K1/K2's member-axis entry points and their
+    instances' query (nmf_member_partial_info); each with the bound
+    signature's parameters."""
+    two_d, batched = _c_entries(CSRC / "fused_mu.cu"), _c_entries(CSRC / "fused_mu_batched.cu")
+    assert {"nmf_h_update", "nmf_w_update", "nmf_kl_cost", "nmf_kl_cost_batched",
+            "nmf_partial_info", "nmf_kl_info", "nmf_partial_launches",
+            "nmf_kl_launches"} <= set(two_d)
+    assert set(batched) == {"nmf_h_update_batched", "nmf_w_update_batched",
+                            "nmf_member_partial_info"}
+    assert not set(two_d) & set(batched)
+    for name, n_args in {**two_d, **batched}.items():
+        if name in ("nmf_tile", "nmf_max_chunk", "nmf_reset_partial_launches",
+                    "nmf_reset_kl_launches"):
+            continue
+        assert len(_build._SIGNATURES[name][0]) == n_args, name
+    assert _build._SIGNATURES["nmf_member_partial_info"] == _build._SIGNATURES["nmf_partial_info"]
+
+
+def test_phase1_lists_the_member_instances_apart():
+    """Phase 1 queries the member axis's K1/K2 instances through
+    nmf_member_partial_info (K3 and K5 have none), and phase 7 holds the
+    bfloat16 flagship's K1 and K2 to their plain versions."""
+    smoke = _chip_smoke()
+    text = (REPO / "chip_smoke.py").read_text()
+    assert "lib.nmf_member_partial_info(h, mode_i, 16 * r, vals)" in text
+    assert smoke.MEMBER_TAG == "members"
+    assert smoke.FLAGSHIP_GATED == ("bfloat16",)
 
 
 def test_k3_counters_are_bound():

@@ -497,6 +497,47 @@ def test_sharded_paths_name_step_12(tmp_path, call):
         fn()
 
 
+def test_a_failed_step_of_a_mesh_keeps_no_frame_of_its_caller_alive():
+    """A step of a sharded checkpoint whose part raises on this rank
+    re-raises that error on a one-rank gloo mesh, and once the caught error
+    is gone nothing local to the step's caller lives on, with the collector
+    off: the error is in no reference cycle through the frame that raised
+    it.  (Such a cycle kept the caller's frames, a mesh and its groups with
+    their gloo threads, alive until the collector ran.)"""
+    import gc
+    import weakref
+
+    from nmf_tpu_torch.parallel.mesh import shutdown
+
+    class Local:
+        pass
+
+    def part():
+        raise OSError("no space left on device")
+
+    def caller(mesh, refs):
+        local = Local()
+        refs.append(weakref.ref(local))
+        pck._step_of_mesh(mesh, "step_00000010", part)
+
+    mesh = pt.make_mesh((1, 1), device="cpu")
+    collecting = gc.isenabled()
+    gc.disable()
+    refs = []
+    try:
+        try:
+            caller(mesh, refs)
+        except OSError as e:
+            assert str(e) == "no space left on device"
+        else:
+            pytest.fail("the failed part did not raise")
+        assert refs[0]() is None, "the caller's frame outlived the caught error"
+    finally:
+        if collecting:
+            gc.enable()
+        shutdown()
+
+
 def test_streamed_resume_shape_mismatch_is_jaxs(tmp_path):
     x, w, h = _problem()
     jstream.solve_out_of_core(x, w, h, jt.SolveConfig(max_iter=4), block_n=16,

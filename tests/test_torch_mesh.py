@@ -246,31 +246,33 @@ def test_ranks_leave_no_gloo_thread_behind(tmp_path_factory, shape):
         assert json.loads((out / f"exit.r{i}.json").read_text()) == {"gloo_threads": []}, i
 
 
-def test_shutdown_drops_the_solvers_that_hold_a_mesh():
+def test_shutdown_drops_the_solvers_that_hold_a_mesh(tmp_path):
     """A sharded solve caches its solver, which holds the mesh and so the
     mesh's groups and their gloo threads; ``shutdown`` empties those caches,
-    so that dropping the mesh ends the threads (one rank, a 1x1 mesh)."""
+    so that dropping the mesh ends the threads (one rank, a 1x1 mesh).  The
+    threads are read as ``torch_mesh_ranks.record_exit`` reads them: a
+    destroyed group's transport loop ends a moment after the group."""
     code = (
-        "import os, sys, numpy as np\n"
+        "import sys, numpy as np\n"
+        f"sys.path.insert(0, {str(HELPER.parent)!r})\n"
         "import nmf_tpu_torch as nt\n"
         "from nmf_tpu_torch.parallel.mesh import shutdown\n"
-        "def gloo():\n"
-        "    names = (open(f'/proc/self/task/{t}/comm').read().strip()\n"
-        "             for t in os.listdir('/proc/self/task'))\n"
-        "    return sorted(n for n in names if 'gloo' in n)\n"
+        "from torch_mesh_ranks import gloo_threads, record_exit\n"
         "mesh = nt.make_mesh((1, 1), device='cpu')\n"
         "rng = np.random.RandomState(0)\n"
         "nt.solve_sharded(rng.rand(8, 6), rng.rand(8, 2), rng.rand(2, 6),\n"
         "                 nt.SolveConfig(max_iter=5), mesh=mesh)\n"
-        "print(len(gloo()) > 0)\n"
+        "print(len(gloo_threads()) > 0)\n"
         "shutdown()\n"
         "del mesh\n"
-        "print(gloo())\n"
+        f"record_exit({str(tmp_path)!r}, 0)\n"
+        "print(open(sys.argv[1]).read())\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
-                          text=True, timeout=RANK_SECONDS, cwd=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "exit.r0.json")],
+                          env=_env(), capture_output=True, text=True, timeout=RANK_SECONDS,
+                          cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.splitlines() == ["True", "[]"]
+    assert proc.stdout.splitlines() == ["True", '{"gloo_threads": []}']
 
 
 @pytest.mark.parametrize("n", range(1, 9))

@@ -19,6 +19,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -141,15 +142,31 @@ def _run(nt, case, mesh):
     }, lines
 
 
-def record_exit(out, rank):
-    """The names of the native threads gloo still runs in this process
-    (its transport loops, the process groups' workers; from ``/proc``) to
-    ``OUT_DIR/exit.r<RANK>.json``: none once the groups are destroyed and
-    the last mesh over them dropped."""
+EXIT_WAIT_SECONDS = 10.0   # how long record_exit waits for gloo's threads to end
+
+
+def gloo_threads():
+    """The names of the native threads gloo runs in this process (its
+    transport loops, the process groups' workers), from ``/proc``."""
     names = (open(f"/proc/self/task/{t}/comm").read().strip()
              for t in os.listdir("/proc/self/task"))
+    return sorted(n for n in names if "gloo" in n)
+
+
+def record_exit(out, rank, wait=EXIT_WAIT_SECONDS):
+    """The gloo threads still alive to ``OUT_DIR/exit.r<RANK>.json``: none
+    once the groups are destroyed and the last mesh over them dropped.  A
+    destroyed group's transport loop (``gloo_tcp_loop``) ends on its own
+    thread a moment after the group, later on a loaded machine: the helper
+    waits up to ``wait`` seconds for every gloo thread to end, then records
+    those still alive."""
+    deadline = time.monotonic() + wait
+    alive = gloo_threads()
+    while alive and time.monotonic() < deadline:
+        time.sleep(0.01)
+        alive = gloo_threads()
     with open(os.path.join(out, f"exit.r{rank}.json"), "w") as f:
-        json.dump({"gloo_threads": sorted(n for n in names if "gloo" in n)}, f)
+        json.dump({"gloo_threads": alive}, f)
 
 
 def main(argv) -> int:
