@@ -1289,7 +1289,7 @@ def phase_inprocess(card, tmp, out):
     for tier, (cfg, via_cli) in _tier_configs().items():
         fused_mu.reset_counts()
         t0 = time.perf_counter()
-        res = nt.solve(x, w, h, cfg, device="cuda")
+        res, graphs = _graph_run(lambda: nt.solve(x, w, h, cfg, device="cuda"))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches, plain_calls = dict(fused_mu.LAUNCHES), dict(fused_mu.PLAIN_CALLS)
@@ -1304,7 +1304,7 @@ def phase_inprocess(card, tmp, out):
         check(bool(np.all(np.diff(hist) < 0)), f"{tier}: costs not decreasing: {hist}")
         cost = float(res.cost)
         w1, h1 = (t.cpu().float().numpy() for t in (res.w, res.h))
-        res2 = nt.solve(x, w, h, cfg, device="cuda")
+        res2 = _eager(lambda: nt.solve(x, w, h, cfg, device="cuda"))
         check(w1.tobytes() == res2.w.cpu().float().numpy().tobytes(), f"{tier}: W differs on a rerun")
         check(h1.tobytes() == res2.h.cpu().float().numpy().tobytes(), f"{tier}: H differs on a rerun")
         if via_cli:
@@ -1312,7 +1312,14 @@ def phase_inprocess(card, tmp, out):
             hout = nt.read_matrix(os.path.join(tmp, f"H_{tier}.bin"))
             check(wout.tobytes() == w1.tobytes() and hout.tobytes() == h1.tobytes(),
                   f"{tier}: CLI output files differ from the in-process factors")
-        plain = nt.solve(x, w, h, dataclasses.replace(cfg, backend="jnp"), device="cuda")
+        # the graphed solve against the rerun on the eager loop: the first
+        # block runs eagerly on the side stream, the second is captured, and
+        # it and the others replay
+        _hold_graphed(out, f"solve {tier}", res, graphs, res2, blocks=8)
+        jnp_cfg = dataclasses.replace(cfg, backend="jnp")
+        plain, graphs = _graph_run(lambda: nt.solve(x, w, h, jnp_cfg, device="cuda"))
+        _hold_graphed(out, f"solve {tier} jnp", plain, graphs,
+                      lambda: nt.solve(x, w, h, jnp_cfg, device="cuda"), blocks=8)
         c_plain = float(plain.cost)
         rel = abs(cost - c_plain) / abs(c_plain)
         limit = 1e-3 if cfg.precision.matmul_dtype == "bfloat16" else 1e-4
@@ -1322,7 +1329,48 @@ def phase_inprocess(card, tmp, out):
             check(pin <= 1e-4, f"{tier}: final cost {cost} vs {PIN_COST}: rel {pin}")
         print(f"[{card}] solve {tier}: launches {launches}, cost {cost} (plain {c_plain}, "
               f"rel {rel}, limit {limit}), history {hist.tolist()}, {secs} s (first solve of "
-              f"the tier), byte-identical on rerun{' and vs the CLI files' if via_cli else ''}")
+              f"the tier), byte-identical on rerun{' and vs the CLI files' if via_cli else ''}; "
+              f"graphed ({out['graphs'][f'solve {tier}']}) and its jnp twin bit-equal to the "
+              "eager loop")
+    # solve_jit's solver on prepared tensors: solve's bits, replayed graphs
+    from nmf_tpu_torch.models import solver
+
+    cfg = _tier_configs()["float32"][0]
+    prepped = solver._prep(x, w, h, cfg, True, torch.device("cuda"))
+    fn = solver.solve_jit(cfg, "cuda")
+    jit_res, jit_graphs = _graph_run(lambda: fn(*prepped, float("nan")))
+    _hold_graphed(out, "solve_jit float32", jit_res, jit_graphs,
+                  lambda: fn(*prepped, float("nan")), blocks=8)
+    ref = nt.solve(x, w, h, cfg, device="cuda")
+    for f in GRAPH_FIELDS:
+        check(torch.equal(_bits(getattr(jit_res, f)), _bits(getattr(ref, f))),
+              f"solve_jit float32: {f} differs from solve's")
+    print(f"[{card}] solve_jit float32: graphs {jit_graphs}, bit-equal to the eager loop and "
+          "to solve")
+    # the CLI's run and transform in this process: their loops replay graphs
+    from nmf_tpu_torch import cli
+
+    args = ["X.bin", "W.bin", "H.bin", "-o", "Wg.bin", "Hg.bin", "-q", "--device", "cuda"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        rc, run_graphs = _graph_run(lambda: cli.main(["run", *args]))
+        check(rc == 0 and run_graphs["replays"] > 0
+              and run_graphs["warm_ups"] + run_graphs["replays"] == 8,
+              f"CLI run in process: rc {rc}, graphs {run_graphs}")
+        rc, tr_graphs = _graph_run(lambda: cli.main(
+            ["transform", "X.bin", "Wg.bin", "-o", "Hg_t.bin", "-q", "--device", "cuda"]))
+        check(rc == 0 and tr_graphs["replays"] > 0, f"CLI transform in process: rc {rc}, graphs "
+              f"{tr_graphs}")
+    finally:
+        os.chdir(cwd)
+    for f in "WH":
+        check(nt.read_matrix(os.path.join(tmp, f"{f}g.bin")).tobytes()
+              == nt.read_matrix(os.path.join(tmp, f"{f}_float32.bin")).tobytes(),
+              f"CLI run in process: {f} differs from the CLI subprocess's")
+    out["graphs"]["cli run"], out["graphs"]["cli transform"] = run_graphs, tr_graphs
+    print(f"[{card}] CLI run and transform in process: graphs {run_graphs} and {tr_graphs}, "
+          "the run's files byte-equal to the subprocess's")
 
 
 def _split_exposed(g, shape):
@@ -2732,6 +2780,48 @@ def _reset_all():
     ts.reset_counts()
 
 
+# The check-block graphs (models/solver.py): every single-device plain loop
+# replays its full-length check blocks as a CUDA graph, and each route is
+# held to the eager loop bit for bit.
+GRAPH_FIELDS = ("w", "h", "cost_history", "iterations", "num_checks")
+
+
+def _graph_run(fn):
+    """(fn(), {"warm_ups", "captures", "replays"} of the check-block graphs
+    it ran), the graph counts set to 0 just before."""
+    from nmf_tpu_torch.models import solver
+
+    solver.reset_graph_counts()
+    res = fn()
+    return res, dict(solver.GRAPH_COUNTS)
+
+
+def _eager(fn):
+    """``fn()`` with every check block on the eager loop."""
+    from nmf_tpu_torch.models import solver
+
+    with solver.eager_loop():
+        return fn()
+
+
+def _hold_graphed(out, where, res, graphs, eager, blocks=None):
+    """The graphed run ``res`` (graph counts ``graphs``) replayed a graph,
+    and where ``blocks`` is given ran that many full check blocks, the
+    first eagerly and the others replayed; it equals the same call on the
+    eager loop bit for bit (``GRAPH_FIELDS``): ``eager`` is that call's
+    result, or a function that makes it (run inside ``eager_loop``)."""
+    if callable(eager):
+        eager = _eager(eager)
+    check(graphs["replays"] > 0 and (blocks is None
+                                     or graphs["warm_ups"] + graphs["replays"] == blocks),
+          f"{where}: graphs {graphs}, expected {blocks or 'some'} full blocks, the first "
+          "eager and the others replayed")
+    for f in GRAPH_FIELDS:
+        check(torch.equal(_bits(getattr(res, f)), _bits(getattr(eager, f))),
+              f"{where}: {f} of the graphed loop differs from the eager loop's")
+    out["graphs"][where] = graphs
+
+
 def _kernel_launches(fn) -> int:
     """Kernels the card ran for ``fn()`` (torch.profiler, CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2767,7 +2857,8 @@ def phase_families(card, out):
         where = f"families {name}"
         nt.solve(x, w, h, dataclasses.replace(cfg, max_iter=2), device=DEVICE)   # warm
         _reset_all()
-        res, secs = _timed(lambda: nt.solve(x, w, h, cfg, device=DEVICE))
+        (res, secs), graphs = _graph_run(lambda: _timed(lambda: nt.solve(x, w, h, cfg,
+                                                                           device=DEVICE)))
         counts = _all_counts()
         check(not any(counts.values()), f"{where}: kernel counts {counts}")
         out["launches"][where] = {key: counts[key] for key in _launches()}
@@ -2778,10 +2869,13 @@ def phase_families(card, out):
         monotone = cfg.beta >= 1.0 or cfg.algorithm == "hals" or cfg.accelerate
         if monotone:
             check(bool(np.all(np.diff(hist) <= 0)), f"{where}: history rises: {hist}")
-        res2, secs2 = _timed(lambda: nt.solve(x, w, h, cfg, device=DEVICE))
+        # the rerun on the eager loop: the graphed run's bits
+        res2, secs2 = _timed(lambda: _eager(lambda: nt.solve(x, w, h, cfg, device=DEVICE)))
         for f in ("w", "h", "cost_history"):
             check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
                   f"{where}: {f} differs on a rerun")
+        if not cfg.accelerate:      # the accelerated loop stays eager
+            _hold_graphed(out, where, res, graphs, res2, blocks=cfg.num_checks)
         t0 = time.perf_counter()
         cpu = nt.solve(x, w, h, cfg, device="cpu")
         cpu_secs = time.perf_counter() - t0
@@ -2794,8 +2888,9 @@ def phase_families(card, out):
         print(f"[{card}] {where}: no kernel launched (K1-K3 and K5 counts all 0), cost {cost}, "
               f"CPU {c_cpu} (rel "
               f"{rel}, limit {FAMILY_COST_RTOL}), history {hist.tolist()}"
-              f"{' non-increasing' if monotone else ''}, bitwise on rerun; "
-              f"{iters / secs} / {iters / secs2} it/s on the card, {iters / cpu_secs} on the CPU")
+              f"{' non-increasing' if monotone else ''}, bitwise on an eager rerun; "
+              f"{iters / secs} it/s (graphs {graphs}) / {iters / secs2} eager on the card, "
+              f"{iters / cpu_secs} on the CPU")
     # one HALS sweep of H and of W on the reference operands, and the
     # kernels one HALS iteration launches
     xt, wt, ht = (torch.from_numpy(a).to(DEVICE) for a in (x, w, h))
@@ -2874,18 +2969,20 @@ def phase_transform_h_only(card, out, x, w, h_fit, h0):
         cfg = nt.SolveConfig(max_iter=TR_ITERS, precision=prec, backend="pallas")
         where = f"transform h_only {pol}"
         nt.solve_h_only(x, w, h0, dataclasses.replace(cfg, max_iter=2), device=DEVICE)  # warm
-        res, secs, mode, launches = _counted_kl(
-            lambda: nt.solve_h_only(x, w, h0, cfg, device=DEVICE), where, want)
+        (res, secs, mode, launches), graphs = _graph_run(lambda: _counted_kl(
+            lambda: nt.solve_h_only(x, w, h0, cfg, device=DEVICE), where, want))
         f32_operands = prec.x_dtype == "float32" and prec.state_dtype == "float32"
         check(mode == ("F32" if f32_operands else "ANY"), f"{where}: K3 ran {mode}")
         out["launches"][where] = launches
         hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
         check(hist.shape == (8,) and bool(np.all(np.isfinite(hist))) and bool(np.all(np.diff(hist) <= 0)),
               f"{where}: history {hist}")
-        res2, secs2 = _timed(lambda: nt.solve_h_only(x, w, h0, cfg, device=DEVICE))
+        res2, secs2 = _timed(lambda: _eager(lambda: nt.solve_h_only(x, w, h0, cfg,
+                                                                      device=DEVICE)))
         for f in ("h", "cost_history"):
             check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
                   f"{where}: {f} differs on a rerun")
+        _hold_graphed(out, where, res, graphs, res2, blocks=8)
         plain, p_secs = _timed(lambda: nt.solve_h_only(
             x, w, h0, dataclasses.replace(cfg, backend="jnp"), device=DEVICE))
         cost, c_plain = float(res.cost), float(plain.cost)
@@ -2903,9 +3000,11 @@ def phase_transform_h_only(card, out, x, w, h_fit, h0):
     cfg = nt.SolveConfig(max_iter=TR_ITERS, backend="pallas")
     where = "transform w_only float32"
     w_start = np.ascontiguousarray(np.roll(w, 1, axis=0))
-    res, secs, mode, launches = _counted_kl(
-        lambda: nt.solve_w_only(x, w_start, h_fit, cfg, device=DEVICE), where, want)
+    (res, secs, mode, launches), graphs = _graph_run(lambda: _counted_kl(
+        lambda: nt.solve_w_only(x, w_start, h_fit, cfg, device=DEVICE), where, want))
     check(mode == "F32", f"{where}: K3 ran {mode}")
+    _hold_graphed(out, where, res, graphs,
+                  lambda: nt.solve_w_only(x, w_start, h_fit, cfg, device=DEVICE), blocks=8)
     out["launches"][where] = launches
     plain = nt.solve_w_only(x, w_start, h_fit, dataclasses.replace(cfg, backend="jnp"),
                             device=DEVICE)
@@ -3001,10 +3100,13 @@ def phase_transform_nmf(card, out, x, seed):
           "normalize_factors")
     est = nt.NMF(n_components=k, init="nndsvda", backend="pallas", device=DEVICE)
     _reset_all()
-    _, fit_secs = _timed(lambda: est.fit(x))
+    (_, fit_secs), fit_graphs = _graph_run(lambda: _timed(lambda: est.fit(x)))
     launches = dict(fused_mu.LAUNCHES)
     check(launches == _launches(update_h=200, update_w=200, kl_cost=8),
           f"{where} fit: launches {launches}")
+    check(fit_graphs["replays"] > 0 and fit_graphs["warm_ups"] + fit_graphs["replays"] == 8,
+          f"{where} fit: graphs {fit_graphs}, expected 8 full blocks replayed or warming up")
+    out["graphs"]["NMF.fit"] = fit_graphs
     g = torch.Generator(device=DEVICE).manual_seed(seed + 14)
     x_new = torch.rand((m, 1000), generator=g, device=DEVICE).cpu().numpy()
     h_new, secs, mode, t_launches = _counted_kl(lambda: est.transform(x_new), f"{where}.transform",
@@ -3022,7 +3124,8 @@ def phase_transform_nmf(card, out, x, seed):
     out["transform"]["nmf"] = {"fit_its": 200 / fit_secs, "transform_its": 200 / secs,
                                "reconstruction_err": est.reconstruction_err_, "invariance": inv}
     print(f"[{card}] {where}: fit {m}x{n} K={k} (nndsvda) launches {launches}, "
-          f"reconstruction_err_ {est.reconstruction_err_}, {200 / fit_secs} it/s incl. the init; "
+          f"reconstruction_err_ {est.reconstruction_err_}, {200 / fit_secs} it/s incl. the init "
+          f"(graphs {fit_graphs}); "
           f"transform of {m}x1000 new columns launches {t_launches}, K3 {kl_instance(mode, k)}, "
           f"{200 / secs} it/s; normalize_factors: W H moved by {inv} relative (limit 1e-6)")
 
@@ -3229,8 +3332,8 @@ def phase_models_separate(card, tmp, out, seed):
     kw = dict(n_components=PAPER_K, n_fft=PAPER_FFT, hop=PAPER_HOP, config=cfg, seed=seed,
               device=DEVICE)
     nt.separate(audio[:PAPER_RATE], **{**kw, "config": dataclasses.replace(cfg, max_iter=2)})  # warm
-    (res, parts), secs, launches = _counted_models(
-        lambda: _separate_timed(lambda: nt.separate(audio, **kw)), "models separate", want)
+    ((res, parts), secs, launches), graphs = _graph_run(lambda: _counted_models(
+        lambda: _separate_timed(lambda: nt.separate(audio, **kw)), "models separate", want))
     out["launches"]["models separate"] = launches
     spec = separation._stft_np(audio, PAPER_FFT, PAPER_HOP)
     check(spec.shape == (n_bins, 3446) and res.w.shape == (n_bins, PAPER_K)
@@ -3251,9 +3354,10 @@ def phase_models_separate(card, tmp, out, seed):
     cost, c_plain = float(res.solve_result.cost), float(plain.cost)
     rel = abs(cost - c_plain) / abs(c_plain)
     check(rel <= 1e-4, f"separate: cost {cost} vs the jnp solve {c_plain}: rel {rel}")
-    again = nt.separate(audio, **kw)
+    again = _eager(lambda: nt.separate(audio, **kw))
     check(again.sources.tobytes() == res.sources.tobytes() and again.w.tobytes() == res.w.tobytes()
           and again.h.tobytes() == res.h.tobytes(), "separate: differs on a rerun")
+    _hold_graphed(out, "models separate", res.solve_result, graphs, again.solve_result, blocks=8)
     hist = res.solve_result.cost_history.cpu().numpy()
     check(hist.shape == (8,) and bool(np.all(np.diff(hist) < 0)), f"separate: history {hist}")
     results = {"launches": launches, "seconds": secs, "host_seconds": parts, "cost": cost,
@@ -3327,7 +3431,10 @@ def phase_models_semi(card, out, seed):
         c = dataclasses.replace(cfg, precision=prec)
         where = f"models semi {pol}"
         fn = lambda: nt.solve_semi(x, w, h, c, n_frozen=SEMI_FROZEN, device=DEVICE)  # noqa: E731
-        (res, secs, launches), k3 = kl_counts(lambda: _counted_models(fn, where, want))
+        ((res, secs, launches), k3), graphs = _graph_run(
+            lambda: kl_counts(lambda: _counted_models(fn, where, want)))
+        # a graph of its own a call (its step closes over the frozen columns)
+        _hold_graphed(out, where, res, graphs, fn, blocks=8)
         impls = _check_impls(fn, prec, where)
         k3_mode = _mode_of_counts(k3, f"{where} K3")
         # the solve's cost: BF16 under bfloat16, F32 on f32 X, ANY on bf16 or int8 X
@@ -3387,14 +3494,16 @@ def phase_models_masked(card, out, seed):
                       lambda d, c: nt.solve_masked_h_only(xn, w, h, mask, c, device=d))):
         where = f"models {name}"
         fn(DEVICE, dataclasses.replace(cfg, max_iter=2))   # warm
-        res, secs, launches = _counted_models(lambda: fn(DEVICE, cfg), where, none)
+        (res, secs, launches), graphs = _graph_run(
+            lambda: _counted_models(lambda: fn(DEVICE, cfg), where, none))
         out["launches"][where] = launches
         check(bool(torch.isfinite(res.w).all()) and bool(torch.isfinite(res.h).all()),
               f"{where}: factors not finite")
-        again = fn(DEVICE, cfg)
+        again = _eager(lambda: fn(DEVICE, cfg))
         for f in ("w", "h", "cost_history"):
             check(torch.equal(_bits(getattr(res, f)), _bits(getattr(again, f))),
                   f"{where}: {f} differs on a rerun")
+        _hold_graphed(out, where, res, graphs, again, blocks=8)
         t0 = time.perf_counter()
         cpu = fn("cpu", cfg)
         cpu_secs = time.perf_counter() - t0
@@ -5914,9 +6023,13 @@ def _serve_bench(card, out, tmp, seed):
     for tag, t in ts.items():
         t(x[:, :nb])
         t(x)                  # warm: the first calls and the whole pipeline
-        r, s, counts = _served(t, x)
+        (r, s, counts), graphs = _graph_run(lambda: _served(t, x))
         want = _serve_want(t.backend, blocks, SERVE_ITERS, 1)
         check(counts == want, f"19a serve {tag} ({t.backend}): counts {counts}, expected {want}")
+        # one check block a served block: each replays the cached program's graph
+        check(graphs["replays"] == blocks and not graphs["warm_ups"],
+              f"19a serve {tag}: graphs {graphs}, expected {blocks} replays")
+        out["graphs"][f"serve {tag}"] = graphs
         out["launches"][f"serve {tag}"] = counts
         res[tag] = r
         secs[tag] = [s] + [_served(t, x)[1] for _ in range(SERVE_REPS - 1)]
@@ -5933,6 +6046,26 @@ def _serve_bench(card, out, tmp, seed):
             check(res[tag].h[:, b * nb:(b + 1) * nb].tobytes() == ref.h.cpu().numpy().tobytes()
                   and np.float32(res[tag].block_costs[b]) == np.float32(ref.cost.item()),
                   f"19a serve {tag}: block {b} differs from solve_h_only at {t.backend}")
+    # a stream through a fresh transform, whose program holds no graph yet:
+    # its first block runs eagerly, the second is captured, and it and every
+    # later block replay; a second call replays the program's graph from its
+    # first block; both give the eager loop's bits
+    fresh = nt.load_transform(os.path.join(tmp, "serve_auto_float32.nmfz"))
+    first, g_first = _graph_run(lambda: fresh(x))
+    second, g_second = _graph_run(lambda: fresh(x))
+    eager = _eager(lambda: fresh(x))
+    check(g_first["warm_ups"] == 1 and g_first["captures"] == 1
+          and g_first["replays"] == blocks - 1
+          and (g_second["warm_ups"], g_second["captures"], g_second["replays"]) == (0, 0, blocks),
+          f"19a fresh stream: graphs {g_first} then {g_second}, expected {blocks - 1} replays, "
+          f"then {blocks} and no capture")
+    for r in (first, second):
+        check(r.h.tobytes() == eager.h.tobytes()
+              and r.block_costs.tobytes() == eager.block_costs.tobytes(),
+              "19a fresh stream: H or block costs differ from the eager loop's")
+    out["graphs"]["serve fresh stream"] = [g_first, g_second]
+    print(f"[{card}] 19a a fresh stream of {blocks} blocks: graphs {g_first}, then {g_second}; "
+          "both calls bit-equal to the eager loop")
     held = _hold_served("19a auto against jnp", res["auto float32"], res["jnp float32"])
     q, p = res["auto int8 quantized"], res["auto int8 in-program"]
     check(q.h.tobytes() == p.h.tobytes() and q.block_costs.tobytes() == p.block_costs.tobytes(),
@@ -6714,7 +6847,7 @@ def main(argv=None) -> int:
                     for name, _, _ in KERNELS},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
         "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
-        "sparse": {}, "backend": {}, "mesh": {}, "serving": {}, "examples": {},
+        "sparse": {}, "backend": {}, "mesh": {}, "serving": {}, "examples": {}, "graphs": {},
     }
     t_start = time.perf_counter()
     seconds = {}
@@ -6845,6 +6978,8 @@ def main(argv=None) -> int:
     print(f"[{card}] mesh summary: {json.dumps(out['mesh'])}")
     print(f"[{card}] serving summary: {json.dumps(out['serving'])}")
     print(f"[{card}] examples summary: {json.dumps(out['examples'])}")
+    print(f"[{card}] graphs summary (each route's graph counts, its bits the eager loop's): "
+          f"{json.dumps(out['graphs'])}")
     print(f"[{card}] all twenty phases passed in {time.perf_counter() - t_start} s "
           f"(kernel build {out['build_seconds']} s)")
     print(json.dumps({"kernels": kernels}))

@@ -366,6 +366,20 @@ void nmf_reset_kl_launches() {
   for (auto& n : kl_launches) n = 0;
 }
 
+// Adds n (either sign) to the pass-1 launches of K1 (counter 0), K2 (1) or
+// K3 (2) in Mode `mode`: a replayed CUDA graph runs its kernels without
+// their host launchers, so its caller adds the launches that the capture
+// recorded at every replay, and takes them back from the capture itself
+// (models/solver.py); 0, or -1 for a counter or Mode out of range.
+int nmf_add_launches(int counter, int mode, int n) {
+  if (mode < 0 || mode >= MODES || counter < 0 || counter > 2) return -1;
+  if (counter == 2)
+    kl_launches[mode] += n;
+  else
+    nmf_counts::partial_launches[counter][mode] += n;
+  return 0;
+}
+
 // out[4] = registers, dynamic shared memory (bytes), resident blocks an
 // SM, local memory a thread (bytes) of K3's pass-1 kernel in Mode `mode`
 // at chunk width kc, on the current device; an error for SPLIT3.

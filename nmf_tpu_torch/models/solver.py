@@ -1,16 +1,34 @@
 """The NMF solve loop: check-blocked, with no host sync when ``thresh == 0``.
 
 Counterpart of ``nmf_tpu.models.solver``.  The JAX package builds one
-``jit(lax.while_loop)``; PyTorch runs eagerly, so the loop is a Python loop
-that enqueues kernels on the current stream and keeps every device value on
-the device:
+``jit(lax.while_loop)`` over check blocks, each an inner ``fori_loop`` of
+``check_every`` steps.  Here a host loop walks the check blocks and keeps
+every device value on the device:
 
 * ``chunk = min(check_every, max_iter - it)`` steps per check block;
-* the cost is taken at the end of each block into a device-side history
-  of ``ceil(max_iter / check_every)`` f32 slots (unused ones NaN);
+* each block is :func:`check_block`: the steps, then the cost into a
+  device-side history of ``ceil(max_iter / check_every)`` f32 slots
+  (unused ones NaN) at a device index, and the relative change, with no
+  read by the host;
+* on a CUDA device (and the identity ``all_reduce``: one device) the
+  full-length blocks run as CUDA graphs, PyTorch's counterpart of the
+  inner ``fori_loop`` under ``jit`` (:class:`_BlockGraph`): the first
+  runs eagerly on a side stream (lazy initialisation, and real work); at
+  the second, one step and the check's close (cost, history write,
+  relative change) are captured there, and every block from then on is
+  ``chunk`` replays of the step's graph and one of the close's, over the
+  graphs' own buffers.  A solve makes its graphs for the call and frees
+  them on return, where the call replays at least :data:`MIN_REPLAYS`
+  blocks and a step's work is below :data:`GRAPH_MAX_WORK` (past it the
+  device sets the pace and a graph gains nothing); a served program keeps
+  its graphs across calls in a :class:`GraphCache` of its own, freed with
+  it.  A replay runs no wrapper, so it adds the launches its capture
+  recorded (``fused_mu.add_counts``).  The tail block, the CPU, the
+  accelerated, sharded, batched, streamed, tiled and COO loops run
+  eagerly; a failed capture or replay raises;
 * with ``thresh == 0`` nothing is read back until the run ends, so exactly
   ``max_iter`` iterations run (nmf.cu:11); with ``thresh > 0`` one scalar
-  is read per check to decide whether to stop.
+  is read per check to decide whether to stop (JAX stops on the device).
 
 ``accelerate=True`` runs the safeguarded Nesterov loop
 (:func:`_run_accel_loop`).  Its accept/reject decision is made on the host:
@@ -41,9 +59,11 @@ kernel wrappers, which take their plain versions there.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -185,6 +205,257 @@ def _cost_fn(config: SolveConfig) -> CostFn:
     return _dequant_wrap_cost(fn) if config.precision.x_dtype == "int8" else fn
 
 
+def close_check(x, w, h, cost, hist, idx, cost_fn: CostFn):
+    """A check's close on device tensors alone: the cost, its write into
+    ``hist`` at the device index ``idx`` (one int64, advanced in place) and
+    the relative change against the baseline ``cost``, in f32 as the JAX
+    loop computes it (NaN against a NaN baseline).  Returns ``(cost, rel)``."""
+    new = cost_fn(x, w, h).to(_F32)
+    hist.index_copy_(0, idx, new.reshape(1))
+    idx.add_(1)
+    return new, torch.abs(cost - new) / torch.abs(new)
+
+
+def check_block(x, w, h, cost, hist, idx, step_fn: StepFn, cost_fn: CostFn, chunk: int,
+                need_cost: bool):
+    """One check block on device tensors alone: ``chunk`` steps, then (with
+    ``need_cost``) :func:`close_check`.  Returns ``(w, h, cost, rel)``
+    (``cost`` passed through and ``rel`` None without ``need_cost``).
+    Nothing is read back to the host: the eager loop runs it, and the
+    captured loop its two parts, the step and the close."""
+    for _ in range(chunk):
+        w, h = step_fn(w, h, x)
+    if not need_cost:
+        return w, h, cost, None
+    return (w, h) + close_check(x, w, h, cost, hist, idx, cost_fn)
+
+
+# The captured loop's bookkeeping since the last reset: full blocks run
+# eagerly before a capture, graphs captured, graphs replayed, and the host
+# seconds the captures took (chip_smoke.py and probe_timings.py read them).
+GRAPH_COUNTS: Dict[str, float] = {"warm_ups": 0, "captures": 0, "replays": 0, "capture_s": 0.0}
+
+# A graph made for one call is made only where it will replay at least this
+# many of the call's full blocks (its first runs eagerly): below that its
+# capture costs more host time than the replays save.  And no graph where
+# a step's work (M x N x K) reaches GRAPH_MAX_WORK: the device, not the
+# host, sets the pace there, so a graph gains nothing, and its memory pool
+# would hold a second set of a step's temporaries while it lives
+# (``probe_timings.py graph``; PERF.md section 6, PR 22).
+MIN_REPLAYS = 3
+GRAPH_MAX_WORK = 2 ** 32
+
+
+def reset_graph_counts() -> None:
+    """Set every count of :data:`GRAPH_COUNTS` to 0."""
+    for key in GRAPH_COUNTS:
+        GRAPH_COUNTS[key] = 0
+
+
+class _CudaGraphs:
+    """What the captured loop asks of ``torch.cuda``, in one object: a CPU
+    test puts a stand-in here to run the captured route on CPU tensors."""
+
+    def __init__(self):
+        self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+    def applies(self, dev: torch.device) -> bool:
+        return dev.type == "cuda"
+
+    def stream(self, dev: torch.device):
+        """The device's side stream, on which every warm-up and capture runs
+        (cuBLAS keeps its workspace per stream)."""
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        return self._streams[dev]
+
+    def run_on(self, stream, fn: Callable[[], None]) -> None:
+        """``fn()`` on ``stream``, after the current stream's work so far and
+        before its next."""
+        cur = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            fn()
+        cur.wait_stream(stream)
+
+    def capture(self, stream, fn: Callable[[], None], pool=None):
+        """``fn``'s work captured as a CUDA graph on ``stream`` (nothing runs),
+        its memory in ``pool`` (another graph's) or a pool of its own."""
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        return graph
+
+
+_GRAPHS = _CudaGraphs()
+_EAGER = False
+
+
+@contextlib.contextmanager
+def eager_loop():
+    """Run the plain loop's check blocks eagerly on the card too, inside
+    this context: the comparison that holds the captured loop to the eager
+    one (``chip_smoke.py``, ``probe_timings.py graph``).  No solve enters it
+    by itself."""
+    global _EAGER
+    _EAGER = True
+    try:
+        yield
+    finally:
+        _EAGER = False
+
+
+def _layout(t) -> tuple:
+    """A tensor's (or a nest of tuples') shape, strides, dtype and device."""
+    if isinstance(t, tuple):
+        return tuple(_layout(a) for a in t)
+    return tuple(t.shape), t.stride(), t.dtype, t.device
+
+
+def _empty_like(t):
+    """A nest of tuples of tensors like ``t``'s, uninitialised."""
+    return tuple(_empty_like(a) for a in t) if isinstance(t, tuple) else torch.empty_like(t)
+
+
+def _copy_into(dst, src) -> None:
+    """Each tensor of the nest ``src`` into its place in ``dst``."""
+    if isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+    else:
+        dst.copy_(src)
+
+
+class _BlockGraph:
+    """Full check blocks over static state, the counterpart of the JAX
+    loop's inner ``fori_loop`` under ``jit``: the first block runs eagerly
+    on the side stream; at the second, one step and the check's close are
+    each captured there as a CUDA graph (one memory pool), and every block
+    from then on is ``chunk`` replays of the step's graph and one of the
+    close's.  A step's capture costs a step's host time, where a whole
+    block's would cost a block's (PERF.md section 6, PR 22).
+
+    ``w``, ``h``, ``cost`` (the baseline), ``rel``, ``hist`` and ``idx`` are
+    the graphs' own buffers, each graph copying its results back into
+    them, and so is X when ``own_x`` (a graph kept across calls: each
+    call's X is copied in, so no address of a tensor its caller frees is
+    baked in); else X is read where the call holds it.  A replayed block
+    adds the launches the captures recorded to the counts
+    (``fused_mu.add_counts``): no wrapper runs at a replay."""
+
+    def __init__(self, x, w, h, n_slots: int, step_fn: StepFn, cost_fn: CostFn, chunk: int,
+                 need_cost: bool, own_x: bool):
+        f32 = dict(dtype=_F32, device=w.device)
+        self.w, self.h = torch.empty_like(w), torch.empty_like(h)
+        self.cost = torch.empty((), **f32)
+        self.rel = torch.full((), float("nan"), **f32)
+        self.hist = torch.empty((n_slots,), **f32)
+        self.idx = torch.zeros((1,), dtype=torch.int64, device=w.device)
+        self.x = _empty_like(x) if own_x else None
+        self.own_x = own_x
+        self.step_fn, self.cost_fn, self.chunk, self.need_cost = step_fn, cost_fn, chunk, need_cost
+        self.warm = False
+        self.graphs = None          # (the step's, the close's or None)
+        self.counts: Dict[tuple, int] = {}
+
+    def state(self) -> Tuple[torch.Tensor, ...]:
+        return self.w, self.h, self.cost, self.rel, self.hist, self.idx
+
+    def load(self, x, w, h, c0: float) -> None:
+        """A call's X and start: its W, H and baseline into the buffers."""
+        if self.own_x:
+            _copy_into(self.x, x)
+        else:
+            self.x = x
+        self.w.copy_(w)
+        self.h.copy_(h)
+        self.cost.fill_(c0)
+        self.hist.fill_(float("nan"))
+        self.idx.zero_()
+
+    def _step(self) -> None:
+        w, h = self.step_fn(self.w, self.h, self.x)
+        self.w.copy_(w)
+        self.h.copy_(h)
+
+    def _close(self) -> None:
+        cost, rel = close_check(self.x, self.w, self.h, self.cost, self.hist, self.idx,
+                                self.cost_fn)
+        self.cost.copy_(cost)
+        self.rel.copy_(rel)
+
+    def _eager_block(self) -> None:
+        for _ in range(self.chunk):
+            self._step()
+        if self.need_cost:
+            self._close()
+
+    def _captured(self, fn, pool=None):
+        """(``fn`` captured as a graph, the launches its capture counted,
+        taken back: a capture launches nothing)."""
+        before = fused_mu.count_snapshot()
+        graph = _GRAPHS.capture(_GRAPHS.stream(self.w.device), fn, pool)
+        counts = fused_mu.count_delta(before)
+        fused_mu.add_counts(counts, -1)
+        return graph, counts
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        step, counts = self._captured(self._step)
+        self.counts = {key: n * self.chunk for key, n in counts.items()}
+        close = None
+        if self.need_cost:
+            close, counts = self._captured(self._close, step.pool())
+            for key, n in counts.items():
+                self.counts[key] = self.counts.get(key, 0) + n
+        self.graphs = (step, close)
+        GRAPH_COUNTS["captures"] += 1
+        GRAPH_COUNTS["capture_s"] += time.perf_counter() - t0
+
+    def block(self) -> None:
+        """Run one full block: the first eagerly on the side stream (the
+        kernel library's load, cuBLAS's handle and workspace, lazy module
+        loading: what a capture cannot do, and real work), the later ones
+        as replays, captured at the second."""
+        if not self.warm:
+            _GRAPHS.run_on(_GRAPHS.stream(self.w.device), self._eager_block)
+            self.warm = True
+            GRAPH_COUNTS["warm_ups"] += 1
+            return
+        if self.graphs is None:
+            self._capture()
+        step, close = self.graphs
+        for _ in range(self.chunk):
+            step.replay()
+        if close is not None:
+            close.replay()
+        fused_mu.add_counts(self.counts)
+        GRAPH_COUNTS["replays"] += 1
+
+
+class GraphCache:
+    """Check-block graphs kept across calls by the object that holds this
+    cache, and freed with it: a served program holds one (its blocks share
+    one layout, so one graph), and a stream of one-block calls replays from
+    its second block on.  Keyed by all that a capture bakes in: the step
+    and cost, the config, the layouts of X, W and H (X is the graph's own
+    buffer, so no address).  Only for a step and cost that close over no
+    tensor of a call."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, _BlockGraph] = {}
+
+    def get(self, key, make: Callable[[], _BlockGraph]) -> _BlockGraph:
+        if key not in self.graphs:
+            self.graphs[key] = make()
+        return self.graphs[key]
+
+
 def run_checked_loop(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -197,6 +468,7 @@ def run_checked_loop(
     initial_extrap: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     all_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     live_emit: Optional[Callable] = None,
+    graphs=True,
 ) -> SolveResult:
     """The check-blocked loop (``solver.py:402-498`` of the JAX package).
 
@@ -210,42 +482,74 @@ def run_checked_loop(
     sharded solves; default: the identity): it runs before the check's
     host read, so every rank reads the same cost and takes the same stop,
     and the loop stays uniform across ranks.
+
+    Each block is :func:`check_block`.  On CUDA tensors with the identity
+    ``all_reduce``, the full-length blocks run as a CUDA graph
+    (:class:`_BlockGraph`; module docstring) below :data:`GRAPH_MAX_WORK`:
+    ``graphs=True`` makes one for this call where it replays at least
+    :data:`MIN_REPLAYS` blocks, and frees it on return; a
+    :class:`GraphCache` keeps its graph across calls (only for a step and
+    cost that close over no tensor of the call); ``False`` runs every block
+    eagerly (the streamed, tiled and COO loops).  A failed capture or replay
+    raises.
     """
-    all_reduce = _identity if all_reduce is None else all_reduce
     emit = emit_live if live_emit is None else live_emit
     if config.accelerate:
         return _run_accel_loop(x, w, h, config, step_fn, cost_fn, initial_cost,
-                               initial_momentum, initial_extrap, all_reduce, emit)
+                               initial_momentum, initial_extrap,
+                               _identity if all_reduce is None else all_reduce, emit)
     max_iter = int(config.max_iter)
     check_every = int(config.check_every)
     thresh = float(config.thresh)
     # with thresh == 0 and no tracking the cost GEMM is skipped entirely
     need_cost = config.track_cost or thresh > 0.0
     live = bool(config.live_metrics)
-    n_slots = max(config.num_checks, 1)
     dev = w.device
-    hist = torch.full((n_slots,), float("nan"), dtype=_F32, device=dev)
     c0 = float("nan") if initial_cost is None else float(initial_cost)
-    cost = torch.full((), c0, dtype=_F32, device=dev)
+    if all_reduce is not None:
+        def cost_fn(x_, w_, h_, _cost=cost_fn):
+            return all_reduce(_cost(x_, w_, h_))
+    runner = None
+    n_full = max_iter // check_every
+    m, k, n = w.shape[0], w.shape[1], h.shape[1]
+    if (graphs is not False and all_reduce is None and not _EAGER and _GRAPHS.applies(dev)
+            and m * n * k < GRAPH_MAX_WORK):
+        args = (max(config.num_checks, 1), step_fn, cost_fn, check_every, need_cost)
+        if isinstance(graphs, GraphCache) and n_full:
+            key = (step_fn, cost_fn, config, _layout(x), _layout(w), _layout(h))
+            runner = graphs.get(key, lambda: _BlockGraph(x, w, h, *args, own_x=True))
+        elif n_full > MIN_REPLAYS:
+            runner = _BlockGraph(x, w, h, *args, own_x=False)
+    if runner is not None:
+        runner.load(x, w, h, c0)
+        w, h, cost, rel, hist, idx = runner.state()
+    else:
+        hist = torch.full((max(config.num_checks, 1),), float("nan"), dtype=_F32, device=dev)
+        idx = torch.zeros((1,), dtype=torch.int64, device=dev)
+        cost = torch.full((), c0, dtype=_F32, device=dev)
     it, chk, done = 0, 0, False
     while it < max_iter and not done:
         chunk = min(check_every, max_iter - it)
-        for _ in range(chunk):
-            w, h = step_fn(w, h, x)
+        if runner is not None and chunk == check_every:
+            runner.block()
+            w, h, cost, rel = runner.w, runner.h, runner.cost, runner.rel
+        else:
+            w, h, cost, rel = check_block(x, w, h, cost, hist, idx, step_fn, cost_fn, chunk,
+                                          need_cost)
         it += chunk
         if need_cost:
-            prev = cost
-            cost = all_reduce(cost_fn(x, w, h)).to(_F32)
-            hist[chk] = cost          # device-to-device copy, no sync
             if thresh > 0.0 or live:
                 # the one host read per check, compared in f32 as the JAX
                 # loop compares; NaN (the first check) never stops
-                rel = torch.abs(prev - cost) / torch.abs(cost)
                 if live:
                     emit(it, *torch.stack((cost, rel)).tolist())
                 if thresh > 0.0:
                     done = bool(rel < thresh)
             chk += 1
+    if runner is not None:
+        # nothing returned aliases a buffer that a later replay writes
+        w, h, cost, hist = (t.clone() if any(t is b for b in runner.state()) else t
+                            for t in (w, h, cost, hist))
     return SolveResult(
         w=w,
         h=h,

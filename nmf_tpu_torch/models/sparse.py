@@ -251,4 +251,4 @@ def solve_sparse(
     cols = _host(sx.cols).astype(np.int64)
     xs = (_order(data, rows, cols, cols, chunk, dev), _order(data, rows, cols, rows, chunk, dev))
     step, cost = _sparse_fns(config, chunk)
-    return run_checked_loop(xs, w0, h0, config, step, cost)
+    return run_checked_loop(xs, w0, h0, config, step, cost, graphs=False)

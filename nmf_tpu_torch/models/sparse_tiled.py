@@ -506,7 +506,7 @@ def _run_tiled(xarg, w, h, config: SolveConfig, info, initial_cost=float("nan"),
 
         emit = _emit_live_origin(mesh)    # the cost sums itself over the mesh
     return run_checked_loop(xarg, w, h, config, step, cost, c0,
-                            float(initial_momentum), initial_extrap, live_emit=emit)
+                            float(initial_momentum), initial_extrap, live_emit=emit, graphs=False)
 
 
 def _crop_tiled(res: SolveResult, info) -> SolveResult:

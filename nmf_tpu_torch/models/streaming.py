@@ -1382,7 +1382,7 @@ def transform_out_of_core(
 
     def solve_block(idx, x_j, h_j):
         if solver is None:
-            return run_checked_loop(x_j, w_dev, h_j, config, *step_cost(idx))
+            return run_checked_loop(x_j, w_dev, h_j, config, *step_cost(idx), graphs=False)
         res = solver(x_j, w_dev, h_j)
         return dataclasses.replace(res, h=gather(res.h, Placement(mesh, (None, COL_AXIS))))
 

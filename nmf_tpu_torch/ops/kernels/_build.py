@@ -70,6 +70,9 @@ _SIGNATURES = {
     # registers, dynamic shared memory, blocks an SM, local memory
     "nmf_kl_launches": ([_I], _I),
     "nmf_reset_kl_launches": ([], None),
+    # K1 (0), K2 (1) or K3 (2), Mode, n: n more pass-1 launches (a graph's
+    # replay, or a capture taken back)
+    "nmf_add_launches": ([_I, _I, _I], _I),
     "nmf_kl_info": ([_I, _I, _P], _I),
     # w, h, tiles, perm, rb, cb, part, out; mp, np, k, bm, bn, n_tiles,
     # steps, per, kc; eps; state_bf16, x_kind, gemm, device; stream

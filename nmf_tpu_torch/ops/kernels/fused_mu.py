@@ -63,6 +63,9 @@ __all__ = [
     "PLAIN_CALLS",
     "MAX_FUSED_K",
     "reset_counts",
+    "count_snapshot",
+    "count_delta",
+    "add_counts",
     "supported",
     "plan_split",
     "kl_split",
@@ -102,6 +105,46 @@ def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS, MEMBERS):
         for key in d:
             d[key] = 0
+
+
+# The library's pass-1 counters (``csrc/fused_mu.cu``): K1 and K2 per Mode
+# (``nmf_partial_launches``), K3 per Mode (``nmf_kl_launches``).
+_LIB_MODES = 4
+_COUNT_NAMES = ("LAUNCHES", "PLAIN_CALLS", "MEMBERS")
+
+
+def count_snapshot() -> Dict[tuple, int]:
+    """Every launch count now: the entries of ``LAUNCHES``, ``PLAIN_CALLS``
+    and ``MEMBERS``, and, once the library is loaded, its pass-1 launches
+    of K1, K2 and K3 per Mode.  A replayed CUDA graph runs its kernels
+    without their wrappers, so the loop that replays it adds what the
+    capture recorded (:func:`count_delta`, :func:`add_counts`)."""
+    snap = {(name, key): n for name in _COUNT_NAMES for key, n in globals()[name].items()}
+    if _lib.cache_info().currsize:
+        lib = _lib()
+        for mode in range(_LIB_MODES):
+            snap["lib", 0, mode] = lib.nmf_partial_launches(1, mode)
+            snap["lib", 1, mode] = lib.nmf_partial_launches(0, mode)
+            snap["lib", 2, mode] = lib.nmf_kl_launches(mode)
+    return snap
+
+
+def count_delta(before: Dict[tuple, int]) -> Dict[tuple, int]:
+    """What the counts gained since the snapshot ``before``."""
+    delta = {key: n - before.get(key, 0) for key, n in count_snapshot().items()}
+    return {key: n for key, n in delta.items() if n}
+
+
+def add_counts(delta: Dict[tuple, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (of :func:`count_delta`) to the counts:
+    ``times=1`` at each replay of a graph, ``-1`` to take back its capture,
+    which launched nothing."""
+    for key, n in delta.items():
+        if key[0] == "lib":
+            if _lib().nmf_add_launches(key[1], key[2], n * times) != 0:
+                raise RuntimeError(f"nmf_add_launches refused counter {key[1]}, Mode {key[2]}")
+        else:
+            globals()[key[0]][key[1]] += n * times
 
 
 def supported(k=None) -> bool:

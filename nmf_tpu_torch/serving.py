@@ -15,8 +15,14 @@ no ``torch.export`` or TorchScript graph either:
   can call them;
 * the checked loop's stop (``thresh > 0``) and the accelerated loop's
   accept or reject are host decisions on a cost read back
-  (``models/solver.run_checked_loop``); a graph would need them as
-  ``torch.cond``/``while_loop``, or every iteration unrolled;
+  (``models/solver.run_checked_loop``); an exported graph would need them
+  as ``torch.cond``/``while_loop``, or every iteration unrolled.  What the
+  loop does capture is each full check block, as a CUDA graph made on the
+  serving device at run time (not a file format): the program's step and
+  cost come from the config alone, so the program keeps its graphs across
+  calls in a cache of its own (``solver.GraphCache``, freed with the
+  transform), each graph with its own copy of the prepped block: a stream
+  runs its first block eagerly and replays from its second;
 * a traced graph pins one device, and the artifact must serve on every
   platform it names.
 
@@ -97,7 +103,7 @@ import torch
 
 from .models.masked import _masked_prep, masked_h_step_cost
 from .models.nmf import _h_only_step_cost
-from .models.solver import SolveResult, _prep, run_checked_loop
+from .models.solver import GraphCache, SolveResult, _prep, run_checked_loop
 from .models.streaming import BinColumnSource, _Fetch
 from .utils.autotune import resolve_config
 from .utils.config import Precision, SolveConfig
@@ -407,9 +413,10 @@ def _build_transform_program(config: SolveConfig, masked: bool = False,
     if mesh is None:
         dev = device
         step, cost = (masked_h_step_cost if masked else _h_only_step_cost)(config)
+        graphs = GraphCache()       # the program's check-block graphs, freed with it
 
         def solve(data, w, h0):
-            return run_checked_loop(data, w, h0, config, step, cost)
+            return run_checked_loop(data, w, h0, config, step, cost, graphs=graphs)
     else:
         from .parallel.mesh import COL_AXIS, Placement, gather, mesh_device
         from .parallel.sharded import build_sharded_h_solver, build_sharded_masked_h_solver

@@ -6,6 +6,7 @@
     python3 probe_timings.py kl --root PATH            # K3 of the port under PATH
     python3 probe_timings.py tiled-mesh                # the tiled loop on a 1x1 mesh
     python3 probe_timings.py sass --root PATH          # K1-K3's R=16 SASS under PATH
+    python3 probe_timings.py graph                     # the check-block graphs against eager
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -40,6 +41,29 @@ flagship's chunk width), per instance as phase 1 labels it: all
 instructions, global (``LDG``/``STG``), generic (``LD``/``ST``), shared
 (``LDS``/``STS``) and tensor-core (``HMMA``) ones and the divergence
 brackets (``BSSY``).
+
+``graph``: the check-block graphs (``models/solver.py``) against the
+eager loop (``solver.eager_loop``), in turns (graphed, eager, eager,
+graphed, ...) after a warm run of each; host clocks around work that ends
+in a synchronize, each graphed run with its graph counts (warm-ups,
+captures, replays, the captures' host seconds).  Three parts, one JSON
+line each: (1) ``breakeven``: with every full block after a call's first
+replayed (``MIN_REPLAYS`` set to 1), the reference solve (the seed-0
+fixtures) and the ISMIR H-only solve (1025 x 4000, K=32) at 2, 3, 4, 5
+and 8 blocks of 25 iterations, in it/s, where a graph made for one call
+pays; (2) ``routes``, the rule as shipped: the reference solve (200
+iterations) in ``float32``, ``bfloat16`` and ``float32_fast``, the ISMIR
+H-only and semi (8 frozen columns) solves, the masked reference solve,
+``separate``'s solve (the paper's 20 s clip, K=32), in it/s, and a served
+stream at ``bench.py``'s serving rows (2048 x 16384, K=128, blocks of
+2048, 50 iterations) in cols/s through a warm transform and as the first
+call of a fresh one, with one more profiled run of each for the device's
+busy share; (3) ``sizes``: with ``GRAPH_MAX_WORK`` lifted, 4096^2 and
+8192^2 at K=128 (``float32``), either side of it, and the flagship
+(10240^2, K=256) in ``float32`` (cuBLAS by rule) and ``bfloat16``
+(K1-K3), 200 iterations, five pairs in turns, with each run's peak
+device memory and what stayed allocated and reserved
+after it.  No gate: ``chip_smoke.py`` holds the bits.
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -219,6 +243,161 @@ def tiled_mesh(cs, card):
                       "loop_s": res, "profile": prof}), flush=True)
 
 
+def graph(cs, card):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import separation, solver
+
+    fx = nt.fixtures
+    xr, wr, hr = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    m, n, k = cs.TR_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rand = lambda *s: torch.rand(s, generator=g, device="cuda").clamp_min_(cs.EPS)  # noqa: E731
+    xi, wi, hi = (t.cpu().numpy() for t in (rand(m, n), rand(m, k), rand(k, n)))
+    mask = (np.random.RandomState(16).rand(*xr.shape) >= cs.MASK_MISSING).astype(np.float32)
+    xn = xr.copy()
+    xn[mask == 0] = np.nan
+    audio = cs._paper_audio(0)
+    mag = np.abs(separation._stft_np(audio, cs.PAPER_FFT, cs.PAPER_HOP)).astype(np.float32)
+    ws, hs = nt.scaled_random_init(mag, cs.PAPER_K, seed=0)
+    sm, sn, sk, nb = cs.SERVE_SHAPE
+    rng = np.random.RandomState(0)
+    xs = np.maximum(rng.rand(sm, sn).astype(np.float32), np.float32(cs.EPS))
+    wsv = np.maximum(rng.rand(sm, sk).astype(np.float32), np.float32(cs.EPS))
+    tmp = tempfile.TemporaryDirectory(prefix="nmf_probe_")
+    path = f"{tmp.name}/serve.nmfz"
+    nt.save_transform(path, wsv, nb, nt.SolveConfig(max_iter=cs.SERVE_ITERS,
+                                                    check_every=cs.SERVE_ITERS))
+    ref = nt.reference_preset()
+    rule = solver.MIN_REPLAYS
+
+    def run(fn, eager):
+        """(host seconds of fn, the graph counts it left)."""
+        solver.reset_graph_counts()
+        if eager:
+            with solver.eager_loop():
+                secs = cs._timed(fn)[1]
+        else:
+            secs = cs._timed(fn)[1]
+        return secs, dict(solver.GRAPH_COUNTS)
+
+    def busy(fn, eager):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            secs = run(fn, eager)[0]
+        trace = f"{tmp.name}/trace.json"
+        prof.export_chrome_trace(trace)
+        return cs._device_shares(trace)["busy"] / secs
+
+    def turns(fn, work, pairs=2, shares=True, warm=True, memory=False):
+        """Graphed and eager in turns (GE EG GE ...), after a warm run of
+        each: the rate each run reached (work / host seconds) and, graphed,
+        its graph counts (the capture's host seconds among them); with
+        ``shares`` one more profiled run of each for its busy share; with
+        ``memory`` each run's peak device memory over what was allocated
+        before it, and what stayed allocated and reserved after it."""
+        if warm:
+            run(fn, False)
+            run(fn, True)
+        rec = {tag: {"per_s": []} for tag in ("graphed", "eager")}
+        rec["graphed"]["counts"] = []
+        for i in range(pairs):
+            for eager in ((False, True) if i % 2 == 0 else (True, False)):
+                r = rec["eager" if eager else "graphed"]
+                if memory:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                secs, counts = run(fn, eager)
+                r["per_s"].append(work / secs)
+                if not eager:
+                    r["counts"].append(counts)
+                if memory:
+                    for key, v in (("peak_gb", torch.cuda.max_memory_allocated() - base),
+                                   ("allocated_after_gb", torch.cuda.memory_allocated() - base),
+                                   ("reserved_after_gb", torch.cuda.memory_reserved())):
+                        r.setdefault(key, []).append(v / 1e9)
+        if shares:
+            for tag, r in rec.items():
+                r["busy"] = busy(fn, tag == "eager")
+        return rec
+
+    # (1) where a graph made for one call pays: every full block after the
+    # first replayed (MIN_REPLAYS set to 1 here), calls of 2 to 8 blocks
+    breakeven = {}
+    solver.MIN_REPLAYS = 1
+    try:
+        for blocks in (2, 3, 4, 5, 8):
+            c = dataclasses.replace(ref, max_iter=25 * blocks)
+            hc = nt.SolveConfig(max_iter=25 * blocks)
+            for name, fn in ((f"reference float32 {blocks} blocks",
+                              lambda c=c: nt.solve(xr, wr, hr, c, device="cuda")),
+                             (f"ismir h_only {blocks} blocks",
+                              lambda hc=hc: nt.solve_h_only(xi, wi, hi, hc, device="cuda"))):
+                breakeven[name] = turns(fn, 25 * blocks, shares=False)
+    finally:
+        solver.MIN_REPLAYS = rule
+    print(json.dumps({"card": card, "probe": "graph", "part": "breakeven", "min_replays": rule,
+                      "rates": breakeven}), flush=True)
+
+    # (2) each route as a user calls it (the rule as shipped): every solve
+    # makes its graph in the call; a served stream through a warm transform,
+    # and the first call of a fresh one
+    cases = {f"reference {tier}": (200, lambda c=dataclasses.replace(
+        ref, precision=nt.Precision(tier)): nt.solve(xr, wr, hr, c, device="cuda"))
+        for tier in ("float32", "bfloat16", "float32_fast")}
+    cases["ismir h_only"] = (200, lambda: nt.solve_h_only(
+        xi, wi, hi, nt.SolveConfig(max_iter=200), device="cuda"))
+    cases["ismir semi"] = (200, lambda: nt.solve_semi(
+        xi, wi, hi, nt.SolveConfig(max_iter=200), n_frozen=cs.SEMI_FROZEN, device="cuda"))
+    cases["reference masked"] = (200, lambda: nt.solve_masked(
+        xn, wr, hr, mask, nt.SolveConfig(max_iter=200), device="cuda"))
+    cases["separate solve"] = (200, lambda: nt.solve(
+        mag, ws, hs, nt.SolveConfig(max_iter=200, thresh=0.0, check_every=25), device="cuda"))
+    served = nt.load_transform(path)
+    cases["serve"] = (sn, lambda: served(xs))     # a rate in columns/s
+    rates = {name: turns(fn, work) for name, (work, fn) in cases.items()}
+    # a fresh transform's first call, its load (the same both ways) included
+    rates["serve fresh transform"] = turns(lambda: nt.load_transform(path)(xs), sn, shares=False)
+    print(json.dumps({"card": card, "probe": "graph", "part": "routes", "rates": rates}),
+          flush=True)
+
+    # (3) where the device sets the pace: graphed (GRAPH_MAX_WORK lifted)
+    # against eager, 200 iterations, five pairs in turns, with memory:
+    # 4096^2 and 8192^2 at K=128 (float32), below and above GRAPH_MAX_WORK,
+    # and the flagship (10240^2, K=256) in float32 (cuBLAS by rule) and
+    # bfloat16 (K1-K3)
+    fm, fn_, fk, _ = cs.ACCEL_FLAGSHIP
+    sizes = {"4096^2 K=128 float32": (4096, 4096, 128, "float32"),
+             "8192^2 K=128 float32": (8192, 8192, 128, "float32"),
+             "flagship float32": (fm, fn_, fk, "float32"),
+             "flagship bfloat16": (fm, fn_, fk, "bfloat16")}
+    flagship = {}
+    limit = solver.GRAPH_MAX_WORK
+    for name, (sm_, sn_, sk_, tier) in sizes.items():
+        gf = torch.Generator(device="cuda").manual_seed(0)
+        xf, wf, hf = (torch.rand(s, generator=gf, device="cuda")
+                      for s in ((sm_, sn_), (sm_, sk_), (sk_, sn_)))
+        cfg = nt.SolveConfig(max_iter=200, check_every=25, precision=nt.Precision(tier))
+        solver.GRAPH_MAX_WORK = float("inf")
+        try:
+            flagship[name] = turns(lambda c=cfg: nt.solve(xf, wf, hf, c, device="cuda"), 200,
+                                   pairs=5, shares=False, memory=True)
+        finally:
+            solver.GRAPH_MAX_WORK = limit
+        flagship[name]["work"] = sm_ * sn_ * sk_
+        del xf, wf, hf
+    tmp.cleanup()
+    print(json.dumps({"card": card, "probe": "graph", "part": "sizes",
+                      "graph_max_work": limit, "rates": flagship}), flush=True)
+
+
 def sass(cs, card, root):
     import collections
     import re
@@ -255,7 +434,8 @@ def sass(cs, card, root):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass"))
+    ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass",
+                                      "graph"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -277,6 +457,8 @@ def main(argv=None) -> int:
         tiled_mesh(cs, card)
     elif args.probe == "sass":
         sass(cs, card, args.root)
+    elif args.probe == "graph":
+        graph(cs, card)
     else:
         kl(cs, card, args.root)
     return 0
