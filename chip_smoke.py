@@ -153,16 +153,28 @@ phase 17.
    solve, with its rejects (counted on its step and cost calls) and its
    momentum bit for bit; a bitwise rerun; the reject path forced by
    ``initial_cost=0`` (no seed cost, one block redone); it/s of the
-   accelerated, accelerated ``jnp`` and plain kernel solves in turns; the
-   extrapolation's time on W and H (CUDA events) and the device busy share
-   of an accelerated and a plain solve (``torch.profiler``).  (b) The
+   accelerated (graphed and on the eager loop), accelerated ``jnp`` and
+   plain kernel solves in turns; the device busy share of an accelerated
+   (graphed and eager) and a plain solve (``torch.profiler``).  The
+   extrapolation kernel (``csrc/extrapolate.cu``, both factors in one
+   launch) against ``solver.extrapolate`` at the reference's W and H in f32
+   and bf16 state, bit for bit, with controls that skip the FMA or (bf16)
+   truncate, each of which must differ; its time, its plain version's and
+   its bound.  Every graphed accelerated run (the reference in
+   ``float32``, ``bfloat16`` and ``float32_fast``, ``initial_cost=0`` with
+   its redo eager, tests' rejecting run on 96 x 1000, K=12, 5 of 120
+   blocks rejected and their redos replayed, a resumed segment with its
+   carry, ``solve_semi``) is held to the same call on the eager loop bit
+   for bit (w, h, history, counts, momentum), its graph counts the first
+   block eager and the others replayed, one host read a block, and the
+   extrapolation launched once an iteration.  (b) The
    flagship, 50 iterations, ``bfloat16`` and ``float32``: launches, the
    cost against the ``jnp`` accelerated solve (1e-3 / 1e-4), it/s.  (c) The
    tile-sparse solve at 8192^2, K=128, 200 iterations, f32 and ``bfloat16``:
    K5 launched ``iterations + 25 x rejects`` times a sweep, a bitwise
    rerun, the cost against the ``jnp`` tiled accelerated solve.  (d) The
-   streamed solve at the hour of audio, 10 iterations, a check every 5, f32
-   and int8 X: blocks x (iterations + 5 x rejects) launches of K1 and K2
+   streamed solve at the hour of audio, 4 iterations, a check every 2, f32
+   and int8 X: blocks x (iterations + 2 x rejects) launches of K1 and K2
    ``numerator_only``, blocks x (1 + checks + rejects) of K3, the cost
    within 1e-5 of the in-memory accelerated solve, a bitwise rerun, it/s;
 11. families: the beta (2, 0, 0.5, 3), HALS and penalized KL (``l1_h =
@@ -172,7 +184,8 @@ phase 17.
    ops by rule, so 0 launches of K1-K3 and K5 (the counts set to 0 just
    before each); the final cost within ``FAMILY_COST_RTOL`` of the same
    solve on the CPU; a history that does not rise for beta >= 1, HALS and
-   the accelerated solves; a bitwise rerun; it/s; one HALS sweep of H and
+   the accelerated solves; each run's graphs (accelerated too) held to the
+   eager loop bit for bit; it/s; one HALS sweep of H and
    of W timed (CUDA events) and the kernels one HALS iteration launches
    (torch.profiler);
 12. transform: the H-only path at the ISMIR shape 1025 x 4000, K=32 (X
@@ -421,8 +434,12 @@ with phase 14's config-4 call in ``batched``; every kernel its launches on
 phase 15's runs, ``utils_launches``, and on phase 18's mesh solves,
 ``mesh_launches``: K1's and K2's ``numerator_only`` launches, K3's), and on
 phase 19's served calls, ``serve_launches``, and on each section of
-phase 20a's examples, ``examples_launches``; the last line is
-``{"ok": true, "device": {...}}``.
+phase 20a's examples, ``examples_launches``; after them the extrapolation
+kernel of the graphed accelerated loop: its main path is phase 10a's
+accelerated reference solve, ``replaces`` names the JAX loop's
+XLA-fused ``_extrap`` (no ``pallas_call``), its times are a CUDA graph's
+of ten calls (``graph_ms``) and ``modes`` holds f32's and bf16's); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -493,6 +510,11 @@ KERNELS = [
     ("h_numerator", "nmf_tpu/ops/pallas/tile_sparse.py:122", "nmf_tpu_torch/csrc/tile_sparse.cu"),
     ("w_numerator", "nmf_tpu/ops/pallas/tile_sparse.py:122", "nmf_tpu_torch/csrc/tile_sparse.cu"),
 ]
+# the accelerated loop's extrapolation: it replaces no pallas_call but the
+# JAX loop's elementwise _extrap, which XLA fuses; its main path is phase
+# 10a's graphed accelerated reference solve
+EXTRAP_KERNEL = ("extrapolate", "nmf_tpu/models/solver.py:557",
+                 "nmf_tpu_torch/csrc/extrapolate.cu")
 # Published peaks of one H100 SXM at 700 W (dense): f32 on the SIMT units,
 # bf16 on the tensor cores, and the HBM rate.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -606,6 +628,23 @@ def timed_pair(kern, plain, samples=SAMPLES, calls=CALLS):
     k2 = event_ms(kern, samples, calls)
     p2 = event_ms(plain, samples, calls)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def graph_ms(fn, calls=CALLS) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured as one
+    CUDA graph (after a warm call on the capture's stream) and its replay
+    timed by :func:`event_ms`, so no host launch sits between them: the
+    time a call takes inside the solve's graphs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return event_ms(graph.replay, calls=1) / calls
 
 
 def _kernel_label(mangled):
@@ -2404,6 +2443,12 @@ def phase_oocore(card, tmp, out, seed):
 # reference shape, the flagship, the tile-sparse solve and the streamed one.
 ACCEL_ITERS = 200
 ACCEL_FLAGSHIP = (10240, 10240, 256, 50)   # M, N, K, iterations (phase 7's)
+# 10d's streamed solves: 4 iterations, a check every 2 (phase 9b's 10 and
+# 5 until a run of all phases read 1061.6 s on an H100 at 700 W; the int8
+# runs' host quantizer takes most of 10d either way); the first block
+# rejects at this depth, so the streamed redo runs on the card under the
+# launch gate
+ACCEL_OOC_ITERS, ACCEL_OOC_CHECK = 4, 2
 
 
 def _calls(fn, module, names):
@@ -2465,15 +2510,21 @@ def _same_bits(a, b, where):
               f"{where}: {f} differs on a rerun")
 
 
-def _counted_accel(x, w, h, cfg, where, **kw):
-    """(result, seconds, launches, rejects) of one accelerated solve through
-    K1-K3, the counts set to 0 just before; the launches match the rejects
-    and no call took the plain ops."""
+def _counted_accel(x, w, h, cfg, where, solve=None, **kw):
+    """(result, seconds, launches, rejects, graph counts) of one
+    accelerated solve through K1-K3, the counts set to 0 just before; the
+    launches match the rejects and no call took the plain ops.  A graphed
+    run launched the extrapolation kernel once an iteration (the eager
+    loop: never); ``launches`` lists it under ``extrapolate``.  ``solve``
+    (default ``nt.solve``) is called as ``solve(x, w, h, cfg, device=...,
+    **kw)``."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.ops.kernels import fused_mu
 
+    solve = nt.solve if solve is None else solve
     fused_mu.reset_counts()
-    res, secs = _timed(lambda: nt.solve(x, w, h, cfg, device="cuda", **kw))
+    (res, secs), graphs = _graph_run(
+        lambda: _timed(lambda: solve(x, w, h, cfg, device="cuda", **kw)))
     launches = dict(fused_mu.LAUNCHES)
     chunk = cfg.check_every
     seeded = "initial_cost" not in kw
@@ -2484,27 +2535,162 @@ def _counted_accel(x, w, h, cfg, where, **kw):
                      kl_cost=int(seeded) + int(res.num_checks) + rejects)
     check(launches == want and not any(fused_mu.PLAIN_CALLS.values()),
           f"{where}: launches {launches}, plain calls {fused_mu.PLAIN_CALLS}, expected {want}")
-    return res, secs, launches, rejects
+    extrap = fused_mu.EXTRAP_LAUNCHES["extrapolate"]
+    check(extrap == (int(res.iterations) if graphs["warm_ups"] else 0),
+          f"{where}: {extrap} extrapolation launches, graphs {graphs}")
+    return res, secs, {**launches, "extrapolate": extrap}, rejects, graphs
 
 
 def _plain_accel(x, w, h, cfg, where, **kw):
     """(result, seconds, rejects) of the same accelerated solve on the plain
-    ops (``backend="jnp"``), its rejects read from its step and cost calls."""
+    ops (``backend="jnp"``), its rejects read from its step and cost calls:
+    on the eager loop, whose every step is a call (a graph's replay calls
+    nothing)."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.models import solver
 
     (res, secs), calls = _calls(
-        lambda: _timed(lambda: nt.solve(x, w, h, dataclasses.replace(cfg, backend="jnp"),
-                                        device="cuda", **kw)),
+        lambda: _timed(lambda: _eager(lambda: nt.solve(
+            x, w, h, dataclasses.replace(cfg, backend="jnp"), device="cuda", **kw))),
         solver, ("mu_step", "kl_divergence"))
     rejects = _rejects(calls["mu_step"], calls["kl_divergence"], res, cfg.check_every,
                        f"{where} jnp", seeded="initial_cost" not in kw)
     return res, secs, rejects
 
 
+# phase 10a's mid-run rejects: tests/test_torch_accel.py's REJECTING run on
+# its 96 x 1000, K=12 problem (seed 29): 5 of 120 one-iteration blocks
+# rejected, so the redo's graphs replay
+ACCEL_REJECTING = dict(max_iter=120, check_every=1, accelerate=True, accel_momentum=0.999,
+                       accel_momentum_max=0.999, accel_grow=1.0, accel_shrink=1.0)
+ACCEL_REJECTS = 5
+# the extrapolation kernel's gate: the reference's W and H, shapes whose
+# element counts leave part of a 16-byte unit, and those again at an
+# offset of one element (no 16-byte access at all); a momentum whose
+# products the FMA rounds differently from a multiply and an add
+EXTRAP_SHAPES = ((4096, 128), (128, 350))
+EXTRAP_RAGGED = ((37, 13), (13, 41))
+EXTRAP_MOMENTUM = 0.8144469857215881
+
+
+def _hold_accel(out, where, res, graphs, eager, blocks, redo=(0, 0)):
+    """:func:`_hold_graphed` for an accelerated run (momentum among the
+    fields), and its host reads: one a block (thresh 0, no live metrics),
+    rejected blocks' redos ``redo`` = (eager, replayed)."""
+    _hold_graphed(out, where, res, graphs, eager, blocks=blocks)
+    check(graphs["reads"] == int(res.num_checks)
+          and (graphs["redo_eager"], graphs["redo_replays"]) == redo,
+          f"{where}: graphs {graphs}, expected {int(res.num_checks)} host reads and redos "
+          f"(eager, replayed) {redo}")
+
+
+def _extrap_operands(shape, dtype, rng, offset=0):
+    """(new, old) of one factor: uniform, with entries the step took near or
+    below eps and old values above the new ones (the clamp's cases); each
+    ``offset`` elements into its allocation."""
+    new = rng.rand(*shape).astype(np.float32)
+    old = rng.rand(*shape).astype(np.float32)
+    new.flat[:4], old.flat[:4] = [1e-30, 3e-16, 1.0, 2.0], [1.0, 1e-16, 0.5, 9.0]
+    return tuple(_at_offset(torch.from_numpy(a).cuda().to(dtype), offset) for a in (new, old))
+
+
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` starting ``offset`` elements into its
+    allocation."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _check_extrapolation(card, out):
+    """The extrapolation kernel (``fused_mu.extrapolate_into``, both
+    factors in one launch) against its plain version, ``solver.extrapolate``
+    on each factor with the momentum on the host and the iterate copied, in
+    f32 and bf16 state: at the reference's W and H (16-byte units), at
+    ragged shapes (a unit's tail element by element) and those at an
+    offset of one element (every element alone), bit for bit, with a
+    control that skips the FMA (a multiply and an add) and, in bf16, one
+    that truncates instead of rounding, each of which the check rejects;
+    times (``graph_ms``, plain and kernel in turns) and bound at the
+    reference's shapes, f32 the main path's."""
+    from nmf_tpu_torch.models.solver import extrapolate
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    rng = np.random.RandomState(23)
+    st = out["kernels"]["extrapolate"]
+    m = torch.tensor(EXTRAP_MOMENTUM, dtype=torch.float32, device="cuda")
+    mf = float(np.float32(EXTRAP_MOMENTUM))
+    cases = (("reference", EXTRAP_SHAPES, 0), ("ragged", EXTRAP_RAGGED, 0),
+             ("ragged offset 1", EXTRAP_RAGGED, 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, shapes, offset in cases:
+            (wn, wo), (hn, ho) = (_extrap_operands(s, dtype, rng, offset) for s in shapes)
+            where = f"extrapolate {dtype} {case}: W {tuple(wn.shape)} H {tuple(hn.shape)}"
+            refs = [extrapolate(n, o, mf, EPS) for n, o in ((wn, wo), (hn, ho))]
+            outs = []
+            for _ in range(2):      # and a bitwise rerun
+                wp, hp = _at_offset(wo, offset), _at_offset(ho, offset)
+                we, he = _at_offset(wn, offset), _at_offset(hn, offset)
+                fused_mu.extrapolate_into(((wn, wp, we), (hn, hp, he)), m, EPS)
+                torch.cuda.synchronize()
+                check(torch.equal(wp, wn) and torch.equal(hp, hn),
+                      f"{where}: the iterate not copied")
+                outs.append((we, he))
+            # one pair, its next the carry itself (an H-only step's W)
+            shared, prev = _at_offset(wn, offset), _at_offset(wo, offset)
+            fused_mu.extrapolate_into(((shared, prev, shared),), m, EPS)
+            check(torch.equal(_bits(shared), _bits(refs[0])) and torch.equal(prev, wn),
+                  f"{where}: wrong where the carry is the new iterate's tensor")
+            err = 0.0
+            skipped_fma, truncated = 0, 0
+            for (n, o), got, again, ref in zip(((wn, wo), (hn, ho)), outs[0], outs[1], refs):
+                check(torch.equal(_bits(got), _bits(again)), f"{where}: a rerun differs")
+                err = max(err, float((got.float() - ref.float()).abs().max()))
+                check(torch.equal(_bits(got), _bits(ref)), f"{where}: not extrapolate's bits "
+                      f"(max abs err {err})")
+                n32 = n.float()
+                e32 = (n32 + (n32 - o.float()) * m).clamp_min(EPS)
+                skipped_fma += int((_bits(e32.to(dtype)) != _bits(ref)).sum())
+                exact = torch.addcmul(n32, n32 - o.float(), m).clamp_min(EPS)
+                if dtype == torch.bfloat16:
+                    cut = (exact.view(torch.int32) & -65536).view(torch.float32).to(dtype)
+                    truncated += int((_bits(cut) != _bits(ref)).sum())
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            print(f"[{card}] {where}: extrapolate's bits (a rerun too), the iterate copied; "
+                  f"controls: {skipped_fma} entries differ without the FMA, {truncated} "
+                  "truncated")
+            if case != "reference":
+                continue
+            check(skipped_fma > 0 and (dtype == torch.float32 or truncated > 0),
+                  f"{where}: a control without the FMA ({skipped_fma} entries differ) or the "
+                  f"rounding ({truncated}) would pass the check")
+            pairs = ((wn, wo.clone(), torch.empty_like(wn)),
+                     (hn, ho.clone(), torch.empty_like(hn)))
+
+            def kern():
+                fused_mu.extrapolate_into(pairs, m, EPS)
+
+            def plain():
+                for nxt, prev, ex in pairs:
+                    ex.copy_(extrapolate(nxt, prev, mf, EPS))
+                    prev.copy_(nxt)
+
+            # in turns, each as a graph of calls (the solve replays it so)
+            p1, k1, k2, p2 = (graph_ms(f) for f in (plain, kern, kern, plain))
+            kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+            elems = wn.numel() + hn.numel()
+            b_ms, b_by = bound(3 * elems, 4 * elems * wn.element_size())
+            st["modes"][str(dtype)[6:]] = {"ms": kms, "plain_ms": pms, "bound_ms": b_ms,
+                                           "bound_by": b_by}
+            if dtype == torch.float32:
+                st.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+            print(f"[{card}] {where}: kernel {kms} ms (both factors, one launch), plain {pms} "
+                  f"ms (two extrapolates, two copies), bound {b_ms} ms ({b_by})")
+
+
 def phase_accel_reference(card, out):
     import nmf_tpu_torch as nt
-    from nmf_tpu_torch.models.solver import extrapolate
 
     fx = nt.fixtures
     x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
@@ -2513,12 +2699,14 @@ def phase_accel_reference(card, out):
     checks = ACCEL_ITERS // cfg.check_every
     print(f"[{card}] phase 10a: accelerated reference solve 4096x350, K=128, {ACCEL_ITERS} "
           "iterations, float32, a check every 25")
+    _check_extrapolation(card, out)
     for c in (cfg, dataclasses.replace(cfg, backend="jnp"), plain_cfg):   # warm each path
         nt.solve(x, w, h, dataclasses.replace(c, max_iter=2), device="cuda")
     where = "accel reference"
-    res, secs, launches, rejects = _counted_accel(x, w, h, cfg, where)
+    res, secs, launches, rejects, graphs = _counted_accel(x, w, h, cfg, where)
     out["launches"][where] = launches
     hist = _accel_history(res, where, checks)
+    _hold_accel(out, where, res, graphs, lambda: nt.solve(x, w, h, cfg, device="cuda"), checks)
     _same_bits(res, nt.solve(x, w, h, cfg, device="cuda"), where)
     jres, j_secs, j_rejects = _plain_accel(x, w, h, cfg, where)
     cost, j_cost = float(res.cost), float(jres.cost)
@@ -2532,34 +2720,41 @@ def phase_accel_reference(card, out):
     check(cost <= p_cost, f"{where}: cost {cost} above the plain kernel solve's {p_cost}")
     reach = int(np.argmax(hist <= p_cost)) if bool(np.any(hist <= p_cost)) else None
     reach_its = None if reach is None else (reach + 1) * cfg.check_every
-    # it/s in turns: accelerated through K1-K3, accelerated plain, plain
-    # through K1-K3, twice
-    its = {"accel": [], "accel_jnp": [], "plain": []}
+    # it/s in turns: accelerated through K1-K3 (graphed, then on the eager
+    # loop), accelerated plain, plain through K1-K3 (graphed), twice
+    runs = (("accel", cfg, False), ("accel_eager", cfg, True),
+            ("accel_jnp", dataclasses.replace(cfg, backend="jnp"), False),
+            ("plain", plain_cfg, False))
+    its = {key: [] for key, _, _ in runs}
     for _ in range(2):
-        for key, c in (("accel", cfg), ("accel_jnp", dataclasses.replace(cfg, backend="jnp")),
-                       ("plain", plain_cfg)):
-            its[key].append(ACCEL_ITERS / _timed(lambda: nt.solve(x, w, h, c, device="cuda"))[1])
+        for key, c, eager in runs:
+            fn = lambda c=c: nt.solve(x, w, h, c, device="cuda")  # noqa: E731
+            its[key].append(ACCEL_ITERS / _timed(lambda: _eager(fn) if eager else fn())[1])
     # the reject path on the card: a baseline below any cost rejects the
-    # first block, redone with K1/K2 from its start (no seed cost)
-    fres, _, f_launches, f_rejects = _counted_accel(x, w, h, cfg, f"{where} initial_cost=0",
-                                                    initial_cost=0.0)
+    # first block, redone with K1/K2 from its start (no seed cost), eagerly:
+    # the first block runs before any capture
+    fres, _, f_launches, f_rejects, f_graphs = _counted_accel(
+        x, w, h, cfg, f"{where} initial_cost=0", initial_cost=0.0)
     check(f_rejects >= 1, f"{where} initial_cost=0: no block rejected")
+    _hold_accel(out, f"{where} initial_cost=0", fres, f_graphs,
+                lambda: nt.solve(x, w, h, cfg, device="cuda", initial_cost=0.0), checks,
+                redo=(1, 0))
     fj, _, fj_rejects = _plain_accel(x, w, h, cfg, f"{where} initial_cost=0", initial_cost=0.0)
     f_rel = abs(float(fres.cost) - float(fj.cost)) / abs(float(fj.cost))
     check(fj_rejects == f_rejects and f_rel <= 1e-4
           and torch.equal(_bits(fres.momentum), _bits(fj.momentum)),
           f"{where} initial_cost=0: rejects {f_rejects} / jnp {fj_rejects}, rel {f_rel}")
-    # the extrapolation's own cost: its elementwise passes on W and H
-    m = np.float32(res.momentum.item())
-    w_ms = event_ms(lambda: extrapolate(res.w, pres.w, m, EPS))
-    h_ms = event_ms(lambda: extrapolate(res.h, pres.h, m, EPS))
-    # device busy share of one accelerated and one plain solve
+    graphed = _accel_graphed_runs(card, out, x, w, h, cfg)
+    # device busy share of one accelerated (graphed and eager) and one
+    # plain solve
     from torch.profiler import ProfilerActivity, profile
 
     shares = {}
-    for key, c in (("accel", cfg), ("plain", plain_cfg)):
+    for key, c, eager in (("accel", cfg, False), ("accel_eager", cfg, True),
+                          ("plain", plain_cfg, False)):
+        fn = lambda c=c: nt.solve(x, w, h, c, device="cuda")  # noqa: E731
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, s = _timed(lambda: nt.solve(x, w, h, c, device="cuda"))
+            _, s = _timed(lambda: _eager(fn) if eager else fn())
         with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
             trace = os.path.join(d, "trace.json")
             prof.export_chrome_trace(trace)
@@ -2568,22 +2763,83 @@ def phase_accel_reference(card, out):
     out["accel"]["reference"] = {
         "rejects": rejects, "momentum": float(res.momentum), "cost": cost, "jnp_cost": j_cost,
         "plain_cost": p_cost, "reach_plain_cost_its": reach_its, "its": its,
-        "extrap_ms": {"w": w_ms, "h": h_ms}, "profile": shares}
-    print(f"[{card}] {where}: launches {launches} ({rejects} rejects), cost {cost}, history "
-          f"{hist.tolist()}, momentum {float(res.momentum)}, bitwise on rerun; jnp accelerated "
-          f"cost {j_cost} (rel {rel}, limit 1e-4, {j_rejects} rejects, momentum bit-equal); plain "
-          f"kernel solve cost {p_cost}, reached by the accelerated history at iteration "
-          f"{reach_its}; it/s accelerated {its['accel']}, accelerated jnp {its['accel_jnp']}, "
-          f"plain kernels {its['plain']} (first timed runs {ACCEL_ITERS / secs}, "
-          f"{ACCEL_ITERS / j_secs}, {ACCEL_ITERS / p_secs})")
-    print(f"[{card}] {where} initial_cost=0: launches {f_launches} ({f_rejects} reject), "
-          f"cost {float(fres.cost)} (jnp {float(fj.cost)}, rel {f_rel}), momentum "
-          f"{float(fres.momentum)} bit-equal to jnp's")
-    print(f"[{card}] {where}: extrapolation {w_ms} ms on W (4096x128), {h_ms} ms on H (128x350) "
-          f"a call (CUDA events); profiled: accelerated busy {shares['accel']['busy']} "
+        "graphs": graphs, "graphed_runs": graphed, "profile": shares}
+    print(f"[{card}] {where}: launches {launches} ({rejects} rejects), graphs {graphs}, cost "
+          f"{cost}, history {hist.tolist()}, momentum {float(res.momentum)}, the eager loop's "
+          f"bits, bitwise on rerun; jnp accelerated cost {j_cost} (rel {rel}, limit 1e-4, "
+          f"{j_rejects} rejects, momentum bit-equal); plain kernel solve cost {p_cost}, reached "
+          f"by the accelerated history at iteration {reach_its}; it/s accelerated {its['accel']}, "
+          f"on the eager loop {its['accel_eager']}, accelerated jnp {its['accel_jnp']}, plain "
+          f"kernels {its['plain']} (first timed runs {ACCEL_ITERS / secs}, "
+          f"{ACCEL_ITERS / j_secs} jnp eager, {ACCEL_ITERS / p_secs})")
+    print(f"[{card}] {where} initial_cost=0: launches {f_launches} ({f_rejects} reject, its redo "
+          f"eager), graphs {f_graphs}, the eager loop's bits, cost {float(fres.cost)} (jnp "
+          f"{float(fj.cost)}, rel {f_rel}), momentum {float(fres.momentum)} bit-equal to jnp's")
+    print(f"[{card}] {where}: profiled: accelerated busy {shares['accel']['busy']} "
           f"({shares['accel']['kernels_ms']} ms of kernels in {shares['accel']['wall_ms']} ms), "
-          f"plain busy {shares['plain']['busy']} ({shares['plain']['kernels_ms']} ms in "
+          f"on the eager loop {shares['accel_eager']['busy']}, plain busy "
+          f"{shares['plain']['busy']} ({shares['plain']['kernels_ms']} ms in "
           f"{shares['plain']['wall_ms']} ms)")
+
+
+def _accel_graphed_runs(card, out, x, w, h, cfg):
+    """The graphed accelerated loop held to the eager loop bit for bit on
+    its other routes: the reference under ``bfloat16`` and
+    ``float32_fast``, a run that rejects mid-run (its redo's graphs
+    replay), a resumed segment (its carry too) and ``solve_semi``; each
+    with the launches it must make.  Returns each run's graph counts."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.utils.convert import accel_state_from
+
+    checks = ACCEL_ITERS // cfg.check_every
+    done = {}
+    for pol in ("bfloat16", "float32_fast"):
+        c = dataclasses.replace(cfg, precision=nt.Precision(pol))
+        where = f"accel reference {pol}"
+        nt.solve(x, w, h, dataclasses.replace(c, max_iter=2), device="cuda")
+        res, _, launches, rejects, graphs = _counted_accel(x, w, h, c, where)
+        out["launches"][where] = launches
+        _accel_history(res, where, checks)
+        _hold_accel(out, where, res, graphs, lambda c=c: nt.solve(x, w, h, c, device="cuda"),
+                    checks)
+        done[pol] = {"graphs": graphs, "rejects": rejects, "momentum": float(res.momentum)}
+    # mid-run rejects
+    rng = np.random.RandomState(29)
+    xr, wr, hr = (rng.rand(*s).astype(np.float32) for s in ((96, 1000), (96, 12), (12, 1000)))
+    c = nt.SolveConfig(backend="pallas", **ACCEL_REJECTING)
+    where = "accel rejecting"
+    res, _, launches, rejects, graphs = _counted_accel(xr, wr, hr, c, where)
+    out["launches"][where] = launches
+    check(rejects == ACCEL_REJECTS, f"{where}: {rejects} rejects, expected {ACCEL_REJECTS}")
+    _accel_history(res, where, c.max_iter)
+    _hold_accel(out, where, res, graphs, lambda: nt.solve(xr, wr, hr, c, device="cuda"),
+                c.max_iter, redo=(0, ACCEL_REJECTS))
+    done["rejecting"] = {"graphs": graphs, "rejects": rejects, "launches": launches}
+    # a resumed segment: the second of two, its carry held too
+    half = dataclasses.replace(cfg, max_iter=ACCEL_ITERS // 2)
+    first = nt.solve(x, w, h, half, device="cuda", initial_extrap=(w, h))
+    mom, extrap = accel_state_from(first, device="cuda")
+    kw = dict(clamp_inputs=False, initial_cost=float(first.cost), initial_momentum=mom,
+              initial_extrap=extrap)
+    where = "accel segment"
+    res, _, launches, rejects, graphs = _counted_accel(x, first.w, first.h, half, where, **kw)
+    eager = _eager(lambda: nt.solve(x, first.w, first.h, half, device="cuda", **kw))
+    _hold_accel(out, where, res, graphs, eager, checks // 2)
+    for f in ("w_ex", "h_ex"):
+        check(torch.equal(_bits(getattr(res, f)), _bits(getattr(eager, f))),
+              f"{where}: {f} of the graphed loop differs from the eager loop's")
+    done["segment"] = {"graphs": graphs, "rejects": rejects}
+    # solve_semi: the step puts the frozen columns back
+    where = "accel semi"
+    res, _, launches, rejects, graphs = _counted_accel(
+        x, w, h, cfg, where, solve=lambda *a, **k: nt.solve_semi(*a, n_frozen=SEMI_FROZEN, **k))
+    _hold_accel(out, where, res, graphs,
+                lambda: nt.solve_semi(x, w, h, cfg, n_frozen=SEMI_FROZEN, device="cuda"), checks)
+    done["semi"] = {"graphs": graphs, "rejects": rejects}
+    print(f"[{card}] phase 10a graphed routes, each the eager loop's bits (w, h, history, "
+          f"counts, momentum; the segment's carry), one host read a block: "
+          f"{json.dumps(done)}")
+    return done
 
 
 def phase_accel_flagship(card, out):
@@ -2601,7 +2857,7 @@ def phase_accel_flagship(card, out):
         for backend in ("pallas", "jnp"):
             nt.solve(x, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2), device="cuda")
         where = f"accel flagship {dtype}"
-        res, secs, launches, rejects = _counted_accel(x, w, h, cfg, where)
+        res, secs, launches, rejects, _ = _counted_accel(x, w, h, cfg, where)
         out["launches"][where] = launches
         hist = _accel_history(res, where, iters // 25)
         jres, j_secs, j_rejects = _plain_accel(x, w, h, cfg, where)
@@ -2678,10 +2934,10 @@ def phase_accel_oocore(card, out, seed):
     x = xd.cpu().numpy()
     del xd
     blocks = -(-n // nt.pick_block_n(m, n))
-    cfg = nt.SolveConfig(max_iter=OOC_ITERS, check_every=OOC_CHECK, accelerate=True,
+    cfg = nt.SolveConfig(max_iter=ACCEL_OOC_ITERS, check_every=ACCEL_OOC_CHECK, accelerate=True,
                          backend="pallas")
     print(f"[{card}] phase 10d: accelerated streamed solve {m}x{n}, K={k}, {blocks} blocks, "
-          f"{OOC_ITERS} iterations, a check every {OOC_CHECK}")
+          f"{ACCEL_OOC_ITERS} iterations, a check every {ACCEL_OOC_CHECK}")
     for xdt in ("float32", "int8"):
         c = dataclasses.replace(cfg, precision=nt.Precision(x_dtype=xdt))
         mem, mem_secs = _timed(lambda: nt.solve(x, w, h, c, device="cuda"))
@@ -2691,15 +2947,15 @@ def phase_accel_oocore(card, out, seed):
         torch.cuda.empty_cache()
         where = f"accel oocore {xdt}"
         res, secs, launches, plain_calls = _ooc_solve(x, w, h, c)
-        rejects = _rejects(launches["update_h"], launches["kl_cost"], res, OOC_CHECK, where,
-                           blocks=blocks)
-        steps = blocks * (OOC_ITERS + OOC_CHECK * rejects)
+        rejects = _rejects(launches["update_h"], launches["kl_cost"], res, ACCEL_OOC_CHECK,
+                           where, blocks=blocks)
+        steps = blocks * (ACCEL_OOC_ITERS + ACCEL_OOC_CHECK * rejects)
         want = _launches(update_h=steps, update_w_numerator=steps,
                          kl_cost=blocks * (1 + int(res.num_checks) + rejects))
         check(launches == want and not any(plain_calls.values()),
               f"{where}: launches {launches} (expected {want}), plain calls {plain_calls}")
         out["launches"][where] = launches
-        hist = _accel_history(res, where, OOC_ITERS // OOC_CHECK)
+        hist = _accel_history(res, where, ACCEL_OOC_ITERS // ACCEL_OOC_CHECK)
         cost = float(res.cost)
         rel = abs(cost - mem_cost) / abs(mem_cost)
         check(rel <= 1e-5, f"{where}: cost {cost} vs the in-memory accelerated solve {mem_cost}: "
@@ -2709,12 +2965,13 @@ def phase_accel_oocore(card, out, seed):
             check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
                   f"{where}: {f} differs on a rerun")
         out["accel"][f"oocore {xdt}"] = {"rejects": rejects, "cost": cost, "rel_vs_memory": rel,
-                                        "its": [OOC_ITERS / secs, OOC_ITERS / secs2]}
+                                        "its": [ACCEL_OOC_ITERS / secs, ACCEL_OOC_ITERS / secs2]}
         print(f"[{card}] {where}: launches {launches} ({rejects} rejects), cost {cost}, history "
               f"{hist.tolist()}, momentum {float(res.momentum)}; in-memory accelerated solve "
-              f"cost {mem_cost} (rel {rel}, limit 1e-5; momentum {mem_mom}; {OOC_ITERS / mem_secs} "
-              f"it/s incl. its upload); byte-identical on rerun; {OOC_ITERS / secs} and "
-              f"{OOC_ITERS / secs2} it/s")
+              f"cost {mem_cost} (rel {rel}, limit 1e-5; momentum {mem_mom}; "
+              f"{ACCEL_OOC_ITERS / mem_secs} it/s incl. its upload); byte-identical on rerun; "
+              f"{ACCEL_OOC_ITERS / secs} and "
+              f"{ACCEL_OOC_ITERS / secs2} it/s")
         del res, res2
         gc.collect()
         torch.cuda.empty_cache()
@@ -2783,17 +3040,19 @@ def _reset_all():
 # The check-block graphs (models/solver.py): every single-device plain loop
 # replays its full-length check blocks as a CUDA graph, and each route is
 # held to the eager loop bit for bit.
-GRAPH_FIELDS = ("w", "h", "cost_history", "iterations", "num_checks")
+GRAPH_FIELDS = ("w", "h", "cost_history", "iterations", "num_checks", "momentum")
 
 
 def _graph_run(fn):
-    """(fn(), {"warm_ups", "captures", "replays"} of the check-block graphs
-    it ran), the graph counts set to 0 just before."""
+    """(fn(), the counts of the check-block graphs it ran: "warm_ups",
+    "captures", "replays", "capture_s", and the accelerated loop's
+    "redo_eager", "redo_replays" and host "reads"), the counts set to 0
+    just before."""
     from nmf_tpu_torch.models import solver
 
     solver.reset_graph_counts()
     res = fn()
-    return res, dict(solver.GRAPH_COUNTS)
+    return res, {**solver.GRAPH_COUNTS, **solver.ACCEL_COUNTS}
 
 
 def _eager(fn):
@@ -2874,8 +3133,7 @@ def phase_families(card, out):
         for f in ("w", "h", "cost_history"):
             check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
                   f"{where}: {f} differs on a rerun")
-        if not cfg.accelerate:      # the accelerated loop stays eager
-            _hold_graphed(out, where, res, graphs, res2, blocks=cfg.num_checks)
+        _hold_graphed(out, where, res, graphs, res2, blocks=cfg.num_checks)
         t0 = time.perf_counter()
         cpu = nt.solve(x, w, h, cfg, device="cpu")
         cpu_secs = time.perf_counter() - t0
@@ -6844,7 +7102,7 @@ def main(argv=None) -> int:
 
     out = {
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
-                    for name, _, _ in KERNELS},
+                    for name, _, _ in (*KERNELS, EXTRAP_KERNEL)},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
         "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
         "sparse": {}, "backend": {}, "mesh": {}, "serving": {}, "examples": {}, "graphs": {},
@@ -6966,6 +7224,25 @@ def main(argv=None) -> int:
                 "batched": st["batched"]}
                if name in ("update_h", "update_w", "kl_cost") else {}),
         })
+    name, replaces, source = EXTRAP_KERNEL
+    st = out["kernels"][name]
+    kernels.append({
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "replaces_pallas_call": False,
+        "launches": out["launches"]["accel reference"][name],
+        "max_abs_err": st["max_abs_err"],
+        "ms": st["ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"],
+        "library_ms": None,
+        # f32 and bf16 state, both factors of the reference in one launch
+        "modes": st["modes"],
+        "accel_launches": _accel_launches(out["launches"], name),
+    })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
     print(f"[{card}] accel summary: {json.dumps(out['accel'])}")
     print(f"[{card}] families summary: {json.dumps(out['families'])}")

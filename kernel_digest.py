@@ -11,7 +11,9 @@ this file (its shapes, modes and operands, its plain-version checks; no
 timing), importing ``nmf_tpu_torch`` and building its kernels from PATH,
 and records the SHA-256 of every kernel result by the check that computed
 it; then K1-K3 once at the 10240^2 K=256 flagship under each GEMM
-policy (phase 7's operands).  Two trees give equal digests exactly where
+policy (phase 7's operands), and the extrapolation kernel at phase 10a's
+gate (each carry it wrote; a tree without it records none: compare with
+``--changed extrapolate``).  Two trees give equal digests exactly where
 their kernels give equal bits.  ``--compare`` counts equal, differing and
 unmatched checks per kernel (the kernel named in each check); with
 ``--changed``, only the kernels named there may differ or be unmatched.
@@ -64,6 +66,7 @@ def digest(root: pathlib.Path) -> dict:
 
     smoke._run_pair = recording_pair
     smoke.timed_pair = lambda *a, **k: (0.0, 0.0)
+    smoke.graph_ms = lambda *a, **k: 0.0
     card = smoke.card_name_and_limit()
     out = {"kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
                        for name, _, _ in smoke.KERNELS}}
@@ -78,10 +81,24 @@ def digest(root: pathlib.Path) -> dict:
         for name, (kern, _) in smoke._pairs(nt.Precision(dtype)).items():
             record(f"flagship {name} [{dtype}]", kern(w, h, x))
     torch.cuda.synchronize()
+    if hasattr(smoke, "_check_extrapolation"):
+        from nmf_tpu_torch.ops.kernels import fused_mu
+
+        extrapolate_into = fused_mu.extrapolate_into
+
+        def recording_extrapolate(pairs, m, eps):
+            extrapolate_into(pairs, m, eps)
+            for i, (_, _, ex) in enumerate(pairs):
+                record(f"extrapolate {ex.dtype} {tuple(ex.shape)} pair {i}", ex)
+
+        fused_mu.extrapolate_into = recording_extrapolate
+        out["kernels"]["extrapolate"] = {"max_abs_err": 0.0, "modes": {}}
+        smoke._check_extrapolation(card, out)
+        fused_mu.extrapolate_into = extrapolate_into
     return {"card": card, "digests": digests}
 
 
-KERNEL_NAMES = ("update_h", "update_w", "kl_cost", "h_numerator", "w_numerator")
+KERNEL_NAMES = ("update_h", "update_w", "kl_cost", "h_numerator", "w_numerator", "extrapolate")
 
 
 def kernel_of(check):

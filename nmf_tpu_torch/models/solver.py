@@ -24,16 +24,25 @@ every device value on the device:
   its graphs across calls in a :class:`GraphCache` of its own, freed with
   it.  A replay runs no wrapper, so it adds the launches its capture
   recorded (``fused_mu.add_counts``).  The tail block, the CPU, the
-  accelerated, sharded, batched, streamed, tiled and COO loops run
-  eagerly; a failed capture or replay raises;
+  sharded, batched, streamed, tiled and COO loops run eagerly; a failed
+  capture or replay raises;
 * with ``thresh == 0`` nothing is read back until the run ends, so exactly
   ``max_iter`` iterations run (nmf.cu:11); with ``thresh > 0`` one scalar
   is read per check to decide whether to stop (JAX stops on the device).
 
-``accelerate=True`` runs the safeguarded Nesterov loop
-(:func:`_run_accel_loop`).  Its accept/reject decision is made on the host:
-one cost is read back per check block (two on a rejected block), so under
-``accelerate`` even ``thresh == 0`` syncs once a block.
+``accelerate=True`` runs the safeguarded Nesterov loop.  JAX decides its
+accept or reject on the device (``lax.cond``); here the host decides, on
+one read a check block, so under ``accelerate`` even ``thresh == 0`` syncs
+once a block.  On the graphed route (the rule above, one device, CUDA)
+the full blocks replay CUDA graphs (:class:`_AccelGraph`): the momentum
+is a device scalar, and the accept test, the momentum's grow or shrink,
+the history write and the relative change run on the device; the host
+reads one small vector a block (accepted, cost, relative change) and
+replays the redo's graphs only on a reject, with a second read after the
+redo where ``thresh > 0`` or ``live_metrics`` needs its cost.  The eager
+:func:`_run_accel_loop` (the CPU, a mesh, ``graphs=False``, the tiled and
+streamed loops, below the rule) reads each block's cost, two on a reject;
+the two give the same bits.
 
 ``live_metrics=True`` calls :func:`~nmf_tpu_torch.utils.metrics.emit_live`
 at each check with ``(iteration, cost, rel_change)``, the values of JAX's
@@ -234,6 +243,11 @@ def check_block(x, w, h, cost, hist, idx, step_fn: StepFn, cost_fn: CostFn, chun
 # eagerly before a capture, graphs captured, graphs replayed, and the host
 # seconds the captures took (chip_smoke.py and probe_timings.py read them).
 GRAPH_COUNTS: Dict[str, float] = {"warm_ups": 0, "captures": 0, "replays": 0, "capture_s": 0.0}
+# The graphed accelerated loop's own: rejected full blocks redone eagerly
+# (before the redo's graphs exist) and replayed, and the host's reads of
+# the card (``_host_read``: one a block, one more after a redo where the
+# stop test or live metrics need the redo's cost).
+ACCEL_COUNTS: Dict[str, int] = {"redo_eager": 0, "redo_replays": 0, "reads": 0}
 
 # A graph made for one call is made only where it will replay at least this
 # many of the call's full blocks (its first runs eagerly): below that its
@@ -247,9 +261,10 @@ GRAPH_MAX_WORK = 2 ** 32
 
 
 def reset_graph_counts() -> None:
-    """Set every count of :data:`GRAPH_COUNTS` to 0."""
-    for key in GRAPH_COUNTS:
-        GRAPH_COUNTS[key] = 0
+    """Set every count of :data:`GRAPH_COUNTS` and :data:`ACCEL_COUNTS` to 0."""
+    for counts in (GRAPH_COUNTS, ACCEL_COUNTS):
+        for key in counts:
+            counts[key] = 0
 
 
 class _CudaGraphs:
@@ -298,10 +313,10 @@ _EAGER = False
 
 @contextlib.contextmanager
 def eager_loop():
-    """Run the plain loop's check blocks eagerly on the card too, inside
-    this context: the comparison that holds the captured loop to the eager
-    one (``chip_smoke.py``, ``probe_timings.py graph``).  No solve enters it
-    by itself."""
+    """Run the plain and the accelerated loops' check blocks eagerly on the
+    card too, inside this context: the comparison that holds the captured
+    loops to the eager ones (``chip_smoke.py``, ``probe_timings.py graph``
+    and ``accel``).  No solve enters it by itself."""
     global _EAGER
     _EAGER = True
     try:
@@ -360,8 +375,8 @@ class _BlockGraph:
         self.own_x = own_x
         self.step_fn, self.cost_fn, self.chunk, self.need_cost = step_fn, cost_fn, chunk, need_cost
         self.warm = False
-        self.graphs = None          # (the step's, the close's or None)
-        self.counts: Dict[tuple, int] = {}
+        self.pool = None            # the memory pool of every graph this object captures
+        self.parts: Dict[str, tuple] = {}   # name -> (graphs, the launches a replay adds)
 
     def state(self) -> Tuple[torch.Tensor, ...]:
         return self.w, self.h, self.cost, self.rel, self.hist, self.idx
@@ -389,53 +404,173 @@ class _BlockGraph:
         self.cost.copy_(cost)
         self.rel.copy_(rel)
 
-    def _eager_block(self) -> None:
-        for _ in range(self.chunk):
-            self._step()
-        if self.need_cost:
-            self._close()
-
-    def _captured(self, fn, pool=None):
+    def _captured(self, fn):
         """(``fn`` captured as a graph, the launches its capture counted,
         taken back: a capture launches nothing)."""
         before = fused_mu.count_snapshot()
-        graph = _GRAPHS.capture(_GRAPHS.stream(self.w.device), fn, pool)
+        graph = _GRAPHS.capture(_GRAPHS.stream(self.w.device), fn, self.pool)
+        if self.pool is None:
+            self.pool = graph.pool()
         counts = fused_mu.count_delta(before)
         fused_mu.add_counts(counts, -1)
         return graph, counts
 
-    def _capture(self) -> None:
+    def _capture(self, step, close) -> tuple:
+        """(``[step's graph, close's graph]``, the launches of ``chunk``
+        steps and a close); ``close`` may be None (no graph)."""
         t0 = time.perf_counter()
-        step, counts = self._captured(self._step)
-        self.counts = {key: n * self.chunk for key, n in counts.items()}
-        close = None
-        if self.need_cost:
-            close, counts = self._captured(self._close, step.pool())
+        graph, counts = self._captured(step)
+        graphs, total = [graph], {key: n * self.chunk for key, n in counts.items()}
+        if close is not None:
+            graph, counts = self._captured(close)
+            graphs.append(graph)
             for key, n in counts.items():
-                self.counts[key] = self.counts.get(key, 0) + n
-        self.graphs = (step, close)
+                total[key] = total.get(key, 0) + n
         GRAPH_COUNTS["captures"] += 1
         GRAPH_COUNTS["capture_s"] += time.perf_counter() - t0
+        return graphs, total
+
+    def _part(self, name: str, step, close, chunk: int, replay: bool) -> None:
+        """``chunk`` steps, then the close (None: none): replayed from the
+        graphs of part ``name``, captured at its first replay, or eagerly,
+        a full block on the side stream and a shorter one on the caller's."""
+        if replay:
+            if name not in self.parts:
+                self.parts[name] = self._capture(step, close)
+            graphs, counts = self.parts[name]
+            for _ in range(chunk):
+                graphs[0].replay()
+            for graph in graphs[1:]:
+                graph.replay()
+            fused_mu.add_counts(counts)
+            return
+
+        def run():
+            for _ in range(chunk):
+                step()
+            if close is not None:
+                close()
+
+        if chunk == self.chunk:
+            _GRAPHS.run_on(_GRAPHS.stream(self.w.device), run)
+        else:
+            run()
 
     def block(self) -> None:
         """Run one full block: the first eagerly on the side stream (the
         kernel library's load, cuBLAS's handle and workspace, lazy module
         loading: what a capture cannot do, and real work), the later ones
         as replays, captured at the second."""
-        if not self.warm:
-            _GRAPHS.run_on(_GRAPHS.stream(self.w.device), self._eager_block)
+        self._part("block", self._step, self._close if self.need_cost else None, self.chunk,
+                   self.warm)
+        GRAPH_COUNTS["replays" if self.warm else "warm_ups"] += 1
+        self.warm = True
+
+
+class _AccelGraph(_BlockGraph):
+    """Full check blocks of the accelerated loop over static state, the
+    counterpart of the JAX loop's body (``solver.py:561-596``): the
+    momentum ``m``, the accept test, the momentum's grow or shrink, the
+    history write and the relative change stay on the device; the host
+    reads ``flags`` (accepted, cost, relative change) once a block
+    (:func:`_host_read`) and replays the redo only on a reject, where JAX
+    takes a ``lax.cond``.  The parts, each ``_BlockGraph._part``'s step and
+    close:
+
+    * ``"accel"``: :meth:`_accel_step` (a step from ``(we, he)``, then both
+      extrapolations against the last iterate, which
+      ``fused_mu.extrapolate_into`` writes with the new iterate in one
+      launch) ``chunk`` times, and :meth:`_accel_close` (the iterate's
+      cost, the test, and where it passes the block's close; where it
+      fails ``(w, h)`` back to the block's start ``(w0, h0)``);
+    * ``"redo"``, on a reject: the plain step ``chunk`` times from
+      ``(w, h)`` and :meth:`_redo_close` (its cost and close, the carry
+      restarted at ``(w, h)``, ``m`` shrunk).
+
+    The first full block runs eagerly on the side stream, its redo too;
+    the accelerated part is captured at the second, the redo at the first
+    reject after that.  The baseline seed cost is taken on the device at
+    :meth:`load`.  Every value is computed by the ops and in the order of
+    :func:`_run_accel_loop`, so the two give the same bits."""
+
+    def __init__(self, x, w, h, n_slots: int, step_fn: StepFn, cost_fn: CostFn, chunk: int,
+                 config: SolveConfig, own_x: bool):
+        super().__init__(x, w, h, n_slots, step_fn, cost_fn, chunk, True, own_x)
+        f32 = dict(dtype=_F32, device=w.device)
+        self.we, self.he, self.w0, self.h0 = (torch.empty_like(t) for t in (w, h, w, h))
+        self.m = torch.empty((), **f32)
+        self.flags = torch.empty((3,), **f32)
+        self.grow, self.shrink, self.m_max = (
+            torch.tensor(v, **f32)
+            for v in (config.accel_grow, config.accel_shrink, config.accel_momentum_max))
+        self.eps = float(config.eps)
+
+    def state(self) -> Tuple[torch.Tensor, ...]:
+        return super().state() + (self.we, self.he, self.w0, self.h0, self.m, self.flags)
+
+    def load(self, x, w, h, c0: Optional[float], m0: float, extrap) -> None:
+        """A call's X and start, its baseline (None: the seed cost, taken
+        here), momentum and carry (None: the iterate)."""
+        super().load(x, w, h, float("nan") if c0 is None else c0)
+        if c0 is None:
+            self.cost.copy_(self.cost_fn(self.x, self.w, self.h).to(_F32))
+        self.m.fill_(m0)
+        we, he = (w, h) if extrap is None else extrap
+        for buf, t in ((self.we, we), (self.he, he), (self.w0, w), (self.h0, h)):
+            buf.copy_(t)
+
+    def _accel_step(self) -> None:
+        wn, hn = self.step_fn(self.we, self.he, self.x)
+        fused_mu.extrapolate_into(((wn, self.w, self.we), (hn, self.h, self.he)), self.m,
+                                  self.eps)
+
+    def _accel_close(self) -> None:
+        c1 = self.cost_fn(self.x, self.w, self.h).to(_F32)
+        ok = c1 <= self.cost                  # false for NaN
+        rel = torch.abs(self.cost - c1) / torch.abs(c1)
+        self.flags.copy_(torch.stack((ok.to(_F32), c1, rel)))
+        self.m.copy_(torch.where(ok, torch.minimum(self.m * self.grow, self.m_max), self.m))
+        self.hist.index_copy_(0, self.idx,
+                              torch.where(ok, c1, self.hist.index_select(0, self.idx)))
+        self.idx.add_(ok.to(torch.int64))
+        self.rel.copy_(torch.where(ok, rel, self.rel))
+        self.cost.copy_(torch.where(ok, c1, self.cost))
+        for t, t0 in ((self.w, self.w0), (self.h, self.h0)):
+            t.copy_(torch.where(ok, t, t0))
+            t0.copy_(t)
+
+    def _redo_close(self) -> None:
+        self._close()
+        self.flags.copy_(torch.stack((torch.zeros_like(self.cost), self.cost, self.rel)))
+        self.m.mul_(self.shrink)
+        for t, ex, t0 in ((self.w, self.we, self.w0), (self.h, self.he, self.h0)):
+            ex.copy_(t)
+            t0.copy_(t)
+
+    def run_block(self, chunk: int, read_redo: bool) -> list:
+        """One check block of ``chunk`` steps (a full one replayed from the
+        second on; a shorter one eagerly): the host's read of its end,
+        ``[accepted, cost, rel]``, read once, and once more after a
+        rejected block's redo where ``read_redo``."""
+        replay = chunk == self.chunk and self.warm
+        self._part("accel", self._accel_step, self._accel_close, chunk, replay)
+        if chunk == self.chunk:
+            GRAPH_COUNTS["replays" if replay else "warm_ups"] += 1
             self.warm = True
-            GRAPH_COUNTS["warm_ups"] += 1
-            return
-        if self.graphs is None:
-            self._capture()
-        step, close = self.graphs
-        for _ in range(self.chunk):
-            step.replay()
-        if close is not None:
-            close.replay()
-        fused_mu.add_counts(self.counts)
-        GRAPH_COUNTS["replays"] += 1
+        read = _host_read(self.flags)
+        if read[0]:
+            return read
+        self._part("redo", self._step, self._redo_close, chunk, replay)
+        if chunk == self.chunk:
+            ACCEL_COUNTS["redo_replays" if replay else "redo_eager"] += 1
+        return _host_read(self.flags) if read_redo else read
+
+
+def _host_read(t: torch.Tensor) -> list:
+    """The graphed accelerated loop's read of the card: ``t``'s values as
+    host numbers, counted in ``ACCEL_COUNTS["reads"]``."""
+    ACCEL_COUNTS["reads"] += 1
+    return t.tolist()
 
 
 class GraphCache:
@@ -473,10 +608,10 @@ def run_checked_loop(
     """The check-blocked loop (``solver.py:402-498`` of the JAX package).
 
     ``initial_cost`` seeds the convergence baseline (None/NaN: the first
-    check never converges).  ``config.accelerate`` sends the run to
-    :func:`_run_accel_loop`, with ``initial_momentum`` and
-    ``initial_extrap``.  ``config.live_metrics`` emits each check (module
-    docstring) through ``live_emit`` (default :func:`emit_live`).
+    check never converges).  ``config.accelerate`` runs the accelerated
+    loop, with ``initial_momentum`` and ``initial_extrap``.
+    ``config.live_metrics`` emits each check (module docstring) through
+    ``live_emit`` (default :func:`emit_live`).
 
     ``all_reduce`` sums a cost partial over the ranks of a mesh (the
     sharded solves; default: the identity): it runs before the check's
@@ -490,14 +625,12 @@ def run_checked_loop(
     :data:`MIN_REPLAYS` blocks, and frees it on return; a
     :class:`GraphCache` keeps its graph across calls (only for a step and
     cost that close over no tensor of the call); ``False`` runs every block
-    eagerly (the streamed, tiled and COO loops).  A failed capture or replay
-    raises.
+    eagerly (the streamed, tiled and COO loops).  Under
+    ``config.accelerate`` the same rule takes the accelerated loop's full
+    blocks to an :class:`_AccelGraph` (:func:`_run_accel_graphed`).  A
+    failed capture or replay raises.
     """
     emit = emit_live if live_emit is None else live_emit
-    if config.accelerate:
-        return _run_accel_loop(x, w, h, config, step_fn, cost_fn, initial_cost,
-                               initial_momentum, initial_extrap,
-                               _identity if all_reduce is None else all_reduce, emit)
     max_iter = int(config.max_iter)
     check_every = int(config.check_every)
     thresh = float(config.thresh)
@@ -505,21 +638,29 @@ def run_checked_loop(
     need_cost = config.track_cost or thresh > 0.0
     live = bool(config.live_metrics)
     dev = w.device
-    c0 = float("nan") if initial_cost is None else float(initial_cost)
-    if all_reduce is not None:
-        def cost_fn(x_, w_, h_, _cost=cost_fn):
-            return all_reduce(_cost(x_, w_, h_))
     runner = None
     n_full = max_iter // check_every
     m, k, n = w.shape[0], w.shape[1], h.shape[1]
     if (graphs is not False and all_reduce is None and not _EAGER and _GRAPHS.applies(dev)
             and m * n * k < GRAPH_MAX_WORK):
-        args = (max(config.num_checks, 1), step_fn, cost_fn, check_every, need_cost)
+        cls, mode = (_AccelGraph, config) if config.accelerate else (_BlockGraph, need_cost)
+        args = (max(config.num_checks, 1), step_fn, cost_fn, check_every, mode)
         if isinstance(graphs, GraphCache) and n_full:
             key = (step_fn, cost_fn, config, _layout(x), _layout(w), _layout(h))
-            runner = graphs.get(key, lambda: _BlockGraph(x, w, h, *args, own_x=True))
+            runner = graphs.get(key, lambda: cls(x, w, h, *args, own_x=True))
         elif n_full > MIN_REPLAYS:
-            runner = _BlockGraph(x, w, h, *args, own_x=False)
+            runner = cls(x, w, h, *args, own_x=False)
+    if config.accelerate:
+        if runner is not None:
+            return _run_accel_graphed(runner, x, w, h, config, initial_cost, initial_momentum,
+                                      initial_extrap, emit)
+        return _run_accel_loop(x, w, h, config, step_fn, cost_fn, initial_cost,
+                               initial_momentum, initial_extrap,
+                               _identity if all_reduce is None else all_reduce, emit)
+    c0 = float("nan") if initial_cost is None else float(initial_cost)
+    if all_reduce is not None:
+        def cost_fn(x_, w_, h_, _cost=cost_fn):
+            return all_reduce(_cost(x_, w_, h_))
     if runner is not None:
         runner.load(x, w, h, c0)
         w, h, cost, rel, hist, idx = runner.state()
@@ -573,6 +714,14 @@ def extrapolate(new: torch.Tensor, old: torch.Tensor, m: float, eps: float) -> t
     return e.to(new.dtype)
 
 
+def _momentum0(config: SolveConfig, initial_momentum: Optional[float]) -> np.float32:
+    """The accelerated loop's first momentum: ``initial_momentum`` (a
+    resumed segment's) unless None or NaN, else ``accel_momentum``."""
+    if initial_momentum is not None and not np.isnan(initial_momentum):
+        return np.float32(initial_momentum)
+    return np.float32(config.accel_momentum)
+
+
 def _run_accel_loop(
     x, w, h, config: SolveConfig, step_fn: StepFn, cost_fn: CostFn,
     initial_cost: Optional[float] = None,
@@ -596,9 +745,13 @@ def _run_accel_loop(
     The momentum is an f32 scalar, multiplied and capped in f32 as the JAX
     loop does on the device, so the final ``momentum`` is JAX's bit for bit
     wherever the accept/reject sequence is.  JAX decides on the device
-    (``lax.cond``); here each block's cost is read back to decide, so this
-    loop syncs the host once a block (twice on a reject).  The costs live on
-    the host as f32, the history goes to the device at the end.
+    (``lax.cond``); this eager loop reads each block's cost back to decide,
+    so it syncs the host once a block (twice on a reject).  The costs live
+    on the host as f32, the history goes to the device at the end.  It is
+    the route on the CPU, on a mesh and for ``graphs=False``, and the
+    reference that the graphed route (:func:`_run_accel_graphed`, one read
+    a block, the momentum and the decision's arithmetic on the device) is
+    held to bit for bit.
 
     ``all_reduce`` and ``emit`` are :func:`run_checked_loop`'s: every cost
     read is summed over the mesh first, so each rank accepts or rejects
@@ -612,9 +765,7 @@ def _run_accel_loop(
     thresh = np.float32(config.thresh)
     eps = config.eps
     n_slots = max(config.num_checks, 1)
-    m = np.float32(config.accel_momentum)
-    if initial_momentum is not None and not np.isnan(initial_momentum):
-        m = np.float32(initial_momentum)
+    m = _momentum0(config, initial_momentum)
     m_max = np.float32(config.accel_momentum_max)
     grow = np.float32(config.accel_grow)
     shrink = np.float32(config.accel_shrink)
@@ -669,6 +820,49 @@ def _run_accel_loop(
         momentum=torch.tensor(m, dtype=_F32).to(dev),
         w_ex=we if initial_extrap is not None else None,
         h_ex=he if initial_extrap is not None else None,
+    )
+
+
+def _run_accel_graphed(
+    runner: _AccelGraph, x, w, h, config: SolveConfig,
+    initial_cost: Optional[float], initial_momentum: Optional[float],
+    initial_extrap: Optional[Tuple[torch.Tensor, torch.Tensor]], emit: Callable,
+) -> SolveResult:
+    """:func:`_run_accel_loop` on the card through an :class:`_AccelGraph`:
+    the same start (seed cost, momentum, carry), decisions and bits, with
+    one host read a check block (two on a rejected block where ``thresh >
+    0`` or ``live_metrics`` needs its redo's cost).  Nothing returned
+    aliases a buffer of the runner."""
+    max_iter = int(config.max_iter)
+    check_every = int(config.check_every)
+    thresh = np.float32(config.thresh)
+    live = bool(config.live_metrics)
+    seeded = initial_cost is None or np.isnan(initial_cost)
+    runner.load(x, w, h, None if seeded else float(np.float32(initial_cost)),
+                float(_momentum0(config, initial_momentum)), initial_extrap)
+    it, chk, done = 0, 0, False
+    while it < max_iter and not done:
+        chunk = min(check_every, max_iter - it)
+        _, cost, rel = runner.run_block(chunk, read_redo=live or thresh > 0)
+        it += chunk
+        cost, rel = np.float32(cost), np.float32(rel)
+        if live:
+            emit(it, cost, rel)
+        if thresh > 0:
+            done = bool(rel < thresh)
+        chk += 1
+    extrap = initial_extrap is not None
+    return SolveResult(
+        w=runner.w.clone(),
+        h=runner.h.clone(),
+        iterations=torch.tensor(it, dtype=torch.int32),
+        cost=runner.cost.clone(),
+        cost_history=runner.hist.clone(),
+        num_checks=torch.tensor(chk, dtype=torch.int32),
+        converged=torch.tensor(done, dtype=torch.bool),
+        momentum=runner.m.clone(),
+        w_ex=runner.we.clone() if extrap else None,
+        h_ex=runner.he.clone() if extrap else None,
     )
 
 

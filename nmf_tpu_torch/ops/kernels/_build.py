@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source (``fused_mu.cu``: K1/K2's 2-D calls and K3;
 ``fused_mu_batched.cu``: K1/K2 over a member axis, both through
-``fused_mu.cuh``; ``tile_sparse.cu``: K5; all include ``pass1.cuh``, K1/K2's
+``fused_mu.cuh``; ``tile_sparse.cu``: K5; ``extrapolate.cu``: the
+accelerated loop's extrapolation; all but the last include ``pass1.cuh``, K1/K2's
 pass 1 for a dense walk or a sweep plan's and K3's cost walk, built from the
 tensor-core pieces of ``mma_tile.cuh``, the SIMT f32-GEMM pieces of
 ``simt_tile.cuh`` and ``mu_tile.cuh``) into an object,
@@ -28,7 +29,8 @@ __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]   # nmf_tpu_torch/
 _CSRC = _PKG / "csrc"
-_SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "fused_mu_batched.cu", _CSRC / "tile_sparse.cu")
+_SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "fused_mu_batched.cu", _CSRC / "tile_sparse.cu",
+            _CSRC / "extrapolate.cu")
 _HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh", _CSRC / "simt_tile.cuh",
             _CSRC / "pass1.cuh", _CSRC / "fused_mu.cuh")
 _LIB_NAME = "libnmf_kernels.so"
@@ -83,6 +85,9 @@ _SIGNATURES = {
     "nmf_sweep_launches": ([_I, _I], _I),
     "nmf_reset_sweep_launches": ([], None),
     "nmf_sweep_info": ([_I, _I, _I, _P], _I),
+    # next0, prev0, ex0, n0, next1, prev1, ex1, n1, momentum; eps;
+    # state_bf16, device; stream
+    "nmf_extrapolate": ([_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P, _F, _I, _I, _P], _I),
 }
 
 

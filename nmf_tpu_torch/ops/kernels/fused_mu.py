@@ -8,6 +8,11 @@ results, computed on Hopper by hand-written CUDA kernels instead of Pallas.
   ``numerator_only=True`` the f32 numerator alone, no epilogue.
 * ``kl_cost_fused`` (K3): the KL cost, K1's walk with the cost's terms
   summed in place of the contraction, one partial a block.
+* ``extrapolate_into``: the accelerated loop's extrapolation of both
+  factors against a momentum that stays on the device
+  (``csrc/extrapolate.cu``, one launch, counted in ``EXTRAP_LAUNCHES``);
+  it replaces no Pallas kernel, but the JAX loop's ``_extrap``, which XLA
+  fuses.
 
 Every precision policy of the TPU kernels: W and H in f32 or bf16 (the
 result takes their dtype); X as an f32 or bf16 tensor or a ``(uint8 codes,
@@ -74,6 +79,9 @@ __all__ = [
     "mu_step_fused",
     "kl_cost_fused",
     "kl_cost_plain",
+    "EXTRAP_LAUNCHES",
+    "extrapolate_plain",
+    "extrapolate_into",
 ]
 
 # Launches of each kernel on the card (one per wrapper call that launched),
@@ -83,6 +91,9 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(_KEYS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(_KEYS, 0)
 # Members served by those launches: 1 a 2-D launch, B a batched one.
 MEMBERS: Dict[str, int] = dict.fromkeys(_KEYS, 0)
+# Launches of the extrapolation kernel (apart from K1-K3's, whose counts
+# every solve's launch gates read).
+EXTRAP_LAUNCHES: Dict[str, int] = {"extrapolate": 0}
 
 # Largest rank the fused path takes, as in nmf_tpu (fused_mu.py:63).  Up to
 # it the kernels chunk K by MAX_CHUNK and recompute W@H per chunk.
@@ -102,7 +113,7 @@ _GEMM = {"float32": 0, "float32_fast": 1, "bfloat16": 2}
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to 0."""
-    for d in (LAUNCHES, PLAIN_CALLS, MEMBERS):
+    for d in (LAUNCHES, PLAIN_CALLS, MEMBERS, EXTRAP_LAUNCHES):
         for key in d:
             d[key] = 0
 
@@ -110,12 +121,12 @@ def reset_counts() -> None:
 # The library's pass-1 counters (``csrc/fused_mu.cu``): K1 and K2 per Mode
 # (``nmf_partial_launches``), K3 per Mode (``nmf_kl_launches``).
 _LIB_MODES = 4
-_COUNT_NAMES = ("LAUNCHES", "PLAIN_CALLS", "MEMBERS")
+_COUNT_NAMES = ("LAUNCHES", "PLAIN_CALLS", "MEMBERS", "EXTRAP_LAUNCHES")
 
 
 def count_snapshot() -> Dict[tuple, int]:
-    """Every launch count now: the entries of ``LAUNCHES``, ``PLAIN_CALLS``
-    and ``MEMBERS``, and, once the library is loaded, its pass-1 launches
+    """Every launch count now: the entries of ``LAUNCHES``, ``PLAIN_CALLS``,
+    ``MEMBERS`` and ``EXTRAP_LAUNCHES``, and, once the library is loaded, its pass-1 launches
     of K1, K2 and K3 per Mode.  A replayed CUDA graph runs its kernels
     without their wrappers, so the loop that replays it adds what the
     capture recorded (:func:`count_delta`, :func:`add_counts`)."""
@@ -583,3 +594,57 @@ def kl_cost_fused(
     LAUNCHES["kl_cost"] += 1
     MEMBERS["kl_cost"] += b
     return out
+
+
+def extrapolate_plain(new: torch.Tensor, old: torch.Tensor, m: torch.Tensor,
+                      eps: float = EPS) -> torch.Tensor:
+    """The plain version of the extrapolation kernel on one factor:
+    ``max(f32(new) + m (f32(new) - f32(old)), f32(eps))`` in the dtype of
+    ``new`` (bf16: rounded to nearest even), ``m`` a 0-d f32 tensor.
+    ``addcmul``'s multiply-add is one FMA on the CPU, so this gives
+    ``models.solver.extrapolate``'s bits there (its host momentum is
+    ``torch.add``'s ``alpha``, which takes no tensor)."""
+    n32 = new.to(torch.float32)
+    return torch.addcmul(n32, n32 - old.to(torch.float32), m).clamp_min_(float(eps)).to(new.dtype)
+
+
+def extrapolate_into(pairs, m: torch.Tensor, eps: float = EPS) -> None:
+    """One accelerated step's carry, in place: for each ``(next, prev,
+    ex)`` of ``pairs`` (W's, then H's), ``ex`` <- the extrapolation of
+    ``next`` against ``prev`` (:func:`extrapolate_plain`) and ``prev`` <-
+    ``next``.  ``m`` is the momentum, a 0-d f32 tensor that no host reads.
+    ``next`` may be ``ex`` (an H-only step returns its W).
+
+    CPU tensors take the plain version; on the card one launch of
+    ``csrc/extrapolate.cu`` does every pair (one or two, of one state
+    dtype, each contiguous), or this raises."""
+    tensors = [t for pair in pairs for t in pair]
+    if _on_cpu(m, *tensors):
+        for nxt, prev, ex in pairs:
+            e = extrapolate_plain(nxt, prev, m, eps)
+            prev.copy_(nxt)
+            ex.copy_(e)
+        return
+    if not 1 <= len(pairs) <= 2:
+        raise ValueError(f"one or two (next, prev, ex) pairs, got {len(pairs)}")
+    dtype = pairs[0][0].dtype
+    if dtype not in _STATE_BF16 or any(t.dtype != dtype for t in tensors):
+        raise NotImplementedError(f"the extrapolation takes float32 or bfloat16 factors of one "
+                                  f"dtype, got {sorted({str(t.dtype) for t in tensors})}")
+    for nxt, prev, ex in pairs:
+        if not (nxt.shape == prev.shape == ex.shape) or not all(
+                t.is_contiguous() for t in (nxt, prev, ex)):
+            raise ValueError("each (next, prev, ex) must be contiguous tensors of one shape")
+        if not 1 <= nxt.numel() < 2**31:
+            raise ValueError(f"a factor of {nxt.numel()} elements")
+    if m.dtype != torch.float32 or m.dim() != 0:
+        raise ValueError(f"the momentum must be a 0-d float32 tensor, got {m.dtype} "
+                         f"{tuple(m.shape)}")
+    (n0, p0, e0), (n1, p1, e1) = pairs[0], pairs[-1]
+    size1 = n1.numel() if len(pairs) == 2 else 0
+    lib = _lib()
+    rc = lib.nmf_extrapolate(n0.data_ptr(), p0.data_ptr(), e0.data_ptr(), n0.numel(),
+                             n1.data_ptr(), p1.data_ptr(), e1.data_ptr(), size1, m.data_ptr(),
+                             float(eps), _STATE_BF16[dtype], _index(m), _stream(m))
+    _raise_on(lib, rc, "extrapolate")
+    EXTRAP_LAUNCHES["extrapolate"] += 1

@@ -24,7 +24,10 @@ plain ops (``backend="pallas"`` with int8 X raises, as in JAX).
 Uniform loops: the cost partial is summed over the mesh before the loop's
 one host read a check, so the stop, the accelerated loop's accept or
 reject and ``num_checks`` are the same decision on every rank, and no rank
-waits in a collective the others skipped.  With ``live_metrics`` only the
+waits in a collective the others skipped.  The sharded loops, plain and
+accelerated, run eagerly (the eager accelerated loop reads each block's
+summed cost, two on a rejected block): the CUDA graphs of one device's
+loop capture no collective.  With ``live_metrics`` only the
 rank at mesh coordinate (0, 0) emits: one line a check, not one a rank.
 
 **Result contract.**  Inputs are global arrays (NumPy or tensors, the

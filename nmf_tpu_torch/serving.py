@@ -14,10 +14,12 @@ no ``torch.export`` or TorchScript graph either:
   loaded through ``ctypes`` (``ops/kernels/_build.py``): no exported graph
   can call them;
 * the checked loop's stop (``thresh > 0``) and the accelerated loop's
-  accept or reject are host decisions on a cost read back
-  (``models/solver.run_checked_loop``); an exported graph would need them
-  as ``torch.cond``/``while_loop``, or every iteration unrolled.  What the
-  loop does capture is each full check block, as a CUDA graph made on the
+  accept or reject are host decisions on one read a check block
+  (``models/solver.run_checked_loop``; the accelerated block computes the
+  test, the momentum and the history on the device and the host reads the
+  flag); an exported graph would need them as ``torch.cond``/
+  ``while_loop``, or every iteration unrolled.  What the loop does capture
+  is each full check block, accelerated or plain, as CUDA graphs made on the
   serving device at run time (not a file format): the program's step and
   cost come from the config alone, so the program keeps its graphs across
   calls in a cache of its own (``solver.GraphCache``, freed with the

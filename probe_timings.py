@@ -7,6 +7,7 @@
     python3 probe_timings.py tiled-mesh                # the tiled loop on a 1x1 mesh
     python3 probe_timings.py sass --root PATH          # K1-K3's R=16 SASS under PATH
     python3 probe_timings.py graph                     # the check-block graphs against eager
+    python3 probe_timings.py accel                     # the accelerated loop's graphs
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -64,6 +65,17 @@ busy share; (3) ``sizes``: with ``GRAPH_MAX_WORK`` lifted, 4096^2 and
 (K1-K3), 200 iterations, five pairs in turns, with each run's peak
 device memory and what stayed allocated and reserved
 after it.  No gate: ``chip_smoke.py`` holds the bits.
+
+``accel``: the accelerated reference solve (the seed-0 fixtures, 200
+iterations, a check every 25, K1-K3) in ``float32``, ``bfloat16`` and
+``float32_fast``: its it/s graphed and on the eager loop in turns (three
+pairs, each graphed run with its graph counts: the captures' host
+seconds, the redos, the host reads), the plain solve's beside it (graphed
+and eager), one profiled run of each for the device's busy share; the
+check at which the accelerated history reaches the plain 200-iteration
+cost, and the wall to that cost: the accelerated solve stopped there
+(graphed and eager) against the plain graphed solve, three rounds in
+turns.  One JSON line a policy; no gate (``chip_smoke.py`` holds the bits).
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -243,13 +255,75 @@ def tiled_mesh(cs, card):
                       "loop_s": res, "profile": prof}), flush=True)
 
 
+def _run(cs, fn, eager):
+    """(host seconds of fn, the graph counts it left), on the eager loop
+    where ``eager``."""
+    from nmf_tpu_torch.models import solver
+
+    solver.reset_graph_counts()
+    if eager:
+        with solver.eager_loop():
+            secs = cs._timed(fn)[1]
+    else:
+        secs = cs._timed(fn)[1]
+    return secs, {**solver.GRAPH_COUNTS, **solver.ACCEL_COUNTS}
+
+
+def _busy(cs, fn, eager, tmp):
+    """The device's busy share of one run of fn (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        secs = _run(cs, fn, eager)[0]
+    trace = f"{tmp}/trace.json"
+    prof.export_chrome_trace(trace)
+    return cs._device_shares(trace)["busy"] / secs
+
+
+def _turns(cs, tmp, fn, work, pairs=2, shares=True, warm=True, memory=False):
+    """Graphed and eager in turns (GE EG GE ...), after a warm run of
+    each: the rate each run reached (work / host seconds) and, graphed,
+    its graph counts (the capture's host seconds among them); with
+    ``shares`` one more profiled run of each for its busy share; with
+    ``memory`` each run's peak device memory over what was allocated
+    before it, and what stayed allocated and reserved after it."""
+    import torch
+
+    if warm:
+        _run(cs, fn, False)
+        _run(cs, fn, True)
+    rec = {tag: {"per_s": []} for tag in ("graphed", "eager")}
+    rec["graphed"]["counts"] = []
+    for i in range(pairs):
+        for eager in ((False, True) if i % 2 == 0 else (True, False)):
+            r = rec["eager" if eager else "graphed"]
+            if memory:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            secs, counts = _run(cs, fn, eager)
+            r["per_s"].append(work / secs)
+            if not eager:
+                r["counts"].append(counts)
+            if memory:
+                for key, v in (("peak_gb", torch.cuda.max_memory_allocated() - base),
+                               ("allocated_after_gb", torch.cuda.memory_allocated() - base),
+                               ("reserved_after_gb", torch.cuda.memory_reserved())):
+                    r.setdefault(key, []).append(v / 1e9)
+    if shares:
+        for tag, r in rec.items():
+            r["busy"] = _busy(cs, fn, tag == "eager", tmp)
+    return rec
+
+
 def graph(cs, card):
     import dataclasses
     import tempfile
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.models import separation, solver
@@ -277,57 +351,6 @@ def graph(cs, card):
     ref = nt.reference_preset()
     rule = solver.MIN_REPLAYS
 
-    def run(fn, eager):
-        """(host seconds of fn, the graph counts it left)."""
-        solver.reset_graph_counts()
-        if eager:
-            with solver.eager_loop():
-                secs = cs._timed(fn)[1]
-        else:
-            secs = cs._timed(fn)[1]
-        return secs, dict(solver.GRAPH_COUNTS)
-
-    def busy(fn, eager):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            secs = run(fn, eager)[0]
-        trace = f"{tmp.name}/trace.json"
-        prof.export_chrome_trace(trace)
-        return cs._device_shares(trace)["busy"] / secs
-
-    def turns(fn, work, pairs=2, shares=True, warm=True, memory=False):
-        """Graphed and eager in turns (GE EG GE ...), after a warm run of
-        each: the rate each run reached (work / host seconds) and, graphed,
-        its graph counts (the capture's host seconds among them); with
-        ``shares`` one more profiled run of each for its busy share; with
-        ``memory`` each run's peak device memory over what was allocated
-        before it, and what stayed allocated and reserved after it."""
-        if warm:
-            run(fn, False)
-            run(fn, True)
-        rec = {tag: {"per_s": []} for tag in ("graphed", "eager")}
-        rec["graphed"]["counts"] = []
-        for i in range(pairs):
-            for eager in ((False, True) if i % 2 == 0 else (True, False)):
-                r = rec["eager" if eager else "graphed"]
-                if memory:
-                    torch.cuda.empty_cache()
-                    torch.cuda.reset_peak_memory_stats()
-                    base = torch.cuda.memory_allocated()
-                secs, counts = run(fn, eager)
-                r["per_s"].append(work / secs)
-                if not eager:
-                    r["counts"].append(counts)
-                if memory:
-                    for key, v in (("peak_gb", torch.cuda.max_memory_allocated() - base),
-                                   ("allocated_after_gb", torch.cuda.memory_allocated() - base),
-                                   ("reserved_after_gb", torch.cuda.memory_reserved())):
-                        r.setdefault(key, []).append(v / 1e9)
-        if shares:
-            for tag, r in rec.items():
-                r["busy"] = busy(fn, tag == "eager")
-        return rec
-
     # (1) where a graph made for one call pays: every full block after the
     # first replayed (MIN_REPLAYS set to 1 here), calls of 2 to 8 blocks
     breakeven = {}
@@ -340,7 +363,7 @@ def graph(cs, card):
                               lambda c=c: nt.solve(xr, wr, hr, c, device="cuda")),
                              (f"ismir h_only {blocks} blocks",
                               lambda hc=hc: nt.solve_h_only(xi, wi, hi, hc, device="cuda"))):
-                breakeven[name] = turns(fn, 25 * blocks, shares=False)
+                breakeven[name] = _turns(cs, tmp.name, fn, 25 * blocks, shares=False)
     finally:
         solver.MIN_REPLAYS = rule
     print(json.dumps({"card": card, "probe": "graph", "part": "breakeven", "min_replays": rule,
@@ -362,9 +385,10 @@ def graph(cs, card):
         mag, ws, hs, nt.SolveConfig(max_iter=200, thresh=0.0, check_every=25), device="cuda"))
     served = nt.load_transform(path)
     cases["serve"] = (sn, lambda: served(xs))     # a rate in columns/s
-    rates = {name: turns(fn, work) for name, (work, fn) in cases.items()}
+    rates = {name: _turns(cs, tmp.name, fn, work) for name, (work, fn) in cases.items()}
     # a fresh transform's first call, its load (the same both ways) included
-    rates["serve fresh transform"] = turns(lambda: nt.load_transform(path)(xs), sn, shares=False)
+    rates["serve fresh transform"] = _turns(cs, tmp.name, lambda: nt.load_transform(path)(xs),
+                                            sn, shares=False)
     print(json.dumps({"card": card, "probe": "graph", "part": "routes", "rates": rates}),
           flush=True)
 
@@ -387,8 +411,9 @@ def graph(cs, card):
         cfg = nt.SolveConfig(max_iter=200, check_every=25, precision=nt.Precision(tier))
         solver.GRAPH_MAX_WORK = float("inf")
         try:
-            flagship[name] = turns(lambda c=cfg: nt.solve(xf, wf, hf, c, device="cuda"), 200,
-                                   pairs=5, shares=False, memory=True)
+            flagship[name] = _turns(cs, tmp.name,
+                                    lambda c=cfg: nt.solve(xf, wf, hf, c, device="cuda"), 200,
+                                    pairs=5, shares=False, memory=True)
         finally:
             solver.GRAPH_MAX_WORK = limit
         flagship[name]["work"] = sm_ * sn_ * sk_
@@ -396,6 +421,49 @@ def graph(cs, card):
     tmp.cleanup()
     print(json.dumps({"card": card, "probe": "graph", "part": "sizes",
                       "graph_max_work": limit, "rates": flagship}), flush=True)
+
+
+def accel(cs, card):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    import nmf_tpu_torch as nt
+
+    fx = nt.fixtures
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    ref = dataclasses.replace(nt.reference_preset(), backend="pallas")
+    iters = ref.max_iter
+    tmp = tempfile.TemporaryDirectory(prefix="nmf_probe_")
+    for tier in ("float32", "bfloat16", "float32_fast"):
+        plain = dataclasses.replace(ref, precision=nt.Precision(tier))
+        acc = dataclasses.replace(plain, accelerate=True)
+        solve = lambda c: nt.solve(x, w, h, c, device="cuda")  # noqa: E731
+        # where the accelerated history passes the plain 200-iteration cost
+        p_cost = float(solve(plain).cost)
+        res = solve(acc)
+        hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
+        reach = int(np.argmax(hist <= p_cost)) if bool(np.any(hist <= p_cost)) else None
+        reach_its = None if reach is None else (reach + 1) * acc.check_every
+        rec = {"plain_cost": p_cost, "accel_cost": float(res.cost),
+               "reach_plain_cost_its": reach_its,
+               "accel": _turns(cs, tmp.name, lambda: solve(acc), iters, pairs=3),
+               "plain": _turns(cs, tmp.name, lambda: solve(plain), iters, pairs=3)}
+        if reach_its is not None:
+            # the wall to the plain 200-iteration cost: the accelerated
+            # solve stopped at that check, against the plain solve, in turns
+            to = dataclasses.replace(acc, max_iter=reach_its)
+            walls = {"accel_graphed": [], "accel_eager": [], "plain_graphed": []}
+            _run(cs, lambda: solve(to), False)
+            for i in range(3):
+                order = (("accel_graphed", to, False), ("accel_eager", to, True),
+                         ("plain_graphed", plain, False))
+                for key, c, eager in (order if i % 2 == 0 else order[::-1]):
+                    walls[key].append(_run(cs, lambda c=c: solve(c), eager)[0])
+            rec["wall_to_plain_cost_s"] = walls
+        print(json.dumps({"card": card, "probe": "accel", "tier": tier, **rec}), flush=True)
+    tmp.cleanup()
 
 
 def sass(cs, card, root):
@@ -435,7 +503,7 @@ def sass(cs, card, root):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass",
-                                      "graph"))
+                                      "graph", "accel"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -459,6 +527,8 @@ def main(argv=None) -> int:
         sass(cs, card, args.root)
     elif args.probe == "graph":
         graph(cs, card)
+    elif args.probe == "accel":
+        accel(cs, card)
     else:
         kl(cs, card, args.root)
     return 0

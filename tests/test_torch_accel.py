@@ -161,7 +161,11 @@ def _rejects(res, k1, k3, chunk, blocks=1, seeded=True):
 def test_extrapolate_bit_equal_to_jax(dtype, m):
     """The port's ``extrapolate`` against the JAX loops' ``_extrap`` jitted
     on the same operands (entries near eps, below it after the step, and
-    an old value above the new one): the same bits, NaN aside."""
+    an old value above the new one): the same bits, NaN aside; and so does
+    its device-momentum form, the extrapolation kernel's plain version
+    (``fused_mu.extrapolate_plain``, ``m`` a 0-d f32 tensor), and the
+    kernel's wrapper on the CPU (``extrapolate_into``: the carry, and the
+    old iterate replaced by the new)."""
     import jax
     import jax.numpy as jnp
 
@@ -182,6 +186,12 @@ def test_extrapolate_bit_equal_to_jax(dtype, m):
     assert _f32(ours).tobytes() == np.asarray(ref, np.float32).tobytes()
     assert _f32(ours).min() >= np.float32(EPS)
     assert torch.equal(new_t, keep[0]) and torch.equal(old_t, keep[1])   # inputs untouched
+    m_t = torch.tensor(np.float32(m))
+    dev_m = tfm.extrapolate_plain(new_t, old_t, m_t, EPS)
+    assert dev_m.dtype == td and _f32(dev_m).tobytes() == _f32(ours).tobytes()
+    ex, prev = torch.empty_like(new_t), old_t.clone()
+    tfm.extrapolate_into(((new_t, prev, ex),), m_t, EPS)
+    assert _f32(ex).tobytes() == _f32(ours).tobytes() and torch.equal(prev, new_t)
 
 
 # --- the in-memory loop --------------------------------------------------------------
