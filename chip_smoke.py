@@ -4047,6 +4047,15 @@ STAB_RANKS, STAB_RESTARTS = [4, 8, 12, 16], 8
 MASKED_MEMBERS, PLAIN_ITERS = 16, 50
 TILED_BATCH = (4, 4096, 4096, 128, 128, 0.08)   # (e): phase 8's layout cut to 4096^2
 STOP_MEMBERS, STOP_THRESH = 8, 1e-4
+MASKED_CHECK = 10                       # (e): 5 blocks, so the masked batch replays graphs
+# (g): the accelerated restarts that reject (phase 10a's pinned momentum, a
+# check every iteration), and the member-axis extrapolation's operands: the
+# restarts' W and H, then stacks whose members end inside a 16-byte unit
+ACCEL_BATCH_REJECTING = dict(max_iter=60, check_every=1, accelerate=True,
+                             accel_momentum=0.999, accel_momentum_max=0.999, accel_grow=1.0)
+EXTRAP_MEMBER_SHAPES = ((SEL_RESTARTS, SEL_SHAPE[0], SEL_SHAPE[2]),
+                        (SEL_RESTARTS, SEL_SHAPE[2], SEL_SHAPE[1]))
+EXTRAP_MEMBER_RAGGED = ((5, 37, 13), (5, 13, 41))
 CLI_BATCH_FILES, CLI_BATCH_SHAPE, CLI_ITERS = 16, (513, 2000), 100
 
 
@@ -4073,6 +4082,118 @@ def _kl_batched_plain(x, w, h, eps=EPS):
     xf = x.float()
     t = torch.where(xf > 0, xf * (torch.log(torch.clamp_min(xf, eps)) - torch.log(y)), 0.0) - xf + y
     return t.sum(dim=(-2, -1))
+
+
+def _batch_graphed(out, where, fn, want=None, members=None, reads=0, redo=None):
+    """(result, host seconds, launches, members served, graph counts) of
+    the batched solve ``fn()`` on the graphed route (a ``SelectionResult``'s
+    ``results`` held), every count set to 0 just before: K1-K3 launched
+    ``want`` times where given, no plain call and no K5 launch; at least one
+    capture and one replay, ``reads`` host reads where not None and, where
+    given, ``redo`` = (eager, replayed) redos.  Then the same call inside
+    ``eager_loop``: the same launches (the extrapolation kernel's aside: the
+    eager loop extrapolates with plain ops) and the same bits
+    (``GRAPH_FIELDS``, the costs and ``converged``).  ``launches`` lists
+    the extrapolation kernel's under ``extrapolate``."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    _reset_all()
+    (res, secs), graphs = _graph_run(lambda: _timed(fn))
+    counts, launches, served = _all_counts(), dict(fused_mu.LAUNCHES), dict(fused_mu.MEMBERS)
+    extrap = fused_mu.EXTRAP_LAUNCHES["extrapolate"]
+    rest = {k: v for k, v in counts.items() if k not in launches}
+    check((want is None or launches == want) and not any(rest.values()),
+          f"batched {where}: launches {launches}, other counts {rest}, expected {want}")
+    check(members is None or served == members,
+          f"batched {where}: members served {served}, expected {members}")
+    check(graphs["captures"] >= 1 and graphs["replays"] >= 1
+          and (reads is None or graphs["reads"] == reads)
+          and (redo is None or (graphs["redo_eager"], graphs["redo_replays"]) == redo),
+          f"batched {where}: graphs {graphs}, expected a capture, replays, {reads} host reads "
+          f"and redos (eager, replayed) {redo}")
+    _reset_all()
+    eager = _eager(fn)
+    check(_all_counts() == counts and fused_mu.EXTRAP_LAUNCHES["extrapolate"] == 0,
+          f"batched {where}: the eager loop launched {_all_counts()}, graphed {counts}")
+    got, ref = getattr(res, "results", res), getattr(eager, "results", eager)
+    _hold_graphed(out, f"batched {where}", got, graphs, ref)
+    check(torch.equal(_bits(got.cost), _bits(ref.cost))
+          and torch.equal(got.converged, ref.converged),
+          f"batched {where}: cost or converged of the graphed loop differs from the eager loop's")
+    return res, secs, {**launches, "extrapolate": extrap}, served, graphs
+
+
+def _check_member_extrapolation(card, out):
+    """The extrapolation kernel over a member axis (``extrapolate_into``
+    with a ``[B]`` momentum, both factors of all members in one launch)
+    against its plain ``[B]`` version (``extrapolate_plain``) and against
+    the 2-D ``extrapolate`` of each member at its own momentum, bit for
+    bit, in f32 and bf16: at the accelerated restarts' stacks (16 x 512 x
+    32 and 16 x 32 x 1024), at stacks whose members end inside a 16-byte
+    unit (5 x 37 x 13, 5 x 13 x 41) and those at an offset of one element;
+    a control that gives every member the first one's momentum must fail.
+    Times (``graph_ms``, plain and kernel in turns) and bound at the
+    restarts' stacks."""
+    from nmf_tpu_torch.models.solver import extrapolate
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    rng = np.random.RandomState(24)
+    st = out["kernels"]["extrapolate"].setdefault("members", {})
+    cases = (("restarts", EXTRAP_MEMBER_SHAPES, 0), ("ragged", EXTRAP_MEMBER_RAGGED, 0),
+             ("ragged offset 1", EXTRAP_MEMBER_RAGGED, 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, shapes, offset in cases:
+            b = shapes[0][0]
+            moms = np.float32(EXTRAP_MOMENTUM) * np.linspace(1.0, 0.5, b, dtype=np.float32)
+            m = torch.from_numpy(moms).cuda()
+            (wn, wo), (hn, ho) = (_extrap_operands(sh, dtype, rng, offset) for sh in shapes)
+            where = (f"extrapolate members {dtype} {case}: W {tuple(wn.shape)} "
+                     f"H {tuple(hn.shape)}")
+            plain = [fused_mu.extrapolate_plain(n, o, m, EPS) for n, o in ((wn, wo), (hn, ho))]
+            wp, hp = _at_offset(wo, offset), _at_offset(ho, offset)
+            we, he = _at_offset(wn, offset), _at_offset(hn, offset)
+            fused_mu.reset_counts()
+            fused_mu.extrapolate_into(((wn, wp, we), (hn, hp, he)), m, EPS)
+            torch.cuda.synchronize()
+            check(fused_mu.EXTRAP_LAUNCHES["extrapolate"] == 1,
+                  f"{where}: {fused_mu.EXTRAP_LAUNCHES} launches for both factors")
+            check(torch.equal(wp, wn) and torch.equal(hp, hn), f"{where}: the iterate not copied")
+            err, control = 0.0, 0
+            for (n, o), got, ref in zip(((wn, wo), (hn, ho)), (we, he), plain):
+                err = max(err, float((got.float() - ref.float()).abs().max()))
+                check(torch.equal(_bits(got), _bits(ref)),
+                      f"{where}: not its plain [B] version's bits (max abs err {err})")
+                for i in range(b):
+                    check(torch.equal(_bits(got[i]), _bits(extrapolate(n[i], o[i],
+                                                                        float(moms[i]), EPS))),
+                          f"{where}: member {i} is not the 2-D extrapolate's bits at m[{i}]")
+                one = fused_mu.extrapolate_plain(n, o, m[:1].expand(b).contiguous(), EPS)
+                control += int((_bits(one) != _bits(ref)).sum())
+            check(control > 0, f"{where}: a control with one momentum for all members passes")
+            st["max_abs_err"] = max(st.get("max_abs_err", 0.0), err)
+            print(f"[{card}] {where}: one launch, its plain [B] version's bits and each "
+                  f"member's 2-D bits at its own momentum; control (one momentum): {control} "
+                  "entries differ")
+            if case != "restarts":
+                continue
+            pairs = ((wn, wo.clone(), torch.empty_like(wn)), (hn, ho.clone(), torch.empty_like(hn)))
+
+            def kern():
+                fused_mu.extrapolate_into(pairs, m, EPS)
+
+            def plain_fn():
+                for nxt, prev, ex in pairs:
+                    ex.copy_(fused_mu.extrapolate_plain(nxt, prev, m, EPS))
+                    prev.copy_(nxt)
+
+            p1, k1, k2, p2 = (graph_ms(f) for f in (plain_fn, kern, kern, plain_fn))
+            kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+            elems = wn.numel() + hn.numel()
+            b_ms, b_by = bound(3 * elems, 4 * elems * wn.element_size() + 4 * b)
+            st[str(dtype)[6:]] = {"shapes": [list(s) for s in shapes], "ms": kms, "plain_ms": pms,
+                                  "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / kms}
+            print(f"[{card}] {where}: kernel {kms} ms (both factors of {b} members, one launch), "
+                  f"plain [B] {pms} ms, bound {b_ms} ms ({b_by}), share {b_ms / kms}")
 
 
 def _batched_calls(card, out, x, w, h):
@@ -4144,8 +4265,8 @@ def phase_selection_batched(card, out, seed):
         nt.solve_batched(x[:2], w[:2], h[:2], dataclasses.replace(cfg, max_iter=2), device="cuda")
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        res, secs, launches, served = _counted_members(
-            lambda: nt.solve_batched(x, w, h, cfg, device="cuda"), f"batched {policy}",
+        res, secs, launches, served, graphs = _batch_graphed(
+            out, policy, lambda: nt.solve_batched(x, w, h, cfg, device="cuda"),
             _launches(update_h=BATCH_ITERS, update_w=BATCH_ITERS),
             dict(_launches(update_h=b * BATCH_ITERS, update_w=b * BATCH_ITERS)))
         peak = torch.cuda.max_memory_allocated() - base
@@ -4156,8 +4277,8 @@ def phase_selection_batched(card, out, seed):
                   f"batched {policy}: member {i} differs from its 2-D solve")
         jcfg = dataclasses.replace(cfg, backend="jnp")
         nt.solve_batched(x[:2], w[:2], h[:2], dataclasses.replace(jcfg, max_iter=2), device="cuda")
-        plain, plain_secs, _, _ = _counted_members(
-            lambda: nt.solve_batched(x, w, h, jcfg, device="cuda"), f"batched {policy} jnp",
+        plain, plain_secs, _, _, jgraphs = _batch_graphed(
+            out, f"{policy} jnp", lambda: nt.solve_batched(x, w, h, jcfg, device="cuda"),
             _launches())
         c_k = nt.kl_divergence(x[0], res.w[0], res.h[0])
         c_p = nt.kl_divergence(x[0], plain.w[0], plain.h[0])
@@ -4170,14 +4291,15 @@ def phase_selection_batched(card, out, seed):
             "jnp_seconds": plain_secs, "jnp_problem_iters_per_s": plain_rate,
             "jnp_tflops": 8 * m * n * k * plain_rate / 1e12, "peak_bytes": peak,
             "x_bytes": x.numel() * 4, "launches": launches, "members": served,
-            "member0_cost_rel_to_jnp": rel}
+            "member0_cost_rel_to_jnp": rel, "graphs": graphs, "jnp_graphs": jgraphs}
         out["launches"][f"selection batched {policy}"] = launches
         print(f"[{card}] solve_batched {b} x {m}x{n} K={k} {policy}, {BATCH_ITERS} iterations: "
               f"{rate} problem-it/s ({8 * m * n * k * rate / 1e12} TFLOP/s) through the kernels, "
               f"{plain_rate} ({8 * m * n * k * plain_rate / 1e12}) through backend='jnp'; "
               f"launches {launches} for {served} member-calls; peak {peak} bytes over "
               f"{x.numel() * 4} of X; members {list(BATCH_CHECK)} bit-equal to their 2-D solves; "
-              f"member 0 cost rel {rel} to jnp")
+              f"member 0 cost rel {rel} to jnp; both routes graphed, each the eager loop's bits "
+              f"(graphs {graphs}, jnp {jgraphs})")
     out["selection"]["batched"] = runs
     del x, w, h
 
@@ -4201,9 +4323,10 @@ def phase_selection_restarts(card, out, x):
     checks = SEL_ITERS // 25
     nt.solve_restarts(x, rank=k, n_restarts=2, config=dataclasses.replace(cfg, max_iter=2),
                       device="cuda")
-    sel, secs, launches, served = _counted_members(
+    sel, secs, launches, served, graphs = _batch_graphed(
+        out, "restarts",
         lambda: nt.solve_restarts(x, rank=k, n_restarts=r, config=cfg, seed=0, device="cuda"),
-        "restarts", _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks),
+        _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks),
         dict(_launches(update_h=r * SEL_ITERS, update_w=r * SEL_ITERS, kl_cost=r * checks)))
     out["launches"]["selection restarts"] = launches
     torch.cuda.synchronize()
@@ -4220,9 +4343,10 @@ def phase_selection_restarts(card, out, x):
     f = SEL_FROZEN
     w0s = np.stack([np.concatenate([inits[0][0][:, :f], w0[:, f:]], axis=1) for w0, _ in inits])
     h0s = np.stack([h0 for _, h0 in inits])
-    frz, frz_secs, _, _ = _counted_members(
+    frz, frz_secs, _, _, _ = _batch_graphed(
+        out, "restarts n_frozen",
         lambda: nt.solve_restarts(x, w0s=w0s, h0s=h0s, config=cfg, n_frozen=f, device="cuda"),
-        "restarts n_frozen", _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks))
+        _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks))
     clamped = np.maximum(inits[0][0][:, :f], np.float32(EPS))
     check(all(frz.results.w[i, :, :f].cpu().numpy().tobytes() == clamped.tobytes() for i in range(r)),
           "restarts n_frozen: frozen columns moved")
@@ -4230,11 +4354,12 @@ def phase_selection_restarts(card, out, x):
     out["selection"]["restarts"] = {
         "seconds": secs, "problem_iters_per_s": rate, "sequential_seconds": seq_secs,
         "sequential_problem_iters_per_s": seq_rate, "frozen_seconds": frz_secs,
-        "best_index": sel.best_index, "launches": launches, "members": served}
+        "best_index": sel.best_index, "launches": launches, "members": served, "graphs": graphs}
     print(f"[{card}] solve_restarts R={r} at {m}x{n} K={k}, {SEL_ITERS} iterations: {rate} "
           f"problem-it/s against {seq_rate} for {r} sequential solves; launches {launches}; every "
           f"member bit-equal to its sequential solve; best #{sel.best_index} (argmin); "
-          f"n_frozen={f}: columns bit-equal, {frz_secs} s")
+          f"n_frozen={f}: columns bit-equal, {frz_secs} s; graphed, the eager loop's bits "
+          f"(graphs {graphs})")
 
 
 def phase_selection_sweep(card, out, x):
@@ -4244,8 +4369,8 @@ def phase_selection_sweep(card, out, x):
 
     cfg = nt.SolveConfig(max_iter=SEL_ITERS, check_every=25, backend="pallas")
     checks = SEL_ITERS // 25
-    sweep, secs, launches, _ = _counted_members(
-        lambda: nt.solve_rank_sweep(x, SWEEP_RANKS, cfg, seed=0, device="cuda"), "rank sweep",
+    sweep, secs, launches, _, graphs = _batch_graphed(
+        out, "rank sweep", lambda: nt.solve_rank_sweep(x, SWEEP_RANKS, cfg, seed=0, device="cuda"),
         _launches(update_h=SEL_ITERS, update_w=SEL_ITERS, kl_cost=checks))
     out["launches"]["selection sweep"] = launches
     w0s, h0s = selection._member_inits(x, SWEEP_RANKS, "scaled", 0)
@@ -4257,9 +4382,11 @@ def phase_selection_sweep(card, out, x):
         rel = abs(float(sweep.costs[i]) - float(one.cost)) / abs(float(one.cost))
         worst = max(worst, rel)
         check(rel <= 1e-5, f"rank sweep: member {i} (rank {k}) cost rel {rel} to its rank-{k} solve")
-    out["selection"]["sweep"] = {"seconds": secs, "max_cost_rel": worst, "launches": launches}
+    out["selection"]["sweep"] = {"seconds": secs, "max_cost_rel": worst, "launches": launches,
+                                 "graphs": graphs}
     print(f"[{card}] solve_rank_sweep {SWEEP_RANKS} at 512x1024: {secs} s, launches {launches}, "
-          f"embedded slots exact zeros, costs within {worst} of the single rank-k solves")
+          f"embedded slots exact zeros, costs within {worst} of the single rank-k solves; "
+          f"graphed, the eager loop's bits (graphs {graphs})")
     solve_secs = []
     inner = stability.solve_rank_sweep
 
@@ -4294,16 +4421,18 @@ def phase_selection_plain(card, out, seed):
     ws, hs = rng.rand(b, m, k).astype(np.float32), rng.rand(b, k, n).astype(np.float32)
     masks = (rng.rand(b, m, n) >= MASK_MISSING).astype(np.float32)
     cfg = nt.SolveConfig(max_iter=PLAIN_ITERS, check_every=25)
-    res, secs, _, _ = _counted_members(
-        lambda: nt.solve_batched(xs, ws, hs, cfg, mask=masks, device="cuda"), "batched masked",
+    mcfg = dataclasses.replace(cfg, check_every=MASKED_CHECK)
+    res, secs, _, _, graphs = _batch_graphed(
+        out, "masked", lambda: nt.solve_batched(xs, ws, hs, mcfg, mask=masks, device="cuda"),
         _launches())
     worst = max(abs(float(res.cost[i]) - float(one.cost)) / abs(float(one.cost)) for i, one in
-                enumerate(nt.solve_masked(xs[i], ws[i], hs[i], masks[i], cfg, device="cuda")
+                enumerate(nt.solve_masked(xs[i], ws[i], hs[i], masks[i], mcfg, device="cuda")
                           for i in range(b)))
     check(worst <= 1e-5, f"batched masked: cost rel {worst} to the members' solve_masked")
-    out["selection"]["masked"] = {"seconds": secs, "max_cost_rel": worst}
-    print(f"[{card}] solve_batched(mask=) {b} x 513x2000, 20% missing, {PLAIN_ITERS} iterations: "
-          f"0 launches, {secs} s, costs within {worst} of each member's solve_masked")
+    out["selection"]["masked"] = {"seconds": secs, "max_cost_rel": worst, "graphs": graphs}
+    print(f"[{card}] solve_batched(mask=) {b} x 513x2000, 20% missing, {PLAIN_ITERS} iterations, "
+          f"a check every {MASKED_CHECK}: 0 launches, {secs} s, costs within {worst} of each "
+          f"member's solve_masked; graphed, the eager loop's bits (graphs {graphs})")
 
     tb, tm, tn, tk, tile, occ = TILED_BATCH
     probs = [tile_problem(tm, tk, tn, tile, occ, seed=s) for s in range(tb)]
@@ -4331,16 +4460,67 @@ def phase_selection_plain(card, out, seed):
     ws_s = rng.rand(STOP_MEMBERS, sm, sk).astype(np.float32)
     hs_s = rng.rand(STOP_MEMBERS, sk, sn).astype(np.float32)
     scfg = nt.SolveConfig(max_iter=1000, thresh=STOP_THRESH, check_every=10, backend="pallas")
-    res, secs = _timed(lambda: nt.solve_batched(xs_s, ws_s, hs_s, scfg, device="cuda"))
+    res, secs, launches, _, graphs = _batch_graphed(
+        out, "thresh", lambda: nt.solve_batched(xs_s, ws_s, hs_s, scfg, device="cuda"), reads=None)
     its = res.iterations.tolist()
+    want = _launches(update_h=max(its), update_w=max(its), kl_cost=max(its) // 10)
+    check({k: launches[k] for k in want} == want and graphs["reads"] == max(its) // 10,
+          f"thresh batch: launches {launches}, graphs {graphs}: expected {want} and one host "
+          f"read a check ({max(its) // 10})")
+    out["launches"]["selection thresh"] = launches
     for i in range(STOP_MEMBERS):
         one = nt.solve(xs_s[i], ws_s[i], hs_s[i], scfg, device="cuda")
         check(int(one.iterations) == its[i] and _member_bits_equal(res.w[i], one.w),
               f"thresh batch: member {i} ran {its[i]} iterations, its solve {int(one.iterations)}")
     check(len(set(its)) > 1, f"thresh batch: every member stopped at {its[0]}")
-    out["selection"]["thresh"] = {"iterations": its, "seconds": secs}
+    out["selection"]["thresh"] = {"iterations": its, "seconds": secs, "graphs": graphs}
     print(f"[{card}] thresh={STOP_THRESH} batch of {STOP_MEMBERS}: members stopped at {its}, each "
-          f"its own solve's count and bits ({secs} s)")
+          f"its own solve's count and bits ({secs} s); graphed, one host read a check, the eager "
+          f"loop's bits (graphs {graphs})")
+
+
+def phase_selection_accel(card, out, x):
+    """(g) the accelerated batch: R = 16 restarts that reject (a pinned
+    momentum, a check every iteration) through K1-K3 on the graphed route,
+    the redo replayed, one host read a block, its launches, the eager
+    loop's bits (momentum among them), every member its 2-D accelerated
+    solve's bits; then the member-axis extrapolation kernel."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.init import scaled_random_init
+
+    m, n, k = SEL_SHAPE
+    r = SEL_RESTARTS
+    cfg = nt.SolveConfig(backend="pallas", **ACCEL_BATCH_REJECTING)
+    iters = cfg.max_iter
+    nt.solve_restarts(x, rank=k, n_restarts=2, config=dataclasses.replace(cfg, max_iter=2),
+                      device="cuda")
+    sel, secs, launches, _, graphs = _batch_graphed(
+        out, "accelerated rejecting",
+        lambda: nt.solve_restarts(x, rank=k, n_restarts=r, config=cfg, seed=0, device="cuda"),
+        reads=iters)
+    res = sel.results
+    redos = graphs["redo_eager"] + graphs["redo_replays"]
+    want = _launches(update_h=iters + redos, update_w=iters + redos, kl_cost=1 + iters + redos)
+    check({key: launches[key] for key in want} == want and launches["extrapolate"] == iters
+          and graphs["redo_replays"] >= 1,
+          f"accelerated batch: launches {launches}, graphs {graphs}: expected {want}, "
+          f"{iters} extrapolations and a replayed redo")
+    check(float(res.momentum.min()) < 0.999, "accelerated batch: no member rejected")
+    out["launches"]["selection accelerated"] = launches
+    inits = [scaled_random_init(x, k, seed=i) for i in range(r)]
+    for i in (0, r - 1):
+        one = nt.solve(x, *inits[i], cfg, device="cuda")
+        check(_member_bits_equal(res.w[i], one.w)
+              and _member_bits_equal(res.momentum[i], one.momentum)
+              and int(res.iterations[i]) == int(one.iterations),
+              f"accelerated batch: member {i} differs from its accelerated 2-D solve")
+    out["selection"]["accelerated"] = {"seconds": secs, "graphs": graphs, "launches": launches,
+                                       "momentum": res.momentum.tolist()}
+    print(f"[{card}] accelerated restarts R={r} at {m}x{n} K={k}, {iters} blocks of one "
+          f"iteration, pinned momentum: {redos} blocks redone (replayed {graphs['redo_replays']}), "
+          f"launches {launches}, {graphs['reads']} host reads; the eager loop's bits, members 0 "
+          f"and {r - 1} their 2-D accelerated solves' ({secs} s)")
+    _check_member_extrapolation(card, out)
 
 
 def phase_selection_cli(card, tmp, out, x, seed):
@@ -4409,12 +4589,14 @@ def phase_selection_cli(card, tmp, out, x, seed):
 
 def phase_selection(card, tmp, out, seed):
     print(f"[{card}] phase 14: batched solves, restarts, rank sweeps, stability (K1-K3 over a "
-          "member axis), the plain batched paths and the CLI")
+          "member axis), the plain batched paths, the accelerated batch and the member-axis "
+          "extrapolation, the CLI; each batched route graphed and held to the eager loop")
     phase_selection_batched(card, out, seed)
     x = _sel_problem(seed)
     phase_selection_restarts(card, out, x)
     phase_selection_sweep(card, out, x)
     phase_selection_plain(card, out, seed)
+    phase_selection_accel(card, out, x)
     phase_selection_cli(card, tmp, out, x, seed)
 
 
@@ -5646,6 +5828,13 @@ def _mp_ckpt(mesh, x, w, h, cfg, d, sharded):
     return whole, _mp_state_bits(again, whole)
 
 
+def _mp_graph_bits(a, b) -> bool:
+    """Whether two batched results have the same bits (``GRAPH_FIELDS``,
+    the costs and ``converged``): a rank's graphed run and its eager twin."""
+    return all(torch.equal(_bits(getattr(a, f)), _bits(getattr(b, f)))
+               for f in (*GRAPH_FIELDS, "cost")) and torch.equal(a.converged, b.converged)
+
+
 def _mp_paths_rank_main(rank: int, d: str) -> int:
     """One of 18g's four ranks on ``cuda:0`` over gloo (``chip_smoke.py
     --mesh-paths-rank R --mesh-dir D``): on a 1x4 mesh the streamed solve
@@ -5694,19 +5883,22 @@ def _mp_paths_rank_main(rank: int, d: str) -> int:
                        f"tiled_{backend}_h": full.h.cpu().numpy()})
     del tx, w, h
     xs, ws, hs = _mp_batch(0)
-    res, secs, counts = _mp_counts(lambda: nt.solve_batched(xs, ws, hs, cfgs["batched"],
-                                                            mesh=grid))
+    batched = lambda: nt.solve_batched(xs, ws, hs, cfgs["batched"], mesh=grid)  # noqa: E731
+    (res, secs, counts), graphs = _graph_run(lambda: _mp_counts(batched))
     full = nt.gather_result(res, grid, w_spec=(BOTH, None, None), h_spec=(BOTH, None, None))
     rec["batched"] = {"counts": counts, "seconds": secs, "members": int(res.w.shape[0]),
-                      "iterations": res.iterations.tolist()}
+                      "iterations": res.iterations.tolist(), "graphs": graphs,
+                      "eager_bits": _mp_graph_bits(res, _eager(batched))}
     arrays.update(batched_w=full.w.cpu().numpy(), batched_h=full.h.cpu().numpy())
     del xs, ws, hs, res, full
     xsel = _sel_problem(0)
-    sel, secs, counts = _mp_counts(lambda: nt.solve_restarts(
+    restarts = lambda: nt.solve_restarts(  # noqa: E731
         xsel, rank=SEL_SHAPE[2], n_restarts=SEL_RESTARTS, config=cfgs["restarts"], seed=0,
-        mesh=grid))
+        mesh=grid)
+    (sel, secs, counts), graphs = _graph_run(lambda: _mp_counts(restarts))
     rec["restarts"] = {"counts": counts, "seconds": secs, "costs": sel.costs.tolist(),
-                       "best": sel.best_index}
+                       "best": sel.best_index, "graphs": graphs,
+                       "eager_bits": _mp_graph_bits(sel.results, _eager(restarts).results)}
     x, w, h, _ = _mesh_reference()
     for sharded in (False, True):
         tag = "sharded" if sharded else "gathered"
@@ -5922,6 +6114,13 @@ def _mp_4(card, out, twins):
                   f"18g rank {r} {tag}: counts {rr[tag]['counts']}, expected {want}")
         check(rr["batched"]["members"] == BATCH_SHAPE[0] // 4,
               f"18g rank {r}: {rr['batched']['members']} batched members")
+        for tag in ("batched", "restarts"):
+            g = rr[tag]["graphs"]
+            check(rr[tag]["eager_bits"] and g["captures"] >= 1 and g["replays"] >= 1
+                  and g["reads"] == 0,
+                  f"18g rank {r} {tag}: graphs {g}, the eager loop's bits "
+                  f"{rr[tag]['eager_bits']}: expected a capture, replays, no host read and "
+                  "the same bits")
         for tag in ("ckpt gathered", "ckpt sharded"):
             check(rr[tag]["bitwise"], f"18g rank {r} {tag}: the resume differs in bits")
     for tag in ("stream", "transform", "tiled auto", "tiled jnp", "ckpt gathered",
@@ -5969,6 +6168,8 @@ def _mp_4(card, out, twins):
         out["launches"][key] = r0[tag]["counts"]
     rec["four ranks"] = {**held, "batched_fro": bfro, "batched_bitwise_single": bbits,
                          "restarts_cost_rel": srel, "its": its, "wall_s": wall,
+                         "graphs": {tag: [rr[tag]["graphs"] for rr in recs]
+                                    for tag in ("batched", "restarts")},
                          "rank_launches": {tag: [rr[tag]["counts"] for rr in recs]
                                            for tag in ("stream", "tiled auto", "batched",
                                                        "restarts")}}
@@ -5978,7 +6179,8 @@ def _mp_4(card, out, twins):
           f"{BATCH_SHAPE[0] // 4} members a rank, K1/K2 {BATCH_ITERS}/{BATCH_ITERS} a rank "
           f"(bitwise to the single-device batch {bbits}, member rel Frobenius {bfro}); R = "
           f"{SEL_RESTARTS} restarts over 'mr' ({SEL_RESTARTS // 2} a rank) K1/K2/K3 "
-          f"{SEL_ITERS}/{SEL_ITERS}/{SEL_ITERS // 25} a rank, costs rel {srel}; checkpoints "
+          f"{SEL_ITERS}/{SEL_ITERS}/{SEL_ITERS // 25} a rank, costs rel {srel}; the batch "
+          f"and the restarts graphed on every rank, each the rank's eager loop's bits; checkpoints "
           f"2x2 gathered and sharded: every resume bit-equal; held {json.dumps(held)}; it/s "
           f"{json.dumps(its)}")
 
@@ -7242,6 +7444,11 @@ def main(argv=None) -> int:
         # f32 and bf16 state, both factors of the reference in one launch
         "modes": st["modes"],
         "accel_launches": _accel_launches(out["launches"], name),
+        # phase 14g: a [B] momentum, both factors of all members in one launch
+        "members": st["members"],
+        "selection_launches": {run[10:]: counts["extrapolate"]
+                               for run, counts in out["launches"].items()
+                               if run.startswith("selection ") and "extrapolate" in counts},
     })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
     print(f"[{card}] accel summary: {json.dumps(out['accel'])}")

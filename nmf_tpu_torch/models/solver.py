@@ -23,9 +23,11 @@ every device value on the device:
   device sets the pace and a graph gains nothing); a served program keeps
   its graphs across calls in a :class:`GraphCache` of its own, freed with
   it.  A replay runs no wrapper, so it adds the launches its capture
-  recorded (``fused_mu.add_counts``).  The tail block, the CPU, the
-  sharded, batched, streamed, tiled and COO loops run eagerly; a failed
-  capture or replay raises;
+  recorded (``fused_mu.add_counts``).  The batched loop replays its
+  blocks by the same rule over a member axis
+  (:mod:`nmf_tpu_torch.parallel.batched`).  The tail block, the CPU, the
+  sharded, streamed, tiled and COO loops run eagerly; a failed capture or
+  replay raises;
 * with ``thresh == 0`` nothing is read back until the run ends, so exactly
   ``max_iter`` iterations run (nmf.cu:11); with ``thresh > 0`` one scalar
   is read per check to decide whether to stop (JAX stops on the device).
@@ -246,7 +248,8 @@ GRAPH_COUNTS: Dict[str, float] = {"warm_ups": 0, "captures": 0, "replays": 0, "c
 # The graphed accelerated loop's own: rejected full blocks redone eagerly
 # (before the redo's graphs exist) and replayed, and the host's reads of
 # the card (``_host_read``: one a block, one more after a redo where the
-# stop test or live metrics need the redo's cost).
+# stop test or live metrics need the redo's cost; the graphed batched
+# loops' reads too).
 ACCEL_COUNTS: Dict[str, int] = {"redo_eager": 0, "redo_replays": 0, "reads": 0}
 
 # A graph made for one call is made only where it will replay at least this
@@ -313,16 +316,25 @@ _EAGER = False
 
 @contextlib.contextmanager
 def eager_loop():
-    """Run the plain and the accelerated loops' check blocks eagerly on the
-    card too, inside this context: the comparison that holds the captured
-    loops to the eager ones (``chip_smoke.py``, ``probe_timings.py graph``
-    and ``accel``).  No solve enters it by itself."""
+    """Run the plain, the accelerated and the batched loops' check blocks
+    eagerly on the card too, inside this context: the comparison that
+    holds the captured loops to the eager ones (``chip_smoke.py``,
+    ``probe_timings.py graph``, ``accel`` and ``batched``).  No solve
+    enters it by itself."""
     global _EAGER
     _EAGER = True
     try:
         yield
     finally:
         _EAGER = False
+
+
+def _graph_rule(dev: torch.device, work: int) -> bool:
+    """Whether a loop on ``dev`` whose step does ``work`` (M x N x K, times
+    the members on a member axis) may replay graphs: a CUDA device (or the
+    tests' stand-in), outside :func:`eager_loop`, below
+    :data:`GRAPH_MAX_WORK`.  The caller adds its own block count rule."""
+    return not _EAGER and _GRAPHS.applies(dev) and work < GRAPH_MAX_WORK
 
 
 def _layout(t) -> tuple:
@@ -641,8 +653,7 @@ def run_checked_loop(
     runner = None
     n_full = max_iter // check_every
     m, k, n = w.shape[0], w.shape[1], h.shape[1]
-    if (graphs is not False and all_reduce is None and not _EAGER and _GRAPHS.applies(dev)
-            and m * n * k < GRAPH_MAX_WORK):
+    if graphs is not False and all_reduce is None and _graph_rule(dev, m * n * k):
         cls, mode = (_AccelGraph, config) if config.accelerate else (_BlockGraph, need_cost)
         args = (max(config.num_checks, 1), step_fn, cost_fn, check_every, mode)
         if isinstance(graphs, GraphCache) and n_full:

@@ -584,9 +584,10 @@ def solve_sparse_tiled_batched(
     preps = [_prepare_tiled(t, w0s[i], h0s[i], plain, int(chunk), tile, dev, pad_to=t_max)
              for i, t in enumerate(txs)]
     step, cost = _tiled_fns(plain, int(chunk), "plain")
+    # eager, as the 2-D tiled loop (ROADMAP Queue 2 item 5.4)
     res = run_batched_loop([p[0] for p in preps], torch.stack([p[1] for p in preps]),
                            torch.stack([p[2] for p in preps]), config,
-                           per_member_step(step), per_member_cost(cost))
+                           per_member_step(step), per_member_cost(cost), graphs=False)
     info = preps[0][3]
     if (info["mp"], info["np_"]) != (m, n):
         res = dataclasses.replace(res, w=res.w[:, :m].contiguous(), h=res.h[:, :, :n].contiguous())

@@ -87,7 +87,7 @@ _SIGNATURES = {
     "nmf_sweep_info": ([_I, _I, _I, _P], _I),
     # next0, prev0, ex0, n0, next1, prev1, ex1, n1, momentum; eps;
     # state_bf16, device; stream
-    "nmf_extrapolate": ([_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P, _F, _I, _I, _P], _I),
+    "nmf_extrapolate": ([_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P, _I, _F, _I, _I, _P], _I),
 }
 
 

@@ -9,10 +9,10 @@ results, computed on Hopper by hand-written CUDA kernels instead of Pallas.
 * ``kl_cost_fused`` (K3): the KL cost, K1's walk with the cost's terms
   summed in place of the contraction, one partial a block.
 * ``extrapolate_into``: the accelerated loop's extrapolation of both
-  factors against a momentum that stays on the device
-  (``csrc/extrapolate.cu``, one launch, counted in ``EXTRAP_LAUNCHES``);
-  it replaces no Pallas kernel, but the JAX loop's ``_extrap``, which XLA
-  fuses.
+  factors against a momentum that stays on the device, one momentum a
+  member on a member axis (``csrc/extrapolate.cu``, one launch, counted
+  in ``EXTRAP_LAUNCHES``); it replaces no Pallas kernel, but the JAX
+  loop's ``_extrap``, which XLA fuses.
 
 Every precision policy of the TPU kernels: W and H in f32 or bf16 (the
 result takes their dtype); X as an f32 or bf16 tensor or a ``(uint8 codes,
@@ -398,9 +398,14 @@ def _sums(t: torch.Tensor, dim: int) -> torch.Tensor:
     another order than of one member (seen on the H100 at 513 x 32), and
     member i must take the 2-D call's bits.  The B sums of a stack run as
     one graph replay (B host calls a half-step made the batched call
-    host-bound); the result is read before the next call replays it."""
+    host-bound); the result is read before the next call replays it.
+    Inside a capture (the batched loop's graphs) the B sums are captured
+    into that graph with the rest of the step: no nested capture, and no
+    replay of a cached graph whose output a later call would overwrite."""
     if t.dim() == 2:
         return torch.sum(t, dim=dim, dtype=torch.float32)
+    if torch.cuda.is_current_stream_capturing():
+        return _member_sums(t, dim)
     key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype, dim, t.device)
     entry = _SUM_GRAPHS.get(key)
     if entry is None:
@@ -600,11 +605,15 @@ def extrapolate_plain(new: torch.Tensor, old: torch.Tensor, m: torch.Tensor,
                       eps: float = EPS) -> torch.Tensor:
     """The plain version of the extrapolation kernel on one factor:
     ``max(f32(new) + m (f32(new) - f32(old)), f32(eps))`` in the dtype of
-    ``new`` (bf16: rounded to nearest even), ``m`` a 0-d f32 tensor.
-    ``addcmul``'s multiply-add is one FMA on the CPU, so this gives
-    ``models.solver.extrapolate``'s bits there (its host momentum is
-    ``torch.add``'s ``alpha``, which takes no tensor)."""
+    ``new`` (bf16: rounded to nearest even), ``m`` a 0-d f32 tensor, or on
+    a member axis (``new`` and ``old`` stacks ``[B, ...]``) a ``[B]`` one,
+    member i taking ``m[i]``.  ``addcmul``'s multiply-add is one FMA on the
+    CPU, so this gives ``models.solver.extrapolate``'s bits there, each
+    member at its own momentum (its host momentum is ``torch.add``'s
+    ``alpha``, which takes no tensor)."""
     n32 = new.to(torch.float32)
+    if m.dim() == 1:
+        m = m.view(-1, *([1] * (new.dim() - 1)))
     return torch.addcmul(n32, n32 - old.to(torch.float32), m).clamp_min_(float(eps)).to(new.dtype)
 
 
@@ -612,12 +621,14 @@ def extrapolate_into(pairs, m: torch.Tensor, eps: float = EPS) -> None:
     """One accelerated step's carry, in place: for each ``(next, prev,
     ex)`` of ``pairs`` (W's, then H's), ``ex`` <- the extrapolation of
     ``next`` against ``prev`` (:func:`extrapolate_plain`) and ``prev`` <-
-    ``next``.  ``m`` is the momentum, a 0-d f32 tensor that no host reads.
-    ``next`` may be ``ex`` (an H-only step returns its W).
+    ``next``.  ``m`` is the momentum, a 0-d f32 tensor that no host reads,
+    or on a member axis a ``[B]`` one, each pair then ``[B, ...]`` stacks
+    whose member i takes ``m[i]``.  ``next`` may be ``ex`` (an H-only step
+    returns its W).
 
     CPU tensors take the plain version; on the card one launch of
     ``csrc/extrapolate.cu`` does every pair (one or two, of one state
-    dtype, each contiguous), or this raises."""
+    dtype, each contiguous) of every member, or this raises."""
     tensors = [t for pair in pairs for t in pair]
     if _on_cpu(m, *tensors):
         for nxt, prev, ex in pairs:
@@ -631,20 +642,24 @@ def extrapolate_into(pairs, m: torch.Tensor, eps: float = EPS) -> None:
     if dtype not in _STATE_BF16 or any(t.dtype != dtype for t in tensors):
         raise NotImplementedError(f"the extrapolation takes float32 or bfloat16 factors of one "
                                   f"dtype, got {sorted({str(t.dtype) for t in tensors})}")
+    if m.dtype != torch.float32 or m.dim() > 1 or not m.is_contiguous():
+        raise ValueError(f"the momentum must be a 0-d or [B] float32 tensor, got {m.dtype} "
+                         f"{tuple(m.shape)}")
+    members = m.numel()
     for nxt, prev, ex in pairs:
         if not (nxt.shape == prev.shape == ex.shape) or not all(
                 t.is_contiguous() for t in (nxt, prev, ex)):
             raise ValueError("each (next, prev, ex) must be contiguous tensors of one shape")
         if not 1 <= nxt.numel() < 2**31:
             raise ValueError(f"a factor of {nxt.numel()} elements")
-    if m.dtype != torch.float32 or m.dim() != 0:
-        raise ValueError(f"the momentum must be a 0-d float32 tensor, got {m.dtype} "
-                         f"{tuple(m.shape)}")
+        if m.dim() == 1 and (nxt.dim() < 2 or nxt.shape[0] != members):
+            raise ValueError(f"a [{members}] momentum takes [{members}, ...] stacks, got "
+                             f"{tuple(nxt.shape)}")
     (n0, p0, e0), (n1, p1, e1) = pairs[0], pairs[-1]
     size1 = n1.numel() if len(pairs) == 2 else 0
     lib = _lib()
     rc = lib.nmf_extrapolate(n0.data_ptr(), p0.data_ptr(), e0.data_ptr(), n0.numel(),
                              n1.data_ptr(), p1.data_ptr(), e1.data_ptr(), size1, m.data_ptr(),
-                             float(eps), _STATE_BF16[dtype], _index(m), _stream(m))
+                             members, float(eps), _STATE_BF16[dtype], _index(m), _stream(m))
     _raise_on(lib, rc, "extrapolate")
     EXTRAP_LAUNCHES["extrapolate"] += 1

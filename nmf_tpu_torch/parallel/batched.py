@@ -10,14 +10,27 @@ the bits of the 2-D solve of member i.
 
 The semantics are those of the vmapped ``while_loop``: with ``thresh > 0``
 each member stops changing at its own check (a finished member's W and H
-are held by ``torch.where`` while the others run on), and ``iterations``,
-``num_checks``, ``converged``, ``cost`` and ``cost_history`` come back per
-member; one host read of the B relative changes a check decides.  With
+are held by ``torch.where`` under a device mask while the others run on),
+and ``iterations``, ``num_checks``, ``converged``, ``cost`` and
+``cost_history`` come back per member; the stop test runs on the device
+and the host reads one scalar a check, whether any member runs on.  With
 ``thresh == 0`` nothing is read back until the end, and every member runs
 exactly ``max_iter`` iterations.  ``accelerate`` decides acceptance per
-member from one read of the B costs a check block; a block any member
-rejects is redone plain for all members and kept for the rejecting ones,
-as the vmapped ``lax.cond`` selects.
+member; a block any member rejects is redone plain for all members and
+kept for the rejecting ones, as the vmapped ``lax.cond`` selects.
+
+On the card, ``jit(vmap(run_checked_loop))``'s one program becomes CUDA
+graphs over the member axis (:class:`_BatchGraph`, :class:`_BatchAccelGraph`,
+on ``models/solver.py``'s ``_BlockGraph`` and ``_AccelGraph``): a call's
+full check blocks after the first replay a step's graph and the close's,
+where ``solver.MIN_REPLAYS`` blocks replay and B x M x N x K is below
+``solver.GRAPH_MAX_WORK``.  Under ``accelerate`` each member's momentum,
+the accept test, the grow or shrink and the kept carry stay on the device
+(the extrapolation kernel takes a ``[B]`` momentum), the host reads one
+2-vector a block and replays the redo only on a reject.  The eager loop
+(the CPU, ``solver.eager_loop()``, below the rule, the tile-sparse
+batch) gives the same bits; its accelerated form reads the B costs a
+block.
 
 ``backend="auto"`` and ``"autotune"`` resolve by the card's rule for a
 member axis (:func:`nmf_tpu_torch.utils.autotune.rule_pick` with
@@ -46,11 +59,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+import types
 
 import numpy as np
 import torch
 
+from ..models import solver
 from ..models.masked import masked_kl, mu_step_masked
 from ..models.solver import (
     _DTYPES,
@@ -150,11 +164,296 @@ def batched_step_cost(config: SolveConfig):
     return step, cost
 
 
-def _hold(keep: Optional[torch.Tensor], new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """``new`` where a member runs on, ``old`` where it has stopped."""
-    if keep is None:
-        return new
+def _hold(keep: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` where a member runs on, ``old`` where it has stopped: ``keep``
+    is the device's ``[B]`` mask (an all-true mask gives ``new``'s bits)."""
     return torch.where(keep.view(-1, *([1] * (new.dim() - 1))), new, old)
+
+
+def _member_state(g, b: int, n_slots: int, dev: torch.device) -> None:
+    """The member axis's bookkeeping on the device, as attributes of ``g``
+    (a batch graph, or the eager loop's namespace): each member's cost
+    ``[B]`` f32 (NaN: no baseline) and history ``[B, n_slots]`` (NaN:
+    unused), written at the check index ``idx`` the members share, and
+    whether each runs on (``active``), its checks and whether it stopped
+    at ``thresh`` (``done``)."""
+    f32 = dict(dtype=_F32, device=dev)
+    g.cost = torch.empty((b,), **f32)
+    g.hist = torch.empty((b, n_slots), **f32)
+    g.idx = torch.empty((1,), dtype=torch.int64, device=dev)
+    g.active = torch.empty((b,), dtype=torch.bool, device=dev)
+    g.checks = torch.empty((b,), dtype=torch.int64, device=dev)
+    g.done = torch.empty((b,), dtype=torch.bool, device=dev)
+    _reset_members(g)
+
+
+def _reset_members(g) -> None:
+    """:func:`_member_state`'s start, in place."""
+    g.cost.fill_(float("nan"))
+    g.hist.fill_(float("nan"))
+    g.idx.zero_()
+    g.active.fill_(True)
+    g.checks.zero_()
+    g.done.fill_(False)
+
+
+def _commit(g, sel: torch.Tensor, cost: torch.Tensor, col: torch.Tensor, thresh: float) -> None:
+    """A check's close for the members ``sel`` of the bookkeeping ``g``
+    (:func:`_member_state`), on the device: their new ``cost`` into the
+    history at column ``col`` (a one-element int64 tensor), their check
+    count ``col + 1``, and under ``thresh > 0`` their stop, the relative
+    change compared in f32 as the 2-D loop compares it (NaN, a first
+    check, never stops).  The others keep every value.  ``sel`` may be
+    ``g.active`` itself: it is read before the stop writes it."""
+    new = _hold(sel, cost, g.cost)
+    g.hist.index_copy_(1, col, _hold(sel, new[:, None], g.hist.index_select(1, col)))
+    g.checks.copy_(torch.where(sel, col + 1, g.checks))
+    if thresh > 0.0:
+        stop = (torch.abs(g.cost - new) / torch.abs(new) < thresh) & sel
+        g.done.logical_or_(stop)
+        g.active.logical_and_(~stop)
+    g.cost.copy_(new)
+
+
+def member_close(g, x, w, h, w0, h0, cost_fn, need_cost: bool, thresh: float):
+    """A check block's close over the member axis on device tensors alone,
+    the body of the vmapped ``while_loop`` after its steps: under ``thresh
+    > 0`` the members that stopped keep their block-start state ``(w0,
+    h0)`` (the vmapped select); with ``need_cost`` the running members'
+    costs, history, checks and stops (:func:`_commit`).  Nothing is read
+    back to the host: the eager loop runs it, and the captured loop as its
+    close's graph.  Returns ``(w, h)``."""
+    if thresh > 0.0:
+        w, h = _hold(g.active, w, w0), _hold(g.active, h, h0)
+    if need_cost:
+        _commit(g, g.active, cost_fn(x, w, h).to(_F32), g.idx, thresh)
+        g.idx.add_(1)
+    return w, h
+
+
+def _member_result(w, h, g, it: int, check_every: int, checked: bool, momentum,
+                   copy: bool = False) -> SolveResult:
+    """The result from the device bookkeeping ``g`` after ``it`` iterations:
+    where every block ``checked``, a member that stopped at check c ran
+    ``min(c * check_every, it)`` iterations; else every member ran ``it``.
+    ``copy`` (``g`` a graph's): nothing returned aliases its buffers."""
+    checks = g.checks
+    iters = (checks * check_every).clamp_max_(it) if checked else torch.full_like(checks, it)
+    if copy:
+        w, h = w.clone(), h.clone()
+    return SolveResult(
+        w=w,
+        h=h,
+        iterations=iters.to(torch.int32).cpu(),
+        cost=g.cost.clone() if copy else g.cost,
+        cost_history=g.hist.clone() if copy else g.hist,
+        num_checks=checks.to(torch.int32).cpu(),
+        converged=g.done.cpu(),
+        momentum=momentum,
+    )
+
+
+def _graphed(graphs: bool, w: torch.Tensor, h: torch.Tensor, n_full: int) -> bool:
+    """Whether a batched loop replays graphs: ``graphs``, more than
+    ``MIN_REPLAYS`` full blocks and the run's rule for a step's work, which
+    on a member axis is B x M x N x K (``solver._graph_rule``)."""
+    b, m, k = w.shape
+    return bool(graphs) and n_full > solver.MIN_REPLAYS and solver._graph_rule(
+        w.device, b * m * k * h.shape[-1])
+
+
+class _BatchGraph(solver._BlockGraph):
+    """The batched loop's full check blocks over static state, the
+    counterpart of ``jit(vmap(run_checked_loop))``: ``_BlockGraph``'s step
+    (the stacked step, ``chunk`` replays) and a close of
+    :func:`member_close` on the graph's own buffers: W and H, the
+    block-start stacks ``w0``/``h0`` (under ``thresh > 0``) and the member
+    bookkeeping (:func:`_member_state`).  The host reads nothing with
+    ``thresh == 0``, and one scalar a check under ``thresh > 0``, whether
+    any member runs on."""
+
+    def __init__(self, x, w, h, n_slots: int, step_fn, cost_fn, chunk: int, need_cost: bool,
+                 thresh: float):
+        super().__init__(x, w, h, n_slots, step_fn, cost_fn, chunk, need_cost, own_x=False)
+        _member_state(self, w.shape[0], n_slots, w.device)
+        self.thresh = thresh
+        self.starts = (torch.empty_like(w), torch.empty_like(h)) if thresh > 0.0 else ()
+
+    def state(self):
+        return (self.w, self.h, *self.starts, self.cost, self.hist, self.idx, self.active,
+                self.checks, self.done)
+
+    def load(self, x, w, h) -> None:
+        self.x = x
+        for buf, t in zip((self.w, self.h) + self.starts, (w, h, w, h)):
+            buf.copy_(t)
+        _reset_members(self)
+
+    def _close(self) -> None:
+        w, h = member_close(self, self.x, self.w, self.h, *(self.starts or (None, None)),
+                            self.cost_fn, self.need_cost, self.thresh)
+        for buf, t in zip(self.starts, (w, h)):
+            buf.copy_(t)
+        for buf, t in zip((self.w, self.h), (w, h)):
+            if t is not buf:
+                buf.copy_(t)
+
+
+def run_batched_loop(x, w, h, config: SolveConfig, step_fn, cost_fn,
+                     graphs: bool = True) -> SolveResult:
+    """The check-blocked loop over a member axis: ``jax.vmap`` of
+    ``run_checked_loop`` (module docstring).  ``step_fn`` and ``cost_fn``
+    take and give stacks (the cost ``[B]`` f32).  On the card, where
+    ``graphs`` and :func:`_graphed` allow it, the full blocks after the
+    first replay CUDA graphs (:class:`_BatchGraph`; under ``accelerate``
+    :class:`_BatchAccelGraph`); ``graphs=False`` runs every block eagerly
+    (the tile-sparse batch)."""
+    if config.accelerate:
+        return _run_batched_accel(x, w, h, config, step_fn, cost_fn, graphs)
+    b, dev = w.shape[0], w.device
+    max_iter, check_every = int(config.max_iter), int(config.check_every)
+    thresh = float(config.thresh)
+    need_cost = config.track_cost or thresh > 0.0
+    n_slots = max(config.num_checks, 1)
+    runner = None
+    if _graphed(graphs, w, h, max_iter // check_every):
+        runner = g = _BatchGraph(x, w, h, n_slots, step_fn, cost_fn, check_every, need_cost,
+                                 thresh)
+        runner.load(x, w, h)
+    else:
+        g = types.SimpleNamespace()
+        _member_state(g, b, n_slots, dev)
+    it, running = 0, True
+    while it < max_iter and running:
+        chunk = min(check_every, max_iter - it)
+        if runner is not None and chunk == check_every:
+            runner.block()
+            w, h = runner.w, runner.h
+        else:
+            w0, h0 = w, h
+            for _ in range(chunk):
+                w, h = step_fn(w, h, x)
+            w, h = member_close(g, x, w, h, w0, h0, cost_fn, need_cost, thresh)
+        it += chunk
+        if thresh > 0.0:
+            # the one host read a check: whether any member runs on
+            any_active = g.active.any()
+            running = bool(solver._host_read(any_active) if runner else any_active)
+    nan = torch.full((b,), float("nan"), dtype=_F32, device=dev)
+    return _member_result(w, h, g, it, check_every, need_cost, nan, copy=runner is not None)
+
+
+class _BatchAccelGraph(solver._AccelGraph):
+    """The accelerated batched loop's full check blocks over static state,
+    ``_AccelGraph``'s parts over a member axis: each member's momentum in
+    ``m`` ``[B]`` (one launch of the extrapolation kernel for both factors
+    of all members), the bookkeeping of :func:`_member_state`, and the
+    block-start carry ``we0``/``he0`` for the members that stopped.
+
+    * ``"accel"``: the accelerated steps, then :meth:`_accel_close`: the
+      costs, the accept test ``c <= cost`` per running member (NaN
+      rejects), the accepting members' momentum grown and their check
+      closed; a rejecting member's W and H back to the block start, a
+      stopped member's whole state held;
+    * ``"redo"`` on a reject only: the plain step from there for all
+      members, kept for the rejecting ones (the vmapped ``lax.cond``'s
+      select), and :meth:`_redo_close`: their costs, closes, momentum
+      shrunk and carry restarted at the redo's iterate.
+
+    The host reads ``flags`` (no member rejected, any member runs on) once
+    a block, and once more after a redo under ``thresh > 0``.  The values
+    are :func:`_run_batched_accel`'s eager loop's, bit for bit."""
+
+    def __init__(self, x, w, h, n_slots: int, step_fn, cost_fn, chunk: int,
+                 config: SolveConfig):
+        super().__init__(x, w, h, n_slots, step_fn, cost_fn, chunk, config, own_x=False)
+        b, dev = w.shape[0], w.device
+        _member_state(self, b, n_slots, dev)
+        self.we0, self.he0 = torch.empty_like(w), torch.empty_like(h)
+        self.m = torch.empty((b,), dtype=_F32, device=dev)
+        self.rej = torch.empty((b,), dtype=torch.bool, device=dev)
+        self.flags = torch.empty((2,), dtype=_F32, device=dev)
+        self.thresh = float(config.thresh)
+
+    def state(self):
+        return (self.w, self.h, self.we, self.he, self.w0, self.h0, self.we0, self.he0, self.m,
+                self.rej, self.flags, self.cost, self.hist, self.idx, self.active, self.checks,
+                self.done)
+
+    def load(self, x, w, h, m0: float) -> None:
+        """A call's X and start: W and H into every stack, the seed costs
+        taken on the device, each member's momentum ``m0``."""
+        self.x = x
+        for bufs, t in (((self.w, self.we, self.w0, self.we0), w),
+                        ((self.h, self.he, self.h0, self.he0), h)):
+            for buf in bufs:
+                buf.copy_(t)
+        _reset_members(self)
+        self.cost.copy_(self.cost_fn(self.x, self.w, self.h).to(_F32))
+        self.m.fill_(m0)
+
+    def _accel_close(self) -> None:
+        c1 = self.cost_fn(self.x, self.w, self.h).to(_F32)
+        run = self.active.clone()            # the members running this block
+        accept = c1 <= self.cost             # false for NaN
+        ok, rej = accept & run, ~accept & run
+        self.rej.copy_(rej)
+        self.m.copy_(torch.where(ok, torch.minimum(self.m * self.grow, self.m_max), self.m))
+        _commit(self, ok, c1, self.idx, self.thresh)
+        self.idx.add_(1)
+        for t, t0, ex, ex0 in ((self.w, self.w0, self.we, self.we0),
+                               (self.h, self.h0, self.he, self.he0)):
+            t.copy_(_hold(ok, t, t0))
+            t0.copy_(t)
+            ex.copy_(_hold(run, ex, ex0))
+            ex0.copy_(ex)
+        self.flags.copy_(torch.stack((~rej.any(), self.active.any())).to(_F32))
+
+    def _redo_close(self) -> None:
+        c2 = self.cost_fn(self.x, self.w, self.h).to(_F32)
+        rej = self.rej
+        self.m.copy_(torch.where(rej, self.m * self.shrink, self.m))
+        _commit(self, rej, c2, self.idx - 1, self.thresh)
+        for t, t0, ex, ex0 in ((self.w, self.w0, self.we, self.we0),
+                               (self.h, self.h0, self.he, self.he0)):
+            t.copy_(_hold(rej, t, t0))
+            t0.copy_(t)
+            ex.copy_(_hold(rej, t, ex))
+            ex0.copy_(ex)
+        self.flags.copy_(torch.stack((torch.zeros((), dtype=torch.bool, device=rej.device),
+                                      self.active.any())).to(_F32))
+
+
+def _run_batched_accel_graphed(runner: _BatchAccelGraph, x, w, h,
+                               config: SolveConfig) -> SolveResult:
+    """:func:`_run_batched_accel` on the card through a
+    :class:`_BatchAccelGraph`: the same start, decisions and bits, with one
+    host read a check block (two on a rejected block under ``thresh >
+    0``).  Nothing returned aliases a buffer of the runner."""
+    max_iter, check_every = int(config.max_iter), int(config.check_every)
+    thresh = float(config.thresh)
+    runner.load(x, w, h, float(np.float32(config.accel_momentum)))
+    it, running = 0, True
+    while it < max_iter and running:
+        chunk = min(check_every, max_iter - it)
+        read = runner.run_block(chunk, read_redo=thresh > 0.0)
+        it += chunk
+        running = thresh == 0.0 or bool(read[1])
+    return _member_result(runner.w, runner.h, runner, it, check_every, True, runner.m.clone(),
+                          copy=True)
+
+
+def _extrapolate_members(new, old, m: np.ndarray, eps: float) -> torch.Tensor:
+    """:func:`extrapolate` with member i's momentum ``m[i]``: one pass a
+    distinct momentum, each member taking its own, so every member has the
+    bits of the 2-D extrapolation (the eager loop's; the graphed loop
+    launches the extrapolation kernel once for all members)."""
+    vals = np.unique(m)
+    out = extrapolate(new, old, float(vals[0]), eps)
+    for v in vals[1:]:
+        sel = torch.from_numpy(m == v).to(new.device)
+        out = _hold(sel, extrapolate(new, old, float(v), eps), out)
+    return out
 
 
 def _result(w, h, iters, cost, hist, checks, done, momentum) -> SolveResult:
@@ -170,66 +469,19 @@ def _result(w, h, iters, cost, hist, checks, done, momentum) -> SolveResult:
     )
 
 
-def run_batched_loop(x, w, h, config: SolveConfig, step_fn, cost_fn) -> SolveResult:
-    """The check-blocked loop over a member axis: ``jax.vmap`` of
-    ``run_checked_loop`` (module docstring).  ``step_fn`` and ``cost_fn``
-    take and give stacks (the cost ``[B]`` f32)."""
-    if config.accelerate:
-        return _run_batched_accel(x, w, h, config, step_fn, cost_fn)
-    b, dev = w.shape[0], w.device
-    max_iter, check_every = int(config.max_iter), int(config.check_every)
-    thresh = float(config.thresh)
-    need_cost = config.track_cost or thresh > 0.0
-    hist = torch.full((b, max(config.num_checks, 1)), float("nan"), dtype=_F32, device=dev)
-    cost = torch.full((b,), float("nan"), dtype=_F32, device=dev)
-    active = np.ones(b, bool)
-    iters, checks, done = np.zeros(b, np.int64), np.zeros(b, np.int64), np.zeros(b, bool)
-    it = chk = 0
-    while it < max_iter and active.any():
-        chunk = min(check_every, max_iter - it)
-        # members that stopped keep their state (the vmapped while_loop's select)
-        keep = None if active.all() else torch.from_numpy(active).to(dev)
-        w0, h0 = w, h
-        for _ in range(chunk):
-            w, h = step_fn(w, h, x)
-        w, h = _hold(keep, w, w0), _hold(keep, h, h0)
-        it += chunk
-        iters[active] = it
-        if need_cost:
-            prev = cost
-            cost = _hold(keep, cost_fn(x, w, h).to(_F32), prev)
-            hist[:, chk] = _hold(keep, cost, hist[:, chk])
-            chk += 1
-            checks[active] = chk
-            if thresh > 0.0:
-                # one host read of the B relative changes, compared in f32
-                # as the 2-D loop compares; NaN (a first check) never stops
-                stop = (torch.abs(prev - cost) / torch.abs(cost) < thresh).cpu().numpy()
-                stop &= active
-                done |= stop
-                active &= ~stop
-    nan = torch.full((b,), float("nan"), dtype=_F32, device=dev)
-    return _result(w, h, iters, cost, hist, checks, done, nan)
-
-
-def _extrapolate_members(new, old, m: np.ndarray, eps: float) -> torch.Tensor:
-    """:func:`extrapolate` with member i's momentum ``m[i]``: one pass a
-    distinct momentum, each member taking its own, so every member has the
-    bits of the 2-D extrapolation."""
-    vals = np.unique(m)
-    out = extrapolate(new, old, float(vals[0]), eps)
-    for v in vals[1:]:
-        sel = torch.from_numpy(m == v).to(new.device)
-        out = _hold(sel, extrapolate(new, old, float(v), eps), out)
-    return out
-
-
-def _run_batched_accel(x, w, h, config: SolveConfig, step_fn, cost_fn) -> SolveResult:
+def _run_batched_accel(x, w, h, config: SolveConfig, step_fn, cost_fn,
+                       graphs: bool = True) -> SolveResult:
     """``_run_accel_loop`` over a member axis: per-member momentum, costs
-    and accept/reject, decided on the host from one read of the B costs a
-    check block (two when a member rejects)."""
+    and accept/reject.  On the card, by :func:`_graphed`, through a
+    :class:`_BatchAccelGraph`; else this eager loop, the graphed loop's
+    reference, decides on the host from one read of the B costs a check
+    block (two when a member rejects)."""
     b, dev = w.shape[0], w.device
     max_iter, check_every = int(config.max_iter), int(config.check_every)
+    if _graphed(graphs, w, h, max_iter // check_every):
+        runner = _BatchAccelGraph(x, w, h, max(config.num_checks, 1), step_fn, cost_fn,
+                                  check_every, config)
+        return _run_batched_accel_graphed(runner, x, w, h, config)
     thresh = np.float32(config.thresh)
     eps = config.eps
     m = np.full(b, np.float32(config.accel_momentum), np.float32)

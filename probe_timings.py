@@ -8,6 +8,7 @@
     python3 probe_timings.py sass --root PATH          # K1-K3's R=16 SASS under PATH
     python3 probe_timings.py graph                     # the check-block graphs against eager
     python3 probe_timings.py accel                     # the accelerated loop's graphs
+    python3 probe_timings.py batched                   # the batched loop's graphs
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -77,6 +78,25 @@ cost, and the wall to that cost: the accelerated solve stopped there
 (graphed and eager) against the plain graphed solve, three rounds in
 turns.  One JSON line a policy; no gate (``chip_smoke.py`` holds the bits).
 
+``batched``: the batched loop's graphs (``parallel/batched.py``) against
+the eager batched loop (``solver.eager_loop``), in turns (three pairs after
+a warm run of each, each graphed run with its graph counts, then one
+profiled run of each for the device's busy share), in problem-it/s
+(members x iterations over host seconds): ``solve_restarts`` R = 16 at
+512 x 1024, K=32, 100 iterations (``chip_smoke.SEL_SHAPE``) on ``auto``
+(batched cuBLAS by rule) and on ``pallas``; ``solve_rank_sweep`` at
+``chip_smoke.SWEEP_RANKS``, and ``rank_stability``'s sweep at
+``STAB_RANKS`` x ``STAB_RESTARTS``, on ``auto``; the masked batch of 16 x
+513 x 2000, K=32, 50 iterations, a check every 10 (plain ops member by
+member); the accelerated restarts (R = 16, the default momentum, 100
+iterations); config 4 (128 x 513 x 2000, K=32, 100 iterations, B x M x N x
+K = 4.20e9, just under ``GRAPH_MAX_WORK``) on ``pallas`` (K1/K2) and
+``auto`` (batched cuBLAS), and with 160 members (5.25e9, past it) with
+the limit lifted.  Each case also at three times its iterations, in turns,
+for a step's time alone (the difference over the extra iterations: the
+set-up, the first block and the capture taken out).  One JSON line a
+case; no gate (``chip_smoke.py`` phase 14 holds the bits).
+
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
 """
@@ -88,6 +108,8 @@ import pathlib
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
+# ``batched``: config 4's members past GRAPH_MAX_WORK (160 x 513 x 2000 x 32)
+BATCHED_WIDE_MEMBERS = 160
 
 
 def _smoke():
@@ -466,6 +488,90 @@ def accel(cs, card):
     tmp.cleanup()
 
 
+def batched(cs, card):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import solver
+
+    x = cs._sel_problem(0)
+    m, n, k = cs.SEL_SHAPE
+    r, iters = cs.SEL_RESTARTS, cs.SEL_ITERS
+    auto = nt.SolveConfig(max_iter=iters, check_every=25)
+    rng = np.random.RandomState(15)
+    bm, mm, mn, mk = cs.MASKED_MEMBERS, cs.BATCH_SHAPE[1], cs.BATCH_SHAPE[2], cs.BATCH_SHAPE[3]
+    xm = np.maximum(rng.rand(bm, mm, mn).astype(np.float32), np.float32(cs.EPS))
+    wm, hm = rng.rand(bm, mm, mk).astype(np.float32), rng.rand(bm, mk, mn).astype(np.float32)
+    masks = (rng.rand(bm, mm, mn) >= cs.MASK_MISSING).astype(np.float32)
+    mcfg = nt.SolveConfig(max_iter=cs.PLAIN_ITERS, check_every=cs.MASKED_CHECK)
+    b4, m4, n4, k4 = cs.BATCH_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(0)
+    big = BATCHED_WIDE_MEMBERS
+    x4, w4, h4 = (torch.rand(s, generator=g, device="cuda").clamp_min_(cs.EPS)
+                  for s in ((big, m4, n4), (big, m4, k4), (big, k4, n4)))
+    c4 = nt.SolveConfig(max_iter=cs.BATCH_ITERS, check_every=25, track_cost=False)
+    stab_ranks = [rk for rk in cs.STAB_RANKS for _ in range(cs.STAB_RESTARTS)]
+    restarts = lambda c: nt.solve_restarts(  # noqa: E731
+        x, rank=k, n_restarts=r, config=c, seed=0, device="cuda")
+    # name -> (members, its config, the call of a config)
+    cases = {
+        "restarts auto": (r, auto, restarts),
+        "restarts pallas": (r, dataclasses.replace(auto, backend="pallas"), restarts),
+        "sweep auto": (len(cs.SWEEP_RANKS), auto, lambda c: nt.solve_rank_sweep(
+            x, cs.SWEEP_RANKS, c, seed=0, device="cuda")),
+        "stability sweep auto": (len(stab_ranks), auto, lambda c: nt.solve_rank_sweep(
+            x, stab_ranks, c, seed=0, device="cuda")),
+        "masked": (bm, mcfg, lambda c: nt.solve_batched(xm, wm, hm, c, mask=masks,
+                                                        device="cuda")),
+        "accelerated restarts auto": (r, dataclasses.replace(auto, accelerate=True), restarts),
+        "config 4 pallas": (b4, dataclasses.replace(c4, backend="pallas"),
+                            lambda c: nt.solve_batched(x4[:b4], w4[:b4], h4[:b4], c,
+                                                       device="cuda")),
+        "config 4 auto": (b4, c4, lambda c: nt.solve_batched(x4[:b4], w4[:b4], h4[:b4], c,
+                                                             device="cuda")),
+        # past GRAPH_MAX_WORK (B x M x N x K 5.25e9), the limit lifted
+        f"config 4 x {big} members pallas, limit lifted": (
+            big, dataclasses.replace(c4, backend="pallas"),
+            lambda c: nt.solve_batched(x4, w4, h4, c, device="cuda")),
+        f"config 4 x {big} members auto, limit lifted": (
+            big, c4, lambda c: nt.solve_batched(x4, w4, h4, c, device="cuda")),
+    }
+    tmp = tempfile.TemporaryDirectory(prefix="nmf_probe_")
+    limit = solver.GRAPH_MAX_WORK
+    for name, (members, cfg, call) in cases.items():
+        if "lifted" in name:
+            solver.GRAPH_MAX_WORK = float("inf")
+        try:
+            its = cfg.max_iter
+            rec = _turns(cs, tmp.name, lambda: call(cfg), members * its, pairs=3)
+            # a step alone: the same call at 3x the iterations, in turns;
+            # (t(3n) - t(n)) / 2n iterations, the set-up, the first block
+            # and the capture taken out
+            deep = dataclasses.replace(cfg, max_iter=3 * its)
+            secs = {tag: {its: [], 3 * its: []} for tag in ("graphed", "eager")}
+            for i in range(3):
+                for eager in ((False, True) if i % 2 == 0 else (True, False)):
+                    for c in (cfg, deep):
+                        secs["eager" if eager else "graphed"][c.max_iter].append(
+                            _run(cs, lambda c=c: call(c), eager)[0])
+            step = {tag: (float(np.median(v[3 * its])) - float(np.median(v[its])))
+                    / (2 * its) * 1e3 for tag, v in secs.items()}
+        finally:
+            solver.GRAPH_MAX_WORK = limit
+        med = {tag: float(np.median(v["per_s"])) for tag, v in rec.items()}
+        work = members * cfg.max_iter
+        print(json.dumps({"card": card, "probe": "batched", "case": name, "members": members,
+                          "problem_iters": work, "graphed_over_eager":
+                          med["graphed"] / med["eager"], "step_ms": step,
+                          "step_eager_over_graphed": step["eager"] / step["graphed"],
+                          "secs_at_depths": secs, **rec}), flush=True)
+    tmp.cleanup()
+
+
 def sass(cs, card, root):
     import collections
     import re
@@ -503,7 +609,7 @@ def sass(cs, card, root):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass",
-                                      "graph", "accel"))
+                                      "graph", "accel", "batched"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -529,6 +635,8 @@ def main(argv=None) -> int:
         graph(cs, card)
     elif args.probe == "accel":
         accel(cs, card)
+    elif args.probe == "batched":
+        batched(cs, card)
     else:
         kl(cs, card, args.root)
     return 0

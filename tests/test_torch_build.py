@@ -407,7 +407,8 @@ def test_kernel_digest_compare_allows_named_kernels(tmp_path, other, rc):
     assert _digest_module().main(["--compare", str(a), str(b), "--changed", "kl_cost"]) == rc
 
 
-@pytest.mark.parametrize("argv", [["sweep-per"], ["flagship"], ["kl"], ["graph"], ["accel"]])
+@pytest.mark.parametrize("argv", [["sweep-per"], ["flagship"], ["kl"], ["graph"], ["accel"],
+                                  ["batched"]])
 def test_probe_timings_needs_a_card(argv, capsys):
     """probe_timings.py measures on the card only: without one it exits 1
     and prints no result."""
