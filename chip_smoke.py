@@ -118,8 +118,13 @@ phase 17.
    policy's instance, byte-identical factors on a rerun, the cost against
    the ``backend="jnp"`` tiled solve and (float32) the dense
    ``clamp_inputs=False`` solve through K1-K3, iterations/s of all three;
-   once at K=256 ``bfloat16``, and once with int8 tiles (the plain sweep by
-   rule, 0 launches);
+   once at K=256 ``bfloat16``, once with int8 tiles (the plain sweep by
+   rule, 0 launches) and once ragged (8152 x 8120, ``float32``).  Each
+   policy's solve, the int8 one and the ragged one replay CUDA graphs (the
+   first of 8 blocks eager), and each is held to the same call on the
+   eager loop bit for bit (w, h, history, counts) with the same K5
+   launches, per target and per Mode: a replay adds what its capture
+   recorded;
 9. oocore: K1/K2 ``numerator_only`` in every mode against the plain
    numerators at phase 3's shapes, the streamed block 1025 x 65408 x 32
    (timed and its instance traced there) and the ragged last block
@@ -172,7 +177,9 @@ phase 17.
    cost against the ``jnp`` accelerated solve (1e-3 / 1e-4), it/s.  (c) The
    tile-sparse solve at 8192^2, K=128, 200 iterations, f32 and ``bfloat16``:
    K5 launched ``iterations + 25 x rejects`` times a sweep, a bitwise
-   rerun, the cost against the ``jnp`` tiled accelerated solve.  (d) The
+   rerun, the cost against the ``jnp`` tiled accelerated solve; graphed,
+   held to the eager loop bit for bit (momentum too) with its K5 launches
+   per Mode, the rejects' redos eager or replayed counted.  (d) The
    streamed solve at the hour of audio, 4 iterations, a check every 2, f32
    and int8 X: blocks x (iterations + 2 x rejects) launches of K1 and K2
    ``numerator_only``, blocks x (1 + checks + rejects) of K3, the cost
@@ -270,8 +277,10 @@ phase 17.
    host consensus's seconds apart.  (e) The plain paths, no launch:
    ``solve_batched(mask=)`` 16 x 513 x 2000 with 20% missing, each cost
    within 1e-5 of the member's ``solve_masked``; ``solve_sparse_tiled_batched``
-   of 4 members of phase 8's layout cut to 4096^2, K=128, each within
-   1e-5 of its ``solve_sparse_tiled``; and a ``thresh=1e-4`` batch of 8
+   of 4 members of phase 8's layout cut to 4096^2, K=128, a check every
+   10, each within 1e-5 of its ``solve_sparse_tiled``, plain and
+   accelerated, each graphed and held to the eager loop bit for bit; and a
+   ``thresh=1e-4`` batch of 8
    whose members stop at different iterations, each its own solve's count
    and bits.  (f) The CLI, four subprocesses at once: ``batch`` on 16
    files, ``select --ranks 8,16,24,32 --stability -o``, ``run --restarts
@@ -294,7 +303,9 @@ phase 17.
    at (b)'s shape checkpointed every 5 of 10 iterations, blocks x 10 /
    blocks x 10 / blocks x 2 launches, stopped at 5 and resumed bit-equal;
    (e) the checkpointed tile-sparse solve at 8192^2, K=128: 200 + 200 K5
-   launches, the straight tiled solve's bits, resumed bit-equal; (f)
+   launches, the straight tiled solve's bits, resumed bit-equal; and in
+   two segments of 100, each replaying 3 of its 4 blocks, the bits of the
+   same run on the eager loop and of the straight solve; (f)
    ``live_metrics`` on the reference solve: 200/200/8 launches, the
    factors bit-equal to live off, the 8 emissions the history, it/s on and
    off in turns; (g) ``stage_timings`` at the reference shape (ms) and a
@@ -523,6 +534,7 @@ HBM_BYTES_PER_S = 3.35e12
 # RETUNE_r05 cells tile_sparse_*): m, n, k, tile edge, occupancy, seed
 TS_MAIN = (8192, 8192, 128, 128, 0.08, 0)
 TS_ITERS = 200
+TS_RAGGED = (40, 72)     # rows and columns cut from TS_MAIN for the ragged solve
 # CLI tiers: name -> extra flags (the names of phase 3's modes where they match)
 TIERS = {
     "float32": [],
@@ -1876,6 +1888,34 @@ def _counted(fn):
     return res, dict(ts.LAUNCHES), dict(ts.PLAIN_CALLS), dict(fused_mu.LAUNCHES)
 
 
+def _ts_graphed(out, where, fn, blocks):
+    """(result, host seconds, K5 launches, K5's pass-1 launches per Mode,
+    graph counts) of the tile-sparse solve ``fn()`` (``(result, seconds)``)
+    on the graphed route, every count set to 0 just before: no plain call
+    and no K1-K3 launch, ``blocks`` full blocks, the first eager and the
+    others replayed, and (accelerated) the extrapolation kernel launched
+    once an iteration.  Then the same call inside ``eager_loop``: the same
+    K5 launches, per target and per Mode, and the same bits
+    (``GRAPH_FIELDS``).  The graph counts list the extrapolation's
+    launches under ``extrapolate``."""
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    (((res, secs), per_mode), launches, plain_calls, dense), graphs = _graph_run(
+        lambda: _counted(lambda: sweep_counts(fn)))
+    extrap = fused_mu.EXTRAP_LAUNCHES["extrapolate"]
+    check(not any(plain_calls.values()) and not any(dense.values()),
+          f"{where}: plain calls {plain_calls}, K1-K3 launches {dense}")
+    check(extrap == (int(res.iterations) if not np.isnan(float(res.momentum)) else 0),
+          f"{where}: {extrap} extrapolation launches for {int(res.iterations)} iterations")
+    (((eager, _), e_mode), e_launches, e_plain, _) = _eager(
+        lambda: _counted(lambda: sweep_counts(fn)))
+    check(e_launches == launches and e_mode == per_mode and e_plain == plain_calls,
+          f"{where}: the eager loop launched K5 {e_launches} (per Mode {e_mode}), graphed "
+          f"{launches} ({per_mode})")
+    _hold_graphed(out, where, res, graphs, eager, blocks)
+    return res, secs, launches, per_mode, {**graphs, "extrapolate": extrap}
+
+
 def _check_history(res, where):
     hist = res.cost_history.cpu().numpy()[: int(res.num_checks)]
     check(int(res.iterations) == TS_ITERS and hist.shape == (TS_ITERS // 25,),
@@ -1901,16 +1941,14 @@ def phase_tilesparse_solves(card, out):
         # warm both paths once (the library, the allocator, cuBLAS)
         for backend in ("pallas", "jnp"):
             _ts_solve(tx, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2))
-        ((res, secs), per_mode), launches, plain_calls, dense = _counted(
-            lambda: sweep_counts(lambda: _ts_solve(tx, w, h, cfg)))
         where = f"tiled solve [{dtype}]"
+        res, secs, launches, per_mode, graphs = _ts_graphed(
+            out, where, lambda: _ts_solve(tx, w, h, cfg), TS_ITERS // 25)
         check(launches == want, f"{where}: K5 launches {launches}, expected {want}")
         mode = K5_MODE[dtype]
         check(all(counts == [TS_ITERS if m == mode else 0 for m in MODES]
                   for counts in per_mode.values()),
               f"{where}: K5 pass-1 launches per Mode {per_mode}, expected {TS_ITERS} {mode}")
-        check(not any(plain_calls.values()) and not any(dense.values()),
-              f"{where}: plain calls {plain_calls}, K1-K3 launches {dense}")
         out["launches"][f"tiled {dtype}"] = launches
         hist = _check_history(res, where)
         res2, secs2 = _ts_solve(tx, w, h, cfg)
@@ -1923,12 +1961,13 @@ def phase_tilesparse_solves(card, out):
         check(rel <= limit, f"{where}: cost {cost} vs the jnp tiled solve {float(plain.cost)}: "
               f"rel {rel} (limit {limit})")
         line = (f"[{card}] {where}: K5 {launches} ({mode} instance), cost {cost}, history {hist.tolist()}, "
-                f"byte-identical on rerun; {TS_ITERS / secs} and {TS_ITERS / secs2} it/s through "
+                f"byte-identical on rerun; graphed (graphs {graphs}), the eager loop's bits and "
+                f"K5 launches per Mode; {TS_ITERS / secs} and {TS_ITERS / secs2} it/s through "
                 f"K5, {TS_ITERS / p_secs} it/s plain sweep (backend='jnp', cost {float(plain.cost)}, "
                 f"rel {rel}, limit {limit})")
         out["tiled"][dtype] = {"k5_its": [TS_ITERS / secs, TS_ITERS / secs2],
                                "plain_its": TS_ITERS / p_secs, "rel_vs_plain": rel,
-                               "impl": IMPL.get(mode, "simt")}
+                               "impl": IMPL.get(mode, "simt"), "graphs": graphs}
         if dtype == "float32":
             # the exact-zero contract: the dense solve through K1-K3 with
             # clamp_inputs=False on clamped factors
@@ -1966,12 +2005,26 @@ def phase_tilesparse_solves(card, out):
           f"{TS_ITERS / secs} it/s (host clock incl. the tile upload)")
     # int8 tiles: per-tile uint8 codes take the plain sweep by rule
     cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, precision=nt.Precision(x_dtype="int8"))
-    (res, secs), launches, plain_calls, dense = _counted(lambda: _ts_solve(tx, w, h, cfg))
-    check(not any(launches.values()) and not any(plain_calls.values()) and not any(dense.values()),
-          f"int8 tiles: launches {launches}, plain calls {plain_calls}, K1-K3 {dense}")
+    res, secs, launches, _, graphs = _ts_graphed(
+        out, "tiled solve [int8 tiles]", lambda: _ts_solve(tx, w, h, cfg), TS_ITERS // 25)
+    check(not any(launches.values()), f"int8 tiles: K5 launches {launches}")
     hist = _check_history(res, "tiled solve [int8 tiles]")
     print(f"[{card}] tiled solve [int8 tiles]: plain sweep by rule (0 launches), cost "
-          f"{float(res.cost)}, history {hist.tolist()}, {TS_ITERS / secs} it/s")
+          f"{float(res.cost)}, history {hist.tolist()}, {TS_ITERS / secs} it/s; graphed "
+          f"(graphs {graphs}), the eager loop's bits")
+    # ragged: the padded W rows and H columns in the graphs' buffers
+    mr, nr = m - TS_RAGGED[0], n - TS_RAGGED[1]
+    txr = nt.tiles_from_dense(x[:mr, :nr], (t, t))
+    cfg = nt.SolveConfig(max_iter=TS_ITERS, check_every=25, backend="pallas")
+    res, secs, launches, _, graphs = _ts_graphed(
+        out, "tiled solve [ragged]", lambda: _ts_solve(txr, w[:mr], h[:, :nr], cfg),
+        TS_ITERS // 25)
+    check(launches == want and tuple(res.w.shape) == (mr, k) and tuple(res.h.shape) == (k, nr),
+          f"ragged tiled: K5 launches {launches}, W{tuple(res.w.shape)} H{tuple(res.h.shape)}")
+    hist = _check_history(res, "tiled solve [ragged]")
+    print(f"[{card}] tiled solve [ragged] {mr}x{nr}, {txr.tiles.shape[0]} tiles: K5 {launches}, "
+          f"cost {float(res.cost)}, {TS_ITERS / secs} it/s; graphed (graphs {graphs}), the eager "
+          "loop's bits and K5 launches per Mode")
 
 
 def phase_tilesparse(card, out):
@@ -2896,14 +2949,14 @@ def phase_accel_tiled(card, out):
         for backend in ("pallas", "jnp"):
             _ts_solve(tx, w, h, dataclasses.replace(cfg, backend=backend, max_iter=2))
         where = f"accel tiled {dtype}"
-        (res, secs), launches, plain_calls, dense = _counted(lambda: _ts_solve(tx, w, h, cfg))
+        res, secs, launches, per_mode, graphs = _ts_graphed(
+            out, where, lambda: _ts_solve(tx, w, h, cfg), TS_ITERS // 25)
         extra = launches["h_numerator"] - TS_ITERS
         check(extra >= 0 and extra % 25 == 0, f"{where}: K5 launches {launches}")
         rejects = extra // 25
         want = dict.fromkeys(("h_numerator", "w_numerator"), TS_ITERS + 25 * rejects)
-        check(launches == want and not any(plain_calls.values()) and not any(dense.values()),
-              f"{where}: K5 launches {launches} (expected {want}), plain calls {plain_calls}, "
-              f"K1-K3 {dense}")
+        check(launches == want and graphs["redo_eager"] + graphs["redo_replays"] == rejects,
+              f"{where}: K5 launches {launches} (expected {want}), graphs {graphs}")
         out["launches"][where] = launches
         hist = _accel_history(res, where, TS_ITERS // 25)
         res2, secs2 = _ts_solve(tx, w, h, cfg)
@@ -2914,8 +2967,12 @@ def phase_accel_tiled(card, out):
               f"{float(jres.cost)}: rel {rel} (limit {limit})")
         out["accel"][f"tiled {dtype}"] = {"rejects": rejects, "cost": float(res.cost),
                                          "its": [TS_ITERS / secs, TS_ITERS / secs2],
-                                         "jnp_its": TS_ITERS / j_secs}
-        print(f"[{card}] {where}: K5 {launches} ({rejects} rejects), cost {float(res.cost)} "
+                                         "jnp_its": TS_ITERS / j_secs, "graphs": graphs}
+        print(f"[{card}] {where}: K5 {launches} ({rejects} rejects: "
+              f"{graphs['redo_eager']} redone eagerly, {graphs['redo_replays']} replayed), "
+              f"graphed, the eager loop's bits and K5 launches per Mode {per_mode}, "
+              f"{graphs['extrapolate']} extrapolation launches; "
+              f"cost {float(res.cost)} "
               f"(jnp {float(jres.cost)}, rel {rel}, limit {limit}), history {hist.tolist()}, "
               f"byte-identical on rerun; {TS_ITERS / secs} and {TS_ITERS / secs2} it/s through "
               f"K5, {TS_ITERS / j_secs} it/s plain sweep")
@@ -4438,18 +4495,26 @@ def phase_selection_plain(card, out, seed):
     probs = [tile_problem(tm, tk, tn, tile, occ, seed=s) for s in range(tb)]
     xs_t = [p[0] for p in probs]
     ws_t, hs_t = np.stack([p[1] for p in probs]), np.stack([p[2] for p in probs])
-    res, secs, _, _ = _counted_members(
-        lambda: nt.solve_sparse_tiled_batched(xs_t, ws_t, hs_t, cfg, device="cuda"),
-        "tiled batched", _launches())
+    # a check every MASKED_CHECK: five blocks, so the tiled batch replays
+    res, secs, _, _, graphs = _batch_graphed(
+        out, "tiled", lambda: nt.solve_sparse_tiled_batched(xs_t, ws_t, hs_t, mcfg,
+                                                            device="cuda"), _launches())
     worst = 0.0
     for i in range(tb):
-        one = nt.solve_sparse_tiled(xs_t[i], ws_t[i], hs_t[i], cfg, device="cuda")
+        one = nt.solve_sparse_tiled(xs_t[i], ws_t[i], hs_t[i], mcfg, device="cuda")
         worst = max(worst, abs(float(res.cost[i]) - float(one.cost)) / abs(float(one.cost)))
     check(worst <= 1e-5, f"tiled batched: cost rel {worst} to the members' solve_sparse_tiled")
-    out["selection"]["tiled"] = {"seconds": secs, "max_cost_rel": worst}
+    acfg = dataclasses.replace(mcfg, accelerate=True)
+    ares, a_secs, _, _, a_graphs = _batch_graphed(
+        out, "tiled accelerated", lambda: nt.solve_sparse_tiled_batched(
+            xs_t, ws_t, hs_t, acfg, device="cuda"), _launches(), reads=None)
+    out["selection"]["tiled"] = {"seconds": secs, "max_cost_rel": worst, "graphs": graphs,
+                                 "accelerated_seconds": a_secs, "accelerated_graphs": a_graphs}
     print(f"[{card}] solve_sparse_tiled_batched {tb} x 4096^2 K=128, occupancy {occ}, "
-          f"{PLAIN_ITERS} iterations: 0 K5 launches, {secs} s, costs within {worst} of each "
-          f"member's solve_sparse_tiled (which runs K5)")
+          f"{PLAIN_ITERS} iterations, a check every {MASKED_CHECK}: 0 K5 launches, {secs} s, "
+          f"costs within {worst} of each member's solve_sparse_tiled (which runs K5); graphed, "
+          f"the eager loop's bits (graphs {graphs}); accelerated {a_secs} s, costs "
+          f"{ares.cost.tolist()}, graphed, the eager loop's bits (graphs {a_graphs})")
 
     sm, sn, sk = SEL_SHAPE
     # uniform noise raised to these powers converges at 500-900 iterations
@@ -4859,9 +4924,25 @@ def phase_utils_tiled_ckpt(card, tmp, out):
     resumed, s2 = _timed(lambda: solve_with_checkpoints(tx, w, h, cfg, d, every=UTILS_CKPT_EVERY,
                                                         device="cuda"))
     check(_state_bits_equal(resumed, full), "checkpointed tiled: the resumed run differs")
-    out["utils"]["tiled_ckpt"] = {"seconds": secs, "k5": k5, "resumed_s": s2}
+    # segments of four blocks: each replays three, the eager run's bits
+    seg = TS_ITERS // 2
+    runs = {}
+    for tag, run in (("graphed", lambda f: f()), ("eager", _eager)):
+        runs[tag] = _graph_run(lambda: run(lambda: _counted(lambda: solve_with_checkpoints(
+            tx, w, h, cfg, f"{d}_{tag}", every=seg, device="cuda"))))
+    ((graphed, k5g, _, k13g), graphs), ((eager, k5e, _, _), e_graphs) = runs["graphed"], runs["eager"]
+    check(graphs["warm_ups"] == 2 and graphs["replays"] == 2 * (seg // 25 - 1)
+          and not e_graphs["replays"] and k5g == k5e == k5 and not any(k13g.values()),
+          f"checkpointed tiled every {seg}: graphs {graphs} (eager {e_graphs}), K5 {k5g} "
+          f"(eager {k5e})")
+    check(_state_bits_equal(graphed, eager) and _state_bits_equal(graphed, full),
+          f"checkpointed tiled every {seg}: not the eager run's or the straight solve's bits")
+    out["utils"]["tiled_ckpt"] = {"seconds": secs, "k5": k5, "resumed_s": s2,
+                                  "graphs_every_half": graphs}
     print(f"[{card}] solve_with_checkpoints tile-sparse {m}^2 K={k}, every {UTILS_CKPT_EVERY}: {secs} s, "
-          f"K5 {k5}; the straight solve's bits; stopped at {TS_ITERS // 2} and resumed ({s2} s): bit-equal")
+          f"K5 {k5}; the straight solve's bits; stopped at {TS_ITERS // 2} and resumed ({s2} s): "
+          f"bit-equal; every {seg}: graphed (graphs {graphs}), the eager run's bits and K5 "
+          "launches")
 
 
 def phase_utils_live(card, out):

@@ -313,6 +313,17 @@ void nmf_reset_sweep_launches() {
     for (auto& n : row) n = 0;
 }
 
+// Adds n (either sign) to the pass-1 launches of K5's H target (h = 1) or
+// W target (h = 0) in Mode `mode`: a replayed CUDA graph runs K5 without
+// its host launcher, so its caller adds the launches that the capture
+// recorded at every replay, and takes them back from the capture itself
+// (models/solver.py); 0, or -1 for a Mode out of range.
+int nmf_add_sweep_launches(int h, int mode, int n) {
+  if (mode < 0 || mode >= MODES) return -1;
+  sweep_launches[h ? 0 : 1][mode] += n;
+  return 0;
+}
+
 // out[4] = registers, dynamic shared memory (bytes), resident blocks an
 // SM, local memory a thread (bytes) of K5's pass-1 kernel for the H target
 // (h = 1) or the W target (h = 0) in Mode `mode` at chunk width kc.

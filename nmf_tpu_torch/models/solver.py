@@ -20,14 +20,16 @@ every device value on the device:
   graphs' own buffers.  A solve makes its graphs for the call and frees
   them on return, where the call replays at least :data:`MIN_REPLAYS`
   blocks and a step's work is below :data:`GRAPH_MAX_WORK` (past it the
-  device sets the pace and a graph gains nothing); a served program keeps
+  device sets the pace and a graph gains nothing: M x N x K for a dense
+  step, the occupied tiles' T x bm x bn x K for a tile-sparse one, which
+  its caller passes); a served program keeps
   its graphs across calls in a :class:`GraphCache` of its own, freed with
   it.  A replay runs no wrapper, so it adds the launches its capture
   recorded (``fused_mu.add_counts``).  The batched loop replays its
   blocks by the same rule over a member axis
   (:mod:`nmf_tpu_torch.parallel.batched`).  The tail block, the CPU, the
-  sharded, streamed, tiled and COO loops run eagerly; a failed capture or
-  replay raises;
+  sharded (the tile-sparse one too), streamed and COO loops run eagerly;
+  a failed capture or replay raises;
 * with ``thresh == 0`` nothing is read back until the run ends, so exactly
   ``max_iter`` iterations run (nmf.cu:11); with ``thresh > 0`` one scalar
   is read per check to decide whether to stop (JAX stops on the device).
@@ -42,9 +44,9 @@ the history write and the relative change run on the device; the host
 reads one small vector a block (accepted, cost, relative change) and
 replays the redo's graphs only on a reject, with a second read after the
 redo where ``thresh > 0`` or ``live_metrics`` needs its cost.  The eager
-:func:`_run_accel_loop` (the CPU, a mesh, ``graphs=False``, the tiled and
-streamed loops, below the rule) reads each block's cost, two on a reject;
-the two give the same bits.
+:func:`_run_accel_loop` (the CPU, a mesh, ``graphs=False``, the streamed
+loops, below the rule) reads each block's cost, two on a reject; the two
+give the same bits.
 
 ``live_metrics=True`` calls :func:`~nmf_tpu_torch.utils.metrics.emit_live`
 at each check with ``(iteration, cost, rel_change)``, the values of JAX's
@@ -255,7 +257,8 @@ ACCEL_COUNTS: Dict[str, int] = {"redo_eager": 0, "redo_replays": 0, "reads": 0}
 # A graph made for one call is made only where it will replay at least this
 # many of the call's full blocks (its first runs eagerly): below that its
 # capture costs more host time than the replays save.  And no graph where
-# a step's work (M x N x K) reaches GRAPH_MAX_WORK: the device, not the
+# a step's work (M x N x K; T x bm x bn x K over a tile-sparse X's T
+# occupied tiles) reaches GRAPH_MAX_WORK: the device, not the
 # host, sets the pace there, so a graph gains nothing, and its memory pool
 # would hold a second set of a step's temporaries while it lives
 # (``probe_timings.py graph``; PERF.md section 6, PR 22).
@@ -330,8 +333,9 @@ def eager_loop():
 
 
 def _graph_rule(dev: torch.device, work: int) -> bool:
-    """Whether a loop on ``dev`` whose step does ``work`` (M x N x K, times
-    the members on a member axis) may replay graphs: a CUDA device (or the
+    """Whether a loop on ``dev`` whose step does ``work`` (M x N x K, or T x
+    bm x bn x K over T occupied tiles, times the members on a member axis)
+    may replay graphs: a CUDA device (or the
     tests' stand-in), outside :func:`eager_loop`, below
     :data:`GRAPH_MAX_WORK`.  The caller adds its own block count rule."""
     return not _EAGER and _GRAPHS.applies(dev) and work < GRAPH_MAX_WORK
@@ -616,6 +620,7 @@ def run_checked_loop(
     all_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     live_emit: Optional[Callable] = None,
     graphs=True,
+    work: Optional[int] = None,
 ) -> SolveResult:
     """The check-blocked loop (``solver.py:402-498`` of the JAX package).
 
@@ -632,12 +637,14 @@ def run_checked_loop(
 
     Each block is :func:`check_block`.  On CUDA tensors with the identity
     ``all_reduce``, the full-length blocks run as a CUDA graph
-    (:class:`_BlockGraph`; module docstring) below :data:`GRAPH_MAX_WORK`:
+    (:class:`_BlockGraph`; module docstring) where a step's ``work`` is
+    below :data:`GRAPH_MAX_WORK` (None: M x N x K, the dense step's; the
+    tile-sparse solve passes its occupied tiles' T x bm x bn x K):
     ``graphs=True`` makes one for this call where it replays at least
     :data:`MIN_REPLAYS` blocks, and frees it on return; a
     :class:`GraphCache` keeps its graph across calls (only for a step and
     cost that close over no tensor of the call); ``False`` runs every block
-    eagerly (the streamed, tiled and COO loops).  Under
+    eagerly (the streamed and COO loops, a sharded tile-sparse one).  Under
     ``config.accelerate`` the same rule takes the accelerated loop's full
     blocks to an :class:`_AccelGraph` (:func:`_run_accel_graphed`).  A
     failed capture or replay raises.
@@ -652,8 +659,9 @@ def run_checked_loop(
     dev = w.device
     runner = None
     n_full = max_iter // check_every
-    m, k, n = w.shape[0], w.shape[1], h.shape[1]
-    if graphs is not False and all_reduce is None and _graph_rule(dev, m * n * k):
+    if work is None:
+        work = w.shape[0] * w.shape[1] * h.shape[1]
+    if graphs is not False and all_reduce is None and _graph_rule(dev, work):
         cls, mode = (_AccelGraph, config) if config.accelerate else (_BlockGraph, need_cost)
         args = (max(config.num_checks, 1), step_fn, cost_fn, check_every, mode)
         if isinstance(graphs, GraphCache) and n_full:

@@ -19,10 +19,24 @@ on CUDA tensors, or in its plain version (:func:`~nmf_tpu_torch.ops.kernels.tile
 by the route rules of :func:`sweep_route`.  The cost is the JAX scan's math
 in torch ops, chunk by chunk.
 
+JAX compiles the whole single-device solve, the check loop with the
+step and the scan cost, into one ``jax.jit`` program
+(``sparse_tiled.py:366-377``).  Here it is
+:func:`~nmf_tpu_torch.models.solver.run_checked_loop`'s CUDA graphs: on
+the card every full check block after a call's first replays a step's
+graph (K5's two sweeps, or the plain sweeps, and the epilogues) and the
+close's (the cost, its chunk loop included), accelerated or not, where a
+step's work, the occupied tiles' T x bm x bn x K (T padded to the chunk),
+is below ``solver.GRAPH_MAX_WORK``; a replay adds the K5 launches its
+capture recorded.  The plans are built once, in :func:`_prepare_tiled`,
+so nothing in a step reads the card.  On a mesh the loop stays eager.
+
 :func:`solve_sparse_tiled_batched` solves B problems of one shape in one
 batched loop: each member's tile list padded with inert zero tiles to a
 common count, the plain sweeps member by member (JAX vmaps its XLA scan
-here, never its Pallas kernel, so the port launches no K5 there either).
+here, never its Pallas kernel, so the port launches no K5 there either),
+its full blocks replayed as graphs over the member axis, as
+``jax.jit(jax.vmap(run_checked_loop))`` compiles it (``:361-364``).
 
 A checkpointed tile-sparse solve runs through
 :func:`nmf_tpu_torch.utils.checkpoint.solve_with_checkpoints`, whose
@@ -357,7 +371,9 @@ def _prepare_tiled(x, w0, h0, config: SolveConfig, chunk: int, tile, dev, pad_to
             ts.sweep_layout(*plan_w, mb, "w", device=dev),
             scales,
         )
-    info = dict(m=m, n=n, mp=mp, np_=np_, route=route, chunk=chunk, mesh=mesh)
+    # a step's work, by which the loop decides on its graphs
+    work = tiles.shape[0] * bm * bn * k
+    info = dict(m=m, n=n, mp=mp, np_=np_, route=route, chunk=chunk, mesh=mesh, work=work)
     return xarg, w_pad.to(sd).to(dev), h_pad.to(sd).to(dev), info
 
 
@@ -496,7 +512,9 @@ def _run_tiled(xarg, w, h, config: SolveConfig, info, initial_cost=float("nan"),
     (``sparse_tiled.py:782-817`` of the JAX package).  ``initial_momentum``
     and ``initial_extrap`` (padded like the factors) resume the accelerated
     loop's state, as the dense solve's parameters do; the result stays
-    padded (:func:`_crop_tiled`)."""
+    padded (:func:`_crop_tiled`).  On one device the full check blocks
+    replay CUDA graphs by the loop's rule (module docstring); on a mesh,
+    whose sums cross ranks inside the step, every block runs eagerly."""
     mesh = info.get("mesh")
     step, cost = _tiled_fns(config, info["chunk"], info["route"], mesh)
     c0 = None if np.isnan(initial_cost) else initial_cost
@@ -506,7 +524,8 @@ def _run_tiled(xarg, w, h, config: SolveConfig, info, initial_cost=float("nan"),
 
         emit = _emit_live_origin(mesh)    # the cost sums itself over the mesh
     return run_checked_loop(xarg, w, h, config, step, cost, c0,
-                            float(initial_momentum), initial_extrap, live_emit=emit, graphs=False)
+                            float(initial_momentum), initial_extrap, live_emit=emit,
+                            graphs=mesh is None, work=info["work"])
 
 
 def _crop_tiled(res: SolveResult, info) -> SolveResult:
@@ -537,7 +556,9 @@ def solve_sparse_tiled_batched(
     logical and tile shape; ``w0s``/``h0s`` are ``(B, M, K)`` / ``(B, K,
     N)``.  Member tile lists are padded with inert zero tiles to a common
     count that is a multiple of ``chunk``, and the plain sweeps run member
-    by member (module docstring).  Returns the batched
+    by member, the full blocks replayed as graphs on the card where B x T x
+    bm x bn x K is below ``solver.GRAPH_MAX_WORK`` (module docstring).
+    Returns the batched
     :class:`SolveResult` (member axis first), with the batched solver's
     per-member convergence.  ``backend="pallas"`` is refused, as in JAX.
     """
@@ -584,10 +605,10 @@ def solve_sparse_tiled_batched(
     preps = [_prepare_tiled(t, w0s[i], h0s[i], plain, int(chunk), tile, dev, pad_to=t_max)
              for i, t in enumerate(txs)]
     step, cost = _tiled_fns(plain, int(chunk), "plain")
-    # eager, as the 2-D tiled loop (ROADMAP Queue 2 item 5.4)
     res = run_batched_loop([p[0] for p in preps], torch.stack([p[1] for p in preps]),
                            torch.stack([p[2] for p in preps]), config,
-                           per_member_step(step), per_member_cost(cost), graphs=False)
+                           per_member_step(step), per_member_cost(cost),
+                           work=b * preps[0][3]["work"])
     info = preps[0][3]
     if (info["mp"], info["np_"]) != (m, n):
         res = dataclasses.replace(res, w=res.w[:, :m].contiguous(), h=res.h[:, :, :n].contiguous())

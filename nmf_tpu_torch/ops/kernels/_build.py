@@ -84,6 +84,9 @@ _SIGNATURES = {
     # K1/K2's
     "nmf_sweep_launches": ([_I, _I], _I),
     "nmf_reset_sweep_launches": ([], None),
+    # K5's H target (1) or W target (0), Mode, n: n more pass-1 launches
+    # (a graph's replay, or a capture taken back)
+    "nmf_add_sweep_launches": ([_I, _I, _I], _I),
     "nmf_sweep_info": ([_I, _I, _I, _P], _I),
     # next0, prev0, ex0, n0, next1, prev1, ex1, n1, momentum; eps;
     # state_bf16, device; stream

@@ -118,25 +118,42 @@ def reset_counts() -> None:
             d[key] = 0
 
 
-# The library's pass-1 counters (``csrc/fused_mu.cu``): K1 and K2 per Mode
-# (``nmf_partial_launches``), K3 per Mode (``nmf_kl_launches``).
+# The library's pass-1 counters: K1 and K2 per Mode (``nmf_partial_launches``)
+# and K3 per Mode (``nmf_kl_launches``) in ``csrc/fused_mu.cu``, K5's H and W
+# targets per Mode (``nmf_sweep_launches``) in ``csrc/tile_sparse.cu``.
 _LIB_MODES = 4
 _COUNT_NAMES = ("LAUNCHES", "PLAIN_CALLS", "MEMBERS", "EXTRAP_LAUNCHES")
 
 
+def _count_dicts() -> Dict[str, Dict[str, int]]:
+    """The wrappers' counts by name: K1-K3's and the extrapolation's here,
+    K5's (``tile_sparse.LAUNCHES`` and ``PLAIN_CALLS``) under their module's
+    name."""
+    from . import tile_sparse
+
+    return {**{name: globals()[name] for name in _COUNT_NAMES},
+            "tile_sparse.LAUNCHES": tile_sparse.LAUNCHES,
+            "tile_sparse.PLAIN_CALLS": tile_sparse.PLAIN_CALLS}
+
+
 def count_snapshot() -> Dict[tuple, int]:
     """Every launch count now: the entries of ``LAUNCHES``, ``PLAIN_CALLS``,
-    ``MEMBERS`` and ``EXTRAP_LAUNCHES``, and, once the library is loaded, its pass-1 launches
-    of K1, K2 and K3 per Mode.  A replayed CUDA graph runs its kernels
-    without their wrappers, so the loop that replays it adds what the
-    capture recorded (:func:`count_delta`, :func:`add_counts`)."""
-    snap = {(name, key): n for name in _COUNT_NAMES for key, n in globals()[name].items()}
+    ``MEMBERS``, ``EXTRAP_LAUNCHES`` and K5's ``tile_sparse.LAUNCHES`` and
+    ``PLAIN_CALLS``, and, once the library is loaded, its pass-1 launches
+    of K1, K2 and K3 (``"lib"``) and of K5's two targets (``"sweep"``) per
+    Mode.  A replayed CUDA graph runs its kernels without their wrappers,
+    so the loop that replays it adds what the capture recorded
+    (:func:`count_delta`, :func:`add_counts`)."""
+    snap = {(name, key): n for name, counts in _count_dicts().items()
+            for key, n in counts.items()}
     if _lib.cache_info().currsize:
         lib = _lib()
         for mode in range(_LIB_MODES):
             snap["lib", 0, mode] = lib.nmf_partial_launches(1, mode)
             snap["lib", 1, mode] = lib.nmf_partial_launches(0, mode)
             snap["lib", 2, mode] = lib.nmf_kl_launches(mode)
+            for target in (1, 0):
+                snap["sweep", target, mode] = lib.nmf_sweep_launches(target, mode)
     return snap
 
 
@@ -150,12 +167,16 @@ def add_counts(delta: Dict[tuple, int], times: int = 1) -> None:
     """Add ``times`` x ``delta`` (of :func:`count_delta`) to the counts:
     ``times=1`` at each replay of a graph, ``-1`` to take back its capture,
     which launched nothing."""
+    dicts = _count_dicts()
     for key, n in delta.items():
-        if key[0] == "lib":
-            if _lib().nmf_add_launches(key[1], key[2], n * times) != 0:
-                raise RuntimeError(f"nmf_add_launches refused counter {key[1]}, Mode {key[2]}")
+        if key[0] in ("lib", "sweep"):
+            lib = _lib()
+            add = lib.nmf_add_launches if key[0] == "lib" else lib.nmf_add_sweep_launches
+            if add(key[1], key[2], n * times) != 0:
+                raise RuntimeError(f"the library refused {key[0]} counter {key[1]}, "
+                                   f"Mode {key[2]}")
         else:
-            globals()[key[0]][key[1]] += n * times
+            dicts[key[0]][key[1]] += n * times
 
 
 def supported(k=None) -> bool:

@@ -29,7 +29,12 @@ inside one) still launch ``SWEEP_BLOCKS`` = 264 working blocks, two an SM
 of an H100 (3 at the main 8192^2 shape: about 300 blocks); and
 ``ceil(steps / per) + n_out`` slots.  The wrapper allocates the partials
 from torch's caching allocator, ``slots * K * bn`` (H) or ``slots * bm *
-K`` (W) f32, and never reads the plan back to the host.
+K`` (W) f32, and never reads the plan back to the host, so a call can be
+captured into a CUDA graph (the tiled solve's check blocks), the partials
+then coming from the graph's pool.  A replay runs K5 without this
+wrapper: the loop that replays it adds the launches its capture recorded
+to ``LAUNCHES`` and to the library's per-Mode counts
+(``fused_mu.count_snapshot`` and ``add_counts`` carry both).
 
 Each wrapper takes its plain version (:func:`sweep_plain`) only when its
 tensors lie on the CPU.  For CUDA tensors it launches K5 or raises: there

@@ -23,14 +23,14 @@ On the card, ``jit(vmap(run_checked_loop))``'s one program becomes CUDA
 graphs over the member axis (:class:`_BatchGraph`, :class:`_BatchAccelGraph`,
 on ``models/solver.py``'s ``_BlockGraph`` and ``_AccelGraph``): a call's
 full check blocks after the first replay a step's graph and the close's,
-where ``solver.MIN_REPLAYS`` blocks replay and B x M x N x K is below
-``solver.GRAPH_MAX_WORK``.  Under ``accelerate`` each member's momentum,
+where ``solver.MIN_REPLAYS`` blocks replay and B x M x N x K (the
+tile-sparse batch: B x T x bm x bn x K over its padded tile count T) is
+below ``solver.GRAPH_MAX_WORK``.  Under ``accelerate`` each member's momentum,
 the accept test, the grow or shrink and the kept carry stay on the device
 (the extrapolation kernel takes a ``[B]`` momentum), the host reads one
 2-vector a block and replays the redo only on a reject.  The eager loop
-(the CPU, ``solver.eager_loop()``, below the rule, the tile-sparse
-batch) gives the same bits; its accelerated form reads the B costs a
-block.
+(the CPU, ``solver.eager_loop()``, below the rule) gives the same bits;
+its accelerated form reads the B costs a block.
 
 ``backend="auto"`` and ``"autotune"`` resolve by the card's rule for a
 member axis (:func:`nmf_tpu_torch.utils.autotune.rule_pick` with
@@ -253,13 +253,14 @@ def _member_result(w, h, g, it: int, check_every: int, checked: bool, momentum,
     )
 
 
-def _graphed(graphs: bool, w: torch.Tensor, h: torch.Tensor, n_full: int) -> bool:
-    """Whether a batched loop replays graphs: ``graphs``, more than
-    ``MIN_REPLAYS`` full blocks and the run's rule for a step's work, which
-    on a member axis is B x M x N x K (``solver._graph_rule``)."""
-    b, m, k = w.shape
-    return bool(graphs) and n_full > solver.MIN_REPLAYS and solver._graph_rule(
-        w.device, b * m * k * h.shape[-1])
+def _graphed(w: torch.Tensor, h: torch.Tensor, n_full: int, work=None) -> bool:
+    """Whether a batched loop replays graphs: more than ``MIN_REPLAYS``
+    full blocks and the run's rule for a step's ``work``, which on a member
+    axis is B x M x N x K where not given (``solver._graph_rule``)."""
+    if work is None:
+        b, m, k = w.shape
+        work = b * m * k * h.shape[-1]
+    return n_full > solver.MIN_REPLAYS and solver._graph_rule(w.device, work)
 
 
 class _BatchGraph(solver._BlockGraph):
@@ -300,23 +301,22 @@ class _BatchGraph(solver._BlockGraph):
 
 
 def run_batched_loop(x, w, h, config: SolveConfig, step_fn, cost_fn,
-                     graphs: bool = True) -> SolveResult:
+                     work=None) -> SolveResult:
     """The check-blocked loop over a member axis: ``jax.vmap`` of
     ``run_checked_loop`` (module docstring).  ``step_fn`` and ``cost_fn``
     take and give stacks (the cost ``[B]`` f32).  On the card, where
-    ``graphs`` and :func:`_graphed` allow it, the full blocks after the
-    first replay CUDA graphs (:class:`_BatchGraph`; under ``accelerate``
-    :class:`_BatchAccelGraph`); ``graphs=False`` runs every block eagerly
-    (the tile-sparse batch)."""
+    :func:`_graphed` allows it (a step's ``work``: None for B x M x N x K),
+    the full blocks after the first replay CUDA graphs
+    (:class:`_BatchGraph`; under ``accelerate`` :class:`_BatchAccelGraph`)."""
     if config.accelerate:
-        return _run_batched_accel(x, w, h, config, step_fn, cost_fn, graphs)
+        return _run_batched_accel(x, w, h, config, step_fn, cost_fn, work)
     b, dev = w.shape[0], w.device
     max_iter, check_every = int(config.max_iter), int(config.check_every)
     thresh = float(config.thresh)
     need_cost = config.track_cost or thresh > 0.0
     n_slots = max(config.num_checks, 1)
     runner = None
-    if _graphed(graphs, w, h, max_iter // check_every):
+    if _graphed(w, h, max_iter // check_every, work):
         runner = g = _BatchGraph(x, w, h, n_slots, step_fn, cost_fn, check_every, need_cost,
                                  thresh)
         runner.load(x, w, h)
@@ -470,7 +470,7 @@ def _result(w, h, iters, cost, hist, checks, done, momentum) -> SolveResult:
 
 
 def _run_batched_accel(x, w, h, config: SolveConfig, step_fn, cost_fn,
-                       graphs: bool = True) -> SolveResult:
+                       work=None) -> SolveResult:
     """``_run_accel_loop`` over a member axis: per-member momentum, costs
     and accept/reject.  On the card, by :func:`_graphed`, through a
     :class:`_BatchAccelGraph`; else this eager loop, the graphed loop's
@@ -478,7 +478,7 @@ def _run_batched_accel(x, w, h, config: SolveConfig, step_fn, cost_fn,
     block (two when a member rejects)."""
     b, dev = w.shape[0], w.device
     max_iter, check_every = int(config.max_iter), int(config.check_every)
-    if _graphed(graphs, w, h, max_iter // check_every):
+    if _graphed(w, h, max_iter // check_every, work):
         runner = _BatchAccelGraph(x, w, h, max(config.num_checks, 1), step_fn, cost_fn,
                                   check_every, config)
         return _run_batched_accel_graphed(runner, x, w, h, config)

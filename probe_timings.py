@@ -9,6 +9,7 @@
     python3 probe_timings.py graph                     # the check-block graphs against eager
     python3 probe_timings.py accel                     # the accelerated loop's graphs
     python3 probe_timings.py batched                   # the batched loop's graphs
+    python3 probe_timings.py tiled                     # the tile-sparse loops' graphs
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -96,6 +97,21 @@ the limit lifted.  Each case also at three times its iterations, in turns,
 for a step's time alone (the difference over the extra iterations: the
 set-up, the first block and the capture taken out).  One JSON line a
 case; no gate (``chip_smoke.py`` phase 14 holds the bits).
+
+``tiled``: the tile-sparse loops' graphs (``models/sparse_tiled.py``)
+against the eager loop, in turns as ``batched`` (three pairs after a warm
+run of each, each graphed run with its graph counts, the captures' host
+seconds among them; one profiled run of each for the device's busy share;
+the same call at three times its iterations in turns for a step alone):
+``chip_smoke.TS_MAIN``'s 8192^2, K=128 solve (320 occupied 128^2 tiles,
+200 iterations, a check every 25) on K5 in ``float32``, ``bfloat16`` and
+``float32_fast``, with int8 tiles (the plain sweep), and accelerated in
+``float32`` and ``bfloat16``, each the loop alone on a payload prepared
+once (``_run_tiled``), in it/s; and the tile-sparse batch of
+``chip_smoke.TILED_BATCH`` (4 x 4096^2, K=128, 50 iterations, a check
+every 10), plain and accelerated, through ``solve_sparse_tiled_batched``
+on prepared tiles, in problem-it/s.  One JSON line a case; no gate
+(``chip_smoke.py`` phases 8, 10c, 14e and 15 hold the bits).
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -488,6 +504,28 @@ def accel(cs, card):
     tmp.cleanup()
 
 
+def _step_ms(cs, call, cfg, rounds=3):
+    """A step alone, graphed and on the eager loop: ``call(c)`` at the
+    config's depth and at three times it, in turns; ``(t(3n) - t(n)) / 2n``
+    in ms, the set-up, the first block and the capture taken out.  Returns
+    (ms by loop, the seconds at each depth)."""
+    import dataclasses
+
+    import numpy as np
+
+    its = cfg.max_iter
+    deep = dataclasses.replace(cfg, max_iter=3 * its)
+    secs = {tag: {its: [], 3 * its: []} for tag in ("graphed", "eager")}
+    for i in range(rounds):
+        for eager in ((False, True) if i % 2 == 0 else (True, False)):
+            for c in (cfg, deep):
+                secs["eager" if eager else "graphed"][c.max_iter].append(
+                    _run(cs, lambda c=c: call(c), eager)[0])
+    step = {tag: (float(np.median(v[3 * its])) - float(np.median(v[its]))) / (2 * its) * 1e3
+            for tag, v in secs.items()}
+    return step, secs
+
+
 def batched(cs, card):
     import dataclasses
     import tempfile
@@ -546,20 +584,8 @@ def batched(cs, card):
         if "lifted" in name:
             solver.GRAPH_MAX_WORK = float("inf")
         try:
-            its = cfg.max_iter
-            rec = _turns(cs, tmp.name, lambda: call(cfg), members * its, pairs=3)
-            # a step alone: the same call at 3x the iterations, in turns;
-            # (t(3n) - t(n)) / 2n iterations, the set-up, the first block
-            # and the capture taken out
-            deep = dataclasses.replace(cfg, max_iter=3 * its)
-            secs = {tag: {its: [], 3 * its: []} for tag in ("graphed", "eager")}
-            for i in range(3):
-                for eager in ((False, True) if i % 2 == 0 else (True, False)):
-                    for c in (cfg, deep):
-                        secs["eager" if eager else "graphed"][c.max_iter].append(
-                            _run(cs, lambda c=c: call(c), eager)[0])
-            step = {tag: (float(np.median(v[3 * its])) - float(np.median(v[its])))
-                    / (2 * its) * 1e3 for tag, v in secs.items()}
+            rec = _turns(cs, tmp.name, lambda: call(cfg), members * cfg.max_iter, pairs=3)
+            step, secs = _step_ms(cs, call, cfg)
         finally:
             solver.GRAPH_MAX_WORK = limit
         med = {tag: float(np.median(v["per_s"])) for tag, v in rec.items()}
@@ -568,6 +594,65 @@ def batched(cs, card):
                           "problem_iters": work, "graphed_over_eager":
                           med["graphed"] / med["eager"], "step_ms": step,
                           "step_eager_over_graphed": step["eager"] / step["graphed"],
+                          "secs_at_depths": secs, **rec}), flush=True)
+    tmp.cleanup()
+
+
+def tiled(cs, card):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import solver
+    from nmf_tpu_torch.models import sparse_tiled as st
+
+    m, n, k, t, occ, seed = cs.TS_MAIN
+    x, w, h = cs.tile_problem(m, k, n, t, occ, seed)
+    tx = nt.tiles_from_dense(x, (t, t))
+    base = nt.SolveConfig(max_iter=cs.TS_ITERS, check_every=25, backend="pallas")
+    tb, tm, tn, tk, tile, tocc = cs.TILED_BATCH
+    probs = [cs.tile_problem(tm, tk, tn, tile, tocc, seed=i) for i in range(tb)]
+    txs = [nt.tiles_from_dense(p[0], (tile, tile)) for p in probs]
+    ws, hs = np.stack([p[1] for p in probs]), np.stack([p[2] for p in probs])
+    bcfg = nt.SolveConfig(max_iter=cs.PLAIN_ITERS, check_every=cs.MASKED_CHECK)
+
+    def two_d(cfg):
+        prep = st._prepare_tiled(tx, w, h, cfg, st._CHUNK, (t, t), torch.device("cuda"))
+        return 1, cfg, lambda c: st._run_tiled(*prep[:3], c, prep[3]), prep[3]["work"]
+
+    def batch(cfg):
+        call = lambda c: nt.solve_sparse_tiled_batched(  # noqa: E731
+            txs, ws, hs, c, device="cuda")
+        t_max = -(-max(a.tiles.shape[0] for a in txs) // st._CHUNK) * st._CHUNK
+        return tb, cfg, call, tb * t_max * tile * tile * tk
+
+    cases = {
+        "float32": lambda: two_d(base),
+        "bfloat16": lambda: two_d(dataclasses.replace(base, precision=nt.Precision("bfloat16"))),
+        "float32_fast": lambda: two_d(dataclasses.replace(
+            base, precision=nt.Precision("float32_fast"))),
+        "int8 tiles": lambda: two_d(dataclasses.replace(
+            base, backend="auto", precision=nt.Precision(x_dtype="int8"))),
+        "accelerated float32": lambda: two_d(dataclasses.replace(base, accelerate=True)),
+        "accelerated bfloat16": lambda: two_d(dataclasses.replace(
+            base, accelerate=True, precision=nt.Precision("bfloat16"))),
+        "batch": lambda: batch(bcfg),
+        "batch accelerated": lambda: batch(dataclasses.replace(bcfg, accelerate=True)),
+    }
+    tmp = tempfile.TemporaryDirectory(prefix="nmf_probe_")
+    for name, make in cases.items():
+        members, cfg, call, work = make()
+        rec = _turns(cs, tmp.name, lambda: call(cfg), members * cfg.max_iter, pairs=3)
+        step, secs = _step_ms(cs, call, cfg)
+        med = {tag: float(np.median(v["per_s"])) for tag, v in rec.items()}
+        print(json.dumps({"card": card, "probe": "tiled", "case": name, "members": members,
+                          "tiles": int(tx.tiles.shape[0]) if members == 1 else None,
+                          "step_work": work, "graph_max_work": solver.GRAPH_MAX_WORK,
+                          "graphed_over_eager": med["graphed"] / med["eager"],
+                          "step_ms": step, "step_eager_over_graphed": step["eager"] / step["graphed"],
                           "secs_at_depths": secs, **rec}), flush=True)
     tmp.cleanup()
 
@@ -609,7 +694,7 @@ def sass(cs, card, root):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass",
-                                      "graph", "accel", "batched"))
+                                      "graph", "accel", "batched", "tiled"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -637,6 +722,8 @@ def main(argv=None) -> int:
         accel(cs, card)
     elif args.probe == "batched":
         batched(cs, card)
+    elif args.probe == "tiled":
+        tiled(cs, card)
     else:
         kl(cs, card, args.root)
     return 0

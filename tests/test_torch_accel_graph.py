@@ -441,8 +441,10 @@ def test_b_replays_count_the_captured_launches(captured):
 # ---------------------------------------------------------------- (c)
 
 def test_c_no_graph_where_the_loop_stays_eager(problem, captured, monkeypatch):
-    """A mesh's ``all_reduce``, ``graphs=False`` (the tiled and streamed
-    loops), ``eager_loop()``, ``MIN_REPLAYS`` blocks and a step at
+    """A mesh's ``all_reduce``, ``graphs=False`` (the streamed loops and a
+    sharded tile-sparse one; the single-device accelerated tiled loop
+    replays: tests/test_torch_tiled_graph.py), ``eager_loop()``,
+    ``MIN_REPLAYS`` blocks and a step at
     ``GRAPH_MAX_WORK`` run the eager accelerated loop; one block more, or
     one unit of work less, and the call replays."""
     x, w, h, _ = problem

@@ -24,9 +24,9 @@ the capture's buffers and takes back what its wrappers counted):
     case against ``nmf_tpu.parallel.batched.solve_batched`` at
     tests/test_torch_batched.py's tolerance (factors rtol 5e-5 / atol
     1e-7, costs rel 1e-5);
-(c) where no graph is made (``graphs=False``: the tile-sparse batch;
-    ``eager_loop()``; ``MIN_REPLAYS`` blocks; B x M x N x K at
-    ``GRAPH_MAX_WORK``), a call's graphs freed on return;
+(c) where no graph is made (``eager_loop()``; ``MIN_REPLAYS`` blocks;
+    B x M x N x K at ``GRAPH_MAX_WORK``), the tile-sparse batch
+    replaying, a call's graphs freed on return;
 (d) the kernels' side: the extrapolation's plain version with a ``[B]``
     momentum gives member i the bits of the 2-D ``extrapolate`` at
     ``m[i]``; ``fused_mu._sums`` inside a capture runs its member sums
@@ -325,15 +325,11 @@ def test_b_member_is_its_2d_solve(stack, captured):
 # ---------------------------------------------------------------- (c)
 
 def test_c_no_graph_where_the_loop_stays_eager(stack, captured, monkeypatch):
-    """``graphs=False`` (the tile-sparse batch passes it), ``eager_loop()``,
-    ``MIN_REPLAYS`` full blocks and B x M x N x K at ``GRAPH_MAX_WORK`` run
-    eagerly; one block more, or one unit of work less, and the call
-    replays."""
+    """``eager_loop()``, ``MIN_REPLAYS`` full blocks and B x M x N x K at
+    ``GRAPH_MAX_WORK`` run eagerly; one block more, or one unit of work
+    less, and the call replays."""
     x, w, h, _ = stack
-    xt, wt, ht = (torch.from_numpy(a) for a in (x, w, h))
     cfg = _cfg()
-    step, cost = pb.batched_step_cost(cfg)
-    pb.run_batched_loop(xt, wt, ht, cfg, step, cost, graphs=False)
     with ps.eager_loop():
         pt.solve_batched(x, w, h, cfg, device="cpu")
     few = _cfg(max_iter=10 * ps.MIN_REPLAYS + 4)
@@ -350,17 +346,21 @@ def test_c_no_graph_where_the_loop_stays_eager(stack, captured, monkeypatch):
 
 
 def test_c_tiled_batch_stays_eager(captured):
-    """The tile-sparse batch runs the eager batched loop (``graphs=False``,
-    as the 2-D tiled loop)."""
+    """The tile-sparse batch does not stay eager: its full blocks replay
+    (``jax.jit(jax.vmap(run_checked_loop))``'s counterpart, the plain
+    sweeps member by member in the step's graph) and give the eager
+    loop's bits, the first block eager and the other four replayed
+    (tests/test_torch_tiled_graph.py holds the batch to ``nmf_tpu``)."""
     rng = np.random.RandomState(2)
     xs = [np.zeros((64, 64), np.float32) for _ in range(2)]
     for x in xs:
         x[:32, :32] = rng.rand(32, 32)
     ws, hs = rng.rand(2, 64, 3).astype(np.float32), rng.rand(2, 3, 64).astype(np.float32)
-    res = pt.solve_sparse_tiled_batched(xs, ws, hs, _cfg(), chunk=2, tile=(32, 32),
-                                        device="cpu")
-    assert int(res.iterations[0]) == 50
-    assert _counts()[0] == {"warm_ups": 0, "captures": 0, "replays": 0}
+    got, _, graphs, eager, _ = _graphed_and_eager(lambda: pt.solve_sparse_tiled_batched(
+        xs, ws, hs, _cfg(), chunk=2, tile=(32, 32), device="cpu"))
+    assert int(got.iterations[0]) == 50
+    assert graphs[0] == {"warm_ups": 1, "captures": 1, "replays": 4}
+    _same_bits(got, eager)
 
 
 def test_c_graphs_live_for_their_call_only(stack, captured):

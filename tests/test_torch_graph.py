@@ -337,10 +337,11 @@ def test_b_replays_count_the_captured_launches(captured):
 
 def test_b_no_graph_where_the_loop_stays_eager(problem, captured, monkeypatch):
     """A loop with a mesh's ``all_reduce``, ``graphs=False`` (streamed,
-    tiled, COO), a run shorter than one block, a call that would replay
-    fewer than ``MIN_REPLAYS`` blocks and a step whose work reaches
-    ``GRAPH_MAX_WORK`` capture nothing; one block more, or one unit of work
-    less, and the call replays.  (The accelerated loop's graphs:
+    COO, a sharded tile-sparse loop; the single-device tiled loops replay:
+    tests/test_torch_tiled_graph.py), a run shorter than one block, a call
+    that would replay fewer than ``MIN_REPLAYS`` blocks and a step whose
+    work reaches ``GRAPH_MAX_WORK`` capture nothing; one block more, or one
+    unit of work less, and the call replays.  (The accelerated loop's graphs:
     tests/test_torch_accel_graph.py.)"""
     x, w, h, _ = problem
     xt, wt, ht = (torch.from_numpy(a) for a in (x, w, h))
