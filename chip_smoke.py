@@ -3366,10 +3366,29 @@ def phase_transform_oocore(card, out, seed, w):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        (res, secs, mode, launches), host = _host_timed(lambda: _counted_kl(
-            lambda: nt.transform_out_of_core(x, w, h0=h0, config=cfg, device=DEVICE), where, want))
+        run = lambda: nt.transform_out_of_core(x, w, h0=h0, config=cfg, device=DEVICE)  # noqa: E731
+        ((res, secs, mode, launches), host), graphs = _graph_run(
+            lambda: _host_timed(lambda: _counted_kl(run, where, want)))
         peak = torch.cuda.max_memory_allocated()
         check(len(host["_fill"]) == blocks, f"{where}: {len(host['_fill'])} block fills")
+        # JAX's per-block program as graphs kept for the call, a stream slot
+        # and width each: the full-width blocks' check blocks replay (each
+        # slot's first warm), the ragged block's two stay eager
+        full = n // bn * checks
+        check(graphs["captures"] == 2 and graphs["replays"] > 0
+              and graphs["warm_ups"] + graphs["replays"] == full,
+              f"{where}: graphs {graphs}, expected {full} full-width check blocks, each slot's "
+              "first eager and the others replayed")
+        eager, e_secs, e_mode, e_launches = _counted_kl(lambda: _eager(run), f"{where} eager",
+                                                        want)
+        for f in ("h", "block_costs", "iterations", "converged"):
+            check(getattr(res, f).tobytes() == getattr(eager, f).tobytes(),
+                  f"{where}: {f} of the graphed transform differs from the eager loop's")
+        check(e_mode == mode and e_launches == launches,
+              f"{where}: eager launches {e_launches} ({e_mode}), graphed {launches} ({mode})")
+        out["graphs"][where] = graphs
+        print(f"[{card}] {where}: graphs {graphs}; the eager loop's bits and launches "
+              f"{e_launches} ({e_secs} s eager, {secs} s graphed)")
         fill_s = sum(host["_fill"])
         out["launches"][f"transform out_of_core {xdt}"] = launches
         check(res.blocks == [(j, min(j + bn, n)) for j in range(0, n, bn)]
@@ -3388,7 +3407,8 @@ def phase_transform_oocore(card, out, seed, w):
               f"X ({x.nbytes} B)")
         wire = x.nbytes // (4 if xdt == "int8" else 1)
         roof = wire / rate
-        results[xdt] = {"its": TR_OOC_ITERS / secs, "seconds": secs, "fill_share": fill_s / secs,
+        results[xdt] = {"its": TR_OOC_ITERS / secs, "seconds": secs, "eager_seconds": e_secs,
+                        "graphs": graphs, "fill_share": fill_s / secs,
                         "fill_ms_median": 1e3 * statistics.median(host["_fill"]),
                         "rel": rel, "h_rel": h_rel,
                         "peak_gb": peak / 1e9, "roofline_s": roof, "roofline_fraction": roof / secs,
@@ -3430,6 +3450,14 @@ def phase_transform_nmf(card, out, x, seed):
     check(est.w_.shape == (m, k) and h_new.shape == (k, 1000) and bool(np.isfinite(h_new).all())
           and np.isfinite(est.reconstruction_err_) and est.n_iter_ == 200,
           f"{where}: W {est.w_.shape}, H {h_new.shape}, err {est.reconstruction_err_}")
+    # the out-of-core transform (one block of 1000 columns, 8 check blocks):
+    # its graphs give the eager loop's bits
+    h_ooc, ooc_graphs = _graph_run(lambda: est.transform(x_new, out_of_core=True))
+    check(ooc_graphs["replays"] > 0 and h_ooc.shape == (k, 1000)
+          and h_ooc.tobytes() == _eager(lambda: est.transform(x_new, out_of_core=True)).tobytes(),
+          f"{where}.transform(out_of_core=True): graphs {ooc_graphs}, or H differs from the "
+          "eager loop's")
+    out["graphs"]["NMF.transform out_of_core"] = ooc_graphs
     wn, hn = nt.normalize_factors(est.w_, h_new)
     before = est.w_.astype(np.float64) @ h_new.astype(np.float64)
     after = wn.astype(np.float64) @ hn.astype(np.float64)
@@ -3442,7 +3470,8 @@ def phase_transform_nmf(card, out, x, seed):
           f"reconstruction_err_ {est.reconstruction_err_}, {200 / fit_secs} it/s incl. the init "
           f"(graphs {fit_graphs}); "
           f"transform of {m}x1000 new columns launches {t_launches}, K3 {kl_instance(mode, k)}, "
-          f"{200 / secs} it/s; normalize_factors: W H moved by {inv} relative (limit 1e-6)")
+          f"{200 / secs} it/s; out_of_core=True graphs {ooc_graphs}, the eager bits; "
+          f"normalize_factors: W H moved by {inv} relative (limit 1e-6)")
 
 
 def phase_transform_cli(card, tmp, out, x, w):
@@ -3463,12 +3492,16 @@ def phase_transform_cli(card, tmp, out, x, w):
     bn = TR_OOC_CLI_BLOCK
     _cli(["transform", "tr_X.bin", "tr_W.bin", "-o", "tr_Hooc.bin", "--out-of-core",
           "--block-n", str(bn), "-q"], tmp)
-    ref = nt.transform_out_of_core(os.path.join(tmp, "tr_X.bin"), wf, block_n=bn,
-                                   device=DEVICE).h
+    ref, ooc_graphs = _graph_run(lambda: nt.transform_out_of_core(
+        os.path.join(tmp, "tr_X.bin"), wf, block_n=bn, device=DEVICE).h)
     check(nt.read_matrix(os.path.join(tmp, "tr_Hooc.bin")).tobytes() == ref.tobytes(),
           "CLI transform --out-of-core: H differs from the in-process transform_out_of_core")
+    # the CLI's call with no flag of its own: its blocks replay graphs
+    check(ooc_graphs["replays"] > 0, f"CLI transform --out-of-core: graphs {ooc_graphs}")
+    out["graphs"]["cli transform --out-of-core"] = ooc_graphs
     print(f"[{card}] CLI transform {m}x{n} K={k}, in memory and --out-of-core --block-n {bn}: "
-          "files byte-equal to the in-process solve_h_only / transform_out_of_core")
+          "files byte-equal to the in-process solve_h_only / transform_out_of_core (graphs "
+          f"{ooc_graphs})")
     _cli(["gen", "."], tmp)
     xr, wr, hr = (nt.read_matrix(os.path.join(tmp, f"{s}.bin")) for s in "XWH")
     runs = {"beta2": (["--beta", "2"], dict(beta=2.0)),
@@ -3936,17 +3969,25 @@ def phase_models_online(card, out, x, w, seed):
           f"{ONLINE_INNER}, {blocks} blocks of {bn}, plain torch ops by rule")
     fn = lambda: nt.solve_online(x, w, cfg, block_n=bn, inner_iters=ONLINE_INNER,  # noqa: E731
                                  seed=seed, device=DEVICE)
-    (res, secs, launches), host = _host_timed(
-        lambda: _counted_models(fn, "models online", _launches()))
+    ((res, secs, launches), host), graphs = _graph_run(lambda: _host_timed(
+        lambda: _counted_models(fn, "models online", _launches())))
     out["launches"]["models online"] = launches
     widths = np.asarray([j1 - j0 for j0, j1 in res.blocks], np.float64)
     per_col = res.learning_curve / widths
     check(len(res.blocks) == blocks and bool(np.isfinite(res.w).all())
           and per_col[-1] < per_col[0],
           f"online: {len(res.blocks)} blocks, the learning curve per column {per_col.tolist()}")
-    again = fn()
+    # JAX's _online_jit as a graph a stream slot and width: the full-width
+    # blocks replay (each slot's first warm), the ragged last one is eager
+    full = n // bn
+    check(graphs["captures"] == 2 and graphs["replays"] > 0
+          and graphs["warm_ups"] + graphs["replays"] == full,
+          f"online: graphs {graphs}, expected {full} full-width blocks, each slot's first eager "
+          "and the others replayed")
+    again, e_secs, _ = _counted_models(lambda: _eager(fn), "models online eager", _launches())
     check(again.w.tobytes() == res.w.tobytes() and again.block_costs == res.block_costs,
-          "online: differs on a rerun")
+          "online: W or the learning curve of the graphed learner differs from the eager loop's")
+    out["graphs"]["models online"] = graphs
     fill_s = sum(host["_fill"])
     ms, ns, ks, bns = ONLINE_SMALL
     g = torch.Generator(device=DEVICE).manual_seed(seed + 19)
@@ -3959,11 +4000,13 @@ def phase_models_online(card, out, x, w, seed):
     fro = float(np.linalg.norm(card_w - cpu_w) / np.linalg.norm(cpu_w))
     check(fro <= 1e-5, f"online {ms}x{ns}: W relative Frobenius {fro} from the CPU run (limit 1e-5)")
     out["models"]["online"] = {"blocks_per_s": blocks / secs, "seconds": secs,
+                               "eager_blocks_per_s": blocks / e_secs, "graphs": graphs,
                                "fill_share": fill_s / secs, "curve_per_column": per_col.tolist(),
                                "small_w_fro_vs_cpu": fro}
     print(f"[{card}] online: launches {launches}, learning curve per column {per_col.tolist()} "
-          f"(falls from the first block to the last), bitwise on rerun; {blocks / secs} blocks/s "
-          f"({secs} s), block fills {fill_s / secs} of the wall; at {ms}x{ns} K={ks}, block_n "
+          f"(falls from the first block to the last), the eager loop's bits; graphs {graphs}; "
+          f"{blocks / secs} blocks/s ({secs} s; eager {blocks / e_secs}), block fills "
+          f"{fill_s / secs} of the wall; at {ms}x{ns} K={ks}, block_n "
           f"{bns}: W relative Frobenius {fro} from the CPU run (limit 1e-5)")
 
 
@@ -4001,7 +4044,7 @@ def phase_models_cli(card, tmp, out):
         nt.write_matrix(a, j(f"m_ooc_{name}.bin"))
     ooc = ["m_ooc_X.bin", "m_ooc_W.bin", "m_ooc_H.bin", "--out-of-core", "--block-n", str(bn),
            "--max-iter", str(MODELS_CLI_ITERS)]
-    online_bn = 100
+    online_bn, online_passes = 100, 2    # 3 full blocks of 100 a pass: 6 replay, 3 would not
     runs = {
         "mask": ["run", "X.bin", "W.bin", "H.bin", "--mask", "M.bin"],
         "mask_ooc": ["run", *ooc, "--mask", "m_ooc_M.bin"],
@@ -4010,7 +4053,7 @@ def phase_models_cli(card, tmp, out):
         "beta2_ooc": ["run", *ooc, "--beta", "2"],
         "hals_ooc": ["run", *ooc, "--algorithm", "hals", "--beta", "2"],
         "online": ["run", "X.bin", "--rank", "128", "--init", "random", "--online", "--block-n",
-                   str(online_bn)],
+                   str(online_bn), "--online-passes", str(online_passes)],
         "tmask": ["transform", "X.bin", "W.bin", "--mask", "M.bin", "-o", "H_tmask.bin"],
         "separate": ["separate", "paper.wav", "--out-dir", "sep_cli"],
     }
@@ -4043,13 +4086,31 @@ def phase_models_cli(card, tmp, out):
             check(got.tobytes() == getattr(res, f.lower()).cpu().float().numpy().tobytes(),
                   f"CLI {' '.join(runs[tag][:-3])}: {f} differs from the in-process result")
     w0 = init_mod.random_init(x.shape[0], 128, 1, seed=0)[0]
-    onl = nt.solve_online(j("X.bin"), w0, cfg, block_n=online_bn, inner_iters=20, seed=0,
-                          device=DEVICE)
-    tr = nt.transform_out_of_core(j("X.bin"), onl.w, config=cfg, block_n=online_bn, seed=0,
-                                  device=DEVICE)
+    onl, on_graphs = _graph_run(lambda: nt.solve_online(
+        j("X.bin"), w0, cfg, block_n=online_bn, inner_iters=20, passes=online_passes, seed=0,
+        device=DEVICE))
+    tr, tr_graphs = _graph_run(lambda: nt.transform_out_of_core(
+        j("X.bin"), onl.w, config=cfg, block_n=online_bn, seed=0, device=DEVICE))
     check(nt.read_matrix(j("W_online.bin")).tobytes() == onl.w.tobytes()
           and nt.read_matrix(j("H_online.bin")).tobytes() == tr.h.tobytes(),
           "CLI run --online: files differ from solve_online + transform_out_of_core")
+    # the CLI's own call in process takes the graphed route with no flag:
+    # the learner's blocks and its transform's check blocks replay
+    on_args = [a if not a.endswith(".bin") else j(a) for a in runs["online"]]
+    on_args[on_args.index("-o") + 1:] = [j("W_online_in.bin"), j("H_online_in.bin")]
+    rc, cli_graphs = _graph_run(lambda: cli.main([*on_args, "-q"]))
+    check(rc == 0 and cli_graphs["replays"] > 0 and on_graphs["replays"] > 0
+          and tr_graphs["replays"] > 0,
+          f"CLI run --online: rc {rc}, graphs {cli_graphs} in process (learner {on_graphs}, "
+          f"its transform {tr_graphs})")
+    check(all(pathlib.Path(j(f"{f}_online_in.bin")).read_bytes()
+              == pathlib.Path(j(f"{f}_online.bin")).read_bytes() for f in "WH"),
+          "CLI run --online in process: files differ from the subprocess's")
+    out["graphs"]["models cli online"] = {"learner": on_graphs, "transform": tr_graphs,
+                                          "cli": cli_graphs}
+    print(f"[{card}] CLI run --online --block-n {online_bn} --online-passes {online_passes}: "
+          f"graphs {cli_graphs} in process (solve_online {on_graphs}, transform_out_of_core "
+          f"{tr_graphs}), files byte-equal to the subprocess's")
     h0 = np.random.RandomState(0).rand(w.shape[1], x.shape[1]).astype(np.float32)
     th = nt.solve_masked_h_only(x, w, h0, mask, cfg, device=DEVICE).h.cpu().numpy()
     check(nt.read_matrix(j("H_tmask.bin")).tobytes() == th.tobytes(),

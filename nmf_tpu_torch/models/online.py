@@ -25,13 +25,28 @@ and each block's cost (taken after its H fit, before its W step) is read
 back one block late.  Activations are not kept: run
 :func:`~nmf_tpu_torch.transform_out_of_core` for an H.
 
+On the card a block's whole update (JAX's one program a block,
+``_online_jit``: the inner H loop, the cost, the folds of A and c, W)
+replays a CUDA graph kept for the call (:class:`_OnlineGraph`, in a
+``solver.StreamGraphs``): a graph per stream slot and block width, reading
+X (int8's codes and scales) in the stream's fixed device buffers, W, A and
+c in buffers of the call, the block's seeded H start copied in.  A width
+graphs where its blocks, over all passes, number more than
+``solver.MIN_REPLAYS`` and M x width x K is below
+``solver.GRAPH_MAX_WORK``; each graph's first block runs eagerly on the
+side stream, its second is captured and replayed, the later ones replay
+(``solver.GRAPH_COUNTS``).  The graph's cost is cloned out after each
+replay, as the next block's replay writes the same buffer before the host
+reads the cost one block late.  ``solver.eager_loop()`` runs every block
+eagerly; the two give the same bits.
+
 ``mesh=`` (``online.py:65-120, 242-306`` of the JAX package): W and A are
 row-sharded, each block's X cut into the ranks' (M/r, width/c) pieces
 (each rank copies only its own), H column-sharded, c replicated.  The
 inner H loop is the plain ``update_h_sharded`` (sums over 'mr'), as in
 JAX; A's and c's block terms are summed over 'mc' and the cost over both
 axes; int8 X is dequantized block-locally.  The result's W is the global
-one, on every rank.
+one, on every rank.  A mesh's blocks run eagerly.
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from ..parallel.mesh import (
 from ..parallel.sharded import _dequant_local, kl_partial, update_h_sharded
 from ..utils.config import SolveConfig
 from ..utils.device import resolve_device
+from . import solver
 from .solver import to_state
 from .streaming import (
     _BlockStream,
@@ -92,6 +108,42 @@ class OnlineResult:
     @property
     def learning_curve(self) -> np.ndarray:
         return np.asarray([c for p in self.block_costs for c in p], np.float64)
+
+
+class _OnlineGraph(solver._PartGraphs):
+    """One block's whole update as a CUDA graph over a stream slot's X
+    (JAX's ``_online_jit``): the graph's H start buffer, the call's W, A
+    and c (``state``, shared by every graph of the call) and the cost's
+    buffer.  ``fold(x, h)`` is the update, writing W, A and c in place and
+    returning the cost (None untracked).  The first block runs eagerly on
+    the side stream, the second is captured there and replayed, the later
+    ones replay (``solver._PartGraphs``)."""
+
+    def __init__(self, h, state, fold, track: bool):
+        super().__init__(h.device, 1)
+        self.h = torch.empty_like(h)
+        self.cost = torch.full((), float("nan"), dtype=_F32, device=h.device)
+        self.w, self.a, self.c = state
+        self.fold, self.track = fold, track
+        self.x = None
+
+    def state(self) -> Tuple[torch.Tensor, ...]:
+        return self.w, self.a, self.c, self.h, self.cost
+
+    def _update(self) -> None:
+        cost = self.fold(self.x, self.h)
+        if self.track:
+            self.cost.copy_(cost)
+
+    def block(self, x, h) -> Optional[torch.Tensor]:
+        """Block ``x`` from the start ``h``: its cost (None untracked), a
+        tensor of its own, which no later replay writes."""
+        self.x = x
+        self.h.copy_(h)
+        self._part("update", self._update, None, 1, self.warm)
+        solver.GRAPH_COUNTS["replays" if self.warm else "warm_ups"] += 1
+        self.warm = True
+        return self.cost.clone() if self.track else None
 
 
 def solve_online(
@@ -212,6 +264,27 @@ def solve_online(
         return w, a, c, cost
 
     update = block_update if mesh is None else block_update_sharded
+
+    def fold(x_b, h):
+        """Block ``x_b``'s update from the H start ``h``: W, A and c written
+        in place (the call's buffers), its cost returned (None untracked)."""
+        w_n, a_n, c_n, cost = update(w, a, c, x_b, h)
+        for buf, t in ((w, w_n), (a, a_n), (c, c_n)):
+            buf.copy_(t)
+        return cost
+
+    widths = [j1 - j0 for j0, j1 in local]
+    graphs = solver.StreamGraphs({wd: widths.count(wd) * passes for wd in set(widths)})
+
+    def runner(x_b, h):
+        """The block's graph, or None where its width runs eagerly."""
+        width = h.shape[1]
+        if mesh is not None or not (graphs.allows(width)
+                                    and solver._graph_rule(dev, w.shape[0] * k * width)):
+            return None
+        return graphs.get(graphs.x_key(x_b),
+                          lambda: _OnlineGraph(h, (w, a, c), fold, track))
+
     all_costs: List[List[float]] = []
     for _ in range(passes):
         pass_costs: List[float] = []
@@ -223,13 +296,15 @@ def solve_online(
                 l0, l1 = local[idx]
                 h0 = np.ascontiguousarray(h0[:, l0 - j0:l1 - j0])
             h0 = upload_state(h0, config, dev)
-            w, a, c, cost = update(w, a, c, x_b, h0)
+            graph = runner(x_b, h0)
+            cost = fold(x_b, h0) if graph is None else graph.block(x_b, h0)
             if pend is not None:
                 pass_costs.append(float(pend))   # block idx - 1, while idx computes
             pend = cost
         if track:
             pass_costs.append(float(pend))
         all_costs.append(pass_costs)
+    del graphs, stream           # the graphs first: they read the stream's buffers
     if mesh is not None:
         w = gather(w, Placement(mesh, (ROW_AXIS, None)))
     return OnlineResult(w=w.to(_F32).cpu().numpy(), block_costs=all_costs, blocks=blocks,

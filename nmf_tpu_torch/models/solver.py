@@ -24,11 +24,14 @@ every device value on the device:
   step, the occupied tiles' T x bm x bn x K for a tile-sparse one, which
   its caller passes); a served program keeps
   its graphs across calls in a :class:`GraphCache` of its own, freed with
-  it.  A replay runs no wrapper, so it adds the launches its capture
-  recorded (``fused_mu.add_counts``).  The batched loop replays its
-  blocks by the same rule over a member axis
-  (:mod:`nmf_tpu_torch.parallel.batched`).  The tail block, the CPU, the
-  sharded (the tile-sparse one too), streamed and COO loops run eagerly;
+  it, and a streamed transform keeps them across its blocks in a
+  :class:`StreamGraphs`, over the stream's device buffers (X read where
+  its block lands, a graph a buffer and width).  A replay runs no
+  wrapper, so it adds the launches its capture recorded
+  (``fused_mu.add_counts``).  The batched loop replays its blocks by the
+  same rule over a member axis (:mod:`nmf_tpu_torch.parallel.batched`).
+  The tail block, the CPU, the sharded (the tile-sparse one too), the
+  streamed solve's and the COO loops run eagerly;
   a failed capture or replay raises;
 * with ``thresh == 0`` nothing is read back until the run ends, so exactly
   ``max_iter`` iterations run (nmf.cu:11); with ``thresh > 0`` one scalar
@@ -348,6 +351,13 @@ def _layout(t) -> tuple:
     return tuple(t.shape), t.stride(), t.dtype, t.device
 
 
+def _addresses(t) -> tuple:
+    """A tensor's (or a nest of tuples') data addresses."""
+    if isinstance(t, tuple):
+        return tuple(_addresses(a) for a in t)
+    return t.data_ptr()
+
+
 def _empty_like(t):
     """A nest of tuples of tensors like ``t``'s, uninitialised."""
     return tuple(_empty_like(a) for a in t) if isinstance(t, tuple) else torch.empty_like(t)
@@ -362,71 +372,39 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
-class _BlockGraph:
-    """Full check blocks over static state, the counterpart of the JAX
-    loop's inner ``fori_loop`` under ``jit``: the first block runs eagerly
-    on the side stream; at the second, one step and the check's close are
-    each captured there as a CUDA graph (one memory pool), and every block
-    from then on is ``chunk`` replays of the step's graph and one of the
-    close's.  A step's capture costs a step's host time, where a whole
-    block's would cost a block's (PERF.md section 6, PR 22).
+class _SharedPool:
+    """The memory pool that several graphs capture into (None until the
+    first capture makes it)."""
 
-    ``w``, ``h``, ``cost`` (the baseline), ``rel``, ``hist`` and ``idx`` are
-    the graphs' own buffers, each graph copying its results back into
-    them, and so is X when ``own_x`` (a graph kept across calls: each
-    call's X is copied in, so no address of a tensor its caller frees is
-    baked in); else X is read where the call holds it.  A replayed block
-    adds the launches the captures recorded to the counts
-    (``fused_mu.add_counts``): no wrapper runs at a replay."""
+    pool = None
 
-    def __init__(self, x, w, h, n_slots: int, step_fn: StepFn, cost_fn: CostFn, chunk: int,
-                 need_cost: bool, own_x: bool):
-        f32 = dict(dtype=_F32, device=w.device)
-        self.w, self.h = torch.empty_like(w), torch.empty_like(h)
-        self.cost = torch.empty((), **f32)
-        self.rel = torch.full((), float("nan"), **f32)
-        self.hist = torch.empty((n_slots,), **f32)
-        self.idx = torch.zeros((1,), dtype=torch.int64, device=w.device)
-        self.x = _empty_like(x) if own_x else None
-        self.own_x = own_x
-        self.step_fn, self.cost_fn, self.chunk, self.need_cost = step_fn, cost_fn, chunk, need_cost
+
+class _PartGraphs:
+    """Parts of a loop run as CUDA graphs on the device's side stream, all
+    in one memory pool: a part runs eagerly there until the owner is warm
+    (its first run does the lazy initialisation a capture cannot do: the
+    kernel library's load, cuBLAS's handle and workspace, lazy module
+    loading), then is captured at its first replay and replayed from then
+    on.  A part is ``chunk`` runs of a step and one of a close.  A replay
+    adds the launches its capture recorded to the counts
+    (``fused_mu.add_counts``): no wrapper runs at a replay.  Subclasses
+    hold the graphs' buffers and name them in ``state()``."""
+
+    def __init__(self, dev: torch.device, chunk: int):
+        self.dev, self.chunk = dev, chunk
         self.warm = False
-        self.pool = None            # the memory pool of every graph this object captures
+        # the memory pool of every graph this object captures (a streamed
+        # call's graphs share the call's)
+        self.shared = _SharedPool()
         self.parts: Dict[str, tuple] = {}   # name -> (graphs, the launches a replay adds)
-
-    def state(self) -> Tuple[torch.Tensor, ...]:
-        return self.w, self.h, self.cost, self.rel, self.hist, self.idx
-
-    def load(self, x, w, h, c0: float) -> None:
-        """A call's X and start: its W, H and baseline into the buffers."""
-        if self.own_x:
-            _copy_into(self.x, x)
-        else:
-            self.x = x
-        self.w.copy_(w)
-        self.h.copy_(h)
-        self.cost.fill_(c0)
-        self.hist.fill_(float("nan"))
-        self.idx.zero_()
-
-    def _step(self) -> None:
-        w, h = self.step_fn(self.w, self.h, self.x)
-        self.w.copy_(w)
-        self.h.copy_(h)
-
-    def _close(self) -> None:
-        cost, rel = close_check(self.x, self.w, self.h, self.cost, self.hist, self.idx,
-                                self.cost_fn)
-        self.cost.copy_(cost)
-        self.rel.copy_(rel)
 
     def _captured(self, fn):
         """(``fn`` captured as a graph, the launches its capture counted,
         taken back: a capture launches nothing)."""
         before = fused_mu.count_snapshot()
-        graph = _GRAPHS.capture(_GRAPHS.stream(self.w.device), fn, self.pool)
-        if self.pool is None:
-            self.pool = graph.pool()
+        graph = _GRAPHS.capture(_GRAPHS.stream(self.dev), fn, self.shared.pool)
+        if self.shared.pool is None:
+            self.shared.pool = graph.pool()
         counts = fused_mu.count_delta(before)
         fused_mu.add_counts(counts, -1)
         return graph, counts
@@ -468,9 +446,64 @@ class _BlockGraph:
                 close()
 
         if chunk == self.chunk:
-            _GRAPHS.run_on(_GRAPHS.stream(self.w.device), run)
+            _GRAPHS.run_on(_GRAPHS.stream(self.dev), run)
         else:
             run()
+
+
+class _BlockGraph(_PartGraphs):
+    """Full check blocks over static state, the counterpart of the JAX
+    loop's inner ``fori_loop`` under ``jit``: the first block runs eagerly
+    on the side stream; at the second, one step and the check's close are
+    each captured there as a CUDA graph (one memory pool), and every block
+    from then on is ``chunk`` replays of the step's graph and one of the
+    close's.  A step's capture costs a step's host time, where a whole
+    block's would cost a block's (PERF.md section 6).
+
+    ``w``, ``h``, ``cost`` (the baseline), ``rel``, ``hist`` and ``idx`` are
+    the graphs' own buffers, each graph copying its results back into
+    them, and so is X when ``own_x`` (a graph kept across calls: each
+    call's X is copied in, so no address of a tensor its caller frees is
+    baked in); else X is read where the call holds it."""
+
+    def __init__(self, x, w, h, n_slots: int, step_fn: StepFn, cost_fn: CostFn, chunk: int,
+                 need_cost: bool, own_x: bool):
+        super().__init__(w.device, chunk)
+        f32 = dict(dtype=_F32, device=w.device)
+        self.w, self.h = torch.empty_like(w), torch.empty_like(h)
+        self.cost = torch.empty((), **f32)
+        self.rel = torch.full((), float("nan"), **f32)
+        self.hist = torch.empty((n_slots,), **f32)
+        self.idx = torch.zeros((1,), dtype=torch.int64, device=w.device)
+        self.x = _empty_like(x) if own_x else None
+        self.own_x = own_x
+        self.step_fn, self.cost_fn, self.need_cost = step_fn, cost_fn, need_cost
+
+    def state(self) -> Tuple[torch.Tensor, ...]:
+        return self.w, self.h, self.cost, self.rel, self.hist, self.idx
+
+    def load(self, x, w, h, c0: float) -> None:
+        """A call's X and start: its W, H and baseline into the buffers."""
+        if self.own_x:
+            _copy_into(self.x, x)
+        else:
+            self.x = x
+        self.w.copy_(w)
+        self.h.copy_(h)
+        self.cost.fill_(c0)
+        self.hist.fill_(float("nan"))
+        self.idx.zero_()
+
+    def _step(self) -> None:
+        w, h = self.step_fn(self.w, self.h, self.x)
+        self.w.copy_(w)
+        self.h.copy_(h)
+
+    def _close(self) -> None:
+        cost, rel = close_check(self.x, self.w, self.h, self.cost, self.hist, self.idx,
+                                self.cost_fn)
+        self.cost.copy_(cost)
+        self.rel.copy_(rel)
 
     def block(self) -> None:
         """Run one full block: the first eagerly on the side stream (the
@@ -598,13 +631,66 @@ class GraphCache:
     buffer, so no address).  Only for a step and cost that close over no
     tensor of a call."""
 
-    def __init__(self):
-        self.graphs: Dict[tuple, _BlockGraph] = {}
+    own_x = True
 
-    def get(self, key, make: Callable[[], _BlockGraph]) -> _BlockGraph:
+    def __init__(self):
+        self.graphs: Dict[tuple, _PartGraphs] = {}
+
+    def x_key(self, x) -> tuple:
+        """What a graph over X bakes in of it."""
+        return _layout(x)
+
+    def allows(self, width: int) -> bool:
+        """Whether a call whose blocks are ``width`` columns wide graphs."""
+        return True
+
+    def get(self, key, make: Callable[[], _PartGraphs]) -> _PartGraphs:
         if key not in self.graphs:
             self.graphs[key] = make()
         return self.graphs[key]
+
+
+class StreamGraphs(GraphCache):
+    """Graphs kept for the length of one streamed call, over the stream's
+    device buffers, which stay at fixed addresses for the whole call and
+    outlive this cache (``streaming._BlockStream``: two for X, two for a
+    mask, two for int8 scales).  X is read where the block lands, with no
+    copy (one more block of X would break the streamed paths' bound of a
+    third of X in device memory), so the key holds X's addresses beside the
+    layouts: a graph a stream slot and width.
+
+    ``full_blocks`` maps a block width to the full blocks the call runs at
+    it, over all its blocks and passes (check blocks for the transform, one
+    a block for the online learner): a width graphs only where they number
+    more than :data:`MIN_REPLAYS`, as a call's own graph must replay at
+    least that many after its warm one.
+
+    Every graph of the call captures into one memory pool: each capture's
+    temporaries are dead when it ends (its results are copied into its
+    graph's own buffers), so a capture reuses the pool that an earlier
+    one grew, and replays in any order never meet a live tensor there
+    (the online learner's block-sized temporaries made a second pool cost
+    a second capture's allocations: PERF.md section 6)."""
+
+    own_x = False
+
+    def __init__(self, full_blocks: Dict[int, int]):
+        super().__init__()
+        self.full_blocks = dict(full_blocks)
+        self.shared = _SharedPool()
+
+    def get(self, key, make: Callable[[], _PartGraphs]) -> _PartGraphs:
+        if key not in self.graphs:
+            runner = make()
+            runner.shared = self.shared
+            self.graphs[key] = runner
+        return self.graphs[key]
+
+    def x_key(self, x) -> tuple:
+        return _layout(x), _addresses(x)
+
+    def allows(self, width: int) -> bool:
+        return self.full_blocks.get(width, 0) > MIN_REPLAYS
 
 
 def run_checked_loop(
@@ -643,8 +729,11 @@ def run_checked_loop(
     ``graphs=True`` makes one for this call where it replays at least
     :data:`MIN_REPLAYS` blocks, and frees it on return; a
     :class:`GraphCache` keeps its graph across calls (only for a step and
-    cost that close over no tensor of the call); ``False`` runs every block
-    eagerly (the streamed and COO loops, a sharded tile-sparse one).  Under
+    cost that close over no tensor of the call), a :class:`StreamGraphs`
+    across one streamed call's blocks (X read in the stream's buffer, a
+    graph a buffer and width, a width only where its rule allows);
+    ``False`` runs every block eagerly (the streamed solve's and COO loops,
+    a sharded tile-sparse one).  Under
     ``config.accelerate`` the same rule takes the accelerated loop's full
     blocks to an :class:`_AccelGraph` (:func:`_run_accel_graphed`).  A
     failed capture or replay raises.
@@ -664,9 +753,10 @@ def run_checked_loop(
     if graphs is not False and all_reduce is None and _graph_rule(dev, work):
         cls, mode = (_AccelGraph, config) if config.accelerate else (_BlockGraph, need_cost)
         args = (max(config.num_checks, 1), step_fn, cost_fn, check_every, mode)
-        if isinstance(graphs, GraphCache) and n_full:
-            key = (step_fn, cost_fn, config, _layout(x), _layout(w), _layout(h))
-            runner = graphs.get(key, lambda: cls(x, w, h, *args, own_x=True))
+        if isinstance(graphs, GraphCache):
+            if n_full and graphs.allows(h.shape[-1]):
+                key = (step_fn, cost_fn, config, graphs.x_key(x), _layout(w), _layout(h))
+                runner = graphs.get(key, lambda: cls(x, w, h, *args, own_x=graphs.own_x))
         elif n_full > MIN_REPLAYS:
             runner = cls(x, w, h, *args, own_x=False)
     if config.accelerate:

@@ -32,10 +32,12 @@ The bytes on the wire are X's storage bytes: f32 (clamped on the card, in
 place, after the copy: ``max`` is exact, so the bits are the host clamp's),
 bf16 (clamped and cast on the host), or uint8 codes with per-column f32
 scales (quantized once on the host by ``quantize_policy_np``; the codes are
-kept on the host up to ``NMF_TPU_QCACHE_BYTES``, the scales on the card).
+kept on the host up to ``NMF_TPU_QCACHE_BYTES``, the scales on the host,
+and each block's scales cross beside its codes into the slot's scales
+buffer).
 
-Device memory: W + H + the accumulators + two blocks (and two mask blocks)
-+ the kernels' scratch, independent of N (``accelerate``: W and H twice
+Device memory: W + H + the accumulators + two blocks (and two mask blocks,
+two blocks' scales) + the kernels' scratch, independent of N (``accelerate``: W and H twice
 more, the extrapolated point and the block-start snapshot).
 
 ``accelerate=True`` runs the safeguarded Nesterov loop over the same sweep
@@ -63,7 +65,11 @@ stays on K1, K2 ``numerator_only`` and K3.
 visited once and solved in full by the H-only solve
 (:func:`nmf_tpu_torch.solve_h_only`'s step and loop, or with ``mask=`` the
 masked H-only solve's) while the next block is copied in, so X crosses the
-link once per run.
+link once per run.  On the card its blocks replay CUDA graphs kept for the
+call (``solver.StreamGraphs``, JAX's per-block program ``_h_only_jit``): a
+graph per stream slot and block width, reading X, the mask and int8's
+scales in the stream's fixed device buffers, where the width's full check
+blocks pass ``solver.MIN_REPLAYS``; a mesh's blocks run eagerly.
 
 ``checkpoint_dir`` writes a checkpoint of W, H, the iteration, the cost
 history and (``accelerate``) the momentum and the extrapolated pair every
@@ -147,7 +153,14 @@ from ..parallel.sharded import (
 )
 from .masked import masked_h_step_cost, masked_kl, masked_update_h, masked_w_terms
 from .nmf import _h_only_step_cost
-from .solver import SolveResult, _use_kernels, extrapolate, run_checked_loop, to_state
+from .solver import (
+    SolveResult,
+    StreamGraphs,
+    _use_kernels,
+    extrapolate,
+    run_checked_loop,
+    to_state,
+)
 
 __all__ = [
     "ArrayColumnSource",
@@ -394,13 +407,18 @@ class _BlockStream:
             self._copied = [torch.cuda.Event() for _ in range(2)]   # copy into slot done
             self._read = [torch.cuda.Event() for _ in range(2)]     # compute on slot done
         # int8: codes quantized once, kept on the host up to the budget
-        # (re-quantizing a block beyond it gives the same codes); the
-        # per-column scales always on the device.  A stream holds one mask
-        # for its whole life, so codes made from masked blocks stay valid.
+        # (re-quantizing a block beyond it gives the same codes); every
+        # block's scales kept on the host (pinned on the card) and copied
+        # with its codes into the slot's scales buffer, so a block's scales
+        # lie at a fixed address a slot, as its codes do.  A stream holds
+        # one mask for its whole life, so codes made from masked blocks
+        # stay valid.
         self.qcache = {}
         self.qcache_bytes = 0
         self.qcache_budget = qcache_budget
         self.scales = {}
+        self._width = width
+        self._sdev = None           # the two slots' scales buffers, made at the first block
 
     def _buffers(self, size: int, dtype: torch.dtype):
         """Two pinned staging buffers and two device buffers of ``size``
@@ -468,6 +486,16 @@ class _BlockStream:
         dst.copy_(torch.from_numpy(codes))
         return new_scales
 
+    def _slot_scales(self, idx: int, slot: int) -> torch.Tensor:
+        """Block ``idx``'s scales' place in slot ``slot``'s scales buffer:
+        per column, or per row block of every row (``(R, width)``),
+        contiguous at the buffer's start."""
+        shape = self.scales[idx].shape
+        if self._sdev is None:
+            size = shape.numel() // shape[-1] * self._width
+            self._sdev = [torch.empty(size, dtype=_F32, device=self.dev) for _ in range(2)]
+        return self._sdev[slot][: shape.numel()].view(shape)
+
     def _put(self, idx: int) -> int:
         """Stage block ``idx`` and start its copy; returns its slot."""
         slot, self._next = self._next, self._next ^ 1
@@ -475,23 +503,25 @@ class _BlockStream:
             scales = self._fill(idx, slot)
             if scales is not None:
                 self.scales[idx] = scales
+            if self.x_dtype == "int8":
+                self._slot_scales(idx, slot).copy_(self.scales[idx])
             return slot
         self._copied[slot].synchronize()   # the pinned buffers' last copies are done
         scales = self._fill(idx, slot)
         if scales is not None:
-            # allocated on the compute stream, which reads it after the copy
-            self.scales[idx] = torch.empty(scales.shape, dtype=_F32, device=self.dev)
-            scales = scales.pin_memory()
+            self.scales[idx] = scales.pin_memory()
         pairs = [(self._dev, self._host)]
         if self.mask_source is not None:
             pairs.append((self._mdev, self._mhost))
+        # (made on the compute stream, which reads it after the copy)
+        s_dev = self._slot_scales(idx, slot) if self.x_dtype == "int8" else None
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(self._read[slot])
             n = self._view(self._host[slot], idx).numel()
             for dev_bufs, host_bufs in pairs:
                 dev_bufs[slot][:n].copy_(host_bufs[slot][:n], non_blocking=True)
-            if scales is not None:
-                self.scales[idx].copy_(scales, non_blocking=True)
+            if s_dev is not None:
+                s_dev.copy_(self.scales[idx], non_blocking=True)
             self._copied[slot].record(self._copy_stream)
         return slot
 
@@ -506,7 +536,7 @@ class _BlockStream:
             if mask is not None:
                 _zero_unobserved(x, mask)
         elif self.x_dtype == "int8":
-            x = (x, self.scales[idx])
+            x = (x, self._slot_scales(idx, slot))
         return x if mask is None else (x, mask)
 
     def sweep(self):
@@ -1380,9 +1410,15 @@ def transform_out_of_core(
                 step_costs[width] = _h_only_step_cost(cfg)
         return step_costs[width]
 
+    # JAX's per-block program, kept for the call: a graph a stream slot and
+    # width over the stream's fixed buffers (the mesh's blocks run eagerly)
+    widths = [j1 - j0 for j0, j1 in blocks]
+    per_block = int(config.max_iter) // int(config.check_every)
+    graphs = StreamGraphs({wd: widths.count(wd) * per_block for wd in set(widths)})
+
     def solve_block(idx, x_j, h_j):
         if solver is None:
-            return run_checked_loop(x_j, w_dev, h_j, config, *step_cost(idx), graphs=False)
+            return run_checked_loop(x_j, w_dev, h_j, config, *step_cost(idx), graphs=graphs)
         res = solver(x_j, w_dev, h_j)
         return dataclasses.replace(res, h=gather(res.h, Placement(mesh, (None, COL_AXIS))))
 
@@ -1412,7 +1448,7 @@ def transform_out_of_core(
             parts.append(pending.result())   # block idx - 1, while idx solves
         pending = fetch
     parts.append(pending.result())
-    del stream
+    del graphs, stream           # the graphs first: they read the stream's buffers
 
     h_parts, costs, iters, convs = zip(*parts)
     need_cost = config.track_cost or config.thresh > 0.0

@@ -10,6 +10,7 @@
     python3 probe_timings.py accel                     # the accelerated loop's graphs
     python3 probe_timings.py batched                   # the batched loop's graphs
     python3 probe_timings.py tiled                     # the tile-sparse loops' graphs
+    python3 probe_timings.py stream                    # the streamed transform's and online graphs
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -112,6 +113,20 @@ once (``_run_tiled``), in it/s; and the tile-sparse batch of
 every 10), plain and accelerated, through ``solve_sparse_tiled_batched``
 on prepared tiles, in problem-it/s.  One JSON line a case; no gate
 (``chip_smoke.py`` phases 8, 10c, 14e and 15 hold the bits).
+
+``stream``: the streamed transform's and the online learner's graphs
+(``solver.StreamGraphs``: a graph a stream slot and block width, JAX's
+``_h_only_jit`` and ``_online_jit``) against the eager loop, in turns as
+``batched`` (three pairs after a warm run of each, each graphed run with
+its graph counts, the captures' host seconds among them; one profiled run
+of each for the device's busy share), in columns a second:
+``transform_out_of_core`` (``chip_smoke.TR_OOC_ITERS`` = 50 H-only
+iterations a block, a check every 25, ``auto``) and ``solve_online``
+(``chip_smoke.ONLINE_INNER`` = 20 inner iterations, one pass) on the hour
+of audio (``chip_smoke.OOC_SHAPE``, 1025 x 619,264, K=32, f32 X made on
+the card from seed 0), at its default blocks of 65,408 columns and at
+narrow blocks of 2048.  One JSON line a case; no gate (``chip_smoke.py``
+phases 12b, 13f and 13g hold the bits).
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -657,6 +672,39 @@ def tiled(cs, card):
     tmp.cleanup()
 
 
+def stream(cs, card):
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import nmf_tpu_torch as nt
+
+    m, n, k = cs.OOC_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, w = (torch.rand(s, generator=g, device="cuda").clamp_min_(cs.EPS).cpu().numpy()
+            for s in ((m, n), (m, k)))
+    cfg = nt.SolveConfig(max_iter=cs.TR_OOC_ITERS)
+    tmp = tempfile.TemporaryDirectory(prefix="nmf_probe_")
+    for bn in (cs.OOC_BLOCK, 2048):
+        cases = {
+            "transform": lambda: nt.transform_out_of_core(x, w, config=cfg, block_n=bn,
+                                                          device="cuda"),
+            "online": lambda: nt.solve_online(x, w, nt.SolveConfig(), block_n=bn,
+                                              inner_iters=cs.ONLINE_INNER, device="cuda"),
+        }
+        for name, fn in cases.items():
+            rec = _turns(cs, tmp.name, fn, n, pairs=3)
+            med = {tag: float(np.median(v["per_s"])) for tag, v in rec.items()
+                   if tag in ("graphed", "eager")}
+            print(json.dumps({"card": card, "probe": "stream", "case": name, "m": m, "n": n,
+                              "k": k, "block_n": bn, "blocks": -(-n // bn),
+                              "unit": "columns a second",
+                              "graphed_over_eager": med["graphed"] / med["eager"], **rec}),
+                  flush=True)
+    tmp.cleanup()
+
+
 def sass(cs, card, root):
     import collections
     import re
@@ -694,7 +742,7 @@ def sass(cs, card, root):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass",
-                                      "graph", "accel", "batched", "tiled"))
+                                      "graph", "accel", "batched", "tiled", "stream"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -724,6 +772,8 @@ def main(argv=None) -> int:
         batched(cs, card)
     elif args.probe == "tiled":
         tiled(cs, card)
+    elif args.probe == "stream":
+        stream(cs, card)
     else:
         kl(cs, card, args.root)
     return 0

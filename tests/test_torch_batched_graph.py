@@ -345,7 +345,7 @@ def test_c_no_graph_where_the_loop_stays_eager(stack, captured, monkeypatch):
     assert _counts()[0] == {"warm_ups": 1, "captures": 1, "replays": ps.MIN_REPLAYS}
 
 
-def test_c_tiled_batch_stays_eager(captured):
+def test_c_tiled_batch_replays(captured):
     """The tile-sparse batch does not stay eager: its full blocks replay
     (``jax.jit(jax.vmap(run_checked_loop))``'s counterpart, the plain
     sweeps member by member in the step's graph) and give the eager
