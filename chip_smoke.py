@@ -526,6 +526,12 @@ KERNELS = [
 # 10a's graphed accelerated reference solve
 EXTRAP_KERNEL = ("extrapolate", "nmf_tpu/models/solver.py:557",
                  "nmf_tpu_torch/csrc/extrapolate.cu")
+# the IF conditional node's kernel (one thread sets the node's handle from
+# the device flag): it replaces no pallas_call but the JAX loops' decisions
+# on the device, the while_loop's cond and the accelerated loop's lax.cond;
+# its main path is phase 6's graphed reference solve that stops on the
+# device
+IF_KERNEL = ("set_if", "nmf_tpu/models/solver.py:454", "nmf_tpu_torch/csrc/graph_if.cu")
 # Published peaks of one H100 SXM at 700 W (dense): f32 on the SIMT units,
 # bf16 on the tensor cores, and the HBM rate.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -1422,7 +1428,197 @@ def phase_inprocess(card, tmp, out):
     out["graphs"]["cli run"], out["graphs"]["cli transform"] = run_graphs, tr_graphs
     print(f"[{card}] CLI run and transform in process: graphs {run_graphs} and {tr_graphs}, "
           "the run's files byte-equal to the subprocess's")
+    _stop_runs(card, out, x, w, h)
+    _check_if_node(card, out, x, w, h)
 
+
+def _thresh_at(hist, stop_at: int):
+    """(a threshold, the check it stops at) for a run whose checks give the
+    history ``hist``: the first check from ``stop_at`` on (1-based, >= 2)
+    whose relative change lies below every one before it, and the
+    geometric mean of that change and the smallest before it (capped at
+    four times it)."""
+    hist = np.asarray(hist, np.float64)
+    rel = np.abs(hist[:-1] - hist[1:]) / np.abs(hist[1:])     # rel[i]: check i + 2's
+    for c in range(stop_at, len(hist) + 1):
+        at, before = rel[c - 2], rel[:c - 2].min(initial=np.inf)
+        if at < before:
+            return float(np.sqrt(at * min(before, 4 * at))), c
+    check(False, f"history {hist.tolist()}: no check from {stop_at} on changes less than "
+          "every one before it")
+
+
+def _hold_stop(out, where, res, graphs, eager, reads=1):
+    """A graphed run that stops on the device: :func:`_hold_graphed` with
+    every block it ran counted (the first eager, the others replayed, a
+    ragged tail's too), ``converged`` and the cost among the bits,
+    ``reads`` host reads, and at most two blocks enqueued after the stop
+    (replayed as no-ops)."""
+    if callable(eager):
+        eager = _eager(eager)
+    _hold_graphed(out, where, res, graphs, eager, blocks=int(res.num_checks.max()))
+    check(torch.equal(res.converged, eager.converged)
+          and torch.equal(_bits(res.cost), _bits(eager.cost)),
+          f"{where}: converged or cost of the graphed loop differs from the eager loop's")
+    check(graphs["reads"] == reads and graphs["skipped"] <= 2,
+          f"{where}: graphs {graphs}, expected {reads} host read(s) and at most two blocks "
+          "skipped after the stop")
+
+
+# phase 6's stop on the device: the reference solve (a check every 25)
+# stopping at this check of its history, out of STOP_ITERS at most
+STOP_AT, STOP_ITERS = 6, 2000
+
+
+def _stop_runs(card, out, x, w, h):
+    """The reference solve in f32 through K1-K3, graphed, stopping on the
+    device: at a threshold taken from its own history (check ``STOP_AT`` of
+    at most ``STOP_ITERS`` iterations), and at a threshold it never meets
+    with a ragged tail (210 iterations: eight full blocks and one of ten,
+    replayed too); each held to its ``eager_loop()`` twin bit for bit, the
+    twin's K1-K3 launches, one host read (at the end), at most two blocks
+    after the stop."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.kernels import fused_mu
+
+    base = dataclasses.replace(_tier_configs()["float32"][0], backend="pallas")
+    hist = nt.solve(x, w, h, base, device="cuda").cost_history.cpu().numpy()
+    thresh, stop_at = _thresh_at(hist, STOP_AT)
+    runs = {"stop reference": dataclasses.replace(base, max_iter=STOP_ITERS, thresh=thresh),
+            "stop reference ragged": dataclasses.replace(base, max_iter=210, thresh=1e-9)}
+    done = {}
+    for where, cfg in runs.items():
+        fused_mu.reset_counts()
+        (res, secs), graphs = _graph_run(
+            lambda cfg=cfg: _timed(lambda: nt.solve(x, w, h, cfg, device="cuda")))
+        launches = dict(fused_mu.LAUNCHES)
+        fused_mu.reset_counts()
+        eager, e_secs = _timed(lambda cfg=cfg: _eager(lambda: nt.solve(x, w, h, cfg,
+                                                                       device="cuda")))
+        its, checks = int(res.iterations), int(res.num_checks)
+        want = _launches(update_h=its, update_w=its, kl_cost=checks)
+        check(launches == want == dict(fused_mu.LAUNCHES),
+              f"{where}: launches {launches}, eager {dict(fused_mu.LAUNCHES)}, expected {want}")
+        _hold_stop(out, where, res, graphs, eager)
+        stops = where == "stop reference"
+        check(bool(res.converged) == stops and checks == (stop_at if stops else 9)
+              and its == (stop_at * 25 if stops else 210)
+              and graphs["skipped"] == (2 if stops else 0),
+              f"{where}: {its} iterations, {checks} checks, converged {bool(res.converged)}, "
+              f"graphs {graphs}")
+        out["launches"][where] = {**launches, "set_if": graphs["set_if"]}
+        done[where] = {"iterations": its, "checks": checks, "thresh": cfg.thresh,
+                       "graphs": graphs, "its": its / secs, "eager_its": its / e_secs}
+        print(f"[{card}] {where}: thresh {cfg.thresh}, {its} iterations, {checks} checks, "
+              f"converged {bool(res.converged)}, launches {launches} (the eager twin's), graphs "
+              f"{graphs}; the eager loop's bits; {its / secs} it/s graphed, {its / e_secs} eager "
+              "(first timed runs)")
+    out["graphs"]["stop summary"] = done
+
+
+def _kernel_names(fn):
+    """The names of the kernels the card ran for ``fn()``, in the order they
+    started (torch.profiler).  Only kernels that start inside a host
+    annotation around ``fn()`` and its sync count: a profiler session can
+    hand over kernels the card ran before it began (the closes of an
+    earlier solve), and those are left out."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("nmf_smoke_window"):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        events = json.loads(pathlib.Path(trace).read_text())["traceEvents"]
+    window = [e for e in events if e.get("ph") == "X" and e.get("name") == "nmf_smoke_window"
+              and e.get("cat") == "user_annotation"]
+    check(len(window) == 1, f"the profiler recorded {len(window)} windows around the call")
+    t0 = float(window[0]["ts"])
+    kernels = sorted((float(e["ts"]), e["name"]) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "kernel")
+    return [name for ts, name in kernels if ts >= t0]
+
+
+def _check_if_node(card, out, x, w, h):
+    """The IF node's kernel (``csrc/graph_if.cu``'s ``set_if``) at the main
+    path's graph, one f32 reference step (K1 and K2) captured under a
+    device flag as the graphed loops capture it, against its plain
+    version, the host reading the flag and replaying the step's plain
+    graph only where it holds: flag true, the step's bits; flag false,
+    every buffer as it was, and the card runs ``set_if`` alone (the
+    profiler's kernels of a skipped replay).  Times on the host clock, a
+    call synced: a skipped replay against the plain version's read of the
+    flag, in turns; bound: the one byte of the flag."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import solver
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(nt.reference_preset(), backend="pallas")
+    xp, wp, hp = solver._prep(x, w, h, cfg, True, dev)
+    step = solver.resolve_step_fn(cfg)
+    wb, hb = wp.clone(), hp.clone()
+
+    def body():
+        w1, h1 = step(wb, hb, xp)
+        wb.copy_(w1)
+        hb.copy_(h1)
+
+    api = solver._GRAPHS
+    stream = api.stream(dev)
+    api.run_on(stream, body)          # warm, as a loop's first block
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+    graph = api.capture(stream, body, pred=pred)
+    plain = api.capture(stream, body)
+    torch.cuda.synchronize()
+    st = out["kernels"]["set_if"]
+    w0, h0 = wb.clone(), hb.clone()
+    w1, h1 = step(w0, h0, xp)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = max(float((wb - w1).abs().max()), float((hb - h1).abs().max()))
+    check(torch.equal(wb, w1) and torch.equal(hb, h1),
+          f"IF node: a replay under a true flag is not the step's bits (max abs err {err})")
+    pred.fill_(False)
+    w0, h0 = wb.clone(), hb.clone()
+    names = _kernel_names(graph.replay)
+    check(torch.equal(wb, w0) and torch.equal(hb, h0),
+          "IF node: a replay under a false flag changed W or H")
+    check(len(names) == 1 and "set_if" in names[0],
+          f"IF node: a skipped replay ran the kernels {names}, expected set_if alone")
+    pred.fill_(True)
+    true_names = _kernel_names(graph.replay)
+    check(len(true_names) > 1 and "set_if" in true_names[0],
+          f"IF node: a replay under a true flag ran {true_names}")
+
+    def skipped():
+        graph.replay()
+        torch.cuda.synchronize()
+
+    def read_flag():
+        if bool(pred):
+            plain.replay()
+
+    pred.fill_(False)
+    reps = 200
+    ms = []
+    for fn in (read_flag, skipped, skipped, read_flag):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / reps)
+    b_ms, b_by = bound(0, 1)
+    st.update(max_abs_err=err, ms=(ms[1] + ms[2]) / 2, plain_ms=(ms[0] + ms[3]) / 2,
+              bound_ms=b_ms, bound_by=b_by, timed="host clock, a call synced",
+              true_replay_kernels=len(true_names))
+    print(f"[{card}] IF node (set_if) at one reference step: a true flag gives the step's bits "
+          f"({len(true_names)} kernels), a false one runs set_if alone ({names}) and changes "
+          f"nothing; a skipped replay {st['ms']} ms, the plain read of the flag {st['plain_ms']} "
+          f"ms (host clock, a call synced; in turns {ms}), bound {b_ms} ms ({b_by})")
 
 def _split_exposed(g, shape):
     """Phase 3's ``float32_fast`` W or H (``_exposed``), made on the card:
@@ -1951,6 +2147,8 @@ def phase_tilesparse_solves(card, out):
               f"{where}: K5 pass-1 launches per Mode {per_mode}, expected {TS_ITERS} {mode}")
         out["launches"][f"tiled {dtype}"] = launches
         hist = _check_history(res, where)
+        if dtype == "float32":
+            f32_hist = hist
         res2, secs2 = _ts_solve(tx, w, h, cfg)
         for f in ("w", "h"):
             check(torch.equal(_bits(getattr(res, f)), _bits(getattr(res2, f))),
@@ -2025,6 +2223,20 @@ def phase_tilesparse_solves(card, out):
     print(f"[{card}] tiled solve [ragged] {mr}x{nr}, {txr.tiles.shape[0]} tiles: K5 {launches}, "
           f"cost {float(res.cost)}, {TS_ITERS / secs} it/s; graphed (graphs {graphs}), the eager "
           "loop's bits and K5 launches per Mode")
+    # the stop on the device: f32 at a threshold from its own history
+    thresh, stop_at = _thresh_at(f32_hist, STOP_AT)
+    cfg = nt.SolveConfig(max_iter=STOP_ITERS, check_every=25, thresh=thresh, backend="pallas")
+    where = "tiled solve [stop]"
+    res, secs, launches, _, graphs = _ts_graphed(out, where, lambda: _ts_solve(tx, w, h, cfg),
+                                                 None)
+    check(launches == {"h_numerator": 25 * stop_at, "w_numerator": 25 * stop_at}
+          and bool(res.converged) and int(res.num_checks) == stop_at
+          and graphs["reads"] == 1 and graphs["skipped"] == 2
+          and graphs["warm_ups"] + graphs["replays"] == stop_at,
+          f"{where}: thresh {thresh}, K5 {launches}, {int(res.num_checks)} checks (expected "
+          f"{stop_at}), graphs {graphs}")
+    print(f"[{card}] {where}: thresh {thresh}, stopped at check {stop_at} on the device, K5 "
+          f"{launches}, graphs {graphs}; the eager loop's bits and K5 launches per Mode")
 
 
 def phase_tilesparse(card, out):
@@ -2626,15 +2838,14 @@ EXTRAP_RAGGED = ((37, 13), (13, 41))
 EXTRAP_MOMENTUM = 0.8144469857215881
 
 
-def _hold_accel(out, where, res, graphs, eager, blocks, redo=(0, 0)):
+def _hold_accel(out, where, res, graphs, eager, blocks, redos=0):
     """:func:`_hold_graphed` for an accelerated run (momentum among the
-    fields), and its host reads: one a block (thresh 0, no live metrics),
-    rejected blocks' redos ``redo`` = (eager, replayed)."""
+    fields), and its host reads: one, at the end (the accept test and the
+    redo under its IF node are the device's), and ``redos`` rejected
+    blocks, each redo replayed."""
     _hold_graphed(out, where, res, graphs, eager, blocks=blocks)
-    check(graphs["reads"] == int(res.num_checks)
-          and (graphs["redo_eager"], graphs["redo_replays"]) == redo,
-          f"{where}: graphs {graphs}, expected {int(res.num_checks)} host reads and redos "
-          f"(eager, replayed) {redo}")
+    check(graphs["reads"] == 1 and (graphs["redo_eager"], graphs["redo_replays"]) == (0, redos),
+          f"{where}: graphs {graphs}, expected one host read and {redos} redos, replayed")
 
 
 def _extrap_operands(shape, dtype, rng, offset=0):
@@ -2784,20 +2995,36 @@ def phase_accel_reference(card, out):
             fn = lambda c=c: nt.solve(x, w, h, c, device="cuda")  # noqa: E731
             its[key].append(ACCEL_ITERS / _timed(lambda: _eager(fn) if eager else fn())[1])
     # the reject path on the card: a baseline below any cost rejects the
-    # first block, redone with K1/K2 from its start (no seed cost), eagerly:
-    # the first block runs before any capture
+    # first block, redone with K1/K2 from its start (no seed cost): its
+    # redo replays the graphs captured right after the first block's
+    # accelerated part, under the device's reject flag
     fres, _, f_launches, f_rejects, f_graphs = _counted_accel(
         x, w, h, cfg, f"{where} initial_cost=0", initial_cost=0.0)
     check(f_rejects >= 1, f"{where} initial_cost=0: no block rejected")
     _hold_accel(out, f"{where} initial_cost=0", fres, f_graphs,
                 lambda: nt.solve(x, w, h, cfg, device="cuda", initial_cost=0.0), checks,
-                redo=(1, 0))
+                redos=1)
     fj, _, fj_rejects = _plain_accel(x, w, h, cfg, f"{where} initial_cost=0", initial_cost=0.0)
     f_rel = abs(float(fres.cost) - float(fj.cost)) / abs(float(fj.cost))
     check(fj_rejects == f_rejects and f_rel <= 1e-4
           and torch.equal(_bits(fres.momentum), _bits(fj.momentum)),
           f"{where} initial_cost=0: rejects {f_rejects} / jnp {fj_rejects}, rel {f_rel}")
     graphed = _accel_graphed_runs(card, out, x, w, h, cfg)
+    # the stop on the device: a threshold from the accelerated history
+    thresh, stop_at = _thresh_at(hist, STOP_AT)
+    s_cfg = dataclasses.replace(cfg, max_iter=STOP_ITERS, thresh=thresh)
+    sres, _, s_launches, s_rejects, s_graphs = _counted_accel(x, w, h, s_cfg, f"{where} stop")
+    _hold_stop(out, f"{where} stop", sres, s_graphs,
+               lambda: nt.solve(x, w, h, s_cfg, device="cuda"))
+    check(bool(sres.converged) and int(sres.num_checks) == stop_at
+          and s_graphs["redo_replays"] == s_rejects and s_graphs["skipped"] == 2,
+          f"{where} stop: thresh {thresh}, {int(sres.num_checks)} checks (expected {stop_at}), "
+          f"{s_rejects} rejects, graphs {s_graphs}")
+    out["launches"][f"{where} stop"] = s_launches
+    graphed["stop"] = {"thresh": thresh, "checks": stop_at, "graphs": s_graphs,
+                       "launches": s_launches}
+    print(f"[{card}] {where} stop: thresh {thresh}, stopped at check {stop_at} on the device, "
+          f"launches {s_launches} ({s_rejects} rejects), graphs {s_graphs}; the eager loop's bits")
     # device busy share of one accelerated (graphed and eager) and one
     # plain solve
     from torch.profiler import ProfilerActivity, profile
@@ -2826,7 +3053,7 @@ def phase_accel_reference(card, out):
           f"kernels {its['plain']} (first timed runs {ACCEL_ITERS / secs}, "
           f"{ACCEL_ITERS / j_secs} jnp eager, {ACCEL_ITERS / p_secs})")
     print(f"[{card}] {where} initial_cost=0: launches {f_launches} ({f_rejects} reject, its redo "
-          f"eager), graphs {f_graphs}, the eager loop's bits, cost {float(fres.cost)} (jnp "
+          f"replayed), graphs {f_graphs}, the eager loop's bits, cost {float(fres.cost)} (jnp "
           f"{float(fj.cost)}, rel {f_rel}), momentum {float(fres.momentum)} bit-equal to jnp's")
     print(f"[{card}] {where}: profiled: accelerated busy {shares['accel']['busy']} "
           f"({shares['accel']['kernels_ms']} ms of kernels in {shares['accel']['wall_ms']} ms), "
@@ -2866,7 +3093,7 @@ def _accel_graphed_runs(card, out, x, w, h, cfg):
     check(rejects == ACCEL_REJECTS, f"{where}: {rejects} rejects, expected {ACCEL_REJECTS}")
     _accel_history(res, where, c.max_iter)
     _hold_accel(out, where, res, graphs, lambda: nt.solve(xr, wr, hr, c, device="cuda"),
-                c.max_iter, redo=(0, ACCEL_REJECTS))
+                c.max_iter, redos=ACCEL_REJECTS)
     done["rejecting"] = {"graphs": graphs, "rejects": rejects, "launches": launches}
     # a resumed segment: the second of two, its carry held too
     half = dataclasses.replace(cfg, max_iter=ACCEL_ITERS // 2)
@@ -2890,7 +3117,7 @@ def _accel_graphed_runs(card, out, x, w, h, cfg):
                 lambda: nt.solve_semi(x, w, h, cfg, n_frozen=SEMI_FROZEN, device="cuda"), checks)
     done["semi"] = {"graphs": graphs, "rejects": rejects}
     print(f"[{card}] phase 10a graphed routes, each the eager loop's bits (w, h, history, "
-          f"counts, momentum; the segment's carry), one host read a block: "
+          f"counts, momentum; the segment's carry), one host read, at the end: "
           f"{json.dumps(done)}")
     return done
 
@@ -3102,14 +3329,16 @@ GRAPH_FIELDS = ("w", "h", "cost_history", "iterations", "num_checks", "momentum"
 
 def _graph_run(fn):
     """(fn(), the counts of the check-block graphs it ran: "warm_ups",
-    "captures", "replays", "capture_s", and the accelerated loop's
-    "redo_eager", "redo_replays" and host "reads"), the counts set to 0
-    just before."""
+    "captures", "replays", "skipped" (enqueued after a stop on the device,
+    run as no-ops), "waits" (the host's waits on a block's event),
+    "capture_s", the accelerated loops' "redo_eager" (the eager loop's),
+    "redo_replays" and every host "reads", and the IF node kernel's
+    launches "set_if"), the counts set to 0 just before."""
     from nmf_tpu_torch.models import solver
 
     solver.reset_graph_counts()
     res = fn()
-    return res, {**solver.GRAPH_COUNTS, **solver.ACCEL_COUNTS}
+    return res, {**solver.GRAPH_COUNTS, **solver.ACCEL_COUNTS, **solver.IF_LAUNCHES}
 
 
 def _eager(fn):
@@ -3139,18 +3368,8 @@ def _hold_graphed(out, where, res, graphs, eager, blocks=None):
 
 
 def _kernel_launches(fn) -> int:
-    """Kernels the card ran for ``fn()`` (torch.profiler, CUDA activity)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="nmf_trace_") as d:
-        trace = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(trace)
-        events = json.loads(pathlib.Path(trace).read_text())["traceEvents"]
-    return sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+    """Kernels the card ran for ``fn()`` (torch.profiler, ``_kernel_names``)."""
+    return len(_kernel_names(fn))
 
 
 def phase_families(card, out):
@@ -3422,6 +3641,30 @@ def phase_transform_oocore(card, out, seed, w):
               f"memory) {fill_s / secs} of the wall, median "
               f"{1e3 * statistics.median(host['_fill'])} ms a block; peak device memory "
               f"{peak / 1e9} GB; in-memory {TR_OOC_ITERS / mem_secs} it/s incl. its upload")
+    # the stop on the device: f32, a check every 10 of at most 200, at a
+    # threshold from the in-memory solve's history; every block's call
+    # replays the stream's graphs under the stop and reads the card once
+    cfg = nt.SolveConfig(max_iter=200, check_every=10, backend="pallas")
+    mem_hist = nt.solve_h_only(x, w, h0, cfg, device=DEVICE).cost_history.cpu().numpy()
+    thresh, _ = _thresh_at(mem_hist, 8)
+    cfg = dataclasses.replace(cfg, thresh=thresh)
+    where = "transform_out_of_core stop"
+    run = lambda: nt.transform_out_of_core(x, w, h0=h0, config=cfg, device=DEVICE)  # noqa: E731
+    (res, secs), graphs = _graph_run(lambda: _timed(run))
+    eager, e_secs = _timed(lambda: _eager(run))
+    for f in ("h", "block_costs", "iterations", "converged"):
+        check(getattr(res, f).tobytes() == getattr(eager, f).tobytes(),
+              f"{where}: {f} of the graphed transform differs from the eager loop's")
+    check(graphs["reads"] == blocks and graphs["replays"] > 0 and res.converged.any()
+          and graphs["skipped"] <= 2 * blocks,
+          f"{where}: thresh {thresh}, iterations {res.iterations.tolist()}, graphs {graphs}: "
+          f"expected one host read a block ({blocks})")
+    out["graphs"][where] = graphs
+    results["stop"] = {"thresh": thresh, "iterations": res.iterations.tolist(),
+                       "graphs": graphs, "seconds": secs, "eager_seconds": e_secs}
+    print(f"[{card}] {where}: thresh {thresh}, blocks stopped at {res.iterations.tolist()} "
+          f"iterations on the device, graphs {graphs}; the eager loop's bits ({secs} s graphed, "
+          f"{e_secs} s eager)")
     out["transform"]["oocore"] = results
 
 
@@ -4568,7 +4811,7 @@ def phase_selection_plain(card, out, seed):
     acfg = dataclasses.replace(mcfg, accelerate=True)
     ares, a_secs, _, _, a_graphs = _batch_graphed(
         out, "tiled accelerated", lambda: nt.solve_sparse_tiled_batched(
-            xs_t, ws_t, hs_t, acfg, device="cuda"), _launches(), reads=None)
+            xs_t, ws_t, hs_t, acfg, device="cuda"), _launches(), reads=1)
     out["selection"]["tiled"] = {"seconds": secs, "max_cost_rel": worst, "graphs": graphs,
                                  "accelerated_seconds": a_secs, "accelerated_graphs": a_graphs}
     print(f"[{card}] solve_sparse_tiled_batched {tb} x 4096^2 K=128, occupancy {occ}, "
@@ -4590,9 +4833,10 @@ def phase_selection_plain(card, out, seed):
         out, "thresh", lambda: nt.solve_batched(xs_s, ws_s, hs_s, scfg, device="cuda"), reads=None)
     its = res.iterations.tolist()
     want = _launches(update_h=max(its), update_w=max(its), kl_cost=max(its) // 10)
-    check({k: launches[k] for k in want} == want and graphs["reads"] == max(its) // 10,
-          f"thresh batch: launches {launches}, graphs {graphs}: expected {want} and one host "
-          f"read a check ({max(its) // 10})")
+    check({k: launches[k] for k in want} == want and graphs["reads"] == 1
+          and graphs["skipped"] <= 2,
+          f"thresh batch: launches {launches}, graphs {graphs}: expected {want}, one host read "
+          "(at the end) and at most two blocks skipped after the last member stopped")
     out["launches"]["selection thresh"] = launches
     for i in range(STOP_MEMBERS):
         one = nt.solve(xs_s[i], ws_s[i], hs_s[i], scfg, device="cuda")
@@ -4601,14 +4845,14 @@ def phase_selection_plain(card, out, seed):
     check(len(set(its)) > 1, f"thresh batch: every member stopped at {its[0]}")
     out["selection"]["thresh"] = {"iterations": its, "seconds": secs, "graphs": graphs}
     print(f"[{card}] thresh={STOP_THRESH} batch of {STOP_MEMBERS}: members stopped at {its}, each "
-          f"its own solve's count and bits ({secs} s); graphed, one host read a check, the eager "
-          f"loop's bits (graphs {graphs})")
+          f"its own solve's count and bits ({secs} s); graphed, the stop on the device, one host "
+          f"read, the eager loop's bits (graphs {graphs})")
 
 
 def phase_selection_accel(card, out, x):
     """(g) the accelerated batch: R = 16 restarts that reject (a pinned
     momentum, a check every iteration) through K1-K3 on the graphed route,
-    the redo replayed, one host read a block, its launches, the eager
+    the redo replayed under the device's reject flag, one host read, its launches, the eager
     loop's bits (momentum among them), every member its 2-D accelerated
     solve's bits; then the member-axis extrapolation kernel."""
     import nmf_tpu_torch as nt
@@ -4623,7 +4867,7 @@ def phase_selection_accel(card, out, x):
     sel, secs, launches, _, graphs = _batch_graphed(
         out, "accelerated rejecting",
         lambda: nt.solve_restarts(x, rank=k, n_restarts=r, config=cfg, seed=0, device="cuda"),
-        reads=iters)
+        reads=1)
     res = sel.results
     redos = graphs["redo_eager"] + graphs["redo_replays"]
     want = _launches(update_h=iters + redos, update_w=iters + redos, kl_cost=1 + iters + redos)
@@ -4644,7 +4888,7 @@ def phase_selection_accel(card, out, x):
                                        "momentum": res.momentum.tolist()}
     print(f"[{card}] accelerated restarts R={r} at {m}x{n} K={k}, {iters} blocks of one "
           f"iteration, pinned momentum: {redos} blocks redone (replayed {graphs['redo_replays']}), "
-          f"launches {launches}, {graphs['reads']} host reads; the eager loop's bits, members 0 "
+          f"launches {launches}, {graphs['reads']} host read; the eager loop's bits, members 0 "
           f"and {r - 1} their 2-D accelerated solves' ({secs} s)")
     _check_member_extrapolation(card, out)
 
@@ -4998,8 +5242,24 @@ def phase_utils_tiled_ckpt(card, tmp, out):
           f"(eager {k5e})")
     check(_state_bits_equal(graphed, eager) and _state_bits_equal(graphed, full),
           f"checkpointed tiled every {seg}: not the eager run's or the straight solve's bits")
+    # the stop on the device in segments: a threshold from the straight
+    # solve's history; each segment run reads the card once
+    thresh, stop_at = _thresh_at(straight.cost_history.cpu().numpy(), STOP_AT)
+    s_cfg = dataclasses.replace(cfg, thresh=thresh)
+    runs = {}
+    for tag, run in (("graphed", lambda f: f()), ("eager", _eager)):
+        runs[tag] = _graph_run(lambda: run(lambda: solve_with_checkpoints(
+            tx, w, h, s_cfg, f"{d}_stop_{tag}", every=seg, device="cuda")))
+    (stopped, s_graphs), (s_eager, _) = runs["graphed"], runs["eager"]
+    check(_state_bits_equal(stopped, s_eager) and stopped.iteration == s_eager.iteration
+          == 25 * stop_at and s_graphs["reads"] == -(-25 * stop_at // seg)
+          and s_graphs["skipped"] <= 2,
+          f"checkpointed tiled every {seg}, thresh {thresh}: stopped at {stopped.iteration} "
+          f"(eager {s_eager.iteration}, expected {25 * stop_at}), graphs {s_graphs}")
+    print(f"[{card}] checkpointed tiled every {seg}, thresh {thresh}: stopped on the device at "
+          f"{stopped.iteration}, graphs {s_graphs}; the eager run's bits")
     out["utils"]["tiled_ckpt"] = {"seconds": secs, "k5": k5, "resumed_s": s2,
-                                  "graphs_every_half": graphs}
+                                  "graphs_every_half": graphs, "stop_graphs": s_graphs}
     print(f"[{card}] solve_with_checkpoints tile-sparse {m}^2 K={k}, every {UTILS_CKPT_EVERY}: {secs} s, "
           f"K5 {k5}; the straight solve's bits; stopped at {TS_ITERS // 2} and resumed ({s2} s): "
           f"bit-equal; every {seg}: graphed (graphs {graphs}), the eager run's bits and K5 "
@@ -6666,6 +6926,24 @@ def _serve_bench(card, out, tmp, seed):
               and r.block_costs.tobytes() == eager.block_costs.tobytes(),
               "19a fresh stream: H or block costs differ from the eager loop's")
     out["graphs"]["serve fresh stream"] = [g_first, g_second]
+    # a served program that stops on the device: its cached graphs replay
+    # under the stop, one host read a block's call
+    stop_path = os.path.join(tmp, "serve_stop.nmfz")
+    nt.save_transform(stop_path, w, nb, nt.SolveConfig(max_iter=200, check_every=10,
+                                                       thresh=1e-3))
+    stopping = nt.load_transform(stop_path)
+    stopping(x[:, :nb])
+    got, g_stop = _graph_run(lambda: stopping(x))
+    eager = _eager(lambda: stopping(x))
+    check(got.h.tobytes() == eager.h.tobytes()
+          and got.block_costs.tobytes() == eager.block_costs.tobytes()
+          and np.array_equal(got.block_iterations, eager.block_iterations)
+          and g_stop["reads"] == blocks and g_stop["replays"] > 0,
+          f"19a stop: graphs {g_stop}, iterations {got.block_iterations}: expected the eager "
+          f"loop's bits and one host read a block ({blocks})")
+    out["graphs"]["serve stop"] = g_stop
+    print(f"[{card}] 19a a served program at thresh 1e-3: blocks ran {got.block_iterations} "
+          f"iterations, graphs {g_stop}; the eager loop's bits")
     print(f"[{card}] 19a a fresh stream of {blocks} blocks: graphs {g_first}, then {g_second}; "
           "both calls bit-equal to the eager loop")
     held = _hold_served("19a auto against jnp", res["auto float32"], res["jnp float32"])
@@ -7446,7 +7724,7 @@ def main(argv=None) -> int:
 
     out = {
         "kernels": {name: {"max_abs_err": 0.0, "modes": {}, "flagship": {}, "long_walks": {}}
-                    for name, _, _ in (*KERNELS, EXTRAP_KERNEL)},
+                    for name, _, _ in (*KERNELS, EXTRAP_KERNEL, IF_KERNEL)},
         "launches": {}, "cli": {}, "flagship": {}, "tiled": {}, "oocore": {}, "accel": {},
         "families": {}, "transform": {}, "models": {}, "selection": {}, "utils": {},
         "sparse": {}, "backend": {}, "mesh": {}, "serving": {}, "examples": {}, "graphs": {},
@@ -7591,6 +7869,23 @@ def main(argv=None) -> int:
         "selection_launches": {run[10:]: counts["extrapolate"]
                                for run, counts in out["launches"].items()
                                if run.startswith("selection ") and "extrapolate" in counts},
+    })
+    name, replaces, source = IF_KERNEL
+    st = out["kernels"][name]
+    kernels.append({
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "replaces_pallas_call": False,
+        "launches": out["launches"]["stop reference"][name],
+        "max_abs_err": st["max_abs_err"],
+        "ms": st["ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"],
+        "library_ms": None,
+        "timed": st["timed"],
     })
     print(f"[{card}] oocore summary: {json.dumps(out['oocore'])}")
     print(f"[{card}] accel summary: {json.dumps(out['accel'])}")

@@ -3,7 +3,9 @@
 ``nvcc`` compiles each source (``fused_mu.cu``: K1/K2's 2-D calls and K3;
 ``fused_mu_batched.cu``: K1/K2 over a member axis, both through
 ``fused_mu.cuh``; ``tile_sparse.cu``: K5; ``extrapolate.cu``: the
-accelerated loop's extrapolation; all but the last include ``pass1.cuh``, K1/K2's
+accelerated loop's extrapolation; ``graph_if.cu``: a captured graph under
+an IF conditional node, the loops' stop and accept test on the device;
+all but the last two include ``pass1.cuh``, K1/K2's
 pass 1 for a dense walk or a sweep plan's and K3's cost walk, built from the
 tensor-core pieces of ``mma_tile.cuh``, the SIMT f32-GEMM pieces of
 ``simt_tile.cuh`` and ``mu_tile.cuh``) into an object,
@@ -30,7 +32,7 @@ __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
 _PKG = pathlib.Path(__file__).resolve().parents[2]   # nmf_tpu_torch/
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "fused_mu.cu", _CSRC / "fused_mu_batched.cu", _CSRC / "tile_sparse.cu",
-            _CSRC / "extrapolate.cu")
+            _CSRC / "extrapolate.cu", _CSRC / "graph_if.cu")
 _HEADERS = (_CSRC / "mu_tile.cuh", _CSRC / "mma_tile.cuh", _CSRC / "simt_tile.cuh",
             _CSRC / "pass1.cuh", _CSRC / "fused_mu.cuh")
 _LIB_NAME = "libnmf_kernels.so"
@@ -91,6 +93,12 @@ _SIGNATURES = {
     # next0, prev0, ex0, n0, next1, prev1, ex1, n1, momentum; eps;
     # state_bf16, device; stream
     "nmf_extrapolate": ([_P] * 3 + [_I] + [_P] * 3 + [_I] + [_P, _I, _F, _I, _I, _P], _I),
+    # body graph, pred, device, exec out, graph out: "IF *pred: body"
+    "nmf_if_graph": ([_P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_P)], _I),
+    # exec, stream
+    "nmf_graph_launch": ([_P, _P], _I),
+    # exec, graph
+    "nmf_if_graph_destroy": ([_P, _P], _I),
 }
 
 

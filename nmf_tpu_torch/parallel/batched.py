@@ -13,11 +13,11 @@ each member stops changing at its own check (a finished member's W and H
 are held by ``torch.where`` under a device mask while the others run on),
 and ``iterations``, ``num_checks``, ``converged``, ``cost`` and
 ``cost_history`` come back per member; the stop test runs on the device
-and the host reads one scalar a check, whether any member runs on.  With
-``thresh == 0`` nothing is read back until the end, and every member runs
-exactly ``max_iter`` iterations.  ``accelerate`` decides acceptance per
-member; a block any member rejects is redone plain for all members and
-kept for the rejecting ones, as the vmapped ``lax.cond`` selects.
+(the eager loop reads one scalar a check, whether any member runs on).
+With ``thresh == 0`` nothing is read back, and every member runs exactly
+``max_iter`` iterations.  ``accelerate`` decides acceptance per member; a
+block any member rejects is redone plain for all members and kept for the
+rejecting ones, as the vmapped ``lax.cond`` selects.
 
 On the card, ``jit(vmap(run_checked_loop))``'s one program becomes CUDA
 graphs over the member axis (:class:`_BatchGraph`, :class:`_BatchAccelGraph`,
@@ -25,12 +25,15 @@ on ``models/solver.py``'s ``_BlockGraph`` and ``_AccelGraph``): a call's
 full check blocks after the first replay a step's graph and the close's,
 where ``solver.MIN_REPLAYS`` blocks replay and B x M x N x K (the
 tile-sparse batch: B x T x bm x bn x K over its padded tile count T) is
-below ``solver.GRAPH_MAX_WORK``.  Under ``accelerate`` each member's momentum,
-the accept test, the grow or shrink and the kept carry stay on the device
-(the extrapolation kernel takes a ``[B]`` momentum), the host reads one
-2-vector a block and replays the redo only on a reject.  The eager loop
-(the CPU, ``solver.eager_loop()``, below the rule) gives the same bits;
-its accelerated form reads the B costs a block.
+below ``solver.GRAPH_MAX_WORK``.  Under ``thresh > 0`` the blocks replay
+under a CUDA IF conditional node on whether any member runs on (the
+vmapped ``while_loop``'s cond), so the host reads the card once, at the
+end.  Under ``accelerate`` each member's momentum, the accept test, the
+grow or shrink and the kept carry stay on the device (the extrapolation
+kernel takes a ``[B]`` momentum), and the redo replays under an IF node on
+whether any member rejected; the host reads the card once, at the end.
+The eager loop (the CPU, ``solver.eager_loop()``, below the rule) gives
+the same bits; its accelerated form reads the B costs a block.
 
 ``backend="auto"`` and ``"autotune"`` resolve by the card's rule for a
 member axis (:func:`nmf_tpu_torch.utils.autotune.rule_pick` with
@@ -232,25 +235,32 @@ def member_close(g, x, w, h, w0, h0, cost_fn, need_cost: bool, thresh: float):
 
 
 def _member_result(w, h, g, it: int, check_every: int, checked: bool, momentum,
-                   copy: bool = False) -> SolveResult:
-    """The result from the device bookkeeping ``g`` after ``it`` iterations:
+                   copy: bool = False, read=None) -> SolveResult:
+    """The result from the device bookkeeping ``g`` after ``it`` iterations
+    of a loop that ran ``it // check_every`` full blocks or a ragged tail:
     where every block ``checked``, a member that stopped at check c ran
     ``min(c * check_every, it)`` iterations; else every member ran ``it``.
-    ``copy`` (``g`` a graph's): nothing returned aliases its buffers."""
-    checks = g.checks
-    iters = (checks * check_every).clamp_max_(it) if checked else torch.full_like(checks, it)
+    ``read`` is the host's read of each member's checks and stop (None:
+    under ``thresh == 0`` the host knows them, every member running every
+    check).  ``copy`` (``g`` a graph's): nothing returned aliases its
+    buffers."""
+    b = g.checks.shape[0]
+    if read is None:
+        blocks = -(-it // check_every) if checked else 0
+        checks, done = np.full(b, blocks, np.int64), np.zeros(b, bool)
+    else:
+        checks, done = np.asarray(read[:b], np.int64), np.asarray(read[b:2 * b], bool)
+    iters = np.minimum(checks * check_every, it) if checked else np.full(b, it, np.int64)
     if copy:
         w, h = w.clone(), h.clone()
-    return SolveResult(
-        w=w,
-        h=h,
-        iterations=iters.to(torch.int32).cpu(),
-        cost=g.cost.clone() if copy else g.cost,
-        cost_history=g.hist.clone() if copy else g.hist,
-        num_checks=checks.to(torch.int32).cpu(),
-        converged=g.done.cpu(),
-        momentum=momentum,
-    )
+    return _result(w, h, iters, g.cost.clone() if copy else g.cost,
+                   g.hist.clone() if copy else g.hist, checks, done, momentum)
+
+
+def _member_read(g, *more) -> list:
+    """The host's one read of each member's checks and stop (and
+    ``more``)."""
+    return solver._host_read(torch.cat((g.checks, g.done.long(), *more)))
 
 
 def _graphed(w: torch.Tensor, h: torch.Tensor, n_full: int, work=None) -> bool:
@@ -269,35 +279,48 @@ class _BatchGraph(solver._BlockGraph):
     (the stacked step, ``chunk`` replays) and a close of
     :func:`member_close` on the graph's own buffers: W and H, the
     block-start stacks ``w0``/``h0`` (under ``thresh > 0``) and the member
-    bookkeeping (:func:`_member_state`).  The host reads nothing with
-    ``thresh == 0``, and one scalar a check under ``thresh > 0``, whether
-    any member runs on."""
+    bookkeeping (:func:`_member_state`).  Under ``thresh > 0`` the loop
+    stops on the device, as the vmapped ``while_loop``'s cond: the close
+    sets ``running`` to whether any member runs on, and the blocks replay
+    under an IF node on it; the host reads the card once, at the end."""
 
     def __init__(self, x, w, h, n_slots: int, step_fn, cost_fn, chunk: int, need_cost: bool,
                  thresh: float):
-        super().__init__(x, w, h, n_slots, step_fn, cost_fn, chunk, need_cost, own_x=False)
+        super().__init__(x, w, h, n_slots, step_fn, cost_fn, chunk, need_cost, own_x=False,
+                         stop=thresh)
         _member_state(self, w.shape[0], n_slots, w.device)
-        self.thresh = thresh
         self.starts = (torch.empty_like(w), torch.empty_like(h)) if thresh > 0.0 else ()
 
     def state(self):
         return (self.w, self.h, *self.starts, self.cost, self.hist, self.idx, self.active,
-                self.checks, self.done)
+                self.checks, self.done, self.running)
 
     def load(self, x, w, h) -> None:
         self.x = x
         for buf, t in zip((self.w, self.h) + self.starts, (w, h, w, h)):
             buf.copy_(t)
         _reset_members(self)
+        self._new_call()
 
     def _close(self) -> None:
         w, h = member_close(self, self.x, self.w, self.h, *(self.starts or (None, None)),
-                            self.cost_fn, self.need_cost, self.thresh)
+                            self.cost_fn, self.need_cost, self.stop)
         for buf, t in zip(self.starts, (w, h)):
             buf.copy_(t)
         for buf, t in zip((self.w, self.h), (w, h)):
             if t is not buf:
                 buf.copy_(t)
+        if self.stop:
+            self.running.copy_(self.active.any())
+
+    def end(self, max_iter: int):
+        """The call's one read of the device (each member's checks and
+        stop), its replays settled: (the loop's iterations, the read)."""
+        read = _member_read(self)
+        checks = max(read[:self.checks.shape[0]])   # the last block ran for a running member
+        its = min(checks * self.chunk, max_iter)
+        self._settle("block", checks, its)
+        return its, read
 
 
 def run_batched_loop(x, w, h, config: SolveConfig, step_fn, cost_fn,
@@ -315,11 +338,17 @@ def run_batched_loop(x, w, h, config: SolveConfig, step_fn, cost_fn,
     thresh = float(config.thresh)
     need_cost = config.track_cost or thresh > 0.0
     n_slots = max(config.num_checks, 1)
+    nan = torch.full((b,), float("nan"), dtype=_F32, device=dev)
     runner = None
     if _graphed(w, h, max_iter // check_every, work):
         runner = g = _BatchGraph(x, w, h, n_slots, step_fn, cost_fn, check_every, need_cost,
                                  thresh)
         runner.load(x, w, h)
+        if thresh > 0.0:
+            solver._enqueue_blocks(runner, max_iter, check_every, stop=True)
+            its, read = runner.end(max_iter)
+            return _member_result(runner.w, runner.h, runner, its, check_every, True, nan,
+                                  copy=True, read=read)
     else:
         g = types.SimpleNamespace()
         _member_state(g, b, n_slots, dev)
@@ -327,7 +356,7 @@ def run_batched_loop(x, w, h, config: SolveConfig, step_fn, cost_fn,
     while it < max_iter and running:
         chunk = min(check_every, max_iter - it)
         if runner is not None and chunk == check_every:
-            runner.block()
+            runner.block(chunk)
             w, h = runner.w, runner.h
         else:
             w0, h0 = w, h
@@ -336,15 +365,15 @@ def run_batched_loop(x, w, h, config: SolveConfig, step_fn, cost_fn,
             w, h = member_close(g, x, w, h, w0, h0, cost_fn, need_cost, thresh)
         it += chunk
         if thresh > 0.0:
-            # the one host read a check: whether any member runs on
-            any_active = g.active.any()
-            running = bool(solver._host_read(any_active) if runner else any_active)
-    nan = torch.full((b,), float("nan"), dtype=_F32, device=dev)
-    return _member_result(w, h, g, it, check_every, need_cost, nan, copy=runner is not None)
+            # the eager loop's one host read a check: whether any member runs on
+            running = bool(solver._host_read(g.active.any()))
+    read = _member_read(g) if thresh > 0.0 else None
+    return _member_result(w, h, g, it, check_every, need_cost, nan, copy=runner is not None,
+                          read=read)
 
 
 class _BatchAccelGraph(solver._AccelGraph):
-    """The accelerated batched loop's full check blocks over static state,
+    """The accelerated batched loop's check blocks over static state,
     ``_AccelGraph``'s parts over a member axis: each member's momentum in
     ``m`` ``[B]`` (one launch of the extrapolation kernel for both factors
     of all members), the bookkeeping of :func:`_member_state`, and the
@@ -354,15 +383,15 @@ class _BatchAccelGraph(solver._AccelGraph):
       costs, the accept test ``c <= cost`` per running member (NaN
       rejects), the accepting members' momentum grown and their check
       closed; a rejecting member's W and H back to the block start, a
-      stopped member's whole state held;
-    * ``"redo"`` on a reject only: the plain step from there for all
-      members, kept for the rejecting ones (the vmapped ``lax.cond``'s
-      select), and :meth:`_redo_close`: their costs, closes, momentum
-      shrunk and carry restarted at the redo's iterate.
+      stopped member's whole state held; ``reject`` set where any running
+      member rejected, ``running`` where any member runs on;
+    * ``"redo"`` under an IF node on ``reject``: the plain step from there
+      for all members, kept for the rejecting ones (the vmapped
+      ``lax.cond``'s select), and :meth:`_redo_close`: their costs,
+      closes, momentum shrunk and carry restarted at the redo's iterate.
 
-    The host reads ``flags`` (no member rejected, any member runs on) once
-    a block, and once more after a redo under ``thresh > 0``.  The values
-    are :func:`_run_batched_accel`'s eager loop's, bit for bit."""
+    The host reads nothing until the call ends.  The values are
+    :func:`_run_batched_accel`'s eager loop's, bit for bit."""
 
     def __init__(self, x, w, h, n_slots: int, step_fn, cost_fn, chunk: int,
                  config: SolveConfig):
@@ -372,13 +401,11 @@ class _BatchAccelGraph(solver._AccelGraph):
         self.we0, self.he0 = torch.empty_like(w), torch.empty_like(h)
         self.m = torch.empty((b,), dtype=_F32, device=dev)
         self.rej = torch.empty((b,), dtype=torch.bool, device=dev)
-        self.flags = torch.empty((2,), dtype=_F32, device=dev)
-        self.thresh = float(config.thresh)
 
     def state(self):
         return (self.w, self.h, self.we, self.he, self.w0, self.h0, self.we0, self.he0, self.m,
-                self.rej, self.flags, self.cost, self.hist, self.idx, self.active, self.checks,
-                self.done)
+                self.rej, self.reject, self.running, self.redos, self.redo_add, self.cost,
+                self.hist, self.idx, self.active, self.checks, self.done)
 
     def load(self, x, w, h, m0: float) -> None:
         """A call's X and start: W and H into every stack, the seed costs
@@ -391,6 +418,7 @@ class _BatchAccelGraph(solver._AccelGraph):
         _reset_members(self)
         self.cost.copy_(self.cost_fn(self.x, self.w, self.h).to(_F32))
         self.m.fill_(m0)
+        self._new_call()
 
     def _accel_close(self) -> None:
         c1 = self.cost_fn(self.x, self.w, self.h).to(_F32)
@@ -398,8 +426,9 @@ class _BatchAccelGraph(solver._AccelGraph):
         accept = c1 <= self.cost             # false for NaN
         ok, rej = accept & run, ~accept & run
         self.rej.copy_(rej)
+        self.reject.copy_(rej.any())
         self.m.copy_(torch.where(ok, torch.minimum(self.m * self.grow, self.m_max), self.m))
-        _commit(self, ok, c1, self.idx, self.thresh)
+        _commit(self, ok, c1, self.idx, self.stop)
         self.idx.add_(1)
         for t, t0, ex, ex0 in ((self.w, self.w0, self.we, self.we0),
                                (self.h, self.h0, self.he, self.he0)):
@@ -407,40 +436,51 @@ class _BatchAccelGraph(solver._AccelGraph):
             t0.copy_(t)
             ex.copy_(_hold(run, ex, ex0))
             ex0.copy_(ex)
-        self.flags.copy_(torch.stack((~rej.any(), self.active.any())).to(_F32))
+        self.running.copy_(self.active.any())
 
     def _redo_close(self) -> None:
         c2 = self.cost_fn(self.x, self.w, self.h).to(_F32)
         rej = self.rej
         self.m.copy_(torch.where(rej, self.m * self.shrink, self.m))
-        _commit(self, rej, c2, self.idx - 1, self.thresh)
+        _commit(self, rej, c2, self.idx - 1, self.stop)
         for t, t0, ex, ex0 in ((self.w, self.w0, self.we, self.we0),
                                (self.h, self.h0, self.he, self.he0)):
             t.copy_(_hold(rej, t, t0))
             t0.copy_(t)
             ex.copy_(_hold(rej, t, ex))
             ex0.copy_(ex)
-        self.flags.copy_(torch.stack((torch.zeros((), dtype=torch.bool, device=rej.device),
-                                      self.active.any())).to(_F32))
+        self.running.copy_(self.active.any())
+        self.redos.add_(self.redo_add)
+        self.reject.fill_(False)
+
+    def end(self, max_iter: int):
+        """The call's one read of the device (each member's checks and
+        stop, the redos), its replays settled: (the loop's iterations,
+        the read)."""
+        read = _member_read(self, self.redos)
+        b = self.checks.shape[0]
+        checks, (redos, redo_steps) = max(read[:b]), read[2 * b:]
+        its = min(checks * self.chunk, max_iter)
+        if self.stop:
+            self._settle("accel", checks, its)
+        self._launched("redo", redo_steps, redos)
+        solver.ACCEL_COUNTS["redo_replays"] += redos
+        return its, read
 
 
 def _run_batched_accel_graphed(runner: _BatchAccelGraph, x, w, h,
                                config: SolveConfig) -> SolveResult:
     """:func:`_run_batched_accel` on the card through a
-    :class:`_BatchAccelGraph`: the same start, decisions and bits, with one
-    host read a check block (two on a rejected block under ``thresh >
-    0``).  Nothing returned aliases a buffer of the runner."""
+    :class:`_BatchAccelGraph`: the same start, decisions and bits, the
+    blocks enqueued with no read of the card (the stop's under
+    ``thresh > 0``), and one read at the end.  Nothing returned aliases a
+    buffer of the runner."""
     max_iter, check_every = int(config.max_iter), int(config.check_every)
-    thresh = float(config.thresh)
     runner.load(x, w, h, float(np.float32(config.accel_momentum)))
-    it, running = 0, True
-    while it < max_iter and running:
-        chunk = min(check_every, max_iter - it)
-        read = runner.run_block(chunk, read_redo=thresh > 0.0)
-        it += chunk
-        running = thresh == 0.0 or bool(read[1])
-    return _member_result(runner.w, runner.h, runner, it, check_every, True, runner.m.clone(),
-                          copy=True)
+    solver._enqueue_blocks(runner, max_iter, check_every, stop=config.thresh > 0.0)
+    its, read = runner.end(max_iter)
+    return _member_result(runner.w, runner.h, runner, its, check_every, True, runner.m.clone(),
+                          copy=True, read=read)
 
 
 def _extrapolate_members(new, old, m: np.ndarray, eps: float) -> torch.Tensor:
@@ -509,6 +549,7 @@ def _run_batched_accel(x, w, h, config: SolveConfig, step_fn, cost_fn,
             accept = c <= cost          # NaN rejects
         reject = ~accept & active
         if reject.any():                # redo the block plain; keep it where rejected
+            solver.ACCEL_COUNTS["redo_eager"] += 1
             w2, h2 = w0, h0
             for _ in range(chunk):
                 w2, h2 = step_fn(w2, h2, x)

@@ -11,6 +11,7 @@
     python3 probe_timings.py batched                   # the batched loop's graphs
     python3 probe_timings.py tiled                     # the tile-sparse loops' graphs
     python3 probe_timings.py stream                    # the streamed transform's and online graphs
+    python3 probe_timings.py stop                      # the stop and the accept test on the device
 
 ``sweep-per``: K5 (both targets) at ``chip_smoke.TS_MAIN``, the 8192^2
 K=128 tile-sparse problem, in float32, bfloat16, float32_fast and with
@@ -127,6 +128,26 @@ of audio (``chip_smoke.OOC_SHAPE``, 1025 x 619,264, K=32, f32 X made on
 the card from seed 0), at its default blocks of 65,408 columns and at
 narrow blocks of 2048.  One JSON line a case; no gate (``chip_smoke.py``
 phases 12b, 13f and 13g hold the bits).
+
+``stop``: the loops that decide on the device (the stop under ``thresh >
+0`` and the accelerated redo under CUDA IF conditional nodes,
+``solver._CudaGraphs.when``) against the eager loop, in turns as
+``batched`` (three pairs after a warm run of each, each graphed run with
+its graph counts: its host reads, blocks skipped after the stop, waits on
+a block's event; one profiled run of each for the device's busy share),
+and one audit run of each counting every read of the card by the host
+(``aten._local_scalar_dense`` on a CUDA tensor, and every blocking copy
+from the card to the host: a ``TorchDispatchMode``, untimed): the reference solve
+(the seed-0 fixtures, 4096 x 350, K=128, K1-K3) at ``thresh=1e-4``, a check
+every 25; the accelerated reference at ``thresh == 0`` (200 iterations) and
+at ``thresh=1e-4``; ``chip_smoke.py``'s ``thresh`` batch (8 members of 512 x
+1024, K=32, X uniform noise raised to powers 0.5 to 4.0 drawn from seed 0,
+``max_iter=1000``, a check every 10, ``thresh=1e-4``, K1-K3); and the
+accelerated restarts R = 16 at 512 x 1024, K=32 (``chip_smoke.SEL_SHAPE``,
+100 iterations, a check every 25, ``auto``).  Rates in iterations of the
+loop a second (a batch: problem-iterations, members x the loop's).  One
+JSON line a case; no gate (``chip_smoke.py`` phases 6, 10a and 14 hold the
+bits).
 
 Times are ``chip_smoke.event_ms`` (CUDA events, median of 10 samples of 10
 calls); every line names the card and its power limit.
@@ -705,6 +726,95 @@ def stream(cs, card):
     tmp.cleanup()
 
 
+class _ReadAudit:
+    """Counts the host's reads of the card inside it: a scalar read of a
+    CUDA tensor, and every blocking copy of one to the host."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        import torch
+
+        audit = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                src = args[0] if args and isinstance(args[0], torch.Tensor) else None
+                if src is not None and src.is_cuda:
+                    if func is torch.ops.aten._local_scalar_dense.default:
+                        audit.reads += 1
+                    elif func is torch.ops.aten._to_copy.default and \
+                            torch.device(kwargs.get("device") or src.device).type == "cpu":
+                        audit.reads += 1
+                elif func is torch.ops.aten.copy_.default and args[0].device.type == "cpu" \
+                        and args[1].is_cuda and not (args[2:] or [kwargs.get("non_blocking")])[0]:
+                    audit.reads += 1         # a blocking copy (the pace's pinned copies are not)
+                return func(*args, **kwargs)
+
+        self.reads, self.mode = 0, _Mode()
+
+    def count(self, fn) -> int:
+        self.reads = 0
+        with self.mode:
+            fn()
+        return self.reads
+
+
+def stop(cs, card):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import solver
+
+    fx = nt.fixtures
+    x, w, h = (fx.as_seen_by_solver(a) for a in fx.reference_fixture_arrays().values())
+    ref = dataclasses.replace(nt.reference_preset(), backend="pallas")
+    sm, sn, sk = cs.SEL_SHAPE
+    rng = np.random.RandomState(0)
+    powers = np.linspace(0.5, 4.0, cs.STOP_MEMBERS)
+    xs = np.stack([np.maximum(rng.rand(sm, sn).astype(np.float32) ** np.float32(pw),
+                              np.float32(cs.EPS)) for pw in powers])
+    ws = rng.rand(cs.STOP_MEMBERS, sm, sk).astype(np.float32)
+    hs = rng.rand(cs.STOP_MEMBERS, sk, sn).astype(np.float32)
+    xr = cs._sel_problem(0)
+    restarts = nt.SolveConfig(max_iter=cs.SEL_ITERS, check_every=25, accelerate=True)
+    # name -> (members, the call)
+    cases = {
+        "reference thresh": (1, lambda: nt.solve(x, w, h, dataclasses.replace(
+            ref, max_iter=5000, thresh=1e-4), device="cuda")),
+        "accelerated thresh 0": (1, lambda: nt.solve(x, w, h, dataclasses.replace(
+            ref, accelerate=True), device="cuda")),
+        "accelerated thresh": (1, lambda: nt.solve(x, w, h, dataclasses.replace(
+            ref, max_iter=5000, thresh=1e-4, accelerate=True), device="cuda")),
+        "thresh batch": (cs.STOP_MEMBERS, lambda: nt.solve_batched(xs, ws, hs, nt.SolveConfig(
+            max_iter=1000, check_every=10, thresh=cs.STOP_THRESH, backend="pallas"),
+            device="cuda")),
+        "accelerated restarts": (cs.SEL_RESTARTS, lambda: nt.solve_restarts(
+            xr, rank=sk, n_restarts=cs.SEL_RESTARTS, config=restarts, seed=0,
+            device="cuda").results),
+    }
+    audit = _ReadAudit()
+    tmp = tempfile.TemporaryDirectory(prefix="nmf_probe_")
+    for name, (members, fn) in cases.items():
+        res = fn()
+        its = int(res.iterations.max())
+        reads = {"graphed": audit.count(fn)}
+        with solver.eager_loop():
+            reads["eager"] = audit.count(fn)
+        rec = _turns(cs, tmp.name, fn, members * its, pairs=3)
+        med = {tag: float(np.median(v["per_s"])) for tag, v in rec.items()}
+        print(json.dumps({"card": card, "probe": "stop", "case": name, "members": members,
+                          "iterations": res.iterations.tolist(),
+                          "checks": res.num_checks.tolist(), "host_reads": reads,
+                          "graphed_over_eager": med["graphed"] / med["eager"], **rec}),
+              flush=True)
+    tmp.cleanup()
+
+
 def sass(cs, card, root):
     import collections
     import re
@@ -742,7 +852,7 @@ def sass(cs, card, root):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("sweep-per", "flagship", "kl", "tiled-mesh", "sass",
-                                      "graph", "accel", "batched", "tiled", "stream"))
+                                      "graph", "accel", "batched", "tiled", "stream", "stop"))
     ap.add_argument("--root", type=pathlib.Path, default=HERE,
                     help="tree whose nmf_tpu_torch to time (default: this one)")
     args = ap.parse_args(argv)
@@ -774,6 +884,8 @@ def main(argv=None) -> int:
         tiled(cs, card)
     elif args.probe == "stream":
         stream(cs, card)
+    elif args.probe == "stop":
+        stop(cs, card)
     else:
         kl(cs, card, args.root)
     return 0

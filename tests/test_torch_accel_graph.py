@@ -4,19 +4,19 @@ On the card the full check blocks of the accelerated loop run as replays
 of captured CUDA graphs over static state (``run_checked_loop``,
 ``_AccelGraph``), the counterpart of the JAX loop's one-program body: the
 momentum, the accept test, the momentum's grow or shrink, the history
-write and the relative change stay on the device, the host reads one
-small vector a block (``solver._host_read``) and replays the redo's graphs
-only on a reject.  The CPU has no graphs, so these tests hold the route
+write, the relative change and the stop stay on the device, and the redo
+replays under an IF node on the device's reject flag, so the host reads
+the card once, at the end (``solver._host_read``).  The CPU has no graphs,
+so these tests hold the route
 with tests/test_torch_graph.py's stand-in for the graph API
 (``_CpuGraphs``: a capture runs the part's Python and undoes its work, a
 replay reruns it on the capture's buffers and takes back what its wrappers
-counted):
+counted; under a flag a replay runs only where the flag holds):
 
-(a) a graphed accelerated solve makes no host read but the counted one a
-    block (``ACCEL_COUNTS["reads"]``), on accept and on reject alike
-    (one more after a rejected block's redo only where the stop test or
-    live metrics need its cost), under a dispatch mode that raises on
-    ``aten._local_scalar_dense``;
+(a) a graphed accelerated solve makes no host read but the counted one
+    at its end (``ACCEL_COUNTS["reads"]``), on accept and on reject alike,
+    at ``thresh > 0`` too (and one a check more for live metrics), under
+    a dispatch mode that raises on ``aten._local_scalar_dense``;
 (b) on each route, the graphed loop gives the eager ``_run_accel_loop``'s
     bits (w, h, cost, history, counts, momentum; the carry of a segment;
     the live triples) and launches, the extrapolation kernel's aside (the
@@ -113,12 +113,14 @@ def counted(monkeypatch):
         counting(name, key, tfm.LAUNCHES)
     counting("extrapolate_into", "extrapolate", tfm.EXTRAP_LAUNCHES)
     tfm.reset_counts()
+    yield
+    tfm.reset_counts()        # no count outlives the test
 
 
 def _counts():
-    """The graph counts without the capture's seconds, and the accelerated
-    loop's own."""
-    return ({k: v for k, v in ps.GRAPH_COUNTS.items() if k != "capture_s"},
+    """The block counts (the stop's skipped blocks and waits:
+    tests/test_torch_stop_graph.py), and the accelerated loop's own."""
+    return ({k: ps.GRAPH_COUNTS[k] for k in ("warm_ups", "captures", "replays")},
             dict(ps.ACCEL_COUNTS))
 
 
@@ -209,39 +211,42 @@ def _held_to_jax(rp, rj, bar):
 def test_a_one_host_read_a_block(problem, route, captured):
     """The whole graphed solve runs under ``_NoHostRead``: its parts, the
     seed cost, the load and the result read nothing back but the one
-    counted read a block."""
+    counted read at the end (the accelerated part and the redo captured
+    after the first block)."""
     ours = _routes(problem)[route][0]
     with _NoHostRead():
         res = ours()
     blocks = ITERS // EVERY
-    assert _counts() == ({"warm_ups": 1, "captures": 1, "replays": blocks - 1},
-                         {"redo_eager": 0, "redo_replays": 0, "reads": blocks})
+    assert _counts() == ({"warm_ups": 1, "captures": 2, "replays": blocks - 1},
+                         {"redo_eager": 0, "redo_replays": 0, "reads": 1})
     assert int(res.num_checks) == blocks
 
 
 @pytest.mark.parametrize("when", ["warm-up", "replayed"])
 def test_a_a_rejected_block_reads_once_too(problem, when, captured):
-    """A reject makes no second read at ``thresh == 0`` without live
-    metrics: the first block's (``initial_cost=0``, its redo eager) and a
-    replayed block's (the rejecting run, its redo replayed)."""
+    """A reject makes no read at ``thresh == 0`` without live metrics: the
+    first block's (``initial_cost=0``) and a replayed block's (the
+    rejecting run), each redo replayed under the device's reject flag;
+    the one read is the call's end."""
     if when == "warm-up":
         x, w, h, _ = problem
         fn = lambda: pt.solve(x, w, h, _pcfg(_accel()), initial_cost=0.0,  # noqa: E731
                               device="cpu")
-        blocks, redo = ITERS // EVERY, {"redo_eager": 1, "redo_replays": 0}
+        redo = {"redo_eager": 0, "redo_replays": 1}
     else:
         x, w, h = _wide()
         fn = lambda: pt.solve(x, w, h, pt.SolveConfig(**REJECTING), device="cpu")  # noqa: E731
-        blocks, redo = REJECTING["max_iter"], {"redo_eager": 0, "redo_replays": 5}
+        redo = {"redo_eager": 0, "redo_replays": 5}
     with _NoHostRead():
         fn()
-    assert _counts()[1] == {**redo, "reads": blocks}
+    assert _counts()[1] == {**redo, "reads": 1}
 
 
 @pytest.mark.parametrize("config", ["thresh", "live"])
 def test_a_a_rejected_block_reads_its_redo_for_the_stop_or_live(problem, config, captured):
-    """Where the stop test or live metrics need the redo's cost, a rejected
-    block reads twice: once for the accept, once after its redo."""
+    """A rejected block reads nothing more where the stop test or live
+    metrics need its redo's cost: the stop is the device's (one read, at
+    the end), and live metrics read each check once after its redo."""
     x, w, h, _ = problem
     kw = dict(thresh=1e-9) if config == "thresh" else dict(live_metrics=True)
     pmetrics.set_live_handler(lambda *e: None)
@@ -250,8 +255,8 @@ def test_a_a_rejected_block_reads_its_redo_for_the_stop_or_live(problem, config,
             res = pt.solve(x, w, h, _pcfg(_accel(**kw)), initial_cost=0.0, device="cpu")
     finally:
         pmetrics.set_live_handler(None)
-    assert _counts()[1] == {"redo_eager": 1, "redo_replays": 0,
-                            "reads": int(res.num_checks) + 1}
+    reads = 1 + (int(res.num_checks) if config == "live" else 0)
+    assert _counts()[1] == {"redo_eager": 0, "redo_replays": 1, "reads": reads}
 
 
 # ---------------------------------------------------------------- (b)
@@ -268,7 +273,7 @@ def test_b_graphed_route_gives_the_eager_bits_and_jax(problem, route, captured, 
     assert got_counts["EXTRAP_LAUNCHES", "extrapolate"] == ITERS
     _same_bits(got, eager, route)
     blocks = ITERS // EVERY
-    assert _counts()[0] == {"warm_ups": 1, "captures": 1, "replays": blocks - 1}
+    assert _counts()[0] == {"warm_ups": 1, "captures": 2, "replays": blocks - 1}
     assert got.w_ex is None and got.h_ex is None
     _held_to_jax(got, theirs(), bar)
 
@@ -299,9 +304,10 @@ CASES = {
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_b_cases_give_the_eager_bits_and_jax(problem, case, captured, counted):
-    """A run that rejects mid-run (its redo's graphs replay), a first block
-    rejected (its redo eager), a stop at ``thresh``, and a tail block
-    (eager): each the eager loop's bits and launches, and JAX's values."""
+    """A run that rejects mid-run, a first block rejected (every redo
+    replayed under the reject flag), a stop at ``thresh`` (on the device),
+    and a tail block (replayed): each the eager loop's bits and launches,
+    its redos the eager loop's, and JAX's values."""
     which, fields, kw, bar = CASES[case]
     x, w, h = _wide() if which == "wide" else problem[:3]
     jcfg = jt.SolveConfig(**fields)
@@ -313,14 +319,10 @@ def test_b_cases_give_the_eager_bits_and_jax(problem, case, captured, counted):
     assert _k123(tfm.count_snapshot()) == _k123(counts)
     _same_bits(got, eager, case)
     rejects = _rejects(counts, got, jcfg.check_every, seeded="initial_cost" not in kw)
-    full = int(got.iterations) // jcfg.check_every
-    want = {"rejecting": (5, {"redo_eager": 0, "redo_replays": 5}),
-            "initial_cost=0": (1, {"redo_eager": 1, "redo_replays": 0})}.get(
-        case, (0, {"redo_eager": 0, "redo_replays": 0}))
-    assert rejects == want[0]
-    assert graphs[0] == {"warm_ups": 1, "captures": 1 + int(case == "rejecting"),
-                         "replays": full - 1}
-    assert {k: v for k, v in graphs[1].items() if k != "reads"} == want[1]
+    want = {"rejecting": 5, "initial_cost=0": 1}.get(case, 0)
+    assert rejects == want and ps.ACCEL_COUNTS["redo_eager"] == want
+    assert graphs[0] == {"warm_ups": 1, "captures": 2, "replays": int(got.num_checks) - 1}
+    assert graphs[1] == {"redo_eager": 0, "redo_replays": want, "reads": 1}
     assert _monotone(_trim(got))
     rj = jt.solve(x, w, h, jcfg, **kw)
     _assert_match(rj, got, entrywise=bar != "long")
@@ -436,6 +438,7 @@ def test_b_replays_count_the_captured_launches(captured):
     assert rejects > 0 and _counts()[1]["redo_replays"] > 0
     assert counts == {**eager_counts, ("EXTRAP_LAUNCHES", "extrapolate"): 57}
     assert counts["LAUNCHES", "kl_cost"] == 1 + 6 + rejects
+    tfm.reset_counts()        # no count outlives the test
 
 
 # ---------------------------------------------------------------- (c)
@@ -464,7 +467,7 @@ def test_c_no_graph_where_the_loop_stays_eager(problem, captured, monkeypatch):
     monkeypatch.setattr(ps, "GRAPH_MAX_WORK", M * N * K + 1)
     pt.solve(x, w, h, dataclasses.replace(few, max_iter=EVERY * (ps.MIN_REPLAYS + 1)),
              device="cpu")
-    assert _counts()[0] == {"warm_ups": 1, "captures": 1, "replays": ps.MIN_REPLAYS}
+    assert _counts()[0] == {"warm_ups": 1, "captures": 2, "replays": ps.MIN_REPLAYS}
 
 
 def test_c_graphs_live_for_their_call_only(problem, captured):
@@ -472,7 +475,7 @@ def test_c_graphs_live_for_their_call_only(problem, captured):
     and nothing it returned aliases one."""
     x, w, h, _ = problem
     res = pt.solve(x, w, h, _pcfg(_accel()), device="cpu")
-    assert len(_Replayed.MADE) == 2 and not _Replayed.alive()
+    assert len(_Replayed.MADE) == 4 and not _Replayed.alive()    # a step and a close a part
     again = pt.solve(x, w, h, _pcfg(_accel()), device="cpu")
     _same_bits(res, again)
 
@@ -488,8 +491,8 @@ def test_c_served_accelerated_blocks_reuse_the_cached_program(problem, captured,
     t = pt.load_transform(path, device="cpu")
     calls = [t(x[:, :40], seed=3), t(x, seed=1)]
     # three blocks of three checks: all but the first one's first replayed
-    assert _counts()[0] == {"warm_ups": 1, "captures": 1, "replays": 3 * 3 - 1}
-    assert len(_Replayed.alive()) == 2
+    assert _counts()[0] == {"warm_ups": 1, "captures": 2, "replays": 3 * 3 - 1}
+    assert len(_Replayed.alive()) == 4
     with ps.eager_loop():
         eager = [t(x[:, :40], seed=3), t(x, seed=1)]
     for g, e in zip(calls, eager):

@@ -408,7 +408,7 @@ def test_kernel_digest_compare_allows_named_kernels(tmp_path, other, rc):
 
 
 @pytest.mark.parametrize("argv", [["sweep-per"], ["flagship"], ["kl"], ["graph"], ["accel"],
-                                  ["batched"], ["tiled"], ["stream"]])
+                                  ["batched"], ["tiled"], ["stream"], ["stop"]])
 def test_probe_timings_needs_a_card(argv, capsys):
     """probe_timings.py measures on the card only: without one it exits 1
     and prints no result."""

@@ -75,7 +75,10 @@ class _NoHostRead(TorchDispatchMode):
 class _Replayed:
     """A captured graph's stand-in for CPU tensors.  It holds its block
     graph weakly, as a CUDA graph holds nothing of Python; every one made
-    is listed in ``MADE`` (weakly) to tell which still live."""
+    is listed in ``MADE`` (weakly) to tell which still live.  Under a flag
+    (``_CpuGraphs.when``) a replay runs only where the flag holds, read as
+    a CPU tensor's memory (no dispatch: ``_NoHostRead`` lets it pass, as
+    the card's IF node reads its flag with no host read)."""
 
     MADE = []
 
@@ -89,6 +92,7 @@ class _Replayed:
         for t, s in zip(state, saved):
             t.copy_(s)
         self.ptrs = [t.data_ptr() for t in state]
+        self.pred = None
         _Replayed.MADE.append(weakref.ref(self))
 
     def pool(self):
@@ -96,6 +100,8 @@ class _Replayed:
 
     def replay(self):
         # replay: the work runs on the capture's buffers, no wrapper counts
+        if self.pred is not None and not self.pred.tolist():
+            return
         before = tfm.count_snapshot()
         self.fn()()
         tfm.add_counts(tfm.count_delta(before), -1)
@@ -119,8 +125,26 @@ class _CpuGraphs:
     def run_on(self, stream, fn):
         fn()
 
-    def capture(self, stream, fn, pool=None):
-        return _Replayed(fn)
+    def capture(self, stream, fn, pool=None, pred=None):
+        graph = _Replayed(fn)
+        return graph if pred is None else self.when(pred, graph)
+
+    def when(self, pred, graph):
+        graph.pred = pred
+        return graph
+
+    def event(self):
+        return _Event()
+
+
+class _Event:
+    """A CPU event: the work before it has run when it is recorded."""
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
 
 
 @pytest.fixture
@@ -133,8 +157,9 @@ def captured(monkeypatch):
 
 
 def _counts():
-    """The graph counts, without the capture's seconds."""
-    return {k: v for k, v in ps.GRAPH_COUNTS.items() if k != "capture_s"}
+    """The block counts (the stop's skipped blocks and waits:
+    tests/test_torch_stop_graph.py)."""
+    return {k: ps.GRAPH_COUNTS[k] for k in ("warm_ups", "captures", "replays")}
 
 
 def _same_bits(a, b, where=""):
@@ -270,7 +295,10 @@ def test_b_captured_loop_gives_the_eager_bits_and_jax(problem, route, case, capt
     _same_bits(got, eager, f"{route} {case}")
     assert tfm.count_snapshot() == eager_counts
     full = int(eager.iterations) // jcfg.check_every
-    assert _counts() == {"warm_ups": 1, "captures": int(full > 1), "replays": full - 1}
+    # a stop at the first check still enqueues, and so captures, the blocks
+    # after it, which run nothing (tests/test_torch_stop_graph.py)
+    assert _counts() == {"warm_ups": 1, "captures": int(full > 1 or case == "seeded"),
+                         "replays": full - 1}
     _held_to_jax(got, theirs())
     if case == "seeded":
         assert bool(got.converged) and int(got.iterations) == 10
@@ -333,6 +361,7 @@ def test_b_replays_count_the_captured_launches(captured):
     with ps.eager_loop():
         eager = ps.run_checked_loop(x, w, h, cfg, step, cost)
     _same_bits(res, eager)
+    tfm.reset_counts()        # no count outlives the test
 
 
 def test_b_no_graph_where_the_loop_stays_eager(problem, captured, monkeypatch):

@@ -84,8 +84,9 @@ class _Pinned(_Replayed):
 
 
 class _StreamCpuGraphs(_CpuGraphs):
-    def capture(self, stream, fn, pool=None):
-        return _Pinned(fn)
+    def capture(self, stream, fn, pool=None, pred=None):
+        graph = _Pinned(fn)
+        return graph if pred is None else self.when(pred, graph)
 
 
 @pytest.fixture
@@ -107,10 +108,12 @@ def counted(monkeypatch):
             return _original(*args, **kw)
         monkeypatch.setattr(tfm, name, call)
     tfm.reset_counts()
+    yield
+    tfm.reset_counts()        # no count outlives the test
 
 
 def _counts():
-    return {k: v for k, v in ps.GRAPH_COUNTS.items() if k != "capture_s"}
+    return {k: ps.GRAPH_COUNTS[k] for k in ("warm_ups", "captures", "replays")}
 
 
 @pytest.fixture(scope="module")
@@ -500,10 +503,10 @@ def test_d_a_calls_graphs_share_one_memory_pool(problem, monkeypatch):
             return self
 
     class _Api(_StreamCpuGraphs):
-        def capture(self, stream, fn, pool=None):
+        def capture(self, stream, fn, pool=None, pred=None):
             graph = _Pooled(fn)
             pools.append((pool, graph))
-            return graph
+            return graph if pred is None else self.when(pred, graph)
 
     monkeypatch.setattr(ps, "_GRAPHS", _Api())
     _Replayed.MADE = []
